@@ -1,0 +1,17 @@
+"""sgl_kernel_npu_tpu_torch — the PyTorch/CUDA port of sgl_kernel_npu_tpu for
+one NVIDIA H100 (sm_90a).
+
+The JAX package beside it is the reference. Each TPU kernel of a ported path
+is a hand-written CUDA kernel (csrc/, built by _build.py with nvcc on first
+use) with a plain PyTorch version in the same module: a CUDA tensor launches
+the kernel, a CPU tensor runs the plain version.
+
+Subpackages:
+  ops       W8A8 GEMM, int8 quant, RoPE, token-major paged attention + append
+  models    Llama-3-class W8A8 decoder on token-major int8 pages
+  runtime   ctypes bindings of the native scheduler (csrc/runtime.cpp)
+  serving   LlamaEngine: continuous batching, radix prefix reuse
+  utils     env flags, device selection, H100 roofline numbers
+"""
+
+__version__ = "0.1.0"

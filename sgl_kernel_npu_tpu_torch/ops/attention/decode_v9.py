@@ -1,0 +1,134 @@
+"""Paged GQA decode over the read-only int8 token-major cache, the current
+token folded in (counterpart of the JAX package's ops/attention/decode_v9.py::
+decode_gqa_pallas_v9_int8_defer and decode_v6.py::_finalize_rows).
+
+On a CUDA tensor the wrapper launches kernel C (csrc/decode_tm.cu); on a CPU
+tensor it runs the plain version, `decode_gqa_v9_int8_defer_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+from ...utils import use_kernel
+
+# q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached, block_table,
+# out, B, hkv, G, P, ps, MP, li, sm_scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
+_MAXG = 8
+_NEG_INF = -1e30
+CHUNK_PAGES = 4     # pages per online-softmax step of the TPU kernel (SKT_V9_CP)
+
+
+def _gather_layer(cache, scales, layer_idx, block_table, hkv):
+    """Pages of `block_table` [B, MP] at layer layer_idx, head-major:
+    values [B, hkv, MP*ps, D] and scales [B, hkv, MP*ps]."""
+    _, num_pages, rows, d = cache.shape
+    ps = rows // hkv
+    b, mp = block_table.shape
+    bt = block_table.long()
+    vals = cache[layer_idx].view(num_pages, ps, hkv, d)[bt]
+    vals = vals.permute(0, 3, 1, 2, 4).reshape(b, hkv, mp * ps, d)
+    sc = scales[layer_idx].view(num_pages, ps, hkv)[bt]
+    sc = sc.permute(0, 3, 1, 2).reshape(b, hkv, mp * ps)
+    return vals, sc
+
+
+def _flash_update(state, sc, pv_scale, vals):
+    """One online-softmax step as the TPU kernels take it: f32 scores `sc`
+    [..., R, n] (masked entries at _NEG_INF), new running max, probabilities
+    times `pv_scale` rounded to bf16, then P.V against f32 `vals` [..., n, D]."""
+    m, l_sum, acc = state
+    mh = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - mh)
+    p = torch.exp(sc - mh)
+    l_sum = l_sum * alpha + p.sum(dim=-1, keepdim=True)
+    pv = (p * pv_scale).to(torch.bfloat16).float()
+    acc = acc * alpha + torch.matmul(pv, vals)
+    return mh, l_sum, acc
+
+
+def decode_gqa_v9_int8_defer_ref(q, k_new, v_new, k_cache, v_cache, k_scales,
+                                 v_scales, cached_lens, block_table, sm_scale,
+                                 page_size, layer_idx=0):
+    """Plain version of kernel C (same contract as decode_gqa_v9_int8_defer).
+
+    It takes the TPU kernel's steps in its order, so it rounds where that
+    kernel rounds: chunks of CHUNK_PAGES pages with an online softmax (k
+    scale on the scores, v scale on the probabilities, their product rounded
+    to bf16 before it meets V), then the current token folded in with its
+    probability rounded to bf16 (decode_v6.py::_finalize_rows)."""
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    g = hq // hkv
+    kc, ks = _gather_layer(k_cache, k_scales, layer_idx, block_table, hkv)
+    vc, vs = _gather_layer(v_cache, v_scales, layer_idx, block_table, hkv)
+    mp = block_table.shape[1]
+    if kc.shape[2] != mp * page_size:
+        raise ValueError(f"page_size {page_size} does not match the cache")
+    cached = cached_lens.clamp_min(0)[:, None, None, None]
+    qf = q.float().reshape(b, hkv, g, d)
+    state = (torch.full((b, hkv, g, 1), _NEG_INF, device=q.device),
+             torch.zeros((b, hkv, g, 1), device=q.device),
+             torch.zeros((b, hkv, g, d), device=q.device))
+    span = min(mp, CHUNK_PAGES) * page_size
+    for lo in range(0, mp * page_size, span):
+        hi = min(lo + span, mp * page_size)
+        valid = torch.arange(lo, hi, device=q.device) < cached   # [B,1,1,n]
+        sc = torch.matmul(qf, kc[:, :, lo:hi].float().transpose(-1, -2))
+        sc = sc * ks[:, :, None, lo:hi] * sm_scale
+        sc = torch.where(valid, sc, _NEG_INF)
+        vsr = torch.where(valid, vs[:, :, None, lo:hi], 0.0)
+        state = _flash_update(state, sc, vsr, vc[:, :, lo:hi].float())
+    # the current token: one column per head, scale 1
+    s_cur = (qf * k_new.float()[:, :, None, :]).sum(-1, keepdim=True) * sm_scale
+    _, l_sum, acc = _flash_update(state, s_cur, 1.0,
+                                  v_new.float()[:, :, None, :])
+    out = acc / l_sum.clamp_min(1e-37)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_gqa_v9_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
+                             v_scales, cached_lens, block_table, sm_scale,
+                             page_size, layer_idx=0):
+    """Token-major int8 deferred-write decode.
+
+    q [B, Hq, D] bf16; k_new/v_new [B, Hkv, D] bf16 (the current token, not
+    yet in the cache); caches int8 [L, P, ps*Hkv, D] + scales f32
+    [L, P, 1, ps*Hkv], layer picked by layer_idx; cached_lens [B] tokens
+    already cached; block_table [B, MP] page ids. Returns [B, Hq, D]."""
+    if not use_kernel(q):
+        return decode_gqa_v9_int8_defer_ref(
+            q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached_lens,
+            block_table, sm_scale, page_size, layer_idx)
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    l, num_pages, rows, _ = k_cache.shape
+    g = hq // hkv
+    if (d != 128 or hq % hkv or g > _MAXG or rows != page_size * hkv
+            or not 0 <= layer_idx < l):
+        raise ValueError(f"decode_tm: q {tuple(q.shape)}, kv heads {hkv}, cache "
+                         f"{tuple(k_cache.shape)}: needs D == 128, G <= {_MAXG}")
+    dev = q.device
+    k_new = k_new.to(q.dtype).contiguous()
+    v_new = v_new.to(q.dtype).contiguous()
+    cached = cached_lens.to(torch.int32).contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    ops = (q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached, bt)
+    _build.check_operands("decode_tm", dev, *ops)
+    if q.dtype != torch.bfloat16 or k_cache.dtype != torch.int8 \
+            or k_scales.dtype != torch.float32:
+        raise TypeError("decode_tm: bf16 q, int8 cache, f32 scales expected")
+    out = torch.empty_like(q)
+    fn = _build.launcher("decode_tm", _ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = fn(*(t.data_ptr() for t in ops), out.data_ptr(), b, hkv, g,
+              num_pages, page_size, bt.shape[1], layer_idx, float(sm_scale),
+              stream)
+    _build.check("decode_tm", code)
+    _build.launches["decode_tm"] += 1
+    return out
