@@ -3,19 +3,31 @@
 
   python3 chip_smoke.py
 
-1. Builds the four CUDA kernels (one nvcc each, all at once) and the native
-   scheduler (g++) from the checkout into build/torch_kernels/.
-2. Holds every kernel against its plain PyTorch version on the card at the
-   shapes of the Llama-3-8B serving path: the W8A8 GEMM and the KV append must
-   agree exactly, the two attention kernels within 2e-2 max-abs. Times the
-   kernel, the plain version and a PyTorch library yardstick with CUDA events,
-   and computes each kernel's bound from its bytes and operations.
-3. Serves 8 greedy requests through LlamaEngine at Llama-3-8B width (int8 KV,
+Builds the CUDA kernels (one nvcc per source, all at once) and the native
+scheduler (g++) from the checkout into build/torch_kernels/, then:
+
+1. Holds every kernel against its plain PyTorch version on the card at the
+   shapes of its main path: the serving path's A-D (Llama-3-8B, decode batch
+   8) and the bench path's K1-K4 (batch 128, 512-token tm2 pages, pretiled
+   banks), plus the two contracts that reuse A and C (matmul.py:71 at L = 1,
+   decode_v8.py:388). The GEMMs and appends must agree exactly, the fused
+   RMSNorm-quant GEMM within 4 quant flips with >= 99% of rows exact, the
+   attention kernels within 2e-2 max-abs. Times the kernel, the plain
+   version and a PyTorch library yardstick with CUDA events, and computes
+   each kernel's bound from its bytes and operations.
+2. Serves 8 greedy requests through LlamaEngine at Llama-3-8B width (int8 KV,
    seed-0 random weights) with all launch counters set to 0 first, checks
-   the tokens, the logits, the scheduler and that every kernel launched, and
+   the tokens, the logits, the scheduler and that kernels A-D launched, and
    serves them again to check that the tokens repeat.
-4. Runs a small configuration through prefill and decode on the card and on
-   the CPU (plain versions) and compares logits and caches.
+3. Runs two small configurations on the card and on the CPU (plain
+   versions) and compares logits and caches: prefill and decode on tm pages,
+   and decode on tm2 pages with pretiled banks.
+4. Runs the decode path of `python bench.py` (tm2 pages, pretiled banks,
+   batch 128, context 256, 32 greedy steps per call) at Llama-3-8B width on
+   phase 2's weights with the counters set to 0 first: checks the logits,
+   the exact launches per step of K1-K4 (65, 64, 32, 1) and that a second
+   run from the same state repeats its tokens; prints ms per step, tok/s,
+   the share of bench.py's byte roofline, and a profiler split of a step.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -76,6 +88,24 @@ def _bound_ms(nbytes: float, ops: float, rate: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _int_mm_yardstick(torch, xq, w, xs, ws, m):
+    """torch._int_mm + the epilogue (rows padded to 32 below 17, as _int_mm
+    asks) on a [K, N] weight; returns (fn, output of the first call)."""
+    k = xq.shape[1]
+    xp = xq if m > 16 else torch.cat([xq, xq.new_zeros((32 - m, k))])
+    sc = xs if m > 16 else torch.cat([xs, xs.new_ones((32 - m, 1))])
+
+    def library():
+        acc = torch._int_mm(xp, w)
+        return (acc.float() * sc * ws[None]).to(torch.bfloat16)
+    return library, library()[:m]
+
+
+def _calc_diff(a, b):
+    x, y = a.double().ravel(), b.double().ravel()
+    return 1 - 2 * float((x * y).sum()) / float((x * x).sum() + (y * y).sum())
+
+
 class _Launches:
     """Counts per kernel between construction and .delta()."""
 
@@ -115,14 +145,7 @@ def check_gemm(torch, mm, quant, cfg, rng):
             plain = _time_ms(lambda: mm.quant_matmul_int8_ref(xq, w[li], xs, ws[li]), 3, 1)
             lib = None
             try:
-                xp = xq if m > 16 else torch.cat([xq, xq.new_zeros((32 - m, k))])
-                wl = w[li]
-                sc = xs if m > 16 else torch.cat([xs, xs.new_ones((32 - m, 1))])
-
-                def library():
-                    acc = torch._int_mm(xp, wl)
-                    return (acc.float() * sc * ws[li][None]).to(torch.bfloat16)
-                got = library()[:m]
+                library, got = _int_mm_yardstick(torch, xq, w[li], xs, ws[li], m)
                 if not torch.equal(got, ref):
                     raise AssertionError("torch._int_mm + epilogue disagrees")
                 lib = _time_ms(library, 20)
@@ -173,8 +196,10 @@ def _block_tables(torch, rng, lens, mp, pages, ps):
     return bt
 
 
-def check_decode(torch, dv9, cfg, rng):
-    """Kernel C: 8 sequences, cached lengths 40..700 (page edges included)."""
+def check_decode(torch, dv9, dv8, cfg, rng):
+    """Kernel C: 8 sequences, cached lengths 40..700 (page edges included);
+    then the per-page contract of decode_v8.py:388 on the same inputs, which
+    launches kernel C too. Returns the rows of both."""
     b, hq, hkv, d, ps = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
     pages, mp, layers, li = 512, 64, 2, 1
     kc, vc, ks, vs = _tm_cache(torch, rng, layers, pages, ps, hkv, d)
@@ -222,8 +247,20 @@ def check_decode(torch, dv9, cfg, rng):
     print(f"  decode_tm B=8 cached={cached.tolist()}: max-abs {err:.3g}; kernel "
           f"{ms:.4f} ms, plain {plain:.3f} ms, SDPA {lib:.4f} ms (max-abs vs plain "
           f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+    row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+               max_abs_err=err)
+
+    out8 = dv8.decode_gqa_v8_int8_defer(*args, layer_idx=li)
+    ref8 = dv8.decode_gqa_v8_int8_defer_ref(*args, layer_idx=li)
+    torch.cuda.synchronize()
+    err8 = (out8.float() - ref8.float()).abs().max().item()
+    if not err8 <= ATTN_TOL:
+        raise AssertionError(f"decode_v8 contract (kernel C) max-abs {err8} > {ATTN_TOL}")
+    ms8 = _time_ms(lambda: dv8.decode_gqa_v8_int8_defer(*args, layer_idx=li), 50)
+    plain8 = _time_ms(lambda: dv8.decode_gqa_v8_int8_defer_ref(*args, layer_idx=li), 5)
+    print(f"  decode_v8 contract (kernel C vs the per-page plain version), same inputs: "
+          f"max-abs {err8:.3g}; kernel {ms8:.4f} ms, plain {plain8:.3f} ms")
+    return row, dict(row, ms=ms8, plain_ms=plain8, max_abs_err=err8)
 
 
 def check_prefill(torch, pp, cfg, rng):
@@ -323,6 +360,242 @@ def check_append(torch, dv8, cfg, rng):
     bound, by = _bound_ms(nbytes, 0.0, "bf16_flops")
     print(f"  append_tm L={layers} B={b} (1 padded): exact; kernel {ms:.4f} ms, plain "
           f"{plain:.3f} ms, index_copy_ x2 {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=0.0)
+
+
+def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
+    """Kernel K1 at the bench path's shapes (M = 128): wo and w2 on [L, NB,
+    K, 512] banks, lm_head on its [1, V/768, H, 768] bank; exact also at M =
+    1, 8 and 100."""
+    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = [("wo", cfg.q_size, h, 2, bn), ("w2", f, h, 2, bn), ("lm_head", h, v, 1, 768)]
+    rows, dev = [], "cuda"
+    for name, k, n, layers, pbn in shapes:
+        li = layers - 1
+        w = torch.randint(-127, 128, (layers, k, n), generator=rng, dtype=torch.int8,
+                          device=dev)
+        ws = torch.rand((layers, n), generator=rng, device=dev) * 1e-3
+        wt = mm.pretile_weight_bank(w, pbn)
+        for m in (128, 1, 8, 100):
+            x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
+            xq, xs = quant.per_token_quant_int8(x)
+            out = mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws)
+            ref = mm.quant_matmul_int8_stacked_tiled_ref(xq, wt, li, xs, ws)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                bad = (out != ref).sum().item()
+                raise AssertionError(f"w8a8_gemm_tiled {name} M={m}: {bad} elements differ")
+            if m != 128:
+                continue
+            ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws), 20)
+            plain = _time_ms(lambda: mm.quant_matmul_int8_stacked_tiled_ref(
+                xq, wt, li, xs, ws), 3, 1)
+            library, got = _int_mm_yardstick(torch, xq, w[li], xs, ws[li], m)
+            if not torch.equal(got, ref):
+                raise AssertionError("torch._int_mm + epilogue disagrees")
+            lib = _time_ms(library, 20)
+            nbytes = m * k + k * n + 4 * m + 4 * n + 2 * m * n
+            bound, by = _bound_ms(nbytes, 2.0 * m * n * k, "int8_ops")
+            rows.append(dict(name=name, m=m, ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by))
+            print(f"  w8a8_gemm_tiled {name:8s} M={m} K={k:5d} N={n:6d} bn={pbn}: exact; "
+                  f"kernel {ms:.4f} ms, plain {plain:.3f} ms, _int_mm {lib:.4f} ms, "
+                  f"bound {bound:.4f} ms ({by})")
+        del w, ws, wt
+    print("  w8a8_gemm_tiled exact also at M = 1, 8, 100 on all three banks")
+    return _sum_rows(rows)
+
+
+def _sum_rows(rows):
+    """One JSON row for a kernel timed at several shapes: the sums."""
+    def total(key):
+        vals = [r[key] for r in rows]
+        return None if any(v is None for v in vals) else sum(vals)
+    return dict(ms=total("ms"), plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+                bound_ms=total("bound_ms"),
+                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations", max_abs_err=max(r.get("max_abs_err", 0.0) for r in rows))
+
+
+def check_rmsq(torch, mm, rq, quant, cfg, rng, bn=512):
+    """Kernel K2 at the bench path's shapes (M = 128, pretiled 512-wide
+    banks): wqkv and w13, bf16 gamma, zero beta, bf16 out. Flip-aware:
+    every element within 4 quant flips of its row (max|w| * max w_scale *
+    max row scale each), and >= 99% of rows bit-exact."""
+    h, f, m = cfg.hidden_size, cfg.intermediate_size, 128
+    shapes = [("wqkv", h, cfg.q_size + 2 * cfg.kv_size), ("w13", h, 2 * f)]
+    rows, dev = [], "cuda"
+    for name, k, n in shapes:
+        w = torch.randint(-127, 128, (2, k, n), generator=rng, dtype=torch.int8, device=dev)
+        ws = torch.rand((2, n), generator=rng, device=dev) * 1e-3
+        wt = mm.pretile_weight_bank(w, bn)
+        x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
+        gamma = (1 + 0.1 * torch.randn((k,), generator=rng, device=dev)).to(torch.bfloat16)
+        beta = torch.zeros((k,), device=dev)
+        kw = dict(li=1, quant_mode="per_token", eps=cfg.rms_eps, out_dtype=torch.bfloat16)
+        out = rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw)
+        ref = rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, ws, **kw)
+        torch.cuda.synchronize()
+        _, scale = rq._row_stats(x, gamma, beta, True, cfg.rms_eps)
+        flip = float(w[1].abs().max()) * float(ws[1].max()) * float(scale.max())
+        a, b = out.double(), ref.double()
+        err = float((a - b).abs().max())
+        if not bool(((a - b).abs() <= 1e-3 * b.abs() + 4 * flip).all()):
+            raise AssertionError(f"rmsq_gemm {name}: max-abs {err} beyond 4 flips ({flip})")
+        exact = float(torch.isclose(a, b, rtol=1e-6, atol=1e-6).all(dim=-1).double().mean())
+        if exact < 0.99:
+            raise AssertionError(f"rmsq_gemm {name}: only {exact:.4f} of rows exact")
+        ms = _time_ms(lambda: rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw), 20)
+        plain = _time_ms(lambda: rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, ws, **kw), 3, 1)
+        # yardstick: the GEMM part alone, torch._int_mm on the plain quant
+        rstd, _ = rq._row_stats(x, gamma, beta, True, cfg.rms_eps)
+        xq = torch.round((x.float() * rstd * gamma.float()[None] + beta[None]) / scale) \
+            .clamp(-128, 127).to(torch.int8)
+        library, _ = _int_mm_yardstick(torch, xq, w[1], scale, ws[1], m)
+        lib = _time_ms(library, 20)
+        nbytes = 2 * m * k + k * n + 4 * n + 8 * k + 2 * m * n
+        bound, by = _bound_ms(nbytes, 2.0 * m * n * k, "int8_ops")
+        rows.append(dict(name=name, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                         bound_by=by, max_abs_err=err))
+        print(f"  rmsq_gemm {name:5s} M={m} K={k} N={n:6d} bn={bn}: {exact:.4f} of rows "
+              f"exact, max-abs {err:.3g} (one flip {flip:.3g}); kernel {ms:.4f} ms, plain "
+              f"{plain:.3f} ms, _int_mm (GEMM part only) {lib:.4f} ms, bound {bound:.4f} ms "
+              f"({by})")
+        del w, ws, wt
+    return _sum_rows(rows)
+
+
+def check_decode_tm2(torch, dv11, dv13, cfg, rng):
+    """Kernel K3 at the bench path's shape: 128 sequences, 8 kv heads of 4
+    query heads, D = 128, 512-token pages, 2 pages each, cached lengths over
+    0..1023 (0, 1, 511, 512 and 513 among them), through both names."""
+    b, hq, hkv, d, ps, mp, layers, li = 128, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim, 512, 2, 2, 1
+    pages = b * mp + 1
+    shape = (layers, pages, hkv, ps, d)
+    kc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+    vc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+    ks = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
+    vs = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
+    cached = torch.randint(0, mp * ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    cached[:5] = torch.tensor([0, 1, 511, 512, 513], dtype=torch.int32)
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    q = torch.randn((b, hq, d), generator=rng, device="cuda").to(torch.bfloat16)
+    kn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+    sm = d ** -0.5
+    args = (q, kn, vn, kc, vc, ks, vs, cached, bt, sm, ps)
+    ref = dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li)
+    err = 0.0
+    for fn in (dv13.decode_gqa_v13_int8_defer, dv11.decode_gqa_v11_int8_defer):
+        out = fn(*args, layer_idx=li)
+        torch.cuda.synchronize()
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+    if not err <= ATTN_TOL:
+        raise AssertionError(f"decode_tm2 max-abs {err} > {ATTN_TOL}")
+    ms = _time_ms(lambda: dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li), 50)
+    plain = _time_ms(lambda: dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li), 5)
+
+    # yardstick: SDPA over the dequantized, gathered cache plus the current token
+    n = mp * ps + 1
+    kd, ksd = dv11._gather_layer_tm2(kc, ks, li, bt)
+    vd, vsd = dv11._gather_layer_tm2(vc, vs, li, bt)
+    pad = torch.zeros((b, hkv, 1, d), dtype=torch.bfloat16, device="cuda")
+    kf = torch.cat([(kd.float() * ksd[..., None]).to(torch.bfloat16), pad], 2)
+    vf = torch.cat([(vd.float() * vsd[..., None]).to(torch.bfloat16), pad], 2)
+    idx = cached.long()
+    kf[torch.arange(b), :, idx] = kn
+    vf[torch.arange(b), :, idx] = vn
+    g = hq // hkv
+    kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    mask = (torch.arange(n, device="cuda")[None, :] <= cached[:, None])[:, None, None, :]
+    qs = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(qs, kf, vf, attn_mask=mask, scale=sm)[:, :, 0].float()
+               - ref.float()).abs().max().item()
+    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20)
+    del kf, vf
+
+    c = cached.double().sum().item()
+    nbytes = (c * hkv * (2 * d + 8) + 2 * (2 * b * hq * d) + 2 * (2 * b * hkv * d)
+              + 4 * b + 4 * b * mp)
+    bound, by = _bound_ms(nbytes, 4.0 * (c + b) * hq * d, "bf16_flops")
+    print(f"  decode_tm2 (v13 and v11) B={b} MP={mp} ps={ps} cached 0..{int(cached.max())} "
+          f"(sum {int(c)}): max-abs {err:.3g}; kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"SDPA {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+def check_append_tm2(torch, dv11, cfg, rng):
+    """Kernel K4 at the bench path's shape: 32 layers x 128 rows (one padded)
+    into 129 pages of 512 tokens."""
+    layers, b, hkv, d, ps = cfg.num_layers, 128, cfg.num_kv_heads, cfg.head_dim, 512
+    pages = b + 1
+    kq = torch.randint(-127, 128, (layers, b, hkv, d), generator=rng, dtype=torch.int8,
+                       device="cuda")
+    vq = torch.randint(-127, 128, (layers, b, hkv, d), generator=rng, dtype=torch.int8,
+                       device="cuda")
+    pg = (torch.randperm(pages - 1, generator=rng, device="cuda")[:b] + 1).to(torch.int32)
+    pg[-1] = pages                                    # a padded row: sentinel P
+    off = torch.randint(0, ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    shape = (layers, pages, hkv, ps, d)
+    kc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+    vc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+    kc2, vc2 = kc.clone(), vc.clone()
+    dv11.append_tm2_int8(kq, vq, kc, vc, pg, off)
+    dv11.append_tm2_int8_ref(kq, vq, kc2, vc2, pg, off)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+        raise AssertionError("append_tm2 differs from its plain version")
+    ms = _time_ms(lambda: dv11.append_tm2_int8(kq, vq, kc, vc, pg, off), 50)
+    plain = _time_ms(lambda: dv11.append_tm2_int8_ref(kq, vq, kc2, vc2, pg, off), 10)
+    live = pg < pages
+    idx = (pg[live].long(), off[live].long())
+    ksrc = kq[:, live].permute(1, 0, 2, 3).contiguous()
+    vsrc = vq[:, live].permute(1, 0, 2, 3).contiguous()
+    kv5, vv5 = kc2.permute(1, 3, 0, 2, 4), vc2.permute(1, 3, 0, 2, 4)
+
+    def library():
+        kv5.index_put_(idx, ksrc)
+        vv5.index_put_(idx, vsrc)
+    library()
+    if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+        raise AssertionError("index_put_ yardstick disagrees")
+    lib = _time_ms(library, 50)
+    nrow = int(live.sum())
+    bound, by = _bound_ms(2 * 2 * layers * nrow * hkv * d + 8 * b, 0.0, "bf16_flops")
+    print(f"  append_tm2 L={layers} B={b} (1 padded): exact; kernel {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, index_put_ x2 {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=0.0)
+
+
+def check_matmul_l1(torch, mm, quant, cfg, rng):
+    """The contract of matmul.py:71 (kernel A on a plain [K, N] weight, a
+    one-layer view): lm_head of the serving path at M = 8, exact."""
+    m, k, n = 8, cfg.hidden_size, cfg.vocab_size
+    w = torch.randint(-127, 128, (k, n), generator=rng, dtype=torch.int8, device="cuda")
+    ws = torch.rand((n,), generator=rng, device="cuda") * 1e-3
+    x = torch.randn((m, k), generator=rng, device="cuda").to(torch.bfloat16)
+    xq, xs = quant.per_token_quant_int8(x)
+    out = mm.quant_matmul_int8(xq, w, xs, ws)
+    ref = mm.quant_matmul_int8_ref(xq, w, xs, ws)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("quant_matmul_int8 (L = 1) differs from its plain version")
+    ms = _time_ms(lambda: mm.quant_matmul_int8(xq, w, xs, ws), 20)
+    plain = _time_ms(lambda: mm.quant_matmul_int8_ref(xq, w, xs, ws), 3, 1)
+    library, got = _int_mm_yardstick(torch, xq, w, xs, ws, m)
+    if not torch.equal(got, ref):
+        raise AssertionError("torch._int_mm + epilogue disagrees")
+    lib = _time_ms(library, 20)
+    bound, by = _bound_ms(m * k + k * n + 4 * m + 4 * n + 2 * m * n, 2.0 * m * n * k,
+                          "int8_ops")
+    print(f"  quant_matmul_int8 (kernel A, L = 1) lm_head M={m}: exact; kernel {ms:.4f} ms, "
+          f"plain {plain:.3f} ms, _int_mm {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                 max_abs_err=0.0)
 
@@ -485,8 +758,7 @@ def check_small_config(torch, llama):
     for a, ref in zip(results["cuda"][0], results["cpu"][0]):
         if not bool(torch.isfinite(a).all()) or a.shape != ref.shape:
             raise AssertionError("small-config logits are not finite or misshapen")
-        x, y = a.double().ravel(), ref.double().ravel()
-        diffs.append(1 - 2 * float((x * y).sum()) / float((x * x).sum() + (y * y).sum()))
+        diffs.append(_calc_diff(a, ref))
     if max(diffs) >= 8e-3:
         raise AssertionError(f"small-config logits calc_diff {diffs}")
     match = {}
@@ -500,6 +772,216 @@ def check_small_config(torch, llama):
     print(f"  small config (L=2, D=128, G=4, ps=16): logits calc_diff max "
           f"{max(diffs):.3g}; cache exact fraction per layer k {match['k']} "
           f"v {match['v']}")
+
+
+def check_small_tm2(torch, llama):
+    """Three decode steps of a small config on tm2 pages with pretiled
+    128-wide banks (D = 128, hkv = 8, G = 4, ps = 16, L = 2, B = 8, so K1-K4
+    all run), on the card and on the CPU (plain versions), from a cache
+    pre-filled with the same seeded rows at position ps - 2 (the steps cross
+    a page): logits calc_diff < 8e-3 at each step, layer-0 caches and scales
+    >= 99.9% exact with |diff| <= 1 (rounding-boundary flips)."""
+    cfg = llama.LlamaConfig(vocab_size=1024, hidden_size=512, num_layers=2,
+                            num_heads=32, num_kv_heads=8, head_dim=128,
+                            intermediate_size=1024, page_size=16,
+                            max_position=512, int8_kv=True)
+    rng = np.random.default_rng(11)
+    b, mp, ps, hkv, d = 8, 2, cfg.page_size, cfg.num_kv_heads, cfg.head_dim
+    pages = b * mp + 1
+    shape = (cfg.num_layers, pages, hkv, ps, d)
+    cache = {"k": rng.integers(-127, 128, shape, dtype=np.int8),
+             "v": rng.integers(-127, 128, shape, dtype=np.int8),
+             "ks": (rng.random(shape[:-1]) * 0.02 + 0.001).astype(np.float32),
+             "vs": (rng.random(shape[:-1]) * 0.02 + 0.001).astype(np.float32)}
+    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
+    steps, pos = [], np.full(b, ps - 2, np.int32)
+    for _ in range(3):
+        slots = (bt[np.arange(b), pos // ps] * ps + pos % ps).astype(np.int32)
+        steps.append((rng.integers(0, cfg.vocab_size, b).astype(np.int32), pos,
+                      pos + 1, bt, slots))
+        pos = pos + 1
+    cpu_params = llama.pretile_big_weights(llama.init_params(cfg, 5, "cpu"), block_n=128)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        params = _to_device(cpu_params, dev)
+        kv = {k: torch.from_numpy(a).to(dev) for k, a in cache.items()}
+        logits = []
+        for args in steps:
+            lg, kv = llama.decode_step_kv(params, cfg, kv, *(torch.from_numpy(np.array(a))
+                                                             .to(dev) for a in args))
+            logits.append(lg.float().cpu())
+        results[dev] = (logits, {k: v.cpu() for k, v in kv.items()})
+    diffs = []
+    for a, ref in zip(results["cuda"][0], results["cpu"][0]):
+        if not bool(torch.isfinite(a).all()) or a.shape != ref.shape:
+            raise AssertionError("small tm2 logits are not finite or misshapen")
+        diffs.append(_calc_diff(a, ref))
+    if max(diffs) >= 8e-3:
+        raise AssertionError(f"small tm2 logits calc_diff {diffs}")
+    match = {}
+    for k in ("k", "v", "ks", "vs"):
+        a, ref = results["cuda"][1][k], results["cpu"][1][k]
+        match[k] = [float((a[li] == ref[li]).float().mean()) for li in range(2)]
+        worst = (int((a[0].int() - ref[0].int()).abs().max()) if k in ("k", "v") else 0)
+        if match[k][0] < 0.999 or worst > 1:
+            raise AssertionError(f"small tm2 layer-0 {k}: {match[k][0]:.5f} exact, "
+                                 f"max |diff| {worst}")
+    print(f"  small tm2 config (L=2, D=128, hkv=8, G=4, ps=16, B=8, bn=128): logits "
+          f"calc_diff per step {[f'{x:.3g}' for x in diffs]}; exact fraction per layer "
+          + ", ".join(f"{k} {v}" for k, v in match.items()))
+
+
+# the kernels of phase 2's serving path
+SERVING_KERNELS = ("w8a8_gemm", "prefill_tm", "decode_tm", "append_tm")
+BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS = 128, 256, 32, 3
+# launches of one tm2 decode step at Llama-3-8B's 32 layers
+PER_STEP = {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64, "decode_tm2": 32, "append_tm2": 1}
+
+
+def run_bench_path(torch, llama, build, params, gpu):
+    """What `python bench.py` runs with no flags (bench.py:110-227), on the
+    port: int8 Llama-3-8B (W8A8, int8 KV), batch 128, context 256, 512-token
+    tm2 pages, pretiled banks, 32 greedy decode steps per call with argmax
+    feeding the next id, one warm call then 3 timed. `params` (seed 0) are
+    pretiled in place. The cache holds seeded random rows and scales where
+    bench.py leaves zeros (same shapes and bytes, so attention works on real
+    numbers). Returns the launch counts of the run."""
+    cfg = llama.LlamaConfig(int8_kv=True, page_size=512)
+    b, ctx, k_steps, reps = BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS
+    t0 = time.perf_counter()
+    llama.pretile_big_weights(params, block_n=512)
+    torch.cuda.synchronize()
+    print(f"  pretile_big_weights (bn 512, lm_head bn {params['lm_head']['q'].shape[-1]}) "
+          f"{time.perf_counter() - t0:.1f} s")
+    ps = cfg.page_size
+    total_new = k_steps * (1 + reps)
+    max_pages = -(-(ctx + total_new) // ps)
+    num_pages = b * max_pages + 1
+    kv = llama.init_kv_cache(cfg, num_pages, layout="tm2", device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for name in ("k", "v"):
+        kv[name].copy_(torch.randint(-127, 128, kv[name].shape, generator=gen,
+                                     dtype=torch.int8, device="cuda"))
+    for name in ("ks", "vs"):
+        kv[name].copy_(torch.rand(kv[name].shape, generator=gen, device="cuda") * 0.02
+                       + 0.001)
+    rng = np.random.default_rng(0)
+    bt = torch.from_numpy((rng.permutation(num_pages - 1)[: b * max_pages]
+                           .reshape(b, max_pages) + 1).astype(np.int32)).cuda()
+    pos0 = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+    ids0 = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).cuda()
+    rows = torch.arange(b, device="cuda")
+
+    def run_steps(kv, ids, pos):
+        toks, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+        for _ in range(k_steps):
+            slots = bt[rows, pos // ps] * ps + pos % ps
+            logits, kv = llama.decode_step_kv(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+            finite &= torch.isfinite(logits).all()
+            ids = torch.argmax(logits, -1).to(torch.int32)
+            toks.append(ids)
+            pos = pos + 1
+        return kv, ids, pos, torch.stack(toks), finite
+
+    build.reset_launches()
+    kv, ids, pos, _, finite = run_steps(kv, ids0, pos0)            # warm
+    torch.cuda.synchronize()
+    if not bool(finite):
+        raise AssertionError("bench path: logits are not finite")
+    snap = ({k: v.clone() for k, v in kv.items()}, ids.clone(), pos.clone())
+    times, first = [], None
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv, ids, pos, toks, finite = run_steps(kv, ids, pos)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / k_steps)
+        if not bool(finite):
+            raise AssertionError("bench path: logits are not finite")
+        first = toks if first is None else first
+    launches = dict(build.launches)
+    steps = k_steps * (1 + reps)
+    for name, n in launches.items():
+        want = PER_STEP.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"bench path: {name} launched {n} times in {steps} steps, "
+                                 f"not {want} ({PER_STEP.get(name, 0)} per step)")
+    # the same state again gives the same tokens
+    again = run_steps(*snap)[3]
+    if not torch.equal(again, first):
+        raise AssertionError("bench path: a second run from the same state gave other tokens")
+    dt = float(np.median(times))
+    tok_s = b / dt
+    h, f, l, v = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    qs, kvs = cfg.q_size, cfg.kv_size
+    weight_bytes = l * (h * (qs + 2 * kvs) + qs * h + h * 2 * f + f * h) + h * v
+    ctx_mean = ctx + total_new // 2
+    kv_bytes_per_tok = l * 2 * ctx_mean * cfg.num_kv_heads * cfg.head_dim
+    from sgl_kernel_npu_tpu_torch.utils import H100
+    roofline = H100.hbm_bytes_per_s / (weight_bytes / b + kv_bytes_per_tok)
+    print(f"  bench path B={b} ctx={ctx} ps={ps} tm2, {k_steps} steps x (1 warm + {reps}): "
+          f"median {1e3 * dt:.3f} ms/step (steps {[round(1e3 * t, 3) for t in times]}), "
+          f"{tok_s:.1f} tok/s; byte roofline at 3.35 TB/s {roofline:.1f} tok/s, share "
+          f"{tok_s / roofline:.4f} [{gpu}]")
+    print(f"  launches in {steps} steps: "
+          + ", ".join(f"{k} {n} ({n // steps}/step)" for k, n in launches.items() if n)
+          + "; kernels A-D 0; repeat run identical")
+    profile_bench_step(torch, llama, params, cfg, kv, ids, pos, bt, rows)
+    return launches
+
+
+_BUCKETS = (("K1 w8a8_gemm_tiled", ("w8a8_kernel<64, false>", "w8a8_kernel<16, false>",
+                                    "w8a8_epilogue<false>")),
+            ("K2 rmsq_gemm", ("w8a8_kernel<64, true>", "w8a8_kernel<16, true>",
+                              "w8a8_epilogue<true>", "rmsq_rows")),
+            ("K3 decode_tm2", ("decode_tm2_kernel",)),
+            ("K4 append_tm2", ("append_tm2_kernel",)),
+            ("split-K memsets", ("Memset",)))
+
+
+def profile_bench_step(torch, llama, params, cfg, kv, ids, pos, bt, rows, reps=3):
+    """torch.profiler over steady-state decode steps of the bench path:
+    device time by kernel bucket (K1-K4, the split-K memsets, the glue of
+    PyTorch's own kernels) and the device's idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ps = cfg.page_size
+
+    def step():
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        return llama.decode_step_kv(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    if not by_name:
+        print("  bench step profile: the profiler recorded no device time (not measured)")
+        return
+    split = {label: 0.0 for label, _ in _BUCKETS}
+    split["glue (PyTorch kernels)"] = 0.0
+    for name, us in by_name.items():
+        label = next((lb for lb, keys in _BUCKETS if any(k in name for k in keys)),
+                     "glue (PyTorch kernels)")
+        split[label] += us / reps / 1e3
+    busy = sum(split.values())
+    glue = sorted(((n, t) for n, t in by_name.items()
+                   if not any(k in n for _, keys in _BUCKETS for k in keys)),
+                  key=lambda kv: -kv[1])[:5]
+    print(f"  bench step profile (B=128, steady state, {reps} steps): wall {1e3 * wall:.3f} "
+          f"ms/step under the profiler, device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / (1e3 * wall):.3f}; ms/step by kind: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + "; largest glue kernels (ms/step): "
+          + "; ".join(f"{n[:40]} {t / reps / 1e3:.3f}" for n, t in glue))
 
 
 def _to_device(tree, dev):
@@ -518,8 +1000,9 @@ def main() -> int:
         from sgl_kernel_npu_tpu_torch import _build, serving
         from sgl_kernel_npu_tpu_torch import runtime
         from sgl_kernel_npu_tpu_torch.models import llama
-        from sgl_kernel_npu_tpu_torch.ops import matmul, quant
+        from sgl_kernel_npu_tpu_torch.ops import matmul, quant, rmsq_gemm
         from sgl_kernel_npu_tpu_torch.ops.attention import (decode_v8, decode_v9,
+                                                            decode_v11, decode_v13,
                                                             paged_prefill_tm)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -529,7 +1012,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     times = _build.build()
-    print(f"nvcc (4 in parallel) {time.perf_counter() - t0:.1f} s: "
+    print(f"nvcc ({len(times)} in parallel) {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     t0 = time.perf_counter()
     runtime.build_native()
@@ -541,13 +1024,23 @@ def main() -> int:
 
     print("phase 1: kernels vs plain versions at Llama-3-8B shapes")
     _warm_up_card(torch)
+    rows = {}
     gemm_rows = check_gemm(torch, matmul, quant, cfg, rng)
+    rows["l1"] = check_matmul_l1(torch, matmul, quant, cfg, rng)
     torch.cuda.empty_cache()
-    dec = check_decode(torch, decode_v9, cfg, rng)
+    rows["dec"], rows["v8"] = check_decode(torch, decode_v9, decode_v8, cfg, rng)
     torch.cuda.empty_cache()
-    pre = check_prefill(torch, paged_prefill_tm, cfg, rng)
+    rows["pre"] = check_prefill(torch, paged_prefill_tm, cfg, rng)
     torch.cuda.empty_cache()
-    app = check_append(torch, decode_v8, cfg, rng)
+    rows["app"] = check_append(torch, decode_v8, cfg, rng)
+    torch.cuda.empty_cache()
+    rows["k1"] = check_gemm_tiled(torch, matmul, quant, cfg, rng)
+    torch.cuda.empty_cache()
+    rows["k2"] = check_rmsq(torch, matmul, rmsq_gemm, quant, cfg, rng)
+    torch.cuda.empty_cache()
+    rows["k3"] = check_decode_tm2(torch, decode_v11, decode_v13, cfg, rng)
+    torch.cuda.empty_cache()
+    rows["k4"] = check_append_tm2(torch, decode_v11, cfg, rng)
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -564,7 +1057,7 @@ def main() -> int:
         raise AssertionError(f"token counts {[len(o) for o in outs]}")
     if reused != 256:
         raise AssertionError(f"the shared 256-token prefix was not reused ({reused})")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     outs2 = run_engine(torch, serving, _build, cfg, params, prompts, late,
@@ -581,38 +1074,61 @@ def main() -> int:
           f"wall {wall:.2f} s [{gpu}]")
     print(f"  launches in the run: {launches}; per prefill call {st['per_prefill']}; "
           f"per decode call {st['per_decode']}")
+    # lm_head goes through quant_matmul_int8 (kernel A, L = 1) once per call
+    lm_head_calls = st["prefill_steps"] + st["decode_steps"]
+    torch.cuda.empty_cache()
+
+    print("phase 3: small configs, card vs CPU plain versions")
+    check_small_config(torch, llama)
+    check_small_tm2(torch, llama)
+
+    print("phase 4: the bench.py decode path (tm2 pages, pretiled banks, batch 128) "
+          "at Llama-3-8B width")
+    bench_launches = run_bench_path(torch, llama, _build, params, gpu)
     del params
     torch.cuda.empty_cache()
 
-    print("phase 3: small config, card vs CPU plain versions")
-    check_small_config(torch, llama)
-
     g8 = [r for r in gemm_rows if r["m"] == 8]
-
-    def total(key):
-        vals = [r[key] for r in g8]
-        return None if any(v is None for v in vals) else sum(vals)
-    gemm = dict(ms=total("ms"), plain_ms=total("plain_ms"), library_ms=total("library_ms"),
-                bound_ms=total("bound_ms"),
-                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in g8)
-                else "operations", max_abs_err=0.0)
     base = "sgl_kernel_npu_tpu"
+    src = "sgl_kernel_npu_tpu_torch/csrc"
     kernels = [
-        dict(name="w8a8_gemm", route="cuda", source="sgl_kernel_npu_tpu_torch/csrc/w8a8_gemm.cu",
-             replaces=f"{base}/ops/matmul.py:496", launches=launches["w8a8_gemm"], **gemm),
-        dict(name="prefill_tm", route="cuda", source="sgl_kernel_npu_tpu_torch/csrc/prefill_tm.cu",
+        dict(name="w8a8_gemm", route="cuda", source=f"{src}/w8a8_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:496", launches=launches["w8a8_gemm"],
+             **_sum_rows(g8)),
+        dict(name="prefill_tm", route="cuda", source=f"{src}/prefill_tm.cu",
              replaces=f"{base}/ops/attention/paged_prefill_tm.py:133",
-             launches=launches["prefill_tm"], **pre),
-        dict(name="decode_tm", route="cuda", source="sgl_kernel_npu_tpu_torch/csrc/decode_tm.cu",
+             launches=launches["prefill_tm"], **rows["pre"]),
+        dict(name="decode_tm", route="cuda", source=f"{src}/decode_tm.cu",
              replaces=f"{base}/ops/attention/decode_v9.py:163",
-             launches=launches["decode_tm"], **dec),
-        dict(name="append_tm", route="cuda", source="sgl_kernel_npu_tpu_torch/csrc/append_tm.cu",
+             launches=launches["decode_tm"], **rows["dec"]),
+        dict(name="append_tm", route="cuda", source=f"{src}/append_tm.cu",
              replaces=f"{base}/ops/attention/decode_v8.py:148",
-             launches=launches["append_tm"], **app),
+             launches=launches["append_tm"], **rows["app"]),
+        dict(name="w8a8_gemm_tiled", route="cuda", source=f"{src}/w8a8_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:161",
+             launches=bench_launches["w8a8_gemm_tiled"], **rows["k1"]),
+        dict(name="rmsq_gemm", route="cuda", source=f"{src}/rmsq_gemm.cu",
+             replaces=f"{base}/ops/rmsq_gemm.py:148",
+             launches=bench_launches["rmsq_gemm"], **rows["k2"]),
+        dict(name="decode_tm2", route="cuda", source=f"{src}/decode_tm2.cu",
+             replaces=f"{base}/ops/attention/decode_v13.py:160",
+             launches=bench_launches["decode_tm2"], **rows["k3"]),
+        dict(name="append_tm2", route="cuda", source=f"{src}/append_tm2.cu",
+             replaces=f"{base}/ops/attention/decode_v11.py:238",
+             launches=bench_launches["append_tm2"], **rows["k4"]),
+        dict(name="decode_tm (decode_v8 contract)", route="cuda", source=f"{src}/decode_tm.cu",
+             replaces=f"{base}/ops/attention/decode_v8.py:388", launches=0, **rows["v8"]),
+        dict(name="w8a8_gemm (L = 1 contract)", route="cuda", source=f"{src}/w8a8_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:71", launches=lm_head_calls, **rows["l1"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print("w8a8_gemm row: sum of the five M=8 decode GEMMs (wqkv, wo, w13, w2, lm_head)")
+    print("w8a8_gemm row: sum of the five M=8 decode GEMMs (wqkv, wo, w13, w2, lm_head); "
+          "w8a8_gemm_tiled row: sum of wo, w2 and lm_head at M=128; rmsq_gemm row: sum of "
+          "wqkv and w13 at M=128 (library: the GEMM part alone); launches of A-D from "
+          "phase 2, of K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract "
+          "is on no main path; the L = 1 contract is lm_head in phase 2, counted in A's "
+          "launches too")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

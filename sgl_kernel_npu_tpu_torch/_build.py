@@ -3,8 +3,13 @@
 Each source under csrc/ is compiled by nvcc, on first use, into a shared
 library with a plain C interface under build/torch_kernels/ at the root of the
 checkout, and loaded with ctypes. A library's file name carries a hash of its
-source and flags, so an edit rebuilds it and an unchanged source is reused.
-`build()` starts one nvcc per missing library, all at once.
+source, of the shared headers (csrc/*.cuh) and of the flags, so an edit
+rebuilds it and an unchanged source is reused. `build()` starts one nvcc per
+missing library, all at once.
+
+A source may export more than one kernel (`KERNELS` maps each kernel to its
+source); every kernel has its own C launcher `skt_<kernel>`, and every
+library its error-string function `skt_<source>_error`.
 
 The launch counts live here too: every wrapper adds one to its kernel's count
 where it launches it, and nowhere else.
@@ -13,6 +18,7 @@ where it launches it, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,7 +30,18 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
-KERNELS = ("w8a8_gemm", "prefill_tm", "decode_tm", "append_tm")
+# kernel -> the csrc/<source>.cu that exports it
+KERNELS = {
+    "w8a8_gemm": "w8a8_gemm",          # A
+    "prefill_tm": "prefill_tm",        # B
+    "decode_tm": "decode_tm",          # C
+    "append_tm": "append_tm",          # D
+    "w8a8_gemm_tiled": "w8a8_gemm",    # K1
+    "rmsq_gemm": "rmsq_gemm",          # K2
+    "decode_tm2": "decode_tm2",        # K3
+    "append_tm2": "append_tm2",        # K4
+}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,15 +64,18 @@ def nvcc_path() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile every library of `names` that is not built yet, one nvcc
-    process each, all started together. Returns {name: seconds} for the
-    libraries it built; raises with the compiler's output on a failure."""
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every library (source name) of `names` that is not built yet,
+    one nvcc process each, all started together. Returns {name: seconds} for
+    the libraries it built; raises with the compiler's output on a failure."""
     todo = [n for n in names if not os.path.exists(_so_path(n))]
     if not todo:
         return {}
@@ -83,22 +103,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return times
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
-    lib = _libs.get(name)
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<source>.cu, built first if needed."""
+    lib = _libs.get(source)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(_so_path(name))
-        err = getattr(lib, f"skt_{name}_error")
+        build([source])
+        lib = ctypes.CDLL(_so_path(source))
+        err = getattr(lib, f"skt_{source}_error")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        _libs[name] = lib
+        _libs[source] = lib
     return lib
 
 
 def launcher(name: str, argtypes) -> ctypes._CFuncPtr:
     """The C launcher `skt_<name>` of kernel `name`; it returns a cudaError_t."""
-    fn = getattr(library(name), f"skt_{name}")
+    fn = getattr(library(KERNELS[name]), f"skt_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
     return fn
@@ -117,6 +137,7 @@ def check_operands(name: str, device, *tensors) -> None:
 def check(name: str, code: int) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if code != 0:
-        msg = getattr(_libs[name], f"skt_{name}_error")(code)
+        source = KERNELS[name]
+        msg = getattr(_libs[source], f"skt_{source}_error")(code)
         raise RuntimeError(f"kernel {name}: CUDA error {code}: "
                            f"{msg.decode(errors='replace')}")

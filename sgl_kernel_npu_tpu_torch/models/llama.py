@@ -1,15 +1,20 @@
 """Llama-3-class GQA decoder with W8A8 int8 weights and an int8 KV cache on
-token-major pages (counterpart of the JAX package's models/llama.py, its "tm"
-branches of `decode_step_kv` and `prefill_batch_step_kv`).
+paged layouts (counterpart of the JAX package's models/llama.py: the "tm"
+branches of `decode_step_kv` and `prefill_batch_step_kv`, and the "tm2"
+branch of `decode_step_kv`).
 
 Parameters are a dict of tensors with the JAX package's tree:
   embed [V, H] bf16, final_norm [H] bf16, lm_head {q [H, V] int8, scale [V]},
   cos_sin [max_pos, D] f32, layers {wqkv|wo|w13|w2: {q [L, K, N] int8,
   scale [L, N] f32}, input_norm|post_norm [L, H] bf16}.
+`pretile_big_weights` turns the four banks into [L, N/bn, K, bn] and lm_head
+into [1, V/bn, H, bn] (ops/matmul.py::pretile_weight_bank).
 Layers run as a Python loop; each GEMM reads its layer straight out of the
-stacked bank (kernel A), attention reads the cache without writing it
-(kernels B and C), and one append after the loop writes every layer's new
-rows (kernel D). Every cast of the JAX code is kept where it has one.
+stacked bank (kernel A, or K1 on a pretiled bank; wqkv and w13 on a pretiled
+bank at M >= 8 go through the fused RMSNorm-quant GEMM, K2), attention reads
+the cache without writing it (kernels B and C on tm pages, K3 on tm2 pages),
+and one append after the loop writes every layer's new rows (kernel D, or
+K4). Every cast of the JAX code is kept where it has one.
 """
 
 from __future__ import annotations
@@ -21,12 +26,16 @@ import numpy as np
 import torch
 
 from ..ops.attention import decode_v8 as _v8
+from ..ops.attention import decode_v11 as _v11
 from ..ops.attention.decode_v9 import decode_gqa_v9_int8_defer
+from ..ops.attention.decode_v13 import decode_gqa_v13_int8_defer
 from ..ops.attention.paged_prefill_tm import paged_prefill_attention_tm
-from ..ops.matmul import quant_matmul_int8_stacked
+from ..ops.matmul import (pretile_weight_bank, quant_matmul_int8,
+                          quant_matmul_int8_stacked)
 from ..ops.quant import per_token_quant_int8
+from ..ops.rmsq_gemm import rmsnorm_quant_gemm
 from ..ops.rope import apply_rope, make_cos_sin_cache
-from ..utils import resolve_device
+from ..utils import env, resolve_device
 
 
 @dataclass(frozen=True)
@@ -121,16 +130,24 @@ def params_from_jax(np_params, device="cuda"):
 
 def init_kv_cache(cfg: LlamaConfig, num_pages: int, layout: str = "tm",
                   device="cuda"):
-    """Token-major int8 pages: k/v [L, P, ps*hkv, D], scales [L, P, 1, ps*hkv]
-    f32, row r = t*hkv + h. The only layout of this port so far."""
-    if layout != "tm" or not cfg.int8_kv:
+    """Int8 KV pages, zeroed.
+
+    "tm" (token-major): k/v [L, P, ps*hkv, D], scales [L, P, 1, ps*hkv] f32,
+    row r = t*hkv + h. "tm2" (head-major within a page, decode only): k/v
+    [L, P, hkv, ps, D], scales [L, P, hkv, ps] f32, row h*ps + t."""
+    if layout not in ("tm", "tm2") or not cfg.int8_kv:
         raise NotImplementedError(
-            "the port serves the int8 token-major ('tm') layout only; the hm "
-            "and tm2 layouts and bf16 caches come in later slices")
+            "the port serves the int8 'tm' and 'tm2' layouts only; the hm "
+            "layout and bf16 caches come in later slices")
     dev = resolve_device(device)
-    rows = cfg.page_size * cfg.num_kv_heads
-    shape = (cfg.num_layers, num_pages, rows, cfg.head_dim)
-    sshape = (cfg.num_layers, num_pages, 1, rows)
+    if layout == "tm2":
+        shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, cfg.page_size,
+                 cfg.head_dim)
+        sshape = shape[:-1]
+    else:
+        rows = cfg.page_size * cfg.num_kv_heads
+        shape = (cfg.num_layers, num_pages, rows, cfg.head_dim)
+        sshape = (cfg.num_layers, num_pages, 1, rows)
     return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
             "v": torch.zeros(shape, dtype=torch.int8, device=dev),
             "ks": torch.zeros(sshape, dtype=torch.float32, device=dev),
@@ -143,11 +160,62 @@ def _rmsnorm(x, w, eps):
     return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def pretile_big_weights(params, block_n=None):
+    """Convert the four stacked banks to the pretiled [L, N/bn, K, bn] layout
+    and lm_head to a one-layer [1, V/bn, H, bn] bank
+    (ops/matmul.py::pretile_weight_bank); the GEMMs detect the 4-D layout.
+
+    MUTATES `params` in place: each [L, K, N] tensor is dropped as soon as
+    its tiled copy replaces it, so that at most one extra bank is alive (as
+    long as the caller holds no other reference to it). bn is `block_n`, else
+    SKT_GEMM_BN (default 512); Llama-3's vocabulary of 128256 does not divide
+    by 512, so lm_head falls through the panel widths 768, 384, 256, 128.
+    Banks already tiled are left as they are. Returns `params`."""
+    bn = block_n or env.env_int("SKT_GEMM_BN", 512)
+    for name in _BIG_WEIGHTS:
+        bank = params["layers"][name]
+        if bank["q"].dim() == 3 and bank["q"].shape[-1] % bn == 0:
+            bank["q"] = pretile_weight_bank(bank["q"], bn)
+    lm = params.get("lm_head")
+    if lm is not None and lm["q"].dim() == 2:
+        for lbn in (bn, 768, 384, 256, 128):
+            if lm["q"].shape[-1] % lbn == 0:
+                lm["q"] = pretile_weight_bank(lm["q"][None], lbn)
+                break
+    return params
+
+
+def _qmm(x, w):
+    """x [M, K] bf16 x a single weight {q, scale [N]}: q [K, N] (kernel A on
+    a one-layer view), or pretiled [1, N/bn, K, bn] (K1)."""
+    xq, xs = per_token_quant_int8(x)
+    if w["q"].dim() == 4:
+        return quant_matmul_int8_stacked(xq, w["q"], 0, xs, w["scale"][None],
+                                         out_dtype=x.dtype)
+    return quant_matmul_int8(xq, w["q"], xs, w["scale"], out_dtype=x.dtype)
+
+
 def _qmm_l(x, bank, li: int):
-    """x [M, K] bf16 x bank {q: [L, K, N], scale: [L, N]} at layer li."""
+    """x [M, K] bf16 x bank {q: [L, K, N] or [L, N/bn, K, bn], scale: [L, N]}
+    at layer li: per-token quant, then kernel A or K1. (The JAX package's
+    `_q_l`, which wo and w2 go through, is this at its default, with
+    SKT_FUSED_QGEMM off.)"""
     xq, xs = per_token_quant_int8(x)
     return quant_matmul_int8_stacked(xq, bank["q"], li, xs, bank["scale"],
                                      out_dtype=x.dtype)
+
+
+def _nrq_l(x, norm_w, bank, li: int, eps: float, out_dtype=None):
+    """RMSNorm -> per-token int8 quant -> W8A8 GEMM at layer li: the fused
+    kernel K2 on a pretiled bank when M >= 8, else the unfused RMSNorm (bf16
+    out) and `_qmm_l`, as the JAX package gates it by default."""
+    if bank["q"].dim() == 4 and x.shape[0] >= 8:
+        beta = torch.zeros((x.shape[-1],), dtype=torch.float32, device=x.device)
+        return rmsnorm_quant_gemm(
+            x, norm_w, beta, bank["q"], bank["scale"], None, li=li,
+            quant_mode="per_token", eps=eps, out_dtype=out_dtype or x.dtype)
+    out = _qmm_l(_rmsnorm(x, norm_w, eps), bank, li)
+    return out.to(out_dtype) if out_dtype else out
 
 
 def _swiglu(g32, f):
@@ -155,14 +223,9 @@ def _swiglu(g32, f):
 
 
 def _final_logits(x, params, cfg):
-    """final RMSNorm -> lm_head logits (f32); lm_head runs through kernel A
-    as a one-layer bank."""
+    """final RMSNorm -> lm_head logits (f32)."""
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
-    lm = params["lm_head"]
-    xq, xs = per_token_quant_int8(x)
-    out = quant_matmul_int8_stacked(xq, lm["q"][None], 0, xs, lm["scale"][None],
-                                    out_dtype=x.dtype)
-    return out.float()
+    return _qmm(x, params["lm_head"]).float()
 
 
 def _pages_offs(slots, ps, num_pages):
@@ -175,11 +238,18 @@ def _pages_offs(slots, ps, num_pages):
 
 def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
                    seq_lens, block_table, slot_mapping):
-    """One continuous-batching decode step on token-major pages.
+    """One continuous-batching decode step on token-major ("tm") or
+    head-major-within-page ("tm2") pages, told apart by the cache ranks as
+    the JAX package does: tm k is 4-D, tm2 k is 5-D with 4-D scales.
 
     input_ids/positions/slot_mapping [B]; seq_lens [B] (length INCLUDING the
     new token); block_table [B, max_pages]. Padded rows carry slot -1.
     Updates kv_cache in place; returns (logits [B, V] f32, kv_cache)."""
+    is_tm2 = kv_cache["k"].dim() == 5 and kv_cache["ks"].dim() == 4
+    if not is_tm2 and kv_cache["k"].dim() != 4:
+        raise NotImplementedError("decode_step_kv serves the int8 'tm' and "
+                                  "'tm2' caches only")
+    attend = decode_gqa_v13_int8_defer if is_tm2 else decode_gqa_v9_int8_defer
     b = input_ids.shape[0]
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     sm_scale = 1.0 / (d ** 0.5)
@@ -192,18 +262,17 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
     f = cfg.intermediate_size
     k_new, v_new = [], []
     for li in range(cfg.num_layers):
-        qkv = _qmm_l(_rmsnorm(x, big["input_norm"][li], cfg.rms_eps),
-                     big["wqkv"], li)
+        qkv = _nrq_l(x, big["input_norm"][li], big["wqkv"], li, cfg.rms_eps)
         q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], -1)
         q = apply_rope(q.reshape(b, hq, d), cos, sin)
         k = apply_rope(k.reshape(b, hkv, d), cos, sin)
         v = v.reshape(b, hkv, d)
-        att = decode_gqa_v9_int8_defer(
-            q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
-            kv_cache["vs"], cached, block_table, sm_scale, ps, layer_idx=li)
+        att = attend(q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
+                     kv_cache["vs"], cached, block_table, sm_scale, ps,
+                     layer_idx=li)
         x = x + _qmm_l(att.reshape(b, -1), big["wo"], li)
-        g32 = _qmm_l(_rmsnorm(x, big["post_norm"][li], cfg.rms_eps),
-                     big["w13"], li).float()
+        g32 = _nrq_l(x, big["post_norm"][li], big["w13"], li,
+                     cfg.rms_eps).float()
         x = x + _qmm_l(_swiglu(g32, f).to(x.dtype), big["w2"], li)
         k_new.append(k)
         v_new.append(v)
@@ -213,10 +282,11 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
         torch.stack(k_new).reshape(lcount * b, hkv, d),
         torch.stack(v_new).reshape(lcount * b, hkv, d))
     pages, offs = _pages_offs(slot_mapping, ps, kv_cache["k"].shape[1])
-    _v8.append_tm_int8(kq.reshape(lcount, b, hkv, d),
-                       vq.reshape(lcount, b, hkv, d),
-                       kv_cache["k"], kv_cache["v"], pages, offs)
-    _v8.scatter_scales_tm(kv_cache["ks"], kv_cache["vs"], ksn, vsn, pages, offs)
+    append, scatter = ((_v11.append_tm2_int8, _v11.scatter_scales_tm2) if is_tm2
+                       else (_v8.append_tm_int8, _v8.scatter_scales_tm))
+    append(kq.reshape(lcount, b, hkv, d), vq.reshape(lcount, b, hkv, d),
+           kv_cache["k"], kv_cache["v"], pages, offs)
+    scatter(kv_cache["ks"], kv_cache["vs"], ksn, vsn, pages, offs)
     return _final_logits(x, params, cfg), kv_cache
 
 
@@ -230,6 +300,9 @@ def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
     each sequence already in the cache. The in-flight chunk is attended in
     bf16; all layers' chunk rows are quantized and appended after the loop.
     Updates kv_cache in place; returns (logits [S, T, V] f32, kv_cache)."""
+    if kv_cache["k"].dim() != 4:
+        raise NotImplementedError("prefill serves the 'tm' cache only; 'tm2' "
+                                  "is a decode-only layout, as in the JAX package")
     s, t = input_ids.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     sm_scale = 1.0 / (d ** 0.5)

@@ -1,5 +1,6 @@
-"""Token-major int8 KV pages: row quantization, the post-step append and the
-scale updates (counterpart of the JAX package's ops/attention/decode_v8.py).
+"""Token-major int8 KV pages: row quantization, the post-step append, the
+scale updates and the per-page decode (counterpart of the JAX package's
+ops/attention/decode_v8.py).
 
 Pages are [L, P, ps*hkv, D] int8, row r = t*hkv + h, so one token of one
 layer is a single contiguous [hkv, D] run; scales are [L, P, 1, ps*hkv] f32
@@ -21,6 +22,7 @@ import torch
 from ... import _build
 from ...utils import use_kernel
 from ..quant import INV_INT8_MAX
+from . import decode_v9 as _v9
 
 # kq, vq, k_cache, v_cache, pages, offs, L, B, P, ps, run_bytes, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -94,6 +96,35 @@ def scatter_scales_tm(k_scales, v_scales, ks, vs, pages, offs):
     k_scales[:, pg, 0, col] = ks.float().reshape(l, b, hkv)[:, bi]
     v_scales[:, pg, 0, col] = vs.float().reshape(l, b, hkv)[:, bi]
     return k_scales, v_scales
+
+
+def decode_gqa_v8_int8_defer_ref(q, k_new, v_new, k_cache, v_cache, k_scales,
+                                 v_scales, cached_lens, block_table, sm_scale,
+                                 page_size, layer_idx=0):
+    """Plain version of the per-page decode: one page per online-softmax
+    step, as the TPU kernel decode_gqa_pallas_v8_int8_defer takes them."""
+    hkv = k_new.shape[1]
+    kc, ks = _v9._gather_layer(k_cache, k_scales, layer_idx, block_table, hkv)
+    vc, vs = _v9._gather_layer(v_cache, v_scales, layer_idx, block_table, hkv)
+    return _v9.attend_gathered_ref(q, k_new, v_new, kc, ks, vc, vs, cached_lens,
+                                   page_size, sm_scale)
+
+
+def decode_gqa_v8_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
+                             v_scales, cached_lens, block_table, sm_scale,
+                             page_size, layer_idx=0):
+    """Token-major int8 deferred-write decode, the contract of the JAX
+    package's decode_v8.py::decode_gqa_pallas_v8_int8_defer (the same as
+    decode_v9's). On a CUDA tensor it launches kernel C (csrc/decode_tm.cu),
+    which steps through the cache in tiles of its own: its bf16 roundings of
+    p * v_scale fall elsewhere than the per-page ones, within C's 2e-2."""
+    if not use_kernel(q):
+        return decode_gqa_v8_int8_defer_ref(
+            q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached_lens,
+            block_table, sm_scale, page_size, layer_idx)
+    return _v9.launch_decode_tm(q, k_new, v_new, k_cache, v_cache, k_scales,
+                                v_scales, cached_lens, block_table, sm_scale,
+                                page_size, layer_idx)
 
 
 def scatter_scales_prefill_tm(k_scales, v_scales, ksn, vsn, block_tables,

@@ -55,29 +55,40 @@ def _flash_update(state, sc, pv_scale, vals):
 def decode_gqa_v9_int8_defer_ref(q, k_new, v_new, k_cache, v_cache, k_scales,
                                  v_scales, cached_lens, block_table, sm_scale,
                                  page_size, layer_idx=0):
-    """Plain version of kernel C (same contract as decode_gqa_v9_int8_defer).
-
-    It takes the TPU kernel's steps in its order, so it rounds where that
-    kernel rounds: chunks of CHUNK_PAGES pages with an online softmax (k
-    scale on the scores, v scale on the probabilities, their product rounded
-    to bf16 before it meets V), then the current token folded in with its
-    probability rounded to bf16 (decode_v6.py::_finalize_rows)."""
-    b, hq, d = q.shape
+    """Plain version of kernel C (same contract as decode_gqa_v9_int8_defer):
+    online-softmax steps of CHUNK_PAGES pages, as the TPU kernel takes them."""
     hkv = k_new.shape[1]
-    g = hq // hkv
     kc, ks = _gather_layer(k_cache, k_scales, layer_idx, block_table, hkv)
     vc, vs = _gather_layer(v_cache, v_scales, layer_idx, block_table, hkv)
     mp = block_table.shape[1]
     if kc.shape[2] != mp * page_size:
         raise ValueError(f"page_size {page_size} does not match the cache")
+    return attend_gathered_ref(q, k_new, v_new, kc, ks, vc, vs, cached_lens,
+                               min(mp, CHUNK_PAGES) * page_size, sm_scale)
+
+
+def attend_gathered_ref(q, k_new, v_new, kc, ks, vc, vs, cached_lens, span,
+                        sm_scale):
+    """The int8 deferred-write decode over a cache already gathered head-major:
+    kc/vc [B, hkv, n, D] int8 (n = MP*ps), ks/vs [B, hkv, n] f32.
+
+    It takes the TPU kernels' steps in their order, so it rounds where they
+    round: online-softmax steps of `span` tokens (k scale on the scores, v
+    scale on the probabilities, their product rounded to bf16 before it
+    meets V; columns at or past cached_lens score -1e30 and have v scale 0),
+    then the current token folded in with its probability rounded to bf16
+    (decode_v6.py::_finalize_rows)."""
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    g = hq // hkv
+    n = kc.shape[2]
     cached = cached_lens.clamp_min(0)[:, None, None, None]
     qf = q.float().reshape(b, hkv, g, d)
     state = (torch.full((b, hkv, g, 1), _NEG_INF, device=q.device),
              torch.zeros((b, hkv, g, 1), device=q.device),
              torch.zeros((b, hkv, g, d), device=q.device))
-    span = min(mp, CHUNK_PAGES) * page_size
-    for lo in range(0, mp * page_size, span):
-        hi = min(lo + span, mp * page_size)
+    for lo in range(0, n, span):
+        hi = min(lo + span, n)
         valid = torch.arange(lo, hi, device=q.device) < cached   # [B,1,1,n]
         sc = torch.matmul(qf, kc[:, :, lo:hi].float().transpose(-1, -2))
         sc = sc * ks[:, :, None, lo:hi] * sm_scale
@@ -105,6 +116,15 @@ def decode_gqa_v9_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
         return decode_gqa_v9_int8_defer_ref(
             q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached_lens,
             block_table, sm_scale, page_size, layer_idx)
+    return launch_decode_tm(q, k_new, v_new, k_cache, v_cache, k_scales,
+                            v_scales, cached_lens, block_table, sm_scale,
+                            page_size, layer_idx)
+
+
+def launch_decode_tm(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
+                     cached_lens, block_table, sm_scale, page_size, layer_idx):
+    """Launch kernel C on CUDA tensors (the contract of decode_v9 and of
+    decode_v8's per-page decode)."""
     b, hq, d = q.shape
     hkv = k_new.shape[1]
     l, num_pages, rows, _ = k_cache.shape

@@ -1,9 +1,12 @@
-"""W8A8 INT8 GEMM out of a stacked per-layer weight bank (counterpart of the
-JAX package's ops/matmul.py::quant_matmul_int8_stacked, whose 3-D bank branch
-runs the TPU kernel grouped_matmul_int8_pallas).
+"""W8A8 INT8 GEMMs (counterpart of the JAX package's ops/matmul.py):
+`quant_matmul_int8` on a plain [K, N] weight, `quant_matmul_int8_stacked` on a
+stacked per-layer bank, either [L, K, N] or pretiled to [L, N/bn, K, bn]
+(`pretile_weight_bank`), and `quant_matmul_int8_stacked_tiled` on the latter.
 
-On a CUDA tensor the wrapper launches kernel A (csrc/w8a8_gemm.cu); on a CPU
-tensor it runs the plain version, `quant_matmul_int8_ref`.
+On a CUDA tensor a wrapper launches a kernel of csrc/w8a8_gemm.cu: kernel A
+for an [L, K, N] bank and for a plain weight (a one-layer view of it, no
+copy), kernel K1 for a pretiled bank. On a CPU tensor it runs the plain
+version, `quant_matmul_int8_ref` on the layer's [K, N] weight.
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ import torch
 from .. import _build
 from ..utils import cdiv, use_kernel
 
-_BK, _BN = 64, 128       # the kernel's K stage and N tile
-# x, w, x_scale, w_scale, out, workspace, M, N, K, li, splits, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BK, _BN = 64, 128       # the kernels' K stage and N tile
+# x, w, x_scale, w_scale, out, workspace, M, N, K, li, [bn,] splits, stream
+_ARGTYPES = {
+    "w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "w8a8_gemm_tiled": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
 
 
 def quant_matmul_int8_ref(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
@@ -31,21 +37,79 @@ def quant_matmul_int8_ref(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
     return (acc * x_scale.float() * w_scale.float()[None, :]).to(out_dtype)
 
 
+def quant_matmul_int8(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
+    """W8A8 GEMM on a plain weight: x_q [M, K] int8, w_q [K, N] int8, x_scale
+    [M, 1] f32, w_scale [N] f32 -> [M, N] (the JAX package's
+    quant_matmul_int8 without its bias, which no caller of the port passes).
+
+    The JAX package takes its Pallas kernel (quant_matmul_int8_pallas) for
+    M >= 8, its reference otherwise. On the card the port launches kernel A
+    for every M, on the weight viewed as a one-layer bank: the int32 sum is
+    exact, so both give the same numbers."""
+    if use_kernel(x_q):
+        return _w8a8_gemm(x_q, w_q[None], 0, x_scale, w_scale.reshape(1, -1),
+                          out_dtype)
+    return quant_matmul_int8_ref(x_q, w_q, x_scale, w_scale, out_dtype)
+
+
+def pretile_weight_bank(w_q_stacked, block_n: int = 512):
+    """[L, K, N] -> a contiguous [L, N/bn, K, bn] copy: panel j of layer li,
+    the columns j*bn .. (j+1)*bn, is one contiguous [K, bn] block, so a block
+    of output columns streams its weights from one contiguous range."""
+    l, k, n = w_q_stacked.shape
+    if n % block_n:
+        raise ValueError(f"pretile_weight_bank: N={n} is not a multiple of {block_n}")
+    return w_q_stacked.reshape(l, k, n // block_n, block_n).permute(0, 2, 1, 3).contiguous()
+
+
+def untile_weight_bank(w_tiled):
+    """[L, NB, K, bn] -> [L, K, N] (inverse of pretile_weight_bank)."""
+    l, nb, k, bn = w_tiled.shape
+    return w_tiled.permute(0, 2, 1, 3).reshape(l, k, nb * bn)
+
+
 def quant_matmul_int8_stacked(x_q, w_q_stacked, li: int, x_scale,
                               w_scale_stacked, out_dtype=torch.bfloat16):
-    """Layer li of a stacked bank: x_q [M, K] int8, w_q_stacked [L, K, N] int8,
-    x_scale [M, 1] f32, w_scale_stacked [L, N] f32 -> [M, N]."""
+    """Layer li of a stacked bank: x_q [M, K] int8, w_q_stacked [L, K, N] int8
+    or pretiled [L, N/bn, K, bn] int8, x_scale [M, 1] f32, w_scale_stacked
+    [L, N] f32 -> [M, N]."""
+    if w_q_stacked.dim() == 4:
+        return quant_matmul_int8_stacked_tiled(x_q, w_q_stacked, li, x_scale,
+                                               w_scale_stacked, out_dtype)
     if use_kernel(x_q):
         return _w8a8_gemm(x_q, w_q_stacked, li, x_scale, w_scale_stacked,
                           out_dtype)
     return quant_matmul_int8_ref(x_q, w_q_stacked[li], x_scale,
-                                 w_scale_stacked[li], out_dtype)
+                                 w_scale_stacked[li], out_dtype=out_dtype)
 
 
-def _splits(m: int, n: int, k: int, device) -> int:
+def quant_matmul_int8_stacked_tiled_ref(x_q, w_tiled, li: int, x_scale,
+                                        w_scale_stacked, out_dtype=torch.bfloat16):
+    """Plain version of kernel K1: layer li untiled, then quant_matmul_int8_ref."""
+    w = untile_weight_bank(w_tiled[li:li + 1])[0]
+    return quant_matmul_int8_ref(x_q, w, x_scale, w_scale_stacked[li],
+                                 out_dtype=out_dtype)
+
+
+def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
+                                    w_scale_stacked, out_dtype=torch.bfloat16):
+    """W8A8 GEMM over a pretiled [L, N/bn, K, bn] bank at layer li.
+
+    The JAX package takes its Pallas kernel for M >= 8 and, below, slices
+    layer li, untiles it and takes its reference dot (matmul.py:233-242). On
+    the card the port launches kernel K1 for every M: the product is exact
+    in int32 and the epilogue multiplies in the same order, so the result is
+    the same."""
+    if use_kernel(x_q):
+        return _w8a8_gemm(x_q, w_tiled, li, x_scale, w_scale_stacked, out_dtype)
+    return quant_matmul_int8_stacked_tiled_ref(x_q, w_tiled, li, x_scale,
+                                               w_scale_stacked, out_dtype)
+
+
+def splits_for(m: int, n: int, k: int, device, max_m: int = 64) -> int:
     """Split K over blocks when the output has too few tiles to keep every
     SM streaming weights (decode); int32 partial sums stay exact."""
-    if m > 64:
+    if m > max_m:
         return 1
     tiles = cdiv(n, _BN) * cdiv(m, 16 if m <= 16 else 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -53,32 +117,43 @@ def _splits(m: int, n: int, k: int, device) -> int:
 
 
 def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype):
+    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn])."""
+    tiled = w.dim() == 4
+    name = "w8a8_gemm_tiled" if tiled else "w8a8_gemm"
     m, k = x_q.shape
-    l, k2, n = w.shape
+    if tiled:
+        l, nb, k2, bn = w.shape
+        n = nb * bn
+    else:
+        l, k2, n = w.shape
+        bn = n
     dev = x_q.device
     if out_dtype != torch.bfloat16:
-        raise ValueError(f"w8a8_gemm writes bf16, not {out_dtype}")
+        raise ValueError(f"{name} writes bf16, not {out_dtype}")
     if (x_q.dtype, w.dtype) != (torch.int8, torch.int8):
-        raise TypeError(f"w8a8_gemm takes int8 operands, got {x_q.dtype}, {w.dtype}")
-    if k2 != k or k % _BK or n % 16 or not 0 <= li < l:
-        raise ValueError(f"w8a8_gemm: x {tuple(x_q.shape)}, bank {tuple(w.shape)}, "
-                         f"li={li}: needs K % {_BK} == 0, N % 16 == 0")
+        raise TypeError(f"{name} takes int8 operands, got {x_q.dtype}, {w.dtype}")
+    if (k2 != k or k % _BK or n % 16 or not 0 <= li < l
+            or (tiled and bn % _BN)):
+        raise ValueError(f"{name}: x {tuple(x_q.shape)}, bank {tuple(w.shape)}, "
+                         f"li={li}: needs K % {_BK} == 0, N % 16 == 0"
+                         + (f", bn % {_BN} == 0" if tiled else ""))
     xs = x_scale.reshape(m).float().contiguous()
     ws = w_scale.float().contiguous()
-    _build.check_operands("w8a8_gemm", dev, x_q, w, xs, ws)
+    _build.check_operands(name, dev, x_q, w, xs, ws)
     if ws.shape != (l, n):
-        raise ValueError(f"w8a8_gemm: weight scales {tuple(ws.shape)} != {(l, n)}")
+        raise ValueError(f"{name}: weight scales {tuple(ws.shape)} != {(l, n)}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return out
-    splits = _splits(m, n, k, dev)
+    splits = splits_for(m, n, k, dev, max_m=256 if tiled else 64)
     work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
             else None)
-    fn = _build.launcher("w8a8_gemm", _ARGTYPES)
+    fn = _build.launcher(name, _ARGTYPES[name])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    shape = (m, n, k, li, bn) if tiled else (m, n, k, li)
     code = fn(x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
               out.data_ptr(), work.data_ptr() if work is not None else None,
-              m, n, k, li, splits, stream)
-    _build.check("w8a8_gemm", code)
-    _build.launches["w8a8_gemm"] += 1
+              *shape, splits, stream)
+    _build.check(name, code)
+    _build.launches[name] += 1
     return out
