@@ -364,6 +364,44 @@ def check_append(torch, dv8, cfg, rng):
                 max_abs_err=0.0)
 
 
+def compare_split_policy(torch, mm, quant, cfg, rng):
+    """Kernel A at M = 128 and 256, where its shared split-K policy
+    (matmul.splits_for) splits K, timed with that split and unsplit, in
+    turns (split, unsplit, unsplit, split); both give the same output."""
+    from unittest import mock
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    shapes = [("wqkv", h, cfg.q_size + 2 * cfg.kv_size), ("wo", cfg.q_size, h),
+              ("w13", h, 2 * f), ("w2", f, h)]
+    for m in (128, 256):
+        for name, k, n in shapes:
+            splits = mm.splits_for(m, n, k, "cuda")
+            if splits == 1:
+                continue
+            w = torch.randint(-127, 128, (1, k, n), generator=rng, dtype=torch.int8,
+                              device="cuda")
+            ws = torch.rand((1, n), generator=rng, device="cuda") * 1e-3
+            x = torch.randn((m, k), generator=rng, device="cuda").to(torch.bfloat16)
+            xq, xs = quant.per_token_quant_int8(x)
+
+            def run():
+                return mm.quant_matmul_int8_stacked(xq, w, 0, xs, ws)
+            split = run()
+            with mock.patch.object(mm, "splits_for", lambda *a: 1):
+                if not torch.equal(run(), split):
+                    raise AssertionError(f"w8a8_gemm {name} M={m}: split-K changed the output")
+            times = {"split": [], "unsplit": []}
+            for mode in ("split", "unsplit", "unsplit", "split"):
+                if mode == "split":
+                    times[mode].append(_time_ms(run, 20))
+                else:
+                    with mock.patch.object(mm, "splits_for", lambda *a: 1):
+                        times[mode].append(_time_ms(run, 20))
+            t = {k: sum(v) / len(v) for k, v in times.items()}
+            print(f"  w8a8_gemm {name:5s} M={m} K={k:5d} N={n:6d}: split-K x{splits} "
+                  f"{t['split']:.4f} ms, unsplit {t['unsplit']:.4f} ms")
+            del w, ws
+
+
 def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
     """Kernel K1 at the bench path's shapes (M = 128): wo and w2 on [L, NB,
     K, 512] banks, lm_head on its [1, V/768, H, 768] bank; exact also at M =
@@ -469,7 +507,8 @@ def check_rmsq(torch, mm, rq, quant, cfg, rng, bn=512):
 def check_decode_tm2(torch, dv11, dv13, cfg, rng):
     """Kernel K3 at the bench path's shape: 128 sequences, 8 kv heads of 4
     query heads, D = 128, 512-token pages, 2 pages each, cached lengths over
-    0..1023 (0, 1, 511, 512 and 513 among them), through both names."""
+    0..1023 (0, 1, 511, 512 and 513 among them). decode_v13's name is
+    decode_v11's wrapper."""
     b, hq, hkv, d, ps, mp, layers, li = 128, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim, 512, 2, 2, 1
     pages = b * mp + 1
@@ -488,11 +527,9 @@ def check_decode_tm2(torch, dv11, dv13, cfg, rng):
     sm = d ** -0.5
     args = (q, kn, vn, kc, vc, ks, vs, cached, bt, sm, ps)
     ref = dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li)
-    err = 0.0
-    for fn in (dv13.decode_gqa_v13_int8_defer, dv11.decode_gqa_v11_int8_defer):
-        out = fn(*args, layer_idx=li)
-        torch.cuda.synchronize()
-        err = max(err, (out.float() - ref.float()).abs().max().item())
+    out = dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
     if not err <= ATTN_TOL:
         raise AssertionError(f"decode_tm2 max-abs {err} > {ATTN_TOL}")
     ms = _time_ms(lambda: dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li), 50)
@@ -522,7 +559,7 @@ def check_decode_tm2(torch, dv11, dv13, cfg, rng):
     nbytes = (c * hkv * (2 * d + 8) + 2 * (2 * b * hq * d) + 2 * (2 * b * hkv * d)
               + 4 * b + 4 * b * mp)
     bound, by = _bound_ms(nbytes, 4.0 * (c + b) * hq * d, "bf16_flops")
-    print(f"  decode_tm2 (v13 and v11) B={b} MP={mp} ps={ps} cached 0..{int(cached.max())} "
+    print(f"  decode_tm2 (v13 = v11) B={b} MP={mp} ps={ps} cached 0..{int(cached.max())} "
           f"(sum {int(c)}): max-abs {err:.3g}; kernel {ms:.4f} ms, plain {plain:.3f} ms, "
           f"SDPA {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
@@ -832,7 +869,7 @@ def check_small_tm2(torch, llama):
 
 
 # the kernels of phase 2's serving path
-SERVING_KERNELS = ("w8a8_gemm", "prefill_tm", "decode_tm", "append_tm")
+SERVING_KERNELS = ("w8a8_gemm", "w8a8_gemm_l1", "prefill_tm", "decode_tm", "append_tm")
 BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS = 128, 256, 32, 3
 # launches of one tm2 decode step at Llama-3-8B's 32 layers
 PER_STEP = {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64, "decode_tm2": 32, "append_tm2": 1}
@@ -1026,6 +1063,7 @@ def main() -> int:
     _warm_up_card(torch)
     rows = {}
     gemm_rows = check_gemm(torch, matmul, quant, cfg, rng)
+    compare_split_policy(torch, matmul, quant, cfg, rng)
     rows["l1"] = check_matmul_l1(torch, matmul, quant, cfg, rng)
     torch.cuda.empty_cache()
     rows["dec"], rows["v8"] = check_decode(torch, decode_v9, decode_v8, cfg, rng)
@@ -1075,7 +1113,9 @@ def main() -> int:
     print(f"  launches in the run: {launches}; per prefill call {st['per_prefill']}; "
           f"per decode call {st['per_decode']}")
     # lm_head goes through quant_matmul_int8 (kernel A, L = 1) once per call
-    lm_head_calls = st["prefill_steps"] + st["decode_steps"]
+    if launches["w8a8_gemm_l1"] != st["prefill_steps"] + st["decode_steps"]:
+        raise AssertionError(f"quant_matmul_int8 launched {launches['w8a8_gemm_l1']} times "
+                             f"in {st['prefill_steps'] + st['decode_steps']} model calls")
     torch.cuda.empty_cache()
 
     print("phase 3: small configs, card vs CPU plain versions")
@@ -1088,7 +1128,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    g8 = [r for r in gemm_rows if r["m"] == 8]
+    g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
     kernels = [
@@ -1119,16 +1159,17 @@ def main() -> int:
         dict(name="decode_tm (decode_v8 contract)", route="cuda", source=f"{src}/decode_tm.cu",
              replaces=f"{base}/ops/attention/decode_v8.py:388", launches=0, **rows["v8"]),
         dict(name="w8a8_gemm (L = 1 contract)", route="cuda", source=f"{src}/w8a8_gemm.cu",
-             replaces=f"{base}/ops/matmul.py:71", launches=lm_head_calls, **rows["l1"]),
+             replaces=f"{base}/ops/matmul.py:71", launches=launches["w8a8_gemm_l1"],
+             **rows["l1"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print("w8a8_gemm row: sum of the five M=8 decode GEMMs (wqkv, wo, w13, w2, lm_head); "
-          "w8a8_gemm_tiled row: sum of wo, w2 and lm_head at M=128; rmsq_gemm row: sum of "
-          "wqkv and w13 at M=128 (library: the GEMM part alone); launches of A-D from "
-          "phase 2, of K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract "
-          "is on no main path; the L = 1 contract is lm_head in phase 2, counted in A's "
-          "launches too")
+    print("w8a8_gemm row: sum of the four M=8 decode GEMMs on stacked banks (wqkv, wo, "
+          "w13, w2); w8a8_gemm_tiled row: sum of wo, w2 and lm_head at M=128; rmsq_gemm "
+          "row: sum of wqkv and w13 at M=128 (library: the GEMM part alone); launches of "
+          "A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
+          "K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract is on no main "
+          "path")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -205,7 +205,7 @@ def _qmm_l(x, bank, li: int):
                                      out_dtype=x.dtype)
 
 
-def _nrq_l(x, norm_w, bank, li: int, eps: float, out_dtype=None):
+def _nrq_l(x, norm_w, bank, li: int, eps: float):
     """RMSNorm -> per-token int8 quant -> W8A8 GEMM at layer li: the fused
     kernel K2 on a pretiled bank when M >= 8, else the unfused RMSNorm (bf16
     out) and `_qmm_l`, as the JAX package gates it by default."""
@@ -213,9 +213,8 @@ def _nrq_l(x, norm_w, bank, li: int, eps: float, out_dtype=None):
         beta = torch.zeros((x.shape[-1],), dtype=torch.float32, device=x.device)
         return rmsnorm_quant_gemm(
             x, norm_w, beta, bank["q"], bank["scale"], None, li=li,
-            quant_mode="per_token", eps=eps, out_dtype=out_dtype or x.dtype)
-    out = _qmm_l(_rmsnorm(x, norm_w, eps), bank, li)
-    return out.to(out_dtype) if out_dtype else out
+            quant_mode="per_token", eps=eps, out_dtype=x.dtype)
+    return _qmm_l(_rmsnorm(x, norm_w, eps), bank, li)
 
 
 def _swiglu(g32, f):

@@ -71,13 +71,12 @@ def decode_gqa_v11_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
         return decode_gqa_v11_int8_defer_ref(
             q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached_lens,
             block_table, sm_scale, page_size, layer_idx)
-    return launch_decode_tm2(q, k_new, v_new, k_cache, v_cache, k_scales,
-                             v_scales, cached_lens, block_table, sm_scale,
-                             page_size, layer_idx)
+    return _decode_tm2(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
+                       cached_lens, block_table, sm_scale, page_size, layer_idx)
 
 
-def launch_decode_tm2(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
-                      cached_lens, block_table, sm_scale, page_size, layer_idx):
+def _decode_tm2(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
+                cached_lens, block_table, sm_scale, page_size, layer_idx):
     """Launch kernel K3 on CUDA tensors (the v11 and v13 contract)."""
     b, hq, d = q.shape
     hkv = k_new.shape[1]

@@ -4,26 +4,12 @@ its tm2 decode path.
 
 v13 has decode_v11's contract and numbers: it only batches several sequences
 per TPU loop body, and takes one page per online-softmax step as v11 does. So
-the port serves both with one kernel, K3 (csrc/decode_tm2.cu), and one plain
-version, `decode_v11.decode_gqa_v11_int8_defer_ref`; a launch from either
-name counts under K3's counter.
+the name is decode_v11's wrapper itself: one kernel, K3 (csrc/decode_tm2.cu),
+one plain version and one launch counter serve both.
 """
 
 from __future__ import annotations
 
-from ...utils import use_kernel
-from . import decode_v11 as _v11
+from .decode_v11 import decode_gqa_v11_int8_defer as decode_gqa_v13_int8_defer
 
-
-def decode_gqa_v13_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
-                              v_scales, cached_lens, block_table, sm_scale,
-                              page_size, layer_idx=0):
-    """tm2 int8 deferred-write decode (contract of
-    decode_v11.decode_gqa_v11_int8_defer)."""
-    if not use_kernel(q):
-        return _v11.decode_gqa_v11_int8_defer_ref(
-            q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached_lens,
-            block_table, sm_scale, page_size, layer_idx)
-    return _v11.launch_decode_tm2(q, k_new, v_new, k_cache, v_cache, k_scales,
-                                  v_scales, cached_lens, block_table, sm_scale,
-                                  page_size, layer_idx)
+__all__ = ["decode_gqa_v13_int8_defer"]

@@ -48,7 +48,7 @@ def quant_matmul_int8(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
     exact, so both give the same numbers."""
     if use_kernel(x_q):
         return _w8a8_gemm(x_q, w_q[None], 0, x_scale, w_scale.reshape(1, -1),
-                          out_dtype)
+                          out_dtype, counter="w8a8_gemm_l1")
     return quant_matmul_int8_ref(x_q, w_q, x_scale, w_scale, out_dtype)
 
 
@@ -106,18 +106,19 @@ def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
                                                w_scale_stacked, out_dtype)
 
 
-def splits_for(m: int, n: int, k: int, device, max_m: int = 64) -> int:
-    """Split K over blocks when the output has too few tiles to keep every
-    SM streaming weights (decode); int32 partial sums stay exact."""
-    if m > max_m:
-        return 1
+def splits_for(m: int, n: int, k: int, device) -> int:
+    """Split K over blocks when the output has fewer tiles than two blocks
+    per SM, so that every SM streams weights; int32 partial sums stay exact.
+    Kernels A, K1 and K2 share one GEMM loop and this one policy, which
+    depends on the shape alone."""
     tiles = cdiv(n, _BN) * cdiv(m, 16 if m <= 16 else 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(cdiv(2 * sms, tiles), k // _BK))
 
 
-def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype):
-    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn])."""
+def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None):
+    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn]),
+    and add one to the launch count `counter` (default: the kernel's)."""
     tiled = w.dim() == 4
     name = "w8a8_gemm_tiled" if tiled else "w8a8_gemm"
     m, k = x_q.shape
@@ -145,7 +146,7 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype):
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return out
-    splits = splits_for(m, n, k, dev, max_m=256 if tiled else 64)
+    splits = splits_for(m, n, k, dev)
     work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
             else None)
     fn = _build.launcher(name, _ARGTYPES[name])
@@ -155,5 +156,5 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype):
               out.data_ptr(), work.data_ptr() if work is not None else None,
               *shape, splits, stream)
     _build.check(name, code)
-    _build.launches[name] += 1
+    _build.launches[counter or name] += 1
     return out

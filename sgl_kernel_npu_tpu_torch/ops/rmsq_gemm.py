@@ -150,7 +150,7 @@ def _rmsq_gemm(x, gamma, beta, w, descale, li, apply_norm, eps, out_dtype):
         return out
     rstd = torch.empty((m,), dtype=torch.float32, device=dev)
     scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    splits = splits_for(m, n, k, dev, max_m=256)
+    splits = splits_for(m, n, k, dev)
     work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
             else None)
     fn = _build.launcher("rmsq_gemm", _ARGTYPES)

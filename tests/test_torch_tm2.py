@@ -24,6 +24,8 @@ Tolerances, each with its reason:
     rounding-boundary flips are the only difference allowed.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -272,9 +274,15 @@ def test_append_tm2_and_scales_match_jax(monkeypatch):
 
 
 SLICE_SEED = 0
+# Seeds of 70-81 on which the JAX package's rstd flips a bf16 output of the
+# slice's first three steps (test_tm2_decode_slice_seed_sweep).
+FLIP_SEEDS = (70, 75)
 
 
-def _slice_setup():
+@functools.cache
+def _slice():
+    """(cfg, JAX params, port params, the JAX decode step under jax.jit),
+    built once per process."""
     cfg = jl.tiny_config(int8_kv=True, page_size=16)
     jp = jl.pretile_big_weights(jl.init_params(cfg, SLICE_SEED), block_n=128)
     tp = tl.pretile_big_weights(tl.init_params(cfg, SLICE_SEED, "cpu"), block_n=128)
@@ -283,7 +291,52 @@ def _slice_setup():
         assert tp["layers"][name]["q"].dim() == 4
         assert torch.equal(tp["layers"][name]["q"], carried["layers"][name]["q"])
     assert torch.equal(tp["lm_head"]["q"], carried["lm_head"]["q"])
-    return cfg, jp, tp
+    jdec = jax.jit(lambda p, kv, *a: jl.decode_step_kv(p, cfg, kv, *a),
+                   compiler_options=NO_EXCESS)
+    return cfg, jp, tp, jdec
+
+
+def _slice_start(seed):
+    """The slice's start from `seed`: equal tm2 caches on both sides,
+    pre-filled with seeded int8 rows and scales, B = 8 sequences of 2 pages
+    at position ps - 2, and `step(jkv, ids, pos)`, one decode_step_kv on
+    each side (the port's cache in place) -> (JAX logits, port logits, JAX
+    cache)."""
+    cfg, jp, tp, jdec = _slice()
+    rng = np.random.default_rng(seed)
+    b, mp, ps = 8, 2, cfg.page_size
+    pages = b * mp + 1
+    kc, vc, ks, vs = _tm2_cache(rng, cfg.num_layers, pages, cfg.num_kv_heads, ps,
+                                cfg.head_dim)
+    jkv = {"k": jnp.asarray(kc), "v": jnp.asarray(vc), "ks": jnp.asarray(ks),
+           "vs": jnp.asarray(vs)}
+    tkv = tl.init_kv_cache(cfg, pages, layout="tm2", device="cpu")
+    for name, a in zip(("k", "v", "ks", "vs"), (kc, vc, ks, vs)):
+        tkv[name].copy_(_t(a))
+    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
+
+    def step(jkv, ids, pos):
+        slots = (bt[np.arange(b), pos // ps] * ps + pos % ps).astype(np.int32)
+        args = (ids.astype(np.int32), pos, pos + 1, bt, slots)
+        jlg, jkv = jdec(jp, jkv, *(jnp.asarray(a) for a in args))
+        tlg, tkv2 = tl.decode_step_kv(tp, cfg, tkv, *(_t(a) for a in args))
+        assert tkv2 is tkv and tlg.shape == (b, cfg.vocab_size)
+        return np.asarray(jlg), tlg.numpy(), jkv
+
+    return cfg, rng, jkv, tkv, np.full(b, ps - 2, np.int32), step
+
+
+def _cache_match(jkv, tkv, layers=slice(None)):
+    """Over `layers`: (exact fraction of the int8 k and v, their largest
+    |diff|, exact fraction of the scales)."""
+    exact, worst, sexact = 1.0, 0, 1.0
+    for name in ("k", "v"):
+        a = np.asarray(jkv[name])[layers].astype(np.int32)
+        t = tkv[name].numpy()[layers].astype(np.int32)
+        exact, worst = min(exact, (a == t).mean()), max(worst, int(np.abs(a - t).max()))
+    for name in ("ks", "vs"):
+        sexact = min(sexact, (np.asarray(jkv[name])[layers] == tkv[name].numpy()[layers]).mean())
+    return exact, worst, sexact
 
 
 def test_tm2_decode_slice_matches_jax(monkeypatch):
@@ -298,52 +351,22 @@ def test_tm2_decode_slice_matches_jax(monkeypatch):
     The inputs come from seed 71. The JAX package's fused GEMM takes rstd
     from XLA's CPU rsqrt (an approximation) of an f32 sum; for most seeds
     that never changes a bf16 output and both packages agree exactly. For
-    some (70 and 75 among 70-81), one row's rstd, an ulp from the port's,
-    flips one bf16 output of layer 0, and layer 1 carries it on to a few
-    tenths of a percent of the int8 cache entries, by up to 2, beyond the
-    bounds above. Seed 71 shows no such flip."""
+    some (FLIP_SEEDS among 70-81), it flips one bf16 output and the caches
+    go beyond the bounds above; test_tm2_decode_slice_seed_sweep holds every
+    seed of 70-81 to what it shows. Seed 71 shows no such flip."""
     monkeypatch.setenv("SKT_IMPL", "pallas")
-    cfg, jp, tp = _slice_setup()
-    jdec = jax.jit(lambda p, kv, *a: jl.decode_step_kv(p, cfg, kv, *a),
-                   compiler_options=NO_EXCESS)
-    rng = np.random.default_rng(71)
-    b, mp, ps = 8, 2, cfg.page_size
-    pages = b * mp + 1
-    kc, vc, ks, vs = _tm2_cache(rng, cfg.num_layers, pages, cfg.num_kv_heads, ps,
-                                cfg.head_dim)
-    jkv = {"k": jnp.asarray(kc), "v": jnp.asarray(vc), "ks": jnp.asarray(ks),
-           "vs": jnp.asarray(vs)}
-    tkv = tl.init_kv_cache(cfg, pages, layout="tm2", device="cpu")
-    for name, a in zip(("k", "v", "ks", "vs"), (kc, vc, ks, vs)):
-        tkv[name].copy_(_t(a))
-    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
-    pos = np.full(b, ps - 2, np.int32)
-
-    def step_args(ids, pos):
-        slots = bt[np.arange(b), pos // ps] * ps + pos % ps
-        return (ids.astype(np.int32), pos, pos + 1, bt, slots.astype(np.int32))
-
-    def step(jkv, tkv, args):
-        jlg, jkv = jdec(jp, jkv, *(jnp.asarray(a) for a in args))
-        tlg, tkv2 = tl.decode_step_kv(tp, cfg, tkv, *(_t(a) for a in args))
-        assert tkv2 is tkv and tlg.shape == (b, cfg.vocab_size)
-        return np.asarray(jlg), tlg.numpy(), jkv
-
+    cfg, rng, jkv, tkv, pos, step = _slice_start(71)
     for _ in range(3):
-        ids = rng.integers(0, cfg.vocab_size, b)
-        jlg, tlg, jkv = step(jkv, tkv, step_args(ids, pos))
+        jlg, tlg, jkv = step(jkv, rng.integers(0, cfg.vocab_size, len(pos)), pos)
         assert calc_diff(tlg, jlg) < LOGITS_DIFF
-        for name in ("k", "v"):
-            a, t = np.asarray(jkv[name]).astype(np.int32), tkv[name].numpy().astype(np.int32)
-            assert (a == t).mean() >= 0.999 and np.abs(a - t).max() <= 1, name
-        for name in ("ks", "vs"):
-            assert (np.asarray(jkv[name]) == tkv[name].numpy()).mean() >= 0.999, name
+        exact, worst, sexact = _cache_match(jkv, tkv)
+        assert exact >= 0.999 and worst <= 1 and sexact >= 0.999, (exact, worst, sexact)
         pos = pos + 1
 
-    jids = tids = rng.integers(0, cfg.vocab_size, b)
+    tids = rng.integers(0, cfg.vocab_size, len(pos))
     margins, diffs = [], []
     for _ in range(4):
-        jlg, tlg, jkv = step(jkv, tkv, step_args(tids, pos))
+        jlg, tlg, jkv = step(jkv, tids, pos)
         jids, tids = jlg.argmax(-1), tlg.argmax(-1)
         assert np.array_equal(jids, tids)
         top2 = np.sort(tlg, axis=-1)[:, -2:]
@@ -351,6 +374,61 @@ def test_tm2_decode_slice_matches_jax(monkeypatch):
         diffs.append(float(np.abs(tlg - jlg).max()))
         pos = pos + 1
     assert min(margins) > max(diffs), (margins, diffs)
+
+
+_jax_row_stats = jax.jit(
+    lambda x, g, b, eps: jrq._row_stats(x, g, b, None, None, "per_token", True, eps)[:2],
+    static_argnums=3, compiler_options=NO_EXCESS)
+
+
+def _row_stats_of_jax(x, gamma, beta, apply_norm, eps):
+    """The port's `_row_stats` with rstd and scale taken from the JAX
+    package's `_row_stats`, compiled alone."""
+    assert apply_norm
+    rstd, scale = _jax_row_stats(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                                 jnp.asarray(gamma.float().numpy(), jnp.bfloat16),
+                                 jnp.asarray(beta.float().numpy()), eps)
+    return _t(rstd), _t(scale)
+
+
+@pytest.mark.parametrize("seed", range(70, 82))
+def test_tm2_decode_slice_seed_sweep(monkeypatch, seed):
+    """The slice's first three steps (as test_tm2_decode_slice_matches_jax)
+    on each seed of 70-81, once with the port as it is and once with the
+    JAX package's row statistics in its fused GEMM's plain version.
+
+    As it is: logits within calc_diff 8e-3 at every step of every seed, and
+    the strict cache bounds (>= 99.9% exact, |diff| <= 1) on every seed but
+    FLIP_SEEDS. On those, one rstd an ulp from the port's flips a bf16
+    output (in layer 0 on seed 75, in layer 1 on seed 70) and the next layer
+    carries it on: at most 0.25% of the int8 entries (|diff| <= 2) and 0.32%
+    of the scales differed, and logits by calc_diff 2.2e-5, when this was
+    measured; the bound is 0.5%.
+
+    With the JAX row statistics, layer 0 is exact on every seed, and every
+    seed but 70 is exact throughout, logits included: those differences all
+    come from rstd. Seed 70 keeps a layer-1 difference at the third step
+    that a JAX `_row_stats` compiled alone does not reproduce (in the
+    jitted step XLA fuses that sum with its neighbours); it stays within
+    the bound above."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    for jax_stats in (False, True):
+        if jax_stats:
+            monkeypatch.setattr(trq, "_row_stats", _row_stats_of_jax)
+        cfg, rng, jkv, tkv, pos, step = _slice_start(seed)
+        for _ in range(3):
+            jlg, tlg, jkv = step(jkv, rng.integers(0, cfg.vocab_size, len(pos)), pos)
+            assert calc_diff(tlg, jlg) < LOGITS_DIFF
+            exact, worst, sexact = _cache_match(jkv, tkv)
+            if jax_stats and seed != 70:
+                assert np.array_equal(tlg, jlg) and (exact, worst, sexact) == (1, 0, 1)
+            elif jax_stats or seed in FLIP_SEEDS:
+                assert exact >= 0.995 and worst <= 2 and sexact >= 0.995, (exact, worst, sexact)
+            else:
+                assert exact >= 0.999 and worst <= 1 and sexact >= 0.999, (exact, worst, sexact)
+            if jax_stats:
+                assert _cache_match(jkv, tkv, 0) == (1, 0, 1)
+            pos = pos + 1
 
 
 def _decode_steps(cfg, params, layout, steps, b, mp):
