@@ -7,27 +7,42 @@ Builds the CUDA kernels (one nvcc per source, all at once) and the native
 scheduler (g++) from the checkout into build/torch_kernels/, then:
 
 1. Holds every kernel against its plain PyTorch version on the card at the
-   shapes of its main path: the serving path's A-D (Llama-3-8B, decode batch
-   8) and the bench path's K1-K4 (batch 128, 512-token tm2 pages, pretiled
-   banks), plus the two contracts that reuse A and C (matmul.py:71 at L = 1,
-   decode_v8.py:388). The GEMMs and appends must agree exactly, the fused
-   RMSNorm-quant GEMM within 4 quant flips with >= 99% of rows exact, the
-   attention kernels within 2e-2 max-abs. Times the kernel, the plain
-   version and a PyTorch library yardstick with CUDA events, and computes
-   each kernel's bound from its bytes and operations.
+   shapes of its main path: the Llama serving path's A-D (Llama-3-8B, decode
+   batch 8), the Llama bench path's K1-K4 (batch 128, 512-token tm2 pages,
+   pretiled banks), the two contracts that reuse A and C (matmul.py:71 at
+   L = 1, decode_v8.py:388), and the MLA paths' kernels at DeepSeek-V2-Lite
+   width: K2 in its per_tensor mode, K5 (int8 and bf16 latent rows), K6 and
+   K7. The GEMMs and appends must agree exactly, the fused RMSNorm-quant
+   GEMM within 4 quant flips with >= 99% of rows exact, the Llama attention
+   kernels within 2e-2 max-abs, K5 and K7 (on O(1) outputs of a peaked
+   softmax) within one bf16 ulp plus 2e-3 (K5) or 1e-4 (K7) of max|plain|.
+   Times the kernel, the plain version and a PyTorch library yardstick with
+   CUDA events, and computes each kernel's bound from its bytes and
+   operations.
 2. Serves 8 greedy requests through LlamaEngine at Llama-3-8B width (int8 KV,
    seed-0 random weights) with all launch counters set to 0 first, checks
    the tokens, the logits, the scheduler and that kernels A-D launched, and
    serves them again to check that the tokens repeat.
-3. Runs two small configurations on the card and on the CPU (plain
-   versions) and compares logits and caches: prefill and decode on tm pages,
-   and decode on tm2 pages with pretiled banks.
+3. Runs small configurations on the card and on the CPU (plain versions)
+   and compares logits and caches: Llama prefill and decode on tm pages,
+   Llama decode on tm2 pages with pretiled banks, and a 2-layer MLA config
+   on both MLA paths.
 4. Runs the decode path of `python bench.py` (tm2 pages, pretiled banks,
    batch 128, context 256, 32 greedy steps per call) at Llama-3-8B width on
    phase 2's weights with the counters set to 0 first: checks the logits,
    the exact launches per step of K1-K4 (65, 64, 32, 1) and that a second
    run from the same state repeats its tokens; prints ms per step, tok/s,
    the share of bench.py's byte roofline, and a profiler split of a step.
+5. Serves phase 2's prompts through MlaEngine at DeepSeek-V2-Lite width
+   (seed-0 weights, split latent caches): every decode call launches
+   exactly K2 per_tensor 54, A 81, A at L = 1 1 and K7 27, every prefill
+   call the same without an attention kernel; the tokens repeat.
+6. Runs the decode path of `python bench.py --config mla` (an int8 combined
+   latent cache, banks pretiled at 1024, batch 128, context 256, 16 greedy
+   steps per call) on phase 5's weights: exact launches per step (K2 27 and
+   54 per_tensor, K1 54, A at L = 1 1, K5 27, K6 1), finite logits, repeat
+   tokens; prints ms per step, tok/s, the roofline share and a profiler
+   split.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -40,10 +55,16 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
 ATTN_TOL = 2e-2                # bf16 output rounding + summation order
+# K5 and K7 (`_bf16_check`): one bf16 ulp of the plain version's value plus
+# this share of max|plain|; K7's math is all f32, K5 rounds p to bf16 (an
+# ulp apart at most)
+K5_SHARE = 2e-3
+K7_SHARE = 1e-4
 
 
 def _gpu_line() -> str:
@@ -418,12 +439,14 @@ def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
         for m in (128, 1, 8, 100):
             x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
             xq, xs = quant.per_token_quant_int8(x)
-            out = mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws)
-            ref = mm.quant_matmul_int8_stacked_tiled_ref(xq, wt, li, xs, ws)
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                bad = (out != ref).sum().item()
-                raise AssertionError(f"w8a8_gemm_tiled {name} M={m}: {bad} elements differ")
+            for od in (torch.float32, torch.bfloat16):    # bf16 last: `ref` below
+                out = mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws, out_dtype=od)
+                ref = mm.quant_matmul_int8_stacked_tiled_ref(xq, wt, li, xs, ws, out_dtype=od)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    bad = (out != ref).sum().item()
+                    raise AssertionError(f"w8a8_gemm_tiled {name} M={m} {od}: {bad} elements "
+                                         "differ")
             if m != 128:
                 continue
             ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws), 20)
@@ -441,7 +464,8 @@ def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
                   f"kernel {ms:.4f} ms, plain {plain:.3f} ms, _int_mm {lib:.4f} ms, "
                   f"bound {bound:.4f} ms ({by})")
         del w, ws, wt
-    print("  w8a8_gemm_tiled exact also at M = 1, 8, 100 on all three banks")
+    print("  w8a8_gemm_tiled exact also at M = 1, 8, 100 on all three banks, bf16 and f32 "
+          "out")
     return _sum_rows(rows)
 
 
@@ -637,6 +661,285 @@ def check_matmul_l1(torch, mm, quant, cfg, rng):
                 max_abs_err=0.0)
 
 
+# ------------------------------------------------------ the MLA kernels
+
+
+def _flip_check(name, out, ref, flip):
+    """K2's bar: every element within 4 quant flips of its row, and >= 99% of
+    rows bit-exact. Returns (max-abs error, exact fraction of rows)."""
+    import torch
+    a, b = out.double(), ref.double()
+    err = float((a - b).abs().max())
+    if not bool(((a - b).abs() <= 1e-3 * b.abs() + 4 * flip).all()):
+        raise AssertionError(f"{name}: max-abs {err} beyond 4 flips ({flip})")
+    exact = float(torch.isclose(a, b, rtol=1e-6, atol=1e-6).all(dim=-1).double().mean())
+    if exact < 0.99:
+        raise AssertionError(f"{name}: only {exact:.4f} of rows exact")
+    return err, exact
+
+
+def check_rmsq_pt(torch, mm, rq, mcfg, rng):
+    """K2 in its per_tensor mode (static scale and offset, int32 bias, fp16
+    rounding) at the MLA path's shapes: wdqkv (bf16 x) and wuq (an f32 column
+    slice of stage 1's output) at M = 128 on banks pretiled to 1024-wide
+    panels (N padded as pretile_mla_weights pads it), and wdqkv on a plain
+    [K, N] weight at M = 8 (the engine's decode) and at M = 128 (its N
+    unpadded, beside the pretiled bank). Returns the sum of the two bench
+    rows and the M = 8 row."""
+    h, mm1 = mcfg.hidden_size, mcfg.mm1_out
+    c = mcfg.kv_lora_rank + mcfg.qk_rope_dim
+    qdim = mcfg.num_heads * (mcfg.qk_nope_dim + mcfg.qk_rope_dim)
+    cases = [("wdqkv", 128, h, mm1, 1024, "bf16"), ("wuq", 128, mcfg.q_lora_rank, qdim, 1024,
+                                                      "f32 slice"),
+             ("wdqkv plain", 8, h, mm1, None, "bf16"),
+             ("wdqkv plain", 128, h, mm1, None, "bf16")]
+    rows, dev = [], "cuda"
+    for name, m, k, n, bn, xkind in cases:
+        n_pad = -(-n // bn) * bn if bn else n
+        w = torch.zeros((2, k, n_pad), dtype=torch.int8, device=dev)
+        w[..., :n] = torch.randint(-127, 128, (2, k, n), generator=rng, dtype=torch.int8,
+                                   device=dev)
+        ds = torch.rand((2, n_pad), generator=rng, device=dev) * 1e-3
+        bias = torch.randint(-50, 50, (2, n_pad), generator=rng, dtype=torch.int32,
+                             device=dev)
+        if xkind == "f32 slice":
+            wide = torch.randn((m, 2 * c + k), generator=rng, device=dev)
+            x = wide[:, c:c + k]
+        else:
+            x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
+        gamma = (1 + 0.1 * torch.randn((k,), generator=rng, device=dev))
+        beta = 0.05 * torch.randn((k,), generator=rng, device=dev)
+        qs = torch.tensor([0.05], device=dev)
+        qo = torch.tensor([0.5], device=dev)
+        if bn:
+            wt, dsl, bl, li = mm.pretile_weight_bank(w, bn), ds, bias, 1
+        else:
+            wt, dsl, bl, li = w[1], ds[1], bias[1], None
+        kw = dict(li=li, quant_mode="per_tensor", eps=mcfg.rms_eps, quant_cast="fp16")
+        out = rq.rmsnorm_quant_gemm(x, gamma, beta, wt, dsl, bl, qs, qo, **kw)
+        ref = rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, dsl, bl, qs, qo, **kw)
+        torch.cuda.synchronize()
+        flip = float(w[1].abs().max()) * float(ds[1].max())
+        err, exact = _flip_check(f"rmsq_gemm per_tensor {name}", out, ref, flip)
+        ms = _time_ms(lambda: rq.rmsnorm_quant_gemm(x, gamma, beta, wt, dsl, bl, qs, qo,
+                                                    **kw), 20)
+        plain = _time_ms(lambda: rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, dsl, bl, qs,
+                                                           qo, **kw), 3, 1)
+        # yardstick: the GEMM part alone, torch._int_mm on the plain quant + epilogue
+        rstd = rq._rstd(x, True, mcfg.rms_eps)
+        xq = torch.round(((x.float() * rstd * gamma[None] + beta[None]) / qs + qo)
+                         .to(torch.float16).float()).clamp(-128, 127).to(torch.int8)
+        xp = xq if m > 16 else torch.cat([xq, xq.new_zeros((32 - m, k))])
+        wn, bn_, dn = w[1][:, :n].contiguous(), bias[1][:n], ds[1][:n]
+
+        def library():
+            return ((torch._int_mm(xp, wn) + bn_).float() * dn).to(torch.float32)
+        lib = _time_ms(library, 20)
+
+        def bound_at(nn):
+            nbytes = x.element_size() * m * k + k * nn + 4 * nn * 2 + 8 * k + 4 * m * nn
+            return _bound_ms(nbytes, 2.0 * m * nn * k, "int8_ops")
+        # the bound counts the N the model needs; the panels' zero columns
+        # are a cost of the layout, printed apart
+        bound, by = bound_at(n)
+        pad = f", bound at the padded N {bound_at(n_pad)[0]:.4f} ms" if n_pad != n else ""
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=err))
+        print(f"  rmsq_gemm per_tensor {name:11s} M={m:3d} K={k} N={n} (stored {n_pad}, "
+              f"{'bn ' + str(bn) if bn else 'plain'}, x {xkind}): {exact:.4f} of rows exact, "
+              f"max-abs {err:.3g} (one flip {flip:.3g}); kernel {ms:.4f} ms, plain "
+              f"{plain:.3f} ms, _int_mm (GEMM part only, N {n}) {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}){pad}")
+        del w, wt
+    return _sum_rows(rows[:2]), rows[2]
+
+
+def _latent_rows(torch, rng, shape, int8):
+    if int8:
+        return torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+    return torch.randn(shape, generator=rng, device="cuda").to(torch.bfloat16)
+
+
+def _bf16_check(name, out, ref, share):
+    """Every bf16 value of `out` within one bf16 ulp of `ref`'s (2^-7 of its
+    magnitude: two f32 results a summation order apart round to neighbouring
+    values) plus `share` * max|ref|. Returns max-abs and the largest error
+    over its bound."""
+    a, b = out.double(), ref.double()
+    err = (a - b).abs()
+    ratio = float((err / (2.0 ** -7 * b.abs() + share * b.abs().max())).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: max-abs {float(err.max()):.3g} is {ratio:.3g} x its "
+                             f"bound (max|plain| {float(b.abs().max()):.3g})")
+    return float(err.max()), ratio
+
+
+def _sdpa_yardstick(torch, q, k, v, mask, scale):
+    """One SDPA call in MQA-as-one-head form (q [B, 1, H, C] over k [B, 1,
+    n, C], v [B, 1, n, Cv], a boolean mask [B, 1, 1, n]), on the first fused
+    backend that takes it (flash, memory-efficient, cuDNN), else the math
+    one. Returns (call, backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    f = torch.nn.functional.scaled_dot_product_attention
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(be=be):
+            with sdpa_kernel(be):
+                return f(q, k, v, attn_mask=mask, scale=scale)
+        try:
+            with warnings.catch_warnings():       # a refusing backend says why
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, be.name.lower()
+    raise AssertionError("no SDPA backend takes the yardstick")
+
+
+def check_decode_mla_c(torch, dv2, mcfg, rng):
+    """K5 at the bench MLA path's shape, int8 and bf16 latent rows: 128
+    sequences, 16 heads, rows of 576 (512 | 64), 128-token pages, 3 pages
+    each, cached lengths over 0..319 (0, 1, 127, 128, 129, 256 among them).
+    Returns the int8 row (the bench path's) and prints both."""
+    b, h, lkv = 128, mcfg.num_heads, mcfg.kv_lora_rank
+    c, ps, mp, layers, li = lkv + mcfg.qk_rope_dim, mcfg.page_size, 3, 2, 1
+    pages = b * mp + 1
+    cached = torch.randint(0, 320, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    cached[:6] = torch.tensor([0, 1, 127, 128, 129, 256], dtype=torch.int32)
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    # scores of about 2.6 standard deviations: a peaked softmax, O(1) outputs
+    q = (1.5 * torch.randn((b, h, c), generator=rng, device="cuda")).to(torch.bfloat16)
+    new = torch.randn((b, c), generator=rng, device="cuda").to(torch.bfloat16)
+    sm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    row = None
+    for kind in ("int8", "bf16"):
+        int8 = kind == "int8"
+        cache = _latent_rows(torch, rng, (layers, pages, ps, c), int8)
+        scales = (torch.rand((layers, pages, 1, ps), generator=rng, device="cuda") * 0.02
+                  + 0.005) if int8 else None
+        args = (q, new, cache, cached, bt, sm, ps, lkv)
+        out = dv2.decode_mla_v3_defer(*args, layer_idx=li, kv_scales=scales)
+        ref = dv2._decode_chunks_ref(q, new, cache, scales, cached, bt, sm, ps, lkv, li,
+                                     dv2._chunk_pages(mp))
+        torch.cuda.synchronize()
+        err, ratio = _bf16_check(f"decode_mla_c {kind}", out, ref, K5_SHARE)
+        ms = _time_ms(lambda: dv2.decode_mla_v3_defer(*args, layer_idx=li, kv_scales=scales),
+                      50)
+        plain = _time_ms(lambda: dv2._decode_chunks_ref(q, new, cache, scales, cached, bt, sm,
+                                                        ps, lkv, li, dv2._chunk_pages(mp)), 5)
+        # yardstick: SDPA over the dequantized bf16 latent with the current
+        # row appended, MQA as one head: the 16 heads are 16 queries
+        n = mp * ps + 1
+        rows = cache[li][bt.long()].reshape(b, mp * ps, c).float()
+        if int8:
+            rows = rows * scales[li][bt.long()].reshape(b, mp * ps, 1)
+        kk = torch.cat([rows.to(torch.bfloat16), new[:, None]], 1)[:, None]
+        vv = kk[..., :lkv].contiguous()
+        col = torch.arange(n, device="cuda")
+        mask = ((col[None, :] < cached[:, None]) | (col[None, :] == n - 1))[:, None, None, :]
+        library, backend = _sdpa_yardstick(torch, q[:, None], kk, vv, mask, sm)
+        lib_err = (library()[:, 0].float() - ref.float()).abs().max().item()
+        lib = _time_ms(library, 20)
+        tok = cached.double().sum().item()
+        elt = 1 if int8 else 2
+        nbytes = (tok * (c * elt + (4 if int8 else 0)) + 2 * b * h * c + 2 * b * c
+                  + 2 * b * h * lkv + 4 * b + 4 * b * mp)
+        bound, by = _bound_ms(nbytes, 2.0 * (tok + b) * h * (c + lkv), "bf16_flops")
+        print(f"  decode_mla_c {kind} B={b} H={h} C={c} ps={ps} MP={mp} cached 0.."
+              f"{int(cached.max())} (sum {int(tok)}): max-abs {err:.3g} ({ratio:.3g} of its "
+              f"bound, max|plain| {float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms, SDPA ({backend}) {lib:.4f} ms (max-abs vs plain "
+              f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
+        if int8:
+            row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                       max_abs_err=err)
+        del cache
+    return row
+
+
+def check_append_mla(torch, dv2, mcfg, rng):
+    """K6 at the bench MLA path's shape: 27 layers x 128 int8 latent rows of
+    576 (one dropped: page P) into 385 pages of 128."""
+    layers, b, ps = mcfg.num_layers, 128, mcfg.page_size
+    c = mcfg.kv_lora_rank + mcfg.qk_rope_dim
+    pages = 3 * b + 1
+    new = torch.randint(-127, 128, (layers, b, c), generator=rng, dtype=torch.int8,
+                        device="cuda")
+    pg = (torch.randperm(pages - 1, generator=rng, device="cuda")[:b] + 1).to(torch.int32)
+    pg[-1] = pages                                    # a dropped row: sentinel P
+    off = torch.randint(0, ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    cache = torch.randint(-127, 128, (layers, pages, ps, c), generator=rng, dtype=torch.int8,
+                          device="cuda")
+    cache2 = cache.clone()
+    dv2.append_mla(new, cache, pg, off)
+    dv2.append_mla_ref(new, cache2, pg, off)
+    torch.cuda.synchronize()
+    if not torch.equal(cache, cache2):
+        raise AssertionError("append_mla differs from its plain version")
+    ms = _time_ms(lambda: dv2.append_mla(new, cache, pg, off), 50)
+    plain = _time_ms(lambda: dv2.append_mla_ref(new, cache2, pg, off), 10)
+    live = pg < pages
+    idx = (pg[live].long(), off[live].long())
+    src = new[:, live].permute(1, 0, 2).contiguous()
+    view = cache2.permute(1, 2, 0, 3)
+
+    def library():
+        view.index_put_(idx, src)
+    library()
+    if not torch.equal(cache, cache2):
+        raise AssertionError("index_put_ yardstick disagrees")
+    lib = _time_ms(library, 50)
+    nrow = int(live.sum())
+    bound, by = _bound_ms(2 * layers * nrow * c + 8 * b, 0.0, "bf16_flops")
+    print(f"  append_mla L={layers} B={b} C={c} (1 dropped): exact; kernel {ms:.4f} ms, "
+          f"plain {plain:.3f} ms, index_put_ {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=0.0)
+
+
+def check_decode_mla(torch, dec, mcfg, rng):
+    """K7 at the MLA engine's decode shape: 8 sequences, 16 heads, split
+    caches of 512 and 64 bf16 columns, 128-token pages, 40..700 cached (page
+    edges included) plus the current token already in the cache."""
+    b, h, lkv, lrope, ps = 8, mcfg.num_heads, mcfg.kv_lora_rank, mcfg.qk_rope_dim, \
+        mcfg.page_size
+    pages, mp = 512, 64
+    seq = torch.tensor([40, 127, 128, 129, 255, 384, 511, 700], dtype=torch.int32,
+                       device="cuda") + 1
+    bt = _block_tables(torch, rng, seq.tolist(), mp, pages, ps)
+    ckv = _latent_rows(torch, rng, (pages, ps, lkv), False)
+    kr = _latent_rows(torch, rng, (pages, ps, lrope), False)
+    q = (1.5 * torch.randn((b, h, lkv + lrope), generator=rng, device="cuda")).to(torch.bfloat16)
+    sm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    args = (q, ckv, kr, seq, bt, sm, ps)
+    out = dec.decode_mla(*args)
+    ref = dec.decode_mla_ref(*args)
+    torch.cuda.synchronize()
+    err, ratio = _bf16_check("decode_mla", out, ref, K7_SHARE)
+    ms = _time_ms(lambda: dec.decode_mla(*args), 50)
+    plain = _time_ms(lambda: dec.decode_mla_ref(*args), 5)
+    n = int(seq.max())
+    kk = torch.cat([ckv[bt.long()].reshape(b, mp * ps, lkv),
+                    kr[bt.long()].reshape(b, mp * ps, lrope)], -1)[:, None, :n].contiguous()
+    vv = kk[..., :lkv].contiguous()
+    mask = (torch.arange(n, device="cuda")[None, :] < seq[:, None])[:, None, None, :]
+    library, backend = _sdpa_yardstick(torch, q[:, None], kk, vv, mask, sm)
+    lib_err = (library()[:, 0].float() - ref.float()).abs().max().item()
+    lib = _time_ms(library, 50)
+    tok = seq.double().sum().item()
+    nbytes = tok * (lkv + lrope) * 2 + 2 * b * h * (lkv + lrope) + 2 * b * h * lkv + 4 * b \
+        + 4 * b * mp
+    bound, by = _bound_ms(nbytes, 2.0 * tok * h * (2 * lkv + lrope), "bf16_flops")
+    print(f"  decode_mla B={b} H={h} seq {seq.tolist()}: max-abs {err:.3g} ({ratio:.3g} of its "
+          f"bound, max|plain| {float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, SDPA ({backend}) {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), "
+          f"bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
 # ------------------------------------------------------------- the engine
 
 
@@ -651,14 +954,28 @@ def _prompts(rng, vocab):
     return first + [shared_a], shared_b
 
 
+def _check_call(kind, delta, expect):
+    """With `expect` ({"prefill": {...}, "decode": {...}}), the launches of
+    one model call must be exactly those listed, and 0 of every other."""
+    if expect is None:
+        return
+    bad = {k: n for k, n in delta.items() if n != expect[kind].get(k, 0)}
+    if bad:
+        raise AssertionError(f"a {kind} call launched {bad}; expected exactly "
+                             f"{expect[kind]} and no other kernel")
+
+
 def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
-               profile=False):
+               profile=False, engine_cls=None, expect=None):
     """Serve `prompts`, then `late` once the first shared-prefix prompt has
     been prefilled (so it reuses the radix-cached prefix). Returns outputs,
     timings, launch counts per step kind and the counts of the whole run;
-    with `profile`, afterwards profiles one steady-state decode call."""
-    eng = serving.LlamaEngine(cfg, params=params, device="cuda", num_pages=512,
-                              decode_batch=8, token_budget=256)
+    with `profile`, afterwards profiles a steady-state decode call (its
+    kernels all listed as glue: the largest first); with `expect`, checks
+    the launches of every model call (_check_call)."""
+    eng = (engine_cls or serving.LlamaEngine)(cfg, params=params, device="cuda",
+                                              num_pages=512, decode_batch=8,
+                                              token_budget=256)
     from sgl_kernel_npu_tpu_torch.runtime import NativeScheduler
     if not isinstance(eng.sched, NativeScheduler):
         raise AssertionError("the engine must run on the native scheduler")
@@ -676,6 +993,7 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
         stats["prefill_tok"] += int(a[1].sum())
         stats["prefill_steps"] += 1
         stats["per_prefill"] = stats["per_prefill"] or c.delta()
+        _check_call("prefill", c.delta(), expect)
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("prefill logits are not finite")
         return logits, kv
@@ -689,6 +1007,7 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
         stats["decode_tok"] += int((a[4] >= 0).sum())
         stats["decode_steps"] += 1
         stats["per_decode"] = stats["per_decode"] or c.delta()
+        _check_call("decode", c.delta(), expect)
         if stats["decode_steps"] == 8:          # a full batch, kept to profile
             stats["steady_args"] = [x.clone() for x in a]
         if not bool(torch.isfinite(logits).all()):
@@ -709,37 +1028,12 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
     outs = [eng.reqs[r]["out"] for r in rids + [late_rid]]
     reused = eng.reqs[late_rid]["cached"]
     if profile:
-        profile_decode(torch, inner_dec, stats["steady_args"])
+        # re-running the call after the engine has finished rewrites only
+        # slots nobody reads
+        args = stats["steady_args"]
+        profile_step(torch, lambda: inner_dec(*args), (), "decode call (B=8, all rows live)")
     del eng
     return outs, stats, wall, reused, launches
-
-
-def profile_decode(torch, decode, args, reps=3):
-    """Device time of a steady-state decode call (all 8 rows live) by
-    torch.profiler, and the kernels that take it. The engine has finished,
-    so re-running the call only rewrites slots nobody reads."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    decode(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            decode(*args)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
-    if not by_name:
-        print("  decode profile: the profiler recorded no device time (not measured)")
-        return
-    busy = sum(by_name.values()) / reps / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"  decode profile (B=8, steady state): device busy {busy:.3f} ms per call, "
-          f"wall {1e3 * wall:.3f} ms per call under the profiler; top kernels (ms per "
-          "call): " + "; ".join(f"{n[:48]} {t / reps / 1e3:.3f}" for n, t in top))
 
 
 def check_small_config(torch, llama):
@@ -964,30 +1258,33 @@ def run_bench_path(torch, llama, build, params, gpu):
     print(f"  launches in {steps} steps: "
           + ", ".join(f"{k} {n} ({n // steps}/step)" for k, n in launches.items() if n)
           + "; kernels A-D 0; repeat run identical")
-    profile_bench_step(torch, llama, params, cfg, kv, ids, pos, bt, rows)
-    return launches
-
-
-_BUCKETS = (("K1 w8a8_gemm_tiled", ("w8a8_kernel<64, false>", "w8a8_kernel<16, false>",
-                                    "w8a8_epilogue<false>")),
-            ("K2 rmsq_gemm", ("w8a8_kernel<64, true>", "w8a8_kernel<16, true>",
-                              "w8a8_epilogue<true>", "rmsq_rows")),
-            ("K3 decode_tm2", ("decode_tm2_kernel",)),
-            ("K4 append_tm2", ("append_tm2_kernel",)),
-            ("split-K memsets", ("Memset",)))
-
-
-def profile_bench_step(torch, llama, params, cfg, kv, ids, pos, bt, rows, reps=3):
-    """torch.profiler over steady-state decode steps of the bench path:
-    device time by kernel bucket (K1-K4, the split-K memsets, the glue of
-    PyTorch's own kernels) and the device's idle share of the step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    ps = cfg.page_size
 
     def step():
         slots = bt[rows, pos // ps] * ps + pos % ps
         return llama.decode_step_kv(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+    profile_step(torch, step, _BUCKETS, "bench step (B=128)")
+    return launches
+
+
+_K1 = ("w8a8_kernel<64, 0>", "w8a8_kernel<16, 0>", "w8a8_epilogue<false>")
+_K2 = ("w8a8_kernel<64, 1>", "w8a8_kernel<16, 1>", "w8a8_kernel<64, 2>",
+       "w8a8_kernel<16, 2>", "w8a8_epilogue<true>", "rmsq_rows")
+_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
+            ("K3 decode_tm2", ("decode_tm2_kernel",)),
+            ("K4 append_tm2", ("append_tm2_kernel",)),
+            ("split-K memsets", ("Memset",)))
+_MLA_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm (both modes)", _K2),
+                ("K5 decode_mla_c", ("decode_mla_c_kernel",)),
+                ("K6 append_mla", ("append_mla_kernel",)),
+                ("split-K memsets", ("Memset",)))
+
+
+def profile_step(torch, step, buckets, label, reps=3):
+    """torch.profiler over `reps` steady-state calls of `step`: device time
+    by kernel bucket (and the glue of PyTorch's own kernels) and the device's
+    idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1001,24 +1298,253 @@ def profile_bench_step(torch, llama, params, cfg, kv, ids, pos, bt, rows, reps=3
         if evt.device_type == DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     if not by_name:
-        print("  bench step profile: the profiler recorded no device time (not measured)")
+        print(f"  {label} profile: the profiler recorded no device time (not measured)")
         return
-    split = {label: 0.0 for label, _ in _BUCKETS}
+    split = {lb: 0.0 for lb, _ in buckets}
     split["glue (PyTorch kernels)"] = 0.0
     for name, us in by_name.items():
-        label = next((lb for lb, keys in _BUCKETS if any(k in name for k in keys)),
-                     "glue (PyTorch kernels)")
-        split[label] += us / reps / 1e3
+        lb = next((lb for lb, keys in buckets if any(k in name for k in keys)),
+                  "glue (PyTorch kernels)")
+        split[lb] += us / reps / 1e3
     busy = sum(split.values())
     glue = sorted(((n, t) for n, t in by_name.items()
-                   if not any(k in n for _, keys in _BUCKETS for k in keys)),
+                   if not any(k in n for _, keys in buckets for k in keys)),
                   key=lambda kv: -kv[1])[:5]
-    print(f"  bench step profile (B=128, steady state, {reps} steps): wall {1e3 * wall:.3f} "
-          f"ms/step under the profiler, device busy {busy:.3f} ms, idle share "
+    print(f"  {label} profile ({reps} steady-state steps): wall {1e3 * wall:.3f} ms/step "
+          f"under the profiler, device busy {busy:.3f} ms, idle share "
           f"{1 - busy / (1e3 * wall):.3f}; ms/step by kind: "
           + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
           + "; largest glue kernels (ms/step): "
           + "; ".join(f"{n[:40]} {t / reps / 1e3:.3f}" for n, t in glue))
+
+
+def _small_mla_config(dm):
+    """DeepSeek's MLA widths (16 heads, latent 512 | 64, nope 128) with 2
+    layers, hidden 512, q-LoRA 128 (K2 takes K in steps of 64), FFN 1024,
+    vocab 1024 and 16-token pages, so that every MLA kernel runs."""
+    return dm.MlaConfig(vocab_size=1024, hidden_size=512, num_layers=2, num_heads=16,
+                        kv_lora_rank=512, qk_rope_dim=64, qk_nope_dim=128, v_head_dim=128,
+                        q_lora_rank=128, intermediate_size=1024, page_size=16,
+                        max_position=512)
+
+
+def check_small_mla(torch, dm):
+    """The small MLA config on the card and on the CPU (plain versions), from
+    the same CPU-made weights and inputs, on both paths:
+      * bench path: three decode_step_c steps on an int8 combined cache
+        pre-filled with the same seeded rows at position ps - 2, B = 8,
+        banks pretiled to 128-wide panels (K1, K2 both modes, K5, K6): logits
+        calc_diff < 8e-3 at each step, layer-0 rows and scales >= 99.9% exact
+        with |diff| <= 1;
+      * engine path: a chunked prefill of 2 sequences (decode_verify_step,
+        causal) then 2 decode_step steps on a padded batch of 4, on split
+        caches with fused stage weights (K2 per_tensor, A, K7): logits
+        calc_diff < 8e-3, the split caches within calc_diff 1e-4 (bf16 rows
+        after RMSNorms that the card and the CPU sum in other orders)."""
+    cfg = _small_mla_config(dm)
+    ps = cfg.page_size
+    cpu_params = dm.init_params(cfg, 9, "cpu")
+    rng = np.random.default_rng(13)
+    b, mp = 8, 2
+    pages = b * mp + 1
+    c = dm.combined_width(cfg)
+    cache = {"kv": rng.integers(-127, 128, (cfg.num_layers, pages, ps, c), dtype=np.int8),
+             "s": (rng.random((cfg.num_layers, pages, 1, ps)) * 0.02 + 0.001)
+             .astype(np.float32)}
+    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
+    steps, pos = [], np.full(b, ps - 2, np.int32)
+    for _ in range(3):
+        slots = (bt[np.arange(b), pos // ps] * ps + pos % ps).astype(np.int32)
+        steps.append((rng.integers(0, cfg.vocab_size, b).astype(np.int32), pos, pos + 1, bt,
+                      slots))
+        pos = pos + 1
+    # one weight set serves both paths: "fast" for the bench path, the fused
+    # stage copies for the engine path
+    dm.pretile_mla_weights(dm.fuse_mla_weights(cpu_params), cfg, block_n=128)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        params = _to_device(cpu_params, dev)
+        kv = {k: torch.from_numpy(a).to(dev) for k, a in cache.items()}
+        logits = []
+        for args in steps:
+            lg, kv = dm.decode_step_c(params, cfg, kv, *(torch.from_numpy(np.array(a)).to(dev)
+                                                         for a in args))
+            logits.append(lg.float().cpu())
+        results[dev] = (logits, {k: v.cpu() for k, v in kv.items()})
+    diffs = [_calc_diff(a, r) for a, r in zip(results["cuda"][0], results["cpu"][0])]
+    if max(diffs) >= 8e-3 or not all(bool(torch.isfinite(a).all()) for a in results["cuda"][0]):
+        raise AssertionError(f"small MLA bench path: logits calc_diff {diffs}")
+    match = {}
+    for k in ("kv", "s"):
+        a, r = results["cuda"][1][k], results["cpu"][1][k]
+        match[k] = [float((a[li] == r[li]).float().mean()) for li in range(2)]
+        worst = int((a[0].int() - r[0].int()).abs().max()) if k == "kv" else 0
+        if match[k][0] < 0.999 or worst > 1:
+            raise AssertionError(f"small MLA bench path layer-0 {k}: {match[k][0]:.5f} exact, "
+                                 f"max |diff| {worst}")
+    print(f"  small MLA config (L=2, H=16, 512|64, q-LoRA 128, ps=16), bench path B=8 "
+          f"int8 rows: logits calc_diff per step {[f'{x:.3g}' for x in diffs]}; exact "
+          f"fraction per layer rows {match['kv']}, scales {match['s']}")
+
+    # the engine path
+    s, t, mpe, pages_e = 2, 32, 4, 12
+    lens = [29, 20]
+    bts = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    ids = np.zeros((s, t), np.int32)
+    slp = np.full((s, t), -1, np.int32)
+    ppos = np.zeros((s, t), np.int32)
+    for si, n in enumerate(lens):
+        ids[si, :n] = rng.integers(0, cfg.vocab_size, n)
+        ppos[si, :n] = np.arange(n)
+        slp[si, :n] = bts[si, np.arange(n) // ps] * ps + np.arange(n) % ps
+    dsteps = []
+    for step in range(2):
+        cur = [n + step for n in lens]
+        bt4 = np.zeros((4, mpe), np.int32)
+        bt4[:2] = bts
+        sl = np.full(4, -1, np.int32)
+        sl[:2] = [bts[i, p // ps] * ps + p % ps for i, p in enumerate(cur)]
+        ids_d = np.zeros(4, np.int32)
+        ids_d[:2] = rng.integers(0, cfg.vocab_size, 2)
+        dsteps.append((ids_d, np.array(cur + [0, 0], np.int32),
+                       np.array([p + 1 for p in cur] + [1, 1], np.int32), bt4, sl))
+    for dev in ("cuda", "cpu"):
+        params = _to_device(cpu_params, dev)
+        ckv, kr = dm.init_kv_cache(cfg, pages_e, device=dev)
+
+        def tt(a):
+            return torch.from_numpy(np.array(a)).to(dev)
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev)).expand(s, t, t)
+        lg, ckv, kr = dm.decode_verify_step(params, cfg, ckv, kr, tt(ids), tt(ppos), mask,
+                                            torch.zeros(s, dtype=torch.int32, device=dev),
+                                            tt(bts), tt(slp))
+        logits = [lg[si, :n].float().cpu() for si, n in enumerate(lens)]
+        for args in dsteps:
+            lg, ckv, kr = dm.decode_step(params, cfg, ckv, kr, *(tt(a) for a in args))
+            logits.append(lg[:2].float().cpu())
+        results[dev] = (logits, (ckv.float().cpu(), kr.float().cpu()))
+    diffs = [_calc_diff(a, r) for a, r in zip(results["cuda"][0], results["cpu"][0])]
+    if max(diffs) >= 8e-3 or not all(bool(torch.isfinite(a).all()) for a in results["cuda"][0]):
+        raise AssertionError(f"small MLA engine path: logits calc_diff {diffs}")
+    cdiff = [_calc_diff(a, r) for a, r in zip(results["cuda"][1], results["cpu"][1])]
+    exact = [float((a == r).float().mean()) for a, r in zip(results["cuda"][1],
+                                                          results["cpu"][1])]
+    if max(cdiff) >= 1e-4:
+        raise AssertionError(f"small MLA engine path: caches calc_diff {cdiff}")
+    print(f"  small MLA config, engine path (prefill {lens} + 2 decode steps, B=4): logits "
+          f"calc_diff {[f'{x:.3g}' for x in diffs]}; ckv / krope calc_diff "
+          f"{[f'{x:.3g}' for x in cdiff]}, exact fraction {exact}")
+
+
+# the kernels of phase 5's MLA serving path, per model call
+MLA_SERVING = {"decode": {"rmsq_gemm_pt": 54, "w8a8_gemm": 81, "w8a8_gemm_l1": 1,
+                          "decode_mla": 27},
+               "prefill": {"rmsq_gemm_pt": 54, "w8a8_gemm": 81, "w8a8_gemm_l1": 1}}
+MLA_BATCH, MLA_CTX, MLA_STEPS, MLA_REPS = 128, 256, 16, 3
+# launches of one decode_step_c step at DeepSeek-V2-Lite's 27 layers
+MLA_PER_STEP = {"rmsq_gemm": 27, "rmsq_gemm_pt": 54, "w8a8_gemm_tiled": 54,
+                "w8a8_gemm_l1": 1, "decode_mla_c": 27, "append_mla": 1}
+
+
+def run_mla_bench_path(torch, dm, build, params, cfg, gpu):
+    """What `python bench.py --config mla` runs (bench.py:265-375), on the
+    port: DeepSeek-V2-Lite width, batch 128, context 256, 128-token pages, an
+    int8 combined latent cache, banks pretiled to 1024-wide panels
+    (bench.py:300), 16 greedy decode steps per call with argmax feeding the
+    next id, one warm call then 3 timed. `params` (seed 0) gain their
+    pretiled set. The cache holds seeded random rows and scales where
+    bench.py leaves zeros. Returns the launch counts of the run."""
+    b, ctx, k_steps, reps = MLA_BATCH, MLA_CTX, MLA_STEPS, MLA_REPS
+    t0 = time.perf_counter()
+    dm.pretile_mla_weights(params, cfg, block_n=1024)
+    torch.cuda.synchronize()
+    fast = params["fast"]
+    wq = fast["wdqkv"]["q"]
+    print(f"  pretile_mla_weights (bn 1024: wdqkv N {cfg.mm1_out} -> {wq.shape[1] * wq.shape[3]}"
+          f", intermediate {cfg.intermediate_size} -> {fast['w2']['q'].shape[2]}) "
+          f"{time.perf_counter() - t0:.1f} s")
+    ps = cfg.page_size
+    total_new = k_steps * (1 + reps)
+    max_pages = -(-(ctx + total_new) // ps)
+    num_pages = b * max_pages + 1
+    kv = dm.init_kv_cache_combined(cfg, num_pages, quant="int8", device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    kv["kv"].copy_(torch.randint(-127, 128, kv["kv"].shape, generator=gen, dtype=torch.int8,
+                                 device="cuda"))
+    kv["s"].copy_(torch.rand(kv["s"].shape, generator=gen, device="cuda") * 0.02 + 0.001)
+    rng = np.random.default_rng(0)
+    bt = torch.from_numpy((rng.permutation(num_pages - 1)[: b * max_pages]
+                           .reshape(b, max_pages) + 1).astype(np.int32)).cuda()
+    pos0 = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+    ids0 = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).cuda()
+    rows = torch.arange(b, device="cuda")
+
+    def run_steps(kv, ids, pos):
+        toks, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+        for _ in range(k_steps):
+            slots = bt[rows, pos // ps] * ps + pos % ps
+            logits, kv = dm.decode_step_c(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+            finite &= torch.isfinite(logits).all()
+            ids = torch.argmax(logits, -1).to(torch.int32)
+            toks.append(ids)
+            pos = pos + 1
+        return kv, ids, pos, torch.stack(toks), finite
+
+    build.reset_launches()
+    kv, ids, pos, _, finite = run_steps(kv, ids0, pos0)            # warm
+    torch.cuda.synchronize()
+    if not bool(finite):
+        raise AssertionError("MLA bench path: logits are not finite")
+    snap = ({k: v.clone() for k, v in kv.items()}, ids.clone(), pos.clone())
+    times, first = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv, ids, pos, toks, finite = run_steps(kv, ids, pos)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / k_steps)
+        if not bool(finite):
+            raise AssertionError("MLA bench path: logits are not finite")
+        first = toks if first is None else first
+    launches = dict(build.launches)
+    steps = k_steps * (1 + reps)
+    for name, n in launches.items():
+        want = MLA_PER_STEP.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"MLA bench path: {name} launched {n} times in {steps} steps,"
+                                 f" not {want} ({MLA_PER_STEP.get(name, 0)} per step)")
+    again = run_steps(*snap)[3]
+    if not torch.equal(again, first):
+        raise AssertionError("MLA bench path: a second run from the same state gave other "
+                             "tokens")
+    dt = float(np.median(times))
+    tok_s = b / dt
+    # bench.py's byte roofline (bench.py:352-370), with the row bytes of the
+    # layout the port stores: 576 int8 + a 4-byte scale
+    l, h, v = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    heads, qdim, f = cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.intermediate_size
+    w_int8 = l * (h * cfg.mm1_out + cfg.q_lora_rank * heads * qdim
+                  + heads * cfg.v_head_dim * h + h * 2 * f + f * h) + h * v
+    w_f32 = l * (heads * cfg.qk_nope_dim * cfg.kv_lora_rank
+                 + heads * cfg.kv_lora_rank * cfg.v_head_dim) * 4
+    row_bytes = dm.combined_width(cfg) + 4
+    kv_per_tok = l * row_bytes * (ctx + total_new // 2)
+    from sgl_kernel_npu_tpu_torch.utils import H100
+    roofline = H100.hbm_bytes_per_s / ((w_int8 + w_f32) / b + kv_per_tok)
+    print(f"  MLA bench path B={b} ctx={ctx} ps={ps} int8 rows, {k_steps} steps x (1 warm + "
+          f"{reps}): median {1e3 * dt:.3f} ms/step (steps {[round(1e3 * t, 3) for t in times]}),"
+          f" {tok_s:.1f} tok/s; byte roofline at 3.35 TB/s {roofline:.1f} tok/s, share "
+          f"{tok_s / roofline:.4f} [{gpu}]")
+    print(f"  launches in {steps} steps: "
+          + ", ".join(f"{k} {n} ({n // steps}/step)" for k, n in launches.items() if n)
+          + "; every other kernel 0; repeat run identical")
+
+    def step():
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        return dm.decode_step_c(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+    profile_step(torch, step, _MLA_BUCKETS, "MLA bench step (B=128)")
+    return launches
 
 
 def _to_device(tree, dev):
@@ -1036,9 +1562,10 @@ def main() -> int:
     try:
         from sgl_kernel_npu_tpu_torch import _build, serving
         from sgl_kernel_npu_tpu_torch import runtime
-        from sgl_kernel_npu_tpu_torch.models import llama
+        from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama
         from sgl_kernel_npu_tpu_torch.ops import matmul, quant, rmsq_gemm
-        from sgl_kernel_npu_tpu_torch.ops.attention import (decode_v8, decode_v9,
+        from sgl_kernel_npu_tpu_torch.ops.attention import (decode, decode_mla_v2,
+                                                            decode_v8, decode_v9,
                                                             decode_v11, decode_v13,
                                                             paged_prefill_tm)
     except ImportError as e:
@@ -1056,10 +1583,16 @@ def main() -> int:
     print(f"g++ runtime {time.perf_counter() - t0:.1f} s")
 
     cfg = llama.LlamaConfig(int8_kv=True)
+    # bench.py --config mla (bench.py:281-284): DeepSeek-V2-Lite's dimensions
+    # with V2's q-LoRA of 1536
+    mcfg = deepseek_mla.MlaConfig(vocab_size=102400, hidden_size=2048, num_layers=27,
+                                  num_heads=16, kv_lora_rank=512, qk_rope_dim=64,
+                                  qk_nope_dim=128, v_head_dim=128, q_lora_rank=1536,
+                                  intermediate_size=10944, page_size=128)
     rng = torch.Generator(device="cuda")
     rng.manual_seed(0)
 
-    print("phase 1: kernels vs plain versions at Llama-3-8B shapes")
+    print("phase 1: kernels vs plain versions at Llama-3-8B and DeepSeek-V2-Lite shapes")
     _warm_up_card(torch)
     rows = {}
     gemm_rows = check_gemm(torch, matmul, quant, cfg, rng)
@@ -1079,6 +1612,14 @@ def main() -> int:
     rows["k3"] = check_decode_tm2(torch, decode_v11, decode_v13, cfg, rng)
     torch.cuda.empty_cache()
     rows["k4"] = check_append_tm2(torch, decode_v11, cfg, rng)
+    torch.cuda.empty_cache()
+    rows["k2pt"], rows["k2pt_m8"] = check_rmsq_pt(torch, matmul, rmsq_gemm, mcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k5"] = check_decode_mla_c(torch, decode_mla_v2, mcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k7"] = check_decode_mla(torch, decode, mcfg, rng)
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -1121,11 +1662,49 @@ def main() -> int:
     print("phase 3: small configs, card vs CPU plain versions")
     check_small_config(torch, llama)
     check_small_tm2(torch, llama)
+    check_small_mla(torch, deepseek_mla)
 
     print("phase 4: the bench.py decode path (tm2 pages, pretiled banks, batch 128) "
           "at Llama-3-8B width")
     bench_launches = run_bench_path(torch, llama, _build, params, gpu)
     del params
+    torch.cuda.empty_cache()
+
+    print("phase 5: MlaEngine at DeepSeek-V2-Lite width, seed-0 weights")
+    t0 = time.perf_counter()
+    mparams = deepseek_mla.init_params(mcfg, 0, "cuda")
+    torch.cuda.synchronize()
+    print(f"  init_params {time.perf_counter() - t0:.1f} s")
+    mprompts, mlate = _prompts(np.random.default_rng(0), mcfg.vocab_size)
+    _build.reset_launches()
+    mouts, mst, mwall, mreused, mla_launches = run_engine(
+        torch, serving, _build, mcfg, mparams, mprompts, mlate, new_tokens, profile=True,
+        engine_cls=serving.MlaEngine, expect=MLA_SERVING)
+    if any(len(o) != new_tokens for o in mouts):
+        raise AssertionError(f"MLA token counts {[len(o) for o in mouts]}")
+    if mreused != 256:
+        raise AssertionError(f"MLA: the shared 256-token prefix was not reused ({mreused})")
+    mouts2 = run_engine(torch, serving, _build, mcfg, mparams, mprompts, mlate, new_tokens,
+                        engine_cls=serving.MlaEngine, expect=MLA_SERVING)[0]
+    if mouts2 != mouts:
+        raise AssertionError("MLA: a second run from the same seed gave other tokens")
+    print(f"  {len(mouts)} requests (lengths {[len(p) for p in mprompts + [mlate]]}), "
+          f"{new_tokens} tokens each, radix reuse {mreused} tokens, repeat run identical")
+    print(f"  {mst['prefill_steps']} prefill calls, {mst['prefill_tok']} tokens, "
+          f"{mst['prefill_s']:.3f} s -> {mst['prefill_tok'] / mst['prefill_s']:.1f} prefill "
+          f"tok/s; {mst['decode_steps']} decode calls, {mst['decode_tok']} tokens, "
+          f"{mst['decode_s']:.3f} s -> {mst['decode_tok'] / mst['decode_s']:.1f} decode tok/s, "
+          f"{1e3 * mst['decode_s'] / mst['decode_steps']:.2f} ms/decode step; "
+          f"wall {mwall:.2f} s [{gpu}]")
+    print(f"  launches in the run: { {k: n for k, n in mla_launches.items() if n} }; every "
+          f"decode call exactly {MLA_SERVING['decode']}, every prefill call exactly "
+          f"{MLA_SERVING['prefill']} (no attention kernel)")
+    torch.cuda.empty_cache()
+
+    print("phase 6: the bench.py --config mla decode path (int8 combined latent cache, "
+          "pretiled banks, batch 128) at DeepSeek-V2-Lite width")
+    mla_bench_launches = run_mla_bench_path(torch, deepseek_mla, _build, mparams, mcfg, gpu)
+    del mparams
     torch.cuda.empty_cache()
 
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
@@ -1161,6 +1740,18 @@ def main() -> int:
         dict(name="w8a8_gemm (L = 1 contract)", route="cuda", source=f"{src}/w8a8_gemm.cu",
              replaces=f"{base}/ops/matmul.py:71", launches=launches["w8a8_gemm_l1"],
              **rows["l1"]),
+        dict(name="rmsq_gemm (per_tensor)", route="cuda", source=f"{src}/rmsq_gemm.cu",
+             replaces=f"{base}/ops/rmsq_gemm.py:148",
+             launches=mla_bench_launches["rmsq_gemm_pt"], **rows["k2pt"]),
+        dict(name="decode_mla_c", route="cuda", source=f"{src}/decode_mla_c.cu",
+             replaces=f"{base}/ops/attention/decode_mla_v2.py:409",
+             launches=mla_bench_launches["decode_mla_c"], **rows["k5"]),
+        dict(name="append_mla", route="cuda", source=f"{src}/append_mla.cu",
+             replaces=f"{base}/ops/attention/decode_mla_v2.py:493",
+             launches=mla_bench_launches["append_mla"], **rows["k6"]),
+        dict(name="decode_mla", route="cuda", source=f"{src}/decode_mla.cu",
+             replaces=f"{base}/ops/attention/decode.py:240",
+             launches=mla_launches["decode_mla"], **rows["k7"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1169,7 +1760,9 @@ def main() -> int:
           "row: sum of wqkv and w13 at M=128 (library: the GEMM part alone); launches of "
           "A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
           "K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract is on no main "
-          "path")
+          "path; rmsq_gemm (per_tensor) row: sum of wdqkv and wuq at M=128, launches of it, "
+          "K5 and K6 from phase 6 (all its 64 steps), of K7 from phase 5; decode_mla_c row: "
+          "the int8 cache (decode_mla_v2.py:224 is the same contract, bf16)")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,12 @@ use) with a plain PyTorch version in the same module: a CUDA tensor launches
 the kernel, a CPU tensor runs the plain version.
 
 Subpackages:
-  ops       W8A8 GEMM, int8 quant, RoPE, token-major paged attention + append
-  models    Llama-3-class W8A8 decoder on token-major int8 pages
+  ops       W8A8 GEMMs (plain, stacked, pretiled, fused RMSNorm-quant), int8
+            quant, RoPE, paged attention and appends (Llama tm / tm2 pages,
+            MLA combined and split latent pages), mla_preprocess
+  models    Llama-3-class and DeepSeek-V2-class MLA W8A8 decoders
   runtime   ctypes bindings of the native scheduler (csrc/runtime.cpp)
-  serving   LlamaEngine: continuous batching, radix prefix reuse
+  serving   LlamaEngine and MlaEngine: continuous batching, radix prefix reuse
   utils     env flags, device selection, H100 roofline numbers
 """
 

@@ -40,14 +40,19 @@ KERNELS = {
     "rmsq_gemm": "rmsq_gemm",          # K2
     "decode_tm2": "decode_tm2",        # K3
     "append_tm2": "append_tm2",        # K4
+    "decode_mla_c": "decode_mla_c",    # K5
+    "append_mla": "append_mla",        # K6
+    "decode_mla": "decode_mla",        # K7
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # kernel A launched by quant_matmul_int8 on a plain [K, N] weight (the L = 1
-# contract) counts apart from kernel A on a stacked bank
-launches: Dict[str, int] = {name: 0 for name in (*KERNELS, "w8a8_gemm_l1")}
+# contract) counts apart from kernel A on a stacked bank, and K2 in its
+# per_tensor mode apart from K2 in its per_token mode
+launches: Dict[str, int] = {name: 0 for name in (*KERNELS, "w8a8_gemm_l1",
+                                                 "rmsq_gemm_pt")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

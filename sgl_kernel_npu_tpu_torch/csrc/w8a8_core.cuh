@@ -1,7 +1,7 @@
 // Device code shared by the W8A8 GEMMs: kernels A and K1 (w8a8_gemm.cu) and
 // K2 (rmsq_gemm.cu).
 //
-//   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n]) * scales )
+//   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n] + bias[li, n]) * scales )
 //
 // The weight bank is a stack of column panels: [L, NB, K, bn] int8, panel j of
 // layer li a contiguous [K, bn] block at ((li*NB + j)*K)*bn with rows of bn
@@ -9,16 +9,20 @@
 // pretiled banks of ops/matmul.py::pretile_weight_bank have bn a multiple of
 // the block width BN, so a block's 128 columns never straddle two panels.
 //
-// The A operand is either int8 rows (A, K1) or, with NORM, bf16 rows that the
-// prologue normalises and quantises into shared memory, so that the int8
-// activation never reaches device memory (K2):
-//   xq = clamp(rint((x * rstd * gamma + beta) / qscale), -128, 127)
+// The A operand (rows ldx elements apart) is either int8 rows (A, K1) or, for
+// K2, bf16 or f32 rows that the prologue normalises and quantises into shared
+// memory, so that the int8 activation never reaches device memory:
+//   v  = (x * rstd * gamma + beta) / qdiv + qoff
+//   xq = clamp(rint(fp16_cast ? float(half(v)) : v), -128, 127)
 // with every step rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn), so
-// no FMA contraction rounds differently from the plain PyTorch version.
+// no FMA contraction rounds differently from the plain PyTorch version. qdiv
+// is the per-token scale (per_token mode) or the static scale (per_tensor);
+// qoff is 0 in the per_token mode.
 //
-// Epilogue orders, as the plain versions multiply:
-//   A, K1:        (acc * x_scale[m]) * w_scale[li, n]
-//   K2 (NORM):    (acc * w_scale[li, n]) * x_scale[m]
+// Epilogue orders, as the plain versions multiply (the int32 bias, K2's
+// per_tensor mode only, is added to the sum first):
+//   A, K1:  (acc * x_scale[m]) * w_scale[li, n]
+//   K2:     (acc * w_scale[li, n]) * x_scale[m]    (x_scale 1 in per_tensor)
 //
 // int8 tensor-core mma.sync m16n8k32 with s32 accumulation makes the sum
 // exact, so each kernel equals its plain version bit for bit. Weight tiles are
@@ -33,6 +37,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace skt_w8a8 {
@@ -42,17 +47,26 @@ constexpr int BK = 64;       // K elements per stage
 constexpr int SROW = 80;     // padded shared-memory row: conflict-free fragment loads
 constexpr int THREADS = 128;
 
+// element type of the A operand: int8 rows (A, K1), or bf16 / f32 rows that
+// K2's prologue quantises
+constexpr int X_INT8 = 0;
+constexpr int X_BF16 = 1;
+constexpr int X_F32 = 2;
+
 struct Gemm {
-  const void* x;         // [M, K] int8, or bf16 with NORM
+  const void* x;         // [M, ldx] int8, or bf16 / f32 for K2
   const int8_t* w;       // [L, N/bn, K, bn] int8
-  const float* xs;       // [M] per-row scale (with NORM also the quant divisor)
+  const float* xs;       // [M] epilogue row scale
   const float* ws;       // [L, N] per-column scale
   void* out;             // [M, N] bf16, or f32 when out_f32
   int32_t* accum;        // [M, N] split-K workspace, or null
-  const float* rstd;     // NORM: [M] 1/rms of each row (1 without the norm)
-  const float* gamma;    // NORM: [K]
-  const float* beta;     // NORM: [K]
-  int M, N, K, li, bn, k_chunk, out_f32;
+  const int32_t* bias;   // [L, N] int32 added to the sum, or null
+  const float* rstd;     // K2: [M] 1/rms of each row (1 without the norm)
+  const float* qdiv;     // K2: [M] quant divisor of each row
+  const float* qoff;     // K2: the quant offset (one value), or null for 0
+  const float* gamma;    // K2: [K]
+  const float* beta;     // K2: [K]
+  int M, N, K, ldx, li, bn, k_chunk, out_f32, fp16_cast;
 };
 
 __device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
@@ -81,11 +95,15 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// One quantised activation: the prologue of K2.
+// One quantised activation: the prologue of K2. fp16_cast rounds to fp16
+// (nearest even, with fp16's subnormals and overflow to inf) before rint, as
+// the plain version's cast to float16 does.
 __device__ __forceinline__ int8_t quant_one(float x, float rstd, float g, float b,
-                                            float qdiv) {
+                                            float qdiv, float qoff, int fp16_cast) {
   const float xn = __fadd_rn(__fmul_rn(__fmul_rn(x, rstd), g), b);
-  int q = __float2int_rn(__fdiv_rn(xn, qdiv));      // round half to even
+  float v = __fadd_rn(__fdiv_rn(xn, qdiv), qoff);
+  if (fp16_cast) v = __half2float(__float2half_rn(v));
+  int q = __float2int_rn(v);      // round half to even; saturates out of range
   q = max(-128, min(127, q));
   return (int8_t)q;
 }
@@ -103,17 +121,23 @@ __device__ __forceinline__ void store_out(const Gemm& p, size_t i, float v) {
     static_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16_rn(v);
 }
 
-template <int BM, bool NORM>
+__device__ __forceinline__ int32_t bias_of(const Gemm& p, int c) {
+  return p.bias != nullptr ? p.bias[(size_t)p.li * p.N + c] : 0;
+}
+
+template <int BM, int XK>
 __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
+  constexpr bool NORM = XK != X_INT8;
   constexpr int WARPS_M = BM == 16 ? 1 : 2;
   constexpr int WARPS_N = 4 / WARPS_M;
   constexpr int MT = BM / WARPS_M / 16;        // m16 tiles per warp
   constexpr int NT = BN / WARPS_N / 8;         // n8 tiles per warp
-  constexpr int XB = NORM ? 2 : 1;             // bytes per x element
+  constexpr int XB = XK == X_F32 ? 4 : XK == X_BF16 ? 2 : 1;   // bytes per x element
   constexpr int VPR = BK * XB / 16;            // 16-byte vectors per row and stage
   constexpr int EPV = 16 / XB;                 // elements per vector
   constexpr int A_VECS = BM * VPR;
   constexpr int A_PER_THREAD = (A_VECS + THREADS - 1) / THREADS;
+  constexpr int NG = NORM ? EPV / 4 : 1;       // float4 groups of gamma / beta per vector
 
   __shared__ __align__(16) int8_t As[BM * SROW];
   __shared__ __align__(16) int8_t Bs[BN * SROW];
@@ -139,16 +163,18 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
 
   int4 areg[A_PER_THREAD];
   int4 breg[4];
-  // NORM: a thread quantises the same rows (and, per stage, the same 8
+  // NORM: a thread quantises the same rows (and, per stage, the same EPV
   // columns) throughout, so it keeps their rstd and divisor in registers
   float rs[A_PER_THREAD], qd[A_PER_THREAD];
+  float qo = 0.f;
   if constexpr (NORM) {
 #pragma unroll
     for (int i = 0; i < A_PER_THREAD; ++i) {
       const int r = m0 + (tid + i * THREADS) / VPR;
       rs[i] = r < M ? p.rstd[r] : 0.f;
-      qd[i] = r < M ? p.xs[r] : 1.f;
+      qd[i] = r < M ? p.qdiv[r] : 1.f;
     }
+    if (p.qoff != nullptr) qo = *p.qoff;
   }
 
   auto load = [&](int k0) {
@@ -160,7 +186,7 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
         const int r = v / VPR, c = (v % VPR) * EPV;
         if (m0 + r < M)
           areg[i] = *reinterpret_cast<const int4*>(
-              x + ((size_t)(m0 + r) * K + k0 + c) * XB);
+              x + ((size_t)(m0 + r) * p.ldx + k0 + c) * XB);
       }
     }
 #pragma unroll
@@ -173,13 +199,14 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
   };
 
   auto store = [&](int k0) {
-    float4 g[2], b[2];                // NORM: gamma, beta of this thread's 8 columns
+    float4 g[NG], b[NG];              // NORM: gamma, beta of this thread's EPV columns
     if constexpr (NORM) {
       const int k = k0 + (tid % VPR) * EPV;
-      g[0] = __ldg(reinterpret_cast<const float4*>(p.gamma + k));
-      g[1] = __ldg(reinterpret_cast<const float4*>(p.gamma + k + 4));
-      b[0] = __ldg(reinterpret_cast<const float4*>(p.beta + k));
-      b[1] = __ldg(reinterpret_cast<const float4*>(p.beta + k + 4));
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        g[j] = __ldg(reinterpret_cast<const float4*>(p.gamma + k + 4 * j));
+        b[j] = __ldg(reinterpret_cast<const float4*>(p.beta + k + 4 * j));
+      }
     }
 #pragma unroll
     for (int i = 0; i < A_PER_THREAD; ++i) {
@@ -187,17 +214,26 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
       if (v < A_VECS) {
         const int r = v / VPR, c = (v % VPR) * EPV;
         if constexpr (NORM) {
-          uint32_t packed[2] = {0u, 0u};
-          if (m0 + r < M) {
-            const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&areg[i]);
+          uint32_t packed[NG];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int8_t q = quant_one(__bfloat162float(xv[e]), rs[i], lane_of(g[e >> 2], e & 3),
-                                         lane_of(b[e >> 2], e & 3), qd[i]);
+          for (int j = 0; j < NG; ++j) packed[j] = 0u;
+          if (m0 + r < M) {
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) {
+              float xe;
+              if constexpr (XK == X_BF16)
+                xe = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&areg[i])[e]);
+              else
+                xe = reinterpret_cast<const float*>(&areg[i])[e];
+              const int8_t q = quant_one(xe, rs[i], lane_of(g[e >> 2], e & 3),
+                                         lane_of(b[e >> 2], e & 3), qd[i], qo, p.fp16_cast);
               packed[e >> 2] |= (uint32_t)(uint8_t)q << ((e & 3) * 8);
             }
           }
-          *reinterpret_cast<uint2*>(As + r * SROW + c) = make_uint2(packed[0], packed[1]);
+          if constexpr (NG == 2)
+            *reinterpret_cast<uint2*>(As + r * SROW + c) = make_uint2(packed[0], packed[1]);
+          else
+            *reinterpret_cast<uint32_t*>(As + r * SROW + c) = packed[0];
         } else {
           *reinterpret_cast<int4*>(As + r * SROW + c) = areg[i];
         }
@@ -273,7 +309,7 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
           if (p.accum != nullptr)
             atomicAdd(p.accum + (size_t)r * N + c, v);
           else
-            store_out(p, (size_t)r * N + c, dequant<NORM>(v, p.xs[r], wsc[c]));
+            store_out(p, (size_t)r * N + c, dequant<NORM>(v + bias_of(p, c), p.xs[r], wsc[c]));
         }
       }
     }
@@ -285,14 +321,17 @@ __global__ void w8a8_epilogue(const Gemm p) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)p.M * p.N) return;
   const int r = (int)(i / p.N), c = (int)(i % p.N);
-  store_out(p, i, dequant<NORM>(p.accum[i], p.xs[r], p.ws[(size_t)p.li * p.N + c]));
+  store_out(p, i, dequant<NORM>(p.accum[i] + bias_of(p, c), p.xs[r],
+                                p.ws[(size_t)p.li * p.N + c]));
 }
 
 // Launch on `st`. p.accum must be an [M, N] int32 workspace when splits > 1
 // (zeroed here); it is ignored otherwise. Needs K % 64 == 0, N % 16 == 0,
-// bn % 128 == 0 or bn == N, and 16-byte aligned x and w.
-template <bool NORM>
+// bn % 128 == 0 or bn == N, 16-byte aligned w and x rows (ldx * element
+// size a multiple of 16).
+template <int XK>
 inline cudaError_t launch(Gemm p, int splits, cudaStream_t st) {
+  constexpr bool NORM = XK != X_INT8;
   if (splits < 1) splits = 1;
   p.k_chunk = max(BK, ((p.K / splits + BK - 1) / BK) * BK);
   if (splits > 1) {
@@ -304,10 +343,10 @@ inline cudaError_t launch(Gemm p, int splits, cudaStream_t st) {
   const int nz = (p.K + p.k_chunk - 1) / p.k_chunk;
   if (p.M <= 16) {
     const dim3 grid((p.N + BN - 1) / BN, (p.M + 15) / 16, nz);
-    w8a8_kernel<16, NORM><<<grid, THREADS, 0, st>>>(p);
+    w8a8_kernel<16, XK><<<grid, THREADS, 0, st>>>(p);
   } else {
     const dim3 grid((p.N + BN - 1) / BN, (p.M + 63) / 64, nz);
-    w8a8_kernel<64, NORM><<<grid, THREADS, 0, st>>>(p);
+    w8a8_kernel<64, XK><<<grid, THREADS, 0, st>>>(p);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.accum == nullptr) return e;

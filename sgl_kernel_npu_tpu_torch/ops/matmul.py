@@ -19,10 +19,11 @@ from .. import _build
 from ..utils import cdiv, use_kernel
 
 _BK, _BN = 64, 128       # the kernels' K stage and N tile
-# x, w, x_scale, w_scale, out, workspace, M, N, K, li, [bn,] splits, stream
+# x, w, x_scale, w_scale, out, workspace, M, N, K, li, [bn,] splits, out_f32,
+# stream
 _ARGTYPES = {
-    "w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "w8a8_gemm_tiled": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "w8a8_gemm_tiled": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 
 
@@ -129,8 +130,8 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None):
         l, k2, n = w.shape
         bn = n
     dev = x_q.device
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"{name} writes bf16, not {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} writes bf16 or f32, not {out_dtype}")
     if (x_q.dtype, w.dtype) != (torch.int8, torch.int8):
         raise TypeError(f"{name} takes int8 operands, got {x_q.dtype}, {w.dtype}")
     if (k2 != k or k % _BK or n % 16 or not 0 <= li < l
@@ -143,7 +144,7 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None):
     _build.check_operands(name, dev, x_q, w, xs, ws)
     if ws.shape != (l, n):
         raise ValueError(f"{name}: weight scales {tuple(ws.shape)} != {(l, n)}")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
     splits = splits_for(m, n, k, dev)
@@ -154,7 +155,7 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None):
     shape = (m, n, k, li, bn) if tiled else (m, n, k, li)
     code = fn(x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
               out.data_ptr(), work.data_ptr() if work is not None else None,
-              *shape, splits, stream)
+              *shape, splits, int(out_dtype == torch.float32), stream)
     _build.check(name, code)
     _build.launches[counter or name] += 1
     return out

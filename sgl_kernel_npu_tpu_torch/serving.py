@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine: native scheduler + paged int8 KV +
-model steps (counterpart of the JAX package's serving.py::LlamaEngine).
+"""Continuous-batching serving engine: native scheduler + paged KV + model
+steps (counterpart of the JAX package's serving.py: LlamaEngine on int8
+token-major pages, MlaEngine on split bf16 latent pages).
 
 The C++ scheduler (runtime/) assembles prefill and decode entries under a
 token budget; the page pool and radix prefix cache manage the token-major
@@ -15,7 +16,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .models import llama
+from .models import deepseek_mla, llama
 from .runtime import NativeScheduler
 from .utils import resolve_device
 
@@ -36,10 +37,6 @@ class LlamaEngine:
             raise NotImplementedError(
                 "sampling (temperature > 0) comes with ops/sampling.py in a "
                 "later slice of the port; this engine is greedy")
-        if not cfg.int8_kv:
-            raise NotImplementedError(
-                "int8_kv=False needs the bf16 head-major cache, a later slice "
-                "of the port")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.sched = NativeScheduler(num_pages, cfg.page_size,
@@ -50,6 +47,18 @@ class LlamaEngine:
         # fits (a truncated table would attend over wrong pages)
         self.max_pages = (max(1, num_pages // max(1, decode_batch))
                           if max_pages is None else max_pages)
+        self._setup_model(cfg, params, num_pages, seed)
+
+    def _setup_model(self, cfg, params, num_pages, seed):
+        """Model hook: set self.params, self.kv and the two step functions
+        `_decode(ids, pos, seq, bt, slots) -> (logits [B, V], kv)` and
+        `_prefill_batch(ids, vl, pos, slots, bts, plens) -> (logits [S, T, V],
+        kv)`, which update self.kv in place. Subclasses adapt other model
+        families."""
+        if not cfg.int8_kv:
+            raise NotImplementedError(
+                "int8_kv=False needs the bf16 head-major cache, a later slice "
+                "of the port")
         self.params = (params if params is not None
                        else llama.init_params(cfg, seed, self.device))
         self.kv = llama.init_kv_cache(cfg, num_pages, layout="tm",
@@ -213,3 +222,37 @@ class LlamaEngine:
             if not self.step():
                 break
         return [self.reqs[r]["out"][:max_new_tokens] for r in rids]
+
+
+class MlaEngine(LlamaEngine):
+    """DeepSeek-MLA serving engine: the same scheduler and paged-KV machinery
+    over the MLA model family, on split ckv / krope latent caches. Chunked
+    prefill is decode_verify_step with a causal mask (a chunk is a fully
+    accepted linear draft).
+
+    Setup calls fuse_mla_weights, so that mla_preprocess runs its two
+    RMSNormQuant->GEMM stages through K2 in its per_tensor mode on the card
+    (the JAX package's own configuration for `bench.py --config mla` with
+    SKT_MLA_FAST=0); on the CPU that is K2's plain version, the formula the
+    JAX MlaEngine computes unfused."""
+
+    def _setup_model(self, cfg, params, num_pages, seed):
+        dm = deepseek_mla
+        self.params = dm.fuse_mla_weights(
+            params if params is not None else dm.init_params(cfg, seed, self.device))
+        self.kv = dm.init_kv_cache(cfg, num_pages, device=self.device)
+
+        def dec(ids, pos, seq, bt, slots):
+            logits, _, _ = dm.decode_step(self.params, cfg, *self.kv, ids, pos, seq, bt,
+                                          slots)
+            return logits, self.kv
+
+        def pre(ids, vl, pos, slots, bts, plens):
+            s, t = ids.shape
+            mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=ids.device))
+            logits, _, _ = dm.decode_verify_step(
+                self.params, cfg, *self.kv, ids, pos, mask.expand(s, t, t), plens, bts,
+                slots)
+            return logits, self.kv
+
+        self._decode, self._prefill_batch = dec, pre

@@ -162,14 +162,22 @@ def test_rmsnorm_quant_gemm_matches_jax(monkeypatch, out_dtype, apply_norm):
 
 
 def test_rmsnorm_quant_gemm_refuses_the_mla_modes():
+    """The MLA modes (per_tensor, the int32 bias, quant_cast="fp16") are
+    served since the MLA slice (tests/test_torch_mla.py); what is still
+    refused is a per_tensor call without its scale and an unknown mode or
+    cast."""
     x = torch.zeros((8, 64), dtype=torch.bfloat16)
     w = torch.zeros((64, 128), dtype=torch.int8)
     one, ds = torch.ones(64), torch.ones(128)
     for kw in (dict(quant_mode="per_tensor"),
-               dict(quant_mode="per_token", bias=torch.zeros(128, dtype=torch.int32)),
-               dict(quant_mode="per_token", quant_cast="fp16")):
-        with pytest.raises(NotImplementedError, match="MLA"):
+               dict(quant_mode="per_channel"),
+               dict(quant_mode="per_token", quant_cast="bf16")):
+        with pytest.raises(ValueError, match="per_tensor"):
             trq.rmsnorm_quant_gemm(x, one, one, w, ds, **kw)
+    out = trq.rmsnorm_quant_gemm(x, one, one, w, ds, torch.zeros(128, dtype=torch.int32),
+                                 torch.tensor(0.1), torch.tensor(0.0),
+                                 quant_mode="per_tensor", quant_cast="fp16")
+    assert out.shape == (8, 128) and bool(torch.isfinite(out).all())
 
 
 # -------------------------------------------------------------- K3 and v8
