@@ -12,10 +12,16 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    pretiled banks), the two contracts that reuse A and C (matmul.py:71 at
    L = 1, decode_v8.py:388), and the MLA paths' kernels at DeepSeek-V2-Lite
    width: K2 in its per_tensor mode, K5 (int8 and bf16 latent rows), K6 and
-   K7. The GEMMs and appends must agree exactly, the fused RMSNorm-quant
-   GEMM within 4 quant flips with >= 99% of rows exact, the Llama attention
-   kernels within 2e-2 max-abs, K5 and K7 (on O(1) outputs of a peaked
-   softmax) within one bf16 ulp plus 2e-3 (K5) or 1e-4 (K7) of max|plain|.
+   K7; and the Qwen3-Next bench path's kernels at its shapes: K8 (the
+   grouped expert GEMM, 5,376 aligned rows of 128 tokens routed top-10 over
+   128 experts), K9 (the recurrent gated-delta-rule step on the bf16 pool)
+   and K10 (head-major bf16 paged decode). The GEMMs and appends must agree
+   exactly, the fused RMSNorm-quant GEMM within 4 quant flips with >= 99% of
+   rows exact, the Llama attention kernels within 2e-2 max-abs, K5, K7 and
+   K10 (on O(1) outputs of a peaked softmax) within one bf16 ulp plus 2e-3
+   (K5) or 1e-4 (K7, K10) of max|plain|, K9's output within 1e-4 of
+   max|plain| and its pool within one bf16 ulp, rows it must not write
+   untouched.
    Times the kernel, the plain version and a PyTorch library yardstick with
    CUDA events, and computes each kernel's bound from its bytes and
    operations.
@@ -25,8 +31,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    serves them again to check that the tokens repeat.
 3. Runs small configurations on the card and on the CPU (plain versions)
    and compares logits and caches: Llama prefill and decode on tm pages,
-   Llama decode on tm2 pages with pretiled banks, and a 2-layer MLA config
-   on both MLA paths.
+   Llama decode on tm2 pages with pretiled banks, a 2-layer MLA config on
+   both MLA paths, and a 4-layer Qwen3-Next config (head dims 128, 8
+   experts top-2) through decode_step_q.
 4. Runs the decode path of `python bench.py` (tm2 pages, pretiled banks,
    batch 128, context 256, 32 greedy steps per call) at Llama-3-8B width on
    phase 2's weights with the counters set to 0 first: checks the logits,
@@ -43,6 +50,13 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    54 per_tensor, K1 54, A at L = 1 1, K5 27, K6 1), finite logits, repeat
    tokens; prints ms per step, tok/s, the roofline share and a profiler
    split.
+7. Runs the decode path of `python bench.py --config qwen` (init_params_q
+   int8 weights from seed 0, a bf16 SSM pool, batch 128, context 256,
+   128-token pages, 8 greedy steps per call) at its full width: exact
+   launches per step (K1 55, K8 24, K9 9, K10 3), finite logits, repeat
+   tokens; prints ms per step, tok/s, the share of bench.py's byte roofline
+   and a profiler split. Its state holds seeded random values where
+   bench.py leaves zeros.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -74,19 +88,38 @@ def _gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int, warmup: int = 2) -> float:
+def _time_ms(fn, iters: int, warmup: int = 2, graph: bool = False) -> float:
+    """ms per call of fn by CUDA events, after `warmup` calls. With `graph`
+    (the kernels and the library calls), the `iters` calls are captured in
+    one CUDA graph whose replays are timed, so that the host's launch time,
+    which exceeds a small kernel's, does not count. Without (the plain
+    versions, some of which sync the host), the host enqueues `iters`
+    calls."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    reps = 1
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        run, reps = g.replay, 3
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        run()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def _warm_up_card(torch, seconds: float = 1.0) -> None:
@@ -162,14 +195,14 @@ def check_gemm(torch, mm, quant, cfg, rng):
             if not torch.equal(out, ref):
                 bad = (out != ref).sum().item()
                 raise AssertionError(f"w8a8_gemm {name} M={m}: {bad} elements differ")
-            ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, w, li, xs, ws), 20)
+            ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, w, li, xs, ws), 20, graph=True)
             plain = _time_ms(lambda: mm.quant_matmul_int8_ref(xq, w[li], xs, ws[li]), 3, 1)
             lib = None
             try:
                 library, got = _int_mm_yardstick(torch, xq, w[li], xs, ws[li], m)
                 if not torch.equal(got, ref):
                     raise AssertionError("torch._int_mm + epilogue disagrees")
-                lib = _time_ms(library, 20)
+                lib = _time_ms(library, 20, graph=True)
             except (RuntimeError, AssertionError) as e:
                 print(f"  library yardstick for {name} M={m} unavailable: {e}")
             nbytes = m * k + k * n + 4 * m + 4 * n + 2 * m * n
@@ -238,7 +271,7 @@ def check_decode(torch, dv9, dv8, cfg, rng):
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= ATTN_TOL:
         raise AssertionError(f"decode_tm max-abs {err} > {ATTN_TOL}")
-    ms = _time_ms(lambda: dv9.decode_gqa_v9_int8_defer(*args, layer_idx=li), 50)
+    ms = _time_ms(lambda: dv9.decode_gqa_v9_int8_defer(*args, layer_idx=li), 50, graph=True)
     plain = _time_ms(lambda: dv9.decode_gqa_v9_int8_defer_ref(*args, layer_idx=li), 5)
 
     # yardstick: SDPA over the dequantized, gathered cache plus the current token
@@ -258,7 +291,7 @@ def check_decode(torch, dv9, dv8, cfg, rng):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(qs, kf, vf, attn_mask=mask, scale=sm)[:, :, 0]
     lib_err = (lib_out.float() - ref.float()).abs().max().item()
-    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 50)
+    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 50, graph=True)
 
     c = cached.double().sum().item()
     nbytes = (c * hkv * (2 * d + 8) + 2 * (2 * b * hq * d) + 2 * (2 * b * hkv * d)
@@ -277,7 +310,7 @@ def check_decode(torch, dv9, dv8, cfg, rng):
     err8 = (out8.float() - ref8.float()).abs().max().item()
     if not err8 <= ATTN_TOL:
         raise AssertionError(f"decode_v8 contract (kernel C) max-abs {err8} > {ATTN_TOL}")
-    ms8 = _time_ms(lambda: dv8.decode_gqa_v8_int8_defer(*args, layer_idx=li), 50)
+    ms8 = _time_ms(lambda: dv8.decode_gqa_v8_int8_defer(*args, layer_idx=li), 50, graph=True)
     plain8 = _time_ms(lambda: dv8.decode_gqa_v8_int8_defer_ref(*args, layer_idx=li), 5)
     print(f"  decode_v8 contract (kernel C vs the per-page plain version), same inputs: "
           f"max-abs {err8:.3g}; kernel {ms8:.4f} ms, plain {plain8:.3f} ms")
@@ -303,7 +336,7 @@ def check_prefill(torch, pp, cfg, rng):
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= ATTN_TOL:
         raise AssertionError(f"prefill_tm max-abs {err} > {ATTN_TOL}")
-    ms = _time_ms(lambda: pp.paged_prefill_attention_tm(*args, layer_idx=li), 20)
+    ms = _time_ms(lambda: pp.paged_prefill_attention_tm(*args, layer_idx=li), 20, graph=True)
     plain = _time_ms(lambda: pp.paged_prefill_attention_tm_ref(*args, layer_idx=li), 3)
 
     # yardstick: SDPA over the dequantized prefix + chunk with the same mask
@@ -326,7 +359,7 @@ def check_prefill(torch, pp, cfg, rng):
     mask = (pre | chunk)[:, None]
     qs = q.permute(0, 2, 1, 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20)
+    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20, graph=True)
 
     pairs = sum(int(vlen[i]) * int(plen[i]) + int(vlen[i]) * (int(vlen[i]) + 1) // 2
                 for i in range(s))
@@ -361,7 +394,7 @@ def check_append(torch, dv8, cfg, rng):
     torch.cuda.synchronize()
     if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
         raise AssertionError("append_tm differs from its plain version")
-    ms = _time_ms(lambda: dv8.append_tm_int8(kq, vq, kc, vc, pg, off), 50)
+    ms = _time_ms(lambda: dv8.append_tm_int8(kq, vq, kc, vc, pg, off), 50, graph=True)
     plain = _time_ms(lambda: dv8.append_tm_int8_ref(kq, vq, kc2, vc2, pg, off), 10)
     live = pg < pages
     slots = (pg[live].long() * ps + off[live].long())
@@ -375,7 +408,7 @@ def check_append(torch, dv8, cfg, rng):
     library()
     if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
         raise AssertionError("index_copy_ yardstick disagrees")
-    lib = _time_ms(library, 50)
+    lib = _time_ms(library, 50, graph=True)
     nrow = int(live.sum())
     nbytes = 2 * 2 * layers * nrow * hkv * d + 8 * b
     bound, by = _bound_ms(nbytes, 0.0, "bf16_flops")
@@ -407,16 +440,16 @@ def compare_split_policy(torch, mm, quant, cfg, rng):
             def run():
                 return mm.quant_matmul_int8_stacked(xq, w, 0, xs, ws)
             split = run()
-            with mock.patch.object(mm, "splits_for", lambda *a: 1):
+            with mock.patch.object(mm, "splits_for", lambda *a, **k: 1):
                 if not torch.equal(run(), split):
                     raise AssertionError(f"w8a8_gemm {name} M={m}: split-K changed the output")
             times = {"split": [], "unsplit": []}
             for mode in ("split", "unsplit", "unsplit", "split"):
                 if mode == "split":
-                    times[mode].append(_time_ms(run, 20))
+                    times[mode].append(_time_ms(run, 20, graph=True))
                 else:
-                    with mock.patch.object(mm, "splits_for", lambda *a: 1):
-                        times[mode].append(_time_ms(run, 20))
+                    with mock.patch.object(mm, "splits_for", lambda *a, **k: 1):
+                        times[mode].append(_time_ms(run, 20, graph=True))
             t = {k: sum(v) / len(v) for k, v in times.items()}
             print(f"  w8a8_gemm {name:5s} M={m} K={k:5d} N={n:6d}: split-K x{splits} "
                   f"{t['split']:.4f} ms, unsplit {t['unsplit']:.4f} ms")
@@ -449,13 +482,13 @@ def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
                                          "differ")
             if m != 128:
                 continue
-            ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws), 20)
+            ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws), 20, graph=True)
             plain = _time_ms(lambda: mm.quant_matmul_int8_stacked_tiled_ref(
                 xq, wt, li, xs, ws), 3, 1)
             library, got = _int_mm_yardstick(torch, xq, w[li], xs, ws[li], m)
             if not torch.equal(got, ref):
                 raise AssertionError("torch._int_mm + epilogue disagrees")
-            lib = _time_ms(library, 20)
+            lib = _time_ms(library, 20, graph=True)
             nbytes = m * k + k * n + 4 * m + 4 * n + 2 * m * n
             bound, by = _bound_ms(nbytes, 2.0 * m * n * k, "int8_ops")
             rows.append(dict(name=name, m=m, ms=ms, plain_ms=plain, library_ms=lib,
@@ -508,14 +541,14 @@ def check_rmsq(torch, mm, rq, quant, cfg, rng, bn=512):
         exact = float(torch.isclose(a, b, rtol=1e-6, atol=1e-6).all(dim=-1).double().mean())
         if exact < 0.99:
             raise AssertionError(f"rmsq_gemm {name}: only {exact:.4f} of rows exact")
-        ms = _time_ms(lambda: rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw), 20)
+        ms = _time_ms(lambda: rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw), 20, graph=True)
         plain = _time_ms(lambda: rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, ws, **kw), 3, 1)
         # yardstick: the GEMM part alone, torch._int_mm on the plain quant
         rstd, _ = rq._row_stats(x, gamma, beta, True, cfg.rms_eps)
         xq = torch.round((x.float() * rstd * gamma.float()[None] + beta[None]) / scale) \
             .clamp(-128, 127).to(torch.int8)
         library, _ = _int_mm_yardstick(torch, xq, w[1], scale, ws[1], m)
-        lib = _time_ms(library, 20)
+        lib = _time_ms(library, 20, graph=True)
         nbytes = 2 * m * k + k * n + 4 * n + 8 * k + 2 * m * n
         bound, by = _bound_ms(nbytes, 2.0 * m * n * k, "int8_ops")
         rows.append(dict(name=name, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
@@ -556,7 +589,7 @@ def check_decode_tm2(torch, dv11, dv13, cfg, rng):
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= ATTN_TOL:
         raise AssertionError(f"decode_tm2 max-abs {err} > {ATTN_TOL}")
-    ms = _time_ms(lambda: dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li), 50)
+    ms = _time_ms(lambda: dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li), 50, graph=True)
     plain = _time_ms(lambda: dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li), 5)
 
     # yardstick: SDPA over the dequantized, gathered cache plus the current token
@@ -576,7 +609,7 @@ def check_decode_tm2(torch, dv11, dv13, cfg, rng):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_err = (sdpa(qs, kf, vf, attn_mask=mask, scale=sm)[:, :, 0].float()
                - ref.float()).abs().max().item()
-    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20)
+    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20, graph=True)
     del kf, vf
 
     c = cached.double().sum().item()
@@ -611,7 +644,7 @@ def check_append_tm2(torch, dv11, cfg, rng):
     torch.cuda.synchronize()
     if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
         raise AssertionError("append_tm2 differs from its plain version")
-    ms = _time_ms(lambda: dv11.append_tm2_int8(kq, vq, kc, vc, pg, off), 50)
+    ms = _time_ms(lambda: dv11.append_tm2_int8(kq, vq, kc, vc, pg, off), 50, graph=True)
     plain = _time_ms(lambda: dv11.append_tm2_int8_ref(kq, vq, kc2, vc2, pg, off), 10)
     live = pg < pages
     idx = (pg[live].long(), off[live].long())
@@ -625,7 +658,7 @@ def check_append_tm2(torch, dv11, cfg, rng):
     library()
     if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
         raise AssertionError("index_put_ yardstick disagrees")
-    lib = _time_ms(library, 50)
+    lib = _time_ms(library, 50, graph=True)
     nrow = int(live.sum())
     bound, by = _bound_ms(2 * 2 * layers * nrow * hkv * d + 8 * b, 0.0, "bf16_flops")
     print(f"  append_tm2 L={layers} B={b} (1 padded): exact; kernel {ms:.4f} ms, plain "
@@ -647,12 +680,12 @@ def check_matmul_l1(torch, mm, quant, cfg, rng):
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         raise AssertionError("quant_matmul_int8 (L = 1) differs from its plain version")
-    ms = _time_ms(lambda: mm.quant_matmul_int8(xq, w, xs, ws), 20)
+    ms = _time_ms(lambda: mm.quant_matmul_int8(xq, w, xs, ws), 20, graph=True)
     plain = _time_ms(lambda: mm.quant_matmul_int8_ref(xq, w, xs, ws), 3, 1)
     library, got = _int_mm_yardstick(torch, xq, w, xs, ws, m)
     if not torch.equal(got, ref):
         raise AssertionError("torch._int_mm + epilogue disagrees")
-    lib = _time_ms(library, 20)
+    lib = _time_ms(library, 20, graph=True)
     bound, by = _bound_ms(m * k + k * n + 4 * m + 4 * n + 2 * m * n, 2.0 * m * n * k,
                           "int8_ops")
     print(f"  quant_matmul_int8 (kernel A, L = 1) lm_head M={m}: exact; kernel {ms:.4f} ms, "
@@ -722,7 +755,7 @@ def check_rmsq_pt(torch, mm, rq, mcfg, rng):
         flip = float(w[1].abs().max()) * float(ds[1].max())
         err, exact = _flip_check(f"rmsq_gemm per_tensor {name}", out, ref, flip)
         ms = _time_ms(lambda: rq.rmsnorm_quant_gemm(x, gamma, beta, wt, dsl, bl, qs, qo,
-                                                    **kw), 20)
+                                                    **kw), 20, graph=True)
         plain = _time_ms(lambda: rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, dsl, bl, qs,
                                                            qo, **kw), 3, 1)
         # yardstick: the GEMM part alone, torch._int_mm on the plain quant + epilogue
@@ -734,7 +767,7 @@ def check_rmsq_pt(torch, mm, rq, mcfg, rng):
 
         def library():
             return ((torch._int_mm(xp, wn) + bn_).float() * dn).to(torch.float32)
-        lib = _time_ms(library, 20)
+        lib = _time_ms(library, 20, graph=True)
 
         def bound_at(nn):
             nbytes = x.element_size() * m * k + k * nn + 4 * nn * 2 + 8 * k + 4 * m * nn
@@ -826,7 +859,7 @@ def check_decode_mla_c(torch, dv2, mcfg, rng):
         torch.cuda.synchronize()
         err, ratio = _bf16_check(f"decode_mla_c {kind}", out, ref, K5_SHARE)
         ms = _time_ms(lambda: dv2.decode_mla_v3_defer(*args, layer_idx=li, kv_scales=scales),
-                      50)
+                      50, graph=True)
         plain = _time_ms(lambda: dv2._decode_chunks_ref(q, new, cache, scales, cached, bt, sm,
                                                         ps, lkv, li, dv2._chunk_pages(mp)), 5)
         # yardstick: SDPA over the dequantized bf16 latent with the current
@@ -841,7 +874,7 @@ def check_decode_mla_c(torch, dv2, mcfg, rng):
         mask = ((col[None, :] < cached[:, None]) | (col[None, :] == n - 1))[:, None, None, :]
         library, backend = _sdpa_yardstick(torch, q[:, None], kk, vv, mask, sm)
         lib_err = (library()[:, 0].float() - ref.float()).abs().max().item()
-        lib = _time_ms(library, 20)
+        lib = _time_ms(library, 20, graph=True)
         tok = cached.double().sum().item()
         elt = 1 if int8 else 2
         nbytes = (tok * (c * elt + (4 if int8 else 0)) + 2 * b * h * c + 2 * b * c
@@ -878,7 +911,7 @@ def check_append_mla(torch, dv2, mcfg, rng):
     torch.cuda.synchronize()
     if not torch.equal(cache, cache2):
         raise AssertionError("append_mla differs from its plain version")
-    ms = _time_ms(lambda: dv2.append_mla(new, cache, pg, off), 50)
+    ms = _time_ms(lambda: dv2.append_mla(new, cache, pg, off), 50, graph=True)
     plain = _time_ms(lambda: dv2.append_mla_ref(new, cache2, pg, off), 10)
     live = pg < pages
     idx = (pg[live].long(), off[live].long())
@@ -890,7 +923,7 @@ def check_append_mla(torch, dv2, mcfg, rng):
     library()
     if not torch.equal(cache, cache2):
         raise AssertionError("index_put_ yardstick disagrees")
-    lib = _time_ms(library, 50)
+    lib = _time_ms(library, 50, graph=True)
     nrow = int(live.sum())
     bound, by = _bound_ms(2 * layers * nrow * c + 8 * b, 0.0, "bf16_flops")
     print(f"  append_mla L={layers} B={b} C={c} (1 dropped): exact; kernel {ms:.4f} ms, "
@@ -918,7 +951,7 @@ def check_decode_mla(torch, dec, mcfg, rng):
     ref = dec.decode_mla_ref(*args)
     torch.cuda.synchronize()
     err, ratio = _bf16_check("decode_mla", out, ref, K7_SHARE)
-    ms = _time_ms(lambda: dec.decode_mla(*args), 50)
+    ms = _time_ms(lambda: dec.decode_mla(*args), 50, graph=True)
     plain = _time_ms(lambda: dec.decode_mla_ref(*args), 5)
     n = int(seq.max())
     kk = torch.cat([ckv[bt.long()].reshape(b, mp * ps, lkv),
@@ -927,7 +960,7 @@ def check_decode_mla(torch, dec, mcfg, rng):
     mask = (torch.arange(n, device="cuda")[None, :] < seq[:, None])[:, None, None, :]
     library, backend = _sdpa_yardstick(torch, q[:, None], kk, vv, mask, sm)
     lib_err = (library()[:, 0].float() - ref.float()).abs().max().item()
-    lib = _time_ms(library, 50)
+    lib = _time_ms(library, 50, graph=True)
     tok = seq.double().sum().item()
     nbytes = tok * (lkv + lrope) * 2 + 2 * b * h * (lkv + lrope) + 2 * b * h * lkv + 4 * b \
         + 4 * b * mp
@@ -936,6 +969,204 @@ def check_decode_mla(torch, dec, mcfg, rng):
           f"bound, max|plain| {float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
           f"{plain:.3f} ms, SDPA ({backend}) {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), "
           f"bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+# ------------------------------------------------------- Qwen3-Next kernels
+
+# K9's o and K10 (`_bf16_check` on K10's bf16 output): f32 sums taken in
+# another order than the plain versions'; this share of max|plain|
+GDN_SHARE = 1e-4
+K10_SHARE = 1e-4
+
+
+def qwen_bench_config(qn):
+    """`bench.py --config qwen`'s configuration (bench.py:515-523)."""
+    return qn.QwenNextConfig(vocab_size=32768, hidden_size=2048, num_layers=12,
+                             full_attention_interval=4, num_qk_heads=8, num_v_heads=8,
+                             head_qk_dim=128, head_v_dim=128, conv_width=4, chunk_size=64,
+                             num_heads=16, num_kv_heads=2, head_dim=128, page_size=128,
+                             num_experts=128, top_k=10, moe_intermediate_size=512,
+                             shared_intermediate_size=512, max_position=8192, num_loras=0,
+                             lora_rank=8)
+
+
+def _expert_groups(eid, live, tile):
+    """Host list of (expert, first row, end row) over runs of live tiles with
+    one expert."""
+    groups = []
+    for i, (e, on) in enumerate(zip(eid, live)):
+        if not on:
+            continue
+        if groups and groups[-1][0] == e and groups[-1][2] == i * tile:
+            groups[-1][2] = (i + 1) * tile
+        else:
+            groups.append([e, i * tile, (i + 1) * tile])
+    return groups
+
+
+def check_grouped(torch, mm, quant, qn, qcfg, rng):
+    """K8 at the Qwen bench path's two expert GEMMs: 128 tokens routed top-10
+    over 128 experts (random router scores), aligned to 32-row tiles (5,376
+    rows), the experts of layer 1 of a 2-layer flat bank pretiled at 1024
+    (w13: K 2048, N 1024; w2: K 512, N 2048); exact; then exact at a small
+    shape that splits K. Returns the row of both GEMMs summed."""
+    b, e, k = 128, qcfg.num_experts, qcfg.top_k
+    h, f = qcfg.hidden_size, qcfg.moe_intermediate_size
+    tile, li = qn.MOE_TILE, 1
+    topi = torch.topk(torch.rand((b, e), generator=rng, device="cuda"), k, dim=-1).indices
+    ok, src, eid = qn.align_routes(topi, e, tile)
+    eid = eid + li * e
+    m = ok.shape[0]
+    live = ok.reshape(-1, tile).any(1).tolist()
+    groups = _expert_groups(eid.tolist(), live, tile)
+    n_exp = len({g[0] for g in groups})
+    tok = src // k
+    rows = []
+    for name, kk, n in (("w13", h, 2 * f), ("w2", f, h)):
+        bank = torch.randint(-127, 128, (2 * e, n // 1024, kk, 1024), generator=rng,
+                             dtype=torch.int8, device="cuda")
+        ws = torch.rand((2 * e, n), generator=rng, device="cuda") * 1e-3
+        x = torch.randn((b, kk), generator=rng, device="cuda").to(torch.bfloat16)
+        xq, xs = quant.per_token_quant_int8(x)
+        xg = torch.where(ok[:, None], xq[tok], 0).to(torch.int8)
+        xsg = torch.where(ok[:, None], xs[tok], 0.0)
+        args = (xg, bank, xsg, ws, eid, tile)
+        out = mm.grouped_matmul_int8(*args)
+        ref = mm.grouped_matmul_int8_tiles_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"w8a8_gemm_grouped {name}: {(out != ref).sum().item()} "
+                                 "elements differ")
+        ms = _time_ms(lambda: mm.grouped_matmul_int8(*args), 20, graph=True)
+        plain = _time_ms(lambda: mm.grouped_matmul_int8_tiles_ref(*args), 1, 1)
+        wkn = mm.untile_weight_bank(bank).contiguous()
+
+        def library():
+            y = torch.zeros((m, n), dtype=torch.bfloat16, device="cuda")
+            for g, r0, r1 in groups:
+                acc = torch._int_mm(xg[r0:r1], wkn[g])
+                y[r0:r1] = (acc.float() * xsg[r0:r1] * ws[g][None]).to(torch.bfloat16)
+            return y
+        if not torch.equal(library(), ref):
+            raise AssertionError("torch._int_mm per expert group disagrees")
+        lib = _time_ms(library, 5, graph=True)
+        nbytes = n_exp * (kk * n + 4 * n) + m * kk + 4 * m + 2 * m * n + 4 * eid.numel()
+        bound, by = _bound_ms(nbytes, 2.0 * b * k * kk * n, "int8_ops")
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=0.0))
+        print(f"  w8a8_gemm_grouped {name} M={m} (tiles of {tile}, {sum(live)} live, "
+              f"{n_exp} experts) K={kk} N={n}: exact; kernel {ms:.4f} ms, plain {plain:.3f} "
+              f"ms, _int_mm per expert group {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        del bank, wkn
+    # split K: 3 tiles over a [4, K, N] bank, a padding tile and an expert
+    # id past the bank (clamped)
+    w = torch.randint(-127, 128, (4, h, 256), generator=rng, dtype=torch.int8, device="cuda")
+    ws = torch.rand((4, 256), generator=rng, device="cuda") * 1e-3
+    xq = torch.randint(-128, 128, (96, h), generator=rng, dtype=torch.int8, device="cuda")
+    xs = torch.rand((96, 1), generator=rng, device="cuda") * 0.05
+    xs[32:64] = 0.0
+    eid = torch.tensor([2, 0, 7], dtype=torch.int32, device="cuda")
+    if mm.splits_for(96, 256, h, "cuda", bm=32) < 2:
+        raise AssertionError("the small grouped shape no longer splits K")
+    if not torch.equal(mm.grouped_matmul_int8(xq, w, xs, ws, eid, 32),
+                       mm.grouped_matmul_int8_tiles_ref(xq, w, xs, ws, eid, 32)):
+        raise AssertionError("w8a8_gemm_grouped with split K differs")
+    print("  w8a8_gemm_grouped exact also with split K (M=96, a padding tile, a clamped id)")
+    return _sum_rows(rows)
+
+
+def check_gdn(torch, rec, qcfg, rng):
+    """K9 at the Qwen bench shape: 128 sequences, 8 qk and 8 v heads of 128,
+    the bf16 pool of all 9 GDN layers (1,152 rows of random state), the rows
+    of layer 4; o within GDN_SHARE of max|plain|, the pool within one bf16
+    ulp, every other row untouched. Then 16 sequences with idx -1 among them:
+    their rows stay as they were."""
+    b, h, hv, d = 128, qcfg.num_qk_heads, qcfg.num_v_heads, qcfg.head_qk_dim
+    rows = qcfg.num_gdn_layers * b
+    pool = (0.1 * torch.randn((rows, hv, d, d), generator=rng, device="cuda")).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=rng, device="cuda")
+    k = torch.randn((b, h, d), generator=rng, device="cuda")
+    v = torch.randn((b, hv, d), generator=rng, device="cuda")
+    g = -2.0 * torch.rand((b, hv), generator=rng, device="cuda")
+    beta = torch.sigmoid(torch.randn((b, hv), generator=rng, device="cuda"))
+    sc = d ** -0.5
+
+    def run(idx, nb):
+        p1, p2 = pool.clone(), pool.clone()
+        a = (q[:nb], k[:nb], v[:nb], g[:nb], beta[:nb])
+        o = rec.delta_rule_step(*a, p1, idx, sc, True)
+        ref = rec.delta_rule_step_ref(*a, p2, idx, sc, True)
+        torch.cuda.synchronize()
+        err = float((o - ref).abs().max())
+        if not err <= GDN_SHARE * float(ref.abs().max()):
+            raise AssertionError(f"gdn_recurrent o: max-abs {err:.3g}, max|plain| "
+                                 f"{float(ref.abs().max()):.3g}")
+        _bf16_check("gdn_recurrent pool", p1, p2, 1e-6)
+        written = torch.zeros(rows, dtype=torch.bool, device="cuda")
+        written[idx[idx >= 0].long()] = True
+        if not (torch.equal(p1[~written], pool[~written])
+                and torch.equal(p2[~written], pool[~written])):
+            raise AssertionError("gdn_recurrent wrote a row it must not write")
+        return err, float((p1 == p2).float().mean()), a, p1
+    idx = (4 * b + torch.arange(b, device="cuda")).to(torch.int32)
+    err, exact, a, p1 = run(idx, b)
+    idx16 = torch.arange(1, 17, dtype=torch.int32, device="cuda")
+    idx16[[3, 7, 8]] = -1
+    run(idx16, 16)
+    ms = _time_ms(lambda: rec.delta_rule_step(*a, p1, idx, sc, True), 50, graph=True)
+    plain = _time_ms(lambda: rec.delta_rule_step_ref(*a, p1, idx, sc, True), 5)
+    nbytes = 2 * b * hv * d * d * 2 + 4 * (2 * b * h * d + 2 * b * hv * d + 2 * b * hv + b)
+    bound, by = _bound_ms(nbytes, 7.0 * b * hv * d * d, "f32_flops")
+    print(f"  gdn_recurrent B={b} H={h} HV={hv} K=V={d}, pool {rows} rows: o max-abs "
+          f"{err:.3g}, pool {exact:.5f} exact (the rest within one bf16 ulp), untouched rows "
+          f"equal, idx -1 rows kept; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+def check_decode_hm(torch, dec, qcfg, rng):
+    """K10 at the Qwen bench shape: 128 sequences, 16 query and 2 kv heads of
+    128, head-major bf16 pages of 128, 3 pages each, lengths 250..289 with 1,
+    2, 127, 128, 129, 255, 256, 384 among them; layer 2 of 3."""
+    b, hq, hkv, d, ps = 128, qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim, qcfg.page_size
+    mp, layers, li = 3, 3, 2
+    pages = b * mp + 1
+    kc = torch.randn((layers, hkv, pages, ps, d), generator=rng, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((layers, hkv, pages, ps, d), generator=rng, device="cuda").to(torch.bfloat16)
+    seq = torch.randint(250, 290, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    seq[:8] = torch.tensor([1, 2, 127, 128, 129, 255, 256, 384], dtype=torch.int32)
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    # scores of about 1.5 standard deviations: O(1) outputs
+    q = (1.5 * torch.randn((b, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
+    sm = d ** -0.5
+    args = (q, kc[li], vc[li], seq, bt, sm, ps)
+    out = dec.decode_gqa_hm(*args)
+    ref = dec.decode_gqa_hm_ref(*args)
+    torch.cuda.synchronize()
+    err, ratio = _bf16_check("decode_hm", out, ref, K10_SHARE)
+    ms = _time_ms(lambda: dec.decode_gqa_hm(*args), 50, graph=True)
+    plain = _time_ms(lambda: dec.decode_gqa_hm_ref(*args), 5)
+    n, g = mp * ps, hq // hkv
+    btl = bt.long()
+    kk = kc[li][:, btl].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d).contiguous()
+    vv = vc[li][:, btl].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d).contiguous()
+    mask = (torch.arange(n, device="cuda")[None, :] < seq[:, None])[:, None, None, :]
+    qq = q.reshape(b, hkv, g, d)
+    library, backend = _sdpa_yardstick(torch, qq, kk, vv, mask, sm)
+    lib_err = (library().reshape(b, hq, d).float() - ref.float()).abs().max().item()
+    lib = _time_ms(library, 50, graph=True)
+    tok = seq.double().sum().item()
+    nbytes = tok * hkv * d * 2 * 2 + 2 * 2 * b * hq * d + 4 * b + 4 * b * mp
+    bound, by = _bound_ms(nbytes, 4.0 * tok * hq * d, "f32_flops")
+    print(f"  decode_hm B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} MP={mp} seq 1..{int(seq.max())} "
+          f"(sum {int(tok)}): max-abs {err:.3g} ({ratio:.3g} of its bound, max|plain| "
+          f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"SDPA ({backend}) {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound {bound:.4f} "
+          f"ms ({by})")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
 
@@ -1266,9 +1497,10 @@ def run_bench_path(torch, llama, build, params, gpu):
     return launches
 
 
-_K1 = ("w8a8_kernel<64, 0>", "w8a8_kernel<16, 0>", "w8a8_epilogue<false>")
-_K2 = ("w8a8_kernel<64, 1>", "w8a8_kernel<16, 1>", "w8a8_kernel<64, 2>",
-       "w8a8_kernel<16, 2>", "w8a8_epilogue<true>", "rmsq_rows")
+_K1 = ("w8a8_kernel<64, 0, false>", "w8a8_kernel<16, 0, false>", "w8a8_epilogue<false, false>")
+_K2 = ("w8a8_kernel<64, 1, false>", "w8a8_kernel<16, 1, false>", "w8a8_kernel<64, 2, false>",
+       "w8a8_kernel<16, 2, false>", "w8a8_epilogue<true, false>", "rmsq_rows")
+_K8 = ("w8a8_kernel<32, 0, true>", "w8a8_epilogue<false, true>")
 _BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
             ("K3 decode_tm2", ("decode_tm2_kernel",)),
             ("K4 append_tm2", ("append_tm2_kernel",)),
@@ -1547,6 +1779,192 @@ def run_mla_bench_path(torch, dm, build, params, cfg, gpu):
     return launches
 
 
+def small_qwen_config(qn):
+    """Qwen3-Next's kernel widths (head dims 128, GQA in both attention kinds)
+    at a small size: 4 layers (3 GDN, 1 attention), hidden 256, 1 qk and 2 v
+    heads, 4 query and 2 kv heads, 8 experts top-2, intermediates 128, vocab
+    512, 16-token pages."""
+    return qn.QwenNextConfig(vocab_size=512, hidden_size=256, num_layers=4,
+                             full_attention_interval=4, num_qk_heads=1, num_v_heads=2,
+                             head_qk_dim=128, head_v_dim=128, num_heads=4, num_kv_heads=2,
+                             head_dim=128, page_size=16, num_experts=8, top_k=2,
+                             moe_intermediate_size=128, shared_intermediate_size=128,
+                             max_position=256, num_loras=0)
+
+
+def _qwen_state(torch, qn, cfg, b, pages, gen, dev):
+    """A decode state of seeded random values where bench.py leaves zeros:
+    conv N(0, 1) f32, the SSM pool 0.1 N(0, 1) and the caches N(0, 1) in
+    bf16."""
+    st = qn.init_state(cfg, b, pages, ssm_dtype=torch.bfloat16, device=dev)
+    st["conv"].copy_(torch.randn(st["conv"].shape, generator=gen, device=gen.device))
+    st["ssm"].copy_(0.1 * torch.randn(st["ssm"].shape, generator=gen, device=gen.device))
+    for name in ("k_cache", "v_cache"):
+        st[name].copy_(torch.randn(st[name].shape, generator=gen, device=gen.device))
+    return st
+
+
+def check_small_qwen(torch, qn):
+    """The small Qwen config on the card and on the CPU (plain versions), from
+    the same CPU-made weights and state: B = 8 at positions that cross page
+    edges, three decode_step_q steps (K1, K8, K9, K10): logits calc_diff <
+    8e-3 and equal greedy tokens at each step; the SSM pool and the caches
+    within calc_diff 1e-4, the conv state within 1e-5 (f32 sums and bf16
+    roundings in other orders)."""
+    cfg = small_qwen_config(qn)
+    ps, b, mp = cfg.page_size, 8, 3
+    pages = b * mp + 1
+    cpu_params = qn.init_params_q(cfg, 5, "cpu")
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    cpu_state = _qwen_state(torch, qn, cfg, b, pages, gen, "cpu")
+    rng = np.random.default_rng(17)
+    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
+    pos = np.array([0, ps - 1, ps, 2 * ps - 2, 5, 17, 30, 2 * ps + 3], np.int32)
+    steps = []
+    for _ in range(3):
+        slots = (bt[np.arange(b), pos // ps] * ps + pos % ps).astype(np.int32)
+        steps.append((rng.integers(0, cfg.vocab_size, b).astype(np.int32), pos, pos + 1, bt,
+                      slots))
+        pos = pos + 1
+    results = {}
+    for dev in ("cuda", "cpu"):
+        params, state = _to_device(cpu_params, dev), _to_device(cpu_state, dev)
+        logits = []
+        for args in steps:
+            lg, state = qn.decode_step_q(params, cfg, state, *(torch.from_numpy(np.array(a))
+                                                               .to(dev) for a in args))
+            logits.append(lg.float().cpu())
+        results[dev] = (logits, {k: v.float().cpu() for k, v in state.items()})
+    diffs = [_calc_diff(a, r) for a, r in zip(results["cuda"][0], results["cpu"][0])]
+    same = all(torch.equal(a.argmax(-1), r.argmax(-1))
+               for a, r in zip(results["cuda"][0], results["cpu"][0]))
+    if max(diffs) >= 8e-3 or not same or not all(bool(torch.isfinite(a).all())
+                                                  for a in results["cuda"][0]):
+        raise AssertionError(f"small Qwen config: logits calc_diff {diffs}, greedy tokens "
+                             f"equal {same}")
+    sdiff = {k: _calc_diff(results["cuda"][1][k], results["cpu"][1][k])
+             for k in ("conv", "ssm", "k_cache", "v_cache")}
+    if sdiff["conv"] >= 1e-5 or max(sdiff.values()) >= 1e-4:
+        raise AssertionError(f"small Qwen config: state calc_diff {sdiff}")
+    print(f"  small Qwen config (L=4: 3 GDN + 1 attention, hidden 256, head dims 128, 8 "
+          f"experts top-2, ps=16), B=8, 3 steps: logits calc_diff per step "
+          f"{[f'{x:.3g}' for x in diffs]}, greedy tokens equal; state calc_diff "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sdiff.items()))
+
+
+QWEN_BATCH, QWEN_CTX, QWEN_STEPS, QWEN_REPS = 128, 256, 8, 3
+# launches of one decode_step_q step at bench.py's Qwen config (9 GDN + 3
+# attention layers): K1 9 x 2 (wqkvz, wo) + 3 x 4 (wq, wk, wv, wo) + 12 x 2
+# (shared w13, w2) + 1 (lm_head); K8 12 x 2; K9 9; K10 3
+QWEN_PER_STEP = {"w8a8_gemm_tiled": 55, "w8a8_gemm_grouped": 24, "gdn_recurrent": 9,
+                 "decode_hm": 3}
+_QWEN_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K8 w8a8_gemm_grouped", _K8),
+                 ("K9 gdn_recurrent", ("gdn_recurrent_kernel",)),
+                 ("K10 decode_hm", ("decode_hm_kernel",)), ("split-K memsets", ("Memset",)))
+
+
+def run_qwen_bench_path(torch, qn, build, cfg, gpu):
+    """What `python bench.py --config qwen` runs with its defaults
+    (bench.py:497-588, SKT_QWEN_QUANT=1), on the port: init_params_q(cfg, 0)
+    int8 weights, a bf16 SSM pool, batch 128, context 256, 128-token pages,
+    8 greedy decode steps per call with argmax feeding the next id, one warm
+    call then 3 timed. The state holds seeded random values where bench.py
+    leaves zeros (same shapes and bytes). Returns the launch counts of the
+    run."""
+    b, ctx, k_steps, reps = QWEN_BATCH, QWEN_CTX, QWEN_STEPS, QWEN_REPS
+    t0 = time.perf_counter()
+    params = qn.init_params_q(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  init_params_q {time.perf_counter() - t0:.1f} s ({nbytes / 1e9:.2f} GB)")
+    ps = cfg.page_size
+    total_new = k_steps * (1 + reps)
+    max_pages = -(-(ctx + total_new) // ps)
+    num_pages = b * max_pages + 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    state = _qwen_state(torch, qn, cfg, b, num_pages, gen, "cuda")
+    rng = np.random.default_rng(0)
+    bt = torch.from_numpy((rng.permutation(num_pages - 1)[: b * max_pages]
+                           .reshape(b, max_pages) + 1).astype(np.int32)).cuda()
+    pos0 = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+    ids0 = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).cuda()
+    rows = torch.arange(b, device="cuda")
+
+    def run_steps(state, ids, pos):
+        toks, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+        for _ in range(k_steps):
+            slots = bt[rows, pos // ps] * ps + pos % ps
+            logits, state = qn.decode_step_q(params, cfg, state, ids, pos, pos + 1, bt, slots)
+            finite &= torch.isfinite(logits).all()
+            ids = torch.argmax(logits, -1).to(torch.int32)
+            toks.append(ids)
+            pos = pos + 1
+        return state, ids, pos, torch.stack(toks), finite
+
+    build.reset_launches()
+    state, ids, pos, _, finite = run_steps(state, ids0, pos0)        # warm
+    torch.cuda.synchronize()
+    if not bool(finite):
+        raise AssertionError("Qwen bench path: logits are not finite")
+    snap = ({k: v.clone() for k, v in state.items()}, ids.clone(), pos.clone())
+    times, first = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ids, pos, toks, finite = run_steps(state, ids, pos)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / k_steps)
+        if not bool(finite):
+            raise AssertionError("Qwen bench path: logits are not finite")
+        first = toks if first is None else first
+    launches = dict(build.launches)
+    steps = k_steps * (1 + reps)
+    for name, n in launches.items():
+        want = QWEN_PER_STEP.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"Qwen bench path: {name} launched {n} times in {steps} "
+                                 f"steps, not {want} ({QWEN_PER_STEP.get(name, 0)} per step)")
+    again = run_steps(*snap)[3]
+    if not torch.equal(again, first):
+        raise AssertionError("Qwen bench path: a second run from the same state gave other "
+                             "tokens")
+    dt = float(np.median(times))
+    tok_s = b / dt
+    # bench.py's byte roofline (bench.py:572-583): every parameter but the
+    # embedding, the KV rows at the mean context, the bf16 SSM state read and
+    # written
+    w_bytes = nbytes - params["embed"].numel() * params["embed"].element_size()
+    kv_per_tok = cfg.num_attn_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2 * (
+        ctx + total_new // 2)
+    ssm_per_req = (cfg.num_gdn_layers * cfg.num_v_heads * cfg.head_qk_dim * cfg.head_v_dim
+                   * 2 * 2)
+    from sgl_kernel_npu_tpu_torch.utils import H100
+    roofline = H100.hbm_bytes_per_s / (w_bytes / b + kv_per_tok + ssm_per_req)
+    print(f"  Qwen bench path B={b} ctx={ctx} ps={ps}, {k_steps} steps x (1 warm + {reps}): "
+          f"median {1e3 * dt:.3f} ms/step (steps {[round(1e3 * t, 3) for t in times]}), "
+          f"{tok_s:.1f} tok/s; byte roofline at 3.35 TB/s {roofline:.1f} tok/s "
+          f"({1e3 * b / roofline:.3f} ms/step), share {tok_s / roofline:.4f} [{gpu}]")
+    print(f"  launches in {steps} steps: "
+          + ", ".join(f"{k} {n} ({n // steps}/step)" for k, n in launches.items() if n)
+          + "; every other kernel 0; repeat run identical")
+
+    def step():
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        return qn.decode_step_q(params, cfg, state, ids, pos, pos + 1, bt, slots)
+    profile_step(torch, step, _QWEN_BUCKETS, "Qwen bench step (B=128)")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
@@ -1562,8 +1980,9 @@ def main() -> int:
     try:
         from sgl_kernel_npu_tpu_torch import _build, serving
         from sgl_kernel_npu_tpu_torch import runtime
-        from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama
+        from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, qwen_next
         from sgl_kernel_npu_tpu_torch.ops import matmul, quant, rmsq_gemm
+        from sgl_kernel_npu_tpu_torch.ops.gdn import recurrent_pallas
         from sgl_kernel_npu_tpu_torch.ops.attention import (decode, decode_mla_v2,
                                                             decode_v8, decode_v9,
                                                             decode_v11, decode_v13,
@@ -1592,7 +2011,10 @@ def main() -> int:
     rng = torch.Generator(device="cuda")
     rng.manual_seed(0)
 
-    print("phase 1: kernels vs plain versions at Llama-3-8B and DeepSeek-V2-Lite shapes")
+    qcfg = qwen_bench_config(qwen_next)
+
+    print("phase 1: kernels vs plain versions at Llama-3-8B, DeepSeek-V2-Lite and the Qwen "
+          "bench shapes")
     _warm_up_card(torch)
     rows = {}
     gemm_rows = check_gemm(torch, matmul, quant, cfg, rng)
@@ -1620,6 +2042,12 @@ def main() -> int:
     rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng)
     torch.cuda.empty_cache()
     rows["k7"] = check_decode_mla(torch, decode, mcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k8"] = check_grouped(torch, matmul, quant, qwen_next, qcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k9"] = check_gdn(torch, recurrent_pallas, qcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -1663,6 +2091,7 @@ def main() -> int:
     check_small_config(torch, llama)
     check_small_tm2(torch, llama)
     check_small_mla(torch, deepseek_mla)
+    check_small_qwen(torch, qwen_next)
 
     print("phase 4: the bench.py decode path (tm2 pages, pretiled banks, batch 128) "
           "at Llama-3-8B width")
@@ -1705,6 +2134,11 @@ def main() -> int:
           "pretiled banks, batch 128) at DeepSeek-V2-Lite width")
     mla_bench_launches = run_mla_bench_path(torch, deepseek_mla, _build, mparams, mcfg, gpu)
     del mparams
+    torch.cuda.empty_cache()
+
+    print("phase 7: the bench.py --config qwen decode path (int8 banks, grouped expert GEMM, "
+          "bf16 SSM pool, batch 128) at its full width")
+    qwen_launches = run_qwen_bench_path(torch, qwen_next, _build, qcfg, gpu)
     torch.cuda.empty_cache()
 
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
@@ -1752,6 +2186,15 @@ def main() -> int:
         dict(name="decode_mla", route="cuda", source=f"{src}/decode_mla.cu",
              replaces=f"{base}/ops/attention/decode.py:240",
              launches=mla_launches["decode_mla"], **rows["k7"]),
+        dict(name="w8a8_gemm_grouped", route="cuda", source=f"{src}/w8a8_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:496",
+             launches=qwen_launches["w8a8_gemm_grouped"], **rows["k8"]),
+        dict(name="gdn_recurrent", route="cuda", source=f"{src}/gdn_recurrent.cu",
+             replaces=f"{base}/ops/gdn/recurrent_pallas.py:136",
+             launches=qwen_launches["gdn_recurrent"], **rows["k9"]),
+        dict(name="decode_hm", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v2.py:97",
+             launches=qwen_launches["decode_hm"], **rows["k10"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1762,7 +2205,11 @@ def main() -> int:
           "K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract is on no main "
           "path; rmsq_gemm (per_tensor) row: sum of wdqkv and wuq at M=128, launches of it, "
           "K5 and K6 from phase 6 (all its 64 steps), of K7 from phase 5; decode_mla_c row: "
-          "the int8 cache (decode_mla_v2.py:224 is the same contract, bf16)")
+          "the int8 cache (decode_mla_v2.py:224 is the same contract, bf16); "
+          "w8a8_gemm_grouped row (K8): sum of the expert w13 and w2 GEMMs at the Qwen bench "
+          "shape; launches of K8-K10 from phase 7 (all its 32 steps); decode_hm row (K10): "
+          "decode_v2.py:97 is what decode.py::decode_gqa runs, decode.py:145 the same "
+          "contract one page per grid step")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

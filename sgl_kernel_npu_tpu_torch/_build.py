@@ -43,6 +43,9 @@ KERNELS = {
     "decode_mla_c": "decode_mla_c",    # K5
     "append_mla": "append_mla",        # K6
     "decode_mla": "decode_mla",        # K7
+    "w8a8_gemm_grouped": "w8a8_gemm",  # K8
+    "gdn_recurrent": "gdn_recurrent",  # K9
+    "decode_hm": "decode_hm",          # K10
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

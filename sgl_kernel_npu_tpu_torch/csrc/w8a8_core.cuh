@@ -1,7 +1,13 @@
-// Device code shared by the W8A8 GEMMs: kernels A and K1 (w8a8_gemm.cu) and
-// K2 (rmsq_gemm.cu).
+// Device code shared by the W8A8 GEMMs: kernels A, K1 and K8 (w8a8_gemm.cu)
+// and K2 (rmsq_gemm.cu).
 //
 //   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n] + bias[li, n]) * scales )
+//
+// li is one layer for the whole of M (A, K1, K2) or, for the grouped GEMM K8,
+// the expert of each block_m-row tile of x (eid[m / block_m], clamped to
+// [0, groups)); K8 then runs 32-row M tiles, so that no tile straddles two
+// experts, and a tile whose rows all have x_scale 0 (the padding of the
+// aligned compaction) writes zeros without streaming its expert's weights.
 //
 // The weight bank is a stack of column panels: [L, NB, K, bn] int8, panel j of
 // layer li a contiguous [K, bn] block at ((li*NB + j)*K)*bn with rows of bn
@@ -66,8 +72,14 @@ struct Gemm {
   const float* qoff;     // K2: the quant offset (one value), or null for 0
   const float* gamma;    // K2: [K]
   const float* beta;     // K2: [K]
-  int M, N, K, ldx, li, bn, k_chunk, out_f32, fp16_cast;
+  const int32_t* eid;    // K8: [M / block_m] expert of each row tile, or null
+  int M, N, K, ldx, li, bn, k_chunk, out_f32, fp16_cast, block_m, groups;
 };
+
+// The layer (A, K1, K2) or the expert of row m (K8).
+__device__ __forceinline__ int layer_of(const Gemm& p, int m) {
+  return p.eid != nullptr ? min(max(p.eid[m / p.block_m], 0), p.groups - 1) : p.li;
+}
 
 __device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -121,11 +133,13 @@ __device__ __forceinline__ void store_out(const Gemm& p, size_t i, float v) {
     static_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ int32_t bias_of(const Gemm& p, int c) {
-  return p.bias != nullptr ? p.bias[(size_t)p.li * p.N + c] : 0;
+__device__ __forceinline__ int32_t bias_of(const Gemm& p, int li, int c) {
+  return p.bias != nullptr ? p.bias[(size_t)li * p.N + c] : 0;
 }
 
-template <int BM, int XK>
+// GROUPED: K8's instantiation (32-row tiles, an expert per tile); the others
+// compile without its branches.
+template <int BM, int XK, bool GROUPED>
 __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
   constexpr bool NORM = XK != X_INT8;
   constexpr int WARPS_M = BM == 16 ? 1 : 2;
@@ -147,13 +161,28 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int kbeg = blockIdx.z * p.k_chunk;
   const int kend = min(K, kbeg + p.k_chunk);
+  const int li = GROUPED ? layer_of(p, m0) : p.li;
+
+  if constexpr (GROUPED) {
+    // K8: a tile of padding rows (x_scale 0 throughout) is zero whatever the
+    // weights; the split-K workspace is zeroed already
+    const bool live = tid < BM && m0 + tid < M && p.xs[m0 + tid] != 0.f;
+    if (!__syncthreads_or(live)) {
+      if (p.accum == nullptr && blockIdx.z == 0)
+        for (int i = tid; i < BM * BN; i += THREADS) {
+          const int r = m0 + i / BN, c = n0 + i % BN;
+          if (r < M && c < N) store_out(p, (size_t)r * N + c, 0.f);
+        }
+      return;
+    }
+  }
 
   // the block's columns lie in one panel of layer li; rows are bn bytes apart
   const int panel = n0 / p.bn;
-  const int8_t* w = p.w + ((size_t)p.li * (N / p.bn) + panel) * (size_t)K * p.bn
+  const int8_t* w = p.w + ((size_t)li * (N / p.bn) + panel) * (size_t)K * p.bn
                     + (n0 - panel * p.bn);
   const size_t ldw = p.bn;
-  const float* wsc = p.ws + (size_t)p.li * N;
+  const float* wsc = p.ws + (size_t)li * N;
   const char* x = static_cast<const char*>(p.x);
 
   // weight loader: rows kq*4 .. kq*4+3 of the stage, 16 bytes at column nc
@@ -309,26 +338,27 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
           if (p.accum != nullptr)
             atomicAdd(p.accum + (size_t)r * N + c, v);
           else
-            store_out(p, (size_t)r * N + c, dequant<NORM>(v + bias_of(p, c), p.xs[r], wsc[c]));
+            store_out(p, (size_t)r * N + c, dequant<NORM>(v + bias_of(p, li, c), p.xs[r], wsc[c]));
         }
       }
     }
   }
 }
 
-template <bool NORM>
+template <bool NORM, bool GROUPED>
 __global__ void w8a8_epilogue(const Gemm p) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)p.M * p.N) return;
   const int r = (int)(i / p.N), c = (int)(i % p.N);
-  store_out(p, i, dequant<NORM>(p.accum[i] + bias_of(p, c), p.xs[r],
-                                p.ws[(size_t)p.li * p.N + c]));
+  const int li = GROUPED ? layer_of(p, r) : p.li;
+  store_out(p, i, dequant<NORM>(p.accum[i] + bias_of(p, li, c), p.xs[r],
+                                p.ws[(size_t)li * p.N + c]));
 }
 
 // Launch on `st`. p.accum must be an [M, N] int32 workspace when splits > 1
 // (zeroed here); it is ignored otherwise. Needs K % 64 == 0, N % 16 == 0,
 // bn % 128 == 0 or bn == N, 16-byte aligned w and x rows (ldx * element
-// size a multiple of 16).
+// size a multiple of 16); with p.eid (K8), block_m % 32 == 0.
 template <int XK>
 inline cudaError_t launch(Gemm p, int splits, cudaStream_t st) {
   constexpr bool NORM = XK != X_INT8;
@@ -341,17 +371,28 @@ inline cudaError_t launch(Gemm p, int splits, cudaStream_t st) {
     p.accum = nullptr;
   }
   const int nz = (p.K + p.k_chunk - 1) / p.k_chunk;
-  if (p.M <= 16) {
+  const bool grouped = p.eid != nullptr;
+  if (grouped) {
+    if constexpr (XK == X_INT8) {
+      const dim3 grid((p.N + BN - 1) / BN, (p.M + 31) / 32, nz);
+      w8a8_kernel<32, X_INT8, true><<<grid, THREADS, 0, st>>>(p);
+    } else {
+      return cudaErrorInvalidValue;            // K8 takes int8 x
+    }
+  } else if (p.M <= 16) {
     const dim3 grid((p.N + BN - 1) / BN, (p.M + 15) / 16, nz);
-    w8a8_kernel<16, XK><<<grid, THREADS, 0, st>>>(p);
+    w8a8_kernel<16, XK, false><<<grid, THREADS, 0, st>>>(p);
   } else {
     const dim3 grid((p.N + BN - 1) / BN, (p.M + 63) / 64, nz);
-    w8a8_kernel<64, XK><<<grid, THREADS, 0, st>>>(p);
+    w8a8_kernel<64, XK, false><<<grid, THREADS, 0, st>>>(p);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.accum == nullptr) return e;
-  const size_t total = (size_t)p.M * p.N;
-  w8a8_epilogue<NORM><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(p);
+  const unsigned blocks = (unsigned)(((size_t)p.M * p.N + 255) / 256);
+  if (grouped)
+    w8a8_epilogue<false, true><<<blocks, 256, 0, st>>>(p);
+  else
+    w8a8_epilogue<NORM, false><<<blocks, 256, 0, st>>>(p);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Kernels A and K1: W8A8 GEMM out of a stacked int8 weight bank at layer li.
+// Kernels A, K1 and K8: W8A8 GEMM out of a stacked int8 weight bank, at one
+// layer li (A, K1) or at the expert of each row tile (K8).
 //
 // A  replaces sgl_kernel_npu_tpu/ops/matmul.py::grouped_matmul_int8_pallas
 //    (_gmm_int8_kernel) as reached through quant_matmul_int8_stacked's 3-D
@@ -10,17 +11,26 @@
 //    4-D branch of quant_matmul_int8_stacked: bank pretiled to
 //    [L, N/bn, K, bn] (pretile_weight_bank), panel j of layer li one
 //    contiguous [K, bn] block.
+// K8 replaces grouped_matmul_int8_pallas (matmul.py:496) with its per-m-tile
+//    expert map, as models/qwen_next.py::_moe_mlp_q calls it: row tile i of
+//    block_m rows reads expert eid[i] of a [G, K, N] or pretiled
+//    [G, N/bn, K, bn] bank.
 //
 //   out[m, n] = bf16|f32( float(sum_k x[m, k] * w[li, k, n]) * x_scale[m] * w_scale[li, n] )
+//
+// K8's bound: the bytes of the experts its live tiles read (at the Qwen
+// bench shape every expert of the layer, 2 MB each for w13), x and out; 32-row
+// tiles read an expert once per tile, so the grid's weight reads exceed those
+// bytes only where an expert holds more than 32 rows, and L2 takes repeats.
 //
 // Bound on an H100: at decode (M = 8 to 128) the call moves K*N weight bytes
 // and does 2*M*K*N int8 operations, below the 1,979 TOP/s line (the ridge is
 // near M = 295), so 3.35 TB/s of device memory bounds it; at prefill widths
-// the int8 tensor-core rate comes close. Both kernels are the shared
+// the int8 tensor-core rate comes close. All three are the shared
 // w8a8_core.cuh loop: a panel with rows of bn bytes is read exactly as the
-// plain bank with rows of N bytes, the layer index is an argument (no copy of
-// the layer), and K is split over blocks when the output has too few tiles
-// for 132 SMs. Exact: equal to the plain version bit for bit.
+// plain bank with rows of N bytes, the layer (or expert) index is an argument
+// (no copy of the layer), and K is split over blocks when the output has too
+// few tiles for 132 SMs. Exact: equal to the plain version bit for bit.
 
 #include "w8a8_core.cuh"
 
@@ -67,6 +77,23 @@ extern "C" int skt_w8a8_gemm_tiled(const void* x, const void* w, const void* xs,
   return (int)skt_w8a8::launch<skt_w8a8::X_INT8>(
       gemm_args(x, w, xs, ws, out, workspace, M, N, K, li, bn, out_f32), splits,
       static_cast<cudaStream_t>(stream));
+}
+
+// K8: x [M, K] int8, w [G, K, N] (bn = N) or [G, N/bn, K, bn] int8, xs [M] f32
+// (0 on padding rows), ws [G, N] f32, eid [M / block_m] int32, out [M, N].
+// Needs M % block_m == 0 and block_m % 32 == 0; eid is clamped to [0, G).
+extern "C" int skt_w8a8_gemm_grouped(const void* x, const void* w, const void* xs,
+                                     const void* ws, void* out, void* workspace,
+                                     const void* eid, int M, int N, int K, int G, int bn,
+                                     int block_m, int splits, int out_f32, void* stream) {
+  if (bn <= 0 || N % bn != 0 || (bn != N && bn % skt_w8a8::BN != 0) || block_m <= 0
+      || block_m % 32 != 0 || M % block_m != 0 || G <= 0)
+    return (int)cudaErrorInvalidValue;
+  Gemm p = gemm_args(x, w, xs, ws, out, workspace, M, N, K, 0, bn, out_f32);
+  p.eid = static_cast<const int32_t*>(eid);
+  p.block_m = block_m;
+  p.groups = G;
+  return (int)skt_w8a8::launch<skt_w8a8::X_INT8>(p, splits, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* skt_w8a8_gemm_error(int e) {

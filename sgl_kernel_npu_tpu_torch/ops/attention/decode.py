@@ -1,6 +1,18 @@
-"""Paged MLA decode over split latent caches (counterpart of the MLA half of
-the JAX package's ops/attention/decode.py: decode_mla_ref, decode_mla_pallas,
-decode_mla).
+"""Paged decode attention (counterpart of the JAX package's
+ops/attention/decode.py): GQA over head-major bf16 pages (decode_gqa_ref,
+decode_gqa_pallas, decode_gqa) and MLA over split latent caches
+(decode_mla_ref, decode_mla_pallas, decode_mla).
+
+  decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
+    q        [B, Hq, Dk]
+    k_cache  [Hkv, num_pages, page_size, Dk]   (head-major pages)
+    v_cache  [Hkv, num_pages, page_size, Dv]
+    -> out   [B, Hq, Dv]
+As in the JAX package, `decode_gqa` takes the kernel path only when q's and
+v's head dims are multiples of 128: on a CUDA tensor kernel K10
+(csrc/decode_hm.cu, head dim 128), on a CPU tensor its plain version
+`decode_gqa_hm_ref` in the TPU kernel's page order; other head dims take
+`decode_gqa_ref`, one softmax over all keys.
 
   decode_mla(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale, page_size)
     q            [B, H, Lkv + Lrope]   (nope' | rope, DeepSeek 512 + 64)
@@ -10,7 +22,7 @@ decode_mla).
 seq_lens includes the current token, which mla_preprocess has already
 written into the caches.
 
-On a CUDA tensor `decode_mla` launches kernel K7 (csrc/decode_mla.cu); on a
+For MLA, on a CUDA tensor `decode_mla` launches kernel K7 (csrc/decode_mla.cu); on a
 CPU tensor it runs `decode_mla_ref`, the plain version in the TPU kernel's
 order (one page per online-softmax step, all f32). The kernel serves
 DeepSeek's widths only: Lkv 512, Lrope even and <= 64, H a multiple of 4.
@@ -30,6 +42,106 @@ _NEG_INF = -1e30
 # q, ckv, krope, seq_lens, block_table, out, B, H, lkv, lrope, ps, MP,
 # sm_scale, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# q, k_cache, v_cache, seq_lens, block_table, out, B, Hq, Hkv, D, P, ps, MP,
+# sm_scale, stream
+_HM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _gather_hm(k_cache, v_cache, block_table):
+    """[Hkv, P, ps, D] pages of each row's table -> f32 [B, Hkv, MP*ps, D]."""
+    b, mp = block_table.shape
+    hkv, _, ps, _ = k_cache.shape
+    bt = block_table.long()
+    k = k_cache[:, bt].transpose(0, 1).reshape(b, hkv, mp * ps, -1).float()
+    v = v_cache[:, bt].transpose(0, 1).reshape(b, hkv, mp * ps, -1).float()
+    return k, v
+
+
+def decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size=None):
+    """The JAX package's decode_gqa_ref: gather, one masked softmax over all
+    keys, f32; the result in q's dtype."""
+    b, hq, dk = q.shape
+    hkv = k_cache.shape[0]
+    k, v = _gather_hm(k_cache, v_cache, block_table)
+    qf = q.float().reshape(b, hkv, hq // hkv, dk)
+    logits = torch.einsum("bhgd,bhnd->bhgn", qf, k) * sm_scale
+    mask = torch.arange(k.shape[2], device=q.device)[None, :] < seq_lens.long()[:, None]
+    logits = torch.where(mask[:, None, None, :], logits, _NEG_INF)
+    out = torch.einsum("bhgn,bhnd->bhgd", torch.softmax(logits, -1), v)
+    return out.reshape(b, hq, -1).to(q.dtype)
+
+
+def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size=None):
+    """Plain version of kernel K10: the TPU kernel's order (decode_v2.py:34-94
+    and decode.py:101-142 of the JAX package), one page per online-softmax
+    step, pages past seq_len skipped, all f32; the result in q's dtype."""
+    b, hq, dk = q.shape
+    hkv, _, ps, _ = k_cache.shape
+    g = hq // hkv
+    k, v = _gather_hm(k_cache, v_cache, block_table)
+    dv = v.shape[-1]
+    qf = q.float().reshape(b, hkv, g, dk)
+    slen = seq_lens.long()
+    m = torch.full((b, hkv, g, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, dv), dtype=torch.float32, device=q.device)
+    for p0 in range(0, k.shape[2], ps):
+        live = torch.arange(p0, p0 + ps, device=q.device)[None, :] < slen[:, None]
+        kp = k[:, :, p0:p0 + ps]
+        vp = torch.where(live[:, None, :, None], v[:, :, p0:p0 + ps], 0.0)
+        s = torch.einsum("bhgd,bhnd->bhgn", qf, kp) * sm_scale
+        s = torch.where(live[:, None, None, :], s, _NEG_INF)
+        mh = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mh)
+        pexp = torch.where(live[:, None, None, :], torch.exp(s - mh), 0.0)
+        new_l = l * alpha + pexp.sum(-1, keepdim=True)
+        new_acc = acc * alpha + torch.einsum("bhgn,bhnd->bhgd", pexp, vp)
+        page_live = (p0 < slen)[:, None, None, None]
+        m = torch.where(page_live, mh, m)
+        l = torch.where(page_live, new_l, l)
+        acc = torch.where(page_live, new_acc, acc)
+    return (acc / l.clamp_min(1e-37)).reshape(b, hq, dv).to(q.dtype)
+
+
+def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
+    """Paged GQA decode over head-major bf16 pages (module docstring): kernel
+    K10 on the card (head dim 128, Hq / Hkv in 1, 2, 4, 8, 16), counted under
+    "decode_hm"; decode_gqa_hm_ref on the CPU. seq_lens [B] includes the
+    current token, which is already in the cache. Returns [B, Hq, D] bf16."""
+    if not use_kernel(q):
+        return decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale,
+                                 page_size)
+    b, hq, d = q.shape
+    hkv, num_pages, ps, dk = k_cache.shape
+    if (v_cache.shape != k_cache.shape or dk != d or d != 128 or ps != page_size
+            or hq % hkv or hq // hkv not in (1, 2, 4, 8, 16)):
+        raise ValueError(f"decode_hm: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}: "
+                         "needs head dim 128 and Hq / Hkv in 1, 2, 4, 8, 16")
+    if any(t.dtype != torch.bfloat16 for t in (q, k_cache, v_cache)):
+        raise TypeError("decode_hm: bf16 q and caches expected")
+    dev = q.device
+    sl = seq_lens.to(torch.int32).contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    q = q.contiguous()
+    _build.check_operands("decode_hm", dev, q, k_cache, v_cache, sl, bt)
+    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
+    fn = _build.launcher("decode_hm", _HM_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), sl.data_ptr(),
+              bt.data_ptr(), out.data_ptr(), b, hq, hkv, d, num_pages, ps, bt.shape[1],
+              float(sm_scale), stream)
+    _build.check("decode_hm", code)
+    _build.launches["decode_hm"] += 1
+    return out
+
+
+def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
+    """The JAX package's dispatcher (decode.py:289-300): the kernel path
+    (decode_gqa_hm) when q's and v's head dims are multiples of 128, else
+    decode_gqa_ref."""
+    if q.shape[-1] % 128 == 0 and v_cache.shape[-1] % 128 == 0:
+        return decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
+    return decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
 
 
 def _gather(ckv_cache, krope_cache, block_table):

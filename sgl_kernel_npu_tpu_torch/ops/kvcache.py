@@ -1,30 +1,21 @@
 """Paged-KV cache ops (counterpart of the JAX package's ops/kvcache.py,
-limited to what the MLA slice runs): `reshape_and_cache_mla`, the latent
-cache scatter of mla_preprocess. The JAX package returns new caches; the
-port writes them in place."""
+limited to what the ported paths run): `reshape_and_cache_mla`, the latent
+cache scatter of mla_preprocess, and `reshape_and_cache_gqa`, the head-major
+scatter of the Qwen3-Next attention layers. The JAX package returns new
+caches; the port writes them in place."""
 
 from __future__ import annotations
 
-import torch
+from ..utils import index_copy_kept_
 
 
 def _put_rows(cache, slots, rows):
     """cache [P, ps, D] viewed as P * ps rows; rows [T, D] go to `slots` [T];
-    a slot < 0 or >= P * ps drops its row (the JAX scatter's mode="drop").
-
-    Taken with tensor ops only, so no host sync: a dropped row rewrites the
-    first kept row's slot with that row's own value (the same bytes, so the
-    duplicate index is harmless), or slot 0 with its current value when no
-    row is kept."""
+    a slot < 0 or >= P * ps drops its row (the JAX scatter's mode="drop"),
+    with no host sync (utils.index_copy_kept_)."""
     flat = cache.view(-1, cache.shape[-1])
     slots = slots.long()
-    keep = (slots >= 0) & (slots < flat.shape[0])
-    first = torch.argmax(keep.int())
-    any_keep = keep[first]
-    src = torch.where(keep, torch.arange(slots.shape[0], device=slots.device), first)
-    tgt = torch.where(any_keep, slots[src], 0)
-    vals = torch.where(any_keep, rows[src].to(cache.dtype), flat[0:1])
-    flat.index_copy_(0, tgt, vals)
+    index_copy_kept_(flat, slots, rows, (slots >= 0) & (slots < flat.shape[0]))
 
 
 def reshape_and_cache_mla(ckv, krope, ckv_cache, krope_cache, slot_mapping):
@@ -34,3 +25,13 @@ def reshape_and_cache_mla(ckv, krope, ckv_cache, krope_cache, slot_mapping):
     _put_rows(ckv_cache, slot_mapping, ckv)
     _put_rows(krope_cache, slot_mapping, krope)
     return ckv_cache, krope_cache
+
+
+def reshape_and_cache_gqa(k, v, k_cache, v_cache, slot_mapping):
+    """Head-major cache scatter, in place: k, v [T, Hkv, D]; caches [Hkv,
+    num_pages, page_size, D]; slot_mapping [T] global slot ids, -1 = skip.
+    No host sync. Returns the (mutated) caches."""
+    for h in range(k_cache.shape[0]):
+        _put_rows(k_cache[h], slot_mapping, k[:, h])
+        _put_rows(v_cache[h], slot_mapping, v[:, h])
+    return k_cache, v_cache

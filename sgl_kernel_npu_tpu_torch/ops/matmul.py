@@ -1,12 +1,18 @@
 """W8A8 INT8 GEMMs (counterpart of the JAX package's ops/matmul.py):
 `quant_matmul_int8` on a plain [K, N] weight, `quant_matmul_int8_stacked` on a
 stacked per-layer bank, either [L, K, N] or pretiled to [L, N/bn, K, bn]
-(`pretile_weight_bank`), and `quant_matmul_int8_stacked_tiled` on the latter.
+(`pretile_weight_bank`), `quant_matmul_int8_stacked_tiled` on the latter, and
+the grouped expert GEMM `grouped_matmul_int8`, the contract of the JAX
+package's `grouped_matmul_int8_pallas`: each block_m-row tile of x reads the
+weights of its own expert. (The JAX package's `grouped_matmul_int8` is its
+ragged reference over group sizes; the port has that as
+`grouped_matmul_int8_ref`.)
 
 On a CUDA tensor a wrapper launches a kernel of csrc/w8a8_gemm.cu: kernel A
 for an [L, K, N] bank and for a plain weight (a one-layer view of it, no
-copy), kernel K1 for a pretiled bank. On a CPU tensor it runs the plain
-version, `quant_matmul_int8_ref` on the layer's [K, N] weight.
+copy), kernel K1 for a pretiled bank, kernel K8 for the grouped GEMM. On a
+CPU tensor it runs the plain version, `quant_matmul_int8_ref` on the layer's
+(or the tile's expert's) [K, N] weight.
 """
 
 from __future__ import annotations
@@ -20,10 +26,12 @@ from ..utils import cdiv, use_kernel
 
 _BK, _BN = 64, 128       # the kernels' K stage and N tile
 # x, w, x_scale, w_scale, out, workspace, M, N, K, li, [bn,] splits, out_f32,
-# stream
+# stream; the grouped GEMM: x, w, x_scale, w_scale, out, workspace, eid, M, N,
+# K, G, bn, block_m, splits, out_f32, stream
 _ARGTYPES = {
     "w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "w8a8_gemm_tiled": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "w8a8_gemm_grouped": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -107,21 +115,27 @@ def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
                                                w_scale_stacked, out_dtype)
 
 
-def splits_for(m: int, n: int, k: int, device) -> int:
+def splits_for(m: int, n: int, k: int, device, bm=None) -> int:
     """Split K over blocks when the output has fewer tiles than two blocks
     per SM, so that every SM streams weights; int32 partial sums stay exact.
-    Kernels A, K1 and K2 share one GEMM loop and this one policy, which
-    depends on the shape alone."""
-    tiles = cdiv(n, _BN) * cdiv(m, 16 if m <= 16 else 64)
+    Kernels A, K1, K2 and K8 share one GEMM loop and this one policy, which
+    depends on the shape alone. bm is the row tile: 16 up to M = 16 and 64
+    above, or 32 for the grouped GEMM."""
+    tiles = cdiv(n, _BN) * cdiv(m, bm or (16 if m <= 16 else 64))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(cdiv(2 * sms, tiles), k // _BK))
 
 
-def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None):
-    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn]),
-    and add one to the launch count `counter` (default: the kernel's)."""
+def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
+               block_m=0):
+    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn])
+    at layer li or, given the expert map `eid` of each block_m-row tile, K8
+    (either bank); add one to the launch count `counter` (default: the
+    kernel's)."""
     tiled = w.dim() == 4
-    name = "w8a8_gemm_tiled" if tiled else "w8a8_gemm"
+    grouped = eid is not None
+    name = ("w8a8_gemm_grouped" if grouped else "w8a8_gemm_tiled" if tiled
+            else "w8a8_gemm")
     m, k = x_q.shape
     if tiled:
         l, nb, k2, bn = w.shape
@@ -135,27 +149,106 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None):
     if (x_q.dtype, w.dtype) != (torch.int8, torch.int8):
         raise TypeError(f"{name} takes int8 operands, got {x_q.dtype}, {w.dtype}")
     if (k2 != k or k % _BK or n % 16 or not 0 <= li < l
-            or (tiled and bn % _BN)):
+            or (tiled and bn % _BN) or (grouped and block_m % 32)):
         raise ValueError(f"{name}: x {tuple(x_q.shape)}, bank {tuple(w.shape)}, "
                          f"li={li}: needs K % {_BK} == 0, N % 16 == 0"
-                         + (f", bn % {_BN} == 0" if tiled else ""))
+                         + (f", bn % {_BN} == 0" if tiled else "")
+                         + (", block_m % 32 == 0" if grouped else ""))
     xs = x_scale.reshape(m).float().contiguous()
     ws = w_scale.float().contiguous()
-    _build.check_operands(name, dev, x_q, w, xs, ws)
+    _build.check_operands(name, dev, x_q, w, xs, ws, *((eid,) if grouped else ()))
     if ws.shape != (l, n):
         raise ValueError(f"{name}: weight scales {tuple(ws.shape)} != {(l, n)}")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    splits = splits_for(m, n, k, dev)
+    splits = splits_for(m, n, k, dev, bm=32 if grouped else None)
     work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
             else None)
     fn = _build.launcher(name, _ARGTYPES[name])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    shape = (m, n, k, li, bn) if tiled else (m, n, k, li)
-    code = fn(x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-              out.data_ptr(), work.data_ptr() if work is not None else None,
-              *shape, splits, int(out_dtype == torch.float32), stream)
+    ptrs = (x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            work.data_ptr() if work is not None else None)
+    if grouped:
+        args = (*ptrs, eid.data_ptr(), m, n, k, l, bn, block_m)
+    else:
+        args = (*ptrs, *((m, n, k, li, bn) if tiled else (m, n, k, li)))
+    code = fn(*args, splits, int(out_dtype == torch.float32), stream)
     _build.check(name, code)
     _build.launches[counter or name] += 1
     return out
+
+
+# ------------------------------------------------------------ grouped W8A8 (K8)
+
+
+def _bank_kn(w_q, g):
+    """Expert g (an int or a 0-d tensor) of a [G, K, N] or pretiled
+    [G, N/bn, K, bn] bank as [K, N] (a copy)."""
+    one = w_q.index_select(0, torch.as_tensor(g, device=w_q.device).reshape(1))
+    return untile_weight_bank(one)[0] if w_q.dim() == 4 else one[0]
+
+
+def grouped_matmul_int8_ref(x_q, w_q, x_scale, w_scale, group_list,
+                            out_dtype=torch.bfloat16):
+    """The JAX package's ragged reference (matmul.py:457): rows are grouped
+    tightly, group g's group_list[g] rows after the rows of groups < g, and
+    take expert g's weights; rows past the last group give zeros (their
+    expert id is clipped to G - 1, as there). x_q [S, K] int8, w_q [G, K, N]
+    or pretiled, x_scale [S, 1] f32, w_scale [G, N] f32, group_list [G]
+    counts. Plain PyTorch; it reads the counts on the host."""
+    s = x_q.shape[0]
+    g_count = w_scale.shape[0]
+    ends = torch.cumsum(group_list.long(), 0)
+    acc = torch.zeros((s, w_scale.shape[1]), dtype=torch.float64, device=x_q.device)
+    start = 0
+    for g, end in enumerate(ends.tolist()):
+        end = min(end, s)
+        if end > start:
+            acc[start:end] = x_q[start:end].double() @ _bank_kn(w_q, g).double()
+        start = max(start, end)
+    row_e = torch.searchsorted(ends, torch.arange(s, device=x_q.device), right=True)
+    row_ws = w_scale.float()[row_e.clamp(0, g_count - 1)]
+    return (acc.float() * x_scale.float() * row_ws).to(out_dtype)
+
+
+def grouped_matmul_int8_tiles_ref(x_q, w_q, x_scale, w_scale, expert_per_mtile,
+                                  block_m: int, out_dtype=torch.bfloat16):
+    """Plain version of kernel K8: row tile i (block_m rows) times expert
+    expert_per_mtile[i] (clamped to [0, G), as the kernel clamps it), through
+    quant_matmul_int8_ref. One product per tile: no yardstick of speed."""
+    m = x_q.shape[0]
+    g_count = w_scale.shape[0]
+    out = torch.empty((m, w_scale.shape[1]), dtype=out_dtype, device=x_q.device)
+    eid = expert_per_mtile.long().clamp(0, g_count - 1)
+    for i in range(m // block_m):
+        rows = slice(i * block_m, (i + 1) * block_m)
+        out[rows] = quant_matmul_int8_ref(x_q[rows], _bank_kn(w_q, eid[i]), x_scale[rows],
+                                          w_scale[eid[i]], out_dtype)
+    return out
+
+
+def grouped_matmul_int8(x_q, w_q, x_scale, w_scale, expert_per_mtile, block_m: int = 32,
+                        out_dtype=torch.bfloat16):
+    """Grouped W8A8 GEMM with a per-m-tile expert map (the contract of the
+    JAX package's grouped_matmul_int8_pallas, matmul.py:475-563):
+
+      out[rows of tile i] = (x_q[tile i] @ w_q[e]) * x_scale * w_scale[e],
+      e = expert_per_mtile[i]
+
+    x_q [M, K] int8 with M % block_m == 0 (the aligned compaction pads each
+    expert's rows to block_m), w_q [G, K, N] or pretiled [G, N/bn, K, bn]
+    int8, x_scale [M, 1] f32 (0 on padding rows, which then give zeros),
+    w_scale [G, N] f32, expert_per_mtile [M / block_m] int32 -> [M, N].
+
+    On the card: kernel K8 (32-row tiles, block_m a multiple of 32), counted
+    under "w8a8_gemm_grouped". On the CPU: grouped_matmul_int8_tiles_ref."""
+    m = x_q.shape[0]
+    if block_m <= 0 or m % block_m or expert_per_mtile.shape != (m // block_m,):
+        raise ValueError(f"grouped_matmul_int8: M={m} needs block_m={block_m} tiles and "
+                         f"one expert id each, got {tuple(expert_per_mtile.shape)}")
+    if not use_kernel(x_q):
+        return grouped_matmul_int8_tiles_ref(x_q, w_q, x_scale, w_scale, expert_per_mtile,
+                                             block_m, out_dtype)
+    return _w8a8_gemm(x_q, w_q, 0, x_scale, w_scale, out_dtype,
+                      eid=expert_per_mtile.to(torch.int32).contiguous(), block_m=block_m)

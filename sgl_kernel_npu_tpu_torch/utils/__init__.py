@@ -1,3 +1,5 @@
+import torch
+
 from . import env  # noqa: F401
 from .device import (  # noqa: F401
     H100,
@@ -9,3 +11,17 @@ from .device import (  # noqa: F401
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def index_copy_kept_(dst, index, src, keep):
+    """dst.index_copy_(0, index[keep], src[keep]) without a host sync: a row
+    that is not kept rewrites the first kept row's target with that row's
+    value (the same bytes, so the duplicate index is harmless) or, when no
+    row is kept, dst[0] with its current value. index [T] long, src [T, ...],
+    keep [T] bool."""
+    first = torch.argmax(keep.int())
+    any_keep = keep[first]
+    src_row = torch.where(keep, torch.arange(keep.shape[0], device=keep.device), first)
+    tgt = torch.where(any_keep, torch.where(keep, index, index[first]), 0)
+    vals = torch.where(any_keep, src[src_row].to(dst.dtype), dst[tgt])
+    dst.index_copy_(0, tgt, vals)

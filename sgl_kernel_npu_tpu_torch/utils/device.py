@@ -23,13 +23,14 @@ class DeviceProperties:
     hbm_bytes_per_s: float
     bf16_flops: float
     int8_ops: float
+    f32_flops: float       # outside the tensor cores
     num_sms: int
 
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit.
 H100 = DeviceProperties(name="NVIDIA H100 SXM", hbm_bytes=80 * 10**9,
                         hbm_bytes_per_s=3.35e12, bf16_flops=989e12,
-                        int8_ops=1979e12, num_sms=132)
+                        int8_ops=1979e12, f32_flops=67e12, num_sms=132)
 
 
 def resolve_device(device="cuda") -> torch.device:
