@@ -15,7 +15,17 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    K7; and the Qwen3-Next bench path's kernels at its shapes: K8 (the
    grouped expert GEMM, 5,376 aligned rows of 128 tokens routed top-10 over
    128 experts), K9 (the recurrent gated-delta-rule step on the bf16 pool)
-   and K10 (head-major bf16 paged decode). The GEMMs and appends must agree
+   and K10 (head-major bf16 paged decode); and the MoE layer's kernels at
+   `bench.py --config moe`'s shapes: K11 (the single-launch fused layer,
+   8 experts of 7168 x 4096 and 2048 x 7168, 1,024 routed rows; also with
+   every copy on one expert and with -1 slots), K12 (the chunked ragged
+   scatter, the quantising dispatch and the bf16 combine), K8 at that
+   layer's shapes (GMM1 and GMM2 on the aligned compaction of the first
+   round at chunk_rounds 1, 2 and 4, exact) and K13 (swiglu_quant on GMM1's
+   2,048 x 4096 output, on no main path). K11's recv
+   and rs and K12 must agree exactly, K11's returned rows and K13's int8
+   within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp. The
+   GEMMs and appends must agree
    exactly, the fused RMSNorm-quant GEMM within 4 quant flips with >= 99% of
    rows exact, the Llama attention kernels within 2e-2 max-abs, K5, K7 and
    K10 (on O(1) outputs of a peaked softmax) within one bf16 ulp plus 2e-3
@@ -57,6 +67,18 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    tokens; prints ms per step, tok/s, the share of bench.py's byte roofline
    and a profiler split. Its state holds seeded random values where
    bench.py leaves zeros.
+8. Runs the MoE layer of `python bench.py --config moe` at EP = 1
+   (bench.py:378-494, seed-0 data in its order): its four variants
+   (Buffer.fused_deep_moe at chunk_rounds 1, 2, 4 through the default
+   strategy, and the pallas strategy's single launch), the pallas
+   strategy's capacity tier (capacity_rows=1024) and its dispatch ->
+   combine. Every variant: exact launches per call (K8 2 / 4 / 8; K11 1;
+   K12 2 + K8 2; K12 2), a bit-identical second call, finite, within
+   calc_diff 1e-5 of the same call through the plain versions on the same
+   card tensors (SKT_IMPL=ref), within the JAX package's tier bound
+   (rtol = atol = 0.05) of rounds = 1 (dispatch -> combine: of x * sum of
+   the weights); prints the device time per call by
+   CUDA graph replay, tok/s, bench.py's roofline share and a profiler split.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -66,6 +88,7 @@ of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1957,6 +1980,363 @@ def run_qwen_bench_path(torch, qn, build, cfg, gpu):
     return launches
 
 
+# ------------------------------------------------------------ the EP MoE layer
+
+# bench.py --config moe (bench.py:378-408): one MoE layer at the per-chip share
+# of a DeepSeek-V3 deployment at EP 32 (8 local experts, hidden 7168,
+# moe_intermediate 2048, top-8, 128 decode tokens), run at EP = 1
+MOE_EL, MOE_H, MOE_F, MOE_T, MOE_K = 8, 7168, 2048, 128, 8
+# K11's output rows and K13's int8 against their plain versions: both take the
+# same f32 operations in the same order, so they are expected exact; the bar
+# allows what a last-bit difference of exp could move: an int8 value by one
+# LSB on at most this share of the entries (K13), an output row by two such
+# flips times its largest weight (K11)
+MOE_FLIP_SHARE = 1e-3
+# calc_diff of a phase-8 layer output against its plain version, the bound
+# of tests/test_torch_moe.py (LAYER_DIFF)
+MOE_LAYER_DIFF = 1e-5
+
+
+def moe_bench_data(torch):
+    """bench.py's seed-0 data in its order (bench.py:399-408): x, topk_idx,
+    topk_w, w13q, w13s, w2q, w2s, on the card."""
+    el, h, f, t, k = MOE_EL, MOE_H, MOE_F, MOE_T, MOE_K
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((t, h)) * 0.3).to(torch.bfloat16)
+    idx = np.stack([rng.choice(el, k, replace=False) for _ in range(t)]).astype(np.int32)
+    w = rng.random((t, k)).astype(np.float32)
+    w13q = rng.integers(-127, 128, (el, h, 2 * f)).astype(np.int8)
+    w2q = rng.integers(-127, 128, (el, f, h)).astype(np.int8)
+    out = [x, torch.from_numpy(idx), torch.from_numpy(w), torch.from_numpy(w13q),
+           torch.full((el, 2 * f), 2e-4), torch.from_numpy(w2q), torch.full((el, h), 2e-4)]
+    return [a.cuda() for a in out]
+
+
+def _moe_send_layout(torch, ll, pll, x, idx, el, maxt):
+    """The "pallas" strategy's send layout at one rank: (x_send, counts,
+    aligned offsets, window offsets)."""
+    tok, _, counts, _, al, apos, sbuf = pll._send_layout(idx, 1, el, maxt)
+    x_send = pll.send_buffer(x[tok], apos, sbuf)
+    return x_send, counts, al, ll._window_offsets(1, el, maxt, x.device, 0)
+
+
+def check_remote_scatter(torch, ll, pll, comm, data):
+    """K12 at the bench shape: the pallas dispatch (the 1,088-row bf16 send
+    buffer into the 1,024-row window, quantised) and its combine (1,024 bf16
+    expert rows back into the send buffer's rows); exact against the plain
+    version, zero rows and padding scales included. Returns the row of both
+    launches summed."""
+    x, idx = data[0], data[1]
+    el, maxt, h = MOE_EL, MOE_T, MOE_H
+    x_send, counts, al, win = _moe_send_layout(torch, ll, pll, x, idx, el, maxt)
+    sbuf = x_send.shape[0]
+    g = comm.EPGroup(None)
+    y = torch.randn((el * maxt, h), device="cuda").to(torch.bfloat16)
+    live = int(((counts.long() + 7) // 8 * 8).sum())
+    sizes = (counts.long() + 7) // 8 * 8
+    cases = (
+        ("dispatch (quantising)", (x_send, None, counts, al, win, counts),
+         dict(out_rows=el * maxt, quantize=True), live * (2 * h + h + 4),
+         comm.loopback_targets(sbuf, al, sizes, win, el * maxt), x_send, el * maxt),
+        ("combine (bf16)", (y, None, counts, win, al, counts), dict(out_rows=sbuf),
+         live * 4 * h, comm.loopback_targets(el * maxt, win, sizes, al, sbuf), y, sbuf),
+    )
+    rows = []
+    for name, args, kw, nbytes, tgt, src, out_rows in cases:
+        kw = dict(kw, group=g, slices_per_rank=el)
+        out, s_out = pll._remote_scatter(*args, **kw)
+        ref, s_ref = pll.remote_scatter_ref(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref) or (s_out is not None and not torch.equal(s_out, s_ref)):
+            raise AssertionError(f"remote_scatter {name}: differs from the plain version")
+        ms = _time_ms(lambda: pll._remote_scatter(*args, **kw), 20, graph=True)
+        plain = _time_ms(lambda: pll.remote_scatter_ref(*args, **kw), 3, 1)
+        dst = torch.zeros((out_rows + 1, h), dtype=src.dtype, device="cuda")
+        lib = _time_ms(lambda: dst.index_copy_(0, tgt, src), 20, graph=True)
+        bound, by = _bound_ms(nbytes, 3.0 * live * h, "f32_flops")
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=0.0))
+        print(f"  remote_scatter {name}: {live} live rows of {h}: exact; kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms, index_copy_ of the bf16 rows {lib:.4f} ms (no "
+              f"quantisation), bound {bound:.4f} ms ({by})")
+    return _sum_rows(rows)
+
+
+def _k11_args(torch, ll, pll, x, idx, weights, el, maxt):
+    x_send, counts, al, win = _moe_send_layout(torch, ll, pll, x, idx, el, maxt)
+    return (x_send, *weights, counts, al, win, counts, al)
+
+
+def _check_k11_once(torch, fmp, EPGroup, args, label):
+    """K11 against its plain version on one input: recv and rs exact, back
+    within the flip bar. Returns max-abs of back."""
+    maxt = MOE_T
+    g = EPGroup(None)
+    recv, rs, back = fmp.fused_moe_layer(*args, group=g, maxt=maxt)
+    precv, prs, pback = fmp.fused_moe_layer_ref(*args, group=g, maxt=maxt)
+    torch.cuda.synchronize()
+    if not (torch.equal(recv, precv) and torch.equal(rs, prs)):
+        raise AssertionError(f"fused_moe {label}: recv / rs differ from the plain version")
+    _, _, asc = fmp.expert_rows_ref(precv, prs, *args[1:5])
+    # the rows of back come from expert rows in chunk order; a flipped int8
+    # activation moves its output row by at most asc * 127 * max|w2 scale|
+    # per flip (2 allowed)
+    bar = 2 * float(asc.max()) * 127 * float(args[4].abs().max())
+    a, b = back.double(), pback.double()
+    err = (a - b).abs()
+    ok = err <= 2.0 ** -7 * b.abs() + bar
+    rows_off = float((err > 0).any(dim=1).double().mean())
+    if not bool(ok.all()) or rows_off > MOE_FLIP_SHARE * 10:
+        raise AssertionError(f"fused_moe {label}: back max-abs {float(err.max()):.3g}, "
+                             f"{rows_off:.4f} of rows differ")
+    return float(err.max()), rows_off
+
+
+def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
+    """K11 at the bench shape (8 experts of 7168 x 4096 and 2048 x 7168,
+    128 tokens top-8: 1,024 rows, sbuf 1,088), then with every copy on expert
+    0 (7 experts of no rows) and with two experts and -1 slots: recv and rs
+    exact, back within the flip bar. Returns its row; the yardstick is the
+    composition at rounds = 1 (K8 twice and PyTorch glue), not one call."""
+    x, idx, w = data[0], data[1], data[2]
+    weights = data[3:]
+    el, maxt, h, f = MOE_EL, MOE_T, MOE_H, MOE_F
+    args = _k11_args(torch, ll, pll, x, idx, weights, el, maxt)
+    err, rows_off = _check_k11_once(torch, fmp, EPGroup, args, "bench routing")
+    one = torch.full_like(idx, -1)
+    one[:, 0] = 0
+    two = torch.full_like(idx, -1)
+    two[:, :2] = torch.tensor([3, 5], dtype=idx.dtype, device="cuda")
+    two[::3, 1] = -1
+    for label, rt in (("every copy on expert 0", one), ("experts 3 and 5, -1 slots", two)):
+        _check_k11_once(torch, fmp, EPGroup, _k11_args(torch, ll, pll, x, rt, weights, el, maxt),
+                        label)
+    g = EPGroup(None)
+    ms = _time_ms(lambda: fmp.fused_moe_layer(*args, group=g, maxt=maxt), 10, graph=True)
+    plain = _time_ms(lambda: fmp.fused_moe_layer_ref(*args, group=g, maxt=maxt), 2, 1)
+    comp = _time_ms(fm_buffer_rounds1, 10, graph=True)
+    sbuf = args[0].shape[0]
+    rows = el * maxt
+    nbytes = (sum(t.numel() * t.element_size() for t in args[:5]) + rows * (h + 4)
+              + sbuf * h * 2)
+    bound, by = _bound_ms(nbytes, 2.0 * rows * 3 * h * f, "int8_ops")
+    print(f"  fused_moe (one launch) at the bench shape: recv, rs exact, back max-abs {err:.3g} "
+          f"({rows_off:.4f} of rows differ); every copy on one expert and -1 slots: the same; "
+          f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}); the "
+          f"composition at rounds = 1 (not one call) {comp:.4f} ms")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=err), comp
+
+
+def check_moe_gemms(torch, par, fm, mm, data):
+    """K8 at the shapes the EP MoE layer gives it: the first round's aligned
+    compaction (128-row tiles, four 32-row kernel tiles each) at chunk_rounds
+    1, 2 and 4 (M 2,048, 1,536 and 1,280; capacity_rows=1024 is rounds = 1's
+    compaction), GMM1 on the [8, 7168, 4096] bank and, on its requantised
+    SwiGLU, GMM2 on the [8, 2048, 7168] bank: exact against the plain
+    version. Returns the row of rounds = 1's two GEMMs summed."""
+    x, idx = data[0], data[1]
+    w13q, w13s, w2q, w2s = data[3:]
+    el, t, k = MOE_EL, MOE_T, MOE_K
+    strat = par.get_low_latency_strategy("default")
+    g = par.EPGroup(None)
+    rows, shapes = [], []
+    for rounds in (1, 2, 4):
+        tr = t // rounds
+        maxt_r = min(t, max(tr, 8))
+        res = strat.low_latency_dispatch(x[:tr], idx[:tr], group=g, num_experts=el,
+                                         num_max_dispatch_tokens_per_rank=maxt_r,
+                                         quant_mode="int8")
+        _, ok, a, a_s, eid = fm._compact_rows(res, 1, el, maxt_r, maxt_r * min(k, el), True)
+        tile = fm.GEMM_TILE
+        m = a.shape[0]
+        live = ok.reshape(-1, tile).any(1).tolist()
+        groups = _expert_groups(eid.tolist(), live, tile)
+        shapes.append(m)
+        for name, w, ws in (("GMM1", w13q, w13s), ("GMM2", w2q, w2s)):
+            args = (a, w, a_s, ws, eid, tile)
+            out = mm.grouped_matmul_int8(*args)
+            ref = mm.grouped_matmul_int8_tiles_ref(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"w8a8_gemm_grouped {name} at chunk_rounds={rounds} (M={m}): "
+                                     f"{(out != ref).sum().item()} elements differ")
+            if rounds == 1:
+                kk, n = w.shape[1], w.shape[2]
+                xg, xsg = a, a_s
+
+                def library():
+                    y = torch.zeros((m, n), dtype=torch.bfloat16, device="cuda")
+                    for e, r0, r1 in groups:
+                        acc = torch._int_mm(xg[r0:r1], w[e])
+                        y[r0:r1] = (acc.float() * xsg[r0:r1] * ws[e][None]).to(torch.bfloat16)
+                    return y
+                if not torch.equal(library(), ref):
+                    raise AssertionError(f"torch._int_mm per expert group disagrees ({name})")
+                ms = _time_ms(lambda: mm.grouped_matmul_int8(*args), 20, graph=True)
+                plain = _time_ms(lambda: mm.grouped_matmul_int8_tiles_ref(*args), 1, 1)
+                lib = _time_ms(library, 5, graph=True)
+                n_exp = len({e for e, _, _ in groups})
+                nbytes = n_exp * (kk * n + 4 * n) + m * kk + 4 * m + 2 * m * n + 4 * eid.numel()
+                bound, by = _bound_ms(nbytes, 2.0 * int(ok.sum()) * kk * n, "int8_ops")
+                rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                                 bound_by=by, max_abs_err=0.0))
+                print(f"  w8a8_gemm_grouped MoE {name} M={m} ({int(ok.sum())} rows, {n_exp} "
+                      f"experts, tiles of {tile}) K={kk} N={n}: exact; kernel {ms:.4f} ms, "
+                      f"plain {plain:.3f} ms, _int_mm per expert group {lib:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by})")
+            if name == "GMM1":
+                a, a_s = fm._swiglu_requant(ref)
+    print(f"  w8a8_gemm_grouped exact at the first round of chunk_rounds 1, 2, 4 (M {shapes}), "
+          "GMM1 and GMM2")
+    return _sum_rows(rows)
+
+
+def check_swiglu_quant(torch, act):
+    """K13 at the MoE shape of GMM1's output: 2,048 aligned rows x 4096 bf16,
+    total_rows 1024 (a group list of counts): int8 within the flip bar,
+    scales within one f32 ulp, rows past the total zero."""
+    s, n2, total = 2048, 2 * MOE_F, 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    x = (torch.randn((s, n2), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    gl = torch.tensor([600, 0, 424], dtype=torch.int32, device="cuda")
+    q, sc = act.swiglu_quant(x, gl, 1)
+    rq, rsc = act.swiglu_quant_ref(x, gl, 1)
+    torch.cuda.synchronize()
+    d = (q.int() - rq.int()).abs()
+    share = float((d > 0).double().mean())
+    if int(d.max()) > 1 or share > MOE_FLIP_SHARE:
+        raise AssertionError(f"swiglu_quant: int8 max diff {int(d.max())}, share {share:.5f}")
+    ulp = torch.nextafter(rsc.abs(), torch.full_like(rsc, float("inf"))) - rsc.abs()
+    if not bool(((sc - rsc).abs() <= ulp).all()) or q[total:].any() or sc[total:].any():
+        raise AssertionError("swiglu_quant: scales beyond one ulp, or rows past the total set")
+    ms = _time_ms(lambda: act.swiglu_quant(x, gl, 1), 20, graph=True)
+    plain = _time_ms(lambda: act.swiglu_quant_ref(x, gl, 1), 5, 1)
+    nbytes = total * n2 * 2 + s * n2 // 2 + 4 * s
+    bound, by = _bound_ms(nbytes, 8.0 * total * n2 // 2, "f32_flops")
+    print(f"  swiglu_quant {s} x {n2} (total_rows {total}): {share:.5f} of int8 entries 1 "
+          f"apart, scales within one ulp; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=float(d.max()))
+
+
+# exact launches per call of each phase-8 variant; every other kernel 0
+MOE_VARIANTS = {
+    "rounds=1": {"w8a8_gemm_grouped": 2},
+    "rounds=2": {"w8a8_gemm_grouped": 4},
+    "rounds=4": {"w8a8_gemm_grouped": 8},
+    "pallas_fused": {"fused_moe": 1},
+    "pallas capacity_rows=1024": {"remote_scatter": 2, "w8a8_gemm_grouped": 2},
+    "pallas dispatch+combine": {"remote_scatter": 2},
+}
+_MOE_BUCKETS = (("K8 w8a8_gemm_grouped", _K8), ("K11 fused_moe", ("fused_moe_kernel",)),
+                ("K12 remote_scatter", ("remote_scatter_kernel",)), ("memsets", ("Memset",)))
+
+
+def moe_variants(torch, par, data):
+    """The calls of phase 8 by name: bench.py's four variants, the pallas
+    strategy's capacity tier and its dispatch -> combine (the combine of the
+    dequantised rows, x * sum of the weights)."""
+    x, idx, w = data[0], data[1], data[2]
+    weights = data[3:]
+    kw = dict(num_max_dispatch_tokens_per_rank=MOE_T)
+    dflt = par.Buffer(None, MOE_EL, **kw)
+    pal = par.Buffer(None, MOE_EL, low_latency_strategy="pallas", **kw)
+
+    def ll_pair():
+        recv, sc, _, _, hd = pal.low_latency_dispatch(x, idx)
+        return pal.low_latency_combine((recv.float() * sc[..., None]).to(torch.bfloat16), idx,
+                                       w, hd)
+    return {
+        "rounds=1": lambda: dflt.fused_deep_moe(x, idx, w, *weights, chunk_rounds=1),
+        "rounds=2": lambda: dflt.fused_deep_moe(x, idx, w, *weights, chunk_rounds=2),
+        "rounds=4": lambda: dflt.fused_deep_moe(x, idx, w, *weights, chunk_rounds=4),
+        "pallas_fused": lambda: pal.fused_deep_moe(x, idx, w, *weights),
+        "pallas capacity_rows=1024": lambda: pal.fused_deep_moe(x, idx, w, *weights,
+                                                                capacity_rows=1024),
+        "pallas dispatch+combine": ll_pair,
+    }
+
+
+def _tier_share(out, ref):
+    """Largest |out - ref| / (0.05 + 0.05 |ref|): at most 1 passes the JAX
+    package's tier bound (tests/test_fused_moe_pallas.py:62)."""
+    a, b = out.double(), ref.double()
+    return float(((a - b).abs() / (0.05 + 0.05 * b.abs())).max())
+
+
+def run_moe_bench_path(torch, par, build, data, gpu):
+    """What `python bench.py --config moe` runs (bench.py:378-494) on the
+    port at EP = 1: every variant once with the counts at 0 (exact launches
+    per call), once more from the same inputs (bit-identical), finite,
+    within the tier bound of rounds = 1 (the dispatch -> combine pair: of
+    x * sum of the weights); then each one's device time by CUDA graph
+    replay, tok/s, bench.py's roofline share and a profiler split. Returns
+    the launch counts of the run."""
+    x, w = data[0], data[2]
+    calls = moe_variants(torch, par, data)
+    build.reset_launches()
+    outs = {}
+    for name, fn in calls.items():
+        before = dict(build.launches)
+        outs[name] = fn()
+        delta = {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
+        if delta != MOE_VARIANTS[name]:
+            raise AssertionError(f"moe {name}: launches {delta}, not {MOE_VARIANTS[name]}")
+        again = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(again, outs[name]):
+            raise AssertionError(f"moe {name}: a second call from the same inputs differs")
+        if not bool(torch.isfinite(outs[name].float()).all()):
+            raise AssertionError(f"moe {name}: output not finite")
+    launches = dict(build.launches)
+    # every variant against the same call through every kernel's plain
+    # version on the same card tensors (SKT_IMPL=ref: the tight compaction
+    # and the ragged reference GEMM, K11's and K12's plain versions)
+    was = os.environ.get("SKT_IMPL")
+    os.environ["SKT_IMPL"] = "ref"
+    try:
+        plain = {name: fn() for name, fn in calls.items()}
+    finally:
+        if was is None:
+            del os.environ["SKT_IMPL"]
+        else:
+            os.environ["SKT_IMPL"] = was
+    if dict(build.launches) != launches:
+        raise AssertionError("a plain run of phase 8 launched a kernel")
+    diffs = {name: _calc_diff(outs[name], plain[name]) for name in calls}
+    bad = {name: d for name, d in diffs.items() if not d < MOE_LAYER_DIFF}
+    if bad:
+        raise AssertionError(f"moe: calc_diff against the plain composition {bad}")
+    print(f"  calc_diff of each variant against its plain version (bound {MOE_LAYER_DIFF}): "
+          f"{ {name: float(f'{d:.3g}') for name, d in diffs.items()} }")
+    ident = (x.float() * w.sum(-1, keepdim=True)).to(torch.bfloat16)
+    # bench.py's roofline (bench.py:481-485): the int8 expert weights plus the
+    # token traffic (int8 dispatch, bf16 expert output, bf16 combine)
+    el, h, f, t, k = MOE_EL, MOE_H, MOE_F, MOE_T, MOE_K
+    from sgl_kernel_npu_tpu_torch.utils import H100
+    bound_ms = 1e3 * (el * (h * 2 * f + f * h) + t * k * h * 5) / H100.hbm_bytes_per_s
+    for name, fn in calls.items():
+        ref = ident if name == "pallas dispatch+combine" else outs["rounds=1"]
+        share = _tier_share(outs[name], ref)
+        if share > 1.0:
+            raise AssertionError(f"moe {name}: {share:.3f} of the tier bound")
+        try:
+            ms, how = _time_ms(fn, 10, graph=True), "graph replay"
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            ms, how = _time_ms(fn, 10), f"events (capture failed: {str(e)[:60]})"
+        print(f"  moe {name}: {ms:.4f} ms per call ({how}), {t / ms * 1e3:.1f} tok/s, "
+              f"bench.py roofline share {bound_ms / ms:.4f} (bound {bound_ms:.4f} ms); "
+              f"{share:.3f} of the tier bound vs "
+              f"{'x * sum(w)' if name == 'pallas dispatch+combine' else 'rounds=1'}; "
+              f"launches {MOE_VARIANTS[name]}, repeat identical [{gpu}]")
+        profile_step(torch, fn, _MOE_BUCKETS, f"moe {name}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1981,7 +2361,10 @@ def main() -> int:
         from sgl_kernel_npu_tpu_torch import _build, serving
         from sgl_kernel_npu_tpu_torch import runtime
         from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, qwen_next
-        from sgl_kernel_npu_tpu_torch.ops import matmul, quant, rmsq_gemm
+        from sgl_kernel_npu_tpu_torch import parallel
+        from sgl_kernel_npu_tpu_torch.ops import activation, matmul, quant, rmsq_gemm
+        from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas,
+                                                                  low_latency, pallas_ll)
         from sgl_kernel_npu_tpu_torch.ops.gdn import recurrent_pallas
         from sgl_kernel_npu_tpu_torch.ops.attention import (decode, decode_mla_v2,
                                                             decode_v8, decode_v9,
@@ -2012,9 +2395,13 @@ def main() -> int:
     rng.manual_seed(0)
 
     qcfg = qwen_bench_config(qwen_next)
+    t0 = time.perf_counter()
+    moe_data = moe_bench_data(torch)
+    torch.cuda.synchronize()
+    print(f"  bench.py --config moe data (seed 0) {time.perf_counter() - t0:.1f} s")
 
-    print("phase 1: kernels vs plain versions at Llama-3-8B, DeepSeek-V2-Lite and the Qwen "
-          "bench shapes")
+    print("phase 1: kernels vs plain versions at Llama-3-8B, DeepSeek-V2-Lite, the Qwen and "
+          "the MoE bench shapes")
     _warm_up_card(torch)
     rows = {}
     gemm_rows = check_gemm(torch, matmul, quant, cfg, rng)
@@ -2048,6 +2435,16 @@ def main() -> int:
     rows["k9"] = check_gdn(torch, recurrent_pallas, qcfg, rng)
     torch.cuda.empty_cache()
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
+    torch.cuda.empty_cache()
+    rows["k11"], comp_ms = check_fused_moe(
+        torch, low_latency, pallas_ll, fused_moe_pallas,
+        moe_variants(torch, parallel, moe_data)["rounds=1"], parallel.EPGroup, moe_data)
+    torch.cuda.empty_cache()
+    rows["k8moe"] = check_moe_gemms(torch, parallel, parallel.fused_moe, matmul, moe_data)
+    torch.cuda.empty_cache()
+    rows["k12"] = check_remote_scatter(torch, low_latency, pallas_ll, parallel.comm, moe_data)
+    torch.cuda.empty_cache()
+    rows["k13"] = check_swiglu_quant(torch, activation)
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -2141,6 +2538,12 @@ def main() -> int:
     qwen_launches = run_qwen_bench_path(torch, qwen_next, _build, qcfg, gpu)
     torch.cuda.empty_cache()
 
+    print("phase 8: the bench.py --config moe layer at EP = 1 (8 experts of DeepSeek-V3 "
+          "width, 128 tokens top-8)")
+    moe_launches = run_moe_bench_path(torch, parallel, _build, moe_data, gpu)
+    del moe_data
+    torch.cuda.empty_cache()
+
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
@@ -2195,6 +2598,18 @@ def main() -> int:
         dict(name="decode_hm", route="cuda", source=f"{src}/decode_hm.cu",
              replaces=f"{base}/ops/attention/decode_v2.py:97",
              launches=qwen_launches["decode_hm"], **rows["k10"]),
+        dict(name="w8a8_gemm_grouped (EP MoE shape)", route="cuda",
+             source=f"{src}/w8a8_gemm.cu", replaces=f"{base}/ops/matmul.py:496",
+             launches=moe_launches["w8a8_gemm_grouped"], **rows["k8moe"]),
+        dict(name="fused_moe", route="cuda", source=f"{src}/fused_moe.cu",
+             replaces=f"{base}/parallel/strategies/fused_moe_pallas.py:343",
+             launches=moe_launches["fused_moe"], **rows["k11"]),
+        dict(name="remote_scatter", route="cuda", source=f"{src}/remote_scatter.cu",
+             replaces=f"{base}/parallel/strategies/pallas_ll.py:191",
+             launches=moe_launches["remote_scatter"], **rows["k12"]),
+        dict(name="swiglu_quant", route="cuda", source=f"{src}/swiglu_quant.cu",
+             replaces=f"{base}/ops/activation.py:79", launches=moe_launches["swiglu_quant"],
+             **rows["k13"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2207,9 +2622,16 @@ def main() -> int:
           "K5 and K6 from phase 6 (all its 64 steps), of K7 from phase 5; decode_mla_c row: "
           "the int8 cache (decode_mla_v2.py:224 is the same contract, bf16); "
           "w8a8_gemm_grouped row (K8): sum of the expert w13 and w2 GEMMs at the Qwen bench "
-          "shape; launches of K8-K10 from phase 7 (all its 32 steps); decode_hm row (K10): "
+          "shape; launches of K8-K10 from phase 7 (all its 32 steps); w8a8_gemm_grouped (EP "
+          "MoE shape) row: GMM1 and GMM2 of rounds = 1 summed, launches from phase 8; "
+          "decode_hm row (K10): "
           "decode_v2.py:97 is what decode.py::decode_gqa runs, decode.py:145 the same "
-          "contract one page per grid step")
+          "contract one page per grid step; fused_moe row (K11): one launch at the bench "
+          f"shape, no library call computes it (the composition at rounds = 1, K8 twice and "
+          f"glue, takes {comp_ms:.4f} ms); remote_scatter row (K12): the quantising dispatch "
+          "and the bf16 combine summed, library: index_copy_ of the same bf16 rows (no "
+          "quantisation); swiglu_quant row (K13): on no main path, held at GMM1's output "
+          "shape; launches of K11 and K12 from phase 8 (every variant twice)")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,14 @@ use) with a plain PyTorch version in the same module: a CUDA tensor launches
 the kernel, a CPU tensor runs the plain version.
 
 Subpackages:
-  ops       W8A8 GEMMs (plain, stacked, pretiled, fused RMSNorm-quant), int8
-            quant, RoPE, paged attention and appends (Llama tm / tm2 pages,
-            MLA combined and split latent pages), mla_preprocess
-  models    Llama-3-class and DeepSeek-V2-class MLA W8A8 decoders
+  ops       W8A8 GEMMs (plain, stacked, pretiled, grouped, fused
+            RMSNorm-quant), int8 quant, RoPE, paged attention and appends
+            (Llama tm / tm2 pages, MLA combined and split latent pages,
+            head-major pages), mla_preprocess, gdn, swiglu_quant
+  models    Llama-3-class, DeepSeek-V2-class MLA and Qwen3-Next-class W8A8
+            decoders
+  parallel  the expert-parallel MoE layer: Buffer, its dispatch / combine
+            strategies, the fused layer (composition and one launch)
   runtime   ctypes bindings of the native scheduler (csrc/runtime.cpp)
   serving   LlamaEngine and MlaEngine: continuous batching, radix prefix reuse
   utils     env flags, device selection, H100 roofline numbers

@@ -46,6 +46,9 @@ KERNELS = {
     "w8a8_gemm_grouped": "w8a8_gemm",  # K8
     "gdn_recurrent": "gdn_recurrent",  # K9
     "decode_hm": "decode_hm",          # K10
+    "fused_moe": "fused_moe",          # K11
+    "remote_scatter": "remote_scatter",  # K12
+    "swiglu_quant": "swiglu_quant",    # K13
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

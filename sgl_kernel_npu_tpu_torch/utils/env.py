@@ -6,6 +6,10 @@ package's utils/env.py, limited to the flags this package reads).
               CUDA tensor; "auto" and "pallas" launch the kernel there.
   SKT_GEMM_BN int, default 512: panel width of the pretiled weight banks
               (models/llama.py::pretile_big_weights).
+  SKT_DEEP_USE_MODE           EP strategy names "normal,low_latency"
+                              (default "default,default")
+  SKT_SHARED_EXPERT_RANK_NUM  int, shared-expert ranks of the EP dispatch
+  SKT_BF16_DISPATCH           bool: skip the int8 quant of the EP dispatch
 """
 
 from __future__ import annotations
@@ -49,3 +53,20 @@ def impl_mode() -> str:
     if mode not in ("auto", "ref", "pallas"):
         mode = "auto"
     return mode
+
+
+def deep_use_mode() -> tuple:
+    """EP strategy pair selection (normal_name, low_latency_name)."""
+    raw = env_str("SKT_DEEP_USE_MODE", "default,default")
+    parts = [p.strip() or "default" for p in raw.split(",")]
+    while len(parts) < 2:
+        parts.append("default")
+    return parts[0], parts[1]
+
+
+def shared_expert_rank_num() -> int:
+    return env_int("SKT_SHARED_EXPERT_RANK_NUM", 0, lo=0)
+
+
+def bf16_dispatch() -> bool:
+    return env_bool("SKT_BF16_DISPATCH", False)
