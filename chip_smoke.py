@@ -22,14 +22,22 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    scatter, the quantising dispatch and the bf16 combine), K8 at that
    layer's shapes (GMM1 and GMM2 on the aligned compaction of the first
    round at chunk_rounds 1, 2 and 4, exact) and K13 (swiglu_quant on GMM1's
-   2,048 x 4096 output, on no main path). K11's recv
+   2,048 x 4096 output, on no main path); K11 also at maxT 8 and 72 (8 and
+   72 tokens: a window's last 64-row m-tile partial); and the hm Llama
+   path's kernels at Llama-3-8B's heads: K14 (deferred decode with bf16
+   products, bf16 and int8 pages) at the bench shape (128 sequences of
+   256..383 cached tokens, 512-token pages) and the engine's (8 sequences,
+   128-token pages), K15 (paged chunk prefill: 512 tokens over 256 cached,
+   bf16 and int8 pages, and a page_sel drive with an empty tile) and K16's
+   five contracts (v3 decode bf16 / int8, current token in the cache or
+   deferred; int8 head-major decode) at the bench shape. K11's recv
    and rs and K12 must agree exactly, K11's returned rows and K13's int8
    within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp. The
    GEMMs and appends must agree
    exactly, the fused RMSNorm-quant GEMM within 4 quant flips with >= 99% of
    rows exact, the Llama attention kernels within 2e-2 max-abs, K5, K7 and
    K10 (on O(1) outputs of a peaked softmax) within one bf16 ulp plus 2e-3
-   (K5) or 1e-4 (K7, K10) of max|plain|, K9's output within 1e-4 of
+   (K5, K14) or 1e-4 (K7, K10, K15, K16) of max|plain|, K9's output within 1e-4 of
    max|plain| and its pool within one bf16 ulp, rows it must not write
    untouched.
    Times the kernel, the plain version and a PyTorch library yardstick with
@@ -42,8 +50,11 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
 3. Runs small configurations on the card and on the CPU (plain versions)
    and compares logits and caches: Llama prefill and decode on tm pages,
    Llama decode on tm2 pages with pretiled banks, a 2-layer MLA config on
-   both MLA paths, and a 4-layer Qwen3-Next config (head dims 128, 8
-   experts top-2) through decode_step_q.
+   both MLA paths, a 4-layer Qwen3-Next config (head dims 128, 8
+   experts top-2) through decode_step_q, and a 2-layer Llama config on hm
+   pages, bf16 and int8: prefill, v6 decode, then one step each of v3 and
+   SKT_DECODE_DEFER=0 (layer-0 bf16 caches bit-equal)
+   and an hm engine (equal greedy tokens).
 4. Runs the decode path of `python bench.py` (tm2 pages, pretiled banks,
    batch 128, context 256, 32 greedy steps per call) at Llama-3-8B width on
    phase 2's weights with the counters set to 0 first: checks the logits,
@@ -79,6 +90,25 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    (rtol = atol = 0.05) of rounds = 1 (dispatch -> combine: of x * sum of
    the weights); prints the device time per call by
    CUDA graph replay, tok/s, bench.py's roofline share and a profiler split.
+
+9. Runs (right after phase 4, on its pretiled weights) the decode path of
+   `python bench.py --bf16-kv`: bf16 hm pages of 512, batch 128, context
+   256, 32 greedy steps per call, one warm and three timed: exact launches
+   per step (K1 65, K2 64, K14 32), a repeat run; ms per step, tok/s, the
+   share of bench.py's byte roofline with kv_elt 2, a profiler split. From
+   the v6 run's state, fed its tokens, 4 steps each of v6,
+   SKT_DECODE_ATTN=v3 and SKT_DECODE_DEFER=0 (K16), each step also through
+   the plain versions (SKT_IMPL=ref) from the same state: logits within
+   calc_diff 8e-3 of them, DEFER=0 within 8e-3 of v3 (the distance of v3
+   to v6, which rounds p to bf16, is printed); and 8 steps of bench.py's
+   SKT_KV_LAYOUT=hm on an int8 cache (K14 int8 32 per step), then 4 steps
+   each of v3 and DEFER=0 from its state (K16 int8, 32 per step each),
+   each held to its plain versions the same way.
+10. Serves phase 2's prompts through LlamaEngine on hm pages at Llama-3-8B
+   width on the same weights: int8_kv=False, then int8 with
+   kv_layout="hm"; every model call's launches exact (prefill K1 129, K15
+   32; decode K1 65, K2 64, K14 32), all requests finish, the prefix is
+   reused, a rerun repeats the tokens.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -1194,6 +1224,259 @@ def check_decode_hm(torch, dec, qcfg, rng):
                 max_abs_err=err)
 
 
+# ------------------------------------------------------- the hm Llama kernels
+
+# K14 (`_bf16_check`): p rounded to bf16 before P.V, as in K5, so K5's share;
+# K15 and K16 are all f32, so K7's and K10's
+K14_SHARE = K5_SHARE
+HM_SHARE = K10_SHARE
+HM_ENGINE_CACHED = (40, 127, 128, 129, 255, 384, 511, 700)
+
+
+def _hm_pages(torch, rng, pages, hkv, ps, d, int8, head_major=False):
+    """Seeded page-major [P, Hkv, ps, D] (or head-major [Hkv, P, ps, D])
+    pages: bf16 randn rows, or int8 rows with f32 scales of 0.005..0.025.
+    Returns (k, v, ks, vs), the scales None for bf16."""
+    shape = (hkv, pages, ps, d) if head_major else (pages, hkv, ps, d)
+    if not int8:
+        return (*(torch.randn(shape, generator=rng, device="cuda").to(torch.bfloat16)
+                  for _ in range(2)), None, None)
+    sshape = shape[:2] + (1, ps)
+    return (*(torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+              for _ in range(2)),
+            *(torch.rand(sshape, generator=rng, device="cuda") * 0.02 + 0.005
+              for _ in range(2)))
+
+
+def _hm_rows(torch, cache, scales, bt, head_major=False):
+    """The pages of bt [B, MP] gathered as bf16 [B, Hkv, MP*ps, D],
+    dequantised as f32(row * scale) for int8 (the SDPA yardsticks' input)."""
+    b, mp = bt.shape
+    btl = bt.long()
+    if head_major:
+        vals, sc = cache[:, btl].transpose(0, 1), (scales[:, btl].transpose(0, 1)
+                                                    if scales is not None else None)
+    else:
+        vals, sc = cache[btl].transpose(1, 2), (scales[btl].transpose(1, 2)
+                                                 if scales is not None else None)
+        # [B, Hkv, MP, ps, D]
+    hkv, ps, d = vals.shape[1], vals.shape[3], vals.shape[4]
+    rows = vals.reshape(b, hkv, mp * ps, d).float()
+    if sc is not None:
+        rows = rows * sc.reshape(b, hkv, mp * ps, 1)
+    return rows.to(torch.bfloat16)
+
+
+def _hm_decode_shape(torch, rng, cfg, shape):
+    """"bench": bench.py's decode (128 sequences, 512-token pages, one page
+    each; cached 256..383 with 0, 1, 255, 511 among them); "engine": the
+    engine's (8 sequences, 128-token pages, 6 each, phase 2's lengths).
+    Returns (b, ps, mp, cached [B] int32, block table)."""
+    if shape == "bench":
+        b, ps, mp = BENCH_BATCH, 512, 1
+        cached = torch.randint(256, 384, (b,), generator=rng, device="cuda",
+                               dtype=torch.int32)
+        cached[:4] = torch.tensor([0, 1, 255, 511], dtype=torch.int32)
+    else:
+        b, ps, mp = len(HM_ENGINE_CACHED), cfg.page_size, 6
+        cached = torch.tensor(HM_ENGINE_CACHED, dtype=torch.int32, device="cuda")
+    pages = b * mp + 1
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    return b, ps, mp, cached, bt
+
+
+def _hm_yardstick(torch, q, rows_k, rows_v, live, new, sm):
+    """SDPA over gathered bf16 rows (the kv heads as SDPA heads, their G
+    query heads as queries), the new token's row appended when `new`."""
+    b, hq, d = q.shape
+    hkv = rows_k.shape[1]
+    kk, vv = rows_k, rows_v
+    if new is not None:
+        kk = torch.cat([kk, new[0][:, :, None]], 2)
+        vv = torch.cat([vv, new[1][:, :, None]], 2)
+        live = torch.cat([live, torch.ones_like(live[:, :1])], 1)
+    qq = q.reshape(b, hkv, hq // hkv, d)
+    library, backend = _sdpa_yardstick(torch, qq, kk.contiguous(), vv.contiguous(),
+                                       live[:, None, None, :], sm)
+    return library, backend, (lambda: library().reshape(b, hq, d))
+
+
+def _hm_decode_bytes(cached, b, hkv, hq, d, mp, int8, new):
+    tok = float(cached.clamp_min(0).double().sum())
+    elt = 1 if int8 else 2
+    return (tok * hkv * (2 * d * elt + (8 if int8 else 0)) + 2 * 2 * b * hq * d
+            + (2 * 2 * b * hkv * d if new else 0) + 4 * b + 4 * b * mp), tok
+
+
+def check_decode_v6(torch, dv6, cfg, rng):
+    """K14 (both contracts, bf16 and int8 pages) at the bench decode shape
+    (128 sequences of 256..383 cached tokens, 512-token pages) and the
+    engine's (8 sequences, 128-token pages, 6 each), against its plain
+    version. Returns the bench shape's rows by contract."""
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sm = d ** -0.5
+    rows = {}
+    for shape in ("bench", "engine"):
+        b, ps, mp, cached, bt = _hm_decode_shape(torch, rng, cfg, shape)
+        q = (1.5 * torch.randn((b, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
+        kn, vn = (torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        for int8 in (False, True):
+            name = "decode_v6_int8_defer" if int8 else "decode_v6_defer"
+            k, v, ks, vs = _hm_pages(torch, rng, b * mp + 1, hkv, ps, d, int8)
+            fn = dv6.decode_gqa_v6_int8_defer if int8 else dv6.decode_gqa_v6_defer
+            args = (q, kn, vn, k, v, *((ks, vs) if int8 else ()), cached, bt, sm, ps)
+
+            def plain():
+                return dv6.decode_gqa_v6_defer_ref(q, kn, vn, k, v, cached, bt, sm,
+                                                   k_scales=ks, v_scales=vs)
+            out, ref = fn(*args), plain()
+            torch.cuda.synchronize()
+            err, ratio = _bf16_check(f"{name} {shape}", out, ref, K14_SHARE)
+            ms = _time_ms(lambda: fn(*args), 50, graph=True)
+            plain_ms = _time_ms(plain, 3)
+            live = torch.arange(mp * ps, device="cuda")[None, :] < cached[:, None]
+            library, backend, lib_out = _hm_yardstick(
+                torch, q, _hm_rows(torch, k, ks, bt), _hm_rows(torch, v, vs, bt), live,
+                (kn, vn), sm)
+            lib_err = (lib_out().float() - ref.float()).abs().max().item()
+            lib = _time_ms(library, 20, graph=True)
+            nbytes, tok = _hm_decode_bytes(cached, b, hkv, hq, d, mp, int8, True)
+            bound, by = _bound_ms(nbytes, 4.0 * (tok + b) * hq * d, "bf16_flops")
+            print(f"  {name} ({shape}) B={b} Hq={hq} Hkv={hkv} ps={ps} MP={mp} cached "
+                  f"{int(cached.min())}..{int(cached.max())} (sum {int(tok)}): max-abs "
+                  f"{err:.3g} ({ratio:.3g} of its bound, max|plain| "
+                  f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, SDPA ({backend}) {lib:.4f} ms (max-abs vs plain "
+                  f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
+            if shape == "bench":
+                rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                                  bound_by=by, max_abs_err=err)
+            del k, v, ks, vs
+    return rows
+
+
+def check_decode_v3(torch, dv3, dec, cfg, rng):
+    """K16's five contracts at the bench decode shape (128 sequences, one
+    512-token page each): decode_v3 and decode_v3_int8 (the current token in
+    the cache: seq_lens 1..512), the two deferred ones (cached 0..511 plus
+    the new token), and decode_int8kv on head-major int8 pages; against
+    their plain versions. Returns the rows by contract."""
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sm = d ** -0.5
+    b, ps, mp, cached, bt = _hm_decode_shape(torch, rng, cfg, "bench")
+    seq = cached + 1
+    q = (1.5 * torch.randn((b, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
+    new = tuple(torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+    rows = {}
+    for name in ("decode_v3", "decode_v3_int8", "decode_v3_defer", "decode_v3_int8_defer",
+                 "decode_int8kv"):
+        int8, defer, hmaj = "int8" in name, "defer" in name, name == "decode_int8kv"
+        k, v, ks, vs = _hm_pages(torch, rng, b * mp + 1, hkv, ps, d, int8, head_major=hmaj)
+        lens = cached if defer else seq
+        sc = (ks, vs) if int8 else ()
+        if hmaj:
+            args = (q, k, v, ks, vs, lens, bt, sm, ps)
+            fn = dec.decode_gqa_int8kv
+
+            def plain():
+                return dec.decode_gqa_int8kv_ref(*args)
+        else:
+            args = ((q, *new) if defer else (q,)) + (k, v, *sc, lens, bt, sm, ps)
+            fn = getattr(dv3, "decode_gqa_" + name[len("decode_"):])
+
+            def plain():
+                return dv3.decode_gqa_v3_ref(q, k, v, lens, bt, sm, k_scales=ks, v_scales=vs,
+                                             k_new=new[0] if defer else None,
+                                             v_new=new[1] if defer else None)
+        out, ref = fn(*args), plain()
+        torch.cuda.synchronize()
+        err, ratio = _bf16_check(name, out, ref, HM_SHARE)
+        ms = _time_ms(lambda: fn(*args), 50, graph=True)
+        plain_ms = _time_ms(plain, 3)
+        live = torch.arange(mp * ps, device="cuda")[None, :] < lens[:, None]
+        library, backend, lib_out = _hm_yardstick(
+            torch, q, _hm_rows(torch, k, ks, bt, hmaj), _hm_rows(torch, v, vs, bt, hmaj), live,
+            new if defer else None, sm)
+        lib_err = (lib_out().float() - ref.float()).abs().max().item()
+        lib = _time_ms(library, 20, graph=True)
+        nbytes, tok = _hm_decode_bytes(lens, b, hkv, hq, d, mp, int8, defer)
+        bound, by = _bound_ms(nbytes, 4.0 * (tok + (b if defer else 0)) * hq * d, "f32_flops")
+        print(f"  {name} B={b} Hq={hq} Hkv={hkv} ps={ps} lens {int(lens.min())}.."
+              f"{int(lens.max())} (sum {int(tok)}){' + the new token' if defer else ''}: "
+              f"max-abs {err:.3g} ({ratio:.3g} of its bound, max|plain| "
+              f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, SDPA ({backend}) {lib:.4f} ms (max-abs vs plain "
+              f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                          bound_by=by, max_abs_err=err)
+        del k, v, ks, vs
+    return rows
+
+
+def check_prefill_hm(torch, pp, cfg, rng):
+    """K15 on a 512-token chunk over a 256-token prefix (Llama-3-8B's 32 / 8
+    heads, 128-token pages, the dense causal schedule of four 128-token
+    tiles), bf16 and int8 pages, against its plain version; a page_sel drive
+    with an empty tile on the bf16 pages too. Returns the bf16 row."""
+    hq, hkv, d, ps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    g, sm = hq // hkv, d ** -0.5
+    t, prefix, mp = 512, 256, 6
+    n = prefix + t
+    bt = (torch.randperm(2 * mp, generator=rng, device="cuda")[:mp].to(torch.int32) + 1)
+    q = (1.5 * torch.randn((t, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
+    row = None
+    plen = torch.tensor(prefix, dtype=torch.int32, device="cuda")   # no copy in a graph
+    for int8 in (False, True):
+        k, v, ks, vs = _hm_pages(torch, rng, 2 * mp + 1, hkv, ps, d, int8)
+        kv = {"k": k, "v": v, "ks": ks, "vs": vs} if int8 else (k, v)
+        args = (q, kv, bt, plen, sm, ps)
+        out, ref = pp.paged_prefill_attention(*args), pp.paged_prefill_attention_ref(*args)
+        torch.cuda.synchronize()
+        kind = "int8" if int8 else "bf16"
+        err, ratio = _bf16_check(f"prefill_hm {kind}", out, ref, HM_SHARE)
+        if not int8:
+            sel = torch.tensor([[3, 0, 1, 0], [0, 0, 0, 0], [5, 4, 2, 0], [1, 0, 0, 0]],
+                               dtype=torch.int32, device="cuda")
+            cnt = torch.tensor([3, 0, 3, 1], dtype=torch.int32, device="cuda")
+            sout = pp.paged_prefill_attention(*args, page_sel=sel, page_cnt=cnt)
+            sref = pp.paged_prefill_attention_ref(*args, page_sel=sel, page_cnt=cnt)
+            torch.cuda.synchronize()
+            _bf16_check("prefill_hm page_sel", sout, sref, HM_SHARE)
+            if float(sout[128:256].float().abs().max()) != 0.0:
+                raise AssertionError("prefill_hm: a tile with an empty page list is not 0")
+        ms = _time_ms(lambda: pp.paged_prefill_attention(*args), 20, graph=True)
+        plain_ms = _time_ms(lambda: pp.paged_prefill_attention_ref(*args), 2, 1)
+        btr = bt[None]
+        kk = _hm_rows(torch, k, ks, btr)[:, :, :n]
+        vv = _hm_rows(torch, v, vs, btr)[:, :, :n]
+        qq = q.reshape(t, hkv, g, d).permute(1, 0, 2, 3).reshape(1, hkv, t * g, d).contiguous()
+        tok = torch.arange(t * g, device="cuda") // g
+        mask = (torch.arange(n, device="cuda")[None, :] <= prefix + tok[:, None])[None, None]
+        library, backend = _sdpa_yardstick(torch, qq, kk.contiguous(), vv.contiguous(), mask,
+                                           sm)
+        lib_out = library().reshape(hkv, t, g, d).permute(1, 0, 2, 3).reshape(t, hq, d)
+        lib_err = (lib_out.float() - ref.float()).abs().max().item()
+        lib = _time_ms(library, 10, graph=True)
+        elt = 1 if int8 else 2
+        nbytes = n * hkv * (2 * d * elt + (8 if int8 else 0)) + 2 * 2 * t * hq * d + 4 * mp
+        keys = sum(prefix + i + 1 for i in range(t))
+        bound, by = _bound_ms(nbytes, 4.0 * keys * hq * d, "f32_flops")
+        print(f"  prefill_hm {kind} T={t} prefix={prefix} Hq={hq} Hkv={hkv} ps={ps} "
+              f"(block_q 128, dense causal{'; page_sel with an empty tile also held' if not int8 else ''}): "
+              f"max-abs {err:.3g} ({ratio:.3g} of its bound, max|plain| "
+              f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, SDPA ({backend}, causal) {lib:.4f} ms (max-abs vs plain "
+              f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
+        if not int8:
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                       max_abs_err=err)
+        del k, v, ks, vs, kv
+    return row
+
+
 # ------------------------------------------------------------- the engine
 
 
@@ -1220,7 +1503,7 @@ def _check_call(kind, delta, expect):
 
 
 def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
-               profile=False, engine_cls=None, expect=None):
+               profile=False, engine_cls=None, expect=None, engine_kw=None):
     """Serve `prompts`, then `late` once the first shared-prefix prompt has
     been prefilled (so it reuses the radix-cached prefix). Returns outputs,
     timings, launch counts per step kind and the counts of the whole run;
@@ -1229,7 +1512,7 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
     the launches of every model call (_check_call)."""
     eng = (engine_cls or serving.LlamaEngine)(cfg, params=params, device="cuda",
                                               num_pages=512, decode_batch=8,
-                                              token_budget=256)
+                                              token_budget=256, **(engine_kw or {}))
     from sgl_kernel_npu_tpu_torch.runtime import NativeScheduler
     if not isinstance(eng.sched, NativeScheduler):
         raise AssertionError("the engine must run on the native scheduler")
@@ -1416,6 +1699,139 @@ def check_small_tm2(torch, llama):
           + ", ".join(f"{k} {v}" for k, v in match.items()))
 
 
+class _env:
+    """Set environment variables for a block, then restore them."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _hm_small_config(llama, int8):
+    return llama.LlamaConfig(vocab_size=1024, hidden_size=512, num_layers=2, num_heads=8,
+                             num_kv_heads=2, head_dim=128, intermediate_size=1024,
+                             page_size=16, max_position=512, int8_kv=int8)
+
+
+def check_small_hm(torch, llama, serving):
+    """A small config (D = 128, G = 4, ps = 16, L = 2) on page-major caches,
+    bf16 and int8, on the card and on the CPU (plain versions), from the same
+    CPU-made weights: prefill of 2 chunks (K15), 2 decode steps (v6, K14),
+    then from that state one step each of SKT_DECODE_ATTN=v3 and
+    SKT_DECODE_DEFER=0 (K16; SKT_DECODE_FLAT=0 runs the same loop as
+    DEFER=0, so it is not run again); logits calc_diff < 8e-3,
+    layer-0 caches bit-equal (bf16) or >= 99.9% exact with |diff| <= 1
+    (int8). Then an hm engine (chunked prefill, radix reuse, a padded decode
+    batch) on both: equal greedy tokens."""
+    for int8 in (False, True):
+        cfg = _hm_small_config(llama, int8)
+        rng = np.random.default_rng(13)
+        lens, s, t, mp, pages, b = [37, 20], 2, 64, 6, 16, 4
+        ps = cfg.page_size
+        bts = np.array([[1, 2, 3, 4, 5, 0], [6, 7, 8, 9, 10, 0]], np.int32)
+        ids = np.zeros((s, t), np.int32)
+        slp = np.full((s, t), -1, np.int32)
+        pos = np.zeros((s, t), np.int32)
+        for si, n in enumerate(lens):
+            ids[si, :n] = rng.integers(0, cfg.vocab_size, n)
+            pos[si, :n] = np.arange(n)
+            slp[si, :n] = bts[si, np.arange(n) // ps] * ps + np.arange(n) % ps
+        steps = []
+        for step in range(3):
+            cur = [n + step for n in lens]
+            ids_d = np.zeros(b, np.int32)
+            ids_d[:2] = rng.integers(0, cfg.vocab_size, 2)
+            bt = np.zeros((b, mp), np.int32)
+            bt[:2] = bts
+            sl = np.full(b, -1, np.int32)
+            sl[:2] = [bts[i, c // ps] * ps + c % ps for i, c in enumerate(cur)]
+            steps.append((ids_d, np.array(cur + [0, 0], np.int32),
+                          np.array([c + 1 for c in cur] + [1, 1], np.int32), bt, sl))
+        cpu_params = llama.init_params(cfg, 3, "cpu")
+        results = {}
+        for dev in ("cuda", "cpu"):
+            params = _to_device(cpu_params, dev)
+            kv = llama.init_kv_cache(cfg, pages, layout="hm", device=dev)
+
+            def tt(a):
+                return torch.from_numpy(np.array(a)).to(dev)
+            lg, kv = llama.prefill_batch_step_kv(
+                params, cfg, kv, tt(ids), tt(np.array(lens, np.int32)), tt(pos), tt(slp),
+                tt(bts), torch.zeros(s, dtype=torch.int32, device=dev))
+            logits = [lg[si, :n].float().cpu() for si, n in enumerate(lens)]
+            for args in steps[:2]:
+                lg, kv = llama.decode_step_kv(params, cfg, kv, *(tt(a) for a in args))
+                logits.append(lg[:2].float().cpu())
+            caches = [_leaves_cpu(kv)]
+            for flags in ({"SKT_DECODE_ATTN": "v3"}, {"SKT_DECODE_DEFER": "0"}):
+                kv2 = tuple(a.clone() for a in kv) if not int8 else {
+                    k: a.clone() for k, a in kv.items()}
+                with _env(**flags):
+                    lg, kv2 = llama.decode_step_kv(params, cfg, kv2, *(tt(a) for a in steps[2]))
+                logits.append(lg[:2].float().cpu())
+                caches.append(_leaves_cpu(kv2))
+            results[dev] = (logits, caches)
+        diffs = [_calc_diff(a, r) for a, r in zip(results["cuda"][0], results["cpu"][0])]
+        if not all(bool(torch.isfinite(a).all()) for a in results["cuda"][0]):
+            raise AssertionError("small hm logits are not finite")
+        if max(diffs) >= 8e-3:
+            raise AssertionError(f"small hm ({'int8' if int8 else 'bf16'}) logits calc_diff "
+                                 f"{diffs}")
+        exact = []
+        for cc, cr in zip(results["cuda"][1], results["cpu"][1]):
+            for a, r in zip(cc, cr):
+                if a.dtype == torch.float32 and a.dim() == 5 and a.shape[-2] == 1:
+                    ok = float((a[0] == r[0]).float().mean())          # int8 scales
+                    bad = ok < 0.999
+                elif int8:
+                    ok = float((a[0] == r[0]).float().mean())
+                    bad = ok < 0.999 or int((a[0].int() - r[0].int()).abs().max()) > 1
+                else:
+                    ok = float((a[0] == r[0]).float().mean())
+                    bad = ok < 1.0
+                exact.append(ok)
+                if bad:
+                    raise AssertionError(f"small hm layer-0 cache: {ok:.5f} exact")
+        tokens = {}
+        for dev in ("cuda", "cpu"):
+            eng = serving.LlamaEngine(cfg, params=_to_device(cpu_params, dev), num_pages=64,
+                                      decode_batch=4, token_budget=64, device=dev,
+                                      kv_layout="hm" if int8 else None)
+            if (isinstance(eng.kv, tuple)) == int8:
+                raise AssertionError("the small engine did not pick hm pages")
+            prng = np.random.default_rng(17)
+            first = [prng.integers(0, cfg.vocab_size, n).tolist() for n in (37, 21)]
+            late = first[0][:32] + prng.integers(0, cfg.vocab_size, 5).tolist()
+            rids = [eng.add_request(p, 6) for p in first]
+            while not eng.reqs[rids[0]]["out"]:
+                eng.step()
+            rids.append(eng.add_request(late, 6))
+            while eng.step():
+                pass
+            tokens[dev] = ([eng.reqs[r]["out"] for r in rids], eng.reqs[rids[-1]]["cached"])
+        if tokens["cuda"] != tokens["cpu"] or tokens["cuda"][1] != 32:
+            raise AssertionError(f"small hm engine: card {tokens['cuda']} vs cpu "
+                                 f"{tokens['cpu']}")
+        print(f"  small hm config ({'int8' if int8 else 'bf16'}, L=2, D=128, G=4, ps=16): "
+              f"logits calc_diff (prefill x2, v6 x2, v3, DEFER=0) "
+              f"{[f'{x:.3g}' for x in diffs]}; layer-0 cache exact fraction min "
+              f"{min(exact):.5f}; engine tokens equal card vs CPU (radix reuse 32)")
+
+
+def _leaves_cpu(kv):
+    return [a.cpu() for a in (kv if isinstance(kv, tuple) else kv.values())]
+
+
 # the kernels of phase 2's serving path
 SERVING_KERNELS = ("w8a8_gemm", "w8a8_gemm_l1", "prefill_tm", "decode_tm", "append_tm")
 BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS = 128, 256, 32, 3
@@ -1520,10 +1936,303 @@ def run_bench_path(torch, llama, build, params, gpu):
     return launches
 
 
+# launches of one hm decode step at Llama-3-8B's 32 layers (K1: wo, w2 and
+# lm_head; K2: wqkv and w13; one attention launch per layer), by variant
+HM_PER_STEP = {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64}
+HM_INT8_STEPS, HM_VARIANT_STEPS = 8, 4
+
+
+def _fill_hm(torch, kv, seed):
+    """Seeded rows where bench.py leaves zeros: bf16 randn, or int8 rows with
+    scales of 0.001..0.021 (same shapes and bytes)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if isinstance(kv, tuple):
+        for a in kv:
+            for li in range(a.shape[0]):
+                a[li].copy_(torch.randn(a.shape[1:], generator=gen, device="cuda"))
+        return
+    for name in ("k", "v"):
+        kv[name].copy_(torch.randint(-127, 128, kv[name].shape, generator=gen,
+                                     dtype=torch.int8, device="cuda"))
+    for name in ("ks", "vs"):
+        kv[name].copy_(torch.rand(kv[name].shape, generator=gen, device="cuda") * 0.02 + 0.001)
+
+
+def _check_steps(launches, steps, per_step, label):
+    for name, n in launches.items():
+        want = per_step.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"{label}: {name} launched {n} times in {steps} steps, not "
+                                 f"{want} ({per_step.get(name, 0)} per step)")
+
+
+def run_bench_hm(torch, llama, env, build, params, gpu):
+    """What `python bench.py --bf16-kv` runs (bench.py:110-227 with
+    int8_kv=False), on the port, on phase 4's pretiled seed-0 weights: bf16
+    hm pages of 512 (SKT_KV_LAYOUT unset: hm, as tm_layout_ok fails), batch
+    128, context 256, the flat deferred decode with v6 attention (K14), 32
+    greedy steps per call, one warm call then 3 timed; exact launches per
+    step (K1 65, K2 64, K14 32), a repeat from the same state. Then from the
+    v6 run's state, fed its tokens, 4 steps each of v6, SKT_DECODE_ATTN=v3
+    (K16 deferred) and SKT_DECODE_DEFER=0 (the in-loop write, K16 v3), each
+    step also through the plain versions (SKT_IMPL=ref) from the same state:
+    each within calc_diff 8e-3 of its plain versions, DEFER=0 within 8e-3 of
+    v3. Then 8 steps of bench.py with SKT_KV_LAYOUT=hm on an int8 cache (K14
+    int8), and from its state 4 steps each of v3 and DEFER=0 (K16's int8
+    contracts), each within 8e-3 of its plain versions. Returns the launches
+    of each run."""
+    cfg = llama.LlamaConfig(int8_kv=False, page_size=512)
+    b, ctx, k_steps, reps = BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS
+    ps = cfg.page_size
+    total_new = k_steps * (1 + reps)
+    max_pages = -(-(ctx + total_new) // ps)
+    num_pages = b * max_pages + 1
+    layout = env.kv_layout("tm2" if llama.tm_layout_ok(cfg) else "hm")
+    kv = llama.init_kv_cache(cfg, num_pages, layout=layout, device="cuda")
+    _fill_hm(torch, kv, 1)
+    rng = np.random.default_rng(0)
+    bt = torch.from_numpy((rng.permutation(num_pages - 1)[: b * max_pages]
+                           .reshape(b, max_pages) + 1).astype(np.int32)).cuda()
+    pos0 = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+    ids0 = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).cuda()
+    rows = torch.arange(b, device="cuda")
+
+    def run_steps(cfg, kv, ids, pos, steps, forced=None):
+        """`steps` greedy steps (argmax feeds the next id, or the ids of
+        `forced` [steps, B]); returns kv, ids, pos, tokens, logits, finite."""
+        toks, lgs, finite = [], [], torch.ones((), dtype=torch.bool, device="cuda")
+        for i in range(steps):
+            slots = bt[rows, pos // ps] * ps + pos % ps
+            logits, kv = llama.decode_step_kv(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+            finite &= torch.isfinite(logits).all()
+            ids = torch.argmax(logits, -1).to(torch.int32) if forced is None else forced[i]
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+            lgs.append(logits)
+            pos = pos + 1
+        return kv, ids, pos, torch.stack(toks), lgs, finite
+
+    build.reset_launches()
+    kv, ids, pos, _, _, finite = run_steps(cfg, kv, ids0, pos0, k_steps)           # warm
+    torch.cuda.synchronize()
+    if not bool(finite):
+        raise AssertionError("bench hm path: logits are not finite")
+    snap = (tuple(a.clone() for a in kv), ids.clone(), pos.clone())
+    times, first = [], None
+    for rep in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv, ids, pos, toks, _, finite = run_steps(cfg, kv, ids, pos, k_steps)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / k_steps)
+        if not bool(finite):
+            raise AssertionError("bench hm path: logits are not finite")
+        first = toks if first is None else first
+    launches = dict(build.launches)
+    steps = k_steps * (1 + reps)
+    _check_steps(launches, steps, dict(HM_PER_STEP, decode_v6_defer=32),
+                 "bench hm path")
+    for a, sa in zip(kv, snap[0]):
+        a.copy_(sa)
+    again = run_steps(cfg, kv, snap[1], snap[2], k_steps)[3]
+    if not torch.equal(again, first):
+        raise AssertionError("bench hm path: a second run from the same state gave other "
+                             "tokens")
+    dt = float(np.median(times))
+    tok_s = b / dt
+    h, f, l, v = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    qs, kvs = cfg.q_size, cfg.kv_size
+    weight_bytes = l * (h * (qs + 2 * kvs) + qs * h + h * 2 * f + f * h) + h * v
+    kv_bytes_per_tok = l * 2 * (ctx + total_new // 2) * cfg.num_kv_heads * cfg.head_dim * 2
+    from sgl_kernel_npu_tpu_torch.utils import H100
+    roofline = H100.hbm_bytes_per_s / (weight_bytes / b + kv_bytes_per_tok)
+    print(f"  bench --bf16-kv path B={b} ctx={ctx} ps={ps} {layout} bf16, {k_steps} steps x "
+          f"(1 warm + {reps}): median {1e3 * dt:.3f} ms/step (steps "
+          f"{[round(1e3 * t, 3) for t in times]}), {tok_s:.1f} tok/s; byte roofline at 3.35 "
+          f"TB/s (kv_elt 2) {roofline:.1f} tok/s, share {tok_s / roofline:.4f} [{gpu}]")
+    print(f"  launches in {steps} steps: "
+          + ", ".join(f"{k} {n} ({n // steps}/step)" for k, n in launches.items() if n)
+          + "; every other kernel 0; repeat run identical")
+
+    def step():
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        return llama.decode_step_kv(params, cfg, kv, ids, pos, pos + 1, bt, slots)
+    profile_step(torch, step, _HM_BUCKETS, "bench --bf16-kv step (B=128)")
+
+    # From the v6 run's state, fed its tokens: v6, v3 and the non-deferred
+    # branch, each against its plain versions (SKT_IMPL=ref) step by step,
+    # each step from the state the kernels' step starts from (over several
+    # steps each run writes its own new rows, and at 32 layers those
+    # differences compound); on bf16 pages also DEFER=0 against v3 (the same
+    # f32 math; on int8 pages DEFER=0 attends to the quantised current token
+    # and the deferred branches to its bf16 row, so the two differ there).
+    # The distance of v3 to v6, which rounds p to bf16, is printed.
+    def clone(kv):
+        return {k: a.clone() for k, a in kv.items()} if isinstance(kv, dict) else tuple(
+            a.clone() for a in kv)
+
+    def keys(kv):
+        return kv.keys() if isinstance(kv, dict) else range(len(kv))
+
+    def paired(kv, snap, cfg, ids, pos, flags):
+        """n steps from `snap` under `flags`, fed `forced`; each step also
+        through the plain versions from the same state. Returns the kernels'
+        logits, the plain versions' and the launches (the kernels' only)."""
+        for key in keys(kv):
+            kv[key].copy_(snap[key])
+        held = clone(kv)
+        build.reset_launches()
+        kern, plain = [], []
+        with _env(**flags):
+            for i in range(n):
+                for key in keys(kv):
+                    held[key].copy_(kv[key])
+                with _env(SKT_IMPL="ref"):
+                    plain += run_steps(cfg, held, ids, pos, 1)[4]
+                kv, ids, pos, _, lgs, _ = run_steps(cfg, kv, ids, pos, 1, forced[i:i + 1])
+                kern += lgs
+        torch.cuda.synchronize()
+        return kern, plain, dict(build.launches)
+
+    def diffs(xs, ys):
+        return [_calc_diff(a.float(), r.float()) for a, r in zip(xs, ys)]
+
+    def fmt(xs):
+        return [f"{x:.3g}" for x in xs]
+
+    def held_to_plain(kv, snap, cfg, ids, pos, runs):
+        """Every run of `runs` {label: (flags, its attention's counter)}
+        through `paired`: exact launches, within 8e-3 of its plain versions.
+        Returns {label: (logits, launches, calc_diff per step)}."""
+        out = {}
+        for label, (flags, counter) in runs.items():
+            kern, plain, launched = paired(kv, snap, cfg, ids, pos, flags)
+            _check_steps(launched, n, dict(HM_PER_STEP, **{counter: 32}), label)
+            d = diffs(kern, plain)
+            if not max(d) < 8e-3:
+                raise AssertionError(f"{label}: logits calc_diff against the same steps "
+                                     f"through the plain versions {d}")
+            out[label] = (kern, launched, d)
+        return out
+
+    n = HM_VARIANT_STEPS
+    for a, sa in zip(kv, snap[0]):
+        a.copy_(sa)
+    forced = run_steps(cfg, kv, snap[1], snap[2], n)[3]
+    bf = held_to_plain(kv, snap[0], cfg, snap[1], snap[2], {
+        "v6": ({}, "decode_v6_defer"),
+        "SKT_DECODE_ATTN=v3": ({"SKT_DECODE_ATTN": "v3"}, "decode_v3_defer"),
+        "SKT_DECODE_DEFER=0": ({"SKT_DECODE_DEFER": "0"}, "decode_v3")})
+    d_nd = diffs(bf["SKT_DECODE_DEFER=0"][0], bf["SKT_DECODE_ATTN=v3"][0])
+    d_v6 = diffs(bf["SKT_DECODE_ATTN=v3"][0], bf["v6"][0])
+    if not max(d_nd) < 8e-3:
+        raise AssertionError(f"hm variants: calc_diff DEFER=0 vs v3 {d_nd}")
+    variants = {k: bf[k][1] for k in ("SKT_DECODE_ATTN=v3", "SKT_DECODE_DEFER=0")}
+    print(f"  {n} steps each from the v6 run's state, its tokens fed, each step also through "
+          f"the plain versions (SKT_IMPL=ref, no launch) from the same state; logits "
+          f"calc_diff against them: v6 {fmt(bf['v6'][2])}, SKT_DECODE_ATTN=v3 "
+          f"(decode_v3_defer 32 per step, K1 65, K2 64) {fmt(bf['SKT_DECODE_ATTN=v3'][2])}, "
+          f"SKT_DECODE_DEFER=0 (decode_v3 32, K1 65, K2 64) "
+          f"{fmt(bf['SKT_DECODE_DEFER=0'][2])}; DEFER=0 vs v3 {fmt(d_nd)}; v3 vs v6 (p "
+          f"rounded to bf16, not held) {fmt(d_v6)}")
+    del kv, snap, bf
+    torch.cuda.empty_cache()
+
+    # bench.py's SKT_KV_LAYOUT=hm on the int8 cache (v6), then v3 and the
+    # non-deferred branch from its state, fed its tokens
+    cfg8 = llama.LlamaConfig(int8_kv=True, page_size=512)
+    with _env(SKT_KV_LAYOUT="hm"):
+        layout8 = env.kv_layout("tm2" if llama.tm_layout_ok(cfg8) else "hm")
+    kv8 = llama.init_kv_cache(cfg8, num_pages, layout=layout8, device="cuda")
+    _fill_hm(torch, kv8, 2)
+    run_steps(cfg8, kv8, ids0, pos0, 1)                                              # warm
+    snap8 = clone(kv8)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, _, toks8, lgs8, finite = run_steps(cfg8, kv8, ids0, pos0 + 1, HM_INT8_STEPS)
+    torch.cuda.synchronize()
+    dt8 = (time.perf_counter() - t0) / HM_INT8_STEPS
+    if not bool(finite):
+        raise AssertionError("bench hm int8 path: logits are not finite")
+    int8_launches = dict(build.launches)
+    _check_steps(int8_launches, HM_INT8_STEPS,
+                 dict(HM_PER_STEP, decode_v6_int8_defer=32), "bench hm int8 path")
+    print(f"  SKT_KV_LAYOUT=hm int8 (layout {layout8}): {HM_INT8_STEPS} steps "
+          f"{1e3 * dt8:.3f} ms/step, {b / dt8:.1f} tok/s; launches per step K1 65, K2 64, "
+          f"decode_v6_int8_defer 32, every other kernel 0 [{gpu}]")
+    forced = toks8[:n]
+    i8 = held_to_plain(kv8, snap8, cfg8, ids0, pos0 + 1, {
+        "int8 SKT_DECODE_ATTN=v3": ({"SKT_DECODE_ATTN": "v3"}, "decode_v3_int8_defer"),
+        "int8 SKT_DECODE_DEFER=0": ({"SKT_DECODE_DEFER": "0"}, "decode_v3_int8")})
+    variants.update({k: v[1] for k, v in i8.items()})
+    print(f"  int8, {n} steps each from its state, its tokens fed, each step also through the "
+          f"plain versions from the same state; logits calc_diff against them: "
+          f"SKT_DECODE_ATTN=v3 (decode_v3_int8_defer 32 per step, K1 65, K2 64) "
+          f"{fmt(i8['int8 SKT_DECODE_ATTN=v3'][2])}, SKT_DECODE_DEFER=0 (decode_v3_int8 32, "
+          f"K1 65, K2 64) {fmt(i8['int8 SKT_DECODE_DEFER=0'][2])}; DEFER=0 vs v3 (quantised vs "
+          f"bf16 current token, not held) "
+          f"{fmt(diffs(i8['int8 SKT_DECODE_DEFER=0'][0], i8['int8 SKT_DECODE_ATTN=v3'][0]))}; "
+          f"v3 vs v6 (not held) {fmt(diffs(i8['int8 SKT_DECODE_ATTN=v3'][0], lgs8[:n]))}")
+    del kv8, snap8, i8
+    torch.cuda.empty_cache()
+    return launches, variants, int8_launches
+
+
+# launches of one hm engine model call at Llama-3-8B width on pretiled banks
+# (decode batch 8: K2 for wqkv and w13, K1 for wo, w2 and lm_head; prefill:
+# K1 for the four banks and lm_head, one K15 per layer)
+HM_SERVING = {"prefill": {"w8a8_gemm_tiled": 129, "prefill_hm": 32},
+              "decode": {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64, "decode_v6_defer": 32}}
+HM_SERVING_INT8 = {"prefill": HM_SERVING["prefill"],
+                   "decode": {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64,
+                              "decode_v6_int8_defer": 32}}
+
+
+def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_tokens, gpu):
+    """LlamaEngine on hm pages at Llama-3-8B width, on phase 4's pretiled
+    seed-0 weights, phase 2's prompts: int8_kv=False (bf16 pages, picked by
+    the engine), then int8 pages with kv_layout="hm"; every model call's
+    launches exactly HM_SERVING, all requests finish, the radix prefix is
+    reused, a rerun gives the same tokens. Returns the launches of both."""
+    out = {}
+    for label, cfg, kw, expect in (
+            ("int8_kv=False", llama.LlamaConfig(int8_kv=False), {}, HM_SERVING),
+            ("int8_kv=True, kv_layout='hm'", llama.LlamaConfig(int8_kv=True),
+             {"kv_layout": "hm"}, HM_SERVING_INT8)):
+        build.reset_launches()
+        outs, st, wall, reused, launches = run_engine(
+            torch, serving, build, cfg, params, prompts, late, new_tokens, expect=expect,
+            engine_kw=kw)
+        if any(len(o) != new_tokens for o in outs):
+            raise AssertionError(f"hm engine {label}: token counts {[len(o) for o in outs]}")
+        if reused != 256:
+            raise AssertionError(f"hm engine {label}: the prefix was not reused ({reused})")
+        outs2 = run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
+                           expect=expect, engine_kw=kw)[0]
+        if outs2 != outs:
+            raise AssertionError(f"hm engine {label}: a second run gave other tokens")
+        print(f"  hm engine {label}: {len(outs)} requests, {new_tokens} tokens each, radix "
+              f"reuse {reused}, repeat run identical; {st['prefill_steps']} prefill calls "
+              f"{st['prefill_tok'] / st['prefill_s']:.1f} prefill tok/s, {st['decode_steps']} "
+              f"decode calls {st['decode_tok'] / st['decode_s']:.1f} decode tok/s, "
+              f"{1e3 * st['decode_s'] / st['decode_steps']:.2f} ms/decode step; wall "
+              f"{wall:.2f} s [{gpu}]")
+        print(f"    launches per prefill call {expect['prefill']}, per decode call "
+              f"{expect['decode']}, exactly, every call; in the run: "
+              f"{ {k: n for k, n in launches.items() if n} }")
+        out[label] = launches
+        torch.cuda.empty_cache()
+    return out
+
+
 _K1 = ("w8a8_kernel<64, 0, false>", "w8a8_kernel<16, 0, false>", "w8a8_epilogue<false, false>")
 _K2 = ("w8a8_kernel<64, 1, false>", "w8a8_kernel<16, 1, false>", "w8a8_kernel<64, 2, false>",
        "w8a8_kernel<16, 2, false>", "w8a8_epilogue<true, false>", "rmsq_rows")
 _K8 = ("w8a8_kernel<32, 0, true>", "w8a8_epilogue<false, true>")
+_HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
+               ("K14 decode_v6_defer", ("decode_hm_kernel",)),
+               ("split-K memsets", ("Memset",)))
 _BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
             ("K3 decode_tm2", ("decode_tm2_kernel",)),
             ("K4 append_tm2", ("append_tm2_kernel",)),
@@ -2067,10 +2776,9 @@ def _k11_args(torch, ll, pll, x, idx, weights, el, maxt):
     return (x_send, *weights, counts, al, win, counts, al)
 
 
-def _check_k11_once(torch, fmp, EPGroup, args, label):
+def _check_k11_once(torch, fmp, EPGroup, args, label, maxt=MOE_T):
     """K11 against its plain version on one input: recv and rs exact, back
     within the flip bar. Returns max-abs of back."""
-    maxt = MOE_T
     g = EPGroup(None)
     recv, rs, back = fmp.fused_moe_layer(*args, group=g, maxt=maxt)
     precv, prs, pback = fmp.fused_moe_layer_ref(*args, group=g, maxt=maxt)
@@ -2111,6 +2819,13 @@ def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
     for label, rt in (("every copy on expert 0", one), ("experts 3 and 5, -1 slots", two)):
         _check_k11_once(torch, fmp, EPGroup, _k11_args(torch, ll, pll, x, rt, weights, el, maxt),
                         label)
+    # maxT not a multiple of the 64-row tile: a partial last m-tile per window
+    small = []
+    for mt in (8, 72):
+        e, r = _check_k11_once(torch, fmp, EPGroup,
+                               _k11_args(torch, ll, pll, x[:mt], idx[:mt], weights, el, mt),
+                               f"maxT {mt}", maxt=mt)
+        small.append(f"maxT {mt} ({mt} tokens): back max-abs {e:.3g} ({r:.4f} of rows differ)")
     g = EPGroup(None)
     ms = _time_ms(lambda: fmp.fused_moe_layer(*args, group=g, maxt=maxt), 10, graph=True)
     plain = _time_ms(lambda: fmp.fused_moe_layer_ref(*args, group=g, maxt=maxt), 2, 1)
@@ -2122,6 +2837,7 @@ def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
     bound, by = _bound_ms(nbytes, 2.0 * rows * 3 * h * f, "int8_ops")
     print(f"  fused_moe (one launch) at the bench shape: recv, rs exact, back max-abs {err:.3g} "
           f"({rows_off:.4f} of rows differ); every copy on one expert and -1 slots: the same; "
+          f"recv, rs exact at {'; '.join(small)}; "
           f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}); the "
           f"composition at rounds = 1 (not one call) {comp:.4f} ms")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
@@ -2367,9 +3083,11 @@ def main() -> int:
                                                                   low_latency, pallas_ll)
         from sgl_kernel_npu_tpu_torch.ops.gdn import recurrent_pallas
         from sgl_kernel_npu_tpu_torch.ops.attention import (decode, decode_mla_v2,
+                                                            decode_v3, decode_v6,
                                                             decode_v8, decode_v9,
                                                             decode_v11, decode_v13,
-                                                            paged_prefill_tm)
+                                                            paged_prefill, paged_prefill_tm)
+        from sgl_kernel_npu_tpu_torch.utils import env
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
@@ -2436,6 +3154,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
     torch.cuda.empty_cache()
+    rows.update(check_decode_v6(torch, decode_v6, cfg, rng))
+    torch.cuda.empty_cache()
+    rows["k15"] = check_prefill_hm(torch, paged_prefill, cfg, rng)
+    torch.cuda.empty_cache()
+    rows.update(check_decode_v3(torch, decode_v3, decode, cfg, rng))
+    torch.cuda.empty_cache()
     rows["k11"], comp_ms = check_fused_moe(
         torch, low_latency, pallas_ll, fused_moe_pallas,
         moe_variants(torch, parallel, moe_data)["rounds=1"], parallel.EPGroup, moe_data)
@@ -2489,10 +3213,22 @@ def main() -> int:
     check_small_tm2(torch, llama)
     check_small_mla(torch, deepseek_mla)
     check_small_qwen(torch, qwen_next)
+    check_small_hm(torch, llama, serving)
 
     print("phase 4: the bench.py decode path (tm2 pages, pretiled banks, batch 128) "
           "at Llama-3-8B width")
     bench_launches = run_bench_path(torch, llama, _build, params, gpu)
+    torch.cuda.empty_cache()
+
+    # phases 9 and 10 run here, on phase 4's pretiled weights
+    print("phase 9: the bench.py --bf16-kv decode path (bf16 hm pages, pretiled banks, batch "
+          "128) at Llama-3-8B width")
+    hm_launches, hm_variants, hm_int8_launches = run_bench_hm(torch, llama, env, _build,
+                                                              params, gpu)
+    print("phase 10: LlamaEngine on hm pages (int8_kv=False, and int8 with kv_layout='hm') "
+          "at Llama-3-8B width")
+    hm_engine_launches = run_hm_engines(torch, llama, serving, _build, params, prompts, late,
+                                        new_tokens, gpu)
     del params
     torch.cuda.empty_cache()
 
@@ -2610,6 +3346,35 @@ def main() -> int:
         dict(name="swiglu_quant", route="cuda", source=f"{src}/swiglu_quant.cu",
              replaces=f"{base}/ops/activation.py:79", launches=moe_launches["swiglu_quant"],
              **rows["k13"]),
+        dict(name="decode_v6_defer", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v6.py:309",
+             launches=hm_launches["decode_v6_defer"], **rows["decode_v6_defer"]),
+        dict(name="decode_v6_int8_defer", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v6.py:168",
+             launches=hm_int8_launches["decode_v6_int8_defer"],
+             **rows["decode_v6_int8_defer"]),
+        dict(name="prefill_hm", route="cuda", source=f"{src}/prefill_hm.cu",
+             replaces=f"{base}/ops/attention/paged_prefill.py:134",
+             launches=sum(n["prefill_hm"] for n in hm_engine_launches.values()),
+             **rows["k15"]),
+        dict(name="decode_v3_defer", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v3.py:492",
+             launches=hm_variants["SKT_DECODE_ATTN=v3"]["decode_v3_defer"],
+             **rows["decode_v3_defer"]),
+        dict(name="decode_v3_int8_defer", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v3.py:368",
+             launches=hm_variants["int8 SKT_DECODE_ATTN=v3"]["decode_v3_int8_defer"],
+             **rows["decode_v3_int8_defer"]),
+        dict(name="decode_v3", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v3.py:94",
+             launches=hm_variants["SKT_DECODE_DEFER=0"]["decode_v3"], **rows["decode_v3"]),
+        dict(name="decode_v3_int8", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v3.py:217",
+             launches=hm_variants["int8 SKT_DECODE_DEFER=0"]["decode_v3_int8"],
+             **rows["decode_v3_int8"]),
+        dict(name="decode_int8kv", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode.py:366", launches=0,
+             **rows["decode_int8kv"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2631,7 +3396,14 @@ def main() -> int:
           f"glue, takes {comp_ms:.4f} ms); remote_scatter row (K12): the quantising dispatch "
           "and the bf16 combine summed, library: index_copy_ of the same bf16 rows (no "
           "quantisation); swiglu_quant row (K13): on no main path, held at GMM1's output "
-          "shape; launches of K11 and K12 from phase 8 (every variant twice)")
+          "shape; launches of K11 and K12 from phase 8 (every variant twice); "
+          "decode_v6_defer (K14) row: the bench shape, launches from phase 9's bf16 run (all "
+          "its 128 steps); decode_v6_int8_defer: the bench shape, launches from phase 9's "
+          "SKT_KV_LAYOUT=hm int8 run; prefill_hm (K15) row: the bf16 pages, launches from "
+          "phase 10 (the first run of each engine); K16 rows (decode_v3*, decode_int8kv): the bench "
+          "shape, launches of the four v3 contracts from phase 9's SKT_DECODE_ATTN=v3 and "
+          "SKT_DECODE_DEFER=0 runs on the bf16 and the int8 cache, decode_int8kv on no "
+          "bench or engine run (no model calls it)")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

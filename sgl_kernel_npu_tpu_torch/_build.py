@@ -49,6 +49,14 @@ KERNELS = {
     "fused_moe": "fused_moe",          # K11
     "remote_scatter": "remote_scatter",  # K12
     "swiglu_quant": "swiglu_quant",    # K13
+    "decode_v6_defer": "decode_hm",    # K14, bf16 pages
+    "decode_v6_int8_defer": "decode_hm",  # K14, int8 pages
+    "prefill_hm": "prefill_hm",        # K15
+    "decode_v3": "decode_hm",          # K16, one counter per contract
+    "decode_v3_int8": "decode_hm",
+    "decode_v3_defer": "decode_hm",
+    "decode_v3_int8_defer": "decode_hm",
+    "decode_int8kv": "decode_hm",
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

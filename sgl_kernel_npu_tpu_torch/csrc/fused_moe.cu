@@ -57,7 +57,8 @@
 // operations (2 * rows * 3 * H * F) are under half of that time at the
 // tensor-core rate. The GEMM tiles are the int8 mma.sync loop of
 // w8a8_core.cuh (one register-prefetched stage, byte-transposed weight rows)
-// with TM = 64-row tiles; the f32 GMM1 output and the requantised activation
+// with TM = 64-row tiles (a window's last m-tile may hold fewer rows: rows
+// past R * maxT read as zeros and are not written); the f32 GMM1 output and the requantised activation
 // go through device memory (ug, act). Simple first: no TMA, no wgmma.
 
 #include "w8a8_core.cuh"
@@ -100,6 +101,7 @@ struct Args {
   int* rq_done;                       // [El * MT]
   Peers peers;
   int R, me, El, maxT, H, F, sbuf, MT, NT1, NT2;
+  int erows;                          // rows of an expert's window, R * maxT
   int n_s, n_g1, n_rq, n_g2;          // items per phase
 };
 
@@ -136,8 +138,9 @@ __device__ __forceinline__ float sigmoid_mul(float g, float u) {
 }
 
 // rows e * R * maxT + [m0, m0 + TM) of expert e hold a chunk someone sends
+// (the last m-tile of a window may hold fewer than TM rows)
 __device__ bool tile_live(const Args& a, int e, int mt) {
-  for (int r = mt * TM; r < (mt + 1) * TM; r += CHUNK) {
+  for (int r = mt * TM; r < min((mt + 1) * TM, a.erows); r += CHUNK) {
     const int src = r / a.maxT, within = r % a.maxT;
     if (within < a.recv_cnt[src * a.El + e]) return true;
   }
@@ -190,11 +193,12 @@ __device__ void send_chunk(const Args& a, int q) {
 
 // One TM x 128 tile of A [TM, K] (int8 rows lda apart, read through L2) times
 // B (int8, K rows ldw apart, 128 columns), int32 sums, then epi(row, col,
-// acc) for every element. The loop of w8a8_core.cuh.
+// acc) for every element of the first `mrows` rows; rows from mrows on read
+// as zeros (a window's partial last m-tile). The loop of w8a8_core.cuh.
 template <class Epi>
 __device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ A, int lda,
                                           const int8_t* __restrict__ B, int ldw, int K,
-                                          int8_t* As, int8_t* Bs, Epi epi) {
+                                          int mrows, int8_t* As, int8_t* Bs, Epi epi) {
   constexpr int VPR = BK / 16;                 // 16-byte vectors per row and stage
   constexpr int APT = TM * VPR / THREADS;      // A vectors per thread
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -206,7 +210,8 @@ __device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ A, int lda,
 #pragma unroll
     for (int i = 0; i < APT; ++i) {
       const int v = tid + i * THREADS, r = v / VPR, c = (v % VPR) * 16;
-      areg[i] = __ldcg(reinterpret_cast<const int4*>(A + (size_t)r * lda + k0 + c));
+      areg[i] = r < mrows ? __ldcg(reinterpret_cast<const int4*>(A + (size_t)r * lda + k0 + c))
+                          : make_int4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -277,9 +282,10 @@ __device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ A, int lda,
 #pragma unroll
     for (int n = 0; n < NTL; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        epi((wm * MTL + m) * 16 + g + (e >> 1) * 8, (wn * NTL + n) * 8 + (lane & 3) * 2 + (e & 1),
-            acc[m][n][e]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = (wm * MTL + m) * 16 + g + (e >> 1) * 8;
+        if (r < mrows) epi(r, (wn * NTL + n) * 8 + (lane & 3) * 2 + (e & 1), acc[m][n][e]);
+      }
 }
 
 // GMM1 tile (e, column tile nt, m-tile mt): 128 columns of ug = [gate | up].
@@ -295,7 +301,7 @@ __device__ void gmm1(const Args& a, int e, int nt, int mt, int8_t* As, int8_t* B
   const float* rs = a.peers.rs[a.me] + row0;
   const float* ws = a.w13s + (size_t)e * f2 + nt * BN;
   float* ug = a.ug + (size_t)row0 * f2 + nt * BN;
-  gemm_tile(A, a.H, B, f2, a.H, As, Bs,
+  gemm_tile(A, a.H, B, f2, a.H, min(TM, a.erows - mt * TM), As, Bs,
             [&](int r, int c, int32_t v) {
               ug[(size_t)r * f2 + c] = __fmul_rn(__fmul_rn((float)v, __ldcg(rs + r)), ws[c]);
             });
@@ -308,7 +314,8 @@ __device__ void requant(const Args& a, int e, int mt) {
   const int f2 = 2 * a.F;
   const int row0 = e * a.R * a.maxT + mt * TM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = row0 + warp; r < row0 + TM; r += THREADS / 32) {
+  const int row1 = row0 + min(TM, a.erows - mt * TM);
+  for (int r = row0 + warp; r < row1; r += THREADS / 32) {
     const float* ug = a.ug + (size_t)r * f2;
     float amax = 0.f;
     for (int j = lane * 4; j < a.F; j += 128) {
@@ -347,7 +354,7 @@ __device__ void gmm2(const Args& a, int e, int nt, int mt, int8_t* As, int8_t* B
   const int8_t* B = a.w2 + (size_t)e * a.F * a.H + nt * BN;
   const float* asc = a.asc + row0;
   const float* ws = a.w2s + (size_t)e * a.H + nt * BN;
-  gemm_tile(A, a.F, B, a.H, a.F, As, Bs,
+  gemm_tile(A, a.F, B, a.H, a.F, min(TM, a.erows - mt * TM), As, Bs,
             [&](int r, int c, int32_t v) {
               const int j = mt * TM + r;       // row of expert e
               const int src = j / a.maxT, within = j % a.maxT;
@@ -399,8 +406,8 @@ __global__ void __launch_bounds__(THREADS) fused_moe_kernel(const Args a) {
 // int8, w2s [El, H] f32, the five tables [R*El] int32; outputs recv
 // [El*R*maxT, H] int8, rs [El*R*maxT] f32, back [sbuf, H] bf16, zeroed by the
 // caller; scratch ug [El*R*maxT, 2F] f32, act [El*R*maxT, F] int8, asc
-// [El*R*maxT] f32, ctr [1 + El + 2*El*(R*maxT/64)] int32 (zeroed here). Needs
-// H % 128 == 0, F % 64 == 0, (R*maxT) % 64 == 0; one rank only (R == 1).
+// [El*R*maxT] f32, ctr [1 + El + 2*El*ceil(R*maxT/64)] int32 (zeroed here).
+// Needs H % 128 == 0, F % 64 == 0, maxT % 8 == 0; one rank only (R == 1).
 extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w13s,
                              const void* w2, const void* w2s, const void* send_cnt,
                              const void* src_off, const void* dst_off, const void* recv_cnt,
@@ -408,7 +415,7 @@ extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w1
                              void* act, void* asc, void* ctr, int R, int El, int maxT, int H,
                              int F, int sbuf, void* stream) {
   if (R != 1) return (int)cudaErrorNotSupported;
-  if (El <= 0 || H % 128 || F % 64 || F <= 0 || (R * maxT) % TM || maxT % CHUNK)
+  if (El <= 0 || H % 128 || F % 64 || F <= 0 || maxT <= 0 || maxT % CHUNK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{};
@@ -432,7 +439,8 @@ extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w1
   a.H = H;
   a.F = F;
   a.sbuf = sbuf;
-  a.MT = R * maxT / TM;
+  a.erows = R * maxT;
+  a.MT = (a.erows + TM - 1) / TM;
   a.NT1 = 2 * F / BN;
   a.NT2 = H / BN;
   int* c = static_cast<int*>(ctr);

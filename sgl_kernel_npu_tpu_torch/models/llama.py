@@ -1,7 +1,8 @@
-"""Llama-3-class GQA decoder with W8A8 int8 weights and an int8 KV cache on
-paged layouts (counterpart of the JAX package's models/llama.py: the "tm"
-branches of `decode_step_kv` and `prefill_batch_step_kv`, and the "tm2"
-branch of `decode_step_kv`).
+"""Llama-3-class GQA decoder with W8A8 int8 weights on a paged KV cache
+(counterpart of the JAX package's models/llama.py): int8 token-major ("tm")
+pages for `decode_step_kv` and `prefill_batch_step_kv`, int8 "tm2" pages for
+`decode_step_kv`, and page-major ("hm") pages [L, P, Hkv, ps, D], bf16 or
+int8, for both.
 
 Parameters are a dict of tensors with the JAX package's tree:
   embed [V, H] bf16, final_norm [H] bf16, lm_head {q [H, V] int8, scale [V]},
@@ -11,10 +12,15 @@ Parameters are a dict of tensors with the JAX package's tree:
 into [1, V/bn, H, bn] (ops/matmul.py::pretile_weight_bank).
 Layers run as a Python loop; each GEMM reads its layer straight out of the
 stacked bank (kernel A, or K1 on a pretiled bank; wqkv and w13 on a pretiled
-bank at M >= 8 go through the fused RMSNorm-quant GEMM, K2), attention reads
-the cache without writing it (kernels B and C on tm pages, K3 on tm2 pages),
-and one append after the loop writes every layer's new rows (kernel D, or
-K4). Every cast of the JAX code is kept where it has one.
+bank at M >= 8 go through the fused RMSNorm-quant GEMM, K2). On tm and tm2
+pages attention reads the cache without writing it (kernels B and C on tm
+pages, K3 on tm2 pages), and one append after the loop writes every layer's
+new rows (kernel D, or K4). On hm pages decode attends read-only too (K14,
+or K16's deferred contracts with SKT_DECODE_ATTN=v3) and scatters all
+layers' rows after the loop, unless SKT_DECODE_DEFER or SKT_DECODE_FLAT is
+off: then each layer writes its row and attends with K16's v3 contract;
+prefill writes each layer's chunk, then attends with K15. Every cast of the
+JAX code is kept where it has one.
 """
 
 from __future__ import annotations
@@ -25,10 +31,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..ops.attention import decode_v3 as _v3
+from ..ops.attention import decode_v6 as _v6
 from ..ops.attention import decode_v8 as _v8
 from ..ops.attention import decode_v11 as _v11
 from ..ops.attention.decode_v9 import decode_gqa_v9_int8_defer
 from ..ops.attention.decode_v13 import decode_gqa_v13_int8_defer
+from ..ops.attention.paged_prefill import paged_prefill_attention_batch
 from ..ops.attention.paged_prefill_tm import paged_prefill_attention_tm
 from ..ops.matmul import (pretile_weight_bank, quant_matmul_int8,
                           quant_matmul_int8_stacked)
@@ -110,8 +119,9 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Dict[str, Any
 
 
 def params_from_jax(np_params, device="cuda"):
-    """Carry the JAX parameter tree, given as numpy arrays (bf16 leaves as
-    ml_dtypes bfloat16 or float32), into the port's dict on `device`."""
+    """Carry a JAX tree, given as numpy arrays (bf16 leaves as ml_dtypes
+    bfloat16 or float32), into the port's tensors on `device`: dicts stay
+    dicts, tuples tuples."""
     dev = resolve_device(device)
 
     def conv(a):
@@ -123,23 +133,53 @@ def params_from_jax(np_params, device="cuda"):
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(walk(v) for v in tree)
         return conv(tree)
 
     return walk(np_params)
 
 
+def kv_from_jax(np_kv, device="cuda"):
+    """A JAX KV cache given as numpy (the hm (k, v) bf16 tuple or an int8
+    dict) as the port's cache on `device`."""
+    return params_from_jax(np_kv, device)
+
+
+def tm_layout_ok(cfg: LlamaConfig) -> bool:
+    """Whether token-major pages serve this config, as the JAX package
+    decides: an int8 cache and the flat deferred decode (SKT_DECODE_FLAT and
+    SKT_DECODE_DEFER on). The JAX package's Mosaic tiling conditions have no
+    counterpart here: the kernels check their shapes, and the plain versions
+    take any."""
+    return cfg.int8_kv and env.decode_flat() and env.decode_defer()
+
+
 def init_kv_cache(cfg: LlamaConfig, num_pages: int, layout: str = "tm",
                   device="cuda"):
-    """Int8 KV pages, zeroed.
+    """KV pages, zeroed.
 
-    "tm" (token-major): k/v [L, P, ps*hkv, D], scales [L, P, 1, ps*hkv] f32,
-    row r = t*hkv + h. "tm2" (head-major within a page, decode only): k/v
-    [L, P, hkv, ps, D], scales [L, P, hkv, ps] f32, row h*ps + t."""
-    if layout not in ("tm", "tm2") or not cfg.int8_kv:
-        raise NotImplementedError(
-            "the port serves the int8 'tm' and 'tm2' layouts only; the hm "
-            "layout and bf16 caches come in later slices")
+    "tm" (token-major, int8): k/v [L, P, ps*hkv, D], scales [L, P, 1, ps*hkv]
+    f32, row r = t*hkv + h. "tm2" (head-major within a page, int8, decode
+    only): k/v [L, P, hkv, ps, D], scales [L, P, hkv, ps] f32, row h*ps + t.
+    "hm" (page-major): k/v [L, P, hkv, ps, D], a (k, v) bf16 tuple, or with
+    cfg.int8_kv an int8 dict with scales [L, P, hkv, 1, ps] f32."""
+    if layout not in ("tm", "tm2", "hm"):
+        raise ValueError(f"unknown KV layout {layout!r}")
+    if layout != "hm" and not cfg.int8_kv:
+        raise ValueError(f"the {layout!r} layout is int8 only")
     dev = resolve_device(device)
+    if layout == "hm":
+        shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, cfg.page_size,
+                 cfg.head_dim)
+        if not cfg.int8_kv:
+            return (torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                    torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+        sshape = shape[:3] + (1, cfg.page_size)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.zeros(sshape, dtype=torch.float32, device=dev),
+                "vs": torch.zeros(sshape, dtype=torch.float32, device=dev)}
     if layout == "tm2":
         shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, cfg.page_size,
                  cfg.head_dim)
@@ -235,44 +275,146 @@ def _pages_offs(slots, ps, num_pages):
     return pages, offs
 
 
+def _is_hm(kv_cache) -> bool:
+    """Page-major caches: the bf16 (k, v) tuple, or an int8 dict whose
+    scales are 5-D [L, P, hkv, 1, ps] (tm2's are 4-D, tm's k is 4-D)."""
+    return isinstance(kv_cache, tuple) or kv_cache["ks"].dim() == 5
+
+
+def _layer(kv_cache, li: int):
+    """Layer li's pages of every cache array (views)."""
+    if isinstance(kv_cache, tuple):
+        return tuple(a[li] for a in kv_cache)
+    return {k: a[li] for k, a in kv_cache.items()}
+
+
+def _pool(kv_cache):
+    """Every layer's pages as one [L*P, ...] pool (views): page p of layer li
+    is pool page li*P + p."""
+    def fold(a):
+        return a.view(a.shape[0] * a.shape[1], *a.shape[2:])
+    if isinstance(kv_cache, tuple):
+        return tuple(fold(a) for a in kv_cache)
+    return {k: fold(a) for k, a in kv_cache.items()}
+
+
+def _scatter_hm(k, v, kv, slots):
+    """Write rows k, v [T, hkv, D] into page-major pages (a tuple or an int8
+    dict of one layer or of the pool) at slots [T], in place."""
+    if isinstance(kv, tuple):
+        _v3.reshape_and_cache_gqa_page_major(k, v, kv[0], kv[1], slots)
+    else:
+        _v3.reshape_and_cache_gqa_page_major_int8(k, v, kv["k"], kv["v"], kv["ks"],
+                                                  kv["vs"], slots)
+
+
+def _decode_qkv(x, big, li: int, cfg: LlamaConfig, cos, sin):
+    """Layer li's RMSNorm + wqkv + RoPE on the decode rows x [B, H]."""
+    b = x.shape[0]
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qkv = _nrq_l(x, big["input_norm"][li], big["wqkv"], li, cfg.rms_eps)
+    q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], -1)
+    q = apply_rope(q.reshape(b, hq, d), cos, sin)
+    k = apply_rope(k.reshape(b, hkv, d), cos, sin)
+    return q, k, v.reshape(b, hkv, d)
+
+
+def _decode_tail(x, att, big, li: int, cfg: LlamaConfig):
+    """wo, residual, RMSNorm + w13, SwiGLU, w2, residual."""
+    x = x + _qmm_l(att.reshape(x.shape[0], -1), big["wo"], li)
+    g32 = _nrq_l(x, big["post_norm"][li], big["w13"], li, cfg.rms_eps).float()
+    return x + _qmm_l(_swiglu(g32, cfg.intermediate_size).to(x.dtype), big["w2"], li)
+
+
+def _hm_attend_defer(q, k, v, kv, cached, block_table, sm_scale, ps):
+    """The deferred hm attention (SKT_DECODE_ATTN: v6, K14; or v3, K16) on
+    one layer's pages."""
+    which = env.decode_attn()
+    if isinstance(kv, tuple):
+        fn = _v6.decode_gqa_v6_defer if which == "v6" else _v3.decode_gqa_v3_defer
+        return fn(q, k, v, kv[0], kv[1], cached, block_table, sm_scale, ps)
+    fn = _v6.decode_gqa_v6_int8_defer if which == "v6" else _v3.decode_gqa_v3_int8_defer
+    return fn(q, k, v, kv["k"], kv["v"], kv["ks"], kv["vs"], cached, block_table, sm_scale, ps)
+
+
+def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
+                    slot_mapping):
+    """decode_step_kv on page-major pages (the JAX package's llama.py:443-651):
+    the flat deferred branch, or with SKT_DECODE_DEFER or SKT_DECODE_FLAT off
+    the in-loop write + v3. The JAX flat branches address layer li's pages as
+    pages li*P .. li*P + P - 1 of the [L*P] pool; here layer li's view is
+    those same pages, so the JAX flat and per-layer non-deferred branches are
+    one loop, and the pool is used only by the deferred after-loop scatter."""
+    big = params["layers"]
+    sm_scale = 1.0 / (cfg.head_dim ** 0.5)
+    ps = cfg.page_size
+    lcount = cfg.num_layers
+    if env.decode_flat() and env.decode_defer():
+        pages = (kv_cache[0] if isinstance(kv_cache, tuple) else kv_cache["k"]).shape[1]
+        cached = seq_lens - 1
+        k_new, v_new = [], []
+        for li in range(lcount):
+            q, k, v = _decode_qkv(x, big, li, cfg, cos, sin)
+            att = _hm_attend_defer(q, k, v, _layer(kv_cache, li), cached, block_table,
+                                   sm_scale, ps)
+            x = _decode_tail(x, att, big, li, cfg)
+            k_new.append(k)
+            v_new.append(v)
+        # every layer's new rows at once into the [L*P] pool
+        off = (torch.arange(lcount, device=x.device) * (pages * ps))[:, None]
+        slots = slot_mapping.long()[None, :]
+        slots_all = torch.where(slots >= 0, slots + off, -1).reshape(-1)
+        b, hkv, d = k_new[0].shape
+        _scatter_hm(torch.stack(k_new).reshape(lcount * b, hkv, d),
+                    torch.stack(v_new).reshape(lcount * b, hkv, d), _pool(kv_cache),
+                    slots_all)
+        return x
+    for li in range(lcount):
+        q, k, v = _decode_qkv(x, big, li, cfg, cos, sin)
+        kv = _layer(kv_cache, li)
+        _scatter_hm(k, v, kv, slot_mapping)
+        if isinstance(kv, tuple):
+            att = _v3.decode_gqa_v3(q, kv[0], kv[1], seq_lens, block_table, sm_scale, ps)
+        else:
+            att = _v3.decode_gqa_v3_int8(q, kv["k"], kv["v"], kv["ks"], kv["vs"], seq_lens,
+                                         block_table, sm_scale, ps)
+        x = _decode_tail(x, att, big, li, cfg)
+    return x
+
+
 def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
                    seq_lens, block_table, slot_mapping):
-    """One continuous-batching decode step on token-major ("tm") or
-    head-major-within-page ("tm2") pages, told apart by the cache ranks as
-    the JAX package does: tm k is 4-D, tm2 k is 5-D with 4-D scales.
+    """One continuous-batching decode step, on page-major ("hm": a bf16 (k,
+    v) tuple or an int8 dict with 5-D scales), token-major ("tm") or
+    head-major-within-page ("tm2") pages, told apart by the cache as the JAX
+    package does: tm k is 4-D, tm2 k is 5-D with 4-D scales.
 
     input_ids/positions/slot_mapping [B]; seq_lens [B] (length INCLUDING the
     new token); block_table [B, max_pages]. Padded rows carry slot -1.
     Updates kv_cache in place; returns (logits [B, V] f32, kv_cache)."""
-    is_tm2 = kv_cache["k"].dim() == 5 and kv_cache["ks"].dim() == 4
-    if not is_tm2 and kv_cache["k"].dim() != 4:
-        raise NotImplementedError("decode_step_kv serves the int8 'tm' and "
-                                  "'tm2' caches only")
-    attend = decode_gqa_v13_int8_defer if is_tm2 else decode_gqa_v9_int8_defer
-    b = input_ids.shape[0]
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    sm_scale = 1.0 / (d ** 0.5)
-    ps = cfg.page_size
-    big = params["layers"]
+    d = cfg.head_dim
     x = params["embed"][input_ids.long()]
     cs = params["cos_sin"][positions.long()]
     cos, sin = cs[:, None, : d // 2], cs[:, None, d // 2:]
+    if _is_hm(kv_cache):
+        x = _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
+                            slot_mapping)
+        return _final_logits(x, params, cfg), kv_cache
+    is_tm2 = kv_cache["k"].dim() == 5
+    attend = decode_gqa_v13_int8_defer if is_tm2 else decode_gqa_v9_int8_defer
+    b = input_ids.shape[0]
+    hkv = cfg.num_kv_heads
+    sm_scale = 1.0 / (d ** 0.5)
+    ps = cfg.page_size
+    big = params["layers"]
     cached = seq_lens - 1
-    f = cfg.intermediate_size
     k_new, v_new = [], []
     for li in range(cfg.num_layers):
-        qkv = _nrq_l(x, big["input_norm"][li], big["wqkv"], li, cfg.rms_eps)
-        q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], -1)
-        q = apply_rope(q.reshape(b, hq, d), cos, sin)
-        k = apply_rope(k.reshape(b, hkv, d), cos, sin)
-        v = v.reshape(b, hkv, d)
+        q, k, v = _decode_qkv(x, big, li, cfg, cos, sin)
         att = attend(q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
                      kv_cache["vs"], cached, block_table, sm_scale, ps,
                      layer_idx=li)
-        x = x + _qmm_l(att.reshape(b, -1), big["wo"], li)
-        g32 = _nrq_l(x, big["post_norm"][li], big["w13"], li,
-                     cfg.rms_eps).float()
-        x = x + _qmm_l(_swiglu(g32, f).to(x.dtype), big["w2"], li)
+        x = _decode_tail(x, att, big, li, cfg)
         k_new.append(k)
         v_new.append(v)
 
@@ -289,19 +431,34 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
     return _final_logits(x, params, cfg), kv_cache
 
 
+def _prefill_tail(x, att, big, li: int, cfg: LlamaConfig):
+    """wo, residual, RMSNorm, w13, SwiGLU, w2, residual on x [S, T, H]."""
+    s, t = x.shape[:2]
+    n_tok = s * t
+    x = x + _qmm_l(att.reshape(n_tok, -1), big["wo"], li).reshape(s, t, -1)
+    h2 = _rmsnorm(x, big["post_norm"][li], cfg.rms_eps)
+    g32 = _qmm_l(h2.reshape(n_tok, -1), big["w13"], li).float()
+    act = _swiglu(g32, cfg.intermediate_size).to(x.dtype)
+    return x + _qmm_l(act, big["w2"], li).reshape(s, t, -1)
+
+
 def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
                           valid_lens, positions, slot_mapping, block_tables,
                           prefix_lens):
-    """Batched chunked prefill on token-major pages: S chunks padded to [S, T].
+    """Batched chunked prefill: S chunks padded to [S, T], on token-major
+    or page-major pages.
 
     input_ids/positions/slot_mapping [S, T] (padding rows carry slot -1);
     valid_lens [S]; block_tables [S, max_pages]; prefix_lens [S] tokens of
-    each sequence already in the cache. The in-flight chunk is attended in
-    bf16; all layers' chunk rows are quantized and appended after the loop.
+    each sequence already in the cache. On tm pages the in-flight chunk is
+    attended in bf16 and all layers' chunk rows are quantized and appended
+    after the loop; on hm pages each layer writes its chunk (quantized for
+    an int8 cache) and then attends the cache (K15), as the JAX package does.
     Updates kv_cache in place; returns (logits [S, T, V] f32, kv_cache)."""
-    if kv_cache["k"].dim() != 4:
-        raise NotImplementedError("prefill serves the 'tm' cache only; 'tm2' "
-                                  "is a decode-only layout, as in the JAX package")
+    hm = _is_hm(kv_cache)
+    if not hm and kv_cache["k"].dim() != 4:
+        raise NotImplementedError("prefill serves the 'tm' and 'hm' caches; 'tm2' is "
+                                  "a decode-only layout, as in the JAX package")
     s, t = input_ids.shape
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     sm_scale = 1.0 / (d ** 0.5)
@@ -311,7 +468,7 @@ def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
     x = params["embed"][input_ids.long()]                        # [S, T, H]
     cs = params["cos_sin"][positions.long()]
     cos, sin = cs[:, :, None, : d // 2], cs[:, :, None, d // 2:]
-    f = cfg.intermediate_size
+    flat_slots = slot_mapping.reshape(-1)
     k_all, v_all = [], []
     for li in range(cfg.num_layers):
         h1 = _rmsnorm(x, big["input_norm"][li], cfg.rms_eps)
@@ -320,28 +477,33 @@ def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
         q = apply_rope(q.reshape(s, t, hq, d), cos, sin)
         k = apply_rope(k.reshape(s, t, hkv, d), cos, sin)
         v = v.reshape(s, t, hkv, d)
+        if hm:
+            kv = _layer(kv_cache, li)
+            _scatter_hm(k.reshape(n_tok, hkv, d), v.reshape(n_tok, hkv, d), kv,
+                        flat_slots)
+            att = paged_prefill_attention_batch(q, kv, block_tables, prefix_lens,
+                                                sm_scale, ps, block_q=min(128, t))
+            x = _prefill_tail(x, att.to(x.dtype), big, li, cfg)
+            continue
         att = paged_prefill_attention_tm(
             q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
             kv_cache["vs"], block_tables, prefix_lens, valid_lens, sm_scale,
             ps, layer_idx=li)
-        x = x + _qmm_l(att.reshape(n_tok, -1), big["wo"], li).reshape(s, t, -1)
-        h2 = _rmsnorm(x, big["post_norm"][li], cfg.rms_eps)
-        g32 = _qmm_l(h2.reshape(n_tok, -1), big["w13"], li).float()
-        act = _swiglu(g32, f).to(x.dtype)
-        x = x + _qmm_l(act, big["w2"], li).reshape(s, t, -1)
+        x = _prefill_tail(x, att, big, li, cfg)
         k_all.append(k)
         v_all.append(v)
 
-    lcount = cfg.num_layers
-    kq, vq, ksn, vsn = _v8.quant_rows_int8(
-        torch.stack(k_all).reshape(lcount * n_tok, hkv, d),
-        torch.stack(v_all).reshape(lcount * n_tok, hkv, d))
-    pages, offs = _pages_offs(slot_mapping.reshape(-1), ps, kv_cache["k"].shape[1])
-    _v8.append_tm_int8(kq.reshape(lcount, n_tok, hkv, d),
-                       vq.reshape(lcount, n_tok, hkv, d),
-                       kv_cache["k"], kv_cache["v"], pages, offs)
-    _v8.scatter_scales_prefill_tm(
-        kv_cache["ks"], kv_cache["vs"], ksn.reshape(lcount, s, t, hkv),
-        vsn.reshape(lcount, s, t, hkv), block_tables, prefix_lens, valid_lens)
+    if not hm:
+        lcount = cfg.num_layers
+        kq, vq, ksn, vsn = _v8.quant_rows_int8(
+            torch.stack(k_all).reshape(lcount * n_tok, hkv, d),
+            torch.stack(v_all).reshape(lcount * n_tok, hkv, d))
+        pages, offs = _pages_offs(flat_slots, ps, kv_cache["k"].shape[1])
+        _v8.append_tm_int8(kq.reshape(lcount, n_tok, hkv, d),
+                           vq.reshape(lcount, n_tok, hkv, d),
+                           kv_cache["k"], kv_cache["v"], pages, offs)
+        _v8.scatter_scales_prefill_tm(
+            kv_cache["ks"], kv_cache["vs"], ksn.reshape(lcount, s, t, hkv),
+            vsn.reshape(lcount, s, t, hkv), block_tables, prefix_lens, valid_lens)
     logits = _final_logits(x.reshape(n_tok, -1), params, cfg)
     return logits.reshape(s, t, -1), kv_cache

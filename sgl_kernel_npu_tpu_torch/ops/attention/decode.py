@@ -42,9 +42,10 @@ _NEG_INF = -1e30
 # q, ckv, krope, seq_lens, block_table, out, B, H, lkv, lrope, ps, MP,
 # sm_scale, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-# q, k_cache, v_cache, seq_lens, block_table, out, B, Hq, Hkv, D, P, ps, MP,
-# sm_scale, stream
-_HM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# every contract of csrc/decode_hm.cu (K10, K14, K16): q, k_cache, v_cache,
+# k_scales, v_scales, k_new, v_new, seq_lens, block_table, out, B, Hq, Hkv, D,
+# P, ps, MP, sm_scale, stream
+_HM_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _gather_hm(k_cache, v_cache, block_table):
@@ -71,17 +72,19 @@ def decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_si
     return out.reshape(b, hq, -1).to(q.dtype)
 
 
-def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size=None):
-    """Plain version of kernel K10: the TPU kernel's order (decode_v2.py:34-94
-    and decode.py:101-142 of the JAX package), one page per online-softmax
-    step, pages past seq_len skipped, all f32; the result in q's dtype."""
+def _pages_ref(q, k, v, lens, ps, sm_scale, k_new=None, v_new=None):
+    """The TPU kernels' order over gathered f32 rows k, v [B, Hkv, MP*ps, D]
+    (dequantised as f32(row * scale) where the cache is int8): one page per
+    online-softmax step, pages past lens [B] (clamped at 0) skipped, all f32;
+    a deferred token k_new / v_new [B, Hkv, D] (rounded to q's dtype) folds
+    in last as one more step of one column (decode_v3.py::_new_token_update
+    of the JAX package). The result in q's dtype."""
     b, hq, dk = q.shape
-    hkv, _, ps, _ = k_cache.shape
+    hkv = k.shape[1]
     g = hq // hkv
-    k, v = _gather_hm(k_cache, v_cache, block_table)
     dv = v.shape[-1]
     qf = q.float().reshape(b, hkv, g, dk)
-    slen = seq_lens.long()
+    slen = lens.long().clamp_min(0)
     m = torch.full((b, hkv, g, 1), _NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hkv, g, dv), dtype=torch.float32, device=q.device)
@@ -100,7 +103,24 @@ def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page
         m = torch.where(page_live, mh, m)
         l = torch.where(page_live, new_l, l)
         acc = torch.where(page_live, new_acc, acc)
+    if k_new is not None:
+        kn = k_new.to(q.dtype).float()
+        vn = v_new.to(q.dtype).float()
+        s = torch.einsum("bhgd,bhd->bhg", qf, kn)[..., None] * sm_scale
+        mh = torch.maximum(m, s)
+        alpha = torch.exp(m - mh)
+        pexp = torch.exp(s - mh)
+        l = l * alpha + pexp
+        acc = acc * alpha + pexp * vn[:, :, None, :]
     return (acc / l.clamp_min(1e-37)).reshape(b, hq, dv).to(q.dtype)
+
+
+def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size=None):
+    """Plain version of kernel K10: the TPU kernel's order (decode_v2.py:34-94
+    and decode.py:101-142 of the JAX package), one page per online-softmax
+    step, pages past seq_len skipped, all f32; the result in q's dtype."""
+    k, v = _gather_hm(k_cache, v_cache, block_table)
+    return _pages_ref(q, k, v, seq_lens, k_cache.shape[2], sm_scale)
 
 
 def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
@@ -111,28 +131,8 @@ def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_siz
     if not use_kernel(q):
         return decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale,
                                  page_size)
-    b, hq, d = q.shape
-    hkv, num_pages, ps, dk = k_cache.shape
-    if (v_cache.shape != k_cache.shape or dk != d or d != 128 or ps != page_size
-            or hq % hkv or hq // hkv not in (1, 2, 4, 8, 16)):
-        raise ValueError(f"decode_hm: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}: "
-                         "needs head dim 128 and Hq / Hkv in 1, 2, 4, 8, 16")
-    if any(t.dtype != torch.bfloat16 for t in (q, k_cache, v_cache)):
-        raise TypeError("decode_hm: bf16 q and caches expected")
-    dev = q.device
-    sl = seq_lens.to(torch.int32).contiguous()
-    bt = block_table.to(torch.int32).contiguous()
-    q = q.contiguous()
-    _build.check_operands("decode_hm", dev, q, k_cache, v_cache, sl, bt)
-    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
-    fn = _build.launcher("decode_hm", _HM_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), sl.data_ptr(),
-              bt.data_ptr(), out.data_ptr(), b, hq, hkv, d, num_pages, ps, bt.shape[1],
-              float(sm_scale), stream)
-    _build.check("decode_hm", code)
-    _build.launches["decode_hm"] += 1
-    return out
+    return _launch_hm("decode_hm", q, k_cache, v_cache, None, None, seq_lens, block_table,
+                      sm_scale, page_size, head_major=True)
 
 
 def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
@@ -142,6 +142,78 @@ def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
     if q.shape[-1] % 128 == 0 and v_cache.shape[-1] % 128 == 0:
         return decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
     return decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
+
+
+def _launch_hm(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scale,
+               page_size, head_major=False):
+    """One launch of a contract of csrc/decode_hm.cu (K10, K14 or K16):
+    `name` is its C entry point and launch counter; caches page-major [P, Hkv, ps, D], or
+    head-major [Hkv, P, ps, D]; scales (k, v) for int8 pages, new (k, v)
+    [B, Hkv, D] for a deferred token, else None. Returns [B, Hq, D] bf16."""
+    b, hq, d = q.shape
+    shape = k_cache.shape
+    num_pages, hkv, ps = (shape[1], shape[0], shape[2]) if head_major else shape[:3]
+    if (v_cache.shape != shape or shape[-1] != d or d != 128 or ps != page_size
+            or hq % hkv or hq // hkv not in (1, 2, 4, 8, 16)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, caches {tuple(shape)}: needs head "
+                         "dim 128 and Hq / Hkv in 1, 2, 4, 8, 16")
+    want = torch.int8 if scales is not None else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k_cache.dtype != want or v_cache.dtype != want:
+        raise TypeError(f"{name}: bf16 q and {want} caches expected")
+    dev = q.device
+    q = q.contiguous()
+    ks, vs = (s.float().contiguous() for s in scales) if scales is not None else (None, None)
+    kn, vn = ((x.to(torch.bfloat16).contiguous() for x in new) if new is not None
+              else (None, None))
+    sl = lens.to(torch.int32).contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
+    opt = [t for t in (ks, vs, kn, vn) if t is not None]
+    _build.check_operands(name, dev, q, k_cache, v_cache, *opt, sl, bt, out)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    fn = _build.launcher(name, _HM_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(ks), ptr(vs),
+              ptr(kn), ptr(vn), sl.data_ptr(), bt.data_ptr(), out.data_ptr(), b, hq, hkv, d,
+              num_pages, ps, bt.shape[1], float(sm_scale), stream)
+    _build.check(name, code)
+    _build.launches[name] += 1
+    return out
+
+
+def decode_gqa_int8kv_ref(q, k_cache, v_cache, k_scales, v_scales, seq_lens, block_table,
+                          sm_scale, page_size=None):
+    """Plain version of K16's decode_int8kv contract: int8 head-major pages
+    [Hkv, P, ps, D] dequantised at gather as f32(row * scale) (scales
+    [Hkv, P, 1, ps]), then the TPU kernel's page order
+    (_gqa_int8kv_kernel, decode.py:329-363 of the JAX package), all f32."""
+    b, mp = block_table.shape
+    hkv, _, ps, _ = k_cache.shape
+    bt = block_table.long()
+
+    def rows(cache, scales):
+        vals = cache[:, bt].transpose(0, 1).reshape(b, hkv, mp * ps, -1).float()
+        sc = scales[:, bt].transpose(0, 1).reshape(b, hkv, mp * ps, 1).float()
+        return vals * sc
+    return _pages_ref(q, rows(k_cache, k_scales), rows(v_cache, v_scales), seq_lens, ps,
+                      sm_scale)
+
+
+def decode_gqa_int8kv(q, k_cache, v_cache, k_scales, v_scales, seq_lens, block_table,
+                      sm_scale, page_size):
+    """Paged GQA decode over an int8 head-major cache: caches int8 [Hkv, P,
+    ps, D], scales f32 [Hkv, P, 1, ps] (per token and head); seq_lens [B]
+    includes the current token, which is already in the cache. Kernel K16
+    on the card (its decode_int8kv contract, head dim 128), counted under
+    "decode_int8kv"; decode_gqa_int8kv_ref on the CPU. Returns [B, Hq, D]
+    bf16. No model calls it (the JAX package's decode.py:366 contract)."""
+    if not use_kernel(q):
+        return decode_gqa_int8kv_ref(q, k_cache, v_cache, k_scales, v_scales, seq_lens,
+                                     block_table, sm_scale, page_size)
+    return _launch_hm("decode_int8kv", q, k_cache, v_cache, (k_scales, v_scales), None,
+                      seq_lens, block_table, sm_scale, page_size, head_major=True)
 
 
 def _gather(ckv_cache, krope_cache, block_table):

@@ -39,7 +39,7 @@ import torch
 from ... import _build
 from ...ops.matmul import quant_matmul_int8_ref
 from ...ops.quant import per_token_quant_int8
-from ...utils import use_kernel
+from ...utils import cdiv, use_kernel
 from .low_latency import _window_offsets
 from .pallas_ll import (
     _send_layout,
@@ -49,7 +49,7 @@ from .pallas_ll import (
     send_buffer,
 )
 
-TILE_M = 64     # K11's row tile: R * maxT must be a multiple of it on the card
+TILE_M = 64     # K11's row tile; a window's last m-tile may be partial
 # x_send, w13, w13s, w2, w2s, send_cnt, src_off, dst_off, recv_cnt, back_off,
 # recv, rs, back, ug, act, asc, ctr, R, El, maxT, H, F, sbuf, stream
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -97,11 +97,10 @@ def _fused_moe_cuda(x_send, w13_q, w13_scale, w2_q, w2_scale, tables, *, maxt):
     dev = x_send.device
     if x_send.dtype != torch.bfloat16 or (w13_q.dtype, w2_q.dtype) != (torch.int8, torch.int8):
         raise TypeError("fused_moe takes a bf16 send buffer and int8 expert weights")
-    if (w13_q.shape[1] != h or tuple(w2_q.shape) != (el, f, h) or h % 128 or f % 64
-            or maxt % TILE_M):
-        raise ValueError(f"fused_moe: H={h}, F={f}, maxT={maxt}, w13 {tuple(w13_q.shape)}, "
-                         f"w2 {tuple(w2_q.shape)}: needs H % 128, F % 64 and "
-                         f"maxT % {TILE_M} == 0")
+    if w13_q.shape[1] != h or tuple(w2_q.shape) != (el, f, h) or h % 128 or f % 64:
+        raise ValueError(f"fused_moe: H={h}, F={f}, w13 {tuple(w13_q.shape)}, "
+                         f"w2 {tuple(w2_q.shape)}: needs H % 128 and F % 64")
+    check_chunk_aligned(maxt)
     rows = el * maxt
     w13s = w13_scale.float().contiguous()
     w2s = w2_scale.float().contiguous()
@@ -114,7 +113,8 @@ def _fused_moe_cuda(x_send, w13_q, w13_scale, w2_q, w2_scale, tables, *, maxt):
     ug = torch.empty((rows, f2), dtype=torch.float32, device=dev)
     act = torch.empty((rows, f), dtype=torch.int8, device=dev)
     asc = torch.empty((rows,), dtype=torch.float32, device=dev)
-    ctr = torch.empty((1 + el + 2 * el * (maxt // TILE_M),), dtype=torch.int32, device=dev)
+    ctr = torch.empty((1 + el + 2 * el * cdiv(maxt, TILE_M),), dtype=torch.int32,
+                      device=dev)
     ops = (x_send, w13_q, w13s, w2_q, w2s, *tables, recv, rs, back, ug, act, asc, ctr)
     _build.check_operands("fused_moe", dev, *ops)
     fn = _build.launcher("fused_moe", _ARGTYPES)

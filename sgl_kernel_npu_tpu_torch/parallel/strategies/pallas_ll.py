@@ -56,8 +56,9 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 def check_chunk_aligned(maxt: int) -> None:
     """The port needs maxT % CHUNK == 0, so that no slice's last chunk
-    reaches the next slot region (the JAX package also takes maxT < CHUNK,
-    where neighbouring regions then overlap)."""
+    reaches the next slot region. The JAX package also takes maxT < CHUNK;
+    its regions then overlap and rows are lost
+    (tests/test_torch_moe.py::test_jax_pallas_tier_below_chunk_loses_rows)."""
     if maxt % CHUNK:
         raise ValueError(f"num_max_dispatch_tokens_per_rank={maxt} must be a "
                          f"multiple of CHUNK={CHUNK}")

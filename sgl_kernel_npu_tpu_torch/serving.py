@@ -1,12 +1,13 @@
 """Continuous-batching serving engine: native scheduler + paged KV + model
 steps (counterpart of the JAX package's serving.py: LlamaEngine on int8
-token-major pages, MlaEngine on split bf16 latent pages).
+token-major pages or page-major ("hm") pages, bf16 or int8, MlaEngine on
+split bf16 latent pages).
 
 The C++ scheduler (runtime/) assembles prefill and decode entries under a
-token budget; the page pool and radix prefix cache manage the token-major
-pages; prefill chunks of a step run as ONE padded [S, T] batch (S and T
-rounded up to powers of 2, as the JAX engine buckets its compiles) and decode
-runs one padded batch of `decode_batch` rows. Greedy decoding only.
+token budget; the page pool and radix prefix cache manage the pages;
+prefill chunks of a step run as ONE padded [S, T] batch (S and T rounded up
+to powers of 2, as the JAX engine buckets its compiles) and decode runs one
+padded batch of `decode_batch` rows. Greedy decoding only.
 """
 
 from __future__ import annotations
@@ -32,12 +33,16 @@ class LlamaEngine:
     def __init__(self, cfg: llama.LlamaConfig, params=None, num_pages: int = 256,
                  decode_batch: int = 8, token_budget: int = 256, seed: int = 0,
                  temperature: float = 0.0, max_pages: int | None = None,
-                 device="cuda"):
+                 kv_layout: str | None = None, device="cuda"):
+        """kv_layout: the Llama KV layout, "tm" or "hm"; None picks tm iff
+        llama.tm_layout_ok(cfg) (an int8 cache and the flat deferred decode),
+        else hm, as the JAX engine does."""
         if temperature > 0.0:
             raise NotImplementedError(
                 "sampling (temperature > 0) comes with ops/sampling.py in a "
                 "later slice of the port; this engine is greedy")
         self.cfg = cfg
+        self.kv_layout = kv_layout
         self.device = resolve_device(device)
         self.sched = NativeScheduler(num_pages, cfg.page_size,
                                      token_budget=token_budget)
@@ -55,13 +60,10 @@ class LlamaEngine:
         `_prefill_batch(ids, vl, pos, slots, bts, plens) -> (logits [S, T, V],
         kv)`, which update self.kv in place. Subclasses adapt other model
         families."""
-        if not cfg.int8_kv:
-            raise NotImplementedError(
-                "int8_kv=False needs the bf16 head-major cache, a later slice "
-                "of the port")
         self.params = (params if params is not None
                        else llama.init_params(cfg, seed, self.device))
-        self.kv = llama.init_kv_cache(cfg, num_pages, layout="tm",
+        layout = self.kv_layout or ("tm" if llama.tm_layout_ok(cfg) else "hm")
+        self.kv = llama.init_kv_cache(cfg, num_pages, layout=layout,
                                       device=self.device)
         self._decode = lambda *a: llama.decode_step_kv(self.params, cfg,
                                                        self.kv, *a)

@@ -10,6 +10,20 @@ package's utils/env.py, limited to the flags this package reads).
                               (default "default,default")
   SKT_SHARED_EXPERT_RANK_NUM  int, shared-expert ranks of the EP dispatch
   SKT_BF16_DISPATCH           bool: skip the int8 quant of the EP dispatch
+  SKT_DECODE_ATTN   "v6" | "v3", default v6: the deferred attention of the
+                    head-major ("hm") Llama decode (decode_v6 or decode_v3)
+  SKT_DECODE_FLAT   bool, default on: the hm decode addresses the pages of
+                    all layers as one [L*P] pool (off: per-layer slices, which
+                    also turns the deferred write off)
+  SKT_DECODE_DEFER  bool, default on: the hm decode attends the cache
+                    read-only and writes every layer's new rows after the
+                    loop (off: each layer writes, then attends with v3)
+  SKT_DECODE_UNROLL bool, default off: in the JAX package, the unrolled layer
+                    loop of the non-deferred branches; the port's loop is
+                    always a Python loop, so the flag is read by nothing
+  SKT_KV_LAYOUT     "tm" | "tm2" | "hm": the KV layout of the bench decode
+                    path (bench.py:157-158); unset means tm2 when
+                    models/llama.py::tm_layout_ok holds, else hm
 """
 
 from __future__ import annotations
@@ -70,3 +84,24 @@ def shared_expert_rank_num() -> int:
 
 def bf16_dispatch() -> bool:
     return env_bool("SKT_BF16_DISPATCH", False)
+
+
+def decode_attn() -> str:
+    """SKT_DECODE_ATTN: the hm deferred decode attention, v6 or v3."""
+    which = env_str("SKT_DECODE_ATTN", "v6")
+    if which not in ("v6", "v3"):
+        raise ValueError(f"SKT_DECODE_ATTN={which!r}: v6 or v3")
+    return which
+
+
+def decode_flat() -> bool:
+    return env_bool("SKT_DECODE_FLAT", True)
+
+
+def decode_defer() -> bool:
+    return env_bool("SKT_DECODE_DEFER", True)
+
+
+def kv_layout(default: str) -> str:
+    """SKT_KV_LAYOUT, else `default`."""
+    return env_str("SKT_KV_LAYOUT", default)

@@ -1,0 +1,279 @@
+"""The port's head-major ("hm") attention modules against the JAX package on
+the CPU: the page-major cache scatters (decode_v3.py), the v3 decode in its
+four contracts (kernel K16), the v6 deferred decode (K14), the int8
+head-major decode of decode.py (K16's decode_int8kv contract) and the paged
+chunk prefill (K15).
+
+The same numpy inputs go to both packages. The JAX side runs its Pallas
+kernels in interpret mode (SKT_IMPL=pallas); the port runs its plain PyTorch
+versions (device="cpu"); chip_smoke.py holds the CUDA kernels against those
+on the card.
+
+Tolerances, each with its reason (`assert_bf16_close`: one bf16 ulp of the
+JAX value plus a share of max|JAX|):
+  * the scatters: exact (copies; the int8 quantisation takes the same f32
+    steps, with f32(1/127) as compiled XLA: the JAX scatter is jitted, as
+    the models run it; run op by op it divides by 127);
+  * every attention contract: share 1e-4, the math being the TPU kernel's
+    in its page order (all f32 for v3, decode_int8kv and the prefill; for
+    v6 bf16 products and p rounded to bf16 before P.V on both sides), only
+    the order of the f32 sums differing. At this share v3's output fails
+    v6's check (test_decode_v6_and_v3_agree_but_round_apart): the test sees
+    v6's rounding.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgl_kernel_npu_tpu.ops.attention import decode as jdec
+from sgl_kernel_npu_tpu.ops.attention import decode_v3 as jv3
+from sgl_kernel_npu_tpu.ops.attention import decode_v6 as jv6
+from sgl_kernel_npu_tpu.ops.attention import paged_prefill as jpp
+from sgl_kernel_npu_tpu_torch import _build
+from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_v3 as tv3
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_v6 as tv6
+from sgl_kernel_npu_tpu_torch.ops.attention import paged_prefill as tpp
+from sgl_kernel_npu_tpu_torch.utils import env
+
+from .test_torch_mla import assert_bf16_close
+
+SHARE = 1e-4
+B, HQ, HKV, D, PS, MP = 5, 8, 2, 128, 16, 3
+SM = D ** -0.5
+
+
+@pytest.fixture(autouse=True)
+def _pallas(monkeypatch):
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+
+
+def _np(a):
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _t(a):
+    """numpy / jax array -> torch tensor (bf16 stays bf16)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _bf16(rng, shape, scale=1.0):
+    return jnp.asarray(rng.standard_normal(shape) * scale, jnp.bfloat16)
+
+
+def _pages(rng, int8, pages=B * MP + 1, layout="page"):
+    """Seeded caches: bf16 rows of randn, or int8 rows with f32 scales of
+    0.005..0.025, page-major [P, Hkv, ps, D] (layout "page") or head-major
+    [Hkv, P, ps, D] ("head"). Returns a dict of jax arrays."""
+    shape = (pages, HKV, PS, D) if layout == "page" else (HKV, pages, PS, D)
+    sshape = shape[:2] + (1, PS)
+    if not int8:
+        return {"k": _bf16(rng, shape), "v": _bf16(rng, shape)}
+    return {"k": jnp.asarray(rng.integers(-127, 128, shape, dtype=np.int8)),
+            "v": jnp.asarray(rng.integers(-127, 128, shape, dtype=np.int8)),
+            "ks": jnp.asarray(rng.random(sshape, dtype=np.float32) * 0.02 + 0.005),
+            "vs": jnp.asarray(rng.random(sshape, dtype=np.float32) * 0.02 + 0.005)}
+
+
+def _decode_inputs(rng, defer):
+    """q of 1.5 randn (scores of about 1.5 standard deviations: O(1)
+    outputs), a block table over distinct pages, lengths on page edges: with
+    `defer` cached lengths (-1 is a padded row, clamped to 0) and the new
+    token's k / v, else lengths including the current token."""
+    q = _bf16(rng, (B, HQ, D), 1.5)
+    bt = jnp.asarray(rng.permutation(B * MP)[: B * MP].reshape(B, MP) + 1, jnp.int32)
+    lens = [-1, 15, 16, 17, 47] if defer else [1, 16, 17, 33, 48]
+    new = (_bf16(rng, (B, HKV, D)), _bf16(rng, (B, HKV, D))) if defer else None
+    return q, bt, jnp.asarray(lens, jnp.int32), new
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_reshape_and_cache_page_major_exact(rng, int8):
+    """The in-place scatters equal the JAX ones bit for bit: slot -1 and a
+    slot past the pool drop their row; rows cross pages."""
+    cache = _pages(rng, int8)
+    t = 7
+    k, v = _bf16(rng, (t, HKV, D), 3.0), _bf16(rng, (t, HKV, D), 3.0)
+    slots = jnp.asarray([0, 17, -1, 31, 32, (B * MP + 1) * PS, 5 * PS + 3], jnp.int32)
+    port = {n: _t(a).clone() for n, a in cache.items()}
+    if int8:
+        want = jax.jit(jv3.reshape_and_cache_gqa_page_major_int8)(
+            k, v, cache["k"], cache["v"], cache["ks"], cache["vs"], slots)
+        got = tv3.reshape_and_cache_gqa_page_major_int8(
+            _t(k), _t(v), port["k"], port["v"], port["ks"], port["vs"], _t(slots))
+    else:
+        want = jv3.reshape_and_cache_gqa_page_major(k, v, cache["k"], cache["v"], slots)
+        got = tv3.reshape_and_cache_gqa_page_major(_t(k), _t(v), port["k"], port["v"],
+                                                   _t(slots))
+    for name, w, g in zip(port, want, got):
+        assert g is port[name]
+        assert np.array_equal(_np(w), _np(g.float() if g.dtype == torch.bfloat16 else g)), \
+            name
+    assert not np.array_equal(_np(want[0]), _np(cache["k"]))
+
+
+@pytest.mark.parametrize("contract", ["v3", "v3_int8", "v3_defer", "v3_int8_defer"])
+def test_decode_v3_matches_jax_kernel(rng, contract):
+    """Every v3 contract of K16 (plain version) against the JAX kernel,
+    interpreted: pages past the length skipped, a length of 0 (deferred,
+    only the new token) and lengths on page edges."""
+    int8, defer = "int8" in contract, "defer" in contract
+    cache = _pages(rng, int8)
+    q, bt, lens, new = _decode_inputs(rng, defer)
+    sc = (cache["ks"], cache["vs"]) if int8 else ()
+    jfn = {"v3": jv3.decode_gqa_pallas_v3, "v3_int8": jv3.decode_gqa_pallas_v3_int8,
+           "v3_defer": jv3.decode_gqa_pallas_v3_defer,
+           "v3_int8_defer": jv3.decode_gqa_pallas_v3_int8_defer}[contract]
+    tfn = getattr(tv3, f"decode_gqa_{contract}")
+    head = (q, *new) if defer else (q,)
+    want = jfn(*head, cache["k"], cache["v"], *sc, lens, bt, SM, PS)
+    got = tfn(*(_t(a) for a in head), _t(cache["k"]), _t(cache["v"]),
+              *(_t(a) for a in sc), _t(lens), _t(bt), SM, PS)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, HQ, D)
+    assert_bf16_close(got.float(), _np(want), SHARE, contract)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_v6_matches_jax_kernel(rng, int8):
+    """K14's plain version (bf16 products, P rounded to bf16) against the
+    JAX v6 kernel, interpreted, with a padded row (cached -1) and lengths
+    on page edges."""
+    cache = _pages(rng, int8)
+    q, bt, lens, (kn, vn) = _decode_inputs(rng, True)
+    if int8:
+        want = jv6.decode_gqa_pallas_v6_int8_defer(q, kn, vn, cache["k"], cache["v"],
+                                                   cache["ks"], cache["vs"], lens, bt, SM,
+                                                   PS)
+        got = tv6.decode_gqa_v6_int8_defer(_t(q), _t(kn), _t(vn), _t(cache["k"]),
+                                           _t(cache["v"]), _t(cache["ks"]), _t(cache["vs"]),
+                                           _t(lens), _t(bt), SM, PS)
+    else:
+        want = jv6.decode_gqa_pallas_v6_defer(q, kn, vn, cache["k"], cache["v"], lens, bt,
+                                              SM, PS)
+        got = tv6.decode_gqa_v6_defer(_t(q), _t(kn), _t(vn), _t(cache["k"]), _t(cache["v"]),
+                                      _t(lens), _t(bt), SM, PS)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, HQ, D)
+    assert_bf16_close(got.float(), _np(want), SHARE, f"v6 int8={int8}")
+
+
+def test_decode_v6_and_v3_agree_but_round_apart(rng):
+    """v6 rounds p to bf16 before P.V, v3 does not: the two deferred
+    contracts agree within 2e-2 of max|out|, but not within the tolerance
+    the tests hold each contract to."""
+    cache = _pages(rng, False)
+    q, bt, lens, (kn, vn) = _decode_inputs(rng, True)
+    args = (_t(q), _t(kn), _t(vn), _t(cache["k"]), _t(cache["v"]), _t(lens), _t(bt), SM, PS)
+    a = tv6.decode_gqa_v6_defer(*args).float()
+    b = tv3.decode_gqa_v3_defer(*args).float()
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+    with pytest.raises(AssertionError):
+        assert_bf16_close(b, a.numpy(), SHARE)
+
+
+def test_decode_int8kv_matches_jax_kernel(rng):
+    """K16's decode_int8kv contract (int8 head-major pages) against the JAX
+    decode_gqa_int8kv_pallas, interpreted, and its one-softmax reference."""
+    cache = _pages(rng, True, layout="head")
+    q, bt, lens, _ = _decode_inputs(rng, False)
+    args = (cache["k"], cache["v"], cache["ks"], cache["vs"], lens, bt, SM, PS)
+    want = jdec.decode_gqa_int8kv(q, *args)
+    got = tdec.decode_gqa_int8kv(_t(q), *(_t(a) for a in args[:-2]), SM, PS)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, HQ, D)
+    assert_bf16_close(got.float(), _np(want), SHARE, "int8kv")
+    assert_bf16_close(got.float(), _np(jdec.decode_gqa_int8kv_ref(q, *args)), 1e-3,
+                      "int8kv vs one softmax")
+
+
+def _prefill_case(rng, int8, t, prefix, mp=6):
+    """A chunk of t tokens after `prefix` cached ones of one sequence, the
+    cache holding seeded rows everywhere (the chunk is already written)."""
+    cache = _pages(rng, int8, pages=2 * mp + 1)
+    kv = (cache["k"], cache["v"]) if not int8 else cache
+    tkv = (tuple(_t(a) for a in kv) if not int8 else {n: _t(a) for n, a in kv.items()})
+    q = _bf16(rng, (t, HQ, D), 1.5)
+    bt = jnp.asarray(rng.permutation(2 * mp)[:mp] + 1, jnp.int32)
+    return kv, tkv, q, bt
+
+
+@pytest.mark.parametrize("case", [("bf16", 24, 0, 8), ("bf16", 21, 7, 8), ("bf16", 33, 16, 16),
+                                  ("int8", 21, 7, 8), ("int8", 40, 0, 128)])
+def test_paged_prefill_dense_causal_matches_jax_kernel(rng, case):
+    """The dense causal schedule at prefix 0, mid-page (7) and on a page
+    boundary (16), a chunk that is not a multiple of block_q (the last tile
+    padded), bf16 pages and the int8 dict; block_q 128 gives one tile."""
+    kind, t, prefix, bq = case
+    kv, tkv, q, bt = _prefill_case(rng, kind == "int8", t, prefix)
+    want = jpp.paged_prefill_attention(q, kv, bt, prefix, SM, PS, block_q=bq)
+    got = tpp.paged_prefill_attention(_t(q), tkv, _t(bt), prefix, SM, PS, block_q=bq)
+    assert got.dtype == torch.bfloat16 and got.shape == (t, HQ, D)
+    assert_bf16_close(got.float(), _np(want), SHARE, str(case))
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+def test_paged_prefill_page_sel_matches_jax_kernel(rng, per_head):
+    """The page_sel / page_cnt drive: selected logical pages out of order,
+    a tile whose list is empty (output 0), a tile whose first page hides
+    every column from some rows (they take p = 1 there, as the TPU kernel
+    does, until a visible page comes), per tile or per kv head."""
+    t, prefix, bq = 24, 20, 8
+    kv, tkv, q, bt = _prefill_case(rng, False, t, prefix)
+    nq = t // bq
+    sel = np.array([[3, 0, 1, 0], [0, 0, 0, 0], [2, 1, 0, 0]], np.int32)
+    cnt = np.array([3, 0, 2], np.int32)
+    if per_head:
+        sel = np.stack([sel, np.array([[1, 0, 0, 0], [2, 3, 0, 0], [0, 1, 2, 3]], np.int32)])
+        cnt = np.stack([cnt, np.array([1, 2, 4], np.int32)])
+    assert sel.shape[-2] == nq
+    want = jpp.paged_prefill_attention(q, kv, bt, prefix, SM, PS, page_sel=jnp.asarray(sel),
+                                       page_cnt=jnp.asarray(cnt), block_q=bq)
+    got = tpp.paged_prefill_attention(_t(q), tkv, _t(bt), prefix, SM, PS,
+                                      page_sel=torch.from_numpy(sel),
+                                      page_cnt=torch.from_numpy(cnt), block_q=bq)
+    assert_bf16_close(got.float(), _np(want), SHARE, f"per_head={per_head}")
+    assert float(got[bq:2 * bq, :HQ // HKV].float().abs().max()) == 0.0   # empty list
+
+
+def test_paged_prefill_batch_stacks_chunks(rng):
+    """paged_prefill_attention_batch over 3 chunks of one padded length
+    equals one call per chunk."""
+    kv, tkv, _, bt = _prefill_case(rng, True, 16, 0)
+    q = torch.from_numpy(rng.standard_normal((3, 16, HQ, D)).astype(np.float32)).to(
+        torch.bfloat16)
+    bts = torch.stack([_t(bt)] * 3)
+    plens = torch.tensor([0, 5, 16], dtype=torch.int32)
+    got = tpp.paged_prefill_attention_batch(q, tkv, bts, plens, SM, PS, block_q=8)
+    for si in range(3):
+        one = tpp.paged_prefill_attention(q[si], tkv, bts[si], int(plens[si]), SM, PS,
+                                          block_q=8)
+        assert torch.equal(got[si], one)
+
+
+def test_cpu_tensors_launch_nothing(rng):
+    """On CPU tensors every new wrapper runs its plain version: no launch
+    counter moves."""
+    before = dict(_build.launches)
+    test_decode_v6_and_v3_agree_but_round_apart(rng)
+    kv, tkv, q, bt = _prefill_case(rng, False, 8, 3)
+    tpp.paged_prefill_attention(_t(q), tkv, _t(bt), 3, SM, PS)
+    assert _build.launches == before
+    for name in ("decode_v6_defer", "decode_v6_int8_defer", "prefill_hm", "decode_v3",
+                 "decode_v3_int8", "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv"):
+        assert name in _build.KERNELS and name in _build.launches
+
+
+def test_decode_attn_flag(monkeypatch):
+    """SKT_DECODE_ATTN takes v6 (default) or v3, and refuses anything else."""
+    monkeypatch.delenv("SKT_DECODE_ATTN", raising=False)
+    assert env.decode_attn() == "v6"
+    monkeypatch.setenv("SKT_DECODE_ATTN", "v3")
+    assert env.decode_attn() == "v3"
+    monkeypatch.setenv("SKT_DECODE_ATTN", "v5")
+    with pytest.raises(ValueError):
+        env.decode_attn()

@@ -178,18 +178,13 @@ def test_engine_matches_jax_token_major_engine(monkeypatch):
         assert solo.generate([p], max_new_tokens=6)[0] == out
 
 
-@pytest.mark.parametrize("what", ["temperature", "int8_kv", "bitmask", "lora",
-                                  "pause", "resume"])
+@pytest.mark.parametrize("what", ["temperature", "bitmask", "lora", "pause", "resume"])
 def test_engine_refuses_what_later_slices_bring(what):
     cfg = tl.tiny_config(int8_kv=True)
     params = tl.init_params(cfg, 0, "cpu")
     if what == "temperature":
         with pytest.raises(NotImplementedError, match="later slice"):
             tserving.LlamaEngine(cfg, params=params, temperature=0.7, device="cpu")
-        return
-    if what == "int8_kv":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tserving.LlamaEngine(tl.tiny_config(), params=params, device="cpu")
         return
     eng = tserving.LlamaEngine(cfg, params=params, num_pages=16, device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -283,6 +283,41 @@ def test_ll_dispatch_combine_exact(rng, strategy, quant_mode):
         assert_bf16_sum_close(_f(tcomb), _np(comb), f"{strategy} {route}")
 
 
+def test_jax_pallas_tier_below_chunk_loses_rows():
+    """maxT < CHUNK: the JAX pallas strategy takes maxT = 4, but a slice's
+    8-row chunk then reaches into the next slot region, and its interpreted
+    kernel loses rows that its default strategy keeps (a standing difference
+    of the reference). The port keeps its refusal of maxT % CHUNK != 0, in
+    the pallas dispatch (K12) and in the fused layer (K11)."""
+    rng = np.random.default_rng(1)
+    experts, t, k, h, maxt = 4, 4, 2, 32, 4
+    x = jnp.asarray(rng.standard_normal((t, h), dtype=np.float32), jnp.bfloat16)
+    idx = np.stack([rng.choice(experts, k, replace=False) for _ in range(t)]).astype(np.int32)
+    w = rng.random((t, k)).astype(np.float32)
+    outs = {}
+    for strat in ("default", "pallas"):
+        buf = JBuffer(_mesh(), experts, low_latency_strategy=strat,
+                      num_max_dispatch_tokens_per_rank=maxt)
+        recv, _, _, lr, hd = buf.low_latency_dispatch(x, jnp.asarray(idx), quant_mode="bf16")
+        comb = buf.low_latency_combine(recv.astype(jnp.float32), jnp.asarray(idx),
+                                       jnp.asarray(w), hd)
+        outs[strat] = (_np(recv), np.asarray(lr).reshape(-1), _np(comb))
+    (drecv, dlr, dcomb), (precv, plr, pcomb) = outs["default"], outs["pallas"]
+    want = _np(x) * w.sum(-1, keepdims=True)
+    np.testing.assert_allclose(dcomb, want, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(dlr, plr) and dlr.sum() == t * k
+    assert not all(np.array_equal(precv[e, :n], drecv[e, :n]) for e, n in enumerate(dlr))
+    assert np.abs(pcomb - want).max() > 0.5
+    tb = TBuffer(None, experts, num_max_dispatch_tokens_per_rank=maxt,
+                 low_latency_strategy="pallas")
+    with pytest.raises(ValueError, match="multiple of CHUNK"):
+        tb.low_latency_dispatch(_t(x), torch.from_numpy(idx), quant_mode="bf16")
+    with pytest.raises(ValueError, match="multiple of CHUNK"):
+        tfmp.fused_deep_moe_pallas_shard(
+            _t(x), torch.from_numpy(idx), torch.from_numpy(w), None, None, None, None,
+            group=EPGroup(None), num_experts=experts, num_max_dispatch_tokens_per_rank=maxt)
+
+
 @pytest.mark.parametrize("num_ranks", [1, 8, 16, 32, 64])
 def test_config_presets_match_jax(num_ranks):
     """Buffer's dispatch and combine presets per EP size equal the JAX
