@@ -30,14 +30,23 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    128-token pages), K15 (paged chunk prefill: 512 tokens over 256 cached,
    bf16 and int8 pages, and a page_sel drive with an empty tile) and K16's
    five contracts (v3 decode bf16 / int8, current token in the cache or
-   deferred; int8 head-major decode) at the bench shape. K11's recv
+   deferred; int8 head-major decode) at the bench shape; and the
+   `attentions` surface's kernels: K17 (laser attention at Llama-3-8B's
+   heads, B 1: causal T 8192, not causal T 4096, causal T 8000), K18 (the
+   sparse-block estimator's scores at [1, 8, 8192, 128] and bench_ops.py's
+   [4, 16, 4096, 128], blocks of 128; the keep-0.25 masks equal), K19 (top-k
+   block-sparse decode at bench_ops.py's shape, B 64, H 16, D = Dv = 128, and
+   at DeepSeek-V2-Lite's latent rows, B 128, D 576, Dv 512; 256 blocks a row,
+   one row all -1) and K20 (add_rmsnorm_bias's quant pass at hidden 4096,
+   N 8192 and 128 in bf16, and its f32 instantiation at N 128: h exact,
+   int8 within a flip bar). K11's recv
    and rs and K12 must agree exactly, K11's returned rows and K13's int8
    within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp. The
    GEMMs and appends must agree
    exactly, the fused RMSNorm-quant GEMM within 4 quant flips with >= 99% of
    rows exact, the Llama attention kernels within 2e-2 max-abs, K5, K7 and
    K10 (on O(1) outputs of a peaked softmax) within one bf16 ulp plus 2e-3
-   (K5, K14) or 1e-4 (K7, K10, K15, K16) of max|plain|, K9's output within 1e-4 of
+   (K5, K14) or 1e-4 (K7, K10, K15, K16, K17, K19) of max|plain|, K9's output within 1e-4 of
    max|plain| and its pool within one bf16 ulp, rows it must not write
    untouched.
    Times the kernel, the plain version and a PyTorch library yardstick with
@@ -109,6 +118,19 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    kv_layout="hm"; every model call's launches exact (prefill K1 129, K15
    32; decode K1 65, K2 64, K14 32), all requests finish, the prefix is
    reused, a rerun repeats the tokens.
+11. Drives the `attentions` surface through its public functions at full
+   width, the counters set to 0 first: (a) prefill.laser_attention at
+   phase 1's three cases (K17 1 per call); (b) the sparse prefill at T 8192,
+   prefix 0, bf16 hm pages of 128: sparse_block_estimate_dispatch (K18 1)
+   -> block_mask_to_page_lists -> block_sparse_paged_attention (K15 1), at
+   keep 0.25 and 1.0 (then the mask is full causal and the output equals
+   (a)'s causal laser output); (c) topk_block_sparse_attention at phase 1's
+   two shapes (K19 1), also held to topk_sparse_attention over the same
+   tokens; (d) norm.add_rmsnorm_bias with quant, N 8192 and 128 (K20 1).
+   Every call: exact launches and no other kernel, finite, a second call
+   bit-identical, within phase 1's bars of the same call under SKT_IMPL=ref
+   (but (b) at keep 1.0, whose plain K15 loop is too long); prints ms per
+   call and the sparse prefill's time against the dense ones.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -3053,6 +3075,406 @@ def run_moe_bench_path(torch, par, build, data, gpu):
     return launches
 
 
+# ------------------------------------------------- the attentions surface
+
+# Meta-Llama-3-8B's attention heads (LlamaConfig()) for laser attention and
+# the sparse prefill; bench_ops.py:436 / :469's shapes and DeepSeek-V2-Lite's
+# latent rows (bench.py:281-284) for the top-k decode and the estimator
+ATT_HQ, ATT_HKV, ATT_D = 32, 8, 128
+LASER_CASES = ((8192, True), (4096, False), (8000, True))   # (T, causal)
+EST_SHAPES = ((1, 8, 8192), (4, 16, 4096))                   # (B, H, T) at D 128
+EST_BLOCK = 128
+TOPK_SHAPES = (("bench_ops", 64, 128, 128, 512), ("latent", 128, 576, 512, 4096))
+TOPK_H, TOPK_PS, TOPK_KB = 16, 128, 256
+NORM_D, NORM_ROWS = 4096, (8192, 128)
+# the kernels line's row for each case above, in the same order
+LASER_NAMES = ("laser_attention", "laser_attention (not causal)", "laser_attention (T 8000)")
+TOPK_NAMES = ("topk_block_sparse", "topk_block_sparse (latent rows)")
+NORM_NAMES = ("add_rmsnorm_quant", "add_rmsnorm_quant (N 128)")
+# K17 against its plain version: p kept to 16 bits (hi + lo bf16 parts) and
+# the f32 sums in another order; K18's scores: f32 order; K19 all f32; K15
+# against K17 (the keep 1.0 cross-check): both within that of the exact
+# value, so twice the share
+ATT_SHARE = K10_SHARE
+# K20 against its plain version: the same f32 steps and the same float64
+# rstd, expected exact; a value on a rounding boundary may move by one
+K20_FLIP_SHARE = 1e-4
+
+
+def _laser_inputs(torch, t, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q = torch.randn((1, ATT_HQ, t, ATT_D), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((1, ATT_HKV, t, ATT_D), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    return q, k, v
+
+
+def check_laser(torch, pf):
+    """K17 at Llama-3-8B's heads (32 / 8, D 128, bf16), B 1: causal T 8192
+    (the full context), not causal T 4096, causal T 8000 (a length the TPU
+    kernel gets wrong), each against its plain version (f32 in blocks of
+    256). Returns a row for each case, in LASER_CASES' order."""
+    sm = ATT_D ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for i, (t, causal) in enumerate(LASER_CASES):
+        q, k, v = _laser_inputs(torch, t, 170 + i)
+        out = pf.laser_attention(q, k, v, sm, causal)
+        ref = pf.laser_attention_blocked_ref(q, k, v, sm, causal)
+        torch.cuda.synchronize()
+        err, ratio = _bf16_check(f"laser_attention T={t} causal={causal}", out, ref, ATT_SHARE)
+        ms = _time_ms(lambda: pf.laser_attention(q, k, v, sm, causal), 10, graph=True)
+        plain_ms = _time_ms(lambda: pf.laser_attention_blocked_ref(q, k, v, sm, causal), 2, 1)
+        def library():
+            return sdpa(q, k, v, is_causal=causal, scale=sm, enable_gqa=True)
+        lib_err = (library().float() - ref.float()).abs().max().item()
+        lib = _time_ms(library, 10, graph=True)
+        ops = 4.0 * ATT_D * ATT_HQ * (t * (t + 1) / 2 if causal else float(t) * t)
+        nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        bound, by = _bound_ms(nbytes, ops, "bf16_flops")
+        f32_bound = _bound_ms(nbytes, ops, "f32_flops")[0]
+        print(f"  laser_attention B=1 Hq={ATT_HQ} Hkv={ATT_HKV} T={t} causal={causal}: max-abs "
+              f"{err:.3g} ({ratio:.3g} of its bound, max|plain| "
+              f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, SDPA (is_causal, enable_gqa) {lib:.4f} ms (max-abs vs "
+              f"plain {lib_err:.3g}); {ops:.3e} operations: bound {bound:.4f} ms at the bf16 "
+              f"tensor-core rate K17 runs ({by}), {f32_bound:.4f} ms at the f32 rate")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                         bound_by=by, max_abs_err=err))
+        del q, k, v, out, ref
+    return rows
+
+
+def _mask_flips(name, ref_scores, mask, ref_mask, keep):
+    """The estimator's masks from K18's and the plain scores must agree; an
+    entry may flip only where its score lies within f32 rounding of its
+    row's threshold. Names the flipped entries and returns them."""
+    flips = (mask != ref_mask).nonzero().tolist()
+    if flips:
+        nk = ref_scores.shape[-1]
+        thresh = ref_scores.sort(dim=-1).values[..., nk - keep:nk - keep + 1]
+        top = ref_scores.abs().masked_fill(ref_scores < -1e29, 0).amax(-1, keepdim=True)
+        near = (ref_scores - thresh).abs() <= 1e-5 * top
+        far = [f for f in flips if not bool(near[tuple(f)])]
+        if far:
+            raise AssertionError(f"{name}: mask entries {far[:8]} flipped away from the "
+                                 "threshold")
+        print(f"  {name}: mask entries flipped within f32 rounding of the threshold: {flips}")
+    return flips
+
+
+def check_sparse_estimate(torch, sp):
+    """K18 at the sparse prefill's shape ([1, 8, 8192, 128], blocks of 128)
+    and bench_ops.py:469's ([4, 16, 4096, 128]), bf16: scores within f32
+    rounding of the plain version's (-1e30 above the diagonal exact), the
+    keep-0.25 masks equal (or flipped only at the threshold). Returns the
+    sparse prefill shape's row."""
+    row = None
+    for i, (b, h, t) in enumerate(EST_SHAPES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(180 + i)
+        q, k = (torch.randn((b * h, t, ATT_D), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        sc = sp.block_scores(q, k, EST_BLOCK)
+        ref = sp.block_scores_ref(q, k, EST_BLOCK)
+        torch.cuda.synchronize()
+        live = ref > -1e29
+        if not torch.equal(sc[~live], ref[~live]):
+            raise AssertionError("sparse_estimate: the causal -1e30 entries differ")
+        err = float((sc[live] - ref[live]).abs().max())
+        top = float(ref[live].abs().max())
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"sparse_estimate: max-abs {err:.3g} over 1e-5 of {top:.3g}")
+        nk = t // EST_BLOCK
+        keep = max(1, int(nk * 0.25))
+        mask, _ = sp._threshold(sc.reshape(b, h, nk, nk), 0.25, True, True, True)
+        ref_mask, _ = sp._threshold(ref.reshape(b, h, nk, nk), 0.25, True, True, True)
+        flips = _mask_flips(f"sparse_estimate [{b}, {h}, {t}]", ref.reshape(b, h, nk, nk),
+                            mask, ref_mask, keep)
+        ms = _time_ms(lambda: sp.block_scores(q, k, EST_BLOCK), 20, graph=True)
+        plain_ms = _time_ms(lambda: sp.block_scores_ref(q, k, EST_BLOCK), 5, 1)
+        nbytes = 2.0 * (q.numel() + k.numel()) + 4.0 * b * h * nk * nk
+        ops = 2.0 * (q.numel() + k.numel()) / 2 + 2.0 * b * h * nk * nk * ATT_D
+        bound, by = _bound_ms(nbytes, ops, "f32_flops")
+        print(f"  sparse_estimate [{b}, {h}, {t}, {ATT_D}] blocks of {EST_BLOCK} ({b * h} "
+              f"blocks on 132 SMs): scores max-abs {err:.3g} (max {top:.3g}), keep-0.25 mask "
+              f"{'equal' if not flips else f'{len(flips)} flips at the threshold'}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, no library call; bound {bound:.4f} ms "
+              f"({by})")
+        if i == 0:
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
+                       max_abs_err=err)
+        del q, k
+    return row
+
+
+def _topk_case(torch, name, b, d, dv, pages, seed):
+    """Seeded q [B, 16, D], caches [pages, 128, D] / [.., Dv], KB 256
+    distinct 8-token blocks a row; row 1 leaves its last 100 at -1, row 2 is
+    all -1. Returns (q, k cache, v cache, block ids, token ids)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q = torch.randn((b, TOPK_H, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kc = torch.randn((pages, TOPK_PS, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vc = torch.randn((pages, TOPK_PS, dv), generator=gen, device="cuda").to(torch.bfloat16)
+    nblocks = pages * TOPK_PS // 8
+    ids = torch.rand((b, nblocks), generator=gen, device="cuda").argsort(dim=1)[:, :TOPK_KB]
+    ids = ids.to(torch.int32)
+    ids[1, TOPK_KB - 100:] = -1
+    ids[2] = -1
+    tok = torch.where(ids[..., None] >= 0, ids[..., None] * 8 + torch.arange(8, device="cuda"),
+                      -1).reshape(b, TOPK_KB * 8).to(torch.int32)
+    return q, kc, vc, ids, tok
+
+
+def check_topk(torch, sp):
+    """K19 at bench_ops.py:436's shape (B 64, H 16, D = Dv = 128, 512 pages
+    of 128, 256 blocks a row) and at DeepSeek-V2-Lite's latent rows (B 128,
+    D 576, Dv 512, 4096 pages), against its plain version; row 2 has no
+    block selected (the mean of block 0's V rows, as the TPU kernel).
+    Returns the two rows."""
+    rows = []
+    for i, (name, b, d, dv, pages) in enumerate(TOPK_SHAPES):
+        q, kc, vc, ids, tok = _topk_case(torch, name, b, d, dv, pages, 190 + i)
+        sm = d ** -0.5
+        out = sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS)
+        ref = sp.topk_block_sparse_attention_ref(q, kc, vc, ids, sm, TOPK_PS)
+        torch.cuda.synchronize()
+        err, ratio = _bf16_check(f"topk_block_sparse {name}", out, ref, ATT_SHARE)
+        mean0 = vc.reshape(-1, 8, dv)[0].float().mean(0)
+        if not bool(((out[2].float() - mean0).abs() <= 2.0 ** -7 * mean0.abs() + 1e-3).all()):
+            raise AssertionError("topk_block_sparse: the all -1 row is not block 0's mean")
+        ms = _time_ms(lambda: sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS), 20,
+                      graph=True)
+        plain_ms = _time_ms(lambda: sp.topk_block_sparse_attention_ref(q, kc, vc, ids, sm,
+                                                                       TOPK_PS), 3, 1)
+        flat = tok.clamp_min(0).long().reshape(-1)
+        kg = kc.reshape(-1, d).index_select(0, flat).reshape(b, 1, -1, d)
+        vg = vc.reshape(-1, dv).index_select(0, flat).reshape(b, 1, -1, dv)
+        live = (tok >= 0)[:, None, None, :]
+        library, backend = _sdpa_yardstick(torch, q[:, None], kg, vg, live, sm)
+        lib_err = (library()[:, 0].float() - ref.float())[[0, 1] + list(range(3, b))]
+        lib = _time_ms(library, 20, graph=True)
+        selected = float((ids >= 0).sum()) * 8
+        # bytes: each distinct 8-row block read once (the rows overlap across
+        # sequences; block 0 too, for the all -1 row), q, ids and the output
+        distinct = torch.cat([ids[ids >= 0], ids.new_zeros(1)]).unique().numel()
+        nbytes = (8.0 * distinct * 2.0 * (d + dv) + 2.0 * b * TOPK_H * (d + dv)
+                  + 4.0 * ids.numel())
+        bound, by = _bound_ms(nbytes, 2.0 * selected * TOPK_H * (d + dv), "f32_flops")
+        print(f"  topk_block_sparse ({name}) B={b} H={TOPK_H} D={d} Dv={dv} {pages} pages of "
+              f"{TOPK_PS}, {TOPK_KB} blocks a row ({int(selected)} rows selected, {distinct} "
+              f"distinct blocks, {nbytes / 1e6:.1f} MB to move): max-abs "
+              f"{err:.3g} ({ratio:.3g} of its bound, max|plain| "
+              f"{float(ref.float().abs().max()):.3g}), the all -1 row block 0's mean; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA ({backend}, over rows gathered by "
+              f"index_select beforehand) {lib:.4f} ms (max-abs vs plain "
+              f"{float(lib_err.abs().max()):.3g}); bound {bound:.4f} ms ({by})")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=err))
+        del q, kc, vc, ids, tok, kg, vg
+    return rows
+
+
+def _norm_inputs(torch, n, seed, dtype=None):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x, r = (torch.randn((n, NORM_D), generator=gen, device="cuda").to(dtype or torch.bfloat16)
+            for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn((NORM_D,), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((NORM_D,), generator=gen, device="cuda")
+    qs = 20.0 + 20.0 * torch.rand((NORM_D,), generator=gen, device="cuda")
+    qo = torch.randn((NORM_D,), generator=gen, device="cuda")
+    return x, r, w, b, qs, qo
+
+
+def _norm_check(torch, name, got, want):
+    """h exact; int8 within 1 on at most K20_FLIP_SHARE of the entries."""
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"{name}: h = x + residual differs")
+    diff = (got[0].int() - want[0].int()).abs()
+    share = float((diff > 0).double().mean())
+    if int(diff.max()) > 1 or share > K20_FLIP_SHARE:
+        raise AssertionError(f"{name}: int8 max diff {int(diff.max())}, share {share:.2e}")
+    return int(diff.max()), share
+
+
+def check_add_rmsnorm_quant(torch, nm):
+    """K20 at hidden 4096, bf16, N 8192 (a prefill) and 128 (a decode
+    batch), against its plain version; then its f32 instantiation at N 128
+    (no phase drives it; held and timed here only). Returns the bf16 rows,
+    in NORM_ROWS' order."""
+    rows = []
+    for n, dtype in [(n, torch.bfloat16) for n in NORM_ROWS] + [(128, torch.float32)]:
+        x, r, w, b, qs, qo = _norm_inputs(torch, n, 200 + n, dtype)
+        args = (x, r, w, b, 1e-6, qs, qo)
+        got, want = nm.add_rmsnorm_bias(*args), nm.add_rmsnorm_bias_ref(*args)
+        torch.cuda.synchronize()
+        dmax, share = _norm_check(torch, f"add_rmsnorm_quant N={n} {dtype}", got, want)
+        ms = _time_ms(lambda: nm.add_rmsnorm_bias(*args), 20, graph=True)
+        plain_ms = _time_ms(lambda: nm.add_rmsnorm_bias_ref(*args), 5, 1)
+        nbytes = (3.0 * x.element_size() + 1.0) * n * NORM_D + 16.0 * NORM_D
+        bound, by = _bound_ms(nbytes, 8.0 * n * NORM_D, "f32_flops")
+        print(f"  add_rmsnorm_quant N={n} d={NORM_D} {dtype}: h exact, int8 max diff {dmax} "
+              f"({share:.2e} of entries); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, no "
+              f"library call; bound {bound:.4f} ms ({by})")
+        if dtype == torch.bfloat16:
+            rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                             bound_by=by, max_abs_err=float(dmax)))
+    return rows
+
+
+def _drive(torch, build, name, fn, expect, plain=True):
+    """One call of a phase-11 entry point with exact launches (`expect`, 0
+    for every other kernel), finite, and a second call bit-identical; then,
+    with `plain`, the same call under SKT_IMPL=ref (no launch). Returns
+    (out, plain out or None, ms per call by CUDA events)."""
+    before = dict(build.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
+    if delta != expect:
+        raise AssertionError(f"{name}: launches {delta}, not {expect}")
+    outs = out if isinstance(out, tuple) else (out,)
+    if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+        raise AssertionError(f"{name}: output not finite")
+    again = fn()
+    again = again if isinstance(again, tuple) else (again,)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, o) for a, o in zip(again, outs)):
+        raise AssertionError(f"{name}: a second call differs")
+    ref = None
+    if plain:
+        mid = dict(build.launches)
+        with _env(SKT_IMPL="ref"):
+            ref = fn()
+        torch.cuda.synchronize()
+        if dict(build.launches) != mid:
+            raise AssertionError(f"{name}: the SKT_IMPL=ref call launched a kernel")
+    return out, ref, _time_ms(fn, 3, warmup=1)
+
+
+def _pages_of(torch, x, bt):
+    """[1, Hkv, T, D] rows as hm pages [P, Hkv, 128, D] behind block table
+    bt (logical -> physical; page 0 left empty)."""
+    _, hkv, t, d = x.shape
+    npages = t // 128
+    pages = torch.zeros((npages + 1, hkv, 128, d), dtype=x.dtype, device=x.device)
+    pages[bt.long()] = x[0].reshape(hkv, npages, 128, d).transpose(0, 1)
+    return pages
+
+
+def run_attentions(torch, build, pf, sp, pp, nm, gpu):
+    """Phase 11: the `attentions` surface through its public functions at
+    full width, each call with exact launches, finite, repeated
+    bit-identically and held to the same call under SKT_IMPL=ref. Returns
+    the launches of each case, by its row in the kernels line (the counters
+    set to 0 first)."""
+    build.reset_launches()
+    counts = {}
+
+    def count(row, kernel, before):
+        counts[row] = counts.get(row, 0) + build.launches[kernel] - before
+
+    sm = ATT_D ** -0.5
+    dense = {}
+    print("  (a) laser_attention, Llama-3-8B heads (32 / 8, D 128, bf16), B 1")
+    for i, (t, causal) in enumerate(LASER_CASES):
+        q, k, v = _laser_inputs(torch, t, 1170 + i)
+        name = f"laser_attention T={t} causal={causal}"
+        n0 = build.launches["laser_attention"]
+        out, plain, ms = _drive(torch, build, name, lambda: pf.laser_attention(
+            q, k, v, sm, causal), {"laser_attention": 1})
+        count(LASER_NAMES[i], "laser_attention", n0)
+        err, _ = _bf16_check(name, out, plain, ATT_SHARE)
+        print(f"    T={t} causal={causal}: {ms:.3f} ms per call, max-abs vs plain {err:.3g}, "
+              "launches laser_attention 1")
+        if i == 0:
+            dense = dict(q=q, k=k, v=v, out=out, ms=ms)
+        del out, plain
+    print("  (b) sparse prefill, T 8192 at prefix 0, bf16 hm pages of 128, per kv head")
+    q, k, v, t = dense["q"], dense["k"], dense["v"], LASER_CASES[0][0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1180)
+    q8 = torch.randn((1, ATT_HKV, t, ATT_D), generator=gen, device="cuda").to(torch.bfloat16)
+    npages = t // 128
+    bt = (torch.randperm(npages, generator=gen, device="cuda") + 1).to(torch.int32)
+    kv = (_pages_of(torch, k, bt), _pages_of(torch, v, bt))
+    qt = q[0].transpose(0, 1).contiguous()                       # [T, 32, 128]
+
+    def pipeline(keep):
+        mask, pairs = sp.sparse_block_estimate_dispatch(q8, k, 128, keep_ratio=keep)
+        out = pp.block_sparse_paged_attention(qt, kv, bt, mask[0], 0, sm, 128)
+        return out, mask, pairs
+
+    res = {}
+    for keep in (0.25, 1.0):
+        name = f"sparse prefill keep={keep}"
+        n0 = build.launches["sparse_estimate"]
+        # no plain run at keep 1.0: the plain K15 loop takes ~2,000 page steps
+        (out, mask, pairs), plain, ms = _drive(
+            torch, build, name, lambda: pipeline(keep), {"sparse_estimate": 1, "prefill_hm": 1},
+            plain=keep < 1.0)
+        count("sparse_estimate", "sparse_estimate", n0)
+        plain_note = "the plain version not run"
+        if plain is not None:
+            ref_out = plain[0]
+            if not torch.equal(mask, plain[1]):
+                ref_scores = sp.block_scores_ref(q8[0], k[0], 128).reshape(mask.shape)
+                _mask_flips(name, ref_scores, mask, plain[1], npages // 4)
+                with _env(SKT_IMPL="ref"):                # the plain K15 on the kernel's mask
+                    ref_out = pp.block_sparse_paged_attention(qt, kv, bt, mask[0], 0, sm, 128)
+            err, _ = _bf16_check(name, out, ref_out, ATT_SHARE)
+            plain_note = f"max-abs vs plain {err:.3g}"
+        res[keep] = dict(out=out, mask=mask, ms=ms)
+        print(f"    keep={keep}: {ms:.3f} ms per call (estimator + K15), "
+              f"{int(pairs.sum())} of {int(mask.shape[1]) * npages * (npages + 1) // 2} "
+              f"causal (q tile, page) pairs over the kv heads, {plain_note}; launches "
+              "sparse_estimate 1, prefill_hm 1")
+    full = res[1.0]
+    causal_mask = torch.ones((npages, npages), dtype=torch.bool, device="cuda").tril()
+    if not torch.equal(full["mask"], causal_mask.expand_as(full["mask"])):
+        raise AssertionError("sparse prefill: the keep-1.0 mask is not full causal")
+    dense_out = dense["out"][0].transpose(0, 1)
+    err, _ = _bf16_check("sparse prefill keep=1.0 vs laser", full["out"], dense_out,
+                         2 * ATT_SHARE)
+    print(f"    keep=1.0 mask full causal; its output (K15) vs laser_attention's (K17) max-abs "
+          f"{err:.3g}; sparse prefill at keep 0.25 {res[0.25]['ms']:.3f} ms against dense "
+          f"laser {dense['ms']:.3f} ms ({res[0.25]['ms'] / dense['ms']:.2f}x) and dense K15 "
+          f"{full['ms']:.3f} ms [{gpu}]")
+    del dense, res, full, kv, q8, qt, q, k, v
+    torch.cuda.empty_cache()
+    print("  (c) topk_block_sparse_attention")
+    for i, (name, b, d, dv, pages) in enumerate(TOPK_SHAPES):
+        q, kc, vc, ids, tok = _topk_case(torch, name, b, d, dv, pages, 1190 + i)
+        sm_t = d ** -0.5
+        n0 = build.launches["topk_block_sparse"]
+        out, plain, ms = _drive(torch, build, f"topk {name}", lambda: sp.topk_block_sparse_attention(
+            q, kc, vc, ids, sm_t, TOPK_PS), {"topk_block_sparse": 1})
+        count(TOPK_NAMES[i], "topk_block_sparse", n0)
+        err, _ = _bf16_check(f"topk {name}", out, plain, ATT_SHARE)
+        token = sp.topk_sparse_attention(q, kc, vc, tok, None, sm_t, TOPK_PS)
+        keep_rows = [r for r in range(b) if r != 2]              # row 2 selects nothing
+        terr, _ = _bf16_check(f"topk {name} vs token-granular", out[keep_rows],
+                              token[keep_rows], ATT_SHARE)
+        print(f"    {name} B={b} D={d} Dv={dv}: {ms:.3f} ms per call, max-abs vs plain "
+              f"{err:.3g}, vs topk_sparse_attention over the same tokens {terr:.3g}; launches "
+              "topk_block_sparse 1")
+        del q, kc, vc, ids, tok, out, plain, token
+    print("  (d) add_rmsnorm_bias with static int8 quant, hidden 4096, bf16")
+    for i, n in enumerate(NORM_ROWS):
+        args = _norm_inputs(torch, n, 1200 + n)
+        n0 = build.launches["add_rmsnorm_quant"]
+        got, plain, ms = _drive(torch, build, f"add_rmsnorm_bias N={n}", lambda: nm.add_rmsnorm_bias(
+            *args[:4], 1e-6, *args[4:]), {"add_rmsnorm_quant": 1})
+        count(NORM_NAMES[i], "add_rmsnorm_quant", n0)
+        dmax, share = _norm_check(torch, f"add_rmsnorm_bias N={n}", got, plain)
+        print(f"    N={n}: {ms:.4f} ms per call, h exact, int8 max diff {dmax} ({share:.2e} of "
+              "entries) vs plain; launches add_rmsnorm_quant 1")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3078,7 +3500,7 @@ def main() -> int:
         from sgl_kernel_npu_tpu_torch import runtime
         from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, qwen_next
         from sgl_kernel_npu_tpu_torch import parallel
-        from sgl_kernel_npu_tpu_torch.ops import activation, matmul, quant, rmsq_gemm
+        from sgl_kernel_npu_tpu_torch.ops import activation, matmul, norm, quant, rmsq_gemm
         from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas,
                                                                   low_latency, pallas_ll)
         from sgl_kernel_npu_tpu_torch.ops.gdn import recurrent_pallas
@@ -3086,7 +3508,8 @@ def main() -> int:
                                                             decode_v3, decode_v6,
                                                             decode_v8, decode_v9,
                                                             decode_v11, decode_v13,
-                                                            paged_prefill, paged_prefill_tm)
+                                                            paged_prefill, paged_prefill_tm,
+                                                            prefill, sparse)
         from sgl_kernel_npu_tpu_torch.utils import env
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -3169,6 +3592,14 @@ def main() -> int:
     rows["k12"] = check_remote_scatter(torch, low_latency, pallas_ll, parallel.comm, moe_data)
     torch.cuda.empty_cache()
     rows["k13"] = check_swiglu_quant(torch, activation)
+    torch.cuda.empty_cache()
+    rows.update(zip(LASER_NAMES, check_laser(torch, prefill)))
+    torch.cuda.empty_cache()
+    rows["sparse_estimate"] = check_sparse_estimate(torch, sparse)
+    torch.cuda.empty_cache()
+    rows.update(zip(TOPK_NAMES, check_topk(torch, sparse)))
+    torch.cuda.empty_cache()
+    rows.update(zip(NORM_NAMES, check_add_rmsnorm_quant(torch, norm)))
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -3280,6 +3711,13 @@ def main() -> int:
     del moe_data
     torch.cuda.empty_cache()
 
+    print("phase 11: the attentions surface (laser prefill, sparse estimator -> block-sparse "
+          "paged prefill, top-k block decode, add_rmsnorm_bias) at full width")
+    t0 = time.perf_counter()
+    att_launches = run_attentions(torch, _build, prefill, sparse, paged_prefill, norm, gpu)
+    print(f"  phase 11 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
@@ -3376,6 +3814,13 @@ def main() -> int:
              replaces=f"{base}/ops/attention/decode.py:366", launches=0,
              **rows["decode_int8kv"]),
     ]
+    att = [(LASER_NAMES, "laser_attention.cu", "ops/attention/prefill.py:80"),
+           (("sparse_estimate",), "sparse_estimate.cu", "ops/attention/sparse.py:323"),
+           (TOPK_NAMES, "topk_sparse.cu", "ops/attention/sparse.py:231"),
+           (NORM_NAMES, "add_rmsnorm_quant.cu", "ops/norm.py:70")]
+    kernels += [dict(name=name, route="cuda", source=f"{src}/{cu}", replaces=f"{base}/{tpu}",
+                     launches=att_launches[name], **rows[name])
+                for names, cu, tpu in att for name in names]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print("w8a8_gemm row: sum of the four M=8 decode GEMMs on stacked banks (wqkv, wo, "
@@ -3403,7 +3848,13 @@ def main() -> int:
           "phase 10 (the first run of each engine); K16 rows (decode_v3*, decode_int8kv): the bench "
           "shape, launches of the four v3 contracts from phase 9's SKT_DECODE_ATTN=v3 and "
           "SKT_DECODE_DEFER=0 runs on the bf16 and the int8 cache, decode_int8kv on no "
-          "bench or engine run (no model calls it)")
+          "bench or engine run (no model calls it); K17-K20 rows: one row per phase-11 case, its "
+          "launches that case's in phase 11 (the counts set to 0 first; each call twice, a "
+          "warm-up and the timed calls), laser_attention rows causal T 8192, not causal T "
+          "4096, causal T 8000 (bound at the bf16 tensor-core rate), sparse_estimate row the "
+          "sparse prefill's [1, 8, 8192, 128] (keep 0.25 and 1.0), topk_block_sparse rows "
+          "bench_ops.py's shape and the latent rows (bound: each distinct block read once), "
+          "add_rmsnorm_quant rows N 8192 and 128")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

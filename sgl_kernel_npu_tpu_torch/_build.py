@@ -57,6 +57,10 @@ KERNELS = {
     "decode_v3_defer": "decode_hm",
     "decode_v3_int8_defer": "decode_hm",
     "decode_int8kv": "decode_hm",
+    "laser_attention": "laser_attention",      # K17
+    "sparse_estimate": "sparse_estimate",      # K18
+    "topk_block_sparse": "topk_sparse",        # K19
+    "add_rmsnorm_quant": "add_rmsnorm_quant",  # K20
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

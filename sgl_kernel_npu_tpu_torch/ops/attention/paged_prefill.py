@@ -21,12 +21,17 @@ page lp is visible to token i iff lp * ps + c <= prefix_len + i. Returns
 (q [S, T, Hq, D], block_tables [S, MP], prefix_lens [S], the dense
 schedule), as the model's batched prefill stacks one call per sequence.
 
-On a CUDA tensor both launch kernel K15 (csrc/prefill_hm.cu) once, counted
-under "prefill_hm"; on a CPU tensor they run `paged_prefill_attention_ref`,
-the TPU kernel's page order in f32 (int8 rows dequantised as f32(row *
-scale)). The block-sparse entry points of the JAX module
-(`block_mask_to_page_lists`, `block_sparse_paged_attention`) are not ported
-yet.
+`block_sparse_paged_attention(q, kv_cache, block_table, block_mask,
+prefix_len, sm_scale, page_size, max_sel=0)` is the compute-skipping tier
+of block-sparse attention: block_mask [NQ, NK] or per kv head [Hkv, NQ, NK]
+(the sparse estimator's, sparse.sparse_block_estimate*) becomes page lists
+through `block_mask_to_page_lists` (plain PyTorch), and query tiles of one
+page (block_q = page_size) visit only their selected pages.
+
+On a CUDA tensor every entry point launches kernel K15 (csrc/prefill_hm.cu)
+once, counted under "prefill_hm"; on a CPU tensor they run
+`paged_prefill_attention_ref`, the TPU kernel's page order in f32 (int8 rows
+dequantised as f32(row * scale)).
 """
 
 from __future__ import annotations
@@ -174,3 +179,27 @@ def paged_prefill_attention_batch(q, kv_cache, block_tables, prefix_lens, sm_sca
                                         sm_scale, page_size, block_q=block_q)
             for si in range(q.shape[0])])
     return _prefill_hm(q, kv_cache, block_tables, prefix_lens, sm_scale, page_size, block_q)
+
+
+def block_mask_to_page_lists(block_mask, max_sel: int):
+    """An estimator block mask [NQ, NK] or [H, NQ, NK] (True: the query tile
+    attends the kv block) as K15's page lists: (page_sel [..., NQ, max_sel]
+    int32, the selected logical pages first in ascending order, the rest 0;
+    page_cnt [..., NQ] int32, at most max_sel)."""
+    nk = block_mask.shape[-1]
+    ids = torch.arange(nk, dtype=torch.int32, device=block_mask.device).expand(block_mask.shape)
+    key = torch.where(block_mask, ids, nk + ids)
+    order = torch.sort(key, dim=-1).values[..., :max_sel]
+    page_cnt = block_mask.sum(dim=-1).clamp(max=max_sel).to(torch.int32)
+    page_sel = torch.where(order < nk, order, 0).to(torch.int32)
+    return page_sel, page_cnt
+
+
+def block_sparse_paged_attention(q, kv_cache, block_table, block_mask, prefix_len, sm_scale,
+                                 page_size, max_sel: int = 0):
+    """Block-sparse attention that skips the pages a mask leaves out (module
+    docstring); q [T, Hq, D] with NQ = ceil(T / page_size) query tiles."""
+    max_sel = max_sel or block_mask.shape[-1]
+    page_sel, page_cnt = block_mask_to_page_lists(block_mask, max_sel)
+    return paged_prefill_attention(q, kv_cache, block_table, prefix_len, sm_scale, page_size,
+                                   page_sel=page_sel, page_cnt=page_cnt, block_q=page_size)
