@@ -39,7 +39,15 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    at DeepSeek-V2-Lite's latent rows, B 128, D 576, Dv 512; 256 blocks a row,
    one row all -1) and K20 (add_rmsnorm_bias's quant pass at hidden 4096,
    N 8192 and 128 in bf16, and its f32 instantiation at N 128: h exact,
-   int8 within a flip bar). K11's recv
+   int8 within a flip bar); and the last nine TPU kernels' ports: K21 (the
+   soft-FP8 W8A16 GEMM at DeepSeek-V3's fp8 widths: gate_proj, down_proj and
+   kv_a_proj_with_mqa at M 128, gate_proj at M 4096, the grouped GEMM on
+   phase 8's routed rows; also at M 8, a ragged K and N, 32-row tiles), K22
+   (helloworld, exact), K23's five contracts (the attic's v5, v4b and fused
+   v4 decodes; the fused writes bit-equal) and K24 (the attic's v7 two-tier
+   decode) at Llama-3-8B's heads, batch 64, 256..383 cached tokens; K21
+   within calc_diff 1e-5 and one bf16 ulp plus 1e-4 of max|plain|, K23 one
+   ulp plus 1e-4, K24 one ulp plus 2e-3. K11's recv
    and rs and K12 must agree exactly, K11's returned rows and K13's int8
    within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp. The
    GEMMs and appends must agree
@@ -131,6 +139,24 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    bit-identical, within phase 1's bars of the same call under SKT_IMPL=ref
    (but (b) at keep 1.0, whose plain K15 loop is too long); prints ms per
    call and the sparse prefill's time against the dense ones.
+12. Drives the soft-FP8 surface through its public functions at
+   DeepSeek-V3's widths (weights from per_block_quant_fp8 of seeded bf16
+   banks, 128 x 128 blocks), the counters set to 0 first: mm_wfp8a16 at M
+   128 (gate_proj, down_proj, kv_a_proj_with_mqa) and M 4096 (gate_proj),
+   gmm_wfp8a16 on phase 8's 1,024 routed rows (GMM1, GMM2; GMM1 also with
+   every row on one expert and with sum(group_list) < S, rows past it zero),
+   helloworld on [4096, 7168]. Every call: exact launches (K21 1, K22 1, no
+   other kernel), finite, a second call bit-identical, within K21's bar of
+   the same call under SKT_IMPL=ref (helloworld equal).
+13. Drives the attic's port at Llama-3-8B's heads (64 sequences of 256..383
+   cached tokens, 128-token pages), the counters set to 0 first: the v5
+   decodes, a 32-layer step of scatter_stacked_int8 + decode_v4b_int8 and of
+   each fused v4 decode on stacked caches (2.2 GB of int8 K and V; the layer
+   a device tensor), 70 steps of the v7 loop (decode, sidecar append, window
+   flush: every sequence crosses one). Every call or step: exact launches,
+   finite, a repeat from the same state bit-identical, the caches it writes
+   equal to the same step's under SKT_IMPL=ref, the outputs within K23's or
+   K24's bar of that run.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -3475,6 +3501,580 @@ def run_attentions(torch, build, pf, sp, pp, nm, gpu):
     return counts
 
 
+# --------------------------------------------- the soft-FP8 surface (phase 12)
+
+# DeepSeek-V3's linear weights in its checkpoint's fp8 format
+# (quantization_config: e4m3, weight_block_size [128, 128]) as [K, N]: the
+# dense MLP's gate_proj and down_proj, and kv_a_proj_with_mqa (N 576, not a
+# multiple of 128)
+FP8_DENSE = (("gate_proj", 7168, 18432), ("down_proj", 18432, 7168),
+             ("kv_a_proj_with_mqa", 7168, 576))
+FP8_M, FP8_M_LARGE = 128, 4096
+# the grouped GEMMs at phase 8's per-chip expert share (bench.py:378-408)
+FP8_GROUPED = (("GMM1", MOE_H, 2 * MOE_F), ("GMM2", MOE_F, MOE_H))
+HELLO_SHAPE = (4096, 7168)
+# K21 against its plain version, and phase 12 against SKT_IMPL=ref: the bar
+# tests/test_torch_fp8.py holds the port to the JAX package with (calc_diff,
+# and the share of max|plain| beyond one bf16 ulp of the larger value): the
+# sums are the same f32 products in another order
+FP8_DIFF, FP8_SHARE = 1e-5, 1e-4
+
+
+def _gemm_check(name, out, ref):
+    """calc_diff(out, ref) <= FP8_DIFF and every value within one bf16 ulp
+    of the larger of the two (2^-7 of its magnitude) plus FP8_SHARE *
+    max|ref|. Returns max-abs and the largest error over its bound."""
+    a, b = out.double(), ref.double()
+    diff = _calc_diff(a, b)
+    err = (a - b).abs()
+    ratio = float((err / (2.0 ** -7 * a.abs().maximum(b.abs())
+                          + FP8_SHARE * b.abs().max())).max())
+    if not (diff <= FP8_DIFF and ratio <= 1.0):
+        raise AssertionError(f"{name}: calc_diff {diff:.3g}, max-abs {float(err.max()):.3g} "
+                             f"({ratio:.3g} x its bound)")
+    return float(err.max()), ratio
+
+
+def _fp8_bank(torch, qt, seed, shape):
+    """Seeded bf16 weights [..., K, N] (0.05 randn on the card) quantised to
+    fp8 e4m3 with an f32 scale per 128 x 128 block: quant.per_block_quant_fp8
+    over each block's 16,384 values (K and N zero-padded to multiples of
+    128). Returns (w [..., K, N] e4m3, scales [..., K/128, N/128] f32)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    *lead, k, n = shape
+    w = (0.05 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+    sk, sn = -(-k // 128), -(-n // 128)
+    w = torch.nn.functional.pad(w, (0, sn * 128 - n, 0, sk * 128 - k))
+    blocks = w.reshape(*lead, sk, 128, sn, 128).transpose(-3, -2).reshape(*lead, sk, sn, 16384)
+    del w
+    q, s = qt.per_block_quant_fp8(blocks, block=16384)
+    q = (q.view(torch.uint8).reshape(*lead, sk, sn, 128, 128).transpose(-3, -2)
+         .reshape(*lead, sk * 128, sn * 128)[..., :k, :n].contiguous())
+    return q.view(torch.float8_e4m3fn), s[..., 0].contiguous()
+
+
+def _bf16_rows(torch, seed, shape, scale=1.0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return (scale * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+
+def _fp8_moe_rows(torch, data):
+    """phase 8's seed-0 routing as gmm_wfp8a16 takes it: the 1,024 routed
+    rows of x ordered by expert (a stable sort of topk_idx) and the group
+    sizes."""
+    x, idx = data[0], data[1]
+    order = torch.sort(idx.reshape(-1).long(), stable=True)
+    sizes = torch.bincount(order.values, minlength=MOE_EL).to(torch.int32)
+    return x[order.indices // MOE_K], sizes
+
+
+def _gemm_bound(m, k, n, experts=1):
+    """Bytes (x, the fp8 weights of each expert read, its scales, out) and
+    operations of an fp8 W8A16 GEMM of m rows."""
+    sk, sn = -(-k // 128), -(-n // 128)
+    nbytes = 2.0 * m * k + experts * (float(k) * n + 4.0 * sk * sn) + 2.0 * m * n
+    return _bound_ms(nbytes, 2.0 * m * k * n, "bf16_flops")
+
+
+def check_wfp8a16(torch, mm, qt, data):
+    """K21 at phase 12's shapes against its plain version: the dense GEMM at
+    M 128 on gate_proj, down_proj and kv_a_proj_with_mqa and at M 4096 on
+    gate_proj; the grouped GEMM (GMM1, GMM2) on the 1,024 routed rows of
+    phase 8's seed-0 routing, one 128-row tile per expert. Returns the rows
+    (the M 128 sum, M 4096, the grouped sum)."""
+    dense = []
+    big = None
+    for i, (name, k, n) in enumerate(FP8_DENSE):
+        w, s = _fp8_bank(torch, qt, 300 + i, (k, n))
+        w16 = mm._dequant_w_fp8_block(w, s)
+        for m in (FP8_M, FP8_M_LARGE) if name == "gate_proj" else (FP8_M,):
+            x = _bf16_rows(torch, 310 + i, (m, k))
+            out, ref = mm.mm_wfp8a16(x, w, s), mm.mm_wfp8a16_ref(x, w, s)
+            torch.cuda.synchronize()
+            err, ratio = _gemm_check(f"wfp8a16_gemm {name} M={m}", out, ref)
+            ms = _time_ms(lambda: mm.mm_wfp8a16(x, w, s), 10 if m > FP8_M else 30, graph=True)
+            plain_ms = _time_ms(lambda: mm.mm_wfp8a16_ref(x, w, s), 2, 1)
+
+            def library():
+                return torch.matmul(x, w16)
+            lib_err = (library().float() - ref.float()).abs().max().item()
+            lib = _time_ms(library, 10 if m > FP8_M else 30, graph=True)
+            bound, by = _gemm_bound(m, k, n)
+            print(f"  wfp8a16_gemm {name} M={m} K={k} N={n}: max-abs {err:.3g} ({ratio:.3g} of "
+                  f"its bound); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.matmul on "
+                  f"the bf16 weight {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound "
+                  f"{bound:.4f} ms ({by})")
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                       max_abs_err=err)
+            if m == FP8_M:
+                dense.append(row)
+            else:
+                big = row
+            del x, out, ref
+        del w, s, w16
+        torch.cuda.empty_cache()
+    for m, k, n in ((8, 7168, 576), (40, 200, 136), (3, 256, 576)):
+        # 32-row tiles, a split K, a ragged K and N
+        w, s = _fp8_bank(torch, qt, 350, (k, n))
+        x = _bf16_rows(torch, 351, (m, k))
+        _gemm_check(f"wfp8a16_gemm M={m} K={k} N={n}", mm.mm_wfp8a16(x, w, s),
+                    mm.mm_wfp8a16_ref(x, w, s))
+    w, s = _fp8_bank(torch, qt, 352, (4, 200, 136))
+    x = _bf16_rows(torch, 353, (40, 200))
+    gl = torch.tensor([10, 0, 20, 5], dtype=torch.int32, device="cuda")
+    got = mm.gmm_wfp8a16(x, w, s, gl, block_m=32)
+    want = mm.gmm_wfp8a16_ref(x, w, s, gl)
+    _gemm_check("gmm_wfp8a16 S=40 block_m=32", got, want)
+    print("  wfp8a16_gemm within its bar also at M 8 (a split K), a ragged K 200 and N 136, "
+          "and grouped over 32-row tiles with rows past the groups (zeros)")
+    rows_x, sizes = _fp8_moe_rows(torch, data)
+    m = rows_x.shape[0]
+    eid = torch.arange(MOE_EL, dtype=torch.int32, device="cuda").repeat_interleave(
+        sizes.long() // 128)
+    if not bool((sizes == 128).all()):
+        raise AssertionError(f"phase 8's routing no longer gives 128 rows an expert: {sizes}")
+    grouped = []
+    for i, (name, k, n) in enumerate(FP8_GROUPED):
+        w, s = _fp8_bank(torch, qt, 320 + i, (MOE_EL, k, n))
+        x = rows_x if name == "GMM1" else _bf16_rows(torch, 330, (m, k))
+        args = (x, w, s, eid)
+        out, ref = mm.gmm_wfp8a16_aligned(*args), mm.gmm_wfp8a16_aligned_ref(*args)
+        torch.cuda.synchronize()
+        err, ratio = _gemm_check(f"wfp8a16_gemm_grouped {name}", out, ref)
+        ms = _time_ms(lambda: mm.gmm_wfp8a16_aligned(*args), 20, graph=True)
+        plain_ms = _time_ms(lambda: mm.gmm_wfp8a16_aligned_ref(*args), 2, 1)
+        w16 = torch.stack([mm._dequant_w_fp8_block(w[e], s[e]) for e in range(MOE_EL)])
+
+        def library():
+            return torch.cat([torch.matmul(x[e * 128:(e + 1) * 128], w16[e])
+                              for e in range(MOE_EL)])
+        lib_err = (library().float() - ref.float()).abs().max().item()
+        lib = _time_ms(library, 20, graph=True)
+        bound, by = _gemm_bound(m, k, n, MOE_EL)
+        print(f"  wfp8a16_gemm_grouped {name} M={m} (8 experts x 128 rows) K={k} N={n}: max-abs "
+              f"{err:.3g} ({ratio:.3g} of its bound); kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+              f"ms, torch.matmul per expert group {lib:.4f} ms (max-abs vs plain "
+              f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
+        grouped.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                            bound_by=by, max_abs_err=err))
+        del w, s, w16, out, ref
+        torch.cuda.empty_cache()
+    return _sum_rows(dense), big, _sum_rows(grouped)
+
+
+def check_helloworld(torch, hw):
+    """K22 on bf16 [4096, 7168] and on 1,001 values (a tail past the
+    8-value vectors), exactly equal to its plain version (x + y)."""
+    for shape in (HELLO_SHAPE, (7, 143)):
+        x, y = _bf16_rows(torch, 340, shape), _bf16_rows(torch, 341, shape)
+        out, ref = hw.helloworld(x, y), hw.helloworld_ref(x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"helloworld {shape}: {(out != ref).sum().item()} values "
+                                 "differ")
+    x, y = _bf16_rows(torch, 340, HELLO_SHAPE), _bf16_rows(torch, 341, HELLO_SHAPE)
+    ms = _time_ms(lambda: hw.helloworld(x, y), 50, graph=True)
+    plain_ms = _time_ms(lambda: hw.helloworld_ref(x, y), 20)
+    lib = _time_ms(lambda: torch.add(x, y), 50, graph=True)
+    bound, by = _bound_ms(6.0 * x.numel(), float(x.numel()), "bf16_flops")
+    print(f"  helloworld {HELLO_SHAPE} bf16: exact (and at 7 x 143); kernel {ms:.4f} ms, plain "
+          f"(x + y) {plain_ms:.4f} ms, torch.add {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=0.0)
+
+
+def run_fp8_surface(torch, build, mm, qt, hw, data, gpu):
+    """Phase 12: the soft-FP8 surface through its public functions at
+    DeepSeek-V3's widths, the counters set to 0 first: mm_wfp8a16 at M 128
+    on the three projections and at M 4096 on gate_proj; gmm_wfp8a16 on the
+    1,024 routed rows of phase 8's routing (GMM1, GMM2), with every row on
+    one expert and with sum(group_list) < S (rows past it zero); helloworld
+    on [4096, 7168]. Every call: exact launches, finite, a second call
+    bit-identical, within the GEMM bar of the same call under SKT_IMPL=ref
+    (helloworld equal). Returns the launches by kernels-line row."""
+    build.reset_launches()
+    counts = {}
+
+    def count(row, kernel, before):
+        counts[row] = counts.get(row, 0) + build.launches[kernel] - before
+
+    one = {"wfp8a16_gemm": 1}
+    for i, (name, k, n) in enumerate(FP8_DENSE):
+        w, s = _fp8_bank(torch, qt, 300 + i, (k, n))
+        for m in (FP8_M, FP8_M_LARGE) if name == "gate_proj" else (FP8_M,):
+            x = _bf16_rows(torch, 310 + i, (m, k))
+            n0 = build.launches["wfp8a16_gemm"]
+            out, ref, ms = _drive(torch, build, f"mm_wfp8a16 {name} M={m}",
+                                  lambda: mm.mm_wfp8a16(x, w, s), one)
+            count("wfp8a16_gemm" if m == FP8_M else "wfp8a16_gemm (M 4096)", "wfp8a16_gemm", n0)
+            err, _ = _gemm_check(f"mm_wfp8a16 {name} M={m}", out, ref)
+            bound = _gemm_bound(m, k, n)[0]
+            print(f"  mm_wfp8a16 {name} M={m} K={k} N={n}: {ms:.4f} ms per call (bound "
+                  f"{bound:.4f}), max-abs vs SKT_IMPL=ref {err:.3g}; launches wfp8a16_gemm 1")
+            del x, out, ref
+        del w, s
+        torch.cuda.empty_cache()
+    rows_x, sizes = _fp8_moe_rows(torch, data)
+    m = rows_x.shape[0]
+    cases = (("phase 8 routing", sizes),
+             ("every row on expert 2", torch.zeros_like(sizes).index_fill_(0, torch.tensor(
+                 [2], device="cuda"), m)),
+             ("sum 1,000 < 1,024", sizes - torch.tensor([0, 3, 0, 5, 0, 7, 0, 9],
+                                                         dtype=torch.int32, device="cuda")))
+    grouped = {"wfp8a16_gemm_grouped": 1}
+    for i, (name, k, n) in enumerate(FP8_GROUPED):
+        w, s = _fp8_bank(torch, qt, 320 + i, (MOE_EL, k, n))
+        x = rows_x if name == "GMM1" else _bf16_rows(torch, 330, (m, k))
+        for label, gl in cases if name == "GMM1" else cases[:1]:
+            n0 = build.launches["wfp8a16_gemm_grouped"]
+            out, ref, ms = _drive(torch, build, f"gmm_wfp8a16 {name} ({label})",
+                                  lambda: mm.gmm_wfp8a16(x, w, s, gl), grouped)
+            count("wfp8a16_gemm_grouped", "wfp8a16_gemm_grouped", n0)
+            err, _ = _gemm_check(f"gmm_wfp8a16 {name} ({label})", out, ref)
+            total = int(gl.sum())
+            if out[total:].float().abs().any():
+                raise AssertionError(f"gmm_wfp8a16 {name} ({label}): rows past the groups "
+                                     "are not zero")
+            bound = _gemm_bound(total, k, n, int((gl > 0).sum()))[0]
+            print(f"  gmm_wfp8a16 {name} M={m} ({label}) K={k} N={n}: {ms:.4f} ms per call "
+                  f"(compaction + K21; K21's bound {bound:.4f}), max-abs vs SKT_IMPL=ref "
+                  f"{err:.3g}; launches wfp8a16_gemm_grouped 1")
+            del out, ref
+        del w, s
+        torch.cuda.empty_cache()
+    x, y = _bf16_rows(torch, 340, HELLO_SHAPE), _bf16_rows(torch, 341, HELLO_SHAPE)
+    n0 = build.launches["helloworld"]
+    out, ref, ms = _drive(torch, build, "helloworld", lambda: hw.helloworld(x, y),
+                          {"helloworld": 1})
+    count("helloworld", "helloworld", n0)
+    if not torch.equal(out, ref):
+        raise AssertionError("helloworld differs from its SKT_IMPL=ref call")
+    print(f"  helloworld {HELLO_SHAPE}: {ms:.4f} ms per call, equal to SKT_IMPL=ref; launches "
+          f"helloworld 1 [{gpu}]")
+    return counts
+
+
+# ------------------------------------------------------ the attic (phase 13)
+
+# the attic's measured configuration (attic/ops_attention/README.md):
+# Llama-3-8B's heads, int8 KV, batch 64, about 320 cached tokens; pages of
+# 128 and 4 a sequence (to 512 tokens: the v7 loop grows each by 70)
+ATT7_B, ATT7_MP, ATT7_LAYERS, ATT7_LI, ATT7_STEPS = 64, 4, 32, 5, 70
+# K23 takes f32 products and an unrounded p (K16's bar); K24 rounds p to
+# bf16 (K14's)
+# the kernels line's rows of K23's contracts and K24, and their TPU kernels
+ATTIC_TPU = {"decode_v5_int8_defer": "decode_v5.py:134", "decode_v5_defer": "decode_v5.py:225",
+             "decode_v4b_int8": "decode_v4.py:536", "decode_fused_v4_int8": "decode_v4.py:188",
+             "decode_fused_v4": "decode_v4.py:377", "decode_v7_int8": "decode_v7.py:208"}
+
+
+def _attic_state(torch, cfg, seed):
+    """The attic phases' decode state at Llama-3-8B's heads: 64 sequences of
+    256..383 cached tokens, 4 distinct 128-token pages each, q of 1.5 randn,
+    the current token's k / v."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    b, mp, ps = ATT7_B, ATT7_MP, cfg.page_size
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cached = torch.randint(256, 384, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    bt = (torch.randperm(b * mp, generator=gen, device="cuda").reshape(b, mp) + 1).to(
+        torch.int32)
+    q = (1.5 * torch.randn((b, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    kn, vn = (torch.randn((b, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    return dict(gen=gen, b=b, mp=mp, ps=ps, hq=hq, hkv=hkv, d=d, pages=b * mp + 1,
+                cached=cached, bt=bt, q=q, kn=kn, vn=vn, sm=d ** -0.5)
+
+
+def _stacked(torch, st, int8):
+    """Seeded stacked caches [32, P, Hkv, 128, 128]: int8 rows with f32
+    scales [32, P, Hkv, 1, 128] of 0.005..0.025, or bf16 randn rows."""
+    gen = st["gen"]
+    shape = (ATT7_LAYERS, st["pages"], st["hkv"], st["ps"], st["d"])
+    if not int8:
+        return [torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2)]
+    sshape = shape[:3] + (1, st["ps"])
+    return ([torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device="cuda")
+             for _ in range(2)]
+            + [torch.rand(sshape, generator=gen, device="cuda") * 0.02 + 0.005
+               for _ in range(2)])
+
+
+def _slots_of(torch, bt, pos, ps):
+    b = bt.shape[0]
+    return (bt[torch.arange(b, device=bt.device), (pos // ps).long()] * ps + pos % ps).to(
+        torch.int32)
+
+
+def _v7_state(torch, st):
+    """The v7 pages and sidecar of the state: int8 rows and scales in every
+    page, seeded bf16 sidecar rows (65 rows in a shuffled order)."""
+    gen = st["gen"]
+    k, v, ks, vs = _hm_pages(torch, gen, st["pages"], st["hkv"], st["ps"], st["d"], True)
+    side = [torch.randn((st["b"] + 1, 64, st["hkv"] * st["d"]), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2)]
+    rows = torch.randperm(st["b"] + 1, generator=gen, device="cuda")[: st["b"]].to(torch.int32)
+    return dict(k=k, v=v, ks=ks, vs=vs, kside=side[0], vside=side[1], rows=rows)
+
+
+def _v7_rows(torch, st, s7):
+    """The v7 state's tokens as bf16 rows [B, Hkv, MP*ps, D] (the pages
+    dequantised up to the last flush, the sidecar after it) for the SDPA
+    yardstick, and the live mask."""
+    b, hkv, d, w = st["b"], st["hkv"], st["d"], 64
+    cached = st["cached"].long()
+    flushed = cached // w * w
+    rows = []
+    for cache, sc, side in ((s7["k"], s7["ks"], s7["kside"]), (s7["v"], s7["vs"], s7["vside"])):
+        r = _hm_rows(torch, cache, sc, st["bt"])
+        tail = side[s7["rows"].long()].reshape(b, w, hkv, d).transpose(1, 2)
+        t = torch.arange(w, device="cuda")
+        bi, ti = (t[None, :] < (cached - flushed)[:, None]).nonzero(as_tuple=True)
+        r[bi, :, flushed[bi] + ti] = tail[bi, :, ti]
+        rows.append(r)
+    live = torch.arange(st["mp"] * st["ps"], device="cuda")[None, :] < cached[:, None]
+    return rows[0], rows[1], live
+
+
+def check_attic(torch, dv4, dv5, dv7, cfg):
+    """K23's five contracts and K24 at phase 13's shapes (Llama-3-8B heads,
+    64 sequences of 256..383 cached tokens, 128-token pages; the stacked
+    caches 32 layers, layer 5, the layer an int), against their plain
+    versions; the fused contracts' writes bit-equal to the plain versions'.
+    Returns the rows by kernel name."""
+    from sgl_kernel_npu_tpu_torch.ops.attention.decode_v8 import quant_rows_int8
+    st = _attic_state(torch, cfg, 350)
+    b, hq, hkv, d, mp, ps, sm = (st[k] for k in ("b", "hq", "hkv", "d", "mp", "ps", "sm"))
+    q, kn, vn, cached, bt = st["q"], st["kn"], st["vn"], st["cached"], st["bt"]
+    rows = {}
+
+    def finish(name, fn, plain, share, rows_k, rows_v, live, new, lens, int8, extra_bytes=0.0,
+               extra_tok=0.0, write=None):
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        if write is not None:
+            write()
+        err, ratio = _bf16_check(name, out, ref, share)
+        ms = _time_ms(fn, 50, graph=True)
+        plain_ms = _time_ms(plain, 3)
+        library, backend, lib_out = _hm_yardstick(torch, q, rows_k, rows_v, live, new, sm)
+        lib_err = (lib_out().float() - ref.float()).abs().max().item()
+        lib = _time_ms(library, 20, graph=True)
+        nbytes, tok = _hm_decode_bytes(lens, b, hkv, hq, d, mp, int8, new is not None)
+        bound, by = _bound_ms(nbytes + extra_bytes, 4.0 * (tok + extra_tok + b) * hq * d,
+                              "bf16_flops" if share == K14_SHARE else "f32_flops")
+        print(f"  {name} B={b} Hq={hq} Hkv={hkv} ps={ps} MP={mp}: max-abs {err:.3g} "
+              f"({ratio:.3g} of its bound, max|plain| {float(ref.float().abs().max()):.3g}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA ({backend}) {lib:.4f} ms "
+              f"(max-abs vs plain {lib_err:.3g}), bound {bound:.4f} ms ({by})")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
+                          bound_by=by, max_abs_err=err)
+
+    live = torch.arange(mp * ps, device="cuda")[None, :] < cached[:, None]
+    for int8 in (True, False):
+        name = "decode_v5_int8_defer" if int8 else "decode_v5_defer"
+        k, v, ks, vs = _hm_pages(torch, st["gen"], st["pages"], hkv, ps, d, int8)
+        sc = (ks, vs) if int8 else ()
+        fn = dv5.decode_gqa_v5_int8_defer if int8 else dv5.decode_gqa_v5_defer
+        finish(name, lambda: fn(q, kn, vn, k, v, *sc, cached, bt, sm, ps),
+               lambda: dv5.decode_gqa_v5_defer_ref(q, kn, vn, k, v, cached, bt, sm, k_scales=ks,
+                                                   v_scales=vs),
+               HM_SHARE, _hm_rows(torch, k, ks, bt), _hm_rows(torch, v, vs, bt), live, (kn, vn),
+               cached, int8)
+        del k, v, ks, vs
+    li = ATT7_LI
+    seq = cached + 1
+    slots = _slots_of(torch, bt, cached, ps)
+    k, v, ks, vs = _stacked(torch, st, True)
+    live_in = torch.arange(mp * ps, device="cuda")[None, :] < seq[:, None]
+    finish("decode_v4b_int8",
+           lambda: dv4.decode_v4b_int8(q, k, v, ks, vs, seq, bt, li, sm, ps)[0],
+           lambda: dv4.decode_v4b_int8_ref(q, k, v, ks, vs, seq, bt, li, sm)[0], HM_SHARE,
+           _hm_rows(torch, k[li], ks[li], bt), _hm_rows(torch, v[li], vs[li], bt), live_in,
+           None, seq, True)
+    for int8 in (True, False):
+        name = "decode_fused_v4_int8" if int8 else "decode_fused_v4"
+        if not int8:
+            del k, v, ks, vs
+            torch.cuda.empty_cache()
+            k, v = _stacked(torch, st, False)
+            ks = vs = None
+        caches = (k, v, ks, vs) if int8 else (k, v)
+        twin = [c.clone() for c in caches]
+        kfn = dv4.decode_fused_v4_int8 if int8 else dv4.decode_fused_v4
+        pfn = dv4.decode_fused_v4_int8_ref if int8 else dv4.decode_fused_v4_ref
+
+        def write(caches=caches, twin=twin, name=name):
+            if not all(torch.equal(a, t) for a, t in zip(caches, twin)):
+                raise AssertionError(f"{name}: the caches differ from the plain version's")
+        # the new token as the caches hold it after the write (int8: dequantised)
+        if int8:
+            kq, vq, kqs, vqs = quant_rows_int8(kn, vn)
+            new = (kq.float().mul(kqs[..., None]).to(torch.bfloat16),
+                   vq.float().mul(vqs[..., None]).to(torch.bfloat16))
+        else:
+            new = (kn, vn)
+        finish(name,
+               lambda: kfn(q, kn, vn, *caches, seq, bt, slots, li, sm, ps)[0],
+               lambda: pfn(q, kn, vn, *twin, seq, bt, slots, li, sm)[0],
+               HM_SHARE, _hm_rows(torch, k[li], ks[li] if int8 else None, bt),
+               _hm_rows(torch, v[li], vs[li] if int8 else None, bt), live, new, cached, int8,
+               extra_bytes=2.0 * b * hkv * (d * (1 if int8 else 2) + (4 if int8 else 0)),
+               write=write)
+        del twin
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
+    s7 = _v7_state(torch, st)
+    args = (s7["k"], s7["v"], s7["ks"], s7["vs"], s7["kside"], s7["vside"], s7["rows"], cached,
+            bt, sm, ps)
+    rk, rv, live7 = _v7_rows(torch, st, s7)
+    flushed = cached.long() // 64 * 64
+    nside = float((cached.long() - flushed).sum())
+    finish("decode_v7_int8", lambda: dv7.decode_gqa_v7_int8(q, None, kn, vn, *args),
+           lambda: dv7.decode_gqa_v7_int8_ref(q, None, kn, vn, *args), K14_SHARE, rk, rv, live7,
+           (kn, vn), flushed, True, extra_bytes=nside * hkv * 4.0 * d + 4.0 * b,
+           extra_tok=nside)
+    return rows
+
+
+def _attic_step(torch, build, name, fn, expect):
+    """One call (or one step of calls) of a phase-13 entry point: exact
+    launches (`expect`, no other kernel), finite outputs. Returns the
+    outputs and ms by events around the eager call (host time included)."""
+    before = dict(build.launches)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
+    if delta != expect:
+        raise AssertionError(f"{name}: launches {delta}, not {expect}")
+    if not all(bool(torch.isfinite(o.float()).all()) for o in out):
+        raise AssertionError(f"{name}: output not finite")
+    return out, t0.elapsed_time(t1)
+
+
+def run_attic(torch, build, dv4, dv5, dv7, cfg, gpu):
+    """Phase 13: the attic through its public functions at Llama-3-8B's
+    heads (64 sequences of 256..383 cached tokens, 128-token pages), the
+    counters set to 0 first: the v5 decodes (bf16, int8); a step of 32
+    layers on stacked int8 caches of scatter_stacked_int8 then
+    decode_v4b_int8, and of decode_fused_v4_int8, and on stacked bf16
+    caches of decode_fused_v4 (one call a layer, the layer a device
+    tensor); 70 steps of the two-tier v7 loop (decode, sidecar_append,
+    window_flush of the sequences that reach a multiple of 64: every
+    sequence crosses one). Every call or step: exact launches, finite, a
+    repeat from the same state bit-identical, the caches it writes bit-equal
+    to the same step through the plain versions (SKT_IMPL=ref) from the same
+    state, the outputs within the bars of that run. Returns the launches by
+    kernel."""
+    build.reset_launches()
+    st = _attic_state(torch, cfg, 360)
+    b, hkv, d, ps, sm = (st[k] for k in ("b", "hkv", "d", "ps", "sm"))
+    q, kn, vn, cached, bt = st["q"], st["kn"], st["vn"], st["cached"], st["bt"]
+
+    def held(name, run, state, share, expect):
+        """run(state) twice from copies of one state on the kernels, once
+        under SKT_IMPL=ref: outputs and written state."""
+        copies = [[t.clone() for t in state] for _ in range(3)]
+        (a, ms), (a2, _) = (_attic_step(torch, build, name, lambda c=c: run(c), expect)
+                            for c in copies[:2])
+        if not (all(torch.equal(x, y) for x, y in zip(a, a2))
+                and all(torch.equal(x, y) for x, y in zip(copies[0], copies[1]))):
+            raise AssertionError(f"{name}: a repeat from the same state differs")
+        with _env(SKT_IMPL="ref"):
+            ref, _ = _attic_step(torch, build, f"{name} (SKT_IMPL=ref)",
+                                 lambda: run(copies[2]), {})
+        if not all(torch.equal(x, y) for x, y in zip(copies[0], copies[2])):
+            raise AssertionError(f"{name}: the state written differs from the plain run's")
+        errs = [_bf16_check(f"{name} out {i}", x, y, share)[0] for i, (x, y) in
+                enumerate(zip(a, ref))]
+        print(f"  {name}: {ms:.3f} ms (events around the eager call), max-abs vs SKT_IMPL=ref "
+              f"{max(errs):.3g}, repeat identical, state written equal; launches {expect}")
+        del copies
+
+    for int8 in (True, False):
+        name = "decode_v5_int8_defer" if int8 else "decode_v5_defer"
+        k, v, ks, vs = _hm_pages(torch, st["gen"], st["pages"], hkv, ps, d, int8)
+        fn = dv5.decode_gqa_v5_int8_defer if int8 else dv5.decode_gqa_v5_defer
+        state = [k, v, ks, vs] if int8 else [k, v]
+        held(f"{name} (v5)", lambda c: [fn(q, kn, vn, *c, cached, bt, sm, ps)], state,
+             HM_SHARE, {name: 1})
+        del k, v, ks, vs, state
+    layers = ATT7_LAYERS
+    lis = [torch.tensor(li, dtype=torch.int32, device="cuda") for li in range(layers)]
+    seq = cached + 1
+    slots = _slots_of(torch, bt, cached, ps)
+    gen = st["gen"]
+    qs = [(1.5 * torch.randn(q.shape, generator=gen, device="cuda")).to(torch.bfloat16)
+          for _ in range(layers)]
+    news = [[torch.randn(kn.shape, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2)] for _ in range(layers)]
+
+    def v4b_step(c):
+        outs = []
+        for li in range(layers):
+            dv4.scatter_stacked_int8(*news[li], *c, lis[li], slots)
+            outs.append(dv4.decode_v4b_int8(qs[li], *c, seq, bt, lis[li], sm, ps)[0])
+        return outs
+
+    def fused_step(c, fn):
+        return [fn(qs[li], *news[li], *c, seq, bt, slots, lis[li], sm, ps)[0]
+                for li in range(layers)]
+
+    state = _stacked(torch, st, True)
+    held(f"scatter_stacked_int8 + decode_v4b_int8, a {layers}-layer step", v4b_step, state,
+         HM_SHARE, {"decode_v4b_int8": layers})
+    held(f"decode_fused_v4_int8, a {layers}-layer step",
+         lambda c: fused_step(c, dv4.decode_fused_v4_int8), state, HM_SHARE,
+         {"decode_fused_v4_int8": layers})
+    mem = sum(t.numel() * t.element_size() for t in state[:2]) / 1e9
+    del state
+    torch.cuda.empty_cache()
+    state = _stacked(torch, st, False)
+    held(f"decode_fused_v4, a {layers}-layer step", lambda c: fused_step(c, dv4.decode_fused_v4),
+         state, HM_SHARE, {"decode_fused_v4": layers})
+    del state
+    torch.cuda.empty_cache()
+    print(f"  stacked int8 K and V {mem:.2f} GB ({layers} layers of {st['pages']} pages)")
+    s7 = _v7_state(torch, st)
+    names7 = ("k", "v", "ks", "vs", "kside", "vside")
+    qs7 = [(1.5 * torch.randn(q.shape, generator=gen, device="cuda")).to(torch.bfloat16)
+           for _ in range(ATT7_STEPS)]
+    news7 = [[torch.randn(kn.shape, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2)] for _ in range(ATT7_STEPS)]
+    rows, btl = s7["rows"], bt.long()
+
+    def v7_loop(c):
+        k, v, ks, vs, kside, vside, cnt = c
+        outs = []
+        for step in range(ATT7_STEPS):
+            outs.append(dv7.decode_gqa_v7_int8(qs7[step], None, *news7[step], k, v, ks, vs,
+                                               kside, vside, rows, cnt, bt, sm, ps))
+            dv7.sidecar_append(kside, vside, *news7[step], rows, cnt % 64)
+            cnt += 1
+            start = (cnt - 64).clamp_min(0).long()
+            dv7.window_flush(k, v, ks, vs, kside, vside, rows,
+                             btl[torch.arange(b, device="cuda"), start // ps], start % ps,
+                             cnt % 64 == 0)
+        return outs
+
+    counts = cached.clone()
+    held(f"the v7 two-tier loop, {ATT7_STEPS} steps", v7_loop,
+         [s7[n] for n in names7] + [counts], K14_SHARE, {"decode_v7_int8": ATT7_STEPS})
+    crossed = (cached + ATT7_STEPS) // 64 > cached // 64
+    if not bool(crossed.all()):
+        raise AssertionError("a sequence of the v7 loop crossed no window flush")
+    print(f"  every sequence crossed a window flush (cached {int(cached.min())}.."
+          f"{int(cached.max())} -> +{ATT7_STEPS}) [{gpu}]")
+    return {k: v for k, v in build.launches.items() if v}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3500,7 +4100,11 @@ def main() -> int:
         from sgl_kernel_npu_tpu_torch import runtime
         from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, qwen_next
         from sgl_kernel_npu_tpu_torch import parallel
-        from sgl_kernel_npu_tpu_torch.ops import activation, matmul, norm, quant, rmsq_gemm
+        from sgl_kernel_npu_tpu_torch.ops import (activation, helloworld, matmul, norm, quant,
+                                                  rmsq_gemm)
+        from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v4 as attic_v4
+        from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v5 as attic_v5
+        from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v7 as attic_v7
         from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas,
                                                                   low_latency, pallas_ll)
         from sgl_kernel_npu_tpu_torch.ops.gdn import recurrent_pallas
@@ -3600,6 +4204,12 @@ def main() -> int:
     rows.update(zip(TOPK_NAMES, check_topk(torch, sparse)))
     torch.cuda.empty_cache()
     rows.update(zip(NORM_NAMES, check_add_rmsnorm_quant(torch, norm)))
+    torch.cuda.empty_cache()
+    rows["k21"], rows["k21_m4096"], rows["k21g"] = check_wfp8a16(torch, matmul, quant, moe_data)
+    torch.cuda.empty_cache()
+    rows["k22"] = check_helloworld(torch, helloworld)
+    torch.cuda.empty_cache()
+    rows.update(check_attic(torch, attic_v4, attic_v5, attic_v7, cfg))
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -3708,7 +4318,6 @@ def main() -> int:
     print("phase 8: the bench.py --config moe layer at EP = 1 (8 experts of DeepSeek-V3 "
           "width, 128 tokens top-8)")
     moe_launches = run_moe_bench_path(torch, parallel, _build, moe_data, gpu)
-    del moe_data
     torch.cuda.empty_cache()
 
     print("phase 11: the attentions surface (laser prefill, sparse estimator -> block-sparse "
@@ -3716,6 +4325,21 @@ def main() -> int:
     t0 = time.perf_counter()
     att_launches = run_attentions(torch, _build, prefill, sparse, paged_prefill, norm, gpu)
     print(f"  phase 11 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("phase 12: the soft-FP8 surface (mm_wfp8a16, gmm_wfp8a16, helloworld) at DeepSeek-V3 "
+          "widths")
+    t0 = time.perf_counter()
+    fp8_launches = run_fp8_surface(torch, _build, matmul, quant, helloworld, moe_data, gpu)
+    print(f"  phase 12 {time.perf_counter() - t0:.1f} s")
+    del moe_data
+    torch.cuda.empty_cache()
+
+    print("phase 13: the attic (v5, v4b, the fused v4 pair, the v7 two-tier loop) at "
+          "Llama-3-8B heads, batch 64")
+    t0 = time.perf_counter()
+    attic_launches = run_attic(torch, _build, attic_v4, attic_v5, attic_v7, cfg, gpu)
+    print(f"  phase 13 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
@@ -3821,6 +4445,29 @@ def main() -> int:
     kernels += [dict(name=name, route="cuda", source=f"{src}/{cu}", replaces=f"{base}/{tpu}",
                      launches=att_launches[name], **rows[name])
                 for names, cu, tpu in att for name in names]
+    kernels += [
+        dict(name="wfp8a16_gemm", route="cuda", source=f"{src}/wfp8a16_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:309", launches=fp8_launches["wfp8a16_gemm"],
+             **rows["k21"]),
+        dict(name="wfp8a16_gemm (M 4096)", route="cuda", source=f"{src}/wfp8a16_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:309",
+             launches=fp8_launches["wfp8a16_gemm (M 4096)"], **rows["k21_m4096"]),
+        dict(name="wfp8a16_gemm_grouped", route="cuda", source=f"{src}/wfp8a16_gemm.cu",
+             replaces=f"{base}/ops/matmul.py:381",
+             launches=fp8_launches["wfp8a16_gemm_grouped"], **rows["k21g"]),
+        dict(name="helloworld", route="cuda", source=f"{src}/helloworld.cu",
+             replaces=f"{base}/ops/helloworld.py:36", launches=fp8_launches["helloworld"],
+             **rows["k22"]),
+    ]
+    kernels += [dict(name=name, route="cuda",
+                     source=f"{src}/{'decode_v7' if name == 'decode_v7_int8' else 'decode_hm'}"
+                            ".cu",
+                     replaces=f"attic/ops_attention/{ATTIC_TPU[name]}",
+                     launches=attic_launches.get(name, 0), **rows[name])
+                for name in ATTIC_TPU]
+    idle = [k["name"] for k in kernels[-10:] if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on phases 12 and 13: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print("w8a8_gemm row: sum of the four M=8 decode GEMMs on stacked banks (wqkv, wo, "
@@ -3854,7 +4501,13 @@ def main() -> int:
           "4096, causal T 8000 (bound at the bf16 tensor-core rate), sparse_estimate row the "
           "sparse prefill's [1, 8, 8192, 128] (keep 0.25 and 1.0), topk_block_sparse rows "
           "bench_ops.py's shape and the latent rows (bound: each distinct block read once), "
-          "add_rmsnorm_quant rows N 8192 and 128")
+          "add_rmsnorm_quant rows N 8192 and 128; wfp8a16_gemm (K21) row: the sum of "
+          "gate_proj, down_proj and kv_a_proj_with_mqa at M 128 (library: torch.matmul on the "
+          "pre-dequantised bf16 weight), its M 4096 row gate_proj, the grouped row GMM1 + "
+          "GMM2 on phase 8's routed rows (library: torch.matmul per expert group), launches "
+          "from phase 12 by case; helloworld (K22): [4096, 7168]; K23 rows (decode_v5*, "
+          "decode_v4b_int8, decode_fused_v4*) and K24 (decode_v7_int8): 64 sequences of "
+          "256..383 cached tokens at Llama-3-8B's heads, launches from phase 13")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

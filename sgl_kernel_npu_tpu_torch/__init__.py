@@ -8,9 +8,10 @@ the kernel, a CPU tensor runs the plain version.
 
 Subpackages:
   ops       W8A8 GEMMs (plain, stacked, pretiled, grouped, fused
-            RMSNorm-quant), int8 quant, RoPE, paged attention and appends
-            (Llama tm / tm2 pages, MLA combined and split latent pages,
-            head-major pages), mla_preprocess, gdn, swiglu_quant
+            RMSNorm-quant), soft-FP8 W8A16 GEMMs (dense, grouped), int8 and
+            block fp8 quant, RoPE, paged attention and appends (Llama tm /
+            tm2 pages, MLA combined and split latent pages, head-major
+            pages), mla_preprocess, gdn, swiglu_quant, helloworld
   models    Llama-3-class, DeepSeek-V2-class MLA and Qwen3-Next-class W8A8
             decoders
   parallel  the expert-parallel MoE layer: Buffer, its dispatch / combine
@@ -18,6 +19,8 @@ Subpackages:
   runtime   ctypes bindings of the native scheduler (csrc/runtime.cpp)
   serving   LlamaEngine and MlaEngine: continuous batching, radix prefix reuse
   utils     env flags, device selection, H100 roofline numbers
+  attic     the retired v4 / v5 / v7 decodes of the repository's attic/
+            (not imported here, as the JAX package does not import attic/)
 """
 
-__version__ = "0.1.0"
+from .version import __version__  # noqa: F401

@@ -61,6 +61,15 @@ KERNELS = {
     "sparse_estimate": "sparse_estimate",      # K18
     "topk_block_sparse": "topk_sparse",        # K19
     "add_rmsnorm_quant": "add_rmsnorm_quant",  # K20
+    "wfp8a16_gemm": "wfp8a16_gemm",            # K21, dense
+    "wfp8a16_gemm_grouped": "wfp8a16_gemm",    # K21, per-m-tile expert map
+    "helloworld": "helloworld",                # K22
+    "decode_v5_defer": "decode_hm",            # K23, one counter per contract
+    "decode_v5_int8_defer": "decode_hm",
+    "decode_v4b_int8": "decode_hm",
+    "decode_fused_v4_int8": "decode_hm",
+    "decode_fused_v4": "decode_hm",
+    "decode_v7_int8": "decode_v7",             # K24
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

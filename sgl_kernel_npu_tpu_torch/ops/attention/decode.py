@@ -72,13 +72,14 @@ def decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_si
     return out.reshape(b, hq, -1).to(q.dtype)
 
 
-def _pages_ref(q, k, v, lens, ps, sm_scale, k_new=None, v_new=None):
+def _pages_ref(q, k, v, lens, ps, sm_scale, k_new=None, v_new=None, round_new=True):
     """The TPU kernels' order over gathered f32 rows k, v [B, Hkv, MP*ps, D]
     (dequantised as f32(row * scale) where the cache is int8): one page per
     online-softmax step, pages past lens [B] (clamped at 0) skipped, all f32;
-    a deferred token k_new / v_new [B, Hkv, D] (rounded to q's dtype) folds
-    in last as one more step of one column (decode_v3.py::_new_token_update
-    of the JAX package). The result in q's dtype."""
+    a deferred token k_new / v_new [B, Hkv, D] (rounded to q's dtype, unless
+    round_new is False) folds in last as one more step of one column
+    (decode_v3.py::_new_token_update of the JAX package). The result in q's
+    dtype."""
     b, hq, dk = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -104,8 +105,8 @@ def _pages_ref(q, k, v, lens, ps, sm_scale, k_new=None, v_new=None):
         l = torch.where(page_live, new_l, l)
         acc = torch.where(page_live, new_acc, acc)
     if k_new is not None:
-        kn = k_new.to(q.dtype).float()
-        vn = v_new.to(q.dtype).float()
+        kn = (k_new.to(q.dtype) if round_new else k_new).float()
+        vn = (v_new.to(q.dtype) if round_new else v_new).float()
         s = torch.einsum("bhgd,bhd->bhg", qf, kn)[..., None] * sm_scale
         mh = torch.maximum(m, s)
         alpha = torch.exp(m - mh)

@@ -31,6 +31,49 @@ from .decode_v3 import _gather_pm
 _NEG_INF = -1e30
 
 
+def _step(qf, k, v, live, sm_scale, m, l, acc, ks=None, vs=None):
+    """One online-softmax step of K14's rounding over rows k, v [B, Hkv, n,
+    D] (exact bf16 or int8 values in f32) with live [B, n]: the K scales ks
+    [B, Hkv, n] on the scores, p (times the V scales vs) rounded to bf16
+    before P.V; a sequence with no live row keeps its state. Returns the new
+    (m, l, acc)."""
+    s = torch.einsum("bhgd,bhnd->bhgn", qf, k)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    s = torch.where(live[:, None, None, :], s * sm_scale, _NEG_INF)
+    mh = torch.maximum(m, s.amax(-1, keepdim=True))
+    alpha = torch.exp(m - mh)
+    pexp = torch.where(live[:, None, None, :], torch.exp(s - mh), 0.0)
+    new_l = l * alpha + pexp.sum(-1, keepdim=True)
+    pr = pexp * vs[:, :, None, :] if vs is not None else pexp
+    vp = torch.where(live[:, None, :, None], v, 0.0)
+    new_acc = acc * alpha + torch.einsum("bhgn,bhnd->bhgd", pr.to(torch.bfloat16).float(), vp)
+    any_live = live.any(-1)[:, None, None, None]
+    return (torch.where(any_live, mh, m), torch.where(any_live, new_l, l),
+            torch.where(any_live, new_acc, acc))
+
+
+def _new_token(qf, k_new, v_new, sm_scale, m, l, acc, dtype):
+    """Fold the current token k_new / v_new [B, Hkv, D] (rounded to `dtype`,
+    then bf16) in as one more step of one column, its p rounded to bf16;
+    returns the normalised output [B, Hkv, G, D] in f32."""
+    kn = k_new.to(dtype).to(torch.bfloat16).float()
+    vn = v_new.to(dtype).to(torch.bfloat16).float()
+    s = torch.einsum("bhgd,bhd->bhg", qf, kn)[..., None] * sm_scale
+    mh = torch.maximum(m, s)
+    alpha = torch.exp(m - mh)
+    pexp = torch.exp(s - mh)
+    l = l * alpha + pexp
+    acc = acc * alpha + pexp.to(torch.bfloat16).float() * vn[:, :, None, :]
+    return acc / l.clamp_min(1e-37)
+
+
+def _init_state(b, hkv, g, d, device):
+    return (torch.full((b, hkv, g, 1), _NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=device),
+            torch.zeros((b, hkv, g, d), dtype=torch.float32, device=device))
+
+
 def decode_gqa_v6_defer_ref(q, k_new, v_new, k_cache, v_cache, cached_lens, block_table,
                             sm_scale, page_size=None, k_scales=None, v_scales=None):
     """Plain version of K14 (_kernel_v6 and _kernel_v6_int8 of the JAX
@@ -46,36 +89,15 @@ def decode_gqa_v6_defer_ref(q, k_new, v_new, k_cache, v_cache, cached_lens, bloc
         vs = _gather_pm(v_scales.transpose(-1, -2), None, block_table)[..., 0]
     qf = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
     clen = cached_lens.long().clamp_min(0)
-    m = torch.full((b, hkv, g, 1), _NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
+    m, l, acc = _init_state(b, hkv, g, d, q.device)
     for p0 in range(0, k.shape[2], ps):
         live = torch.arange(p0, p0 + ps, device=q.device)[None, :] < clen[:, None]
-        s = torch.einsum("bhgd,bhnd->bhgn", qf, k[:, :, p0:p0 + ps])
-        if ks is not None:
-            s = s * ks[:, :, None, p0:p0 + ps]
-        s = torch.where(live[:, None, None, :], s * sm_scale, _NEG_INF)
-        mh = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - mh)
-        pexp = torch.where(live[:, None, None, :], torch.exp(s - mh), 0.0)
-        new_l = l * alpha + pexp.sum(-1, keepdim=True)
-        pr = pexp * vs[:, :, None, p0:p0 + ps] if vs is not None else pexp
-        vp = torch.where(live[:, None, :, None], v[:, :, p0:p0 + ps], 0.0)
-        new_acc = acc * alpha + torch.einsum("bhgn,bhnd->bhgd",
-                                             pr.to(torch.bfloat16).float(), vp)
-        page_live = (p0 < clen)[:, None, None, None]
-        m = torch.where(page_live, mh, m)
-        l = torch.where(page_live, new_l, l)
-        acc = torch.where(page_live, new_acc, acc)
-    kn = k_new.to(q.dtype).to(torch.bfloat16).float()
-    vn = v_new.to(q.dtype).to(torch.bfloat16).float()
-    s = torch.einsum("bhgd,bhd->bhg", qf, kn)[..., None] * sm_scale
-    mh = torch.maximum(m, s)
-    alpha = torch.exp(m - mh)
-    pexp = torch.exp(s - mh)
-    l = l * alpha + pexp
-    acc = acc * alpha + pexp.to(torch.bfloat16).float() * vn[:, :, None, :]
-    return (acc / l.clamp_min(1e-37)).reshape(b, hq, d).to(q.dtype)
+        cols = slice(p0, p0 + ps)
+        m, l, acc = _step(qf, k[:, :, cols], v[:, :, cols], live, sm_scale, m, l, acc,
+                          None if ks is None else ks[:, :, cols],
+                          None if vs is None else vs[:, :, cols])
+    out = _new_token(qf, k_new, v_new, sm_scale, m, l, acc, q.dtype)
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def decode_gqa_v6_defer(q, k_new, v_new, k_cache, v_cache, cached_lens, block_table,

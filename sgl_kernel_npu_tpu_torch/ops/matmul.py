@@ -13,6 +13,19 @@ for an [L, K, N] bank and for a plain weight (a one-layer view of it, no
 copy), kernel K1 for a pretiled bank, kernel K8 for the grouped GEMM. On a
 CPU tensor it runs the plain version, `quant_matmul_int8_ref` on the layer's
 (or the tile's expert's) [K, N] weight.
+
+The soft-FP8 W8A16 GEMMs (bf16 activations times fp8 e4m3 weights with f32
+scales per 128 x 128 block, what the reference's softfp8_w8a16_matmul and
+softfp8_w8a16_grouped_matmul compute) run on kernel K21
+(csrc/wfp8a16_gemm.cu). Names against the JAX package's:
+  mm_wfp8a16_ref           mm_wfp8a16_ref (the port's follows the Pallas
+                           kernel's K-block order)
+  mm_wfp8a16               mm_wfp8a16 and mm_wfp8a16_pallas (K21 dense)
+  gmm_wfp8a16_ref          gmm_wfp8a16_ref (ragged, over group sizes)
+  gmm_wfp8a16_aligned      gmm_wfp8a16_pallas_aligned (K21 grouped)
+  gmm_wfp8a16_aligned_ref  its plain version, per m-tile expert
+  gmm_wfp8a16              gmm_wfp8a16 (the aligned compaction around K21)
+  _dequant_w_fp8_block     _dequant_w_fp8_block
 """
 
 from __future__ import annotations
@@ -22,7 +35,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..utils import cdiv, use_kernel
+from ..utils import cdiv, index_copy_kept_, use_kernel
 
 _BK, _BN = 64, 128       # the kernels' K stage and N tile
 # x, w, x_scale, w_scale, out, workspace, M, N, K, li, [bn,] splits, out_f32,
@@ -252,3 +265,188 @@ def grouped_matmul_int8(x_q, w_q, x_scale, w_scale, expert_per_mtile, block_m: i
                                              block_m, out_dtype)
     return _w8a8_gemm(x_q, w_q, 0, x_scale, w_scale, out_dtype,
                       eid=expert_per_mtile.to(torch.int32).contiguous(), block_m=block_m)
+
+
+# ------------------------------------------------ soft-FP8 W8A16 (K21)
+
+FP8_BLOCK = 128          # the weights' scale block, 128 x 128
+# x, w, w_scale, eid, m_live, out, workspace, M, N, K, G, block_m, bm, splits,
+# stream
+_FP8_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _dequant_w_fp8_block(w_fp8, w_scale, block: int = FP8_BLOCK):
+    """[K, N] fp8 + [ceil(K/b), ceil(N/b)] f32 -> bf16 [K, N]: each value
+    times its block's scale in f32, rounded once to bf16 (zero-padded to
+    block multiples, as the JAX package pads)."""
+    k, n = w_fp8.shape
+    sk, sn = w_scale.shape
+    w = torch.zeros((sk * block, sn * block), dtype=torch.float32, device=w_fp8.device)
+    w[:k, :n] = w_fp8.float()
+    w = w.reshape(sk, block, sn, block) * w_scale.float()[:, None, :, None]
+    return w.reshape(sk * block, sn * block)[:k, :n].to(torch.bfloat16)
+
+
+def mm_wfp8a16_ref(x, w_fp8, w_scale, block: int = FP8_BLOCK):
+    """Plain version of K21: bf16 x [M, K] times fp8 w [K, N] with f32
+    scales [ceil(K/128), ceil(N/128)] -> bf16 [M, N], in the TPU kernel's
+    block order: the bf16 weights of each 128-row K block, an f32 product
+    per block, the partial sums added in f32 across K blocks."""
+    w = _dequant_w_fp8_block(w_fp8, w_scale, block).float()
+    xf = x.to(torch.bfloat16).float()
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32, device=x.device)
+    for k0 in range(0, w.shape[0], block):
+        acc += xf[:, k0:k0 + block] @ w[k0:k0 + block]
+    return acc.to(torch.bfloat16)
+
+
+def mm_wfp8a16(x, w_fp8, w_scale, block: int = FP8_BLOCK):
+    """Soft-FP8 GEMM: bf16 x [M, K] times fp8 e4m3 w [K, N] with f32 scales
+    per 128 x 128 block [ceil(K/128), ceil(N/128)] -> bf16 [M, N].
+
+    The JAX package takes its Pallas kernel (mm_wfp8a16_pallas) for K and N
+    multiples of 128, its reference otherwise. On the card the port launches
+    K21 for every shape (it zero-pads a ragged K or N inside the tile, as
+    _dequant_w_fp8_block pads), counted under "wfp8a16_gemm"; on the CPU,
+    mm_wfp8a16_ref."""
+    if use_kernel(x):
+        return _wfp8a16_gemm(x, w_fp8[None], w_scale[None], None, 0, block)
+    return mm_wfp8a16_ref(x, w_fp8, w_scale, block)
+
+
+def gmm_wfp8a16_ref(x, w_fp8, w_scale, group_list, block: int = FP8_BLOCK):
+    """Grouped soft-FP8 GEMM over group sizes (the JAX package's ragged
+    reference): x [S, K], w [G, K, N] fp8, scales [G, K/128, N/128],
+    group_list [G] row counts; group g's rows follow those of groups < g
+    and take w[g]; rows past sum(group_list) give zeros. mm_wfp8a16_ref per
+    group; it reads the counts on the host."""
+    s = x.shape[0]
+    out = torch.zeros((s, w_fp8.shape[2]), dtype=torch.bfloat16, device=x.device)
+    start = 0
+    for g, end in enumerate(torch.cumsum(group_list.long(), 0).tolist()):
+        end = min(end, s)
+        if end > start:
+            out[start:end] = mm_wfp8a16_ref(x[start:end], w_fp8[g], w_scale[g], block)
+        start = max(start, end)
+    return out
+
+
+def gmm_wfp8a16_aligned_ref(x, w_fp8, w_scale, expert_per_mtile, block: int = FP8_BLOCK,
+                            block_m: int = 128):
+    """Plain version of K21's grouped contract: row tile i (block_m rows)
+    times expert expert_per_mtile[i] (clamped to [0, G), as the kernel
+    clamps it), through mm_wfp8a16_ref, one product per expert."""
+    g_count, _, n = w_fp8.shape
+    eid = expert_per_mtile.long().clamp(0, g_count - 1)
+    out = torch.empty((x.shape[0], n), dtype=torch.bfloat16, device=x.device)
+    lanes = torch.arange(block_m, device=x.device)
+    for e in torch.unique(eid).tolist():
+        rows = ((eid == e).nonzero()[:, 0, None] * block_m + lanes).reshape(-1)
+        out[rows] = mm_wfp8a16_ref(x[rows], w_fp8[e], w_scale[e], block)
+    return out
+
+
+def gmm_wfp8a16_aligned(x, w_fp8, w_scale, expert_per_mtile, block: int = FP8_BLOCK,
+                        block_m: int = 128):
+    """The contract of the JAX package's gmm_wfp8a16_pallas_aligned: every
+    block_m-row tile of x [M, K] bf16 (M % block_m == 0) takes the weights
+    of expert expert_per_mtile[i] of w [G, K, N] fp8 with scales [G,
+    ceil(K/128), ceil(N/128)] f32 -> bf16 [M, N]. K21 on the card (block_m
+    a multiple of 32; any K and N), counted under "wfp8a16_gemm_grouped";
+    gmm_wfp8a16_aligned_ref on the CPU."""
+    m = x.shape[0]
+    if block_m <= 0 or m % block_m or expert_per_mtile.shape != (m // block_m,):
+        raise ValueError(f"gmm_wfp8a16_aligned: M={m} needs block_m={block_m} tiles and "
+                         f"one expert id each, got {tuple(expert_per_mtile.shape)}")
+    if use_kernel(x):
+        return _wfp8a16_gemm(x, w_fp8, w_scale, expert_per_mtile, block_m, block)
+    return gmm_wfp8a16_aligned_ref(x, w_fp8, w_scale, expert_per_mtile, block, block_m)
+
+
+def gmm_wfp8a16(x, w_fp8, w_scale, group_list, block: int = FP8_BLOCK, block_m: int = 128):
+    """Grouped soft-FP8 GEMM over group sizes, as gmm_wfp8a16_ref, through
+    the aligned compaction of the JAX package's gmm_wfp8a16 with no host
+    sync: each group's rows move to a block_m-aligned run of a zeroed
+    [mpad, K] buffer (mpad the static bound G*block_m + ceil(S/block_m)*
+    block_m), gmm_wfp8a16_aligned runs on the per-tile expert map, and the
+    rows are gathered back. Rows past sum(group_list) are dropped from the
+    buffer and give zeros, as gmm_wfp8a16_ref gives (the JAX Pallas tier
+    gives them expert G-1's product). The tiles past the last group's are
+    written as zeros on the card without reading weights."""
+    s, k = x.shape
+    g_count = w_fp8.shape[0]
+    dev = x.device
+    sizes = group_list.to(device=dev, dtype=torch.long)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    offsets = torch.cat([zero, torch.cumsum(sizes, 0)])
+    aligned = torch.div(sizes + block_m - 1, block_m, rounding_mode="floor") * block_m
+    a_off = torch.cat([zero, torch.cumsum(aligned, 0)])
+    mpad = g_count * block_m + cdiv(s, block_m) * block_m
+    r = torch.arange(s, device=dev)
+    row_e = torch.searchsorted(offsets[1:], r, right=True).clamp(0, g_count - 1)
+    keep = r < offsets[-1]
+    slot = (a_off[row_e] + r - offsets[row_e]).clamp(0, mpad - 1)
+    xp = torch.zeros((mpad, k), dtype=torch.bfloat16, device=dev)
+    index_copy_kept_(xp, slot, x.to(torch.bfloat16), keep)
+    starts = torch.arange(mpad // block_m, device=dev) * block_m
+    tile_e = torch.searchsorted(a_off[1:], starts, right=True).clamp(0, g_count - 1)
+    tile_e = tile_e.to(torch.int32)
+    if use_kernel(x):
+        live = a_off[-1:].to(torch.int32)
+        yp = _wfp8a16_gemm(xp, w_fp8, w_scale, tile_e, block_m, block, m_live=live)
+    else:
+        yp = gmm_wfp8a16_aligned_ref(xp, w_fp8, w_scale, tile_e, block, block_m)
+    return torch.where(keep[:, None], yp[slot], 0.0).to(torch.bfloat16)
+
+
+def _wfp8a16_tiling(m, n, k, grouped_block_m, device):
+    """K21's row tile (128 from M 96 up, where a 128-row tile fits the
+    expert map, else 32) and its split of K: over as many blocks as fill the
+    card's SMs once, at least 256 of K each (the split sums are f32 partials
+    added in a fixed order)."""
+    bm = 128 if m >= 96 and grouped_block_m % 128 == 0 else 32
+    tiles = cdiv(m, bm) * cdiv(n, 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bm, max(1, min(cdiv(sms, tiles), cdiv(k, 256)))
+
+
+def _wfp8a16_gemm(x, w, ws, eid, block_m, block, m_live=None):
+    """Launch K21: x [M, K] bf16 times bank w [G, K, N] fp8 e4m3 with scales
+    ws [G, ceil(K/128), ceil(N/128)] f32; row tile i of block_m rows takes
+    expert eid[i] (eid None: expert 0 for every row, the dense export).
+    m_live: an optional 1-element int32 tensor; tiles from that row on are
+    written as zeros. Counted under "wfp8a16_gemm" (dense) or
+    "wfp8a16_gemm_grouped"."""
+    name = "wfp8a16_gemm" if eid is None else "wfp8a16_gemm_grouped"
+    m, k = x.shape
+    g_count, k2, n = w.shape
+    if block != FP8_BLOCK:
+        raise ValueError(f"{name}: scale blocks of {FP8_BLOCK} only, not {block}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.float8_e4m3fn:
+        raise TypeError(f"{name} takes bf16 x and float8_e4m3fn w, got {x.dtype}, {w.dtype}")
+    if ws.dtype != torch.float32:
+        raise TypeError(f"{name}: f32 scales expected, got {ws.dtype}")
+    if k2 != k or ws.shape != (g_count, cdiv(k, block), cdiv(n, block)):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, scales "
+                         f"{tuple(ws.shape)} do not match")
+    if eid is not None and (block_m % 32 or eid.dtype != torch.int32):
+        raise ValueError(f"{name}: needs block_m % 32 == 0 and an int32 expert map")
+    dev = x.device
+    extra = [t for t in (eid, m_live) if t is not None]
+    _build.check_operands(name, dev, x, w, ws, *extra)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    if m == 0 or n == 0:
+        return out
+    bm, splits = _wfp8a16_tiling(m, n, k, block_m if eid is not None else 128, dev)
+    work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1
+            else None)
+    fn = _build.launcher(name, _FP8_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = fn(x.data_ptr(), w.data_ptr(), ws.data_ptr(),
+              None if eid is None else eid.data_ptr(),
+              None if m_live is None else m_live.data_ptr(), out.data_ptr(),
+              None if work is None else work.data_ptr(),
+              m, n, k, g_count, block_m if eid is not None else m, bm, splits, stream)
+    _build.check(name, code)
+    _build.launches[name] += 1
+    return out
