@@ -9,7 +9,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
 1. Holds every kernel against its plain PyTorch version on the card at the
    shapes of its main path: the Llama serving path's A-D (Llama-3-8B, decode
    batch 8), the Llama bench path's K1-K4 (batch 128, 512-token tm2 pages,
-   pretiled banks), the two contracts that reuse A and C (matmul.py:71 at
+   pretiled banks; B also at the engine's largest call, 256 tokens over a
+   512-token prefix, and at prefixes 200, 63, 64, 0 with an empty chunk,
+   one launch per call), the two contracts that reuse A and C (matmul.py:71 at
    L = 1, decode_v8.py:388), and the MLA paths' kernels at DeepSeek-V2-Lite
    width: K2 in its per_tensor mode, K5 (int8 and bf16 latent rows), K6 and
    K7; and the Qwen3-Next bench path's kernels at its shapes: K8 (the
@@ -32,7 +34,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    five contracts (v3 decode bf16 / int8, current token in the cache or
    deferred; int8 head-major decode) at the bench shape; and the
    `attentions` surface's kernels: K17 (laser attention at Llama-3-8B's
-   heads, B 1: causal T 8192, not causal T 4096, causal T 8000), K18 (the
+   heads, B 1: causal T 8192, not causal T 4096, causal T 8000; held, not
+   timed, at T 96 and 1000, causal and not), K18 (the
    sparse-block estimator's scores at [1, 8, 8192, 128] and bench_ops.py's
    [4, 16, 4096, 128], blocks of 128; the keep-0.25 masks equal), K19 (top-k
    block-sparse decode at bench_ops.py's shape, B 64, H 16, D = Dv = 128, and
@@ -62,7 +65,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    operations.
 2. Serves 8 greedy requests through LlamaEngine at Llama-3-8B width (int8 KV,
    seed-0 random weights) with all launch counters set to 0 first, checks
-   the tokens, the logits, the scheduler and that kernels A-D launched, and
+   the tokens, the logits, the scheduler and every call's launches (prefill
+   A 128, B 32, D 1, A at L = 1 1; decode A 128, C 32, D 1, A at L = 1 1), and
    serves them again to check that the tokens repeat.
 3. Runs small configurations on the card and on the CPU (plain versions)
    and compares logits and caches: Llama prefill and decode on tm pages,
@@ -418,61 +422,86 @@ def check_decode(torch, dv9, dv8, cfg, rng):
     return row, dict(row, ms=ms8, plain_ms=plain8, max_abs_err=err8)
 
 
+# kernel B's cases (prefix lens, valid lens, T): phase 1's bucket of two
+# chunks; the engine's largest call, a 256-token chunk (its token_budget)
+# over a 512-token prefix; prefixes off the 64-key tile and an empty chunk
+PREFILL_CASES = (((0, 256), (256, 200), 256), ((512,), (256,), 256),
+                 ((200, 63, 64, 0), (256, 1, 37, 0), 256))
+PREFILL_TIMED = 2          # the first two cases are timed
+
+
 def check_prefill(torch, pp, cfg, rng):
-    """Kernel B: 2 chunks of a 256-token bucket, prefixes 0 and 256."""
+    """Kernel B at PREFILL_CASES, every row (padded ones too) within ATTN_TOL
+    of the plain version, exactly one launch per call. Returns the rows of
+    the timed cases."""
     hq, hkv, d, ps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
-    s, t, pages, mp, layers, li = 2, 256, 512, 64, 2, 1
+    pages, mp, layers, li = 512, 64, 2, 1
     kc, vc, ks, vs = _tm_cache(torch, rng, layers, pages, ps, hkv, d)
-    plen = torch.tensor([0, 256], dtype=torch.int32, device="cuda")
-    vlen = torch.tensor([256, 200], dtype=torch.int32, device="cuda")
-    bt = _block_tables(torch, rng, (plen + vlen).tolist(), mp, pages, ps)
-    q = torch.randn((s, t, hq, d), generator=rng, device="cuda").to(torch.bfloat16)
-    ck = torch.randn((s, t, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
-    cv = torch.randn((s, t, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
     sm = d ** -0.5
-    args = (q, ck, cv, kc, vc, ks, vs, bt, plen, vlen, sm, ps)
-    out = pp.paged_prefill_attention_tm(*args, layer_idx=li)
-    ref = pp.paged_prefill_attention_tm_ref(*args, layer_idx=li)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not err <= ATTN_TOL:
-        raise AssertionError(f"prefill_tm max-abs {err} > {ATTN_TOL}")
-    ms = _time_ms(lambda: pp.paged_prefill_attention_tm(*args, layer_idx=li), 20, graph=True)
-    plain = _time_ms(lambda: pp.paged_prefill_attention_tm_ref(*args, layer_idx=li), 3)
+    rows = []
+    for n, (plens, vlens, t) in enumerate(PREFILL_CASES):
+        # the later cases draw from their own seeds: rng's stream stays as it was
+        gen = rng if n == 0 else torch.Generator(device="cuda").manual_seed(400 + n)
+        s = len(plens)
+        plen = torch.tensor(plens, dtype=torch.int32, device="cuda")
+        vlen = torch.tensor(vlens, dtype=torch.int32, device="cuda")
+        bt = _block_tables(torch, gen, (plen + vlen).tolist(), mp, pages, ps)
+        q = torch.randn((s, t, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        ck = torch.randn((s, t, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        cv = torch.randn((s, t, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        args = (q, ck, cv, kc, vc, ks, vs, bt, plen, vlen, sm, ps)
+        calls = _Launches(pp._build)
+        out = pp.paged_prefill_attention_tm(*args, layer_idx=li)
+        launched = {k: v for k, v in calls.delta().items() if v}
+        if launched != {"prefill_tm": 1}:
+            raise AssertionError(f"prefill_tm call launched {launched}")
+        ref = pp.paged_prefill_attention_tm_ref(*args, layer_idx=li)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        label = f"prefill_tm S={s} T={t} prefix={list(plens)} valid={list(vlens)}"
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"{label}: max-abs {err} > {ATTN_TOL}")
+        if n >= PREFILL_TIMED:
+            print(f"  {label}: max-abs {err:.3g}, launches prefill_tm 1")
+            continue
+        ms = _time_ms(lambda: pp.paged_prefill_attention_tm(*args, layer_idx=li), 20,
+                      graph=True)
+        plain = _time_ms(lambda: pp.paged_prefill_attention_tm_ref(*args, layer_idx=li), 3)
 
-    # yardstick: SDPA over the dequantized prefix + chunk with the same mask
-    from sgl_kernel_npu_tpu_torch.ops.attention.decode_v9 import _gather_layer
-    npre = int(plen.max())
-    kd, ksd = _gather_layer(kc, ks, li, bt, hkv)
-    vd, vsd = _gather_layer(vc, vs, li, bt, hkv)
-    kf = torch.cat([(kd[:, :, :npre].float() * ksd[:, :, :npre, None]).to(torch.bfloat16),
-                    ck.permute(0, 2, 1, 3)], dim=2)
-    vf = torch.cat([(vd[:, :, :npre].float() * vsd[:, :, :npre, None]).to(torch.bfloat16),
-                    cv.permute(0, 2, 1, 3)], dim=2)
-    g = hq // hkv
-    kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
-    col = torch.arange(npre + t, device="cuda")
-    row = torch.arange(t, device="cuda")
-    pre = col[None, None, :] < plen[:, None, None]
-    chunk = ((col[None, None, :] - npre <= row[None, :, None])
-             & (col[None, None, :] - npre < vlen[:, None, None])
-             & (col[None, None, :] >= npre))
-    mask = (pre | chunk)[:, None]
-    qs = q.permute(0, 2, 1, 3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20, graph=True)
+        # yardstick: SDPA over the dequantized prefix + chunk with the same mask
+        from sgl_kernel_npu_tpu_torch.ops.attention.decode_v9 import _gather_layer
+        npre = int(plen.max())
+        kd, ksd = _gather_layer(kc, ks, li, bt, hkv)
+        vd, vsd = _gather_layer(vc, vs, li, bt, hkv)
+        kf = torch.cat([(kd[:, :, :npre].float() * ksd[:, :, :npre, None]).to(torch.bfloat16),
+                        ck.permute(0, 2, 1, 3)], dim=2)
+        vf = torch.cat([(vd[:, :, :npre].float() * vsd[:, :, :npre, None]).to(torch.bfloat16),
+                        cv.permute(0, 2, 1, 3)], dim=2)
+        g = hq // hkv
+        kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+        col = torch.arange(npre + t, device="cuda")
+        row = torch.arange(t, device="cuda")
+        pre = col[None, None, :] < plen[:, None, None]
+        chunk = ((col[None, None, :] - npre <= row[None, :, None])
+                 & (col[None, None, :] - npre < vlen[:, None, None])
+                 & (col[None, None, :] >= npre))
+        mask = (pre | chunk)[:, None]
+        qs = q.permute(0, 2, 1, 3)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20, graph=True)
 
-    pairs = sum(int(vlen[i]) * int(plen[i]) + int(vlen[i]) * (int(vlen[i]) + 1) // 2
-                for i in range(s))
-    pre_tok = int(plen.sum())
-    nbytes = (2 * s * t * hq * d * 2 + 2 * s * t * hkv * d * 2
-              + pre_tok * hkv * (2 * d + 8) + 4 * s * (mp + 2))
-    bound, by = _bound_ms(nbytes, 4.0 * pairs * hq * d, "bf16_flops")
-    print(f"  prefill_tm S=2 T=256 prefix=[0,256] valid=[256,200]: max-abs {err:.3g}; "
-          f"kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound "
-          f"{bound:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+        pairs = sum(int(vlen[i]) * int(plen[i]) + int(vlen[i]) * (int(vlen[i]) + 1) // 2
+                    for i in range(s))
+        pre_tok = int(plen.sum())
+        nbytes = (2 * s * t * hq * d * 2 + 2 * s * t * hkv * d * 2
+                  + pre_tok * hkv * (2 * d + 8) + 4 * s * (mp + 2))
+        bound, by = _bound_ms(nbytes, 4.0 * pairs * hq * d, "bf16_flops")
+        print(f"  {label}: max-abs {err:.3g}, launches prefill_tm 1; kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=err))
+        del kd, vd, kf, vf, mask
+    return rows
 
 
 def check_append(torch, dv8, cfg, rng):
@@ -1882,6 +1911,11 @@ def _leaves_cpu(kv):
 
 # the kernels of phase 2's serving path
 SERVING_KERNELS = ("w8a8_gemm", "w8a8_gemm_l1", "prefill_tm", "decode_tm", "append_tm")
+# launches of every LlamaEngine call at Llama-3-8B's 32 layers (tm pages)
+LLAMA_SERVING = {"prefill": {"w8a8_gemm": 128, "prefill_tm": 32, "append_tm": 1,
+                             "w8a8_gemm_l1": 1},
+                 "decode": {"w8a8_gemm": 128, "decode_tm": 32, "append_tm": 1,
+                            "w8a8_gemm_l1": 1}}
 BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS = 128, 256, 32, 3
 # launches of one tm2 decode step at Llama-3-8B's 32 layers
 PER_STEP = {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64, "decode_tm2": 32, "append_tm2": 1}
@@ -3108,6 +3142,8 @@ def run_moe_bench_path(torch, par, build, data, gpu):
 # latent rows (bench.py:281-284) for the top-k decode and the estimator
 ATT_HQ, ATT_HKV, ATT_D = 32, 8, 128
 LASER_CASES = ((8192, True), (4096, False), (8000, True))   # (T, causal)
+# shorter than and ragged against K17's 128-row tiles: held, not timed
+LASER_EDGE_CASES = ((96, True), (96, False), (1000, True), (1000, False))
 EST_SHAPES = ((1, 8, 8192), (4, 16, 4096))                   # (B, H, T) at D 128
 EST_BLOCK = 128
 TOPK_SHAPES = (("bench_ops", 64, 128, 128, 512), ("latent", 128, 576, 512, 4096))
@@ -3169,6 +3205,18 @@ def check_laser(torch, pf):
         rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound,
                          bound_by=by, max_abs_err=err))
         del q, k, v, out, ref
+    for i, (t, causal) in enumerate(LASER_EDGE_CASES):
+        q, k, v = _laser_inputs(torch, t, 180 + i)
+        calls = _Launches(pf._build)
+        out = pf.laser_attention(q, k, v, sm, causal)
+        launched = {k_: n for k_, n in calls.delta().items() if n}
+        if launched != {"laser_attention": 1}:
+            raise AssertionError(f"laser_attention T={t}: launched {launched}")
+        ref = pf.laser_attention_blocked_ref(q, k, v, sm, causal)
+        torch.cuda.synchronize()
+        err, ratio = _bf16_check(f"laser_attention T={t} causal={causal}", out, ref, ATT_SHARE)
+        print(f"  laser_attention B=1 Hq={ATT_HQ} Hkv={ATT_HKV} T={t} causal={causal}: max-abs "
+              f"{err:.3g} ({ratio:.3g} of its bound), launches laser_attention 1")
     return rows
 
 
@@ -4155,7 +4203,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["dec"], rows["v8"] = check_decode(torch, decode_v9, decode_v8, cfg, rng)
     torch.cuda.empty_cache()
-    rows["pre"] = check_prefill(torch, paged_prefill_tm, cfg, rng)
+    rows["pre"], rows["pre512"] = check_prefill(torch, paged_prefill_tm, cfg, rng)
     torch.cuda.empty_cache()
     rows["app"] = check_append(torch, decode_v8, cfg, rng)
     torch.cuda.empty_cache()
@@ -4221,7 +4269,8 @@ def main() -> int:
     new_tokens = 16
     _build.reset_launches()
     outs, st, wall, reused, launches = run_engine(
-        torch, serving, _build, cfg, params, prompts, late, new_tokens, profile=True)
+        torch, serving, _build, cfg, params, prompts, late, new_tokens, profile=True,
+        expect=LLAMA_SERVING)
     if any(len(o) != new_tokens for o in outs):
         raise AssertionError(f"token counts {[len(o) for o in outs]}")
     if reused != 256:
@@ -4230,7 +4279,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     outs2 = run_engine(torch, serving, _build, cfg, params, prompts, late,
-                       new_tokens)[0]
+                       new_tokens, expect=LLAMA_SERVING)[0]
     if outs2 != outs:
         raise AssertionError("a second run from the same seed gave other tokens")
     print(f"  {len(outs)} requests (lengths {[len(p) for p in prompts + [late]]}), "
@@ -4241,8 +4290,8 @@ def main() -> int:
           f"{st['decode_s']:.3f} s -> {st['decode_tok'] / st['decode_s']:.1f} decode tok/s, "
           f"{1e3 * st['decode_s'] / st['decode_steps']:.2f} ms/decode step; "
           f"wall {wall:.2f} s [{gpu}]")
-    print(f"  launches in the run: {launches}; per prefill call {st['per_prefill']}; "
-          f"per decode call {st['per_decode']}")
+    print(f"  launches in the run: {launches}; every prefill call exactly "
+          f"{LLAMA_SERVING['prefill']}, every decode call exactly {LLAMA_SERVING['decode']}")
     # lm_head goes through quant_matmul_int8 (kernel A, L = 1) once per call
     if launches["w8a8_gemm_l1"] != st["prefill_steps"] + st["decode_steps"]:
         raise AssertionError(f"quant_matmul_int8 launched {launches['w8a8_gemm_l1']} times "
@@ -4352,6 +4401,9 @@ def main() -> int:
         dict(name="prefill_tm", route="cuda", source=f"{src}/prefill_tm.cu",
              replaces=f"{base}/ops/attention/paged_prefill_tm.py:133",
              launches=launches["prefill_tm"], **rows["pre"]),
+        dict(name="prefill_tm (prefix 512)", route="cuda", source=f"{src}/prefill_tm.cu",
+             replaces=f"{base}/ops/attention/paged_prefill_tm.py:133",
+             launches=launches["prefill_tm"], **rows["pre512"]),
         dict(name="decode_tm", route="cuda", source=f"{src}/decode_tm.cu",
              replaces=f"{base}/ops/attention/decode_v9.py:163",
              launches=launches["decode_tm"], **rows["dec"]),
@@ -4472,7 +4524,9 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print("w8a8_gemm row: sum of the four M=8 decode GEMMs on stacked banks (wqkv, wo, "
           "w13, w2); w8a8_gemm_tiled row: sum of wo, w2 and lm_head at M=128; rmsq_gemm "
-          "row: sum of wqkv and w13 at M=128 (library: the GEMM part alone); launches of "
+          "row: sum of wqkv and w13 at M=128 (library: the GEMM part alone); prefill_tm rows "
+          "(B): phase 1's bucket and the engine's largest call (256 tokens over 512), "
+          "launches of both every prefill call's of phase 2; launches of "
           "A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
           "K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract is on no main "
           "path; rmsq_gemm (per_tensor) row: sum of wdqkv and wuq at M=128, launches of it, "

@@ -12,244 +12,447 @@
 // prefill.py's fault at a T that is not a multiple of its block);
 // m = max(m, rowmax(s)), alpha = exp(m_old - m), p = exp(s - m),
 // l = l * alpha + rowsum(p) over the f32 p, acc = acc * alpha + p . v;
-// out = acc / max(l, 1e-37) in bf16.
-// The score dot runs on bf16 tensor cores (mma.sync m16n8k16, f32
-// accumulation): bf16 x bf16 products are exact in f32, so it differs from an
-// f32 dot only in the order of the sums. P . V keeps p in f32 to 16 bits: p
-// is split into hi = bf16(p) and lo = bf16(p - hi), and P . V = hi . V +
-// lo . V, two MMAs with f32 accumulation (|p - hi - lo| <= 2^-16 p). Against
-// the plain version (ops/attention/prefill.py::laser_attention_blocked_ref,
-// all f32 in blocks of 256) the output differs by that and the order of f32
-// sums: within one bf16 ulp plus 1e-4 of max|out|.
+// out = acc / max(l, 1e-37) in bf16. The kernel takes the scores in base 2
+// (s * sm_scale * log2(e), then exp2), the same function up to f32 rounding.
+// The score product runs on bf16 tensor cores with f32 accumulation: bf16 x
+// bf16 products are exact in f32, so it differs from an f32 dot only in the
+// order of the sums. P . V keeps p in f32 to 16 bits: p is split into hi =
+// bf16(p) and lo = bf16(p - hi), and P . V = hi . V + lo . V, two MMAs with f32
+// accumulation (|p - hi - lo| <= 2^-16 p). Against the plain version
+// (ops/attention/prefill.py::laser_attention_blocked_ref, all f32 in blocks
+// of 256) the output differs by that and the order of f32 sums: within one
+// bf16 ulp plus 1e-4 of max|out|.
 //
 // Bound on an H100: operations, 4 * D per (query row, visible key) per head:
 // 5.50e11 at T = 8192 causal with 32 query heads, 0.556 ms at the bf16
-// tensor-core rate (8.2 ms at the f32 rate); K17 spends 1.5 times that in
-// MMAs (the split P . V). Design: FlashAttention-2's; a block of 4 warps takes
-// 64 query rows of one head (16 a warp, q fragments in registers), walks the
-// kv tiles of 64 up to the causal diagonal, K and V double-buffered in shared
-// memory by cp.async (rows past T zero-filled); S and the P fragments stay in
-// registers (the S accumulator layout is the A-fragment layout of P . V).
+// tensor-core rate; K17 spends 1.5 times that in MMAs (the split P . V).
+// Design, the shape Hopper's tensor cores want: a block takes 128 query rows
+// of one head; one producer thread streams Q once and K and V tiles of 128
+// rows through a ring of two shared-memory stages by TMA (a 3-D tensor map
+// [B*H, T, 128], so rows >= T arrive as zeros, never as the next head's;
+// 128-byte swizzle, two 64-column boxes a tile), each completed on an
+// mbarrier. Two consumer warpgroups of 64 query rows run S = Q . K^T as
+// wgmma with both operands in shared memory, mask (only on the diagonal or
+// ragged tile), softmax in registers with quad shuffles, then O += P . V as
+// wgmma with P from registers and V the MN-major operand (transposed by the
+// instruction), and free the stage on an mbarrier. The two warpgroups take
+// turns at the tensor cores (named barriers): a turn issues P . V of tile
+// j - 1 and S of tile j, so one warpgroup's softmax runs while the other's
+// MMAs do. setmaxnreg moves the producer's registers to the consumers.
 // Causal grids start with the longest (last) query tiles.
 
-#include <cuda_runtime.h>
+#include <cuda.h>              // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int D = 128;
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // kv columns per tile
-constexpr int THREADS = 128;           // 4 warps x 16 rows
-constexpr int LDS = D + 8;             // shared row stride (bf16): 272 bytes
+constexpr int BM = 128;                // query rows per block: two warpgroups of 64
+constexpr int BN = 128;                // kv rows per tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;           // producer warpgroup + two consumer warpgroups
+constexpr int HALF = 64;               // bf16 columns of one 128-byte swizzle atom
+constexpr uint32_t ROW_BYTES = 128;    // one row of a 64-column half
+constexpr uint32_t Q_BYTES = BM * D * 2;
+constexpr uint32_t KV_BYTES = BN * D * 2;
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = full ? 16 : 0;         // 0: read nothing, fill zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+struct alignas(1024) Smem {
+  __nv_bfloat16 q[2][BM * HALF];               // [half][row][64], swizzled rows
+  __nv_bfloat16 k[STAGES][2][BN * HALF];
+  __nv_bfloat16 v[STAGES][2][BN * HALF];
+  uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
+};
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
+__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t addr = smem_u32(b);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 3-D tensor map into shared memory, completed on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
-__device__ __forceinline__ unsigned pack(float lo_col, float hi_col) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<const unsigned*>(&v);
+// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets lbo / sbo
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving register reads or writes across an
+// asynchronous wgmma (it sees only the asm statement that issued it)
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define SKT_ACC64                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define SKT_OUT64(d)                                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),       \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),    \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),    \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),    \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),    \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),    \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128, f32) = or += A (64 x 16, shared, K-major) . B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SKT_ACC64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SKT_OUT64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SKT_ACC64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SKT_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // the hi and lo bf16 parts of two f32 values, packed as an A-fragment register
-__device__ __forceinline__ void split(float x, float y, unsigned& hi, unsigned& lo) {
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack(x - hf.x, y - hf.y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// rows r0 .. r0 + 63 of a [T, D] matrix into shared [64][LDS]; rows >= T zero
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, int r0,
-                                          int T) {
-  for (int e = threadIdx.x; e < 64 * (D / 8); e += THREADS) {
-    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-    const bool in = r0 + r < T;
-    cp_async16(s + r * LDS + c, in ? g + (size_t)(r0 + r) * D + c : g, in);
+// named barriers 1 and 2 order the two consumer warpgroups' MMA turns
+__device__ __forceinline__ void turn_wait(int bar) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int bar) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(bar) : "memory");
+}
+
+// s (64 x 128) = Q (this warpgroup's 64 rows) . K^T of one stage, issued
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t qa, uint32_t kb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(sc, sw128_desc(qa + (kk / 4) * (BM * ROW_BYTES) + (kk % 4) * 32, 16, 1024),
+             sw128_desc(kb + (kk / 4) * (BN * ROW_BYTES) + (kk % 4) * 32, 16, 1024), kk > 0);
+}
+
+// o += P . V of one stage, P as its hi and lo parts, issued. V is the
+// MN-major B operand: 64-column halves BN rows apart, 8-row groups 1 KB apart.
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&ph)[8][4],
+                                         const uint32_t (&pl)[8][4], uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t vd = sw128_desc(vb + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024);
+    wgmma_rs(o, ph[kk], vd);
+    wgmma_rs(o, pl[kk], vd);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-laser_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Hq,
-             int Hkv, int T, int causal, float sm_scale) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* qs = smem;                       // [BQ][LDS]
-  __nv_bfloat16* ks = qs + BQ * LDS;              // [2][BK][LDS]
-  __nv_bfloat16* vs = ks + 2 * BK * LDS;          // [2][BK][LDS]
-  const int nqt = gridDim.x;
-  const int qt = causal ? nqt - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * BQ;
-  const __nv_bfloat16* qg = q + ((size_t)b * Hq + h) * T * D;
-  const __nv_bfloat16* kg = k + ((size_t)b * Hkv + hk) * T * D;
-  const __nv_bfloat16* vg = v + ((size_t)b * Hkv + hk) * T * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int nkt_all = (T + BK - 1) / BK;
-  const int nkt = causal ? min(nkt_all, (q0 + BQ - 1) / BK + 1) : nkt_all;
-
-  load_tile(qs, qg, q0, T);
-  load_tile(ks, kg, 0, T);
-  load_tile(vs, vg, 0, T);
-  cp_commit();
-
-  unsigned qa[D / 16][4];
-  float o[D / 8][4];
+// The online softmax of one tile of scores (base 2): mask where `edge`,
+// update m and this thread's part of l, rescale o, and leave p as the hi and
+// lo A fragments of P . V: for keys 16 kk .., (row g, keys 2t), (row g+8,
+// 2t), (g, 2t+8), (g+8, 2t+8).
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&o)[64], float (&m)[2],
+                                             float (&l)[2], uint32_t (&ph)[8][4],
+                                             uint32_t (&pl)[8][4], bool edge, int c0, int row0,
+                                             int tig, int T, int causal, float scale_log2) {
+  if (edge) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  const int row0 = q0 + warp * 16 + g;            // this thread's rows: row0, row0 + 8
-
-  for (int j = 0; j < nkt; ++j) {
-    if (j + 1 < nkt) {
-      const int nb = (j + 1) & 1;
-      load_tile(ks + nb * BK * LDS, kg, (j + 1) * BK, T);
-      load_tile(vs + nb * BK * LDS, vg, (j + 1) * BK, T);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+    for (int i = 0; i < 64; ++i) {
+      const int col = c0 + (i / 4) * 8 + 2 * tig + (i & 1);
+      const int row = row0 + ((i >> 1) & 1) * 8;
+      const bool keep = col < T && (!causal || row >= col);
+      sc[i] = keep ? sc[i] * scale_log2 : NEG;
     }
-    __syncthreads();
-    if (j == 0) {
+  } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int mi = lane / 8;
-        ldsm_x4(qa[kk], qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * LDS + kk * 16 +
-                            (mi >> 1) * 8);
+    for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+  }
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) p[e] = ex2(sc[8 * kk + e] - m[(e >> 1) & 1]);
+    ps[0] += p[0] + p[1] + p[4] + p[5];
+    ps[1] += p[2] + p[3] + p[6] + p[7];
+    split(p[0], p[1], ph[kk][0], pl[kk][0]);
+    split(p[2], p[3], ph[kk][1], pl[kk][1]);
+    split(p[4], p[5], ph[kk][2], pl[kk][2]);
+    split(p[6], p[7], ph[kk][3], pl[kk][3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    o[4 * n] *= alpha[0];
+    o[4 * n + 1] *= alpha[0];
+    o[4 * n + 2] *= alpha[1];
+    o[4 * n + 3] *= alpha[1];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int Hq,
+             int Hkv, int T, int causal, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                      ~static_cast<uintptr_t>(1023));
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BM;
+  const int nkt_all = (T + BN - 1) / BN;
+  const int nkt = causal ? min(nkt_all, qt + 1) : nkt_all;   // BM == BN: qt is the diagonal
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 8);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const int qh = b * Hq + h, kh = b * Hkv + h / (Hq / Hkv);
+      mbar_expect_tx(&sm.q_full, Q_BYTES);
+      tma_load(sm.q[0], &qmap, &sm.q_full, 0, q0, qh);
+      tma_load(sm.q[1], &qmap, &sm.q_full, HALF, q0, qh);
+      for (int j = 0; j < nkt; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&sm.empty[s], ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(&sm.k_full[s], KV_BYTES);
+        tma_load(sm.k[s][0], &kmap, &sm.k_full[s], 0, j * BN, kh);
+        tma_load(sm.k[s][1], &kmap, &sm.k_full[s], HALF, j * BN, kh);
+        mbar_expect_tx(&sm.v_full[s], KV_BYTES);
+        tma_load(sm.v[s][0], &vmap, &sm.v_full[s], 0, j * BN, kh);
+        tma_load(sm.v[s][1], &vmap, &sm.v_full[s], HALF, j * BN, kh);
       }
     }
-    const __nv_bfloat16* kt = ks + (j & 1) * BK * LDS;
-    const __nv_bfloat16* vt = vs + (j & 1) * BK * LDS;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // Consumers. A turn issues P . V of tile j - 1 and S of tile j; the two
+    // warpgroups take turns, so one's softmax runs under the other's MMAs.
+    const int cw = wg - 1;                       // rows q0 + 64 cw .. + 63
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int tig = lane & 3;
+    const int row0 = q0 + cw * 64 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
+    const int mine = 1 + cw, other = 2 - cw;
 
-    float s[BK / 8][4];
+    float o[64], sc[64];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; kk += 2) {
-        unsigned r[4];
-        ldsm_x4(r, kt + (n * 8 + lane % 8) * LDS + kk * 16 + (lane / 8) * 8);
-        mma(s[n], qa[kk], r[0], r[1]);
-        mma(s[n], qa[kk + 1], r[2], r[3]);
-      }
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};   // l: this thread's columns only
+    uint32_t ph[8][4], pl[8][4];
+    const uint32_t qa = smem_u32(sm.q[0]) + cw * 64 * ROW_BYTES;
+    if (cw == 1) turn_pass(1);                   // warpgroup 0 takes the first turn
+    mbar_wait(&sm.q_full, 0);
+
+    // Every wait precedes the wgmma.fence of its turn, and the first and last
+    // turns are peeled, so no wgmma group has a branch inside. With the waits
+    // inside the groups ptxas serialised every wgmma of the kernel (a wait on
+    // each before the next; 1.45x the time). -Xptxas -v reports it (C7512,
+    // C7515): check after any change here.
+    // Turn 0: S of tile 0.
+    turn_wait(mine);
+    mbar_wait(&sm.k_full[0], 0);
+    wg_fence();
+    issue_qk(sc, qa, smem_u32(sm.k[0][0]));
+    wg_commit();
+    turn_pass(other);
+    wg_wait0();
+    reg_fence(sc);
+    softmax_tile(sc, o, m, l, ph, pl, (causal && qt == 0) || BN > T, 0, row0, tig, T, causal,
+                 scale_log2);
+    for (int j = 1; j < nkt; ++j) {              // turn j: P . V of j - 1, S of j
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      turn_wait(mine);
+      mbar_wait(&sm.v_full[sp], ((j - 1) / STAGES) & 1);
+      mbar_wait(&sm.k_full[s], (j / STAGES) & 1);
+      reg_fence(o);
+      wg_fence();
+      issue_pv(o, ph, pl, smem_u32(sm.v[sp][0]));
+      issue_qk(sc, qa, smem_u32(sm.k[s][0]));
+      wg_commit();
+      turn_pass(other);
+      wg_wait0();
+      reg_fence(o);
+      reg_fence(sc);
+      reg_fence(ph);
+      reg_fence(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[sp]);
+      const int c0 = j * BN;
+      softmax_tile(sc, o, m, l, ph, pl, (causal && j == qt) || c0 + BN > T, c0, row0, tig, T,
+                   causal, scale_log2);
+    }
+    {                                            // turn nkt: P . V of the last tile
+      const int sp = (nkt - 1) % STAGES;
+      turn_wait(mine);
+      mbar_wait(&sm.v_full[sp], ((nkt - 1) / STAGES) & 1);
+      reg_fence(o);
+      wg_fence();
+      issue_pv(o, ph, pl, smem_u32(sm.v[sp][0]));
+      wg_commit();
+      if (cw == 0) turn_pass(other);             // warpgroup 1's last turn ends the chain
+      wg_wait0();
+      reg_fence(o);
+      reg_fence(ph);
+      reg_fence(pl);
     }
 
-    // mask, scale, online softmax over this tile
-    const int c0 = j * BK;
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row0 + (i / 2) * 8;
-        const int col = c0 + n * 8 + tig * 2 + (i & 1);
-        const bool keep = col < T && (!causal || row >= col);
-        s[n][i] = keep ? s[n][i] * sm_scale : NEG;
-        mx[i / 2] = fmaxf(mx[i / 2], s[n][i]);
-      }
-    float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - mn);
-      m[r] = mn;
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
-    float ps[2] = {0.f, 0.f};
+    const float inv0 = 1.f / fmaxf(l[0], 1e-37f), inv1 = 1.f / fmaxf(l[1], 1e-37f);
+    __nv_bfloat16* og = out + ((size_t)b * Hq + h) * T * D + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = expf(s[n][i] - m[i / 2]);
-        ps[i / 2] += s[n][i];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
-      l[r] = l[r] * alpha[r] + ps[r];
+    for (int n = 0; n < 16; ++n) {
+      if (row0 < T)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row0 * D + n * 8) =
+            __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      if (row0 + 8 < T)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)(row0 + 8) * D + n * 8) =
+            __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
     }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // o += P . V, P split into bf16 hi and lo parts
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned ph[4], pl[4];
-      split(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        unsigned r[4];
-        const int mi = lane / 8;
-        ldsm_x4_t(r, vt + (kk * 16 + (mi & 1) * 8 + lane % 8) * LDS + n * 8 + (mi >> 1) * 8);
-        mma(o[n], ph, r[0], r[1]);
-        mma(o[n], pl, r[0], r[1]);
-        mma(o[n + 1], ph, r[2], r[3]);
-        mma(o[n + 1], pl, r[2], r[3]);
-      }
-    }
-    __syncthreads();                              // the buffer is refilled next
-  }
-
-  const float inv0 = 1.f / fmaxf(l[0], 1e-37f), inv1 = 1.f / fmaxf(l[1], 1e-37f);
-  __nv_bfloat16* og = out + ((size_t)b * Hq + h) * T * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (row0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)row0 * D + c) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (row0 + 8 < T)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)(row0 + 8) * D + c) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+EncodeTiled encode_fn() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  EncodeTiled f = fn.load();
+  if (f == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    f = reinterpret_cast<EncodeTiled>(p);
+    fn.store(f);
+  }
+  return f;
+}
+
+// [heads, T, 128] bf16 as a 3-D map: boxes of 64 columns x `rows` rows of one head
+bool encode(EncodeTiled f, CUtensorMap* map, const void* base, int heads, int T, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(T) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(HALF), static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return f(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+           elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The kernel's shared-memory size is set once per device (bit d of the mask).
+std::atomic<unsigned long long> g_smem_set{0};
 
 }  // namespace
 
@@ -258,20 +461,29 @@ laser_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 extern "C" int skt_laser_attention(const void* q, const void* k, const void* v, void* out,
                                    int B, int Hq, int Hkv, int T, int d, int causal,
                                    float sm_scale, void* stream) {
-  if (d != D || B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(BQ + 4 * BK) * LDS * sizeof(__nv_bfloat16);
-  static bool set = false;
-  if (!set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        laser_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (d != D || B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled f = encode_fn();
+  if (f == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode(f, &qmap, q, B * Hq, T, BM) || !encode(f, &kmap, k, B * Hkv, T, BN) ||
+      !encode(f, &vmap, v, B * Hkv, T, BN))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(Smem) + 1024;       // + the base's alignment to 1 KB
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(g_smem_set.load() & bit)) {
+    e = cudaFuncSetAttribute(laser_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
-    set = true;
+    g_smem_set.fetch_or(bit);
   }
-  const dim3 grid((T + BQ - 1) / BQ, Hq, B);
+  const float scale_log2 = static_cast<float>(static_cast<double>(sm_scale) * 1.4426950408889634);
+  const dim3 grid(Hq, B, (T + BM - 1) / BM);
   laser_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Hq, Hkv, T,
-      causal, sm_scale);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Hq, Hkv, T, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 

@@ -10,275 +10,390 @@
 //   * prefix positions 0 .. prefix_len[s]-1 from the int8 pages of layer li
 //     (row r = t*hkv + h, scales f32 per row), all visible;
 //   * chunk tokens j of the bf16 operands, visible iff j <= i and j < valid_len[s].
-// Rows past valid_len still get finite outputs; the caller ignores them.
+// Rows past valid_len still get what the plain version gives them.
+//
+// Rounding, as the TPU kernel takes it: s = (q . k) * k_scale * sm_scale
+// (k_scale 1 for the chunk), an online softmax per key tile, the P operand
+// bf16(p * v_scale) (paged_prefill_tm.py:88), out = acc / max(l, 1e-37).
+// Every MMA operand is bf16-exact (q and the chunk are bf16, int8 converts to
+// bf16 exactly, P is rounded where the TPU kernel rounds it), so both products
+// run on bf16 tensor cores (mma.sync m16n8k16, f32 accumulation) and differ
+// from the plain version only in the order of the f32 sums.
 //
 // Bound on an H100: the larger of its bytes (q, chunk k/v, the prefix pages it
 // reads, the output) over 3.35 TB/s and its 4*hq*D*(visible pairs) operations
-// over the bf16 tensor-core rate. Design: one block per (query tile, kv head,
-// sequence) with 64 query rows (64/G tokens x G heads), so each key tile of 64
-// tokens read into shared memory (dequantized to f32, per-row scales kept
-// beside it) serves the whole group. Scores and P.V are register-tiled 8x4 and
-// 8x8 per thread on the CUDA cores with an f32 online softmax, rounding
-// p*v_scale to bf16 before P.V as the TPU kernel's MXU operand does. A tile
-// that no row may see is never loaded, and masked columns get probability 0
-// (never 0*NaN: invalid key rows are zero-filled, paged_prefill_tm.py:110-111).
-// Simple first: no tensor cores or TMA yet.
+// over the bf16 tensor-core rate; at the engine's shapes the work is small,
+// so latency, waves and barriers set the time. Design: one block per (query
+// tile, kv head, sequence) with 64 query rows (64/G tokens x G heads, so one
+// key tile serves the whole GQA group), 4 warps of 16 rows, q fragments in
+// registers straight from global memory. Key tiles of 64 tokens stream
+// through a ring of 3 shared-memory stages by cp.async, 16 bytes a copy with
+// the page taken from the block table per token (read a tile ahead); tile
+// j+2 is in flight while tile j is multiplied. Missing rows are zero-filled,
+// so P.V never meets stale data. An int8 prefix tile lands at the start of
+// each 272-byte row and is widened to bf16 in place once it has arrived; K
+// then goes through ldmatrix, V through ldmatrix.trans. Scores are scaled by
+// k_scale column by column and masked in registers, the softmax reduces over
+// quads of lanes, and the score accumulators become the P A-fragments without
+// a trip through shared memory.
+// 106 KB of shared memory a block: two blocks per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int D = 128;        // head dim
 constexpr int R = 64;         // query rows per block: (64 / G) tokens x G heads
 constexpr int TK = 64;        // keys per tile
-constexpr int VROW = D + 4;   // padded V row in shared memory
+constexpr int STAGES = 3;     // cp.async ring
 constexpr int THREADS = 128;
+constexpr int LDS = D + 8;    // bf16 per shared row: 272 bytes, conflict-free ldmatrix
 
 struct Smem {
-  float qT[D][R];
-  float kT[D][TK];
-  float v[TK][VROW];
-  float p[R][TK];
-  float kscale[TK];
-  float vscale[TK];
-  int kpos[TK];               // key position (prefix) or chunk index; -1 = none
-  float m[R], l[R], alpha[R];
+  __nv_bfloat16 k[STAGES][TK * LDS];
+  __nv_bfloat16 v[STAGES][TK * LDS];
+  float kscale[STAGES][TK];
+  float vscale[STAGES][TK];
 };
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+struct Args {
+  const __nv_bfloat16* q;    // [S, T, hq, D]
+  const __nv_bfloat16* ck;   // [S, T, hkv, D]
+  const __nv_bfloat16* cv;
+  const int8_t* kc;          // [L, P, ps*hkv, D]
+  const int8_t* vc;
+  const float* ksc;          // [L, P, 1, ps*hkv]
+  const float* vsc;
+  const int* bt;             // [S, MP]
+  const int* plen;           // [S]
+  const int* vlen;           // [S]
+  __nv_bfloat16* out;        // [S, T, hq, D]
+  int T, hkv, G, P, ps, MP, li;
+  float sm_scale;
+};
+
+// The pages of prefix tile `tile` this thread copies from: keys
+// (tid >> 3) + 16 i (i < 4) of its rows and key tid & 63 of its scale. Read
+// a tile ahead of its copies, so the block-table load is off the critical path.
+struct Pages {
+  int pg[5];
+};
+
+__device__ __forceinline__ Pages fetch_pages(const Args& a, int tile, int n_pre, int s,
+                                             int prefix_len) {
+  Pages p;
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < 5; ++i) {
+    const int t = tile * TK + (i < 4 ? (tid >> 3) + 16 * i : tid & 63);
+    p.pg[i] = tile < n_pre && t < prefix_len ? __ldg(a.bt + (size_t)s * a.MP + t / a.ps) : 0;
+  }
+  return p;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Start the copies of key tile `tile` into ring stage `st`: prefix tiles
+// (tile < n_pre) 64 int8 K and V rows and their scales, chunk tiles 64 bf16
+// K and V rows. Rows that do not exist are zero-filled.
+__device__ __forceinline__ void issue_tile(Smem& sm, const Args& a, const Pages& p, int st,
+                                           int tile, int n_pre, int s, int h, int prefix_len,
+                                           int jmax) {
+  const int tid = threadIdx.x;
+  if (tile < n_pre) {
+    const int c = tid & 7;                     // 16-byte chunk of a 128-byte row
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+    for (int i = 0; i < 5; ++i) {
+      const int key = i < 4 ? (tid >> 3) + 16 * i : tid & 63;
+      const int t = tile * TK + key;
+      const bool ok = t < prefix_len;
+      const long long row = ((long long)a.li * a.P + p.pg[i]) * a.ps * a.hkv
+                            + (long long)(t % a.ps) * a.hkv + h;
+      if (i < 4) {
+        const long long off = ok ? row * D + c * 16 : 0;
+        cp_async16(reinterpret_cast<int8_t*>(sm.k[st] + key * LDS) + c * 16, a.kc + off, ok);
+        cp_async16(reinterpret_cast<int8_t*>(sm.v[st] + key * LDS) + c * 16, a.vc + off, ok);
+      } else {
+        const float* src = (tid < 64 ? a.ksc : a.vsc) + (ok ? row : 0);
+        cp_async4(tid < 64 ? &sm.kscale[st][key] : &sm.vscale[st][key], src, ok);
+      }
+    }
+  } else {
+    const int c = tid & 15;                    // 16-byte chunk of a 256-byte row
+    const int j0 = (tile - n_pre) * TK;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int key = (tid >> 4) + 8 * i;
+      const int j = j0 + key;
+      const bool ok = j < jmax;
+      const size_t off = ok ? (((size_t)s * a.T + j) * a.hkv + h) * D + c * 8 : 0;
+      cp_async16(sm.k[st] + key * LDS + c * 8, a.ck + off, ok);
+      cp_async16(sm.v[st] + key * LDS + c * 8, a.cv + off, ok);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-prefill_tm_kernel(const __nv_bfloat16* __restrict__ q,    // [S, T, hq, D]
-                  const __nv_bfloat16* __restrict__ ck,   // [S, T, hkv, D]
-                  const __nv_bfloat16* __restrict__ cv,
-                  const int8_t* __restrict__ kc,          // [L, P, ps*hkv, D]
-                  const int8_t* __restrict__ vc,
-                  const float* __restrict__ ksc,          // [L, P, 1, ps*hkv]
-                  const float* __restrict__ vsc,
-                  const int* __restrict__ bt,             // [S, MP]
-                  const int* __restrict__ plen,           // [S]
-                  const int* __restrict__ vlen,           // [S]
-                  __nv_bfloat16* __restrict__ out,        // [S, T, hq, D]
-                  int T, int hkv, int G, int P, int ps, int MP, int li,
-                  float sm_scale) {
+// Widen an arrived int8 tile to bf16 in place: thread t takes K row t (t < 64)
+// or V row t - 64, reads its 128 bytes, then writes 256.
+__device__ __forceinline__ void widen_tile(Smem& sm, int st) {
+  const int tid = threadIdx.x;
+  int4* row = reinterpret_cast<int4*>((tid < 64 ? sm.k[st] : sm.v[st]) + (tid & 63) * LDS);
+  int4 raw[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) raw[u] = row[u];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw[u]);
+    int4 lo, hi;
+    lo.x = (int)pack((float)b[0], (float)b[1]);
+    lo.y = (int)pack((float)b[2], (float)b[3]);
+    lo.z = (int)pack((float)b[4], (float)b[5]);
+    lo.w = (int)pack((float)b[6], (float)b[7]);
+    hi.x = (int)pack((float)b[8], (float)b[9]);
+    hi.y = (int)pack((float)b[10], (float)b[11]);
+    hi.z = (int)pack((float)b[12], (float)b[13]);
+    hi.w = (int)pack((float)b[14], (float)b[15]);
+    row[2 * u] = lo;
+    row[2 * u + 1] = hi;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const int qtile = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hq = hkv * G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int G = a.G, hq = a.hkv * G;
   const int bq = R / G;                      // query tokens per block
   const int q0 = qtile * bq;
   // a block table maps at most MP*ps tokens: never read past it
-  const int prefix_len = min(max(plen[s], 0), MP * ps);
-  const int valid_len = vlen[s];
-  const long long rows = (long long)ps * hkv;
-
-  // query rows r = i*G + g, stored transposed [d][r]
-  for (int idx = tid; idx < R * D; idx += THREADS) {
-    const int r = idx % R, d = idx / R;
-    const int i = r / G, g = r % G;
-    const int qt = q0 + i;
-    float v = 0.f;
-    if (qt < T) v = __bfloat162float(q[(((size_t)s * T + qt) * hq + h * G + g) * D + d]);
-    sm.qT[d][r] = v;
-  }
-  if (tid < R) {
-    sm.m[tid] = -CUDART_INF_F;
-    sm.l[tid] = 0.f;
-  }
-
-  const int rg = tid >> 4;            // rows rg*8 .. rg*8+7
-  const int cg = tid & 15;            // score cols cg*4 .., output cols cg*8 ..
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
-
+  const int prefix_len = min(max(a.plen[s], 0), a.MP * a.ps);
+  const int valid_len = a.vlen[s];
   // chunk keys a row of this block may see: j < min(valid_len, last query + 1)
-  const int jmax = max(0, min(valid_len, min(T, q0 + bq)));
+  const int jmax = max(0, min(valid_len, min(a.T, q0 + bq)));
   const int n_pre = (prefix_len + TK - 1) / TK;
   const int n_tiles = n_pre + (jmax + TK - 1) / TK;
 
+  Pages next = fetch_pages(a, 0, n_pre, s, prefix_len);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_tiles) issue_tile(sm, a, next, i, i, n_pre, s, h, prefix_len, jmax);
+    cp_commit();
+    next = fetch_pages(a, i + 1, n_pre, s, prefix_len);
+  }
+
+  // this thread's rows r = warp*16 + g (+ 8): token q0 + r / G, head h*G + r % G
+  const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+  const int qi_lo = q0 + r_lo / G, qi_hi = q0 + r_hi / G;
+  unsigned qa[D / 16][4];
+  {
+    const unsigned* pl = reinterpret_cast<const unsigned*>(
+        a.q + (((size_t)s * a.T + min(qi_lo, a.T - 1)) * hq + h * G + r_lo % G) * D);
+    const unsigned* ph = reinterpret_cast<const unsigned*>(
+        a.q + (((size_t)s * a.T + min(qi_hi, a.T - 1)) * hq + h * G + r_hi % G) * D);
+    const bool in_lo = qi_lo < a.T, in_hi = qi_hi < a.T;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = in_lo ? __ldg(pl + kk * 8 + tig) : 0u;
+      qa[kk][1] = in_hi ? __ldg(ph + kk * 8 + tig) : 0u;
+      qa[kk][2] = in_lo ? __ldg(pl + kk * 8 + 4 + tig) : 0u;
+      qa[kk][3] = in_hi ? __ldg(ph + kk * 8 + 4 + tig) : 0u;
+    }
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};                  // this thread's columns only; quad sum at the end
+
   for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_wait<STAGES - 2>();                  // this thread's copies of `tile` landed
+    __syncthreads();                        // everyone's, and tile - 1 is consumed
+    {
+      const int nt = tile + STAGES - 1;
+      if (nt < n_tiles) issue_tile(sm, a, next, nt % STAGES, nt, n_pre, s, h, prefix_len, jmax);
+      cp_commit();
+      next = fetch_pages(a, nt + 1, n_pre, s, prefix_len);
+    }
+    const int st = tile % STAGES;
     const bool is_pre = tile < n_pre;
-    __syncthreads();     // previous tile's readers are done
+    if (is_pre) {
+      widen_tile(sm, st);
+      __syncthreads();
+    }
+    const __nv_bfloat16* kt = sm.k[st];
+    const __nv_bfloat16* vt = sm.v[st];
 
-    // ---- load a tile of 64 keys: thread pair (c, half) copies 64 dims ----
-    {
-      const int c = tid >> 1, half = tid & 1, d0 = half * 64;
-      int pos = -1;
-      float ks = 0.f, vs = 0.f;
-      if (is_pre) {
-        const int t = tile * TK + c;
-        if (t < prefix_len) {
-          const int page = bt[(size_t)s * MP + t / ps];
-          const long long row = ((long long)li * P + page) * rows
-                                + (long long)(t % ps) * hkv + h;
-          const int8_t* kp = kc + row * D + d0;
-          const int8_t* vp = vc + row * D + d0;
+    float sc[TK / 8][4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int4 k4 = *reinterpret_cast<const int4*>(kp + u * 16);
-            const int4 v4 = *reinterpret_cast<const int4*>(vp + u * 16);
-            const int8_t* k8 = reinterpret_cast<const int8_t*>(&k4);
-            const int8_t* v8 = reinterpret_cast<const int8_t*>(&v4);
+    for (int n = 0; n < TK / 8; ++n) {
 #pragma unroll
-            for (int e = 0; e < 16; ++e) {
-              sm.kT[d0 + u * 16 + e][c] = (float)k8[e];
-              sm.v[c][d0 + u * 16 + e] = (float)v8[e];
-            }
-          }
-          pos = t;
-          ks = ksc[row];
-          vs = vsc[row];
-        }
-      } else {
-        const int j = (tile - n_pre) * TK + c;
-        if (j < jmax) {
-          const size_t off = (((size_t)s * T + j) * hkv + h) * D + d0;
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
 #pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            const int4 k4 = *reinterpret_cast<const int4*>(ck + off + u * 8);
-            const int4 v4 = *reinterpret_cast<const int4*>(cv + off + u * 8);
-            const __nv_bfloat16* kb = reinterpret_cast<const __nv_bfloat16*>(&k4);
-            const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(&v4);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              sm.kT[d0 + u * 8 + e][c] = __bfloat162float(kb[e]);
-              sm.v[c][d0 + u * 8 + e] = __bfloat162float(vb[e]);
-            }
-          }
-          pos = j;
-          ks = 1.f;
-          vs = 1.f;
-        }
-      }
-      if (pos < 0) {     // no key here: zeros, so P.V never meets stale data
-#pragma unroll
-        for (int e = 0; e < 64; ++e) {
-          sm.kT[d0 + e][c] = 0.f;
-          sm.v[c][d0 + e] = 0.f;
-        }
-      }
-      if (half == 0) {
-        sm.kpos[c] = pos;
-        sm.kscale[c] = ks;
-        sm.vscale[c] = vs;
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        unsigned r[4];
+        ldsm_x4(r, kt + (n * 8 + (lane & 7)) * LDS + kk * 16 + (lane >> 3) * 8);
+        mma(sc[n], qa[kk], r[0], r[1]);
+        mma(sc[n], qa[kk + 1], r[2], r[3]);
       }
     }
-    __syncthreads();
 
-    // ---- scores: rows rg*8..+8 x cols cg*4..+4 ----
-    {
-      float sacc[8][4];
+    // k scale, sm_scale and the mask, column by column in registers
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (is_pre) {
+      const int t0 = tile * TK;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int n = 0; n < TK / 8; ++n) {
+        const int c = n * 8 + 2 * tig;
+        const float2 ks = *reinterpret_cast<const float2*>(&sm.kscale[st][c]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&sm.qT[d][rg * 8]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&sm.qT[d][rg * 8 + 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&sm.kT[d][cg * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sacc[i][j] += a[i] * bb[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rg * 8 + i;
-        const int qi = q0 + r / G;           // query token index in the chunk
-        float o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = cg * 4 + j;
-          const int pos = sm.kpos[c];
-          const bool vis = pos >= 0 && (is_pre || pos <= qi);
-          o[j] = vis ? sacc[i][j] * sm.kscale[c] * sm_scale : -CUDART_INF_F;
+        for (int i = 0; i < 4; ++i) {
+          const bool vis = t0 + c + (i & 1) < prefix_len;
+          sc[n][i] = vis ? sc[n][i] * ((i & 1) ? ks.y : ks.x) * a.sm_scale : -CUDART_INF_F;
+          mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
         }
-        *reinterpret_cast<float4*>(&sm.p[r][cg * 4]) = make_float4(o[0], o[1], o[2], o[3]);
       }
+    } else {
+      const int j0 = (tile - n_pre) * TK;
+#pragma unroll
+      for (int n = 0; n < TK / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = j0 + n * 8 + 2 * tig + (i & 1);
+          const bool vis = j < jmax && j <= ((i >> 1) ? qi_hi : qi_lo);
+          sc[n][i] = vis ? sc[n][i] * a.sm_scale : -CUDART_INF_F;
+          mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
+        }
     }
-    __syncthreads();
 
-    // ---- online softmax: warp w owns rows w*16 .. w*16+15 ----
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const float s0 = sm.p[r][lane], s1 = sm.p[r][lane + 32];
-      const float mt = warp_max(fmaxf(s0, s1));
-      const float m_old = sm.m[r];
-      const float m_new = fmaxf(m_old, mt);
-      float alpha = 1.f, p0 = 0.f, p1 = 0.f;
-      if (m_new != -CUDART_INF_F) {
-        alpha = expf(m_old - m_new);
-        p0 = expf(s0 - m_new);
-        p1 = expf(s1 - m_new);
+    // online softmax: each row lives in the four lanes of a quad
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      alpha[r] = mn == -CUDART_INF_F ? 1.f : __expf(m[r] - mn);
+      m[r] = mn;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < TK / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float mr = m[i >> 1];
+        sc[n][i] = mr == -CUDART_INF_F ? 0.f : __expf(sc[n][i] - mr);
+        ps[i >> 1] += sc[n][i];
       }
-      const float psum = warp_sum(p0 + p1);
-      sm.p[r][lane] = bf16_round(p0 * sm.vscale[lane]);
-      sm.p[r][lane + 32] = bf16_round(p1 * sm.vscale[lane + 32]);
-      if (lane == 0) {
-        sm.m[r] = m_new;
-        sm.l[r] = sm.l[r] * alpha + psum;
-        sm.alpha[r] = alpha;
+    l[0] = l[0] * alpha[0] + ps[0];
+    l[1] = l[1] * alpha[1] + ps[1];
+    if (is_pre) {                           // P operand: bf16(p * v_scale)
+#pragma unroll
+      for (int n = 0; n < TK / 8; ++n) {
+        const float2 vs = *reinterpret_cast<const float2*>(&sm.vscale[st][n * 8 + 2 * tig]);
+        sc[n][0] *= vs.x;
+        sc[n][1] *= vs.y;
+        sc[n][2] *= vs.x;
+        sc[n][3] *= vs.y;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
 
-    // ---- P.V: rows rg*8..+8 x cols cg*8..+8 ----
+    // o += P . V, the score accumulators repacked as A fragments
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float a = sm.alpha[rg * 8 + i];
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const unsigned pa[4] = {pack(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= a;
-    }
-#pragma unroll 4
-    for (int t = 0; t < TK; ++t) {
-      const float4 v0 = *reinterpret_cast<const float4*>(&sm.v[t][cg * 8]);
-      const float4 v1 = *reinterpret_cast<const float4*>(&sm.v[t][cg * 8 + 4]);
-      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = sm.p[rg * 8 + i][t];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][e] += p * vv[e];
+      for (int n = 0; n < D / 8; n += 2) {
+        unsigned r[4];
+        const int mi = lane >> 3;
+        ldsm_x4_t(r, vt + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + n * 8 + (mi >> 1) * 8);
+        mma(o[n], pa, r[0], r[1]);
+        mma(o[n + 1], pa, r[2], r[3]);
       }
     }
   }
-  __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = rg * 8 + i;
-    const int qt = q0 + r / G, g = r % G;
-    if (qt >= T) continue;
-    const float l = fmaxf(sm.l[r], 1e-37f);
-    __nv_bfloat16* op = out + (((size_t)s * T + qt) * hq + h * G + g) * D + cg * 8;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) op[e] = __float2bfloat16_rn(acc[i][e] / l);
+  for (int r = 0; r < 2; ++r) {
+    const int rr = r ? r_hi : r_lo;
+    const int qt = q0 + rr / G;
+    if (qt >= a.T) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-37f);
+    __nv_bfloat16* op = a.out + (((size_t)s * a.T + qt) * hq + h * G + rr % G) * D + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
   }
 }
+
+// The kernel's shared-memory size is set once per device (bit d of the mask).
+std::atomic<unsigned long long> g_smem_set{0};
 
 }  // namespace
 
@@ -288,20 +403,42 @@ extern "C" int skt_prefill_tm(const void* q, const void* ck, const void* cv,
                               const void* vlen, void* out, int S, int T, int hkv,
                               int G, int P, int ps, int MP, int li, float sm_scale,
                               void* stream) {
-  if (G < 1 || R % G != 0) return (int)cudaErrorInvalidValue;
+  if (G < 1 || R % G != 0 || S <= 0 || T <= 0 || hkv <= 0 || ps <= 0)
+    return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
-  cudaError_t e = cudaFuncSetAttribute(
-      prefill_tm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (!(g_smem_set.load() & bit)) {
+    e = cudaFuncSetAttribute(prefill_tm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    g_smem_set.fetch_or(bit);
+  }
+  Args a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.ck = static_cast<const __nv_bfloat16*>(ck);
+  a.cv = static_cast<const __nv_bfloat16*>(cv);
+  a.kc = static_cast<const int8_t*>(kc);
+  a.vc = static_cast<const int8_t*>(vc);
+  a.ksc = static_cast<const float*>(ksc);
+  a.vsc = static_cast<const float*>(vsc);
+  a.bt = static_cast<const int*>(bt);
+  a.plen = static_cast<const int*>(plen);
+  a.vlen = static_cast<const int*>(vlen);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.T = T;
+  a.hkv = hkv;
+  a.G = G;
+  a.P = P;
+  a.ps = ps;
+  a.MP = MP;
+  a.li = li;
+  a.sm_scale = sm_scale;
   const int bq = R / G;
   const dim3 grid((T + bq - 1) / bq, hkv, S);
-  prefill_tm_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ck),
-      static_cast<const __nv_bfloat16*>(cv), static_cast<const int8_t*>(kc),
-      static_cast<const int8_t*>(vc), static_cast<const float*>(ksc),
-      static_cast<const float*>(vsc), static_cast<const int*>(bt),
-      static_cast<const int*>(plen), static_cast<const int*>(vlen),
-      static_cast<__nv_bfloat16*>(out), T, hkv, G, P, ps, MP, li, sm_scale);
+  prefill_tm_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

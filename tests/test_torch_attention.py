@@ -45,20 +45,33 @@ def _tm_cache(rng, layers, pages, rows, d):
     return kc, vc, ks, vs
 
 
-@pytest.mark.parametrize("hq,hkv", [(8, 4), (8, 2)])
-def test_prefill_tm_matches_jax(monkeypatch, hq, hkv):
+_BT16 = ((1, 2, 0, 0), (3, 4, 5, 0), (6, 7, 0, 0), (8, 9, 10, 11))
+
+
+@pytest.mark.parametrize("hq,hkv,ps,plens,vlens,bts", [
+    pytest.param(8, 4, 16, (0, 15, 16, 35), (20, 13, 1, 7), _BT16, id="8-4"),
+    pytest.param(8, 2, 16, (0, 15, 16, 35), (20, 13, 1, 7), _BT16, id="8-2"),
+    # the engine's GQA ratio (Llama-3-8B's 32 / 8) at its page sizes, prefixes
+    # around kernel B's 64-key tile, and a chunk with no valid token; block
+    # tables drawn from the seed
+    pytest.param(8, 2, 64, (0, 63, 64, 200), (20, 13, 0, 7), None, id="g4-ps64"),
+    pytest.param(8, 2, 128, (0, 63, 64, 200), (20, 0, 1, 20), None, id="g4-ps128"),
+])
+def test_prefill_tm_matches_jax(monkeypatch, hq, hkv, ps, plens, vlens, bts):
     """Kernel B's contract, all sequences in one batched call of the port
-    against one JAX call per sequence: cached prefixes 0, ps-1, ps, 2ps+3 and
-    ragged valid lengths (a full chunk, a partial one, one token, a short
-    one), over layer 1 of a 2-layer cache."""
+    against one JAX call per sequence: cached prefixes (0, ps-1, ps, 2ps+3 at
+    ps 16) and ragged valid lengths (a full chunk, a partial one, one token,
+    a short one, none), over layer 1 of a 2-layer cache."""
     monkeypatch.setenv("SKT_IMPL", "pallas")
     rng = np.random.default_rng(hq * 10 + hkv)
-    d, ps, layers, pages, t, li = 32, 16, 2, 16, 20, 1
+    d, layers, t, li = 32, 2, 20, 1
+    mp = len(bts[0]) if bts else -(-(max(plens) + t) // ps)
+    pages = 16 if bts else 4 * mp + 1
     kc, vc, ks, vs = _tm_cache(rng, layers, pages, ps * hkv, d)
-    plens = np.array([0, ps - 1, ps, 2 * ps + 3], np.int32)
-    vlens = np.array([t, 13, 1, 7], np.int32)
-    bts = np.array([[1, 2, 0, 0], [3, 4, 5, 0], [6, 7, 0, 0], [8, 9, 10, 11]],
-                   np.int32)
+    plens = np.array(plens, np.int32)
+    vlens = np.array(vlens, np.int32)
+    bts = (np.array(bts, np.int32) if bts else
+           (rng.permutation(pages - 1)[: 4 * mp].reshape(4, mp) + 1).astype(np.int32))
     jq, tq = _bf16(rng, (4, t, hq, d))
     jk, tk = _bf16(rng, (4, t, hkv, d))
     jv, tv = _bf16(rng, (4, t, hkv, d))

@@ -114,6 +114,20 @@ def test_laser_below_the_gate_is_the_reference(rng):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+def test_laser_blocked_ragged_t_matches_jax_reference(rng, causal):
+    """K17's plain version at a T that is not a multiple of its block (T 1000,
+    blocks of 256: a last block of 232 columns, ragged also against K17's
+    128-row tiles) with GQA 4 / 2, against the JAX package's one-softmax
+    laser_attention_ref (its kernel gives NaN there)."""
+    b, hq, hkv, t, d = 1, 4, 2, 1000, 32
+    q = _randn(rng, (b, hq, t, d))
+    k, v = _randn(rng, (b, hkv, t, d)), _randn(rng, (b, hkv, t, d))
+    got = tpf.laser_attention_blocked_ref(_t(q), _t(k), _t(v), 0.2, causal, block=256)
+    want = jpf.laser_attention_ref(*(jnp.asarray(x) for x in (q, k, v)), 0.2, causal)
+    _close(got, want, f"causal={causal}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_laser_tpu_kernel_nan_when_t_is_not_a_block_multiple(rng, causal):
     """The reference's fault: at T 96 with blocks of 64 the TPU kernel reads
     the rows past T into its last block and returns NaN; the port masks
