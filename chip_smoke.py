@@ -1493,18 +1493,92 @@ def check_decode_v3(torch, dv3, dec, cfg, rng):
     return rows
 
 
+# K15's edges (each on its own seed): (ps, T, prefix) with a prefix off a
+# page edge and on one, the last query tile partial
+K15_EDGES = tuple((ps, 200, pre) for ps in (16, 32, 64, 128) for pre in (ps + 5, 2 * ps))
+
+
+def check_prefill_hm_edges(torch, pp, cfg):
+    """K15 at its edges against its plain version, bf16 and int8 pages at
+    Llama-3-8B's heads: page sizes 16, 32, 64 and 128 with a prefix off and
+    on a page edge (K15_EDGES); per-kv-head page_sel lists over int8 pages
+    (out of order, an empty list, a first page invisible to every row); and
+    a tile whose whole list lies past its rows (each row keeps the mean of V
+    over the masked columns, as the TPU kernel's p = 1 gives it)."""
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sm = d ** -0.5
+    for i, (ps, t, prefix) in enumerate(K15_EDGES):
+        gen = torch.Generator(device="cuda").manual_seed(1500 + i)
+        mp = -(-(prefix + t) // ps) + 1
+        bt = (torch.randperm(2 * mp, generator=gen, device="cuda")[:mp].to(torch.int32) + 1)
+        q = (1.5 * torch.randn((t, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+        for int8 in (False, True):
+            k, v, ks, vs = _hm_pages(torch, gen, 2 * mp + 1, hkv, ps, d, int8)
+            kv = {"k": k, "v": v, "ks": ks, "vs": vs} if int8 else (k, v)
+            args = (q, kv, bt, prefix, sm, ps)
+            out, ref = pp.paged_prefill_attention(*args), pp.paged_prefill_attention_ref(*args)
+            torch.cuda.synchronize()
+            _bf16_check(f"prefill_hm ps={ps} T={t} prefix={prefix} int8={int8}", out, ref,
+                        HM_SHARE)
+    gen = torch.Generator(device="cuda").manual_seed(1520)
+    t, prefix, ps, mp = 512, 256, cfg.page_size, 6
+    bt = (torch.randperm(2 * mp, generator=gen, device="cuda")[:mp].to(torch.int32) + 1)
+    q = (1.5 * torch.randn((t, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    k, v, ks, vs = _hm_pages(torch, gen, 2 * mp + 1, hkv, ps, d, True)
+    kv = {"k": k, "v": v, "ks": ks, "vs": vs}
+    sel = torch.zeros((hkv, t // ps, 4), dtype=torch.int32, device="cuda")
+    cnt = torch.zeros((hkv, t // ps), dtype=torch.int32, device="cuda")
+    for h in range(hkv):
+        for qi in range(t // ps):
+            pages = torch.randperm(mp, generator=gen, device="cuda")[: (h + qi) % 5]
+            sel[h, qi, :len(pages)] = pages.to(torch.int32)
+            cnt[h, qi] = len(pages)
+    sel[0, 0, :2] = torch.tensor([4, 0], dtype=torch.int32)     # the first page hides all
+    cnt[0, 0] = 2
+    args = (q, kv, bt, prefix, sm, ps)
+    out = pp.paged_prefill_attention(*args, page_sel=sel, page_cnt=cnt)
+    ref = pp.paged_prefill_attention_ref(*args, page_sel=sel, page_cnt=cnt)
+    torch.cuda.synchronize()
+    _bf16_check("prefill_hm int8 page_sel per kv head", out, ref, HM_SHARE)
+    g = hq // hkv
+    for h in range(hkv):
+        for qi in range(t // ps):
+            if int(cnt[h, qi]) == 0 and float(
+                    out[qi * ps:(qi + 1) * ps, h * g:(h + 1) * g].float().abs().max()) != 0.0:
+                raise AssertionError("prefill_hm: a tile with an empty page list is not 0")
+    # tile 0 (positions 256..383) sees only pages 4 and 5 (512..767): nothing
+    sel2 = torch.tensor([[4, 5], [0, 1], [2, 3], [5, 4]], dtype=torch.int32, device="cuda")
+    cnt2 = torch.tensor([2, 2, 2, 2], dtype=torch.int32, device="cuda")
+    for int8 in (False, True):
+        k, v, ks, vs = _hm_pages(torch, gen, 2 * mp + 1, hkv, ps, d, int8)
+        kv = {"k": k, "v": v, "ks": ks, "vs": vs} if int8 else (k, v)
+        args = (q, kv, bt, prefix, sm, ps)
+        out = pp.paged_prefill_attention(*args, page_sel=sel2, page_cnt=cnt2)
+        ref = pp.paged_prefill_attention_ref(*args, page_sel=sel2, page_cnt=cnt2)
+        torch.cuda.synchronize()
+        _bf16_check(f"prefill_hm all-invisible tile int8={int8}", out, ref, HM_SHARE)
+        rows_v = _hm_rows(torch, v, vs, bt[None])[0, :, 4 * ps:6 * ps].float()   # [Hkv, 256, D]
+        mean_v = rows_v.mean(1).repeat_interleave(g, 0)                          # [Hq, D]
+        _bf16_check(f"prefill_hm all-invisible tile = mean of V int8={int8}", out[:ps].float(),
+                    mean_v[None].expand(ps, hq, d), 2e-3)
+    print(f"  prefill_hm within its bar also at ps 16 / 32 / 64 / 128 with prefixes off and on "
+          f"a page edge ({len(K15_EDGES)} cases, bf16 and int8), per-kv-head page_sel over int8 "
+          "pages (empty lists 0), and a tile whose whole list is invisible (the mean of V)")
+
+
 def check_prefill_hm(torch, pp, cfg, rng):
     """K15 on a 512-token chunk over a 256-token prefix (Llama-3-8B's 32 / 8
     heads, 128-token pages, the dense causal schedule of four 128-token
     tiles), bf16 and int8 pages, against its plain version; a page_sel drive
-    with an empty tile on the bf16 pages too. Returns the bf16 row."""
+    with an empty tile on the bf16 pages too; then its edges
+    (check_prefill_hm_edges). Returns the bf16 and the int8 rows."""
     hq, hkv, d, ps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
     g, sm = hq // hkv, d ** -0.5
     t, prefix, mp = 512, 256, 6
     n = prefix + t
     bt = (torch.randperm(2 * mp, generator=rng, device="cuda")[:mp].to(torch.int32) + 1)
     q = (1.5 * torch.randn((t, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
-    row = None
+    rows = {}
     plen = torch.tensor(prefix, dtype=torch.int32, device="cuda")   # no copy in a graph
     for int8 in (False, True):
         k, v, ks, vs = _hm_pages(torch, rng, 2 * mp + 1, hkv, ps, d, int8)
@@ -1540,18 +1614,19 @@ def check_prefill_hm(torch, pp, cfg, rng):
         elt = 1 if int8 else 2
         nbytes = n * hkv * (2 * d * elt + (8 if int8 else 0)) + 2 * 2 * t * hq * d + 4 * mp
         keys = sum(prefix + i + 1 for i in range(t))
-        bound, by = _bound_ms(nbytes, 4.0 * keys * hq * d, "f32_flops")
+        bound, by = _bound_ms(nbytes, 4.0 * keys * hq * d, "bf16_flops")
         print(f"  prefill_hm {kind} T={t} prefix={prefix} Hq={hq} Hkv={hkv} ps={ps} "
               f"(block_q 128, dense causal{'; page_sel with an empty tile also held' if not int8 else ''}): "
               f"max-abs {err:.3g} ({ratio:.3g} of its bound, max|plain| "
               f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, SDPA ({backend}, causal) {lib:.4f} ms (max-abs vs plain "
-              f"{lib_err:.3g}), bound {bound:.4f} ms ({by})")
-        if not int8:
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
-                       max_abs_err=err)
+              f"{lib_err:.3g}), bound {bound:.4f} ms ({by}; the floor of the three-part P . V "
+              f"{2 * bound if by == 'operations' else bound:.4f})")
+        rows[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                          max_abs_err=err)
         del k, v, ks, vs, kv
-    return row
+    check_prefill_hm_edges(torch, pp, cfg)
+    return rows["bf16"], rows["int8"]
 
 
 # ------------------------------------------------------------- the engine
@@ -3487,10 +3562,13 @@ def run_attentions(torch, build, pf, sp, pp, nm, gpu):
         name = f"sparse prefill keep={keep}"
         n0 = build.launches["sparse_estimate"]
         # no plain run at keep 1.0: the plain K15 loop takes ~2,000 page steps
+        k0 = build.launches["prefill_hm"]
         (out, mask, pairs), plain, ms = _drive(
             torch, build, name, lambda: pipeline(keep), {"sparse_estimate": 1, "prefill_hm": 1},
             plain=keep < 1.0)
         count("sparse_estimate", "sparse_estimate", n0)
+        if keep < 1.0:
+            count("prefill_hm (sparse T 8192 keep 0.25)", "prefill_hm", k0)
         plain_note = "the plain version not run"
         if plain is not None:
             ref_out = plain[0]
@@ -3506,6 +3584,7 @@ def run_attentions(torch, build, pf, sp, pp, nm, gpu):
               f"{int(pairs.sum())} of {int(mask.shape[1]) * npages * (npages + 1) // 2} "
               f"causal (q tile, page) pairs over the kv heads, {plain_note}; launches "
               "sparse_estimate 1, prefill_hm 1")
+    sparse_row = _sparse_prefill_row(torch, pp, qt, kv, bt, res[0.25]["mask"][0], sm, gpu)
     full = res[1.0]
     causal_mask = torch.ones((npages, npages), dtype=torch.bool, device="cuda").tril()
     if not torch.equal(full["mask"], causal_mask.expand_as(full["mask"])):
@@ -3546,7 +3625,57 @@ def run_attentions(torch, build, pf, sp, pp, nm, gpu):
         dmax, share = _norm_check(torch, f"add_rmsnorm_bias N={n}", got, plain)
         print(f"    N={n}: {ms:.4f} ms per call, h exact, int8 max diff {dmax} ({share:.2e} of "
               "entries) vs plain; launches add_rmsnorm_quant 1")
-    return counts
+    return counts, sparse_row
+
+
+def _sparse_prefill_row(torch, pp, qt, kv, bt, mask, sm, gpu):
+    """The kernels-line row of K15 in the keep-0.25 sparse prefill: K15
+    alone on the page lists of the estimator's mask [Hkv, NQ, NK], made
+    outside the timed call (CUDA graph replay), its plain version once, SDPA
+    with the same mask spread to tokens (memory-efficient backend; it
+    computes every masked score), and
+    the bound from the selected (tile, page) pairs: each distinct (kv head,
+    page) read once, 4 * 128 operations per visible (query row, key)."""
+    t, hq, d = qt.shape
+    hkv, npages = mask.shape[0], mask.shape[1]
+    g, ps = hq // hkv, t // npages
+
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")     # no copy in a graph
+    sel, cnt = pp.block_mask_to_page_lists(mask, npages)
+
+    def call():
+        return pp.paged_prefill_attention(qt, kv, bt, zero, sm, ps, page_sel=sel, page_cnt=cnt,
+                                          block_q=ps)
+    out = call()
+    ms = _time_ms(call, 3, graph=True)
+    with _env(SKT_IMPL="ref"):
+        plain_ms = _time_ms(call, 1, warmup=0)
+        ref = call()
+    err, _ = _bf16_check("sparse prefill keep=0.25 K15 alone", out, ref, ATT_SHARE)
+    causal = torch.ones((ps, ps), dtype=torch.bool, device="cuda").tril()
+    tok_mask = (mask[:, :, None, :, None] & torch.ones((1, 1, ps, 1, ps), dtype=torch.bool,
+                                                       device="cuda"))
+    diag = torch.eye(npages, dtype=torch.bool, device="cuda")[None, :, None, :, None]
+    tok_mask = tok_mask & (~diag | causal[None, None, :, None, :])
+    tok_mask = tok_mask.reshape(hkv, t, 1, t).expand(hkv, t, g, t).reshape(1, hkv, t * g, t)
+    qq = qt.reshape(t, hkv, g, d).permute(1, 0, 2, 3).reshape(1, hkv, t * g, d).contiguous()
+    rows_k = kv[0][bt.long()].permute(1, 0, 2, 3).reshape(1, hkv, t, d).contiguous()
+    rows_v = kv[1][bt.long()].permute(1, 0, 2, 3).reshape(1, hkv, t, d).contiguous()
+    library, backend = _sdpa_yardstick(torch, qq, rows_k, rows_v, tok_mask, sm)
+    lib = _time_ms(library, 2, graph=True)
+    del tok_mask, rows_k, rows_v, qq
+    tri = torch.ones((npages, npages), dtype=torch.bool, device="cuda").tril(-1)
+    pairs = (float((mask & tri).sum()) * ps * ps
+             + float((mask & torch.eye(npages, dtype=torch.bool, device="cuda")).sum())
+             * ps * (ps + 1) / 2)
+    nbytes = (float(mask.any(1).sum()) * ps * d * 2 * 2 + 2 * 2 * t * hq * d
+              + 4 * mask.numel())
+    bound, by = _bound_ms(nbytes, 4.0 * pairs * g * d, "bf16_flops")
+    print(f"    keep=0.25 K15 alone: {ms:.4f} ms per call, plain {plain_ms:.3f} ms, SDPA "
+          f"({backend}, the mask spread to tokens) {lib:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"max-abs vs plain {err:.3g} [{gpu}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
 
 
 # --------------------------------------------- the soft-FP8 surface (phase 12)
@@ -3626,6 +3755,48 @@ def _gemm_bound(m, k, n, experts=1):
     return _bound_ms(nbytes, 2.0 * m * k * n, "bf16_flops")
 
 
+K21_EDGE_NOTES = ("M 8, 128 and 4096 at K 256, N 384 on TMA loads, M 600 and 200 (partial "
+                  "256- and 128-row tiles)", "an e4m3 NaN code (its column NaN, as in the plain "
+                  "version)", "m_live below M on the grouped form (zeros from m_live on, no "
+                  "weights read)")
+
+
+def check_wfp8a16_edges(torch, mm, qt):
+    """K21 at its edges against its plain version, each case on its own
+    seed: the three row tiles (M 8, 128, 4096) and partial ones (M 600, 200)
+    on TMA loads; an e4m3 NaN code, which must give NaN exactly where the
+    plain version does; and the grouped form with m_live below M (rows from
+    m_live on zeros), on TMA loads and on the second load path (N 136)."""
+    for i, m in enumerate((8, 128, 4096, 600, 200)):
+        w, s = _fp8_bank(torch, qt, 360 + i, (256, 384))
+        x = _bf16_rows(torch, 370 + i, (m, 256))
+        _gemm_check(f"wfp8a16_gemm M={m} K=256 N=384", mm.mm_wfp8a16(x, w, s),
+                    mm.mm_wfp8a16_ref(x, w, s))
+    w, s = _fp8_bank(torch, qt, 380, (384, 256))
+    w = w.view(torch.uint8).clone()
+    w[130, 77] = 0x7F                                           # e4m3 NaN
+    w = w.view(torch.float8_e4m3fn)
+    x = _bf16_rows(torch, 381, (128, 384))
+    out, ref = mm.mm_wfp8a16(x, w, s), mm.mm_wfp8a16_ref(x, w, s)
+    nan = torch.isnan(ref)
+    if not (torch.equal(torch.isnan(out), nan) and bool(nan[:, 77].all())
+            and int(nan.sum()) == 128):
+        raise AssertionError("wfp8a16_gemm: an e4m3 NaN code does not give its column NaN")
+    _gemm_check("wfp8a16_gemm NaN code, the other columns", out[:, ~nan[0]], ref[:, ~nan[0]])
+    for i, (n, block_m) in enumerate(((384, 128), (136, 64))):
+        w, s = _fp8_bank(torch, qt, 390 + i, (3, 256, n))
+        x = _bf16_rows(torch, 395 + i, (512, 256))
+        eid = torch.tensor([2, 0, 1, 1, 0, 2, 1, 0][: 512 // block_m], dtype=torch.int32,
+                           device="cuda")
+        live = torch.tensor([256], dtype=torch.int32, device="cuda")
+        got = mm._wfp8a16_gemm(x, w, s, eid, block_m, 128, m_live=live)
+        want = mm.gmm_wfp8a16_aligned_ref(x, w, s, eid, block_m=block_m)
+        _gemm_check(f"wfp8a16_gemm_grouped N={n} block_m={block_m} m_live 256", got[:256],
+                    want[:256])
+        if float(got[256:].float().abs().max()) != 0.0:
+            raise AssertionError("wfp8a16_gemm_grouped: rows from m_live on are not zero")
+
+
 def check_wfp8a16(torch, mm, qt, data):
     """K21 at phase 12's shapes against its plain version: the dense GEMM at
     M 128 on gate_proj, down_proj and kv_a_proj_with_mqa and at M 4096 on
@@ -3675,8 +3846,10 @@ def check_wfp8a16(torch, mm, qt, data):
     got = mm.gmm_wfp8a16(x, w, s, gl, block_m=32)
     want = mm.gmm_wfp8a16_ref(x, w, s, gl)
     _gemm_check("gmm_wfp8a16 S=40 block_m=32", got, want)
+    check_wfp8a16_edges(torch, mm, qt)
     print("  wfp8a16_gemm within its bar also at M 8 (a split K), a ragged K 200 and N 136, "
-          "and grouped over 32-row tiles with rows past the groups (zeros)")
+          "and grouped over 32-row tiles with rows past the groups (zeros); "
+          + ", ".join(K21_EDGE_NOTES))
     rows_x, sizes = _fp8_moe_rows(torch, data)
     m = rows_x.shape[0]
     eid = torch.arange(MOE_EL, dtype=torch.int32, device="cuda").repeat_interleave(
@@ -4231,7 +4404,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(check_decode_v6(torch, decode_v6, cfg, rng))
     torch.cuda.empty_cache()
-    rows["k15"] = check_prefill_hm(torch, paged_prefill, cfg, rng)
+    rows["k15"], rows["k15_int8"] = check_prefill_hm(torch, paged_prefill, cfg, rng)
     torch.cuda.empty_cache()
     rows.update(check_decode_v3(torch, decode_v3, decode, cfg, rng))
     torch.cuda.empty_cache()
@@ -4372,7 +4545,8 @@ def main() -> int:
     print("phase 11: the attentions surface (laser prefill, sparse estimator -> block-sparse "
           "paged prefill, top-k block decode, add_rmsnorm_bias) at full width")
     t0 = time.perf_counter()
-    att_launches = run_attentions(torch, _build, prefill, sparse, paged_prefill, norm, gpu)
+    att_launches, rows["k15_sparse"] = run_attentions(torch, _build, prefill, sparse,
+                                                      paged_prefill, norm, gpu)
     print(f"  phase 11 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -4471,6 +4645,14 @@ def main() -> int:
              replaces=f"{base}/ops/attention/paged_prefill.py:134",
              launches=sum(n["prefill_hm"] for n in hm_engine_launches.values()),
              **rows["k15"]),
+        dict(name="prefill_hm (int8)", route="cuda", source=f"{src}/prefill_hm.cu",
+             replaces=f"{base}/ops/attention/paged_prefill.py:134",
+             launches=hm_engine_launches["int8_kv=True, kv_layout='hm'"]["prefill_hm"],
+             **rows["k15_int8"]),
+        dict(name="prefill_hm (sparse T 8192 keep 0.25)", route="cuda",
+             source=f"{src}/prefill_hm.cu", replaces=f"{base}/ops/attention/paged_prefill.py:134",
+             launches=att_launches["prefill_hm (sparse T 8192 keep 0.25)"],
+             **rows["k15_sparse"]),
         dict(name="decode_v3_defer", route="cuda", source=f"{src}/decode_hm.cu",
              replaces=f"{base}/ops/attention/decode_v3.py:492",
              launches=hm_variants["SKT_DECODE_ATTN=v3"]["decode_v3_defer"],
@@ -4546,7 +4728,10 @@ def main() -> int:
           "decode_v6_defer (K14) row: the bench shape, launches from phase 9's bf16 run (all "
           "its 128 steps); decode_v6_int8_defer: the bench shape, launches from phase 9's "
           "SKT_KV_LAYOUT=hm int8 run; prefill_hm (K15) row: the bf16 pages, launches from "
-          "phase 10 (the first run of each engine); K16 rows (decode_v3*, decode_int8kv): the bench "
+          "phase 10 (the first run of each engine); prefill_hm (int8) row: the int8 pages, "
+          "launches from phase 10's int8 hm engine; prefill_hm (sparse T 8192 keep 0.25) row: "
+          "K15 alone on the page lists of phase 11's keep-0.25 mask, made before the timed "
+          "call (library: SDPA with the mask spread to tokens), launches from phase 11's keep-0.25 drive; K16 rows (decode_v3*, decode_int8kv): the bench "
           "shape, launches of the four v3 contracts from phase 9's SKT_DECODE_ATTN=v3 and "
           "SKT_DECODE_DEFER=0 runs on the bf16 and the int8 cache, decode_int8kv on no "
           "bench or engine run (no model calls it); K17-K20 rows: one row per phase-11 case, its "

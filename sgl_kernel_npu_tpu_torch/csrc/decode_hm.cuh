@@ -43,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
+
 namespace skt_hm {
 
 constexpr int THREADS = 256;
@@ -393,13 +395,8 @@ cudaError_t launch(const Operands& a, int B, cudaStream_t st) {
   auto kern = decode_hm_kernel<G, T, MODE, ROUND_P>;
   const int ldsc = MODE == TWO_TIER ? (a.ps > a.window ? a.ps : a.window) : a.ps;
   const size_t smem = ((size_t)G * ldsc + (size_t)SLICES * G * D) * sizeof(float);
-  static size_t allowed = 48 * 1024;
-  if (smem > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed = smem;
-  }
+  const cudaError_t e = skt::ensure_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<dim3(a.Hkv, B), THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }

@@ -32,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -186,14 +188,8 @@ extern "C" int skt_decode_mla(const void* q, const void* ckv, const void* krope,
   if (lkv != LKV || lrope % 2 || lrope > 64 || H % G) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   const size_t smem = (size_t)G * ps * sizeof(float);
-  static size_t allowed = 0;
-  if (smem > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(decode_mla_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed = smem;
-  }
+  const cudaError_t e = skt::ensure_smem(decode_mla_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(H / G, B);
   decode_mla_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ckv),

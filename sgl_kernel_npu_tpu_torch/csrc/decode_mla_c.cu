@@ -40,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
+
 namespace {
 
 constexpr int H = 16;                 // heads: the mma M tile
@@ -316,14 +318,8 @@ __global__ void __launch_bounds__(THREADS) decode_mla_c_kernel(const Args a) {
 template <typename T>
 cudaError_t launch(const Args& a, int B, cudaStream_t st) {
   const Layout lay(a.C, a.lkv, a.cp * a.ps);
-  static int allowed = 0;
-  if (lay.total > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(decode_mla_c_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         lay.total);
-    if (e != cudaSuccess) return e;
-    allowed = lay.total;
-  }
+  const cudaError_t e = skt::ensure_smem(decode_mla_c_kernel<T>, (size_t)lay.total);
+  if (e != cudaSuccess) return e;
   decode_mla_c_kernel<T><<<B, THREADS, lay.total, st>>>(a);
   return cudaGetLastError();
 }

@@ -30,6 +30,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
+
 namespace {
 
 constexpr int D = 128;          // head dim
@@ -240,16 +242,10 @@ cudaError_t launch(const void* q, const void* kn, const void* vn, const void* kc
                    const void* bt, void* out, int B, int hkv, int P, int ps, int MP,
                    int li, float sm_scale, cudaStream_t st) {
   // scores and v scales of one page; raise the kernel's dynamic shared-memory
-  // limit the first time a larger page needs it
+  // limit on this device the first time a larger page needs it
   const size_t smem = (size_t)(G + 1) * ps * sizeof(float);
-  static size_t allowed = 0;
-  if (smem > allowed) {
-    cudaError_t e = cudaFuncSetAttribute(decode_tm2_kernel<G>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    allowed = smem;
-  }
+  const cudaError_t e = skt::ensure_smem(decode_tm2_kernel<G>, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(hkv, B);
   decode_tm2_kernel<G><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kn),

@@ -61,6 +61,7 @@
 // past R * maxT read as zeros and are not written); the f32 GMM1 output and the requantised activation
 // go through device memory (ug, act). Simple first: no TMA, no wgmma.
 
+#include "device_once.cuh"
 #include "w8a8_core.cuh"
 
 namespace {
@@ -458,20 +459,11 @@ extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w1
   a.n_g2 = El * a.NT2 * a.MT;
   cudaError_t err = cudaMemsetAsync(ctr, 0, sizeof(int) * (1 + El + 2 * El * a.MT), st);
   if (err != cudaSuccess) return (int)err;
-  // the co-resident block count, taken once (the first call is not inside a
-  // CUDA graph capture)
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-      return (int)err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_moe_kernel, THREADS,
-                                                             0)) != cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident = per_sm * sms;
-  }
+  // the co-resident block count, taken once per device (the first call on a
+  // card is not inside a CUDA graph capture)
+  int resident = 0;
+  if ((err = skt::resident_blocks(fused_moe_kernel, THREADS, 0, resident)) != cudaSuccess)
+    return (int)err;
   const int total = a.n_s + a.n_g1 + a.n_rq + a.n_g2;
   const int grid = total < resident ? total : resident;
   fused_moe_kernel<<<grid, THREADS, 0, st>>>(a);

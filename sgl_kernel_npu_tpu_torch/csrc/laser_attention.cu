@@ -41,12 +41,12 @@
 // MMAs do. setmaxnreg moves the producer's registers to the consumers.
 // Causal grids start with the longest (last) query tiles.
 
-#include <cuda.h>              // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "device_once.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,163 +68,11 @@ struct alignas(1024) Smem {
   uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  const uint32_t addr = smem_u32(b);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of a 3-D tensor map into shared memory, completed on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; byte offsets lbo / sbo
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving register reads or writes across an
-// asynchronous wgmma (it sees only the asm statement that issued it)
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define SKT_ACC64                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define SKT_OUT64(d)                                                                    \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),       \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),    \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),    \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),    \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),    \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),    \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-// d (64 x 128, f32) = or += A (64 x 16, shared, K-major) . B (16 x 128, shared, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SKT_ACC64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : SKT_OUT64(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SKT_ACC64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : SKT_OUT64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the hi and lo bf16 parts of two f32 values, packed as an A-fragment register
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// named barriers 1 and 2 order the two consumer warpgroups' MMA turns
-__device__ __forceinline__ void turn_wait(int bar) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int bar) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(bar) : "memory");
-}
-
-// s (64 x 128) = Q (this warpgroup's 64 rows) . K^T of one stage, issued
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t qa, uint32_t kb) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(sc, sw128_desc(qa + (kk / 4) * (BM * ROW_BYTES) + (kk % 4) * 32, 16, 1024),
-             sw128_desc(kb + (kk / 4) * (BN * ROW_BYTES) + (kk % 4) * 32, 16, 1024), kk > 0);
-}
-
-// o += P . V of one stage, P as its hi and lo parts, issued. V is the
-// MN-major B operand: 64-column halves BN rows apart, 8-row groups 1 KB apart.
-__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&ph)[8][4],
-                                         const uint32_t (&pl)[8][4], uint32_t vb) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    const uint64_t vd = sw128_desc(vb + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 1024);
-    wgmma_rs(o, ph[kk], vd);
-    wgmma_rs(o, pl[kk], vd);
-  }
-}
-
 // The online softmax of one tile of scores (base 2): mask where `edge`,
-// update m and this thread's part of l, rescale o, and leave p as the hi and
-// lo A fragments of P . V: for keys 16 kk .., (row g, keys 2t), (row g+8,
-// 2t), (g, 2t+8), (g+8, 2t+8).
+// then softmax_step.
 __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&o)[64], float (&m)[2],
-                                             float (&l)[2], uint32_t (&ph)[8][4],
-                                             uint32_t (&pl)[8][4], bool edge, int c0, int row0,
+                                             float (&l)[2], uint32_t (&pf)[2][8][4], bool edge,
+                                             int c0, int row0,
                                              int tig, int T, int causal, float scale_log2) {
   if (edge) {
 #pragma unroll
@@ -238,42 +86,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&o)[64], fl
 #pragma unroll
     for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
   }
-  float mx[2] = {NEG, NEG};
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * n], sc[4 * n + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
-  }
-  float alpha[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float mn = fmaxf(m[r], mx[r]);
-    alpha[r] = ex2(m[r] - mn);
-    m[r] = mn;
-  }
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    float p[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) p[e] = ex2(sc[8 * kk + e] - m[(e >> 1) & 1]);
-    ps[0] += p[0] + p[1] + p[4] + p[5];
-    ps[1] += p[2] + p[3] + p[6] + p[7];
-    split(p[0], p[1], ph[kk][0], pl[kk][0]);
-    split(p[2], p[3], ph[kk][1], pl[kk][1]);
-    split(p[4], p[5], ph[kk][2], pl[kk][2]);
-    split(p[6], p[7], ph[kk][3], pl[kk][3]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    o[4 * n] *= alpha[0];
-    o[4 * n + 1] *= alpha[0];
-    o[4 * n + 2] *= alpha[1];
-    o[4 * n + 3] *= alpha[1];
-  }
+  softmax_step(sc, o, m, l, pf);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -308,17 +121,17 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     if (threadIdx.x == 0) {
       const int qh = b * Hq + h, kh = b * Hkv + h / (Hq / Hkv);
       mbar_expect_tx(&sm.q_full, Q_BYTES);
-      tma_load(sm.q[0], &qmap, &sm.q_full, 0, q0, qh);
-      tma_load(sm.q[1], &qmap, &sm.q_full, HALF, q0, qh);
+      tma_load_3d(sm.q[0], &qmap, &sm.q_full, 0, q0, qh);
+      tma_load_3d(sm.q[1], &qmap, &sm.q_full, HALF, q0, qh);
       for (int j = 0; j < nkt; ++j) {
         const int s = j % STAGES;
         if (j >= STAGES) mbar_wait(&sm.empty[s], ((j / STAGES) - 1) & 1);
         mbar_expect_tx(&sm.k_full[s], KV_BYTES);
-        tma_load(sm.k[s][0], &kmap, &sm.k_full[s], 0, j * BN, kh);
-        tma_load(sm.k[s][1], &kmap, &sm.k_full[s], HALF, j * BN, kh);
+        tma_load_3d(sm.k[s][0], &kmap, &sm.k_full[s], 0, j * BN, kh);
+        tma_load_3d(sm.k[s][1], &kmap, &sm.k_full[s], HALF, j * BN, kh);
         mbar_expect_tx(&sm.v_full[s], KV_BYTES);
-        tma_load(sm.v[s][0], &vmap, &sm.v_full[s], 0, j * BN, kh);
-        tma_load(sm.v[s][1], &vmap, &sm.v_full[s], HALF, j * BN, kh);
+        tma_load_3d(sm.v[s][0], &vmap, &sm.v_full[s], 0, j * BN, kh);
+        tma_load_3d(sm.v[s][1], &vmap, &sm.v_full[s], HALF, j * BN, kh);
       }
     }
   } else {
@@ -335,7 +148,7 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};   // l: this thread's columns only
-    uint32_t ph[8][4], pl[8][4];
+    uint32_t pf[2][8][4];                        // p's hi and lo parts
     const uint32_t qa = smem_u32(sm.q[0]) + cw * 64 * ROW_BYTES;
     if (cw == 1) turn_pass(1);                   // warpgroup 0 takes the first turn
     mbar_wait(&sm.q_full, 0);
@@ -349,12 +162,12 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     turn_wait(mine);
     mbar_wait(&sm.k_full[0], 0);
     wg_fence();
-    issue_qk(sc, qa, smem_u32(sm.k[0][0]));
+    issue_qk<BM, BN>(sc, qa, smem_u32(sm.k[0][0]));
     wg_commit();
     turn_pass(other);
-    wg_wait0();
+    wg_wait<0>();
     reg_fence(sc);
-    softmax_tile(sc, o, m, l, ph, pl, (causal && qt == 0) || BN > T, 0, row0, tig, T, causal,
+    softmax_tile(sc, o, m, l, pf, (causal && qt == 0) || BN > T, 0, row0, tig, T, causal,
                  scale_log2);
     for (int j = 1; j < nkt; ++j) {              // turn j: P . V of j - 1, S of j
       const int s = j % STAGES, sp = (j - 1) % STAGES;
@@ -363,19 +176,18 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       mbar_wait(&sm.k_full[s], (j / STAGES) & 1);
       reg_fence(o);
       wg_fence();
-      issue_pv(o, ph, pl, smem_u32(sm.v[sp][0]));
-      issue_qk(sc, qa, smem_u32(sm.k[s][0]));
+      issue_pv<BN>(o, pf, smem_u32(sm.v[sp][0]));
+      issue_qk<BM, BN>(sc, qa, smem_u32(sm.k[s][0]));
       wg_commit();
       turn_pass(other);
-      wg_wait0();
+      wg_wait<0>();
       reg_fence(o);
       reg_fence(sc);
-      reg_fence(ph);
-      reg_fence(pl);
+      reg_fence(pf);
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[sp]);
       const int c0 = j * BN;
-      softmax_tile(sc, o, m, l, ph, pl, (causal && j == qt) || c0 + BN > T, c0, row0, tig, T,
+      softmax_tile(sc, o, m, l, pf, (causal && j == qt) || c0 + BN > T, c0, row0, tig, T,
                    causal, scale_log2);
     }
     {                                            // turn nkt: P . V of the last tile
@@ -384,13 +196,12 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       mbar_wait(&sm.v_full[sp], ((nkt - 1) / STAGES) & 1);
       reg_fence(o);
       wg_fence();
-      issue_pv(o, ph, pl, smem_u32(sm.v[sp][0]));
+      issue_pv<BN>(o, pf, smem_u32(sm.v[sp][0]));
       wg_commit();
       if (cw == 0) turn_pass(other);             // warpgroup 1's last turn ends the chain
-      wg_wait0();
+      wg_wait<0>();
       reg_fence(o);
-      reg_fence(ph);
-      reg_fence(pl);
+      reg_fence(pf);
     }
 
 #pragma unroll
@@ -412,32 +223,6 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
-EncodeTiled encode_fn() {
-  static std::atomic<EncodeTiled> fn{nullptr};
-  EncodeTiled f = fn.load();
-  if (f == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    f = reinterpret_cast<EncodeTiled>(p);
-    fn.store(f);
-  }
-  return f;
-}
-
 // [heads, T, 128] bf16 as a 3-D map: boxes of 64 columns x `rows` rows of one head
 bool encode(EncodeTiled f, CUtensorMap* map, const void* base, int heads, int T, int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
@@ -450,9 +235,6 @@ bool encode(EncodeTiled f, CUtensorMap* map, const void* base, int heads, int T,
            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
-
-// The kernel's shared-memory size is set once per device (bit d of the mask).
-std::atomic<unsigned long long> g_smem_set{0};
 
 }  // namespace
 
@@ -470,16 +252,8 @@ extern "C" int skt_laser_attention(const void* q, const void* k, const void* v, 
       !encode(f, &vmap, v, B * Hkv, T, BN))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(Smem) + 1024;       // + the base's alignment to 1 KB
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = skt::ensure_smem(laser_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (!(g_smem_set.load() & bit)) {
-    e = cudaFuncSetAttribute(laser_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    g_smem_set.fetch_or(bit);
-  }
   const float scale_log2 = static_cast<float>(static_cast<double>(sm_scale) * 1.4426950408889634);
   const dim3 grid(Hq, B, (T + BM - 1) / BM);
   laser_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -43,7 +43,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "device_once.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -60,48 +61,6 @@ struct Smem {
   float kscale[STAGES][TK];
   float vscale[STAGES][TK];
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack(float lo_col, float hi_col) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 struct Args {
   const __nv_bfloat16* q;    // [S, T, hq, D]
@@ -392,9 +351,6 @@ __global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
   }
 }
 
-// The kernel's shared-memory size is set once per device (bit d of the mask).
-std::atomic<unsigned long long> g_smem_set{0};
-
 }  // namespace
 
 extern "C" int skt_prefill_tm(const void* q, const void* ck, const void* cv,
@@ -406,16 +362,8 @@ extern "C" int skt_prefill_tm(const void* q, const void* ck, const void* cv,
   if (G < 1 || R % G != 0 || S <= 0 || T <= 0 || hkv <= 0 || ps <= 0)
     return (int)cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = skt::ensure_smem(prefill_tm_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (!(g_smem_set.load() & bit)) {
-    e = cudaFuncSetAttribute(prefill_tm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-    g_smem_set.fetch_or(bit);
-  }
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.ck = static_cast<const __nv_bfloat16*>(ck);

@@ -27,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
+
 namespace {
 
 constexpr int THREADS = 512;
@@ -112,13 +114,8 @@ extern "C" int skt_sparse_estimate(const void* q, const void* k, void* scores, i
   const size_t smem = ((size_t)(NQ + NK) * PS + (size_t)WARPS * D) * sizeof(float);
   if (d != D || BH <= 0 || NQ <= 0 || NK <= 0 || bs <= 0 || smem > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
-  static bool set = false;
-  if (!set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        estimate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    set = true;
-  }
+  const cudaError_t e = skt::ensure_smem(estimate_kernel, MAX_SMEM);
+  if (e != cudaSuccess) return (int)e;
   estimate_kernel<<<BH, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<float*>(scores), NQ, NK, bs, causal);

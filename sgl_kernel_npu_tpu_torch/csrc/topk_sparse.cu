@@ -33,6 +33,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "device_once.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -227,13 +229,8 @@ template <int DK, int DV, int HG>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* ids, void* out,
                    int B, int H, int KB, int chunk, float sm_scale, cudaStream_t st) {
   auto kern = topk_kernel<DK, DV, HG>;
-  static bool set = false;
-  if (!set) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)Cfg<DK, DV, HG>::SMEM);
-    if (e != cudaSuccess) return e;
-    set = true;
-  }
+  const cudaError_t e = skt::ensure_smem(kern, (size_t)Cfg<DK, DV, HG>::SMEM);
+  if (e != cudaSuccess) return e;
   kern<<<dim3(B, H / HG), THREADS, Cfg<DK, DV, HG>::SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), ids, static_cast<__nv_bfloat16*>(out), H, KB,

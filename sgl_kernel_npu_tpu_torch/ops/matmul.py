@@ -31,6 +31,7 @@ softfp8_w8a16_grouped_matmul compute) run on kernel K21
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -399,15 +400,24 @@ def gmm_wfp8a16(x, w_fp8, w_scale, group_list, block: int = FP8_BLOCK, block_m: 
     return torch.where(keep[:, None], yp[slot], 0.0).to(torch.bfloat16)
 
 
-def _wfp8a16_tiling(m, n, k, grouped_block_m, device):
-    """K21's row tile (128 from M 96 up, where a 128-row tile fits the
-    expert map, else 32) and its split of K: over as many blocks as fill the
-    card's SMs once, at least 256 of K each (the split sums are f32 partials
-    added in a fixed order)."""
-    bm = 128 if m >= 96 and grouped_block_m % 128 == 0 else 32
-    tiles = cdiv(m, bm) * cdiv(n, 128)
+def _wfp8a16_tiling(m, n, k, block_m, device):
+    """K21's row tile and its split of K. The tile: 256 rows from M 512 up,
+    128 from M 65, else 64, where it divides the expert map's block_m (a
+    grouped tile steps by gcd(block_m, tile) rows, so that it never spans two
+    experts). The split: the tiles that fill whole waves of the card's SMs
+    run unsplit; the rest (every tile, where there are fewer than the SMs)
+    split K over as many blocks as one wave holds, at least 256 of K each
+    (f32 partial sums added in a fixed order). Returns (tile, tail tiles,
+    splits); the kernel derives the same tail from the same SM count."""
+    bm = 64
+    if m >= 512 and block_m % 256 == 0:
+        bm = 256
+    elif m > 64 and block_m % 128 == 0:
+        bm = 128
+    tiles = cdiv(m, math.gcd(block_m, bm)) * cdiv(n, 128)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return bm, max(1, min(cdiv(sms, tiles), cdiv(k, 256)))
+    tail = tiles % sms if tiles >= sms else tiles
+    return bm, tail, max(1, min(sms // tail, cdiv(k, 256))) if tail else 1
 
 
 def _wfp8a16_gemm(x, w, ws, eid, block_m, block, m_live=None):
@@ -437,9 +447,9 @@ def _wfp8a16_gemm(x, w, ws, eid, block_m, block, m_live=None):
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     if m == 0 or n == 0:
         return out
-    bm, splits = _wfp8a16_tiling(m, n, k, block_m if eid is not None else 128, dev)
-    work = (torch.empty((splits, m, n), dtype=torch.float32, device=dev) if splits > 1
-            else None)
+    bm, tail, splits = _wfp8a16_tiling(m, n, k, block_m if eid is not None else 256, dev)
+    work = (torch.empty((splits, tail, bm, 128), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
     fn = _build.launcher(name, _FP8_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(x.data_ptr(), w.data_ptr(), ws.data_ptr(),

@@ -1,0 +1,148 @@
+"""The port's CUDA sources set up every kernel per device.
+
+A kernel's dynamic shared-memory limit (cudaFuncSetAttribute) and the
+occupancy queries (cudaOccupancy*) belong to the device that is current
+when they run. Behind a function-scope `static` flag they run once per
+process, and a second card then launches with the first card's set-up, or
+is refused. The sources keep a record per (kernel, device) instead
+(csrc/device_once.cuh). This test reads the sources, so it runs without
+nvcc or a card: it fails where a function that sets a kernel up, directly or
+through the helpers, also declares a function-scope `static`.
+"""
+
+import glob
+import os
+import re
+
+import pytest
+
+from sgl_kernel_npu_tpu_torch import _build
+
+SOURCES = sorted(glob.glob(os.path.join(_build.CSRC, "*.cu"))
+                 + glob.glob(os.path.join(_build.CSRC, "*.cuh")))
+# calls whose result belongs to one device
+SETUP = re.compile(r"\bcudaFuncSetAttribute\b|\bcudaOccupancy\w*|\bensure_smem\b"
+                   r"|\bresident_blocks\b")
+# a function-scope static variable (compile-time constants excepted)
+STATIC = re.compile(r"\bstatic\b(?!\s+constexpr\b)")
+COMMENT_OR_STRING = re.compile(r'//[^\n]*|/\*.*?\*/|"(?:\\.|[^"\\])*"|\'(?:\\.|[^\'\\])*\'',
+                               re.S)
+# what may follow a function's closing parenthesis before its body
+QUALIFIERS = re.compile(r"\)\s*(?:const|noexcept|override|mutable|->\s*[\w:<>, ]+|\s)*$")
+
+
+def function_bodies(text):
+    """(name, body) of every outermost function body in C++ source text:
+    comments and literals blanked, a body being a brace block opened right
+    after a parameter list (and qualifiers) outside any other function."""
+    text = COMMENT_OR_STRING.sub(lambda m: " " * len(m.group(0)), text)
+    out, depth, start = [], 0, None
+    for i, ch in enumerate(text):
+        if ch == "{":
+            if start is None and QUALIFIERS.search(text[max(0, i - 200):i]):
+                start, depth = i, 0
+            if start is not None:
+                depth += 1
+        elif ch == "}" and start is not None:
+            depth -= 1
+            if depth == 0:
+                head = text[max(0, start - 200):start]
+                name = re.findall(r"(\w+)\s*\(", head)
+                out.append((name[0] if name else "?", text[start:i + 1]))
+                start = None
+    return out
+
+
+def setup_behind_static(text):
+    """The functions of `text` that set a kernel up and declare a
+    function-scope static."""
+    return [name for name, body in function_bodies(text)
+            if SETUP.search(body) and STATIC.search(body)]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=[os.path.basename(p) for p in SOURCES])
+def test_setup_is_per_device(path):
+    with open(path) as f:
+        text = f.read()
+    assert setup_behind_static(text) == [], (
+        f"{os.path.basename(path)}: a kernel's set-up sits behind a function-scope static; "
+        "use skt::ensure_smem / skt::resident_blocks (csrc/device_once.cuh)")
+
+
+def test_sources_found():
+    names = {os.path.basename(p) for p in SOURCES}
+    assert "device_once.cuh" in names
+    assert {f"{s}.cu" for s in _build.SOURCES} <= names
+
+
+# the guards the sources had, each as the scan must flag it, and the helpers'
+# use, which it must pass
+FLAGGED = {
+    "bool flag": """
+template <int PS, typename T>
+cudaError_t launch(const Args& a, int S, cudaStream_t st) {
+  static bool set = false;
+  if (!set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);  // { in a comment }
+    if (e != cudaSuccess) return e;
+    set = true;
+  }
+  kern<<<grid, 256, smem, st>>>(a);
+  return cudaGetLastError();
+}""",
+    "high-water": """
+extern "C" int skt_decode(const void* q, int ps, void* stream) {
+  const size_t smem = (size_t)G * ps * sizeof(float);
+  static size_t allowed = 0;
+  if (smem > allowed) {
+    if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+      return 1;
+    allowed = smem;
+  }
+  return 0;
+}""",
+    "occupancy": """
+int run(void* stream) {
+  static int resident = 0;
+  if (resident == 0) {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 256, 0);
+    resident = per_sm * 132;
+  }
+  return resident;
+}""",
+    "helper behind a flag": """
+cudaError_t launch() {
+  static bool ready = false;
+  if (!ready) { if (skt::ensure_smem(kern, 100000)) return cudaErrorUnknown; ready = true; }
+  return cudaSuccess;
+}""",
+}
+PASSED = {
+    "per device": """
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  static constexpr int SMEM = 100000;
+  const cudaError_t e = skt::ensure_smem(kern, (size_t)SMEM);
+  if (e != cudaSuccess) return e;
+  const char* s = "static bool set";
+  kern<<<1, 128, SMEM, st>>>(a);
+  return cudaGetLastError();
+}""",
+    "static elsewhere": """
+EncodeTiled encode_fn() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  return fn.load();
+}
+cudaError_t launch() { return skt::ensure_smem(kern, 65536); }""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLAGGED))
+def test_scan_flags_a_process_wide_guard(name):
+    assert len(setup_behind_static(FLAGGED[name])) == 1
+
+
+@pytest.mark.parametrize("name", sorted(PASSED))
+def test_scan_passes_per_device_setup(name):
+    assert setup_behind_static(PASSED[name]) == []

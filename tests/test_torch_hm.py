@@ -68,12 +68,12 @@ def _bf16(rng, shape, scale=1.0):
     return jnp.asarray(rng.standard_normal(shape) * scale, jnp.bfloat16)
 
 
-def _pages(rng, int8, pages=B * MP + 1, layout="page"):
+def _pages(rng, int8, pages=B * MP + 1, layout="page", ps=PS):
     """Seeded caches: bf16 rows of randn, or int8 rows with f32 scales of
     0.005..0.025, page-major [P, Hkv, ps, D] (layout "page") or head-major
     [Hkv, P, ps, D] ("head"). Returns a dict of jax arrays."""
-    shape = (pages, HKV, PS, D) if layout == "page" else (HKV, pages, PS, D)
-    sshape = shape[:2] + (1, PS)
+    shape = (pages, HKV, ps, D) if layout == "page" else (HKV, pages, ps, D)
+    sshape = shape[:2] + (1, ps)
     if not int8:
         return {"k": _bf16(rng, shape), "v": _bf16(rng, shape)}
     return {"k": jnp.asarray(rng.integers(-127, 128, shape, dtype=np.int8)),
@@ -191,10 +191,10 @@ def test_decode_int8kv_matches_jax_kernel(rng):
                       "int8kv vs one softmax")
 
 
-def _prefill_case(rng, int8, t, prefix, mp=6):
+def _prefill_case(rng, int8, t, prefix, mp=6, ps=PS):
     """A chunk of t tokens after `prefix` cached ones of one sequence, the
     cache holding seeded rows everywhere (the chunk is already written)."""
-    cache = _pages(rng, int8, pages=2 * mp + 1)
+    cache = _pages(rng, int8, pages=2 * mp + 1, ps=ps)
     kv = (cache["k"], cache["v"]) if not int8 else cache
     tkv = (tuple(_t(a) for a in kv) if not int8 else {n: _t(a) for n, a in kv.items()})
     q = _bf16(rng, (t, HQ, D), 1.5)
@@ -203,15 +203,20 @@ def _prefill_case(rng, int8, t, prefix, mp=6):
 
 
 @pytest.mark.parametrize("case", [("bf16", 24, 0, 8), ("bf16", 21, 7, 8), ("bf16", 33, 16, 16),
-                                  ("int8", 21, 7, 8), ("int8", 40, 0, 128)])
+                                  ("int8", 21, 7, 8), ("int8", 40, 0, 128),
+                                  ("bf16", 150, 133, 128, 128), ("int8", 150, 133, 128, 128),
+                                  ("bf16", 100, 256, 64, 128), ("int8", 100, 256, 64, 128)])
 def test_paged_prefill_dense_causal_matches_jax_kernel(rng, case):
     """The dense causal schedule at prefix 0, mid-page (7) and on a page
     boundary (16), a chunk that is not a multiple of block_q (the last tile
-    padded), bf16 pages and the int8 dict; block_q 128 gives one tile."""
-    kind, t, prefix, bq = case
-    kv, tkv, q, bt = _prefill_case(rng, kind == "int8", t, prefix)
-    want = jpp.paged_prefill_attention(q, kv, bt, prefix, SM, PS, block_q=bq)
-    got = tpp.paged_prefill_attention(_t(q), tkv, _t(bt), prefix, SM, PS, block_q=bq)
+    padded), bf16 pages and the int8 dict; block_q 128 gives one tile. The
+    engine's 128-token pages at G 4, off a page edge (prefix 133) and on one
+    (256), bf16 and int8, take a fifth entry (ps)."""
+    kind, t, prefix, bq, *page = case
+    ps = page[0] if page else PS
+    kv, tkv, q, bt = _prefill_case(rng, kind == "int8", t, prefix, ps=ps)
+    want = jpp.paged_prefill_attention(q, kv, bt, prefix, SM, ps, block_q=bq)
+    got = tpp.paged_prefill_attention(_t(q), tkv, _t(bt), prefix, SM, ps, block_q=bq)
     assert got.dtype == torch.bfloat16 and got.shape == (t, HQ, D)
     assert_bf16_close(got.float(), _np(want), SHARE, str(case))
 
@@ -238,6 +243,52 @@ def test_paged_prefill_page_sel_matches_jax_kernel(rng, per_head):
                                       page_cnt=torch.from_numpy(cnt), block_q=bq)
     assert_bf16_close(got.float(), _np(want), SHARE, f"per_head={per_head}")
     assert float(got[bq:2 * bq, :HQ // HKV].float().abs().max()) == 0.0   # empty list
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+def test_paged_prefill_int8_page_sel_matches_jax_kernel(rng, per_head):
+    """The page_sel / page_cnt drive over int8 pages: pages out of order, an
+    empty list (output 0), a first page that hides every column from some
+    rows, per tile or per kv head."""
+    t, prefix, bq = 24, 20, 8
+    kv, tkv, q, bt = _prefill_case(rng, True, t, prefix)
+    sel = np.array([[3, 0, 1, 0], [0, 0, 0, 0], [2, 1, 0, 0]], np.int32)
+    cnt = np.array([3, 0, 2], np.int32)
+    if per_head:
+        sel = np.stack([sel, np.array([[1, 0, 0, 0], [2, 3, 0, 0], [0, 1, 2, 3]], np.int32)])
+        cnt = np.stack([cnt, np.array([1, 2, 4], np.int32)])
+    want = jpp.paged_prefill_attention(q, kv, bt, prefix, SM, PS, page_sel=jnp.asarray(sel),
+                                       page_cnt=jnp.asarray(cnt), block_q=bq)
+    got = tpp.paged_prefill_attention(_t(q), tkv, _t(bt), prefix, SM, PS,
+                                      page_sel=torch.from_numpy(sel),
+                                      page_cnt=torch.from_numpy(cnt), block_q=bq)
+    assert_bf16_close(got.float(), _np(want), SHARE, f"int8 per_head={per_head}")
+    assert float(got[bq:2 * bq, :HQ // HKV].float().abs().max()) == 0.0   # empty list
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_prefill_all_invisible_list_matches_jax_kernel(rng, kind):
+    """A tile whose whole selected list lies past its rows' positions: every
+    score is masked, p = 1 over the masked columns, so each row keeps the
+    mean of V over them, as the TPU kernel gives it; the next tile sees its
+    pages."""
+    t, prefix, bq = 16, 4, 8
+    kv, tkv, q, bt = _prefill_case(rng, kind == "int8", t, prefix)
+    sel = np.array([[2, 3, 0], [0, 1, 0]], np.int32)      # tile 0: positions 4..11
+    cnt = np.array([2, 2], np.int32)
+    want = jpp.paged_prefill_attention(q, kv, bt, prefix, SM, PS, page_sel=jnp.asarray(sel),
+                                       page_cnt=jnp.asarray(cnt), block_q=bq)
+    got = tpp.paged_prefill_attention(_t(q), tkv, _t(bt), prefix, SM, PS,
+                                      page_sel=torch.from_numpy(sel),
+                                      page_cnt=torch.from_numpy(cnt), block_q=bq)
+    assert_bf16_close(got.float(), _np(want), SHARE, kind)
+    v = _np(kv["v"] if kind == "int8" else kv[1]).astype(np.float64)
+    if kind == "int8":
+        v = v * _np(kv["vs"])[:, :, 0, :, None]
+    rows = v[np.asarray(bt)[[2, 3]]]                      # [2, Hkv, ps, D]
+    mean = rows.transpose(1, 0, 2, 3).reshape(HKV, 2 * PS, D).mean(1)
+    assert_bf16_close(got[:bq].float(), np.repeat(mean, HQ // HKV, 0)[None].repeat(bq, 0),
+                      1e-3, f"{kind} mean of V")
 
 
 def test_paged_prefill_batch_stacks_chunks(rng):
