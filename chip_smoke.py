@@ -40,7 +40,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    [4, 16, 4096, 128], blocks of 128; the keep-0.25 masks equal), K19 (top-k
    block-sparse decode at bench_ops.py's shape, B 64, H 16, D = Dv = 128, and
    at DeepSeek-V2-Lite's latent rows, B 128, D 576, Dv 512; 256 blocks a row,
-   one row all -1) and K20 (add_rmsnorm_bias's quant pass at hidden 4096,
+   one row all -1; also at KB 251, no multiple of its split count, with a
+   split of only -1 ids, chunk 1 and 64, a second call bit-identical) and K20 (add_rmsnorm_bias's quant pass at hidden 4096,
    N 8192 and 128 in bf16, and its f32 instantiation at N 128: h exact,
    int8 within a flip bar); and the last nine TPU kernels' ports: K21 (the
    soft-FP8 W8A16 GEMM at DeepSeek-V3's fp8 widths: gate_proj, down_proj and
@@ -59,7 +60,13 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    K10 (on O(1) outputs of a peaked softmax) within one bf16 ulp plus 2e-3
    (K5, K14) or 1e-4 (K7, K10, K15, K16, K17, K19) of max|plain|, K9's output within 1e-4 of
    max|plain| and its pool within one bf16 ulp, rows it must not write
-   untouched.
+   untouched. C is also held at cached 0, 1, 15, 16, 17 (shorter than a
+   split's share), 200, 700 and 1500 over a block table of 128 pages, both
+   contracts, a second call bit-identical. Tie-prone inputs (keys in tied
+   pairs whose values sit a unit apart; for K21 sums on a bf16 midpoint)
+   hold B, K5, K17, K15's int8 body and K21, whose tensor-core sums are not
+   promoted to f32 round-to-nearest, to their phase-1 bars and print the
+   share of outputs off the plain version's.
    Times the kernel, the plain version and a PyTorch library yardstick with
    CUDA events, and computes each kernel's bound from its bytes and
    operations.
@@ -70,6 +77,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    serves them again to check that the tokens repeat.
 3. Runs small configurations on the card and on the CPU (plain versions)
    and compares logits and caches: Llama prefill and decode on tm pages,
+   a LlamaEngine on tm pages (four requests, two sharing a prefix with the
+   first two, contexts across C's softmax step: every greedy token equal,
+   and no CPU decision on a tie of the two best logits),
    Llama decode on tm2 pages with pretiled banks, a 2-layer MLA config on
    both MLA paths, a 4-layer Qwen3-Next config (head dims 128, 8
    experts top-2) through decode_step_q, and a 2-layer Llama config on hm
@@ -1629,6 +1639,145 @@ def check_prefill_hm(torch, pp, cfg, rng):
     return rows["bf16"], rows["int8"]
 
 
+# ------------------------------------------------- tie-prone inputs (B, K5, K17, K21, K15)
+
+
+def _pairs(x, dim):
+    """x with every odd index along `dim` a copy of the even one before it:
+    every score then has a twin, so a softmax's maximum is a tie."""
+    idx = (x.new_ones(x.shape[dim], dtype=x.dtype).long().cumsum(0) - 1) // 2 * 2
+    return x.index_select(dim, idx).contiguous()
+
+
+def _ulp_apart(torch, x, dim):
+    """x (bf16 or int8) with every odd index along `dim` one unit (a bf16 ulp,
+    or 1 of int8) from the even one before it: each tied pair of keys
+    averages two values a unit apart, which lands on a rounding edge."""
+    y = _pairs(x, dim)
+    odd = torch.arange(x.shape[dim], device=x.device) % 2 == 1
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    odd = odd.reshape(shape)
+    if x.dtype == torch.int8:
+        return torch.where(odd & (y < 127), y + 1, y).to(torch.int8).contiguous()
+    bits = y.view(torch.int16)
+    return torch.where(odd, bits + 1, bits).view(torch.bfloat16).contiguous()
+
+
+def _tie_report(name, out, ref, err, ratio, bar):
+    same = float((out.float() == ref.float()).float().mean())
+    print(f"  tie-prone {name}: max-abs {err:.3g} ({ratio:.3g} of its phase-1 bar, {bar}); "
+          f"{1 - same:.4%} of the outputs differ from the plain version's")
+
+
+def check_tie_prone(torch, pp_tm, dv2, pf, pp_hm, mm, cfg, mcfg):
+    """Each tensor-core kernel whose sums were not promoted to f32
+    round-to-nearest, against its plain version on inputs where that would
+    show: keys in tied pairs (every softmax maximum a tie; q scaled up so
+    that the pairs dominate) whose values sit a unit apart, so the exact
+    outputs lie on bf16 rounding edges; for K21, products whose sum sits on
+    the midpoint between 1 and the next bf16 value, with residues near an
+    f32 ulp. B (int8 tm pages + a bf16 chunk), K5 (int8 and bf16 latent
+    rows), K17 (T 1024, causal), K15's int8 body, K21 (M 128, K 256, N
+    384). Each must stay within its phase-1 bar; prints the share of outputs
+    that differ from the plain version's."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(600)
+    hq, hkv, d, ps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    sm = d ** -0.5
+    # B: the first prefill case's shapes
+    pages, mp, layers, li = 64, 8, 2, 1
+    kc, vc, ks, vs = _tm_cache(torch, gen, layers, pages, ps, hkv, d)
+    tm = (layers, pages, ps, hkv, d)
+    kc = _pairs(kc.view(tm), 2).view(kc.shape)
+    vc = _ulp_apart(torch, vc.view(tm), 2).view(vc.shape)
+    ks = _pairs(ks.view(layers, pages, 1, ps, hkv), 3).view(ks.shape)
+    vs = _pairs(vs.view(layers, pages, 1, ps, hkv), 3).view(vs.shape)
+    plen = torch.tensor([256, 384], dtype=torch.int32, device="cuda")
+    vlen = torch.tensor([256, 200], dtype=torch.int32, device="cuda")
+    bt = _block_tables(torch, gen, (plen + vlen).tolist(), mp, pages, ps)
+    t = 256
+    q = (3 * torch.randn((2, t, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    ck = _pairs(torch.randn((2, t, hkv, d), generator=gen, device="cuda").to(torch.bfloat16), 1)
+    cv = _ulp_apart(torch, torch.randn((2, t, hkv, d), generator=gen, device="cuda")
+                    .to(torch.bfloat16), 1)
+    args = (q, ck, cv, kc, vc, ks, vs, bt, plen, vlen, sm, ps)
+    out = pp_tm.paged_prefill_attention_tm(*args, layer_idx=li)
+    ref = pp_tm.paged_prefill_attention_tm_ref(*args, layer_idx=li)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= ATTN_TOL:
+        raise AssertionError(f"tie-prone prefill_tm: max-abs {err} > {ATTN_TOL}")
+    _tie_report("prefill_tm (B)", out, ref, err, err / ATTN_TOL, f"{ATTN_TOL} max-abs")
+    del kc, vc, ks, vs
+    # K5: latent rows in tied pairs (K and V are one row: the pair is exact)
+    b, h, lkv = 64, mcfg.num_heads, mcfg.kv_lora_rank
+    c, mps = lkv + mcfg.qk_rope_dim, 3
+    pages = b * mps + 1
+    cached = torch.randint(1, mps * mcfg.page_size, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    btm = (torch.randperm(pages - 1, generator=gen, device="cuda")[: b * mps]
+           .reshape(b, mps).to(torch.int32) + 1)
+    qm = (3 * torch.randn((b, h, c), generator=gen, device="cuda")).to(torch.bfloat16)
+    new = torch.randn((b, c), generator=gen, device="cuda").to(torch.bfloat16)
+    smm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    for int8 in (True, False):
+        cache = _pairs(_latent_rows(torch, gen, (2, pages, mcfg.page_size, c), int8), 2)
+        scales = (_pairs(torch.rand((2, pages, 1, mcfg.page_size), generator=gen,
+                                    device="cuda") * 0.02 + 0.005, 3) if int8 else None)
+        margs = (qm, new, cache, cached, btm, smm, mcfg.page_size, lkv)
+        out = dv2.decode_mla_v3_defer(*margs, layer_idx=1, kv_scales=scales)
+        ref = dv2._decode_chunks_ref(qm, new, cache, scales, cached, btm, smm, mcfg.page_size,
+                                     lkv, 1, dv2._chunk_pages(mps))
+        torch.cuda.synchronize()
+        kind = "int8" if int8 else "bf16"
+        err, ratio = _bf16_check(f"tie-prone decode_mla_c {kind}", out, ref, K5_SHARE)
+        _tie_report(f"decode_mla_c {kind} (K5)", out, ref, err, ratio,
+                    f"one bf16 ulp + {K5_SHARE} of max|plain|")
+        del cache
+    # K17: causal T 1024 at Llama-3-8B's heads
+    tl = 1024
+    ql = (3 * torch.randn((1, ATT_HQ, tl, ATT_D), generator=gen, device="cuda")).to(torch.bfloat16)
+    kl = _pairs(torch.randn((1, ATT_HKV, tl, ATT_D), generator=gen, device="cuda")
+                .to(torch.bfloat16), 2)
+    vl = _ulp_apart(torch, torch.randn((1, ATT_HKV, tl, ATT_D), generator=gen, device="cuda")
+                    .to(torch.bfloat16), 2)
+    out = pf.laser_attention(ql, kl, vl, sm, True)
+    ref = pf.laser_attention_blocked_ref(ql, kl, vl, sm, True)
+    torch.cuda.synchronize()
+    err, ratio = _bf16_check("tie-prone laser_attention", out, ref, ATT_SHARE)
+    _tie_report("laser_attention T=1024 causal (K17)", out, ref, err, ratio,
+                f"one bf16 ulp + {ATT_SHARE} of max|plain|")
+    # K15's int8 body: 512 tokens over a 256-token prefix on int8 hm pages
+    th, prefix, mph = 512, 256, 6
+    bth = (torch.randperm(2 * mph, generator=gen, device="cuda")[:mph].to(torch.int32) + 1)
+    qh = (3 * torch.randn((th, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    k, v, ks, vs = _hm_pages(torch, gen, 2 * mph + 1, hkv, ps, d, True)
+    kv = {"k": _pairs(k, 2), "v": _ulp_apart(torch, v, 2), "ks": _pairs(ks, 3),
+          "vs": _pairs(vs, 3)}
+    hargs = (qh, kv, bth, torch.tensor(prefix, dtype=torch.int32, device="cuda"), sm, ps)
+    out, ref = pp_hm.paged_prefill_attention(*hargs), pp_hm.paged_prefill_attention_ref(*hargs)
+    torch.cuda.synchronize()
+    err, ratio = _bf16_check("tie-prone prefill_hm int8", out, ref, HM_SHARE)
+    _tie_report("prefill_hm int8 (K15's int8 body)", out, ref, err, ratio,
+                f"one bf16 ulp + {HM_SHARE} of max|plain|")
+    # K21: out = 1 + 2^-8 + a residue of about an f32 ulp at 1
+    m, kk, n = 128, 256, 384
+    x = torch.randint(-4, 5, (m, kk), generator=gen, device="cuda").float() * 2.0 ** -24
+    x[:, 0], x[:, 1] = 1.0, 2.0 ** -8
+    w = (torch.randint(8, 16, (kk, n), generator=gen, device="cuda").float() / 8.0
+         * torch.where(torch.rand((kk, n), generator=gen, device="cuda") < 0.5, -1.0, 1.0))
+    w[0], w[1] = 1.0, 1.0
+    x = x.to(torch.bfloat16)
+    w = w.to(torch.float8_e4m3fn)
+    s = torch.ones((2, 3), dtype=torch.float32, device="cuda")
+    out, ref = mm.mm_wfp8a16(x, w, s), mm.mm_wfp8a16_ref(x, w, s)
+    torch.cuda.synchronize()
+    err, ratio = _gemm_check("tie-prone wfp8a16_gemm", out, ref)
+    _tie_report("wfp8a16_gemm M=128 K=256 N=384 (K21)", out, ref, err, ratio,
+                f"calc_diff {FP8_DIFF} and one bf16 ulp + {FP8_SHARE} of max|plain|")
+
+
 # ------------------------------------------------------------- the engine
 
 
@@ -1720,7 +1869,8 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
         # re-running the call after the engine has finished rewrites only
         # slots nobody reads
         args = stats["steady_args"]
-        profile_step(torch, lambda: inner_dec(*args), (), "decode call (B=8, all rows live)")
+        profile_step(torch, lambda: inner_dec(*args), _ENGINE_BUCKETS,
+                     "decode call (B=8, all rows live)")
     del eng
     return outs, stats, wall, reused, launches
 
@@ -1978,6 +2128,89 @@ def check_small_hm(torch, llama, serving):
               f"logits calc_diff (prefill x2, v6 x2, v3, DEFER=0) "
               f"{[f'{x:.3g}' for x in diffs]}; layer-0 cache exact fraction min "
               f"{min(exact):.5f}; engine tokens equal card vs CPU (radix reuse 32)")
+
+
+# the small tm engine's prompts (seed, lengths, shared prefixes of two more
+# and their new tokens) and greedy tokens a request; its CPU run must take no
+# decision on an exact tie
+TM_ENGINE_SEED, TM_ENGINE_LENS, TM_ENGINE_SHARED = 19, (70, 45), ((48, 9), (32, 20))
+TM_ENGINE_NEW = 6
+
+
+def _count_tied_decisions(torch, eng):
+    """Wrap eng's model calls to count decisions (live decode rows, the last
+    row of every prefilled sequence) whose two best logits are equal. The
+    count excuses no token: a check fails where its reference takes any."""
+    dec, pre = eng._decode, eng._prefill_batch
+    ties = [0]
+
+    def count(rows):
+        top = rows.float().topk(2, dim=-1).values
+        ties[0] += int((top[:, 0] == top[:, 1]).sum())
+
+    def decode(*a):
+        lg, kv = dec(*a)
+        count(lg[a[4] >= 0])
+        return lg, kv
+
+    def prefill(ids, vl, *a):
+        lg, kv = pre(ids, vl, *a)
+        count(lg[torch.arange(lg.shape[0]), (vl.long() - 1).clamp_min(0)][vl > 0])
+        return lg, kv
+    eng._decode, eng._prefill_batch = decode, prefill
+    return ties
+
+
+def check_small_tm_engine(torch, llama, serving):
+    """A LlamaEngine on int8 token-major pages at a small config (D = 128, G
+    = 4, ps = 16, L = 2, so that A, B, C and D all run), card against CPU
+    (plain versions) from the same CPU-made weights: two prompts of 70 and
+    45 tokens, prefilled in 64-token chunks, then two more that share 48
+    and 32 of their tokens (radix reuse), 6 greedy tokens each (as
+    check_small_hm) through a padded decode batch of 4. Contexts cross C's
+    64-token softmax step (4 pages of 16). Every greedy token must be equal:
+    logits a rounding apart would not show a flipped token, this does (B
+    stepping its softmax by 64-key tiles instead of by pages turned request
+    0's sixth token). A decision on an exact tie of the two best logits is
+    made by argmax's order, not by the numbers (any f32 sum in another order
+    may break it either way), so the CPU run must take none."""
+    from sgl_kernel_npu_tpu_torch import _build
+    cfg = llama.LlamaConfig(vocab_size=1024, hidden_size=512, num_layers=2, num_heads=8,
+                            num_kv_heads=2, head_dim=128, intermediate_size=1024,
+                            page_size=16, max_position=512, int8_kv=True)
+    cpu_params = llama.init_params(cfg, 3, "cpu")
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        eng = serving.LlamaEngine(cfg, params=_to_device(cpu_params, dev), num_pages=64,
+                                  decode_batch=4, token_budget=64, device=dev)
+        if not (isinstance(eng.kv, dict) and eng.kv["k"].dim() == 4):
+            raise AssertionError("the small engine did not pick int8 token-major pages")
+        ties = _count_tied_decisions(torch, eng) if dev == "cpu" else None
+        prng = np.random.default_rng(TM_ENGINE_SEED)
+        first = [prng.integers(0, cfg.vocab_size, n).tolist() for n in TM_ENGINE_LENS]
+        late = [p[:n] + prng.integers(0, cfg.vocab_size, k).tolist()
+                for p, (n, k) in zip(first, TM_ENGINE_SHARED)]
+        calls = _Launches(_build) if dev == "cuda" else None
+        rids = [eng.add_request(p, TM_ENGINE_NEW) for p in first]
+        while not eng.reqs[rids[0]]["out"]:
+            eng.step()
+        rids += [eng.add_request(p, TM_ENGINE_NEW) for p in late]
+        while eng.step():
+            pass
+        tokens[dev] = ([eng.reqs[r]["out"] for r in rids],
+                       [eng.reqs[r]["cached"] for r in rids[2:]])
+        if calls is not None:
+            launched = calls.delta()
+    if ties[0]:
+        raise AssertionError(f"small tm engine: the CPU run decides {ties[0]} tokens on a tie")
+    if tokens["cuda"] != tokens["cpu"] or tokens["cuda"][1] != [48, 32]:
+        raise AssertionError(f"small tm engine: card {tokens['cuda']} vs cpu {tokens['cpu']}")
+    missing = [k for k in SERVING_KERNELS if k != "w8a8_gemm_l1" and not launched[k]]
+    if missing:
+        raise AssertionError(f"small tm engine: no launch of {missing}")
+    print(f"  small tm engine (int8 tm pages, L=2, D=128, G=4, ps=16; prompts 70 / 45, then "
+          f"two sharing 48 / 32): all {sum(len(t) for t in tokens['cuda'][0])} greedy tokens "
+          f"equal card vs CPU, none decided on a tie (A, B, C, D launched)")
 
 
 def _leaves_cpu(kv):
@@ -2390,6 +2623,9 @@ _K8 = ("w8a8_kernel<32, 0, true>", "w8a8_epilogue<false, true>")
 _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                ("K14 decode_v6_defer", ("decode_hm_kernel",)),
                ("split-K memsets", ("Memset",)))
+# phase 2's decode call: kernel C's share of the device time
+_ENGINE_BUCKETS = (("A w8a8_gemm", ("w8a8_kernel", "w8a8_epilogue")),
+                   ("C decode_tm", ("decode_tm_kernel",)), ("D append_tm", ("append_tm_kernel",)))
 _BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
             ("K3 decode_tm2", ("decode_tm2_kernel",)),
             ("K4 append_tm2", ("append_tm2_kernel",)),
@@ -3358,13 +3594,13 @@ def check_sparse_estimate(torch, sp):
     return row
 
 
-def _topk_case(torch, name, b, d, dv, pages, seed):
-    """Seeded q [B, 16, D], caches [pages, 128, D] / [.., Dv], KB 256
+def _topk_case(torch, name, b, d, dv, pages, seed, heads=TOPK_H):
+    """Seeded q [B, heads, D], caches [pages, 128, D] / [.., Dv], KB 256
     distinct 8-token blocks a row; row 1 leaves its last 100 at -1, row 2 is
     all -1. Returns (q, k cache, v cache, block ids, token ids)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    q = torch.randn((b, TOPK_H, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, heads, d), generator=gen, device="cuda").to(torch.bfloat16)
     kc = torch.randn((pages, TOPK_PS, d), generator=gen, device="cuda").to(torch.bfloat16)
     vc = torch.randn((pages, TOPK_PS, dv), generator=gen, device="cuda").to(torch.bfloat16)
     nblocks = pages * TOPK_PS // 8
@@ -3411,7 +3647,10 @@ def check_topk(torch, sp):
         distinct = torch.cat([ids[ids >= 0], ids.new_zeros(1)]).unique().numel()
         nbytes = (8.0 * distinct * 2.0 * (d + dv) + 2.0 * b * TOPK_H * (d + dv)
                   + 4.0 * ids.numel())
-        bound, by = _bound_ms(nbytes, 2.0 * selected * TOPK_H * (d + dv), "f32_flops")
+        # operations on the bf16 tensor cores K19 runs: q . k and p . v once
+        # each; p . v takes p as three bf16 parts, so its floor counts it thrice
+        bound, by = _bound_ms(nbytes, 2.0 * selected * TOPK_H * (d + dv), "bf16_flops")
+        floor3 = _bound_ms(nbytes, 2.0 * selected * TOPK_H * (d + 3 * dv), "bf16_flops")[0]
         print(f"  topk_block_sparse ({name}) B={b} H={TOPK_H} D={d} Dv={dv} {pages} pages of "
               f"{TOPK_PS}, {TOPK_KB} blocks a row ({int(selected)} rows selected, {distinct} "
               f"distinct blocks, {nbytes / 1e6:.1f} MB to move): max-abs "
@@ -3419,11 +3658,96 @@ def check_topk(torch, sp):
               f"{float(ref.float().abs().max()):.3g}), the all -1 row block 0's mean; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA ({backend}, over rows gathered by "
               f"index_select beforehand) {lib:.4f} ms (max-abs vs plain "
-              f"{float(lib_err.abs().max()):.3g}); bound {bound:.4f} ms ({by})")
+              f"{float(lib_err.abs().max()):.3g}); bound {bound:.4f} ms ({by}; with the "
+              f"three-part P . V {floor3:.4f})")
         rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
                          max_abs_err=err))
         del q, kc, vc, ids, tok, kg, vg
     return rows
+
+
+def check_topk_edges(torch, sp):
+    """K19's splits at both phase-1 shapes with KB 251 (a prime: no split
+    count divides it) and chunk 1 and 64, against the plain version: row 1
+    leaves its last 100 ids at -1, row 2 is all -1, row 3 its second half
+    (so its last split holds only -1 ids, which must vanish from the
+    merge); a second call bit-identical (the merge is in split order)."""
+    from sgl_kernel_npu_tpu_torch import _build
+    kb = 251
+    for i, (name, b, d, dv, pages) in enumerate(TOPK_SHAPES):
+        q, kc, vc, ids, _ = _topk_case(torch, name, b, d, dv, pages, 290 + i)
+        ids = ids[:, :kb].contiguous()
+        ids[1, kb - 100:] = -1
+        ids[3, kb // 2:] = -1
+        sm = d ** -0.5
+        splits = _build.splits("topk_block_sparse", b, TOPK_H, kb, d, dv)
+        for chunk in (1, 64):
+            out = sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS, chunk=chunk)
+            again = sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS, chunk=chunk)
+            ref = sp.topk_block_sparse_attention_ref(q, kc, vc, ids, sm, TOPK_PS, chunk)
+            torch.cuda.synchronize()
+            err, ratio = _bf16_check(f"topk_block_sparse ({name}) KB {kb} chunk {chunk}", out,
+                                     ref, ATT_SHARE)
+            if not torch.equal(out, again):
+                raise AssertionError(f"topk_block_sparse ({name}): a second call differs")
+            print(f"  topk_block_sparse ({name}) KB={kb} over {splits} splits, chunk {chunk}, a "
+                  f"split of only -1 ids in row 3: max-abs {err:.3g} ({ratio:.3g} of its bound); "
+                  f"a second call bit-identical")
+        del q, kc, vc, ids
+    # 8 heads (half of a block's 16 idle) and 40 (three blocks of heads a row)
+    for heads in (8, 40):
+        q, kc, vc, ids, _ = _topk_case(torch, "heads", 16, 128, 128, 64, 300 + heads, heads)
+        out = sp.topk_block_sparse_attention(q, kc, vc, ids, 128 ** -0.5, TOPK_PS)
+        ref = sp.topk_block_sparse_attention_ref(q, kc, vc, ids, 128 ** -0.5, TOPK_PS, 64)
+        torch.cuda.synchronize()
+        err, ratio = _bf16_check(f"topk_block_sparse H={heads}", out, ref, ATT_SHARE)
+        print(f"  topk_block_sparse B=16 H={heads} D=Dv=128: max-abs {err:.3g} ({ratio:.3g} of its "
+              f"bound)")
+
+
+def check_decode_edges(torch, dv9, dv8, cfg):
+    """Kernel C's splits at their edges, both contracts, against the plain
+    versions: cached 0, 1, 15, 16, 17 (shorter than one split's share: the
+    other splits are empty), 200, 700 and 1500 over a block table of 128
+    pages (16,384 tokens, far wider than the longest sequence); a second
+    call bit-identical."""
+    from sgl_kernel_npu_tpu_torch import _build
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(500)
+    b, hq, hkv, d, ps = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    pages, mp, layers, li = 160, 128, 2, 0
+    kc, vc, ks, vs = _tm_cache(torch, rng, layers, pages, ps, hkv, d)
+    cached = torch.tensor([0, 1, 15, 16, 17, 200, 700, 1500], dtype=torch.int32, device="cuda")
+    bt = _block_tables(torch, rng, (cached + 1).tolist(), mp, pages, ps)
+    q = torch.randn((b, hq, d), generator=rng, device="cuda").to(torch.bfloat16)
+    kn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+    args = (q, kn, vn, kc, vc, ks, vs, cached, bt, d ** -0.5, ps)
+    splits = _build.splits("decode_tm", b, hkv, mp, ps)
+    for name, mod, fn in (("decode_tm", dv9, "decode_gqa_v9_int8_defer"),
+                          ("decode_v8 contract", dv8, "decode_gqa_v8_int8_defer")):
+        out = getattr(mod, fn)(*args, layer_idx=li)
+        again = getattr(mod, fn)(*args, layer_idx=li)
+        ref = getattr(mod, fn + "_ref")(*args, layer_idx=li)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"{name} edges: max-abs {err} > {ATTN_TOL}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: a second call differs")
+        print(f"  {name} B={b} MP={mp} over {splits} splits, cached {cached.tolist()}: max-abs "
+              f"{err:.3g}; a second call bit-identical")
+    # one query head a kv head (seven of mma's eight idle) and eight (all used)
+    for g in (1, 8):
+        q = torch.randn((b, hkv * g, d), generator=rng, device="cuda").to(torch.bfloat16)
+        gargs = (q, *args[1:])
+        out = dv9.decode_gqa_v9_int8_defer(*gargs, layer_idx=li)
+        ref = dv9.decode_gqa_v9_int8_defer_ref(*gargs, layer_idx=li)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"decode_tm G={g}: max-abs {err} > {ATTN_TOL}")
+        print(f"  decode_tm G={g} (Hq {hkv * g}), the same cache: max-abs {err:.3g}")
 
 
 def _norm_inputs(torch, n, seed, dtype=None):
@@ -4375,6 +4699,7 @@ def main() -> int:
     rows["l1"] = check_matmul_l1(torch, matmul, quant, cfg, rng)
     torch.cuda.empty_cache()
     rows["dec"], rows["v8"] = check_decode(torch, decode_v9, decode_v8, cfg, rng)
+    check_decode_edges(torch, decode_v9, decode_v8, cfg)
     torch.cuda.empty_cache()
     rows["pre"], rows["pre512"] = check_prefill(torch, paged_prefill_tm, cfg, rng)
     torch.cuda.empty_cache()
@@ -4423,6 +4748,7 @@ def main() -> int:
     rows["sparse_estimate"] = check_sparse_estimate(torch, sparse)
     torch.cuda.empty_cache()
     rows.update(zip(TOPK_NAMES, check_topk(torch, sparse)))
+    check_topk_edges(torch, sparse)
     torch.cuda.empty_cache()
     rows.update(zip(NORM_NAMES, check_add_rmsnorm_quant(torch, norm)))
     torch.cuda.empty_cache()
@@ -4431,6 +4757,9 @@ def main() -> int:
     rows["k22"] = check_helloworld(torch, helloworld)
     torch.cuda.empty_cache()
     rows.update(check_attic(torch, attic_v4, attic_v5, attic_v7, cfg))
+    torch.cuda.empty_cache()
+    check_tie_prone(torch, paged_prefill_tm, decode_mla_v2, prefill, paged_prefill, matmul, cfg,
+                    mcfg)
     torch.cuda.empty_cache()
 
     print("phase 2: LlamaEngine at Llama-3-8B width, int8 KV, seed-0 weights")
@@ -4473,6 +4802,7 @@ def main() -> int:
 
     print("phase 3: small configs, card vs CPU plain versions")
     check_small_config(torch, llama)
+    check_small_tm_engine(torch, llama, serving)
     check_small_tm2(torch, llama)
     check_small_mla(torch, deepseek_mla)
     check_small_qwen(torch, qwen_next)

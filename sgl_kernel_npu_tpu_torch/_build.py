@@ -158,6 +158,36 @@ def launcher(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def splits(name: str, *args: int) -> int:
+    """How many blocks kernel `name` splits each row over on the current
+    device (its C function `skt_<name>_splits`, which sizes them from the
+    card's SM count)."""
+    fn = getattr(library(KERNELS[name]), f"skt_{name}_splits")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * len(args)
+    n = fn(*args)
+    if n <= 0:
+        check(name, -n or 1)
+    return n
+
+
+# kernel name -> device index -> every counter buffer handed out (a CUDA
+# graph may keep using any of them, so none is freed)
+_arrivals: Dict[str, Dict[int, list]] = {}
+
+
+def arrival_counters(name: str, device, n: int):
+    """At least `n` int32 arrival counters of kernel `name` on `device`,
+    zeroed once when they are made. A split kernel's last block to arrive
+    at a row resets that row's counter to 0, so no call zeroes them again;
+    the calls of one kernel on a device go in stream order."""
+    import torch
+    bufs = _arrivals.setdefault(name, {}).setdefault(device.index or 0, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=device))
+    return bufs[-1]
+
+
 def check_operands(name: str, device, *tensors) -> None:
     """Raise unless every tensor is contiguous, on `device`, and starts on a
     16-byte boundary: the kernels load and store 16 bytes at a time."""

@@ -119,6 +119,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
 
 // ----------------------------------------------------------------- TMA
 
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte aligned)
+// from global into shared memory by one bulk copy, completed on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// named barrier `id` over the first `threads` threads to reach it
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // one box of a 2-D / 3-D tensor map into shared memory, completed on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {

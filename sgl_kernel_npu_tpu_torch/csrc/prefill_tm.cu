@@ -13,12 +13,17 @@
 // Rows past valid_len still get what the plain version gives them.
 //
 // Rounding, as the TPU kernel takes it: s = (q . k) * k_scale * sm_scale
-// (k_scale 1 for the chunk), an online softmax per key tile, the P operand
-// bf16(p * v_scale) (paged_prefill_tm.py:88), out = acc / max(l, 1e-37).
+// (k_scale 1 for the chunk), an online softmax over the prefix in steps of
+// one page (ps keys), then over the chunk in steps of ps keys, the P operand
+// bf16(p * v_scale) (paged_prefill_tm.py:88) with p = exp(s - m) and m the
+// running maximum at the end of the key's step, out = acc / max(l, 1e-37).
 // Every MMA operand is bf16-exact (q and the chunk are bf16, int8 converts to
 // bf16 exactly, P is rounded where the TPU kernel rounds it), so both products
 // run on bf16 tensor cores (mma.sync m16n8k16, f32 accumulation) and differ
-// from the plain version only in the order of the f32 sums.
+// from the plain version only in the order of the f32 sums. The steps must
+// be the plain version's: a step of another size rounds bf16(p * v_scale)
+// against another maximum (64-key steps over pages of 16 put a tenth of the
+// outputs an ulp off, enough to turn a small engine's greedy token).
 //
 // Bound on an H100: the larger of its bytes (q, chunk k/v, the prefix pages it
 // reads, the output) over 3.35 TB/s and its 4*hq*D*(visible pairs) operations
@@ -26,10 +31,12 @@
 // so latency, waves and barriers set the time. Design: one block per (query
 // tile, kv head, sequence) with 64 query rows (64/G tokens x G heads, so one
 // key tile serves the whole GQA group), 4 warps of 16 rows, q fragments in
-// registers straight from global memory. Key tiles of 64 tokens stream
-// through a ring of 3 shared-memory stages by cp.async, 16 bytes a copy with
-// the page taken from the block table per token (read a tile ahead); tile
-// j+2 is in flight while tile j is multiplied. Missing rows are zero-filled,
+// registers straight from global memory. Rounds of at most 64 keys, never
+// across a step, stream through a ring of 3 shared-memory stages by
+// cp.async, 16 bytes a copy with the page taken from the block table per
+// token; round i+2 is in flight while round i is multiplied. A step of at
+// most 64 keys is one round; a longer one (pages of 128) is walked twice,
+// first K alone for the step's maximum, then K and V for p . v. Missing rows are zero-filled,
 // so P.V never meets stale data. An int8 prefix tile lands at the start of
 // each 272-byte row and is widened to bf16 in place once it has arrived; K
 // then goes through ldmatrix, V through ldmatrix.trans. Scores are scaled by
@@ -78,63 +85,95 @@ struct Args {
   float sm_scale;
 };
 
-// The pages of prefix tile `tile` this thread copies from: keys
-// (tid >> 3) + 16 i (i < 4) of its rows and key tid & 63 of its scale. Read
-// a tile ahead of its copies, so the block-table load is off the critical path.
-struct Pages {
-  int pg[5];
-};
-
-__device__ __forceinline__ Pages fetch_pages(const Args& a, int tile, int n_pre, int s,
-                                             int prefix_len) {
-  Pages p;
+// Start the copies of a round into ring stage `st`: keys k0 .. k0 + n - 1
+// (n <= TK) of the prefix (int8 K rows and k scales; with V, V rows and v
+// scales too) or of the chunk (bf16 K rows, and V rows). Rows past n are
+// zero-filled.
+__device__ __forceinline__ void issue_round(Smem& sm, const Args& a, int st, bool pre, int k0,
+                                            int n, bool with_v, int s, int h) {
   const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const int t = tile * TK + (i < 4 ? (tid >> 3) + 16 * i : tid & 63);
-    p.pg[i] = tile < n_pre && t < prefix_len ? __ldg(a.bt + (size_t)s * a.MP + t / a.ps) : 0;
-  }
-  return p;
-}
-
-// Start the copies of key tile `tile` into ring stage `st`: prefix tiles
-// (tile < n_pre) 64 int8 K and V rows and their scales, chunk tiles 64 bf16
-// K and V rows. Rows that do not exist are zero-filled.
-__device__ __forceinline__ void issue_tile(Smem& sm, const Args& a, const Pages& p, int st,
-                                           int tile, int n_pre, int s, int h, int prefix_len,
-                                           int jmax) {
-  const int tid = threadIdx.x;
-  if (tile < n_pre) {
+  if (pre) {
     const int c = tid & 7;                     // 16-byte chunk of a 128-byte row
+    const int* bts = a.bt + (size_t)s * a.MP;
+    // key t's page bt[t / ps] and slot t % ps (shifts for a power-of-2 ps)
+    const bool pow2 = (a.ps & (a.ps - 1)) == 0;
+    const int shift = __ffs(a.ps) - 1;
 #pragma unroll
     for (int i = 0; i < 5; ++i) {
       const int key = i < 4 ? (tid >> 3) + 16 * i : tid & 63;
-      const int t = tile * TK + key;
-      const bool ok = t < prefix_len;
-      const long long row = ((long long)a.li * a.P + p.pg[i]) * a.ps * a.hkv
-                            + (long long)(t % a.ps) * a.hkv + h;
+      const int t = k0 + key;
+      const bool ok = key < n;
+      const int pg = pow2 ? t >> shift : t / a.ps, slot = pow2 ? t & (a.ps - 1) : t % a.ps;
+      const long long row =
+          ok ? ((long long)a.li * a.P + __ldg(bts + pg)) * a.ps * a.hkv
+                   + (long long)slot * a.hkv + h
+             : 0;
       if (i < 4) {
-        const long long off = ok ? row * D + c * 16 : 0;
+        const long long off = row * D + c * 16;
         cp_async16(reinterpret_cast<int8_t*>(sm.k[st] + key * LDS) + c * 16, a.kc + off, ok);
-        cp_async16(reinterpret_cast<int8_t*>(sm.v[st] + key * LDS) + c * 16, a.vc + off, ok);
-      } else {
-        const float* src = (tid < 64 ? a.ksc : a.vsc) + (ok ? row : 0);
-        cp_async4(tid < 64 ? &sm.kscale[st][key] : &sm.vscale[st][key], src, ok);
+        if (with_v)
+          cp_async16(reinterpret_cast<int8_t*>(sm.v[st] + key * LDS) + c * 16, a.vc + off, ok);
+      } else if (tid < 64 || with_v) {
+        cp_async4(tid < 64 ? &sm.kscale[st][key] : &sm.vscale[st][key],
+                  (tid < 64 ? a.ksc : a.vsc) + row, ok);
       }
     }
   } else {
     const int c = tid & 15;                    // 16-byte chunk of a 256-byte row
-    const int j0 = (tile - n_pre) * TK;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int key = (tid >> 4) + 8 * i;
-      const int j = j0 + key;
-      const bool ok = j < jmax;
-      const size_t off = ok ? (((size_t)s * a.T + j) * a.hkv + h) * D + c * 8 : 0;
+      const bool ok = key < n;
+      const size_t off = ok ? (((size_t)s * a.T + k0 + key) * a.hkv + h) * D + c * 8 : 0;
       cp_async16(sm.k[st] + key * LDS + c * 8, a.ck + off, ok);
-      cp_async16(sm.v[st] + key * LDS + c * 8, a.cv + off, ok);
+      if (with_v) cp_async16(sm.v[st] + key * LDS + c * 8, a.cv + off, ok);
     }
   }
+}
+
+// The rounds of a block, in the plain version's order: the prefix in steps
+// of ps keys (its pages), then the chunk in steps of ps keys. A step of at
+// most TK keys is one round (kind 2: scores, the step's maximum, p, p . v);
+// a longer one is walked twice, first for its maximum (kind 0, K only), then
+// for p . v (kind 1), TK keys a round.
+struct Walk {
+  int pre, a, b, kind, t;     // segment, step [a, b), kind, next key
+  bool first;                 // the next round opens its step's p . v
+};
+
+__device__ __forceinline__ void walk_step(Walk& w) {
+  w.kind = w.b - w.a > TK ? 0 : 2;
+  w.t = w.a;
+  w.first = true;
+}
+
+__device__ __forceinline__ bool walk_next(Walk& w, int ps, int prefix_len, int jmax, bool& pre,
+                                          int& kind, int& k0, int& n, bool& first) {
+  while (w.t >= w.b) {
+    if (w.kind == 0) {                         // the maximum is known: p . v
+      w.kind = 1;
+      w.t = w.a;
+      w.first = true;
+      continue;
+    }
+    w.a = w.b;
+    if (w.pre && w.a >= prefix_len) {
+      w.pre = 0;
+      w.a = 0;
+    }
+    const int limit = w.pre ? prefix_len : jmax;
+    if (w.a >= limit) return false;
+    w.b = min(w.a + ps, limit);
+    walk_step(w);
+  }
+  pre = w.pre;
+  kind = w.kind;
+  k0 = w.t;
+  n = min(TK, w.b - w.t);
+  first = w.first && kind != 0;
+  if (kind != 0) w.first = false;
+  w.t += TK;
+  return true;
 }
 
 // Widen an arrived int8 tile to bf16 in place: thread t takes K row t (t < 64)
@@ -177,15 +216,19 @@ __global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
   const int valid_len = a.vlen[s];
   // chunk keys a row of this block may see: j < min(valid_len, last query + 1)
   const int jmax = max(0, min(valid_len, min(a.T, q0 + bq)));
-  const int n_pre = (prefix_len + TK - 1) / TK;
-  const int n_tiles = n_pre + (jmax + TK - 1) / TK;
-
-  Pages next = fetch_pages(a, 0, n_pre, s, prefix_len);
+  Walk lw;
+  lw.pre = prefix_len > 0;
+  lw.a = 0;
+  lw.b = min(a.ps, lw.pre ? prefix_len : jmax);
+  walk_step(lw);
+  Walk cw = lw;
+  bool pre, first;
+  int kind, k0, n;
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n_tiles) issue_tile(sm, a, next, i, i, n_pre, s, h, prefix_len, jmax);
+    if (walk_next(lw, a.ps, prefix_len, jmax, pre, kind, k0, n, first))
+      issue_round(sm, a, i, pre, k0, n, kind != 0, s, h);
     cp_commit();
-    next = fetch_pages(a, i + 1, n_pre, s, prefix_len);
   }
 
   // this thread's rows r = warp*16 + g (+ 8): token q0 + r / G, head h*G + r % G
@@ -209,24 +252,25 @@ __global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
 
   float o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n2 = 0; n2 < D / 8; ++n2)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+    for (int i = 0; i < 4; ++i) o[n2][i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l[2] = {0.f, 0.f};                  // this thread's columns only; quad sum at the end
+  float step_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_wait<STAGES - 2>();                  // this thread's copies of `tile` landed
-    __syncthreads();                        // everyone's, and tile - 1 is consumed
+  for (int i = 0; walk_next(cw, a.ps, prefix_len, jmax, pre, kind, k0, n, first); ++i) {
+    cp_wait<STAGES - 2>();                  // this thread's copies of round i landed
+    __syncthreads();                        // everyone's, and round i - 1 is consumed
     {
-      const int nt = tile + STAGES - 1;
-      if (nt < n_tiles) issue_tile(sm, a, next, nt % STAGES, nt, n_pre, s, h, prefix_len, jmax);
+      bool lpre, lfirst;
+      int lkind, lk0, ln;
+      if (walk_next(lw, a.ps, prefix_len, jmax, lpre, lkind, lk0, ln, lfirst))
+        issue_round(sm, a, (i + STAGES - 1) % STAGES, lpre, lk0, ln, lkind != 0, s, h);
       cp_commit();
-      next = fetch_pages(a, nt + 1, n_pre, s, prefix_len);
     }
-    const int st = tile % STAGES;
-    const bool is_pre = tile < n_pre;
-    if (is_pre) {
+    const int st = i % STAGES;
+    if (pre) {
       widen_tile(sm, st);
       __syncthreads();
     }
@@ -235,83 +279,82 @@ __global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
 
     float sc[TK / 8][4];
 #pragma unroll
-    for (int n = 0; n < TK / 8; ++n) {
+    for (int n2 = 0; n2 < TK / 8; ++n2) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+      for (int i2 = 0; i2 < 4; ++i2) sc[n2][i2] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; kk += 2) {
         unsigned r[4];
-        ldsm_x4(r, kt + (n * 8 + (lane & 7)) * LDS + kk * 16 + (lane >> 3) * 8);
-        mma(sc[n], qa[kk], r[0], r[1]);
-        mma(sc[n], qa[kk + 1], r[2], r[3]);
+        ldsm_x4(r, kt + (n2 * 8 + (lane & 7)) * LDS + kk * 16 + (lane >> 3) * 8);
+        mma(sc[n2], qa[kk], r[0], r[1]);
+        mma(sc[n2], qa[kk + 1], r[2], r[3]);
       }
     }
 
     // k scale, sm_scale and the mask, column by column in registers
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-    if (is_pre) {
-      const int t0 = tile * TK;
 #pragma unroll
-      for (int n = 0; n < TK / 8; ++n) {
-        const int c = n * 8 + 2 * tig;
-        const float2 ks = *reinterpret_cast<const float2*>(&sm.kscale[st][c]);
+    for (int n2 = 0; n2 < TK / 8; ++n2) {
+      const int c = n2 * 8 + 2 * tig;
+      const float2 ks = pre ? *reinterpret_cast<const float2*>(&sm.kscale[st][c])
+                            : make_float2(1.f, 1.f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool vis = t0 + c + (i & 1) < prefix_len;
-          sc[n][i] = vis ? sc[n][i] * ((i & 1) ? ks.y : ks.x) * a.sm_scale : -CUDART_INF_F;
-          mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
-        }
+      for (int i2 = 0; i2 < 4; ++i2) {
+        const int key = c + (i2 & 1);
+        const bool vis = key < n && (pre || k0 + key <= ((i2 >> 1) ? qi_hi : qi_lo));
+        sc[n2][i2] = vis ? (pre ? sc[n2][i2] * ((i2 & 1) ? ks.y : ks.x) * a.sm_scale
+                                : sc[n2][i2] * a.sm_scale)
+                         : -CUDART_INF_F;
+        mx[i2 >> 1] = fmaxf(mx[i2 >> 1], sc[n2][i2]);
       }
-    } else {
-      const int j0 = (tile - n_pre) * TK;
-#pragma unroll
-      for (int n = 0; n < TK / 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int j = j0 + n * 8 + 2 * tig + (i & 1);
-          const bool vis = j < jmax && j <= ((i >> 1) ? qi_hi : qi_lo);
-          sc[n][i] = vis ? sc[n][i] * a.sm_scale : -CUDART_INF_F;
-          mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
-        }
     }
-
-    // online softmax: each row lives in the four lanes of a quad
-    float alpha[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < 2; ++r) {            // each row lives in the four lanes of a quad
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r]);
-      alpha[r] = mn == -CUDART_INF_F ? 1.f : __expf(m[r] - mn);
-      m[r] = mn;
+    }
+    if (kind == 0) {                         // a long step's maximum, round by round
+      step_max[0] = fmaxf(step_max[0], mx[0]);
+      step_max[1] = fmaxf(step_max[1], mx[1]);
+      continue;
+    }
+
+    // the step opens: its maximum joins the running one, o and l rescale
+    if (first) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], kind == 2 ? mx[r] : step_max[r]);
+        const float alpha = mn == -CUDART_INF_F ? 1.f : expf(m[r] - mn);
+        m[r] = mn;
+        l[r] *= alpha;
+        step_max[r] = -CUDART_INF_F;
+#pragma unroll
+        for (int n2 = 0; n2 < D / 8; ++n2) {
+          o[n2][2 * r] *= alpha;
+          o[n2][2 * r + 1] *= alpha;
+        }
+      }
     }
     float ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < TK / 8; ++n)
+    for (int n2 = 0; n2 < TK / 8; ++n2)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float mr = m[i >> 1];
-        sc[n][i] = mr == -CUDART_INF_F ? 0.f : __expf(sc[n][i] - mr);
-        ps[i >> 1] += sc[n][i];
+      for (int i2 = 0; i2 < 4; ++i2) {
+        const float mr = m[i2 >> 1];
+        sc[n2][i2] = mr == -CUDART_INF_F ? 0.f : expf(sc[n2][i2] - mr);
+        ps[i2 >> 1] += sc[n2][i2];
       }
-    l[0] = l[0] * alpha[0] + ps[0];
-    l[1] = l[1] * alpha[1] + ps[1];
-    if (is_pre) {                           // P operand: bf16(p * v_scale)
+    l[0] += ps[0];
+    l[1] += ps[1];
+    if (pre) {                               // P operand: bf16(p * v_scale)
 #pragma unroll
-      for (int n = 0; n < TK / 8; ++n) {
-        const float2 vs = *reinterpret_cast<const float2*>(&sm.vscale[st][n * 8 + 2 * tig]);
-        sc[n][0] *= vs.x;
-        sc[n][1] *= vs.y;
-        sc[n][2] *= vs.x;
-        sc[n][3] *= vs.y;
+      for (int n2 = 0; n2 < TK / 8; ++n2) {
+        const float2 vs = *reinterpret_cast<const float2*>(&sm.vscale[st][n2 * 8 + 2 * tig]);
+        sc[n2][0] *= vs.x;
+        sc[n2][1] *= vs.y;
+        sc[n2][2] *= vs.x;
+        sc[n2][3] *= vs.y;
       }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
     }
 
     // o += P . V, the score accumulators repacked as A fragments
@@ -322,12 +365,12 @@ __global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
                               pack(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
                               pack(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n2 = 0; n2 < D / 8; n2 += 2) {
         unsigned r[4];
         const int mi = lane >> 3;
-        ldsm_x4_t(r, vt + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + n * 8 + (mi >> 1) * 8);
-        mma(o[n], pa, r[0], r[1]);
-        mma(o[n + 1], pa, r[2], r[3]);
+        ldsm_x4_t(r, vt + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + n2 * 8 + (mi >> 1) * 8);
+        mma(o[n2], pa, r[0], r[1]);
+        mma(o[n2 + 1], pa, r[2], r[3]);
       }
     }
   }
@@ -342,12 +385,12 @@ __global__ void __launch_bounds__(THREADS, 2) prefill_tm_kernel(const Args a) {
     const int rr = r ? r_hi : r_lo;
     const int qt = q0 + rr / G;
     if (qt >= a.T) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-37f);
+    const float lr = fmaxf(l[r], 1e-37f);
     __nv_bfloat16* op = a.out + (((size_t)s * a.T + qt) * hq + h * G + rr % G) * D + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
-          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int n2 = 0; n2 < D / 8; ++n2)
+      *reinterpret_cast<__nv_bfloat162*>(op + n2 * 8) =
+          __floats2bfloat162_rn(o[n2][2 * r] / lr, o[n2][2 * r + 1] / lr);
   }
 }
 

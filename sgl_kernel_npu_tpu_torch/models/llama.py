@@ -195,9 +195,15 @@ def init_kv_cache(cfg: LlamaConfig, num_pages: int, layout: str = "tm",
 
 
 def _rmsnorm(x, w, eps):
+    """RMSNorm with 1/rms rounded alike on every device: the sum of squares
+    in float64 (every square of a bf16 value is exact there, so the order of
+    the sum does not matter), the root in float64, each rounded to f32 once
+    (ops/rmsq_gemm.py::_rstd). torch.rsqrt approximates on the card, so an
+    f32 mean and rsqrt put the card's rows an ulp from the CPU's."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    mean = (x32.double() ** 2).sum(dim=-1, keepdim=True).float() / x.shape[-1]
+    rstd = (1.0 / torch.sqrt((mean + eps).double())).float()
+    return (x32 * rstd * w.float()).to(x.dtype)
 
 
 def pretile_big_weights(params, block_n=None):
@@ -258,7 +264,11 @@ def _nrq_l(x, norm_w, bank, li: int, eps: float):
 
 
 def _swiglu(g32, f):
-    return g32[:, :f] * torch.sigmoid(g32[:, :f]) * g32[:, f:]
+    """silu(g) * u in f32, the sigmoid taken in float64 and rounded to f32
+    once, so that the card and the CPU round it alike (their f32 sigmoids
+    differ in the last bit)."""
+    g = g32[:, :f]
+    return g * torch.sigmoid(g.double()).float() * g32[:, f:]
 
 
 def _final_logits(x, params, cfg):

@@ -115,16 +115,15 @@ def decode_gqa_v8_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
                              page_size, layer_idx=0):
     """Token-major int8 deferred-write decode, the contract of the JAX
     package's decode_v8.py::decode_gqa_pallas_v8_int8_defer (the same as
-    decode_v9's). On a CUDA tensor it launches kernel C (csrc/decode_tm.cu),
-    which steps through the cache in tiles of its own: its bf16 roundings of
-    p * v_scale fall elsewhere than the per-page ones, within C's 2e-2."""
+    decode_v9's). On a CUDA tensor it launches kernel C (csrc/decode_tm.cu)
+    with one page per online-softmax step, as the plain version steps."""
     if not use_kernel(q):
         return decode_gqa_v8_int8_defer_ref(
             q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached_lens,
             block_table, sm_scale, page_size, layer_idx)
     return _v9.launch_decode_tm(q, k_new, v_new, k_cache, v_cache, k_scales,
                                 v_scales, cached_lens, block_table, sm_scale,
-                                page_size, layer_idx)
+                                page_size, layer_idx, step_pages=1)
 
 
 def scatter_scales_prefill_tm(k_scales, v_scales, ksn, vsn, block_tables,

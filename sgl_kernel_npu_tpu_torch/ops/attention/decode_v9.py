@@ -16,8 +16,9 @@ from ... import _build
 from ...utils import use_kernel
 
 # q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, cached, block_table,
-# out, B, hkv, G, P, ps, MP, li, sm_scale, stream
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+# out, workspace, arrivals, B, hkv, G, P, ps, MP, li, step_pages, splits,
+# sm_scale, stream
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 _MAXG = 8
 _NEG_INF = -1e30
@@ -122,9 +123,13 @@ def decode_gqa_v9_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales,
 
 
 def launch_decode_tm(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
-                     cached_lens, block_table, sm_scale, page_size, layer_idx):
-    """Launch kernel C on CUDA tensors (the contract of decode_v9 and of
-    decode_v8's per-page decode)."""
+                     cached_lens, block_table, sm_scale, page_size, layer_idx,
+                     step_pages=CHUNK_PAGES):
+    """Launch kernel C on CUDA tensors: the contract of decode_v9 (online
+    softmax steps of CHUNK_PAGES pages) and of decode_v8's per-page decode
+    (step_pages=1). Each (sequence, kv head) is split over the blocks that
+    skt_decode_tm_splits sizes from the card; the splits' partials meet in a
+    workspace and the last to arrive merges them."""
     b, hq, d = q.shape
     hkv = k_new.shape[1]
     l, num_pages, rows, _ = k_cache.shape
@@ -144,11 +149,16 @@ def launch_decode_tm(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
             or k_scales.dtype != torch.float32:
         raise TypeError("decode_tm: bf16 q, int8 cache, f32 scales expected")
     out = torch.empty_like(q)
+    mp = bt.shape[1]
+    splits = _build.splits("decode_tm", b, hkv, mp, page_size)
+    ws = torch.empty(b * hkv * splits * _MAXG * (2 + d) if splits > 1 else 0,
+                     dtype=torch.float32, device=dev)
+    arrivals = _build.arrival_counters("decode_tm", dev, b * hkv)
     fn = _build.launcher("decode_tm", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(*(t.data_ptr() for t in ops), out.data_ptr(), b, hkv, g,
-              num_pages, page_size, bt.shape[1], layer_idx, float(sm_scale),
-              stream)
+    code = fn(*(t.data_ptr() for t in ops), out.data_ptr(), ws.data_ptr(),
+              arrivals.data_ptr(), b, hkv, g, num_pages, page_size, mp, layer_idx,
+              step_pages, splits, float(sm_scale), stream)
     _build.check("decode_tm", code)
     _build.launches["decode_tm"] += 1
     return out

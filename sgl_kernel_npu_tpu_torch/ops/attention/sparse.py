@@ -53,8 +53,10 @@ _NEG_INF = -1e30
 BLK = 8                  # tokens per selected block of the top-k decode
 # q, k, scores, BH, NQ, NK, block_size, D, causal, stream
 _EST_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# q, k_cache, v_cache, block_ids, out, B, H, KB, chunk, D, Dv, sm_scale, stream
-_TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# q, k_cache, v_cache, block_ids, out, workspace, arrivals, B, H, KB, chunk,
+# splits, D, Dv, sm_scale, stream
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_TOPK_HEADS = 16         # heads of one K19 block
 _EST_MAX_BLOCKS = 384    # NQ + NK whose pooled rows fit K18's shared memory at D 128
 _TOPK_DIMS = ((128, 128), (576, 512))
 
@@ -267,10 +269,17 @@ def _topk_cuda(q, k_cache, v_cache, block_ids, sm_scale, page_size: int, chunk: 
     _build.check_operands("topk_block_sparse", dev, q, k_cache, v_cache, ids, out)
     if b == 0:
         return out
+    # each row's blocks split over S blocks of the card; their partials
+    # (m, l, acc of 16 heads) meet in a workspace, merged by the last to arrive
+    splits = _build.splits("topk_block_sparse", b, h, kb, d, dv)
+    rows = b * cdiv(h, _TOPK_HEADS)
+    ws = torch.empty(rows * splits * (2 + dv) * _TOPK_HEADS if splits > 1 else 0,
+                     dtype=torch.float32, device=dev)
+    arrivals = _build.arrival_counters("topk_block_sparse", dev, rows)
     fn = _build.launcher("topk_block_sparse", _TOPK_ARGTYPES)
     code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ids.data_ptr(),
-              out.data_ptr(), b, h, kb, chunk, d, dv, float(sm_scale),
-              torch.cuda.current_stream(dev).cuda_stream)
+              out.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), b, h, kb, chunk, splits,
+              d, dv, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("topk_block_sparse", code)
     _build.launches["topk_block_sparse"] += 1
     return out

@@ -146,3 +146,117 @@ def test_scan_flags_a_process_wide_guard(name):
 @pytest.mark.parametrize("name", sorted(PASSED))
 def test_scan_passes_per_device_setup(name):
     assert setup_behind_static(PASSED[name]) == []
+
+
+# --------------------------------------------------------------------------
+# The kernels that split a row over blocks (K19, C) merge the splits'
+# partials through a workspace, deterministically: no float atomics (their
+# order changes from run to run, and a second call must be bit-identical),
+# only integer arrival counters, each reset to 0 by the kernel that used it
+# (the last block to arrive), never zeroed by the host before a call.
+
+SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu")
+# an atomic call and the last name of the expression it targets
+ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
+INT_DECL = r"\b(?:int|unsigned|unsigned\s+int|int32_t|uint32_t)\s*\*\s*(?:__restrict__\s*)?{}\b"
+# PTX reductions and atomics on floating-point data, in asm strings
+PTX_FLOAT = re.compile(r"\b(?:red|atom)(?:\.\w+)*\.(?:f16|bf16|f32|f64|f16x2|bf16x2)\b")
+MEMSET = re.compile(r"\bcudaMemset\w*\s*\(")
+COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+
+
+def merge_faults(text):
+    """What breaks the split kernels' deterministic merge in C++ source text:
+    an atomic that is not an integer add (or whose target is not declared an
+    integer pointer), a floating-point PTX reduction, a host memset, or an
+    arrival counter the source never resets to 0."""
+    code = COMMENT.sub(" ", text)
+    bare = COMMENT_OR_STRING.sub(lambda m: " " * len(m.group(0)), text)
+    faults = []
+    counters = set()
+    for fn, target in ATOMIC.findall(bare):
+        name = re.split(r"\.|->", target)[-1].strip()
+        if fn not in ("atomicAdd", "atomicInc") or not re.search(INT_DECL.format(name), bare):
+            faults.append(f"{fn} on {name}")
+        else:
+            counters.add(name)
+    faults += [f"PTX {m}" for m in PTX_FLOAT.findall(code)]
+    faults += ["host memset" for _ in MEMSET.findall(bare)]
+    for name in sorted(counters):
+        reset = re.compile(r"(?:\w+\s*(?:\.|->)\s*)?" + name + r"\s*\[[^\]]+\]\s*=\s*0\s*;")
+        if not reset.search(bare):
+            faults.append(f"{name} never reset to 0")
+    return faults
+
+
+@pytest.mark.parametrize("name", SPLIT_SOURCES)
+def test_split_merge_is_deterministic(name):
+    with open(os.path.join(_build.CSRC, name)) as f:
+        text = f.read()
+    assert ATOMIC.search(COMMENT_OR_STRING.sub(" ", text)), f"{name}: no arrival counter"
+    assert merge_faults(text) == [], f"{name}: {merge_faults(text)}"
+
+
+MERGE_FLAGGED = {
+    "float atomicAdd": """
+__global__ void k(float* __restrict__ acc, const float* x) {
+  atomicAdd(acc + threadIdx.x, x[threadIdx.x]);
+}""",
+    "float max through an int view": """
+__global__ void k(float* m, float v) {
+  atomicMax(reinterpret_cast<int*>(m), __float_as_int(v));
+}""",
+    "PTX float reduction": """
+__device__ void add(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;" :: "l"(p), "f"(v));
+}""",
+    "counter never reset": """
+__global__ void k(float* ws, int* __restrict__ arrivals, int S) {
+  ws[blockIdx.x] = 1.f;
+  __threadfence();
+  if (atomicAdd(arrivals + blockIdx.y, 1) == S - 1) ws[0] = 0.f;
+}""",
+    "host memset per call": """
+__global__ void k(int* __restrict__ arrivals, int S) {
+  if (atomicAdd(arrivals + blockIdx.y, 1) == S - 1) arrivals[blockIdx.y] = 0;
+}
+extern "C" int launch(int* arrivals, int n, cudaStream_t st) {
+  cudaMemsetAsync(arrivals, 0, n * sizeof(int), st);
+  k<<<1, 1, 0, st>>>(arrivals, n);
+  return 0;
+}""",
+}
+MERGE_PASSED = {
+    "arrival counter": """
+struct Args { float* ws; int* arrivals; };
+__global__ void k(const Args a, int S) {
+  __shared__ int last;
+  __threadfence();  // atomicAdd(&acc, x) in a comment
+  if (threadIdx.x == 0) last = atomicAdd(a.arrivals + blockIdx.y, 1) == S - 1;
+  __syncthreads();
+  if (last && threadIdx.x == 0) a.arrivals[blockIdx.y] = 0;
+}""",
+}
+
+
+@pytest.mark.parametrize("name", sorted(MERGE_FLAGGED))
+def test_merge_scan_flags_a_nondeterministic_merge(name):
+    assert merge_faults(MERGE_FLAGGED[name]) != []
+
+
+@pytest.mark.parametrize("name", sorted(MERGE_PASSED))
+def test_merge_scan_passes_arrival_counters(name):
+    assert merge_faults(MERGE_PASSED[name]) == []
+
+
+def test_arrival_counters_are_zeroed_once():
+    """The counters are made zero once and then handed out as they are: the
+    kernels reset what they use, so no call zeroes them again."""
+    import torch
+    dev = torch.device("cpu")
+    first = _build.arrival_counters("test_counters", dev, 8)
+    first[3] = 5
+    again = _build.arrival_counters("test_counters", dev, 8)
+    assert again is first and int(again[3]) == 5
+    assert int(_build.arrival_counters("test_counters", dev, 4096)[3]) == 0
+    assert int(first[3]) == 5                  # a larger set does not free the old one
