@@ -14,7 +14,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    one launch per call), the two contracts that reuse A and C (matmul.py:71 at
    L = 1, decode_v8.py:388), and the MLA paths' kernels at DeepSeek-V2-Lite
    width: K2 in its per_tensor mode, K5 (int8 and bf16 latent rows), K6 and
-   K7; and the Qwen3-Next bench path's kernels at its shapes: K8 (the
+   K7 (also at the edges of its split plan: 8 sequences of 1 token, one of
+   4,097, 8 equal ones, lengths beside a round or a split, 4 and 20 heads
+   with krope 16 and 6; a second call bit-identical); and the Qwen3-Next bench path's kernels at its shapes: K8 (the
    grouped expert GEMM, 5,376 aligned rows of 128 tokens routed top-10 over
    128 experts), K9 (the recurrent gated-delta-rule step on the bf16 pool)
    and K10 (head-major bf16 paged decode); and the MoE layer's kernels at
@@ -56,7 +58,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp. The
    GEMMs and appends must agree
    exactly, the fused RMSNorm-quant GEMM within 4 quant flips with >= 99% of
-   rows exact, the Llama attention kernels within 2e-2 max-abs, K5, K7 and
+   rows exact (also at the edges of its plan: M 1, 8, 17, 200, 256, a ragged
+   N, K % 128 == 64, split and unsplit K; a second call bit-identical), the Llama attention kernels within 2e-2 max-abs, K5, K7 and
    K10 (on O(1) outputs of a peaked softmax) within one bf16 ulp plus 2e-3
    (K5, K14) or 1e-4 (K7, K10, K15, K16, K17, K19) of max|plain|, K9's output within 1e-4 of
    max|plain| and its pool within one bf16 ulp, rows it must not write
@@ -95,7 +98,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
 5. Serves phase 2's prompts through MlaEngine at DeepSeek-V2-Lite width
    (seed-0 weights, split latent caches): every decode call launches
    exactly K2 per_tensor 54, A 81, A at L = 1 1 and K7 27, every prefill
-   call the same without an attention kernel; the tokens repeat.
+   call the same without an attention kernel; the tokens repeat; prints a
+   profiler split of a decode call (K2, A, K7, glue).
 6. Runs the decode path of `python bench.py --config mla` (an int8 combined
    latent cache, banks pretiled at 1024, batch 128, context 256, 16 greedy
    steps per call) on phase 5's weights: exact launches per step (K2 27 and
@@ -927,6 +931,57 @@ def check_rmsq_pt(torch, mm, rq, mcfg, rng):
     return _sum_rows(rows[:2]), rows[2]
 
 
+# K2's plan edges: (M, K, N, bank panel width or None for a plain weight,
+# mode, x): one row; M 17 over 128-wide panels; a ragged N and K % 128 == 64
+# on an f32 column slice; two row tiles over split K; K of one stage
+K2_EDGES = ((1, 256, 384, None, "per_token", "bf16"), (17, 512, 640, 128, "per_tensor", "bf16"),
+            (200, 1088, 2112, None, "per_tensor", "f32 slice"),
+            (256, 2048, 3072, 1024, "per_token", "bf16"), (8, 64, 16, None, "per_tensor", "bf16"))
+
+
+def check_rmsq_edges(torch, mm, rq):
+    """K2 at the edges of its plan (ops/rmsq_gemm.py::rmsq_plan): both
+    loops (mma.sync at M <= 16, wgmma above), partial row and column tiles,
+    a half K stage, split and unsplit K; each within K2's flip bar, a second
+    call bit-identical."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(72)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    notes = []
+    for m, k, n, bn, mode, xkind in K2_EDGES:
+        pt = mode == "per_tensor"
+        w = torch.randint(-127, 128, (2, k, n), generator=gen, dtype=torch.int8, device="cuda")
+        ws = torch.rand((2, n), generator=gen, device="cuda") * 1e-3
+        bias = (torch.randint(-50, 50, (2, n), generator=gen, dtype=torch.int32, device="cuda")
+                if pt else None)
+        if xkind == "f32 slice":
+            x = torch.randn((m, k + 96), generator=gen, device="cuda")[:, 32:32 + k]
+        else:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        g = 1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
+        b = 0.05 * torch.randn((k,), generator=gen, device="cuda")
+        if bn:
+            wt, dsl, bl, li = mm.pretile_weight_bank(w, bn), ws, bias, 1
+        else:
+            wt, dsl, bl, li = w[1], ws[1], None if bias is None else bias[1], None
+        qs = torch.tensor([0.05], device="cuda") if pt else None
+        qo = torch.tensor([0.5], device="cuda") if pt else None
+        kw = dict(li=li, quant_mode=mode, quant_cast="fp16" if pt else "f32")
+        out = rq.rmsnorm_quant_gemm(x, g, b, wt, dsl, bl, qs, qo, **kw)
+        ref = rq.rmsnorm_quant_gemm_ref(x, g, b, wt, dsl, bl, qs, qo, **kw)
+        torch.cuda.synchronize()
+        scale = 1.0 if pt else float(rq._row_stats(x, g, b, True, 1e-6)[1].max())
+        label = f"rmsq_gemm M={m} K={k} N={n}"
+        _flip_check(label, out, ref, float(w[1].abs().max()) * float(ws[1].max()) * scale)
+        if not torch.equal(rq.rmsnorm_quant_gemm(x, g, b, wt, dsl, bl, qs, qo, **kw), out):
+            raise AssertionError(f"{label}: a second call differs")
+        bm, tm, tn, splits = rq.rmsq_plan(m, n, k, sms)
+        notes.append(f"M {m} K {k} N {n} ({'plain' if bn is None else f'bn {bn}'}, {mode}, "
+                     f"x {xkind}; tiles {tm} x {tn} of {bm} rows, K split {splits})")
+    print("  rmsq_gemm edges within the flip bar, a second call bit-identical: "
+          + "; ".join(notes))
+
+
 def _latent_rows(torch, rng, shape, int8):
     if int8:
         return torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
@@ -1091,6 +1146,8 @@ def check_decode_mla(torch, dec, mcfg, rng):
     ref = dec.decode_mla_ref(*args)
     torch.cuda.synchronize()
     err, ratio = _bf16_check("decode_mla", out, ref, K7_SHARE)
+    if not torch.equal(dec.decode_mla(*args), out):
+        raise AssertionError("decode_mla: a second call differs")
     ms = _time_ms(lambda: dec.decode_mla(*args), 50, graph=True)
     plain = _time_ms(lambda: dec.decode_mla_ref(*args), 5)
     n = int(seq.max())
@@ -1111,6 +1168,55 @@ def check_decode_mla(torch, dec, mcfg, rng):
           f"bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
+
+
+# K7's split edges: (label, sequence lengths including the current token,
+# heads and krope columns, None for DeepSeek-V2-Lite's)
+K7_EDGES = (("8 sequences of 1 token", (1,) * 8, None),
+            ("one sequence of 4,097 tokens", (4097,), None),
+            ("8 equal sequences of 300", (300,) * 8, None),
+            ("lengths on split and round edges", (63, 64, 65, 96, 97, 129, 4096, 8192), None),
+            ("4 heads, krope 16", (41, 300, 701), (4, 16)),
+            ("20 heads, krope 6", (41, 300, 701), (20, 6)))
+
+
+def check_decode_mla_edges(torch, dec, mcfg):
+    """K7 at the edges of its split plan (ops/attention/decode.py::
+    mla_split_bounds), 128-token pages, 64 pages a sequence: sequences of
+    one split, one sequence over many splits, equal lengths, lengths a
+    token either side of a round or a split (16 heads); and head counts
+    that leave a 16-head tile part empty (4, 20) with krope widths of 16
+    and 6 columns (zero-padded to 64, in 16- and 4-byte copies). Each
+    within K7_SHARE of its plain version, a second call bit-identical."""
+    lkv, ps, mp = mcfg.kv_lora_rank, mcfg.page_size, 64
+    sm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(71)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    notes = []
+    for label, lens, widths in K7_EDGES:
+        h, lrope = widths or (mcfg.num_heads, mcfg.qk_rope_dim)
+        b = len(lens)
+        pages = b * mp + 1
+        seq = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bt = _block_tables(torch, gen, lens, mp, pages, ps)
+        ckv = _latent_rows(torch, gen, (pages, ps, lkv), False)
+        kr = _latent_rows(torch, gen, (pages, ps, lrope), False)
+        q = (1.5 * torch.randn((b, h, lkv + lrope), generator=gen, device="cuda")) \
+            .to(torch.bfloat16)
+        args = (q, ckv, kr, seq, bt, sm, ps)
+        out = dec.decode_mla(*args)
+        ref = dec.decode_mla_ref(*args)
+        torch.cuda.synchronize()
+        _, ratio = _bf16_check(f"decode_mla ({label})", out, ref, K7_SHARE)
+        if not torch.equal(dec.decode_mla(*args), out):
+            raise AssertionError(f"decode_mla ({label}): a second call differs")
+        s = dec.mla_splits(sms, b, h, mp * ps)
+        nsplit = max(len(dec.mla_split_bounds(n, s)) for n in lens)
+        notes.append(f"{label} (up to {nsplit} of S {s} splits) {ratio:.3f}")
+        del ckv, kr
+    print("  decode_mla edges, each within its bar (largest error over it) and a second call "
+          "bit-identical: " + "; ".join(notes))
 
 
 # ------------------------------------------------------- Qwen3-Next kernels
@@ -1804,13 +1910,15 @@ def _check_call(kind, delta, expect):
 
 
 def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
-               profile=False, engine_cls=None, expect=None, engine_kw=None):
+               profile=False, engine_cls=None, expect=None, engine_kw=None,
+               buckets=None):
     """Serve `prompts`, then `late` once the first shared-prefix prompt has
     been prefilled (so it reuses the radix-cached prefix). Returns outputs,
     timings, launch counts per step kind and the counts of the whole run;
-    with `profile`, afterwards profiles a steady-state decode call (its
-    kernels all listed as glue: the largest first); with `expect`, checks
-    the launches of every model call (_check_call)."""
+    with `profile`, afterwards profiles a steady-state decode call split by
+    `buckets` (default _ENGINE_BUCKETS; the rest is glue, the largest
+    listed); with `expect`, checks the launches of every model call
+    (_check_call)."""
     eng = (engine_cls or serving.LlamaEngine)(cfg, params=params, device="cuda",
                                               num_pages=512, decode_batch=8,
                                               token_budget=256, **(engine_kw or {}))
@@ -1869,7 +1977,7 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
         # re-running the call after the engine has finished rewrites only
         # slots nobody reads
         args = stats["steady_args"]
-        profile_step(torch, lambda: inner_dec(*args), _ENGINE_BUCKETS,
+        profile_step(torch, lambda: inner_dec(*args), buckets or _ENGINE_BUCKETS,
                      "decode call (B=8, all rows live)")
     del eng
     return outs, stats, wall, reused, launches
@@ -2616,16 +2724,20 @@ def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_toke
     return out
 
 
-_K1 = ("w8a8_kernel<64, 0, false>", "w8a8_kernel<16, 0, false>", "w8a8_epilogue<false, false>")
-_K2 = ("w8a8_kernel<64, 1, false>", "w8a8_kernel<16, 1, false>", "w8a8_kernel<64, 2, false>",
-       "w8a8_kernel<16, 2, false>", "w8a8_epilogue<true, false>", "rmsq_rows")
-_K8 = ("w8a8_kernel<32, 0, true>", "w8a8_epilogue<false, true>")
+_K1 = ("w8a8_kernel<64, false>", "w8a8_kernel<16, false>", "w8a8_epilogue<false>")
+_K2 = ("rmsq_wgmma_kernel", "rmsq_mma_kernel", "rmsq_rows")
+_K8 = ("w8a8_kernel<32, true>", "w8a8_epilogue<true>")
 _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                ("K14 decode_v6_defer", ("decode_hm_kernel",)),
                ("split-K memsets", ("Memset",)))
 # phase 2's decode call: kernel C's share of the device time
 _ENGINE_BUCKETS = (("A w8a8_gemm", ("w8a8_kernel", "w8a8_epilogue")),
                    ("C decode_tm", ("decode_tm_kernel",)), ("D append_tm", ("append_tm_kernel",)))
+# phase 5's decode call: K7's share (every memset is A's split-K set-up)
+_MLA_ENGINE_BUCKETS = (("K2 rmsq_gemm (per_tensor)", _K2),
+                       ("A w8a8_gemm (+ its split-K memsets)",
+                        ("w8a8_kernel", "w8a8_epilogue", "Memset")),
+                       ("K7 decode_mla", ("decode_mla_kernel",)))
 _BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
             ("K3 decode_tm2", ("decode_tm2_kernel",)),
             ("K4 append_tm2", ("append_tm2_kernel",)),
@@ -2664,6 +2776,7 @@ def profile_step(torch, step, buckets, label, reps=3):
                   "glue (PyTorch kernels)")
         split[lb] += us / reps / 1e3
     busy = sum(split.values())
+    shares = ", ".join(f"{k.split()[0]} {v / busy:.3f}" for k, v in split.items() if busy)
     glue = sorted(((n, t) for n, t in by_name.items()
                    if not any(k in n for _, keys in buckets for k in keys)),
                   key=lambda kv: -kv[1])[:5]
@@ -2671,7 +2784,7 @@ def profile_step(torch, step, buckets, label, reps=3):
           f"under the profiler, device busy {busy:.3f} ms, idle share "
           f"{1 - busy / (1e3 * wall):.3f}; ms/step by kind: "
           + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
-          + "; largest glue kernels (ms/step): "
+          + f" (shares of the busy time: {shares}); largest glue kernels (ms/step): "
           + "; ".join(f"{n[:40]} {t / reps / 1e3:.3f}" for n, t in glue))
 
 
@@ -4714,12 +4827,14 @@ def main() -> int:
     rows["k4"] = check_append_tm2(torch, decode_v11, cfg, rng)
     torch.cuda.empty_cache()
     rows["k2pt"], rows["k2pt_m8"] = check_rmsq_pt(torch, matmul, rmsq_gemm, mcfg, rng)
+    check_rmsq_edges(torch, matmul, rmsq_gemm)
     torch.cuda.empty_cache()
     rows["k5"] = check_decode_mla_c(torch, decode_mla_v2, mcfg, rng)
     torch.cuda.empty_cache()
     rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng)
     torch.cuda.empty_cache()
     rows["k7"] = check_decode_mla(torch, decode, mcfg, rng)
+    check_decode_mla_edges(torch, decode, mcfg)
     torch.cuda.empty_cache()
     rows["k8"] = check_grouped(torch, matmul, quant, qwen_next, qcfg, rng)
     torch.cuda.empty_cache()
@@ -4834,7 +4949,7 @@ def main() -> int:
     _build.reset_launches()
     mouts, mst, mwall, mreused, mla_launches = run_engine(
         torch, serving, _build, mcfg, mparams, mprompts, mlate, new_tokens, profile=True,
-        engine_cls=serving.MlaEngine, expect=MLA_SERVING)
+        engine_cls=serving.MlaEngine, expect=MLA_SERVING, buckets=_MLA_ENGINE_BUCKETS)
     if any(len(o) != new_tokens for o in mouts):
         raise AssertionError(f"MLA token counts {[len(o) for o in mouts]}")
     if mreused != 256:
@@ -4934,6 +5049,9 @@ def main() -> int:
         dict(name="rmsq_gemm (per_tensor)", route="cuda", source=f"{src}/rmsq_gemm.cu",
              replaces=f"{base}/ops/rmsq_gemm.py:148",
              launches=mla_bench_launches["rmsq_gemm_pt"], **rows["k2pt"]),
+        dict(name="rmsq_gemm (per_tensor, M 8)", route="cuda", source=f"{src}/rmsq_gemm.cu",
+             replaces=f"{base}/ops/rmsq_gemm.py:148", launches=mla_launches["rmsq_gemm_pt"],
+             **rows["k2pt_m8"]),
         dict(name="decode_mla_c", route="cuda", source=f"{src}/decode_mla_c.cu",
              replaces=f"{base}/ops/attention/decode_mla_v2.py:409",
              launches=mla_bench_launches["decode_mla_c"], **rows["k5"]),
@@ -5042,7 +5160,10 @@ def main() -> int:
           "A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
           "K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract is on no main "
           "path; rmsq_gemm (per_tensor) row: sum of wdqkv and wuq at M=128, launches of it, "
-          "K5 and K6 from phase 6 (all its 64 steps), of K7 from phase 5; decode_mla_c row: "
+          "K5 and K6 from phase 6 (all its 64 steps), of K7 from phase 5; rmsq_gemm "
+          "(per_tensor, M 8) row: wdqkv on the plain weight at the engine's decode "
+          "batch, launches from phase 5 (every MLA engine call, prefill ones at larger "
+          "M); decode_mla_c row: "
           "the int8 cache (decode_mla_v2.py:224 is the same contract, bf16); "
           "w8a8_gemm_grouped row (K8): sum of the expert w13 and w2 GEMMs at the Qwen bench "
           "shape; launches of K8-K10 from phase 7 (all its 32 steps); w8a8_gemm_grouped (EP "

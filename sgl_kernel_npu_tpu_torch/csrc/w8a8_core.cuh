@@ -1,9 +1,9 @@
-// Device code shared by the W8A8 GEMMs: kernels A, K1 and K8 (w8a8_gemm.cu)
-// and K2 (rmsq_gemm.cu).
+// Device code shared by the W8A8 GEMMs: kernels A, K1 and K8 (w8a8_gemm.cu);
+// K11 (fused_moe.cu) takes its tile sizes, byte transpose and mma.
 //
-//   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n] + bias[li, n]) * scales )
+//   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n]) * x_scale[m] * w_scale[li, n] )
 //
-// li is one layer for the whole of M (A, K1, K2) or, for the grouped GEMM K8,
+// li is one layer for the whole of M (A, K1) or, for the grouped GEMM K8,
 // the expert of each block_m-row tile of x (eid[m / block_m], clamped to
 // [0, groups)); K8 then runs 32-row M tiles, so that no tile straddles two
 // experts, and a tile whose rows all have x_scale 0 (the padding of the
@@ -15,20 +15,8 @@
 // pretiled banks of ops/matmul.py::pretile_weight_bank have bn a multiple of
 // the block width BN, so a block's 128 columns never straddle two panels.
 //
-// The A operand (rows ldx elements apart) is either int8 rows (A, K1) or, for
-// K2, bf16 or f32 rows that the prologue normalises and quantises into shared
-// memory, so that the int8 activation never reaches device memory:
-//   v  = (x * rstd * gamma + beta) / qdiv + qoff
-//   xq = clamp(rint(fp16_cast ? float(half(v)) : v), -128, 127)
-// with every step rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn), so
-// no FMA contraction rounds differently from the plain PyTorch version. qdiv
-// is the per-token scale (per_token mode) or the static scale (per_tensor);
-// qoff is 0 in the per_token mode.
-//
-// Epilogue orders, as the plain versions multiply (the int32 bias, K2's
-// per_tensor mode only, is added to the sum first):
-//   A, K1:  (acc * x_scale[m]) * w_scale[li, n]
-//   K2:     (acc * w_scale[li, n]) * x_scale[m]    (x_scale 1 in per_tensor)
+// The A operand is int8 rows, ldx bytes apart. The epilogue multiplies as the
+// plain versions do: (acc * x_scale[m]) * w_scale[li, n].
 //
 // int8 tensor-core mma.sync m16n8k32 with s32 accumulation makes the sum
 // exact, so each kernel equals its plain version bit for bit. Weight tiles are
@@ -37,13 +25,13 @@
 // When the output has too few tiles to keep every SM streaming weights, K is
 // split over blocks and the int32 partial sums meet in a workspace through
 // atomicAdd (exact in any order), followed by a small epilogue pass.
-// Simple first: one register-prefetched stage, no TMA / wgmma yet.
+// Simple first: one register-prefetched stage, no TMA / wgmma yet. (K2,
+// csrc/rmsq_gemm.cu, has its own loop: a cp.async ring of 256-column tiles.)
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace skt_w8a8 {
@@ -53,30 +41,18 @@ constexpr int BK = 64;       // K elements per stage
 constexpr int SROW = 80;     // padded shared-memory row: conflict-free fragment loads
 constexpr int THREADS = 128;
 
-// element type of the A operand: int8 rows (A, K1), or bf16 / f32 rows that
-// K2's prologue quantises
-constexpr int X_INT8 = 0;
-constexpr int X_BF16 = 1;
-constexpr int X_F32 = 2;
-
 struct Gemm {
-  const void* x;         // [M, ldx] int8, or bf16 / f32 for K2
+  const int8_t* x;       // [M, ldx]
   const int8_t* w;       // [L, N/bn, K, bn] int8
   const float* xs;       // [M] epilogue row scale
   const float* ws;       // [L, N] per-column scale
   void* out;             // [M, N] bf16, or f32 when out_f32
   int32_t* accum;        // [M, N] split-K workspace, or null
-  const int32_t* bias;   // [L, N] int32 added to the sum, or null
-  const float* rstd;     // K2: [M] 1/rms of each row (1 without the norm)
-  const float* qdiv;     // K2: [M] quant divisor of each row
-  const float* qoff;     // K2: the quant offset (one value), or null for 0
-  const float* gamma;    // K2: [K]
-  const float* beta;     // K2: [K]
   const int32_t* eid;    // K8: [M / block_m] expert of each row tile, or null
-  int M, N, K, ldx, li, bn, k_chunk, out_f32, fp16_cast, block_m, groups;
+  int M, N, K, ldx, li, bn, k_chunk, out_f32, block_m, groups;
 };
 
-// The layer (A, K1, K2) or the expert of row m (K8).
+// The layer (A, K1) or the expert of row m (K8).
 __device__ __forceinline__ int layer_of(const Gemm& p, int m) {
   return p.eid != nullptr ? min(max(p.eid[m / p.block_m], 0), p.groups - 1) : p.li;
 }
@@ -103,27 +79,8 @@ __device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t 
   o[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-__device__ __forceinline__ float lane_of(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// One quantised activation: the prologue of K2. fp16_cast rounds to fp16
-// (nearest even, with fp16's subnormals and overflow to inf) before rint, as
-// the plain version's cast to float16 does.
-__device__ __forceinline__ int8_t quant_one(float x, float rstd, float g, float b,
-                                            float qdiv, float qoff, int fp16_cast) {
-  const float xn = __fadd_rn(__fmul_rn(__fmul_rn(x, rstd), g), b);
-  float v = __fadd_rn(__fdiv_rn(xn, qdiv), qoff);
-  if (fp16_cast) v = __half2float(__float2half_rn(v));
-  int q = __float2int_rn(v);      // round half to even; saturates out of range
-  q = max(-128, min(127, q));
-  return (int8_t)q;
-}
-
-template <bool NORM>
 __device__ __forceinline__ float dequant(int32_t acc, float xs, float ws) {
-  return NORM ? __fmul_rn(__fmul_rn((float)acc, ws), xs)
-              : __fmul_rn(__fmul_rn((float)acc, xs), ws);
+  return __fmul_rn(__fmul_rn((float)acc, xs), ws);
 }
 
 __device__ __forceinline__ void store_out(const Gemm& p, size_t i, float v) {
@@ -133,25 +90,17 @@ __device__ __forceinline__ void store_out(const Gemm& p, size_t i, float v) {
     static_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ int32_t bias_of(const Gemm& p, int li, int c) {
-  return p.bias != nullptr ? p.bias[(size_t)li * p.N + c] : 0;
-}
-
 // GROUPED: K8's instantiation (32-row tiles, an expert per tile); the others
 // compile without its branches.
-template <int BM, int XK, bool GROUPED>
+template <int BM, bool GROUPED>
 __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
-  constexpr bool NORM = XK != X_INT8;
   constexpr int WARPS_M = BM == 16 ? 1 : 2;
   constexpr int WARPS_N = 4 / WARPS_M;
   constexpr int MT = BM / WARPS_M / 16;        // m16 tiles per warp
   constexpr int NT = BN / WARPS_N / 8;         // n8 tiles per warp
-  constexpr int XB = XK == X_F32 ? 4 : XK == X_BF16 ? 2 : 1;   // bytes per x element
-  constexpr int VPR = BK * XB / 16;            // 16-byte vectors per row and stage
-  constexpr int EPV = 16 / XB;                 // elements per vector
+  constexpr int VPR = BK / 16;                 // 16-byte vectors per row and stage
   constexpr int A_VECS = BM * VPR;
   constexpr int A_PER_THREAD = (A_VECS + THREADS - 1) / THREADS;
-  constexpr int NG = NORM ? EPV / 4 : 1;       // float4 groups of gamma / beta per vector
 
   __shared__ __align__(16) int8_t As[BM * SROW];
   __shared__ __align__(16) int8_t Bs[BN * SROW];
@@ -183,7 +132,7 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
                     + (n0 - panel * p.bn);
   const size_t ldw = p.bn;
   const float* wsc = p.ws + (size_t)li * N;
-  const char* x = static_cast<const char*>(p.x);
+  const int8_t* x = p.x;
 
   // weight loader: rows kq*4 .. kq*4+3 of the stage, 16 bytes at column nc
   const int kq = lane & 15;
@@ -192,19 +141,6 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
 
   int4 areg[A_PER_THREAD];
   int4 breg[4];
-  // NORM: a thread quantises the same rows (and, per stage, the same EPV
-  // columns) throughout, so it keeps their rstd and divisor in registers
-  float rs[A_PER_THREAD], qd[A_PER_THREAD];
-  float qo = 0.f;
-  if constexpr (NORM) {
-#pragma unroll
-    for (int i = 0; i < A_PER_THREAD; ++i) {
-      const int r = m0 + (tid + i * THREADS) / VPR;
-      rs[i] = r < M ? p.rstd[r] : 0.f;
-      qd[i] = r < M ? p.qdiv[r] : 1.f;
-    }
-    if (p.qoff != nullptr) qo = *p.qoff;
-  }
 
   auto load = [&](int k0) {
 #pragma unroll
@@ -212,10 +148,9 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
       const int v = tid + i * THREADS;
       areg[i] = make_int4(0, 0, 0, 0);
       if (v < A_VECS) {
-        const int r = v / VPR, c = (v % VPR) * EPV;
+        const int r = v / VPR, c = (v % VPR) * 16;
         if (m0 + r < M)
-          areg[i] = *reinterpret_cast<const int4*>(
-              x + ((size_t)(m0 + r) * p.ldx + k0 + c) * XB);
+          areg[i] = *reinterpret_cast<const int4*>(x + (size_t)(m0 + r) * p.ldx + k0 + c);
       }
     }
 #pragma unroll
@@ -227,45 +162,13 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
     }
   };
 
-  auto store = [&](int k0) {
-    float4 g[NG], b[NG];              // NORM: gamma, beta of this thread's EPV columns
-    if constexpr (NORM) {
-      const int k = k0 + (tid % VPR) * EPV;
-#pragma unroll
-      for (int j = 0; j < NG; ++j) {
-        g[j] = __ldg(reinterpret_cast<const float4*>(p.gamma + k + 4 * j));
-        b[j] = __ldg(reinterpret_cast<const float4*>(p.beta + k + 4 * j));
-      }
-    }
+  auto store = [&]() {
 #pragma unroll
     for (int i = 0; i < A_PER_THREAD; ++i) {
       const int v = tid + i * THREADS;
       if (v < A_VECS) {
-        const int r = v / VPR, c = (v % VPR) * EPV;
-        if constexpr (NORM) {
-          uint32_t packed[NG];
-#pragma unroll
-          for (int j = 0; j < NG; ++j) packed[j] = 0u;
-          if (m0 + r < M) {
-#pragma unroll
-            for (int e = 0; e < EPV; ++e) {
-              float xe;
-              if constexpr (XK == X_BF16)
-                xe = __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&areg[i])[e]);
-              else
-                xe = reinterpret_cast<const float*>(&areg[i])[e];
-              const int8_t q = quant_one(xe, rs[i], lane_of(g[e >> 2], e & 3),
-                                         lane_of(b[e >> 2], e & 3), qd[i], qo, p.fp16_cast);
-              packed[e >> 2] |= (uint32_t)(uint8_t)q << ((e & 3) * 8);
-            }
-          }
-          if constexpr (NG == 2)
-            *reinterpret_cast<uint2*>(As + r * SROW + c) = make_uint2(packed[0], packed[1]);
-          else
-            *reinterpret_cast<uint32_t*>(As + r * SROW + c) = packed[0];
-        } else {
-          *reinterpret_cast<int4*>(As + r * SROW + c) = areg[i];
-        }
+        const int r = v / VPR, c = (v % VPR) * 16;
+        *reinterpret_cast<int4*>(As + r * SROW + c) = areg[i];
       }
     }
     const uint32_t* r0 = reinterpret_cast<const uint32_t*>(&breg[0]);
@@ -296,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
   if (kbeg < kend) load(kbeg);
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                 // the previous stage's fragments are read
-    store(k0);
+    store();
     __syncthreads();
     if (k0 + BK < kend) load(k0 + BK);   // next stage in flight during the MMAs
 #pragma unroll
@@ -338,30 +241,27 @@ __global__ void __launch_bounds__(THREADS) w8a8_kernel(const Gemm p) {
           if (p.accum != nullptr)
             atomicAdd(p.accum + (size_t)r * N + c, v);
           else
-            store_out(p, (size_t)r * N + c, dequant<NORM>(v + bias_of(p, li, c), p.xs[r], wsc[c]));
+            store_out(p, (size_t)r * N + c, dequant(v, p.xs[r], wsc[c]));
         }
       }
     }
   }
 }
 
-template <bool NORM, bool GROUPED>
+template <bool GROUPED>
 __global__ void w8a8_epilogue(const Gemm p) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)p.M * p.N) return;
   const int r = (int)(i / p.N), c = (int)(i % p.N);
   const int li = GROUPED ? layer_of(p, r) : p.li;
-  store_out(p, i, dequant<NORM>(p.accum[i] + bias_of(p, li, c), p.xs[r],
-                                p.ws[(size_t)li * p.N + c]));
+  store_out(p, i, dequant(p.accum[i], p.xs[r], p.ws[(size_t)li * p.N + c]));
 }
 
 // Launch on `st`. p.accum must be an [M, N] int32 workspace when splits > 1
 // (zeroed here); it is ignored otherwise. Needs K % 64 == 0, N % 16 == 0,
-// bn % 128 == 0 or bn == N, 16-byte aligned w and x rows (ldx * element
-// size a multiple of 16); with p.eid (K8), block_m % 32 == 0.
-template <int XK>
+// bn % 128 == 0 or bn == N, 16-byte aligned w and x rows (ldx a multiple
+// of 16); with p.eid (K8), block_m % 32 == 0.
 inline cudaError_t launch(Gemm p, int splits, cudaStream_t st) {
-  constexpr bool NORM = XK != X_INT8;
   if (splits < 1) splits = 1;
   p.k_chunk = max(BK, ((p.K / splits + BK - 1) / BK) * BK);
   if (splits > 1) {
@@ -373,26 +273,22 @@ inline cudaError_t launch(Gemm p, int splits, cudaStream_t st) {
   const int nz = (p.K + p.k_chunk - 1) / p.k_chunk;
   const bool grouped = p.eid != nullptr;
   if (grouped) {
-    if constexpr (XK == X_INT8) {
-      const dim3 grid((p.N + BN - 1) / BN, (p.M + 31) / 32, nz);
-      w8a8_kernel<32, X_INT8, true><<<grid, THREADS, 0, st>>>(p);
-    } else {
-      return cudaErrorInvalidValue;            // K8 takes int8 x
-    }
+    const dim3 grid((p.N + BN - 1) / BN, (p.M + 31) / 32, nz);
+    w8a8_kernel<32, true><<<grid, THREADS, 0, st>>>(p);
   } else if (p.M <= 16) {
     const dim3 grid((p.N + BN - 1) / BN, (p.M + 15) / 16, nz);
-    w8a8_kernel<16, XK, false><<<grid, THREADS, 0, st>>>(p);
+    w8a8_kernel<16, false><<<grid, THREADS, 0, st>>>(p);
   } else {
     const dim3 grid((p.N + BN - 1) / BN, (p.M + 63) / 64, nz);
-    w8a8_kernel<64, XK, false><<<grid, THREADS, 0, st>>>(p);
+    w8a8_kernel<64, false><<<grid, THREADS, 0, st>>>(p);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.accum == nullptr) return e;
   const unsigned blocks = (unsigned)(((size_t)p.M * p.N + 255) / 256);
   if (grouped)
-    w8a8_epilogue<false, true><<<blocks, 256, 0, st>>>(p);
+    w8a8_epilogue<true><<<blocks, 256, 0, st>>>(p);
   else
-    w8a8_epilogue<NORM, false><<<blocks, 256, 0, st>>>(p);
+    w8a8_epilogue<false><<<blocks, 256, 0, st>>>(p);
   return cudaGetLastError();
 }
 

@@ -40,7 +40,7 @@ static Gemm gemm_args(const void* x, const void* w, const void* xs, const void* 
                       void* out, void* workspace, int M, int N, int K, int li, int bn,
                       int out_f32) {
   Gemm p{};
-  p.x = x;
+  p.x = static_cast<const int8_t*>(x);
   p.w = static_cast<const int8_t*>(w);
   p.xs = static_cast<const float*>(xs);
   p.ws = static_cast<const float*>(ws);
@@ -63,7 +63,7 @@ static Gemm gemm_args(const void* x, const void* w, const void* xs, const void* 
 extern "C" int skt_w8a8_gemm(const void* x, const void* w, const void* xs,
                              const void* ws, void* out, void* workspace, int M,
                              int N, int K, int li, int splits, int out_f32, void* stream) {
-  return (int)skt_w8a8::launch<skt_w8a8::X_INT8>(
+  return (int)skt_w8a8::launch(
       gemm_args(x, w, xs, ws, out, workspace, M, N, K, li, N, out_f32), splits,
       static_cast<cudaStream_t>(stream));
 }
@@ -74,7 +74,7 @@ extern "C" int skt_w8a8_gemm_tiled(const void* x, const void* w, const void* xs,
                                    int N, int K, int li, int bn, int splits,
                                    int out_f32, void* stream) {
   if (bn <= 0 || bn % skt_w8a8::BN != 0 || N % bn != 0) return (int)cudaErrorInvalidValue;
-  return (int)skt_w8a8::launch<skt_w8a8::X_INT8>(
+  return (int)skt_w8a8::launch(
       gemm_args(x, w, xs, ws, out, workspace, M, N, K, li, bn, out_f32), splits,
       static_cast<cudaStream_t>(stream));
 }
@@ -93,7 +93,7 @@ extern "C" int skt_w8a8_gemm_grouped(const void* x, const void* w, const void* x
   p.eid = static_cast<const int32_t*>(eid);
   p.block_m = block_m;
   p.groups = G;
-  return (int)skt_w8a8::launch<skt_w8a8::X_INT8>(p, splits, static_cast<cudaStream_t>(stream));
+  return (int)skt_w8a8::launch(p, splits, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* skt_w8a8_gemm_error(int e) {

@@ -26,6 +26,8 @@ For MLA, on a CUDA tensor `decode_mla` launches kernel K7 (csrc/decode_mla.cu); 
 CPU tensor it runs `decode_mla_ref`, the plain version in the TPU kernel's
 order (one page per online-softmax step, all f32). The kernel serves
 DeepSeek's widths only: Lkv 512, Lrope even and <= 64, H a multiple of 4.
+It splits each sequence's tokens over blocks of the card (`mla_splits`,
+`mla_split_bounds`) and merges the splits in split order.
 """
 
 from __future__ import annotations
@@ -35,13 +37,19 @@ import ctypes
 import torch
 
 from ... import _build
-from ...utils import use_kernel
+from ...utils import cdiv, use_kernel
 
 _NEG_INF = -1e30
 
-# q, ckv, krope, seq_lens, block_table, out, B, H, lkv, lrope, ps, MP,
-# sm_scale, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# q, ckv, krope, seq_lens, block_table, out, ws, arrivals, B, H, lkv, lrope,
+# ps, MP, S, sm_scale, stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# K7's split plan (csrc/decode_mla.cu): 16 heads a block, rounds of 32
+# tokens, splits of at least 2 rounds, at most 16 splits a sequence
+MLA_HEADS = 16
+MLA_ROUND = 32
+MLA_MIN_ROUNDS = 2
+MLA_MAX_SPLITS = 16
 # every contract of csrc/decode_hm.cu (K10, K14, K16): q, k_cache, v_cache,
 # k_scales, v_scales, k_new, v_new, seq_lens, block_table, out, B, Hq, Hkv, D,
 # P, ps, MP, sm_scale, stream
@@ -260,6 +268,30 @@ def decode_mla_ref(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale,
     return (acc / l.clamp_min(1e-37)).to(q.dtype)
 
 
+def mla_splits(sms: int, b: int, h: int, max_len: int) -> int:
+    """S, the splits of K7's grid: one wave of the card's `sms` SMs over
+    the (sequence, 16-head tile) rows, at most MLA_MAX_SPLITS, and no more
+    than the longest possible sequence (`max_len` tokens) fills with splits
+    of MLA_MIN_ROUNDS rounds."""
+    rows = b * cdiv(h, MLA_HEADS)
+    return max(1, min(MLA_MAX_SPLITS, sms // max(rows, 1),
+                      cdiv(max_len, MLA_ROUND) // MLA_MIN_ROUNDS))
+
+
+def mla_split_bounds(n: int, s: int):
+    """[(t0, t1), ...]: the splits of a sequence of n live tokens under a
+    grid of s splits, in order. Its R = ceil(n / 32) rounds go to S_b =
+    min(s, max(1, R // 2)) splits, split i taking rounds R i // S_b ..
+    R (i + 1) // S_b (tokens to n at most): none empty unless n is 0 (one
+    split of no tokens). The kernel takes the same bounds from the
+    sequence's length on the card; the grid's other splits of the sequence
+    return."""
+    r = cdiv(n, MLA_ROUND)
+    sb = min(s, max(1, r // MLA_MIN_ROUNDS))
+    return [(min(n, MLA_ROUND * (r * i // sb)), min(n, MLA_ROUND * (r * (i + 1) // sb)))
+            for i in range(sb)]
+
+
 def decode_mla(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale, page_size):
     """Paged MLA decode (module docstring). Returns [B, H, Lkv] in q's dtype."""
     if not use_kernel(q):
@@ -281,11 +313,21 @@ def decode_mla(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale, page_
     q = q.contiguous()
     _build.check_operands("decode_mla", dev, q, ckv_cache, krope_cache, sl, bt)
     out = torch.empty((b, h, lkv), dtype=torch.bfloat16, device=dev)
+    mp = bt.shape[1]
+    rows = b * cdiv(h, MLA_HEADS)
+    splits = mla_splits(torch.cuda.get_device_properties(dev).multi_processor_count, b, h,
+                        mp * ps)
+    ws = arrivals = None
+    if splits > 1:
+        ws = torch.empty(rows * splits * MLA_HEADS * (2 + lkv), dtype=torch.float32,
+                         device=dev)
+        arrivals = _build.arrival_counters("decode_mla", dev, rows)
     fn = _build.launcher("decode_mla", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(q.data_ptr(), ckv_cache.data_ptr(), krope_cache.data_ptr(), sl.data_ptr(),
-              bt.data_ptr(), out.data_ptr(), b, h, lkv, lrope, ps, bt.shape[1],
-              float(sm_scale), stream)
+              bt.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
+              arrivals.data_ptr() if arrivals is not None else None, b, h, lkv, lrope, ps,
+              mp, splits, float(sm_scale), stream)
     _build.check("decode_mla", code)
     _build.launches["decode_mla"] += 1
     return out

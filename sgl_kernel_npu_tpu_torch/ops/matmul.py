@@ -132,9 +132,10 @@ def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
 def splits_for(m: int, n: int, k: int, device, bm=None) -> int:
     """Split K over blocks when the output has fewer tiles than two blocks
     per SM, so that every SM streams weights; int32 partial sums stay exact.
-    Kernels A, K1, K2 and K8 share one GEMM loop and this one policy, which
-    depends on the shape alone. bm is the row tile: 16 up to M = 16 and 64
-    above, or 32 for the grouped GEMM."""
+    Kernels A, K1 and K8 share one GEMM loop and this one policy, which
+    depends on the shape alone (K2 has its own: ops/rmsq_gemm.py::rmsq_plan).
+    bm is the row tile: 16 up to M = 16 and 64 above, or 32 for the grouped
+    GEMM."""
     tiles = cdiv(n, _BN) * cdiv(m, bm or (16 if m <= 16 else 64))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(cdiv(2 * sms, tiles), k // _BK))

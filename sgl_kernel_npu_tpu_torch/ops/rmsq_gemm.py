@@ -2,10 +2,11 @@
 (counterpart of the JAX package's ops/rmsq_gemm.py::rmsnorm_quant_gemm).
 
 On a CUDA tensor `rmsnorm_quant_gemm` launches kernel K2 (csrc/rmsq_gemm.cu):
-a row pass writes each row's rstd, quant divisor and epilogue scale, and the
-GEMM normalises and quantises each x block in its prologue, so the int8
-activation never reaches device memory. On a CPU tensor it runs the plain
-version, `rmsnorm_quant_gemm_ref`.
+a row pass quantises each row once into int8 rows xq [M, K] and writes the
+epilogue's row scale, and the GEMM streams the weights through a ring of
+asynchronous copies against xq, K split over blocks where the output has too
+few tiles for the card (`rmsq_plan`). On a CPU tensor it runs the plain
+version, `rmsnorm_quant_gemm_ref`, whose row pass is `rmsq_rows_ref`.
 
 Both modes of the JAX package are served:
   * quant_mode="per_token" (the Llama path): dynamic symmetric row scales,
@@ -47,17 +48,48 @@ import ctypes
 import torch
 
 from .. import _build
-from ..utils import use_kernel
-from .matmul import _BK, _BN, splits_for, untile_weight_bank
+from ..utils import cdiv, use_kernel
+from .matmul import _BK, _BN, untile_weight_bank
 from .quant import INV_INT8_MAX
 
-# x, gamma, beta, w, ws, bias, quant_scale, quant_offset, stats, out,
-# workspace, M, N, K, ldx, li, bn, splits, eps, apply_norm, per_tensor,
-# x_f32, fp16_cast, out_f32, stream
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
+# x, gamma, beta, w, ws, bias, quant_scale, quant_offset, xq, xs, out,
+# partials, arrivals, M, N, K, ldx, li, bn, bm, splits, eps, apply_norm,
+# per_tensor, x_f32, fp16_cast, out_f32, stream
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _MODES = ("per_token", "per_tensor")
 _CASTS = ("f32", "fp16")
+# K2's GEMM plan (csrc/rmsq_gemm.cu): 256-column tiles of 128 rows (wgmma;
+# 16 rows and mma.sync for M <= 16), K in stages of 128 bytes (64 at M <= 16),
+# split at most 16 ways and into no less than 256 of K a split
+K2_BN = 256
+K2_MIN_SPLIT_K = 256
+K2_MAX_SPLITS = 16
+
+
+def rmsq_kstep(bm: int) -> int:
+    """The K bytes of one stage of K2's GEMM with row tiles of bm."""
+    return 64 if bm == 16 else 128
+
+
+def rmsq_plan(m: int, n: int, k: int, sms: int):
+    """(bm, tiles_m, tiles_n, splits) of kernel K2's GEMM on a card of `sms`
+    SMs: output tiles of bm x 256, and K split over blocks so that the grid
+    fills one wave of the card (one block per SM) where the tiles alone do
+    not, each split at least K2_MIN_SPLIT_K of K."""
+    bm = 16 if m <= 16 else 128
+    tiles_m, tiles_n = cdiv(m, bm), cdiv(n, K2_BN)
+    kstep = rmsq_kstep(bm)
+    ksteps = cdiv(k, kstep)
+    splits = max(1, min(K2_MAX_SPLITS, sms // (tiles_m * tiles_n),
+                        ksteps // (K2_MIN_SPLIT_K // kstep)))
+    return bm, tiles_m, tiles_n, splits
+
+
+def rmsq_split_bounds(ksteps: int, splits: int):
+    """[(k0, k1), ...]: the K stages that each split of a tile sums, in
+    order, as the kernel takes them."""
+    return [(ksteps * s // splits, ksteps * (s + 1) // splits) for s in range(splits)]
 
 
 def _check_mode(quant_scale, quant_mode, quant_cast):
@@ -102,14 +134,24 @@ def _layer_weight(w, li):
     return w
 
 
-def rmsnorm_quant_gemm_ref(x, gamma, beta, w, descale, bias=None,
-                           quant_scale=None, quant_offset=None, li=None,
-                           quant_mode: str = "per_tensor", apply_norm: bool = True,
-                           eps: float = 1e-6, out_dtype=torch.float32,
-                           quant_cast: str = "f32"):
-    """Plain version of kernel K2 (same contract as rmsnorm_quant_gemm)."""
+def _quant_rows(x, rstd, gamma, beta, qdiv, qoff, fp16_cast: bool):
+    """int8 [M, K]: (x * rstd * gamma + beta) / qdiv (+ qoff), rounded to fp16
+    first where asked, then half to even and clipped to [-128, 127]."""
+    qv = (x.float() * rstd * gamma.float()[None, :] + beta.float()[None, :]) / qdiv
+    if qoff is not None:
+        qv = qv + qoff
+    if fp16_cast:
+        qv = qv.to(torch.float16).float()
+    return torch.round(qv).clamp(-128, 127).to(torch.int8)
+
+
+def rmsq_rows_ref(x, gamma, beta, quant_scale=None, quant_offset=None,
+                  quant_mode: str = "per_tensor", apply_norm: bool = True,
+                  eps: float = 1e-6, quant_cast: str = "f32"):
+    """Plain version of K2's row pass: (xq [M, K] int8, x_scale [M, 1] f32),
+    the quantised rows and the epilogue's row scale (the per-token scale,
+    or ones in the per_tensor mode)."""
     _check_mode(quant_scale, quant_mode, quant_cast)
-    g32, b32 = gamma.float()[None, :], beta.float()[None, :]
     if quant_mode == "per_token":
         rstd, qdiv = _row_stats(x, gamma, beta, apply_norm, eps)
         qoff, outsc = None, qdiv
@@ -118,20 +160,23 @@ def rmsnorm_quant_gemm_ref(x, gamma, beta, w, descale, bias=None,
         qdiv = quant_scale.float().reshape(())
         qoff = (quant_offset.float().reshape(()) if quant_offset is not None
                 else None)
-        outsc = None
-    qv = (x.float() * rstd * g32 + b32) / qdiv
-    if qoff is not None:
-        qv = qv + qoff
-    if quant_cast == "fp16":
-        qv = qv.to(torch.float16).float()
-    q = torch.round(qv).clamp(-128, 127).to(torch.int8)
+        outsc = torch.ones((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    return _quant_rows(x, rstd, gamma, beta, qdiv, qoff, quant_cast == "fp16"), outsc
+
+
+def rmsnorm_quant_gemm_ref(x, gamma, beta, w, descale, bias=None,
+                           quant_scale=None, quant_offset=None, li=None,
+                           quant_mode: str = "per_tensor", apply_norm: bool = True,
+                           eps: float = 1e-6, out_dtype=torch.float32,
+                           quant_cast: str = "f32"):
+    """Plain version of kernel K2 (same contract as rmsnorm_quant_gemm)."""
+    q, outsc = rmsq_rows_ref(x, gamma, beta, quant_scale, quant_offset, quant_mode,
+                             apply_norm, eps, quant_cast)
     acc = q.double() @ _layer_weight(w, li).double()
     if bias is not None:
         acc = acc + _layer_slice(bias, w, li).double()[None, :]
     out = acc.float() * _layer_slice(descale, w, li).float()[None, :]
-    if outsc is not None:
-        out = out * outsc
-    return out.to(out_dtype)
+    return (out * outsc).to(out_dtype)
 
 
 def rmsnorm_quant_gemm(x, gamma, beta, w, descale, bias=None,
@@ -212,20 +257,26 @@ def _rmsq_gemm(x, gamma, beta, w, descale, bias, quant_scale, quant_offset, li,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    stats = torch.empty((3, m), dtype=torch.float32, device=dev)
-    splits = splits_for(m, n, k, dev)
-    work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
-            else None)
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    bm, tiles_m, tiles_n, splits = rmsq_plan(
+        m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = arrivals = None
+    if splits > 1:
+        part = torch.empty(tiles_m * tiles_n * splits * bm * K2_BN, dtype=torch.int32,
+                           device=dev)
+        arrivals = _build.arrival_counters("rmsq_gemm", dev, tiles_m * tiles_n)
     fn = _build.launcher("rmsq_gemm", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
     code = fn(x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
-              ws.data_ptr(), ptr(bias32), ptr(qs), ptr(qo), stats.data_ptr(),
-              out.data_ptr(), ptr(work), m, n, k, ldx, li, bn, splits, float(eps),
-              int(bool(apply_norm)), int(per_tensor), int(x.dtype == torch.float32),
-              int(fp16_cast), int(out_dtype == torch.float32), stream)
+              ws.data_ptr(), ptr(bias32), ptr(qs), ptr(qo), xq.data_ptr(), xs.data_ptr(),
+              out.data_ptr(), ptr(part), ptr(arrivals), m, n, k, ldx, li, bn, bm, splits,
+              float(eps), int(bool(apply_norm)), int(per_tensor),
+              int(x.dtype == torch.float32), int(fp16_cast), int(out_dtype == torch.float32),
+              stream)
     _build.check("rmsq_gemm", code)
     _build.launches["rmsq_gemm_pt" if per_tensor else "rmsq_gemm"] += 1
     return out

@@ -148,14 +148,21 @@ def test_scan_passes_per_device_setup(name):
     assert setup_behind_static(PASSED[name]) == []
 
 
-# --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C) merge the splits'
-# partials through a workspace, deterministically: no float atomics (their
-# order changes from run to run, and a second call must be bit-identical),
-# only integer arrival counters, each reset to 0 by the kernel that used it
-# (the last block to arrive), never zeroed by the host before a call.
+def test_kernels_build_for_sm_90a():
+    """Every source is compiled for sm_90a, Hopper's target with wgmma and
+    setmaxnreg (plain sm_90 refuses them)."""
+    assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
-SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu")
+
+# --------------------------------------------------------------------------
+# The kernels that split a row over blocks (K19, C, K7's context, K2's K)
+# merge the splits' partials through a workspace, deterministically: no
+# float atomics (their order changes from run to run, and a second call must
+# be bit-identical), only integer arrival counters, each reset to 0 by the
+# kernel that used it (the last block to arrive), never zeroed by the host
+# before a call.
+
+SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_mla.cu", "rmsq_gemm.cu")
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
 INT_DECL = r"\b(?:int|unsigned|unsigned\s+int|int32_t|uint32_t)\s*\*\s*(?:__restrict__\s*)?{}\b"

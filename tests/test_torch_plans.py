@@ -1,0 +1,318 @@
+"""The split plans and the row pass of kernels K7 and K2, on the CPU.
+
+K7 (csrc/decode_mla.cu) splits each sequence's tokens over blocks of the
+card and merges the splits in split order; K2 (csrc/rmsq_gemm.cu)
+quantises every row once, then splits K over blocks where the output has
+too few tiles. The kernels need the card; what decides their work is
+Python that runs here:
+
+  * (a) K7's planner (`mla_splits`, `mla_split_bounds`) for SM counts
+    passed in: every live token in exactly one split, the splits in order,
+    none empty, S within the kernel's maximum;
+  * (b) an f32 emulation of K7's rounds, splits and merge (as the kernel
+    takes them, following the planner) against `decode_mla_ref` and the JAX
+    package's decode_mla_pallas run in interpret mode, within K7's bar (one
+    bf16 ulp + 1e-4 of max|plain|), at DeepSeek's widths;
+  * (c) K2's plan (`rmsq_plan`, `rmsq_split_bounds`): every output tile
+    and K step covered once at the bench and engine shapes, one wave;
+  * (d) K2's plain row pass (`rmsq_rows_ref`, `_quant_rows`) against the
+    JAX package's `_row_stats` plus its kernel's quant step.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sgl_kernel_npu_tpu.ops import rmsq_gemm as jrq
+from sgl_kernel_npu_tpu.ops.attention import decode as jdec
+from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as trq
+from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
+
+K7_SHARE = 1e-4
+NO_EXCESS = {"xla_allow_excess_precision": False}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def assert_bf16_close(got, want, share, name=""):
+    """Every value of `got` within one bf16 ulp of `want` (2^-7 of its
+    magnitude) plus `share` * max|want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    bad = err > 2.0 ** -7 * np.abs(want) + share * np.abs(want).max()
+    assert not bad.any(), (name, float(err.max()), int(bad.sum()), float(np.abs(want).max()))
+
+
+# ----------------------------------------------------------- (a) K7's plan
+
+SMS = (132, 114, 78, 16, 1)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("b,h", [(1, 16), (8, 16), (3, 4), (8, 20), (64, 128), (128, 16)])
+@pytest.mark.parametrize("max_len", [1, 63, 64, 700, 4096, 8192])
+def test_k7_split_plan(sms, b, h, max_len):
+    s = tdec.mla_splits(sms, b, h, max_len)
+    rows = b * math.ceil(h / tdec.MLA_HEADS)
+    assert 1 <= s <= tdec.MLA_MAX_SPLITS
+    assert s == 1 or s * rows <= sms            # one wave of the card
+    for n in sorted({0, 1, 2, 31, 32, 33, 63, 64, 65, 127, 700, 701, 4096, max_len}):
+        if n > max_len:
+            continue
+        bounds = tdec.mla_split_bounds(n, s)
+        assert 1 <= len(bounds) <= s
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        for (a0, a1), (b0, _) in zip(bounds, bounds[1:]):
+            assert a1 == b0                       # in order, nothing skipped or repeated
+        if n == 0:
+            assert bounds == [(0, 0)]
+            continue
+        for t0, t1 in bounds:
+            assert t0 < t1                        # no split is empty
+            assert t0 % tdec.MLA_ROUND == 0       # splits start on a round
+        if len(bounds) > 1:                       # at least two rounds a split
+            assert all(t1 - t0 > tdec.MLA_ROUND for t0, t1 in bounds)
+
+
+def test_k7_split_plan_at_the_engine_shape():
+    """The MLA engine's decode batch on an H100 (132 SMs): 8 sequences of
+    16 heads, 64 pages of 128 tokens; 701 tokens take 11 splits of two
+    rounds, a 4,096-token sequence alone 16 splits."""
+    s = tdec.mla_splits(132, 8, 16, 64 * 128)
+    assert s == 16
+    assert len(tdec.mla_split_bounds(701, s)) == 11
+    assert len(tdec.mla_split_bounds(41, s)) == 1
+    s1 = tdec.mla_splits(132, 1, 16, 64 * 128)
+    assert len(tdec.mla_split_bounds(4096, s1)) == 16
+
+
+# ------------------------------------------------- (b) K7's split and merge
+
+
+def _split_merge(q, ckv, krope, seq, bt, sm, ps, sms):
+    """K7 emulated in f32: each split's rounds of 32 tokens as online-softmax
+    steps, then the merge of the splits in split order (one split: its own
+    acc / max(l, 1e-37))."""
+    b, h, _ = q.shape
+    lkv = ckv.shape[-1]
+    mp = bt.shape[1]
+    s = tdec.mla_splits(sms, b, h, mp * ps)
+    qf = q.float()
+    out = torch.zeros((b, h, lkv))
+    for i in range(b):
+        n = min(max(int(seq[i]), 0), mp * ps)
+        tok = torch.arange(n)
+        rows = bt[i, tok // ps].long() * ps + tok % ps
+        ck = ckv.reshape(-1, lkv)[rows].float()
+        kr = krope.reshape(-1, krope.shape[-1])[rows].float()
+        parts = []
+        for t0, t1 in tdec.mla_split_bounds(n, s):
+            m = torch.full((h,), -math.inf)
+            l = torch.zeros(h)
+            acc = torch.zeros((h, lkv))
+            for r0 in range(t0, t1, tdec.MLA_ROUND):
+                r1 = min(r0 + tdec.MLA_ROUND, t1)
+                sc = (qf[i, :, :lkv] @ ck[r0:r1].T + qf[i, :, lkv:] @ kr[r0:r1].T) * sm
+                mn = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - mn)
+                p = torch.exp(sc - mn[:, None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + p @ ck[r0:r1]
+                m = mn
+            parts.append((m, l, acc))
+        if len(parts) == 1:
+            _, l, acc = parts[0]
+            out[i] = acc / l.clamp_min(1e-37)[:, None]
+            continue
+        mx = torch.stack([p[0] for p in parts]).amax(0)
+        o, lsum = torch.zeros((h, lkv)), torch.zeros(h)
+        for m, l, acc in parts:                  # split order
+            w = torch.exp(m - mx)
+            lsum = lsum + w * l
+            o = o + w[:, None] * acc
+        out[i] = o / lsum.clamp_min(1e-37)[:, None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def k7_case():
+    """DeepSeek's widths (16 heads, 512 | 64) over pages of 16: three
+    sequences of 1, 150 and 400 tokens (the current one included), page
+    edges inside the splits; the JAX kernel run once in interpret mode."""
+    rng = np.random.default_rng(131)
+    b, h, lkv, lrope, ps, mp = 3, 16, 512, 64, 16, 26
+    pages = b * mp + 1
+
+    def bf16(shape, scale=1.0):
+        a = jnp.asarray(scale * rng.standard_normal(shape), jnp.bfloat16)
+        return a, _t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+    jck, tck = bf16((pages, ps, lkv))
+    jkr, tkr = bf16((pages, ps, lrope))
+    jq, tq = bf16((b, h, lkv + lrope), 1.5)
+    seq = np.array([1, 150, 400], np.int32)
+    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
+    sm = (128 + 64) ** -0.5
+    want = jdec.decode_mla_pallas(jq, jck, jkr, jnp.asarray(seq), jnp.asarray(bt), sm, ps)
+    ref = tdec.decode_mla_ref(tq, tck, tkr, _t(seq), _t(bt), sm, ps)
+    return dict(args=(tq, tck, tkr, _t(seq), _t(bt), sm, ps),
+                want=np.asarray(jnp.asarray(want, jnp.float32)), ref=ref)
+
+
+@pytest.mark.parametrize("sms", [132, 48, 9, 3])
+def test_k7_split_merge_matches_plain_and_jax(k7_case, sms):
+    q, ckv, kr, seq, bt, sm, ps = k7_case["args"]
+    s = tdec.mla_splits(sms, q.shape[0], q.shape[1], bt.shape[1] * ps)
+    if sms in (132, 48):
+        assert len(tdec.mla_split_bounds(400, s)) > 2   # several splits merged
+    got = _split_merge(q, ckv, kr, seq, bt, sm, ps, sms)
+    assert_bf16_close(got.float().numpy(), k7_case["ref"].float().numpy(), K7_SHARE,
+                      f"vs decode_mla_ref, S {s}")
+    assert_bf16_close(got.float().numpy(), k7_case["want"], K7_SHARE,
+                      f"vs decode_mla_pallas, S {s}")
+
+
+def test_k7_plain_matches_jax(k7_case):
+    assert_bf16_close(k7_case["ref"].float().numpy(), k7_case["want"], K7_SHARE)
+
+
+# ---------------------------------------------------------- (c) K2's plan
+
+# (M, N, K): phase 4's wqkv and w13 at Llama-3-8B width; phase 6's per_token
+# w13 (intermediate padded to 1024-wide panels), wdqkv (2112 padded to 3072)
+# and wuq; the MLA engine's M 8 per_tensor calls on plain weights; a prefill
+K2_SHAPES = [(128, 6144, 4096), (128, 28672, 4096), (128, 22528, 2048), (128, 3072, 2048),
+             (128, 3072, 1536), (8, 2112, 2048), (8, 3072, 1536), (256, 2112, 2048),
+             (100, 384, 256), (8, 128, 64)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("m,n,k", K2_SHAPES)
+def test_k2_plan_covers_every_tile_once(sms, m, n, k):
+    bm, tiles_m, tiles_n, splits = trq.rmsq_plan(m, n, k, sms)
+    assert bm == (16 if m <= 16 else 128)
+    assert tiles_m * bm >= m > (tiles_m - 1) * bm
+    assert tiles_n * trq.K2_BN >= n > (tiles_n - 1) * trq.K2_BN
+    kstep = trq.rmsq_kstep(bm)
+    ksteps = -(-k // kstep)
+    assert 1 <= splits <= trq.K2_MAX_SPLITS and splits <= ksteps
+    assert splits == 1 or tiles_m * tiles_n * splits <= sms     # one wave
+    assert splits == 1 or ksteps // splits * kstep >= trq.K2_MIN_SPLIT_K
+    bounds = trq.rmsq_split_bounds(ksteps, splits)
+    covered = np.zeros((tiles_m, tiles_n, ksteps), np.int32)
+    for tm in range(tiles_m):
+        for tn in range(tiles_n):
+            for k0, k1 in bounds:
+                assert k1 > k0                    # no split is empty
+                covered[tm, tn, k0:k1] += 1
+    assert (covered == 1).all()
+    assert [b[0] for b in bounds] == sorted(b[0] for b in bounds)
+
+
+def test_k2_plan_at_the_bench_shapes():
+    """On an H100 (132 SMs): w13 fills 112 tiles unsplit, wqkv's 24 tiles
+    split K five ways, the engine's M 8 wdqkv (9 tiles of 16 rows, stages
+    of 64) eight ways."""
+    assert trq.rmsq_plan(128, 28672, 4096, 132) == (128, 1, 112, 1)
+    assert trq.rmsq_plan(128, 6144, 4096, 132) == (128, 1, 24, 5)
+    assert trq.rmsq_plan(8, 2112, 2048, 132) == (16, 1, 9, 8)
+
+
+# ---------------------------------------------------- (d) K2's row pass
+
+
+_jax_stats = jax.jit(jrq._row_stats, static_argnums=(5, 6, 7), compiler_options=NO_EXCESS)
+
+
+def _jax_quant(x, gamma, beta, qs, qo, mode, apply_norm, eps, cast):
+    """The JAX kernel's int8 rows: rmsnorm_quant_gemm (interpret mode) on an
+    identity weight with unit scales gives xq (per_tensor) or xq * scale
+    (per_token, divided back: |xq| <= 128, so the quotient rounds to it)."""
+    m, k = x.shape
+    eye = jnp.eye(k, dtype=jnp.int8)
+    out = jrq.rmsnorm_quant_gemm(x, gamma, beta, eye, jnp.ones((k,), jnp.float32), None,
+                                 qs, qo, quant_mode=mode, apply_norm=apply_norm, eps=eps,
+                                 quant_cast=cast)
+    out = np.asarray(out, np.float64)
+    if mode == "per_token":
+        _, qdiv, _, _ = _jax_stats(x, gamma, beta, qs, qo, mode, apply_norm, eps)
+        out = out / np.asarray(qdiv, np.float64)
+    q = np.round(out)
+    assert np.abs(out - q).max() < 1e-3
+    return q.astype(np.int8)
+
+
+def _row_case(rng, m, k, x_f32):
+    """x (bf16, or an f32 column slice whose rows lie further apart than K),
+    gamma and beta, as numpy and as the port's tensors."""
+    wide = (2.0 * rng.standard_normal((m, k + 96))).astype(np.float32)
+    wide[1, 7] = 40.0                                 # a row with an outlier
+    if x_f32:
+        tx = _t(wide)[:, 32:32 + k]
+        jx = jnp.asarray(wide[:, 32:32 + k])
+    else:
+        jx = jnp.asarray(wide[:, :k], jnp.bfloat16)
+        tx = _t(np.asarray(jx.astype(jnp.float32))).to(torch.bfloat16)
+    gamma = (1.0 + 0.1 * rng.standard_normal(k)).astype(np.float32)
+    beta = (0.05 * rng.standard_normal(k)).astype(np.float32)
+    return jx, tx, gamma, beta
+
+
+@pytest.mark.parametrize("x_f32", [False, True])
+@pytest.mark.parametrize("mode,cast", [("per_token", "f32"), ("per_tensor", "fp16"),
+                                       ("per_tensor", "f32")])
+@pytest.mark.parametrize("apply_norm", [True, False])
+def test_k2_row_pass_matches_jax(monkeypatch, x_f32, mode, cast, apply_norm):
+    """The port's quant step on the JAX package's row statistics gives the
+    JAX kernel's int8 rows bit for bit (fp16 cast included, f32 x read
+    through a strided slice). The port's own statistics: rstd equal to the
+    JAX one without the norm and within an ulp with it (the port sums in
+    float64 and rounds 1/sqrt once, XLA sums in f32 and approximates rsqrt);
+    the per-token scale within an ulp more (the port multiplies by
+    f32(1/127), as XLA compiles `_row_stats` inside the model's step, where
+    `_row_stats` compiled alone divides by 127). The whole row pass then
+    flips at most one int8 value in 2,000, by one; none in the per_tensor
+    mode without the norm."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    rng = np.random.default_rng(140 + 2 * x_f32 + apply_norm)
+    m, k, eps = 16, 256, 1e-6
+    jx, tx, gamma, beta = _row_case(rng, m, k, x_f32)
+    if x_f32:
+        assert not tx.is_contiguous() and tx.stride(0) > k
+    qs, qo = (np.float32(0.04), np.float32(1.5)) if mode == "per_tensor" else (None, None)
+    jqs = jnp.float32(qs) if qs is not None else None
+    jqo = jnp.float32(qo) if qo is not None else None
+    want = _jax_quant(jx, jnp.asarray(gamma), jnp.asarray(beta), jqs, jqo, mode, apply_norm,
+                      eps, cast)
+
+    rstd, qdiv, qoff, outsc = (np.asarray(a) for a in _jax_stats(
+        jx, jnp.asarray(gamma), jnp.asarray(beta), jqs, jqo, mode, apply_norm, eps))
+    qd = _t(qdiv) if mode == "per_token" else torch.tensor(qs)
+    got = trq._quant_rows(tx, _t(rstd), _t(gamma), _t(beta), qd,
+                          torch.tensor(qo) if qo is not None else None, cast == "fp16")
+    assert got.dtype == torch.int8 and np.array_equal(got.numpy(), want)
+
+    xq, xs = trq.rmsq_rows_ref(tx, _t(gamma), _t(beta),
+                               torch.tensor(qs) if qs is not None else None,
+                               torch.tensor(qo) if qo is not None else None, mode,
+                               apply_norm, eps, cast)
+    prstd = trq._rstd(tx, apply_norm, eps).numpy()
+    ulp = np.spacing(np.abs(rstd).astype(np.float32))
+    if apply_norm:
+        assert (np.abs(prstd - rstd) <= ulp).all()
+    else:
+        assert np.array_equal(prstd, rstd)
+    if mode == "per_token":
+        ulps = (1 + apply_norm) * np.spacing(np.abs(outsc))
+        assert (np.abs(xs.numpy() - outsc) <= ulps).all()
+    else:
+        assert np.array_equal(xs.numpy(), np.ones((m, 1), np.float32))
+    diff = np.abs(xq.numpy().astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 5e-4
+    if not apply_norm and mode == "per_tensor":
+        assert np.array_equal(xq.numpy(), want)
