@@ -9,7 +9,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
 1. Holds every kernel against its plain PyTorch version on the card at the
    shapes of its main path: the Llama serving path's A-D (Llama-3-8B, decode
    batch 8), the Llama bench path's K1-K4 (batch 128, 512-token tm2 pages,
-   pretiled banks; B also at the engine's largest call, 256 tokens over a
+   pretiled banks; K1 also at M 1, 8, 16, 17, 100, 129 and 672, on panels
+   of 128, 384 and 1024 and at K 64, bf16 and f32 out, a second call
+   bit-identical; B also at the engine's largest call, 256 tokens over a
    512-token prefix, and at prefixes 200, 63, 64, 0 with an empty chunk,
    one launch per call), the two contracts that reuse A and C (matmul.py:71 at
    L = 1, decode_v8.py:388), and the MLA paths' kernels at DeepSeek-V2-Lite
@@ -49,7 +51,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    soft-FP8 W8A16 GEMM at DeepSeek-V3's fp8 widths: gate_proj, down_proj and
    kv_a_proj_with_mqa at M 128, gate_proj at M 4096, the grouped GEMM on
    phase 8's routed rows; also at M 8, a ragged K and N, 32-row tiles), K22
-   (helloworld, exact), K23's five contracts (the attic's v5, v4b and fused
+   (helloworld, exact, also at n 1, 8, 1,001 and 8,003; its time over
+   torch.add's printed), K23's five contracts (the attic's v5, v4b and fused
    v4 decodes; the fused writes bit-equal) and K24 (the attic's v7 two-tier
    decode) at Llama-3-8B's heads, batch 64, 256..383 cached tokens; K21
    within calc_diff 1e-5 and one bf16 ulp plus 1e-4 of max|plain|, K23 one
@@ -600,33 +603,58 @@ def compare_split_policy(torch, mm, quant, cfg, rng):
             del w, ws
 
 
+# K1's row counts: the engines' decode (8), the bench paths' batch (128), a
+# prefill chunk (672), and the edges of its plan: one row, the last of the
+# 16-row tiles (16) and the first of the 128-row ones (17), a partial row
+# tile (100) and a second row tile of one row (129)
+K1_MS = (1, 8, 16, 17, 100, 128, 129, 672)
+# 256-column tiles that straddle panels (bn 128, 384), DeepSeek's panels of
+# 1024, and the shortest K the kernel takes (64, under one 128-byte stage):
+# (name, K, N, bn)
+K1_PANELS = (("bn128", 4096, 2048, 128), ("bn384", 4096, 3072, 384),
+             ("bn1024", 2048, 3072, 1024), ("K64", 64, 256, 128))
+
+
 def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
-    """Kernel K1 at the bench path's shapes (M = 128): wo and w2 on [L, NB,
-    K, 512] banks, lm_head on its [1, V/768, H, 768] bank; exact also at M =
-    1, 8 and 100."""
+    """Kernel K1, exact at every row count of K1_MS, bf16 and f32 out, with
+    a second call bit-identical: on the bench path's banks (wo and w2
+    pretiled at 512, lm_head at 768) and on the panel widths of K1_PANELS.
+    Timed at M 128 (the JSON row: wo + w2 + lm_head, with the plain version
+    and torch._int_mm + epilogue), and at M 8 and 672."""
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     shapes = [("wo", cfg.q_size, h, 2, bn), ("w2", f, h, 2, bn), ("lm_head", h, v, 1, 768)]
-    rows, dev = [], "cuda"
+    shapes += [(name, k, n, 2, pbn) for name, k, n, pbn in K1_PANELS]
+    rows, dev, other = [], "cuda", []
     for name, k, n, layers, pbn in shapes:
         li = layers - 1
         w = torch.randint(-127, 128, (layers, k, n), generator=rng, dtype=torch.int8,
                           device=dev)
         ws = torch.rand((layers, n), generator=rng, device=dev) * 1e-3
         wt = mm.pretile_weight_bank(w, pbn)
-        for m in (128, 1, 8, 100):
+        for m in K1_MS:
             x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
             xq, xs = quant.per_token_quant_int8(x)
             for od in (torch.float32, torch.bfloat16):    # bf16 last: `ref` below
                 out = mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws, out_dtype=od)
+                again = mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws, out_dtype=od)
                 ref = mm.quant_matmul_int8_stacked_tiled_ref(xq, wt, li, xs, ws, out_dtype=od)
                 torch.cuda.synchronize()
                 if not torch.equal(out, ref):
                     bad = (out != ref).sum().item()
                     raise AssertionError(f"w8a8_gemm_tiled {name} M={m} {od}: {bad} elements "
                                          "differ")
-            if m != 128:
+                if not torch.equal(again, out):
+                    raise AssertionError(f"w8a8_gemm_tiled {name} M={m} {od}: a second call "
+                                         "differs")
+            if pbn not in (bn, 768) or m not in (8, 128, 672):
                 continue
-            ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws), 20, graph=True)
+
+            def kernel():
+                return mm.quant_matmul_int8_stacked(xq, wt, li, xs, ws)
+            ms = _time_ms(kernel, 20, graph=True)
+            if m != 128:
+                other.append(f"{name} M {m} {ms:.4f}")
+                continue
             plain = _time_ms(lambda: mm.quant_matmul_int8_stacked_tiled_ref(
                 xq, wt, li, xs, ws), 3, 1)
             library, got = _int_mm_yardstick(torch, xq, w[li], xs, ws[li], m)
@@ -641,8 +669,10 @@ def check_gemm_tiled(torch, mm, quant, cfg, rng, bn=512):
                   f"kernel {ms:.4f} ms, plain {plain:.3f} ms, _int_mm {lib:.4f} ms, "
                   f"bound {bound:.4f} ms ({by})")
         del w, ws, wt
-    print("  w8a8_gemm_tiled exact also at M = 1, 8, 100 on all three banks, bf16 and f32 "
-          "out")
+    print(f"  w8a8_gemm_tiled exact at M = {', '.join(map(str, K1_MS))} on wo, w2, lm_head, "
+          f"at bn 128, 384, 1024 and at K 64, bf16 and f32 out, second calls bit-identical; "
+          f"kernel ms "
+          + ", ".join(other))
     return _sum_rows(rows)
 
 
@@ -940,7 +970,7 @@ K2_EDGES = ((1, 256, 384, None, "per_token", "bf16"), (17, 512, 640, 128, "per_t
 
 
 def check_rmsq_edges(torch, mm, rq):
-    """K2 at the edges of its plan (ops/rmsq_gemm.py::rmsq_plan): both
+    """K2 at the edges of its plan (ops/matmul.py::gemm_plan): both
     loops (mma.sync at M <= 16, wgmma above), partial row and column tiles,
     a half K stage, split and unsplit K; each within K2's flip bar, a second
     call bit-identical."""
@@ -975,7 +1005,7 @@ def check_rmsq_edges(torch, mm, rq):
         _flip_check(label, out, ref, float(w[1].abs().max()) * float(ws[1].max()) * scale)
         if not torch.equal(rq.rmsnorm_quant_gemm(x, g, b, wt, dsl, bl, qs, qo, **kw), out):
             raise AssertionError(f"{label}: a second call differs")
-        bm, tm, tn, splits = rq.rmsq_plan(m, n, k, sms)
+        bm, tm, tn, splits = mm.gemm_plan(m, n, k, sms)
         notes.append(f"M {m} K {k} N {n} ({'plain' if bn is None else f'bn {bn}'}, {mode}, "
                      f"x {xkind}; tiles {tm} x {tn} of {bm} rows, K split {splits})")
     print("  rmsq_gemm edges within the flip bar, a second call bit-identical: "
@@ -2724,12 +2754,14 @@ def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_toke
     return out
 
 
-_K1 = ("w8a8_kernel<64, false>", "w8a8_kernel<16, false>", "w8a8_epilogue<false>")
-_K2 = ("rmsq_wgmma_kernel", "rmsq_mma_kernel", "rmsq_rows")
+# K1 and K2 run the int8 stage of csrc/w8a8_wgmma.cuh, each kernel
+# instantiated on its epilogue order (EpiTiled, EpiRmsq)
+_K1 = ("EpiTiled",)
+_K2 = ("EpiRmsq", "rmsq_rows")
 _K8 = ("w8a8_kernel<32, true>", "w8a8_epilogue<true>")
 _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                ("K14 decode_v6_defer", ("decode_hm_kernel",)),
-               ("split-K memsets", ("Memset",)))
+               ("memsets", ("Memset",)))
 # phase 2's decode call: kernel C's share of the device time
 _ENGINE_BUCKETS = (("A w8a8_gemm", ("w8a8_kernel", "w8a8_epilogue")),
                    ("C decode_tm", ("decode_tm_kernel",)), ("D append_tm", ("append_tm_kernel",)))
@@ -2741,11 +2773,11 @@ _MLA_ENGINE_BUCKETS = (("K2 rmsq_gemm (per_tensor)", _K2),
 _BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
             ("K3 decode_tm2", ("decode_tm2_kernel",)),
             ("K4 append_tm2", ("append_tm2_kernel",)),
-            ("split-K memsets", ("Memset",)))
+            ("memsets", ("Memset",)))
 _MLA_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm (both modes)", _K2),
                 ("K5 decode_mla_c", ("decode_mla_c_kernel",)),
                 ("K6 append_mla", ("append_mla_kernel",)),
-                ("split-K memsets", ("Memset",)))
+                ("memsets", ("Memset",)))
 
 
 def profile_step(torch, step, buckets, label, reps=3):
@@ -4323,9 +4355,10 @@ def check_wfp8a16(torch, mm, qt, data):
 
 
 def check_helloworld(torch, hw):
-    """K22 on bf16 [4096, 7168] and on 1,001 values (a tail past the
-    8-value vectors), exactly equal to its plain version (x + y)."""
-    for shape in (HELLO_SHAPE, (7, 143)):
+    """K22 on bf16 [4096, 7168] and on n = 1, 8, 1,001 and 8,003 values (a
+    vector's worth, and tails past the 8-value vectors), exactly equal to
+    its plain version (x + y); timed beside torch.add, its ratio printed."""
+    for shape in (HELLO_SHAPE, (1,), (8,), (7, 143), (8003,)):
         x, y = _bf16_rows(torch, 340, shape), _bf16_rows(torch, 341, shape)
         out, ref = hw.helloworld(x, y), hw.helloworld_ref(x, y)
         torch.cuda.synchronize()
@@ -4337,8 +4370,9 @@ def check_helloworld(torch, hw):
     plain_ms = _time_ms(lambda: hw.helloworld_ref(x, y), 20)
     lib = _time_ms(lambda: torch.add(x, y), 50, graph=True)
     bound, by = _bound_ms(6.0 * x.numel(), float(x.numel()), "bf16_flops")
-    print(f"  helloworld {HELLO_SHAPE} bf16: exact (and at 7 x 143); kernel {ms:.4f} ms, plain "
-          f"(x + y) {plain_ms:.4f} ms, torch.add {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    print(f"  helloworld {HELLO_SHAPE} bf16: exact (and at n = 1, 8, 1,001, 8,003); kernel "
+          f"{ms:.4f} ms, plain (x + y) {plain_ms:.4f} ms, torch.add {lib:.4f} ms (kernel / "
+          f"torch.add {ms / lib:.3f}), bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
                 max_abs_err=0.0)
 
@@ -5029,7 +5063,7 @@ def main() -> int:
         dict(name="append_tm", route="cuda", source=f"{src}/append_tm.cu",
              replaces=f"{base}/ops/attention/decode_v8.py:148",
              launches=launches["append_tm"], **rows["app"]),
-        dict(name="w8a8_gemm_tiled", route="cuda", source=f"{src}/w8a8_gemm.cu",
+        dict(name="w8a8_gemm_tiled", route="cuda", source=f"{src}/w8a8_gemm_tiled.cu",
              replaces=f"{base}/ops/matmul.py:161",
              launches=bench_launches["w8a8_gemm_tiled"], **rows["k1"]),
         dict(name="rmsq_gemm", route="cuda", source=f"{src}/rmsq_gemm.cu",

@@ -2,7 +2,8 @@
 """Time the port's fused RMSNorm-quant GEMM (K2) and paged MLA decode (K7)
 from two checkouts on one card, in turns (a, b, b, a, repeated), at the
 shapes of chip_smoke.py's phase 1, with their library yardsticks and, as a
-control, the GEMM kernels A, K1, K8 and K11 of w8a8_core.cuh.
+control, the GEMM kernels A, K1, K8 and K11 (K1 on K2's int8 stage,
+csrc/w8a8_wgmma.cuh, the others on w8a8_core.cuh's loop).
 
   python3 scripts/compare_rmsq_mla_kernels.py ROOT_A ROOT_B [ROUNDS]
 
@@ -199,7 +200,7 @@ def _k7(torch, dec, out):
 
 
 def _controls(torch, mm, quant, qn, cs, out):
-    """A, K1, K8 and K11: the kernels that keep w8a8_core.cuh's loop."""
+    """A, K1, K8 and K11, timed beside K2 and K7 as controls."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(40)
     total = 0.0
@@ -229,6 +230,12 @@ def _controls(torch, mm, quant, qn, cs, out):
                            20)
         del wt
     out["K1 (3 GEMMs, M 128)"] = total
+    _k8_control(torch, mm, quant, qn, cs, gen, out)
+    _k11_control(torch, cs, out)
+
+
+def _k8_control(torch, mm, quant, qn, cs, gen, out):
+    """K8 at the Qwen bench path's expert w13 (phase 1's shape), held exact."""
     qcfg = cs.qwen_bench_config(qn)
     e, topk, tile = qcfg.num_experts, qcfg.top_k, qn.MOE_TILE
     ids = torch.topk(torch.rand((128, e), generator=gen, device="cuda"), topk, dim=-1).indices
@@ -246,6 +253,10 @@ def _controls(torch, mm, quant, qn, cs, out):
         raise AssertionError("K8 differs from its plain version")
     out["K8 (Qwen expert w13)"] = _graph_ms(torch, lambda: mm.grouped_matmul_int8(*args), 20)
     del bank
+
+
+def _k11_control(torch, cs, out):
+    """K11 at the MoE layer's bench shape, its recv held exact."""
     from sgl_kernel_npu_tpu_torch import parallel
     from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas, low_latency,
                                                               pallas_ll)

@@ -36,7 +36,7 @@ KERNELS = {
     "prefill_tm": "prefill_tm",        # B
     "decode_tm": "decode_tm",          # C
     "append_tm": "append_tm",          # D
-    "w8a8_gemm_tiled": "w8a8_gemm",    # K1
+    "w8a8_gemm_tiled": "w8a8_gemm_tiled",  # K1
     "rmsq_gemm": "rmsq_gemm",          # K2
     "decode_tm2": "decode_tm2",        # K3
     "append_tm2": "append_tm2",        # K4

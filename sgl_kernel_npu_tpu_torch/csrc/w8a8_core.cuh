@@ -1,9 +1,9 @@
-// Device code shared by the W8A8 GEMMs: kernels A, K1 and K8 (w8a8_gemm.cu);
+// Device code shared by the W8A8 GEMMs: kernels A and K8 (w8a8_gemm.cu);
 // K11 (fused_moe.cu) takes its tile sizes, byte transpose and mma.
 //
 //   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n]) * x_scale[m] * w_scale[li, n] )
 //
-// li is one layer for the whole of M (A, K1) or, for the grouped GEMM K8,
+// li is one layer for the whole of M (A) or, for the grouped GEMM K8,
 // the expert of each block_m-row tile of x (eid[m / block_m], clamped to
 // [0, groups)); K8 then runs 32-row M tiles, so that no tile straddles two
 // experts, and a tile whose rows all have x_scale 0 (the padding of the
@@ -25,8 +25,8 @@
 // When the output has too few tiles to keep every SM streaming weights, K is
 // split over blocks and the int32 partial sums meet in a workspace through
 // atomicAdd (exact in any order), followed by a small epilogue pass.
-// Simple first: one register-prefetched stage, no TMA / wgmma yet. (K2,
-// csrc/rmsq_gemm.cu, has its own loop: a cp.async ring of 256-column tiles.)
+// Simple first: one register-prefetched stage, no TMA / wgmma yet. (K1 and
+// K2 run the int8 wgmma stage of w8a8_wgmma.cuh instead.)
 
 #pragma once
 
@@ -52,7 +52,7 @@ struct Gemm {
   int M, N, K, ldx, li, bn, k_chunk, out_f32, block_m, groups;
 };
 
-// The layer (A, K1) or the expert of row m (K8).
+// The layer (A) or the expert of row m (K8).
 __device__ __forceinline__ int layer_of(const Gemm& p, int m) {
   return p.eid != nullptr ? min(max(p.eid[m / p.block_m], 0), p.groups - 1) : p.li;
 }

@@ -1,16 +1,12 @@
-// Kernels A, K1 and K8: W8A8 GEMM out of a stacked int8 weight bank, at one
-// layer li (A, K1) or at the expert of each row tile (K8).
+// Kernels A and K8: W8A8 GEMM out of a stacked int8 weight bank, at one
+// layer li (A) or at the expert of each row tile (K8). (K1, the same GEMM
+// over a pretiled bank, is w8a8_gemm_tiled.cu.)
 //
 // A  replaces sgl_kernel_npu_tpu/ops/matmul.py::grouped_matmul_int8_pallas
 //    (_gmm_int8_kernel) as reached through quant_matmul_int8_stacked's 3-D
 //    bank branch (matmul.py:243-260), and quant_matmul_int8_pallas
 //    (matmul.py:71, a plain [K, N] weight = a one-layer bank): bank
 //    [L, K, N].
-// K1 replaces sgl_kernel_npu_tpu/ops/matmul.py::
-//    quant_matmul_int8_stacked_tiled (_w8a8_tiled_kernel, matmul.py:161), the
-//    4-D branch of quant_matmul_int8_stacked: bank pretiled to
-//    [L, N/bn, K, bn] (pretile_weight_bank), panel j of layer li one
-//    contiguous [K, bn] block.
 // K8 replaces grouped_matmul_int8_pallas (matmul.py:496) with its per-m-tile
 //    expert map, as models/qwen_next.py::_moe_mlp_q calls it: row tile i of
 //    block_m rows reads expert eid[i] of a [G, K, N] or pretiled
@@ -26,7 +22,7 @@
 // Bound on an H100: at decode (M = 8 to 128) the call moves K*N weight bytes
 // and does 2*M*K*N int8 operations, below the 1,979 TOP/s line (the ridge is
 // near M = 295), so 3.35 TB/s of device memory bounds it; at prefill widths
-// the int8 tensor-core rate comes close. All three are the shared
+// the int8 tensor-core rate comes close. Both are the shared
 // w8a8_core.cuh loop: a panel with rows of bn bytes is read exactly as the
 // plain bank with rows of N bytes, the layer (or expert) index is an argument
 // (no copy of the layer), and K is split over blocks when the output has too
@@ -65,17 +61,6 @@ extern "C" int skt_w8a8_gemm(const void* x, const void* w, const void* xs,
                              int N, int K, int li, int splits, int out_f32, void* stream) {
   return (int)skt_w8a8::launch(
       gemm_args(x, w, xs, ws, out, workspace, M, N, K, li, N, out_f32), splits,
-      static_cast<cudaStream_t>(stream));
-}
-
-// K1: as A over w [L, N/bn, K, bn] int8; needs bn % 128 == 0.
-extern "C" int skt_w8a8_gemm_tiled(const void* x, const void* w, const void* xs,
-                                   const void* ws, void* out, void* workspace, int M,
-                                   int N, int K, int li, int bn, int splits,
-                                   int out_f32, void* stream) {
-  if (bn <= 0 || bn % skt_w8a8::BN != 0 || N % bn != 0) return (int)cudaErrorInvalidValue;
-  return (int)skt_w8a8::launch(
-      gemm_args(x, w, xs, ws, out, workspace, M, N, K, li, bn, out_f32), splits,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -8,11 +8,13 @@ weights of its own expert. (The JAX package's `grouped_matmul_int8` is its
 ragged reference over group sizes; the port has that as
 `grouped_matmul_int8_ref`.)
 
-On a CUDA tensor a wrapper launches a kernel of csrc/w8a8_gemm.cu: kernel A
+On a CUDA tensor a wrapper launches a kernel: kernel A (csrc/w8a8_gemm.cu)
 for an [L, K, N] bank and for a plain weight (a one-layer view of it, no
-copy), kernel K1 for a pretiled bank, kernel K8 for the grouped GEMM. On a
-CPU tensor it runs the plain version, `quant_matmul_int8_ref` on the layer's
-(or the tile's expert's) [K, N] weight.
+copy), kernel K1 (csrc/w8a8_gemm_tiled.cu) for a pretiled bank, kernel K8
+(csrc/w8a8_gemm.cu) for the grouped GEMM. On a CPU tensor it runs the plain
+version, `quant_matmul_int8_ref` on the layer's (or the tile's expert's)
+[K, N] weight. K1 and K2 (ops/rmsq_gemm.py) share the int8 wgmma stage of
+csrc/w8a8_wgmma.cuh and its plan, `gemm_plan`.
 
 The soft-FP8 W8A16 GEMMs (bf16 activations times fp8 e4m3 weights with f32
 scales per 128 x 128 block, what the reference's softfp8_w8a16_matmul and
@@ -38,15 +40,53 @@ import torch
 from .. import _build
 from ..utils import cdiv, index_copy_kept_, use_kernel
 
-_BK, _BN = 64, 128       # the kernels' K stage and N tile
-# x, w, x_scale, w_scale, out, workspace, M, N, K, li, [bn,] splits, out_f32,
-# stream; the grouped GEMM: x, w, x_scale, w_scale, out, workspace, eid, M, N,
-# K, G, bn, block_m, splits, out_f32, stream
+_BK, _BN = 64, 128       # A's and K8's K stage and N tile (csrc/w8a8_core.cuh)
+# A: x, w, x_scale, w_scale, out, workspace, M, N, K, li, splits, out_f32,
+# stream; K1: x, w, x_scale, w_scale, out, partials, arrivals, M, N, K, li,
+# bn, bm, splits, out_f32, stream; K8: x, w, x_scale, w_scale, out,
+# workspace, eid, M, N, K, G, bn, block_m, splits, out_f32, stream
 _ARGTYPES = {
     "w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "w8a8_gemm_tiled": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "w8a8_gemm_tiled": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "w8a8_gemm_grouped": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
+# The int8 stage of csrc/w8a8_wgmma.cuh (K1, and K2 after its row pass):
+# 256-column tiles of 128 rows (wgmma; 16 rows and mma.sync for M <= 16), K
+# in stages of 128 bytes (64 at M <= 16), split at most 16 ways and into no
+# less than 256 of K a split
+GEMM_BN = 256
+GEMM_MIN_SPLIT_K = 256
+GEMM_MAX_SPLITS = 16
+
+
+def gemm_kstep(bm: int) -> int:
+    """The K bytes of one stage of the int8 stage with row tiles of bm."""
+    return 64 if bm == 16 else 128
+
+
+def gemm_plan(m: int, n: int, k: int, sms: int):
+    """(bm, tiles_m, tiles_n, splits) of the int8 stage (K1, K2) on a card
+    of `sms` SMs: output tiles of bm x 256, and K split over blocks where
+    the tiles alone leave SMs idle, each split at least GEMM_MIN_SPLIT_K of
+    K. The last split of a tile reads the others' partials into one SM: 16
+    KB each for 16-row tiles, so those split to fill one wave of the card;
+    128 KB for 128-row tiles (about 1.1 us each on an H100), so those split
+    to fill half of it (K1's wo and w2 and K2's per_tensor shapes 11-25%
+    faster than a whole wave on an H100: PERF.md)."""
+    bm = 16 if m <= 16 else 128
+    tiles_m, tiles_n = cdiv(m, bm), cdiv(n, GEMM_BN)
+    kstep = gemm_kstep(bm)
+    ksteps = cdiv(k, kstep)
+    fill = sms if bm == 16 else sms // 2
+    splits = max(1, min(GEMM_MAX_SPLITS, fill // (tiles_m * tiles_n),
+                        ksteps // (GEMM_MIN_SPLIT_K // kstep)))
+    return bm, tiles_m, tiles_n, splits
+
+
+def gemm_split_bounds(ksteps: int, splits: int):
+    """[(k0, k1), ...]: the K stages that each split of a tile sums, in
+    order, as the kernel takes them."""
+    return [(ksteps * s // splits, ksteps * (s + 1) // splits) for s in range(splits)]
 
 
 def quant_matmul_int8_ref(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
@@ -132,8 +172,8 @@ def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
 def splits_for(m: int, n: int, k: int, device, bm=None) -> int:
     """Split K over blocks when the output has fewer tiles than two blocks
     per SM, so that every SM streams weights; int32 partial sums stay exact.
-    Kernels A, K1 and K8 share one GEMM loop and this one policy, which
-    depends on the shape alone (K2 has its own: ops/rmsq_gemm.py::rmsq_plan).
+    Kernels A and K8 share one GEMM loop and this one policy, which depends
+    on the shape alone (K1 and K2 have theirs: gemm_plan).
     bm is the row tile: 16 up to M = 16 and 64 above, or 32 for the grouped
     GEMM."""
     tiles = cdiv(n, _BN) * cdiv(m, bm or (16 if m <= 16 else 64))
@@ -143,8 +183,9 @@ def splits_for(m: int, n: int, k: int, device, bm=None) -> int:
 
 def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
                block_m=0):
-    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn])
-    at layer li or, given the expert map `eid` of each block_m-row tile, K8
+    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn],
+    on the int8 stage of csrc/w8a8_wgmma.cuh with `gemm_plan`'s split) at
+    layer li or, given the expert map `eid` of each block_m-row tile, K8
     (either bank); add one to the launch count `counter` (default: the
     kernel's)."""
     tiled = w.dim() == 4
@@ -177,21 +218,33 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0:
         return out
-    splits = splits_for(m, n, k, dev, bm=32 if grouped else None)
-    work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
-            else None)
     fn = _build.launcher(name, _ARGTYPES[name])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            work.data_ptr() if work is not None else None)
-    if grouped:
-        args = (*ptrs, eid.data_ptr(), m, n, k, l, bn, block_m)
+    ptrs = (x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), out.data_ptr())
+    out_f32 = int(out_dtype == torch.float32)
+    if name == "w8a8_gemm_tiled":
+        bm, tiles_m, tiles_n, splits = gemm_plan(
+            m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = arrivals = None
+        if splits > 1:
+            part = torch.empty(tiles_m * tiles_n * splits * bm * GEMM_BN, dtype=torch.int32,
+                               device=dev)
+            arrivals = _build.arrival_counters(name, dev, tiles_m * tiles_n)
+        code = fn(*ptrs, _ptr(part), _ptr(arrivals), m, n, k, li, bn, bm, splits, out_f32,
+                  stream)
     else:
-        args = (*ptrs, *((m, n, k, li, bn) if tiled else (m, n, k, li)))
-    code = fn(*args, splits, int(out_dtype == torch.float32), stream)
+        splits = splits_for(m, n, k, dev, bm=32 if grouped else None)
+        work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
+                else None)
+        args = (eid.data_ptr(), m, n, k, l, bn, block_m) if grouped else (m, n, k, li)
+        code = fn(*ptrs, _ptr(work), *args, splits, out_f32, stream)
     _build.check(name, code)
     _build.launches[counter or name] += 1
     return out
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 # ------------------------------------------------------------ grouped W8A8 (K8)

@@ -3,9 +3,10 @@
 
 On a CUDA tensor `rmsnorm_quant_gemm` launches kernel K2 (csrc/rmsq_gemm.cu):
 a row pass quantises each row once into int8 rows xq [M, K] and writes the
-epilogue's row scale, and the GEMM streams the weights through a ring of
-asynchronous copies against xq, K split over blocks where the output has too
-few tiles for the card (`rmsq_plan`). On a CPU tensor it runs the plain
+epilogue's row scale, and the GEMM, the int8 stage of csrc/w8a8_wgmma.cuh
+that kernel K1 shares, streams the weights through rings of asynchronous
+copies against xq, K split over blocks where the output has too few tiles
+for the card (ops/matmul.py::gemm_plan). On a CPU tensor it runs the plain
 version, `rmsnorm_quant_gemm_ref`, whose row pass is `rmsq_rows_ref`.
 
 Both modes of the JAX package are served:
@@ -48,8 +49,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..utils import cdiv, use_kernel
-from .matmul import _BK, _BN, untile_weight_bank
+from ..utils import use_kernel
+from .matmul import _BK, _BN, GEMM_BN, gemm_plan, untile_weight_bank
 from .quant import INV_INT8_MAX
 
 # x, gamma, beta, w, ws, bias, quant_scale, quant_offset, xq, xs, out,
@@ -59,39 +60,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _MODES = ("per_token", "per_tensor")
 _CASTS = ("f32", "fp16")
-# K2's GEMM plan (csrc/rmsq_gemm.cu): 256-column tiles of 128 rows (wgmma;
-# 16 rows and mma.sync for M <= 16), K in stages of 128 bytes (64 at M <= 16),
-# split at most 16 ways and into no less than 256 of K a split
-K2_BN = 256
-K2_MIN_SPLIT_K = 256
-K2_MAX_SPLITS = 16
-
-
-def rmsq_kstep(bm: int) -> int:
-    """The K bytes of one stage of K2's GEMM with row tiles of bm."""
-    return 64 if bm == 16 else 128
-
-
-def rmsq_plan(m: int, n: int, k: int, sms: int):
-    """(bm, tiles_m, tiles_n, splits) of kernel K2's GEMM on a card of `sms`
-    SMs: output tiles of bm x 256, and K split over blocks so that the grid
-    fills one wave of the card (one block per SM) where the tiles alone do
-    not, each split at least K2_MIN_SPLIT_K of K."""
-    bm = 16 if m <= 16 else 128
-    tiles_m, tiles_n = cdiv(m, bm), cdiv(n, K2_BN)
-    kstep = rmsq_kstep(bm)
-    ksteps = cdiv(k, kstep)
-    splits = max(1, min(K2_MAX_SPLITS, sms // (tiles_m * tiles_n),
-                        ksteps // (K2_MIN_SPLIT_K // kstep)))
-    return bm, tiles_m, tiles_n, splits
-
-
-def rmsq_split_bounds(ksteps: int, splits: int):
-    """[(k0, k1), ...]: the K stages that each split of a tile sums, in
-    order, as the kernel takes them."""
-    return [(ksteps * s // splits, ksteps * (s + 1) // splits) for s in range(splits)]
-
-
 def _check_mode(quant_scale, quant_mode, quant_cast):
     if quant_mode not in _MODES or quant_cast not in _CASTS:
         raise ValueError(f"rmsnorm_quant_gemm: quant_mode {quant_mode!r} not in "
@@ -259,11 +227,11 @@ def _rmsq_gemm(x, gamma, beta, w, descale, bias, quant_scale, quant_offset, li,
         return out
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
     xs = torch.empty((m,), dtype=torch.float32, device=dev)
-    bm, tiles_m, tiles_n, splits = rmsq_plan(
+    bm, tiles_m, tiles_n, splits = gemm_plan(
         m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     part = arrivals = None
     if splits > 1:
-        part = torch.empty(tiles_m * tiles_n * splits * bm * K2_BN, dtype=torch.int32,
+        part = torch.empty(tiles_m * tiles_n * splits * bm * GEMM_BN, dtype=torch.int32,
                            device=dev)
         arrivals = _build.arrival_counters("rmsq_gemm", dev, tiles_m * tiles_n)
     fn = _build.launcher("rmsq_gemm", _ARGTYPES)

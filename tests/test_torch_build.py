@@ -155,14 +155,17 @@ def test_kernels_build_for_sm_90a():
 
 
 # --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C, K7's context, K2's K)
-# merge the splits' partials through a workspace, deterministically: no
-# float atomics (their order changes from run to run, and a second call must
-# be bit-identical), only integer arrival counters, each reset to 0 by the
-# kernel that used it (the last block to arrive), never zeroed by the host
-# before a call.
+# The kernels that split a row over blocks (K19, C, K7's context, K2's and
+# K1's K) merge the splits' partials through a workspace, deterministically:
+# no float atomics (their order changes from run to run, and a second call
+# must be bit-identical), only integer arrival counters, each reset to 0 by
+# the kernel that used it (the last block to arrive), never zeroed by the
+# host before a call. A source is scanned with the csrc/ headers it includes
+# (K1 and K2 merge in csrc/w8a8_wgmma.cuh).
 
-SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_mla.cu", "rmsq_gemm.cu")
+SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_mla.cu", "rmsq_gemm.cu",
+                 "w8a8_gemm_tiled.cu")
+INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
 INT_DECL = r"\b(?:int|unsigned|unsigned\s+int|int32_t|uint32_t)\s*\*\s*(?:__restrict__\s*)?{}\b"
@@ -196,10 +199,22 @@ def merge_faults(text):
     return faults
 
 
-@pytest.mark.parametrize("name", SPLIT_SOURCES)
-def test_split_merge_is_deterministic(name):
+def with_headers(name, seen=None):
+    """The text of csrc/<name> followed by that of every csrc/ header it
+    includes, directly or through another, each once."""
+    seen = set() if seen is None else seen
+    seen.add(name)
     with open(os.path.join(_build.CSRC, name)) as f:
         text = f.read()
+    for inc in INCLUDE.findall(text):
+        if inc not in seen and os.path.exists(os.path.join(_build.CSRC, inc)):
+            text += "\n" + with_headers(inc, seen)
+    return text
+
+
+@pytest.mark.parametrize("name", SPLIT_SOURCES)
+def test_split_merge_is_deterministic(name):
+    text = with_headers(name)
     assert ATOMIC.search(COMMENT_OR_STRING.sub(" ", text)), f"{name}: no arrival counter"
     assert merge_faults(text) == [], f"{name}: {merge_faults(text)}"
 
@@ -254,6 +269,16 @@ def test_merge_scan_flags_a_nondeterministic_merge(name):
 @pytest.mark.parametrize("name", sorted(MERGE_PASSED))
 def test_merge_scan_passes_arrival_counters(name):
     assert merge_faults(MERGE_PASSED[name]) == []
+
+
+def test_scan_reads_included_headers():
+    """K1's source holds no merge of its own: the scan must reach the one
+    in the header it includes, and that header must be the shared stage."""
+    with open(os.path.join(_build.CSRC, "w8a8_gemm_tiled.cu")) as f:
+        own = f.read()
+    assert not ATOMIC.search(COMMENT_OR_STRING.sub(" ", own))
+    assert "w8a8_wgmma.cuh" in INCLUDE.findall(own)
+    assert ATOMIC.search(COMMENT_OR_STRING.sub(" ", with_headers("w8a8_gemm_tiled.cu")))
 
 
 def test_arrival_counters_are_zeroed_once():

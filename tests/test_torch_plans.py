@@ -1,10 +1,11 @@
-"""The split plans and the row pass of kernels K7 and K2, on the CPU.
+"""The split plans and the row pass of kernels K7, K2 and K1, on the CPU.
 
 K7 (csrc/decode_mla.cu) splits each sequence's tokens over blocks of the
 card and merges the splits in split order; K2 (csrc/rmsq_gemm.cu)
-quantises every row once, then splits K over blocks where the output has
-too few tiles. The kernels need the card; what decides their work is
-Python that runs here:
+quantises every row once, then runs the int8 stage of csrc/w8a8_wgmma.cuh,
+which K1 (csrc/w8a8_gemm_tiled.cu) runs straight on its int8 rows; the
+stage splits K over blocks where the output has too few tiles. The kernels
+need the card; what decides their work is Python that runs here:
 
   * (a) K7's planner (`mla_splits`, `mla_split_bounds`) for SM counts
     passed in: every live token in exactly one split, the splits in order,
@@ -13,8 +14,11 @@ Python that runs here:
     takes them, following the planner) against `decode_mla_ref` and the JAX
     package's decode_mla_pallas run in interpret mode, within K7's bar (one
     bf16 ulp + 1e-4 of max|plain|), at DeepSeek's widths;
-  * (c) K2's plan (`rmsq_plan`, `rmsq_split_bounds`): every output tile
-    and K step covered once at the bench and engine shapes, one wave;
+  * (c) the int8 stage's plan (`gemm_plan`, `gemm_split_bounds`) and its
+    grid's block order: every output tile and K step covered once at K2's and
+    K1's bench, engine and prefill shapes and panel widths, within one wave
+    (half of one for 128-row tiles), no more splits than K steps, and the
+    row tiles of a weight tile issued together;
   * (d) K2's plain row pass (`rmsq_rows_ref`, `_quant_rows`) against the
     JAX package's `_row_stats` plus its kernel's quant step.
 """
@@ -29,6 +33,7 @@ import torch
 
 from sgl_kernel_npu_tpu.ops import rmsq_gemm as jrq
 from sgl_kernel_npu_tpu.ops.attention import decode as jdec
+from sgl_kernel_npu_tpu_torch.ops import matmul as tmm
 from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as trq
 from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
 
@@ -181,7 +186,7 @@ def test_k7_plain_matches_jax(k7_case):
     assert_bf16_close(k7_case["ref"].float().numpy(), k7_case["want"], K7_SHARE)
 
 
-# ---------------------------------------------------------- (c) K2's plan
+# ------------------------------------------------- (c) the int8 stage's plan
 
 # (M, N, K): phase 4's wqkv and w13 at Llama-3-8B width; phase 6's per_token
 # w13 (intermediate padded to 1024-wide panels), wdqkv (2112 padded to 3072)
@@ -189,38 +194,93 @@ def test_k7_plain_matches_jax(k7_case):
 K2_SHAPES = [(128, 6144, 4096), (128, 28672, 4096), (128, 22528, 2048), (128, 3072, 2048),
              (128, 3072, 1536), (8, 2112, 2048), (8, 3072, 1536), (256, 2112, 2048),
              (100, 384, 256), (8, 128, 64)]
+# K1's (M, N, K, bn): Llama-3-8B's wo, w2 (panels of 512) and lm_head (768)
+# at the bench path's M 128, the hm engine's decode M 8 and a prefill chunk
+# of 672 rows; phase 1's panel straddles (bn 128, 384) and DeepSeek's
+# 1024-wide panels; the split edges at M 16, 17 and 129
+K1_SHAPES = [(m, n, k, bn) for m in (8, 128, 672)
+             for n, k, bn in ((4096, 4096, 512), (4096, 14336, 512), (128256, 4096, 768))]
+K1_SHAPES += [(1, 2048, 4096, 128), (16, 3072, 4096, 384), (17, 3072, 2048, 1024),
+              (100, 2048, 4096, 128), (129, 3072, 4096, 384), (672, 3072, 2048, 1024)]
+
+
+def _blocks(tiles_m, tiles_n, splits):
+    """(row tile, column tile, split) of each block of the int8 stage in
+    the order the card issues them: the kernel's grid is (tiles_m, tiles_n,
+    splits) where tiles_m > 1, else (tiles_n, 1, splits), its x fastest
+    (csrc/w8a8_wgmma.cuh::launch_gemm), so a weight tile's row tiles go out
+    together and its repeats come from L2."""
+    return [(tm, tn, sp) for sp in range(splits) for tn in range(tiles_n)
+            for tm in range(tiles_m)]
+
+
+def _check_plan(m, n, k, sms):
+    """gemm_plan's tiles and split of (m, n, k) cover every output tile and
+    K step exactly once, within a wave where it splits, and the grid issues
+    each weight tile's row tiles together. Returns the plan."""
+    bm, tiles_m, tiles_n, splits = tmm.gemm_plan(m, n, k, sms)
+    assert bm == (16 if m <= 16 else 128)
+    assert tiles_m * bm >= m > (tiles_m - 1) * bm
+    assert tiles_n * tmm.GEMM_BN >= n > (tiles_n - 1) * tmm.GEMM_BN
+    kstep = tmm.gemm_kstep(bm)
+    ksteps = -(-k // kstep)
+    assert 1 <= splits <= tmm.GEMM_MAX_SPLITS and splits <= ksteps
+    # one wave of 16-row tiles, half of one of 128-row tiles
+    assert splits == 1 or tiles_m * tiles_n * splits <= (sms if bm == 16 else sms // 2)
+    assert splits == 1 or ksteps // splits * kstep >= tmm.GEMM_MIN_SPLIT_K
+    bounds = tmm.gemm_split_bounds(ksteps, splits)
+    assert [b[0] for b in bounds] == sorted(b[0] for b in bounds)
+    assert all(k1 > k0 for k0, k1 in bounds)                    # no split is empty
+    blocks = _blocks(tiles_m, tiles_n, splits)
+    assert len(blocks) == tiles_m * tiles_n * splits
+    covered = np.zeros((tiles_m, tiles_n, ksteps), np.int32)
+    for tm, tn, sp in blocks:
+        k0, k1 = bounds[sp]
+        covered[tm, tn, k0:k1] += 1
+    assert (covered == 1).all()
+    for i in range(0, len(blocks), tiles_m):                    # row tiles together
+        run = blocks[i:i + tiles_m]
+        assert [b[0] for b in run] == list(range(tiles_m))
+        assert len({b[1:] for b in run}) == 1
+    return bm, tiles_m, tiles_n, splits
 
 
 @pytest.mark.parametrize("sms", [132, 114, 16])
 @pytest.mark.parametrize("m,n,k", K2_SHAPES)
 def test_k2_plan_covers_every_tile_once(sms, m, n, k):
-    bm, tiles_m, tiles_n, splits = trq.rmsq_plan(m, n, k, sms)
-    assert bm == (16 if m <= 16 else 128)
-    assert tiles_m * bm >= m > (tiles_m - 1) * bm
-    assert tiles_n * trq.K2_BN >= n > (tiles_n - 1) * trq.K2_BN
-    kstep = trq.rmsq_kstep(bm)
-    ksteps = -(-k // kstep)
-    assert 1 <= splits <= trq.K2_MAX_SPLITS and splits <= ksteps
-    assert splits == 1 or tiles_m * tiles_n * splits <= sms     # one wave
-    assert splits == 1 or ksteps // splits * kstep >= trq.K2_MIN_SPLIT_K
-    bounds = trq.rmsq_split_bounds(ksteps, splits)
-    covered = np.zeros((tiles_m, tiles_n, ksteps), np.int32)
-    for tm in range(tiles_m):
-        for tn in range(tiles_n):
-            for k0, k1 in bounds:
-                assert k1 > k0                    # no split is empty
-                covered[tm, tn, k0:k1] += 1
-    assert (covered == 1).all()
-    assert [b[0] for b in bounds] == sorted(b[0] for b in bounds)
+    _check_plan(m, n, k, sms)
 
 
 def test_k2_plan_at_the_bench_shapes():
     """On an H100 (132 SMs): w13 fills 112 tiles unsplit, wqkv's 24 tiles
-    split K five ways, the engine's M 8 wdqkv (9 tiles of 16 rows, stages
-    of 64) eight ways."""
-    assert trq.rmsq_plan(128, 28672, 4096, 132) == (128, 1, 112, 1)
-    assert trq.rmsq_plan(128, 6144, 4096, 132) == (128, 1, 24, 5)
-    assert trq.rmsq_plan(8, 2112, 2048, 132) == (16, 1, 9, 8)
+    split K twice (half the SMs), the MLA path's wdqkv (12 tiles padded to
+    3072 columns) five ways, the engine's M 8 wdqkv (9 tiles of 16 rows,
+    stages of 64) eight ways (one wave)."""
+    assert tmm.gemm_plan(128, 28672, 4096, 132) == (128, 1, 112, 1)
+    assert tmm.gemm_plan(128, 6144, 4096, 132) == (128, 1, 24, 2)
+    assert tmm.gemm_plan(128, 3072, 2048, 132) == (128, 1, 12, 5)
+    assert tmm.gemm_plan(8, 2112, 2048, 132) == (16, 1, 9, 8)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m,n,k,bn", K1_SHAPES)
+def test_k1_plan_covers_every_tile_once(sms, m, n, k, bn):
+    """K1's shapes: the panels divide N (the bank's own rule), and the plan
+    covers every tile and K step once, row tiles of a weight tile together."""
+    assert n % bn == 0 and bn % 128 == 0
+    _check_plan(m, n, k, sms)
+
+
+def test_k1_plan_at_the_bench_shapes():
+    """On an H100 (132 SMs): M 128 is one row tile, so every weight byte is
+    read once; wo and w2 (16 tiles) split K four ways, lm_head's 501 tiles
+    run unsplit; at M 8 wo takes 16-row tiles split eight ways; a 672-row
+    prefill chunk takes six row tiles of each weight tile, unsplit."""
+    assert tmm.gemm_plan(128, 4096, 4096, 132) == (128, 1, 16, 4)
+    assert tmm.gemm_plan(128, 4096, 14336, 132) == (128, 1, 16, 4)
+    assert tmm.gemm_plan(128, 128256, 4096, 132) == (128, 1, 501, 1)
+    assert tmm.gemm_plan(8, 4096, 4096, 132) == (16, 1, 16, 8)
+    assert tmm.gemm_plan(672, 4096, 14336, 132) == (128, 6, 16, 1)
 
 
 # ---------------------------------------------------- (d) K2's row pass
