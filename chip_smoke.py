@@ -296,27 +296,57 @@ class _Launches:
 # ----------------------------------------------------------- kernel checks
 
 
-def check_gemm(torch, mm, quant, cfg, rng):
-    """Kernel A at the five decode GEMMs (M = 8) and a prefill M."""
-    h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    shapes = [("wqkv", h, cfg.q_size + 2 * cfg.kv_size, 2), ("wo", cfg.q_size, h, 2),
-              ("w13", h, 2 * f, 2), ("w2", f, h, 2), ("lm_head", h, v, 1)]
+# Kernel A's row counts: the engines' decode (8), the bench paths' batch
+# (128), the longest prefill chunk (672), and the edges of the stage's plan:
+# one row, the last single 16-row tile (16), the first (17) and last (32) of
+# two
+A_MS = (1, 8, 16, 17, 32, 128, 672)
+
+
+def a_widths(cfg, mcfg):
+    """(name, K, N) of every stacked bank kernel A takes on the main paths:
+    Llama-3-8B's four layer GEMMs (phase 2's engine) and DeepSeek-V2-Lite's
+    wo, w13 and w2 (phase 5's engine); N = 21,888 ends in half a 256-column
+    tile."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    mh, mf = mcfg.hidden_size, mcfg.intermediate_size
+    return [("wqkv", h, cfg.q_size + 2 * cfg.kv_size), ("wo", cfg.q_size, h),
+            ("w13", h, 2 * f), ("w2", f, h),
+            ("mla wo", mcfg.num_heads * mcfg.v_head_dim, mh), ("mla w13", mh, 2 * mf),
+            ("mla w2", mf, mh)]
+
+
+def check_gemm(torch, mm, quant, cfg, mcfg, rng):
+    """Kernel A (the int8 stage with one panel, bn = N) exact at every row
+    count of A_MS on every bank width of a_widths, bf16 and f32 out, a
+    second call bit-identical; every width also at M 256, wqkv at M = 40,
+    64, 100, 2048. Timed at
+    M = 8 and 128 on Llama-3-8B's four GEMMs (the JSON row: the M 8 sum),
+    with the plain version, torch._int_mm + epilogue and the bound."""
     rows = []
     dev = "cuda"
-    for m in (8, 256):
-        for name, k, n, layers in shapes:
-            li = layers - 1
-            w = torch.randint(-127, 128, (layers, k, n), generator=rng,
-                              dtype=torch.int8, device=dev)
-            ws = torch.rand((layers, n), generator=rng, device=dev) * 1e-3
+    for name, k, n in a_widths(cfg, mcfg):
+        li = 1
+        w = torch.randint(-127, 128, (2, k, n), generator=rng, dtype=torch.int8, device=dev)
+        ws = torch.rand((2, n), generator=rng, device=dev) * 1e-3
+        extra = (40, 64, 100, 256, 2048) if name == "wqkv" else (256,)
+        for m in A_MS + extra:
             x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
             xq, xs = quant.per_token_quant_int8(x)
-            out = mm.quant_matmul_int8_stacked(xq, w, li, xs, ws)
-            ref = mm.quant_matmul_int8_ref(xq, w[li], xs, ws[li])
-            torch.cuda.synchronize()
-            if not torch.equal(out, ref):
-                bad = (out != ref).sum().item()
-                raise AssertionError(f"w8a8_gemm {name} M={m}: {bad} elements differ")
+            for od in (torch.float32, torch.bfloat16):    # bf16 last: `ref` below
+                out = mm.quant_matmul_int8_stacked(xq, w, li, xs, ws, out_dtype=od)
+                again = mm.quant_matmul_int8_stacked(xq, w, li, xs, ws, out_dtype=od)
+                ref = mm.quant_matmul_int8_ref(xq, w[li], xs, ws[li], out_dtype=od)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    bad = (out != ref).sum().item()
+                    raise AssertionError(f"w8a8_gemm {name} M={m} {od}: {bad} elements "
+                                         "differ")
+                if not torch.equal(again, out):
+                    raise AssertionError(f"w8a8_gemm {name} M={m} {od}: a second call "
+                                         "differs")
+            if m not in (8, 128) or name.startswith("mla"):
+                continue
             ms = _time_ms(lambda: mm.quant_matmul_int8_stacked(xq, w, li, xs, ws), 20, graph=True)
             plain = _time_ms(lambda: mm.quant_matmul_int8_ref(xq, w[li], xs, ws[li]), 3, 1)
             lib = None
@@ -335,18 +365,14 @@ def check_gemm(torch, mm, quant, cfg, rng):
             print(f"  w8a8_gemm {name:8s} M={m:4d} K={k:5d} N={n:6d}: exact; "
                   f"kernel {ms:.4f} ms, plain {plain:.3f} ms, library "
                   f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bound:.4f} ms ({by})")
-            del w, ws
-    # exactness at the other row counts the engine gives the kernel
-    k, n = h, cfg.q_size + 2 * cfg.kv_size
-    w = torch.randint(-127, 128, (2, k, n), generator=rng, dtype=torch.int8, device=dev)
-    ws = torch.rand((2, n), generator=rng, device=dev) * 1e-3
-    for m in (1, 17, 40, 64, 100, 2048):
-        x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
-        xq, xs = quant.per_token_quant_int8(x)
-        if not torch.equal(mm.quant_matmul_int8_stacked(xq, w, 1, xs, ws),
-                           mm.quant_matmul_int8_ref(xq, w[1], xs, ws[1])):
-            raise AssertionError(f"w8a8_gemm wqkv M={m} differs")
-    print("  w8a8_gemm wqkv exact also at M = 1, 17, 40, 64, 100, 2048")
+        del w, ws
+    for m in (8, 128):
+        r = _sum_rows([r for r in rows if r["m"] == m])
+        print(f"  w8a8_gemm wqkv + wo + w13 + w2 M={m}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms")
+    print(f"  w8a8_gemm exact at M = {', '.join(map(str, A_MS))} on "
+          f"{', '.join(n for n, _, _ in a_widths(cfg, mcfg))} (and 256; wqkv also at 40, "
+          "64, 100, 2048), bf16 and f32 out, second calls bit-identical")
     return rows
 
 
@@ -566,16 +592,21 @@ def check_append(torch, dv8, cfg, rng):
 
 
 def compare_split_policy(torch, mm, quant, cfg, rng):
-    """Kernel A at M = 128 and 256, where its shared split-K policy
-    (matmul.splits_for) splits K, timed with that split and unsplit, in
-    turns (split, unsplit, unsplit, split); both give the same output."""
+    """Kernel A at M = 8, 128 and 256, where the stage's plan
+    (matmul.gemm_plan) splits K, timed with that split and unsplit, in turns
+    (split, unsplit, unsplit, split); both give the same output."""
     from unittest import mock
     h, f = cfg.hidden_size, cfg.intermediate_size
     shapes = [("wqkv", h, cfg.q_size + 2 * cfg.kv_size), ("wo", cfg.q_size, h),
               ("w13", h, 2 * f), ("w2", f, h)]
-    for m in (128, 256):
+    real = mm.gemm_plan
+
+    def unsplit(*a):
+        return real(*a)[:3] + (1,)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (8, 128, 256):
         for name, k, n in shapes:
-            splits = mm.splits_for(m, n, k, "cuda")
+            splits = real(m, n, k, sms)[3]
             if splits == 1:
                 continue
             w = torch.randint(-127, 128, (1, k, n), generator=rng, dtype=torch.int8,
@@ -587,7 +618,7 @@ def compare_split_policy(torch, mm, quant, cfg, rng):
             def run():
                 return mm.quant_matmul_int8_stacked(xq, w, 0, xs, ws)
             split = run()
-            with mock.patch.object(mm, "splits_for", lambda *a, **k: 1):
+            with mock.patch.object(mm, "gemm_plan", unsplit):
                 if not torch.equal(run(), split):
                     raise AssertionError(f"w8a8_gemm {name} M={m}: split-K changed the output")
             times = {"split": [], "unsplit": []}
@@ -595,7 +626,7 @@ def compare_split_policy(torch, mm, quant, cfg, rng):
                 if mode == "split":
                     times[mode].append(_time_ms(run, 20, graph=True))
                 else:
-                    with mock.patch.object(mm, "splits_for", lambda *a, **k: 1):
+                    with mock.patch.object(mm, "gemm_plan", unsplit):
                         times[mode].append(_time_ms(run, 20, graph=True))
             t = {k: sum(v) / len(v) for k, v in times.items()}
             print(f"  w8a8_gemm {name:5s} M={m} K={k:5d} N={n:6d}: split-K x{splits} "
@@ -604,9 +635,9 @@ def compare_split_policy(torch, mm, quant, cfg, rng):
 
 
 # K1's row counts: the engines' decode (8), the bench paths' batch (128), a
-# prefill chunk (672), and the edges of its plan: one row, the last of the
-# 16-row tiles (16) and the first of the 128-row ones (17), a partial row
-# tile (100) and a second row tile of one row (129)
+# prefill chunk (672), and the edges of its plan: one row, the last single
+# 16-row tile (16), two of them (17), a partial 128-row tile (100) and a
+# second 128-row tile of one row (129)
 K1_MS = (1, 8, 16, 17, 100, 128, 129, 672)
 # 256-column tiles that straddle panels (bn 128, 384), DeepSeek's panels of
 # 1024, and the shortest K the kernel takes (64, under one 128-byte stage):
@@ -736,65 +767,123 @@ def check_rmsq(torch, mm, rq, quant, cfg, rng, bn=512):
 
 
 def check_decode_tm2(torch, dv11, dv13, cfg, rng):
-    """Kernel K3 at the bench path's shape: 128 sequences, 8 kv heads of 4
-    query heads, D = 128, 512-token pages, 2 pages each, cached lengths over
-    0..1023 (0, 1, 511, 512 and 513 among them). decode_v13's name is
-    decode_v11's wrapper."""
-    b, hq, hkv, d, ps, mp, layers, li = 128, cfg.num_heads, cfg.num_kv_heads, \
-        cfg.head_dim, 512, 2, 2, 1
-    pages = b * mp + 1
-    shape = (layers, pages, hkv, ps, d)
-    kc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
-    vc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
-    ks = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
-    vs = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
-    cached = torch.randint(0, mp * ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
-    cached[:5] = torch.tensor([0, 1, 511, 512, 513], dtype=torch.int32)
-    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
-          .reshape(b, mp).to(torch.int32) + 1)
-    q = torch.randn((b, hq, d), generator=rng, device="cuda").to(torch.bfloat16)
-    kn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
-    vn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
-    sm = d ** -0.5
-    args = (q, kn, vn, kc, vc, ks, vs, cached, bt, sm, ps)
-    ref = dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li)
-    out = dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not err <= ATTN_TOL:
-        raise AssertionError(f"decode_tm2 max-abs {err} > {ATTN_TOL}")
-    ms = _time_ms(lambda: dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li), 50, graph=True)
-    plain = _time_ms(lambda: dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li), 5)
+    """Kernel K3 at the bench path's widths (128 sequences, 8 kv heads of 4
+    query heads, D = 128, 512-token pages) in two shapes: 2 pages each with
+    cached lengths over 0..1023 (0, 1, 511, 512 and 513 among them), and
+    phase 4's, one page each with 256..383 cached. Within ATTN_TOL of the
+    plain version, a second call bit-identical. decode_v13's name is
+    decode_v11's wrapper. Returns the two shapes' rows."""
+    b, hq, hkv, d, ps, layers, li = 128, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim, 512, 2, 1
+    rows = []
+    for label, mp in (("0..1023 over 2 pages", 2), ("phase 4: 256..383, one page", 1)):
+        pages = b * mp + 1
+        shape = (layers, pages, hkv, ps, d)
+        kc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+        vc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+        ks = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
+        vs = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
+        if mp == 2:
+            cached = torch.randint(0, mp * ps, (b,), generator=rng, device="cuda",
+                                   dtype=torch.int32)
+            cached[:5] = torch.tensor([0, 1, 511, 512, 513], dtype=torch.int32)
+        else:
+            cached = torch.randint(256, 384, (b,), generator=rng, device="cuda",
+                                   dtype=torch.int32)
+        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        q = torch.randn((b, hq, d), generator=rng, device="cuda").to(torch.bfloat16)
+        kn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+        vn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+        sm = d ** -0.5
+        args = (q, kn, vn, kc, vc, ks, vs, cached, bt, sm, ps)
+        ref = dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li)
+        out = dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li)
+        again = dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"decode_tm2 ({label}) max-abs {err} > {ATTN_TOL}")
+        if not torch.equal(again, out):
+            raise AssertionError(f"decode_tm2 ({label}): a second call differs")
+        ms = _time_ms(lambda: dv13.decode_gqa_v13_int8_defer(*args, layer_idx=li), 50,
+                      graph=True)
+        plain = _time_ms(lambda: dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li), 5)
 
-    # yardstick: SDPA over the dequantized, gathered cache plus the current token
-    n = mp * ps + 1
-    kd, ksd = dv11._gather_layer_tm2(kc, ks, li, bt)
-    vd, vsd = dv11._gather_layer_tm2(vc, vs, li, bt)
-    pad = torch.zeros((b, hkv, 1, d), dtype=torch.bfloat16, device="cuda")
-    kf = torch.cat([(kd.float() * ksd[..., None]).to(torch.bfloat16), pad], 2)
-    vf = torch.cat([(vd.float() * vsd[..., None]).to(torch.bfloat16), pad], 2)
-    idx = cached.long()
-    kf[torch.arange(b), :, idx] = kn
-    vf[torch.arange(b), :, idx] = vn
-    g = hq // hkv
-    kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
-    mask = (torch.arange(n, device="cuda")[None, :] <= cached[:, None])[:, None, None, :]
-    qs = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_err = (sdpa(qs, kf, vf, attn_mask=mask, scale=sm)[:, :, 0].float()
-               - ref.float()).abs().max().item()
-    lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20, graph=True)
-    del kf, vf
+        # yardstick: SDPA over the dequantized, gathered cache plus the current token
+        n = mp * ps + 1
+        kd, ksd = dv11._gather_layer_tm2(kc, ks, li, bt)
+        vd, vsd = dv11._gather_layer_tm2(vc, vs, li, bt)
+        pad = torch.zeros((b, hkv, 1, d), dtype=torch.bfloat16, device="cuda")
+        kf = torch.cat([(kd.float() * ksd[..., None]).to(torch.bfloat16), pad], 2)
+        vf = torch.cat([(vd.float() * vsd[..., None]).to(torch.bfloat16), pad], 2)
+        idx = cached.long()
+        kf[torch.arange(b), :, idx] = kn
+        vf[torch.arange(b), :, idx] = vn
+        g = hq // hkv
+        kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+        mask = (torch.arange(n, device="cuda")[None, :] <= cached[:, None])[:, None, None, :]
+        qs = q[:, :, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = (sdpa(qs, kf, vf, attn_mask=mask, scale=sm)[:, :, 0].float()
+                   - ref.float()).abs().max().item()
+        lib = _time_ms(lambda: sdpa(qs, kf, vf, attn_mask=mask, scale=sm), 20, graph=True)
+        del kf, vf, kc, vc
 
-    c = cached.double().sum().item()
-    nbytes = (c * hkv * (2 * d + 8) + 2 * (2 * b * hq * d) + 2 * (2 * b * hkv * d)
-              + 4 * b + 4 * b * mp)
-    bound, by = _bound_ms(nbytes, 4.0 * (c + b) * hq * d, "bf16_flops")
-    print(f"  decode_tm2 (v13 = v11) B={b} MP={mp} ps={ps} cached 0..{int(cached.max())} "
-          f"(sum {int(c)}): max-abs {err:.3g}; kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-          f"SDPA {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound {bound:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+        c = cached.double().sum().item()
+        nbytes = (c * hkv * (2 * d + 8) + 2 * (2 * b * hq * d) + 2 * (2 * b * hkv * d)
+                  + 4 * b + 4 * b * mp)
+        bound, by = _bound_ms(nbytes, 4.0 * (c + b) * hq * d, "bf16_flops")
+        print(f"  decode_tm2 (v13 = v11) B={b} MP={mp} ps={ps} cached {label} (sum "
+              f"{int(c)}): max-abs {err:.3g}, second call identical; kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms, SDPA {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), "
+              f"bound {bound:.4f} ms ({by})")
+        rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                         max_abs_err=err))
+    return rows
+
+
+def check_decode_tm2_edges(torch, dv11):
+    """Kernel K3 where its page steps and kept scores meet their edges: one,
+    two, four and eight query heads a kv head (mma's n of 8), pages of 16,
+    100 (not a power of 2) and 512 tokens, and cached 0, 1, ps - 1, ps,
+    ps + 1 and 2 ps + 3 over a block table of 4 pages; within ATTN_TOL of
+    the plain version, a second call bit-identical."""
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(600)
+    hkv, d, layers, li, mp = 2, 128, 2, 1, 4
+    for ps in (16, 100, 512):
+        lens = [0, 1, ps - 1, ps, ps + 1, 2 * ps + 3]
+        b = len(lens)
+        pages = b * mp + 1
+        shape = (layers, pages, hkv, ps, d)
+        kc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+        vc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+        ks = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
+        vs = torch.rand(shape[:-1], generator=rng, device="cuda") * 0.02 + 0.001
+        cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        kn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+        vn = torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+        errs = []
+        for g in (1, 2, 4, 8):
+            q = torch.randn((b, hkv * g, d), generator=rng, device="cuda").to(torch.bfloat16)
+            args = (q, kn, vn, kc, vc, ks, vs, cached, bt, d ** -0.5, ps)
+            out = dv11.decode_gqa_v11_int8_defer(*args, layer_idx=li)
+            again = dv11.decode_gqa_v11_int8_defer(*args, layer_idx=li)
+            ref = dv11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=li)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if not err <= ATTN_TOL:
+                raise AssertionError(f"decode_tm2 edges ps {ps} G {g}: max-abs {err} > "
+                                     f"{ATTN_TOL}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"decode_tm2 edges ps {ps} G {g}: a second call differs")
+            errs.append(f"G {g} {err:.3g}")
+        print(f"  decode_tm2 edges ps={ps} MP={mp} cached {lens}: max-abs {', '.join(errs)}; "
+              f"second calls bit-identical")
+        del kc, vc
 
 
 def check_append_tm2(torch, dv11, cfg, rng):
@@ -841,19 +930,37 @@ def check_append_tm2(torch, dv11, cfg, rng):
                 max_abs_err=0.0)
 
 
-def check_matmul_l1(torch, mm, quant, cfg, rng):
+def check_matmul_l1(torch, mm, quant, cfg, mcfg, rng):
     """The contract of matmul.py:71 (kernel A on a plain [K, N] weight, a
-    one-layer view): lm_head of the serving path at M = 8, exact."""
-    m, k, n = 8, cfg.hidden_size, cfg.vocab_size
-    w = torch.randint(-127, 128, (k, n), generator=rng, dtype=torch.int8, device="cuda")
-    ws = torch.rand((n,), generator=rng, device="cuda") * 1e-3
-    x = torch.randn((m, k), generator=rng, device="cuda").to(torch.bfloat16)
-    xq, xs = quant.per_token_quant_int8(x)
-    out = mm.quant_matmul_int8(xq, w, xs, ws)
-    ref = mm.quant_matmul_int8_ref(xq, w, xs, ws)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("quant_matmul_int8 (L = 1) differs from its plain version")
+    one-layer view): Llama-3-8B's and DeepSeek-V2-Lite's lm_head, exact at
+    M = 1, 8, 16, 17, 128 (the engines' decode and the MLA bench path's
+    batch) and 256, bf16 and f32 out, a second call bit-identical; timed at
+    the serving path's M = 8 on Llama's."""
+    for name, k, n in (("lm_head", cfg.hidden_size, cfg.vocab_size),
+                       ("mla lm_head", mcfg.hidden_size, mcfg.vocab_size)):
+        w = torch.randint(-127, 128, (k, n), generator=rng, dtype=torch.int8, device="cuda")
+        ws = torch.rand((n,), generator=rng, device="cuda") * 1e-3
+        for m in (1, 16, 17, 128, 256, 8):                # M 8 last: timed below
+            x = torch.randn((m, k), generator=rng, device="cuda").to(torch.bfloat16)
+            xq, xs = quant.per_token_quant_int8(x)
+            for od in (torch.float32, torch.bfloat16):    # bf16 last: `ref` below
+                out = mm.quant_matmul_int8(xq, w, xs, ws, out_dtype=od)
+                again = mm.quant_matmul_int8(xq, w, xs, ws, out_dtype=od)
+                ref = mm.quant_matmul_int8_ref(xq, w, xs, ws, out_dtype=od)
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"quant_matmul_int8 (L = 1) {name} M={m} {od} "
+                                         "differs from its plain version")
+                if not torch.equal(again, out):
+                    raise AssertionError(f"quant_matmul_int8 (L = 1) {name} M={m} {od}: a "
+                                         "second call differs")
+        if name == "lm_head":
+            keep = (w, ws, xq, xs, ref, m, k, n)
+        else:
+            del w, ws
+    print("  quant_matmul_int8 (kernel A, L = 1) exact at M = 1, 8, 16, 17, 128, 256 on "
+          "both lm_heads, bf16 and f32 out, second calls bit-identical")
+    w, ws, xq, xs, ref, m, k, n = keep
     ms = _time_ms(lambda: mm.quant_matmul_int8(xq, w, xs, ws), 20, graph=True)
     plain = _time_ms(lambda: mm.quant_matmul_int8_ref(xq, w, xs, ws), 3, 1)
     library, got = _int_mm_yardstick(torch, xq, w, xs, ws, m)
@@ -2754,8 +2861,9 @@ def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_toke
     return out
 
 
-# K1 and K2 run the int8 stage of csrc/w8a8_wgmma.cuh, each kernel
-# instantiated on its epilogue order (EpiTiled, EpiRmsq)
+# A, K1 and K2 run the int8 stage of csrc/w8a8_wgmma.cuh, each kernel
+# instantiated on its epilogue order (EpiBank, EpiTiled, EpiRmsq)
+_A = ("EpiBank",)
 _K1 = ("EpiTiled",)
 _K2 = ("EpiRmsq", "rmsq_rows")
 _K8 = ("w8a8_kernel<32, true>", "w8a8_epilogue<true>")
@@ -2763,18 +2871,18 @@ _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                ("K14 decode_v6_defer", ("decode_hm_kernel",)),
                ("memsets", ("Memset",)))
 # phase 2's decode call: kernel C's share of the device time
-_ENGINE_BUCKETS = (("A w8a8_gemm", ("w8a8_kernel", "w8a8_epilogue")),
-                   ("C decode_tm", ("decode_tm_kernel",)), ("D append_tm", ("append_tm_kernel",)))
-# phase 5's decode call: K7's share (every memset is A's split-K set-up)
-_MLA_ENGINE_BUCKETS = (("K2 rmsq_gemm (per_tensor)", _K2),
-                       ("A w8a8_gemm (+ its split-K memsets)",
-                        ("w8a8_kernel", "w8a8_epilogue", "Memset")),
-                       ("K7 decode_mla", ("decode_mla_kernel",)))
+_ENGINE_BUCKETS = (("A w8a8_gemm", _A),
+                   ("C decode_tm", ("decode_tm_kernel",)), ("D append_tm", ("append_tm_kernel",)),
+                   ("memsets", ("Memset",)))
+# phase 5's decode call: K7's share
+_MLA_ENGINE_BUCKETS = (("K2 rmsq_gemm (per_tensor)", _K2), ("A w8a8_gemm", _A),
+                       ("K7 decode_mla", ("decode_mla_kernel",)), ("memsets", ("Memset",)))
 _BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
             ("K3 decode_tm2", ("decode_tm2_kernel",)),
             ("K4 append_tm2", ("append_tm2_kernel",)),
             ("memsets", ("Memset",)))
 _MLA_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm (both modes)", _K2),
+                ("A w8a8_gemm (L = 1)", _A),
                 ("K5 decode_mla_c", ("decode_mla_c_kernel",)),
                 ("K6 append_mla", ("append_mla_kernel",)),
                 ("memsets", ("Memset",)))
@@ -4841,9 +4949,9 @@ def main() -> int:
           "the MoE bench shapes")
     _warm_up_card(torch)
     rows = {}
-    gemm_rows = check_gemm(torch, matmul, quant, cfg, rng)
+    gemm_rows = check_gemm(torch, matmul, quant, cfg, mcfg, rng)
     compare_split_policy(torch, matmul, quant, cfg, rng)
-    rows["l1"] = check_matmul_l1(torch, matmul, quant, cfg, rng)
+    rows["l1"] = check_matmul_l1(torch, matmul, quant, cfg, mcfg, rng)
     torch.cuda.empty_cache()
     rows["dec"], rows["v8"] = check_decode(torch, decode_v9, decode_v8, cfg, rng)
     check_decode_edges(torch, decode_v9, decode_v8, cfg)
@@ -4856,7 +4964,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["k2"] = check_rmsq(torch, matmul, rmsq_gemm, quant, cfg, rng)
     torch.cuda.empty_cache()
-    rows["k3"] = check_decode_tm2(torch, decode_v11, decode_v13, cfg, rng)
+    rows["k3"], rows["k3p4"] = check_decode_tm2(torch, decode_v11, decode_v13, cfg, rng)
+    check_decode_tm2_edges(torch, decode_v11)
     torch.cuda.empty_cache()
     rows["k4"] = check_append_tm2(torch, decode_v11, cfg, rng)
     torch.cuda.empty_cache()
@@ -5048,7 +5157,7 @@ def main() -> int:
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
     kernels = [
-        dict(name="w8a8_gemm", route="cuda", source=f"{src}/w8a8_gemm.cu",
+        dict(name="w8a8_gemm", route="cuda", source=f"{src}/w8a8_gemm_tiled.cu",
              replaces=f"{base}/ops/matmul.py:496", launches=launches["w8a8_gemm"],
              **_sum_rows(g8)),
         dict(name="prefill_tm", route="cuda", source=f"{src}/prefill_tm.cu",
@@ -5072,12 +5181,15 @@ def main() -> int:
         dict(name="decode_tm2", route="cuda", source=f"{src}/decode_tm2.cu",
              replaces=f"{base}/ops/attention/decode_v13.py:160",
              launches=bench_launches["decode_tm2"], **rows["k3"]),
+        dict(name="decode_tm2 (phase 4 shape)", route="cuda", source=f"{src}/decode_tm2.cu",
+             replaces=f"{base}/ops/attention/decode_v13.py:160", launches=0, **rows["k3p4"]),
         dict(name="append_tm2", route="cuda", source=f"{src}/append_tm2.cu",
              replaces=f"{base}/ops/attention/decode_v11.py:238",
              launches=bench_launches["append_tm2"], **rows["k4"]),
         dict(name="decode_tm (decode_v8 contract)", route="cuda", source=f"{src}/decode_tm.cu",
              replaces=f"{base}/ops/attention/decode_v8.py:388", launches=0, **rows["v8"]),
-        dict(name="w8a8_gemm (L = 1 contract)", route="cuda", source=f"{src}/w8a8_gemm.cu",
+        dict(name="w8a8_gemm (L = 1 contract)", route="cuda",
+             source=f"{src}/w8a8_gemm_tiled.cu",
              replaces=f"{base}/ops/matmul.py:71", launches=launches["w8a8_gemm_l1"],
              **rows["l1"]),
         dict(name="rmsq_gemm (per_tensor)", route="cuda", source=f"{src}/rmsq_gemm.cu",
@@ -5192,7 +5304,10 @@ def main() -> int:
           "(B): phase 1's bucket and the engine's largest call (256 tokens over 512), "
           "launches of both every prefill call's of phase 2; launches of "
           "A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
-          "K1-K4 from phase 4 (all its 128 steps); the decode_v8 contract is on no main "
+          "K1-K4 from phase 4 (all its 128 steps); decode_tm2 rows (K3): 2 pages with "
+          "0..1023 cached, and phase 4's shape (one page, 256..383 cached), each with its "
+          "own bound, phase 4's launches on the first row only (the second shows 0 so that "
+          "a sum of the launches counts K3 once); the decode_v8 contract is on no main "
           "path; rmsq_gemm (per_tensor) row: sum of wdqkv and wuq at M=128, launches of it, "
           "K5 and K6 from phase 6 (all its 64 steps), of K7 from phase 5; rmsq_gemm "
           "(per_tensor, M 8) row: wdqkv on the plain weight at the engine's decode "

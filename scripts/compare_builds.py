@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Time the port's kernels as two or more checkouts build them, on one card,
+in turns, each turn a fresh process that imports sgl_kernel_npu_tpu_torch
+from its checkout and drives every kernel through that checkout's own
+wrappers (so a kernel whose C interface changed between the checkouts needs
+nothing of its own here).
+
+  python3 scripts/compare_builds.py [--rounds N] [--only PREFIX,...] ROOT [ROOT ...]
+
+With one ROOT, the second is this checkout. The turns run the roots forward
+and back (a b b a for two, a b c c b a for three), ROUNDS times (default
+1). Before the first turn every root builds its kernels, all roots at once
+(one nvcc per source, as its _build.py builds them). A turn keeps the card
+busy for a second so that its clocks ramp up, makes every case's inputs
+from one seed (the same in every turn), holds each output against its plain
+version, and times it by replaying a CUDA graph of the calls (median of 5
+replays). The cases, each name a prefix that --only can pick:
+  * K3 (tm2 int8 decode) at chip_smoke.py's phase 1 shape (128 sequences,
+    8 kv heads of 4, pages of 512, 2 pages each, 0..1023 cached) and phase
+    4's (one page, 256..383 cached); within chip_smoke.py's ATTN_TOL;
+  * A (W8A8 GEMM on a stacked [2, K, N] bank, layer 1) at M 1, 8, 16, 17,
+    32, 128, 672 on Llama-3-8B's wqkv, wo, w13, w2 and DeepSeek-V2-Lite's
+    wo, w13, w2, f32 out on wqkv at M 8 and 128, and the L = 1 contract on
+    both lm_heads at M 8 and 128; exact;
+  * K1 (pretiled banks: wo, w2 at 512, lm_head at 768) at M 128 and 8;
+    exact;
+  * K2 per_token (Llama's wqkv and w13, pretiled at 512) at M 128 and 8;
+    the same bits from every root;
+  * C (tm int8 decode: 8 sequences of 40..700 tokens over 64 pages of 128,
+    Llama's heads); within ATTN_TOL;
+  * K8 (the Qwen bench path's expert w13) and K11 (the MoE layer's bench
+    shape, its recv); exact.
+Each case must also give the same bits in every turn of its root. Prints,
+per case, each root's median over its turns and the ratio of each to the
+first root's, the sums of the four Llama GEMMs of A at M 8 and 128 and of
+K1's three at M 128, then the card's name and power limit. Needs one CUDA
+card and nvcc; a turn of every case takes about a minute.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPS = 5
+H, Q, KV, F, V = 4096, 4096, 1024, 14336, 128256           # Llama-3-8B
+MH, MF, MV, MHEADS = 2048, 10944, 102400, 16               # DeepSeek-V2-Lite
+A_MS = (1, 8, 16, 17, 32, 128, 672)
+A_WIDTHS = (("wqkv", H, Q + 2 * KV), ("wo", Q, H), ("w13", H, 2 * F), ("w2", F, H),
+            ("mla wo", MHEADS * 128, MH), ("mla w13", MH, 2 * MF), ("mla w2", MF, MH))
+# the kernels the cases launch (names of _build.KERNELS)
+KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm",
+           "w8a8_gemm_grouped", "fused_moe")
+SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
+        for m in (8, 128)}
+SUMS["K1 wo + w2 + lm_head M 128"] = [f"K1 {nm} M 128" for nm in ("wo", "w2", "lm_head")]
+
+
+def _graph_ms(torch, fn, iters):
+    """ms per call: `iters` calls captured in one CUDA graph, the median of
+    REPS replays."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[REPS // 2]
+
+
+def k3_inputs(torch, gen, mp, full=False):
+    """K3's inputs at the bench path's widths: mp = 2, 0..1023 cached
+    (phase 1's shape); mp = 1, 256..383 (phase 4's); `full`: every row
+    holds mp whole pages. (q, k_new, v_new, caches, scales, cached, block
+    table, sm_scale, page size), the caches of 2 layers."""
+    b, hkv, g, d, ps = 128, 8, 4, 128, 512
+    pages = b * mp + 1
+    shape = (2, pages, hkv, ps, d)
+    kc = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device="cuda")
+    vc = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device="cuda")
+    ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 0.001
+    vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 + 0.001
+    if full:
+        cached = torch.full((b,), mp * ps, device="cuda", dtype=torch.int32)
+    elif mp == 2:
+        cached = torch.randint(0, mp * ps, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        cached[:5] = torch.tensor([0, 1, 511, 512, 513], dtype=torch.int32)
+    else:
+        cached = torch.randint(256, 384, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    bt = (torch.randperm(pages - 1, generator=gen, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    q = torch.randn((b, hkv * g, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kn = torch.randn((b, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((b, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    return (q, kn, vn, kc, vc, ks, vs, cached, bt, d ** -0.5, ps)
+
+
+def _cases(torch, cs, want):
+    """Yield (name, call, check, iters) for every case whose name starts with
+    a prefix in `want` (all when it is empty), inputs made from one seed.
+    check(out) is True when out meets its plain version's bar, or None when
+    the case is only held to the same bits across roots."""
+    from sgl_kernel_npu_tpu_torch.models import qwen_next
+    from sgl_kernel_npu_tpu_torch.ops import matmul as mm
+    from sgl_kernel_npu_tpu_torch.ops import quant
+    from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as rq
+    from sgl_kernel_npu_tpu_torch.ops.attention import decode_v9, decode_v11
+
+    def on(name):
+        return not want or name.startswith(want)
+
+    def exact(ref):
+        return lambda got: torch.equal(got, ref)
+
+    def close(ref):
+        return lambda got: (got.float() - ref.float()).abs().max().item() <= cs.ATTN_TOL
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for label, mp in (("phase 1", 2), ("phase 4", 1)):
+        if on(f"K3 {label}"):
+            args = k3_inputs(torch, gen, mp)
+            yield (f"K3 {label}",
+                   lambda args=args: decode_v11.decode_gqa_v11_int8_defer(*args, layer_idx=1),
+                   close(decode_v11.decode_gqa_v11_int8_defer_ref(*args, layer_idx=1)), 50)
+            del args
+    gen.manual_seed(15)
+    for name, k, n in A_WIDTHS:
+        names = [f"A {name} M {m}" for m in A_MS] + [f"A {name} M {m} f32" for m in (8, 128)]
+        if not any(on(x) for x in names):
+            continue
+        w = torch.randint(-127, 128, (2, k, n), generator=gen, dtype=torch.int8, device="cuda")
+        ws = torch.rand((2, n), generator=gen, device="cuda") * 1e-3
+        for m in A_MS:
+            xq, xs = quant.per_token_quant_int8(
+                torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16))
+            ods = (torch.bfloat16, torch.float32) if name == "wqkv" and m in (8, 128) else (
+                torch.bfloat16,)
+            for od in ods:
+                key = f"A {name} M {m}" + (" f32" if od == torch.float32 else "")
+                if on(key):
+                    yield (key, lambda xq=xq, w=w, xs=xs, ws=ws, od=od:
+                           mm.quant_matmul_int8_stacked(xq, w, 1, xs, ws, out_dtype=od),
+                           exact(mm.quant_matmul_int8_ref(xq, w[1], xs, ws[1], out_dtype=od)),
+                           20)
+        del w
+    gen.manual_seed(16)
+    for name, k, n in (("lm_head", H, V), ("mla lm_head", MH, MV)):
+        if not any(on(f"A L=1 {name} M {m}") for m in (8, 128)):
+            continue
+        w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8, device="cuda")
+        ws = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+        for m in (8, 128):
+            xq, xs = quant.per_token_quant_int8(
+                torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16))
+            if on(f"A L=1 {name} M {m}"):
+                yield (f"A L=1 {name} M {m}",
+                       lambda xq=xq, w=w, xs=xs, ws=ws: mm.quant_matmul_int8(xq, w, xs, ws),
+                       exact(mm.quant_matmul_int8_ref(xq, w, xs, ws)), 20)
+        del w
+    gen.manual_seed(17)
+    for name, k, n, bn in (("wo", Q, H, 512), ("w2", F, H, 512), ("lm_head", H, V, 768)):
+        if not any(on(f"K1 {name} M {m}") for m in (128, 8)):
+            continue
+        w = torch.randint(-127, 128, (1, k, n), generator=gen, dtype=torch.int8, device="cuda")
+        ws = torch.rand((1, n), generator=gen, device="cuda") * 1e-3
+        wt = mm.pretile_weight_bank(w, bn)
+        del w
+        for m in (128, 8):
+            xq, xs = quant.per_token_quant_int8(torch.randn((m, k), generator=gen, device="cuda"))
+            if on(f"K1 {name} M {m}"):
+                yield (f"K1 {name} M {m}", lambda xq=xq, wt=wt, xs=xs, ws=ws:
+                       mm.quant_matmul_int8_stacked_tiled(xq, wt, 0, xs, ws),
+                       exact(mm.quant_matmul_int8_stacked_tiled_ref(xq, wt, 0, xs, ws)), 20)
+        del wt
+    gen.manual_seed(18)
+    for name, k, n in (("wqkv", H, Q + 2 * KV), ("w13", H, 2 * F)):
+        if not any(on(f"K2 per_token {name} M {m}") for m in (128, 8)):
+            continue
+        w = torch.randint(-127, 128, (1, k, n), generator=gen, dtype=torch.int8, device="cuda")
+        ws = torch.rand((1, n), generator=gen, device="cuda") * 1e-3
+        wt = mm.pretile_weight_bank(w, 512)
+        del w
+        gamma = (1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")).to(torch.bfloat16)
+        beta = torch.zeros((k,), device="cuda")
+        for m in (128, 8):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            if on(f"K2 per_token {name} M {m}"):
+                yield (f"K2 per_token {name} M {m}",
+                       lambda x=x, gamma=gamma, beta=beta, wt=wt, ws=ws: rq.rmsnorm_quant_gemm(
+                           x, gamma, beta, wt, ws, li=0, quant_mode="per_token", eps=1e-5,
+                           out_dtype=torch.bfloat16), None, 20)
+        del wt
+    gen.manual_seed(19)
+    if on("C phase 1"):
+        cached = torch.tensor([40, 127, 128, 129, 255, 384, 511, 700], dtype=torch.int32,
+                              device="cuda")
+        kc, vc, ks, vs = cs._tm_cache(torch, gen, 2, 8 * 64 + 1, 128, KV // 128, 128)
+        bt = (torch.randperm(8 * 64, generator=gen, device="cuda").reshape(8, 64)
+              .to(torch.int32) + 1)
+        q = torch.randn((8, Q // 128, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        kn = torch.randn((8, KV // 128, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        vn = torch.randn((8, KV // 128, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        cargs = (q, kn, vn, kc, vc, ks, vs, cached, bt, 128 ** -0.5, 128)
+        yield ("C phase 1", lambda: decode_v9.decode_gqa_v9_int8_defer(*cargs, layer_idx=1),
+               close(decode_v9.decode_gqa_v9_int8_defer_ref(*cargs, layer_idx=1)), 50)
+    gen.manual_seed(20)
+    if on("K8 Qwen expert w13"):
+        qcfg = cs.qwen_bench_config(qwen_next)
+        e, topk, tile = qcfg.num_experts, qcfg.top_k, qwen_next.MOE_TILE
+        ids = torch.topk(torch.rand((128, e), generator=gen, device="cuda"), topk,
+                         dim=-1).indices
+        ok, src, eid = qwen_next.align_routes(ids, e, tile)
+        kk, n = qcfg.hidden_size, 2 * qcfg.moe_intermediate_size
+        bank = torch.randint(-127, 128, (e, n // 1024, kk, 1024), generator=gen,
+                             dtype=torch.int8, device="cuda")
+        ws = torch.rand((e, n), generator=gen, device="cuda") * 1e-3
+        xq, xs = quant.per_token_quant_int8(torch.randn((128, kk), generator=gen, device="cuda"))
+        tok = src // topk
+        gargs = (torch.where(ok[:, None], xq[tok], 0).to(torch.int8),
+                 bank, torch.where(ok[:, None], xs[tok], 0.0), ws, eid, tile)
+        yield ("K8 Qwen expert w13", lambda: mm.grouped_matmul_int8(*gargs),
+               exact(mm.grouped_matmul_int8_tiles_ref(*gargs)), 20)
+    if on("K11 fused_moe"):
+        from sgl_kernel_npu_tpu_torch.parallel import EPGroup
+        from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas,
+                                                                  low_latency, pallas_ll)
+        data = cs.moe_bench_data(torch)
+        kargs = cs._k11_args(torch, low_latency, pallas_ll, data[0], data[1], data[3:],
+                             cs.MOE_EL, cs.MOE_T)
+        grp = EPGroup(None)
+        yield ("K11 fused_moe",
+               lambda: fused_moe_pallas.fused_moe_layer(*kargs, group=grp, maxt=cs.MOE_T)[0],
+               exact(fused_moe_pallas.fused_moe_layer_ref(*kargs, group=grp,
+                                                          maxt=cs.MOE_T)[0]), 10)
+
+
+def _import_root(root):
+    """Put `root` first on the path, so that its package is the one imported."""
+    sys.path[:] = [root] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
+
+
+def _chip_smoke():
+    """This checkout's chip_smoke.py, for its bars and input helpers (each
+    takes the modules it drives as arguments)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _build_root(root):
+    _import_root(root)
+    from sgl_kernel_npu_tpu_torch import _build
+    _build.build(sorted({_build.KERNELS[k] for k in KERNELS if k in _build.KERNELS}))
+
+
+def _turn(root, want):
+    """One turn: every case checked and timed; prints one JSON line
+    {"ms": {case: ms}, "digest": {case: sha256 of the output}}."""
+    _import_root(root)
+    import torch
+    cs = _chip_smoke()
+    cs._warm_up_card(torch)
+    ms, digest = {}, {}
+    for name, call, check, iters in _cases(torch, cs, want):
+        out = call()
+        again = call()
+        torch.cuda.synchronize()
+        if check is not None and not check(out):
+            raise AssertionError(f"{name} fails its plain version's bar")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: a second call differs")
+        digest[name] = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
+                                      .tobytes()).hexdigest()
+        ms[name] = _graph_ms(torch, call, iters)
+        del out, again
+    print(json.dumps({"ms": ms, "digest": digest}))
+
+
+def _run(what):
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), *what], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"compare_builds {' '.join(what)} failed:\n{res.stdout}{res.stderr}")
+    return res.stdout
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--only", default="", help="comma-separated case-name prefixes")
+    ap.add_argument("--build", help=argparse.SUPPRESS)
+    ap.add_argument("--turn", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="*")
+    args = ap.parse_args()
+    want = tuple(p for p in args.only.split(",") if p)
+    if args.build:
+        _build_root(os.path.abspath(args.build))
+        return 0
+    if args.turn:
+        _turn(os.path.abspath(args.turn), want)
+        return 0
+    roots = [os.path.abspath(r) for r in args.roots]
+    if not roots:
+        ap.print_usage(sys.stderr)
+        return 2
+    if len(roots) == 1:
+        roots.append(HERE)
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_builds: no CUDA card", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--build", r],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in roots]
+    for r, p in zip(roots, procs):
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise SystemExit(f"compare_builds: building {r} failed:\n{log}")
+    print(f"builds {time.perf_counter() - t0:.1f} s", flush=True)
+    order = list(range(len(roots)))
+    runs = {i: [] for i in order}
+    for i in (order + order[::-1]) * args.rounds:
+        line = _run(["--turn", roots[i], "--only", args.only]).strip().splitlines()[-1]
+        runs[i].append(json.loads(line))
+        print(f"turn {chr(97 + i)} ({roots[i]}) done", flush=True)
+    for i in order:
+        for r in runs[i]:
+            if r["digest"] != runs[i][0]["digest"]:
+                raise AssertionError(f"root {roots[i]}: a case's bits changed between turns")
+    first = runs[0][0]["digest"]
+    differ = [k for i in order for k, v in runs[i][0]["digest"].items()
+              if first.get(k) != v and not k.startswith(("K3", "C "))]
+    if differ:
+        raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
+
+    def med(i, key):
+        return statistics.median(r["ms"][key] for r in runs[i])
+    for i in order:
+        print(f"{chr(97 + i)}: {roots[i]}")
+    keys = list(runs[0][0]["ms"])
+    rows = [(k, [med(i, k) for i in order]) for k in keys]
+    rows += [(k, [sum(med(i, p) for p in parts) for i in order]) for k, parts in SUMS.items()
+             if all(p in keys for p in parts)]
+    head = "".join(f" {chr(97 + i) + ' ms':>9s}" for i in order)
+    head += "".join(f" {chr(97 + i) + ' / a':>7s}" for i in order[1:])
+    print(f"{'case':34s}{head}")
+    for k, vals in rows:
+        print(f"{k:34s}" + "".join(f" {v:9.4f}" for v in vals)
+              + "".join(f" {v / vals[0]:7.3f}" for v in vals[1:]))
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(gpu.stdout.strip().splitlines()[0] if gpu.stdout.strip() else "nvidia-smi: no answer")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

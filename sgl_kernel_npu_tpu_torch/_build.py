@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 # kernel -> the csrc/<source>.cu that exports it
 KERNELS = {
-    "w8a8_gemm": "w8a8_gemm",          # A
+    "w8a8_gemm": "w8a8_gemm_tiled",    # A
     "prefill_tm": "prefill_tm",        # B
     "decode_tm": "decode_tm",          # C
     "append_tm": "append_tm",          # D

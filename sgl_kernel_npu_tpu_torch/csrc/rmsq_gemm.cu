@@ -33,8 +33,8 @@
 //     version (ops/rmsq_gemm.py::_quant_rows) computes the same, bit for bit;
 //   * the GEMM is the int8 stage of w8a8_wgmma.cuh, which K1 shares: the
 //     weights stream through cp.async rings of 256-column tiles and are
-//     byte-transposed on chip for int8 wgmma (M > 16, 128-row tiles) or
-//     mma.sync (M <= 16), with exact int32 sums (w13 at M 128: 112 reads of
+//     byte-transposed on chip for int8 wgmma (M > 32, 128-row tiles) or
+//     mma.sync (M <= 32, 16-row tiles), with exact int32 sums (w13 at M 128: 112 reads of
 //     the 0.5 MB xq, from L2); when the output has too few tiles for the
 //     card (wqkv: 24), K is split over blocks (ops/matmul.py::gemm_plan) and
 //     the last split of a tile merges the others through an integer arrival
@@ -220,7 +220,7 @@ rmsq_rows(const T* __restrict__ x, int ldx, const float* __restrict__ gamma,
 // with L = 1); ws [L, N] f32; bias [L, N] int32 or null; quant_scale and
 // quant_offset one f32 each (per_tensor; quant_offset may be null); xq [M, K]
 // int8 and xs [M] f32 written here; out [M, N] bf16 or f32 (out_f32). The
-// plan (ops/matmul.py::gemm_plan): row tiles of bm (16 for M <= 16, else
+// plan (ops/matmul.py::gemm_plan): row tiles of bm (16 for M <= 32, else
 // 128), 256-column tiles, K split `splits` ways (<= 16, and at most one split
 // per K stage: 64 bytes at bm 16, 128 above); with
 // splits > 1, partials holds tiles * splits * bm * 256 int32 and arrivals

@@ -1,9 +1,9 @@
-// Device code shared by the W8A8 GEMMs: kernels A and K8 (w8a8_gemm.cu);
-// K11 (fused_moe.cu) takes its tile sizes, byte transpose and mma.
+// Device code of the grouped W8A8 GEMM, kernel K8 (w8a8_gemm.cu); K11
+// (fused_moe.cu) takes its tile sizes, byte transpose and mma.
 //
 //   out[m, n] = bf16|f32( float(sum_k xq[m, k] * w[li, k, n]) * x_scale[m] * w_scale[li, n] )
 //
-// li is one layer for the whole of M (A) or, for the grouped GEMM K8,
+// li is one layer for the whole of M or, for the grouped GEMM K8,
 // the expert of each block_m-row tile of x (eid[m / block_m], clamped to
 // [0, groups)); K8 then runs 32-row M tiles, so that no tile straddles two
 // experts, and a tile whose rows all have x_scale 0 (the padding of the
@@ -52,7 +52,7 @@ struct Gemm {
   int M, N, K, ldx, li, bn, k_chunk, out_f32, block_m, groups;
 };
 
-// The layer (A) or the expert of row m (K8).
+// The layer, or the expert of row m (K8).
 __device__ __forceinline__ int layer_of(const Gemm& p, int m) {
   return p.eid != nullptr ? min(max(p.eid[m / p.block_m], 0), p.groups - 1) : p.li;
 }

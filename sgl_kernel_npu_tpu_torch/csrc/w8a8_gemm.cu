@@ -1,32 +1,25 @@
-// Kernels A and K8: W8A8 GEMM out of a stacked int8 weight bank, at one
-// layer li (A) or at the expert of each row tile (K8). (K1, the same GEMM
-// over a pretiled bank, is w8a8_gemm_tiled.cu.)
+// Kernel K8: grouped W8A8 GEMM out of a stacked int8 expert bank, each row
+// tile at its own expert. (A and K1, the GEMM at one layer of a plain or
+// pretiled bank, are w8a8_gemm_tiled.cu, on the int8 stage of
+// w8a8_wgmma.cuh.)
 //
-// A  replaces sgl_kernel_npu_tpu/ops/matmul.py::grouped_matmul_int8_pallas
-//    (_gmm_int8_kernel) as reached through quant_matmul_int8_stacked's 3-D
-//    bank branch (matmul.py:243-260), and quant_matmul_int8_pallas
-//    (matmul.py:71, a plain [K, N] weight = a one-layer bank): bank
-//    [L, K, N].
-// K8 replaces grouped_matmul_int8_pallas (matmul.py:496) with its per-m-tile
-//    expert map, as models/qwen_next.py::_moe_mlp_q calls it: row tile i of
-//    block_m rows reads expert eid[i] of a [G, K, N] or pretiled
-//    [G, N/bn, K, bn] bank.
+// K8 replaces sgl_kernel_npu_tpu/ops/matmul.py::grouped_matmul_int8_pallas
+//    (matmul.py:496) with its per-m-tile expert map, as
+//    models/qwen_next.py::_moe_mlp_q calls it: row tile i of block_m rows
+//    reads expert eid[i] of a [G, K, N] or pretiled [G, N/bn, K, bn] bank.
 //
-//   out[m, n] = bf16|f32( float(sum_k x[m, k] * w[li, k, n]) * x_scale[m] * w_scale[li, n] )
+//   out[m, n] = bf16|f32( float(sum_k x[m, k] * w[e, k, n]) * x_scale[m] * w_scale[e, n] )
 //
-// K8's bound: the bytes of the experts its live tiles read (at the Qwen
-// bench shape every expert of the layer, 2 MB each for w13), x and out; 32-row
-// tiles read an expert once per tile, so the grid's weight reads exceed those
-// bytes only where an expert holds more than 32 rows, and L2 takes repeats.
-//
-// Bound on an H100: at decode (M = 8 to 128) the call moves K*N weight bytes
-// and does 2*M*K*N int8 operations, below the 1,979 TOP/s line (the ridge is
-// near M = 295), so 3.35 TB/s of device memory bounds it; at prefill widths
-// the int8 tensor-core rate comes close. Both are the shared
-// w8a8_core.cuh loop: a panel with rows of bn bytes is read exactly as the
-// plain bank with rows of N bytes, the layer (or expert) index is an argument
-// (no copy of the layer), and K is split over blocks when the output has too
-// few tiles for 132 SMs. Exact: equal to the plain version bit for bit.
+// Bound on an H100: the bytes of the experts its live tiles read (at the
+// Qwen bench shape every expert of the layer, 2 MB each for w13), x and out;
+// 32-row tiles read an expert once per tile, so the grid's weight reads
+// exceed those bytes only where an expert holds more than 32 rows, and L2
+// takes repeats. Its operations are below the int8 tensor-core line at
+// decode widths. It runs the w8a8_core.cuh loop: a panel with rows of bn
+// bytes is read exactly as the plain bank with rows of N bytes, the expert
+// index comes from the map (no copy of the expert), and K is split over
+// blocks when the output has too few tiles for 132 SMs. Exact: equal to
+// the plain version bit for bit.
 
 #include "w8a8_core.cuh"
 
@@ -50,18 +43,6 @@ static Gemm gemm_args(const void* x, const void* w, const void* xs, const void* 
   p.bn = bn;
   p.out_f32 = out_f32;
   return p;
-}
-
-// A: x [M, K] int8, w [L, K, N] int8, xs [M] f32, ws [L, N] f32, out [M, N] bf16
-// (f32 when out_f32).
-// splits > 1 needs workspace: M*N int32, zeroed here on the stream.
-// Needs K % 64 == 0, N % 16 == 0 and 16-byte aligned x and w.
-extern "C" int skt_w8a8_gemm(const void* x, const void* w, const void* xs,
-                             const void* ws, void* out, void* workspace, int M,
-                             int N, int K, int li, int splits, int out_f32, void* stream) {
-  return (int)skt_w8a8::launch(
-      gemm_args(x, w, xs, ws, out, workspace, M, N, K, li, N, out_f32), splits,
-      static_cast<cudaStream_t>(stream));
 }
 
 // K8: x [M, K] int8, w [G, K, N] (bn = N) or [G, N/bn, K, bn] int8, xs [M] f32

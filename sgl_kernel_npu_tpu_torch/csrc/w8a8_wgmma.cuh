@@ -1,11 +1,12 @@
-// The int8 GEMM stage that kernels K1 (w8a8_gemm_tiled.cu) and K2
+// The int8 GEMM stage that kernels K1 and A (w8a8_gemm_tiled.cu) and K2
 // (rmsq_gemm.cu) share: int8 rows xq [M, K] times layer li of an N-major
-// bank pretiled to [L, N/bn, K, bn], with exact int32 sums and a dequant
-// epilogue whose order is a template parameter, so that each kernel rounds
-// as its own plain version does:
+// bank pretiled to [L, N/bn, K, bn] (A: a plain [L, K, N] bank, one panel of
+// bn = N), with exact int32 sums and a dequant epilogue whose order is a
+// template parameter, so that each kernel rounds as its own plain version
+// does:
 //
 //   EpiRmsq  (K2): out = (float(acc + bias[n]) * ws[n]) * xs[m]
-//   EpiTiled (K1): out = (float(acc) * xs[m]) * ws[n]
+//   EpiTiled (K1), EpiBank (A): out = (float(acc) * xs[m]) * ws[n]
 //
 // Bound on an H100: at decode (M = 8 to 128) a call moves the K*N weight
 // bytes of its bank panel, below the int8 tensor-core line, so 3.35 TB/s
@@ -15,8 +16,8 @@
 // N-major [K, bn], and the 8-bit tensor-core operands must be K-major, so
 // the weights are byte-transposed on chip. A 256-column tile may straddle
 // two panels (bn 128 or 384): the loaders find the panel of each 128-column
-// box (M > 16) or 16-byte chunk (M <= 16).
-//   * M > 16: 128-row tiles on int8 wgmma. One producer thread loads 128 K
+// box (M > 32) or 16-byte chunk (M <= 32).
+//   * M > 32: 128-row tiles on int8 wgmma. One producer thread loads 128 K
 //     bytes a stage of weights by TMA (32 KB in a ring of 3, freed once
 //     transposed), another the 16 KB of x rows (a ring of 3); the two
 //     consumer warpgroups transpose each weight tile into the 128-byte
@@ -26,20 +27,22 @@
 //     is transposed; setmaxnreg gives the producers 56 registers and the
 //     consumers 224. The epilogue stages the tile through shared memory and
 //     stores 16-byte pieces.
-//   * M <= 16: 16-row tiles on int8 mma.sync m16n8k32: a producer warp's
+//   * M <= 32: 16-row tiles on int8 mma.sync m16n8k32: a producer warp's
 //     cp.async ring of 8 stages of 64 K bytes, four consumer warps of 16 x
 //     64 outputs that read four 8-byte pieces of rows 4t .. 4t + 3 (a
 //     swizzled layout: no bank conflicts) and byte-transpose them in
 //     registers into B fragments (n-tile j holds columns 8g + j, so a lane
 //     ends with 16 contiguous output columns).
-// Where M > 128 the grid is (row tiles, column tiles, splits), the row tile
+// Where there are several row tiles (M > 16 on 16-row tiles, M > 128 on
+// 128-row ones) the grid is (row tiles, column tiles, splits), the row tile
 // fastest: the card issues the row tiles of one weight tile together, so
 // that the repeats of a weight tile come from L2; otherwise it is (column
 // tiles, 1, splits). When the output has too few tiles for the card, the
 // wrapper splits K over blocks (the plan is ops/matmul.py::gemm_plan); each
 // split writes its int32 partial, and the last split of a tile to take a
 // ticket from the tile's integer arrival counter adds the others (exact in
-// any order; 128-row tiles by bulk copies of the partials), runs the
+// any order; 128-row tiles by bulk copies of the partials, 16-row tiles
+// with at most 8 rows below M moving those rows' sums alone), runs the
 // epilogue and resets the counter to 0: no host memset, no float atomic, no
 // second kernel, and a second call is bit-identical.
 
@@ -55,7 +58,7 @@
 namespace {
 
 constexpr int BN = 256;            // output columns of a block
-constexpr int WN = 64;             // output columns of a consumer warp (M <= 16)
+constexpr int WN = 64;             // output columns of a consumer warp (16-row tiles)
 constexpr int MAX_SPLITS = 16;
 
 // arrive on `bar` when every cp.async this thread issued so far has landed
@@ -148,6 +151,9 @@ struct EpiTiled {
     return __fmul_rn(__fmul_rn((float)acc, xs), ws);
   }
 };
+// A (a bank [L, K, N], one panel of N columns) rounds as K1: a type of its
+// own, so that a profile tells A's launches from K1's
+struct EpiBank : EpiTiled {};
 
 // this split's K stages (of bk bytes) of a tile: [k0, k0 + n)
 __device__ __forceinline__ void split_range(const Args& a, int bk, int& k0, int& n) {
@@ -156,12 +162,25 @@ __device__ __forceinline__ void split_range(const Args& a, int bk, int& k0, int&
   n = (int)((long long)ksteps * (sp + 1) / a.splits) - k0;
 }
 
-// Split K: this split's int32 sums go to the workspace (in register order,
-// NQ int4 per consumer thread), then it takes a ticket from the tile's
-// arrival counter. Returns true for the last split of the tile to arrive,
-// which then adds the others' sums (exact in any order) and resets the
-// counter, ready for the next call. Named barrier 1 holds the NCT consumer
-// threads together.
+// Split K: once this split's int32 sums are in the workspace, it takes a
+// ticket from the tile's arrival counter. Returns true for the last split
+// of the tile to arrive, which then adds the others' sums (exact in any
+// order) and resets the counter, ready for the next call. Named barrier 1
+// holds the NCT consumer threads together.
+template <int NCT>
+__device__ __forceinline__ bool ticket_last(const Args& a, int ct, int* last) {
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  __threadfence();
+  bar_sync(1, NCT);
+  if (ct == 0) *last = atomicAdd(a.arrivals + tile, 1) == a.splits - 1;
+  bar_sync(1, NCT);
+  if (!*last) return false;
+  __threadfence();
+  return true;
+}
+
+// This split's sums to the workspace in register order (NQ int4 per
+// consumer thread), then its ticket.
 template <int NCT, int N>
 __device__ __forceinline__ bool arrive_last(const Args& a, int ct, const int32_t (&acc)[N],
                                             int* last) {
@@ -172,38 +191,66 @@ __device__ __forceinline__ bool arrive_last(const Args& a, int ct, const int32_t
   for (int q = 0; q < NQ; ++q)
     __stcg(mine + q * NCT + ct, make_int4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
                                           acc[4 * q + 3]));
-  __threadfence();
-  bar_sync(1, NCT);
-  if (ct == 0) *last = atomicAdd(a.arrivals + tile, 1) == a.splits - 1;
-  bar_sync(1, NCT);
-  if (!*last) return false;
-  __threadfence();
-  return true;
+  return ticket_last<NCT>(a, ct, last);
 }
 
-// The whole merge of the 16 KB partials of the M <= 16 tiles: the last
-// split adds the others' sums with eight loads in flight a thread.
+// The whole merge of the partials of the 16-row tiles (`rows` of the tile's
+// rows below M): the last split adds the others' sums with eight loads in
+// flight a thread. A thread holds rows g and g + 8 of the tile (int4 q of
+// its sums: x, y of row g, z, w of row g + 8), and rows at or past M are
+// never written out; so where the tile has at most 8 rows below M, only the
+// row-g halves move, as int2 packed 8 KB a partial, and only from threads
+// whose row g is below M (1 KB a partial at M 1, against 16 KB).
 template <int NCT, int N>
-__device__ __forceinline__ bool merge_splits(const Args& a, int ct, int32_t (&acc)[N],
+__device__ __forceinline__ bool merge_splits(const Args& a, int ct, int rows, int32_t (&acc)[N],
                                              int* last) {
   constexpr int NQ = N / 4;
-  if (!arrive_last<NCT>(a, ct, acc, last)) return false;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x, sp = blockIdx.z;
-  const int4* base = a.part + (size_t)tile * a.splits * NQ * NCT;
-  for (int s2 = 0; s2 < a.splits; ++s2) {
-    if (s2 == sp) continue;
-    const int4* other = base + (size_t)s2 * NQ * NCT + ct;
+  if (rows > 8) {
+    if (!arrive_last<NCT>(a, ct, acc, last)) return false;
+    const int4* base = a.part + (size_t)tile * a.splits * NQ * NCT;
+    for (int s2 = 0; s2 < a.splits; ++s2) {
+      if (s2 == sp) continue;
+      const int4* other = base + (size_t)s2 * NQ * NCT + ct;
 #pragma unroll
-    for (int q0 = 0; q0 < NQ; q0 += 8) {
-      int4 u[8];
+      for (int q0 = 0; q0 < NQ; q0 += 8) {
+        int4 u[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) u[i] = __ldcg(other + (q0 + i) * NCT);
+        for (int i = 0; i < 8; ++i) u[i] = __ldcg(other + (q0 + i) * NCT);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[4 * (q0 + i)] += u[i].x;
-        acc[4 * (q0 + i) + 1] += u[i].y;
-        acc[4 * (q0 + i) + 2] += u[i].z;
-        acc[4 * (q0 + i) + 3] += u[i].w;
+        for (int i = 0; i < 8; ++i) {
+          acc[4 * (q0 + i)] += u[i].x;
+          acc[4 * (q0 + i) + 1] += u[i].y;
+          acc[4 * (q0 + i) + 2] += u[i].z;
+          acc[4 * (q0 + i) + 3] += u[i].w;
+        }
+      }
+    }
+  } else {
+    // the tile's own region of the workspace, read as int2
+    int2* base = reinterpret_cast<int2*>(a.part + (size_t)tile * a.splits * NQ * NCT);
+    const bool live = ((ct & 31) >> 2) < rows;
+    if (live) {
+      int2* mine = base + (size_t)sp * NQ * NCT + ct;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) __stcg(mine + q * NCT, make_int2(acc[4 * q], acc[4 * q + 1]));
+    }
+    if (!ticket_last<NCT>(a, ct, last)) return false;
+    if (live) {
+      for (int s2 = 0; s2 < a.splits; ++s2) {
+        if (s2 == sp) continue;
+        const int2* other = base + (size_t)s2 * NQ * NCT + ct;
+#pragma unroll
+        for (int q0 = 0; q0 < NQ; q0 += 8) {
+          int2 u[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) u[i] = __ldcg(other + (q0 + i) * NCT);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[4 * (q0 + i)] += u[i].x;
+            acc[4 * (q0 + i) + 1] += u[i].y;
+          }
+        }
       }
     }
   }
@@ -211,10 +258,13 @@ __device__ __forceinline__ bool merge_splits(const Args& a, int ct, int32_t (&ac
   return true;
 }
 
-// ---------------------------------------------- M <= 16: int8 mma.sync
+// ---------------------------------------------- M <= 32: int8 mma.sync
 
 // A block of 16 rows x 256 columns: four consumer warps of 16 x 64 and a
-// producer warp, stages of 64 K bytes in a ring of 8.
+// producer warp, stages of 64 K bytes in a ring of 8. (At M 17-32 two row
+// tiles read each weight tile, the second from L2: a 128-row wgmma tile
+// there computes 4-7 times the rows it keeps, and its split merge moves 128
+// KB a partial, PERF.md.)
 constexpr int S_BK = 64;
 constexpr int S_STAGES = 8;
 constexpr int S_NCW = 4;                           // consumer warps
@@ -227,7 +277,10 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint64_t full[S_STAGES], empty[S_STAGES];
   __shared__ int last;
-  const int n0 = blockIdx.x * BN;
+  // the grid runs the row tiles fastest where there are several (see launch_gemm)
+  const bool rows_fast = a.M > 16;
+  const int m0 = (rows_fast ? blockIdx.x : 0) * 16;
+  const int n0 = (rows_fast ? blockIdx.y : blockIdx.x) * BN;
   int kb, nk;
   split_range(a, S_BK, kb, nk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -266,9 +319,9 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int r = lane / 4 + 8 * i;
-        const bool ok = r < a.M;
+        const bool ok = m0 + r < a.M;
         cp_async16(xt + r * S_BK + 16 * (xc ^ ((r >> 1) & 3)),
-                   a.xq + (size_t)(ok ? r : 0) * a.K + k0 + 16 * xc, ok);
+                   a.xq + (size_t)(ok ? m0 + r : 0) * a.K + k0 + 16 * xc, ok);
       }
       cp_async_arrive(&full[st]);
     }
@@ -324,7 +377,8 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  if (a.splits > 1 && !merge_splits<32 * S_NCW>(a, threadIdx.x, acc, &last)) return;
+  if (a.splits > 1 && !merge_splits<32 * S_NCW>(a, threadIdx.x, min(16, a.M - m0), acc, &last))
+    return;
 
   // epilogue: n-tile j holds columns 8 g + j of the mma, so per row this
   // lane has the 16 columns wn * 64 + 16 t ..
@@ -342,7 +396,7 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int r = g + 8 * hr;
+    const int r = m0 + g + 8 * hr;
     if (r >= a.M) continue;
     const float xsr = a.xs[r];
     float o[16];
@@ -370,7 +424,7 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
   }
 }
 
-// ------------------------------------------------- M > 16: int8 wgmma
+// ------------------------------------------------- M > 32: int8 wgmma
 
 // A block of 128 rows x 256 columns: a producer warpgroup and two consumer
 // warpgroups of 64 rows, stages of 128 K bytes. One producer thread loads
@@ -670,14 +724,14 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 // splits of K (the plan of ops/matmul.py::gemm_plan): K % 64 == 0, N % 16
 // == 0, a bank of panels bn wide with bn % 16 == 0 and N % bn == 0 (bn == N
 // for a plain [K, N] weight; at bm 128 the TMA boxes of 128 columns need bn
-// % 128 == 0 or bn == N), bm 16 (M <= 16) or 128, 1 <= splits <= 16 and no
+// % 128 == 0 or bn == N), bm 16 (M <= 32) or 128, 1 <= splits <= 16 and no
 // more splits than K stages (64 bytes at bm 16, 128 above), and the
 // partials and counters where splits > 1.
 inline bool plan_ok(int M, int N, int K, int bn, int bm, int splits, const void* partials,
                     const void* arrivals) {
   const int ksteps = bm == 16 ? K / S_BK : (K + W_BK - 1) / W_BK;
   return bn > 0 && bn % 16 == 0 && N % bn == 0 && N % 16 == 0 && K % 64 == 0 &&
-         (bm == 16 || (bm == W_BM && (bn % 128 == 0 || bn == N))) && !(bm == 16 && M > 16) &&
+         (bm == 16 || (bm == W_BM && (bn % 128 == 0 || bn == N))) && !(bm == 16 && M > 32) &&
          splits >= 1 && splits <= MAX_SPLITS && splits <= ksteps &&
          (splits == 1 || (partials != nullptr && arrivals != nullptr));
 }
@@ -717,7 +771,11 @@ cudaError_t launch_gemm(const Args& a, int bm, cudaStream_t st) {
   cudaError_t e;
   if (bm == 16) {
     if ((e = skt::ensure_smem(int8_mma_gemm<Epi>, S_SMEM)) != cudaSuccess) return e;
-    int8_mma_gemm<Epi><<<dim3(tiles_n, 1, a.splits), S_THREADS, S_SMEM, st>>>(a);
+    // two row tiles (M 17-32): (row tiles, column tiles, splits); one:
+    // (column tiles, 1, splits)
+    const int tiles_m = (a.M + 15) / 16;
+    const dim3 grid = tiles_m > 1 ? dim3(tiles_m, tiles_n, a.splits) : dim3(tiles_n, 1, a.splits);
+    int8_mma_gemm<Epi><<<grid, S_THREADS, S_SMEM, st>>>(a);
   } else {
     CUtensorMap wmap{}, xmap{};
     if (!encode_maps(a, &wmap, &xmap)) return cudaErrorInvalidValue;

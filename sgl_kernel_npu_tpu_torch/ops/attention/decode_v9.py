@@ -25,6 +25,41 @@ _NEG_INF = -1e30
 CHUNK_PAGES = 4     # pages per online-softmax step of the TPU kernel (SKT_V9_CP)
 
 
+# kernel C splits a (sequence, kv head)'s cached tokens over blocks
+# (csrc/decode_tm_core.cuh; K3 shares that loop with one block a row): at
+# most TM_MAX_SPLITS, each a share of the TM_TILE-token tiles of the cached
+# ones
+TM_MAX_SPLITS = 8
+TM_TILE = 16
+
+
+def tm_splits(resident: int, b: int, hkv: int, mp: int, ps: int) -> int:
+    """S of kernel C (decode_tm_core.cuh::splits_for): the card's
+    co-resident blocks over the B * hkv rows, at most the 16-token tiles of
+    the block table's span and TM_MAX_SPLITS, at least 1."""
+    return max(1, min(resident // (b * hkv), -(-mp * ps // TM_TILE), TM_MAX_SPLITS))
+
+
+def tm_split_walk(clen: int, s: int, split: int, step: int):
+    """What split `split` of S = s walks for a row of clen cached tokens, as
+    decode_tm_core.cuh's Walk takes it: its tokens [ts, te) (a share of the
+    16-token tiles) and, for each online-softmax step k it touches, (k,
+    scores range, p . v range). The scores of its first step start at token
+    0 (the running maximum at the end of that step covers every earlier
+    step), those of a later step at the step's first token; p . v covers the
+    split's own tokens of the step."""
+    nt = -(-clen // TM_TILE)
+    ts = TM_TILE * (nt * split // s)
+    te = min(clen, TM_TILE * (nt * (split + 1) // s))
+    steps = []
+    if ts < te:
+        for k in range(ts // step, (te - 1) // step + 1):
+            lo = 0 if not steps else k * step
+            steps.append((k, (lo, min(clen, (k + 1) * step)),
+                          (max(ts, k * step), min(te, (k + 1) * step))))
+    return ts, te, steps
+
+
 def _gather_layer(cache, scales, layer_idx, block_table, hkv):
     """Pages of `block_table` [B, MP] at layer layer_idx, head-major:
     values [B, hkv, MP*ps, D] and scales [B, hkv, MP*ps]."""

@@ -8,13 +8,14 @@ weights of its own expert. (The JAX package's `grouped_matmul_int8` is its
 ragged reference over group sizes; the port has that as
 `grouped_matmul_int8_ref`.)
 
-On a CUDA tensor a wrapper launches a kernel: kernel A (csrc/w8a8_gemm.cu)
-for an [L, K, N] bank and for a plain weight (a one-layer view of it, no
-copy), kernel K1 (csrc/w8a8_gemm_tiled.cu) for a pretiled bank, kernel K8
-(csrc/w8a8_gemm.cu) for the grouped GEMM. On a CPU tensor it runs the plain
-version, `quant_matmul_int8_ref` on the layer's (or the tile's expert's)
-[K, N] weight. K1 and K2 (ops/rmsq_gemm.py) share the int8 wgmma stage of
-csrc/w8a8_wgmma.cuh and its plan, `gemm_plan`.
+On a CUDA tensor a wrapper launches a kernel: kernel A for an [L, K, N] bank
+and for a plain weight (a one-layer view of it, no copy), kernel K1 for a
+pretiled bank (both csrc/w8a8_gemm_tiled.cu), kernel K8 (csrc/w8a8_gemm.cu)
+for the grouped GEMM. On a CPU tensor it runs the plain version,
+`quant_matmul_int8_ref` on the layer's (or the tile's expert's) [K, N]
+weight. A, K1 and K2 (ops/rmsq_gemm.py) share the int8 wgmma stage of
+csrc/w8a8_wgmma.cuh and its plan, `gemm_plan` (A's bank is the pretiled
+layout with one panel, bn = N).
 
 The soft-FP8 W8A16 GEMMs (bf16 activations times fp8 e4m3 weights with f32
 scales per 128 x 128 block, what the reference's softfp8_w8a16_matmul and
@@ -40,19 +41,20 @@ import torch
 from .. import _build
 from ..utils import cdiv, index_copy_kept_, use_kernel
 
-_BK, _BN = 64, 128       # A's and K8's K stage and N tile (csrc/w8a8_core.cuh)
-# A: x, w, x_scale, w_scale, out, workspace, M, N, K, li, splits, out_f32,
-# stream; K1: x, w, x_scale, w_scale, out, partials, arrivals, M, N, K, li,
-# bn, bm, splits, out_f32, stream; K8: x, w, x_scale, w_scale, out,
+_BK, _BN = 64, 128       # the K granule every W8A8 kernel takes; a pretiled panel's
+# width granule (K8's K stage and N tile, csrc/w8a8_core.cuh)
+# A: x, w, x_scale, w_scale, out, partials, arrivals, M, N, K, li, bm, splits,
+# out_f32, stream; K1: x, w, x_scale, w_scale, out, partials, arrivals, M, N,
+# K, li, bn, bm, splits, out_f32, stream; K8: x, w, x_scale, w_scale, out,
 # workspace, eid, M, N, K, G, bn, block_m, splits, out_f32, stream
 _ARGTYPES = {
-    "w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "w8a8_gemm": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "w8a8_gemm_tiled": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "w8a8_gemm_grouped": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
-# The int8 stage of csrc/w8a8_wgmma.cuh (K1, and K2 after its row pass):
-# 256-column tiles of 128 rows (wgmma; 16 rows and mma.sync for M <= 16), K
-# in stages of 128 bytes (64 at M <= 16), split at most 16 ways and into no
+# The int8 stage of csrc/w8a8_wgmma.cuh (A, K1, and K2 after its row pass):
+# 256-column tiles of 128 rows (wgmma; 16 rows and mma.sync for M <= 32), K
+# in stages of 128 bytes (64 at 16 rows), split at most 16 ways and into no
 # less than 256 of K a split
 GEMM_BN = 256
 GEMM_MIN_SPLIT_K = 256
@@ -65,15 +67,17 @@ def gemm_kstep(bm: int) -> int:
 
 
 def gemm_plan(m: int, n: int, k: int, sms: int):
-    """(bm, tiles_m, tiles_n, splits) of the int8 stage (K1, K2) on a card
+    """(bm, tiles_m, tiles_n, splits) of the int8 stage (A, K1, K2) on a card
     of `sms` SMs: output tiles of bm x 256, and K split over blocks where
     the tiles alone leave SMs idle, each split at least GEMM_MIN_SPLIT_K of
     K. The last split of a tile reads the others' partials into one SM: 16
     KB each for 16-row tiles, so those split to fill one wave of the card;
     128 KB for 128-row tiles (about 1.1 us each on an H100), so those split
     to fill half of it (K1's wo and w2 and K2's per_tensor shapes 11-25%
-    faster than a whole wave on an H100: PERF.md)."""
-    bm = 16 if m <= 16 else 128
+    faster than a whole wave on an H100: PERF.md). Up to M 32 the rows take
+    16-row tiles, two past M 16: a 128-row tile there computes rows it
+    drops and merges 128 KB partials (PERF.md)."""
+    bm = 16 if m <= 32 else 128
     tiles_m, tiles_n = cdiv(m, bm), cdiv(n, GEMM_BN)
     kstep = gemm_kstep(bm)
     ksteps = cdiv(k, kstep)
@@ -107,8 +111,8 @@ def quant_matmul_int8(x_q, w_q, x_scale, w_scale, out_dtype=torch.bfloat16):
 
     The JAX package takes its Pallas kernel (quant_matmul_int8_pallas) for
     M >= 8, its reference otherwise. On the card the port launches kernel A
-    for every M, on the weight viewed as a one-layer bank: the int32 sum is
-    exact, so both give the same numbers."""
+    for every M, on the weight viewed as a one-layer bank, counted under
+    "w8a8_gemm_l1": the int32 sum is exact, so both give the same numbers."""
     if use_kernel(x_q):
         return _w8a8_gemm(x_q, w_q[None], 0, x_scale, w_scale.reshape(1, -1),
                           out_dtype, counter="w8a8_gemm_l1")
@@ -169,25 +173,24 @@ def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
                                                w_scale_stacked, out_dtype)
 
 
-def splits_for(m: int, n: int, k: int, device, bm=None) -> int:
-    """Split K over blocks when the output has fewer tiles than two blocks
-    per SM, so that every SM streams weights; int32 partial sums stay exact.
-    Kernels A and K8 share one GEMM loop and this one policy, which depends
-    on the shape alone (K1 and K2 have theirs: gemm_plan).
-    bm is the row tile: 16 up to M = 16 and 64 above, or 32 for the grouped
-    GEMM."""
-    tiles = cdiv(n, _BN) * cdiv(m, bm or (16 if m <= 16 else 64))
+def splits_for(m: int, n: int, k: int, device, bm: int = 32) -> int:
+    """K8's split of K (the loop of csrc/w8a8_core.cuh): over blocks when
+    the output has fewer tiles than two blocks per SM, so that every SM
+    streams weights; int32 partial sums stay exact. It depends on the shape
+    alone (A, K1 and K2 have theirs: gemm_plan). bm is the row tile, 32 for
+    the grouped GEMM."""
+    tiles = cdiv(n, _BN) * cdiv(m, bm)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(cdiv(2 * sms, tiles), k // _BK))
 
 
 def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
                block_m=0):
-    """Launch kernel A (bank [L, K, N]) or K1 (pretiled bank [L, NB, K, bn],
-    on the int8 stage of csrc/w8a8_wgmma.cuh with `gemm_plan`'s split) at
-    layer li or, given the expert map `eid` of each block_m-row tile, K8
-    (either bank); add one to the launch count `counter` (default: the
-    kernel's)."""
+    """Launch kernel A (bank [L, K, N]: one panel, bn = N) or K1 (pretiled
+    bank [L, NB, K, bn]) at layer li, both on the int8 stage of
+    csrc/w8a8_wgmma.cuh with `gemm_plan`'s split; or, given the expert map
+    `eid` of each block_m-row tile, K8 (either bank) with `splits_for`'s.
+    Adds one to the launch count `counter` (default: the kernel's)."""
     tiled = w.dim() == 4
     grouped = eid is not None
     name = ("w8a8_gemm_grouped" if grouped else "w8a8_gemm_tiled" if tiled
@@ -222,7 +225,13 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), out.data_ptr())
     out_f32 = int(out_dtype == torch.float32)
-    if name == "w8a8_gemm_tiled":
+    if grouped:
+        splits = splits_for(m, n, k, dev)
+        work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
+                else None)
+        code = fn(*ptrs, _ptr(work), eid.data_ptr(), m, n, k, l, bn, block_m, splits,
+                  out_f32, stream)
+    else:
         bm, tiles_m, tiles_n, splits = gemm_plan(
             m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
         part = arrivals = None
@@ -230,14 +239,9 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
             part = torch.empty(tiles_m * tiles_n * splits * bm * GEMM_BN, dtype=torch.int32,
                                device=dev)
             arrivals = _build.arrival_counters(name, dev, tiles_m * tiles_n)
-        code = fn(*ptrs, _ptr(part), _ptr(arrivals), m, n, k, li, bn, bm, splits, out_f32,
-                  stream)
-    else:
-        splits = splits_for(m, n, k, dev, bm=32 if grouped else None)
-        work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
-                else None)
-        args = (eid.data_ptr(), m, n, k, l, bn, block_m) if grouped else (m, n, k, li)
-        code = fn(*ptrs, _ptr(work), *args, splits, out_f32, stream)
+        panel = (bn,) if tiled else ()
+        code = fn(*ptrs, _ptr(part), _ptr(arrivals), m, n, k, li, *panel, bm, splits,
+                  out_f32, stream)
     _build.check(name, code)
     _build.launches[counter or name] += 1
     return out

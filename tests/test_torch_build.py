@@ -155,16 +155,17 @@ def test_kernels_build_for_sm_90a():
 
 
 # --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C, K7's context, K2's and
-# K1's K) merge the splits' partials through a workspace, deterministically:
+# The kernels that split a row over blocks (K19, C, K7's context, K2's, K1's
+# and A's K; K3 runs C's loop unsplit, its source scanned all the same) merge the splits' partials through a workspace, deterministically:
 # no float atomics (their order changes from run to run, and a second call
 # must be bit-identical), only integer arrival counters, each reset to 0 by
 # the kernel that used it (the last block to arrive), never zeroed by the
 # host before a call. A source is scanned with the csrc/ headers it includes
-# (K1 and K2 merge in csrc/w8a8_wgmma.cuh).
+# (A, K1 and K2 merge in csrc/w8a8_wgmma.cuh, C and K3 in
+# csrc/decode_tm_core.cuh).
 
-SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_mla.cu", "rmsq_gemm.cu",
-                 "w8a8_gemm_tiled.cu")
+SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_mla.cu",
+                 "rmsq_gemm.cu", "w8a8_gemm_tiled.cu")
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
@@ -292,3 +293,30 @@ def test_arrival_counters_are_zeroed_once():
     assert again is first and int(again[3]) == 5
     assert int(_build.arrival_counters("test_counters", dev, 4096)[3]) == 0
     assert int(first[3]) == 5                  # a larger set does not free the old one
+
+
+@pytest.mark.parametrize("kernel,source,header", [
+    ("w8a8_gemm", "w8a8_gemm_tiled", "w8a8_wgmma.cuh"),         # A
+    ("w8a8_gemm_tiled", "w8a8_gemm_tiled", "w8a8_wgmma.cuh"),   # K1
+    ("decode_tm", "decode_tm", "decode_tm_core.cuh"),           # C
+    ("decode_tm2", "decode_tm2", "decode_tm_core.cuh"),         # K3
+])
+def test_kernels_share_their_stage(kernel, source, header):
+    """A runs K1's int8 stage and K3 runs C's loop: each kernel's source
+    exports its launcher, includes the shared header, and holds no merge of
+    its own (the scan above reaches the header's)."""
+    assert _build.KERNELS[kernel] == source
+    with open(os.path.join(_build.CSRC, source + ".cu")) as f:
+        own = f.read()
+    assert header in INCLUDE.findall(own)
+    assert re.search(r'extern "C" int skt_' + kernel + r"\(", own)
+    assert not ATOMIC.search(COMMENT_OR_STRING.sub(" ", own))
+
+
+def test_grouped_gemm_source_holds_k8_only():
+    """csrc/w8a8_gemm.cu keeps K8 (the loop of w8a8_core.cuh) and no other
+    launcher."""
+    with open(os.path.join(_build.CSRC, "w8a8_gemm.cu")) as f:
+        own = f.read()
+    assert re.findall(r'extern "C" int (skt_\w+)\(', own) == ["skt_w8a8_gemm_grouped"]
+    assert [k for k, v in _build.KERNELS.items() if v == "w8a8_gemm"] == ["w8a8_gemm_grouped"]

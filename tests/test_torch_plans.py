@@ -20,7 +20,16 @@ need the card; what decides their work is Python that runs here:
     (half of one for 128-row tiles), no more splits than K steps, and the
     row tiles of a weight tile issued together;
   * (d) K2's plain row pass (`rmsq_rows_ref`, `_quant_rows`) against the
-    JAX package's `_row_stats` plus its kernel's quant step.
+    JAX package's `_row_stats` plus its kernel's quant step;
+  * (e) kernel A's plan: the same stage at every caller's (M, N, K) with
+    one panel (bn = N), and its wrapper refusing widths the stage cannot
+    take;
+  * (f) the split plan of kernel C (csrc/decode_tm_core.cuh, mirrored by
+    `tm_splits`, `tm_split_walk`): every cached token in exactly one
+    split, each step's scores from its first token (from token 0 for a
+    split's first step); and an f32 emulation of the splits, their page
+    steps and the merge in split order against the plain version (S = 1
+    with steps of one page is K3, which shares the loop unsplit).
 """
 
 import math
@@ -36,6 +45,7 @@ from sgl_kernel_npu_tpu.ops.attention import decode as jdec
 from sgl_kernel_npu_tpu_torch.ops import matmul as tmm
 from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as trq
 from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_v9 as tv9
 
 K7_SHARE = 1e-4
 NO_EXCESS = {"xla_allow_excess_precision": False}
@@ -219,7 +229,7 @@ def _check_plan(m, n, k, sms):
     K step exactly once, within a wave where it splits, and the grid issues
     each weight tile's row tiles together. Returns the plan."""
     bm, tiles_m, tiles_n, splits = tmm.gemm_plan(m, n, k, sms)
-    assert bm == (16 if m <= 16 else 128)
+    assert bm == (16 if m <= 32 else 128)
     assert tiles_m * bm >= m > (tiles_m - 1) * bm
     assert tiles_n * tmm.GEMM_BN >= n > (tiles_n - 1) * tmm.GEMM_BN
     kstep = tmm.gemm_kstep(bm)
@@ -376,3 +386,163 @@ def test_k2_row_pass_matches_jax(monkeypatch, x_f32, mode, cast, apply_norm):
     assert diff.max() <= 1 and (diff > 0).mean() <= 5e-4
     if not apply_norm and mode == "per_tensor":
         assert np.array_equal(xq.numpy(), want)
+
+
+# ---------------------------------------------------------- (e) A's plan
+
+# kernel A's (N, K) at its callers: Llama-3-8B's stacked wqkv, wo, w13, w2
+# (models/llama.py, the engine's [L, K, N] banks) and lm_head (L = 1, the
+# engines' quant_matmul_int8); DeepSeek-V2-Lite's wo, w13, w2 (N 21,888:
+# half a 256-column tile at the end) and lm_head (models/deepseek_mla.py)
+A_WIDTHS = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336), (128256, 4096),
+            (2048, 2048), (21888, 2048), (2048, 10944), (102400, 2048)]
+# the engines' decode (8), the bench paths' batch (128), prefill chunks up
+# to 672 rows, the plan's edges (1, 16, 17)
+A_MS = (1, 8, 16, 17, 128, 672)
+
+
+def _stage_takes(m, n, k, bn, bm, splits):
+    """The stage's rule (csrc/w8a8_wgmma.cuh::plan_ok)."""
+    ksteps = k // 64 if bm == 16 else -(-k // 128)
+    return (bn > 0 and bn % 16 == 0 and n % bn == 0 and n % 16 == 0 and k % 64 == 0
+            and (bm == 16 or (bm == 128 and (bn % 128 == 0 or bn == n)))
+            and not (bm == 16 and m > 32) and 1 <= splits <= tmm.GEMM_MAX_SPLITS
+            and splits <= ksteps)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m", A_MS)
+@pytest.mark.parametrize("n,k", A_WIDTHS)
+def test_a_plan_covers_every_tile_once(sms, m, n, k):
+    """A runs the stage with one panel of N columns: the plan covers every
+    output tile and K step once at each caller's shape, and the stage takes
+    it."""
+    bm, tiles_m, tiles_n, splits = _check_plan(m, n, k, sms)
+    assert _stage_takes(m, n, k, n, bm, splits)
+
+
+def test_a_plan_at_the_engine_shapes():
+    """On an H100 (132 SMs): the Llama engine's M 8 wqkv (24 tiles of 16
+    rows) splits five ways, w13 (112 tiles) unsplit; lm_head's 501 tiles
+    and DeepSeek's w13 (86 tiles, the last half full) run unsplit at M 128,
+    its wo four ways at M 8."""
+    assert tmm.gemm_plan(8, 6144, 4096, 132) == (16, 1, 24, 5)
+    assert tmm.gemm_plan(8, 28672, 4096, 132) == (16, 1, 112, 1)
+    assert tmm.gemm_plan(128, 128256, 4096, 132) == (128, 1, 501, 1)
+    assert tmm.gemm_plan(128, 21888, 2048, 132) == (128, 1, 86, 1)
+    assert tmm.gemm_plan(8, 2048, 2048, 132) == (16, 1, 8, 8)
+
+
+@pytest.mark.parametrize("n,k", [(4088, 4096), (4096, 4000), (120, 64)])
+def test_a_refuses_what_the_stage_cannot_take(n, k):
+    """N % 16 or K % 64: the wrapper raises before any launch."""
+    x = torch.zeros((8, k), dtype=torch.int8)
+    w = torch.zeros((2, k, n), dtype=torch.int8)
+    assert not _stage_takes(8, n, k, n, 16, 1)
+    with pytest.raises(ValueError, match="needs K % 64 == 0, N % 16 == 0"):
+        tmm._w8a8_gemm(x, w, 1, torch.ones((8, 1)), torch.ones((2, n)), torch.bfloat16)
+
+
+# ------------------------------------------------------ (f) C's split plan
+
+
+@pytest.mark.parametrize("resident", [396, 264, 132, 16])
+@pytest.mark.parametrize("b,hkv,mp,ps", [(128, 8, 2, 512), (128, 8, 1, 512), (8, 8, 64, 128),
+                                         (1, 2, 4, 16), (3, 1, 6, 16)])
+def test_tm_split_plan(resident, b, hkv, mp, ps):
+    """Every cached token in exactly one split's p . v ranges, in order;
+    each step's scores from its first token (token 0 for a split's first
+    step) to its end or the cached length; S = 1 at the bench path's 1,024
+    rows."""
+    s = tv9.tm_splits(resident, b, hkv, mp, ps)
+    assert 1 <= s <= tv9.TM_MAX_SPLITS
+    assert s == 1 or s * b * hkv <= resident
+    if (b, hkv) == (128, 8):
+        assert s == 1
+    for step in sorted({ps, min(4, mp) * ps}):
+        for clen in sorted({0, 1, 15, 16, 17, ps - 1, ps, ps + 1, mp * ps - 1, mp * ps}):
+            if not 0 <= clen <= mp * ps:
+                continue
+            seen = np.zeros(clen, np.int32)
+            prev_te = 0
+            for split in range(s):
+                ts, te, steps = tv9.tm_split_walk(clen, s, split, step)
+                assert ts % tv9.TM_TILE == 0 and ts >= prev_te
+                prev_te = max(prev_te, te)
+                for i, (k, (s0, s1), (p0, p1)) in enumerate(steps):
+                    assert s0 == (0 if i == 0 else k * step)
+                    assert s1 == min(clen, (k + 1) * step)
+                    assert k * step <= p0 < p1 <= s1
+                    seen[p0:p1] += 1
+            assert (seen == 1).all()
+
+
+def _emulate_tm(q, k_new, v_new, kc, ks, vc, vs, cached, step, sm, s):
+    """Kernel C (K3 at S = 1) in f32 on a gathered cache ([B, hkv, n, D]): each
+    split's page steps as tm_split_walk gives them (the maximum of a step's
+    scores range, p over the split's own tokens, bf16(p * v_scale) . V),
+    the splits merged in split order, the current token folded in."""
+    b, hq, d = q.shape
+    hkv = k_new.shape[1]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, d)
+    out = torch.zeros((b, hkv, g, d))
+    for i in range(b):
+        clen = max(int(cached[i]), 0)
+        for h in range(hkv):
+            sc = (qf[i, h] @ kc[i, h, :clen].float().T) * ks[i, h, :clen] * sm   # [g, clen]
+            parts = []
+            for split in range(s):
+                _, _, steps = tv9.tm_split_walk(clen, s, split, step)
+                m = torch.full((g,), -1e30)
+                l = torch.zeros(g)
+                acc = torch.zeros((g, d))
+                for _, (s0, s1), (p0, p1) in steps:
+                    mn = torch.maximum(m, sc[:, s0:s1].amax(-1))
+                    alpha = torch.exp(m - mn)
+                    p = torch.exp(sc[:, p0:p1] - mn[:, None])
+                    l = l * alpha + p.sum(-1)
+                    pv = (p * vs[i, h, p0:p1]).to(torch.bfloat16).float()
+                    acc = acc * alpha[:, None] + pv @ vc[i, h, p0:p1].float()
+                    m = mn
+                parts.append((m, l, acc))
+            mx = torch.stack([p[0] for p in parts]).amax(0)
+            o, lsum = torch.zeros((g, d)), torch.zeros(g)
+            for m, l, acc in parts:              # split order
+                w = torch.exp(m - mx)
+                lsum = lsum + w * l
+                o = o + w[:, None] * acc
+            s_cur = (qf[i, h] * k_new[i, h].float()).sum(-1) * sm
+            mn = torch.maximum(mx, s_cur)
+            alpha = torch.exp(mx - mn)
+            p = torch.exp(s_cur - mn)
+            lsum = lsum * alpha + p
+            o = o * alpha[:, None] + p.to(torch.bfloat16).float()[:, None] * v_new[i, h].float()
+            out[i, h] = o / lsum.clamp_min(1e-37)[:, None]
+    return out.reshape(b, hq, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 8])
+@pytest.mark.parametrize("pages_per_step", [1, 4])
+def test_tm_split_merge_matches_plain(s, pages_per_step):
+    """The splits (cut inside pages where S > 1), each taking its step's
+    maximum from token 0 of its first step, merged in split order, against
+    attend_gathered_ref (steps of one page as C takes decode_v8's contract
+    and K3 unsplit, of four as C takes decode_v9's) within one bf16 ulp +
+    1e-4 of max|plain|."""
+    rng = np.random.default_rng(77 + s)
+    b, hkv, g, d, ps, mp = 6, 2, 4, 128, 16, 6
+    n = mp * ps
+    q = _t(rng.standard_normal((b, hkv * g, d)).astype(np.float32)).to(torch.bfloat16)
+    kn = _t(rng.standard_normal((b, hkv, d)).astype(np.float32)).to(torch.bfloat16)
+    vn = _t(rng.standard_normal((b, hkv, d)).astype(np.float32)).to(torch.bfloat16)
+    kc = _t(rng.integers(-127, 128, (b, hkv, n, d)).astype(np.int8))
+    vc = _t(rng.integers(-127, 128, (b, hkv, n, d)).astype(np.int8))
+    ks = _t((0.001 + 0.02 * rng.random((b, hkv, n))).astype(np.float32))
+    vs = _t((0.001 + 0.02 * rng.random((b, hkv, n))).astype(np.float32))
+    cached = torch.tensor([0, 1, 17, 40, 95, 96], dtype=torch.int32)
+    step = pages_per_step * ps
+    sm = d ** -0.5
+    want = tv9.attend_gathered_ref(q, kn, vn, kc, ks, vc, vs, cached, step, sm)
+    got = _emulate_tm(q, kn, vn, kc, ks, vc, vs, cached, step, sm, s)
+    assert_bf16_close(got.float().numpy(), want.float().numpy(), 1e-4, f"S {s}")
