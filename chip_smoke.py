@@ -15,7 +15,12 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    512-token prefix, and at prefixes 200, 63, 64, 0 with an empty chunk,
    one launch per call), the two contracts that reuse A and C (matmul.py:71 at
    L = 1, decode_v8.py:388), and the MLA paths' kernels at DeepSeek-V2-Lite
-   width: K2 in its per_tensor mode, K5 (int8 and bf16 latent rows), K6 and
+   width: K2 in its per_tensor mode, K5 (int8 and bf16 latent rows; also
+   at the edges of its cluster split, passes and steps: pages of 16 to 256,
+   cp 1, 3 and 4 over 6 pages, lengths 0, 1, ps - 1, ps, ps + 1 and across
+   steps, batches of 10, 64 and 128, steps of 1,792 to 8,192 tokens whose
+   shares split over clusters of 2, 4 and 8 CTAs; a second call
+   bit-identical), K6 and
    K7 (also at the edges of its split plan: 8 sequences of 1 token, one of
    4,097, 8 equal ones, lengths beside a round or a split, 4 and 20 heads
    with krope 16 and 6; a second call bit-identical); and the Qwen3-Next bench path's kernels at its shapes: K8 (the
@@ -33,7 +38,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    path's kernels at Llama-3-8B's heads: K14 (deferred decode with bf16
    products, bf16 and int8 pages) at the bench shape (128 sequences of
    256..383 cached tokens, 512-token pages) and the engine's (8 sequences,
-   128-token pages), K15 (paged chunk prefill: 512 tokens over 256 cached,
+   128-token pages; also G 1, 2, 4, 8 and 16, pages of 16, 100 and 512,
+   cached 0, 1, ps - 1, ps, ps + 1 and over 4 pages, a second call
+   bit-identical), K15 (paged chunk prefill: 512 tokens over 256 cached,
    bf16 and int8 pages, and a page_sel drive with an empty tile) and K16's
    five contracts (v3 decode bf16 / int8, current token in the cache or
    deferred; int8 head-major decode) at the bench shape; and the
@@ -146,7 +153,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    width on the same weights: int8_kv=False, then int8 with
    kv_layout="hm"; every model call's launches exact (prefill K1 129, K15
    32; decode K1 65, K2 64, K14 32), all requests finish, the prefix is
-   reused, a rerun repeats the tokens.
+   reused, a rerun repeats the tokens; a steady decode call's device time
+   by kernel and its idle share.
 11. Drives the `attentions` surface through its public functions at full
    width, the counters set to 0 first: (a) prefill.laser_attention at
    phase 1's three cases (K17 1 per call); (b) the sparse prefill at T 8192,
@@ -1224,6 +1232,70 @@ def check_decode_mla_c(torch, dv2, mcfg, rng):
     return row
 
 
+def check_decode_mla_c_edges(torch, dv2, mcfg):
+    """K5 where its cluster split, passes and steps meet their edges, int8
+    and bf16 rows at DeepSeek-V2-Lite's latent widths: pages of 16, 64, 128
+    and 256 tokens, 6 pages a sequence (two softmax steps at cp = 4), cp 1
+    and 3 at ps 64, cached 0, 1, ps - 1, ps, ps + 1, 4 ps, 4 ps + 1 and
+    lengths whose 16-token tiles do not divide by the cluster's CTAs (17,
+    113, 2 ps + 45), at a batch of 10, 64 and 128 (one CTA a sequence, the
+    bench path's; its share in passes through two buffers, the first read
+    again for P . V); and where a share does not fit beside the rest, so
+    that the cluster grows: steps of 4 pages of 448 at B 128 (2 CTAs), of
+    1,024 and of 2,048 at B 10 (4 and 8), and rows of 3,072 (passes of 16
+    rows through one buffer; bf16 rows 4 CTAs); within one bf16 ulp +
+    K5_SHARE of max|plain|, a second call bit-identical."""
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(610)
+    h, lkv, layers, li = mcfg.num_heads, mcfg.kv_lora_rank, 2, 1
+    sm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    notes = []
+    rope = mcfg.qk_rope_dim
+    for ps, cp, b, mp, c in ((16, None, 10, 6, lkv + rope), (64, None, 10, 6, lkv + rope),
+                             (64, 1, 10, 6, lkv + rope), (64, 3, 10, 6, lkv + rope),
+                             (128, None, 10, 6, lkv + rope), (256, None, 10, 6, lkv + rope),
+                             (128, None, 64, 6, lkv + rope), (64, None, 128, 6, lkv + rope),
+                             (448, None, 128, 4, lkv + rope), (1024, None, 10, 4, lkv + rope),
+                             (2048, None, 10, 4, lkv + rope), (128, None, 128, 3, 3072)):
+        lens = [0, 1, ps - 1, ps, ps + 1, 4 * ps, 4 * ps + 1, 17, 113, 2 * ps + 45]
+        lens = [min(n, mp * ps) for n in lens]
+        if b > len(lens):
+            lens += torch.randint(0, mp * ps + 1, (b - len(lens),), generator=rng,
+                                  device="cuda").tolist()
+        pages = b * mp + 1
+        cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        # scores of phase 1's spread (q of 1.5 randn over rows of 576) at any width
+        q = (1.5 * (576 / c) ** 0.5 * torch.randn((b, h, c), generator=rng, device="cuda")
+             ).to(torch.bfloat16)
+        new = torch.randn((b, c), generator=rng, device="cuda").to(torch.bfloat16)
+        errs = []
+        for int8 in (True, False):
+            cache = _latent_rows(torch, rng, (layers, pages, ps, c), int8)
+            scales = (torch.rand((layers, pages, 1, ps), generator=rng, device="cuda") * 0.02
+                      + 0.005) if int8 else None
+            args = (q, new, cache, cached, bt, sm, ps, lkv)
+            kw = dict(layer_idx=li, kv_scales=scales, chunk_pages=cp)
+            out = dv2.decode_mla_v3_defer(*args, **kw)
+            again = dv2.decode_mla_v3_defer(*args, **kw)
+            ref = dv2._decode_chunks_ref(q, new, cache, scales, cached, bt, sm, ps, lkv, li,
+                                         dv2._chunk_pages(mp, cp))
+            torch.cuda.synchronize()
+            label = f"decode_mla_c edges ps {ps} cp {cp or dv2.CHUNK_PAGES} B {b} C {c}"
+            err, ratio = _bf16_check(f"{label} {'int8' if int8 else 'bf16'}", out, ref,
+                                     K5_SHARE)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{label}: a second call differs")
+            errs.append(f"{'int8' if int8 else 'bf16'} {ratio:.3g}")
+            del cache
+        notes.append(f"ps {ps} cp {cp or dv2.CHUNK_PAGES} B {b} MP {mp} C {c}: "
+                     + ", ".join(errs))
+    print("  decode_mla_c edges (cached 0, 1, ps - 1, ps, ps + 1, 4 ps, 4 ps + 1, 17, 113, "
+          "2 ps + 45 within MP pages), errors over their bound: " + "; ".join(notes)
+          + "; second calls bit-identical")
+
+
 def check_append_mla(torch, dv2, mcfg, rng):
     """K6 at the bench MLA path's shape: 27 layers x 128 int8 latent rows of
     576 (one dropped: page P) into 385 pages of 128."""
@@ -1685,6 +1757,62 @@ def check_decode_v6(torch, dv6, cfg, rng):
                                   bound_by=by, max_abs_err=err)
             del k, v, ks, vs
     return rows
+
+
+def check_decode_v6_edges(torch, dv6):
+    """K14 where its page steps, kept scores and head groups meet their
+    edges, bf16 and int8 pages: 1, 2, 4, 8 and 16 query heads a kv head (16:
+    two blocks of 8), pages of 16, 100 (not a power of 2) and 512 tokens,
+    cached 0, 1, ps - 1, ps, ps + 1, 2 ps + 3 and 4 ps over a block table of
+    4 pages, and one page of 44,800 tokens (its kept scores past shared
+    memory, in device memory: decode_v6.cu's skt_*_kept must say so there,
+    and 0 at the other pages); within one bf16 ulp + K14_SHARE of
+    max|plain|, a second call bit-identical."""
+    from sgl_kernel_npu_tpu_torch import _build
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(620)
+    hkv, d = 2, 128
+    notes = []
+    for ps, mp in ((16, 4), (100, 4), (512, 4), (44800, 1)):
+        lens = [min(n, mp * ps) for n in (0, 1, ps - 1, ps, ps + 1, 2 * ps + 3, 4 * ps)]
+        b = len(lens)
+        pages = b * mp + 1
+        cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        kn, vn = (torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        errs = []
+        for int8 in (False, True):
+            k, v, ks, vs = _hm_pages(torch, rng, pages, hkv, ps, d, int8)
+            for g in (1, 2, 4, 8, 16):
+                q = (1.5 * torch.randn((b, hkv * g, d), generator=rng, device="cuda")
+                     ).to(torch.bfloat16)
+                if int8:
+                    args = (q, kn, vn, k, v, ks, vs, cached, bt, d ** -0.5, ps)
+                    fn = dv6.decode_gqa_v6_int8_defer
+                else:
+                    args = (q, kn, vn, k, v, cached, bt, d ** -0.5, ps)
+                    fn = dv6.decode_gqa_v6_defer
+                name = "decode_v6_int8_defer" if int8 else "decode_v6_defer"
+                kept = _build.query(name, "kept", g // dv6.v6_groups(g), ps)
+                if (kept > 0) != (ps == 44800):
+                    raise AssertionError(f"{name} ps {ps} G {g}: kept scores take {kept} "
+                                         "floats of device memory")
+                out, again = fn(*args), fn(*args)
+                ref = dv6.decode_gqa_v6_defer_ref(q, kn, vn, k, v, cached, bt, d ** -0.5,
+                                                  k_scales=ks, v_scales=vs)
+                torch.cuda.synchronize()
+                label = f"decode_v6 edges ps {ps} G {g} {'int8' if int8 else 'bf16'}"
+                _, ratio = _bf16_check(label, out, ref, K14_SHARE)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{label}: a second call differs")
+                errs.append(ratio)
+            del k, v, ks, vs
+        notes.append(f"ps {ps}: at most {max(errs):.3g} of the bound")
+    print("  decode_v6 edges (G 1, 2, 4, 8, 16; bf16 and int8; cached 0, 1, ps - 1, ps, "
+          "ps + 1, 2 ps + 3, 4 ps within 4 pages, one at ps 44800): " + "; ".join(notes)
+          + "; second calls bit-identical")
 
 
 def check_decode_v3(torch, dv3, dec, cfg, rng):
@@ -2838,7 +2966,7 @@ def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_toke
         build.reset_launches()
         outs, st, wall, reused, launches = run_engine(
             torch, serving, build, cfg, params, prompts, late, new_tokens, expect=expect,
-            engine_kw=kw)
+            engine_kw=kw, profile=True, buckets=_HM_ENGINE_BUCKETS)
         if any(len(o) != new_tokens for o in outs):
             raise AssertionError(f"hm engine {label}: token counts {[len(o) for o in outs]}")
         if reused != 256:
@@ -2868,8 +2996,12 @@ _K1 = ("EpiTiled",)
 _K2 = ("EpiRmsq", "rmsq_rows")
 _K8 = ("w8a8_kernel<32, true>", "w8a8_epilogue<true>")
 _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
-               ("K14 decode_v6_defer", ("decode_hm_kernel",)),
+               ("K14 decode_v6_defer", ("decode_v6_kernel",)),
                ("memsets", ("Memset",)))
+# phase 10's decode call, bf16 or int8 pages
+_HM_ENGINE_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
+                      ("K14 decode_v6", ("decode_v6_kernel", "decode_v6_int8_kernel")),
+                      ("memsets", ("Memset",)))
 # phase 2's decode call: kernel C's share of the device time
 _ENGINE_BUCKETS = (("A w8a8_gemm", _A),
                    ("C decode_tm", ("decode_tm_kernel",)), ("D append_tm", ("append_tm_kernel",)),
@@ -4973,6 +5105,7 @@ def main() -> int:
     check_rmsq_edges(torch, matmul, rmsq_gemm)
     torch.cuda.empty_cache()
     rows["k5"] = check_decode_mla_c(torch, decode_mla_v2, mcfg, rng)
+    check_decode_mla_c_edges(torch, decode_mla_v2, mcfg)
     torch.cuda.empty_cache()
     rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng)
     torch.cuda.empty_cache()
@@ -4986,6 +5119,7 @@ def main() -> int:
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
     torch.cuda.empty_cache()
     rows.update(check_decode_v6(torch, decode_v6, cfg, rng))
+    check_decode_v6_edges(torch, decode_v6)
     torch.cuda.empty_cache()
     rows["k15"], rows["k15_int8"] = check_prefill_hm(torch, paged_prefill, cfg, rng)
     torch.cuda.empty_cache()
@@ -5228,10 +5362,10 @@ def main() -> int:
         dict(name="swiglu_quant", route="cuda", source=f"{src}/swiglu_quant.cu",
              replaces=f"{base}/ops/activation.py:79", launches=moe_launches["swiglu_quant"],
              **rows["k13"]),
-        dict(name="decode_v6_defer", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_v6_defer", route="cuda", source=f"{src}/decode_v6.cu",
              replaces=f"{base}/ops/attention/decode_v6.py:309",
              launches=hm_launches["decode_v6_defer"], **rows["decode_v6_defer"]),
-        dict(name="decode_v6_int8_defer", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_v6_int8_defer", route="cuda", source=f"{src}/decode_v6.cu",
              replaces=f"{base}/ops/attention/decode_v6.py:168",
              launches=hm_int8_launches["decode_v6_int8_defer"],
              **rows["decode_v6_int8_defer"]),

@@ -29,7 +29,16 @@ replays). The cases, each name a prefix that --only can pick:
   * C (tm int8 decode: 8 sequences of 40..700 tokens over 64 pages of 128,
     Llama's heads); within ATTN_TOL;
   * K8 (the Qwen bench path's expert w13) and K11 (the MoE layer's bench
-    shape, its recv); exact.
+    shape, its recv); exact;
+  * K5 (MLA decode over the combined latent cache) at chip_smoke.py's
+    phase 1 shape (128 sequences, 16 heads, rows of 576, pages of 128, 3
+    each, 0..319 cached), int8 and bf16 rows, and int8 over 6 pages (0..767
+    cached: two softmax steps of 4 pages); within K5_SHARE;
+  * K14 (v6 deferred decode over hm pages), bf16 and int8, at the bench
+    shape (128 sequences, 32 / 8 heads, one page of 512, 256..383 cached),
+    the engine's (8 sequences, 6 pages of 128) and G 16 (the bench shape
+    with 2 kv heads); within K14_SHARE; K10 (the Qwen bench shape) and K16's
+    int8 deferred contract (the bench shape) as controls of decode_hm.cu.
 Each case must also give the same bits in every turn of its root. Prints,
 per case, each root's median over its turns and the ratio of each to the
 first root's, the sums of the four Llama GEMMs of A at M 8 and 128 and of
@@ -58,7 +67,8 @@ A_WIDTHS = (("wqkv", H, Q + 2 * KV), ("wo", Q, H), ("w13", H, 2 * F), ("w2", F, 
             ("mla wo", MHEADS * 128, MH), ("mla w13", MH, 2 * MF), ("mla w2", MF, MH))
 # the kernels the cases launch (names of _build.KERNELS)
 KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm",
-           "w8a8_gemm_grouped", "fused_moe")
+           "w8a8_gemm_grouped", "fused_moe", "decode_mla_c", "decode_v6_defer",
+           "decode_v6_int8_defer", "decode_hm", "decode_v3_int8_defer")
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
 SUMS["K1 wo + w2 + lm_head M 128"] = [f"K1 {nm} M 128" for nm in ("wo", "w2", "lm_head")]
@@ -115,6 +125,61 @@ def k3_inputs(torch, gen, mp, full=False):
     return (q, kn, vn, kc, vc, ks, vs, cached, bt, d ** -0.5, ps)
 
 
+def k5_inputs(torch, gen, mp, int8, max_cached):
+    """K5's inputs at DeepSeek-V2-Lite's latent widths (16 heads, rows of 512
+    | 64, pages of 128): 128 sequences of 0..max_cached - 1 cached tokens (0,
+    1, 127, 128, 129, 256 among them), mp pages each, caches of 2 layers.
+    Returns the wrapper's arguments and its keywords at layer 1."""
+    b, h, lkv, c, ps = 128, 16, 512, 576, 128
+    pages = b * mp + 1
+    cached = torch.randint(0, max_cached, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    cached[:6] = torch.tensor([0, 1, 127, 128, 129, 256], dtype=torch.int32)
+    bt = (torch.randperm(pages - 1, generator=gen, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    q = (1.5 * torch.randn((b, h, c), generator=gen, device="cuda")).to(torch.bfloat16)
+    new = torch.randn((b, c), generator=gen, device="cuda").to(torch.bfloat16)
+    shape = (2, pages, ps, c)
+    if int8:
+        cache = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, device="cuda")
+        scales = torch.rand((2, pages, 1, ps), generator=gen, device="cuda") * 0.02 + 0.005
+    else:
+        cache = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        scales = None
+    return (q, new, cache, cached, bt, 192 ** -0.5, ps, lkv), dict(layer_idx=1,
+                                                                    kv_scales=scales)
+
+
+def k14_inputs(torch, gen, shape, int8, hkv=8):
+    """K14's inputs at Llama-3-8B's heads (32 query heads over `hkv` kv
+    heads of 128): "bench", 128 sequences, one page of 512, 256..383 cached
+    (0, 1, 255, 511 among them); "engine", 8 sequences, 6 pages of 128,
+    phase 2's lengths. Returns the wrapper's arguments."""
+    hq, d = 32, 128
+    if shape == "bench":
+        b, ps, mp = 128, 512, 1
+        cached = torch.randint(256, 384, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        cached[:4] = torch.tensor([0, 1, 255, 511], dtype=torch.int32)
+    else:
+        lens = (40, 127, 128, 129, 255, 384, 511, 700)
+        b, ps, mp = len(lens), 128, 6
+        cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pages = b * mp + 1
+    bt = (torch.randperm(pages - 1, generator=gen, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    q = (1.5 * torch.randn((b, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+    kn, vn = (torch.randn((b, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    shp = (pages, hkv, ps, d)
+    if int8:
+        k, v = (torch.randint(-127, 128, shp, generator=gen, dtype=torch.int8, device="cuda")
+                for _ in range(2))
+        ks, vs = (torch.rand((pages, hkv, 1, ps), generator=gen, device="cuda") * 0.02 + 0.005
+                  for _ in range(2))
+        return (q, kn, vn, k, v, ks, vs, cached, bt, d ** -0.5, ps)
+    k, v = (torch.randn(shp, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    return (q, kn, vn, k, v, cached, bt, d ** -0.5, ps)
+
+
 def _cases(torch, cs, want):
     """Yield (name, call, check, iters) for every case whose name starts with
     a prefix in `want` (all when it is empty), inputs made from one seed.
@@ -124,7 +189,8 @@ def _cases(torch, cs, want):
     from sgl_kernel_npu_tpu_torch.ops import matmul as mm
     from sgl_kernel_npu_tpu_torch.ops import quant
     from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as rq
-    from sgl_kernel_npu_tpu_torch.ops.attention import decode_v9, decode_v11
+    from sgl_kernel_npu_tpu_torch.ops.attention import (decode, decode_mla_v2, decode_v3,
+                                                        decode_v6, decode_v9, decode_v11)
 
     def on(name):
         return not want or name.startswith(want)
@@ -134,6 +200,17 @@ def _cases(torch, cs, want):
 
     def close(ref):
         return lambda got: (got.float() - ref.float()).abs().max().item() <= cs.ATTN_TOL
+
+    def ulp(ref, share):
+        """chip_smoke.py's bar for the bf16 decodes: one bf16 ulp of the
+        plain value plus `share` of max|plain|"""
+        def check(got):
+            try:
+                cs._bf16_check("", got, ref, share)
+            except AssertionError:
+                return False
+            return True
+        return check
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
@@ -241,6 +318,50 @@ def _cases(torch, cs, want):
                  bank, torch.where(ok[:, None], xs[tok], 0.0), ws, eid, tile)
         yield ("K8 Qwen expert w13", lambda: mm.grouped_matmul_int8(*gargs),
                exact(mm.grouped_matmul_int8_tiles_ref(*gargs)), 20)
+    gen.manual_seed(21)
+    for label, mp, int8, maxc in (("int8 phase 1", 3, True, 320), ("bf16 phase 1", 3, False, 320),
+                                  ("int8 MP 6 cp 4", 6, True, 768)):
+        if on(f"K5 {label}"):
+            args, kw = k5_inputs(torch, gen, mp, int8, maxc)
+            ref = decode_mla_v2._decode_chunks_ref(*args[:2], args[2], kw["kv_scales"],
+                                                   *args[3:], kw["layer_idx"],
+                                                   decode_mla_v2._chunk_pages(mp))
+            yield (f"K5 {label}", lambda args=args, kw=kw: decode_mla_v2.decode_mla_v3_defer(
+                *args, **kw), ulp(ref, cs.K5_SHARE), 50)
+            del args, kw, ref
+    gen.manual_seed(22)
+    for label, shape, hkv in (("bench", "bench", 8), ("engine", "engine", 8), ("G 16", "bench", 2)):
+        for int8 in (False, True):
+            name = f"K14 {'int8' if int8 else 'bf16'} {label}"
+            if not on(name):
+                continue
+            args = k14_inputs(torch, gen, shape, int8, hkv)
+            fn = decode_v6.decode_gqa_v6_int8_defer if int8 else decode_v6.decode_gqa_v6_defer
+            sc = dict(k_scales=args[5], v_scales=args[6]) if int8 else {}
+            plain = args[:5] + args[-4:-1]
+            ref = decode_v6.decode_gqa_v6_defer_ref(*plain, **sc)
+            yield (name, lambda fn=fn, args=args: fn(*args), ulp(ref, cs.K14_SHARE), 50)
+            del args, ref
+    gen.manual_seed(23)
+    if on("K10 qwen bench"):
+        b, hq, hkv, d, ps, mp = 128, 16, 2, 128, 128, 3
+        pages = b * mp + 1
+        kc, vc = (torch.randn((hkv, pages, ps, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        seq = torch.randint(250, 290, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        bt = (torch.randperm(pages - 1, generator=gen, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        q = (1.5 * torch.randn((b, hq, d), generator=gen, device="cuda")).to(torch.bfloat16)
+        hargs = (q, kc, vc, seq, bt, d ** -0.5, ps)
+        yield ("K10 qwen bench", lambda: decode.decode_gqa_hm(*hargs),
+               ulp(decode.decode_gqa_hm_ref(*hargs), cs.K10_SHARE), 50)
+    if on("K16 int8 defer bench"):
+        q, kn, vn, k, v, ks, vs, cached, bt, sm, ps = k14_inputs(torch, gen, "bench", True)
+        a16 = (q, kn, vn, k, v, ks, vs, cached, bt, sm, ps)
+        ref = decode_v3.decode_gqa_v3_ref(q, k, v, cached, bt, sm, k_scales=ks, v_scales=vs,
+                                          k_new=kn, v_new=vn)
+        yield ("K16 int8 defer bench", lambda: decode_v3.decode_gqa_v3_int8_defer(*a16),
+               ulp(ref, cs.HM_SHARE), 50)
     if on("K11 fused_moe"):
         from sgl_kernel_npu_tpu_torch.parallel import EPGroup
         from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas,
@@ -353,7 +474,7 @@ def main() -> int:
                 raise AssertionError(f"root {roots[i]}: a case's bits changed between turns")
     first = runs[0][0]["digest"]
     differ = [k for i in order for k, v in runs[i][0]["digest"].items()
-              if first.get(k) != v and not k.startswith(("K3", "C "))]
+              if first.get(k) != v and not k.startswith(("K3", "C ", "K5", "K14"))]
     if differ:
         raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
 

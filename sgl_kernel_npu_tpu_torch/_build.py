@@ -49,8 +49,8 @@ KERNELS = {
     "fused_moe": "fused_moe",          # K11
     "remote_scatter": "remote_scatter",  # K12
     "swiglu_quant": "swiglu_quant",    # K13
-    "decode_v6_defer": "decode_hm",    # K14, bf16 pages
-    "decode_v6_int8_defer": "decode_hm",  # K14, int8 pages
+    "decode_v6_defer": "decode_v6",    # K14, bf16 pages
+    "decode_v6_int8_defer": "decode_v6",  # K14, int8 pages
     "prefill_hm": "prefill_hm",        # K15
     "decode_v3": "decode_hm",          # K16, one counter per contract
     "decode_v3_int8": "decode_hm",
@@ -158,16 +158,26 @@ def launcher(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def query(name: str, what: str, *args: int) -> int:
+    """The answer of kernel `name`'s C function `skt_<name>_<what>` on int
+    arguments: a size of its launch on the current device, or minus a
+    cudaError_t, which raises."""
+    fn = getattr(library(KERNELS[name]), f"skt_{name}_{what}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * len(args)
+    n = fn(*args)
+    if n < 0:
+        check(name, -n)
+    return n
+
+
 def splits(name: str, *args: int) -> int:
     """How many blocks kernel `name` splits each row over on the current
     device (its C function `skt_<name>_splits`, which sizes them from the
     card's SM count)."""
-    fn = getattr(library(KERNELS[name]), f"skt_{name}_splits")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * len(args)
-    n = fn(*args)
-    if n <= 0:
-        check(name, -n or 1)
+    n = query(name, "splits", *args)
+    if n == 0:
+        check(name, 1)
     return n
 
 

@@ -1,4 +1,4 @@
-// Kernels K10, K14, K16 and K23: paged GQA decode over bf16 or int8 pages,
+// Kernels K10, K16 and K23: paged GQA decode over bf16 or int8 pages,
 // one loop for every contract (decode_hm.cuh), each contract its own C entry
 // point and launch counter.
 //
@@ -24,14 +24,8 @@
 //                         head-major pages [Hkv, P, ps, 128], scales
 //                         [Hkv, P, 1, ps], the current token in the cache.
 //
-// K14 is the deferred contract of decode_v6.py, with bf16 products (ROUND_P
-// true):
-//   decode_v6_defer       decode_v6.py:309 decode_gqa_pallas_v6_defer
-//                         (_kernel_v6, decode_v6.py:232-306): bf16 pages, the
-//                         default attention of `bench.py --bf16-kv` and of
-//                         the JAX engine on a bf16 cache;
-//   decode_v6_int8_defer  decode_v6.py:168 decode_gqa_pallas_v6_int8_defer
-//                         (_kernel_v6_int8, decode_v6.py:81-165).
+// K14, the deferred contract of decode_v6.py with bf16 products, runs K3's
+// loop (csrc/decode_v6.cu).
 //
 // K23 serves the retired decodes of attic/ops_attention/ with K16's rounding
 // (their TPU kernels take f32 products and an unrounded p):
@@ -81,8 +75,6 @@ SKT_HM(skt_decode_v3_int8, int8_t, IN_CACHE, false, PAGE_MAJOR)
 SKT_HM(skt_decode_v3_defer, __nv_bfloat16, DEFER, false, PAGE_MAJOR)
 SKT_HM(skt_decode_v3_int8_defer, int8_t, DEFER, false, PAGE_MAJOR)
 SKT_HM(skt_decode_int8kv, int8_t, IN_CACHE, false, HEAD_MAJOR)
-SKT_HM(skt_decode_v6_defer, __nv_bfloat16, DEFER, true, PAGE_MAJOR)         // K14
-SKT_HM(skt_decode_v6_int8_defer, int8_t, DEFER, true, PAGE_MAJOR)
 SKT_HM(skt_decode_v5_defer, __nv_bfloat16, DEFER, false, PAGE_MAJOR)        // K23
 SKT_HM(skt_decode_v5_int8_defer, int8_t, DEFER, false, PAGE_MAJOR)
 

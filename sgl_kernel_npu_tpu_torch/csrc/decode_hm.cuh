@@ -1,5 +1,5 @@
 // Device code shared by the paged GQA decodes over head-major and
-// page-major pages: kernels K10, K14, K16 and K23 (decode_hm.cu) and K24
+// page-major pages: kernels K10, K16 and K23 (decode_hm.cu) and K24
 // (decode_v7.cu). One block per (kv head, sequence) walks the sequence's
 // pages with one online-softmax step per page (`page_step`); the contract
 // (`Mode`) says where the current token is.
@@ -19,9 +19,9 @@
 // ROUND_P picks one of two roundings:
 //   false: an int8 row is dequantised element by element as f32(k * scale)
 //     before the dot; p is not rounded;
-//   true: int8 rows enter the dot as they are (exact in bf16), the K scale
-//     multiplies the score; p (int8: p times the row's V scale) is rounded
-//     to bf16 before the P.V dot, the current token's p too.
+//   true (K24): int8 rows enter the dot as they are (exact in bf16), the K
+//     scale multiplies the score; p (int8: p times the row's V scale) is
+//     rounded to bf16 before the P.V dot, the current token's p too.
 // bf16 times bf16 is exact in f32, so CUDA-core FMAs give the bf16 MXU's
 // products; only the order of the f32 sums differs.
 //

@@ -35,7 +35,9 @@ __global__ void __launch_bounds__(THREADS, 3) decode_tm_kernel(const Args a) {
 // (2 * 8 + 8 * 128) floats (none for S = 1), the arrival counters B * hkv
 // ints, zero before the first call.
 extern "C" int skt_decode_tm_splits(int B, int hkv, int MP, int ps) {
-  return splits_for(decode_tm_kernel, smem_bytes(false, MAXG, 0), B, hkv, MP, ps);
+  if (MP <= 0 || ps <= 0) return -(int)cudaErrorInvalidValue;
+  return splits_for(decode_tm_kernel, smem_bytes(false, MAXG, 0), B, hkv,
+                    ((long long)MP * ps + 15) / 16);
 }
 
 // q [B, hq, D] bf16, k_new / v_new [B, hkv, D] bf16, caches int8 [L, P,

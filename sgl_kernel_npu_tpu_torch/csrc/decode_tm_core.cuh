@@ -1,8 +1,13 @@
-// The int8 paged GQA decode that kernels C (decode_tm.cu, token-major
-// pages) and K3 (decode_tm2.cu, head-major pages) instantiate: the current
-// token folded in (deferred write), online-softmax steps of `step` tokens,
-// rounded where the TPU kernels round. The page layout is a template
-// parameter (`Layout::row`: the cache row, and scale, of a page slot).
+// The paged GQA decode that kernels C (decode_tm.cu, token-major int8
+// pages), K3 (decode_tm2.cu, head-major int8 pages) and K14 (decode_v6.cu,
+// page-major bf16 or int8 pages, which are head-major pages at L = 1)
+// instantiate: the current token folded in (deferred write), online-softmax
+// steps of `step` tokens, rounded where the TPU kernels round. The page
+// layout is a template parameter (`Layout::row`: the cache row, and scale,
+// of a page slot), and so is the element type: int8 rows with per-token f32
+// scales, or bf16 rows without (K14's bf16 contract: p rounded to bf16 with
+// no v scale). More than MAXG query heads a kv head run as `ng` groups of G
+// heads, one block each, over the same rows.
 //
 // Rounding, as the TPU kernels take it: k scales multiply the scores (s =
 // (q . k) * k_scale * sm_scale), v scales the probabilities, and p * v_scale
@@ -12,35 +17,39 @@
 // then the current token is folded in with its p rounded to bf16.
 //
 // Bound on an H100: the bytes of the cached rows it must read,
-// cached*hkv*(2*D + 8) per sequence per layer, over 3.35 TB/s.
+// cached*hkv*(2*D + 8) per sequence per layer (int8; 4*D for bf16), over
+// 3.35 TB/s.
 // Design: C splits each (sequence, kv head)'s cached tokens over S blocks
 // (S from the card's co-resident blocks over B * hkv and the block table's
 // width; the spans themselves from the cached length on the device, so
 // nothing syncs the host and a CUDA graph replays it); K3 runs one block a
-// (sequence, kv head), S = 1. A block of four warps
-// walks its span in rounds through a 3-stage cp.async ring of coalesced
-// 16-byte copies (int8 rows padded to 144 bytes, so the fragment reads below
-// meet no bank conflict; TMA boxes into swizzled rows were no faster:
-// PERF.md). Both products run on the tensor cores as bf16 mma.sync
-// m16n8k16 with f32 sums; int8 values and bf16(p * v_scale) are exact in
-// bf16, so every product is exact: S^T = K . q^T (16 tokens x the G <= 8
-// heads as n = 8; D is permuted alike in K and q so that each lane reads 4
-// bytes a row) and O^T = V^T . P^T (V^T's fragments gathered from 4-byte
-// reads of the int8 rows, P^T through a small transpose in shared memory;
-// int8 widened to bf16 by byte permutes and one f32 subtraction, off the
-// slow conversion pipe). To round p where the TPU kernel does, a block
-// first takes the scores of every token from 0 to the end of its first step
-// (and of each later step it touches) for their maximum, in rounds of 128 K
-// rows. Then, with KEEP off (C: steps of several pages), it recomputes its
-// own tokens' scores for p in rounds of 64 tokens that load K and V (the
-// re-read keys come from L2); with KEEP on (K3: steps of one page), the
-// scores of the step are kept in shared memory (G x (step + 4) f32) as they
-// are taken, and the p . v rounds load 128 V rows alone, so each key leaves
-// the cache once. Where S > 1 (KEEP off only), each split writes (m, l,
-// acc) to a workspace and takes a ticket from its row's integer arrival
-// counter; the last to arrive merges the S partials in split order, folds
-// in the current token, writes the output and resets the counter to 0 (no
-// float atomics: a second call is bit-identical).
+// (sequence, kv head), S = 1; K14 splits where the card has room, on step
+// (page) boundaries. A block of four warps walks its span in rounds through
+// a 3-stage cp.async ring of coalesced 16-byte copies (rows padded by 16
+// bytes, 144 for int8 and 272 for bf16, so the fragment reads below meet no
+// bank conflict; TMA boxes into swizzled rows were no faster: PERF.md); a
+// stage holds 16 KB of rows, 128 int8 or 64 bf16 ones. Both products run on
+// the tensor cores as bf16 mma.sync m16n8k16 with f32 sums; int8 and bf16
+// values and bf16(p * v_scale) are exact in bf16, so every product is
+// exact: S^T = K . q^T (16 tokens x the G <= 8 heads as n = 8; for int8
+// rows D is permuted alike in K and q so that each lane reads 4 bytes a
+// row) and O^T = V^T . P^T (V^T's fragments gathered from 4-byte reads of
+// the rows, paired by byte permutes, P^T through a small transpose in
+// shared memory; int8 widened to bf16 by byte permutes and one f32
+// subtraction, off the slow conversion pipe). To round p where the TPU
+// kernel does, a block first takes the scores of every token from 0 to the
+// end of its first step (and of each later step it touches) for their
+// maximum, in scores rounds. Then, with KEEP off (C: steps of several
+// pages), it recomputes its own tokens' scores for p in rounds of 64 tokens
+// that load K and V (the re-read keys come from L2); with KEEP on (K3, K14:
+// steps of one page), the scores of the step are kept in shared memory (G x
+// (step + 4) f32) as they are taken, and the p . v rounds load V rows
+// alone, so each key of a split's own steps leaves the cache once. Where S
+// > 1, each split writes (m, l, acc) to a workspace and takes a ticket from
+// its row's integer arrival counter; the last to arrive merges the S
+// partials in split order, folds in the current token, writes the output and
+// resets the counter to 0 (no float atomics: a second call is
+// bit-identical).
 
 #pragma once
 
@@ -59,32 +68,44 @@ namespace {
 constexpr int D = 128;           // head dim
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 16 * WARPS; // tokens of a p . v round with K and V (others take 2 TILE)
-constexpr int ROWS = 2 * TILE;   // staged rows of a round
+constexpr int TILE = 16 * WARPS; // tokens of a p . v round with K and V (int8, KEEP off)
 constexpr int STAGES = 3;
-constexpr int ROW = D + 16;      // bytes of a staged int8 row
-constexpr int MAXG = 8;          // query heads per kv head (mma's n)
+constexpr int MAXG = 8;          // query heads of a block (mma's n)
 constexpr int PT = 24;           // bf16 row stride of a warp's p transpose
 constexpr int MAX_SPLITS = 8;
 constexpr int SPAD = 4;          // floats past a kept score row (heads 2t, 2t+2 on other banks)
 constexpr float NEG = -1e30f;
 
-// a scores round: K rows and scales of 2 TILE tokens; a p . v round: K
-// rows of TILE tokens, then their V rows, and the k and v scales alike
-// (KEEP: the V rows and v scales of 2 TILE tokens)
-struct Stage {
-  int8_t r[ROWS][ROW];
-  float sc[ROWS];
+// The rows of element type T (int8, or bf16 with no scales): a stage holds
+// RS of them, 16 KB; a scores round (and, with KEEP, a p . v round) takes RS
+// tokens, HALVES 16-token tiles a warp.
+template <typename T>
+struct Rows {
+  static constexpr bool I8 = sizeof(T) == 1;
+  static constexpr int HALVES = I8 ? 2 : 1;
+  static constexpr int RS = HALVES * TILE;
+  static constexpr int ROWB = D * (int)sizeof(T) + 16;   // bytes of a staged row
+  static constexpr int CPR = D * (int)sizeof(T) / 16;    // 16-byte copies a row
 };
-// the ring and the p transposes; KEEP adds the kept scores after them
-constexpr size_t SMEM = STAGES * sizeof(Stage) + (size_t)WARPS * MAXG * PT * 2;
+
+// a scores round: K rows and scales of RS tokens; a p . v round (int8 with
+// KEEP off): K rows of TILE tokens, then their V rows, and the k and v
+// scales alike; with KEEP: the V rows and v scales of RS tokens
+template <typename T>
+struct Stage {
+  int8_t r[Rows<T>::RS][Rows<T>::ROWB];
+  float sc[Rows<T>::RS];
+};
 constexpr int PART = 2 * MAXG + MAXG * D;   // a split's floats: m, l, acc [G][D]
-static_assert(WARPS * MAXG * D * sizeof(float) <= STAGES * sizeof(Stage),
+static_assert(WARPS * MAXG * D * sizeof(float) <= STAGES * sizeof(Stage<__nv_bfloat16>),
               "a block's sums fit over the ring");
 
-// the dynamic shared memory of a launch with G heads and steps of `step`
+// the dynamic shared memory of a launch with G heads and steps of `step`:
+// the ring and the p transposes; KEEP adds the kept scores after them
+template <typename T = int8_t>
 __host__ __device__ constexpr size_t smem_bytes(bool keep, int G, int step) {
-  return SMEM + (keep ? (size_t)G * (step + SPAD) * sizeof(float) : 0);
+  return STAGES * sizeof(Stage<T>) + (size_t)WARPS * MAXG * PT * 2 +
+         (keep ? (size_t)G * (step + SPAD) * sizeof(float) : 0);
 }
 
 // token-major pages (C): k/v [L, P, ps*hkv, D], row t*hkv + h of a page;
@@ -94,8 +115,9 @@ struct TokenMajor {
     return (lp * ps + slot) * hkv + h;
   }
 };
-// head-major pages (K3): k/v [L, P, hkv, ps, D], head h's tokens of a page
-// one contiguous [ps, D] block; scales [L, P, hkv, ps]
+// head-major pages (K3; K14's page-major [P, hkv, ps, D] at L = 1): k/v
+// [L, P, hkv, ps, D], head h's tokens of a page one contiguous [ps, D]
+// block; scales [L, P, hkv, ps]
 struct HeadMajor {
   static __device__ __forceinline__ size_t row(size_t lp, int slot, int h, int ps, int hkv) {
     return (lp * hkv + h) * ps + slot;
@@ -106,16 +128,18 @@ struct Args {
   const __nv_bfloat16* q;     // [B, hq, D]
   const __nv_bfloat16* kn;    // [B, hkv, D]
   const __nv_bfloat16* vn;    // [B, hkv, D]
-  const int8_t* kc;           // the layout's pages
-  const int8_t* vc;
-  const float* ksc;           // the layout's scales
+  const void* kc;             // the layout's pages (int8 or bf16 rows)
+  const void* vc;
+  const float* ksc;           // the layout's scales (int8 rows only)
   const float* vsc;
   const int* cached;          // [B]
   const int* bt;              // [B, MP]
   __nv_bfloat16* out;         // [B, hq, D]
-  float* ws;                  // [B * hkv, S, PART]
-  int* arrivals;              // [B * hkv]
-  int hkv, G, P, ps, MP, li, step;
+  float* ws;                  // [B * hkv * ng, S, PART]
+  int* arrivals;              // [B * hkv * ng]
+  float* kept_g;              // KEEP: a step's kept scores in device memory, [B * hkv *
+                              // ng * S][G][step + SPAD], where shared memory has no room
+  int hkv, G, ng, P, ps, MP, li, step;   // G heads a block, ng blocks a kv head
   float sm_scale;
 };
 
@@ -128,7 +152,8 @@ struct Walk {
 };
 
 __device__ __forceinline__ bool walk_next(Walk& w, int& kind, int& t0, int& t1, bool& first,
-                                          int k1, int ts, int te, int step, int clen, int pv) {
+                                          int k1, int ts, int te, int step, int clen, int sr,
+                                          int pv) {
   while (w.t >= w.t1) {
     if (w.kind == 0) {
       w.kind = 1;
@@ -148,64 +173,53 @@ __device__ __forceinline__ bool walk_next(Walk& w, int& kind, int& t0, int& t1, 
   t1 = w.t1;
   first = w.first;
   w.first = false;
-  w.t += w.kind == 0 ? 2 * TILE : pv;
+  w.t += w.kind == 0 ? sr : pv;
   return true;
 }
 
-// int8 -> bf16 without the conversion pipe (I2F and F2F run at a quarter of
-// the ALU rate, and a cast takes two of them a value): a word is read
-// biased, w ^ 0x80808080, so that byte k holds x + 128; 2^23 + (x + 128) is
-// built by a byte permute into the f32 0x4B0000xx and 2^23 + 128
-// subtracted, exactly; |x| <= 128 has at most 8 significant bits, so the
-// f32's high half is bf16(x) exactly.
-__device__ __forceinline__ uint32_t i8f(uint32_t biased, int shift) {
-  return __float_as_uint(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | (shift >> 3)))
-                         - 8388736.f);
-}
-
-// bf16x2 of two int8 values (exact) at bit offsets sa, sb of biased words,
-// the first in the low half
-__device__ __forceinline__ uint32_t i8x2(uint32_t a, int sa, uint32_t b, int sb) {
-  return __byte_perm(i8f(a, sa), i8f(b, sb), 0x7632);
-}
-
-constexpr uint32_t BIAS = 0x80808080u;    // x + 128 in every byte
-
 // one round's loads for kv head h: scores (kind 0), K rows and k scales of
-// tokens t0 .. t0 + 2 TILE - 1; p . v (kind 1), K rows and k scales of t0 ..
+// tokens t0 .. t0 + RS - 1; p . v (kind 1), K rows and k scales of t0 ..
 // t0 + TILE - 1, then their V rows and v scales (KEEP: the V rows and v
-// scales of t0 .. t0 + 2 TILE - 1). Tokens at or past t1 are zero-filled.
-template <class Layout, bool KEEP>
-__device__ __forceinline__ void load_round(const Args& a, Stage& s, int b, int h, int t0,
+// scales of t0 .. t0 + RS - 1). Tokens at or past t1 are zero-filled.
+template <class Layout, bool KEEP, typename T>
+__device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, int b, int h, int t0,
                                            int t1, int kind) {
+  using R = Rows<T>;
+  static_assert(KEEP || R::I8, "a p . v round of K and V rows is int8 only");
   const int tid = threadIdx.x;
   const size_t layer = (size_t)a.li * a.P;
   const int* btb = a.bt + (size_t)b * a.MP;
-  const int krows = kind == 0 ? 2 * TILE : KEEP ? 0 : TILE;   // staged rows from K
-  const int span = kind == 0 || KEEP ? 2 * TILE : TILE;       // tokens of the round
+  const int krows = kind == 0 ? R::RS : KEEP ? 0 : TILE;   // staged rows from K
+  const int span = kind == 0 || KEEP ? R::RS : TILE;       // tokens of the round
+  const char* kc = static_cast<const char*>(a.kc);
+  const char* vc = static_cast<const char*>(a.vc);
   // token t's row: page bt[t / ps], slot t % ps (shifts for a power-of-2 ps)
   const bool pow2 = (a.ps & (a.ps - 1)) == 0;
   const int shift = __ffs(a.ps) - 1;
   auto row_of = [&](int t) -> size_t {
-    const int pg = pow2 ? t >> shift : t / a.ps, slot = pow2 ? t & (a.ps - 1) : t % a.ps;
+    const int pg = pow2 ? t >> shift : t / a.ps, slot = t - pg * a.ps;
     return Layout::row(layer + __ldg(btb + pg), slot, h, a.ps, a.hkv);
   };
 #pragma unroll
-  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
-    const int e = tid + i * THREADS, r = e / 8, c = (e % 8) * 16;
+  for (int i = 0; i < R::RS * R::CPR / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / R::CPR, c = (e % R::CPR) * 16;
     const int t = t0 + r % span;
     const bool ok = t < t1;
     const size_t row = ok ? row_of(t) : 0;
-    cp_async16(&s.r[r][c], (r < krows ? a.kc : a.vc) + row * D + c, ok);
+    cp_async16(&s.r[r][c], (r < krows ? kc : vc) + row * (D * sizeof(T)) + c, ok);
   }
-  const int t = t0 + tid % span;
-  const bool ok = t < t1;
-  cp_async4(&s.sc[tid], (tid < krows ? a.ksc : a.vsc) + (ok ? row_of(t) : 0), ok);
+  if (R::I8) {
+    static_assert(!R::I8 || R::RS == THREADS, "a thread a scale");
+    const int t = t0 + tid % span;
+    const bool ok = t < t1;
+    cp_async4(&s.sc[tid], (tid < krows ? a.ksc : a.vsc) + (ok ? row_of(t) : 0), ok);
+  }
 }
 
 // S^T of the 16 tokens at stage row r0: c = (token g, heads 2t, 2t+1),
 // (token g + 8, the same heads), unscaled
-__device__ __forceinline__ void scores(const Stage& s, int r0, int lane,
+template <typename T>
+__device__ __forceinline__ void scores(const Stage<T>& s, int r0, int lane,
                                        const uint32_t (&qb)[D / 16][2], float (&c)[4]) {
   const int g = lane >> 2, tig = lane & 3;
   const int8_t* ra = s.r[r0 + g];
@@ -213,40 +227,60 @@ __device__ __forceinline__ void scores(const Stage& s, int r0, int lane,
   c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    // D permuted: logical k (2t, 2t+1, 2t+8, 2t+9) of step kk is byte 16 kk + 4t + (0..3)
-    const uint32_t wa = *reinterpret_cast<const uint32_t*>(ra + 16 * kk + 4 * tig) ^ BIAS;
-    const uint32_t wb = *reinterpret_cast<const uint32_t*>(rb + 16 * kk + 4 * tig) ^ BIAS;
-    const uint32_t a[4] = {i8x2(wa, 0, wa, 8), i8x2(wb, 0, wb, 8), i8x2(wa, 16, wa, 24),
-                           i8x2(wb, 16, wb, 24)};
-    mma(c, a, qb[kk][0], qb[kk][1]);
+    if (Rows<T>::I8) {
+      // D permuted: logical k (2t, 2t+1, 2t+8, 2t+9) of step kk is byte 16 kk + 4t + (0..3)
+      const uint32_t wa = *reinterpret_cast<const uint32_t*>(ra + 16 * kk + 4 * tig) ^ BIAS;
+      const uint32_t wb = *reinterpret_cast<const uint32_t*>(rb + 16 * kk + 4 * tig) ^ BIAS;
+      const uint32_t a[4] = {i8x2(wa, 0, wa, 8), i8x2(wb, 0, wb, 8), i8x2(wa, 16, wa, 24),
+                             i8x2(wb, 16, wb, 24)};
+      mma(c, a, qb[kk][0], qb[kk][1]);
+    } else {
+      // bf16 rows in D's own order: k (2t, 2t+1) at byte 32 kk + 4t, (2t+8, 2t+9) 16 on
+      const int o = 32 * kk + 4 * tig;
+      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(ra + o),
+                             *reinterpret_cast<const uint32_t*>(rb + o),
+                             *reinterpret_cast<const uint32_t*>(ra + o + 16),
+                             *reinterpret_cast<const uint32_t*>(rb + o + 16)};
+      mma(c, a, qb[kk][0], qb[kk][1]);
+    }
   }
 }
 
 // The body of a decode kernel (each source wraps it in its own __global__,
-// so that a profile names the kernel); launched as (S, hkv, B) blocks of
-// THREADS with smem_bytes(KEEP, G, step) of dynamic shared memory.
-template <class Layout, bool KEEP>
+// so that a profile names the kernel); launched as (S, hkv * ng, B) blocks
+// of THREADS with smem_bytes<T>(KEEP && !KG, G, step) of dynamic shared
+// memory. KG: the kept scores are in device memory (a.kept_g), a variant of
+// its own so that the kept scores of the others stay known to be shared.
+template <class Layout, bool KEEP, typename T = int8_t, bool KG = false>
 __device__ __forceinline__ void decode_body(const Args& a) {
+  using R = Rows<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage* stages = reinterpret_cast<Stage*>(smem);
-  __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * sizeof(Stage));
-  float* kept = reinterpret_cast<float*>(ptb + WARPS * MAXG * PT);   // KEEP: [G][step + SPAD]
+  Stage<T>* stages = reinterpret_cast<Stage<T>*>(smem);
+  __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * sizeof(Stage<T>));
+  // KEEP: this block's [G][step + SPAD] kept scores, after the transposes
+  // or in device memory (read back only by this block, after a barrier)
+  float* kept = KG ? a.kept_g + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                                 blockIdx.x) * a.G * (a.step + SPAD)
+                   : reinterpret_cast<float*>(ptb + WARPS * MAXG * PT);
   __shared__ float wmax[WARPS][MAXG], mfin[MAXG], lred[WARPS][MAXG], scur[MAXG];
   __shared__ float wgt[MAXG][MAX_SPLITS];
   __shared__ __align__(16) __nv_bfloat16 qrow[MAXG][D], newkv[2][D];
   __shared__ int last;
-  const int split = blockIdx.x, S = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y = h * ng + (this block's group of G heads of kv head h)
+  const int split = blockIdx.x, S = gridDim.x, hy = blockIdx.y, h = hy / a.ng, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
-  const int hq = a.hkv * a.G, row = b * a.hkv + h;
+  const int hq = a.hkv * a.ng * a.G, row = b * a.hkv * a.ng + hy;
   const int kst = a.step + SPAD;                           // a kept score row
-  const int pv = KEEP ? 2 * TILE : TILE;                    // tokens of a p . v round
+  const int pv = KEEP ? R::RS : TILE;                       // tokens of a p . v round
   // a block table maps at most MP*ps tokens: never read past it
   const int clen = min(max(__ldg(a.cached + b), 0), a.MP * a.ps);
   // this split's tokens: a share of the 16-token tiles of the cached ones
-  const int nt = (clen + 15) / 16;
-  const int ts = 16 * (int)((long long)nt * split / S);
-  const int te = min(clen, 16 * (int)((long long)nt * (split + 1) / S));
-  const __nv_bfloat16* qh = a.q + ((size_t)b * hq + h * a.G) * D;
+  // (KEEP: of its steps, so that a split keeps the scores of whole steps)
+  const int unit = KEEP ? a.step : 16;
+  const int nt = (clen + unit - 1) / unit;
+  const int ts = unit * (int)((long long)nt * split / S);
+  const int te = min(clen, unit * (int)((long long)nt * (split + 1) / S));
+  const __nv_bfloat16* qh = a.q + ((size_t)b * hq + hy * a.G) * D;
   const size_t cur = ((size_t)b * a.hkv + h) * D;
 
   // the q rows and the current token's k and v rows that the end of the
@@ -263,20 +297,28 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     bool first;
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
-      if (walk_next(lw, kind, t0, t1, first, k1, ts, te, a.step, clen, pv))
-        load_round<Layout, KEEP>(a, stages[st], b, h, t0, t1, kind);
+      if (walk_next(lw, kind, t0, t1, first, k1, ts, te, a.step, clen, R::RS, pv))
+        load_round<Layout, KEEP, T>(a, stages[st], b, h, t0, t1, kind);
       cp_commit();
     }
   }
 
-  // q^T as mma's B fragments (n = head g; D permuted as in `scores`)
+  // q^T as mma's B fragments (n = head g; D ordered as in `scores`)
   uint32_t qb[D / 16][2];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const bool ok = g < a.G;
-    qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 4 * tig)) : 0u;
-    qb[kk][1] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 4 * tig + 2))
-                   : 0u;
+    if (R::I8) {
+      qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 4 * tig))
+                     : 0u;
+      qb[kk][1] =
+          ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 4 * tig + 2)) : 0u;
+    } else {
+      qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 2 * tig))
+                     : 0u;
+      qb[kk][1] =
+          ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 2 * tig + 8)) : 0u;
+    }
   }
   float acc[D / 16][4];
 #pragma unroll
@@ -287,7 +329,8 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   if (ts < te) {
     int kind, t0, t1;
     bool first;
-    for (int i = 0; walk_next(cw, kind, t0, t1, first, k1, ts, te, a.step, clen, pv); ++i) {
+    for (int i = 0; walk_next(cw, kind, t0, t1, first, k1, ts, te, a.step, clen, R::RS, pv);
+         ++i) {
       cp_wait<STAGES - 2>();
       // every thread's copies of this round have landed, and the stage read
       // last time round is free
@@ -295,18 +338,19 @@ __device__ __forceinline__ void decode_body(const Args& a) {
       {
         int lk, l0, l1;
         bool lf;
-        if (walk_next(lw, lk, l0, l1, lf, k1, ts, te, a.step, clen, pv))
-          load_round<Layout, KEEP>(a, stages[(i + STAGES - 1) % STAGES], b, h, l0, l1, lk);
+        if (walk_next(lw, lk, l0, l1, lf, k1, ts, te, a.step, clen, R::RS, pv))
+          load_round<Layout, KEEP, T>(a, stages[(i + STAGES - 1) % STAGES], b, h, l0, l1, lk);
         cp_commit();
       }
-      const Stage& s = stages[i % STAGES];
+      const Stage<T>& s = stages[i % STAGES];
       const int kbase = cw.k * a.step;                   // the step's first token
-      // the scores of this warp's 16 tokens (and, in a scores round, of 16
-      // more TILE rows on), scaled; -inf past the range
+      // the scores of this warp's 16 tokens (and, in an int8 scores round,
+      // of 16 more TILE rows on), scaled; -inf past the range
       float sc[2][4];
+      if (R::HALVES == 1) sc[1][0] = sc[1][1] = sc[1][2] = sc[1][3] = -CUDART_INF_F;
       if (kind == 0 || !KEEP) {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < R::HALVES; ++half) {
           if (half == 1 && kind == 1) break;
           const int r0 = 16 * warp + half * TILE;
           float c[4];
@@ -314,7 +358,8 @@ __device__ __forceinline__ void decode_body(const Args& a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = r0 + g + 8 * (e >> 1);
-            sc[half][e] = t0 + r < t1 ? c[e] * s.sc[r] * a.sm_scale : -CUDART_INF_F;
+            const float ks = R::I8 ? c[e] * s.sc[r] : c[e];
+            sc[half][e] = t0 + r < t1 ? ks * a.sm_scale : -CUDART_INF_F;
             // KEEP: the step's own tokens keep their score for the p . v rounds
             if (KEEP && t0 + r >= kbase && t0 + r < t1 && 2 * tig + (e & 1) < a.G)
               kept[(2 * tig + (e & 1)) * kst + t0 + r - kbase] = sc[half][e];
@@ -356,7 +401,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
           }
         }
 #pragma unroll
-        for (int half = 0; half < (KEEP ? 2 : 1); ++half) {
+        for (int half = 0; half < (KEEP ? R::HALVES : 1); ++half) {
           // this warp's 16 tokens: stage rows vr .. vr + 15 hold their V
           const int tr = 16 * warp + half * TILE;         // token offset in the round
           const int vr = KEEP ? tr : TILE + 16 * warp;
@@ -370,28 +415,46 @@ __device__ __forceinline__ void decode_body(const Args& a) {
                                                        : -CUDART_INF_F;
             const float p = ok ? expf(sv - mk[j]) : 0.f;
             lsum[j] += p;
-            pt[(2 * tig + j) * PT + r] = __float2bfloat16_rn(p * s.sc[vr + r]);
+            pt[(2 * tig + j) * PT + r] = __float2bfloat16_rn(R::I8 ? p * s.sc[vr + r] : p);
           }
           __syncwarp();
           const uint32_t pb0 = *reinterpret_cast<const uint32_t*>(pt + g * PT + 2 * tig);
           const uint32_t pb1 = *reinterpret_cast<const uint32_t*>(pt + g * PT + 2 * tig + 8);
           __syncwarp();
-          // O^T += V^T . P^T: for u, the 4 bytes at 32 u + 4 g of a V row are
-          // d rows (mt 2u: g, g + 8; mt 2u + 1: g, g + 8)
+          // O^T += V^T . P^T over the rows of tokens 2t, 2t+1, 2t+8, 2t+9
           const int8_t* v0 = s.r[vr + 2 * tig];
+          constexpr int RB = R::ROWB;
+          if (R::I8) {
+            // for u, the 4 bytes at 32 u + 4 g of a V row are d rows (mt 2u:
+            // g, g + 8; mt 2u + 1: g, g + 8)
 #pragma unroll
-          for (int u = 0; u < D / 32; ++u) {
-            const int off = 32 * u + 4 * g;
-            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(v0 + off) ^ BIAS;
-            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(v0 + ROW + off) ^ BIAS;
-            const uint32_t w8 = *reinterpret_cast<const uint32_t*>(v0 + 8 * ROW + off) ^ BIAS;
-            const uint32_t w9 = *reinterpret_cast<const uint32_t*>(v0 + 9 * ROW + off) ^ BIAS;
+            for (int u = 0; u < D / 32; ++u) {
+              const int off = 32 * u + 4 * g;
+              const uint32_t w0 = *reinterpret_cast<const uint32_t*>(v0 + off) ^ BIAS;
+              const uint32_t w1 = *reinterpret_cast<const uint32_t*>(v0 + RB + off) ^ BIAS;
+              const uint32_t w8 = *reinterpret_cast<const uint32_t*>(v0 + 8 * RB + off) ^ BIAS;
+              const uint32_t w9 = *reinterpret_cast<const uint32_t*>(v0 + 9 * RB + off) ^ BIAS;
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int lo = 16 * j, hi = 16 * j + 8;
-              const uint32_t va[4] = {i8x2(w0, lo, w1, lo), i8x2(w0, hi, w1, hi),
-                                      i8x2(w8, lo, w9, lo), i8x2(w8, hi, w9, hi)};
-              mma(acc[2 * u + j], va, pb0, pb1);
+              for (int j = 0; j < 2; ++j) {
+                const int lo = 16 * j, hi = 16 * j + 8;
+                const uint32_t va[4] = {i8x2(w0, lo, w1, lo), i8x2(w0, hi, w1, hi),
+                                        i8x2(w8, lo, w9, lo), i8x2(w8, hi, w9, hi)};
+                mma(acc[2 * u + j], va, pb0, pb1);
+              }
+            }
+          } else {
+            // for mt, the bf16 pair at 32 mt + 4 g of a V row is d rows g
+            // (its low half, d 16 mt + 2g) and g + 8 (its high half)
+#pragma unroll
+            for (int mt = 0; mt < D / 16; ++mt) {
+              const int off = 32 * mt + 4 * g;
+              const uint32_t w0 = *reinterpret_cast<const uint32_t*>(v0 + off);
+              const uint32_t w1 = *reinterpret_cast<const uint32_t*>(v0 + RB + off);
+              const uint32_t w8 = *reinterpret_cast<const uint32_t*>(v0 + 8 * RB + off);
+              const uint32_t w9 = *reinterpret_cast<const uint32_t*>(v0 + 9 * RB + off);
+              const uint32_t va[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
+                                      __byte_perm(w8, w9, 0x5410), __byte_perm(w8, w9, 0x7632)};
+              mma(acc[mt], va, pb0, pb1);
             }
           }
         }
@@ -418,7 +481,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   }
 #pragma unroll
   for (int mt = 0; mt < D / 16; ++mt) {
-    const int d = 32 * (mt / 2) + 4 * g + 2 * (mt % 2);
+    const int d = R::I8 ? 32 * (mt / 2) + 4 * g + 2 * (mt % 2) : 16 * mt + 2 * g;
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       red[(warp * MAXG + 2 * tig + (e & 1)) * D + d + (e >> 1)] = acc[mt][e];
@@ -514,46 +577,49 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     const float p = expf(s - mn);
     const float l = lt[hh] * alpha + p;
     const float ov = o[hh] * alpha + __bfloat162float(__float2bfloat16_rn(p)) * vcur;
-    a.out[((size_t)b * hq + h * a.G + hh) * D + tid] = __float2bfloat16_rn(ov / fmaxf(l, 1e-37f));
+    a.out[((size_t)b * hq + hy * a.G + hh) * D + tid] = __float2bfloat16_rn(ov / fmaxf(l, 1e-37f));
   }
   if (S > 1 && tid == 0) a.arrivals[row] = 0;     // ready for the next call
 }
 
-// The number of splits S of each (sequence, kv head) on the current device:
-// the card's co-resident blocks of `kern` (with `smem` bytes of dynamic
-// shared memory) over B * hkv, at most the 16-token tiles of a block table's
-// span and MAX_SPLITS, at least 1; or minus a CUDA error.
+// The number of splits S of each of the B * rows rows on the current
+// device: the card's co-resident blocks of `kern` (with `smem` bytes of
+// dynamic shared memory) over B * rows, at most `units` (the 16-token tiles
+// of a block table's span; KEEP: its steps) and MAX_SPLITS, at least 1; or
+// minus a CUDA error.
 template <typename Kernel>
-int splits_for(Kernel* kern, size_t smem, int B, int hkv, int MP, int ps) {
-  if (B <= 0 || hkv <= 0 || MP <= 0 || ps <= 0) return -(int)cudaErrorInvalidValue;
+int splits_for(Kernel* kern, size_t smem, int B, int rows, long long units) {
+  if (B <= 0 || rows <= 0 || units <= 0) return -(int)cudaErrorInvalidValue;
   cudaError_t e = skt::ensure_smem(kern, smem);
   if (e != cudaSuccess) return -(int)e;
   int resident = 0;
   if ((e = skt::resident_blocks(kern, THREADS, smem, resident)) != cudaSuccess) return -(int)e;
-  const long long tiles = ((long long)MP * ps + 15) / 16;
-  return (int)std::max(1LL, std::min({(long long)resident / ((long long)B * hkv), tiles,
+  return (int)std::max(1LL, std::min({(long long)resident / ((long long)B * rows), units,
                                       (long long)MAX_SPLITS}));
 }
 
-// Fill the arguments and launch `kern` on (S, hkv, B) blocks: step_pages
-// pages per online-softmax step, S from splits_for (1 with KEEP), ws and
-// arrivals as it says (B * hkv * S * PART floats, none for S = 1; B * hkv
-// counters, zero before the first call).
-template <bool KEEP, typename Kernel>
+// Fill the arguments and launch `kern` on (S, hkv * ng, B) blocks of G
+// heads each (element type T): step_pages pages per online-softmax step, S
+// from splits_for, ws and arrivals as it says (B * hkv * ng * S * PART
+// floats, none for S = 1; B * hkv * ng counters, zero before the first
+// call).
+template <bool KEEP, typename T = int8_t, typename Kernel>
 int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const void* kc,
            const void* vc, const void* ksc, const void* vsc, const void* cached, const void* bt,
            void* out, void* ws, void* arrivals, int B, int hkv, int G, int P, int ps, int MP,
-           int li, int step_pages, int S, float sm_scale, void* stream) {
-  if (B <= 0 || hkv <= 0 || G <= 0 || G > MAXG || ps <= 0 || MP <= 0 || step_pages <= 0 ||
-      S < 1 || S > MAX_SPLITS || (KEEP && S > 1) ||
-      (S > 1 && (ws == nullptr || arrivals == nullptr)))
+           int li, int step_pages, int S, float sm_scale, void* stream, int ng = 1,
+           void* kept_g = nullptr) {
+  if (B <= 0 || hkv <= 0 || G <= 0 || G > MAXG || ng < 1 || ps <= 0 || MP <= 0 ||
+      step_pages <= 0 || S < 1 || S > MAX_SPLITS ||
+      (S > 1 && (ws == nullptr || arrivals == nullptr)) ||
+      (sizeof(T) == 1 && (ksc == nullptr || vsc == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.kn = static_cast<const __nv_bfloat16*>(kn);
   a.vn = static_cast<const __nv_bfloat16*>(vn);
-  a.kc = static_cast<const int8_t*>(kc);
-  a.vc = static_cast<const int8_t*>(vc);
+  a.kc = kc;
+  a.vc = vc;
   a.ksc = static_cast<const float*>(ksc);
   a.vsc = static_cast<const float*>(vsc);
   a.cached = static_cast<const int*>(cached);
@@ -563,16 +629,18 @@ int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const vo
   a.arrivals = static_cast<int*>(arrivals);
   a.hkv = hkv;
   a.G = G;
+  a.ng = ng;
+  a.kept_g = static_cast<float*>(kept_g);
   a.P = P;
   a.ps = ps;
   a.MP = MP;
   a.li = li;
   a.step = min(step_pages, MP) * ps;
   a.sm_scale = sm_scale;
-  const size_t smem = smem_bytes(KEEP, G, a.step);
+  const size_t smem = smem_bytes<T>(KEEP && kept_g == nullptr, G, a.step);
   const cudaError_t e = skt::ensure_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(S, hkv, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kern<<<dim3(S, hkv * ng, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

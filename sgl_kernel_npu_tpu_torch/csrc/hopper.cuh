@@ -1,5 +1,6 @@
 // Device helpers that the Hopper-shaped kernels share: cp.async, ldmatrix
-// and mma.sync (B, K15's int8 path), mbarriers, TMA and wgmma (K15's bf16
+// and mma.sync (B, K15's int8 path), int8 widened to bf16 by byte permutes
+// (C, K3, K5, K14), mbarriers, TMA and wgmma (K15's bf16
 // path, K17, K21), cuTensorMapEncodeTiled reached through the runtime (no
 // -lcuda), and the flash-attention step K15 and K17 share on wgmma (S = Q .
 // K^T from shared memory, the base-2 online softmax with p split into bf16
@@ -64,6 +65,27 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+// ------------------------------------------------ int8 -> bf16
+
+// int8 -> bf16 without the conversion pipe (I2F and F2F run at a quarter of
+// the ALU rate, and a cast takes two of them a value): a word is read
+// biased, w ^ 0x80808080, so that byte k holds x + 128; 2^23 + (x + 128) is
+// built by a byte permute into the f32 0x4B0000xx and 2^23 + 128
+// subtracted, exactly; |x| <= 128 has at most 8 significant bits, so the
+// f32's high half is bf16(x) exactly.
+__device__ __forceinline__ uint32_t i8f(uint32_t biased, int shift) {
+  return __float_as_uint(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | (shift >> 3)))
+                         - 8388736.f);
+}
+
+// bf16x2 of two int8 values (exact) at bit offsets sa, sb of biased words,
+// the first in the low half
+__device__ __forceinline__ uint32_t i8x2(uint32_t a, int sa, uint32_t b, int sb) {
+  return __byte_perm(i8f(a, sa), i8f(b, sb), 0x7632);
+}
+
+constexpr uint32_t BIAS = 0x80808080u;    // x + 128 in every byte
 
 // ------------------------------------------------------------- softmax
 

@@ -50,7 +50,7 @@ MLA_HEADS = 16
 MLA_ROUND = 32
 MLA_MIN_ROUNDS = 2
 MLA_MAX_SPLITS = 16
-# every contract of csrc/decode_hm.cu (K10, K14, K16): q, k_cache, v_cache,
+# every contract of csrc/decode_hm.cu (K10, K16, K23): q, k_cache, v_cache,
 # k_scales, v_scales, k_new, v_new, seq_lens, block_table, out, B, Hq, Hkv, D,
 # P, ps, MP, sm_scale, stream
 _HM_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
@@ -155,7 +155,7 @@ def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
 
 def _launch_hm(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scale,
                page_size, head_major=False):
-    """One launch of a contract of csrc/decode_hm.cu (K10, K14 or K16):
+    """One launch of a contract of csrc/decode_hm.cu (K10 or K16):
     `name` is its C entry point and launch counter; caches page-major [P, Hkv, ps, D], or
     head-major [Hkv, P, ps, D]; scales (k, v) for int8 pages, new (k, v)
     [B, Hkv, D] for a deferred token, else None. Returns [B, Hq, D] bf16."""

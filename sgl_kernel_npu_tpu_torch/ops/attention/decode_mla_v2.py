@@ -128,8 +128,8 @@ def decode_mla_v3_defer(q, new_latent, kv_cache, cached_lens, block_table,
     row, not yet in the cache; kv_cache [L, P, ps, C] bf16, or int8 with
     kv_scales [L, P, 1, ps] f32; cached_lens [B] EXCLUDING the current token;
     block_table [B, max_pages]. Returns [B, H, lkv] bf16. The JAX kernel's
-    `group` (sequences per TPU loop body) has no counterpart: K5 runs one
-    block per sequence."""
+    `group` (sequences per TPU loop body) has no counterpart: K5 runs a
+    cluster of CTAs per sequence."""
     cp = _chunk_pages(block_table.shape[1], chunk_pages)
     if not use_kernel(q):
         return _decode_chunks_ref(q, new_latent, kv_cache, kv_scales, cached_lens,

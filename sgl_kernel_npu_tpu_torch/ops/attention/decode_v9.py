@@ -40,17 +40,18 @@ def tm_splits(resident: int, b: int, hkv: int, mp: int, ps: int) -> int:
     return max(1, min(resident // (b * hkv), -(-mp * ps // TM_TILE), TM_MAX_SPLITS))
 
 
-def tm_split_walk(clen: int, s: int, split: int, step: int):
+def tm_split_walk(clen: int, s: int, split: int, step: int, unit: int = TM_TILE):
     """What split `split` of S = s walks for a row of clen cached tokens, as
     decode_tm_core.cuh's Walk takes it: its tokens [ts, te) (a share of the
-    16-token tiles) and, for each online-softmax step k it touches, (k,
-    scores range, p . v range). The scores of its first step start at token
-    0 (the running maximum at the end of that step covers every earlier
-    step), those of a later step at the step's first token; p . v covers the
-    split's own tokens of the step."""
-    nt = -(-clen // TM_TILE)
-    ts = TM_TILE * (nt * split // s)
-    te = min(clen, TM_TILE * (nt * (split + 1) // s))
+    `unit`-token pieces: 16-token tiles, or whole steps where the kernel
+    keeps a step's scores, as K14 does) and, for each online-softmax step k
+    it touches, (k, scores range, p . v range). The scores of its first step
+    start at token 0 (the running maximum at the end of that step covers
+    every earlier step), those of a later step at the step's first token;
+    p . v covers the split's own tokens of the step."""
+    nt = -(-clen // unit)
+    ts = unit * (nt * split // s)
+    te = min(clen, unit * (nt * (split + 1) // s))
     steps = []
     if ts < te:
         for k in range(ts // step, (te - 1) // step + 1):

@@ -155,17 +155,21 @@ def test_kernels_build_for_sm_90a():
 
 
 # --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C, K7's context, K2's, K1's
-# and A's K; K3 runs C's loop unsplit, its source scanned all the same) merge the splits' partials through a workspace, deterministically:
+# The kernels that split a row over blocks (K19, C, K14's pages, K7's
+# context, K2's, K1's and A's K; K3 runs C's loop unsplit, its source
+# scanned all the same) merge the splits' partials through a workspace,
+# deterministically:
 # no float atomics (their order changes from run to run, and a second call
 # must be bit-identical), only integer arrival counters, each reset to 0 by
 # the kernel that used it (the last block to arrive), never zeroed by the
 # host before a call. A source is scanned with the csrc/ headers it includes
-# (A, K1 and K2 merge in csrc/w8a8_wgmma.cuh, C and K3 in
-# csrc/decode_tm_core.cuh).
+# (A, K1 and K2 merge in csrc/w8a8_wgmma.cuh, C, K3 and K14 in
+# csrc/decode_tm_core.cuh). K5 splits a sequence over the CTAs of a thread
+# block cluster and merges through distributed shared memory: no atomics at
+# all.
 
-SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_mla.cu",
-                 "rmsq_gemm.cu", "w8a8_gemm_tiled.cu")
+SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_v6.cu",
+                 "decode_mla.cu", "rmsq_gemm.cu", "w8a8_gemm_tiled.cu")
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
@@ -262,6 +266,24 @@ __global__ void k(const Args a, int S) {
 }
 
 
+def test_cluster_merge_has_no_atomics():
+    """K5's CTAs meet through cluster barriers and distributed shared
+    memory: its source (with its headers) holds no atomic, no PTX
+    reduction, no host memset, and reads its peers only after a barrier."""
+    text = with_headers("decode_mla_c.cu")
+    bare = COMMENT_OR_STRING.sub(" ", text)
+    assert not ATOMIC.search(bare)
+    assert merge_faults(text) == []
+    with open(os.path.join(_build.CSRC, "decode_mla_c.cu")) as f:
+        own = COMMENT_OR_STRING.sub(" ", f.read())
+    merge = own[own.index("void merge_out("):own.index("void __launch_bounds__")]
+    kernel = own[own.index("decode_mla_c_kernel(const Args a)"):own.index("cudaError_t launch(")]
+    assert "map_shared_rank" in merge
+    first_sync = kernel.index("cl.sync()")
+    for peer_read in ("map_shared_rank", "merge_out<"):
+        assert first_sync < kernel.index(peer_read)
+
+
 @pytest.mark.parametrize("name", sorted(MERGE_FLAGGED))
 def test_merge_scan_flags_a_nondeterministic_merge(name):
     assert merge_faults(MERGE_FLAGGED[name]) != []
@@ -300,9 +322,11 @@ def test_arrival_counters_are_zeroed_once():
     ("w8a8_gemm_tiled", "w8a8_gemm_tiled", "w8a8_wgmma.cuh"),   # K1
     ("decode_tm", "decode_tm", "decode_tm_core.cuh"),           # C
     ("decode_tm2", "decode_tm2", "decode_tm_core.cuh"),         # K3
+    ("decode_v6_defer", "decode_v6", "decode_tm_core.cuh"),     # K14, bf16 pages
+    ("decode_v6_int8_defer", "decode_v6", "decode_tm_core.cuh"),   # K14, int8 pages
 ])
 def test_kernels_share_their_stage(kernel, source, header):
-    """A runs K1's int8 stage and K3 runs C's loop: each kernel's source
+    """A runs K1's int8 stage, K3 and K14 run C's loop: each kernel's source
     exports its launcher, includes the shared header, and holds no merge of
     its own (the scan above reaches the header's)."""
     assert _build.KERNELS[kernel] == source

@@ -36,6 +36,7 @@ from sgl_kernel_npu_tpu_torch import _build
 from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v3 as tv3
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v6 as tv6
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_v11 as tv11
 from sgl_kernel_npu_tpu_torch.ops.attention import paged_prefill as tpp
 from sgl_kernel_npu_tpu_torch.utils import env
 
@@ -161,6 +162,44 @@ def test_decode_v6_matches_jax_kernel(rng, int8):
                                       _t(lens), _t(bt), SM, PS)
     assert got.dtype == torch.bfloat16 and got.shape == (B, HQ, D)
     assert_bf16_close(got.float(), _np(want), SHARE, f"v6 int8={int8}")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_decode_v6_int8_is_k3s_contract(seed):
+    """K14's int8 route on the card is K3's loop: its plain version equals
+    K3's (decode_v11's, one page per step) on the same page-major cache seen
+    as one layer of head-major pages [1, P, Hkv, ps, D], scales [1, P, Hkv,
+    ps], bit for bit, with a padded row (cached -1) and lengths on page
+    edges."""
+    rng = np.random.default_rng(300 + seed)
+    cache = _pages(rng, True)
+    q, bt, lens, (kn, vn) = _decode_inputs(rng, True)
+    k, v, ks, vs = (_t(cache[n]) for n in ("k", "v", "ks", "vs"))
+    pages = k.shape[0]
+    got = tv6.decode_gqa_v6_defer_ref(_t(q), _t(kn), _t(vn), k, v, _t(lens), _t(bt), SM,
+                                      k_scales=ks, v_scales=vs)
+    want = tv11.decode_gqa_v11_int8_defer_ref(
+        _t(q), _t(kn), _t(vn), k[None], v[None], ks.reshape(1, pages, HKV, PS),
+        vs.reshape(1, pages, HKV, PS), _t(lens), _t(bt), SM, PS)
+    assert torch.equal(got, want)
+
+
+def test_decode_v6_int8_matches_jax_kernel_at_g16(rng):
+    """K14's widest head group (16 query heads a kv head, two blocks of 8 on
+    the card): the plain version against the JAX int8 v6 kernel,
+    interpreted, within one bf16 ulp + SHARE of max|JAX| (bf16 products and
+    p rounded to bf16 on both sides; only the f32 sums' order differs)."""
+    g = 16
+    cache = _pages(rng, True)
+    q = _bf16(rng, (B, HKV * g, D), 1.5)
+    _, bt, lens, (kn, vn) = _decode_inputs(rng, True)
+    want = jv6.decode_gqa_pallas_v6_int8_defer(q, kn, vn, cache["k"], cache["v"], cache["ks"],
+                                               cache["vs"], lens, bt, SM, PS)
+    got = tv6.decode_gqa_v6_int8_defer(_t(q), _t(kn), _t(vn), _t(cache["k"]), _t(cache["v"]),
+                                       _t(cache["ks"]), _t(cache["vs"]), _t(lens), _t(bt), SM,
+                                       PS)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, HKV * g, D)
+    assert_bf16_close(got.float(), _np(want), SHARE, "v6 int8 G 16")
 
 
 def test_decode_v6_and_v3_agree_but_round_apart(rng):

@@ -293,6 +293,33 @@ def test_decode_mla_c_matches_jax(monkeypatch, kind, group, b):
     assert torch.equal(got[0], tn[0, :lkv].expand(4, lkv))
 
 
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_decode_mla_c_two_steps_match_jax(monkeypatch, kind):
+    """K5's contract over two online-softmax steps (MP 8 pages at cp = 4, the
+    JAX SKT_MLA_CP default): the plain version against
+    decode_mla_pallas_v3_defer in interpret mode, at DeepSeek's 16 heads,
+    with cached lengths that end in the first step, on its edge and in the
+    second, within one bf16 ulp + K5_ATOL of max|JAX| (p rounded to bf16
+    against each step's running maximum on both sides)."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    rng = np.random.default_rng(140 + (kind == "int8"))
+    int8 = kind == "int8"
+    b, mp, ps = 6, 8, 16
+    jq, tq, jn, tn, cache, scales, bt, _, _, lkv = _mla_case(rng, b, h=16, ps=ps, max_pages=mp,
+                                                             int8=int8)
+    assert tv2._chunk_pages(mp) == 4 and jv2.CHUNK_PAGES == 4
+    cached = np.array([3 * ps + 5, 4 * ps, 4 * ps + 1, 6 * ps + 7, mp * ps, 0], np.int32)
+    sm = 0.1
+    want = jv2.decode_mla_pallas_v3_defer(jq, jn, jnp.asarray(cache), jnp.asarray(cached),
+                                          jnp.asarray(bt), sm, ps, lkv, layer_idx=1,
+                                          kv_scales=jnp.asarray(scales) if int8 else None)
+    tc = _t(cache) if int8 else _t(cache).to(torch.bfloat16)
+    got = tv2.decode_mla_v3_defer(tq, tn, tc, _t(cached), _t(bt), sm, ps, lkv, layer_idx=1,
+                                  kv_scales=_t(scales) if int8 else None)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 16, lkv)
+    assert_bf16_close(got.float().numpy(), _np(want), K5_ATOL, name=f"two steps {kind}")
+
+
 # ------------------------------------------------------- K6 and the glue
 
 

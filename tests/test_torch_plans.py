@@ -29,7 +29,10 @@ need the card; what decides their work is Python that runs here:
     split, each step's scores from its first token (from token 0 for a
     split's first step); and an f32 emulation of the splits, their page
     steps and the merge in split order against the plain version (S = 1
-    with steps of one page is K3, which shares the loop unsplit).
+    with steps of one page is K3, which shares the loop unsplit);
+  * (g) K14's plan on the same loop (`decode_v6.v6_splits`, `v6_groups`):
+    splits of whole pages, the same walk and merge against the plain
+    version, and the head groups that fit a page's kept scores.
 """
 
 import math
@@ -45,6 +48,7 @@ from sgl_kernel_npu_tpu.ops.attention import decode as jdec
 from sgl_kernel_npu_tpu_torch.ops import matmul as tmm
 from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as trq
 from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_v6 as tv6
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v9 as tv9
 
 K7_SHARE = 1e-4
@@ -477,7 +481,7 @@ def test_tm_split_plan(resident, b, hkv, mp, ps):
             assert (seen == 1).all()
 
 
-def _emulate_tm(q, k_new, v_new, kc, ks, vc, vs, cached, step, sm, s):
+def _emulate_tm(q, k_new, v_new, kc, ks, vc, vs, cached, step, sm, s, unit=tv9.TM_TILE):
     """Kernel C (K3 at S = 1) in f32 on a gathered cache ([B, hkv, n, D]): each
     split's page steps as tm_split_walk gives them (the maximum of a step's
     scores range, p over the split's own tokens, bf16(p * v_scale) . V),
@@ -493,7 +497,7 @@ def _emulate_tm(q, k_new, v_new, kc, ks, vc, vs, cached, step, sm, s):
             sc = (qf[i, h] @ kc[i, h, :clen].float().T) * ks[i, h, :clen] * sm   # [g, clen]
             parts = []
             for split in range(s):
-                _, _, steps = tv9.tm_split_walk(clen, s, split, step)
+                _, _, steps = tv9.tm_split_walk(clen, s, split, step, unit)
                 m = torch.full((g,), -1e30)
                 l = torch.zeros(g)
                 acc = torch.zeros((g, d))
@@ -546,3 +550,88 @@ def test_tm_split_merge_matches_plain(s, pages_per_step):
     want = tv9.attend_gathered_ref(q, kn, vn, kc, ks, vc, vs, cached, step, sm)
     got = _emulate_tm(q, kn, vn, kc, ks, vc, vs, cached, step, sm, s)
     assert_bf16_close(got.float().numpy(), want.float().numpy(), 1e-4, f"S {s}")
+
+
+# ------------------------------------------------------ (g) K14's plan
+
+
+@pytest.mark.parametrize("resident", [396, 264, 132, 16])
+@pytest.mark.parametrize("b,hkv,ng,mp,ps", [(128, 8, 1, 1, 512), (8, 8, 1, 6, 128),
+                                            (8, 2, 2, 4, 512), (1, 2, 1, 4, 16),
+                                            (3, 1, 1, 6, 100)])
+def test_v6_split_plan(resident, b, hkv, ng, mp, ps):
+    """K14's splits hold whole pages: every cached token in exactly one
+    split's p . v ranges, a split's bounds on page edges, each page's scores
+    from its first token (token 0 for a split's first page); S = 1 at the
+    bench path's 1,024 rows, several at the engine's 64."""
+    s = tv6.v6_splits(resident, b, hkv * ng, mp)
+    assert 1 <= s <= min(tv6.V6_MAX_SPLITS, mp)
+    assert s == 1 or s * b * hkv * ng <= resident
+    if (b, hkv) == (128, 8):
+        assert s == 1
+    if (b, hkv, resident) == (8, 8, 396):
+        assert s == 6
+    for clen in sorted({0, 1, ps - 1, ps, ps + 1, 2 * ps + 3, mp * ps - 1, mp * ps}):
+        if not 0 <= clen <= mp * ps:
+            continue
+        seen = np.zeros(clen, np.int32)
+        for split in range(s):
+            ts, te, steps = tv9.tm_split_walk(clen, s, split, ps, unit=ps)
+            assert ts % ps == 0 and (te == clen or te % ps == 0)
+            for i, (k, (s0, s1), (p0, p1)) in enumerate(steps):
+                assert s0 == (0 if i == 0 else k * ps) and s1 == min(clen, (k + 1) * ps)
+                assert (p0, p1) == (k * ps, min(clen, (k + 1) * ps))
+                seen[p0:p1] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 6])
+def test_v6_split_merge_matches_plain(s):
+    """K14's page-aligned splits (each first scanning the earlier pages'
+    scores for the running maximum), merged in split order, against
+    attend_gathered_ref with steps of one page (K14's and K3's contract)
+    within one bf16 ulp + 1e-4 of max|plain|."""
+    rng = np.random.default_rng(91 + s)
+    b, hkv, g, d, ps, mp = 6, 2, 4, 128, 16, 6
+    n = mp * ps
+    q = _t(rng.standard_normal((b, hkv * g, d)).astype(np.float32)).to(torch.bfloat16)
+    kn = _t(rng.standard_normal((b, hkv, d)).astype(np.float32)).to(torch.bfloat16)
+    vn = _t(rng.standard_normal((b, hkv, d)).astype(np.float32)).to(torch.bfloat16)
+    kc = _t(rng.integers(-127, 128, (b, hkv, n, d)).astype(np.int8))
+    vc = _t(rng.integers(-127, 128, (b, hkv, n, d)).astype(np.int8))
+    ks = _t((0.001 + 0.02 * rng.random((b, hkv, n))).astype(np.float32))
+    vs = _t((0.001 + 0.02 * rng.random((b, hkv, n))).astype(np.float32))
+    cached = torch.tensor([0, 1, 17, 40, 95, 96], dtype=torch.int32)
+    sm = d ** -0.5
+    want = tv9.attend_gathered_ref(q, kn, vn, kc, ks, vc, vs, cached, ps, sm)
+    got = _emulate_tm(q, kn, vn, kc, ks, vc, vs, cached, ps, sm, s, unit=ps)
+    assert_bf16_close(got.float().numpy(), want.float().numpy(), 1e-4, f"S {s}")
+
+
+def _v6_kept_floats(g, ps, int8):
+    """decode_v6.cu's kept_floats: a K14 block's shared memory is
+    decode_tm_core.cuh's 3-stage ring of 16 KB stages (128 int8 rows of 144
+    bytes and their scales, or 64 bf16 rows of 272) and its p transposes,
+    then g x (ps + 4) f32 kept scores; past Hopper's 227 KB a block the kept
+    scores take that many floats of device memory."""
+    ring = 3 * 18944 + 1536 if int8 else 3 * 17664 + 1536
+    return 0 if ring + g * (ps + 4) * 4 <= 232448 else g * (ps + 4)
+
+
+@pytest.mark.parametrize("g,ps,int8,smem", [(1, 512, True, True), (4, 512, False, True),
+                                            (8, 512, True, True), (16, 512, False, True),
+                                            (8, 5000, True, True), (8, 6000, True, False),
+                                            (1, 43000, True, True), (1, 44000, True, False),
+                                            (1, 44400, False, True), (1, 57600, False, False)])
+def test_v6_head_groups(g, ps, int8, smem):
+    """K14's head groups: at most 8 query heads a block (G 16: two blocks of
+    8); a page's kept scores (G / ng x (ps + 4) f32) stay in shared memory
+    where they fit beside the ring in 227 KB, else in device memory, so that
+    every page the parent took (up to 57,600 tokens at G 1) runs. The
+    wrapper takes the device memory's size from decode_v6.cu's
+    skt_*_kept, which chip_smoke.py's K14 edges hold on the card; here the
+    rule is held through _v6_kept_floats, its copy."""
+    ng = tv6.v6_groups(g)
+    assert ng == (2 if g == 16 else 1) and g // ng <= tv6.V6_MAXG
+    floats = _v6_kept_floats(g // ng, ps, int8)
+    assert (floats == 0) == smem and floats in (0, g // ng * (ps + 4))
