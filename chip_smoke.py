@@ -19,8 +19,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    at the edges of its cluster split, passes and steps: pages of 16 to 256,
    cp 1, 3 and 4 over 6 pages, lengths 0, 1, ps - 1, ps, ps + 1 and across
    steps, batches of 10, 64 and 128, steps of 1,792 to 8,192 tokens whose
-   shares split over clusters of 2, 4 and 8 CTAs; a second call
-   bit-identical), K6 and
+   shares split over clusters of 2, 4 and 8 CTAs; and at a sharper score
+   spread: rows of 3,072 with q of 1.5 randn, rows of 576 with q of 1.5
+   sqrt(3072 / 576) randn; a second call bit-identical), K6 and
    K7 (also at the edges of its split plan: 8 sequences of 1 token, one of
    4,097, 8 equal ones, lengths beside a round or a split, 4 and 20 heads
    with krope 16 and 6; a second call bit-identical); and the Qwen3-Next bench path's kernels at its shapes: K8 (the
@@ -32,9 +33,13 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    every copy on one expert and with -1 slots), K12 (the chunked ragged
    scatter, the quantising dispatch and the bf16 combine), K8 at that
    layer's shapes (GMM1 and GMM2 on the aligned compaction of the first
-   round at chunk_rounds 1, 2 and 4, exact) and K13 (swiglu_quant on GMM1's
-   2,048 x 4096 output, on no main path); K11 also at maxT 8 and 72 (8 and
-   72 tokens: a window's last 64-row m-tile partial); and the hm Llama
+   round at chunk_rounds 1, 2 and 4, exact; one kernel a call) and K13
+   (swiglu_quant on GMM1's 2,048 x 4096 output, on no main path); K11 also
+   at maxT 8 and 72 (8 and 72 tokens: a window's one 128-row m-tile
+   partial), there also with every copy on one expert; K8 also at its
+   edges (32-row expert tiles with 17-32 live rows, padding tiles of 32 and
+   128 rows, expert ids past the bank, split K at both tile heights with
+   repeats, plain and pretiled banks, bf16 and f32 out); and the hm Llama
    path's kernels at Llama-3-8B's heads: K14 (deferred decode with bf16
    products, bf16 and int8 pages) at the bench shape (128 sequences of
    256..383 cached tokens, 512-token pages) and the engine's (8 sequences,
@@ -1232,6 +1237,47 @@ def check_decode_mla_c(torch, dv2, mcfg, rng):
     return row
 
 
+def _k5_case(torch, dv2, mcfg, rng, ps, cp, b, mp, c, qscale):
+    """One K5 edge case: B sequences of MP pages of ps rows of width c,
+    cached 0, 1, ps - 1, ps, ps + 1, 4 ps, 4 ps + 1, 17, 113, 2 ps + 45
+    (within MP pages; random lengths for the rest of the batch), q of
+    qscale randn; int8 and bf16 rows, each within one bf16 ulp + K5_SHARE of
+    max|plain| and a second call bit-identical. Returns "int8 r, bf16 r",
+    each error over its bound."""
+    h, lkv, layers, li = mcfg.num_heads, mcfg.kv_lora_rank, 2, 1
+    sm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    lens = [0, 1, ps - 1, ps, ps + 1, 4 * ps, 4 * ps + 1, 17, 113, 2 * ps + 45]
+    lens = [min(n, mp * ps) for n in lens]
+    if b > len(lens):
+        lens += torch.randint(0, mp * ps + 1, (b - len(lens),), generator=rng,
+                              device="cuda").tolist()
+    pages = b * mp + 1
+    cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    q = (qscale * torch.randn((b, h, c), generator=rng, device="cuda")).to(torch.bfloat16)
+    new = torch.randn((b, c), generator=rng, device="cuda").to(torch.bfloat16)
+    errs = []
+    for int8 in (True, False):
+        cache = _latent_rows(torch, rng, (layers, pages, ps, c), int8)
+        scales = (torch.rand((layers, pages, 1, ps), generator=rng, device="cuda") * 0.02
+                  + 0.005) if int8 else None
+        args = (q, new, cache, cached, bt, sm, ps, lkv)
+        kw = dict(layer_idx=li, kv_scales=scales, chunk_pages=cp)
+        out = dv2.decode_mla_v3_defer(*args, **kw)
+        again = dv2.decode_mla_v3_defer(*args, **kw)
+        ref = dv2._decode_chunks_ref(q, new, cache, scales, cached, bt, sm, ps, lkv, li,
+                                     dv2._chunk_pages(mp, cp))
+        torch.cuda.synchronize()
+        label = f"decode_mla_c edges ps {ps} cp {cp or dv2.CHUNK_PAGES} B {b} C {c}"
+        err, ratio = _bf16_check(f"{label} {'int8' if int8 else 'bf16'}", out, ref, K5_SHARE)
+        if not torch.equal(out, again):
+            raise AssertionError(f"{label}: a second call differs")
+        errs.append(f"{'int8' if int8 else 'bf16'} {ratio:.3g}")
+        del cache
+    return ", ".join(errs)
+
+
 def check_decode_mla_c_edges(torch, dv2, mcfg):
     """K5 where its cluster split, passes and steps meet their edges, int8
     and bf16 rows at DeepSeek-V2-Lite's latent widths: pages of 16, 64, 128
@@ -1247,53 +1293,39 @@ def check_decode_mla_c_edges(torch, dv2, mcfg):
     K5_SHARE of max|plain|, a second call bit-identical."""
     rng = torch.Generator(device="cuda")
     rng.manual_seed(610)
-    h, lkv, layers, li = mcfg.num_heads, mcfg.kv_lora_rank, 2, 1
-    sm = (mcfg.qk_nope_dim + mcfg.qk_rope_dim) ** -0.5
+    lkv, rope = mcfg.kv_lora_rank, mcfg.qk_rope_dim
     notes = []
-    rope = mcfg.qk_rope_dim
     for ps, cp, b, mp, c in ((16, None, 10, 6, lkv + rope), (64, None, 10, 6, lkv + rope),
                              (64, 1, 10, 6, lkv + rope), (64, 3, 10, 6, lkv + rope),
                              (128, None, 10, 6, lkv + rope), (256, None, 10, 6, lkv + rope),
                              (128, None, 64, 6, lkv + rope), (64, None, 128, 6, lkv + rope),
                              (448, None, 128, 4, lkv + rope), (1024, None, 10, 4, lkv + rope),
                              (2048, None, 10, 4, lkv + rope), (128, None, 128, 3, 3072)):
-        lens = [0, 1, ps - 1, ps, ps + 1, 4 * ps, 4 * ps + 1, 17, 113, 2 * ps + 45]
-        lens = [min(n, mp * ps) for n in lens]
-        if b > len(lens):
-            lens += torch.randint(0, mp * ps + 1, (b - len(lens),), generator=rng,
-                                  device="cuda").tolist()
-        pages = b * mp + 1
-        cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
-              .reshape(b, mp).to(torch.int32) + 1)
         # scores of phase 1's spread (q of 1.5 randn over rows of 576) at any width
-        q = (1.5 * (576 / c) ** 0.5 * torch.randn((b, h, c), generator=rng, device="cuda")
-             ).to(torch.bfloat16)
-        new = torch.randn((b, c), generator=rng, device="cuda").to(torch.bfloat16)
-        errs = []
-        for int8 in (True, False):
-            cache = _latent_rows(torch, rng, (layers, pages, ps, c), int8)
-            scales = (torch.rand((layers, pages, 1, ps), generator=rng, device="cuda") * 0.02
-                      + 0.005) if int8 else None
-            args = (q, new, cache, cached, bt, sm, ps, lkv)
-            kw = dict(layer_idx=li, kv_scales=scales, chunk_pages=cp)
-            out = dv2.decode_mla_v3_defer(*args, **kw)
-            again = dv2.decode_mla_v3_defer(*args, **kw)
-            ref = dv2._decode_chunks_ref(q, new, cache, scales, cached, bt, sm, ps, lkv, li,
-                                         dv2._chunk_pages(mp, cp))
-            torch.cuda.synchronize()
-            label = f"decode_mla_c edges ps {ps} cp {cp or dv2.CHUNK_PAGES} B {b} C {c}"
-            err, ratio = _bf16_check(f"{label} {'int8' if int8 else 'bf16'}", out, ref,
-                                     K5_SHARE)
-            if not torch.equal(out, again):
-                raise AssertionError(f"{label}: a second call differs")
-            errs.append(f"{'int8' if int8 else 'bf16'} {ratio:.3g}")
-            del cache
-        notes.append(f"ps {ps} cp {cp or dv2.CHUNK_PAGES} B {b} MP {mp} C {c}: "
-                     + ", ".join(errs))
+        ratios = _k5_case(torch, dv2, mcfg, rng, ps, cp, b, mp, c, 1.5 * (576 / c) ** 0.5)
+        notes.append(f"ps {ps} cp {cp or dv2.CHUNK_PAGES} B {b} MP {mp} C {c}: {ratios}")
     print("  decode_mla_c edges (cached 0, 1, ps - 1, ps, ps + 1, 4 ps, 4 ps + 1, 17, 113, "
           "2 ps + 45 within MP pages), errors over their bound: " + "; ".join(notes)
           + "; second calls bit-identical")
+
+
+def check_decode_mla_c_sharp(torch, dv2, mcfg):
+    """K5 at a sharper score spread than phase 1's (the edge cases above
+    scale q to it): rows of 3,072 with q of 1.5 randn, and rows of 576 with
+    q of 1.5 * sqrt(3072 / 576) randn, both the spread of 1.5 randn over
+    3,072-wide rows; 128 sequences of 3 pages of 128, int8 and bf16 rows,
+    within one bf16 ulp + K5_SHARE of max|plain|, a second call
+    bit-identical."""
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(611)
+    notes = []
+    for c, qscale, label in ((3072, 1.5, "C 3072, q 1.5 randn"),
+                             (576, 1.5 * (3072 / 576) ** 0.5,
+                              "C 576, q 1.5 sqrt(3072 / 576) randn")):
+        notes.append(f"{label}: " + _k5_case(torch, dv2, mcfg, rng, 128, None, 128, 3, c,
+                                             qscale))
+    print("  decode_mla_c at the sharper spread, errors over their bound: "
+          + "; ".join(notes) + "; second calls bit-identical")
 
 
 def check_append_mla(torch, dv2, mcfg, rng):
@@ -1465,8 +1497,9 @@ def check_grouped(torch, mm, quant, qn, qcfg, rng):
     """K8 at the Qwen bench path's two expert GEMMs: 128 tokens routed top-10
     over 128 experts (random router scores), aligned to 32-row tiles (5,376
     rows), the experts of layer 1 of a 2-layer flat bank pretiled at 1024
-    (w13: K 2048, N 1024; w2: K 512, N 2048); exact; then exact at a small
-    shape that splits K. Returns the row of both GEMMs summed."""
+    (w13: K 2048, N 1024; w2: K 512, N 2048); exact, a second call
+    bit-identical, one kernel a call. Returns the row of both GEMMs
+    summed."""
     b, e, k = 128, qcfg.num_experts, qcfg.top_k
     h, f = qcfg.hidden_size, qcfg.moe_intermediate_size
     tile, li = qn.MOE_TILE, 1
@@ -1489,11 +1522,17 @@ def check_grouped(torch, mm, quant, qn, qcfg, rng):
         xsg = torch.where(ok[:, None], xs[tok], 0.0)
         args = (xg, bank, xsg, ws, eid, tile)
         out = mm.grouped_matmul_int8(*args)
+        again = mm.grouped_matmul_int8(*args)
         ref = mm.grouped_matmul_int8_tiles_ref(*args)
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"w8a8_gemm_grouped {name}: {(out != ref).sum().item()} "
                                  "elements differ")
+        if not torch.equal(out, again):
+            raise AssertionError(f"w8a8_gemm_grouped {name}: a second call differs")
+        kernels = _device_kernels(torch, lambda: mm.grouped_matmul_int8(*args))
+        if kernels is not None and len(kernels) != 1:
+            raise AssertionError(f"w8a8_gemm_grouped {name}: one call launched {kernels}")
         ms = _time_ms(lambda: mm.grouped_matmul_int8(*args), 20, graph=True)
         plain = _time_ms(lambda: mm.grouped_matmul_int8_tiles_ref(*args), 1, 1)
         wkn = mm.untile_weight_bank(bank).contiguous()
@@ -1515,21 +1554,83 @@ def check_grouped(torch, mm, quant, qn, qcfg, rng):
               f"{n_exp} experts) K={kk} N={n}: exact; kernel {ms:.4f} ms, plain {plain:.3f} "
               f"ms, _int_mm per expert group {lib:.4f} ms, bound {bound:.4f} ms ({by})")
         del bank, wkn
-    # split K: 3 tiles over a [4, K, N] bank, a padding tile and an expert
-    # id past the bank (clamped)
-    w = torch.randint(-127, 128, (4, h, 256), generator=rng, dtype=torch.int8, device="cuda")
-    ws = torch.rand((4, 256), generator=rng, device="cuda") * 1e-3
-    xq = torch.randint(-128, 128, (96, h), generator=rng, dtype=torch.int8, device="cuda")
-    xs = torch.rand((96, 1), generator=rng, device="cuda") * 0.05
-    xs[32:64] = 0.0
-    eid = torch.tensor([2, 0, 7], dtype=torch.int32, device="cuda")
-    if mm.splits_for(96, 256, h, "cuda", bm=32) < 2:
-        raise AssertionError("the small grouped shape no longer splits K")
-    if not torch.equal(mm.grouped_matmul_int8(xq, w, xs, ws, eid, 32),
-                       mm.grouped_matmul_int8_tiles_ref(xq, w, xs, ws, eid, 32)):
-        raise AssertionError("w8a8_gemm_grouped with split K differs")
-    print("  w8a8_gemm_grouped exact also with split K (M=96, a padding tile, a clamped id)")
     return _sum_rows(rows)
+
+
+def _device_kernels(torch, fn):
+    """The device kernels (names) that one call of fn launches, by
+    torch.profiler; None where the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return names or None
+
+
+def check_grouped_edges(torch, mm):
+    """K8 at its edges, each exact against grouped_matmul_int8_tiles_ref with
+    a second call bit-identical, bf16 and f32 out, on a plain [G, K, N] bank
+    and on banks pretiled at 128 (a 256-column tile over two panels) and 256:
+    32-row expert tiles with 17-32 live rows (two 16-row tiles, the second
+    part padding), a 32-row tile of padding, a 128-row tile of padding, an
+    expert id past G and one below 0 (clamped), at block_m 32 and 128; and
+    shapes whose plan splits K (16-row and 128-row tiles, with a padding
+    tile), each run twice more so that the arrival counters are shown to
+    reset. Every call is one kernel."""
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(1608)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    notes = []
+    # (block_m, tiles' live rows (0: padding), expert ids, K, N)
+    cases = (
+        (32, (20, 32, 0, 17, 5), (1, 3, 0, 9, -2), 512, 768),
+        (128, (128, 0, 77, 1), (2, 0, 7, 1), 512, 768),
+        (32, (32, 0, 24), (2, 0, 7), 2048, 256),         # splits K, 16-row tiles
+        (128, (100, 0), (3, 1), 2048, 256),              # splits K, 128-row tiles
+    )
+    for block_m, live, ids, k, n in cases:
+        g = 4
+        m = block_m * len(live)
+        bm, tiles_m, tiles_n, splits = mm.gemm_plan(m, n, k, sms, block_m)
+        xq = torch.randint(-128, 128, (m, k), generator=rng, dtype=torch.int8, device="cuda")
+        xs = torch.rand((m, 1), generator=rng, device="cuda") * 0.05 + 0.001
+        for i, rows in enumerate(live):
+            xs[i * block_m + rows:(i + 1) * block_m] = 0.0
+            xq[i * block_m + rows:(i + 1) * block_m] = 0
+        eid = torch.tensor(ids, dtype=torch.int32, device="cuda")
+        w = torch.randint(-127, 128, (g, k, n), generator=rng, dtype=torch.int8, device="cuda")
+        ws = torch.rand((g, n), generator=rng, device="cuda") * 1e-3
+        for bank_name, bank in (("plain", w), ("bn 128", mm.pretile_weight_bank(w, 128)),
+                                ("bn 256", mm.pretile_weight_bank(w, 256))):
+            for od in (torch.bfloat16, torch.float32):
+                args = (xq, bank, xs, ws, eid, block_m, od)
+                out = mm.grouped_matmul_int8(*args)
+                again = mm.grouped_matmul_int8(*args)
+                third = mm.grouped_matmul_int8(*args)
+                ref = mm.grouped_matmul_int8_tiles_ref(*args)
+                torch.cuda.synchronize()
+                label = (f"w8a8_gemm_grouped edge block_m {block_m} live {live} ids {ids} "
+                         f"K {k} N {n} {bank_name} {str(od)[6:]}")
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{label}: {(out != ref).sum().item()} elements "
+                                         "differ from the plain version")
+                if not (torch.equal(out, again) and torch.equal(out, third)):
+                    raise AssertionError(f"{label}: a repeat differs")
+        kernels = _device_kernels(torch, lambda: mm.grouped_matmul_int8(xq, w, xs, ws, eid,
+                                                                         block_m))
+        if kernels is not None and len(kernels) != 1:
+            raise AssertionError(f"w8a8_gemm_grouped block_m {block_m}: one call launched "
+                                 f"{kernels}")
+        notes.append(f"block_m {block_m} (tiles of {bm}, {splits} splits) live {live} ids {ids}")
+    if mm.gemm_plan(96, 256, 2048, sms, 32)[3] < 2 or mm.gemm_plan(256, 256, 2048, sms,
+                                                                     128)[3] < 2:
+        raise AssertionError("the small grouped shapes no longer split K")
+    print("  w8a8_gemm_grouped edges exact, repeats bit-identical, one kernel a call, plain "
+          "and pretiled banks (bn 128, 256), bf16 and f32: " + "; ".join(notes))
 
 
 def check_gdn(torch, rec, qcfg, rng):
@@ -2994,7 +3095,7 @@ def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_toke
 _A = ("EpiBank",)
 _K1 = ("EpiTiled",)
 _K2 = ("EpiRmsq", "rmsq_rows")
-_K8 = ("w8a8_kernel<32, true>", "w8a8_epilogue<true>")
+_K8 = ("EpiGrouped",)
 _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                ("K14 decode_v6_defer", ("decode_v6_kernel",)),
                ("memsets", ("Memset",)))
@@ -3371,7 +3472,7 @@ QWEN_PER_STEP = {"w8a8_gemm_tiled": 55, "w8a8_gemm_grouped": 24, "gdn_recurrent"
                  "decode_hm": 3}
 _QWEN_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K8 w8a8_gemm_grouped", _K8),
                  ("K9 gdn_recurrent", ("gdn_recurrent_kernel",)),
-                 ("K10 decode_hm", ("decode_hm_kernel",)), ("split-K memsets", ("Memset",)))
+                 ("K10 decode_hm", ("decode_hm_kernel",)), ("memsets", ("Memset",)))
 
 
 def run_qwen_bench_path(torch, qn, build, cfg, gpu):
@@ -3563,6 +3664,9 @@ def _check_k11_once(torch, fmp, EPGroup, args, label, maxt=MOE_T):
     torch.cuda.synchronize()
     if not (torch.equal(recv, precv) and torch.equal(rs, prs)):
         raise AssertionError(f"fused_moe {label}: recv / rs differ from the plain version")
+    if not all(torch.equal(u, v) for u, v in zip((recv, rs, back),
+                                                 fmp.fused_moe_layer(*args, group=g, maxt=maxt))):
+        raise AssertionError(f"fused_moe {label}: a second call differs")
     _, _, asc = fmp.expert_rows_ref(precv, prs, *args[1:5])
     # the rows of back come from expert rows in chunk order; a flipped int8
     # activation moves its output row by at most asc * 127 * max|w2 scale|
@@ -3581,8 +3685,11 @@ def _check_k11_once(torch, fmp, EPGroup, args, label, maxt=MOE_T):
 def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
     """K11 at the bench shape (8 experts of 7168 x 4096 and 2048 x 7168,
     128 tokens top-8: 1,024 rows, sbuf 1,088), then with every copy on expert
-    0 (7 experts of no rows) and with two experts and -1 slots: recv and rs
-    exact, back within the flip bar. Returns its row; the yardstick is the
+    0 (7 experts of no rows) and with two experts and -1 slots; at maxT 8
+    and 72 (a window's one m-tile partial) with the bench routing and with
+    every copy on one expert, where a GEMM item that read its rows before
+    they were written would show: recv and rs exact, back within the flip
+    bar, a second call bit-identical. Returns its row; the yardstick is the
     composition at rounds = 1 (K8 twice and PyTorch glue), not one call."""
     x, idx, w = data[0], data[1], data[2]
     weights = data[3:]
@@ -3597,12 +3704,15 @@ def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
     for label, rt in (("every copy on expert 0", one), ("experts 3 and 5, -1 slots", two)):
         _check_k11_once(torch, fmp, EPGroup, _k11_args(torch, ll, pll, x, rt, weights, el, maxt),
                         label)
-    # maxT not a multiple of the 64-row tile: a partial last m-tile per window
+    # maxT not a multiple of the 128-row tile: a partial m-tile per window
     small = []
     for mt in (8, 72):
         e, r = _check_k11_once(torch, fmp, EPGroup,
                                _k11_args(torch, ll, pll, x[:mt], idx[:mt], weights, el, mt),
                                f"maxT {mt}", maxt=mt)
+        _check_k11_once(torch, fmp, EPGroup,
+                        _k11_args(torch, ll, pll, x[:mt], one[:mt], weights, el, mt),
+                        f"maxT {mt}, every copy on expert 0", maxt=mt)
         small.append(f"maxT {mt} ({mt} tokens): back max-abs {e:.3g} ({r:.4f} of rows differ)")
     g = EPGroup(None)
     ms = _time_ms(lambda: fmp.fused_moe_layer(*args, group=g, maxt=maxt), 10, graph=True)
@@ -3615,7 +3725,8 @@ def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
     bound, by = _bound_ms(nbytes, 2.0 * rows * 3 * h * f, "int8_ops")
     print(f"  fused_moe (one launch) at the bench shape: recv, rs exact, back max-abs {err:.3g} "
           f"({rows_off:.4f} of rows differ); every copy on one expert and -1 slots: the same; "
-          f"recv, rs exact at {'; '.join(small)}; "
+          f"recv, rs exact at {'; '.join(small)} (and every copy on one expert); second "
+          "calls bit-identical; "
           f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}); the "
           f"composition at rounds = 1 (not one call) {comp:.4f} ms")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
@@ -3624,11 +3735,12 @@ def check_fused_moe(torch, ll, pll, fmp, fm_buffer_rounds1, EPGroup, data):
 
 def check_moe_gemms(torch, par, fm, mm, data):
     """K8 at the shapes the EP MoE layer gives it: the first round's aligned
-    compaction (128-row tiles, four 32-row kernel tiles each) at chunk_rounds
+    compaction (128-row tiles, one 128-row wgmma tile each) at chunk_rounds
     1, 2 and 4 (M 2,048, 1,536 and 1,280; capacity_rows=1024 is rounds = 1's
     compaction), GMM1 on the [8, 7168, 4096] bank and, on its requantised
     SwiGLU, GMM2 on the [8, 2048, 7168] bank: exact against the plain
-    version. Returns the row of rounds = 1's two GEMMs summed."""
+    version, a second call bit-identical, one kernel a call. Returns the row
+    of rounds = 1's two GEMMs summed."""
     x, idx = data[0], data[1]
     w13q, w13s, w2q, w2s = data[3:]
     el, t, k = MOE_EL, MOE_T, MOE_K
@@ -3650,11 +3762,19 @@ def check_moe_gemms(torch, par, fm, mm, data):
         for name, w, ws in (("GMM1", w13q, w13s), ("GMM2", w2q, w2s)):
             args = (a, w, a_s, ws, eid, tile)
             out = mm.grouped_matmul_int8(*args)
+            again = mm.grouped_matmul_int8(*args)
             ref = mm.grouped_matmul_int8_tiles_ref(*args)
             torch.cuda.synchronize()
             if not torch.equal(out, ref):
                 raise AssertionError(f"w8a8_gemm_grouped {name} at chunk_rounds={rounds} (M={m}): "
                                      f"{(out != ref).sum().item()} elements differ")
+            if not torch.equal(out, again):
+                raise AssertionError(f"w8a8_gemm_grouped {name} at chunk_rounds={rounds}: a "
+                                     "second call differs")
+            kernels = _device_kernels(torch, lambda: mm.grouped_matmul_int8(*args))
+            if kernels is not None and len(kernels) != 1:
+                raise AssertionError(f"w8a8_gemm_grouped {name} at chunk_rounds={rounds}: one "
+                                     f"call launched {kernels}")
             if rounds == 1:
                 kk, n = w.shape[1], w.shape[2]
                 xg, xsg = a, a_s
@@ -5106,6 +5226,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["k5"] = check_decode_mla_c(torch, decode_mla_v2, mcfg, rng)
     check_decode_mla_c_edges(torch, decode_mla_v2, mcfg)
+    check_decode_mla_c_sharp(torch, decode_mla_v2, mcfg)
     torch.cuda.empty_cache()
     rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng)
     torch.cuda.empty_cache()
@@ -5113,6 +5234,7 @@ def main() -> int:
     check_decode_mla_edges(torch, decode, mcfg)
     torch.cuda.empty_cache()
     rows["k8"] = check_grouped(torch, matmul, quant, qwen_next, qcfg, rng)
+    check_grouped_edges(torch, matmul)
     torch.cuda.empty_cache()
     rows["k9"] = check_gdn(torch, recurrent_pallas, qcfg, rng)
     torch.cuda.empty_cache()

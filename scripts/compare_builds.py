@@ -28,8 +28,11 @@ replays). The cases, each name a prefix that --only can pick:
     the same bits from every root;
   * C (tm int8 decode: 8 sequences of 40..700 tokens over 64 pages of 128,
     Llama's heads); within ATTN_TOL;
-  * K8 (the Qwen bench path's expert w13) and K11 (the MoE layer's bench
-    shape, its recv); exact;
+  * K8 at the Qwen bench path's expert w13 and w2 (5,376 rows in 32-row
+    expert tiles) and at the EP MoE layer's GMM1 and GMM2 (the first
+    round's aligned compaction at chunk_rounds 1: 2,048 rows in 128-row
+    tiles, 8 experts of 7168 x 4096 and 2048 x 7168), and K11 (the MoE
+    layer's bench shape, its recv); exact;
   * K5 (MLA decode over the combined latent cache) at chip_smoke.py's
     phase 1 shape (128 sequences, 16 heads, rows of 576, pages of 128, 3
     each, 0..319 cached), int8 and bf16 rows, and int8 over 6 pages (0..767
@@ -41,8 +44,9 @@ replays). The cases, each name a prefix that --only can pick:
     int8 deferred contract (the bench shape) as controls of decode_hm.cu.
 Each case must also give the same bits in every turn of its root. Prints,
 per case, each root's median over its turns and the ratio of each to the
-first root's, the sums of the four Llama GEMMs of A at M 8 and 128 and of
-K1's three at M 128, then the card's name and power limit. Needs one CUDA
+first root's, the sums of the four Llama GEMMs of A at M 8 and 128, of
+K1's three at M 128 and of K8's two at each shape, then the card's name
+and power limit. Needs one CUDA
 card and nvcc; a turn of every case takes about a minute.
 """
 
@@ -72,6 +76,8 @@ KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
 SUMS["K1 wo + w2 + lm_head M 128"] = [f"K1 {nm} M 128" for nm in ("wo", "w2", "lm_head")]
+SUMS["K8 Qwen w13 + w2"] = ["K8 Qwen expert w13", "K8 Qwen expert w2"]
+SUMS["K8 MoE GMM1 + GMM2"] = ["K8 MoE GMM1", "K8 MoE GMM2"]
 
 
 def _graph_ms(torch, fn, iters):
@@ -318,6 +324,25 @@ def _cases(torch, cs, want):
                  bank, torch.where(ok[:, None], xs[tok], 0.0), ws, eid, tile)
         yield ("K8 Qwen expert w13", lambda: mm.grouped_matmul_int8(*gargs),
                exact(mm.grouped_matmul_int8_tiles_ref(*gargs)), 20)
+        del bank, gargs
+    gen.manual_seed(24)
+    if on("K8 Qwen expert w2"):
+        qcfg = cs.qwen_bench_config(qwen_next)
+        e, topk, tile = qcfg.num_experts, qcfg.top_k, qwen_next.MOE_TILE
+        ids = torch.topk(torch.rand((128, e), generator=gen, device="cuda"), topk,
+                         dim=-1).indices
+        ok, src, eid = qwen_next.align_routes(ids, e, tile)
+        kk, n = qcfg.moe_intermediate_size, qcfg.hidden_size
+        bank = torch.randint(-127, 128, (e, n // 1024, kk, 1024), generator=gen,
+                             dtype=torch.int8, device="cuda")
+        ws = torch.rand((e, n), generator=gen, device="cuda") * 1e-3
+        xq, xs = quant.per_token_quant_int8(torch.randn((ok.shape[0], kk), generator=gen,
+                                                        device="cuda"))
+        gargs = (torch.where(ok[:, None], xq, 0).to(torch.int8), bank,
+                 torch.where(ok[:, None], xs, 0.0), ws, eid, tile)
+        yield ("K8 Qwen expert w2", lambda: mm.grouped_matmul_int8(*gargs),
+               exact(mm.grouped_matmul_int8_tiles_ref(*gargs)), 20)
+        del bank, gargs
     gen.manual_seed(21)
     for label, mp, int8, maxc in (("int8 phase 1", 3, True, 320), ("bf16 phase 1", 3, False, 320),
                                   ("int8 MP 6 cp 4", 6, True, 768)):
@@ -362,11 +387,32 @@ def _cases(torch, cs, want):
                                           k_new=kn, v_new=vn)
         yield ("K16 int8 defer bench", lambda: decode_v3.decode_gqa_v3_int8_defer(*a16),
                ulp(ref, cs.HM_SHARE), 50)
+    data = None
+    if on("K8 MoE GMM1") or on("K8 MoE GMM2"):
+        from sgl_kernel_npu_tpu_torch import parallel
+        data = cs.moe_bench_data(torch)
+        x, idx, _, w13q, w13s, w2q, w2s = data
+        el, t, topk = cs.MOE_EL, cs.MOE_T, cs.MOE_K
+        res = parallel.get_low_latency_strategy("default").low_latency_dispatch(
+            x, idx, group=parallel.EPGroup(None), num_experts=el,
+            num_max_dispatch_tokens_per_rank=t, quant_mode="int8")
+        _, _, a, a_s, eid = parallel.fused_moe._compact_rows(res, 1, el, t, t * min(topk, el),
+                                                             True)
+        tile = parallel.fused_moe.GEMM_TILE
+        g1 = (a, w13q, a_s, w13s, eid, tile)
+        ref1 = mm.grouped_matmul_int8_tiles_ref(*g1)
+        if on("K8 MoE GMM1"):
+            yield ("K8 MoE GMM1", lambda: mm.grouped_matmul_int8(*g1), exact(ref1), 20)
+        aq, aqs = parallel.fused_moe._swiglu_requant(ref1)
+        g2 = (aq, w2q, aqs, w2s, eid, tile)
+        if on("K8 MoE GMM2"):
+            yield ("K8 MoE GMM2", lambda: mm.grouped_matmul_int8(*g2),
+                   exact(mm.grouped_matmul_int8_tiles_ref(*g2)), 20)
     if on("K11 fused_moe"):
         from sgl_kernel_npu_tpu_torch.parallel import EPGroup
         from sgl_kernel_npu_tpu_torch.parallel.strategies import (fused_moe_pallas,
                                                                   low_latency, pallas_ll)
-        data = cs.moe_bench_data(torch)
+        data = data or cs.moe_bench_data(torch)
         kargs = cs._k11_args(torch, low_latency, pallas_ll, data[0], data[1], data[3:],
                              cs.MOE_EL, cs.MOE_T)
         grp = EPGroup(None)

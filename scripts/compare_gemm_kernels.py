@@ -12,9 +12,9 @@ The shapes (Llama-3-8B's GEMMs unless named otherwise):
   * K2 per_token at wqkv and w13 (M 128, banks at 512), per_tensor with
     the int32 bias and the fp16 cast at DeepSeek-V2-Lite's wdqkv and wuq
     (an f32 column slice) at M 128 (banks at 1024);
-  * controls: A at the Llama engine's M 8 GEMMs (on K1's stage), K8 at the
-    Qwen bench path's expert w13 and K11 at the MoE layer's bench shape
-    (both on the mma.sync loop of csrc/w8a8_core.cuh);
+  * controls: A at the Llama engine's M 8 GEMMs, K8 at the Qwen bench
+    path's expert w13 and K11 at the MoE layer's bench shape (all three on
+    K1's int8 stage, csrc/w8a8_wgmma.cuh);
   * K22 (helloworld) at [4096, 7168] with torch.add beside it.
 
 Each turn is a fresh process that imports sgl_kernel_npu_tpu_torch from its

@@ -2,8 +2,8 @@
 """Time the port's fused RMSNorm-quant GEMM (K2) and paged MLA decode (K7)
 from two checkouts on one card, in turns (a, b, b, a, repeated), at the
 shapes of chip_smoke.py's phase 1, with their library yardsticks and, as a
-control, the GEMM kernels A, K1, K8 and K11 (A and K1 on K2's int8 stage,
-csrc/w8a8_wgmma.cuh, K8 and K11 on w8a8_core.cuh's loop).
+control, the GEMM kernels A, K1, K8 and K11 (all four on K2's int8 stage,
+csrc/w8a8_wgmma.cuh).
 
   python3 scripts/compare_rmsq_mla_kernels.py ROOT_A ROOT_B [ROUNDS]
 

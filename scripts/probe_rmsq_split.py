@@ -48,12 +48,11 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 TRANSPOSE = ("          *reinterpret_cast<uint4*>(bk + n * W_BK + 16 * (kc ^ (n & 7))) =\n"
              "              make_uint4(o[0][c], o[1][c], o[2][c], o[3][c]);")
-MMA = ("      wgmma_s8(d, sw128_desc(xa + 32 * kk, 16, 1024), "
-       "sw128_desc(ba + 32 * kk, 16, 1024));")
-STORE = ("    *reinterpret_cast<uint4*>(out + (size_t)r * a.N * esz + 16 * c) =\n"
+MMA = "      wgmma_s8(d, da + 2 * kk, db + 2 * kk);"
+STORE = ("    *reinterpret_cast<uint4*>(dst + 16 * c) =\n"
          "        *reinterpret_cast<const uint4*>(ot + r * orow + 16 * c);")
 NO_STORE = ("    if (c < 0)\n"
-            "      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(ot);")
+            "      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(ot);")
 # (kernel, name, K, N, layers, bn)
 SHAPES = (("K2", "wqkv", 4096, 6144, 2, 512), ("K2", "w13", 4096, 28672, 2, 512),
           ("K1", "wo", 4096, 4096, 2, 512), ("K1", "w2", 14336, 4096, 2, 512),

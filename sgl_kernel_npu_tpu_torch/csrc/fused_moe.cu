@@ -27,25 +27,27 @@
 // so the plain version (fused_moe_pallas.py::fused_moe_layer_ref) on the card
 // gives the same numbers; the int32 sums are exact.
 //
-// One launch, a persistent grid. The work is a list of items in dependency
-// order: the phase-S chunks, then the GMM1 tiles (TM rows x 128 columns of
-// ug, expert-major, the m-tiles of a column panel next to each other
-// so that the second reads the panel from L2), then one requantisation item
-// per (expert, m-tile), then the GMM2 tiles, whose epilogue is phase C. A
-// block claims the next item from a global counter; an item waits only on
-// items before it in the list:
+// One launch, a persistent grid of one block an SM. The work is a list of
+// items in dependency order: the phase-S chunks, then the GMM1 tiles (TM =
+// 128 rows x 256 columns of ug, expert-major, the m-tiles of a column panel
+// next to each other so that the second reads the panel from L2), then the
+// requantisation items (RQ = 16 rows of an m-tile each), then the GMM2
+// tiles, whose epilogue is phase C. A block claims the next item from a
+// global counter; an item waits only on items before it in the list:
 //   GMM1 (e, *)   until arrive[e] counts the chunks recv_cnt announces for e,
 //                 bumped by each phase-S chunk (release: __threadfence, then
-//                 atomicAdd; acquire: ld.acquire.gpu, then __syncthreads);
+//                 atomicAdd; acquire: ld.acquire.gpu, then a barrier or,
+//                 before TMA reads, fence.proxy.async.global);
 //   requant (e,m) until g1_done[e, m] counts all GMM1 column tiles of (e, m);
-//   GMM2 (e, m)   until rq_done[e, m] is set.
+//   GMM2 (e, m)   until rq_done[e, m] counts all requant items of (e, m).
 // The grid never exceeds the number of blocks that fit on the card at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), and items are
-// claimed in order, so the oldest unfinished item always has its inputs and
-// no wait deadlocks (tested with every copy on one expert and with experts
-// of no rows). An m-tile with no live chunk is skipped by all its items.
-// Data written inside the launch is read through L2 (ld.global.cg): L1 is
-// not coherent across SMs.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, asked with the
+// block's threads and shared memory), and items are claimed in order, so
+// the oldest unfinished item always has its inputs and no wait deadlocks
+// (tested with every copy on one expert and with experts of no rows). An
+// m-tile with no live chunk is skipped by all its items. Data written
+// inside the launch is read through L2 (ld.global.cg, or TMA): L1 is not
+// coherent across SMs.
 //
 // The windows (recv, rs, arrival counters, back) are addressed through a
 // per-rank pointer table (Peers). One rank fills one entry and phase W, the
@@ -55,24 +57,37 @@
 // Bound on an H100: the expert weights (El * 3 * H * F bytes, 352 MB at the
 // bench shape: 0.105 ms at 3.35 TB/s) plus the token traffic; the int8
 // operations (2 * rows * 3 * H * F) are under half of that time at the
-// tensor-core rate. The GEMM tiles are the int8 mma.sync loop of
-// w8a8_core.cuh (one register-prefetched stage, byte-transposed weight rows)
-// with TM = 64-row tiles (a window's last m-tile may hold fewer rows: rows
-// past R * maxT read as zeros and are not written); the f32 GMM1 output and the requantised activation
-// go through device memory (ug, act). Simple first: no TMA, no wgmma.
+// tensor-core rate. The GEMM tiles run the int8 stage of w8a8_wgmma.cuh,
+// each block its warp-specialised 384 threads: one producer thread streams
+// a tile's weights by TMA into the raw ring (a 4-D map over the expert
+// bank, the expert a panel coordinate), another its x rows (recv for GMM1,
+// act for GMM2) through a 3-D map [El][R * maxT][K] whose rows past a
+// window read as zeros, so a window's partial last m-tile (maxT 8, 72)
+// needs no mask; the two consumer warpgroups transpose the weights on chip
+// and run int8 wgmma (consume_tile), then stage the tile in shared memory
+// and store it through a functor (store_tile): GMM1 writes ug rows below
+// the window's end, GMM2 scatters its rows into back. The rings' positions
+// carry over from item to item. recv and act are written inside the launch
+// by generic stores on other SMs and read here by TMA, through the async
+// proxy: the x loader waits (acquire), then fences the proxies
+// (fence.proxy.async.global) before its first load. At the bench shape
+// (R * maxT = 128) an expert's window is one m-tile, so each weight panel
+// streams once. The consumers also run the phase-S chunks and the requant
+// items; the f32 GMM1 output and the requantised activation go through
+// device memory (ug, act): SwiGLU inside GMM1's epilogue would need a row
+// maximum across its 16 column tiles.
 
-#include "device_once.cuh"
-#include "w8a8_core.cuh"
+#include "w8a8_wgmma.cuh"
 
 namespace {
 
-using skt_w8a8::BK;
-using skt_w8a8::BN;
-using skt_w8a8::SROW;
-
 constexpr int CHUNK = 8;
-constexpr int TM = 64;                // rows per GEMM tile
-constexpr int THREADS = 128;          // 4 warps
+constexpr int TM = W_BM;              // rows of a GEMM tile
+constexpr int THREADS = W_THREADS;    // a producer warpgroup, two consumer warpgroups
+constexpr int CONSUMERS = 256;        // the threads of phase S, requant and the GEMM loop
+constexpr int CWARPS = CONSUMERS / 32;
+constexpr int RQ = 16;                // rows of a requantisation item
+constexpr int RQT = TM / RQ;          // requantisation items of an m-tile
 constexpr int MAX_RANKS = 8;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
@@ -83,11 +98,9 @@ struct Peers {                        // entry r: rank r's windows
   __nv_bfloat16* back[MAX_RANKS];
 };
 
-struct Args {
+struct MoeArgs {
   const __nv_bfloat16* x_send;        // [sbuf, H]
-  const int8_t* w13;                  // [El, H, 2F]
   const float* w13s;                  // [El, 2F]
-  const int8_t* w2;                   // [El, F, H]
   const float* w2s;                   // [El, H]
   const int* send_cnt;                // [R*El] each
   const int* src_off;
@@ -112,25 +125,30 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-// Block-wide: wait until *p >= target. A wait of seconds (the inputs of an
+// One thread: wait until *p >= target. A wait of seconds (the inputs of an
 // item never come) traps, so that a fault ends the launch with an error
 // instead of holding the card.
-__device__ __forceinline__ void wait_for(const int* p, int target) {
-  if (threadIdx.x == 0) {
-    long long spins = 0;
-    while (ld_acquire(p) < target) {
-      __nanosleep(64);
-      if (++spins > (1LL << 26)) __trap();
-    }
+__device__ __forceinline__ void spin_until(const int* p, int target) {
+  long long spins = 0;
+  while (ld_acquire(p) < target) {
+    __nanosleep(64);
+    if (++spins > (1LL << 26)) __trap();
   }
-  __syncthreads();
 }
 
-// Block-wide: make this block's writes visible, then add one to *p.
-__device__ __forceinline__ void signal(int* p) {
+// The consumers (ct 0 .. 255): wait until *p >= target.
+__device__ __forceinline__ void wait_for(const int* p, int target, int ct) {
+  if (ct == 0) spin_until(p, target);
+  bar_sync(1, CONSUMERS);
+}
+
+// The consumers: make their writes visible, to other SMs' loads and to
+// their TMA reads (the async proxy), then add one to *p.
+__device__ __forceinline__ void signal(int* p, int ct) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
   __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(p, 1);
+  bar_sync(1, CONSUMERS);
+  if (ct == 0) atomicAdd(p, 1);
 }
 
 __device__ __forceinline__ float sigmoid_mul(float g, float u) {
@@ -140,17 +158,31 @@ __device__ __forceinline__ float sigmoid_mul(float g, float u) {
 
 // rows e * R * maxT + [m0, m0 + TM) of expert e hold a chunk someone sends
 // (the last m-tile of a window may hold fewer than TM rows)
-__device__ bool tile_live(const Args& a, int e, int mt) {
+__device__ bool tile_live(const MoeArgs& a, int e, int mt) {
   for (int r = mt * TM; r < min((mt + 1) * TM, a.erows); r += CHUNK) {
     const int src = r / a.maxT, within = r % a.maxT;
-    if (within < a.recv_cnt[src * a.El + e]) return true;
+    if (within < __ldg(a.recv_cnt + src * a.El + e)) return true;
   }
   return false;
 }
 
-// Phase S, send-buffer chunk q: find its slice, quantise its rows into the
-// destination window, count the chunk at the destination expert.
-__device__ void send_chunk(const Args& a, int q) {
+// the chunks recv_cnt announces for expert e
+__device__ int chunks_for(const MoeArgs& a, int e) {
+  int chunks = 0;
+  for (int src = 0; src < a.R; ++src)
+    chunks += (__ldg(a.recv_cnt + src * a.El + e) + CHUNK - 1) / CHUNK;
+  return chunks;
+}
+
+// the requant items of m-tile mt (those holding a row of the window)
+__device__ __forceinline__ int rq_items(const MoeArgs& a, int mt) {
+  return (min(TM, a.erows - mt * TM) + RQ - 1) / RQ;
+}
+
+// Phase S, send-buffer chunk q (the consumers): find its slice, quantise
+// its rows into the destination window, count the chunk at the destination
+// expert.
+__device__ void send_chunk(const MoeArgs& a, int q, int ct) {
   const int row0 = q * CHUNK;
   for (int i = 0; i < a.R * a.El; ++i) {
     const int base = a.src_off[i] / CHUNK * CHUNK;
@@ -159,8 +191,8 @@ __device__ void send_chunk(const Args& a, int q) {
     const int dst = i / a.El, e = i % a.El;
     const int dst0 = a.dst_off[i] / CHUNK * CHUNK + (row0 - base);
     const int rows = a.El * a.R * a.maxT;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int j = warp; j < CHUNK; j += THREADS / 32) {
+    const int lane = ct & 31, warp = ct >> 5;
+    for (int j = warp; j < CHUNK; j += CWARPS) {
       const int sr = row0 + j, dr = dst0 + j;
       if (sr >= a.sbuf || dr >= rows) continue;
       const __nv_bfloat16* src = a.x_send + (size_t)sr * a.H;
@@ -187,136 +219,20 @@ __device__ void send_chunk(const Args& a, int q) {
       }
       if (lane == 0) a.peers.rs[dst][dr] = scale;
     }
-    signal(a.peers.arrive[dst] + e);
+    signal(a.peers.arrive[dst] + e, ct);
     return;
   }
 }
 
-// One TM x 128 tile of A [TM, K] (int8 rows lda apart, read through L2) times
-// B (int8, K rows ldw apart, 128 columns), int32 sums, then epi(row, col,
-// acc) for every element of the first `mrows` rows; rows from mrows on read
-// as zeros (a window's partial last m-tile). The loop of w8a8_core.cuh.
-template <class Epi>
-__device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ A, int lda,
-                                          const int8_t* __restrict__ B, int ldw, int K,
-                                          int mrows, int8_t* As, int8_t* Bs, Epi epi) {
-  constexpr int VPR = BK / 16;                 // 16-byte vectors per row and stage
-  constexpr int APT = TM * VPR / THREADS;      // A vectors per thread
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kq = lane & 15;
-  const int nc = (warp * 2 + (lane >> 4)) * 16;
-  const int8_t* bcol = B + nc;                 // this thread's 16 columns
-  int4 areg[APT], breg[4];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < APT; ++i) {
-      const int v = tid + i * THREADS, r = v / VPR, c = (v % VPR) * 16;
-      areg[i] = r < mrows ? __ldcg(reinterpret_cast<const int4*>(A + (size_t)r * lda + k0 + c))
-                          : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      breg[j] = __ldg(reinterpret_cast<const int4*>(bcol + (size_t)(k0 + kq * 4 + j) * ldw));
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < APT; ++i) {
-      const int v = tid + i * THREADS, r = v / VPR, c = (v % VPR) * 16;
-      *reinterpret_cast<int4*>(As + r * SROW + c) = areg[i];
-    }
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(&breg[0]);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(&breg[1]);
-    const uint32_t* r2 = reinterpret_cast<const uint32_t*>(&breg[2]);
-    const uint32_t* r3 = reinterpret_cast<const uint32_t*>(&breg[3]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t o[4];
-      skt_w8a8::transpose4x4(r0[q], r1[q], r2[q], r3[q], o);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        *reinterpret_cast<uint32_t*>(Bs + (nc + q * 4 + c) * SROW + kq * 4) = o[c];
-    }
-  };
-
-  constexpr int MTL = 2, NTL = 8;              // m16 / n8 tiles per warp (2 x 2 warps)
-  int32_t acc[MTL][NTL][4];
-#pragma unroll
-  for (int m = 0; m < MTL; ++m)
-#pragma unroll
-    for (int n = 0; n < NTL; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
-  const int wm = warp / 2, wn = warp % 2;
-  const int g = lane >> 2, t4 = (lane & 3) * 4;
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();                           // the previous stage's fragments are read
-    store();
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[MTL][4], bf[NTL][2];
-#pragma unroll
-      for (int m = 0; m < MTL; ++m) {
-        const int8_t* ap = As + ((wm * MTL + m) * 16 + g) * SROW + kk + t4;
-        af[m][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[m][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * SROW);
-        af[m][2] = *reinterpret_cast<const uint32_t*>(ap + 16);
-        af[m][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * SROW + 16);
-      }
-#pragma unroll
-      for (int n = 0; n < NTL; ++n) {
-        const int8_t* bp = Bs + ((wn * NTL + n) * 8 + g) * SROW + kk + t4;
-        bf[n][0] = *reinterpret_cast<const uint32_t*>(bp);
-        bf[n][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
-      }
-#pragma unroll
-      for (int m = 0; m < MTL; ++m)
-#pragma unroll
-        for (int n = 0; n < NTL; ++n) skt_w8a8::mma_s8(acc[m][n], af[m], bf[n]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MTL; ++m)
-#pragma unroll
-    for (int n = 0; n < NTL; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = (wm * MTL + m) * 16 + g + (e >> 1) * 8;
-        if (r < mrows) epi(r, (wn * NTL + n) * 8 + (lane & 3) * 2 + (e & 1), acc[m][n][e]);
-      }
-}
-
-// GMM1 tile (e, column tile nt, m-tile mt): 128 columns of ug = [gate | up].
-__device__ void gmm1(const Args& a, int e, int nt, int mt, int8_t* As, int8_t* Bs) {
+// Requantisation item (e, mt, sub) (the consumers): act = SwiGLU(ug) per
+// row, int8 by row, for rows mt * TM + sub * RQ .. + RQ - 1 of the window.
+__device__ void requant(const MoeArgs& a, int e, int mt, int sub, int ct) {
+  wait_for(a.g1_done + e * a.MT + mt, a.NT1, ct);
   const int f2 = 2 * a.F;
-  const int row0 = e * a.R * a.maxT + mt * TM;
-  int chunks = 0;                              // chunks announced for expert e
-  for (int src = 0; src < a.R; ++src)
-    chunks += (a.recv_cnt[src * a.El + e] + CHUNK - 1) / CHUNK;
-  wait_for(a.peers.arrive[a.me] + e, chunks);
-  const int8_t* A = a.peers.recv[a.me] + (size_t)row0 * a.H;
-  const int8_t* B = a.w13 + (size_t)e * a.H * f2 + nt * BN;
-  const float* rs = a.peers.rs[a.me] + row0;
-  const float* ws = a.w13s + (size_t)e * f2 + nt * BN;
-  float* ug = a.ug + (size_t)row0 * f2 + nt * BN;
-  gemm_tile(A, a.H, B, f2, a.H, min(TM, a.erows - mt * TM), As, Bs,
-            [&](int r, int c, int32_t v) {
-              ug[(size_t)r * f2 + c] = __fmul_rn(__fmul_rn((float)v, __ldcg(rs + r)), ws[c]);
-            });
-  signal(a.g1_done + e * a.MT + mt);
-}
-
-// Requantisation item (e, mt): act = SwiGLU(ug) per row, int8 by row.
-__device__ void requant(const Args& a, int e, int mt) {
-  wait_for(a.g1_done + e * a.MT + mt, a.NT1);
-  const int f2 = 2 * a.F;
-  const int row0 = e * a.R * a.maxT + mt * TM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row1 = row0 + min(TM, a.erows - mt * TM);
-  for (int r = row0 + warp; r < row1; r += THREADS / 32) {
+  const int win0 = e * a.erows + mt * TM + sub * RQ;
+  const int lane = ct & 31, warp = ct >> 5;
+  const int row1 = e * a.erows + min(mt * TM + (sub + 1) * RQ, a.erows);
+  for (int r = win0 + warp; r < row1; r += CWARPS) {
     const float* ug = a.ug + (size_t)r * f2;
     float amax = 0.f;
     for (int j = lane * 4; j < a.F; j += 128) {
@@ -344,61 +260,187 @@ __device__ void requant(const Args& a, int e, int mt) {
     }
     if (lane == 0) a.asc[r] = sc;
   }
-  signal(a.rq_done + e * a.MT + mt);
+  signal(a.rq_done + e * a.MT + mt, ct);
 }
 
-// GMM2 tile (e, column tile nt, m-tile mt) and phase C of its rows.
-__device__ void gmm2(const Args& a, int e, int nt, int mt, int8_t* As, int8_t* Bs) {
-  wait_for(a.rq_done + e * a.MT + mt, 1);
-  const int row0 = e * a.R * a.maxT + mt * TM;
-  const int8_t* A = a.act + (size_t)row0 * a.F;
-  const int8_t* B = a.w2 + (size_t)e * a.F * a.H + nt * BN;
-  const float* asc = a.asc + row0;
-  const float* ws = a.w2s + (size_t)e * a.H + nt * BN;
-  gemm_tile(A, a.F, B, a.H, a.F, min(TM, a.erows - mt * TM), As, Bs,
-            [&](int r, int c, int32_t v) {
-              const int j = mt * TM + r;       // row of expert e
-              const int src = j / a.maxT, within = j % a.maxT;
-              const int w0 = within / CHUNK * CHUNK;
-              const int slice = src * a.El + e;
-              if (w0 >= a.recv_cnt[slice]) return;
-              const int brow = (a.back_off[slice] + w0) / CHUNK * CHUNK + within % CHUNK;
-              if (brow >= a.sbuf) return;
-              const float y = __fmul_rn(__fmul_rn((float)v, __ldcg(asc + r)), ws[c]);
-              a.peers.back[src][(size_t)brow * a.H + nt * BN + c] = __float2bfloat16_rn(y);
-            });
-}
+// An item of the list, decoded
+enum Kind { SEND, GMM1, REQUANT, GMM2, DONE };
+struct Item {
+  Kind kind;
+  int q, e, nt, mt, sub;              // q: SEND's chunk
+};
 
-__global__ void __launch_bounds__(THREADS) fused_moe_kernel(const Args a) {
-  __shared__ __align__(16) int8_t As[TM * SROW];
-  __shared__ __align__(16) int8_t Bs[BN * SROW];
-  __shared__ int s_item;
-  const int total = a.n_s + a.n_g1 + a.n_rq + a.n_g2;
-  for (;;) {
-    __syncthreads();                           // the previous item is done with s_item
-    if (threadIdx.x == 0) s_item = atomicAdd(a.work, 1);
-    __syncthreads();
-    int item = s_item;
-    if (item >= total) return;
-    if (item < a.n_s) {
-      send_chunk(a, item);
-      continue;
-    }
-    item -= a.n_s;
-    if (item < a.n_g1) {                       // (e, nt, mt), mt fastest
-      const int e = item / (a.NT1 * a.MT), rem = item % (a.NT1 * a.MT);
-      if (tile_live(a, e, rem % a.MT)) gmm1(a, e, rem / a.MT, rem % a.MT, As, Bs);
-      continue;
-    }
-    item -= a.n_g1;
-    if (item < a.n_rq) {                       // (e, mt)
-      if (tile_live(a, item / a.MT, item % a.MT)) requant(a, item / a.MT, item % a.MT);
-      continue;
-    }
-    item -= a.n_rq;                            // (e, nt, mt), mt fastest
-    const int e = item / (a.NT2 * a.MT), rem = item % (a.NT2 * a.MT);
-    if (tile_live(a, e, rem % a.MT)) gmm2(a, e, rem / a.MT, rem % a.MT, As, Bs);
+__device__ Item decode(const MoeArgs& a, int item) {
+  Item it{DONE, 0, 0, 0, 0, 0};
+  if (item < a.n_s) {
+    it.kind = SEND;
+    it.q = item;
+    return it;
   }
+  item -= a.n_s;
+  if (item < a.n_g1) {                         // (e, nt, mt), mt fastest
+    it.kind = GMM1;
+    it.e = item / (a.NT1 * a.MT);
+    const int rem = item % (a.NT1 * a.MT);
+    it.nt = rem / a.MT;
+    it.mt = rem % a.MT;
+    return it;
+  }
+  item -= a.n_g1;
+  if (item < a.n_rq) {                         // (e, mt, sub)
+    it.kind = REQUANT;
+    it.e = item / (a.MT * RQT);
+    const int rem = item % (a.MT * RQT);
+    it.mt = rem / RQT;
+    it.sub = rem % RQT;
+    return it;
+  }
+  item -= a.n_rq;
+  if (item < a.n_g2) {                         // (e, nt, mt), mt fastest
+    it.kind = GMM2;
+    it.e = item / (a.NT2 * a.MT);
+    const int rem = item % (a.NT2 * a.MT);
+    it.nt = rem / a.MT;
+    it.mt = rem % a.MT;
+  }
+  return it;
+}
+
+// Every thread of the block: the next item. Barrier 3 over all 384 threads
+// (the producers' lanes converge first: bar.sync is warp-aligned).
+__device__ __forceinline__ Item claim(const MoeArgs& a, int* s_item) {
+  __syncwarp();
+  bar_sync(3, THREADS);                        // the last item is done with s_item
+  if (threadIdx.x == 0) *s_item = atomicAdd(a.work, 1);
+  bar_sync(3, THREADS);
+  return decode(a, *s_item);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_moe_kernel(const __grid_constant__ CUtensorMap w13map,
+                     const __grid_constant__ CUtensorMap w2map,
+                     const __grid_constant__ CUtensorMap recvmap,
+                     const __grid_constant__ CUtensorMap actmap, const MoeArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int s_item;
+  WgSmem& sm = *reinterpret_cast<WgSmem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  if (threadIdx.x == 0) init_rings(sm);
+  __syncthreads();
+  // the stages that have gone through the weight and x rings so far, the
+  // same count in the producers and the consumers
+  uint32_t w0 = 0, x0 = 0;
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    for (;;) {
+      const Item it = claim(a, &s_item);
+      if (it.kind == DONE) return;
+      if (it.kind == SEND || it.kind == REQUANT || !tile_live(a, it.e, it.mt)) continue;
+      const bool g1 = it.kind == GMM1;
+      const int nk = ((g1 ? a.H : a.F) + W_BK - 1) / W_BK;
+      if (threadIdx.x == 0) {
+        const int n = g1 ? 2 * a.F : a.H;
+        produce_weights(sm, g1 ? &w13map : &w2map, w0, nk, 0, it.nt * BN, n, n, it.e);
+      } else if (threadIdx.x == 32) {
+        // the x rows were written in this launch by generic stores on other
+        // SMs: acquire them, then order this thread's TMA reads (the async
+        // proxy) after them
+        if (g1)
+          spin_until(a.peers.arrive[a.me] + it.e, chunks_for(a, it.e));
+        else
+          spin_until(a.rq_done + it.e * a.MT + it.mt, rq_items(a, it.mt));
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        for (int j = 0; j < nk; ++j) {
+          const uint32_t s = x0 + j;
+          const int st = s % W_X;
+          if (s >= W_X) mbar_wait(&sm.xempty[st], ((s / W_X) - 1) & 1);
+          mbar_expect_tx(&sm.xfull[st], W_BM * W_BK);
+          tma_load_3d(sm.x[st], g1 ? &recvmap : &actmap, &sm.xfull[st], j * W_BK, it.mt * TM,
+                      it.e);
+        }
+      }
+      w0 += nk;
+      x0 += nk;
+    }
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int ct = threadIdx.x - 128;              // consumer thread 0 .. 255
+  const int lane = ct % 32;
+  const int lr = 64 * (ct / 128) + 16 * ((ct / 32) % 4) + (lane >> 2);   // rows lr, lr + 8
+  for (;;) {
+    const Item it = claim(a, &s_item);
+    if (it.kind == DONE) return;
+    if (it.kind == SEND) {
+      send_chunk(a, it.q, ct);
+      continue;
+    }
+    if (!tile_live(a, it.e, it.mt)) continue;
+    if (it.kind == REQUANT) {
+      if (it.sub < rq_items(a, it.mt)) requant(a, it.e, it.mt, it.sub, ct);
+      continue;
+    }
+    const bool g1 = it.kind == GMM1;
+    const int nk = ((g1 ? a.H : a.F) + W_BK - 1) / W_BK;
+    int32_t d[128];
+    consume_tile(sm, w0, x0, nk, ct, d);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.xempty[(x0 + nk - 1) % W_X]);   // the tile's last x stage
+    w0 += nk;
+    x0 += nk;
+    // the epilogue, (acc * x scale) * column scale as the plain version
+    // rounds it; the x scales were written in this launch (read from L2
+    // after the x rows, which came after the acquire)
+    const int n = g1 ? 2 * a.F : a.H, n0 = it.nt * BN;
+    const int row0 = it.e * a.erows + it.mt * TM;   // the tile's first row
+    const int rows = min(TM, a.erows - it.mt * TM);
+    const float* xsc = (g1 ? a.peers.rs[a.me] : a.asc) + row0;
+    const float* wsc = (g1 ? a.w13s : a.w2s) + (size_t)it.e * n;
+    const float my_ws = n0 + ct < n ? __ldg(wsc + n0 + ct) : 0.f;
+    const float xs0 = lr < rows ? __ldcg(xsc + lr) : 0.f;
+    const float xs1 = lr + 8 < rows ? __ldcg(xsc + lr + 8) : 0.f;
+    if (g1) {
+      float* ug = a.ug + (size_t)row0 * n + n0;
+      store_tile<EpiTiled>(sm, ct, d, my_ws, 0, xs0, xs1, true, rows, min(BN, n - n0),
+                           [&](int r) { return reinterpret_cast<unsigned char*>(ug + (size_t)r * n); });
+      signal(a.g1_done + it.e * a.MT + it.mt, ct);
+    } else {
+      // phase C: row j of expert e's window (source src = j / maxT, within =
+      // j % maxT) lands at row (back_off + within0) / CHUNK * CHUNK + within
+      // % CHUNK of src's back if its chunk was received
+      store_tile<EpiTiled>(sm, ct, d, my_ws, 0, xs0, xs1, false, rows, min(BN, n - n0),
+                           [&](int r) -> unsigned char* {
+                             const int j = it.mt * TM + r;
+                             const int src = j / a.maxT, within = j % a.maxT;
+                             const int w0c = within / CHUNK * CHUNK;
+                             const int slice = src * a.El + it.e;
+                             if (w0c >= __ldg(a.recv_cnt + slice)) return nullptr;
+                             const int brow = (__ldg(a.back_off + slice) + w0c) / CHUNK * CHUNK +
+                                              within % CHUNK;
+                             if (brow >= a.sbuf) return nullptr;
+                             return reinterpret_cast<unsigned char*>(
+                                 a.peers.back[src] + (size_t)brow * a.H + n0);
+                           });
+    }
+    // the staged tile went through shared memory by generic loads and
+    // stores; the next item's TMA loads write there through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+}
+
+// K11's x maps: a window buffer [El * R * maxT, K] int8 as [El][R * maxT][K]
+// with boxes of 128 bytes x 128 rows x 1 expert, 128-byte swizzle, the
+// layout the stage's wgmma reads; rows past a window come as zeros.
+bool encode_rows_map(CUtensorMap* map, const int8_t* rows, int K, int erows, int El) {
+  const EncodeTiled f = encode_fn();
+  if (f == nullptr) return false;
+  const cuuint32_t one[3] = {1, 1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)erows, (cuuint64_t)El};
+  const cuuint64_t str[2] = {(cuuint64_t)K, (cuuint64_t)K * erows};
+  const cuuint32_t box[3] = {W_BK, W_BM, 1};
+  return f(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<int8_t*>(rows), dims, str, box, one,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -407,8 +449,9 @@ __global__ void __launch_bounds__(THREADS) fused_moe_kernel(const Args a) {
 // int8, w2s [El, H] f32, the five tables [R*El] int32; outputs recv
 // [El*R*maxT, H] int8, rs [El*R*maxT] f32, back [sbuf, H] bf16, zeroed by the
 // caller; scratch ug [El*R*maxT, 2F] f32, act [El*R*maxT, F] int8, asc
-// [El*R*maxT] f32, ctr [1 + El + 2*El*ceil(R*maxT/64)] int32 (zeroed here).
-// Needs H % 128 == 0, F % 64 == 0, maxT % 8 == 0; one rank only (R == 1).
+// [El*R*maxT] f32, ctr [1 + El + 2*El*ceil(R*maxT/128)] int32 (zeroed here).
+// Needs H % 128 == 0, F % 64 == 0, maxT % 8 == 0, 16-byte aligned operands;
+// one rank only (R == 1).
 extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w13s,
                              const void* w2, const void* w2s, const void* send_cnt,
                              const void* src_off, const void* dst_off, const void* recv_cnt,
@@ -419,11 +462,9 @@ extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w1
   if (El <= 0 || H % 128 || F % 64 || F <= 0 || maxT <= 0 || maxT % CHUNK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a{};
+  MoeArgs a{};
   a.x_send = static_cast<const __nv_bfloat16*>(x_send);
-  a.w13 = static_cast<const int8_t*>(w13);
   a.w13s = static_cast<const float*>(w13s);
-  a.w2 = static_cast<const int8_t*>(w2);
   a.w2s = static_cast<const float*>(w2s);
   a.send_cnt = static_cast<const int*>(send_cnt);
   a.src_off = static_cast<const int*>(src_off);
@@ -442,8 +483,8 @@ extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w1
   a.sbuf = sbuf;
   a.erows = R * maxT;
   a.MT = (a.erows + TM - 1) / TM;
-  a.NT1 = 2 * F / BN;
-  a.NT2 = H / BN;
+  a.NT1 = (2 * F + BN - 1) / BN;
+  a.NT2 = (H + BN - 1) / BN;
   int* c = static_cast<int*>(ctr);
   // ctr: [work][arrive El][g1_done El*MT][rq_done El*MT]
   a.work = c;
@@ -455,18 +496,26 @@ extern "C" int skt_fused_moe(const void* x_send, const void* w13, const void* w1
   a.peers.back[0] = static_cast<__nv_bfloat16*>(back);
   a.n_s = (sbuf + CHUNK - 1) / CHUNK;
   a.n_g1 = El * a.NT1 * a.MT;
-  a.n_rq = El * a.MT;
+  a.n_rq = El * a.MT * RQT;
   a.n_g2 = El * a.NT2 * a.MT;
+  CUtensorMap w13map{}, w2map{}, recvmap{}, actmap{};
+  if (!encode_wmap(&w13map, static_cast<const int8_t*>(w13), H, 2 * F, El) ||
+      !encode_wmap(&w2map, static_cast<const int8_t*>(w2), F, H, El) ||
+      !encode_rows_map(&recvmap, static_cast<const int8_t*>(recv), H, a.erows, El) ||
+      !encode_rows_map(&actmap, static_cast<const int8_t*>(act), F, a.erows, El))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(ctr, 0, sizeof(int) * (1 + El + 2 * El * a.MT), st);
   if (err != cudaSuccess) return (int)err;
-  // the co-resident block count, taken once per device (the first call on a
-  // card is not inside a CUDA graph capture)
+  // the co-resident block count at this block's threads and shared memory,
+  // taken once per device (the first call on a card is not inside a CUDA
+  // graph capture)
+  if ((err = skt::ensure_smem(fused_moe_kernel, W_SMEM)) != cudaSuccess) return (int)err;
   int resident = 0;
-  if ((err = skt::resident_blocks(fused_moe_kernel, THREADS, 0, resident)) != cudaSuccess)
+  if ((err = skt::resident_blocks(fused_moe_kernel, THREADS, W_SMEM, resident)) != cudaSuccess)
     return (int)err;
   const int total = a.n_s + a.n_g1 + a.n_rq + a.n_g2;
   const int grid = total < resident ? total : resident;
-  fused_moe_kernel<<<grid, THREADS, 0, st>>>(a);
+  fused_moe_kernel<<<grid, THREADS, W_SMEM, st>>>(w13map, w2map, recvmap, actmap, a);
   return (int)cudaGetLastError();
 }
 

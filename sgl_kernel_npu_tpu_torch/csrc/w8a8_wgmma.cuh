@@ -1,12 +1,14 @@
-// The int8 GEMM stage that kernels K1 and A (w8a8_gemm_tiled.cu) and K2
-// (rmsq_gemm.cu) share: int8 rows xq [M, K] times layer li of an N-major
-// bank pretiled to [L, N/bn, K, bn] (A: a plain [L, K, N] bank, one panel of
-// bn = N), with exact int32 sums and a dequant epilogue whose order is a
-// template parameter, so that each kernel rounds as its own plain version
-// does:
+// The int8 GEMM stage that kernels K1 and A (w8a8_gemm_tiled.cu), K2
+// (rmsq_gemm.cu) and K8 (w8a8_gemm.cu) share, and whose 128-row tile K11
+// (fused_moe.cu) runs inside its persistent blocks: int8 rows xq [M, K]
+// times layer li of an N-major bank pretiled to [L, N/bn, K, bn] (A: a plain
+// [L, K, N] bank, one panel of bn = N; K8: the expert of each block_m-row
+// tile, eid[m / block_m] clamped to [0, groups)), with exact int32 sums and
+// a dequant epilogue whose order is a template parameter, so that each
+// kernel rounds as its own plain version does:
 //
 //   EpiRmsq  (K2): out = (float(acc + bias[n]) * ws[n]) * xs[m]
-//   EpiTiled (K1), EpiBank (A): out = (float(acc) * xs[m]) * ws[n]
+//   EpiTiled (K1), EpiBank (A), EpiGrouped (K8): out = (float(acc) * xs[m]) * ws[n]
 //
 // Bound on an H100: at decode (M = 8 to 128) a call moves the K*N weight
 // bytes of its bank panel, below the int8 tensor-core line, so 3.35 TB/s
@@ -17,34 +19,46 @@
 // the weights are byte-transposed on chip. A 256-column tile may straddle
 // two panels (bn 128 or 384): the loaders find the panel of each 128-column
 // box (M > 32) or 16-byte chunk (M <= 32).
-//   * M > 32: 128-row tiles on int8 wgmma. One producer thread loads 128 K
-//     bytes a stage of weights by TMA (32 KB in a ring of 3, freed once
-//     transposed), another the 16 KB of x rows (a ring of 3); the two
-//     consumer warpgroups transpose each weight tile into the 128-byte
-//     swizzled K-major layout (two buffers; 16 k-rows of 8 columns a thread,
-//     byte permutes, conflict-free by the weight map's own swizzle), then
-//     each runs four wgmma m64n256k32 on its 64 x rows while the next tile
-//     is transposed; setmaxnreg gives the producers 56 registers and the
-//     consumers 224. The epilogue stages the tile through shared memory and
-//     stores 16-byte pieces.
-//   * M <= 32: 16-row tiles on int8 mma.sync m16n8k32: a producer warp's
-//     cp.async ring of 8 stages of 64 K bytes, four consumer warps of 16 x
-//     64 outputs that read four 8-byte pieces of rows 4t .. 4t + 3 (a
-//     swizzled layout: no bank conflicts) and byte-transpose them in
-//     registers into B fragments (n-tile j holds columns 8g + j, so a lane
-//     ends with 16 contiguous output columns).
+//   * M > 32 (K8: block_m a multiple of 128): 128-row tiles on int8
+//     wgmma. One producer thread loads 128 K bytes a stage of weights by
+//     TMA (32 KB in a ring of 3, freed once transposed), another the 16 KB
+//     of x rows (a ring of 3); the two consumer warpgroups transpose each
+//     weight tile into the 128-byte swizzled K-major layout (two buffers;
+//     16 k-rows of 8 columns a thread, byte permutes, conflict-free by the
+//     weight map's own swizzle), then each runs four wgmma m64n256k32 on its
+//     64 x rows while the next tile is transposed; setmaxnreg gives the
+//     producers 56 registers and the consumers 224. The epilogue stages the
+//     tile through shared memory and stores 16-byte pieces. The producers'
+//     loads (produce_weights), the consumers' loop (consume_tile) and the
+//     staged epilogue (store_tile, rows to wherever a functor says) are
+//     device functions that K11 calls on its own items.
+//   * M <= 32 (K8: any other block_m, a multiple of 32): 16-row tiles on
+//     int8 mma.sync m16n8k32: a producer warp's cp.async ring of 8 stages
+//     of 64 K bytes, four consumer warps of 16 x 64 outputs that read four
+//     8-byte pieces of rows 4t .. 4t + 3 (a swizzled layout: no bank
+//     conflicts) and byte-transpose them in registers into B fragments
+//     (n-tile j holds columns 8g + j, so a lane ends with 16 contiguous
+//     output columns).
+// K8 finds its row tile's expert on the card (the host never reads eid):
+// the 128-row tiles' weight map covers the whole bank, expert e's panels
+// being contiguous, so the expert is a panel coordinate (e * N / bn + j);
+// the 16-row tiles offset their cp.async source by the expert's block. A
+// K8 row tile whose rows all have x_scale 0 (the padding of the aligned
+// compaction) is zero whatever the weights: its split 0 writes the zeros
+// and no split streams weights.
 // Where there are several row tiles (M > 16 on 16-row tiles, M > 128 on
 // 128-row ones) the grid is (row tiles, column tiles, splits), the row tile
 // fastest: the card issues the row tiles of one weight tile together, so
-// that the repeats of a weight tile come from L2; otherwise it is (column
-// tiles, 1, splits). When the output has too few tiles for the card, the
-// wrapper splits K over blocks (the plan is ops/matmul.py::gemm_plan); each
-// split writes its int32 partial, and the last split of a tile to take a
-// ticket from the tile's integer arrival counter adds the others (exact in
-// any order; 128-row tiles by bulk copies of the partials, 16-row tiles
-// with at most 8 rows below M moving those rows' sums alone), runs the
-// epilogue and resets the counter to 0: no host memset, no float atomic, no
-// second kernel, and a second call is bit-identical.
+// that the repeats of a weight tile come from L2 (K8: the row tiles of one
+// expert); otherwise it is (column tiles, 1, splits). When the output has
+// too few tiles for the card, the wrapper splits K over blocks (the plan is
+// ops/matmul.py::gemm_plan); each split writes its int32 partial, and the
+// last split of a tile to take a ticket from the tile's integer arrival
+// counter adds the others (exact in any order; 128-row tiles by bulk
+// copies of the partials, 16-row tiles with at most 8 rows below M moving
+// those rows' sums alone), runs the epilogue and resets the counter to 0:
+// no host memset, no float atomic, no second kernel, and a second call is
+// bit-identical.
 
 #pragma once
 
@@ -130,23 +144,28 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&
 
 struct Args {
   const int8_t* xq;      // [M, K]
-  const int8_t* w;       // layer li of the bank: [N / bn, K, bn]
-  const float* wsc;      // [N] of layer li
+  const int8_t* w;       // layer li of the bank: [N / bn, K, bn] (K8: the bank [G, N / bn, K, bn])
+  const float* wsc;      // [N] of layer li (K8: [G, N])
   const int32_t* bias;   // [N] of layer li, or null
   const float* xs;       // [M]
   void* out;             // [M, N] bf16, or f32 when out_f32
   int4* part;            // split partials, or null
   int* arrivals;         // [tiles], or null
+  const int32_t* eid;    // K8: [M / block_m] expert of each row tile; else null
   int M, N, K, bn, splits, out_f32;
+  int block_m, groups;   // K8: rows of an expert tile, experts in the bank
 };
 
 // The epilogue orders: each rounds every product on its own (no FMA).
+// `grouped` marks K8's, whose row tiles each read their own expert.
 struct EpiRmsq {
+  static constexpr bool grouped = false;
   static __device__ __forceinline__ float apply(int32_t acc, int32_t bias, float ws, float xs) {
     return __fmul_rn(__fmul_rn((float)(acc + bias), ws), xs);
   }
 };
 struct EpiTiled {
+  static constexpr bool grouped = false;
   static __device__ __forceinline__ float apply(int32_t acc, int32_t, float ws, float xs) {
     return __fmul_rn(__fmul_rn((float)acc, xs), ws);
   }
@@ -154,6 +173,35 @@ struct EpiTiled {
 // A (a bank [L, K, N], one panel of N columns) rounds as K1: a type of its
 // own, so that a profile tells A's launches from K1's
 struct EpiBank : EpiTiled {};
+// K8 rounds as K1 too, with an expert per row tile
+struct EpiGrouped : EpiTiled {
+  static constexpr bool grouped = true;
+};
+
+// K8: the expert of the row tile at m0, clamped to [0, groups) as the
+// plain version clamps it
+__device__ __forceinline__ int tile_expert(const Args& a, int m0) {
+  return min(max(__ldg(a.eid + m0 / a.block_m), 0), a.groups - 1);
+}
+
+// K8, block-wide at the top of a kernel of THREADS threads: true where the
+// BM rows at m0 all have x_scale 0 (the padding of the aligned compaction).
+// Such a tile is zero whatever the weights, so split 0 writes its zeros and
+// no split streams weights (nor takes a ticket: no counter moves).
+template <int BM, int THREADS>
+__device__ __forceinline__ bool padding_tile(const Args& a, int m0, int n0) {
+  const int t = threadIdx.x;
+  if (__syncthreads_or(t < BM && m0 + t < a.M && a.xs[m0 + t] != 0.f)) return false;
+  if (blockIdx.z == 0) {
+    const int esz = a.out_f32 ? 4 : 2;
+    const int rows = min(BM, a.M - m0), chunks = min(BN, a.N - n0) * esz / 16;
+    unsigned char* out = static_cast<unsigned char*>(a.out) + ((size_t)m0 * a.N + n0) * esz;
+    for (int i = t; i < rows * chunks; i += THREADS)
+      *reinterpret_cast<uint4*>(out + (size_t)(i / chunks) * a.N * esz + 16 * (i % chunks)) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+  return true;
+}
 
 // this split's K stages (of bk bytes) of a tile: [k0, k0 + n)
 __device__ __forceinline__ void split_range(const Args& a, int bk, int& k0, int& n) {
@@ -284,6 +332,15 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
   int kb, nk;
   split_range(a, S_BK, kb, nk);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the bank block and column scales of the tile's layer (K8: its expert)
+  const int8_t* w = a.w;
+  const float* wsc = a.wsc;
+  if constexpr (Epi::grouped) {
+    if (padding_tile<16, S_THREADS>(a, m0, n0)) return;
+    const int e = tile_expert(a, m0);
+    w += (size_t)e * a.N * a.K;
+    wsc += (size_t)e * a.N;
+  }
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -303,7 +360,7 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
     const int col = n0 + 16 * cc;
     const bool wok = col < a.N;
     const int panel = wok ? col / a.bn : 0;
-    const int8_t* wsrc = a.w + (size_t)panel * a.K * a.bn + (wok ? col - panel * a.bn : 0);
+    const int8_t* wsrc = w + (size_t)panel * a.K * a.bn + (wok ? col - panel * a.bn : 0);
     for (int j = 0; j < nk; ++j) {
       const int st = j % S_STAGES;
       if (j >= S_STAGES) mbar_wait(&empty[st], ((j / S_STAGES) - 1) & 1);
@@ -388,7 +445,7 @@ __global__ void __launch_bounds__(S_THREADS, 1) int8_mma_gemm(const Args a) {
   int32_t bv[16];
 #pragma unroll
   for (int i = 0; i < 16; i += 4) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(a.wsc + c0 + i));
+    const float4 f = __ldg(reinterpret_cast<const float4*>(wsc + c0 + i));
     wsv[i] = f.x, wsv[i + 1] = f.y, wsv[i + 2] = f.z, wsv[i + 3] = f.w;
     const int4 b4 = a.bias != nullptr ? __ldg(reinterpret_cast<const int4*>(a.bias + c0 + i))
                                       : make_int4(0, 0, 0, 0);
@@ -529,95 +586,73 @@ __device__ __forceinline__ void add_splits_bulk(const Args& a, int ct, int32_t (
   if (ct == 0) a.arrivals[tile] = 0;           // ready for the next call
 }
 
-template <class Epi>
-__global__ void __launch_bounds__(W_THREADS, 1)
-    int8_wgmma_gemm(const __grid_constant__ CUtensorMap wmap,
-                    const __grid_constant__ CUtensorMap xmap, const Args a) {
-  extern __shared__ unsigned char smem_raw[];
-  // aligned by pointer arithmetic on the shared array, so that the compiler
-  // keeps every access to `sm` a shared-memory one (through an integer
-  // cast it fell back to generic loads)
-  WgSmem& sm = *reinterpret_cast<WgSmem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  // the grid runs the row tiles fastest where there are several (see launch_gemm)
-  const bool rows_fast = a.M > W_BM;
-  const int m0 = (rows_fast ? blockIdx.x : 0) * W_BM;
-  const int n0 = (rows_fast ? blockIdx.y : blockIdx.x) * BN;
-  int kb, nk;
-  split_range(a, W_BK, kb, nk);
-  const int wg = threadIdx.x / 128;
-
-  if (threadIdx.x == 0) {
+// The barriers of the rings, by thread 0 before the block's first barrier.
+__device__ __forceinline__ void init_rings(WgSmem& sm) {
 #pragma unroll
-    for (int st = 0; st < W_RAW; ++st) {
-      mbar_init(&sm.wfull[st], 1);               // the loading thread's expect_tx
-      mbar_init(&sm.wempty[st], 8);              // one per consumer warp
-    }
-#pragma unroll
-    for (int st = 0; st < W_X; ++st) {
-      mbar_init(&sm.xfull[st], 1);
-      mbar_init(&sm.xempty[st], 8);
-    }
-#pragma unroll
-    for (int st = 0; st < M_SLOTS; ++st) mbar_init(&sm.mfull[st], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int st = 0; st < W_RAW; ++st) {
+    mbar_init(&sm.wfull[st], 1);                 // the loading thread's expect_tx
+    mbar_init(&sm.wempty[st], 8);                // one per consumer warp
   }
-  __syncthreads();
-
-  if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    if (threadIdx.x == 0) {
-      // weights: two 128-column boxes a stage, each in the panel of its first
-      // column; columns past N and rows past K come as zeros
-      for (int j = 0; j < nk; ++j) {
-        const int st = j % W_RAW;
-        if (j >= W_RAW) mbar_wait(&sm.wempty[st], ((j / W_RAW) - 1) & 1);
-        mbar_expect_tx(&sm.wfull[st], 2 * W_HALF);
-        const int khi = (kb + j) * (W_BK / 16);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 128 * h, panel = col / a.bn;
-          tma_load_4d(sm.raw[st] + h * W_HALF, &wmap, &sm.wfull[st], col - panel * a.bn, khi,
-                      0, panel);
-        }
-      }
-    } else if (threadIdx.x == 32) {
-      // x: rows past M and columns past K come as zeros
-      for (int j = 0; j < nk; ++j) {
-        const int st = j % W_X;
-        if (j >= W_X) mbar_wait(&sm.xempty[st], ((j / W_X) - 1) & 1);
-        mbar_expect_tx(&sm.xfull[st], W_BM * W_BK);
-        tma_load_2d(sm.x[st], &xmap, &sm.xfull[st], (kb + j) * W_BK, m0);
-      }
-    }
-    return;
+  for (int st = 0; st < W_X; ++st) {
+    mbar_init(&sm.xfull[st], 1);
+    mbar_init(&sm.xempty[st], 8);
   }
+#pragma unroll
+  for (int st = 0; st < M_SLOTS; ++st) mbar_init(&sm.mfull[st], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-  const int ct = threadIdx.x - 128;              // consumer thread 0 .. 255
-  const int cw = ct / 128;                       // rows m0 + 64 cw ..
+// The weight producer of one tile (one thread): K stages kb .. kb + nk - 1
+// of the 256 columns from n0 into the raw ring, w0 stages having gone
+// through the ring before them, each stage two 128-column boxes, each in
+// the panel of its first column (plus panel0: K8's expert); columns past N
+// and rows past K come as zeros.
+__device__ __forceinline__ void produce_weights(WgSmem& sm, const CUtensorMap* wmap, uint32_t w0,
+                                                int nk, int kb, int n0, int N, int bn,
+                                                int panel0) {
+  for (int j = 0; j < nk; ++j) {
+    const uint32_t s = w0 + j;
+    const int st = s % W_RAW;
+    if (s >= W_RAW) mbar_wait(&sm.wempty[st], ((s / W_RAW) - 1) & 1);
+    mbar_expect_tx(&sm.wfull[st], 2 * W_HALF);
+    const int khi = (kb + j) * (W_BK / 16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a box past N reads past the last panel's columns: zeros
+      const int col = n0 + 128 * h, panel = min(col / bn, N / bn - 1);
+      tma_load_4d(sm.raw[st] + h * W_HALF, wmap, &sm.wfull[st], col - panel * bn, khi, 0,
+                  panel0 + panel);
+    }
+  }
+}
+
+// The consumers' loop over one 128 x 256 tile (the 256 consumer threads,
+// ct = 0 .. 255): nk K stages through the rings, w0 weight and x0 x stages
+// having gone through them before; the sums into d. Every wgmma is done on
+// return, and every x stage but the last released.
+__device__ __forceinline__ void consume_tile(WgSmem& sm, uint32_t w0, uint32_t x0, int nk,
+                                             int ct, int32_t (&d)[128]) {
+  const int cw = ct / 128;                       // rows 64 cw .. of the tile
   const int warp = ct / 32, lane = ct % 32;
   // transposer: thread (kc, nh, nb) turns k-rows 16 kc .. + 15 of the 8
   // columns at 16 nb + 8 nh into eight 16-byte K-major chunks
   const int kc = lane & 7, nh = (lane >> 3) & 1, nb = 2 * warp + (lane >> 4);
-  int32_t d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0;
-  // the epilogue's scale and bias of column n0 + ct, read before any output
-  // is written (a store through a.out could alias them, so the compiler
-  // would otherwise issue each load after the last store, one latency at a
-  // time) and kept in two registers until the rings are free
-  const float my_ws = n0 + ct < a.N ? __ldg(a.wsc + n0 + ct) : 0.f;
-  const int32_t my_bias = n0 + ct < a.N && a.bias != nullptr ? __ldg(a.bias + n0 + ct) : 0;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = m0 + 64 * cw + 16 * (warp % 4) + g;
-  const float xs0 = r0 < a.M ? a.xs[r0] : 0.f, xs1 = r0 + 8 < a.M ? a.xs[r0 + 8] : 0.f;
-
+  // the wgmma descriptors of x stage 0 (this warpgroup's 64 rows) and of
+  // transposed buffer 0; the stages follow each other in shared memory, and
+  // the descriptor of an address 16 b further on is this one plus b (no
+  // carry: shared addresses stay below 2^18)
+  const uint64_t dx0 = sw128_desc(smem_u32(sm.x[0]) + cw * 64 * W_BK, 16, 1024);
+  const uint64_t db0 = sw128_desc(smem_u32(sm.bk[0]), 16, 1024);
   for (int j = 0; j < nk; ++j) {
-    const int wst = j % W_RAW, xst = j % W_X;
+    const uint32_t ws = w0 + j, xs = x0 + j;
+    const int wst = ws % W_RAW, xst = xs % W_X;
     int8_t* bk = sm.bk[j % W_BKBUF];
     // bk was last read by wgmma j - 2, done in both warpgroups before the
-    // second barrier of stage j - 1
-    mbar_wait(&sm.wfull[wst], (j / W_RAW) & 1);
+    // second barrier of stage j - 1 (or by the tile before, all done)
+    mbar_wait(&sm.wfull[wst], (ws / W_RAW) & 1);
     {
       uint32_t w[16][2];
 #pragma unroll
@@ -649,15 +684,15 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     }
     // the transposed rows are generic-proxy writes, which wgmma reads
     // through the async proxy (the x rows came by TMA, in that proxy)
-    mbar_wait(&sm.xfull[xst], (j / W_X) & 1);
+    mbar_wait(&sm.xfull[xst], (xs / W_X) & 1);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     bar_sync(1, 256);                            // both halves of bk written
     wg_fence();
-    const uint32_t xa = smem_u32(sm.x[xst]) + cw * 64 * W_BK;
-    const uint32_t ba = smem_u32(bk);
+    const uint64_t da = dx0 + (uint64_t)xst * (W_BM * W_BK / 16);
+    const uint64_t db = db0 + (uint64_t)(j % W_BKBUF) * (BN * W_BK / 16);
 #pragma unroll
     for (int kk = 0; kk < W_BK / 32; ++kk)
-      wgmma_s8(d, sw128_desc(xa + 32 * kk, 16, 1024), sw128_desc(ba + 32 * kk, 16, 1024));
+      wgmma_s8(d, da + 2 * kk, db + 2 * kk);
     wg_commit();
     // wgmma j - 1 is done (its x stage is free, and after the barrier its
     // bk buffer in both warpgroups); wgmma j runs on under the next stage's
@@ -665,24 +700,30 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     wg_wait<1>();
     if (j >= 1) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(&sm.xempty[(j - 1) % W_X]);
+      if (lane == 0) mbar_arrive(&sm.xempty[(xs - 1) % W_X]);
     }
     bar_sync(2, 256);
   }
   wg_wait<0>();
   reg_fence_i(d);
+}
 
-  if (a.splits > 1) {
-    if (!arrive_last<256>(a, ct, d, &sm.last)) return;
-    add_splits_bulk(a, ct, d, reinterpret_cast<unsigned char*>(sm.bk), sm.mfull);
-  }
-
-  // epilogue: d[4 j + e] is row 16 w + g (+ 8 for e >= 2) of this warpgroup,
-  // columns 8 j + 2 t (+ 1). The tile goes through shared memory (the
-  // rings are idle: every stage was waited for, and after the barrier no
-  // wgmma reads them) so that its rows leave in 16-byte stores; stored from
-  // the fragments directly, its 4-byte pieces took 8 us of K2's w13's 62
-  // (scripts/probe_rmsq_split.py).
+// The consumers' epilogue of one 128 x 256 tile in Epi's order: d[4 j + e]
+// is row 16 w + g (+ 8 for e >= 2) of this warpgroup, columns 8 j + 2 t
+// (+ 1); xs0 / xs1 are the x scales of rows g and g + 8 of this thread's
+// 16, my_ws and my_bias the scale and bias of column ct. The tile goes
+// through shared memory (the rings are idle: every stage was waited for,
+// and after the barrier no wgmma reads them) so that its rows leave in
+// 16-byte stores; stored from the fragments directly, its 4-byte pieces
+// took 8 us of K2's w13's 62 (scripts/probe_rmsq_split.py). Row r < rows
+// of the tile (its first `cols` columns, f32 or bf16) goes to row_dst(r),
+// or nowhere where that is null.
+template <class Epi, class RowDst>
+__device__ __forceinline__ void store_tile(WgSmem& sm, int ct, const int32_t (&d)[128],
+                                           float my_ws, int32_t my_bias, float xs0, float xs1,
+                                           bool f32, int rows, int cols, RowDst row_dst) {
+  const int lane = ct % 32, g = lane >> 2, t = lane & 3;
+  const int lr = 64 * (ct / 128) + 16 * ((ct / 32) % 4) + g;   // row g of this thread's 16
   bar_sync(1, 256);
   unsigned char* ot = reinterpret_cast<unsigned char*>(sm.bk);
   float* wsv = reinterpret_cast<float*>(ot + W_SCALES);
@@ -690,7 +731,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   wsv[ct] = my_ws;
   bsv[ct] = my_bias;
   bar_sync(1, 256);
-  const int esz = a.out_f32 ? 4 : 2;
+  const int esz = f32 ? 4 : 2;
   const int orow = BN * esz + 16;                // bytes of a staged row
 #pragma unroll
   for (int jn = 0; jn < 32; ++jn) {
@@ -700,22 +741,93 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       const float xsr = hr ? xs1 : xs0;
       const float v0 = Epi::apply(d[4 * jn + 2 * hr], bsv[cl], wsv[cl], xsr);
       const float v1 = Epi::apply(d[4 * jn + 2 * hr + 1], bsv[cl + 1], wsv[cl + 1], xsr);
-      unsigned char* dst = ot + (r0 - m0 + 8 * hr) * orow + cl * esz;
-      if (a.out_f32)
+      unsigned char* dst = ot + (lr + 8 * hr) * orow + cl * esz;
+      if (f32)
         *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
       else
         *reinterpret_cast<uint32_t*>(dst) = pack(v0, v1);
     }
   }
   bar_sync(1, 256);
-  const int rows = min(W_BM, a.M - m0);
-  const int chunks = min(BN, a.N - n0) * esz / 16;   // N % 16 == 0: whole chunks
-  unsigned char* out = static_cast<unsigned char*>(a.out) + ((size_t)m0 * a.N + n0) * esz;
+  const int chunks = cols * esz / 16;            // N % 16 == 0: whole chunks
   for (int i = ct; i < rows * chunks; i += 256) {
     const int r = i / chunks, c = i % chunks;
-    *reinterpret_cast<uint4*>(out + (size_t)r * a.N * esz + 16 * c) =
+    unsigned char* dst = row_dst(r);
+    if (dst == nullptr) continue;
+    *reinterpret_cast<uint4*>(dst + 16 * c) =
         *reinterpret_cast<const uint4*>(ot + r * orow + 16 * c);
   }
+}
+
+template <class Epi>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    int8_wgmma_gemm(const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap xmap, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  // aligned by pointer arithmetic on the shared array, so that the compiler
+  // keeps every access to `sm` a shared-memory one (through an integer
+  // cast it fell back to generic loads)
+  WgSmem& sm = *reinterpret_cast<WgSmem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  // the grid runs the row tiles fastest where there are several (see launch_gemm)
+  const bool rows_fast = a.M > W_BM;
+  const int m0 = (rows_fast ? blockIdx.x : 0) * W_BM;
+  const int n0 = (rows_fast ? blockIdx.y : blockIdx.x) * BN;
+  int kb, nk;
+  split_range(a, W_BK, kb, nk);
+  const int wg = threadIdx.x / 128;
+  // the first panel and the column scales of the tile's layer (K8: its
+  // expert, whose panels follow each other in the bank the map covers)
+  int panel0 = 0;
+  const float* wsc = a.wsc;
+  if constexpr (Epi::grouped) {
+    if (padding_tile<W_BM, W_THREADS>(a, m0, n0)) return;
+    const int e = tile_expert(a, m0);
+    panel0 = e * (a.N / a.bn);
+    wsc += (size_t)e * a.N;
+  }
+
+  if (threadIdx.x == 0) init_rings(sm);
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (threadIdx.x == 0) {
+      produce_weights(sm, &wmap, 0, nk, kb, n0, a.N, a.bn, panel0);
+    } else if (threadIdx.x == 32) {
+      // x: rows past M and columns past K come as zeros
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % W_X;
+        if (j >= W_X) mbar_wait(&sm.xempty[st], ((j / W_X) - 1) & 1);
+        mbar_expect_tx(&sm.xfull[st], W_BM * W_BK);
+        tma_load_2d(sm.x[st], &xmap, &sm.xfull[st], (kb + j) * W_BK, m0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int ct = threadIdx.x - 128;              // consumer thread 0 .. 255
+  const int lane = ct % 32;
+  // the epilogue's scale and bias of column n0 + ct, read before any output
+  // is written (a store through a.out could alias them, so the compiler
+  // would otherwise issue each load after the last store, one latency at a
+  // time) and kept in two registers until the rings are free
+  const float my_ws = n0 + ct < a.N ? __ldg(wsc + n0 + ct) : 0.f;
+  const int32_t my_bias = n0 + ct < a.N && a.bias != nullptr ? __ldg(a.bias + n0 + ct) : 0;
+  const int r0 = m0 + 64 * (ct / 128) + 16 * ((ct / 32) % 4) + (lane >> 2);
+  const float xs0 = r0 < a.M ? a.xs[r0] : 0.f, xs1 = r0 + 8 < a.M ? a.xs[r0 + 8] : 0.f;
+  int32_t d[128];
+  consume_tile(sm, 0, 0, nk, ct, d);
+
+  if (a.splits > 1) {
+    if (!arrive_last<256>(a, ct, d, &sm.last)) return;
+    add_splits_bulk(a, ct, d, reinterpret_cast<unsigned char*>(sm.bk), sm.mfull);
+  }
+
+  const int esz = a.out_f32 ? 4 : 2;
+  unsigned char* out = static_cast<unsigned char*>(a.out) + ((size_t)m0 * a.N + n0) * esz;
+  store_tile<Epi>(sm, ct, d, my_ws, my_bias, xs0, xs1, a.out_f32, min(W_BM, a.M - m0),
+                  min(BN, a.N - n0), [&](int r) { return out + (size_t)r * a.N * esz; });
 }
 
 // ------------------------------------------------------------- launch
@@ -724,38 +836,46 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 // splits of K (the plan of ops/matmul.py::gemm_plan): K % 64 == 0, N % 16
 // == 0, a bank of panels bn wide with bn % 16 == 0 and N % bn == 0 (bn == N
 // for a plain [K, N] weight; at bm 128 the TMA boxes of 128 columns need bn
-// % 128 == 0 or bn == N), bm 16 (M <= 32) or 128, 1 <= splits <= 16 and no
+// % 128 == 0 or bn == N), bm 16 (M <= 32, or K8's row tiles of any block_m)
+// or 128, 1 <= splits <= 16 and no
 // more splits than K stages (64 bytes at bm 16, 128 above), and the
 // partials and counters where splits > 1.
 inline bool plan_ok(int M, int N, int K, int bn, int bm, int splits, const void* partials,
-                    const void* arrivals) {
+                    const void* arrivals, bool grouped = false) {
   const int ksteps = bm == 16 ? K / S_BK : (K + W_BK - 1) / W_BK;
   return bn > 0 && bn % 16 == 0 && N % bn == 0 && N % 16 == 0 && K % 64 == 0 &&
-         (bm == 16 || (bm == W_BM && (bn % 128 == 0 || bn == N))) && !(bm == 16 && M > 32) &&
+         (bm == 16 || (bm == W_BM && (bn % 128 == 0 || bn == N))) &&
+         !(bm == 16 && M > 32 && !grouped) &&
          splits >= 1 && splits <= MAX_SPLITS && splits <= ksteps &&
          (splits == 1 || (partials != nullptr && arrivals != nullptr));
 }
 
-// The wgmma stage's tensor maps: the layer's bank as [N / bn panels][K / 16]
-// [16][bn] bytes with boxes {128, 8, 16, 1} (k / 16 inner to k % 16 in the
-// box, see above), and x [M][K] with boxes of 128 x 128 bytes, both with
-// the 128-byte swizzle.
-inline bool encode_maps(const Args& a, CUtensorMap* wmap, CUtensorMap* xmap) {
+// The weight map of the wgmma stage: `panels` panels of [K, bn] bytes (a
+// layer's N / bn; K8's bank G * N / bn, K11's experts) as [panel][K / 16]
+// [16][bn] with boxes {128, 8, 16, 1} (k / 16 inner to k % 16 in the box,
+// see above), 128-byte swizzle.
+inline bool encode_wmap(CUtensorMap* map, const int8_t* w, int K, int bn, int panels) {
   const EncodeTiled f = encode_fn();
   if (f == nullptr) return false;
   const cuuint32_t one[4] = {1, 1, 1, 1};
-  const cuuint64_t wdims[4] = {(cuuint64_t)a.bn, (cuuint64_t)a.K / 16, 16,
-                               (cuuint64_t)(a.N / a.bn)};
-  const cuuint64_t wstr[3] = {(cuuint64_t)a.bn * 16, (cuuint64_t)a.bn,
-                              (cuuint64_t)a.bn * a.K};
-  const cuuint32_t wbox[4] = {128, W_BK / 16, 16, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)bn, (cuuint64_t)K / 16, 16, (cuuint64_t)panels};
+  const cuuint64_t str[3] = {(cuuint64_t)bn * 16, (cuuint64_t)bn, (cuuint64_t)bn * K};
+  const cuuint32_t box[4] = {128, W_BK / 16, 16, 1};
+  return f(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(w), dims, str, box, one,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma stage's tensor maps: the layer's bank (K8: the whole bank) and
+// x [M][K] with boxes of 128 x 128 bytes, both with the 128-byte swizzle.
+inline bool encode_maps(const Args& a, CUtensorMap* wmap, CUtensorMap* xmap) {
+  const EncodeTiled f = encode_fn();
+  if (f == nullptr) return false;
+  const cuuint32_t one[2] = {1, 1};
   const cuuint64_t xdims[2] = {(cuuint64_t)a.K, (cuuint64_t)a.M};
   const cuuint64_t xstr[1] = {(cuuint64_t)a.K};
   const cuuint32_t xbox[2] = {W_BK, W_BM};
-  return f(wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(a.w), wdims, wstr, wbox,
-           one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS &&
+  return encode_wmap(wmap, a.w, a.K, a.bn, (a.eid != nullptr ? a.groups : 1) * (a.N / a.bn)) &&
          f(xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(a.xq), xdims, xstr,
            xbox, one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
@@ -771,8 +891,8 @@ cudaError_t launch_gemm(const Args& a, int bm, cudaStream_t st) {
   cudaError_t e;
   if (bm == 16) {
     if ((e = skt::ensure_smem(int8_mma_gemm<Epi>, S_SMEM)) != cudaSuccess) return e;
-    // two row tiles (M 17-32): (row tiles, column tiles, splits); one:
-    // (column tiles, 1, splits)
+    // several row tiles (M 17-32, or K8's): (row tiles, column tiles,
+    // splits); one: (column tiles, 1, splits)
     const int tiles_m = (a.M + 15) / 16;
     const dim3 grid = tiles_m > 1 ? dim3(tiles_m, tiles_n, a.splits) : dim3(tiles_n, 1, a.splits);
     int8_mma_gemm<Epi><<<grid, S_THREADS, S_SMEM, st>>>(a);

@@ -13,9 +13,9 @@ and for a plain weight (a one-layer view of it, no copy), kernel K1 for a
 pretiled bank (both csrc/w8a8_gemm_tiled.cu), kernel K8 (csrc/w8a8_gemm.cu)
 for the grouped GEMM. On a CPU tensor it runs the plain version,
 `quant_matmul_int8_ref` on the layer's (or the tile's expert's) [K, N]
-weight. A, K1 and K2 (ops/rmsq_gemm.py) share the int8 wgmma stage of
+weight. A, K1, K8 and K2 (ops/rmsq_gemm.py) share the int8 stage of
 csrc/w8a8_wgmma.cuh and its plan, `gemm_plan` (A's bank is the pretiled
-layout with one panel, bn = N).
+layout with one panel, bn = N; K8's row tiles follow its block_m).
 
 The soft-FP8 W8A16 GEMMs (bf16 activations times fp8 e4m3 weights with f32
 scales per 128 x 128 block, what the reference's softfp8_w8a16_matmul and
@@ -42,20 +42,20 @@ from .. import _build
 from ..utils import cdiv, index_copy_kept_, use_kernel
 
 _BK, _BN = 64, 128       # the K granule every W8A8 kernel takes; a pretiled panel's
-# width granule (K8's K stage and N tile, csrc/w8a8_core.cuh)
+# width granule (the 128-column TMA box of csrc/w8a8_wgmma.cuh's 128-row tiles)
 # A: x, w, x_scale, w_scale, out, partials, arrivals, M, N, K, li, bm, splits,
 # out_f32, stream; K1: x, w, x_scale, w_scale, out, partials, arrivals, M, N,
 # K, li, bn, bm, splits, out_f32, stream; K8: x, w, x_scale, w_scale, out,
-# workspace, eid, M, N, K, G, bn, block_m, splits, out_f32, stream
+# partials, arrivals, eid, M, N, K, G, bn, block_m, bm, splits, out_f32, stream
 _ARGTYPES = {
     "w8a8_gemm": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "w8a8_gemm_tiled": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "w8a8_gemm_grouped": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "w8a8_gemm_grouped": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
-# The int8 stage of csrc/w8a8_wgmma.cuh (A, K1, and K2 after its row pass):
-# 256-column tiles of 128 rows (wgmma; 16 rows and mma.sync for M <= 32), K
-# in stages of 128 bytes (64 at 16 rows), split at most 16 ways and into no
-# less than 256 of K a split
+# The int8 stage of csrc/w8a8_wgmma.cuh (A, K1, K8, and K2 after its row
+# pass): 256-column tiles of 128 rows (wgmma; 16 rows and mma.sync for M <=
+# 32 and K8's block_m not a multiple of 128), K in stages of 128 bytes (64
+# at 16 rows), split at most 16 ways and into no less than 256 of K a split
 GEMM_BN = 256
 GEMM_MIN_SPLIT_K = 256
 GEMM_MAX_SPLITS = 16
@@ -66,18 +66,25 @@ def gemm_kstep(bm: int) -> int:
     return 64 if bm == 16 else 128
 
 
-def gemm_plan(m: int, n: int, k: int, sms: int):
-    """(bm, tiles_m, tiles_n, splits) of the int8 stage (A, K1, K2) on a card
-    of `sms` SMs: output tiles of bm x 256, and K split over blocks where
-    the tiles alone leave SMs idle, each split at least GEMM_MIN_SPLIT_K of
-    K. The last split of a tile reads the others' partials into one SM: 16
-    KB each for 16-row tiles, so those split to fill one wave of the card;
-    128 KB for 128-row tiles (about 1.1 us each on an H100), so those split
-    to fill half of it (K1's wo and w2 and K2's per_tensor shapes 11-25%
-    faster than a whole wave on an H100: PERF.md). Up to M 32 the rows take
-    16-row tiles, two past M 16: a 128-row tile there computes rows it
-    drops and merges 128 KB partials (PERF.md)."""
-    bm = 16 if m <= 32 else 128
+def gemm_plan(m: int, n: int, k: int, sms: int, block_m: int = 0):
+    """(bm, tiles_m, tiles_n, splits) of the int8 stage (A, K1, K2; K8 given
+    its block_m) on a card of `sms` SMs: output tiles of bm x 256, and K
+    split over blocks where the tiles alone leave SMs idle, each split at
+    least GEMM_MIN_SPLIT_K of K. The last split of a tile reads the others'
+    partials into one SM: 16 KB each for 16-row tiles, so those split to
+    fill one wave of the card; 128 KB for 128-row tiles (about 1.1 us each
+    on an H100), so those split to fill half of it (K1's wo and w2 and K2's
+    per_tensor shapes 11-25% faster than a whole wave on an H100: PERF.md).
+    Up to M 32 the rows take 16-row tiles, two past M 16: a 128-row tile
+    there computes rows it drops and merges 128 KB partials (PERF.md).
+    K8's row tiles must not straddle two experts: a block_m that is a
+    multiple of 128 (the MoE layer's aligned compaction) takes 128-row
+    tiles, any other (Qwen's 32) 16-row ones. The plan depends on the shape
+    alone, never on which tiles are padding."""
+    if block_m:
+        bm = 128 if block_m % 128 == 0 else 16
+    else:
+        bm = 16 if m <= 32 else 128
     tiles_m, tiles_n = cdiv(m, bm), cdiv(n, GEMM_BN)
     kstep = gemm_kstep(bm)
     ksteps = cdiv(k, kstep)
@@ -85,6 +92,15 @@ def gemm_plan(m: int, n: int, k: int, sms: int):
     splits = max(1, min(GEMM_MAX_SPLITS, fill // (tiles_m * tiles_n),
                         ksteps // (GEMM_MIN_SPLIT_K // kstep)))
     return bm, tiles_m, tiles_n, splits
+
+
+def gemm_scratch(bm: int, tiles_m: int, tiles_n: int, splits: int):
+    """(int32 partials, arrival counters) that a plan of the int8 stage
+    needs: none unsplit; split, every split's bm x 256 sums of every tile
+    and one counter a tile."""
+    if splits == 1:
+        return 0, 0
+    return tiles_m * tiles_n * splits * bm * GEMM_BN, tiles_m * tiles_n
 
 
 def gemm_split_bounds(ksteps: int, splits: int):
@@ -173,24 +189,13 @@ def quant_matmul_int8_stacked_tiled(x_q, w_tiled, li: int, x_scale,
                                                w_scale_stacked, out_dtype)
 
 
-def splits_for(m: int, n: int, k: int, device, bm: int = 32) -> int:
-    """K8's split of K (the loop of csrc/w8a8_core.cuh): over blocks when
-    the output has fewer tiles than two blocks per SM, so that every SM
-    streams weights; int32 partial sums stay exact. It depends on the shape
-    alone (A, K1 and K2 have theirs: gemm_plan). bm is the row tile, 32 for
-    the grouped GEMM."""
-    tiles = cdiv(n, _BN) * cdiv(m, bm)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(cdiv(2 * sms, tiles), k // _BK))
-
-
 def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
                block_m=0):
     """Launch kernel A (bank [L, K, N]: one panel, bn = N) or K1 (pretiled
-    bank [L, NB, K, bn]) at layer li, both on the int8 stage of
-    csrc/w8a8_wgmma.cuh with `gemm_plan`'s split; or, given the expert map
-    `eid` of each block_m-row tile, K8 (either bank) with `splits_for`'s.
-    Adds one to the launch count `counter` (default: the kernel's)."""
+    bank [L, NB, K, bn]) at layer li or, given the expert map `eid` of each
+    block_m-row tile, K8 (either bank), all on the int8 stage of
+    csrc/w8a8_wgmma.cuh with `gemm_plan`'s tiles and split. Adds one to the
+    launch count `counter` (default: the kernel's)."""
     tiled = w.dim() == 4
     grouped = eid is not None
     name = ("w8a8_gemm_grouped" if grouped else "w8a8_gemm_tiled" if tiled
@@ -208,7 +213,7 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
     if (x_q.dtype, w.dtype) != (torch.int8, torch.int8):
         raise TypeError(f"{name} takes int8 operands, got {x_q.dtype}, {w.dtype}")
     if (k2 != k or k % _BK or n % 16 or not 0 <= li < l
-            or (tiled and bn % _BN) or (grouped and block_m % 32)):
+            or (tiled and bn % _BN) or (grouped and (block_m <= 0 or block_m % 32))):
         raise ValueError(f"{name}: x {tuple(x_q.shape)}, bank {tuple(w.shape)}, "
                          f"li={li}: needs K % {_BK} == 0, N % 16 == 0"
                          + (f", bn % {_BN} == 0" if tiled else "")
@@ -225,20 +230,17 @@ def _w8a8_gemm(x_q, w, li, x_scale, w_scale, out_dtype, counter=None, eid=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (x_q.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), out.data_ptr())
     out_f32 = int(out_dtype == torch.float32)
+    bm, tiles_m, tiles_n, splits = gemm_plan(
+        m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count, block_m)
+    n_part, n_arrivals = gemm_scratch(bm, tiles_m, tiles_n, splits)
+    part = arrivals = None
+    if splits > 1:
+        part = torch.empty(n_part, dtype=torch.int32, device=dev)
+        arrivals = _build.arrival_counters(name, dev, n_arrivals)
     if grouped:
-        splits = splits_for(m, n, k, dev)
-        work = (torch.empty((m, n), dtype=torch.int32, device=dev) if splits > 1
-                else None)
-        code = fn(*ptrs, _ptr(work), eid.data_ptr(), m, n, k, l, bn, block_m, splits,
-                  out_f32, stream)
+        code = fn(*ptrs, _ptr(part), _ptr(arrivals), eid.data_ptr(), m, n, k, l, bn, block_m,
+                  bm, splits, out_f32, stream)
     else:
-        bm, tiles_m, tiles_n, splits = gemm_plan(
-            m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
-        part = arrivals = None
-        if splits > 1:
-            part = torch.empty(tiles_m * tiles_n * splits * bm * GEMM_BN, dtype=torch.int32,
-                               device=dev)
-            arrivals = _build.arrival_counters(name, dev, tiles_m * tiles_n)
         panel = (bn,) if tiled else ()
         code = fn(*ptrs, _ptr(part), _ptr(arrivals), m, n, k, li, *panel, bm, splits,
                   out_f32, stream)
@@ -313,7 +315,8 @@ def grouped_matmul_int8(x_q, w_q, x_scale, w_scale, expert_per_mtile, block_m: i
     int8, x_scale [M, 1] f32 (0 on padding rows, which then give zeros),
     w_scale [G, N] f32, expert_per_mtile [M / block_m] int32 -> [M, N].
 
-    On the card: kernel K8 (32-row tiles, block_m a multiple of 32), counted
+    On the card: kernel K8 (block_m a multiple of 32; 128-row wgmma tiles
+    where it is a multiple of 128, 16-row mma.sync tiles otherwise), counted
     under "w8a8_gemm_grouped". On the CPU: grouped_matmul_int8_tiles_ref."""
     m = x_q.shape[0]
     if block_m <= 0 or m % block_m or expert_per_mtile.shape != (m // block_m,):

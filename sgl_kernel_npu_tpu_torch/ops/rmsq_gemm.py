@@ -50,7 +50,7 @@ import torch
 
 from .. import _build
 from ..utils import use_kernel
-from .matmul import _BK, _BN, GEMM_BN, gemm_plan, untile_weight_bank
+from .matmul import _BK, _BN, gemm_plan, gemm_scratch, untile_weight_bank
 from .quant import INV_INT8_MAX
 
 # x, gamma, beta, w, ws, bias, quant_scale, quant_offset, xq, xs, out,
@@ -229,11 +229,11 @@ def _rmsq_gemm(x, gamma, beta, w, descale, bias, quant_scale, quant_offset, li,
     xs = torch.empty((m,), dtype=torch.float32, device=dev)
     bm, tiles_m, tiles_n, splits = gemm_plan(
         m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_part, n_arrivals = gemm_scratch(bm, tiles_m, tiles_n, splits)
     part = arrivals = None
     if splits > 1:
-        part = torch.empty(tiles_m * tiles_n * splits * bm * GEMM_BN, dtype=torch.int32,
-                           device=dev)
-        arrivals = _build.arrival_counters("rmsq_gemm", dev, tiles_m * tiles_n)
+        part = torch.empty(n_part, dtype=torch.int32, device=dev)
+        arrivals = _build.arrival_counters("rmsq_gemm", dev, n_arrivals)
     fn = _build.launcher("rmsq_gemm", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
 

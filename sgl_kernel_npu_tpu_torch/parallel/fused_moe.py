@@ -6,8 +6,9 @@ requantisation -> grouped int8 GMM2 -> scatter back to the slotted layout
 
 The grouped GEMMs take the aligned compaction (each expert's rows start at
 a multiple of 128, so that every 128-row tile has one expert) and kernel K8
-(ops/matmul.py::grouped_matmul_int8, 32-row tiles inside, so each 128-row
-tile is four of them), as the JAX package does with SKT_IMPL=pallas. With
+(ops/matmul.py::grouped_matmul_int8, which runs each such tile as one
+128-row wgmma tile, so an expert's weights stream once per 128 rows), as
+the JAX package does with SKT_IMPL=pallas. With
 SKT_IMPL=ref both take the tight compaction and the ragged reference
 GEMM. Nothing here syncs the host.
 """

@@ -42,6 +42,7 @@ from ...ops.quant import per_token_quant_int8
 from ...utils import cdiv, use_kernel
 from .low_latency import _window_offsets
 from .pallas_ll import (
+    CHUNK,
     _send_layout,
     check_chunk_aligned,
     combine_copies,
@@ -49,7 +50,9 @@ from .pallas_ll import (
     send_buffer,
 )
 
-TILE_M = 64     # K11's row tile; a window's last m-tile may be partial
+# K11's tiles (csrc/fused_moe.cu): the int8 stage's 128 x 256 wgmma tile (a
+# window's last m-tile may be partial), and the rows of a requantisation item
+TILE_M, TILE_N, RQ_ROWS = 128, 256, 16
 # x_send, w13, w13s, w2, w2s, send_cnt, src_off, dst_off, recv_cnt, back_off,
 # recv, rs, back, ug, act, asc, ctr, R, El, maxT, H, F, sbuf, stream
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -90,6 +93,17 @@ def fused_moe_layer_ref(x_send, w13_q, w13_scale, w2_q, w2_scale, send_cnt, src_
     return recv, rs, back
 
 
+def k11_items(el, maxt, h, f, sbuf, ranks=1):
+    """K11's work list at these widths (csrc/fused_moe.cu, in its order):
+    ({phase: items}, the int32 counters it keeps: the item counter, one
+    arrival count per expert, then per (expert, m-tile) its GMM1 tiles done
+    and its requant items done)."""
+    mt = cdiv(ranks * maxt, TILE_M)
+    items = {"send": cdiv(sbuf, CHUNK), "gmm1": el * cdiv(2 * f, TILE_N) * mt,
+             "requant": el * mt * (TILE_M // RQ_ROWS), "gmm2": el * cdiv(h, TILE_N) * mt}
+    return items, 1 + el + 2 * el * mt
+
+
 def _fused_moe_cuda(x_send, w13_q, w13_scale, w2_q, w2_scale, tables, *, maxt):
     sbuf, h = x_send.shape
     el, _, f2 = w13_q.shape
@@ -113,8 +127,7 @@ def _fused_moe_cuda(x_send, w13_q, w13_scale, w2_q, w2_scale, tables, *, maxt):
     ug = torch.empty((rows, f2), dtype=torch.float32, device=dev)
     act = torch.empty((rows, f), dtype=torch.int8, device=dev)
     asc = torch.empty((rows,), dtype=torch.float32, device=dev)
-    ctr = torch.empty((1 + el + 2 * el * cdiv(maxt, TILE_M),), dtype=torch.int32,
-                      device=dev)
+    ctr = torch.empty((k11_items(el, maxt, h, f, sbuf)[1],), dtype=torch.int32, device=dev)
     ops = (x_send, w13_q, w13s, w2_q, w2s, *tables, recv, rs, back, ug, act, asc, ctr)
     _build.check_operands("fused_moe", dev, *ops)
     fn = _build.launcher("fused_moe", _ARGTYPES)

@@ -156,20 +156,20 @@ def test_kernels_build_for_sm_90a():
 
 # --------------------------------------------------------------------------
 # The kernels that split a row over blocks (K19, C, K14's pages, K7's
-# context, K2's, K1's and A's K; K3 runs C's loop unsplit, its source
+# context, K2's, K1's, A's and K8's K; K3 runs C's loop unsplit, its source
 # scanned all the same) merge the splits' partials through a workspace,
 # deterministically:
 # no float atomics (their order changes from run to run, and a second call
 # must be bit-identical), only integer arrival counters, each reset to 0 by
 # the kernel that used it (the last block to arrive), never zeroed by the
 # host before a call. A source is scanned with the csrc/ headers it includes
-# (A, K1 and K2 merge in csrc/w8a8_wgmma.cuh, C, K3 and K14 in
+# (A, K1, K2 and K8 merge in csrc/w8a8_wgmma.cuh, C, K3 and K14 in
 # csrc/decode_tm_core.cuh). K5 splits a sequence over the CTAs of a thread
 # block cluster and merges through distributed shared memory: no atomics at
 # all.
 
 SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_v6.cu",
-                 "decode_mla.cu", "rmsq_gemm.cu", "w8a8_gemm_tiled.cu")
+                 "decode_mla.cu", "rmsq_gemm.cu", "w8a8_gemm_tiled.cu", "w8a8_gemm.cu")
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
@@ -320,13 +320,14 @@ def test_arrival_counters_are_zeroed_once():
 @pytest.mark.parametrize("kernel,source,header", [
     ("w8a8_gemm", "w8a8_gemm_tiled", "w8a8_wgmma.cuh"),         # A
     ("w8a8_gemm_tiled", "w8a8_gemm_tiled", "w8a8_wgmma.cuh"),   # K1
+    ("w8a8_gemm_grouped", "w8a8_gemm", "w8a8_wgmma.cuh"),       # K8
     ("decode_tm", "decode_tm", "decode_tm_core.cuh"),           # C
     ("decode_tm2", "decode_tm2", "decode_tm_core.cuh"),         # K3
     ("decode_v6_defer", "decode_v6", "decode_tm_core.cuh"),     # K14, bf16 pages
     ("decode_v6_int8_defer", "decode_v6", "decode_tm_core.cuh"),   # K14, int8 pages
 ])
 def test_kernels_share_their_stage(kernel, source, header):
-    """A runs K1's int8 stage, K3 and K14 run C's loop: each kernel's source
+    """A and K8 run K1's int8 stage, K3 and K14 run C's loop: each kernel's source
     exports its launcher, includes the shared header, and holds no merge of
     its own (the scan above reaches the header's)."""
     assert _build.KERNELS[kernel] == source
@@ -338,9 +339,80 @@ def test_kernels_share_their_stage(kernel, source, header):
 
 
 def test_grouped_gemm_source_holds_k8_only():
-    """csrc/w8a8_gemm.cu keeps K8 (the loop of w8a8_core.cuh) and no other
-    launcher."""
+    """csrc/w8a8_gemm.cu keeps K8 (on the int8 stage of w8a8_wgmma.cuh) and
+    no other launcher."""
     with open(os.path.join(_build.CSRC, "w8a8_gemm.cu")) as f:
         own = f.read()
     assert re.findall(r'extern "C" int (skt_\w+)\(', own) == ["skt_w8a8_gemm_grouped"]
     assert [k for k, v in _build.KERNELS.items() if v == "w8a8_gemm"] == ["w8a8_gemm_grouped"]
+
+
+def test_no_source_includes_the_retired_loop():
+    """The register-prefetched mma.sync loop (w8a8_core.cuh) is gone: K8 and
+    K11 run the int8 stage of w8a8_wgmma.cuh, and no source includes the
+    old header."""
+    assert not os.path.exists(os.path.join(_build.CSRC, "w8a8_core.cuh"))
+    for path in SOURCES:
+        with open(path) as f:
+            assert "w8a8_core.cuh" not in INCLUDE.findall(f.read()), os.path.basename(path)
+    for source in ("w8a8_gemm", "fused_moe"):
+        with open(os.path.join(_build.CSRC, source + ".cu")) as f:
+            assert "w8a8_wgmma.cuh" in INCLUDE.findall(f.read())
+
+
+def test_k8_atomics_are_arrival_counters_only():
+    """K8 (with the headers it includes) takes no atomic but the integer
+    tickets of its arrival counters: none on a float, none on its output,
+    and no host memset."""
+    bare = COMMENT_OR_STRING.sub(" ", with_headers("w8a8_gemm.cu"))
+    targets = {re.split(r"\.|->", t)[-1].strip() for _, t in ATOMIC.findall(bare)}
+    assert targets == {"arrivals"}
+    assert not PTX_FLOAT.search(COMMENT.sub(" ", with_headers("w8a8_gemm.cu")))
+    assert not MEMSET.search(bare)
+
+
+def _k11_source():
+    """K11's source (comments and literals blanked but for the asm strings'
+    text, which the fence scan reads) and its kernel's body."""
+    with open(os.path.join(_build.CSRC, "fused_moe.cu")) as f:
+        own = COMMENT.sub(" ", f.read())
+    return own, own[own.index("fused_moe_kernel("):own.index("encode_rows_map(")]
+
+
+def test_k11_runs_the_stage():
+    """K11's GEMM items run the stage's device functions (TMA weight ring,
+    the consumers' transpose and int8 wgmma loop, the staged epilogue) on
+    128-row tiles, in persistent blocks sized by the co-resident count at
+    the block's threads and shared memory."""
+    own, kernel = _k11_source()
+    for fn in ("produce_weights(", "consume_tile(", "store_tile<"):
+        assert fn in kernel, fn
+    assert re.search(r"constexpr int TM = W_BM;", own)
+    assert re.search(r"resident_blocks\(fused_moe_kernel, THREADS, W_SMEM,", own)
+
+
+def test_k11_fences_the_proxies_before_tma_reads_of_its_own_rows():
+    """recv (phase S) and act (requant) are written inside the launch by
+    generic stores on other SMs, and K11 reads them by TMA (the async proxy):
+    after the acquire and before the first TMA load of those rows the reader
+    fences the proxies, and the writers fence theirs before they signal."""
+    own, kernel = _k11_source()
+    assert "tma_load_3d(" in kernel
+    acquire = kernel.index("spin_until(")
+    fence = kernel.index("fence.proxy.async.global", acquire)
+    assert fence < kernel.index("tma_load_3d(", acquire)
+    signal = own[own.index("void signal("):own.index("float sigmoid_mul(")]
+    assert signal.index("fence.proxy.async.global") < signal.index("atomicAdd(")
+
+
+def test_k11_tiles_match_its_mirror():
+    """fused_moe_pallas.k11_items mirrors K11's tiles: the stage's 128 x 256
+    tile, requant items of 16 rows, chunks of 8."""
+    from sgl_kernel_npu_tpu_torch.parallel.strategies import fused_moe_pallas as tfmp
+    with open(os.path.join(_build.CSRC, "w8a8_wgmma.cuh")) as f:
+        stage = f.read()
+    own, _ = _k11_source()
+    assert re.search(r"constexpr int W_BM = (\d+);", stage).group(1) == str(tfmp.TILE_M)
+    assert re.search(r"constexpr int BN = (\d+);", stage).group(1) == str(tfmp.TILE_N)
+    assert re.search(r"constexpr int RQ = (\d+);", own).group(1) == str(tfmp.RQ_ROWS)
+    assert re.search(r"constexpr int CHUNK = (\d+);", own).group(1) == "8"

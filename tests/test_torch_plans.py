@@ -32,7 +32,12 @@ need the card; what decides their work is Python that runs here:
     with steps of one page is K3, which shares the loop unsplit);
   * (g) K14's plan on the same loop (`decode_v6.v6_splits`, `v6_groups`):
     splits of whole pages, the same walk and merge against the plain
-    version, and the head groups that fit a page's kept scores.
+    version, and the head groups that fit a page's kept scores;
+  * (h) K8's plan on the int8 stage (`gemm_plan` with its block_m): the
+    row tile by block_m, every tile and K step covered once, the split from
+    the shape alone, its partials and counters at the Qwen and MoE shapes;
+    and K11's work list (`fused_moe_pallas.k11_items`) and the counters its
+    wrapper allocates, at 128-row tiles.
 """
 
 import math
@@ -50,6 +55,7 @@ from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as trq
 from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v6 as tv6
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v9 as tv9
+from sgl_kernel_npu_tpu_torch.parallel.strategies import fused_moe_pallas as tfmp
 
 K7_SHARE = 1e-4
 NO_EXCESS = {"xla_allow_excess_precision": False}
@@ -228,12 +234,16 @@ def _blocks(tiles_m, tiles_n, splits):
             for tm in range(tiles_m)]
 
 
-def _check_plan(m, n, k, sms):
-    """gemm_plan's tiles and split of (m, n, k) cover every output tile and
-    K step exactly once, within a wave where it splits, and the grid issues
-    each weight tile's row tiles together. Returns the plan."""
-    bm, tiles_m, tiles_n, splits = tmm.gemm_plan(m, n, k, sms)
-    assert bm == (16 if m <= 32 else 128)
+def _check_plan(m, n, k, sms, block_m=0):
+    """gemm_plan's tiles and split of (m, n, k) (K8's: with its block_m)
+    cover every output tile and K step exactly once, within a wave where it
+    splits, and the grid issues each weight tile's row tiles together.
+    Returns the plan."""
+    bm, tiles_m, tiles_n, splits = tmm.gemm_plan(m, n, k, sms, block_m)
+    if block_m:
+        assert bm == (128 if block_m % 128 == 0 else 16)
+    else:
+        assert bm == (16 if m <= 32 else 128)
     assert tiles_m * bm >= m > (tiles_m - 1) * bm
     assert tiles_n * tmm.GEMM_BN >= n > (tiles_n - 1) * tmm.GEMM_BN
     kstep = tmm.gemm_kstep(bm)
@@ -405,12 +415,13 @@ A_WIDTHS = [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336), (128256, 4
 A_MS = (1, 8, 16, 17, 128, 672)
 
 
-def _stage_takes(m, n, k, bn, bm, splits):
-    """The stage's rule (csrc/w8a8_wgmma.cuh::plan_ok)."""
+def _stage_takes(m, n, k, bn, bm, splits, grouped=False):
+    """The stage's rule (csrc/w8a8_wgmma.cuh::plan_ok; K8's row tiles are
+    16-row ones at any M)."""
     ksteps = k // 64 if bm == 16 else -(-k // 128)
     return (bn > 0 and bn % 16 == 0 and n % bn == 0 and n % 16 == 0 and k % 64 == 0
             and (bm == 16 or (bm == 128 and (bn % 128 == 0 or bn == n)))
-            and not (bm == 16 and m > 32) and 1 <= splits <= tmm.GEMM_MAX_SPLITS
+            and not (bm == 16 and m > 32 and not grouped) and 1 <= splits <= tmm.GEMM_MAX_SPLITS
             and splits <= ksteps)
 
 
@@ -635,3 +646,114 @@ def test_v6_head_groups(g, ps, int8, smem):
     assert ng == (2 if g == 16 else 1) and g // ng <= tv6.V6_MAXG
     floats = _v6_kept_floats(g // ng, ps, int8)
     assert (floats == 0) == smem and floats in (0, g // ng * (ps + 4))
+
+
+# ------------------------------------------------- (h) K8's and K11's plans
+# K8's (M, N, K, block_m): the Qwen bench path's w13 and w2 (5,376 rows in
+# 32-row expert tiles); the EP MoE layer's GMM1 and GMM2 on the first
+# round's aligned compaction at chunk_rounds 1, 2, 4 (2,048, 1,536 and
+# 1,280 rows in 128-row tiles); chip_smoke.py's K8 edges; block_m 64 and
+# 256 (16-row and 128-row tiles)
+K8_SHAPES = [(5376, 1024, 2048, 32), (5376, 2048, 512, 32)]
+K8_SHAPES += [(m, n, k, 128) for m in (2048, 1536, 1280) for n, k in ((4096, 7168),
+                                                                      (7168, 2048))]
+K8_SHAPES += [(160, 768, 512, 32), (512, 768, 512, 128), (96, 256, 2048, 32),
+              (256, 256, 2048, 128), (64, 256, 64, 64), (512, 512, 128, 256)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+@pytest.mark.parametrize("m,n,k,block_m", K8_SHAPES)
+def test_k8_plan_covers_every_tile_once(sms, m, n, k, block_m):
+    """K8's row tiles never straddle two experts (128 rows where block_m is a
+    multiple of 128, else 16): the plan covers every output tile and K step
+    once, the row tiles of a weight tile issued together (an expert's row
+    tiles, so that their repeats come from L2), and the stage takes it."""
+    bm, tiles_m, tiles_n, splits = _check_plan(m, n, k, sms, block_m)
+    assert block_m % bm == 0 and tiles_m * bm == m
+    assert _stage_takes(m, n, k, n, bm, splits, grouped=True)
+
+
+def test_k8_plan_at_the_bench_shapes():
+    """On an H100 (132 SMs): the Qwen w13 and w2 take 336 16-row tiles, the
+    MoE layer's GMM1 and GMM2 16 128-row tiles (one an expert tile), all
+    unsplit, so no partials and no counters; chip_smoke.py's small split
+    shapes split eight ways, with one counter a tile and every split's
+    partial sums."""
+    for shape, plan in (((5376, 1024, 2048, 32), (16, 336, 4, 1)),
+                        ((5376, 2048, 512, 32), (16, 336, 8, 1)),
+                        ((2048, 4096, 7168, 128), (128, 16, 16, 1)),
+                        ((2048, 7168, 2048, 128), (128, 16, 28, 1))):
+        assert tmm.gemm_plan(*shape[:3], 132, shape[3]) == plan
+        assert tmm.gemm_scratch(*plan) == (0, 0)
+    assert tmm.gemm_plan(96, 256, 2048, 132, 32) == (16, 6, 1, 8)
+    assert tmm.gemm_scratch(16, 6, 1, 8) == (6 * 8 * 16 * 256, 6)
+    assert tmm.gemm_plan(256, 256, 2048, 132, 128) == (128, 2, 1, 8)
+    assert tmm.gemm_scratch(128, 2, 1, 8) == (2 * 8 * 128 * 256, 2)
+
+
+def test_k8_plan_is_a_function_of_the_shape():
+    """The plan reads no data (the host never reads the expert map): it takes
+    the shape, the SM count and block_m alone, and at a block_m of 128 it is
+    the stage's own plan for M > 32."""
+    import inspect
+    assert list(inspect.signature(tmm.gemm_plan).parameters) == ["m", "n", "k", "sms",
+                                                                 "block_m"]
+    for m, n, k, block_m in K8_SHAPES:
+        if block_m == 128:
+            assert tmm.gemm_plan(m, n, k, 132, block_m) == tmm.gemm_plan(m, n, k, 132)
+
+
+@pytest.mark.parametrize("block_m", [0, 16, 48])
+def test_k8_refuses_what_the_stage_cannot_take(block_m):
+    """A block_m that is not a positive multiple of 32: the wrapper raises
+    before any launch."""
+    m = 96
+    x = torch.zeros((m, 128), dtype=torch.int8)
+    w = torch.zeros((2, 128, 256), dtype=torch.int8)
+    eid = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="block_m % 32 == 0"):
+        tmm._w8a8_gemm(x, w, 0, torch.ones((m, 1)), torch.ones((2, 256)), torch.bfloat16,
+                       eid=eid, block_m=block_m)
+
+
+@pytest.mark.parametrize("maxt", [8, 72, 128, 136, 256])
+def test_k11_items_and_counters(maxt):
+    """K11's work list at the MoE bench widths (8 experts, H 7168, F 2048):
+    m-tiles of 128 rows (a window of up to 128 rows is one), GMM1 tiles of
+    256 of the 2F columns, GMM2 tiles of 256 of H, 8 requant items of 16
+    rows an m-tile, a phase-S item per chunk of 8 send rows; the counters
+    [work][arrive El][g1_done El * MT][rq_done El * MT]."""
+    el, h, f = 8, 7168, 2048
+    sbuf = el * maxt + 64
+    mt = -(-maxt // 128)
+    items, ctr = tfmp.k11_items(el, maxt, h, f, sbuf)
+    assert items == {"send": -(-sbuf // 8), "gmm1": el * 16 * mt, "requant": el * mt * 8,
+                     "gmm2": el * 28 * mt}
+    assert ctr == 1 + el + 2 * el * mt
+
+
+@pytest.mark.parametrize("maxt", [8, 72, 136])
+def test_k11_wrapper_allocates_the_kernels_counters(monkeypatch, maxt):
+    """The wrapper hands K11 the counter buffer k11_items sizes, at TM 128
+    (the launch itself is replaced: no card here)."""
+    from sgl_kernel_npu_tpu_torch import _build
+    seen = {}
+
+    def operands(name, device, *tensors):
+        seen["ctr"] = tensors[-1]
+    monkeypatch.setattr(_build, "check_operands", operands)
+    monkeypatch.setattr(_build, "launcher", lambda name, argtypes: lambda *args: 0)
+    monkeypatch.setattr(_build, "launches", dict(_build.launches))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    el, h, f = 2, 256, 128
+    sbuf = el * maxt + 8
+    x_send = torch.zeros((sbuf, h), dtype=torch.bfloat16)
+    w13 = torch.zeros((el, h, 2 * f), dtype=torch.int8)
+    w2 = torch.zeros((el, f, h), dtype=torch.int8)
+    tables = [torch.zeros((el,), dtype=torch.int32) for _ in range(5)]
+    tfmp._fused_moe_cuda(x_send, w13, torch.ones((el, 2 * f)), w2, torch.ones((el, h)),
+                         tables, maxt=maxt)
+    mt = -(-maxt // 128)
+    assert seen["ctr"].dtype == torch.int32
+    assert seen["ctr"].numel() == tfmp.k11_items(el, maxt, h, f, sbuf)[1] == 1 + el + 2 * el * mt
