@@ -48,7 +48,11 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    bit-identical), K15 (paged chunk prefill: 512 tokens over 256 cached,
    bf16 and int8 pages, and a page_sel drive with an empty tile) and K16's
    five contracts (v3 decode bf16 / int8, current token in the cache or
-   deferred; int8 head-major decode) at the bench shape; and the
+   deferred; int8 head-major decode) at the bench shape, and K16's and
+   K23's edges (G 1, 4, 8, 16, a batch of 7 split over blocks, pages of
+   16, 100, 512 and 8,192, lengths 0, 1, ps - 1, ps, ps + 1, cached 0;
+   decode_int8kv, decode_v4b_int8 and the fused pair at G 4 and 16, the
+   fused writes bit-equal, second calls bit-identical); and the
    `attentions` surface's kernels: K17 (laser attention at Llama-3-8B's
    heads, B 1: causal T 8192, not causal T 4096, causal T 8000; held, not
    timed, at T 96 and 1000, causal and not), K18 (the
@@ -153,7 +157,8 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    to v6, which rounds p to bf16, is printed); and 8 steps of bench.py's
    SKT_KV_LAYOUT=hm on an int8 cache (K14 int8 32 per step), then 4 steps
    each of v3 and DEFER=0 from its state (K16 int8, 32 per step each),
-   each held to its plain versions the same way.
+   each held to its plain versions the same way, and a profiled step of
+   each (K16's device ms a step).
 10. Serves phase 2's prompts through LlamaEngine on hm pages at Llama-3-8B
    width on the same weights: int8_kv=False, then int8 with
    kv_layout="hm"; every model call's launches exact (prefill K1 129, K15
@@ -1962,7 +1967,8 @@ def check_decode_v3(torch, dv3, dec, cfg, rng):
         lib_err = (lib_out().float() - ref.float()).abs().max().item()
         lib = _time_ms(library, 20, graph=True)
         nbytes, tok = _hm_decode_bytes(lens, b, hkv, hq, d, mp, int8, defer)
-        bound, by = _bound_ms(nbytes, 4.0 * (tok + (b if defer else 0)) * hq * d, "f32_flops")
+        # q . k and three p . v products a (token, head) on the bf16 tensor cores
+        bound, by = _bound_ms(nbytes, 8.0 * (tok + (b if defer else 0)) * hq * d, "bf16_flops")
         print(f"  {name} B={b} Hq={hq} Hkv={hkv} ps={ps} lens {int(lens.min())}.."
               f"{int(lens.max())} (sum {int(tok)}){' + the new token' if defer else ''}: "
               f"max-abs {err:.3g} ({ratio:.3g} of its bound, max|plain| "
@@ -1973,6 +1979,129 @@ def check_decode_v3(torch, dv3, dec, cfg, rng):
                           bound_by=by, max_abs_err=err)
         del k, v, ks, vs
     return rows
+
+
+# K16's and K23's edges: (ps, MP) over a batch of 7 at 2 kv heads, which
+# splits each row over blocks; ps 8192 is two softmax steps of a page
+V3_EDGE_PAGES = ((16, 4), (100, 4), (512, 4), (8192, 1))
+
+
+def _v3_edge_lens(ps, mp):
+    """0, 1, ps - 1, ps, ps + 1, 2 ps + 3 and 4 ps, capped at MP ps."""
+    return [min(n, mp * ps) for n in (0, 1, ps - 1, ps, ps + 1, 2 * ps + 3, 4 * ps)]
+
+
+def check_decode_v3_edges(torch, dv3, dec, dv4):
+    """K16's and K23's contracts (csrc/decode_v3.cu) where the loop meets its
+    edges, against their plain versions within one bf16 ulp + HM_SHARE of
+    max|plain|, each second call bit-identical: 7 sequences over 2 kv heads
+    (rows split over blocks: skt_*_splits must say S > 1), pages of 16, 100
+    and 512 tokens over 4 pages and one of 8,192 (two softmax steps of 4,096
+    within it), lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3 and 4 ps (capped
+    at MP ps; the deferred ones as cached lengths, so cached 0 too). The
+    page-major contracts (decode_v3, decode_v3_defer, bf16 and int8) at G 1,
+    4, 8 and 16 (16: two blocks of 8); decode_int8kv, decode_v4b_int8 (a
+    stacked cache of 3 layers, the layer a device tensor) and both fused
+    contracts (the slot at the current token's position; the written caches
+    equal to the plain version's) at G 4 and 16."""
+    from sgl_kernel_npu_tpu_torch import _build
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(1717)
+    hkv, d, b, layers = 2, 128, 7, 3
+    sm = d ** -0.5
+    li = torch.tensor(1, dtype=torch.int32, device="cuda")
+    worst, calls, least_s = 0.0, 0, 8
+    dev = "cuda"
+
+    def held(label, fn, plain):
+        nonlocal worst, calls
+        out, again = fn(), fn()
+        ref = plain()
+        torch.cuda.synchronize()
+        _, ratio = _bf16_check(label, out, ref, HM_SHARE)
+        if not torch.equal(out, again):
+            raise AssertionError(f"{label}: a second call differs")
+        worst, calls = max(worst, ratio), calls + 1
+
+    for ps, mp in V3_EDGE_PAGES:
+        lens = _v3_edge_lens(ps, mp)
+        pages = b * mp + 1
+        cached = torch.tensor(lens, dtype=torch.int32, device=dev)
+        bt = (torch.randperm(pages - 1, generator=rng, device=dev)[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        kn, vn = (torch.randn((b, hkv, d), generator=rng, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        for int8 in (False, True):
+            k, v, ks, vs = _hm_pages(torch, rng, pages, hkv, ps, d, int8)
+            sc = (ks, vs) if int8 else ()
+            tag = "int8" if int8 else "bf16"
+            for g in (1, 4, 8, 16):
+                q = (1.5 * torch.randn((b, hkv * g, d), generator=rng, device=dev)
+                     ).to(torch.bfloat16)
+                name = "decode_v3_int8" if int8 else "decode_v3"
+                ng = dv3.v3_groups(g)
+                least_s = min(least_s, _build.splits(name, b, hkv, g // ng, ng, mp, ps))
+                fin = getattr(dv3, "decode_gqa_v3" + ("_int8" if int8 else ""))
+                fde = getattr(dv3, "decode_gqa_v3" + ("_int8" if int8 else "") + "_defer")
+                held(f"{name} edges ps {ps} G {g}",
+                     lambda: fin(q, k, v, *sc, cached, bt, sm, ps),
+                     lambda: dv3.decode_gqa_v3_ref(q, k, v, cached, bt, sm, k_scales=ks,
+                                                   v_scales=vs))
+                held(f"{name}_defer edges ps {ps} G {g}",
+                     lambda: fde(q, kn, vn, k, v, *sc, cached, bt, sm, ps),
+                     lambda: dv3.decode_gqa_v3_ref(q, k, v, cached, bt, sm, k_scales=ks,
+                                                   v_scales=vs, k_new=kn, v_new=vn))
+            del k, v, ks, vs
+            # the stacked caches (layer 1 of 3), the fused write's slot at
+            # the current token's position, cached < MP ps
+            shape = (layers, pages, hkv, ps, d)
+            if int8:
+                sk, sv = (torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8,
+                                        device=dev) for _ in range(2))
+                sks, svs = (torch.rand(shape[:3] + (1, ps), generator=rng, device=dev) * 0.02
+                            + 0.005 for _ in range(2))
+                caches = [sk, sv, sks, svs]
+            else:
+                caches = [torch.randn(shape, generator=rng, device=dev).to(torch.bfloat16)
+                          for _ in range(2)]
+            fc = cached.clamp_max(mp * ps - 1)
+            seq = fc + 1
+            slots = _slots_of(torch, bt, fc, ps)
+            for g in (4, 16):
+                q = (1.5 * torch.randn((b, hkv * g, d), generator=rng, device=dev)
+                     ).to(torch.bfloat16)
+                if int8:
+                    hk, hv, hks, hvs = _hm_pages(torch, rng, pages, hkv, ps, d, True,
+                                                 head_major=True)
+                    held(f"decode_int8kv edges ps {ps} G {g}",
+                         lambda: dec.decode_gqa_int8kv(q, hk, hv, hks, hvs, cached, bt, sm, ps),
+                         lambda: dec.decode_gqa_int8kv_ref(q, hk, hv, hks, hvs, cached, bt, sm))
+                    del hk, hv, hks, hvs
+                    held(f"decode_v4b_int8 edges ps {ps} G {g}",
+                         lambda: dv4.decode_v4b_int8(q, *caches, cached, bt, li, sm, ps)[0],
+                         lambda: dv4.decode_v4b_int8_ref(q, *caches, cached, bt, li, sm)[0])
+                name = "decode_fused_v4_int8" if int8 else "decode_fused_v4"
+                kfn = dv4.decode_fused_v4_int8 if int8 else dv4.decode_fused_v4
+                pfn = dv4.decode_fused_v4_int8_ref if int8 else dv4.decode_fused_v4_ref
+                twin = [c.clone() for c in caches]
+                held(f"{name} edges ps {ps} G {g}",
+                     lambda: kfn(q, kn, vn, *caches, seq, bt, slots, li, sm, ps)[0],
+                     lambda: pfn(q, kn, vn, *twin, seq, bt, slots, li, sm)[0])
+                if not all(torch.equal(a, t) for a, t in zip(caches, twin)):
+                    raise AssertionError(f"{name} edges ps {ps} G {g}: the caches differ from "
+                                         "the plain version's")
+                del twin
+            del caches
+        torch.cuda.empty_cache()
+    if least_s < 2:
+        raise AssertionError(f"decode_v3 edges: a batch of {b} took S = {least_s}, unsplit")
+    print(f"  decode_v3 / K23 edges ({calls} contract calls: G 1, 4, 8, 16 page-major bf16 and "
+          f"int8, in the cache and deferred; decode_int8kv, decode_v4b_int8 and both fused "
+          f"contracts at G 4 and 16; ps 16 / 100 / 512 over 4 pages and 8192 over one; lengths "
+          f"0, 1, ps - 1, ps, ps + 1, 2 ps + 3, 4 ps; B {b}, S >= {least_s}): at most "
+          f"{worst:.3g} "
+          f"of the bound, second calls bit-identical, fused writes equal to the plain "
+          f"version's")
 
 
 # K15's edges (each on its own seed): (ps, T, prefix) with a prefix off a
@@ -2844,8 +2973,8 @@ def run_bench_hm(torch, llama, env, build, params, gpu):
     each within calc_diff 8e-3 of its plain versions, DEFER=0 within 8e-3 of
     v3. Then 8 steps of bench.py with SKT_KV_LAYOUT=hm on an int8 cache (K14
     int8), and from its state 4 steps each of v3 and DEFER=0 (K16's int8
-    contracts), each within 8e-3 of its plain versions. Returns the launches
-    of each run."""
+    contracts), each within 8e-3 of its plain versions, and a profiled step
+    of each (K16's device ms a step). Returns the launches of each run."""
     cfg = llama.LlamaConfig(int8_kv=False, page_size=512)
     b, ctx, k_steps, reps = BENCH_BATCH, BENCH_CTX, BENCH_STEPS, BENCH_REPS
     ps = cfg.page_size
@@ -3038,6 +3167,16 @@ def run_bench_hm(torch, llama, env, build, params, gpu):
           f"bf16 current token, not held) "
           f"{fmt(diffs(i8['int8 SKT_DECODE_DEFER=0'][0], i8['int8 SKT_DECODE_ATTN=v3'][0]))}; "
           f"v3 vs v6 (not held) {fmt(diffs(i8['int8 SKT_DECODE_ATTN=v3'][0], lgs8[:n]))}")
+    # K16's device time a step under each int8 variant, from the int8 state
+    slots8 = bt[rows, (pos0 + 1) // ps] * ps + (pos0 + 1) % ps
+    for label, flags in (("int8 SKT_DECODE_ATTN=v3", {"SKT_DECODE_ATTN": "v3"}),
+                         ("int8 SKT_DECODE_DEFER=0", {"SKT_DECODE_DEFER": "0"})):
+        for key in keys(kv8):
+            kv8[key].copy_(snap8[key])
+        with _env(**flags):
+            profile_step(torch, lambda: llama.decode_step_kv(params, cfg8, kv8, ids0, pos0 + 1,
+                                                             pos0 + 2, bt, slots8),
+                         _HM_V3_BUCKETS, f"bench hm {label} step (B=128)")
     del kv8, snap8, i8
     torch.cuda.empty_cache()
     return launches, variants, int8_launches
@@ -3099,6 +3238,10 @@ _K8 = ("EpiGrouped",)
 _HM_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                ("K14 decode_v6_defer", ("decode_v6_kernel",)),
                ("memsets", ("Memset",)))
+# phase 9's int8 v3 and DEFER=0 steps: K16's share
+_HM_V3_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
+                  ("K16 decode_v3", ("decode_v3_kernel",)),
+                  ("memsets", ("Memset",)))
 # phase 10's decode call, bf16 or int8 pages
 _HM_ENGINE_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K2 rmsq_gemm", _K2),
                       ("K14 decode_v6", ("decode_v6_kernel", "decode_v6_int8_kernel")),
@@ -4916,8 +5059,10 @@ def check_attic(torch, dv4, dv5, dv7, cfg):
         lib_err = (lib_out().float() - ref.float()).abs().max().item()
         lib = _time_ms(library, 20, graph=True)
         nbytes, tok = _hm_decode_bytes(lens, b, hkv, hq, d, mp, int8, new is not None)
-        bound, by = _bound_ms(nbytes + extra_bytes, 4.0 * (tok + extra_tok + b) * hq * d,
-                              "bf16_flops" if share == K14_SHARE else "f32_flops")
+        # K24: q . k and p . v a (token, head) on bf16; K23: three p . v parts
+        bound, by = _bound_ms(nbytes + extra_bytes,
+                              (4.0 if share == K14_SHARE else 8.0) * (tok + extra_tok + b)
+                              * hq * d, "bf16_flops")
         print(f"  {name} B={b} Hq={hq} Hkv={hkv} ps={ps} MP={mp}: max-abs {err:.3g} "
               f"({ratio:.3g} of its bound, max|plain| {float(ref.float().abs().max()):.3g}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA ({backend}) {lib:.4f} ms "
@@ -5246,6 +5391,7 @@ def main() -> int:
     rows["k15"], rows["k15_int8"] = check_prefill_hm(torch, paged_prefill, cfg, rng)
     torch.cuda.empty_cache()
     rows.update(check_decode_v3(torch, decode_v3, decode, cfg, rng))
+    check_decode_v3_edges(torch, decode_v3, decode, attic_v4)
     torch.cuda.empty_cache()
     rows["k11"], comp_ms = check_fused_moe(
         torch, low_latency, pallas_ll, fused_moe_pallas,
@@ -5503,22 +5649,22 @@ def main() -> int:
              source=f"{src}/prefill_hm.cu", replaces=f"{base}/ops/attention/paged_prefill.py:134",
              launches=att_launches["prefill_hm (sparse T 8192 keep 0.25)"],
              **rows["k15_sparse"]),
-        dict(name="decode_v3_defer", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_v3_defer", route="cuda", source=f"{src}/decode_v3.cu",
              replaces=f"{base}/ops/attention/decode_v3.py:492",
              launches=hm_variants["SKT_DECODE_ATTN=v3"]["decode_v3_defer"],
              **rows["decode_v3_defer"]),
-        dict(name="decode_v3_int8_defer", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_v3_int8_defer", route="cuda", source=f"{src}/decode_v3.cu",
              replaces=f"{base}/ops/attention/decode_v3.py:368",
              launches=hm_variants["int8 SKT_DECODE_ATTN=v3"]["decode_v3_int8_defer"],
              **rows["decode_v3_int8_defer"]),
-        dict(name="decode_v3", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_v3", route="cuda", source=f"{src}/decode_v3.cu",
              replaces=f"{base}/ops/attention/decode_v3.py:94",
              launches=hm_variants["SKT_DECODE_DEFER=0"]["decode_v3"], **rows["decode_v3"]),
-        dict(name="decode_v3_int8", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_v3_int8", route="cuda", source=f"{src}/decode_v3.cu",
              replaces=f"{base}/ops/attention/decode_v3.py:217",
              launches=hm_variants["int8 SKT_DECODE_DEFER=0"]["decode_v3_int8"],
              **rows["decode_v3_int8"]),
-        dict(name="decode_int8kv", route="cuda", source=f"{src}/decode_hm.cu",
+        dict(name="decode_int8kv", route="cuda", source=f"{src}/decode_v3.cu",
              replaces=f"{base}/ops/attention/decode.py:366", launches=0,
              **rows["decode_int8kv"]),
     ]
@@ -5544,7 +5690,7 @@ def main() -> int:
              **rows["k22"]),
     ]
     kernels += [dict(name=name, route="cuda",
-                     source=f"{src}/{'decode_v7' if name == 'decode_v7_int8' else 'decode_hm'}"
+                     source=f"{src}/{'decode_v7' if name == 'decode_v7_int8' else 'decode_v3'}"
                             ".cu",
                      replaces=f"attic/ops_attention/{ATTIC_TPU[name]}",
                      launches=attic_launches.get(name, 0), **rows[name])
@@ -5588,7 +5734,8 @@ def main() -> int:
           "launches from phase 10's int8 hm engine; prefill_hm (sparse T 8192 keep 0.25) row: "
           "K15 alone on the page lists of phase 11's keep-0.25 mask, made before the timed "
           "call (library: SDPA with the mask spread to tokens), launches from phase 11's keep-0.25 drive; K16 rows (decode_v3*, decode_int8kv): the bench "
-          "shape, launches of the four v3 contracts from phase 9's SKT_DECODE_ATTN=v3 and "
+          "shape (bound: q . k and three p . v products at the bf16 tensor-core rate, as for "
+          "K23), launches of the four v3 contracts from phase 9's SKT_DECODE_ATTN=v3 and "
           "SKT_DECODE_DEFER=0 runs on the bf16 and the int8 cache, decode_int8kv on no "
           "bench or engine run (no model calls it); K17-K20 rows: one row per phase-11 case, its "
           "launches that case's in phase 11 (the counts set to 0 first; each call twice, a "

@@ -40,8 +40,14 @@ replays). The cases, each name a prefix that --only can pick:
   * K14 (v6 deferred decode over hm pages), bf16 and int8, at the bench
     shape (128 sequences, 32 / 8 heads, one page of 512, 256..383 cached),
     the engine's (8 sequences, 6 pages of 128) and G 16 (the bench shape
-    with 2 kv heads); within K14_SHARE; K10 (the Qwen bench shape) and K16's
-    int8 deferred contract (the bench shape) as controls of decode_hm.cu.
+    with 2 kv heads); within K14_SHARE;
+  * K10 (the Qwen bench shape); within K10_SHARE;
+  * K16's five contracts (v3 bf16 / int8, in the cache or deferred, and
+    decode_int8kv) at the bench shape and K23's five (the attic's v5 pair,
+    v4b int8 and the fused pair over stacked caches, layer 5 of 6) and K24
+    (the attic's v7 two-tier decode) at chip_smoke.py's phase 13 shape (64
+    sequences of 256..383 cached tokens, 128-token pages); within HM_SHARE
+    (K24: K14_SHARE).
 Each case must also give the same bits in every turn of its root. Prints,
 per case, each root's median over its turns and the ratio of each to the
 first root's, the sums of the four Llama GEMMs of A at M 8 and 128, of
@@ -72,7 +78,10 @@ A_WIDTHS = (("wqkv", H, Q + 2 * KV), ("wo", Q, H), ("w13", H, 2 * F), ("w2", F, 
 # the kernels the cases launch (names of _build.KERNELS)
 KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm",
            "w8a8_gemm_grouped", "fused_moe", "decode_mla_c", "decode_v6_defer",
-           "decode_v6_int8_defer", "decode_hm", "decode_v3_int8_defer")
+           "decode_v6_int8_defer", "decode_hm", "decode_v3", "decode_v3_int8",
+           "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
+           "decode_v5_int8_defer", "decode_v4b_int8", "decode_fused_v4_int8",
+           "decode_fused_v4", "decode_v7_int8")
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
 SUMS["K1 wo + w2 + lm_head M 128"] = [f"K1 {nm} M 128" for nm in ("wo", "w2", "lm_head")]
@@ -380,13 +389,32 @@ def _cases(torch, cs, want):
         hargs = (q, kc, vc, seq, bt, d ** -0.5, ps)
         yield ("K10 qwen bench", lambda: decode.decode_gqa_hm(*hargs),
                ulp(decode.decode_gqa_hm_ref(*hargs), cs.K10_SHARE), 50)
-    if on("K16 int8 defer bench"):
-        q, kn, vn, k, v, ks, vs, cached, bt, sm, ps = k14_inputs(torch, gen, "bench", True)
-        a16 = (q, kn, vn, k, v, ks, vs, cached, bt, sm, ps)
-        ref = decode_v3.decode_gqa_v3_ref(q, k, v, cached, bt, sm, k_scales=ks, v_scales=vs,
-                                          k_new=kn, v_new=vn)
-        yield ("K16 int8 defer bench", lambda: decode_v3.decode_gqa_v3_int8_defer(*a16),
-               ulp(ref, cs.HM_SHARE), 50)
+    for int8 in (True, False):
+        q, kn, vn, k, v, *sc, cached, bt, sm, ps = k14_inputs(torch, gen, "bench", int8)
+        ks, vs = sc if int8 else (None, None)
+        i8 = "_int8" if int8 else ""
+        for defer in (True, False):
+            name = f"K16 {'int8' if int8 else 'bf16'} {'defer ' if defer else ''}bench"
+            if not on(name):
+                continue
+            lens = cached if defer else cached + 1
+            new = (kn, vn) if defer else ()
+            fn = getattr(decode_v3, f"decode_gqa_v3{i8}{'_defer' if defer else ''}")
+            ref = decode_v3.decode_gqa_v3_ref(q, k, v, lens, bt, sm, k_scales=ks, v_scales=vs,
+                                              k_new=kn if defer else None,
+                                              v_new=vn if defer else None)
+            yield (name, lambda fn=fn, a=(q, *new, k, v, *sc, lens, bt, sm, ps): fn(*a),
+                   ulp(ref, cs.HM_SHARE), 50)
+        del k, v, sc
+    if on("K16 int8kv bench"):
+        q, _, _, k, v, ks, vs, cached, bt, sm, ps = k14_inputs(torch, gen, "bench", True)
+        hk, hv = (x.transpose(0, 1).contiguous() for x in (k, v))
+        hks, hvs = (x.transpose(0, 1).contiguous() for x in (ks, vs))
+        kv_args = (q, hk, hv, hks, hvs, cached + 1, bt, sm, ps)
+        yield ("K16 int8kv bench", lambda: decode.decode_gqa_int8kv(*kv_args),
+               ulp(decode.decode_gqa_int8kv_ref(*kv_args), cs.HM_SHARE), 50)
+        del k, v, hk, hv
+    yield from _attic_cases(torch, cs, on, ulp)
     data = None
     if on("K8 MoE GMM1") or on("K8 MoE GMM2"):
         from sgl_kernel_npu_tpu_torch import parallel
@@ -420,6 +448,58 @@ def _cases(torch, cs, want):
                lambda: fused_moe_pallas.fused_moe_layer(*kargs, group=grp, maxt=cs.MOE_T)[0],
                exact(fused_moe_pallas.fused_moe_layer_ref(*kargs, group=grp,
                                                           maxt=cs.MOE_T)[0]), 10)
+
+
+def _attic_cases(torch, cs, on, ulp):
+    """K23's five contracts and K24 at chip_smoke.py's phase 13 state
+    (_attic_state, seed 350), the stacked caches 6 layers deep at layer 5."""
+    from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v4, decode_v5, decode_v7
+    from sgl_kernel_npu_tpu_torch.models import llama
+    st = cs._attic_state(torch, llama.LlamaConfig(int8_kv=True), 350)
+    q, kn, vn, cached, bt, sm, ps = (st[k] for k in ("q", "kn", "vn", "cached", "bt", "sm", "ps"))
+    gen, li, seq = st["gen"], 5, cached + 1
+    slots = cs._slots_of(torch, bt, cached, ps)
+    for int8 in (True, False):
+        tag = "int8" if int8 else "bf16"
+        if on(f"K23 v5 {tag}"):
+            k, v, ks, vs = cs._hm_pages(torch, gen, st["pages"], st["hkv"], ps, st["d"], int8)
+            fn = decode_v5.decode_gqa_v5_int8_defer if int8 else decode_v5.decode_gqa_v5_defer
+            a = (q, kn, vn, k, v, *((ks, vs) if int8 else ()), cached, bt, sm, ps)
+            yield (f"K23 v5 {tag}", lambda fn=fn, a=a: fn(*a),
+                   ulp(decode_v5.decode_gqa_v5_defer_ref(q, kn, vn, k, v, cached, bt, sm,
+                                                         k_scales=ks, v_scales=vs),
+                       cs.HM_SHARE), 50)
+            del k, v, ks, vs
+        if not (on(f"K23 fused {tag}") or (int8 and on("K23 v4b int8"))):
+            continue
+        shape = (6, st["pages"], st["hkv"], ps, st["d"])
+        if int8:
+            caches = [torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8,
+                                    device="cuda") for _ in range(2)]
+            caches += [torch.rand(shape[:3] + (1, ps), generator=gen, device="cuda") * 0.02
+                       + 0.005 for _ in range(2)]
+        else:
+            caches = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                      for _ in range(2)]
+        if int8 and on("K23 v4b int8"):
+            yield ("K23 v4b int8",
+                   lambda c=caches: decode_v4.decode_v4b_int8(q, *c, seq, bt, li, sm, ps)[0],
+                   ulp(decode_v4.decode_v4b_int8_ref(q, *caches, seq, bt, li, sm)[0],
+                       cs.HM_SHARE), 50)
+        if on(f"K23 fused {tag}"):
+            kfn = decode_v4.decode_fused_v4_int8 if int8 else decode_v4.decode_fused_v4
+            pfn = decode_v4.decode_fused_v4_int8_ref if int8 else decode_v4.decode_fused_v4_ref
+            ref = pfn(q, kn, vn, *[c.clone() for c in caches], seq, bt, slots, li, sm)[0]
+            yield (f"K23 fused {tag}",
+                   lambda kfn=kfn, c=caches: kfn(q, kn, vn, *c, seq, bt, slots, li, sm, ps)[0],
+                   ulp(ref, cs.HM_SHARE), 50)
+        del caches
+    if on("K24 attic v7"):
+        s7 = cs._v7_state(torch, st)
+        a7 = (q, None, kn, vn, s7["k"], s7["v"], s7["ks"], s7["vs"], s7["kside"], s7["vside"],
+              s7["rows"], cached, bt, sm, ps)
+        yield ("K24 attic v7", lambda: decode_v7.decode_gqa_v7_int8(*a7),
+               ulp(decode_v7.decode_gqa_v7_int8_ref(*a7), cs.K14_SHARE), 50)
 
 
 def _import_root(root):
@@ -520,7 +600,7 @@ def main() -> int:
                 raise AssertionError(f"root {roots[i]}: a case's bits changed between turns")
     first = runs[0][0]["digest"]
     differ = [k for i in order for k, v in runs[i][0]["digest"].items()
-              if first.get(k) != v and not k.startswith(("K3", "C ", "K5", "K14"))]
+              if first.get(k) != v and not k.startswith(("K3", "C ", "K5", "K14", "K16", "K23"))]
     if differ:
         raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
 

@@ -52,11 +52,11 @@ KERNELS = {
     "decode_v6_defer": "decode_v6",    # K14, bf16 pages
     "decode_v6_int8_defer": "decode_v6",  # K14, int8 pages
     "prefill_hm": "prefill_hm",        # K15
-    "decode_v3": "decode_hm",          # K16, one counter per contract
-    "decode_v3_int8": "decode_hm",
-    "decode_v3_defer": "decode_hm",
-    "decode_v3_int8_defer": "decode_hm",
-    "decode_int8kv": "decode_hm",
+    "decode_v3": "decode_v3",          # K16, one counter per contract
+    "decode_v3_int8": "decode_v3",
+    "decode_v3_defer": "decode_v3",
+    "decode_v3_int8_defer": "decode_v3",
+    "decode_int8kv": "decode_v3",
     "laser_attention": "laser_attention",      # K17
     "sparse_estimate": "sparse_estimate",      # K18
     "topk_block_sparse": "topk_sparse",        # K19
@@ -64,11 +64,11 @@ KERNELS = {
     "wfp8a16_gemm": "wfp8a16_gemm",            # K21, dense
     "wfp8a16_gemm_grouped": "wfp8a16_gemm",    # K21, per-m-tile expert map
     "helloworld": "helloworld",                # K22
-    "decode_v5_defer": "decode_hm",            # K23, one counter per contract
-    "decode_v5_int8_defer": "decode_hm",
-    "decode_v4b_int8": "decode_hm",
-    "decode_fused_v4_int8": "decode_hm",
-    "decode_fused_v4": "decode_hm",
+    "decode_v5_defer": "decode_v3",            # K23, one counter per contract
+    "decode_v5_int8_defer": "decode_v3",
+    "decode_v4b_int8": "decode_v3",
+    "decode_fused_v4_int8": "decode_v3",
+    "decode_fused_v4": "decode_v3",
     "decode_v7_int8": "decode_v7",             # K24
 }
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))

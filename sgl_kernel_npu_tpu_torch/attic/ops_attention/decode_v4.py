@@ -32,7 +32,8 @@ where the JAX package returned the aliased outputs of its Pallas calls;
 nothing here syncs the host. The TPU kernels take f32 products and an
 unrounded p (int8 rows dequantised as f32(row * scale)), K16's rounding. On
 a CUDA tensor the three attentions launch their contracts of kernel K23
-(csrc/decode_hm.cu), each counted under its own name; on a CPU tensor each
+(csrc/decode_v3.cu, through decode_v3.launch_v3), each counted under its own
+name; on a CPU tensor each
 runs its plain version, the scatter then the pages in the TPU kernel's
 order (decode.py::_pages_ref). scatter_stacked_int8 is plain PyTorch, as in
 the JAX package.
@@ -40,20 +41,12 @@ the JAX package.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ... import _build
 from ...ops.attention.decode import _pages_ref
-from ...ops.attention.decode_v3 import _gather_pm
+from ...ops.attention.decode_v3 import _gather_pm, launch_v3
 from ...ops.attention.decode_v8 import quant_rows_int8
 from ...utils import index_copy_kept_, use_kernel
-
-# q, k cache, v cache, k scales, v scales, k_new, v_new, seq_lens, block
-# table, out, layer, slots, B, Hq, Hkv, D, L, P, ps, MP, li, sm_scale, stream
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _layer_index(layer_idx, device) -> torch.Tensor:
@@ -145,65 +138,15 @@ def decode_v4b_int8_ref(q, k_cache, v_cache, k_scales, v_scales, seq_lens, block
     return att, k_cache, v_cache, k_scales, v_scales
 
 
-def _launch_stacked(name, q, k_cache, v_cache, scales, new, lens, block_table, slots,
-                    layer_idx, sm_scale, page_size):
-    """One launch of a stacked contract of csrc/decode_hm.cu (K23): `name`
-    is its C entry point and launch counter; scales (k, v) for int8 caches,
-    new (k, v) [B, Hkv, D] and slots [B] for the fused write, else None.
-    Returns [B, Hq, D] bf16."""
-    b, hq, d = q.shape
-    layers, num_pages, hkv, ps, d2 = k_cache.shape
-    if (v_cache.shape != k_cache.shape or d2 != d or d != 128 or ps != page_size
-            or hq % hkv or hq // hkv not in (1, 2, 4, 8, 16)):
-        raise ValueError(f"{name}: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}: needs "
-                         "head dim 128 and Hq / Hkv in 1, 2, 4, 8, 16")
-    want = torch.int8 if scales is not None else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_cache.dtype != want or v_cache.dtype != want:
-        raise TypeError(f"{name}: bf16 q and {want} caches expected")
-    if scales is not None and any(s.shape != (layers, num_pages, hkv, 1, ps)
-                                  or s.dtype != torch.float32 for s in scales):
-        raise ValueError(f"{name}: f32 scales [L, P, Hkv, 1, ps] expected")
-    dev = q.device
-    q = q.contiguous()
-    ks, vs = scales if scales is not None else (None, None)
-    kn, vn = ((x.to(torch.bfloat16).contiguous() for x in new) if new is not None
-              else (None, None))
-    sl = lens.to(torch.int32).contiguous()
-    bt = block_table.to(torch.int32).contiguous()
-    sm = slots.to(torch.int32).contiguous() if slots is not None else None
-    if isinstance(layer_idx, torch.Tensor):
-        layer, li = layer_idx.to(device=dev, dtype=torch.int32).reshape(1).contiguous(), 0
-        if layer.device != dev or layer.data_ptr() % 4:
-            raise ValueError(f"{name}: the layer tensor must be an aligned int on {dev}")
-    else:
-        layer, li = None, int(layer_idx)
-        if not 0 <= li < layers:
-            raise ValueError(f"{name}: layer {li} of {layers}")
-    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
-    opt = [t for t in (ks, vs, kn, vn, sm) if t is not None]
-    _build.check_operands(name, dev, q, k_cache, v_cache, *opt, sl, bt, out)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    fn = _build.launcher(name, _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(ks), ptr(vs), ptr(kn),
-              ptr(vn), sl.data_ptr(), bt.data_ptr(), out.data_ptr(), ptr(layer), ptr(sm), b, hq,
-              hkv, d, layers, num_pages, ps, bt.shape[1], li, float(sm_scale), stream)
-    _build.check(name, code)
-    _build.launches[name] += 1
-    return out
-
-
 def decode_fused_v4_int8(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, seq_lens,
                          block_table, slot_mapping, layer_idx, sm_scale, page_size):
     if not use_kernel(q):
         return decode_fused_v4_int8_ref(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
                                         seq_lens, block_table, slot_mapping, layer_idx,
                                         sm_scale)
-    att = _launch_stacked("decode_fused_v4_int8", q, k_cache, v_cache, (k_scales, v_scales),
-                          (k_new, v_new), seq_lens, block_table, slot_mapping, layer_idx,
-                          sm_scale, page_size)
+    att = launch_v3("decode_fused_v4_int8", q, k_cache, v_cache, (k_scales, v_scales),
+                    (k_new, v_new), seq_lens, block_table, sm_scale, page_size,
+                    layout="stacked", layer_idx=layer_idx, slots=slot_mapping)
     return att, k_cache, v_cache, k_scales, v_scales
 
 
@@ -212,8 +155,9 @@ def decode_fused_v4(q, k_new, v_new, k_cache, v_cache, seq_lens, block_table, sl
     if not use_kernel(q):
         return decode_fused_v4_ref(q, k_new, v_new, k_cache, v_cache, seq_lens, block_table,
                                    slot_mapping, layer_idx, sm_scale)
-    att = _launch_stacked("decode_fused_v4", q, k_cache, v_cache, None, (k_new, v_new),
-                          seq_lens, block_table, slot_mapping, layer_idx, sm_scale, page_size)
+    att = launch_v3("decode_fused_v4", q, k_cache, v_cache, None, (k_new, v_new), seq_lens,
+                    block_table, sm_scale, page_size, layout="stacked", layer_idx=layer_idx,
+                    slots=slot_mapping)
     return att, k_cache, v_cache
 
 
@@ -222,6 +166,7 @@ def decode_v4b_int8(q, k_cache, v_cache, k_scales, v_scales, seq_lens, block_tab
     if not use_kernel(q):
         return decode_v4b_int8_ref(q, k_cache, v_cache, k_scales, v_scales, seq_lens,
                                    block_table, layer_idx, sm_scale)
-    att = _launch_stacked("decode_v4b_int8", q, k_cache, v_cache, (k_scales, v_scales), None,
-                          seq_lens, block_table, None, layer_idx, sm_scale, page_size)
+    att = launch_v3("decode_v4b_int8", q, k_cache, v_cache, (k_scales, v_scales), None,
+                    seq_lens, block_table, sm_scale, page_size, layout="stacked",
+                    layer_idx=layer_idx)
     return att, k_cache, v_cache, k_scales, v_scales

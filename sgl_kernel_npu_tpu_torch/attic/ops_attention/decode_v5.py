@@ -14,16 +14,15 @@ q [B, Hq, D] bf16 -> [B, Hq, D] bf16; int8 caches with per-token f32 scales
 The TPU kernels (decode_gqa_pallas_v5_defer, decode_gqa_pallas_v5_int8_defer)
 take one page per grid step and the v3 deferred kernels' arithmetic: f32
 products (int8 rows dequantised as f32(row * scale)), an unrounded p. On a
-CUDA tensor each launches its contract of kernel K23 (csrc/decode_hm.cu,
-K16's loop), counted under "decode_v5_defer" / "decode_v5_int8_defer"; on a
+CUDA tensor each launches its contract of kernel K23 (csrc/decode_v3.cu,
+K16's design), counted under "decode_v5_defer" / "decode_v5_int8_defer"; on a
 CPU tensor it runs `decode_gqa_v5_defer_ref`, the pages in the TPU kernel's
 order (decode_v3.decode_gqa_v3_ref).
 """
 
 from __future__ import annotations
 
-from ...ops.attention.decode import _launch_hm
-from ...ops.attention.decode_v3 import decode_gqa_v3_ref
+from ...ops.attention.decode_v3 import decode_gqa_v3_ref, launch_v3
 from ...utils import use_kernel
 
 
@@ -39,8 +38,8 @@ def decode_gqa_v5_defer(q, k_new, v_new, k_cache, v_cache, cached_lens, block_ta
     if not use_kernel(q):
         return decode_gqa_v5_defer_ref(q, k_new, v_new, k_cache, v_cache, cached_lens,
                                        block_table, sm_scale)
-    return _launch_hm("decode_v5_defer", q, k_cache, v_cache, None, (k_new, v_new),
-                      cached_lens, block_table, sm_scale, page_size)
+    return launch_v3("decode_v5_defer", q, k_cache, v_cache, None, (k_new, v_new),
+                     cached_lens, block_table, sm_scale, page_size)
 
 
 def decode_gqa_v5_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales,
@@ -49,5 +48,5 @@ def decode_gqa_v5_int8_defer(q, k_new, v_new, k_cache, v_cache, k_scales, v_scal
         return decode_gqa_v5_defer_ref(q, k_new, v_new, k_cache, v_cache, cached_lens,
                                        block_table, sm_scale, k_scales=k_scales,
                                        v_scales=v_scales)
-    return _launch_hm("decode_v5_int8_defer", q, k_cache, v_cache, (k_scales, v_scales),
-                      (k_new, v_new), cached_lens, block_table, sm_scale, page_size)
+    return launch_v3("decode_v5_int8_defer", q, k_cache, v_cache, (k_scales, v_scales),
+                     (k_new, v_new), cached_lens, block_table, sm_scale, page_size)

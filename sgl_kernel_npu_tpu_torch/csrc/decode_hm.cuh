@@ -1,15 +1,13 @@
-// Device code shared by the paged GQA decodes over head-major and
-// page-major pages: kernels K10, K16 and K23 (decode_hm.cu) and K24
-// (decode_v7.cu). One block per (kv head, sequence) walks the sequence's
-// pages with one online-softmax step per page (`page_step`); the contract
-// (`Mode`) says where the current token is.
+// Device code of the paged GQA decodes K10 (decode_hm.cu: head-major bf16
+// pages) and K24 (decode_v7.cu: page-major int8 pages and a bf16 sidecar).
+// One block per (kv head, sequence) walks the sequence's pages with one
+// online-softmax step per page (`page_step`); the contract (`Mode`) says
+// where the current token is.
 //
 // q [B, Hq, 128] bf16; block table [B, MP] int32; out [B, Hq, 128] bf16. The
 // G = Hq / Hkv query heads h*G .. h*G + G-1 share kv head h. Pages are bf16,
 // or int8 rows with per-token f32 scales; their layout is two strides
-// (elements between pages of one head, between heads of one page), and a
-// stacked [L, ...] cache adds a layer stride, the layer read on the device
-// where the caller passes it as a tensor.
+// (elements between pages of one head, between heads of one page).
 //
 // Rounding, as the TPU kernels take it: pages past the live count skipped;
 // the score is an f32 sum of f32 products, times sm_scale, columns past the
@@ -17,13 +15,13 @@
 // dot sums in f32; a current token kept apart folds in after the last page
 // as one more step of one column; out = acc / max(l, 1e-37), rounded to bf16.
 // ROUND_P picks one of two roundings:
-//   false: an int8 row is dequantised element by element as f32(k * scale)
-//     before the dot; p is not rounded;
+//   false (K10, bf16 pages): p is not rounded;
 //   true (K24): int8 rows enter the dot as they are (exact in bf16), the K
 //     scale multiplies the score; p (int8: p times the row's V scale) is
 //     rounded to bf16 before the P.V dot, the current token's p too.
 // bf16 times bf16 is exact in f32, so CUDA-core FMAs give the bf16 MXU's
-// products; only the order of the f32 sums differs.
+// products; only the order of the f32 sums differs. (K16 and K23, the
+// page-major f32 contracts, run C's tensor-core loop: decode_v3.cu.)
 //
 // Design: a page (512 tokens of one head are 128 KB bf16) is streamed, never
 // held, and the G heads read each row once:
@@ -53,17 +51,10 @@ constexpr int D = 128;
 constexpr int PAIRS = D / 2;                  // column pairs
 constexpr int SLICES = THREADS / PAIRS;       // token slices of the P.V phase
 constexpr float NEG = -1e30f;
-constexpr float INV127 = (float)(1.0 / 127.0);
 
 // Where the current token is:
 enum Mode {
-  IN_CACHE = 0,  // already in the pages; seq_lens counts it
-  DEFER = 1,     // k_new / v_new [B, Hkv, 128] bf16 fold in last; seq_lens
-                 // counts the cached tokens (clamped at 0)
-  FUSED = 2,     // seq_lens counts it; the block first writes it into its
-                 // slot (int8: quantised per row, as reshape_and_cache's
-                 // int8 scatter does), masks it out of the pages and folds
-                 // it in last from registers (int8: the dequantised row)
+  IN_CACHE = 0,  // K10: already in the pages; seq_lens counts it
   TWO_TIER = 3,  // K24: seq_lens counts the cached tokens; the first
                  // cached / window * window are in the int8 pages, the rest
                  // in row side_rows[b] of a bf16 sidecar [S, window,
@@ -92,9 +83,8 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Read-only loads (ld.global.nc) of rows no block writes during the launch
-// (a fused write goes to a row its own block masks out, of its own head). 8
-// consecutive elements of a row as f32 (int8 and bf16 convert exactly).
+// Read-only loads (ld.global.nc) of rows no block writes during the launch.
+// 8 consecutive elements of a row as f32 (int8 and bf16 convert exactly).
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
   const int4 v = __ldg(reinterpret_cast<const int4*>(p));
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -123,24 +113,21 @@ __device__ __forceinline__ float2 load2(const int8_t* p) {
 
 struct Operands {
   const __nv_bfloat16* q;
-  void* kc;                                     // written only by FUSED
-  void* vc;
-  float* ks;                                    // int8 only
-  float* vs;
-  const __nv_bfloat16* knew;                    // DEFER, FUSED, TWO_TIER: [B, Hkv, 128]
+  const void* kc;
+  const void* vc;
+  const float* ks;                              // int8 only
+  const float* vs;
+  const __nv_bfloat16* knew;                    // TWO_TIER: [B, Hkv, 128]
   const __nv_bfloat16* vnew;
   const int* seq_lens;
   const int* bt;
   __nv_bfloat16* out;
-  const int* layer;                             // stacked caches: the layer, or null (li)
-  const int* slots;                             // FUSED: slot_mapping [B], < 0 writes nothing
   const __nv_bfloat16* kside;                   // TWO_TIER: [S, window, Hkv*128]
   const __nv_bfloat16* vside;
   const int* side_rows;                         // TWO_TIER: [B]
-  int Hkv, ps, MP, P, li, layers, window;        // layers: of a stacked cache, else 1
+  int Hkv, ps, MP, P, window;
   long long page_stride, head_stride;           // elements of k / v
   long long spage_stride, shead_stride;         // elements of the scales
-  long long layer_stride, slayer_stride;        // stacked caches, else 0
   float sm_scale;
 };
 
@@ -155,6 +142,7 @@ __device__ __forceinline__ void page_step(const T* kp, const T* vp, const float*
                                           int ldsc, float* red, float* m_s, float* l_s,
                                           float* alpha_s, float (&acc)[G][2]) {
   constexpr bool INT8 = sizeof(T) == 1;
+  static_assert(!INT8 || ROUND_P, "int8 rows enter the dot as they are (K24)");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int l16 = lane & 15;
   const int cp = tid % PAIRS, ts = tid / PAIRS;
@@ -171,17 +159,13 @@ __device__ __forceinline__ void page_step(const T* kp, const T* vp, const float*
 #pragma unroll
       for (int i = 0; i < 8; ++i) x[i] = 0.f;
     }
-    if (INT8 && !ROUND_P) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = __fmul_rn(x[i], s8);
-    }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) part = fmaf(qr[g][i], x[i], part);
       const float s = half_sum(part);
-      if (l16 == 0 && t < n) sc[g * ldsc + t] = (INT8 && ROUND_P ? s * s8 : s) * sm_scale;
+      if (l16 == 0 && t < n) sc[g * ldsc + t] = (INT8 ? s * s8 : s) * sm_scale;
     }
   }
   __syncthreads();
@@ -211,11 +195,7 @@ __device__ __forceinline__ void page_step(const T* kp, const T* vp, const float*
   for (int g = 0; g < G; ++g) o[g][0] = o[g][1] = 0.f;
 #pragma unroll 8
   for (int t = ts; t < n; t += SLICES) {
-    float2 vv = load2(vp + (size_t)t * rs + 2 * cp);
-    if (INT8 && !ROUND_P) {
-      const float s8 = __ldg(vsp + t);
-      vv = make_float2(__fmul_rn(vv.x, s8), __fmul_rn(vv.y, s8));
-    }
+    const float2 vv = load2(vp + (size_t)t * rs + 2 * cp);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float p = sc[g * ldsc + t];
@@ -243,49 +223,6 @@ __device__ __forceinline__ void page_step(const T* kp, const T* vp, const float*
   }
 }
 
-// FUSED: threads 0-127 take column t of k_new's row (b, h), 128-255 of
-// v_new's; write it at the slot of layer li (int8: quantised as
-// reshape_and_cache_gqa_page_major_int8, scale = max(absmax, 1e-7) *
-// f32(1/127), q = clamp(rint(x / scale), -128, 127), each step rounded on
-// its own) and leave what a reader of the cache sees in kn_s / vn_s.
-template <typename T>
-__device__ __forceinline__ void fused_write(const Operands& a, int b, int h, long long li,
-                                            float* kn_s, float* vn_s, float* amax_s) {
-  constexpr bool INT8 = sizeof(T) == 1;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t = tid & (D - 1);
-  const bool isv = tid >= D;
-  const __nv_bfloat16* src = (isv ? a.vnew : a.knew) + ((size_t)b * a.Hkv + h) * D;
-  const __nv_bfloat16 raw = src[t];
-  const float x = __bfloat162float(raw);
-  const int slot = a.slots[b];
-  const bool write = slot >= 0 && slot < a.P * a.ps;
-  const long long page = write ? slot / a.ps : 0, off = write ? slot % a.ps : 0;
-  T* dst = static_cast<T*>(isv ? a.vc : a.kc) + li * a.layer_stride + page * a.page_stride
-           + h * a.head_stride + off * D + t;
-  float* seen = isv ? vn_s : kn_s;
-  if (INT8) {
-    const float m = warp_max(fabsf(x));
-    if (lane == 0) amax_s[warp] = m;                  // warps 0-3: k, 4-7: v
-    __syncthreads();
-    const int w0 = isv ? 4 : 0;
-    const float amax = fmaxf(fmaxf(amax_s[w0], amax_s[w0 + 1]),
-                             fmaxf(amax_s[w0 + 2], amax_s[w0 + 3]));
-    const float scale = __fmul_rn(fmaxf(amax, 1e-7f), INV127);
-    const int qv = max(-128, min(127, __float2int_rn(__fdiv_rn(x, scale))));
-    seen[t] = __fmul_rn((float)qv, scale);
-    if (write) {
-      *reinterpret_cast<int8_t*>(dst) = (int8_t)qv;
-      if (t == 0)
-        (isv ? a.vs : a.ks)[li * a.slayer_stride + page * a.spage_stride
-                            + h * a.shead_stride + off] = scale;
-    }
-  } else {
-    seen[t] = x;
-    if (write) *reinterpret_cast<__nv_bfloat16*>(dst) = raw;
-  }
-}
-
 template <int G, typename T, int MODE, bool ROUND_P>
 __global__ void __launch_bounds__(THREADS) decode_hm_kernel(const Operands a) {
   extern __shared__ float smem[];
@@ -295,26 +232,20 @@ __global__ void __launch_bounds__(THREADS) decode_hm_kernel(const Operands a) {
   float* red = smem + G * ldsc;                       // [SLICES][G][D]: P.V partial sums
   __shared__ float m_s[G], l_s[G], alpha_s[G], pn_s[G];
   __shared__ float kn_s[D], vn_s[D];                  // the current token's k / v in f32
-  __shared__ float amax_s[WARPS];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int l16 = lane & 15;
   const int Hq = a.Hkv * G;
-  // the layer of a stacked cache (clamped to the stack, as no host checks a
-  // layer that lies on the device)
-  const long long li = min(max(a.layer != nullptr ? __ldg(a.layer) : a.li, 0), a.layers - 1);
-  const T* kc = static_cast<const T*>(a.kc) + li * a.layer_stride;
-  const T* vc = static_cast<const T*>(a.vc) + li * a.layer_stride;
-  const float* ks = sizeof(T) == 1 ? a.ks + li * a.slayer_stride : nullptr;
-  const float* vs = sizeof(T) == 1 ? a.vs + li * a.slayer_stride : nullptr;
-  const int cached = max(a.seq_lens[b] - (MODE == FUSED ? 1 : 0), 0);
+  const T* kc = static_cast<const T*>(a.kc);
+  const T* vc = static_cast<const T*>(a.vc);
+  const float* ks = sizeof(T) == 1 ? a.ks : nullptr;
+  const float* vs = sizeof(T) == 1 ? a.vs : nullptr;
+  const int cached = max(a.seq_lens[b], 0);
   // tokens read from the pages
   const int slen = min(MODE == TWO_TIER ? cached / a.window * a.window : cached, a.MP * ps);
   const int npages = (slen + ps - 1) / ps;
 
-  if (MODE == FUSED) {
-    fused_write<T>(a, b, h, li, kn_s, vn_s, amax_s);
-  } else if (MODE != IN_CACHE && tid < D) {
+  if (MODE != IN_CACHE && tid < D) {
     const size_t row = ((size_t)b * a.Hkv + h) * D;
     kn_s[tid] = __bfloat162float(a.knew[row + tid]);
     vn_s[tid] = __bfloat162float(a.vnew[row + tid]);
@@ -410,10 +341,10 @@ inline Operands operands(Layout layout, const void* q, const void* kc, const voi
                          int ps, int MP, float sm_scale) {
   Operands a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kc = const_cast<void*>(kc);
-  a.vc = const_cast<void*>(vc);
-  a.ks = static_cast<float*>(const_cast<void*>(ks));
-  a.vs = static_cast<float*>(const_cast<void*>(vs));
+  a.kc = kc;
+  a.vc = vc;
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
   a.knew = static_cast<const __nv_bfloat16*>(knew);
   a.vnew = static_cast<const __nv_bfloat16*>(vnew);
   a.seq_lens = static_cast<const int*>(seq_lens);
@@ -423,7 +354,6 @@ inline Operands operands(Layout layout, const void* q, const void* kc, const voi
   a.ps = ps;
   a.MP = MP;
   a.P = P;
-  a.layers = 1;
   a.window = 1;
   a.sm_scale = sm_scale;
   if (layout == HEAD_MAJOR) {                 // [Hkv, P, ps, D], scales [Hkv, P, 1, ps]

@@ -1,20 +1,32 @@
 // The paged GQA decode that kernels C (decode_tm.cu, token-major int8
-// pages), K3 (decode_tm2.cu, head-major int8 pages) and K14 (decode_v6.cu,
-// page-major bf16 or int8 pages, which are head-major pages at L = 1)
-// instantiate: the current token folded in (deferred write), online-softmax
-// steps of `step` tokens, rounded where the TPU kernels round. The page
-// layout is a template parameter (`Layout::row`: the cache row, and scale,
-// of a page slot), and so is the element type: int8 rows with per-token f32
-// scales, or bf16 rows without (K14's bf16 contract: p rounded to bf16 with
-// no v scale). More than MAXG query heads a kv head run as `ng` groups of G
-// heads, one block each, over the same rows.
+// pages), K3 (decode_tm2.cu, head-major int8 pages), K14 (decode_v6.cu,
+// page-major bf16 or int8 pages, which are head-major pages at L = 1) and
+// K16 / K23 (decode_v3.cu: the same pages, stacked caches at a layer read
+// on the device, and kv-head-major [Hkv, P, ps, D] pages) instantiate:
+// online-softmax steps of `step` tokens, rounded where the TPU kernels
+// round. The page layout is a template parameter (`Layout::row`: the cache
+// row, and scale, of a page slot), and so are the element type (int8 rows
+// with per-token f32 scales, or bf16 rows without), the rounding of p
+// (`Round`) and where the current token is (`Mode`: folded in last, already
+// in the cache, or written by the launch, then folded in). More than MAXG
+// query heads a kv head run as `ng` groups of G heads, one block each, over
+// the same rows.
 //
-// Rounding, as the TPU kernels take it: k scales multiply the scores (s =
-// (q . k) * k_scale * sm_scale), v scales the probabilities, and p * v_scale
-// is rounded to bf16 before it meets V (the MXU dot there takes bf16
-// operands); the online softmax steps through `step` tokens at a time, so
-// p = exp(s - m) with m the running maximum at the end of the token's step;
-// then the current token is folded in with its p rounded to bf16.
+// Rounding, P_BF16 (C, K3, K14), as their TPU kernels take it: k scales
+// multiply the scores (s = (q . k) * k_scale * sm_scale), v scales the
+// probabilities, and p * v_scale is rounded to bf16 before it meets V (the
+// MXU dot there takes bf16 operands); the online softmax steps through
+// `step` tokens at a time, so p = exp(s - m) with m the running maximum at
+// the end of the token's step; then the current token is folded in with its
+// p rounded to bf16. P_F32 (K16, K23), whose TPU kernels work in f32: the
+// same score, p = exp(s - m) unrounded, p * v_scale rounded once in f32 and
+// split into three bf16 parts hi + mid + lo that sum to it exactly (three
+// MMAs a 16-token slice); each slice's three products run into a zeroed
+// accumulator whose sum is added to the output in f32 (the tensor cores'
+// own accumulation truncates); l sums the unrounded p, and the current token
+// folds in with its p unrounded. That differs from the f32 version only in
+// the order of the f32 sums. As p is not rounded, a split needs no running
+// maximum from the tokens before it: it starts at its own first step.
 //
 // Bound on an H100: the bytes of the cached rows it must read,
 // cached*hkv*(2*D + 8) per sequence per layer (int8; 4*D for bf16), over
@@ -23,33 +35,33 @@
 // (S from the card's co-resident blocks over B * hkv and the block table's
 // width; the spans themselves from the cached length on the device, so
 // nothing syncs the host and a CUDA graph replays it); K3 runs one block a
-// (sequence, kv head), S = 1; K14 splits where the card has room, on step
-// (page) boundaries. A block of four warps walks its span in rounds through
-// a 3-stage cp.async ring of coalesced 16-byte copies (rows padded by 16
-// bytes, 144 for int8 and 272 for bf16, so the fragment reads below meet no
-// bank conflict; TMA boxes into swizzled rows were no faster: PERF.md); a
-// stage holds 16 KB of rows, 128 int8 or 64 bf16 ones. Both products run on
-// the tensor cores as bf16 mma.sync m16n8k16 with f32 sums; int8 and bf16
-// values and bf16(p * v_scale) are exact in bf16, so every product is
-// exact: S^T = K . q^T (16 tokens x the G <= 8 heads as n = 8; for int8
-// rows D is permuted alike in K and q so that each lane reads 4 bytes a
-// row) and O^T = V^T . P^T (V^T's fragments gathered from 4-byte reads of
-// the rows, paired by byte permutes, P^T through a small transpose in
-// shared memory; int8 widened to bf16 by byte permutes and one f32
-// subtraction, off the slow conversion pipe). To round p where the TPU
-// kernel does, a block first takes the scores of every token from 0 to the
-// end of its first step (and of each later step it touches) for their
-// maximum, in scores rounds. Then, with KEEP off (C: steps of several
-// pages), it recomputes its own tokens' scores for p in rounds of 64 tokens
-// that load K and V (the re-read keys come from L2); with KEEP on (K3, K14:
-// steps of one page), the scores of the step are kept in shared memory (G x
-// (step + 4) f32) as they are taken, and the p . v rounds load V rows
-// alone, so each key of a split's own steps leaves the cache once. Where S
-// > 1, each split writes (m, l, acc) to a workspace and takes a ticket from
-// its row's integer arrival counter; the last to arrive merges the S
-// partials in split order, folds in the current token, writes the output and
-// resets the counter to 0 (no float atomics: a second call is
-// bit-identical).
+// (sequence, kv head), S = 1; K14, K16 and K23 split where the card has
+// room, on step (page) boundaries. A block of four warps walks its span in
+// rounds through a 3-stage cp.async ring of coalesced 16-byte copies (rows
+// padded by 16 bytes, 144 for int8 and 272 for bf16, so the fragment reads
+// below meet no bank conflict; TMA boxes into swizzled rows were no faster:
+// PERF.md); a stage holds 16 KB of rows, 128 int8 or 64 bf16 ones. Both
+// products run on the tensor cores as bf16 mma.sync m16n8k16 with f32 sums;
+// int8 and bf16 values and bf16(p * v_scale) (or its three parts) are exact
+// in bf16, so every product is exact: S^T = K . q^T (16 tokens x the G <= 8
+// heads as n = 8; for int8 rows D is permuted alike in K and q so that each
+// lane reads 4 bytes a row) and O^T = V^T . P^T (V^T's fragments gathered
+// from 4-byte reads of the rows, paired by byte permutes, P^T through a
+// small transpose in shared memory; int8 widened to bf16 by byte permutes
+// and one f32 subtraction, off the slow conversion pipe). To round p where
+// the TPU kernel does (P_BF16), a block first takes the scores of every
+// token from 0 to the end of its first step (and of each later step it
+// touches) for their maximum, in scores rounds. Then, with KEEP off (C:
+// steps of several pages), it recomputes its own tokens' scores for p in
+// rounds of 64 tokens that load K and V (the re-read keys come from L2);
+// with KEEP on (K3, K14, K16, K23: steps of one page), the scores of the
+// step are kept in shared memory (G x (step + 4) f32) as they are taken, and
+// the p . v rounds load V rows alone, so each key of a split's own steps
+// leaves the cache once. Where S > 1, each split writes (m, l, acc) to a
+// workspace and takes a ticket from its row's integer arrival counter; the
+// last to arrive merges the S partials in split order, folds in the current
+// token, writes the output and resets the counter to 0 (no float atomics: a
+// second call is bit-identical).
 
 #pragma once
 
@@ -75,6 +87,17 @@ constexpr int PT = 24;           // bf16 row stride of a warp's p transpose
 constexpr int MAX_SPLITS = 8;
 constexpr int SPAD = 4;          // floats past a kept score row (heads 2t, 2t+2 on other banks)
 constexpr float NEG = -1e30f;
+constexpr float INV127 = (float)(1.0 / 127.0);
+
+// how p meets V (the header above): rounded to bf16, or three exact parts
+enum Round { P_BF16 = 0, P_F32 = 1 };
+// where the current token is. DEFER: k_new / v_new [B, hkv, D] bf16 fold in
+// last, `cached` counts the cached tokens (clamped at 0). IN_CACHE: the
+// pages hold it and `cached` counts it. FUSED: `cached` counts it; the
+// launch writes it at slots[b] (int8: quantised per (token, head) as the
+// int8 scatter reshape_and_cache_gqa_page_major_int8 does), reads the pages
+// before it and folds it in from shared memory (int8: the dequantised row).
+enum Mode { DEFER = 0, IN_CACHE = 1, FUSED = 2 };
 
 // The rows of element type T (int8, or bf16 with no scales): a stage holds
 // RS of them, 16 KB; a scores round (and, with KEEP, a p . v round) takes RS
@@ -101,26 +124,38 @@ static_assert(WARPS * MAXG * D * sizeof(float) <= STAGES * sizeof(Stage<__nv_bfl
               "a block's sums fit over the ring");
 
 // the dynamic shared memory of a launch with G heads and steps of `step`:
-// the ring and the p transposes; KEEP adds the kept scores after them
+// the ring and the p transposes (`parts` of them a warp: 3 for P_F32); KEEP
+// adds the kept scores after them
 template <typename T = int8_t>
-__host__ __device__ constexpr size_t smem_bytes(bool keep, int G, int step) {
-  return STAGES * sizeof(Stage<T>) + (size_t)WARPS * MAXG * PT * 2 +
+__host__ __device__ constexpr size_t smem_bytes(bool keep, int G, int step, int parts = 1) {
+  return STAGES * sizeof(Stage<T>) + (size_t)WARPS * parts * MAXG * PT * 2 +
          (keep ? (size_t)G * (step + SPAD) * sizeof(float) : 0);
 }
 
 // token-major pages (C): k/v [L, P, ps*hkv, D], row t*hkv + h of a page;
 // scales [L, P, 1, ps*hkv] in the same order
+// (lp: page p of layer l as l * P + p)
 struct TokenMajor {
-  static __device__ __forceinline__ size_t row(size_t lp, int slot, int h, int ps, int hkv) {
+  static __device__ __forceinline__ size_t row(size_t lp, int slot, int h, int ps, int hkv,
+                                               int) {
     return (lp * ps + slot) * hkv + h;
   }
 };
-// head-major pages (K3; K14's page-major [P, hkv, ps, D] at L = 1): k/v
-// [L, P, hkv, ps, D], head h's tokens of a page one contiguous [ps, D]
-// block; scales [L, P, hkv, ps]
+// head-major pages (K3, K23's stacked caches; K14's and K16's page-major
+// [P, hkv, ps, D] at L = 1): k/v [L, P, hkv, ps, D], head h's tokens of a
+// page one contiguous [ps, D] block; scales [L, P, hkv, ps]
 struct HeadMajor {
-  static __device__ __forceinline__ size_t row(size_t lp, int slot, int h, int ps, int hkv) {
+  static __device__ __forceinline__ size_t row(size_t lp, int slot, int h, int ps, int hkv,
+                                               int) {
     return (lp * hkv + h) * ps + slot;
+  }
+};
+// kv-head-major pages (K16's decode_int8kv, one layer): k/v [hkv, P, ps,
+// D], each head's pages one after another; scales [hkv, P, ps]
+struct KvHeadMajor {
+  static __device__ __forceinline__ size_t row(size_t lp, int slot, int h, int ps, int,
+                                               int P) {
+    return ((size_t)h * P + lp) * ps + slot;
   }
 };
 
@@ -128,10 +163,12 @@ struct Args {
   const __nv_bfloat16* q;     // [B, hq, D]
   const __nv_bfloat16* kn;    // [B, hkv, D]
   const __nv_bfloat16* vn;    // [B, hkv, D]
-  const void* kc;             // the layout's pages (int8 or bf16 rows)
+  const void* kc;             // the layout's pages (int8 or bf16 rows; FUSED writes one)
   const void* vc;
   const float* ksc;           // the layout's scales (int8 rows only)
   const float* vsc;
+  const int* layer;           // a stacked cache's layer on the device, or null (li)
+  const int* slots;           // FUSED: the current token's slot [B] (< 0 writes nothing)
   const int* cached;          // [B]
   const int* bt;              // [B, MP]
   __nv_bfloat16* out;         // [B, hq, D]
@@ -139,7 +176,7 @@ struct Args {
   int* arrivals;              // [B * hkv * ng]
   float* kept_g;              // KEEP: a step's kept scores in device memory, [B * hkv *
                               // ng * S][G][step + SPAD], where shared memory has no room
-  int hkv, G, ng, P, ps, MP, li, step;   // G heads a block, ng blocks a kv head
+  int hkv, G, ng, P, ps, MP, li, layers, step;   // G heads a block, ng blocks a kv head
   float sm_scale;
 };
 
@@ -181,13 +218,13 @@ __device__ __forceinline__ bool walk_next(Walk& w, int& kind, int& t0, int& t1, 
 // tokens t0 .. t0 + RS - 1; p . v (kind 1), K rows and k scales of t0 ..
 // t0 + TILE - 1, then their V rows and v scales (KEEP: the V rows and v
 // scales of t0 .. t0 + RS - 1). Tokens at or past t1 are zero-filled.
+// layer: the first page of the layer, l * P.
 template <class Layout, bool KEEP, typename T>
-__device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, int b, int h, int t0,
-                                           int t1, int kind) {
+__device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, size_t layer, int b,
+                                           int h, int t0, int t1, int kind) {
   using R = Rows<T>;
   static_assert(KEEP || R::I8, "a p . v round of K and V rows is int8 only");
   const int tid = threadIdx.x;
-  const size_t layer = (size_t)a.li * a.P;
   const int* btb = a.bt + (size_t)b * a.MP;
   const int krows = kind == 0 ? R::RS : KEEP ? 0 : TILE;   // staged rows from K
   const int span = kind == 0 || KEEP ? R::RS : TILE;       // tokens of the round
@@ -198,7 +235,7 @@ __device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, int b, in
   const int shift = __ffs(a.ps) - 1;
   auto row_of = [&](int t) -> size_t {
     const int pg = pow2 ? t >> shift : t / a.ps, slot = t - pg * a.ps;
-    return Layout::row(layer + __ldg(btb + pg), slot, h, a.ps, a.hkv);
+    return Layout::row(layer + __ldg(btb + pg), slot, h, a.ps, a.hkv, a.P);
   };
 #pragma unroll
   for (int i = 0; i < R::RS * R::CPR / THREADS; ++i) {
@@ -246,14 +283,88 @@ __device__ __forceinline__ void scores(const Stage<T>& s, int r0, int lane,
   }
 }
 
+// acc += V^T . P^T for one m-tile of a 16-token slice: one MMA into acc
+// (P_BF16); or the three parts' MMAs, the smallest first, into a zeroed
+// accumulator whose sum is added to acc in f32 (P_F32)
+template <int PARTS>
+__device__ __forceinline__ void pv_mma(float (&acc)[4], const uint32_t (&va)[4],
+                                       const uint32_t (&pb)[PARTS][2]) {
+  if (PARTS == 1) {
+    mma(acc, va, pb[0][0], pb[0][1]);
+  } else {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = PARTS - 1; k >= 0; --k) mma(t, va, pb[k][0], pb[k][1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += t[e];
+  }
+}
+
+// FUSED: the current token's k and v rows (b, h) as the cache holds them
+// once written, f32 into fnew [2][D]: int8 quantised per row (scale =
+// max(absmax, 1e-7) * f32(1/127), q = clamp(rint(x / scale), -128, 127),
+// each step rounded on its own) and dequantised, bf16 as they are. The
+// writer block also stores them at slot slots[b] of the layer. A block
+// thread a column; every thread of the block takes part.
+template <class Layout, typename T>
+__device__ __forceinline__ void fused_row(const Args& a, size_t layer, int b, int h,
+                                          bool writer, float* fnew, float (&amax)[2][WARPS]) {
+  constexpr bool I8 = sizeof(T) == 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t cur = ((size_t)b * a.hkv + h) * D + tid;
+  const __nv_bfloat16 raw[2] = {a.kn[cur], a.vn[cur]};
+  const int slot = a.slots[b];
+  const bool write = writer && slot >= 0 && slot < a.P * a.ps;
+  const size_t row = write ? Layout::row(layer + slot / a.ps, slot % a.ps, h, a.ps, a.hkv, a.P)
+                           : 0;
+  if (I8) {
+    float x[2], m[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      x[i] = __bfloat162float(raw[i]);
+      m[i] = fabsf(x[i]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], o));
+      if (lane == 0) amax[i][warp] = m[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = amax[i][0];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, amax[i][w]);
+      const float scale = __fmul_rn(fmaxf(mx, 1e-7f), INV127);
+      const int qv = max(-128, min(127, __float2int_rn(__fdiv_rn(x[i], scale))));
+      fnew[i * D + tid] = __fmul_rn((float)qv, scale);
+      if (write) {
+        static_cast<int8_t*>(const_cast<void*>(i ? a.vc : a.kc))[row * D + tid] = (int8_t)qv;
+        if (tid == 0) const_cast<float*>(i ? a.vsc : a.ksc)[row] = scale;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      fnew[i * D + tid] = __bfloat162float(raw[i]);
+      if (write)
+        static_cast<__nv_bfloat16*>(const_cast<void*>(i ? a.vc : a.kc))[row * D + tid] = raw[i];
+    }
+  }
+}
+
 // The body of a decode kernel (each source wraps it in its own __global__,
 // so that a profile names the kernel); launched as (S, hkv * ng, B) blocks
-// of THREADS with smem_bytes<T>(KEEP && !KG, G, step) of dynamic shared
-// memory. KG: the kept scores are in device memory (a.kept_g), a variant of
-// its own so that the kept scores of the others stay known to be shared.
-template <class Layout, bool KEEP, typename T = int8_t, bool KG = false>
+// of THREADS with smem_bytes<T>(KEEP && !KG, G, step, PARTS) of dynamic
+// shared memory. KG: the kept scores are in device memory (a.kept_g), a
+// variant of its own so that the kept scores of the others stay known to be
+// shared. ROUND and MODE: the Round and Mode enums above (P_F32 with KEEP
+// only).
+template <class Layout, bool KEEP, typename T = int8_t, bool KG = false, int ROUND = P_BF16,
+          int MODE = DEFER>
 __device__ __forceinline__ void decode_body(const Args& a) {
   using R = Rows<T>;
+  constexpr bool F32 = ROUND == P_F32;
+  constexpr int PARTS = F32 ? 3 : 1;                       // p . v products a slice
+  static_assert(!F32 || KEEP, "P_F32 steps through kept scores");
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<T>* stages = reinterpret_cast<Stage<T>*>(smem);
   __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * sizeof(Stage<T>));
@@ -261,10 +372,11 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   // or in device memory (read back only by this block, after a barrier)
   float* kept = KG ? a.kept_g + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
                                  blockIdx.x) * a.G * (a.step + SPAD)
-                   : reinterpret_cast<float*>(ptb + WARPS * MAXG * PT);
+                   : reinterpret_cast<float*>(ptb + WARPS * PARTS * MAXG * PT);
   __shared__ float wmax[WARPS][MAXG], mfin[MAXG], lred[WARPS][MAXG], scur[MAXG];
   __shared__ float wgt[MAXG][MAX_SPLITS];
   __shared__ __align__(16) __nv_bfloat16 qrow[MAXG][D], newkv[2][D];
+  __shared__ float fnew[MODE == FUSED ? 2 * D : 1], amax[2][WARPS];
   __shared__ int last;
   // blockIdx.y = h * ng + (this block's group of G heads of kv head h)
   const int split = blockIdx.x, S = gridDim.x, hy = blockIdx.y, h = hy / a.ng, b = blockIdx.z;
@@ -272,8 +384,14 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   const int hq = a.hkv * a.ng * a.G, row = b * a.hkv * a.ng + hy;
   const int kst = a.step + SPAD;                           // a kept score row
   const int pv = KEEP ? R::RS : TILE;                       // tokens of a p . v round
-  // a block table maps at most MP*ps tokens: never read past it
-  const int clen = min(max(__ldg(a.cached + b), 0), a.MP * a.ps);
+  // the layer's first page (a stacked cache's layer clamped to the stack,
+  // as no host checks a layer that lies on the device)
+  const size_t layer =
+      (size_t)(a.layer != nullptr ? min(max(__ldg(a.layer), 0), a.layers - 1) : a.li) * a.P;
+  // a block table maps at most MP*ps tokens: never read past it (FUSED:
+  // the current token, the last of `cached`, is not read from the pages)
+  const int clen =
+      min(max(__ldg(a.cached + b) - (MODE == FUSED ? 1 : 0), 0), a.MP * a.ps);
   // this split's tokens: a share of the 16-token tiles of the cached ones
   // (KEEP: of its steps, so that a split keeps the scores of whole steps)
   const int unit = KEEP ? a.step : 16;
@@ -283,25 +401,33 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   const __nv_bfloat16* qh = a.q + ((size_t)b * hq + hy * a.G) * D;
   const size_t cur = ((size_t)b * a.hkv + h) * D;
 
-  // the q rows and the current token's k and v rows that the end of the
-  // block folds in, copied with the ring's first round
-  for (int c = tid; c < (a.G + 2) * (D / 8); c += THREADS) {
+  // the q rows and (DEFER) the current token's k and v rows that the end of
+  // the block folds in, copied with the ring's first round
+  for (int c = tid; c < (a.G + (MODE == DEFER ? 2 : 0)) * (D / 8); c += THREADS) {
     const int r = c / (D / 8), o = (c % (D / 8)) * 8;
     cp_async16(r < a.G ? &qrow[r][o] : &newkv[r - a.G][o],
                r < a.G ? qh + r * D + o : (r == a.G ? a.kn : a.vn) + cur + o, true);
   }
   const int k0 = ts / a.step, k1 = ts < te ? (te - 1) / a.step : k0;
-  Walk lw = {k0, 0, 0, min(clen, (k0 + 1) * a.step), true}, cw = lw;
+  // P_BF16 takes the scores from token 0 for the running maximum at the end
+  // of its first step; P_F32 starts at that step
+  Walk lw = {k0, 0, F32 ? k0 * a.step : 0, min(clen, (k0 + 1) * a.step), true}, cw = lw;
   if (ts < te) {
     int kind, t0, t1;
     bool first;
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
       if (walk_next(lw, kind, t0, t1, first, k1, ts, te, a.step, clen, R::RS, pv))
-        load_round<Layout, KEEP, T>(a, stages[st], b, h, t0, t1, kind);
+        load_round<Layout, KEEP, T>(a, stages[st], layer, b, h, t0, t1, kind);
       cp_commit();
     }
   }
+  // FUSED: the slot is the current token's position, cached - 1 of the
+  // table, past every split's rows (no block of the launch reads it): the
+  // last split, which holds the pages before it, writes it, with the first
+  // group of heads
+  if (MODE == FUSED)
+    fused_row<Layout, T>(a, layer, b, h, split == S - 1 && hy == h * a.ng, fnew, amax);
 
   // q^T as mma's B fragments (n = head g; D ordered as in `scores`)
   uint32_t qb[D / 16][2];
@@ -324,7 +450,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
 #pragma unroll
   for (int i = 0; i < D / 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float mk[2] = {NEG, NEG}, lsum[2] = {0.f, 0.f}, mstep[2] = {NEG, NEG};
-  __nv_bfloat16* pt = ptb + warp * MAXG * PT;
+  __nv_bfloat16* pt = ptb + warp * PARTS * MAXG * PT;      // this warp's PARTS transposes
 
   if (ts < te) {
     int kind, t0, t1;
@@ -339,7 +465,8 @@ __device__ __forceinline__ void decode_body(const Args& a) {
         int lk, l0, l1;
         bool lf;
         if (walk_next(lw, lk, l0, l1, lf, k1, ts, te, a.step, clen, R::RS, pv))
-          load_round<Layout, KEEP, T>(a, stages[(i + STAGES - 1) % STAGES], b, h, l0, l1, lk);
+          load_round<Layout, KEEP, T>(a, stages[(i + STAGES - 1) % STAGES], layer, b, h, l0,
+                                      l1, lk);
         cp_commit();
       }
       const Stage<T>& s = stages[i % STAGES];
@@ -405,7 +532,8 @@ __device__ __forceinline__ void decode_body(const Args& a) {
           // this warp's 16 tokens: stage rows vr .. vr + 15 hold their V
           const int tr = 16 * warp + half * TILE;         // token offset in the round
           const int vr = KEEP ? tr : TILE + 16 * warp;
-          // p, bf16(p * v_scale) into the transpose (head rows, token columns)
+          // p, p * v_scale into the transposes (head rows, token columns):
+          // P_BF16 its bf16 rounding, P_F32 its three bf16 parts
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = g + 8 * (e >> 1), j = e & 1, t = t0 + tr + r;
@@ -415,11 +543,22 @@ __device__ __forceinline__ void decode_body(const Args& a) {
                                                        : -CUDART_INF_F;
             const float p = ok ? expf(sv - mk[j]) : 0.f;
             lsum[j] += p;
-            pt[(2 * tig + j) * PT + r] = __float2bfloat16_rn(R::I8 ? p * s.sc[vr + r] : p);
+            float x = R::I8 ? p * s.sc[vr + r] : p;
+#pragma unroll
+            for (int k = 0; k < PARTS; ++k) {
+              const __nv_bfloat16 part = __float2bfloat16_rn(x);
+              pt[(k * MAXG + 2 * tig + j) * PT + r] = part;
+              x -= __bfloat162float(part);
+            }
           }
           __syncwarp();
-          const uint32_t pb0 = *reinterpret_cast<const uint32_t*>(pt + g * PT + 2 * tig);
-          const uint32_t pb1 = *reinterpret_cast<const uint32_t*>(pt + g * PT + 2 * tig + 8);
+          uint32_t pb[PARTS][2];
+#pragma unroll
+          for (int k = 0; k < PARTS; ++k) {
+            const __nv_bfloat16* pk = pt + (k * MAXG + g) * PT + 2 * tig;
+            pb[k][0] = *reinterpret_cast<const uint32_t*>(pk);
+            pb[k][1] = *reinterpret_cast<const uint32_t*>(pk + 8);
+          }
           __syncwarp();
           // O^T += V^T . P^T over the rows of tokens 2t, 2t+1, 2t+8, 2t+9
           const int8_t* v0 = s.r[vr + 2 * tig];
@@ -439,7 +578,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
                 const int lo = 16 * j, hi = 16 * j + 8;
                 const uint32_t va[4] = {i8x2(w0, lo, w1, lo), i8x2(w0, hi, w1, hi),
                                         i8x2(w8, lo, w9, lo), i8x2(w8, hi, w9, hi)};
-                mma(acc[2 * u + j], va, pb0, pb1);
+                pv_mma<PARTS>(acc[2 * u + j], va, pb);
               }
             }
           } else {
@@ -454,7 +593,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
               const uint32_t w9 = *reinterpret_cast<const uint32_t*>(v0 + 9 * RB + off);
               const uint32_t va[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
                                       __byte_perm(w8, w9, 0x5410), __byte_perm(w8, w9, 0x7632)};
-              mma(acc[mt], va, pb0, pb1);
+              pv_mma<PARTS>(acc[mt], va, pb);
             }
           }
         }
@@ -557,27 +696,40 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     }
   }
 
-  // fold the current token in (decode_v6.py::_finalize_rows)
-  for (int hh = warp; hh < a.G; hh += WARPS) {
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32)
-      s += __bfloat162float(qrow[hh][d]) * __bfloat162float(newkv[0][d]);
+  if (MODE == IN_CACHE) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) scur[hh] = s * a.sm_scale;
-  }
-  __syncthreads();
-  const float vcur = __bfloat162float(newkv[1][tid]);
+    for (int hh = 0; hh < MAXG; ++hh) {
+      if (hh >= a.G) break;
+      a.out[((size_t)b * hq + hy * a.G + hh) * D + tid] =
+          __float2bfloat16_rn(o[hh] / fmaxf(lt[hh], 1e-37f));
+    }
+  } else {
+    // fold the current token in (decode_v6.py::_finalize_rows; FUSED: the
+    // row as the cache holds it)
+    for (int hh = warp; hh < a.G; hh += WARPS) {
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32)
+        s += __bfloat162float(qrow[hh][d]) *
+             (MODE == FUSED ? fnew[d] : __bfloat162float(newkv[0][d]));
 #pragma unroll
-  for (int hh = 0; hh < MAXG; ++hh) {
-    if (hh >= a.G) break;
-    const float s = scur[hh];
-    const float mn = fmaxf(mt_[hh], s);
-    const float alpha = expf(mt_[hh] - mn);
-    const float p = expf(s - mn);
-    const float l = lt[hh] * alpha + p;
-    const float ov = o[hh] * alpha + __bfloat162float(__float2bfloat16_rn(p)) * vcur;
-    a.out[((size_t)b * hq + hy * a.G + hh) * D + tid] = __float2bfloat16_rn(ov / fmaxf(l, 1e-37f));
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) scur[hh] = s * a.sm_scale;
+    }
+    __syncthreads();
+    const float vcur = MODE == FUSED ? fnew[D + tid] : __bfloat162float(newkv[1][tid]);
+#pragma unroll
+    for (int hh = 0; hh < MAXG; ++hh) {
+      if (hh >= a.G) break;
+      const float s = scur[hh];
+      const float mn = fmaxf(mt_[hh], s);
+      const float alpha = expf(mt_[hh] - mn);
+      const float p = expf(s - mn);
+      const float l = lt[hh] * alpha + p;
+      const float pr = ROUND == P_F32 ? p : __bfloat162float(__float2bfloat16_rn(p));
+      const float ov = o[hh] * alpha + pr * vcur;
+      a.out[((size_t)b * hq + hy * a.G + hh) * D + tid] =
+          __float2bfloat16_rn(ov / fmaxf(l, 1e-37f));
+    }
   }
   if (S > 1 && tid == 0) a.arrivals[row] = 0;     // ready for the next call
 }
@@ -599,18 +751,21 @@ int splits_for(Kernel* kern, size_t smem, int B, int rows, long long units) {
 }
 
 // Fill the arguments and launch `kern` on (S, hkv * ng, B) blocks of G
-// heads each (element type T): step_pages pages per online-softmax step, S
-// from splits_for, ws and arrivals as it says (B * hkv * ng * S * PART
-// floats, none for S = 1; B * hkv * ng counters, zero before the first
-// call).
-template <bool KEEP, typename T = int8_t, typename Kernel>
+// heads each (element type T, rounding ROUND): step_pages pages per
+// online-softmax step (or step_tokens tokens where that is > 0), S from
+// splits_for, ws and arrivals as it says (B * hkv * ng * S * PART floats,
+// none for S = 1; B * hkv * ng counters, zero before the first call); a
+// stacked cache's layer on the device (`layer`, of `layers`) or li; FUSED's
+// slots.
+template <bool KEEP, typename T = int8_t, int ROUND = P_BF16, typename Kernel>
 int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const void* kc,
            const void* vc, const void* ksc, const void* vsc, const void* cached, const void* bt,
            void* out, void* ws, void* arrivals, int B, int hkv, int G, int P, int ps, int MP,
            int li, int step_pages, int S, float sm_scale, void* stream, int ng = 1,
-           void* kept_g = nullptr) {
+           void* kept_g = nullptr, const void* layer = nullptr, int layers = 1,
+           const void* slots = nullptr, int step_tokens = 0) {
   if (B <= 0 || hkv <= 0 || G <= 0 || G > MAXG || ng < 1 || ps <= 0 || MP <= 0 ||
-      step_pages <= 0 || S < 1 || S > MAX_SPLITS ||
+      step_pages <= 0 || step_tokens < 0 || S < 1 || S > MAX_SPLITS || layers < 1 ||
       (S > 1 && (ws == nullptr || arrivals == nullptr)) ||
       (sizeof(T) == 1 && (ksc == nullptr || vsc == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -622,6 +777,8 @@ int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const vo
   a.vc = vc;
   a.ksc = static_cast<const float*>(ksc);
   a.vsc = static_cast<const float*>(vsc);
+  a.layer = static_cast<const int*>(layer);
+  a.slots = static_cast<const int*>(slots);
   a.cached = static_cast<const int*>(cached);
   a.bt = static_cast<const int*>(bt);
   a.out = static_cast<__nv_bfloat16*>(out);
@@ -635,9 +792,11 @@ int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const vo
   a.ps = ps;
   a.MP = MP;
   a.li = li;
-  a.step = min(step_pages, MP) * ps;
+  a.layers = layers;
+  a.step = step_tokens > 0 ? step_tokens : min(step_pages, MP) * ps;
   a.sm_scale = sm_scale;
-  const size_t smem = smem_bytes<T>(KEEP && kept_g == nullptr, G, a.step);
+  const size_t smem =
+      smem_bytes<T>(KEEP && kept_g == nullptr, G, a.step, ROUND == P_F32 ? 3 : 1);
   const cudaError_t e = skt::ensure_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(S, hkv * ng, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);

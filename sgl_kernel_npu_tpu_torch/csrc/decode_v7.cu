@@ -21,8 +21,10 @@
 // Bound on an H100: the bytes of the flushed int8 rows (2 * 128 + 8 per token
 // and kv head), the sidecar's bf16 rows (2 * 2 * 128 per token and kv head),
 // q, the new rows and the output, over 3.35 TB/s. Design: decode_hm.cuh's
-// loop, one block per (kv head, sequence), where the TPU kernel runs one
-// program over the whole batch (grid 1) with a ring of page copies.
+// CUDA-core loop (its int8 rows and its TWO_TIER mode are K24's alone; K10
+// is its other user), one block per (kv head, sequence), where the TPU
+// kernel runs one program over the whole batch (grid 1) with a ring of page
+// copies.
 
 #include "decode_hm.cuh"
 

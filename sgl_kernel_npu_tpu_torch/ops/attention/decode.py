@@ -50,9 +50,9 @@ MLA_HEADS = 16
 MLA_ROUND = 32
 MLA_MIN_ROUNDS = 2
 MLA_MAX_SPLITS = 16
-# every contract of csrc/decode_hm.cu (K10, K16, K23): q, k_cache, v_cache,
-# k_scales, v_scales, k_new, v_new, seq_lens, block_table, out, B, Hq, Hkv, D,
-# P, ps, MP, sm_scale, stream
+# K10 (csrc/decode_hm.cu): q, k_cache, v_cache, k_scales, v_scales, k_new,
+# v_new (the last four null), seq_lens, block_table, out, B, Hq, Hkv, D, P,
+# ps, MP, sm_scale, stream
 _HM_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -140,8 +140,7 @@ def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_siz
     if not use_kernel(q):
         return decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale,
                                  page_size)
-    return _launch_hm("decode_hm", q, k_cache, v_cache, None, None, seq_lens, block_table,
-                      sm_scale, page_size, head_major=True)
+    return _launch_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
 
 
 def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
@@ -153,40 +152,31 @@ def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
     return decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
 
 
-def _launch_hm(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scale,
-               page_size, head_major=False):
-    """One launch of a contract of csrc/decode_hm.cu (K10 or K16):
-    `name` is its C entry point and launch counter; caches page-major [P, Hkv, ps, D], or
-    head-major [Hkv, P, ps, D]; scales (k, v) for int8 pages, new (k, v)
-    [B, Hkv, D] for a deferred token, else None. Returns [B, Hq, D] bf16."""
+def _launch_hm(q, k_cache, v_cache, lens, block_table, sm_scale, page_size):
+    """One launch of kernel K10 (csrc/decode_hm.cu) on head-major bf16 pages
+    [Hkv, P, ps, D]. Returns [B, Hq, D] bf16."""
+    name = "decode_hm"
     b, hq, d = q.shape
     shape = k_cache.shape
-    num_pages, hkv, ps = (shape[1], shape[0], shape[2]) if head_major else shape[:3]
+    hkv, num_pages, ps = shape[:3]
     if (v_cache.shape != shape or shape[-1] != d or d != 128 or ps != page_size
             or hq % hkv or hq // hkv not in (1, 2, 4, 8, 16)):
         raise ValueError(f"{name}: q {tuple(q.shape)}, caches {tuple(shape)}: needs head "
                          "dim 128 and Hq / Hkv in 1, 2, 4, 8, 16")
-    want = torch.int8 if scales is not None else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_cache.dtype != want or v_cache.dtype != want:
-        raise TypeError(f"{name}: bf16 q and {want} caches expected")
+    if (q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16
+            or v_cache.dtype != torch.bfloat16):
+        raise TypeError(f"{name}: bf16 q and caches expected")
     dev = q.device
     q = q.contiguous()
-    ks, vs = (s.float().contiguous() for s in scales) if scales is not None else (None, None)
-    kn, vn = ((x.to(torch.bfloat16).contiguous() for x in new) if new is not None
-              else (None, None))
     sl = lens.to(torch.int32).contiguous()
     bt = block_table.to(torch.int32).contiguous()
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
-    opt = [t for t in (ks, vs, kn, vn) if t is not None]
-    _build.check_operands(name, dev, q, k_cache, v_cache, *opt, sl, bt, out)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    _build.check_operands(name, dev, q, k_cache, v_cache, sl, bt, out)
     fn = _build.launcher(name, _HM_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ptr(ks), ptr(vs),
-              ptr(kn), ptr(vn), sl.data_ptr(), bt.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-              num_pages, ps, bt.shape[1], float(sm_scale), stream)
+    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), None, None, None, None,
+              sl.data_ptr(), bt.data_ptr(), out.data_ptr(), b, hq, hkv, d, num_pages, ps,
+              bt.shape[1], float(sm_scale), stream)
     _build.check(name, code)
     _build.launches[name] += 1
     return out
@@ -215,14 +205,16 @@ def decode_gqa_int8kv(q, k_cache, v_cache, k_scales, v_scales, seq_lens, block_t
     """Paged GQA decode over an int8 head-major cache: caches int8 [Hkv, P,
     ps, D], scales f32 [Hkv, P, 1, ps] (per token and head); seq_lens [B]
     includes the current token, which is already in the cache. Kernel K16
-    on the card (its decode_int8kv contract, head dim 128), counted under
-    "decode_int8kv"; decode_gqa_int8kv_ref on the CPU. Returns [B, Hq, D]
-    bf16. No model calls it (the JAX package's decode.py:366 contract)."""
+    on the card (its decode_int8kv contract in csrc/decode_v3.cu, head dim
+    128), counted under "decode_int8kv"; decode_gqa_int8kv_ref on the CPU.
+    Returns [B, Hq, D] bf16. No model calls it (the JAX package's
+    decode.py:366 contract)."""
     if not use_kernel(q):
         return decode_gqa_int8kv_ref(q, k_cache, v_cache, k_scales, v_scales, seq_lens,
                                      block_table, sm_scale, page_size)
-    return _launch_hm("decode_int8kv", q, k_cache, v_cache, (k_scales, v_scales), None,
-                      seq_lens, block_table, sm_scale, page_size, head_major=True)
+    from .decode_v3 import launch_v3        # decode_v3 imports this module
+    return launch_v3("decode_int8kv", q, k_cache, v_cache, (k_scales, v_scales), None,
+                     seq_lens, block_table, sm_scale, page_size, layout="kv_head")
 
 
 def _gather(ckv_cache, krope_cache, block_table):

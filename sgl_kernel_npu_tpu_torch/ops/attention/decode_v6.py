@@ -32,10 +32,15 @@ import torch
 
 from ... import _build
 from ...utils import use_kernel
-from .decode_v3 import _gather_pm
+# K14's blocks are decode_tm_core.cuh's, as K16's: at most V6_MAXG query
+# heads each (v6_groups of them a kv head), at most V6_MAX_SPLITS splits a
+# row; a split's partials are 2 * V6_MAXG + V6_MAXG * 128 floats
+from .decode_v3 import HEAD_GROUPS, _gather_pm
+from .decode_v3 import V3_MAX_SPLITS as V6_MAX_SPLITS
+from .decode_v3 import V3_MAXG as V6_MAXG
+from .decode_v3 import v3_groups as v6_groups
 
 _NEG_INF = -1e30
-HEAD_GROUPS = (1, 2, 4, 8, 16)       # query heads a kv head that K14 takes
 # q, k_new, v_new, k cache, v cache, [k scales, v scales,] cached, block
 # table, out, workspace, arrivals, kept, B, Hq, Hkv, P, ps, MP, ng, S,
 # sm_scale, stream
@@ -43,10 +48,6 @@ _ARGTYPES = {"decode_v6_defer": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p],
              "decode_v6_int8_defer": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p]}
-# K14's blocks (csrc/decode_tm_core.cuh): at most V6_MAXG query heads each;
-# a split's partials are 2 * V6_MAXG + V6_MAXG * 128 floats
-V6_MAXG = 8
-V6_MAX_SPLITS = 8
 
 
 def v6_splits(resident: int, b: int, rows: int, mp: int) -> int:
@@ -56,12 +57,6 @@ def v6_splits(resident: int, b: int, rows: int, mp: int) -> int:
     split holds whole pages) and V6_MAX_SPLITS, at least 1. Each split walks
     decode_v9.tm_split_walk(clen, S, split, ps, unit=ps)."""
     return max(1, min(resident // (b * rows), mp, V6_MAX_SPLITS))
-
-
-def v6_groups(g: int) -> int:
-    """ng: K14 runs the G query heads of a kv head as ng blocks of at most
-    V6_MAXG heads over the same rows (G 16: two)."""
-    return -(-g // V6_MAXG)
 
 
 def _step(qf, k, v, live, sm_scale, m, l, acc, ks=None, vs=None):

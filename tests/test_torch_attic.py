@@ -211,6 +211,42 @@ def test_decode_fused_v4_matches_jax_kernel(rng, int8, as_tensor):
     assert np.array_equal(port["k"][0].float().numpy(), _np(cache["k"][0]))
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_fused_v4_in_p_f32_arithmetic_matches_jax_kernel(rng, int8, splits):
+    """K23's fused contracts in the card's arithmetic (csrc/decode_v3.cu,
+    P_F32: test_torch_hm._p_f32_model over the pages before the current
+    token, in `splits` page-aligned splits, then the token as the cache holds
+    it once written, int8 dequantised in f32, folded in with p unrounded)
+    against the interpreted fused v4 kernels, within the bar."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import decode_v3 as tv3
+    from sgl_kernel_npu_tpu_torch.ops.attention.decode_v8 import quant_rows_int8
+
+    from .test_torch_hm import _p_f32_model
+    jv4 = _attic("decode_v4")
+    cache = _pages(rng, int8, lead=(L,))
+    q, bt = _bf16(rng, (B, HQ, D), 2.0), _table(rng)
+    kn, vn = _bf16(rng, (B, HKV, D), 2.0), _bf16(rng, (B, HKV, D), 2.0)
+    lens = jnp.asarray([1, PS - 1, PS, PS + 1, 41], jnp.int32)
+    slots = _slots(bt, lens)
+    names = ("k", "v", "ks", "vs") if int8 else ("k", "v")
+    jfn = jv4.decode_fused_v4_int8 if int8 else jv4.decode_fused_v4
+    want = jax.jit(jfn, static_argnums=(len(names) + 7, len(names) + 8))(
+        q, kn, vn, *(cache[n] for n in names), lens, bt, slots, 1, SM, PS)
+    written = {n: _t(w)[1] for n, w in zip(names, want[1:])}      # layer 1, as written
+    tbt = _t(bt)
+    rows = [tv3._gather_pm(written[n], None, tbt) for n in ("k", "v")]
+    srows = ([tv3._gather_pm(written[n].transpose(-1, -2), None, tbt)[..., 0]
+              for n in ("ks", "vs")] if int8 else [None, None])
+    if int8:
+        kq, vq, ks, vs = quant_rows_int8(_t(kn), _t(vn))
+        new = (kq.float() * ks[..., None], vq.float() * vs[..., None])
+    else:
+        new = (_t(kn), _t(vn))
+    got = _p_f32_model(_t(q), *rows, *srows, _t(lens) - 1, SM, PS, new, splits)
+    assert_bf16_close(got.float(), _np(want[0]), SHARE, f"fused int8={int8} S {splits}")
+
+
 # ------------------------------------------------------------------- v7
 
 W = 64          # the reference's WINDOW

@@ -155,21 +155,23 @@ def test_kernels_build_for_sm_90a():
 
 
 # --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C, K14's pages, K7's
-# context, K2's, K1's, A's and K8's K; K3 runs C's loop unsplit, its source
-# scanned all the same) merge the splits' partials through a workspace,
+# The kernels that split a row over blocks (K19, C, K14's, K16's and K23's
+# pages, K7's context, K2's, K1's, A's and K8's K; K3 runs C's loop unsplit,
+# its source scanned all the same) merge the splits' partials through a
+# workspace,
 # deterministically:
 # no float atomics (their order changes from run to run, and a second call
 # must be bit-identical), only integer arrival counters, each reset to 0 by
 # the kernel that used it (the last block to arrive), never zeroed by the
 # host before a call. A source is scanned with the csrc/ headers it includes
-# (A, K1, K2 and K8 merge in csrc/w8a8_wgmma.cuh, C, K3 and K14 in
-# csrc/decode_tm_core.cuh). K5 splits a sequence over the CTAs of a thread
+# (A, K1, K2 and K8 merge in csrc/w8a8_wgmma.cuh, C, K3, K14, K16 and K23
+# in csrc/decode_tm_core.cuh). K5 splits a sequence over the CTAs of a thread
 # block cluster and merges through distributed shared memory: no atomics at
 # all.
 
 SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_v6.cu",
-                 "decode_mla.cu", "rmsq_gemm.cu", "w8a8_gemm_tiled.cu", "w8a8_gemm.cu")
+                 "decode_v3.cu", "decode_mla.cu", "rmsq_gemm.cu", "w8a8_gemm_tiled.cu",
+                 "w8a8_gemm.cu")
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
@@ -325,17 +327,39 @@ def test_arrival_counters_are_zeroed_once():
     ("decode_tm2", "decode_tm2", "decode_tm_core.cuh"),         # K3
     ("decode_v6_defer", "decode_v6", "decode_tm_core.cuh"),     # K14, bf16 pages
     ("decode_v6_int8_defer", "decode_v6", "decode_tm_core.cuh"),   # K14, int8 pages
-])
+] + [(name, "decode_v3", "decode_tm_core.cuh")               # K16's and K23's contracts
+     for name in ("decode_v3", "decode_v3_int8", "decode_v3_defer", "decode_v3_int8_defer",
+                  "decode_int8kv", "decode_v5_defer", "decode_v5_int8_defer",
+                  "decode_v4b_int8", "decode_fused_v4_int8", "decode_fused_v4")])
 def test_kernels_share_their_stage(kernel, source, header):
-    """A and K8 run K1's int8 stage, K3 and K14 run C's loop: each kernel's source
-    exports its launcher, includes the shared header, and holds no merge of
-    its own (the scan above reaches the header's)."""
+    """A and K8 run K1's int8 stage, K3, K14, K16 and K23 run C's loop: each
+    kernel's source exports its launcher, includes the shared header, and
+    holds no merge of its own (the scan above reaches the header's)."""
     assert _build.KERNELS[kernel] == source
     with open(os.path.join(_build.CSRC, source + ".cu")) as f:
         own = f.read()
     assert header in INCLUDE.findall(own)
     assert re.search(r'extern "C" int skt_' + kernel + r"\(", own)
     assert not ATOMIC.search(COMMENT_OR_STRING.sub(" ", own))
+
+
+def test_decode_hm_holds_k10_only():
+    """K16's and K23's contracts left the CUDA-core loop: csrc/decode_hm.cu
+    exports K10's launcher alone, decode_hm.cuh keeps no fused write, and
+    decode_v3.cu instantiates the loop with p kept in f32 (P_F32) in every
+    mode it serves."""
+    with open(os.path.join(_build.CSRC, "decode_hm.cu")) as f:
+        own = f.read()
+    assert re.findall(r'extern "C" int (skt_\w+)\(', own) == ["skt_decode_hm"]
+    assert [k for k, v in _build.KERNELS.items() if v == "decode_hm"] == ["decode_hm"]
+    with open(os.path.join(_build.CSRC, "decode_hm.cuh")) as f:
+        header = COMMENT_OR_STRING.sub(" ", f.read())
+    assert "fused_write" not in header and "FUSED" not in header
+    with open(os.path.join(_build.CSRC, "decode_v3.cu")) as f:
+        v3 = COMMENT_OR_STRING.sub(" ", f.read())
+    assert re.search(r"decode_body<Layout, true, T, false, P_F32, MODE>", v3)
+    for mode in ("IN_CACHE", "DEFER", "FUSED"):
+        assert re.search(r"run<\w+, \w+, " + mode + r">", v3), mode
 
 
 def test_grouped_gemm_source_holds_k8_only():

@@ -141,6 +141,123 @@ def test_decode_v3_matches_jax_kernel(rng, contract):
     assert_bf16_close(got.float(), _np(want), SHARE, contract)
 
 
+def _three_parts(x):
+    """decode_tm_core.cuh's P_F32 split of f32 x: hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each step in f32."""
+    parts = []
+    for _ in range(3):
+        part = x.to(torch.bfloat16)
+        parts.append(part)
+        x = x - part.float()
+    return parts
+
+
+def test_three_bf16_parts_hold_f32_p_exactly():
+    """hi + mid + lo == p exactly for f32 p over [1e-30, 1] (log-uniform,
+    seeded): the three products of P_F32 carry all of p's 24 bits."""
+    rng = np.random.default_rng(1703)
+    p = torch.from_numpy(np.exp(rng.uniform(np.log(1e-30), 0.0, 200_000)).astype(np.float32))
+    p = torch.cat([p, torch.tensor([1.0, 1e-30, 0.5 + 2.0 ** -24, 1.0 - 2.0 ** -24])])
+    hi, mid, lo = _three_parts(p)
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, p.double())
+    # two parts do not: the point of the third
+    assert not torch.equal(hi.double() + mid.double(), p.double())
+
+
+def _p_f32_model(q, k, v, ks, vs, lens, sm, ps, new=None, splits=1):
+    """decode_v3.cu's arithmetic (P_F32 in csrc/decode_tm_core.cuh), in
+    torch on gathered rows k, v [B, Hkv, n, D] of raw values (bf16 or int8,
+    in f32) with scales ks, vs [B, Hkv, n] (None for bf16): s = (q . k) *
+    k_scale * sm_scale; one page a step; p = exp(s - m) unrounded against the
+    running maximum of the split's own pages; p * v_scale rounded once in
+    f32 and split in three bf16 parts whose products with V are summed 16
+    tokens at a time (lo, mid, then hi) before that sum is added to acc in
+    f32; l sums the unrounded p; `splits` page-aligned splits merged in
+    split order; the current token `new` (k, v [B, Hkv, D]) folded in with
+    its p unrounded; out = acc / max(l, 1e-37) in bf16."""
+    b, hq, d = q.shape
+    hkv, n = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, d)
+    clen = lens.long().clamp_min(0).clamp_max(n)
+    out = torch.zeros((b, hkv, g, d))
+    for i in range(b):
+        npg = (int(clen[i]) + ps - 1) // ps
+        parts = []
+        for sp in range(splits):
+            m = torch.full((hkv, g), -1e30)
+            l = torch.zeros((hkv, g))
+            acc = torch.zeros((hkv, g, d))
+            for pg in range(npg * sp // splits, npg * (sp + 1) // splits):
+                t0, t1 = pg * ps, min(int(clen[i]), (pg + 1) * ps)
+                s = torch.einsum("hgd,htd->hgt", qf[i], k[i, :, t0:t1])
+                if ks is not None:
+                    s = s * ks[i, :, None, t0:t1]
+                s = s * sm
+                mn = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp(m - mn)
+                p = torch.exp(s - mn[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None]
+                pv = p * vs[i, :, None, t0:t1] if vs is not None else p
+                for u0 in range(0, t1 - t0, 16):
+                    sl = slice(u0, min(u0 + 16, t1 - t0))
+                    vv = v[i, :, t0:t1][:, sl]
+                    part = torch.zeros((hkv, g, d))
+                    for x in reversed(_three_parts(pv[..., sl])):
+                        part = part + torch.einsum("hgt,htd->hgd", x.float(), vv)
+                    acc = acc + part
+                m = mn
+            parts.append((m, l, acc))
+        mx = torch.stack([x[0] for x in parts]).amax(0)
+        o, ls = torch.zeros((hkv, g, d)), torch.zeros((hkv, g))
+        for m, l, acc in parts:                             # split order
+            w = torch.exp(m - mx)
+            ls = ls + w * l
+            o = o + w[..., None] * acc
+        if new is not None:
+            sc = torch.einsum("hgd,hd->hg", qf[i], new[0][i].float()) * sm
+            mn = torch.maximum(mx, sc)
+            alpha = torch.exp(mx - mn)
+            p = torch.exp(sc - mn)
+            ls = ls * alpha + p
+            o = o * alpha[..., None] + p[..., None] * new[1][i].float()[:, None, :]
+        out[i] = o / ls.clamp_min(1e-37)[..., None]
+    return out.reshape(b, hq, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("qscale", [1.5, 3.0])
+@pytest.mark.parametrize("contract", ["v3", "v3_int8", "v3_defer", "v3_int8_defer"])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_p_f32_model_matches_v3_plain(seed, qscale, contract, splits):
+    """K16's and K23's arithmetic on the card (scale after the dot, p in
+    three bf16 parts, f32 sums, splits merged in split order; _p_f32_model)
+    stays within one bf16 ulp + 1e-4 of max|plain| of decode_gqa_v3_ref, the
+    bar chip_smoke.py holds the kernels to, with peaked scores (q of 1.5 and
+    3 randn)."""
+    rng = np.random.default_rng(1700 + seed)
+    int8, defer = "int8" in contract, "defer" in contract
+    mp = 4
+    cache = _pages(rng, int8, pages=B * mp + 1)
+    q = _t(_bf16(rng, (B, HQ, D), qscale))
+    bt = torch.from_numpy((rng.permutation(B * mp).reshape(B, mp) + 1).astype(np.int32))
+    lens = torch.tensor([0 if defer else 1, 15, 16, 33, 64], dtype=torch.int32)
+    new = (_t(_bf16(rng, (B, HKV, D))), _t(_bf16(rng, (B, HKV, D)))) if defer else None
+    kc, vc = _t(cache["k"]), _t(cache["v"])
+    ks = _t(cache["ks"]) if int8 else None
+    vs = _t(cache["vs"]) if int8 else None
+    want = tv3.decode_gqa_v3_ref(q, kc, vc, lens, bt, SM, k_scales=ks, v_scales=vs,
+                                 k_new=new[0] if defer else None,
+                                 v_new=new[1] if defer else None)
+    rows = [tv3._gather_pm(c, None, bt) for c in (kc, vc)]
+    srows = [tv3._gather_pm(c.transpose(-1, -2), None, bt)[..., 0] if c is not None else None
+             for c in (ks, vs)]
+    got = _p_f32_model(q, *rows, *srows, lens, SM, PS, new, splits)
+    assert_bf16_close(got.float(), want.float(), SHARE, f"{contract} q {qscale} S {splits}")
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_decode_v6_matches_jax_kernel(rng, int8):
     """K14's plain version (bf16 products, P rounded to bf16) against the

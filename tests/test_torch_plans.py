@@ -33,6 +33,10 @@ need the card; what decides their work is Python that runs here:
   * (g) K14's plan on the same loop (`decode_v6.v6_splits`, `v6_groups`):
     splits of whole pages, the same walk and merge against the plain
     version, and the head groups that fit a page's kept scores;
+  * (g2) K16's and K23's plan on the same loop (`decode_v3.v3_splits`,
+    `v3_step`, `v3_groups`): splits of whole steps (a page, at most 4,096
+    tokens of one), each walking only its own steps, and the shared memory
+    of a block at every step it can take;
   * (h) K8's plan on the int8 stage (`gemm_plan` with its block_m): the
     row tile by block_m, every tile and K step covered once, the split from
     the shape alone, its partials and counters at the Qwen and MoE shapes;
@@ -53,6 +57,7 @@ from sgl_kernel_npu_tpu.ops.attention import decode as jdec
 from sgl_kernel_npu_tpu_torch.ops import matmul as tmm
 from sgl_kernel_npu_tpu_torch.ops import rmsq_gemm as trq
 from sgl_kernel_npu_tpu_torch.ops.attention import decode as tdec
+from sgl_kernel_npu_tpu_torch.ops.attention import decode_v3 as tv3
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v6 as tv6
 from sgl_kernel_npu_tpu_torch.ops.attention import decode_v9 as tv9
 from sgl_kernel_npu_tpu_torch.parallel.strategies import fused_moe_pallas as tfmp
@@ -646,6 +651,64 @@ def test_v6_head_groups(g, ps, int8, smem):
     assert ng == (2 if g == 16 else 1) and g // ng <= tv6.V6_MAXG
     floats = _v6_kept_floats(g // ng, ps, int8)
     assert (floats == 0) == smem and floats in (0, g // ng * (ps + 4))
+
+
+# ------------------------------------------------ (g2) K16's and K23's plan
+
+
+@pytest.mark.parametrize("resident", [396, 264, 132, 16])
+@pytest.mark.parametrize("b,hkv,ng,mp,ps", [(128, 8, 1, 1, 512), (64, 8, 1, 4, 128),
+                                            (7, 2, 2, 4, 16), (7, 2, 1, 4, 100),
+                                            (7, 2, 1, 1, 8192), (1, 2, 1, 4, 16)])
+def test_v3_split_plan(resident, b, hkv, ng, mp, ps):
+    """K16's and K23's splits hold whole steps (a page, or 4,096 tokens of a
+    longer one): every cached token in exactly one split's p . v ranges, the
+    splits' bounds on step edges; S = 1 at the bench path's 1,024 rows and
+    phase 13's 512, several at chip_smoke.py's edge batch of 7. (A split of
+    K16 takes the scores of its own steps only: p is not rounded, so it
+    needs no maximum of the keys before it; test_torch_hm.py's
+    _p_f32_model holds that arithmetic against the plain version.)"""
+    s = tv3.v3_splits(resident, b, hkv * ng, mp, ps)
+    step = tv3.v3_step(ps)
+    assert step == min(ps, 4096)
+    assert 1 <= s <= min(tv3.V3_MAX_SPLITS, -(-mp * ps // step))
+    assert s == 1 or s * b * hkv * ng <= resident
+    if b * hkv >= 512:
+        assert s == 1
+    if (b, resident) == (7, 396):
+        assert s > 1
+    for clen in sorted({0, 1, ps - 1, ps, ps + 1, 2 * ps + 3, mp * ps - 1, mp * ps}):
+        if not 0 <= clen <= mp * ps:
+            continue
+        seen = np.zeros(clen, np.int32)
+        for split in range(s):
+            ts, te, steps = tv9.tm_split_walk(clen, s, split, step, unit=step)
+            assert ts % step == 0 and (te == clen or te % step == 0)
+            for k, _, (p0, p1) in steps:
+                assert (p0, p1) == (k * step, min(clen, (k + 1) * step))
+                seen[p0:p1] += 1
+        assert (seen == 1).all()
+
+
+def _v3_smem(g, step, int8):
+    """decode_v3.cu's shared memory a block: decode_tm_core.cuh's 3-stage
+    ring (as _v6_kept_floats), three p transposes a warp (4 x 3 x 8 x 24
+    bf16) and g x (step + 4) f32 kept scores."""
+    ring = 3 * 18944 if int8 else 3 * 17664
+    return ring + 3 * 1536 + g * (step + 4) * 4
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("ps", [16, 100, 512, 4096, 8192, 57600, 100000])
+@pytest.mark.parametrize("int8", [False, True])
+def test_v3_steps_fit_shared_memory(g, ps, int8):
+    """Every page size runs: a step of min(ps, 4,096) tokens keeps its G / ng
+    <= 8 heads' scores in a block's 227 KB beside the ring (pages past that
+    are walked in steps of 4,096), so the parent's pages (up to 57,600
+    tokens at G 1) and longer ones run with no scores in device memory."""
+    ng = tv3.v3_groups(g)
+    assert ng == (2 if g == 16 else 1) and g // ng <= tv3.V3_MAXG
+    assert _v3_smem(g // ng, tv3.v3_step(ps), int8) <= 232448
 
 
 # ------------------------------------------------- (h) K8's and K11's plans
