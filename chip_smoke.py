@@ -204,6 +204,7 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3751,46 +3752,121 @@ def _moe_send_layout(torch, ll, pll, x, idx, el, maxt):
     return x_send, counts, al, ll._window_offsets(1, el, maxt, x.device, 0)
 
 
+class _DirtyEmpty:
+    """A stand-in for a module's `torch` whose empty() hands back memory
+    filled with 0x7f bytes (everything else is torch's own), so that a
+    kernel that leaves a row of its output unwritten shows it."""
+
+    def __init__(self, torch):
+        self._torch = torch
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def empty(self, *args, **kw):
+        out = self._torch.empty(*args, **kw)
+        if out.numel():
+            out.view(-1).view(self._torch.uint8).fill_(0x7f)
+        return out
+
+
+@contextlib.contextmanager
+def _dirty_empty(torch, module):
+    """Within: `module`'s torch.empty gives 0x7f-filled memory."""
+    module.torch = _DirtyEmpty(torch)
+    try:
+        yield
+    finally:
+        module.torch = torch
+
+
+# K12's edge layouts: (send_cnt, src_off, dst_off, src_rows, out_rows)
+K12_EDGES = {
+    "empty slice, ragged counts": ((13, 0, 32, 5), (0, 16, 16, 48), (0, 32, 64, 96), 64, 128),
+    "chunk past src_rows": ((5, 12), (0, 16), (0, 32), 26, 64),
+    "chunk past out_rows": ((8, 11), (0, 8), (0, 40), 24, 48),
+    "gaps between windows": ((3, 9, 16), (0, 8, 24), (0, 24, 64), 40, 96),
+    "offsets off a multiple of 8": ((7, 4), (3, 13), (5, 17), 16, 32),
+    "no rows": ((0, 0, 0), (0, 0, 0), (0, 8, 16), 24, 24),
+}
+
+
+def _k12_call(torch, pll, g, args, kw):
+    """One K12 call on windows that hold 0x7f bytes before it; raises unless
+    its outputs equal the plain version's. Returns the call's keywords."""
+    kw = dict(kw, group=g, slices_per_rank=args[2].numel())
+    with _dirty_empty(torch, pll):
+        out, s_out = pll._remote_scatter(*args, **kw)
+    ref, s_ref = pll.remote_scatter_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref) or (s_out is not None and not torch.equal(s_out, s_ref)):
+        raise AssertionError("remote_scatter: differs from the plain version")
+    return kw
+
+
+def check_remote_scatter_edges(torch, pll, comm):
+    """K12 bit-exact against its plain version at the edge layouts (an
+    empty slice, counts off a multiple of 8, chunks past src_rows and past
+    out_rows, gaps between windows, offsets off a multiple of 8, no rows),
+    quantising bf16 and f32 rows and copying bf16 rows with their scales, at
+    the MoE width, each call on windows that held 0x7f bytes just before."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(120)
+    g, h, n = comm.EPGroup(None), MOE_H, 0
+    for name, (cnt, so, do, src_rows, out_rows) in K12_EDGES.items():
+        tables = [torch.tensor(v, dtype=torch.int32, device="cuda") for v in (cnt, so, do)]
+        x32 = torch.randn((src_rows, h), generator=gen, device="cuda") * 2
+        sc = torch.rand((src_rows,), generator=gen, device="cuda")
+        # quantise bf16, quantise f32, copy bf16 with scales
+        for x, scales in ((x32.to(torch.bfloat16), None), (x32, None),
+                          (x32.to(torch.bfloat16), sc)):
+            _k12_call(torch, pll, g, (x, scales, *tables, tables[0]),
+                      dict(out_rows=out_rows, quantize=scales is None))
+            n += 1
+    print(f"  remote_scatter edges: {n} calls at H {h} over {len(K12_EDGES)} layouts, each on "
+          "windows of 0x7f bytes: exact")
+
+
 def check_remote_scatter(torch, ll, pll, comm, data):
     """K12 at the bench shape: the pallas dispatch (the 1,088-row bf16 send
     buffer into the 1,024-row window, quantised) and its combine (1,024 bf16
     expert rows back into the send buffer's rows); exact against the plain
-    version, zero rows and padding scales included. Returns the row of both
-    launches summed."""
+    version on windows that held 0x7f bytes, zero rows and padding scales
+    included. Returns the rows of the dispatch and of the combine."""
     x, idx = data[0], data[1]
     el, maxt, h = MOE_EL, MOE_T, MOE_H
     x_send, counts, al, win = _moe_send_layout(torch, ll, pll, x, idx, el, maxt)
     sbuf = x_send.shape[0]
     g = comm.EPGroup(None)
     y = torch.randn((el * maxt, h), device="cuda").to(torch.bfloat16)
-    live = int(((counts.long() + 7) // 8 * 8).sum())
     sizes = (counts.long() + 7) // 8 * 8
+    live = int(sizes.sum())
     cases = (
         ("dispatch (quantising)", (x_send, None, counts, al, win, counts),
-         dict(out_rows=el * maxt, quantize=True), live * (2 * h + h + 4),
-         comm.loopback_targets(sbuf, al, sizes, win, el * maxt), x_send, el * maxt),
-        ("combine (bf16)", (y, None, counts, win, al, counts), dict(out_rows=sbuf),
-         live * 4 * h, comm.loopback_targets(el * maxt, win, sizes, al, sbuf), y, sbuf),
+         dict(out_rows=el * maxt, quantize=True), live * (2 * h + h + 4), None),
+        ("combine (bf16)", (y, None, counts, win, al, counts),
+         dict(out_rows=sbuf, quantize=False), live * 4 * h,
+         (comm.loopback_targets(el * maxt, win, sizes, al, sbuf), y, sbuf)),
     )
     rows = []
-    for name, args, kw, nbytes, tgt, src, out_rows in cases:
-        kw = dict(kw, group=g, slices_per_rank=el)
-        out, s_out = pll._remote_scatter(*args, **kw)
-        ref, s_ref = pll.remote_scatter_ref(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref) or (s_out is not None and not torch.equal(s_out, s_ref)):
-            raise AssertionError(f"remote_scatter {name}: differs from the plain version")
+    for name, args, kw, nbytes, lib_args in cases:
+        kw = _k12_call(torch, pll, g, args, kw)
         ms = _time_ms(lambda: pll._remote_scatter(*args, **kw), 20, graph=True)
         plain = _time_ms(lambda: pll.remote_scatter_ref(*args, **kw), 3, 1)
-        dst = torch.zeros((out_rows + 1, h), dtype=src.dtype, device="cuda")
-        lib = _time_ms(lambda: dst.index_copy_(0, tgt, src), 20, graph=True)
-        bound, by = _bound_ms(nbytes, 3.0 * live * h, "f32_flops")
+        lib, lib_note = None, "no library call quantises and scatters"
+        if lib_args is not None:
+            tgt, src, out_rows = lib_args
+            dst = torch.zeros((out_rows + 1, h), dtype=src.dtype, device="cuda")
+            lib = _time_ms(lambda: dst.index_copy_(0, tgt, src), 20, graph=True)
+            lib_note = (f"index_copy_ of the same rows {lib:.4f} ms (the kernel "
+                        f"{'slower' if ms > lib else 'no slower'})")
+        bound, by = _bound_ms(nbytes, 3.0 * live * h if kw["quantize"] else 0.0, "f32_flops")
         rows.append(dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                          max_abs_err=0.0))
-        print(f"  remote_scatter {name}: {live} live rows of {h}: exact; kernel {ms:.4f} ms, "
-              f"plain {plain:.3f} ms, index_copy_ of the bf16 rows {lib:.4f} ms (no "
-              f"quantisation), bound {bound:.4f} ms ({by})")
-    return _sum_rows(rows)
+        print(f"  remote_scatter {name}: {live} live rows of {h}: exact on 0x7f windows; "
+              f"kernel {ms:.4f} ms, plain {plain:.3f} ms, {lib_note}, bound {bound:.4f} ms "
+              f"({by})")
+    return rows
 
 
 def _k11_args(torch, ll, pll, x, idx, weights, el, maxt):
@@ -4104,6 +4180,7 @@ LASER_CASES = ((8192, True), (4096, False), (8000, True))   # (T, causal)
 # shorter than and ragged against K17's 128-row tiles: held, not timed
 LASER_EDGE_CASES = ((96, True), (96, False), (1000, True), (1000, False))
 EST_SHAPES = ((1, 8, 8192), (4, 16, 4096))                   # (B, H, T) at D 128
+EST_LONG = (1, 8, 32768)
 EST_BLOCK = 128
 TOPK_SHAPES = (("bench_ops", 64, 128, 128, 512), ("latent", 128, 576, 512, 4096))
 TOPK_H, TOPK_PS, TOPK_KB = 16, 128, 256
@@ -4197,49 +4274,70 @@ def _mask_flips(name, ref_scores, mask, ref_mask, keep):
     return flips
 
 
+def _estimate_case(torch, sp, name, q, k, causal):
+    """K18 on bf16 q [BH, NQ*128, 128], k [BH, NK*128, 128] against its plain
+    version: scores within 1e-5 of the largest |score| (the -1e30 entries
+    exact), the keep-0.25 masks equal or flipped only at the threshold;
+    timed by graph replay. Returns the kernels line's row."""
+    bh, nq, nk = q.shape[0], q.shape[1] // EST_BLOCK, k.shape[1] // EST_BLOCK
+    sc = sp.block_scores(q, k, EST_BLOCK, causal)
+    ref = sp.block_scores_ref(q, k, EST_BLOCK, causal)
+    again = sp.block_scores(q, k, EST_BLOCK, causal)
+    torch.cuda.synchronize()
+    if not torch.equal(sc, again):
+        raise AssertionError(f"sparse_estimate {name}: a second call differs")
+    live = ref > -1e29
+    if not torch.equal(sc[~live], ref[~live]):
+        raise AssertionError(f"sparse_estimate {name}: the causal -1e30 entries differ")
+    err = float((sc[live] - ref[live]).abs().max())
+    top = float(ref[live].abs().max())
+    if not err <= 1e-5 * top:
+        raise AssertionError(f"sparse_estimate {name}: max-abs {err:.3g} over 1e-5 of {top:.3g}")
+    keep = max(1, int(nk * 0.25))
+    mask, _ = sp._threshold(sc[None], 0.25, causal, True, True)
+    ref_mask, _ = sp._threshold(ref[None], 0.25, causal, True, True)
+    flips = _mask_flips(f"sparse_estimate {name}", ref[None], mask, ref_mask, keep)
+    ms = _time_ms(lambda: sp.block_scores(q, k, EST_BLOCK, causal), 20, graph=True)
+    plain_ms = _time_ms(lambda: sp.block_scores_ref(q, k, EST_BLOCK, causal), 5, 1)
+    nbytes = 2.0 * (q.numel() + k.numel()) + 4.0 * bh * nq * nk
+    ops = 2.0 * (q.numel() + k.numel()) / 2 + 2.0 * bh * nq * nk * ATT_D
+    bound, by = _bound_ms(nbytes, ops, "f32_flops")
+    print(f"  sparse_estimate {name} blocks of {EST_BLOCK} (NQ {nq}, NK {nk}, causal {causal}): "
+          f"scores max-abs {err:.3g} (max {top:.3g}), keep-0.25 mask "
+          f"{'equal' if not flips else f'{len(flips)} flips at the threshold'}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, no library call; bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
 def check_sparse_estimate(torch, sp):
     """K18 at the sparse prefill's shape ([1, 8, 8192, 128], blocks of 128)
-    and bench_ops.py:469's ([4, 16, 4096, 128]), bf16: scores within f32
-    rounding of the plain version's (-1e30 above the diagonal exact), the
-    keep-0.25 masks equal (or flipped only at the threshold). Returns the
-    sparse prefill shape's row."""
-    row = None
+    and bench_ops.py:469's ([4, 16, 4096, 128]), causal, bf16; then at
+    [1, 8, 32768] (NQ + NK = 512, past what K18 took before its pooled rows
+    went to a workspace) not causal, and q of 8192 rows against k of
+    32768, causal. Returns the rows of the sparse prefill's shape and of T
+    32768 not causal."""
+    rows = []
     for i, (b, h, t) in enumerate(EST_SHAPES):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(180 + i)
         q, k = (torch.randn((b * h, t, ATT_D), generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(2))
-        sc = sp.block_scores(q, k, EST_BLOCK)
-        ref = sp.block_scores_ref(q, k, EST_BLOCK)
-        torch.cuda.synchronize()
-        live = ref > -1e29
-        if not torch.equal(sc[~live], ref[~live]):
-            raise AssertionError("sparse_estimate: the causal -1e30 entries differ")
-        err = float((sc[live] - ref[live]).abs().max())
-        top = float(ref[live].abs().max())
-        if not err <= 1e-5 * top:
-            raise AssertionError(f"sparse_estimate: max-abs {err:.3g} over 1e-5 of {top:.3g}")
-        nk = t // EST_BLOCK
-        keep = max(1, int(nk * 0.25))
-        mask, _ = sp._threshold(sc.reshape(b, h, nk, nk), 0.25, True, True, True)
-        ref_mask, _ = sp._threshold(ref.reshape(b, h, nk, nk), 0.25, True, True, True)
-        flips = _mask_flips(f"sparse_estimate [{b}, {h}, {t}]", ref.reshape(b, h, nk, nk),
-                            mask, ref_mask, keep)
-        ms = _time_ms(lambda: sp.block_scores(q, k, EST_BLOCK), 20, graph=True)
-        plain_ms = _time_ms(lambda: sp.block_scores_ref(q, k, EST_BLOCK), 5, 1)
-        nbytes = 2.0 * (q.numel() + k.numel()) + 4.0 * b * h * nk * nk
-        ops = 2.0 * (q.numel() + k.numel()) / 2 + 2.0 * b * h * nk * nk * ATT_D
-        bound, by = _bound_ms(nbytes, ops, "f32_flops")
-        print(f"  sparse_estimate [{b}, {h}, {t}, {ATT_D}] blocks of {EST_BLOCK} ({b * h} "
-              f"blocks on 132 SMs): scores max-abs {err:.3g} (max {top:.3g}), keep-0.25 mask "
-              f"{'equal' if not flips else f'{len(flips)} flips at the threshold'}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, no library call; bound {bound:.4f} ms "
-              f"({by})")
+        row = _estimate_case(torch, sp, f"[{b}, {h}, {t}, {ATT_D}]", q, k, True)
         if i == 0:
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by,
-                       max_abs_err=err)
+            rows.append(row)
         del q, k
-    return row
+    b, h, t = EST_LONG
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(182)
+    q, k = (torch.randn((b * h, t, ATT_D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    rows.append(_estimate_case(torch, sp, f"[{b}, {h}, {t}, {ATT_D}]", q, k, False))
+    tq = EST_SHAPES[0][2]
+    _estimate_case(torch, sp, f"[{b}, {h}, {tq} / {t}, {ATT_D}]", q[:, t - tq:].contiguous(), k,
+                   True)
+    del q, k
+    return rows
 
 
 def _topk_case(torch, name, b, d, dv, pages, seed, heads=TOPK_H):
@@ -4536,7 +4634,7 @@ def run_attentions(torch, build, pf, sp, pp, nm, gpu):
         # no plain run at keep 1.0: the plain K15 loop takes ~2,000 page steps
         k0 = build.launches["prefill_hm"]
         (out, mask, pairs), plain, ms = _drive(
-            torch, build, name, lambda: pipeline(keep), {"sparse_estimate": 1, "prefill_hm": 1},
+            torch, build, name, lambda: pipeline(keep), {"sparse_estimate": 2, "prefill_hm": 1},
             plain=keep < 1.0)
         count("sparse_estimate", "sparse_estimate", n0)
         if keep < 1.0:
@@ -4555,7 +4653,7 @@ def run_attentions(torch, build, pf, sp, pp, nm, gpu):
         print(f"    keep={keep}: {ms:.3f} ms per call (estimator + K15), "
               f"{int(pairs.sum())} of {int(mask.shape[1]) * npages * (npages + 1) // 2} "
               f"causal (q tile, page) pairs over the kv heads, {plain_note}; launches "
-              "sparse_estimate 1, prefill_hm 1")
+              "sparse_estimate 2 (pooling, scores), prefill_hm 1")
     sparse_row = _sparse_prefill_row(torch, pp, qt, kv, bt, res[0.25]["mask"][0], sm, gpu)
     full = res[1.0]
     causal_mask = torch.ones((npages, npages), dtype=torch.bool, device="cuda").tril()
@@ -5400,12 +5498,13 @@ def main() -> int:
     rows["k8moe"] = check_moe_gemms(torch, parallel, parallel.fused_moe, matmul, moe_data)
     torch.cuda.empty_cache()
     rows["k12"] = check_remote_scatter(torch, low_latency, pallas_ll, parallel.comm, moe_data)
+    check_remote_scatter_edges(torch, pallas_ll, parallel.comm)
     torch.cuda.empty_cache()
     rows["k13"] = check_swiglu_quant(torch, activation)
     torch.cuda.empty_cache()
     rows.update(zip(LASER_NAMES, check_laser(torch, prefill)))
     torch.cuda.empty_cache()
-    rows["sparse_estimate"] = check_sparse_estimate(torch, sparse)
+    rows["sparse_estimate"], rows["k18_long"] = check_sparse_estimate(torch, sparse)
     torch.cuda.empty_cache()
     rows.update(zip(TOPK_NAMES, check_topk(torch, sparse)))
     check_topk_edges(torch, sparse)
@@ -5624,9 +5723,12 @@ def main() -> int:
         dict(name="fused_moe", route="cuda", source=f"{src}/fused_moe.cu",
              replaces=f"{base}/parallel/strategies/fused_moe_pallas.py:343",
              launches=moe_launches["fused_moe"], **rows["k11"]),
-        dict(name="remote_scatter", route="cuda", source=f"{src}/remote_scatter.cu",
+        dict(name="remote_scatter (dispatch)", route="cuda", source=f"{src}/remote_scatter.cu",
              replaces=f"{base}/parallel/strategies/pallas_ll.py:191",
-             launches=moe_launches["remote_scatter"], **rows["k12"]),
+             launches=moe_launches["remote_scatter"] // 2, **rows["k12"][0]),
+        dict(name="remote_scatter (combine)", route="cuda", source=f"{src}/remote_scatter.cu",
+             replaces=f"{base}/parallel/strategies/pallas_ll.py:191",
+             launches=moe_launches["remote_scatter"] // 2, **rows["k12"][1]),
         dict(name="swiglu_quant", route="cuda", source=f"{src}/swiglu_quant.cu",
              replaces=f"{base}/ops/activation.py:79", launches=moe_launches["swiglu_quant"],
              **rows["k13"]),
@@ -5675,6 +5777,10 @@ def main() -> int:
     kernels += [dict(name=name, route="cuda", source=f"{src}/{cu}", replaces=f"{base}/{tpu}",
                      launches=att_launches[name], **rows[name])
                 for names, cu, tpu in att for name in names]
+    kernels.append(dict(name="sparse_estimate (T 32768, not causal)", route="cuda",
+                        source=f"{src}/sparse_estimate.cu",
+                        replaces=f"{base}/ops/attention/sparse.py:323", launches=0,
+                        **rows["k18_long"]))
     kernels += [
         dict(name="wfp8a16_gemm", route="cuda", source=f"{src}/wfp8a16_gemm.cu",
              replaces=f"{base}/ops/matmul.py:309", launches=fp8_launches["wfp8a16_gemm"],
@@ -5723,10 +5829,11 @@ def main() -> int:
           "decode_v2.py:97 is what decode.py::decode_gqa runs, decode.py:145 the same "
           "contract one page per grid step; fused_moe row (K11): one launch at the bench "
           f"shape, no library call computes it (the composition at rounds = 1, K8 twice and "
-          f"glue, takes {comp_ms:.4f} ms); remote_scatter row (K12): the quantising dispatch "
-          "and the bf16 combine summed, library: index_copy_ of the same bf16 rows (no "
-          "quantisation); swiglu_quant row (K13): on no main path, held at GMM1's output "
-          "shape; launches of K11 and K12 from phase 8 (every variant twice); "
+          f"glue, takes {comp_ms:.4f} ms); remote_scatter rows (K12): the quantising dispatch "
+          "(no library call quantises and scatters) and the bf16 combine (library: "
+          "index_copy_ of the same rows), each half of phase 8's launches (every K12 "
+          "variant launches one of each); swiglu_quant row (K13): on no main path, held at "
+          "GMM1's output shape; launches of K11 and K12 from phase 8 (every variant twice); "
           "decode_v6_defer (K14) row: the bench shape, launches from phase 9's bf16 run (all "
           "its 128 steps); decode_v6_int8_defer: the bench shape, launches from phase 9's "
           "SKT_KV_LAYOUT=hm int8 run; prefill_hm (K15) row: the bf16 pages, launches from "
@@ -5741,7 +5848,8 @@ def main() -> int:
           "launches that case's in phase 11 (the counts set to 0 first; each call twice, a "
           "warm-up and the timed calls), laser_attention rows causal T 8192, not causal T "
           "4096, causal T 8000 (bound at the bf16 tensor-core rate), sparse_estimate row the "
-          "sparse prefill's [1, 8, 8192, 128] (keep 0.25 and 1.0), topk_block_sparse rows "
+          "sparse prefill's [1, 8, 8192, 128] (keep 0.25 and 1.0; two launches a call, the "
+          "pooling and the score kernel), its T 32768 row on no main path, topk_block_sparse rows "
           "bench_ops.py's shape and the latent rows (bound: each distinct block read once), "
           "add_rmsnorm_quant rows N 8192 and 128; wfp8a16_gemm (K21) row: the sum of "
           "gate_proj, down_proj and kv_a_proj_with_mqa at M 128 (library: torch.matmul on the "

@@ -47,7 +47,18 @@ replays). The cases, each name a prefix that --only can pick:
     v4b int8 and the fused pair over stacked caches, layer 5 of 6) and K24
     (the attic's v7 two-tier decode) at chip_smoke.py's phase 13 shape (64
     sequences of 256..383 cached tokens, 128-token pages); within HM_SHARE
-    (K24: K14_SHARE).
+    (K24: K14_SHARE);
+  * K12 (the pallas strategy's scatter) at chip_smoke.py's MoE bench
+    layout: its quantising dispatch and its bf16 combine; exact;
+  * K18 (the sparse-block estimator's scores, blocks of 128, causal) at
+    both of chip_smoke.py's EST_SHAPES, and at [1, 8, 32768] not causal, a
+    case only a root without the old NQ + NK <= 384 cap runs; within 1e-5
+    of the largest |score|, the -1e30 entries exact;
+  * the calls around them: phase 8's "pallas dispatch+combine" and "pallas
+    capacity_rows=1024" MoE layer calls (bits only), and phase 11's sparse
+    prefill at keep 0.25, T 8192 (K18, the threshold, the page lists and
+    K15; CUDA events around eager calls, as chip_smoke.py times it; bits
+    only, and they may differ between roots, as K18's f32 order may).
 Each case must also give the same bits in every turn of its root. Prints,
 per case, each root's median over its turns and the ratio of each to the
 first root's, the sums of the four Llama GEMMs of A at M 8 and 128, of
@@ -81,7 +92,7 @@ KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm
            "decode_v6_int8_defer", "decode_hm", "decode_v3", "decode_v3_int8",
            "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
            "decode_v5_int8_defer", "decode_v4b_int8", "decode_fused_v4_int8",
-           "decode_fused_v4", "decode_v7_int8")
+           "decode_fused_v4", "decode_v7_int8", "remote_scatter", "sparse_estimate")
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
 SUMS["K1 wo + w2 + lm_head M 128"] = [f"K1 {nm} M 128" for nm in ("wo", "w2", "lm_head")]
@@ -448,6 +459,95 @@ def _cases(torch, cs, want):
                lambda: fused_moe_pallas.fused_moe_layer(*kargs, group=grp, maxt=cs.MOE_T)[0],
                exact(fused_moe_pallas.fused_moe_layer_ref(*kargs, group=grp,
                                                           maxt=cs.MOE_T)[0]), 10)
+    yield from _scatter_estimate_cases(torch, cs, on, exact, data)
+
+
+def _events_ms(torch, fn, iters):
+    """ms per call: CUDA events around `iters` eager calls, the median of
+    REPS runs (for calls that a CUDA graph cannot capture)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[REPS // 2]
+
+
+def _scatter_estimate_cases(torch, cs, on, exact, data):
+    """K12's two halves at the MoE bench layout and K18 at chip_smoke.py's
+    shapes (the T 32768 case only where the root's estimator has no cap),
+    then the phase-8 and phase-11 calls that run them. A negative iteration
+    count asks for event timing."""
+    if on("K12"):
+        from sgl_kernel_npu_tpu_torch.parallel import EPGroup
+        from sgl_kernel_npu_tpu_torch.parallel.strategies import low_latency, pallas_ll
+        data = data or cs.moe_bench_data(torch)
+        el, maxt = cs.MOE_EL, cs.MOE_T
+        x_send, counts, al, win = cs._moe_send_layout(torch, low_latency, pallas_ll, data[0],
+                                                      data[1], el, maxt)
+        y = torch.randn((el * maxt, cs.MOE_H), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(12))
+        kw = dict(group=EPGroup(None), slices_per_rank=el)
+        for name, args, more in (
+                ("K12 dispatch", (x_send, None, counts, al, win, counts),
+                 dict(out_rows=el * maxt, quantize=True)),
+                ("K12 combine", (y.to(torch.bfloat16), None, counts, win, al, counts),
+                 dict(out_rows=x_send.shape[0]))):
+            if on(name):
+                ref = pallas_ll.remote_scatter_ref(*args, **kw, **more)[0]
+                yield (name, lambda a=args, m=more: pallas_ll._remote_scatter(*a, **kw, **m)[0],
+                       exact(ref), 50)
+    from sgl_kernel_npu_tpu_torch.ops.attention import sparse
+    cap = getattr(sparse, "_EST_MAX_BLOCKS", None)
+    bs = cs.EST_BLOCK
+
+    def scores_close(ref):
+        live = ref > -1e29
+        top = ref[live].abs().max()
+        return lambda got: (torch.equal(got[~live], ref[~live])
+                            and bool((got[live] - ref[live]).abs().max() <= 1e-5 * top))
+    for i, (b, h, t, causal) in enumerate([(*sh, True) for sh in cs.EST_SHAPES]
+                                          + [(*cs.EST_LONG, False)]):
+        name = f"K18 [{b}, {h}, {t}]{'' if causal else ' not causal'}"
+        if not on(name) or (cap is not None and 2 * t // bs > cap):
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(180 + i)
+        q, k = (torch.randn((b * h, t, cs.ATT_D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        yield (name, lambda q=q, k=k, c=causal: sparse.block_scores(q, k, bs, c),
+               scores_close(sparse.block_scores_ref(q, k, bs, causal)), 20)
+        del q, k
+    if on("Phase 8"):
+        from sgl_kernel_npu_tpu_torch import parallel
+        data = data or cs.moe_bench_data(torch)
+        calls = cs.moe_variants(torch, parallel, data)
+        for name in ("pallas dispatch+combine", "pallas capacity_rows=1024"):
+            if on(f"Phase 8 {name}"):
+                yield (f"Phase 8 {name}", calls[name], None, 10)
+    if on("Phase 11"):
+        from sgl_kernel_npu_tpu_torch.ops.attention import paged_prefill
+        t = cs.LASER_CASES[0][0]
+        q, k, v = cs._laser_inputs(torch, t, 1170)
+        gen = torch.Generator(device="cuda").manual_seed(1180)
+        q8 = torch.randn((1, cs.ATT_HKV, t, cs.ATT_D), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        bt = (torch.randperm(t // 128, generator=gen, device="cuda") + 1).to(torch.int32)
+        kv = (cs._pages_of(torch, k, bt), cs._pages_of(torch, v, bt))
+        qt = q[0].transpose(0, 1).contiguous()
+
+        def pipeline():
+            mask, _ = sparse.sparse_block_estimate_dispatch(q8, k, 128, keep_ratio=0.25)
+            return paged_prefill.block_sparse_paged_attention(qt, kv, bt, mask[0], 0,
+                                                              cs.ATT_D ** -0.5, 128)
+        yield ("Phase 11 sparse prefill keep 0.25", pipeline, None, -3)
 
 
 def _attic_cases(torch, cs, on, ulp):
@@ -541,7 +641,7 @@ def _turn(root, want):
             raise AssertionError(f"{name}: a second call differs")
         digest[name] = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
                                       .tobytes()).hexdigest()
-        ms[name] = _graph_ms(torch, call, iters)
+        ms[name] = _graph_ms(torch, call, iters) if iters > 0 else _events_ms(torch, call, -iters)
         del out, again
     print(json.dumps({"ms": ms, "digest": digest}))
 
@@ -600,15 +700,18 @@ def main() -> int:
                 raise AssertionError(f"root {roots[i]}: a case's bits changed between turns")
     first = runs[0][0]["digest"]
     differ = [k for i in order for k, v in runs[i][0]["digest"].items()
-              if first.get(k) != v and not k.startswith(("K3", "C ", "K5", "K14", "K16", "K23"))]
+              if k in first and first[k] != v
+              and not k.startswith(("K3", "C ", "K5", "K14", "K16", "K18", "K23", "Phase 11"))]
     if differ:
         raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
 
     def med(i, key):
+        if key not in runs[i][0]["ms"]:
+            return float("nan")                 # a case this root does not run
         return statistics.median(r["ms"][key] for r in runs[i])
     for i in order:
         print(f"{chr(97 + i)}: {roots[i]}")
-    keys = list(runs[0][0]["ms"])
+    keys = list(dict.fromkeys(k for i in order for k in runs[i][0]["ms"]))
     rows = [(k, [med(i, k) for i in order]) for k in keys]
     rows += [(k, [sum(med(i, p) for p in parts) for i in order]) for k, parts in SUMS.items()
              if all(p in keys for p in parts)]

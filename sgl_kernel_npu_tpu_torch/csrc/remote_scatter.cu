@@ -12,20 +12,37 @@
 // f32) each row is quantised on the way, as the TPU kernel does between its
 // stage copy and its remote DMA:
 //   scale = max(absmax, 1e-7) * f32(1/127),  q = clamp(rint(x / scale), -128, 127)
-// The wrapper zeroes the outputs first (the JAX kernel's interpreted outputs
-// start as zeros; the combine weighs padding rows by 0, and a NaN there would
-// poison the sum).
+// (IEEE division, so that the rows are bit-equal to the plain version's).
+// Every row that no chunk covers is zero with scale 0, as the JAX kernel's
+// interpreted outputs start as zeros (the combine weighs padding rows by 0,
+// and a NaN there would poison the sum); the kernel writes those zeros
+// itself, so the caller hands it uninitialised windows.
+//
+// The kernel walks the receiver's window: block d takes window row d, finds
+// on the card which slice's chunk covers it (the lowest such slice) and the
+// source row it takes, or none, and writes the row: data, or zeros. That is
+// the row map of parallel/strategies/pallas_ll.py::scatter_row_map, which the
+// CPU tests hold against the plain version. No host sync, no memset, and
+// every window row is written exactly once.
 //
 // The destination windows are addressed through a per-rank pointer table
 // (Peers, by value). One rank fills one entry, and the receive wait is the
-// end of the launch; several ranks need the table's entries to be peer
-// windows (CUDA IPC or symmetric memory) and an arrival flag per slice, so
-// the launcher refuses R > 1.
+// end of the launch, so the launcher refuses R > 1. With peer windows (CUDA
+// IPC or symmetric memory) and an arrival flag per slice, the work splits so:
+// each sender's blocks take the live chunks of its own slices (the row map
+// restricted to them, found from a prefix over send_cnt) and write them into
+// the peers' windows; each receiver zeroes its own uncovered rows, those its
+// receive layout (wait_cnt and its dst offsets) leaves out, before it raises
+// its arrival flags. No rank writes another rank's zeros.
 //
-// Bound on an H100: bytes (each moved row read once and written once, plus
-// its scale). Design: one block per (chunk, slice), a warp per row; blocks
-// past a slice's last chunk return at once. A quantised row is read twice
-// (absmax, then quantise), the second time from L1/L2. Simple first.
+// Bound on an H100: bytes (each live row read once and written once, plus
+// its scale; the zero rows' writes besides). Design: one block of 128
+// threads a window row, a single wave at the bench layout (1,024-1,088 rows,
+// up to 16 blocks an SM). A thread holds up to NV 16-byte vectors of its
+// row in registers, all loaded before any is used: a bf16 row of 7,168 is 7
+// vectors a thread, read once, its absmax taken across the block, then
+// quantised from the registers. Longer rows take the part past NV * 128
+// vectors from global memory twice.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,7 +53,9 @@
 namespace {
 
 constexpr int CHUNK = 8;
-constexpr int THREADS = 128;          // 4 warps, 2 rows each
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int NV = 8;                 // 16-byte vectors a thread holds in registers
 constexpr int MAX_RANKS = 8;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
@@ -52,75 +71,156 @@ struct Args {
   const int* src_off;
   const int* dst_off;
   Peers peers;
-  int spr, src_rows, out_rows, H, row_bytes;
+  int slices, src_rows, H, row_bytes;
 };
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  const int4 raw = __ldg(reinterpret_cast<const int4*>(p));
-  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(b[i]);
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// One warp quantises one row of H elements (H % 8 == 0) into dst / *sdst.
-template <typename T>
-__device__ __forceinline__ void quant_row(const T* src, int8_t* dst, float* sdst, int H,
-                                          int lane) {
-  float amax = 0.f;
-  for (int c = lane * 8; c < H; c += 256) {
-    float v[8];
-    load8(src + c, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
-  }
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float scale = __fmul_rn(fmaxf(amax, 1e-7f), INV127);
-  for (int c = lane * 8; c < H; c += 256) {
-    float v[8];
-    load8(src + c, v);
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = max(-128, min(127, __float2int_rn(__fdiv_rn(v[i], scale))));
-      w[i >> 2] |= (uint32_t)(uint8_t)q << ((i & 3) * 8);
+// The source row that window row d takes (the lowest slice whose chunks
+// cover it, with the source row inside x), or -1. Every warp finds it on its
+// own: lanes test 32 slices at a time.
+__device__ __forceinline__ int source_row(const Args& a, int d, int lane) {
+  for (int i0 = 0; i0 < a.slices; i0 += 32) {
+    const int i = i0 + lane;
+    int src = -1;
+    if (i < a.slices) {
+      const int cnt = (a.send_cnt[i] + CHUNK - 1) / CHUNK * CHUNK;
+      const int rel = d - a.dst_off[i] / CHUNK * CHUNK;
+      const int s = a.src_off[i] / CHUNK * CHUNK + rel;
+      if (rel >= 0 && rel < cnt && s < a.src_rows) src = s;
     }
-    *reinterpret_cast<uint2*>(dst + c) = make_uint2(w[0], w[1]);
+    const unsigned hit = __ballot_sync(0xffffffffu, src >= 0);
+    if (hit) return __shfl_sync(0xffffffffu, src, __ffs(hit) - 1);
   }
-  if (lane == 0) *sdst = scale;
+  return -1;
+}
+
+template <typename T>
+struct Vec;                           // a 16-byte vector of T as floats
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const int4& raw, float (&v)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const int4& raw, float (&v)[4]) {
+    v[0] = __int_as_float(raw.x);
+    v[1] = __int_as_float(raw.y);
+    v[2] = __int_as_float(raw.z);
+    v[3] = __int_as_float(raw.w);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float absmax(const int4& raw) {
+  float v[Vec<T>::N];
+  Vec<T>::unpack(raw, v);
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) m = fmaxf(m, fabsf(v[i]));
+  return m;
+}
+
+// the N int8 codes of one vector, stored at dst (N bytes)
+template <typename T>
+__device__ __forceinline__ void quant_store(const int4& raw, float scale, int8_t* dst) {
+  constexpr int N = Vec<T>::N;
+  float v[N];
+  Vec<T>::unpack(raw, v);
+  uint32_t w[N / 4];
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) w[j] = 0u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int q = max(-128, min(127, __float2int_rn(__fdiv_rn(v[i], scale))));
+    w[i >> 2] |= (uint32_t)(uint8_t)q << ((i & 3) * 8);
+  }
+  if constexpr (N == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
 }
 
 // KIND 0: copy row bytes (+ scales); 1: quantise bf16 rows; 2: quantise f32 rows
 template <int KIND>
 __global__ void __launch_bounds__(THREADS) remote_scatter_kernel(const Args a) {
-  const int i = blockIdx.y, c = blockIdx.x;
-  if (c * CHUNK >= a.send_cnt[i]) return;
-  const int dst = i / a.spr;
-  const int src0 = a.src_off[i] / CHUNK * CHUNK + c * CHUNK;
-  const int dst0 = a.dst_off[i] / CHUNK * CHUNK + c * CHUNK;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  char* out = static_cast<char*>(a.peers.out[dst]);
-  float* sout = a.peers.sout[dst];
-  for (int j = warp; j < CHUNK; j += THREADS / 32) {
-    const int sr = src0 + j, dr = dst0 + j;
-    if (sr >= a.src_rows || dr >= a.out_rows) continue;
-    if constexpr (KIND == 0) {
-      const int4* s = reinterpret_cast<const int4*>(static_cast<const char*>(a.x) +
-                                                    (size_t)sr * a.row_bytes);
-      int4* d = reinterpret_cast<int4*>(out + (size_t)dr * a.row_bytes);
-      for (int v = lane; v < a.row_bytes / 16; v += 32) d[v] = __ldg(s + v);
-      if (a.scales != nullptr && lane == 0) sout[dr] = a.scales[sr];
+  const int d = blockIdx.x, tid = threadIdx.x;
+  const int sr = source_row(a, d, tid % 32);
+  const int nvec = a.row_bytes / 16;
+  char* out = static_cast<char*>(a.peers.out[0]);
+  float* sout = a.peers.sout[0];
+  const int4* src = reinterpret_cast<const int4*>(static_cast<const char*>(a.x) +
+                                                  (size_t)(sr < 0 ? 0 : sr) * a.row_bytes);
+  if constexpr (KIND == 0) {
+    int4* dst = reinterpret_cast<int4*>(out + (size_t)d * a.row_bytes);
+    if (sr < 0) {
+      for (int v = tid; v < nvec; v += THREADS) dst[v] = make_int4(0, 0, 0, 0);
     } else {
-      using T = typename std::conditional<KIND == 1, __nv_bfloat16, float>::type;
-      quant_row(static_cast<const T*>(a.x) + (size_t)sr * a.H,
-                reinterpret_cast<int8_t*>(out) + (size_t)dr * a.H, sout + dr, a.H, lane);
+      for (int v0 = 0; v0 < nvec; v0 += NV * THREADS) {
+        int4 buf[NV];
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          const int v = v0 + u * THREADS + tid;
+          if (v < nvec) buf[u] = __ldcs(src + v);
+        }
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          const int v = v0 + u * THREADS + tid;
+          if (v < nvec) dst[v] = buf[u];
+        }
+      }
     }
+    if (sout != nullptr && tid == 0) sout[d] = sr < 0 ? 0.f : a.scales[sr];
+  } else {
+    using T = typename std::conditional<KIND == 1, __nv_bfloat16, float>::type;
+    constexpr int N = Vec<T>::N;      // elements (and int8 bytes out) a vector
+    int8_t* dst = reinterpret_cast<int8_t*>(out) + (size_t)d * a.H;
+    if (sr < 0) {
+      for (int v = tid; v < nvec; v += THREADS) {
+        if constexpr (N == 8)
+          *reinterpret_cast<uint2*>(dst + v * N) = make_uint2(0u, 0u);
+        else
+          *reinterpret_cast<uint32_t*>(dst + v * N) = 0u;
+      }
+      if (tid == 0) sout[d] = 0.f;
+      return;
+    }
+    int4 buf[NV];
+    float amax = 0.f;
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int v = u * THREADS + tid;
+      if (v < nvec) buf[u] = __ldcs(src + v);
+    }
+#pragma unroll
+    for (int u = 0; u < NV; ++u)
+      if (u * THREADS + tid < nvec) amax = fmaxf(amax, absmax<T>(buf[u]));
+    for (int v = NV * THREADS + tid; v < nvec; v += THREADS)
+      amax = fmaxf(amax, absmax<T>(src[v]));
+    __shared__ float red[WARPS];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (tid % 32 == 0) red[tid / 32] = amax;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) amax = fmaxf(amax, red[w]);
+    const float scale = __fmul_rn(fmaxf(amax, 1e-7f), INV127);
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int v = u * THREADS + tid;
+      if (v < nvec) quant_store<T>(buf[u], scale, dst + v * N);
+    }
+    for (int v = NV * THREADS + tid; v < nvec; v += THREADS)
+      quant_store<T>(src[v], scale, dst + v * N);
+    if (tid == 0) sout[d] = scale;
   }
 }
 
@@ -129,16 +229,18 @@ __global__ void __launch_bounds__(THREADS) remote_scatter_kernel(const Args a) {
 // x [src_rows, H] (row_bytes = H * element size, a multiple of 16), scales
 // [src_rows] f32 or null, send_cnt / src_off / dst_off [R * spr] int32, out
 // [out_rows, H] (int8 when quantising) and s_out [out_rows] f32 (or null
-// without scales), both zeroed by the caller. kind: 0 copy, 1 quantise bf16,
-// 2 quantise f32 (H % 8 == 0). One rank only (R == 1).
+// without scales), uninitialised: every row is written. kind: 0 copy, 1
+// quantise bf16, 2 quantise f32 (H % 8 == 0). One rank only (R == 1).
 extern "C" int skt_remote_scatter(const void* x, const void* scales, const void* send_cnt,
                                   const void* src_off, const void* dst_off, void* out,
                                   void* s_out, int R, int spr, int src_rows, int out_rows,
                                   int H, int row_bytes, int kind, void* stream) {
   if (R != 1) return (int)cudaErrorNotSupported;
-  if (spr <= 0 || src_rows < 0 || row_bytes % 16 || (kind != 0 && (H % 8 || s_out == nullptr)))
+  if (spr <= 0 || src_rows < 0 || out_rows < 0 || row_bytes % 16 ||
+      (kind != 0 && (H % 8 || s_out == nullptr)) ||
+      (kind == 0 && (scales == nullptr) != (s_out == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (src_rows == 0) return (int)cudaSuccess;
+  if (out_rows == 0) return (int)cudaSuccess;
   Args a{};
   a.x = x;
   a.scales = static_cast<const float*>(scales);
@@ -147,19 +249,17 @@ extern "C" int skt_remote_scatter(const void* x, const void* scales, const void*
   a.dst_off = static_cast<const int*>(dst_off);
   a.peers.out[0] = out;
   a.peers.sout[0] = static_cast<float*>(s_out);
-  a.spr = spr;
+  a.slices = R * spr;
   a.src_rows = src_rows;
-  a.out_rows = out_rows;
   a.H = H;
   a.row_bytes = row_bytes;
-  const dim3 grid((src_rows + CHUNK - 1) / CHUNK, R * spr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 0)
-    remote_scatter_kernel<0><<<grid, THREADS, 0, st>>>(a);
+    remote_scatter_kernel<0><<<out_rows, THREADS, 0, st>>>(a);
   else if (kind == 1)
-    remote_scatter_kernel<1><<<grid, THREADS, 0, st>>>(a);
+    remote_scatter_kernel<1><<<out_rows, THREADS, 0, st>>>(a);
   else
-    remote_scatter_kernel<2><<<grid, THREADS, 0, st>>>(a);
+    remote_scatter_kernel<2><<<out_rows, THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

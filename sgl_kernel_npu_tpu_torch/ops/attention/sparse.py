@@ -10,9 +10,11 @@ the keep = max(1, int(NK * keep_ratio)) largest scores of a row kept (ties
 with the keep-th kept too), then the first column and the diagonal.
 `sparse_block_estimate_fused` is the kernel tier (the JAX package's
 sparse_block_estimate_pallas): the scores are block SUMS dotted and scaled
-by 1 / block_size^2, from kernel K18 (csrc/sparse_estimate.cu, counted
-under "sparse_estimate") on a CUDA tensor or `block_scores_ref` on a CPU
-one; the top-k threshold stays a PyTorch sort, as it stays in XLA there.
+by 1 / block_size^2, from kernel K18 (csrc/sparse_estimate.cu: a pooling
+kernel and a score kernel, both counted under "sparse_estimate", through a
+workspace of pooled rows; `estimate_plan` sizes both) on a CUDA tensor or
+`block_scores_ref` on a CPU one, at any length; the top-k threshold stays a
+PyTorch sort, as it stays in XLA there.
 `sparse_block_estimate_dispatch` takes the fused tier when D % 128 == 0 and
 both lengths are multiples of block_size (the JAX gate), else the plain one.
 
@@ -51,13 +53,12 @@ from ...utils import cdiv, use_kernel
 
 _NEG_INF = -1e30
 BLK = 8                  # tokens per selected block of the top-k decode
-# q, k, scores, BH, NQ, NK, block_size, D, causal, stream
-_EST_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# q, k, workspace, scores, BH, NQ, NK, block_size, D, causal, tile, stream
+_EST_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # q, k_cache, v_cache, block_ids, out, workspace, arrivals, B, H, KB, chunk,
 # splits, D, Dv, sm_scale, stream
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 _TOPK_HEADS = 16         # heads of one K19 block
-_EST_MAX_BLOCKS = 384    # NQ + NK whose pooled rows fit K18's shared memory at D 128
 _TOPK_DIMS = ((128, 128), (576, 512))
 
 
@@ -114,28 +115,43 @@ def block_scores_ref(q, k, block_size: int, causal: bool = True):
     return sc
 
 
+def estimate_plan(bh: int, nq: int, nk: int, sms: int):
+    """K18's launch plan: (tile, workspace shape). The pooling kernel takes
+    one block per pooled block, bh * (nq + nk) of them, and writes them to
+    the workspace [bh, nq + nk, 128] f32 (q's blocks first); the score
+    kernel takes tiles of tile x tile scores: 64 where those tiles alone
+    give at least half the SMs one, else 32, so that small estimates still
+    spread over the card."""
+    tile = 64 if bh * cdiv(nq, 64) * cdiv(nk, 64) >= cdiv(sms, 2) else 32
+    return tile, (bh, nq + nk, 128)
+
+
 def _block_scores_cuda(q, k, block_size: int, causal: bool):
-    """One launch of K18 on bf16 q [BH, NQ*bs, D], k [BH, NK*bs, D]."""
+    """K18 on bf16 q [BH, NQ*bs, D], k [BH, NK*bs, D]: the pooling kernel,
+    then the score kernel (two launches)."""
     bh, tq, d = q.shape
     nq, nk = tq // block_size, k.shape[1] // block_size
     if (k.shape[0] != bh or k.shape[2] != d or d != 128 or tq % block_size
-            or k.shape[1] % block_size or nq + nk > _EST_MAX_BLOCKS):
+            or k.shape[1] % block_size):
         raise ValueError(f"sparse_estimate: q {tuple(q.shape)}, k {tuple(k.shape)}, block "
-                         f"{block_size}: needs D 128, lengths that are multiples of the block "
-                         f"and NQ + NK <= {_EST_MAX_BLOCKS}")
+                         f"{block_size}: needs D 128 and lengths that are multiples of the "
+                         "block")
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
         raise TypeError("sparse_estimate: bf16 q and k expected")
     dev = q.device
     q, k = q.contiguous(), k.contiguous()
     out = torch.empty((bh, nq, nk), dtype=torch.float32, device=dev)
-    _build.check_operands("sparse_estimate", dev, q, k, out)
     if out.numel() == 0:
         return out
+    tile, ws_shape = estimate_plan(bh, nq, nk,
+                                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
+    _build.check_operands("sparse_estimate", dev, q, k, ws, out)
     fn = _build.launcher("sparse_estimate", _EST_ARGTYPES)
-    code = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), bh, nq, nk, block_size, d,
-              int(causal), torch.cuda.current_stream(dev).cuda_stream)
+    code = fn(q.data_ptr(), k.data_ptr(), ws.data_ptr(), out.data_ptr(), bh, nq, nk, block_size,
+              d, int(causal), tile, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("sparse_estimate", code)
-    _build.launches["sparse_estimate"] += 1
+    _build.launches["sparse_estimate"] += 2          # the pooling and the score kernel
     return out
 
 

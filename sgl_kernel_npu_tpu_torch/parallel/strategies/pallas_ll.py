@@ -18,6 +18,9 @@ scale tile per row; the port keeps one f32 per row.
 On a CUDA tensor it launches kernel K12 (csrc/remote_scatter.cu) for one
 rank, where the receive wait is the end of the launch; the kernel
 addresses its destination through a per-rank pointer table with one entry.
+It walks the window by `scatter_row_map`: each window row takes one
+source row (data, quantised or not) or is zero, so the wrapper hands it
+uninitialised outputs.
 More ranks on the card raise (the 4-card EP slice fills the table). On a CPU
 tensor it runs `remote_scatter_ref`, which moves the chunks through the
 EPGroup's ragged all_to_all, so it serves any number of ranks (gloo).
@@ -100,6 +103,26 @@ def remote_scatter_ref(x, scales, send_cnt, src_off, dst_off, wait_cnt, *, group
     return out, s_out
 
 
+def scatter_row_map(send_cnt, src_off, dst_off, src_rows: int, out_rows: int):
+    """K12's row map at one rank, which the kernel mirrors: for each of the
+    out_rows window rows, (slice, source row) of the lowest slice whose
+    chunk-rounded rows cover it, with the source row below src_rows; (-1,
+    -1) for a row that no chunk covers (zero, scale 0). Slice i covers the
+    rows dst0 .. dst0 + ceil(send_cnt[i] / CHUNK) * CHUNK - 1 from dst0 =
+    dst_off[i] // CHUNK * CHUNK, each taking the source row src_off[i] //
+    CHUNK * CHUNK + its place. Returns two int64 tensors [out_rows]."""
+    cnt = _chunked(send_cnt.reshape(-1))
+    src0 = src_off.reshape(-1).long() // CHUNK * CHUNK
+    dst0 = dst_off.reshape(-1).long() // CHUNK * CHUNK
+    rel = torch.arange(out_rows, device=cnt.device)[None, :] - dst0[:, None]   # [S, out_rows]
+    src = src0[:, None] + rel
+    inside = (rel >= 0) & (rel < cnt[:, None]) & (src < src_rows)
+    first = inside.long().argmax(dim=0)
+    hit = inside.any(dim=0)
+    return (torch.where(hit, first, -1),
+            torch.where(hit, src.gather(0, first[None])[0], -1))
+
+
 def _remote_scatter_cuda(x, scales, send_cnt, src_off, dst_off, *, slices_per_rank,
                          out_rows, quantize):
     src_rows, h = x.shape
@@ -111,9 +134,10 @@ def _remote_scatter_cuda(x, scales, send_cnt, src_off, dst_off, *, slices_per_ra
         raise ValueError(f"remote_scatter: rows of {h} x {x.element_size()} bytes must be "
                          "a multiple of 16 bytes (and of 8 elements to quantise)")
     tables = [t.reshape(-1).to(torch.int32).contiguous() for t in (send_cnt, src_off, dst_off)]
-    out = torch.zeros((out_rows, h), dtype=torch.int8 if quantize else x.dtype, device=dev)
+    # no zeroing: the kernel writes every row of both windows
+    out = torch.empty((out_rows, h), dtype=torch.int8 if quantize else x.dtype, device=dev)
     with_scales = quantize or scales is not None
-    s_out = torch.zeros((out_rows,), dtype=torch.float32, device=dev) if with_scales else None
+    s_out = torch.empty((out_rows,), dtype=torch.float32, device=dev) if with_scales else None
     s_in = scales.reshape(-1).float().contiguous() if scales is not None else None
     _build.check_operands("remote_scatter", dev, x, *tables, out,
                           *(t for t in (s_in, s_out) if t is not None))
@@ -125,7 +149,8 @@ def _remote_scatter_cuda(x, scales, send_cnt, src_off, dst_off, *, slices_per_ra
               1, slices_per_rank, src_rows, out_rows, h, row_bytes, kind,
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check("remote_scatter", code)
-    _build.launches["remote_scatter"] += 1
+    if out_rows > 0:
+        _build.launches["remote_scatter"] += 1
     return out, s_out
 
 

@@ -161,6 +161,20 @@ def _estimator_inputs(rng, b=2, h=2, t=256, d=128):
     return _randn(rng, (b, h, t, d)), _randn(rng, (b, h, t, d))
 
 
+def _jax_block_scores(q, k, bs, causal):
+    """The interpreted TPU kernel's block scores of q [BH, NQ*bs, 128], k
+    [BH, NK*bs, 128]."""
+    bh, nq, nk = q.shape[0], q.shape[1] // bs, k.shape[1] // bs
+    return pl.pallas_call(
+        partial(jsp._estimate_kernel, block_size=bs, nq=nq, nk=nk, causal=causal),
+        grid=(bh,),
+        in_specs=[pl.BlockSpec((1, nq * bs, 128), lambda i: (i, 0, 0)),
+                  pl.BlockSpec((1, nk * bs, 128), lambda i: (i, 0, 0))],
+        out_specs=pl.BlockSpec((1, nq, nk), lambda i: (i, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((bh, nq, nk), jnp.float32),
+        interpret=True)(jnp.asarray(q), jnp.asarray(k))
+
+
 @pytest.mark.parametrize("keep_ratio", [0.25, 1.0])
 def test_estimate_fused_matches_jax_kernel(rng, keep_ratio):
     """K18's tier against sparse_block_estimate_pallas (interpreted): masks
@@ -180,16 +194,97 @@ def test_block_scores_match_the_jax_kernel(rng):
     """K18's plain scores against the interpreted kernel's (not causal, so
     every score is compared): f32 order only."""
     q, k = _estimator_inputs(rng, b=1, h=3)
-    bs, nq = 64, 4
-    want = pl.pallas_call(
-        partial(jsp._estimate_kernel, block_size=bs, nq=nq, nk=nq, causal=False),
-        grid=(3,),
-        in_specs=[pl.BlockSpec((1, nq * bs, 128), lambda i: (i, 0, 0))] * 2,
-        out_specs=pl.BlockSpec((1, nq, nq), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((3, nq, nq), jnp.float32),
-        interpret=True)(jnp.asarray(q[0]), jnp.asarray(k[0]))
-    got = tsp.block_scores_ref(_t(q[0]), _t(k[0]), bs, causal=False)
+    want = _jax_block_scores(q[0], k[0], 64, False)
+    got = tsp.block_scores_ref(_t(q[0]), _t(k[0]), 64, causal=False)
     _close(got, want)
+
+
+def _scores_close(got, want):
+    """Block scores: the causal -1e30 entries equal, the others within
+    F32_SHARE of the largest |score| (f32 sums in another order)."""
+    g, w = _np(got), _np(want)
+    live = w > -1e29
+    assert np.array_equal(g[~live], w[~live])
+    np.testing.assert_allclose(g[live], w[live], rtol=0,
+                               atol=F32_SHARE * np.abs(w[live]).max())
+
+
+def _masks_agree(got, want, scores, keep):
+    """Masks equal, except entries whose score lies within F32_SHARE of the
+    row's largest |score| from its row's threshold (chip_smoke.py's
+    _mask_flips bar)."""
+    got, want, scores = np.asarray(got), np.asarray(want), _np(scores)
+    thresh = np.sort(scores, axis=-1)[..., -keep][..., None]
+    top = np.where(scores < -1e29, 0, np.abs(scores)).max(-1, keepdims=True)
+    near = np.abs(scores - thresh) <= F32_SHARE * top
+    assert not ((got != want) & ~near).any()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_estimate_above_the_old_cap_matches_jax_kernel(rng, causal):
+    """[1, 2, 3200, 128] in blocks of 16: NQ + NK = 400, past the 384 pooled
+    rows K18 once kept in shared memory. The plain scores against the
+    interpreted kernel's, and the fused tier's mask and counts against
+    sparse_block_estimate_pallas's (interpreted)."""
+    bs, t = 16, 3200
+    q, k = _estimator_inputs(rng, b=1, h=2, t=t)
+    want = _jax_block_scores(q[0], k[0], bs, causal)
+    _scores_close(tsp.block_scores_ref(_t(q[0]), _t(k[0]), bs, causal=causal), want)
+    jm, jc = jsp.sparse_block_estimate_pallas(jnp.asarray(q), jnp.asarray(k), bs,
+                                              causal=causal)
+    tm, tc = tsp.sparse_block_estimate_fused(_t(q), _t(k), bs, causal=causal)
+    n = t // bs
+    _masks_agree(tm.numpy(), np.asarray(jm), np.asarray(want).reshape(1, 2, n, n),
+                 max(1, int(n * 0.25)))
+    assert np.array_equal(tc.numpy(), tm.numpy().sum(-1))
+
+
+@pytest.mark.parametrize("bh,nq,nk,tile", [
+    (8, 64, 64, 32),        # [1, 8, 8192] in blocks of 128: 8 tiles of 64
+    (64, 32, 32, 32),       # [4, 16, 4096]: 64
+    (8, 256, 256, 64),      # [1, 8, 32768]: 128
+    (8, 256, 64, 32),       # T 32768 against 8192
+    (2, 200, 200, 32)])
+def test_estimate_plan(bh, nq, nk, tile):
+    """K18's plan on a card of 132 SMs: tiles of 64 where they alone give
+    half the SMs one, the workspace one pooled f32 row per block."""
+    assert tsp.estimate_plan(bh, nq, nk, 132) == (tile, (bh, nq + nk, 128))
+
+
+def _k18_tiles(q, k, bs, causal, tile):
+    """K18's two kernels in PyTorch, block by block: the pooled rows into the
+    workspace, then each tile's scores, the tiles wholly above the
+    diagonal written -1e30 without a product."""
+    bh, nq, nk = q.shape[0], q.shape[1] // bs, k.shape[1] // bs
+    ws = torch.cat([q.float().reshape(bh, nq, bs, 128).sum(2),
+                    k.float().reshape(bh, nk, bs, 128).sum(2)], dim=1)
+    out = torch.full((bh, nq, nk), float("nan"))
+    inv = np.float32(1.0) / np.float32(bs * bs)
+    for z in range(bh):
+        for i0 in range(0, nq, tile):
+            for j0 in range(0, nk, tile):
+                i = torch.arange(i0, min(i0 + tile, nq))[:, None]
+                j = torch.arange(j0, min(j0 + tile, nk))[None, :]
+                if causal and j0 > i0 + tile - 1:
+                    out[z, i, j] = -1e30
+                    continue
+                qs = ws[z, i0:min(i0 + tile, nq)]
+                ks = ws[z, nq + j0:nq + min(j0 + tile, nk)]
+                sc = qs @ ks.T * float(inv)
+                out[z, i, j] = torch.where(causal & (j > i), -1e30, sc)
+    return out
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_k18_tiles_cover_every_score(rng, causal, tile):
+    """K18's tiling (ragged tiles at both ends, tq != tk, the causal skip)
+    writes every score once and matches the plain version."""
+    bs = 4
+    q, k = (torch.from_numpy(_randn(rng, (3, n * bs, 128))) for n in (100, 70))
+    got = _k18_tiles(q, k, bs, causal, tile)
+    assert not got.isnan().any()
+    _scores_close(got, tsp.block_scores_ref(q, k, bs, causal=causal))
 
 
 @pytest.mark.parametrize("case", ["kernel gate", "ragged", "causal off"])

@@ -387,6 +387,69 @@ def test_remote_scatter_matches_jax_kernel(rng, quantize):
         assert not ts[16:32].any() and not to[16:32].any()                   # never written
 
 
+def _k12_layouts():
+    """K12's layouts by name: (send_cnt, src_off, dst_off, src_rows,
+    out_rows). The bench layout is the pallas strategy's at chip_smoke.py's
+    MoE shape (8 experts, maxT 128, 128 tokens, top-8): its dispatch (the
+    1,088-row send buffer into the 1,024-row window) and its combine (back);
+    the edges: an empty slice and counts off a multiple of 8, a chunk
+    running past src_rows, one running past out_rows, gaps between windows,
+    offsets off a multiple of 8, and no rows at all."""
+    r = np.random.default_rng(0)
+    idx = np.stack([r.choice(8, 8, replace=False) for _ in range(128)]).astype(np.int32)
+    _, _, counts, _, al, _, sbuf = tpll._send_layout(torch.from_numpy(idx), 1, 8, 128)
+    win = tll._window_offsets(1, 8, 128, torch.device("cpu"), 0)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
+    ragged = np.array([13, 0, 32, 5], np.int32)
+    ja, _, rbuf = jpll._aligned_layout(jnp.asarray(ragged), jnp.asarray(np.cumsum(ragged) - ragged),
+                                       int(ragged.sum()), 1, 4, 32)
+    return {
+        "bench dispatch": (counts, al, win, sbuf, 8 * 128),
+        "bench combine": (counts, win, al, 8 * 128, sbuf),
+        "empty slice, ragged counts": (torch.from_numpy(ragged), _t(ja).int(),
+                                       i32(0, 32, 64, 96), rbuf, 128),
+        "chunk past src_rows": (i32(5, 12), i32(0, 16), i32(0, 32), 26, 64),
+        "chunk past out_rows": (i32(8, 11), i32(0, 8), i32(0, 40), 24, 48),
+        "gaps between windows": (i32(3, 9, 16), i32(0, 8, 24), i32(0, 24, 64), 40, 96),
+        "offsets off a multiple of 8": (i32(7, 4), i32(3, 13), i32(5, 17), 16, 32),
+        "no rows": (i32(0, 0, 0), i32(0, 0, 0), i32(0, 8, 16), 24, 24),
+    }
+
+
+@pytest.mark.parametrize("mode", ["quantise bf16", "quantise f32", "copy with scales"])
+@pytest.mark.parametrize("layout", sorted(_k12_layouts()))
+def test_k12_row_map_matches_the_plain_scatter(rng, layout, mode):
+    """K12's row map (scatter_row_map, which the kernel mirrors) against the
+    plain version's output: every window row is its mapped source row
+    (quantised, or copied with its scale) or zero with scale 0, bit for
+    bit; a mapped row lies in its slice's chunk-rounded window."""
+    cnt, so, do, src_rows, out_rows = _k12_layouts()[layout]
+    quantize = mode.startswith("quantise")
+    x = torch.from_numpy(rng.standard_normal((src_rows, 64)).astype(np.float32) * 2)
+    if mode != "quantise f32":
+        x = x.to(torch.bfloat16)
+    scales = None if quantize else torch.from_numpy(rng.random(src_rows).astype(np.float32))
+    out, s_out = tpll.remote_scatter_ref(x, scales, cnt, so, do, cnt, group=EPGroup(None),
+                                         slices_per_rank=cnt.numel(), out_rows=out_rows,
+                                         quantize=quantize)
+    sl, row = tpll.scatter_row_map(cnt, so, do, src_rows, out_rows)
+    rows, row_scales = tpll.quant_rows_ref(x) if quantize else (x, scales)
+    live = row >= 0
+    want = torch.zeros_like(out)
+    want[live] = rows[row[live]]
+    want_s = torch.zeros((out_rows,), dtype=torch.float32)
+    want_s[live] = row_scales[row[live]]
+    assert torch.equal(out, want) and torch.equal(s_out, want_s)
+    assert torch.equal(sl >= 0, live)
+    dst0 = do.long() // tpll.CHUNK * tpll.CHUNK
+    d = torch.arange(out_rows)[live]
+    assert ((d >= dst0[sl[live]]) & (d < dst0[sl[live]] + tpll._chunked(cnt)[sl[live]])).all()
+    if layout == "bench dispatch":
+        assert bool(live.all())                      # the window is full: no zero row
+    if layout == "no rows":
+        assert not bool(live.any())
+
+
 # --------------------------------------------------------- K11: the fused layer
 
 
