@@ -1706,10 +1706,12 @@ def check_decode_hm(torch, dec, qcfg, rng):
     q = (1.5 * torch.randn((b, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
     sm = d ** -0.5
     args = (q, kc[li], vc[li], seq, bt, sm, ps)
-    out = dec.decode_gqa_hm(*args)
+    out, again = dec.decode_gqa_hm(*args), dec.decode_gqa_hm(*args)
     ref = dec.decode_gqa_hm_ref(*args)
     torch.cuda.synchronize()
     err, ratio = _bf16_check("decode_hm", out, ref, K10_SHARE)
+    if not torch.equal(out, again):
+        raise AssertionError("decode_hm: a second call differs")
     ms = _time_ms(lambda: dec.decode_gqa_hm(*args), 50, graph=True)
     plain = _time_ms(lambda: dec.decode_gqa_hm_ref(*args), 5)
     n, g = mp * ps, hq // hkv
@@ -1731,6 +1733,50 @@ def check_decode_hm(torch, dec, qcfg, rng):
           f"ms ({by})")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
+
+
+def check_decode_hm_edges(torch, dec, dv3):
+    """K10 where the loop meets its edges, against its plain version within
+    one bf16 ulp + K10_SHARE of max|plain|, each second call bit-identical,
+    the wrapper's output and workspace allocated on 0x7f bytes: 7 sequences
+    over 2 kv heads (rows split over blocks: skt_decode_hm_splits must say S
+    > 1), G 1, 2, 4, 8 and 16 (16: two blocks of 8), pages of 16, 100 and
+    512 tokens over 4 pages and one of 8,192 (two softmax steps of 4,096
+    within it), lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3 and 4 ps (capped
+    at MP ps)."""
+    from sgl_kernel_npu_tpu_torch import _build
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(1019)
+    hkv, d, b = 2, 128, 7
+    sm = d ** -0.5
+    worst, calls, least_s = 0.0, 0, 8
+    for ps, mp in V3_EDGE_PAGES:
+        pages = b * mp + 1
+        lens = torch.tensor(_v3_edge_lens(ps, mp), dtype=torch.int32, device="cuda")
+        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        k, v, _, _ = _hm_pages(torch, rng, pages, hkv, ps, d, False, head_major=True)
+        for g in (1, 2, 4, 8, 16):
+            q = (1.5 * torch.randn((b, hkv * g, d), generator=rng, device="cuda")
+                 ).to(torch.bfloat16)
+            ng = dv3.v3_groups(g)
+            least_s = min(least_s, _build.splits("decode_hm", b, hkv, g // ng, ng, mp, ps))
+            with _dirty_empty(torch, dv3):
+                out, again = (dec.decode_gqa_hm(q, k, v, lens, bt, sm, ps) for _ in range(2))
+            ref = dec.decode_gqa_hm_ref(q, k, v, lens, bt, sm)
+            torch.cuda.synchronize()
+            _, ratio = _bf16_check(f"decode_hm edges ps {ps} G {g}", out, ref, K10_SHARE)
+            if not torch.equal(out, again):
+                raise AssertionError(f"decode_hm edges ps {ps} G {g}: a second call differs")
+            worst, calls = max(worst, ratio), calls + 1
+        del k, v
+        torch.cuda.empty_cache()
+    if least_s < 2:
+        raise AssertionError(f"decode_hm edges: a batch of {b} took S = {least_s}, unsplit")
+    print(f"  decode_hm edges ({calls} calls: G 1, 2, 4, 8, 16; ps 16 / 100 / 512 over 4 pages "
+          f"and 8192 over one; lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3, 4 ps; B {b}, S >= "
+          f"{least_s}; output and workspace on 0x7f bytes): at most {worst:.3g} of the bound, "
+          f"second calls bit-identical")
 
 
 # ------------------------------------------------------- the hm Llama kernels
@@ -5147,10 +5193,13 @@ def check_attic(torch, dv4, dv5, dv7, cfg):
     def finish(name, fn, plain, share, rows_k, rows_v, live, new, lens, int8, extra_bytes=0.0,
                extra_tok=0.0, write=None):
         out, ref = fn(), plain()
+        again = fn()
         torch.cuda.synchronize()
         if write is not None:
             write()
         err, ratio = _bf16_check(name, out, ref, share)
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: a second call differs")
         ms = _time_ms(fn, 50, graph=True)
         plain_ms = _time_ms(plain, 3)
         library, backend, lib_out = _hm_yardstick(torch, q, rows_k, rows_v, live, new, sm)
@@ -5233,6 +5282,63 @@ def check_attic(torch, dv4, dv5, dv7, cfg):
            (kn, vn), flushed, True, extra_bytes=nside * hkv * 4.0 * d + 4.0 * b,
            extra_tok=nside)
     return rows
+
+
+# K24's edges: (W, cached lengths): on and off a window boundary, sidecars of
+# 0, 1, W - 1 and a few rows, over 4 pages of 128
+V7_EDGES = ((64, (0, 1, 63, 64, 65, 127, 128, 389)), (100, (0, 1, 99, 100, 101, 199, 200, 305)))
+
+
+def check_decode_v7_edges(torch, dv7):
+    """K24 where its loop meets its edges, against its plain version within
+    one bf16 ulp + K14_SHARE of max|plain|, each second call bit-identical,
+    the wrapper's output and workspace allocated on 0x7f bytes: W 64 and
+    100, 8 sequences (V7_EDGES: cached lengths on and off a window boundary,
+    sidecar counts 0 and W - 1 among them) over 2 kv heads of 4 pages of 128
+    tokens (rows split over blocks: skt_decode_v7_int8_splits must say S >
+    1, so the merging block folds the sidecar and the current token in), G 1,
+    4 and 16 (16: two blocks of 8)."""
+    from sgl_kernel_npu_tpu_torch import _build
+    from sgl_kernel_npu_tpu_torch.ops.attention.decode_v3 import v3_groups
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(1024)
+    hkv, d, ps, mp = 2, 128, 128, 4
+    sm = d ** -0.5
+    worst, calls, least_s = 0.0, 0, 8
+    for w, lens in V7_EDGES:
+        b = len(lens)
+        pages = b * mp + 1
+        cached = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+              .reshape(b, mp).to(torch.int32) + 1)
+        k, v, ks, vs = _hm_pages(torch, rng, pages, hkv, ps, d, True)
+        kside, vside = (torch.randn((b + 1, w, hkv * d), generator=rng, device="cuda")
+                        .to(torch.bfloat16) for _ in range(2))
+        rows = torch.randperm(b + 1, generator=rng, device="cuda")[:b].to(torch.int32)
+        kn, vn = (torch.randn((b, hkv, d), generator=rng, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        for g in (1, 4, 16):
+            q = (1.5 * torch.randn((b, hkv * g, d), generator=rng, device="cuda")
+                 ).to(torch.bfloat16)
+            ng = v3_groups(g)
+            least_s = min(least_s, _build.splits("decode_v7_int8", b, hkv, g // ng, ng, mp, ps,
+                                                 w))
+            args = (q, None, kn, vn, k, v, ks, vs, kside, vside, rows, cached, bt, sm, ps, w)
+            with _dirty_empty(torch, dv7):
+                out, again = (dv7.decode_gqa_v7_int8(*args) for _ in range(2))
+            ref = dv7.decode_gqa_v7_int8_ref(*args)
+            torch.cuda.synchronize()
+            _, ratio = _bf16_check(f"decode_v7_int8 edges W {w} G {g}", out, ref, K14_SHARE)
+            if not torch.equal(out, again):
+                raise AssertionError(f"decode_v7_int8 edges W {w} G {g}: a second call differs")
+            worst, calls = max(worst, ratio), calls + 1
+        del k, v, ks, vs, kside, vside
+    if least_s < 2:
+        raise AssertionError(f"decode_v7_int8 edges: took S = {least_s}, unsplit")
+    print(f"  decode_v7_int8 edges ({calls} calls: W 64 and 100, cached {V7_EDGES[0][1]} and "
+          f"{V7_EDGES[1][1]}, G 1, 4, 16, ps 128 over 4 pages, S >= {least_s}; output and "
+          f"workspace on 0x7f bytes): at most {worst:.3g} of the bound, second calls "
+          f"bit-identical")
 
 
 def _attic_step(torch, build, name, fn, expect):
@@ -5482,6 +5588,7 @@ def main() -> int:
     rows["k9"] = check_gdn(torch, recurrent_pallas, qcfg, rng)
     torch.cuda.empty_cache()
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
+    check_decode_hm_edges(torch, decode, decode_v3)
     torch.cuda.empty_cache()
     rows.update(check_decode_v6(torch, decode_v6, cfg, rng))
     check_decode_v6_edges(torch, decode_v6)
@@ -5516,6 +5623,7 @@ def main() -> int:
     rows["k22"] = check_helloworld(torch, helloworld)
     torch.cuda.empty_cache()
     rows.update(check_attic(torch, attic_v4, attic_v5, attic_v7, cfg))
+    check_decode_v7_edges(torch, attic_v7)
     torch.cuda.empty_cache()
     check_tie_prone(torch, paged_prefill_tm, decode_mla_v2, prefill, paged_prefill, matmul, cfg,
                     mcfg)

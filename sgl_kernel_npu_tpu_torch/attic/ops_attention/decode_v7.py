@@ -24,8 +24,10 @@ Rounding, as the TPU kernel takes it: the pages as K14's int8 contract (the
 K scale on the score, p times the V scale rounded to bf16), one step per
 page; the sidecar as one more step with p rounded to bf16; the current
 token with its p rounded to bf16. On a CUDA tensor decode_gqa_v7_int8
-launches kernel K24 (csrc/decode_v7.cu), counted under "decode_v7_int8"; on
-a CPU tensor it runs decode_gqa_v7_int8_ref in that order.
+launches kernel K24 (csrc/decode_v7.cu: C's tensor-core loop, each row
+split over the card's blocks where it has room, as skt_decode_v7_int8_splits
+sizes it), counted under "decode_v7_int8"; on a CPU tensor it runs
+decode_gqa_v7_int8_ref in that order.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import ctypes
 import torch
 
 from ... import _build
-from ...ops.attention.decode_v3 import _gather_pm
+from ...ops.attention.decode_v3 import V3_MAXG, _gather_pm, v3_groups
 from ...ops.attention.decode_v6 import _init_state, _new_token, _step
 from ...ops.attention.decode_v8 import quant_rows_int8
 from ...utils import index_copy_kept_, use_kernel
@@ -43,9 +45,9 @@ from ...utils import index_copy_kept_, use_kernel
 WINDOW = 64     # sidecar depth and flush granularity (tokens), as the reference's
 
 # q, k cache, v cache, k scales, v scales, k_new, v_new, k sidecar, v sidecar,
-# side_rows, cached, block table, out, B, Hq, Hkv, D, P, ps, MP, W, sm_scale,
-# stream
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# side_rows, cached, block table, out, workspace, arrivals, B, Hq, Hkv, D, P,
+# ps, MP, W, ng, S, sm_scale, stream
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def make_q_blockdiag(q, hkv):
@@ -170,12 +172,20 @@ def decode_gqa_v7_int8(q, q_blockdiag, k_new, v_new, k_cache, v_cache, k_scales,
     out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
     _build.check_operands(name, dev, q, k_cache, v_cache, k_scales, v_scales, kn, vn, k_side,
                           v_side, rows, cl, bt, out)
+    g, mp = hq // hkv, bt.shape[1]
+    ng = v3_groups(g)
+    nrows = b * hkv * ng
+    splits = _build.splits(name, b, hkv, g // ng, ng, mp, ps, window)
+    ws = torch.empty(nrows * splits * V3_MAXG * (2 + d) if splits > 1 else 0,
+                     dtype=torch.float32, device=dev)
+    arrivals = _build.arrival_counters(name, dev, nrows)
     fn = _build.launcher(name, _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scales.data_ptr(),
               v_scales.data_ptr(), kn.data_ptr(), vn.data_ptr(), k_side.data_ptr(),
               v_side.data_ptr(), rows.data_ptr(), cl.data_ptr(), bt.data_ptr(), out.data_ptr(),
-              b, hq, hkv, d, num_pages, ps, bt.shape[1], window, float(sm_scale), stream)
+              ws.data_ptr(), arrivals.data_ptr(), b, hq, hkv, d, num_pages, ps, mp, window, ng,
+              splits, float(sm_scale), stream)
     _build.check(name, code)
     _build.launches[name] += 1
     return out

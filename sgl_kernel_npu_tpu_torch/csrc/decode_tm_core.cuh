@@ -1,8 +1,10 @@
 // The paged GQA decode that kernels C (decode_tm.cu, token-major int8
 // pages), K3 (decode_tm2.cu, head-major int8 pages), K14 (decode_v6.cu,
-// page-major bf16 or int8 pages, which are head-major pages at L = 1) and
-// K16 / K23 (decode_v3.cu: the same pages, stacked caches at a layer read
-// on the device, and kv-head-major [Hkv, P, ps, D] pages) instantiate:
+// page-major bf16 or int8 pages, which are head-major pages at L = 1), K16 /
+// K23 (decode_v3.cu: the same pages, stacked caches at a layer read on the
+// device, and kv-head-major [Hkv, P, ps, D] pages), K10 (decode_hm.cu:
+// kv-head-major bf16 pages) and K24 (decode_v7.cu: page-major int8 pages
+// and a bf16 sidecar window) instantiate:
 // online-softmax steps of `step` tokens, rounded where the TPU kernels
 // round. The page layout is a template parameter (`Layout::row`: the cache
 // row, and scale, of a page slot), and so are the element type (int8 rows
@@ -26,7 +28,9 @@
 // own accumulation truncates); l sums the unrounded p, and the current token
 // folds in with its p unrounded. That differs from the f32 version only in
 // the order of the f32 sums. As p is not rounded, a split needs no running
-// maximum from the tokens before it: it starts at its own first step.
+// maximum from the tokens before it: it starts at its own first step. K24
+// (TWO_TIER) is P_BF16 with one more step after the pages: the sidecar's
+// bf16 rows, folded in by the block that writes the output.
 //
 // Bound on an H100: the bytes of the cached rows it must read,
 // cached*hkv*(2*D + 8) per sequence per layer (int8; 4*D for bf16), over
@@ -35,10 +39,12 @@
 // (S from the card's co-resident blocks over B * hkv and the block table's
 // width; the spans themselves from the cached length on the device, so
 // nothing syncs the host and a CUDA graph replays it); K3 runs one block a
-// (sequence, kv head), S = 1; K14, K16 and K23 split where the card has
-// room, on step (page) boundaries. A block of four warps walks its span in
-// rounds through a 3-stage cp.async ring of coalesced 16-byte copies (rows
-// padded by 16 bytes, 144 for int8 and 272 for bf16, so the fragment reads
+// (sequence, kv head), S = 1; K10, K14, K16, K23 and K24 split where the
+// card has room, on step (page) boundaries. A block of four warps walks its
+// span in rounds through a cp.async ring (3 stages; K24 2, so that 4 blocks
+// an SM fit: NST) of coalesced 16-byte copies (K10 and K24 read the block
+// table once a round: PAGE_ONCE; rows padded by 16 bytes, 144 for int8 and
+// 272 for bf16, so the fragment reads
 // below meet no bank conflict; TMA boxes into swizzled rows were no faster:
 // PERF.md); a stage holds 16 KB of rows, 128 int8 or 64 bf16 ones. Both
 // products run on the tensor cores as bf16 mma.sync m16n8k16 with f32 sums;
@@ -81,7 +87,7 @@ constexpr int D = 128;           // head dim
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 16 * WARPS; // tokens of a p . v round with K and V (int8, KEEP off)
-constexpr int STAGES = 3;
+constexpr int STAGES = 3;        // the ring's depth, unless a kernel picks its own (NST)
 constexpr int MAXG = 8;          // query heads of a block (mma's n)
 constexpr int PT = 24;           // bf16 row stride of a warp's p transpose
 constexpr int MAX_SPLITS = 8;
@@ -97,7 +103,11 @@ enum Round { P_BF16 = 0, P_F32 = 1 };
 // launch writes it at slots[b] (int8: quantised per (token, head) as the
 // int8 scatter reshape_and_cache_gqa_page_major_int8 does), reads the pages
 // before it and folds it in from shared memory (int8: the dequantised row).
-enum Mode { DEFER = 0, IN_CACHE = 1, FUSED = 2 };
+// TWO_TIER (K24, P_BF16): `cached` counts the cached tokens; the pages hold
+// the first cached / W * W of them, row side_rows[b] of a bf16 sidecar [*,
+// W, hkv * D] the rest (fold_sidecar: one more step, p rounded to bf16), then
+// k_new / v_new fold in as DEFER's do.
+enum Mode { DEFER = 0, IN_CACHE = 1, FUSED = 2, TWO_TIER = 3 };
 
 // The rows of element type T (int8, or bf16 with no scales): a stage holds
 // RS of them, 16 KB; a scores round (and, with KEEP, a p . v round) takes RS
@@ -120,15 +130,16 @@ struct Stage {
   float sc[Rows<T>::RS];
 };
 constexpr int PART = 2 * MAXG + MAXG * D;   // a split's floats: m, l, acc [G][D]
-static_assert(WARPS * MAXG * D * sizeof(float) <= STAGES * sizeof(Stage<__nv_bfloat16>),
-              "a block's sums fit over the ring");
+static_assert(WARPS * MAXG * D * sizeof(float) <= 2 * sizeof(Stage<__nv_bfloat16>),
+              "a block's sums fit over a ring of 2 stages");
 
 // the dynamic shared memory of a launch with G heads and steps of `step`:
-// the ring and the p transposes (`parts` of them a warp: 3 for P_F32); KEEP
-// adds the kept scores after them
+// the ring of `stages` and the p transposes (`parts` of them a warp: 3 for
+// P_F32); KEEP adds the kept scores after them
 template <typename T = int8_t>
-__host__ __device__ constexpr size_t smem_bytes(bool keep, int G, int step, int parts = 1) {
-  return STAGES * sizeof(Stage<T>) + (size_t)WARPS * parts * MAXG * PT * 2 +
+__host__ __device__ constexpr size_t smem_bytes(bool keep, int G, int step, int parts = 1,
+                                                int stages = STAGES) {
+  return stages * sizeof(Stage<T>) + (size_t)WARPS * parts * MAXG * PT * 2 +
          (keep ? (size_t)G * (step + SPAD) * sizeof(float) : 0);
 }
 
@@ -178,6 +189,10 @@ struct Args {
                               // ng * S][G][step + SPAD], where shared memory has no room
   int hkv, G, ng, P, ps, MP, li, layers, step;   // G heads a block, ng blocks a kv head
   float sm_scale;
+  const __nv_bfloat16* kside;   // TWO_TIER: the sidecars [*, window, hkv * D]
+  const __nv_bfloat16* vside;
+  const int* side_rows;         // TWO_TIER: sequence b's sidecar row [B]
+  int window;                   // TWO_TIER: W (0 otherwise)
 };
 
 // The rounds of a block: for each step k it touches, the scores of the
@@ -218,8 +233,10 @@ __device__ __forceinline__ bool walk_next(Walk& w, int& kind, int& t0, int& t1, 
 // tokens t0 .. t0 + RS - 1; p . v (kind 1), K rows and k scales of t0 ..
 // t0 + TILE - 1, then their V rows and v scales (KEEP: the V rows and v
 // scales of t0 .. t0 + RS - 1). Tokens at or past t1 are zero-filled.
-// layer: the first page of the layer, l * P.
-template <class Layout, bool KEEP, typename T>
+// layer: the first page of the layer, l * P. PAGE_ONCE: a round whose
+// tokens lie in one page reads the block table once, not once for every
+// copy (a round that crosses a page edge reads it for every copy).
+template <class Layout, bool KEEP, typename T, bool PAGE_ONCE = false>
 __device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, size_t layer, int b,
                                            int h, int t0, int t1, int kind) {
   using R = Rows<T>;
@@ -237,19 +254,30 @@ __device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, size_t la
     const int pg = pow2 ? t >> shift : t / a.ps, slot = t - pg * a.ps;
     return Layout::row(layer + __ldg(btb + pg), slot, h, a.ps, a.hkv, a.P);
   };
+  auto copy = [&](auto row_at) {
 #pragma unroll
-  for (int i = 0; i < R::RS * R::CPR / THREADS; ++i) {
-    const int e = tid + i * THREADS, r = e / R::CPR, c = (e % R::CPR) * 16;
-    const int t = t0 + r % span;
-    const bool ok = t < t1;
-    const size_t row = ok ? row_of(t) : 0;
-    cp_async16(&s.r[r][c], (r < krows ? kc : vc) + row * (D * sizeof(T)) + c, ok);
-  }
-  if (R::I8) {
-    static_assert(!R::I8 || R::RS == THREADS, "a thread a scale");
-    const int t = t0 + tid % span;
-    const bool ok = t < t1;
-    cp_async4(&s.sc[tid], (tid < krows ? a.ksc : a.vsc) + (ok ? row_of(t) : 0), ok);
+    for (int i = 0; i < R::RS * R::CPR / THREADS; ++i) {
+      const int e = tid + i * THREADS, r = e / R::CPR, c = (e % R::CPR) * 16;
+      const int t = t0 + r % span;
+      const bool ok = t < t1;
+      const size_t row = ok ? row_at(t) : 0;
+      cp_async16(&s.r[r][c], (r < krows ? kc : vc) + row * (D * sizeof(T)) + c, ok);
+    }
+    if (R::I8) {
+      static_assert(!R::I8 || R::RS == THREADS, "a thread a scale");
+      const int t = t0 + tid % span;
+      const bool ok = t < t1;
+      cp_async4(&s.sc[tid], (tid < krows ? a.ksc : a.vsc) + (ok ? row_at(t) : 0), ok);
+    }
+  };
+  const int pg0 = PAGE_ONCE ? (pow2 ? t0 >> shift : t0 / a.ps) : 0;
+  if (PAGE_ONCE && t0 < t1 && min(t0 + span, t1) <= (pg0 + 1) * a.ps) {
+    const size_t page0 = layer + __ldg(btb + pg0);
+    copy([&](int t) -> size_t {
+      return Layout::row(page0, t - pg0 * a.ps, h, a.ps, a.hkv, a.P);
+    });
+  } else {
+    copy(row_of);
   }
 }
 
@@ -351,23 +379,203 @@ __device__ __forceinline__ void fused_row(const Args& a, size_t layer, int b, in
   }
 }
 
+// TWO_TIER: the kept score row of the sidecar step, W rounded up to whole
+// rounds of bf16 rows
+__host__ __device__ constexpr int side_step(int window) {
+  return (window + Rows<__nv_bfloat16>::RS - 1) / Rows<__nv_bfloat16>::RS *
+         Rows<__nv_bfloat16>::RS;
+}
+
+// TWO_TIER: fold the nside (>= 1) sidecar rows of sequence b, kv head h (row
+// side_rows[b] of [*, W, hkv * D] bf16, head h's 128 columns) into the
+// block's merged (m, l, o) as one online-softmax step, p rounded to bf16
+// before P.V (decode_v6.py's _step without scales). Rounds of RS = 64 rows:
+// K rows in the ring's slot 0, V rows in slot 1 (a bf16 round fits in a slot
+// of either element type's ring; the last K round and the first V round are
+// copied together, so at the reference's W of 64 one wait serves both); a
+// warp scores its 16 rows of a round into `kept` ([G][side_step(W) + SPAD])
+// and posts their maximum to wmax; q . k and p . v on mma.sync as the
+// loop's bf16 rounds take them, the warps' sums added over the ring's slot 0
+// (its K rows read by then) in warp order. Thread t holds column t of o and
+// every head's m and l (m also in mnew[head], which the step's maximum
+// replaces); every thread of the block takes part.
+template <typename T>
+__device__ __forceinline__ void fold_sidecar(const Args& a, unsigned char* ring, float* kept,
+                                             __nv_bfloat16* pt,
+                                             const __nv_bfloat16 (&qrow)[MAXG][D], int b, int h,
+                                             int nside, float (&o)[MAXG], float (&lt)[MAXG],
+                                             float (&mt)[MAXG], float* mnew,
+                                             float (&wmax)[WARPS][MAXG],
+                                             float (&lred)[WARPS][MAXG]) {
+  using R = Rows<__nv_bfloat16>;
+  static_assert(WARPS * MAXG * D * sizeof(float) <= sizeof(Stage<int8_t>) &&
+                    WARPS * MAXG * D * sizeof(float) <= sizeof(Stage<__nv_bfloat16>),
+                "the warps' sums fit in slot 0");
+  Stage<__nv_bfloat16>& ks = *reinterpret_cast<Stage<__nv_bfloat16>*>(ring);
+  Stage<__nv_bfloat16>& vs = *reinterpret_cast<Stage<__nv_bfloat16>*>(ring + sizeof(Stage<T>));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int kst = side_step(a.window) + SPAD, nr = (nside + R::RS - 1) / R::RS;
+  const size_t hd = (size_t)a.hkv * D;
+  const size_t base = (size_t)__ldg(a.side_rows + b) * a.window * hd + (size_t)h * D;
+  auto load = [&](Stage<__nv_bfloat16>& s, const __nv_bfloat16* side, int r0) {
+#pragma unroll
+    for (int i = 0; i < R::RS * R::CPR / THREADS; ++i) {
+      const int e = tid + i * THREADS, r = e / R::CPR, c = (e % R::CPR) * 16;
+      const bool ok = r0 + r < nside;
+      cp_async16(&s.r[r][c],
+                 reinterpret_cast<const char*>(side + base + (ok ? (r0 + r) * hd : 0)) + c, ok);
+    }
+  };
+  // q^T as mma's B fragments in D's own order (the bf16 rows')
+  uint32_t qb[D / 16][2];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bool ok = g < a.G;
+    qb[kk][0] = ok ? *reinterpret_cast<const uint32_t*>(&qrow[g][16 * kk + 2 * tig]) : 0u;
+    qb[kk][1] = ok ? *reinterpret_cast<const uint32_t*>(&qrow[g][16 * kk + 2 * tig + 8]) : 0u;
+  }
+  __syncthreads();                      // the ring's last readers are done
+  for (int j = 0; j < nr; ++j) {
+    load(ks, a.kside, j * R::RS);
+    if (j == nr - 1) load(vs, a.vside, 0);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    float c[4];
+    scores(ks, 16 * warp, lane, qb, c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = j * R::RS + 16 * warp + g + 8 * (e >> 1), hh = 2 * tig + (e & 1);
+      if (hh < a.G) kept[hh * kst + t] = t < nside ? c[e] * a.sm_scale : -CUDART_INF_F;
+    }
+    if (j < nr - 1) __syncthreads();    // slot 0 free for the next round
+  }
+  // the step's maximum: each warp's share over the scores it kept (its own
+  // rows, read back by the lanes that wrote them), then with the running one
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int hh = 2 * tig + j;
+    float mx = -CUDART_INF_F;
+    if (hh < a.G)
+      for (int j2 = 0; j2 < nr; ++j2) {
+        const float* kr = kept + hh * kst + j2 * R::RS + 16 * warp + g;
+        mx = fmaxf(mx, fmaxf(kr[0], kr[8]));
+      }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (g == 0) wmax[warp][hh] = mx;
+  }
+  __syncthreads();
+  float mn[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int hh = 2 * tig + j;
+    mn[j] = 0.f;
+    if (hh < a.G) {
+      mn[j] = mnew[hh];
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) mn[j] = fmaxf(mn[j], wmax[w][hh]);
+    }
+  }
+  // the step's maximum replaces mnew[head] for the final sums below (read
+  // after a barrier); a thread above that reads it already replaced gets the
+  // same mn, the maximum of it and the warps' shares
+  if (warp == 0 && g == 0) {
+    mnew[2 * tig] = mn[0];
+    mnew[2 * tig + 1] = mn[1];
+  }
+  float acc[D / 16][4];
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int j = 0; j < nr; ++j) {
+    if (j > 0) {
+      __syncthreads();                  // slot 1 free
+      load(vs, a.vside, j * R::RS);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+    }
+    // p of this warp's 16 rows, rounded to bf16, into its transpose
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1), jj = e & 1, t = j * R::RS + 16 * warp + r;
+      const bool ok = t < nside && 2 * tig + jj < a.G;
+      const float p = ok ? expf(kept[(2 * tig + jj) * kst + t] - mn[jj]) : 0.f;
+      ls[jj] += p;
+      pt[(2 * tig + jj) * PT + r] = __float2bfloat16_rn(p);
+    }
+    __syncwarp();
+    const uint32_t pb0 = *reinterpret_cast<const uint32_t*>(pt + g * PT + 2 * tig);
+    const uint32_t pb1 = *reinterpret_cast<const uint32_t*>(pt + g * PT + 2 * tig + 8);
+    __syncwarp();
+    const int8_t* v0 = vs.r[16 * warp + 2 * tig];
+    constexpr int RB = R::ROWB;
+#pragma unroll
+    for (int m = 0; m < D / 16; ++m) {
+      const int off = 32 * m + 4 * g;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(v0 + off);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(v0 + RB + off);
+      const uint32_t w8 = *reinterpret_cast<const uint32_t*>(v0 + 8 * RB + off);
+      const uint32_t w9 = *reinterpret_cast<const uint32_t*>(v0 + 9 * RB + off);
+      const uint32_t va[4] = {__byte_perm(w0, w1, 0x5410), __byte_perm(w0, w1, 0x7632),
+                              __byte_perm(w8, w9, 0x5410), __byte_perm(w8, w9, 0x7632)};
+      mma(acc[m], va, pb0, pb1);
+    }
+  }
+  // the warps' sums over slot 0, added in warp order
+  float* red = reinterpret_cast<float*>(ring);   // [WARPS][MAXG][D]
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float v = ls[j];
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (g == 0) lred[warp][2 * tig + j] = v;
+  }
+#pragma unroll
+  for (int m = 0; m < D / 16; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(warp * MAXG + 2 * tig + (e & 1)) * D + 16 * m + 2 * g + (e >> 1)] = acc[m][e];
+  __syncthreads();
+#pragma unroll
+  for (int hh = 0; hh < MAXG; ++hh) {
+    if (hh >= a.G) break;
+    float sv = red[hh * D + tid], l = lred[0][hh];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      sv += red[(w * MAXG + hh) * D + tid];
+      l += lred[w][hh];
+    }
+    const float alpha = expf(mt[hh] - mnew[hh]);
+    o[hh] = o[hh] * alpha + sv;
+    lt[hh] = lt[hh] * alpha + l;
+    mt[hh] = mnew[hh];
+  }
+}
+
 // The body of a decode kernel (each source wraps it in its own __global__,
 // so that a profile names the kernel); launched as (S, hkv * ng, B) blocks
-// of THREADS with smem_bytes<T>(KEEP && !KG, G, step, PARTS) of dynamic
-// shared memory. KG: the kept scores are in device memory (a.kept_g), a
-// variant of its own so that the kept scores of the others stay known to be
-// shared. ROUND and MODE: the Round and Mode enums above (P_F32 with KEEP
-// only).
+// of THREADS with smem_bytes<T>(KEEP && !KG, G, step, PARTS, NST) of dynamic
+// shared memory (TWO_TIER: step at least side_step(W)). KG: the kept scores
+// are in device memory (a.kept_g), a variant of its own so that the kept
+// scores of the others stay known to be shared. ROUND and MODE: the Round
+// and Mode enums above (P_F32 with KEEP only; TWO_TIER with int8 pages,
+// KEEP and P_BF16 only). NST: the ring's stages (at least 2); PAGE_ONCE as
+// load_round takes it.
 template <class Layout, bool KEEP, typename T = int8_t, bool KG = false, int ROUND = P_BF16,
-          int MODE = DEFER>
+          int MODE = DEFER, int NST = STAGES, bool PAGE_ONCE = false>
 __device__ __forceinline__ void decode_body(const Args& a) {
   using R = Rows<T>;
   constexpr bool F32 = ROUND == P_F32;
   constexpr int PARTS = F32 ? 3 : 1;                       // p . v products a slice
+  constexpr bool NEWKV = MODE == DEFER || MODE == TWO_TIER;   // k_new / v_new fold in last
   static_assert(!F32 || KEEP, "P_F32 steps through kept scores");
+  static_assert(MODE != TWO_TIER || (R::I8 && KEEP && !KG && !F32),
+                "TWO_TIER: int8 pages, kept scores in shared memory, p rounded to bf16");
+  static_assert(NST >= 2, "a ring of at least 2 stages");
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<T>* stages = reinterpret_cast<Stage<T>*>(smem);
-  __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * sizeof(Stage<T>));
+  __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + NST * sizeof(Stage<T>));
   // KEEP: this block's [G][step + SPAD] kept scores, after the transposes
   // or in device memory (read back only by this block, after a barrier)
   float* kept = KG ? a.kept_g + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
@@ -389,9 +597,12 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   const size_t layer =
       (size_t)(a.layer != nullptr ? min(max(__ldg(a.layer), 0), a.layers - 1) : a.li) * a.P;
   // a block table maps at most MP*ps tokens: never read past it (FUSED:
-  // the current token, the last of `cached`, is not read from the pages)
+  // the current token, the last of `cached`, is not read from the pages;
+  // TWO_TIER: the pages hold the first cached / W * W)
   const int clen =
-      min(max(__ldg(a.cached + b) - (MODE == FUSED ? 1 : 0), 0), a.MP * a.ps);
+      MODE == TWO_TIER
+          ? min(max(__ldg(a.cached + b), 0) / a.window * a.window, a.MP * a.ps)
+          : min(max(__ldg(a.cached + b) - (MODE == FUSED ? 1 : 0), 0), a.MP * a.ps);
   // this split's tokens: a share of the 16-token tiles of the cached ones
   // (KEEP: of its steps, so that a split keeps the scores of whole steps)
   const int unit = KEEP ? a.step : 16;
@@ -401,9 +612,9 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   const __nv_bfloat16* qh = a.q + ((size_t)b * hq + hy * a.G) * D;
   const size_t cur = ((size_t)b * a.hkv + h) * D;
 
-  // the q rows and (DEFER) the current token's k and v rows that the end of
-  // the block folds in, copied with the ring's first round
-  for (int c = tid; c < (a.G + (MODE == DEFER ? 2 : 0)) * (D / 8); c += THREADS) {
+  // the q rows and (DEFER, TWO_TIER) the current token's k and v rows that
+  // the end of the block folds in, copied with the ring's first round
+  for (int c = tid; c < (a.G + (NEWKV ? 2 : 0)) * (D / 8); c += THREADS) {
     const int r = c / (D / 8), o = (c % (D / 8)) * 8;
     cp_async16(r < a.G ? &qrow[r][o] : &newkv[r - a.G][o],
                r < a.G ? qh + r * D + o : (r == a.G ? a.kn : a.vn) + cur + o, true);
@@ -416,9 +627,9 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     int kind, t0, t1;
     bool first;
 #pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
+    for (int st = 0; st < NST - 1; ++st) {
       if (walk_next(lw, kind, t0, t1, first, k1, ts, te, a.step, clen, R::RS, pv))
-        load_round<Layout, KEEP, T>(a, stages[st], layer, b, h, t0, t1, kind);
+        load_round<Layout, KEEP, T, PAGE_ONCE>(a, stages[st], layer, b, h, t0, t1, kind);
       cp_commit();
     }
   }
@@ -457,7 +668,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     bool first;
     for (int i = 0; walk_next(cw, kind, t0, t1, first, k1, ts, te, a.step, clen, R::RS, pv);
          ++i) {
-      cp_wait<STAGES - 2>();
+      cp_wait<NST - 2>();
       // every thread's copies of this round have landed, and the stage read
       // last time round is free
       __syncthreads();
@@ -465,11 +676,11 @@ __device__ __forceinline__ void decode_body(const Args& a) {
         int lk, l0, l1;
         bool lf;
         if (walk_next(lw, lk, l0, l1, lf, k1, ts, te, a.step, clen, R::RS, pv))
-          load_round<Layout, KEEP, T>(a, stages[(i + STAGES - 1) % STAGES], layer, b, h, l0,
-                                      l1, lk);
+          load_round<Layout, KEEP, T, PAGE_ONCE>(a, stages[(i + NST - 1) % NST], layer, b, h,
+                                                 l0, l1, lk);
         cp_commit();
       }
-      const Stage<T>& s = stages[i % STAGES];
+      const Stage<T>& s = stages[i % NST];
       const int kbase = cw.k * a.step;                   // the step's first token
       // the scores of this warp's 16 tokens (and, in an int8 scores round,
       // of 16 more TILE rows on), scaled; -inf past the range
@@ -696,6 +907,13 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     }
   }
 
+  if (MODE == TWO_TIER) {
+    // the sidecar's rows after the pages (the merging block, after the merge)
+    const int cb = max(__ldg(a.cached + b), 0);
+    const int nside = min(cb - cb / a.window * a.window, a.window);
+    if (nside > 0)
+      fold_sidecar<T>(a, smem, kept, pt, qrow, b, h, nside, o, lt, mt_, mfin, wmax, lred);
+  }
   if (MODE == IN_CACHE) {
 #pragma unroll
     for (int hh = 0; hh < MAXG; ++hh) {
@@ -751,23 +969,25 @@ int splits_for(Kernel* kern, size_t smem, int B, int rows, long long units) {
 }
 
 // Fill the arguments and launch `kern` on (S, hkv * ng, B) blocks of G
-// heads each (element type T, rounding ROUND): step_pages pages per
-// online-softmax step (or step_tokens tokens where that is > 0), S from
-// splits_for, ws and arrivals as it says (B * hkv * ng * S * PART floats,
-// none for S = 1; B * hkv * ng counters, zero before the first call); a
-// stacked cache's layer on the device (`layer`, of `layers`) or li; FUSED's
-// slots.
-template <bool KEEP, typename T = int8_t, int ROUND = P_BF16, typename Kernel>
+// heads each (element type T, rounding ROUND, a ring of NST stages):
+// step_pages pages per online-softmax step (or step_tokens tokens where
+// that is > 0), S from splits_for, ws and arrivals as it says (B * hkv * ng
+// * S * PART floats, none for S = 1; B * hkv * ng counters, zero before the
+// first call); a stacked cache's layer on the device (`layer`, of `layers`)
+// or li; FUSED's slots; TWO_TIER's sidecars, their rows and W (window > 0).
+template <bool KEEP, typename T = int8_t, int ROUND = P_BF16, int NST = STAGES, typename Kernel>
 int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const void* kc,
            const void* vc, const void* ksc, const void* vsc, const void* cached, const void* bt,
            void* out, void* ws, void* arrivals, int B, int hkv, int G, int P, int ps, int MP,
            int li, int step_pages, int S, float sm_scale, void* stream, int ng = 1,
            void* kept_g = nullptr, const void* layer = nullptr, int layers = 1,
-           const void* slots = nullptr, int step_tokens = 0) {
+           const void* slots = nullptr, int step_tokens = 0, const void* kside = nullptr,
+           const void* vside = nullptr, const void* side_rows = nullptr, int window = 0) {
   if (B <= 0 || hkv <= 0 || G <= 0 || G > MAXG || ng < 1 || ps <= 0 || MP <= 0 ||
       step_pages <= 0 || step_tokens < 0 || S < 1 || S > MAX_SPLITS || layers < 1 ||
       (S > 1 && (ws == nullptr || arrivals == nullptr)) ||
-      (sizeof(T) == 1 && (ksc == nullptr || vsc == nullptr)))
+      (sizeof(T) == 1 && (ksc == nullptr || vsc == nullptr)) || window < 0 ||
+      (window > 0 && (kside == nullptr || vside == nullptr || side_rows == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -795,8 +1015,14 @@ int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const vo
   a.layers = layers;
   a.step = step_tokens > 0 ? step_tokens : min(step_pages, MP) * ps;
   a.sm_scale = sm_scale;
+  a.kside = static_cast<const __nv_bfloat16*>(kside);
+  a.vside = static_cast<const __nv_bfloat16*>(vside);
+  a.side_rows = static_cast<const int*>(side_rows);
+  a.window = window;
   const size_t smem =
-      smem_bytes<T>(KEEP && kept_g == nullptr, G, a.step, ROUND == P_F32 ? 3 : 1);
+      smem_bytes<T>(KEEP && kept_g == nullptr, G,
+                    window > 0 ? std::max(a.step, side_step(window)) : a.step,
+                    ROUND == P_F32 ? 3 : 1, NST);
   const cudaError_t e = skt::ensure_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<dim3(S, hkv * ng, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);

@@ -10,9 +10,11 @@ decode_gqa_pallas, decode_gqa) and MLA over split latent caches
     -> out   [B, Hq, Dv]
 As in the JAX package, `decode_gqa` takes the kernel path only when q's and
 v's head dims are multiples of 128: on a CUDA tensor kernel K10
-(csrc/decode_hm.cu, head dim 128), on a CPU tensor its plain version
-`decode_gqa_hm_ref` in the TPU kernel's page order; other head dims take
-`decode_gqa_ref`, one softmax over all keys.
+(csrc/decode_hm.cu, head dim 128: C's tensor-core loop with p kept in f32,
+each row split over the card's blocks as decode_v3.launch_v3 sizes it), on
+a CPU tensor its plain version `decode_gqa_hm_ref` in the TPU kernel's
+page order; other head dims take `decode_gqa_ref`, one softmax over all
+keys.
 
   decode_mla(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale, page_size)
     q            [B, H, Lkv + Lrope]   (nope' | rope, DeepSeek 512 + 64)
@@ -50,10 +52,6 @@ MLA_HEADS = 16
 MLA_ROUND = 32
 MLA_MIN_ROUNDS = 2
 MLA_MAX_SPLITS = 16
-# K10 (csrc/decode_hm.cu): q, k_cache, v_cache, k_scales, v_scales, k_new,
-# v_new (the last four null), seq_lens, block_table, out, B, Hq, Hkv, D, P,
-# ps, MP, sm_scale, stream
-_HM_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _gather_hm(k_cache, v_cache, block_table):
@@ -134,13 +132,17 @@ def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page
 
 def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
     """Paged GQA decode over head-major bf16 pages (module docstring): kernel
-    K10 on the card (head dim 128, Hq / Hkv in 1, 2, 4, 8, 16), counted under
+    K10 on the card (head dim 128, Hq / Hkv in 1, 2, 4, 8, 16; launched
+    through decode_v3.launch_v3, K16's contract arguments, with the
+    workspace and arrival counters of a split row), counted under
     "decode_hm"; decode_gqa_hm_ref on the CPU. seq_lens [B] includes the
     current token, which is already in the cache. Returns [B, Hq, D] bf16."""
     if not use_kernel(q):
         return decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale,
                                  page_size)
-    return _launch_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
+    from .decode_v3 import launch_v3        # decode_v3 imports this module
+    return launch_v3("decode_hm", q, k_cache, v_cache, None, None, seq_lens, block_table,
+                     sm_scale, page_size, layout="kv_head")
 
 
 def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
@@ -150,36 +152,6 @@ def decode_gqa(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
     if q.shape[-1] % 128 == 0 and v_cache.shape[-1] % 128 == 0:
         return decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
     return decode_gqa_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size)
-
-
-def _launch_hm(q, k_cache, v_cache, lens, block_table, sm_scale, page_size):
-    """One launch of kernel K10 (csrc/decode_hm.cu) on head-major bf16 pages
-    [Hkv, P, ps, D]. Returns [B, Hq, D] bf16."""
-    name = "decode_hm"
-    b, hq, d = q.shape
-    shape = k_cache.shape
-    hkv, num_pages, ps = shape[:3]
-    if (v_cache.shape != shape or shape[-1] != d or d != 128 or ps != page_size
-            or hq % hkv or hq // hkv not in (1, 2, 4, 8, 16)):
-        raise ValueError(f"{name}: q {tuple(q.shape)}, caches {tuple(shape)}: needs head "
-                         "dim 128 and Hq / Hkv in 1, 2, 4, 8, 16")
-    if (q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16
-            or v_cache.dtype != torch.bfloat16):
-        raise TypeError(f"{name}: bf16 q and caches expected")
-    dev = q.device
-    q = q.contiguous()
-    sl = lens.to(torch.int32).contiguous()
-    bt = block_table.to(torch.int32).contiguous()
-    out = torch.empty((b, hq, d), dtype=torch.bfloat16, device=dev)
-    _build.check_operands(name, dev, q, k_cache, v_cache, sl, bt, out)
-    fn = _build.launcher(name, _HM_ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), None, None, None, None,
-              sl.data_ptr(), bt.data_ptr(), out.data_ptr(), b, hq, hkv, d, num_pages, ps,
-              bt.shape[1], float(sm_scale), stream)
-    _build.check(name, code)
-    _build.launches[name] += 1
-    return out
 
 
 def decode_gqa_int8kv_ref(q, k_cache, v_cache, k_scales, v_scales, seq_lens, block_table,

@@ -146,8 +146,9 @@ def _layer_arg(layer_idx, layers, dev, name):
 
 def launch_v3(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scale, page_size,
               layout="page", layer_idx=0, slots=None):
-    """One launch of a contract of csrc/decode_v3.cu (K16, K23) on CUDA
-    tensors: `name` is its C entry point and launch counter. Caches
+    """One launch of a contract of csrc/decode_v3.cu (K16, K23), or of K10
+    (csrc/decode_hm.cu, the same arguments), on CUDA tensors: `name` is its
+    C entry point and launch counter. Caches
     page-major [P, Hkv, ps, 128] (layout "page"), kv-head-major [Hkv, P, ps,
     128] ("kv_head") or stacked page-major [L, P, Hkv, ps, 128] ("stacked",
     at layer_idx, an int or a device tensor); scales (k, v) f32 of the same

@@ -302,30 +302,32 @@ def test_window_flush_matches_jax(rng):
     assert not np.array_equal(_np(want[0][1]), _np(cache["k"][1]))
 
 
-def _v7_case(rng, b, cached):
+def _v7_case(rng, b, cached, hq=HQ):
     cache = _pages(rng, True, pages=b * MP7 + 1, ps=PS7)
     side = (_bf16(rng, (b + 1, W, HKV * D)), _bf16(rng, (b + 1, W, HKV * D)))
-    q = _bf16(rng, (b, HQ, D), 1.5)
+    q = _bf16(rng, (b, hq, D), 1.5)
     new = (_bf16(rng, (b, HKV, D)), _bf16(rng, (b, HKV, D)))
     rows = jnp.asarray(rng.permutation(b + 1)[:b], jnp.int32)
     return cache, side, q, new, rows, _table(rng, b, MP7), jnp.asarray(cached, jnp.int32)
 
 
-def test_decode_v7_matches_jax_kernel(rng):
+@pytest.mark.parametrize("g", [4, 1, 8])
+def test_decode_v7_matches_jax_kernel(rng, g):
     """K24's plain version (per-head dots from q) against the interpreted
-    v7 kernel (its sidecar dots from the block-diagonal q): cached lengths 0,
-    ps - 1 (all in the sidecar), ps, ps + 1 and the window edges 63, 64, 65,
-    127, 128, 130 (pages up to the last flush, the rest in the sidecar). The
-    JAX kernel runs two sequences a call, where its sidecar ring is right
+    v7 kernel (its sidecar dots from the block-diagonal q) at G = 4, 1 and 8
+    query heads a kv head: cached lengths 0, ps - 1 (all in the sidecar),
+    ps, ps + 1 and the window edges 63, 64, 65, 127, 128, 130 (pages up to
+    the last flush, the rest in the sidecar). The JAX kernel runs two
+    sequences a call, where its sidecar ring is right
     (test_v7_tpu_kernel_reads_the_sidecar_row_two_sequences_ahead)."""
     jv7 = _attic("decode_v7")
     cached = [0, PS7 - 1, PS7, PS7 + 1, 63, 64, 65, 127, 128, 130]
-    cache, (ks, vs), q, (kn, vn), rows, bt, lens = _v7_case(rng, len(cached), cached)
+    cache, (ks, vs), q, (kn, vn), rows, bt, lens = _v7_case(rng, len(cached), cached, HKV * g)
     qbd = jv7.make_q_blockdiag(q, HKV)
     pages = (cache["k"], cache["v"], cache["ks"], cache["vs"], ks, vs)
     got = tv7.decode_gqa_v7_int8(_t(q), _t(qbd), _t(kn), _t(vn), *(_t(a) for a in pages),
                                  _t(rows), _t(lens), _t(bt), SM, PS7)
-    assert got.dtype == torch.bfloat16 and got.shape == (len(cached), HQ, D)
+    assert got.dtype == torch.bfloat16 and got.shape == (len(cached), HKV * g, D)
     for i in range(0, len(cached), 2):
         two = slice(i, i + 2)
         want = jv7.decode_gqa_pallas_v7_int8(q[two], qbd[two], kn[two], vn[two], *pages,

@@ -155,23 +155,23 @@ def test_kernels_build_for_sm_90a():
 
 
 # --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C, K14's, K16's and K23's
-# pages, K7's context, K2's, K1's, A's and K8's K; K3 runs C's loop unsplit,
-# its source scanned all the same) merge the splits' partials through a
-# workspace,
+# The kernels that split a row over blocks (K19, C, K10's, K14's, K16's,
+# K23's and K24's pages, K7's context, K2's, K1's, A's and K8's K; K3 runs
+# C's loop unsplit, its source scanned all the same) merge the splits'
+# partials through a workspace,
 # deterministically:
 # no float atomics (their order changes from run to run, and a second call
 # must be bit-identical), only integer arrival counters, each reset to 0 by
 # the kernel that used it (the last block to arrive), never zeroed by the
 # host before a call. A source is scanned with the csrc/ headers it includes
-# (A, K1, K2 and K8 merge in csrc/w8a8_wgmma.cuh, C, K3, K14, K16 and K23
-# in csrc/decode_tm_core.cuh). K5 splits a sequence over the CTAs of a thread
+# (A, K1, K2 and K8 merge in csrc/w8a8_wgmma.cuh, C, K3, K10, K14, K16, K23
+# and K24 in csrc/decode_tm_core.cuh). K5 splits a sequence over the CTAs of a thread
 # block cluster and merges through distributed shared memory: no atomics at
 # all.
 
 SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_v6.cu",
-                 "decode_v3.cu", "decode_mla.cu", "rmsq_gemm.cu", "w8a8_gemm_tiled.cu",
-                 "w8a8_gemm.cu")
+                 "decode_v3.cu", "decode_hm.cu", "decode_v7.cu", "decode_mla.cu", "rmsq_gemm.cu",
+                 "w8a8_gemm_tiled.cu", "w8a8_gemm.cu")
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets
 ATOMIC = re.compile(r"\b(atomic\w+)\s*\(\s*&?\s*((?:\w+\s*(?:\.|->)\s*)*\w+)")
@@ -327,12 +327,15 @@ def test_arrival_counters_are_zeroed_once():
     ("decode_tm2", "decode_tm2", "decode_tm_core.cuh"),         # K3
     ("decode_v6_defer", "decode_v6", "decode_tm_core.cuh"),     # K14, bf16 pages
     ("decode_v6_int8_defer", "decode_v6", "decode_tm_core.cuh"),   # K14, int8 pages
+    ("decode_hm", "decode_hm", "decode_tm_core.cuh"),           # K10
+    ("decode_v7_int8", "decode_v7", "decode_tm_core.cuh"),      # K24
 ] + [(name, "decode_v3", "decode_tm_core.cuh")               # K16's and K23's contracts
      for name in ("decode_v3", "decode_v3_int8", "decode_v3_defer", "decode_v3_int8_defer",
                   "decode_int8kv", "decode_v5_defer", "decode_v5_int8_defer",
                   "decode_v4b_int8", "decode_fused_v4_int8", "decode_fused_v4")])
 def test_kernels_share_their_stage(kernel, source, header):
-    """A and K8 run K1's int8 stage, K3, K14, K16 and K23 run C's loop: each
+    """A and K8 run K1's int8 stage, K3, K10, K14, K16, K23 and K24 run C's
+    loop: each
     kernel's source exports its launcher, includes the shared header, and
     holds no merge of its own (the scan above reaches the header's)."""
     assert _build.KERNELS[kernel] == source
@@ -344,22 +347,45 @@ def test_kernels_share_their_stage(kernel, source, header):
 
 
 def test_decode_hm_holds_k10_only():
-    """K16's and K23's contracts left the CUDA-core loop: csrc/decode_hm.cu
-    exports K10's launcher alone, decode_hm.cuh keeps no fused write, and
-    decode_v3.cu instantiates the loop with p kept in f32 (P_F32) in every
+    """csrc/decode_hm.cu exports K10's launcher (and its split count) alone,
+    on the tensor-core loop with p kept in f32 (P_F32) over kv-head-major
+    bf16 pages, and decode_v3.cu instantiates the loop with P_F32 in every
     mode it serves."""
     with open(os.path.join(_build.CSRC, "decode_hm.cu")) as f:
         own = f.read()
-    assert re.findall(r'extern "C" int (skt_\w+)\(', own) == ["skt_decode_hm"]
+    assert re.findall(r'extern "C" int (skt_\w+)\(', own) == ["skt_decode_hm_splits",
+                                                               "skt_decode_hm"]
     assert [k for k, v in _build.KERNELS.items() if v == "decode_hm"] == ["decode_hm"]
-    with open(os.path.join(_build.CSRC, "decode_hm.cuh")) as f:
-        header = COMMENT_OR_STRING.sub(" ", f.read())
-    assert "fused_write" not in header and "FUSED" not in header
+    assert re.search(r"decode_body<KvHeadMajor, true, __nv_bfloat16, false, P_F32, IN_CACHE, "
+                     r"NST, true>", COMMENT_OR_STRING.sub(" ", own))
     with open(os.path.join(_build.CSRC, "decode_v3.cu")) as f:
         v3 = COMMENT_OR_STRING.sub(" ", f.read())
     assert re.search(r"decode_body<Layout, true, T, false, P_F32, MODE>", v3)
     for mode in ("IN_CACHE", "DEFER", "FUSED"):
         assert re.search(r"run<\w+, \w+, " + mode + r">", v3), mode
+
+
+def test_no_source_includes_the_cuda_core_decode():
+    """The CUDA-core decode loop (decode_hm.cuh) is gone: K10 (decode_hm.cu)
+    and K24 (decode_v7.cu) instantiate the tensor-core loop, K24 in its
+    TWO_TIER mode with K14's rounding (P_BF16), each on a ring depth of its
+    own (NST) and reading the block table once a round (PAGE_ONCE), and no
+    source includes the old header."""
+    assert not os.path.exists(os.path.join(_build.CSRC, "decode_hm.cuh"))
+    for path in SOURCES:
+        with open(path) as f:
+            assert "decode_hm.cuh" not in INCLUDE.findall(f.read()), os.path.basename(path)
+    for source in ("decode_hm", "decode_v7"):
+        with open(os.path.join(_build.CSRC, source + ".cu")) as f:
+            own = f.read()
+        assert INCLUDE.findall(own) == ["decode_tm_core.cuh"], source
+        assert re.search(r"constexpr int NST = \d;", COMMENT_OR_STRING.sub(" ", own)), source
+    with open(os.path.join(_build.CSRC, "decode_v7.cu")) as f:
+        v7 = f.read()
+    assert re.search(r"decode_body<HeadMajor, true, int8_t, false, P_BF16, TWO_TIER, NST, true>",
+                     COMMENT_OR_STRING.sub(" ", v7))
+    assert re.findall(r'extern "C" int (skt_\w+)\(', v7) == ["skt_decode_v7_int8_splits",
+                                                              "skt_decode_v7_int8"]
 
 
 def test_grouped_gemm_source_holds_k8_only():

@@ -314,20 +314,24 @@ def test_gdn_glue_matches_jax():
 # ------------------------------------------------------------------ K10
 
 
-@pytest.mark.parametrize("which", ["v1", "v2"])
-def test_decode_gqa_matches_jax(monkeypatch, which):
+@pytest.mark.parametrize("which,g", [("v1", 4), ("v2", 4), ("v1", 1), ("v2", 1), ("v1", 16),
+                                     ("v2", 16)],
+                         ids=["v1", "v2", "v1-G1", "v2-G1", "v1-G16", "v2-G16"])
+def test_decode_gqa_matches_jax(monkeypatch, which, g):
     """Kernel K10's contract at D = 128 against decode_gqa_pallas (v1, one
     page per grid step) and decode_gqa_pallas_v2 (the one decode_gqa runs),
-    in interpret mode: 6 sequences of 1, ps, ps + 1, 2 ps + 5, 3 ps and 20
-    tokens over head-major bf16 pages, G = 4 query heads per kv head."""
+    in interpret mode: 8 sequences of 0, 1, ps - 1, ps, ps + 1, 2 ps + 5, 3
+    ps and 20 tokens over head-major bf16 pages, G = 4, 1 and 16 query heads
+    per kv head."""
     monkeypatch.setenv("SKT_IMPL", "pallas")
     rng = np.random.default_rng(17)
-    b, hq, hkv, d, ps, mp = 6, 8, 2, 128, 16, 3
+    b, hkv, d, ps, mp = 8, 2, 128, 16, 3
+    hq = hkv * g
     pages = b * mp + 1
     jk, tk = _bf16(rng, (hkv, pages, ps, d))
     jv, tv = _bf16(rng, (hkv, pages, ps, d))
     jqv, tqv = _bf16(rng, (b, hq, d), 1.5)
-    seq = np.array([1, ps, ps + 1, 2 * ps + 5, 3 * ps, 20], np.int32)
+    seq = np.array([0, 1, ps - 1, ps, ps + 1, 2 * ps + 5, 3 * ps, 20], np.int32)
     bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
     sm = d ** -0.5
     jfn = jdec.decode_gqa_pallas if which == "v1" else jv2.decode_gqa_pallas_v2
