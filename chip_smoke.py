@@ -21,7 +21,10 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    steps, batches of 10, 64 and 128, steps of 1,792 to 8,192 tokens whose
    shares split over clusters of 2, 4 and 8 CTAs; and at a sharper score
    spread: rows of 3,072 with q of 1.5 randn, rows of 576 with q of 1.5
-   sqrt(3072 / 576) randn; a second call bit-identical), K6 and
+   sqrt(3072 / 576) randn; a second call bit-identical), K6 (also at its
+   edges on 0x7f-filled caches: L 1, B 1, every row dropped, pages -1 and
+   P, slots 0 and ps - 1, bf16 rows of 1,152 bytes, batches below and
+   above the SM count; a second call bit-identical) and
    K7 (also at the edges of its split plan: 8 sequences of 1 token, one of
    4,097, 8 equal ones, lengths beside a round or a split, 4 and 20 heads
    with krope 16 and 6; a second call bit-identical); and the Qwen3-Next bench path's kernels at its shapes: K8 (the
@@ -63,7 +66,11 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    one row all -1; also at KB 251, no multiple of its split count, with a
    split of only -1 ids, chunk 1 and 64, a second call bit-identical) and K20 (add_rmsnorm_bias's quant pass at hidden 4096,
    N 8192 and 128 in bf16, and its f32 instantiation at N 128: h exact,
-   int8 within a flip bar); and the last nine TPU kernels' ports: K21 (the
+   int8 within a flip bar; also at N 1, 127, 129 and 8192 by d 8 and
+   8192, bf16 and f32, on 0x7f-filled outputs, a second call
+   bit-identical); phase 1 also times an empty kernel by the same graph
+   replay (the card's launch floor, printed beside the bounds, folded into
+   none); and the last nine TPU kernels' ports: K21 (the
    soft-FP8 W8A16 GEMM at DeepSeek-V3's fp8 widths: gate_proj, down_proj and
    kv_a_proj_with_mqa at M 128, gate_proj at M 4096, the grouped GEMM on
    phase 8's routed rows; also at M 8, a ragged K and N, 32-row tiles), K22
@@ -205,6 +212,7 @@ of JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -261,6 +269,60 @@ def _time_ms(fn, iters: int, warmup: int = 2, graph: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * iters)
+
+
+# An empty kernel: timed as the kernels are, its time is the least a launch
+# of any kernel takes on the card by graph replay (the launch floor)
+LAUNCH_FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void skt_empty_kernel() {}
+extern "C" int skt_empty(int blocks, int threads, void* stream) {
+  skt_empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+# (blocks, threads) of the empty launches: one warp, K20's grid at a decode
+# batch of 128 rows of 4096, K6's at phase 6's batch of 128 (two layer
+# groups)
+LAUNCH_FLOOR_GRIDS = {"one warp": (1, 32), "K20 N 128": (128, 512), "K6 B 128": (256, 256)}
+
+
+def start_launch_floor_build(build):
+    """Start nvcc on the empty kernel, into build/launch_floor/ of this
+    checkout; returns (process, library path)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "launch_floor")
+    os.makedirs(d, exist_ok=True)
+    src, so = os.path.join(d, "empty.cu"), os.path.join(d, "empty.so")
+    with open(src, "w") as f:
+        f.write(LAUNCH_FLOOR_SRC)
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def launch_floor(torch, started) -> dict:
+    """{name: ms per launch} of the empty kernel at each of
+    LAUNCH_FLOOR_GRIDS, by the graph replay that times the kernels.
+    `started`: what start_launch_floor_build returned."""
+    proc, so = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc of the empty kernel failed:\n{log}")
+    fn = ctypes.CDLL(so).skt_empty
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    floors = {}
+    for name, (blocks, threads) in LAUNCH_FLOOR_GRIDS.items():
+        def call(blocks=blocks, threads=threads):
+            code = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+            if code:
+                raise RuntimeError(f"the empty kernel: CUDA error {code}")
+        floors[name] = _time_ms(call, 50, graph=True)
+    print("  launch floor (an empty kernel, graph replay of 50 launches): "
+          + ", ".join(f"{name} ({b} x {t}) {floors[name]:.4f} ms"
+                      for name, (b, t) in LAUNCH_FLOOR_GRIDS.items())
+          + "; folded into no bound")
+    return floors
 
 
 def _warm_up_card(torch, seconds: float = 1.0) -> None:
@@ -1334,19 +1396,31 @@ def check_decode_mla_c_sharp(torch, dv2, mcfg):
           + "; ".join(notes) + "; second calls bit-identical")
 
 
-def check_append_mla(torch, dv2, mcfg, rng):
+def _append_mla_inputs(torch, gen, layers, b, dtype, ps=128, c=576):
+    """K6's inputs at check_append_mla's layout: (new rows [layers, b, c],
+    cache [layers, 3 b + 1, ps, c], pages, slots), values in [-127, 127]
+    drawn from `gen` as int8 and cast to `dtype`; b distinct pages from 1,
+    the last row dropped (sentinel P)."""
+    pages = 3 * b + 1
+    new = torch.randint(-127, 128, (layers, b, c), generator=gen, dtype=torch.int8,
+                        device="cuda").to(dtype)
+    pg = (torch.randperm(pages - 1, generator=gen, device="cuda")[:b] + 1).to(torch.int32)
+    pg[-1] = pages
+    off = torch.randint(0, ps, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    cache = torch.randint(-127, 128, (layers, pages, ps, c), generator=gen, dtype=torch.int8,
+                          device="cuda").to(dtype)
+    return new, cache, pg, off
+
+
+def check_append_mla(torch, dv2, mcfg, rng, floor):
     """K6 at the bench MLA path's shape: 27 layers x 128 int8 latent rows of
-    576 (one dropped: page P) into 385 pages of 128."""
-    layers, b, ps = mcfg.num_layers, 128, mcfg.page_size
+    576 (one dropped: page P) into 385 pages of 128. `floor`: the card's
+    launch floor in ms, printed beside the bound."""
+    layers, b = mcfg.num_layers, 128
     c = mcfg.kv_lora_rank + mcfg.qk_rope_dim
     pages = 3 * b + 1
-    new = torch.randint(-127, 128, (layers, b, c), generator=rng, dtype=torch.int8,
-                        device="cuda")
-    pg = (torch.randperm(pages - 1, generator=rng, device="cuda")[:b] + 1).to(torch.int32)
-    pg[-1] = pages                                    # a dropped row: sentinel P
-    off = torch.randint(0, ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
-    cache = torch.randint(-127, 128, (layers, pages, ps, c), generator=rng, dtype=torch.int8,
-                          device="cuda")
+    new, cache, pg, off = _append_mla_inputs(torch, rng, layers, b, torch.int8,
+                                             mcfg.page_size, c)
     cache2 = cache.clone()
     dv2.append_mla(new, cache, pg, off)
     dv2.append_mla_ref(new, cache2, pg, off)
@@ -1369,9 +1443,76 @@ def check_append_mla(torch, dv2, mcfg, rng):
     nrow = int(live.sum())
     bound, by = _bound_ms(2 * layers * nrow * c + 8 * b, 0.0, "bf16_flops")
     print(f"  append_mla L={layers} B={b} C={c} (1 dropped): exact; kernel {ms:.4f} ms, "
-          f"plain {plain:.3f} ms, index_put_ {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+          f"plain {plain:.3f} ms, index_put_ {lib:.4f} ms, bound {bound:.5f} ms ({by}), "
+          f"launch floor {floor:.4f} ms")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                 max_abs_err=0.0)
+
+
+# K6's edges: (label, layers, batch, pages, page size, latent width, dtype
+# name, page layout); "mixed": distinct pages with one -1 and one P among
+# them, slots 0 and ps - 1 among the rest
+K6_EDGES = (
+    ("L 1, B 1, slot ps - 1", 1, 1, 4, 128, 576, "int8", "last"),
+    ("B 1 over 27 layers, bf16 rows of 1,152 bytes", 27, 1, 4, 128, 576, "bfloat16", "first"),
+    ("every row dropped (pages -1 and P)", 27, 128, 385, 128, 576, "int8", "dropped"),
+    ("bf16 rows of 1,152 bytes, pages -1 and P, slots 0 and ps - 1", 27, 128, 385, 128, 576,
+     "bfloat16", "mixed"),
+    ("B 8 (layers split over blocks)", 27, 8, 25, 128, 576, "int8", "mixed"),
+    ("B 200 (above the SM count), L 3, pages of 64", 3, 200, 601, 64, 576, "int8", "mixed"),
+    ("B 7, L 5, rows of 16 bytes", 5, 7, 9, 16, 16, "int8", "mixed"),
+    ("L 3, B 5, int8 rows of 4,608 bytes (wider than the block)", 3, 5, 8, 16, 4608, "int8",
+     "mixed"),
+    ("L 6, B 140, bf16 rows of 4,608 bytes (wider than the block, layers looped)", 6, 140,
+     141, 2, 2304, "bfloat16", "mixed"),
+)
+
+
+def _k6_pages(torch, gen, layout, b, pages, ps):
+    """(pages, slots) int32 [b] of a K6 edge's layout."""
+    pg = (torch.randperm(pages, generator=gen, device="cuda")[:b]).to(torch.int32)
+    off = torch.randint(0, ps, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    if layout == "last":
+        off[:] = ps - 1
+    elif layout == "first":
+        off[:] = 0
+    elif layout == "dropped":
+        pg[::2], pg[1::2] = -1, pages
+    else:
+        pg[0], pg[-1] = -1, pages
+        if b > 3:
+            off[1], off[2] = 0, ps - 1
+    return pg, off
+
+
+def check_append_mla_edges(torch, dv2):
+    """K6 at K6_EDGES, each on a cache filled with 0x7f bytes (the bf16 one
+    with random bytes besides): exact against its plain version, and a
+    second call leaves the cache bit-identical."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(606)
+    for label, layers, b, pages, ps, c, dt, layout in K6_EDGES:
+        dtype = getattr(torch, dt)
+        shape = (layers, pages, ps, c * (2 if dt == "bfloat16" else 1))
+        if layout == "mixed" and dt == "bfloat16":
+            raw = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+        else:
+            raw = torch.full(shape, 0x7f, dtype=torch.uint8, device="cuda")
+        cache = raw.view(dtype)
+        new = torch.randint(-127, 128, (layers, b, c), generator=gen, device="cuda",
+                            dtype=torch.int8).to(dtype)
+        pg, off = _k6_pages(torch, gen, layout, b, pages, ps)
+        want = dv2.append_mla_ref(new, cache.clone(), pg, off)
+        dv2.append_mla(new, cache, pg, off)
+        torch.cuda.synchronize()
+        if not torch.equal(cache.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"append_mla {label}: differs from its plain version")
+        dv2.append_mla(new, cache, pg, off)
+        torch.cuda.synchronize()
+        if not torch.equal(cache.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"append_mla {label}: a second call differs")
+    print(f"  append_mla edges ({'; '.join(e[0] for e in K6_EDGES)}): exact on 0x7f caches, "
+          "second calls bit-identical")
 
 
 def check_decode_mla(torch, dec, mcfg, rng):
@@ -3799,9 +3940,9 @@ def _moe_send_layout(torch, ll, pll, x, idx, el, maxt):
 
 
 class _DirtyEmpty:
-    """A stand-in for a module's `torch` whose empty() hands back memory
-    filled with 0x7f bytes (everything else is torch's own), so that a
-    kernel that leaves a row of its output unwritten shows it."""
+    """A stand-in for a module's `torch` whose empty() and empty_like() hand
+    back memory filled with 0x7f bytes (everything else is torch's own), so
+    that a kernel that leaves a row of its output unwritten shows it."""
 
     def __init__(self, torch):
         self._torch = torch
@@ -3810,7 +3951,12 @@ class _DirtyEmpty:
         return getattr(self._torch, name)
 
     def empty(self, *args, **kw):
-        out = self._torch.empty(*args, **kw)
+        return self._dirty(self._torch.empty(*args, **kw))
+
+    def empty_like(self, *args, **kw):
+        return self._dirty(self._torch.empty_like(*args, **kw))
+
+    def _dirty(self, out):
         if out.numel():
             out.view(-1).view(self._torch.uint8).fill_(0x7f)
         return out
@@ -3818,7 +3964,8 @@ class _DirtyEmpty:
 
 @contextlib.contextmanager
 def _dirty_empty(torch, module):
-    """Within: `module`'s torch.empty gives 0x7f-filled memory."""
+    """Within: `module`'s torch.empty and torch.empty_like give 0x7f-filled
+    memory."""
     module.torch = _DirtyEmpty(torch)
     try:
         yield
@@ -4542,15 +4689,15 @@ def check_decode_edges(torch, dv9, dv8, cfg):
         print(f"  decode_tm G={g} (Hq {hkv * g}), the same cache: max-abs {err:.3g}")
 
 
-def _norm_inputs(torch, n, seed, dtype=None):
+def _norm_inputs(torch, n, seed, dtype=None, d=NORM_D):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    x, r = (torch.randn((n, NORM_D), generator=gen, device="cuda").to(dtype or torch.bfloat16)
+    x, r = (torch.randn((n, d), generator=gen, device="cuda").to(dtype or torch.bfloat16)
             for _ in range(2))
-    w = 1.0 + 0.1 * torch.randn((NORM_D,), generator=gen, device="cuda")
-    b = 0.1 * torch.randn((NORM_D,), generator=gen, device="cuda")
-    qs = 20.0 + 20.0 * torch.rand((NORM_D,), generator=gen, device="cuda")
-    qo = torch.randn((NORM_D,), generator=gen, device="cuda")
+    w = 1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    b = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    qs = 20.0 + 20.0 * torch.rand((d,), generator=gen, device="cuda")
+    qo = torch.randn((d,), generator=gen, device="cuda")
     return x, r, w, b, qs, qo
 
 
@@ -4565,11 +4712,12 @@ def _norm_check(torch, name, got, want):
     return int(diff.max()), share
 
 
-def check_add_rmsnorm_quant(torch, nm):
+def check_add_rmsnorm_quant(torch, nm, floor):
     """K20 at hidden 4096, bf16, N 8192 (a prefill) and 128 (a decode
     batch), against its plain version; then its f32 instantiation at N 128
-    (no phase drives it; held and timed here only). Returns the bf16 rows,
-    in NORM_ROWS' order."""
+    (no phase drives it; held and timed here only). `floor`: the card's
+    launch floor in ms, printed beside the bounds. Returns the bf16 rows, in
+    NORM_ROWS' order."""
     rows = []
     for n, dtype in [(n, torch.bfloat16) for n in NORM_ROWS] + [(128, torch.float32)]:
         x, r, w, b, qs, qo = _norm_inputs(torch, n, 200 + n, dtype)
@@ -4583,11 +4731,49 @@ def check_add_rmsnorm_quant(torch, nm):
         bound, by = _bound_ms(nbytes, 8.0 * n * NORM_D, "f32_flops")
         print(f"  add_rmsnorm_quant N={n} d={NORM_D} {dtype}: h exact, int8 max diff {dmax} "
               f"({share:.2e} of entries); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, no "
-              f"library call; bound {bound:.4f} ms ({by})")
+              f"library call; bound {bound:.4f} ms ({by}), launch floor {floor:.4f} ms")
         if dtype == torch.bfloat16:
             rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                              bound_by=by, max_abs_err=float(dmax)))
     return rows
+
+
+# K20's edge widths: one 8-column chunk, the widest (_MAX_D)
+K20_EDGE_DS = (8, 8192)
+
+
+def _k20_edge_ns(torch):
+    """K20's edge rows: one, either side of a decode batch of 128, the SM
+    count and one more (the last row count of the decode form, the first of
+    the prefill form), a prefill."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (1, 127, 129, sms, sms + 1, 8192)
+
+
+def check_add_rmsnorm_quant_edges(torch, nm):
+    """K20 at _k20_edge_ns x K20_EDGE_DS, bf16 and f32, its outputs
+    allocated on 0x7f bytes: h exact, int8 within K20_FLIP_SHARE, a second
+    call bit-identical."""
+    worst = 0.0
+    ns = _k20_edge_ns(torch)
+    for d in K20_EDGE_DS:
+        for n in ns:
+            for dtype in (torch.bfloat16, torch.float32):
+                x, r, w, b, qs, qo = _norm_inputs(torch, n, 300 + n + d, dtype, d)
+                args = (x, r, w, b, 1e-6, qs, qo)
+                with _dirty_empty(torch, nm):
+                    got = nm.add_rmsnorm_bias(*args)
+                    again = nm.add_rmsnorm_bias(*args)
+                want = nm.add_rmsnorm_bias_ref(*args)
+                torch.cuda.synchronize()
+                name = f"add_rmsnorm_quant N={n} d={d} {dtype}"
+                worst = max(worst, _norm_check(torch, name, got, want)[1])
+                if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                    raise AssertionError(f"{name}: a second call differs")
+                del x, r, got, again, want
+    print(f"  add_rmsnorm_quant edges (N {', '.join(map(str, ns))} by d "
+          f"{', '.join(map(str, K20_EDGE_DS))}, bf16 and f32, 0x7f outputs): h exact, int8 "
+          f"flips at most {worst:.2e} of entries, second calls bit-identical")
 
 
 def _drive(torch, build, name, fn, expect, plain=True):
@@ -5523,6 +5709,7 @@ def main() -> int:
     print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    floor_build = start_launch_floor_build(_build)
     times = _build.build()
     print(f"nvcc ({len(times)} in parallel) {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
@@ -5549,6 +5736,7 @@ def main() -> int:
     print("phase 1: kernels vs plain versions at Llama-3-8B, DeepSeek-V2-Lite, the Qwen and "
           "the MoE bench shapes")
     _warm_up_card(torch)
+    floors = launch_floor(torch, floor_build)
     rows = {}
     gemm_rows = check_gemm(torch, matmul, quant, cfg, mcfg, rng)
     compare_split_policy(torch, matmul, quant, cfg, rng)
@@ -5577,7 +5765,8 @@ def main() -> int:
     check_decode_mla_c_edges(torch, decode_mla_v2, mcfg)
     check_decode_mla_c_sharp(torch, decode_mla_v2, mcfg)
     torch.cuda.empty_cache()
-    rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng)
+    rows["k6"] = check_append_mla(torch, decode_mla_v2, mcfg, rng, floors["K6 B 128"])
+    check_append_mla_edges(torch, decode_mla_v2)
     torch.cuda.empty_cache()
     rows["k7"] = check_decode_mla(torch, decode, mcfg, rng)
     check_decode_mla_edges(torch, decode, mcfg)
@@ -5616,7 +5805,8 @@ def main() -> int:
     rows.update(zip(TOPK_NAMES, check_topk(torch, sparse)))
     check_topk_edges(torch, sparse)
     torch.cuda.empty_cache()
-    rows.update(zip(NORM_NAMES, check_add_rmsnorm_quant(torch, norm)))
+    rows.update(zip(NORM_NAMES, check_add_rmsnorm_quant(torch, norm, floors["K20 N 128"])))
+    check_add_rmsnorm_quant_edges(torch, norm)
     torch.cuda.empty_cache()
     rows["k21"], rows["k21_m4096"], rows["k21g"] = check_wfp8a16(torch, matmul, quant, moe_data)
     torch.cuda.empty_cache()

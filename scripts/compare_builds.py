@@ -54,12 +54,21 @@ replays). The cases, each name a prefix that --only can pick:
     both of chip_smoke.py's EST_SHAPES, and at [1, 8, 32768] not causal, a
     case only a root without the old NQ + NK <= 384 cap runs; within 1e-5
     of the largest |score|, the -1e30 entries exact;
+  * K20 (add_rmsnorm_bias's quant pass, hidden 4096) at chip_smoke.py's
+    phase 1 inputs: bf16 at N 128 (a decode batch) and 8192 (a prefill),
+    f32 at N 128; h exact, the int8 within chip_smoke.py's K20_FLIP_SHARE;
+  * K6 (the MLA latent append) at chip_smoke.py's check_append_mla shape
+    (27 layers x 128 rows of 576 into 385 pages of 128, one row dropped),
+    int8 and bf16 rows; exact;
   * the calls around them: phase 8's "pallas dispatch+combine" and "pallas
     capacity_rows=1024" MoE layer calls (bits only), and phase 11's sparse
     prefill at keep 0.25, T 8192 (K18, the threshold, the page lists and
     K15; CUDA events around eager calls, as chip_smoke.py times it; bits
     only, and they may differ between roots, as K18's f32 order may).
-Each case must also give the same bits in every turn of its root. Prints,
+Each case must also give the same bits in every turn of its root (a case
+that returns a tuple: each of its tensors), and in every root but for the
+kernels whose sums another design may order otherwise (K3, C, K5, K10,
+K14, K16, K18, K20's float64 sum of squares, K23, K24, phase 11). Prints,
 per case, each root's median over its turns and the ratio of each to the
 first root's, the sums of the four Llama GEMMs of A at M 8 and 128, of
 K1's three at M 128 and of K8's two at each shape, then the card's name
@@ -88,11 +97,12 @@ A_WIDTHS = (("wqkv", H, Q + 2 * KV), ("wo", Q, H), ("w13", H, 2 * F), ("w2", F, 
             ("mla wo", MHEADS * 128, MH), ("mla w13", MH, 2 * MF), ("mla w2", MF, MH))
 # the kernels the cases launch (names of _build.KERNELS)
 KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm",
-           "w8a8_gemm_grouped", "fused_moe", "decode_mla_c", "decode_v6_defer",
+           "w8a8_gemm_grouped", "fused_moe", "decode_mla_c", "append_mla", "decode_v6_defer",
            "decode_v6_int8_defer", "decode_hm", "decode_v3", "decode_v3_int8",
            "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
            "decode_v5_int8_defer", "decode_v4b_int8", "decode_fused_v4_int8",
-           "decode_fused_v4", "decode_v7_int8", "remote_scatter", "sparse_estimate")
+           "decode_fused_v4", "decode_v7_int8", "remote_scatter", "sparse_estimate",
+           "add_rmsnorm_quant")
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
 SUMS["K1 wo + w2 + lm_head M 128"] = [f"K1 {nm} M 128" for nm in ("wo", "w2", "lm_head")]
@@ -426,6 +436,7 @@ def _cases(torch, cs, want):
                ulp(decode.decode_gqa_int8kv_ref(*kv_args), cs.HM_SHARE), 50)
         del k, v, hk, hv
     yield from _attic_cases(torch, cs, on, ulp)
+    yield from _norm_append_cases(torch, cs, on)
     data = None
     if on("K8 MoE GMM1") or on("K8 MoE GMM2"):
         from sgl_kernel_npu_tpu_torch import parallel
@@ -550,6 +561,42 @@ def _scatter_estimate_cases(torch, cs, on, exact, data):
         yield ("Phase 11 sparse prefill keep 0.25", pipeline, None, -3)
 
 
+def _norm_append_cases(torch, cs, on):
+    """K20 at chip_smoke.py's phase 1 inputs and K6 at check_append_mla's
+    shape (chip_smoke.py's _append_mla_inputs, seed 20), int8 and bf16
+    rows."""
+    from sgl_kernel_npu_tpu_torch.ops import norm
+    from sgl_kernel_npu_tpu_torch.ops.attention import decode_mla_v2
+    for n, dtype, tag in ((128, torch.bfloat16, "bf16"), (8192, torch.bfloat16, "bf16"),
+                          (128, torch.float32, "f32")):
+        name = f"K20 N {n} {tag}"
+        if not on(name):
+            continue
+        x, r, w, b, qs, qo = cs._norm_inputs(torch, n, 200 + n, dtype)
+        args = (x, r, w, b, 1e-6, qs, qo)
+        want = norm.add_rmsnorm_bias_ref(*args)
+
+        def check(got, want=want, name=name):
+            try:
+                cs._norm_check(torch, name, got, want)
+            except AssertionError:
+                return False
+            return True
+        yield (name, lambda a=args: norm.add_rmsnorm_bias(*a), check, 20)
+        del x, r, want
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    for dtype, tag in ((torch.int8, "int8"), (torch.bfloat16, "bf16")):
+        if not on(f"K6 {tag} phase 1"):
+            continue
+        new, cache, pg, off = cs._append_mla_inputs(torch, gen, 27, 128, dtype)
+        want = decode_mla_v2.append_mla_ref(new, cache.clone(), pg, off)
+        yield (f"K6 {tag} phase 1",
+               lambda a=(new, cache, pg, off): decode_mla_v2.append_mla(*a),
+               lambda got, want=want: torch.equal(got, want), 50)
+        del want
+
+
 def _attic_cases(torch, cs, on, ulp):
     """K23's five contracts and K24 at chip_smoke.py's phase 13 state
     (_attic_state, seed 350), the stacked caches 6 layers deep at layer 5."""
@@ -637,10 +684,13 @@ def _turn(root, want):
         torch.cuda.synchronize()
         if check is not None and not check(out):
             raise AssertionError(f"{name} fails its plain version's bar")
-        if not torch.equal(out, again):
+        outs, agains = (out, again) if isinstance(out, tuple) else ((out,), (again,))
+        if not all(torch.equal(o, a) for o, a in zip(outs, agains)):
             raise AssertionError(f"{name}: a second call differs")
-        digest[name] = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
-                                      .tobytes()).hexdigest()
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digest[name] = h.hexdigest()
         ms[name] = _graph_ms(torch, call, iters) if iters > 0 else _events_ms(torch, call, -iters)
         del out, again
     print(json.dumps({"ms": ms, "digest": digest}))
@@ -701,8 +751,8 @@ def main() -> int:
     first = runs[0][0]["digest"]
     differ = [k for i in order for k, v in runs[i][0]["digest"].items()
               if k in first and first[k] != v
-              and not k.startswith(("K3", "C ", "K5", "K10", "K14", "K16", "K18", "K23", "K24",
-                                    "Phase 11"))]
+              and not k.startswith(("K3", "C ", "K5", "K10", "K14", "K16", "K18", "K20", "K23",
+                                    "K24", "Phase 11"))]
     if differ:
         raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
 

@@ -323,13 +323,29 @@ def test_decode_mla_c_two_steps_match_jax(monkeypatch, kind):
 # ------------------------------------------------------- K6 and the glue
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bf16"])
-def test_append_mla_matches_jax(monkeypatch, dtype):
+# K6's layouts: (layers, pages of each row, slot of each row); page 9 (P)
+# drops its row
+APPEND_LAYOUTS = {
+    "mixed": (3, (1, 3, 8, 9, 5), (0, 15, 7, 3, 9)),
+    "L1-B1": (1, (4,), (15,)),                       # one layer, one row, the last slot
+    "all-dropped": (3, (9, 9, 9, 9, 9), (0, 15, 7, 3, 9)),
+    "last-slot": (3, (2, 0, 8, 6, 4), (15, 0, 15, 7, 15)),
+}
+
+
+@pytest.mark.parametrize("dtype, layout", [
+    pytest.param("int8", "mixed", id="int8"), pytest.param("bf16", "mixed", id="bf16"),
+    pytest.param("int8", "L1-B1", id="int8-L1-B1"),
+    pytest.param("bf16", "all-dropped", id="bf16-all-dropped"),
+    pytest.param("int8", "last-slot", id="int8-last-slot")])
+def test_append_mla_matches_jax(monkeypatch, dtype, layout):
     """Kernel K6's contract: exact pages, in place, with a dropped row (page
-    P) that writes nothing."""
+    P) that writes nothing; also one layer and one row, every row dropped,
+    slots at ps - 1."""
     monkeypatch.setenv("SKT_IMPL", "pallas")
     rng = np.random.default_rng(120)
-    layers, b, c, ps, pages = 3, 5, 80, 16, 9
+    layers, pg, off = APPEND_LAYOUTS[layout]
+    b, c, ps, pages = len(pg), 80, 16, 9
     if dtype == "int8":
         cache = rng.integers(-127, 128, (layers, pages, ps, c), dtype=np.int8)
         new = rng.integers(-127, 128, (layers, b, c), dtype=np.int8)
@@ -339,14 +355,16 @@ def test_append_mla_matches_jax(monkeypatch, dtype):
                                        jnp.bfloat16))
         new = np.asarray(jnp.asarray(rng.standard_normal((layers, b, c)), jnp.bfloat16))
         tc, tn = _t(cache).to(torch.bfloat16), _t(new).to(torch.bfloat16)
-    pg = np.array([1, 3, 8, pages, 5], np.int32)
-    off = np.array([0, 15, 7, 3, 9], np.int32)
+    pg, off = np.array(pg, np.int32), np.array(off, np.int32)
     want = jv2.append_mla_pallas(*(jnp.asarray(a) for a in (new, cache, pg, off)))
     out = tv2.append_mla(tn, tc, _t(pg), _t(off))
     assert out is tc
     assert np.array_equal(_np(want), _np(tc.float() if dtype == "bf16" else tc))
     changed = (_np(tc.float() if dtype == "bf16" else tc) != _np(cache)).any(axis=(0, 3))
-    assert sorted(zip(*np.nonzero(changed))) == [(1, 0), (3, 15), (5, 9), (8, 7)]
+    written = sorted((int(p), int(o)) for p, o in zip(pg, off) if p < pages)
+    assert sorted(zip(*np.nonzero(changed))) == written
+    if layout == "mixed":
+        assert written == [(1, 0), (3, 15), (5, 9), (8, 7)]
 
 
 def test_latent_quant_and_scales_match_jax(monkeypatch):

@@ -81,11 +81,16 @@ def _assert_quant(got, want, name=""):
 
 
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
-@pytest.mark.parametrize("n", [8, 300])
-def test_add_rmsnorm_bias_quant_matches_jax_kernel(rng, dtype, n):
+@pytest.mark.parametrize("n, d", [
+    pytest.param(8, 512, id="8"), pytest.param(300, 512, id="300"),
+    # K20's edges: one row, either side of a decode batch of 128, one
+    # 8-column chunk, the widest row
+    pytest.param(1, 512, id="1"), pytest.param(129, 512, id="129"),
+    pytest.param(4, 8, id="4-d8"), pytest.param(4, 8192, id="4-d8192")])
+def test_add_rmsnorm_bias_quant_matches_jax_kernel(rng, dtype, n, d):
     """The kernel path (quant, 2-D x): h exact, int8 within the flip bar of
     the interpreted Pallas kernel; 300 rows take two of its 256-row blocks."""
-    x, r, w, b, qs, qo = _inputs(rng, n, 512, dtype)
+    x, r, w, b, qs, qo = _inputs(rng, n, d, dtype)
     jq, jh = jax.jit(lambda *a: jn.add_rmsnorm_bias(*a[:4], EPS, *a[4:]),
                      compiler_options=NO_EXCESS)(x, r, w, b, qs, qo)
     tq, th = tn.add_rmsnorm_bias(*(_t(a) for a in (x, r, w, b)), EPS, _t(qs), _t(qo))
