@@ -81,7 +81,15 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    within calc_diff 1e-5 and one bf16 ulp plus 1e-4 of max|plain|, K23 one
    ulp plus 1e-4, K24 one ulp plus 2e-3. K11's recv
    and rs and K12 must agree exactly, K11's returned rows and K13's int8
-   within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp. The
+   within a flip bar (MOE_FLIP_SHARE), K13's scales within one ulp (also
+   with f32 x, with do_limit, at N 1,003, 64, 8,192 and 8,200, at totals 0 and
+   S, on cumulative group lists, an empty list of counts and a list of
+   type 2, rows past the total zero on 0x7f-filled outputs). D is also held at
+   a prefill chunk's shape (8 sequences of 512 padded rows over 32
+   layers, the live rows of phase 2's first prefill) on 0x7f-filled
+   caches, and D (both shapes) and K4 are timed cold too: their calls
+   cycle over enough buffers that a replay touches more than twice the
+   card's 50 MB L2, as the model's caches are found. The
    GEMMs and appends must agree
    exactly, the fused RMSNorm-quant GEMM within 4 quant flips with >= 99% of
    rows exact (also at the edges of its plan: M 1, 8, 17, 200, 256, a ragged
@@ -283,8 +291,10 @@ extern "C" int skt_empty(int blocks, int threads, void* stream) {
 """
 # (blocks, threads) of the empty launches: one warp, K20's grid at a decode
 # batch of 128 rows of 4096, K6's at phase 6's batch of 128 (two layer
-# groups)
-LAUNCH_FLOOR_GRIDS = {"one warp": (1, 32), "K20 N 128": (128, 512), "K6 B 128": (256, 256)}
+# groups), D's at the decode step's 8 rows (a block a row of each of 32
+# layers) and K13's at its bench shape (1,024 blocks of two rows)
+LAUNCH_FLOOR_GRIDS = {"one warp": (1, 32), "K20 N 128": (128, 512), "K6 B 128": (256, 256),
+                      "D B 8": (256, 64), "K13 2,048 rows": (1024, 256)}
 
 
 def start_launch_floor_build(build):
@@ -628,29 +638,83 @@ def check_prefill(torch, pp, cfg, rng):
     return rows
 
 
-def check_append(torch, dv8, cfg, rng):
-    """Kernel D at the decode step's shape (all 32 layers, 8 rows, one padded)."""
-    layers, b, hkv, d, ps, pages = cfg.num_layers, 8, cfg.num_kv_heads, cfg.head_dim, \
-        cfg.page_size, 512
-    kq = torch.randint(-127, 128, (layers, b, hkv, d), generator=rng, dtype=torch.int8,
-                       device="cuda")
-    vq = torch.randint(-127, 128, (layers, b, hkv, d), generator=rng, dtype=torch.int8,
-                       device="cuda")
-    pg = torch.randperm(pages, generator=rng, device="cuda")[:b].to(torch.int32)
-    pg[-1] = pages                                    # a padded row: sentinel P
-    off = torch.randint(0, ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
+# a cold timing cycles its calls over enough sets of buffers that one replay
+# of the graph touches more than twice the H100's 50 MB L2, so that no call
+# finds its rows left in L2 by the one before, as a model step finds them
+COLD_BYTES = 100e6
+# D at a prefill chunk: phase 2's first prefill call, the seven prompts of
+# _prompts (and one empty sequence) padded to 512 rows each
+APPEND_PREFILL_LENS = (40, 127, 129, 255, 384, 511, 300, 0)
+APPEND_PREFILL_T = 512
+
+
+def _cold_ms(torch, make_call, touched, calls=20):
+    """ms per call by graph replay with the L2 cold: n sets of buffers
+    (make_call(i) -> a call on set i; n = COLD_BYTES over `touched`, the
+    bytes one call moves, rounded up), the replayed calls cycling through
+    them, at least `calls` of them. Returns (ms, n)."""
+    n = max(1, -(-int(COLD_BYTES) // int(touched)))
+    sets = [make_call(i) for i in range(n)]
+    at = [0]
+
+    def call():
+        sets[at[0] % n]()
+        at[0] += 1
+    return _time_ms(call, n * -(-calls // n), graph=True), n
+
+
+def append_tm_decode_inputs(torch, gen, cfg, b=8, pages=512):
+    """D's inputs at the decode step's shape: kq, vq [L, b, hkv, D] int8,
+    b distinct pages of `pages` (the last row padded: sentinel P) and random
+    slots, on the card."""
+    layers, hkv, d, ps = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    kq, vq = (torch.randint(-127, 128, (layers, b, hkv, d), generator=gen, dtype=torch.int8,
+                            device="cuda") for _ in range(2))
+    pg = torch.randperm(pages, generator=gen, device="cuda")[:b].to(torch.int32)
+    pg[-1] = pages
+    off = torch.randint(0, ps, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    return kq, vq, pg, off
+
+
+def append_tm_prefill_inputs(torch, gen, cfg, pages=64):
+    """D's inputs at a prefill chunk: APPEND_PREFILL_LENS sequences of
+    APPEND_PREFILL_T rows over all layers, each sequence's live rows at
+    consecutive slots of its own pages from slot 0, the padded rows at the
+    sentinel P. Returns (kq, vq, pages, slots)."""
+    layers, hkv, d, ps = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.page_size
+    t, lens = APPEND_PREFILL_T, APPEND_PREFILL_LENS
+    b = len(lens) * t
+    kq, vq = (torch.randint(-127, 128, (layers, b, hkv, d), generator=gen, dtype=torch.int8,
+                            device="cuda") for _ in range(2))
+    perm = torch.randperm(pages, generator=gen, device="cuda").tolist()
+    pg = torch.full((b,), pages, dtype=torch.int32)
+    off = torch.zeros((b,), dtype=torch.int32)
+    for si, n in enumerate(lens):
+        own, perm = perm[:-(-n // ps)], perm[-(-n // ps):]
+        i = torch.arange(n)
+        pg[si * t:si * t + n] = torch.tensor(own, dtype=torch.int32)[i // ps]
+        off[si * t:si * t + n] = (i % ps).to(torch.int32)
+    return kq, vq, pg.cuda(), off.cuda()
+
+
+def _append_tm_case(torch, dv8, cfg, label, kq, vq, pg, off, pages, make_set):
+    """D on one shape: exact against its plain version and index_copy_ x2 on
+    caches of 0x7f bytes, a second call bit-identical; timed warm, cold
+    (make_set(i) -> the inputs of set i) and beside its yardsticks."""
+    layers, b, hkv, d = kq.shape
+    ps = cfg.page_size
     shape = (layers, pages, ps * hkv, d)
-    kc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
-    vc = torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
+    dirty = _DirtyEmpty(torch)
+    kc, vc = dirty.empty(shape, dtype=torch.int8, device="cuda"), \
+        dirty.empty(shape, dtype=torch.int8, device="cuda")
     kc2, vc2 = kc.clone(), vc.clone()
-    dv8.append_tm_int8(kq, vq, kc, vc, pg, off)
-    dv8.append_tm_int8_ref(kq, vq, kc2, vc2, pg, off)
-    torch.cuda.synchronize()
-    if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-        raise AssertionError("append_tm differs from its plain version")
-    ms = _time_ms(lambda: dv8.append_tm_int8(kq, vq, kc, vc, pg, off), 50, graph=True)
-    plain = _time_ms(lambda: dv8.append_tm_int8_ref(kq, vq, kc2, vc2, pg, off), 10)
-    live = pg < pages
+    for _ in range(2):
+        dv8.append_tm_int8(kq, vq, kc, vc, pg, off)
+        dv8.append_tm_int8_ref(kq, vq, kc2, vc2, pg, off)
+        torch.cuda.synchronize()
+        if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
+            raise AssertionError(f"append_tm {label} differs from its plain version")
+    live = (pg >= 0) & (pg < pages)
     slots = (pg[live].long() * ps + off[live].long())
     kv3, vv3 = kc2.view(layers, pages * ps, hkv * d), vc2.view(layers, pages * ps, hkv * d)
     ksrc = kq[:, live].reshape(layers, -1, hkv * d)
@@ -661,15 +725,44 @@ def check_append(torch, dv8, cfg, rng):
         vv3.index_copy_(1, slots, vsrc)
     library()
     if not (torch.equal(kc, kc2) and torch.equal(vc, vc2)):
-        raise AssertionError("index_copy_ yardstick disagrees")
-    lib = _time_ms(library, 50, graph=True)
+        raise AssertionError(f"append_tm {label}: the index_copy_ yardstick disagrees")
+    ms = _time_ms(lambda: dv8.append_tm_int8(kq, vq, kc, vc, pg, off), 20, graph=True)
     nrow = int(live.sum())
     nbytes = 2 * 2 * layers * nrow * hkv * d + 8 * b
+
+    def make_call(i):
+        a = make_set(i) if i else (kq, vq, pg, off)
+        return lambda: dv8.append_tm_int8(a[0], a[1], kc, vc, a[2], a[3])
+    cold, nset = _cold_ms(torch, make_call, nbytes)
+    plain = _time_ms(lambda: dv8.append_tm_int8_ref(kq, vq, kc2, vc2, pg, off), 5)
+    lib = _time_ms(library, 20, graph=True)
     bound, by = _bound_ms(nbytes, 0.0, "bf16_flops")
-    print(f"  append_tm L={layers} B={b} (1 padded): exact; kernel {ms:.4f} ms, plain "
-          f"{plain:.3f} ms, index_copy_ x2 {lib:.4f} ms, bound {bound:.5f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+    print(f"  append_tm {label} L={layers} B={b} ({nrow} live): exact on 0x7f caches; kernel "
+          f"{ms:.4f} ms warm, {cold:.4f} cold ({nset} sets, {nset * nbytes / 1e6:.0f} MB a "
+          f"cycle), plain {plain:.3f} ms, index_copy_ x2 {lib:.4f} ms, bound {bound:.5f} ms "
+          f"({by}; {bound / cold:.2f} of it cold)")
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by,
                 max_abs_err=0.0)
+
+
+def check_append(torch, dv8, cfg, rng, floor):
+    """Kernel D at the decode step's shape (all 32 layers, 8 rows, one
+    padded) and at a prefill chunk's (APPEND_PREFILL_LENS), each row timed
+    warm (ms) and cold (cold_ms). `floor`: the card's launch floor at D's
+    decode grid, in ms, printed beside it. Returns (decode row, prefill
+    row)."""
+    pages = 512
+    kq, vq, pg, off = append_tm_decode_inputs(torch, rng, cfg, pages=pages)
+    dec = _append_tm_case(torch, dv8, cfg, "decode", kq, vq, pg, off, pages,
+                          lambda i: append_tm_decode_inputs(torch, rng, cfg, pages=pages))
+    print(f"  (launch floor at D's decode grid {floor:.4f} ms)")
+    del kq, vq
+    torch.cuda.empty_cache()
+    kq, vq, pg, off = append_tm_prefill_inputs(torch, rng, cfg)
+    pre = _append_tm_case(torch, dv8, cfg, "prefill", kq, vq, pg, off, 64,
+                          lambda i: (kq, vq, pg, off))
+    return dec, pre
 
 
 def compare_split_policy(torch, mm, quant, cfg, rng):
@@ -969,7 +1062,7 @@ def check_decode_tm2_edges(torch, dv11):
 
 def check_append_tm2(torch, dv11, cfg, rng):
     """Kernel K4 at the bench path's shape: 32 layers x 128 rows (one padded)
-    into 129 pages of 512 tokens."""
+    into 129 pages of 512 tokens; timed warm (ms) and cold (cold_ms)."""
     layers, b, hkv, d, ps = cfg.num_layers, 128, cfg.num_kv_heads, cfg.head_dim, 512
     pages = b + 1
     kq = torch.randint(-127, 128, (layers, b, hkv, d), generator=rng, dtype=torch.int8,
@@ -1004,10 +1097,25 @@ def check_append_tm2(torch, dv11, cfg, rng):
         raise AssertionError("index_put_ yardstick disagrees")
     lib = _time_ms(library, 50, graph=True)
     nrow = int(live.sum())
-    bound, by = _bound_ms(2 * 2 * layers * nrow * hkv * d + 8 * b, 0.0, "bf16_flops")
-    print(f"  append_tm2 L={layers} B={b} (1 padded): exact; kernel {ms:.4f} ms, plain "
-          f"{plain:.3f} ms, index_put_ x2 {lib:.4f} ms, bound {bound:.5f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+    nbytes = 2 * 2 * layers * nrow * hkv * d + 8 * b
+
+    def make_call(i):
+        if not i:
+            return lambda: dv11.append_tm2_int8(kq, vq, kc, vc, pg, off)
+        a = [torch.randint(-127, 128, kq.shape, generator=rng, dtype=torch.int8, device="cuda")
+             for _ in range(2)]
+        p = (torch.randperm(pages - 1, generator=rng, device="cuda")[:b] + 1).to(torch.int32)
+        p[-1] = pages
+        o = torch.randint(0, ps, (b,), generator=rng, device="cuda", dtype=torch.int32)
+        return lambda: dv11.append_tm2_int8(a[0], a[1], kc, vc, p, o)
+    cold, nset = _cold_ms(torch, make_call, nbytes)
+    bound, by = _bound_ms(nbytes, 0.0, "bf16_flops")
+    print(f"  append_tm2 L={layers} B={b} (1 padded): exact; kernel {ms:.4f} ms warm, "
+          f"{cold:.4f} cold ({nset} sets, {nset * nbytes / 1e6:.0f} MB a cycle), plain "
+          f"{plain:.3f} ms, index_put_ x2 {lib:.4f} ms, bound {bound:.5f} ms ({by}; "
+          f"{bound / cold:.2f} of it cold)")
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by,
                 max_abs_err=0.0)
 
 
@@ -4218,34 +4326,90 @@ def check_moe_gemms(torch, par, fm, mm, data):
     return _sum_rows(rows)
 
 
-def check_swiglu_quant(torch, act):
-    """K13 at the MoE shape of GMM1's output: 2,048 aligned rows x 4096 bf16,
-    total_rows 1024 (a group list of counts): int8 within the flip bar,
-    scales within one f32 ulp, rows past the total zero."""
-    s, n2, total = 2048, 2 * MOE_F, 1024
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(13)
-    x = (torch.randn((s, n2), generator=gen, device="cuda") * 2).to(torch.bfloat16)
-    gl = torch.tensor([600, 0, 424], dtype=torch.int32, device="cuda")
-    q, sc = act.swiglu_quant(x, gl, 1)
-    rq, rsc = act.swiglu_quant_ref(x, gl, 1)
+# K13's forms beyond the bench shape: (label, rows, N, dtype, do_limit, the
+# group list, its type: 0 cumulative, any other counts); limit 3.0 where
+# do_limit, so that the clamp bites on inputs of 2 standard deviations. The
+# widths take every branch of the kernel's host plan (csrc/swiglu_quant.cu:
+# the chunks a thread keeps): N 64 one (a warp a row), 1,003 and 2,048 two,
+# 8,192 four, 8,200 none (computed twice); 1,003 the scalar tail.
+K13_FORMS = (
+    ("f32 x", 2048, MOE_F, "float32", False, (600, 0, 424), 1),
+    ("do_limit", 2048, MOE_F, "bfloat16", True, (600, 0, 424), 1),
+    ("f32 x, do_limit", 2048, MOE_F, "float32", True, (600, 0, 424), 1),
+    ("N 1,003 (no multiple of 8)", 2048, 1003, "bfloat16", False, (600, 0, 424), 1),
+    ("N 1,003 f32, do_limit", 515, 1003, "float32", True, (300, 7), 1),
+    ("N 64 (8 rows a block)", 1000, 64, "bfloat16", False, (999,), 1),
+    ("N 8,192 (four chunks a thread)", 300, 8192, "bfloat16", False, (150, 1), 1),
+    ("N 8,200 (computed twice)", 300, 8200, "bfloat16", True, (150, 1), 1),
+    ("total 0", 2048, MOE_F, "bfloat16", False, (0,), 1),
+    ("total = S", 2048, MOE_F, "bfloat16", False, (2048,), 1),
+    ("cumulative list", 2048, MOE_F, "bfloat16", False, (600, 600, 1024), 0),
+    ("cumulative list f32, N 1,003", 515, 1003, "float32", True, (300, 307), 0),
+    ("empty list of counts", 512, MOE_F, "bfloat16", False, (), 1),
+    ("list type 2 (counts)", 600, MOE_F, "float32", True, (100, 200), 2),
+)
+K13_LIMIT = 3.0
+
+
+def k13_inputs(torch, gen, s, n, dtype, group_list):
+    """K13's x [s, 2n] (2 randn, rounded to `dtype`) and its group list, on
+    the card."""
+    x = (torch.randn((s, 2 * n), generator=gen, device="cuda") * 2).to(dtype)
+    return x, torch.tensor(group_list, dtype=torch.int32, device="cuda")
+
+
+def _k13_check(torch, act, label, x, gl, do_limit, list_type=1):
+    """One K13 call on outputs of 0x7f bytes against its plain version:
+    int8 within the flip bar, scales within one f32 ulp, rows past the
+    total zero. Returns the largest int8 difference and its share."""
+    kw = dict(do_limit=do_limit, limit=K13_LIMIT)
+    with _dirty_empty(torch, act):
+        q, sc = act.swiglu_quant(x, gl, list_type, **kw)
+    rq, rsc = act.swiglu_quant_ref(x, gl, list_type, **kw)
     torch.cuda.synchronize()
+    total = int(act.total_rows_from_group_list(gl, list_type))
     d = (q.int() - rq.int()).abs()
     share = float((d > 0).double().mean())
     if int(d.max()) > 1 or share > MOE_FLIP_SHARE:
-        raise AssertionError(f"swiglu_quant: int8 max diff {int(d.max())}, share {share:.5f}")
+        raise AssertionError(f"swiglu_quant {label}: int8 max diff {int(d.max())}, share "
+                             f"{share:.5f}")
     ulp = torch.nextafter(rsc.abs(), torch.full_like(rsc, float("inf"))) - rsc.abs()
     if not bool(((sc - rsc).abs() <= ulp).all()) or q[total:].any() or sc[total:].any():
-        raise AssertionError("swiglu_quant: scales beyond one ulp, or rows past the total set")
+        raise AssertionError(f"swiglu_quant {label}: scales beyond one ulp, or rows past the "
+                             "total set")
+    return int(d.max()), share
+
+
+def check_swiglu_quant(torch, act, floor):
+    """K13 at the MoE shape of GMM1's output: 2,048 aligned rows x 4096 bf16,
+    total_rows 1024 (a group list of counts), and at K13_FORMS: int8 within
+    the flip bar, scales within one f32 ulp, rows past the total zero.
+    `floor`: the card's launch floor at K13's grid, in ms, printed beside
+    the bound."""
+    s, n2, total = 2048, 2 * MOE_F, 1024
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    x, gl = k13_inputs(torch, gen, s, MOE_F, torch.bfloat16, (600, 0, 424))
+    err, share = _k13_check(torch, act, "bench shape", x, gl, False)
     ms = _time_ms(lambda: act.swiglu_quant(x, gl, 1), 20, graph=True)
     plain = _time_ms(lambda: act.swiglu_quant_ref(x, gl, 1), 5, 1)
     nbytes = total * n2 * 2 + s * n2 // 2 + 4 * s
     bound, by = _bound_ms(nbytes, 8.0 * total * n2 // 2, "f32_flops")
     print(f"  swiglu_quant {s} x {n2} (total_rows {total}): {share:.5f} of int8 entries 1 "
           f"apart, scales within one ulp; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
-          f"{bound:.4f} ms ({by})")
+          f"{bound:.4f} ms ({by}), launch floor {floor:.4f} ms")
+    forms = []
+    for label, rows, n, dt, do_limit, gls, gtype in K13_FORMS:
+        xf, glf = k13_inputs(torch, gen, rows, n, getattr(torch, dt), gls)
+        e, sh = _k13_check(torch, act, label, xf, glf, do_limit, gtype)
+        err = max(err, e)
+        t = _time_ms(lambda: act.swiglu_quant(xf, glf, gtype, do_limit=do_limit,
+                                              limit=K13_LIMIT), 20, graph=True)
+        total = int(act.total_rows_from_group_list(glf, gtype))
+        forms.append(f"{label} [{rows} x {2 * n}, total {total}] {sh:.5f} apart, {t:.4f} ms")
+    print(f"  swiglu_quant forms on 0x7f outputs, within the bar: {'; '.join(forms)}")
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
-                max_abs_err=float(d.max()))
+                max_abs_err=float(err))
 
 
 # exact launches per call of each phase-8 variant; every other kernel 0
@@ -5747,7 +5911,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["pre"], rows["pre512"] = check_prefill(torch, paged_prefill_tm, cfg, rng)
     torch.cuda.empty_cache()
-    rows["app"] = check_append(torch, decode_v8, cfg, rng)
+    rows["app"], rows["app_pre"] = check_append(torch, decode_v8, cfg, rng, floors["D B 8"])
     torch.cuda.empty_cache()
     rows["k1"] = check_gemm_tiled(torch, matmul, quant, cfg, rng)
     torch.cuda.empty_cache()
@@ -5796,7 +5960,7 @@ def main() -> int:
     rows["k12"] = check_remote_scatter(torch, low_latency, pallas_ll, parallel.comm, moe_data)
     check_remote_scatter_edges(torch, pallas_ll, parallel.comm)
     torch.cuda.empty_cache()
-    rows["k13"] = check_swiglu_quant(torch, activation)
+    rows["k13"] = check_swiglu_quant(torch, activation, floors["K13 2,048 rows"])
     torch.cuda.empty_cache()
     rows.update(zip(LASER_NAMES, check_laser(torch, prefill)))
     torch.cuda.empty_cache()
@@ -5968,9 +6132,12 @@ def main() -> int:
         dict(name="decode_tm", route="cuda", source=f"{src}/decode_tm.cu",
              replaces=f"{base}/ops/attention/decode_v9.py:163",
              launches=launches["decode_tm"], **rows["dec"]),
-        dict(name="append_tm", route="cuda", source=f"{src}/append_tm.cu",
+        dict(name="append_tm", route="cuda", source=f"{src}/append_mla.cu",
              replaces=f"{base}/ops/attention/decode_v8.py:148",
              launches=launches["append_tm"], **rows["app"]),
+        dict(name="append_tm (prefill chunk)", route="cuda", source=f"{src}/append_mla.cu",
+             replaces=f"{base}/ops/attention/decode_v8.py:148",
+             launches=launches["append_tm"], **rows["app_pre"]),
         dict(name="w8a8_gemm_tiled", route="cuda", source=f"{src}/w8a8_gemm_tiled.cu",
              replaces=f"{base}/ops/matmul.py:161",
              launches=bench_launches["w8a8_gemm_tiled"], **rows["k1"]),
@@ -6108,8 +6275,11 @@ def main() -> int:
           "w13, w2); w8a8_gemm_tiled row: sum of wo, w2 and lm_head at M=128; rmsq_gemm "
           "row: sum of wqkv and w13 at M=128 (library: the GEMM part alone); prefill_tm rows "
           "(B): phase 1's bucket and the engine's largest call (256 tokens over 512), "
-          "launches of both every prefill call's of phase 2; launches of "
-          "A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
+          "launches of both every prefill call's of phase 2; append_tm rows (D): the "
+          "decode step's 8 rows and phase 2's first prefill chunk (8 x 512 rows), launches "
+          "of both every call's of phase 2; every ms is warm (graph replay), and D's and K4's "
+          "rows also carry cold_ms (calls cycling over more than twice the L2); launches "
+          "of A-D and of the L = 1 contract (lm_head, its own counter) from phase 2, of "
           "K1-K4 from phase 4 (all its 128 steps); decode_tm2 rows (K3): 2 pages with "
           "0..1023 cached, and phase 4's shape (one page, 256..383 cached), each with its "
           "own bound, phase 4's launches on the first row only (the second shows 0 so that "
@@ -6156,7 +6326,9 @@ def main() -> int:
           "from phase 12 by case; helloworld (K22): [4096, 7168]; K23 rows (decode_v5*, "
           "decode_v4b_int8, decode_fused_v4*) and K24 (decode_v7_int8): 64 sequences of "
           "256..383 cached tokens at Llama-3-8B's heads, launches from phase 13")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    # D's and K4's rows also carry cold_ms
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys + ("cold_ms",) if k in kern}
+                                  for kern in kernels]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,15 @@ replays). The cases, each name a prefix that --only can pick:
   * K6 (the MLA latent append) at chip_smoke.py's check_append_mla shape
     (27 layers x 128 rows of 576 into 385 pages of 128, one row dropped),
     int8 and bf16 rows; exact;
+  * D (the token-major int8 append, on K6's copy loop) at chip_smoke.py's
+    check_append shapes: the decode step (32 layers x 8 rows, one padded,
+    into 512 pages) and a prefill chunk (8 sequences of 512 rows, 1,746
+    live, into 64 pages); exact;
+  * K13 (swiglu_quant) at chip_smoke.py's phase 1 shape (2,048 x 4096,
+    total 1,024), bf16 and f32 x, with and without do_limit (limit 3.0);
+    within chip_smoke.py's MOE_FLIP_SHARE and one scale ulp, and the same
+    bits from every root; and bf16 without the group list's reduction
+    ("K13 bf16 kernel alone": the kernel given the total, exact);
   * the calls around them: phase 8's "pallas dispatch+combine" and "pallas
     capacity_rows=1024" MoE layer calls (bits only), and phase 11's sparse
     prefill at keep 0.25, T 8192 (K18, the threshold, the page lists and
@@ -97,6 +106,7 @@ A_WIDTHS = (("wqkv", H, Q + 2 * KV), ("wo", Q, H), ("w13", H, 2 * F), ("w2", F, 
             ("mla wo", MHEADS * 128, MH), ("mla w13", MH, 2 * MF), ("mla w2", MF, MH))
 # the kernels the cases launch (names of _build.KERNELS)
 KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm",
+           "append_tm", "swiglu_quant",
            "w8a8_gemm_grouped", "fused_moe", "decode_mla_c", "append_mla", "decode_v6_defer",
            "decode_v6_int8_defer", "decode_hm", "decode_v3", "decode_v3_int8",
            "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
@@ -437,6 +447,7 @@ def _cases(torch, cs, want):
         del k, v, hk, hv
     yield from _attic_cases(torch, cs, on, ulp)
     yield from _norm_append_cases(torch, cs, on)
+    yield from _append_swiglu_cases(torch, cs, on)
     data = None
     if on("K8 MoE GMM1") or on("K8 MoE GMM2"):
         from sgl_kernel_npu_tpu_torch import parallel
@@ -595,6 +606,56 @@ def _norm_append_cases(torch, cs, on):
                lambda a=(new, cache, pg, off): decode_mla_v2.append_mla(*a),
                lambda got, want=want: torch.equal(got, want), 50)
         del want
+
+
+def _append_swiglu_cases(torch, cs, on):
+    """D at chip_smoke.py's two shapes (the decode step's 8 rows and the
+    prefill chunk's 8 x 512, seed 21) and K13 at its phase 1 shape (2,048 x
+    4096, total 1,024; seed 13), bf16 and f32 x, with and without the limit
+    of 3.0."""
+    from sgl_kernel_npu_tpu_torch.models import llama
+    from sgl_kernel_npu_tpu_torch.ops import activation
+    from sgl_kernel_npu_tpu_torch.ops.attention import decode_v8
+    cfg = llama.LlamaConfig(int8_kv=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    for label in ("decode", "prefill"):
+        if not on(f"D {label}"):
+            continue
+        if label == "decode":
+            pages, (kq, vq, pg, off) = 512, cs.append_tm_decode_inputs(torch, gen, cfg)
+        else:
+            pages, (kq, vq, pg, off) = 64, cs.append_tm_prefill_inputs(torch, gen, cfg)
+        shape = (cfg.num_layers, pages, cfg.page_size * cfg.num_kv_heads, cfg.head_dim)
+        kc, vc = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8,
+                                device="cuda") for _ in range(2))
+        want = decode_v8.append_tm_int8_ref(kq, vq, kc.clone(), vc.clone(), pg, off)
+        yield (f"D {label}",
+               lambda a=(kq, vq, kc, vc, pg, off): decode_v8.append_tm_int8(*a),
+               lambda got, want=want: all(torch.equal(g, w) for g, w in zip(got, want)), 20)
+        del kq, vq, kc, vc, want
+    gen.manual_seed(13)
+    x, gl = cs.k13_inputs(torch, gen, 2048, cs.MOE_F, torch.bfloat16, (600, 0, 424))
+    if on("K13 bf16 kernel alone"):
+        total = gl.sum().to(torch.int32).reshape(1)
+        rq = activation.swiglu_quant_ref(x, gl, 1)[0]
+        yield ("K13 bf16 kernel alone",
+               lambda: activation._swiglu_quant_cuda(x, total, False, cs.K13_LIMIT),
+               lambda got: torch.equal(got[0], rq), 20)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for do_limit in (False, True):
+            name = f"K13 {tag}{' limit' if do_limit else ''}"
+            if not on(name):
+                continue
+            xd, kw = x.to(dtype), dict(do_limit=do_limit, limit=cs.K13_LIMIT)
+            rq, rsc = activation.swiglu_quant_ref(xd, gl, 1, **kw)
+
+            def check(got, rq=rq, rsc=rsc):
+                d = (got[0].int() - rq.int()).abs()
+                ulp = torch.nextafter(rsc.abs(), torch.full_like(rsc, float("inf"))) - rsc.abs()
+                return (int(d.max()) <= 1 and float((d > 0).double().mean()) <= cs.MOE_FLIP_SHARE
+                        and bool(((got[1] - rsc).abs() <= ulp).all()))
+            yield (name, lambda a=(xd, gl), kw=kw: activation.swiglu_quant(*a, 1, **kw), check, 20)
 
 
 def _attic_cases(torch, cs, on, ulp):

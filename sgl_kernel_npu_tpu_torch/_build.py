@@ -35,7 +35,7 @@ KERNELS = {
     "w8a8_gemm": "w8a8_gemm_tiled",    # A
     "prefill_tm": "prefill_tm",        # B
     "decode_tm": "decode_tm",          # C
-    "append_tm": "append_tm",          # D
+    "append_tm": "append_mla",         # D, on K6's copy loop
     "w8a8_gemm_tiled": "w8a8_gemm_tiled",  # K1
     "rmsq_gemm": "rmsq_gemm",          # K2
     "decode_tm2": "decode_tm2",        # K3

@@ -24,8 +24,9 @@ from .. import _build
 from ..utils import use_kernel
 from .quant import INV_INT8_MAX
 
-# x, total_rows, q, scale, S, N, x_f32, do_limit, limit, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# x, groups, n_groups, list_type, q, scale, S, N, x_f32, do_limit, limit, stream
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def total_rows_from_group_list(group_list, group_list_type: int):
@@ -61,24 +62,31 @@ def swiglu_quant_ref(x, group_list, group_list_type=1, need_quant=True, do_limit
     return q.to(torch.int8), scale
 
 
-def _swiglu_quant_cuda(x, total, do_limit: bool, limit: float):
-    """Launch K13 on x [S, 2N] bf16 or f32 with the active row count `total`
-    (a 0-d int32 tensor on the card, read there: no host sync)."""
+def _swiglu_quant_cuda(x, group_list, do_limit: bool, limit: float, group_list_type: int = 1):
+    """Launch K13 on x [S, 2N] bf16 or f32. `group_list` (on the card; type
+    0: cumulative, any other: counts, so a one-element list of counts is the
+    active row count itself, and an empty one is 0) is reduced by the
+    kernel: no host sync, no launch of its own."""
     s, h2 = x.shape
     if h2 % 2 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"swiglu_quant: x {tuple(x.shape)} {x.dtype} needs an even width "
                          "and bf16 or f32")
     n = h2 // 2
-    total = total.reshape(1).to(torch.int32).contiguous()
+    groups = group_list.reshape(-1).to(torch.int32).contiguous()
+    cumulative = group_list_type == 0
+    if cumulative and groups.numel() == 0:
+        raise IndexError("swiglu_quant: a cumulative group list needs a last entry")
     q = torch.empty((s, n), dtype=torch.int8, device=x.device)
     scale = torch.empty((s,), dtype=torch.float32, device=x.device)
-    _build.check_operands("swiglu_quant", x.device, x, total, q, scale)
+    if groups.device != x.device:
+        raise ValueError(f"swiglu_quant: the group list is on {groups.device}, x on {x.device}")
+    _build.check_operands("swiglu_quant", x.device, x, q, scale)
     if s == 0:
         return q, scale
     fn = _build.launcher("swiglu_quant", _ARGTYPES)
-    code = fn(x.data_ptr(), total.data_ptr(), q.data_ptr(), scale.data_ptr(), s, n,
-              int(x.dtype == torch.float32), int(do_limit), float(limit),
-              torch.cuda.current_stream(x.device).cuda_stream)
+    code = fn(x.data_ptr(), groups.data_ptr(), groups.numel(), int(not cumulative),
+              q.data_ptr(), scale.data_ptr(), s, n, int(x.dtype == torch.float32),
+              int(do_limit), float(limit), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("swiglu_quant", code)
     _build.launches["swiglu_quant"] += 1
     return q, scale
@@ -89,8 +97,7 @@ def swiglu_quant(x, group_list, group_list_type=1, need_quant=True, do_limit=Fal
     """SwiGLU + per-row int8 over the rows that group_list makes active
     (module docstring). Kernel K13 on the card when need_quant."""
     if need_quant and use_kernel(x):
-        total = total_rows_from_group_list(group_list, group_list_type)
-        return _swiglu_quant_cuda(x.contiguous(), total, do_limit, limit)
+        return _swiglu_quant_cuda(x.contiguous(), group_list, do_limit, limit, group_list_type)
     return swiglu_quant_ref(x, group_list, group_list_type, need_quant, do_limit, limit)
 
 

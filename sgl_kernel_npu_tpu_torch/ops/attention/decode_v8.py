@@ -59,7 +59,9 @@ def append_tm_int8(kq, vq, k_cache, v_cache, pages, offs):
     """Write one quantized token per (layer, row) into token-major pages, in
     place. kq/vq [L, B, hkv, D] int8; k_cache/v_cache [L, P, ps*hkv, D] int8;
     pages [B] page index (>= P, the sentinel, or < 0 drops the row); offs [B]
-    token slot within the page. Returns the (mutated) caches."""
+    token slot within the page. Returns the (mutated) caches. On a CUDA
+    tensor it launches kernel D, K6's copy loop with two (rows, cache)
+    pairs (csrc/append_mla.cu)."""
     if not use_kernel(k_cache):
         return append_tm_int8_ref(kq, vq, k_cache, v_cache, pages, offs)
     l, num_pages, rows, d = k_cache.shape

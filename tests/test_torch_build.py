@@ -388,6 +388,22 @@ def test_no_source_includes_the_cuda_core_decode():
                                                               "skt_decode_v7_int8"]
 
 
+def test_appends_share_one_copy_loop():
+    """D and K6 run one copy loop: csrc/append_mla.cu exports both launchers
+    and instantiates the loop once for each, fixed at compile time: one
+    (rows, cache) pair with the lookup beside the loads for K6, two pairs
+    with the lookup first for D; append_tm.cu is gone."""
+    assert not os.path.exists(os.path.join(_build.CSRC, "append_tm.cu"))
+    assert [k for k, v in _build.KERNELS.items() if v == "append_mla"] == ["append_tm",
+                                                                            "append_mla"]
+    with open(os.path.join(_build.CSRC, "append_mla.cu")) as f:
+        text = f.read()
+    assert re.findall(r'extern "C" int (skt_\w+)\(', text) == ["skt_append_mla", "skt_append_tm"]
+    own = COMMENT_OR_STRING.sub(" ", text)
+    assert re.findall(r"copy_rows<(\d), (true|false)>\(", own) == [("1", "false"),
+                                                                    ("2", "true")]
+
+
 def test_grouped_gemm_source_holds_k8_only():
     """csrc/w8a8_gemm.cu keeps K8 (on the int8 stage of w8a8_wgmma.cuh) and
     no other launcher."""

@@ -650,6 +650,79 @@ def test_swiglu_quant_matches_jax(rng, do_limit, group_list_type):
     assert not zeros.any()
 
 
+@pytest.mark.parametrize("form", ["f32 x", "f32 x with the limit", "N 1003",
+                                  "N 1003 f32 with the limit"])
+def test_swiglu_quant_forms_match_jax(rng, form):
+    """swiglu_quant's plain version with f32 x and at a width that is no
+    multiple of 8 (the forms the card's kernel takes by other loads) against
+    the JAX Pallas kernel and its jnp reference, at the bars above; rows past
+    the group total are zero with scale 0."""
+    s, n = 72, 1003 if form.startswith("N 1003") else 256
+    dtype = jnp.float32 if "f32" in form else jnp.bfloat16
+    do_limit = "limit" in form
+    x = np.asarray(jnp.asarray(rng.standard_normal((s, 2 * n)) * 2.5, dtype))
+    gl = np.array([30, 0, 11], np.int32)
+    kw = dict(do_limit=do_limit, limit=3.0)
+    jq, js = jact._swiglu_quant_pallas(jnp.asarray(x), jnp.int32(41), do_limit, 3.0)
+    rq, rs_ = jact.swiglu_quant_ref(jnp.asarray(x), jnp.asarray(gl), 1, **kw)
+    tq, ts = tact.swiglu_quant(_t(x), torch.from_numpy(gl), 1, **kw)
+    assert tq.shape == (s, n) and tq.dtype == torch.int8
+    for q_, s_ in ((jq, js), (rq, rs_)):
+        assert_flips(tq.numpy(), np.asarray(q_), form)
+        assert_f32_ulp(ts.numpy(), np.asarray(s_), form)
+    assert not tq[41:].any() and not ts[41:].any()
+    assert ts[:41].all()
+
+
+@pytest.mark.parametrize("lists", ["empty list of counts", "list type 2 (counts)",
+                                   "cumulative list ending at S"])
+def test_swiglu_quant_group_lists_match_jax(rng, lists):
+    """swiglu_quant's plain version on the group lists whose total the
+    card's kernel reduces itself (an empty list of counts is total 0, any
+    type but 0 a list of counts) against the JAX Pallas kernel given that
+    total and its jnp reference, at the bars above."""
+    s, n = 40, 256
+    gl, gtype, total = {"empty list of counts": (np.zeros(0, np.int32), 1, 0),
+                        "list type 2 (counts)": (np.array([9, 14], np.int32), 2, 23),
+                        "cumulative list ending at S": (np.array([10, 40], np.int32), 0, 40)}[lists]
+    x = np.asarray(jnp.asarray(rng.standard_normal((s, 2 * n)) * 2.5, jnp.bfloat16))
+    jq, js = jact._swiglu_quant_pallas(jnp.asarray(x), jnp.int32(total), False, 7.0)
+    rq, rs_ = jact.swiglu_quant_ref(jnp.asarray(x), jnp.asarray(gl), gtype)
+    tq, ts = tact.swiglu_quant(_t(x), torch.from_numpy(gl), gtype)
+    for q_, s_ in ((jq, js), (rq, rs_)):
+        assert_flips(tq.numpy(), np.asarray(q_), lists)
+        assert_f32_ulp(ts.numpy(), np.asarray(s_), lists)
+    assert not tq[total:].any() and not ts[total:].any()
+    assert ts[:total].all()
+
+
+@pytest.mark.parametrize("values", ["uniform", "half-integer quotients"])
+def test_k13_quant_fast_path_model(rng, values):
+    """A float32 model of K13's quantisation fast path (csrc/swiglu_quant.cu
+    quant_fast): u = (v * (1 / scale) + 0.5) rounded at each step, kept
+    where |u| < 256 and u is more than 1.5e-4 from an integer, gives the
+    parent's floor(v / scale + 0.5) (IEEE division) everywhere it is kept,
+    here on 1 M values over row scales from 1e-13 to 2e4; in the second
+    case every value within 64 ulps of a quotient k + 0.5, where the sum
+    lands near an integer and the fast path must decline the nearest."""
+    f32 = np.float32
+    for _ in range(4):
+        amax = f32(np.exp(rng.uniform(-30, 10)))
+        scale = f32(amax * f32(1.0 / 127.0))
+        n = 250_000
+        if values == "uniform":
+            v = (rng.uniform(-1, 1, n).astype(f32) * amax).astype(f32)
+        else:
+            v = ((rng.integers(-127, 127, n).astype(f32) + f32(0.5)) * scale).astype(f32)
+            v = (v + rng.integers(-64, 65, n).astype(f32) * np.spacing(v)).astype(f32)
+        v = np.clip(v, -amax, amax).astype(f32)
+        want = np.floor((v / scale).astype(f32) + f32(0.5)).astype(f32)
+        u = ((v * (f32(1) / scale)).astype(f32) + f32(0.5)).astype(f32)
+        kept = (np.abs(u) < 256) & (np.abs((u - np.rint(u)).astype(f32)) > f32(1.5e-4))
+        assert 0.99 < kept.mean() if values == "uniform" else 0.1 < kept.mean() < 0.9
+        assert np.array_equal(np.floor(u)[kept], want[kept])
+
+
 def test_swiglu_oai_and_moe_helpers(rng):
     x = np.asarray(jnp.asarray(rng.standard_normal((8, 64)) * 4, jnp.bfloat16))
     assert_bf16_sum_close(_f(tact.swiglu_oai(_t(x))), _np(jact.swiglu_oai(jnp.asarray(x))))

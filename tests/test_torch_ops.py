@@ -244,6 +244,37 @@ def test_prefill_append_matches_jax(monkeypatch):
     assert np.array_equal(np.asarray(jv_), tv_.numpy())
 
 
+@pytest.mark.parametrize("case", ["decode rows over page edges", "prefill chunk over a page edge"])
+def test_append_over_page_edges_matches_jax(monkeypatch, case):
+    """Kernel D's plain version at L 4 against the interpreted JAX kernel,
+    exact: rows in the last and first slots of pages (decode), and a chunk
+    whose consecutive slots run from one page into the next with padded rows
+    between live ones (prefill)."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    rng = np.random.default_rng(7)
+    layers, hkv, d, ps, pages = 4, 8, 16, 8, 12
+    kc, vc, _, _ = _tm_cache(rng, layers, pages, ps * hkv, d)
+    if case.startswith("decode"):
+        pg = np.array([3, 4, pages, 9, 10], np.int32)
+        off = np.array([ps - 1, 0, 0, ps - 1, 0], np.int32)
+    else:
+        slots = np.array([5 * ps + 5, 5 * ps + 6, 5 * ps + 7, -1, 2 * ps, 2 * ps + 1, -1,
+                          2 * ps + 2, 11 * ps + ps - 1], np.int32)
+        pg = np.where(slots >= 0, slots // ps, pages).astype(np.int32)
+        off = np.where(slots >= 0, slots % ps, 0).astype(np.int32)
+    n = pg.shape[0]
+    kq = rng.integers(-127, 128, (layers, n, hkv, d), dtype=np.int8)
+    vq = rng.integers(-127, 128, (layers, n, hkv, d), dtype=np.int8)
+    jk, jv_ = jv8.append_tm_int8_pallas(*(jnp.asarray(a) for a in (kq, vq, kc, vc, pg, off)))
+    tk, tv_ = _t(kc), _t(vc)
+    tv8.append_tm_int8(_t(kq), _t(vq), tk, tv_, _t(pg), _t(off))
+    assert np.array_equal(np.asarray(jk), tk.numpy())
+    assert np.array_equal(np.asarray(jv_), tv_.numpy())
+    live = pg < pages
+    rows = tk.numpy().reshape(layers, pages, ps, hkv, d)[:, pg[live], off[live]]
+    assert np.array_equal(rows, kq[:, live])
+
+
 def test_native_scheduler_matches_python_twin():
     """The port's ctypes scheduler (csrc/runtime.cpp, built into
     build/torch_kernels/) against its pure-Python golden."""
