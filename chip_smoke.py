@@ -212,6 +212,32 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    equal to the same step's under SKT_IMPL=ref, the outputs within K23's or
    K24's bar of that run.
 
+14. Drives the EP layer's normal-mode surface through Buffer(None, 256) at
+   DeepSeek-V3's prefill shape (4,096 tokens of 7168 bf16, top-8 of 256
+   experts, seeded routing with weights summing to 1): dispatch -> combine
+   under "default" and "alltoall", bf16 and int8 (received rows equal the
+   source rows or their int8 quantisation; the round trip within the JAX
+   tests' bars), notify_verify (equal to the dispatch's counts), the
+   long-sequence rounds (SKT_NORMAL_LONG_SEQ_ROUND=4, equal to one round),
+   the layered normal and low-latency strategies over (EPGroup(None),
+   EPGroup(None)) (equal to the flat ones bit for bit), and the fp8, mxfp8
+   and mxfp4 low-latency modes at 128 tokens (the round trip within the
+   JAX bars). Every call twice, bit-identical; no kernel launch.
+15. Runs models/deepseek_v3.py at DeepSeek-V3's published widths (vocab
+   129,280, hidden 7168, 128 heads, q / kv LoRA 1536 / 512, 256 experts
+   top-8 of 2048, one shared expert, routed scaling 2.5), depth cut from 61
+   to 2 layers, EP = 1, weights drawn on the card by a seeded
+   torch.Generator in init_params' shapes and scales: batch 128, 256..383
+   cached tokens on 16-token pages, 8 greedy steps with exact launches (A
+   at L = 1 1 and K8 2 a layer), finite logits, a repeat from the same
+   state bit for bit, and each step against the same step under
+   SKT_IMPL=ref within calc_diff 8e-3; ms per step, tok/s, a profiler split.
+16. The same for models/moe.py at Qwen1.5-MoE-A2.7B's widths (vocab
+   151,936, hidden 2048, 24 layers, 16 heads of 128 over 16 kv heads, 60
+   experts top-4 of 1408, a shared expert of 5632), f32 caches: K10 on f32
+   pages 1 and K8 2 a layer. Phase 1 holds K10's f32 form at this phase's
+   attention shape and at its edges.
+
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
 of JAX.
@@ -5826,6 +5852,513 @@ def run_attic(torch, build, dv4, dv5, dv7, cfg, gpu):
     return {k: v for k, v in build.launches.items() if v}
 
 
+# ------------------------------------------------------- K10 on f32 pages
+
+# K10's f32 form against its plain version: both all f32, the sums in
+# another order; the bar is this share of max|plain| (O(1) outputs)
+K10_F32_SHARE = 1e-5
+# phase 16's attention shape: Qwen1.5-MoE-A2.7B's heads (16 of 128, 16 kv
+# heads), 128 sequences of 256..383 tokens on 16-token pages
+K10_F32_B, K10_F32_H, K10_F32_PS = 128, 16, 16
+
+
+def _f32_check(name, out, ref):
+    err = (out - ref).abs().max().item()
+    bar = K10_F32_SHARE * ref.abs().max().item()
+    if not err <= bar or not bool(out.isfinite().all()):
+        raise AssertionError(f"{name}: max-abs {err:.3g} > {bar:.3g} ({K10_F32_SHARE} of "
+                             "max|plain|), or not finite")
+    return err, err / bar if bar else 0.0
+
+
+def _f32_pages(torch, rng, b, hkv, g, ps, lens, mp, d=128):
+    pages = b * mp + 1
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    k = torch.randn((hkv, pages, ps, d), generator=rng, device="cuda")
+    v = torch.randn((hkv, pages, ps, d), generator=rng, device="cuda")
+    q = 1.5 * torch.randn((b, hkv * g, d), generator=rng, device="cuda")
+    seq = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, seq, bt
+
+
+def check_decode_hm_f32(torch, dec, dv3, rng):
+    """K10 on f32 pages at phase 16's shape (K10_F32_*; G 1): against its
+    plain version within K10_F32_SHARE of max|plain|, a second call
+    bit-identical, the output on 0x7f bytes; timed warm by graph replay and
+    cold (_cold_ms), beside SDPA over the gathered f32 rows and the byte
+    bound."""
+    b, h, ps = K10_F32_B, K10_F32_H, K10_F32_PS
+    lens = torch.randint(256, 384, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    mp = -(-384 // ps)
+    q, k, v, seq, bt = _f32_pages(torch, rng, b, h, 1, ps, lens, mp)
+    sm = 128 ** -0.5
+    args = (q, k, v, seq, bt, sm, ps)
+    with _dirty_empty(torch, dv3):
+        out, again = dec.decode_gqa_hm(*args), dec.decode_gqa_hm(*args)
+    ref = dec.decode_gqa_hm_ref(*args)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32:
+        raise AssertionError(f"decode_hm_f32 gave {out.dtype}")
+    err, ratio = _f32_check("decode_hm_f32", out, ref)
+    if not torch.equal(out, again):
+        raise AssertionError("decode_hm_f32: a second call differs")
+    ms = _time_ms(lambda: dec.decode_gqa_hm(*args), 50, graph=True)
+    plain = _time_ms(lambda: dec.decode_gqa_hm_ref(*args), 3)
+    tok = seq.double().sum().item()
+    nbytes = tok * h * 128 * 4 * 2 + 2 * 4 * b * h * 128 + 4 * b + 4 * b * mp
+
+    def make_call(i):
+        gi = torch.Generator(device="cuda")
+        gi.manual_seed(500 + i)
+        ci = _f32_pages(torch, gi, b, h, 1, ps, lens, mp)
+        return lambda: dec.decode_gqa_hm(*ci, sm, ps)
+    cold, sets = _cold_ms(torch, make_call, nbytes)
+    n = mp * ps
+    btl = bt.long()
+    kk = k[:, btl].permute(1, 0, 2, 3, 4).reshape(b, h, n, 128).contiguous()
+    vv = v[:, btl].permute(1, 0, 2, 3, 4).reshape(b, h, n, 128).contiguous()
+    mask = (torch.arange(n, device="cuda")[None, :] < seq[:, None])[:, None, None, :]
+    library, backend = _sdpa_yardstick(torch, q.reshape(b, h, 1, 128), kk, vv, mask, sm)
+    lib_err = (library().reshape(b, h, 128) - ref).abs().max().item()
+    lib = _time_ms(library, 50, graph=True)
+    bound, by = _bound_ms(nbytes, 4.0 * tok * h * 128, "f32_flops")
+    print(f"  decode_hm_f32 B={b} Hq=Hkv={h} D=128 ps={ps} MP={mp} seq {int(seq.min())}.."
+          f"{int(seq.max())} (sum {int(tok)}), f32 q and pages: max-abs {err:.3g} ({ratio:.3g} "
+          f"of its bar, max|plain| {float(ref.abs().max()):.3g}); kernel {ms:.4f} ms warm, "
+          f"{cold:.4f} ms cold ({sets} sets), plain {plain:.3f} ms, SDPA ({backend}, f32 "
+          f"gathered rows) {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound {bound:.4f} ms "
+          f"({by})")
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by, max_abs_err=err)
+
+
+# K10 f32's edges: (ps, MP): pages of 16 and 128 over 4 pages, and one page
+# of 1,024 (two softmax steps of 512 within it)
+K10_F32_EDGE_PAGES = ((16, 4), (128, 4), (1024, 1))
+
+
+def check_decode_hm_f32_edges(torch, dec, dv3):
+    """K10 on f32 pages where its loop meets its edges: G 1, 2, 4, 8 and 16;
+    pages of K10_F32_EDGE_PAGES; lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3
+    and 4 ps (capped at MP ps) over 7 sequences of 2 kv heads, a batch that
+    splits each row over blocks (S > 1 asserted); output and workspace on
+    0x7f bytes; each held to its plain version within K10_F32_SHARE of
+    max|plain|, each second call bit-identical."""
+    from sgl_kernel_npu_tpu_torch import _build
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(2022)
+    hkv, b = 2, 7
+    sm = 128 ** -0.5
+    worst, calls, least_s = 0.0, 0, 8
+    for ps, mp in K10_F32_EDGE_PAGES:
+        lens = _v3_edge_lens(ps, mp)
+        for g in (1, 2, 4, 8, 16):
+            q, k, v, seq, bt = _f32_pages(torch, rng, b, hkv, g, ps, lens, mp)
+            least_s = min(least_s, _build.splits("decode_hm_f32", b, hkv, g, mp, ps))
+            with _dirty_empty(torch, dv3):
+                out, again = (dec.decode_gqa_hm(q, k, v, seq, bt, sm, ps) for _ in range(2))
+            ref = dec.decode_gqa_hm_ref(q, k, v, seq, bt, sm)
+            torch.cuda.synchronize()
+            _, ratio = _f32_check(f"decode_hm_f32 edges ps {ps} G {g}", out, ref)
+            if not torch.equal(out, again):
+                raise AssertionError(f"decode_hm_f32 edges ps {ps} G {g}: a second call differs")
+            if not bool((out[0] == 0).all()):
+                raise AssertionError("decode_hm_f32 edges: a length-0 row is not 0")
+            worst, calls = max(worst, ratio), calls + 1
+    if least_s < 2:
+        raise AssertionError(f"decode_hm_f32 edges: a batch of {b} took S = {least_s}")
+    print(f"  decode_hm_f32 edges ({calls} calls: G 1, 2, 4, 8, 16; ps 16 / 128 over 4 pages "
+          f"and 1024 over one; lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3, 4 ps; B {b}, S >= "
+          f"{least_s}; output and workspace on 0x7f bytes): at most {worst:.3g} of the bar, "
+          f"second calls bit-identical, length 0 gives 0")
+
+
+# ------------------------------------------- the EP normal surface (phase 14)
+
+# DeepSeek-V3's prefill shape at EP = 1: 4,096 tokens of hidden 7168, top-8
+# over its 256 routed experts; the low-latency modes at phase 8's 128 tokens
+EP_T, EP_H, EP_E, EP_K, EP_LL_T = 4096, 7168, 256, 8, 128
+# the round trip x * sum(w) against the JAX tests' bars
+# (tests/test_ep_dispatch_combine.py:97-99, tests/test_ep_features.py:157);
+# those tests' rows are 64 wide, these 7168 (a row's absmax, hence its int8
+# step, about twice theirs), and the weights sum to 1 as a router's do
+EP_BAR = {"bf16": 1e-3, "int8": 0.06, "fp8": 0.1, "mxfp8": 0.12, "mxfp4": 0.4}
+
+
+def _ep_inputs(torch, t, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn((t, EP_H), generator=g, device="cuda").to(torch.bfloat16)
+    idx = torch.rand((t, EP_E), generator=g, device="cuda").topk(EP_K, -1).indices.int()
+    # the router's weights: renormalised to sum 1 a token (deepseek_v3.route)
+    w = torch.rand((t, EP_K), generator=g, device="cuda")
+    return x, idx, w / w.sum(-1, keepdim=True)
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_same(u, v) for u, v in zip(a, b))
+    if hasattr(a, "send_slot_token"):
+        return all(_same(getattr(a, f), getattr(b, f)) for f in (
+            "send_slot_token", "send_valid", "send_counts", "input_offsets", "output_offsets",
+            "recv_sizes", "recv_offsets"))
+    if hasattr(a, "copy_slot"):
+        return all(_same(getattr(a, f), getattr(b, f)) for f in (
+            "copy_slot", "send_counts", "input_offsets", "recv_counts"))
+    return a is None and b is None or a.dtype == b.dtype and _bits_equal(a, b)
+
+
+def _bits_equal(a, b):
+    import torch
+    return torch.equal(a.view(torch.uint8) if a.element_size() == 1 else a,
+                       b.view(torch.uint8) if b.element_size() == 1 else b)
+
+
+def _round_trip(name, got, x, w, bar):
+    want = x.float() * w.sum(-1, keepdim=True)
+    err = (got.float() - want).abs()
+    if not bool((err <= bar + bar * want.abs()).all()):
+        raise AssertionError(f"{name}: round trip off x * sum(w) by {err.max().item():.3g} "
+                             f"(bar rtol = atol = {bar})")
+    return err.max().item()
+
+
+def run_ep_normal(torch, par, build, env, gpu):
+    """Phase 14: the EP layer's normal-mode surface through Buffer(None, 256)
+    at DeepSeek-V3's prefill shape, and the low-latency fp8 / MX modes.
+    Every call twice, the second bit-identical; no kernel launch. Returns
+    the launch counts of the phase (all 0)."""
+    from sgl_kernel_npu_tpu_torch.ops import mxquant
+    from sgl_kernel_npu_tpu_torch.ops.quant import per_token_quant_int8
+    from sgl_kernel_npu_tpu_torch.parallel.strategies import normal
+    x, idx, w = _ep_inputs(torch, EP_T, 14)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    times = {}
+
+    def twice(name, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not _same(a, b):
+            raise AssertionError(f"phase 14 {name}: a second call differs")
+        times[name] = _time_ms(fn, 5, warmup=1)
+        return a
+
+    flat = {}
+    for strat in ("default", "alltoall"):
+        buf = par.Buffer(None, EP_E, normal_strategy=strat)
+        for quant in ("bf16", "int8"):
+            key = f"{strat} {quant}"
+            res = twice(f"dispatch {key}", lambda: buf.dispatch(x, idx, w, quant_mode=quant))
+            recv, sc, ridx, rw, count, per_expert, hd = res
+            if int(count) != EP_T:
+                raise AssertionError(f"phase 14 dispatch {key}: {int(count)} rows of {EP_T}")
+            want = x if quant == "bf16" else per_token_quant_int8(x)[0]
+            if not torch.equal(recv[:EP_T], want):
+                raise AssertionError(f"phase 14 dispatch {key}: received rows differ from the "
+                                     "source rows")
+            cin = recv.float() if quant == "bf16" else recv.float() * sc
+            comb = twice(f"combine {key}", lambda: buf.combine(cin, hd, rw))
+            err = _round_trip(f"phase 14 {key}", comb[0], x, w, EP_BAR[quant])
+            if not torch.allclose(comb[1], w, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"phase 14 combine {key}: weights off")
+            flat[key] = (res, comb, err)
+            if strat == "default" and quant == "bf16":
+                nv = twice("notify_verify", lambda: buf.notify_verify(idx))
+                if not (torch.equal(nv[0], hd.recv_sizes) and torch.equal(nv[5], per_expert)):
+                    raise AssertionError("phase 14: notify_verify differs from the dispatch")
+    # the long-sequence rounds (SKT_NORMAL_LONG_SEQ_ROUND=4) against one round
+    os.environ["SKT_NORMAL_LONG_SEQ_ROUND"] = "4"
+    try:
+        rounds = env.long_seq_config()[0]
+    finally:
+        del os.environ["SKT_NORMAL_LONG_SEQ_ROUND"]
+    strat = par.get_normal_strategy("default")
+    g1 = par.EPGroup(None)
+
+    def long_seq():
+        res = normal.dispatch_long_seq(strat, x, idx, w, rounds=rounds, group=g1,
+                                       num_experts=EP_E)
+        return (torch.cat([r.recv_x for r in res]),
+                normal.combine_long_seq(strat, [r.recv_x for r in res], [r.handle for r in res],
+                                        [r.recv_topk_weights for r in res], group=g1))
+    lr = twice(f"long-seq {rounds} rounds", long_seq)
+    one = flat["default bf16"]
+    one_comb = strat.combine(one[0][0], one[0][6], one[0][3], group=g1)
+    if rounds != 4 or not (torch.equal(lr[0], one[0][0][:EP_T])
+                           and _same(lr[1], one_comb)):
+        raise AssertionError(f"phase 14: {rounds} long-seq rounds differ from one round")
+    # the layered strategies over (EPGroup(None), EPGroup(None)) against the flat ones
+    pair = (None, None)
+    lay = par.Buffer(pair, EP_E, normal_strategy="layered")
+    for quant in ("bf16", "int8"):
+        res = twice(f"layered dispatch {quant}", lambda: lay.dispatch(x, idx, w,
+                                                                       quant_mode=quant))
+        ref = flat[f"default {quant}"][0]
+        if not _same(res[:6], ref[:6]) or not _same(res[6], ref[6]):
+            raise AssertionError(f"phase 14 layered {quant}: differs from the flat strategy")
+    xl, idl, wl = _ep_inputs(torch, EP_LL_T, 8)
+    ll_flat = par.Buffer(None, EP_E, EP_LL_T)
+    ll_lay = par.Buffer(pair, EP_E, EP_LL_T, low_latency_strategy="layered")
+    ll_err = {}
+    for quant in ("bf16", "int8", "fp8", "mxfp8", "mxfp4"):
+        res = twice(f"low_latency_dispatch {quant}",
+                    lambda: ll_flat.low_latency_dispatch(xl, idl, quant_mode=quant))
+        recv, sc = res[0], res[1]
+        if quant in ("bf16", "int8"):
+            lres = twice(f"layered low_latency_dispatch {quant}",
+                         lambda: ll_lay.low_latency_dispatch(xl, idl, quant_mode=quant))
+            if not _same(lres[:4], res[:4]) or not _same(lres[4], res[4]):
+                raise AssertionError(f"phase 14 layered low latency {quant}: differs from the "
+                                     "flat strategy")
+        deq = (recv.float() if quant == "bf16" else
+               recv.float() * sc[..., None] if quant in ("int8", "fp8") else
+               (mxquant.dequantize_mxfp8 if quant == "mxfp8" else mxquant.dequantize_mxfp4)(
+                   recv, sc, out_dtype=torch.float32))
+        comb = twice(f"low_latency_combine {quant}",
+                     lambda: ll_flat.low_latency_combine(deq, idl, wl, res[4]))
+        ll_err[quant] = _round_trip(f"phase 14 low latency {quant}", comb, xl, wl,
+                                    EP_BAR[quant])
+    launches = dict(build.launches)
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched kernels: "
+                             f"{ {k: n for k, n in launches.items() if n} }")
+    print(f"  Buffer(None, {EP_E}) at T {EP_T} x H {EP_H} bf16, top-{EP_K}: received rows "
+          "equal the source rows (bf16) and their int8 quantisation; round trip max-abs "
+          + ", ".join(f"{k} {v[2]:.3g}" for k, v in flat.items())
+          + f" (rtol = atol = {EP_BAR['bf16']} / {EP_BAR['int8']}); notify_verify = the "
+          "dispatch's "
+          f"counts; {rounds} long-seq rounds = one round, bit for bit; the layered normal and "
+          "low-latency strategies over (EPGroup(None), EPGroup(None)) = the flat ones, bit for "
+          f"bit; low-latency at T {EP_LL_T}: round trip max-abs "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ll_err.items())
+          + " (rtol = atol = " + ", ".join(f"{k} {EP_BAR[k]}" for k in ll_err) + "); every call "
+          "twice, bit-identical; no kernel launched")
+    print("  ms per call [" + gpu + "]: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return launches
+
+
+# ------------------------------------------------- the EP models (phases 15, 16)
+
+# deepseek-ai/DeepSeek-V3's published config.json at EP = 1, depth cut from
+# 61 to 2 layers (the int8 experts take 11.3 GB a layer)
+DSV3_WIDTHS = dict(vocab_size=129280, hidden_size=7168, num_heads=128, q_lora_rank=1536,
+                   kv_lora_rank=512, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+                   num_experts=256, top_k=8, moe_intermediate=2048, shared_intermediate=2048,
+                   routed_scaling_factor=2.5, page_size=16)
+DSV3_LAYERS = 2
+# Qwen/Qwen1.5-MoE-A2.7B's published config.json, full depth, at EP = 1
+QWEN_MOE_WIDTHS = dict(vocab_size=151936, hidden_size=2048, num_layers=24, num_heads=16,
+                       num_kv_heads=16, head_dim=128, num_experts=60, top_k=4,
+                       moe_intermediate=1408, shared_intermediate=5632, page_size=16)
+EPM_B, EPM_STEPS, EPM_LO, EPM_HI = 128, 8, 256, 384
+# each step against the same step run through the plain versions: the
+# repo's logits bound (tests/test_torch_mla.py LOGITS_DIFF)
+EPM_DIFF = 8e-3
+# a top-k gap under this in the plain run, where the k-th choice has at
+# least this probability, is a near-tie that another f32 order may decide
+# the other way (choices below it carry no weight: the routers' logits
+# spread so wide at these widths that most probabilities underflow)
+EPM_TIE = 1e-6
+_DSV3_BUCKETS = (("A w8a8_gemm (L = 1)", _A), ("K8 w8a8_gemm_grouped", _K8),
+                 ("memsets", ("Memset",)))
+_QMOE_BUCKETS = (("K10 decode_hm_f32", ("decode_hm_f32_kernel",)),
+                 ("K8 w8a8_gemm_grouped", _K8), ("memsets", ("Memset",)))
+
+
+class _RouteLog:
+    """Wraps deepseek_v3.route (both EP models route through it): each
+    call's chosen experts and weights, and the least gap between the k-th
+    and the next probability where the k-th carries at least EPM_TIE."""
+
+    def __init__(self, torch, ds):
+        self.torch, self.ds, self.orig = torch, ds, ds.route
+        self.picks, self.gap = [], float("inf")
+
+    def __enter__(self):
+        def route(h2, router, top_k):
+            w, i = self.orig(h2, router, top_k)
+            p = self.torch.softmax(h2 @ router, -1).topk(top_k + 1).values
+            gap = self.torch.where(p[:, -2] >= EPM_TIE, p[:, -2] - p[:, -1], float("inf"))
+            self.gap = min(self.gap, float(gap.min()))
+            self.picks.append((i, w))
+            return w, i
+        self.ds.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.ds.route = self.orig
+        return False
+
+    def differ(self, other):
+        """(tokens routed otherwise than in `other`, summed over the calls;
+        the most renormalised weight such a token gives experts `other` did
+        not choose)."""
+        n, most = 0, 0.0
+        for (ia, wa), (ib, _) in zip(self.picks, other.picks):
+            missing = ~(ia[:, :, None] == ib[:, None, :]).any(-1)
+            n += int(missing.any(-1).sum())
+            most = max(most, float((wa * missing).sum(-1).max()))
+        return n, most
+
+
+def _slot_rows(caches, slots, ps, page_dim):
+    """(page, offset, the rows of each cache a step writes at slots [B])."""
+    pg, off = (slots // ps).long(), (slots % ps).long()
+    if page_dim == 1:
+        return [(pg, off, c[:, pg, off].clone()) for c in caches]
+    return [(pg, off, c[:, :, pg, off].clone()) for c in caches]
+
+
+def _put_rows(caches, saved, page_dim):
+    for c, (pg, off, rows) in zip(caches, saved):
+        if page_dim == 1:
+            c[:, pg, off] = rows
+        else:
+            c[:, :, pg, off] = rows
+
+
+def run_ep_model(torch, mod, ds, build, cfg, params, caches, page_dim, per_layer, buckets,
+                 label, gpu):
+    """Phases 15 and 16: EPM_STEPS greedy decode steps of `mod` at EP = 1
+    (batch EPM_B, EPM_LO..EPM_HI cached tokens; `caches` with pages on dim
+    `page_dim`), the launches of every step exact (per_layer per layer,
+    every other kernel 0), logits finite; then from the same state again,
+    each step first through the plain versions (SKT_IMPL=ref) and then the
+    kernels: the first run's logits and tokens repeated bit for bit, the
+    plain logits within calc_diff EPM_DIFF, the two runs' routing compared.
+    Prints ms/step, tok/s and the profiler's split. Returns the launch
+    counts of the first run."""
+    b, ps, L = EPM_B, cfg.page_size, cfg.num_layers
+    rng = np.random.default_rng(16)
+    mp = -(-(EPM_HI + EPM_STEPS) // ps)
+    bt = torch.from_numpy(rng.permutation(caches[0].shape[page_dim])[: b * mp]
+                          .reshape(b, mp).astype(np.int32)).cuda()
+    pos0 = torch.from_numpy(rng.integers(EPM_LO, EPM_HI, b).astype(np.int32)).cuda()
+    ids0 = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).cuda()
+    rows = torch.arange(b, device="cuda")
+    step = mod.make_decode_step(None, cfg, max_tokens=b)
+
+    def one(ids, pos):
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        saved = _slot_rows(caches, slots, ps, page_dim)
+        return step(params, *caches, ids, pos, pos + 1, bt, slots)[0], saved
+
+    build.reset_launches()
+    ids, pos, toks, first, undo, times = ids0, pos0, [], [], [], []
+    for _ in range(EPM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, saved = one(ids, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not bool(logits.isfinite().all()):
+            raise AssertionError(f"{label}: logits are not finite")
+        first.append(logits)
+        undo.append(saved)
+        ids = torch.argmax(logits, -1).to(torch.int32)
+        toks.append(ids)
+        pos = pos + 1
+    launches = dict(build.launches)
+    for name, n in launches.items():
+        want = per_layer.get(name, 0) * L * EPM_STEPS
+        if n != want:
+            raise AssertionError(f"{label}: {name} launched {n} times in {EPM_STEPS} steps, "
+                                 f"not {want} ({per_layer.get(name, 0)} a layer)")
+    for saved in reversed(undo):                  # back to the first state
+        _put_rows(caches, saved, page_dim)
+    ids, pos, worst, flips, flip_w, gap = ids0, pos0, 0.0, 0, 0.0, float("inf")
+    for i in range(EPM_STEPS):
+        os.environ["SKT_IMPL"] = "ref"
+        try:
+            with _RouteLog(torch, ds) as ref_route:
+                plain, saved = one(ids, pos)
+        finally:
+            del os.environ["SKT_IMPL"]
+        _put_rows(caches, saved, page_dim)
+        with _RouteLog(torch, ds) as kern_route:
+            logits, _ = one(ids, pos)
+        if not torch.equal(logits, first[i]):
+            raise AssertionError(f"{label}: step {i} from the same state gave other logits")
+        worst = max(worst, _calc_diff(logits, plain))
+        if worst > EPM_DIFF:
+            raise AssertionError(f"{label}: step {i} off its plain run: calc_diff {worst:.3g}")
+        gap = min(gap, ref_route.gap)
+        n, most = ref_route.differ(kern_route)
+        flips, flip_w = flips + n, max(flip_w, most)
+        ids = torch.argmax(logits, -1).to(torch.int32)
+        if not torch.equal(ids, toks[i]):
+            raise AssertionError(f"{label}: step {i} repeated other tokens")
+        pos = pos + 1
+    dt = float(np.median(times))
+    tie = (f"none under {EPM_TIE}" if gap >= EPM_TIE else
+           f"under {EPM_TIE}: a near-tie another f32 order may decide the other way, so the "
+           f"bound is the logits' calc_diff {EPM_DIFF}")
+    print(f"  {label}: B={b}, {EPM_LO}..{EPM_HI} cached tokens on {ps}-token pages, "
+          f"{EPM_STEPS} greedy steps: median {1e3 * dt:.3f} ms/step (steps "
+          f"{[round(1e3 * t, 3) for t in times]}), {b / dt:.1f} tok/s [{gpu}]")
+    print(f"  launches in {EPM_STEPS} steps: "
+          + ", ".join(f"{k} {n} ({n // (L * EPM_STEPS)}/layer)" for k, n in launches.items() if n)
+          + "; every other kernel 0; logits finite; a second run from the same state repeats "
+          f"tokens and logits bit for bit; against SKT_IMPL=ref from the same state: worst "
+          f"calc_diff {worst:.3g} (bar {EPM_DIFF}); least top-k gap of the plain run where "
+          f"the k-th choice has probability >= {EPM_TIE}: {gap:.3g} ({tie}); (token, layer) "
+          f"routings that differ from it {flips} of {b * L * EPM_STEPS}, their experts the "
+          f"kernels' run did not choose carrying at most {flip_w:.3g} of a token's weight")
+    profile_step(torch, lambda: one(ids0, pos0), buckets, f"{label} step (B={b})")
+    return launches
+
+
+def run_deepseek_v3(torch, build, gpu):
+    """Phase 15: models/deepseek_v3.py at DeepSeek-V3's widths, depth cut to
+    DSV3_LAYERS, EP = 1, the "default" low-latency strategy; weights drawn
+    on the card by a seeded torch.Generator in init_params' shapes and
+    scales."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as ds
+    cfg = ds.DeepSeekV3Config(num_layers=DSV3_LAYERS, **DSV3_WIDTHS)
+    t0 = time.perf_counter()
+    params = ds.init_params(cfg, 0, "cuda", draws="torch")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  reduced: num_layers 61 -> {DSV3_LAYERS} (every width as published); "
+          f"init_params (torch.Generator on the card, seed 0) {time.perf_counter() - t0:.1f} s, "
+          f"{nbytes / 1e9:.2f} GB")
+    mp = -(-(EPM_HI + EPM_STEPS) // cfg.page_size)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    ckv, kr = ds.init_kv_cache(cfg, EPM_B * mp + 1)
+    ckv.normal_(generator=gen)
+    kr.normal_(generator=gen)
+    return run_ep_model(torch, ds, ds, build, cfg, params, [ckv, kr], 1,
+                        {"w8a8_gemm_l1": 1, "w8a8_gemm_grouped": 2}, _DSV3_BUCKETS,
+                        "DeepSeek-V3 (2 layers)", gpu)
+
+
+def run_qwen_moe(torch, build, gpu):
+    """Phase 16: models/moe.py at Qwen1.5-MoE-A2.7B's widths, full depth,
+    EP = 1; weights drawn on the card; f32 caches."""
+    from sgl_kernel_npu_tpu_torch.models import deepseek_v3 as ds
+    from sgl_kernel_npu_tpu_torch.models import moe
+    cfg = moe.MoEConfig(**QWEN_MOE_WIDTHS)
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, 0, "cuda", draws="torch")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    mp = -(-(EPM_HI + EPM_STEPS) // cfg.page_size)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    kc, vc = moe.init_kv_cache(cfg, EPM_B * mp + 1)
+    kc.normal_(generator=gen)
+    vc.normal_(generator=gen)
+    print(f"  init_params (torch.Generator on the card, seed 0) {time.perf_counter() - t0:.1f} "
+          f"s, {nbytes / 1e9:.2f} GB of weights, {2 * kc.numel() * 4 / 1e9:.2f} GB of f32 caches")
+    return run_ep_model(torch, moe, ds, build, cfg, params, [kc, vc], 2,
+                        {"decode_hm_f32": 1, "w8a8_gemm_grouped": 2}, _QMOE_BUCKETS,
+                        "Qwen1.5-MoE-A2.7B", gpu)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5942,6 +6475,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
     check_decode_hm_edges(torch, decode, decode_v3)
+    torch.cuda.empty_cache()
+    rows["k10f32"] = check_decode_hm_f32(torch, decode, decode_v3, rng)
+    check_decode_hm_f32_edges(torch, decode, decode_v3)
     torch.cuda.empty_cache()
     rows.update(check_decode_v6(torch, decode_v6, cfg, rng))
     check_decode_v6_edges(torch, decode_v6)
@@ -6116,6 +6652,28 @@ def main() -> int:
     print(f"  phase 13 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    print("phase 14: the EP normal surface (dispatch / combine, notify_verify, long-seq, "
+          "layered, fp8 / MX low-latency modes) through Buffer(None, 256) at DeepSeek-V3's "
+          "prefill shape")
+    t0 = time.perf_counter()
+    run_ep_normal(torch, parallel, _build, env, gpu)
+    print(f"  phase 14 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("phase 15: models/deepseek_v3.py at DeepSeek-V3's widths (2 of 61 layers), EP = 1, "
+          "batch 128")
+    t0 = time.perf_counter()
+    run_deepseek_v3(torch, _build, gpu)
+    print(f"  phase 15 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("phase 16: models/moe.py at Qwen1.5-MoE-A2.7B's widths, 24 layers, EP = 1, batch 128, "
+          "f32 caches")
+    t0 = time.perf_counter()
+    qmoe_launches = run_qwen_moe(torch, _build, gpu)
+    print(f"  phase 16 {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
@@ -6182,6 +6740,9 @@ def main() -> int:
         dict(name="decode_hm", route="cuda", source=f"{src}/decode_hm.cu",
              replaces=f"{base}/ops/attention/decode_v2.py:97",
              launches=qwen_launches["decode_hm"], **rows["k10"]),
+        dict(name="decode_hm_f32", route="cuda", source=f"{src}/decode_hm_f32.cu",
+             replaces=f"{base}/ops/attention/decode_v2.py:97",
+             launches=qmoe_launches["decode_hm_f32"], **rows["k10f32"]),
         dict(name="w8a8_gemm_grouped (EP MoE shape)", route="cuda",
              source=f"{src}/w8a8_gemm.cu", replaces=f"{base}/ops/matmul.py:496",
              launches=moe_launches["w8a8_gemm_grouped"], **rows["k8moe"]),
@@ -6295,7 +6856,10 @@ def main() -> int:
           "MoE shape) row: GMM1 and GMM2 of rounds = 1 summed, launches from phase 8; "
           "decode_hm row (K10): "
           "decode_v2.py:97 is what decode.py::decode_gqa runs, decode.py:145 the same "
-          "contract one page per grid step; fused_moe row (K11): one launch at the bench "
+          "contract one page per grid step; decode_hm_f32 row (K10 on f32 pages, the same TPU "
+          "kernels on f32 caches): phase 16's attention shape, launches from phase 16 (all its "
+          "8 steps), library SDPA over the gathered f32 rows; fused_moe row (K11): one launch "
+          "at the bench "
           f"shape, no library call computes it (the composition at rounds = 1, K8 twice and "
           f"glue, takes {comp_ms:.4f} ms); remote_scatter rows (K12): the quantising dispatch "
           "(no library call quantises and scatters) and the bf16 combine (library: "
@@ -6326,7 +6890,7 @@ def main() -> int:
           "from phase 12 by case; helloworld (K22): [4096, 7168]; K23 rows (decode_v5*, "
           "decode_v4b_int8, decode_fused_v4*) and K24 (decode_v7_int8): 64 sequences of "
           "256..383 cached tokens at Llama-3-8B's heads, launches from phase 13")
-    # D's and K4's rows also carry cold_ms
+    # D's, K4's and K10 f32's rows also carry cold_ms
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + ("cold_ms",) if k in kern}
                                   for kern in kernels]}))
     print(gpu)

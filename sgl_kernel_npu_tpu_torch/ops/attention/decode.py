@@ -9,12 +9,13 @@ decode_gqa_pallas, decode_gqa) and MLA over split latent caches
     v_cache  [Hkv, num_pages, page_size, Dv]
     -> out   [B, Hq, Dv]
 As in the JAX package, `decode_gqa` takes the kernel path only when q's and
-v's head dims are multiples of 128: on a CUDA tensor kernel K10
-(csrc/decode_hm.cu, head dim 128: C's tensor-core loop with p kept in f32,
-each row split over the card's blocks as decode_v3.launch_v3 sizes it), on
-a CPU tensor its plain version `decode_gqa_hm_ref` in the TPU kernel's
-page order; other head dims take `decode_gqa_ref`, one softmax over all
-keys.
+v's head dims are multiples of 128: on a CUDA tensor kernel K10 (head dim
+128; bf16 q and pages: csrc/decode_hm.cu, C's tensor-core loop with p kept
+in f32, each row split over the card's blocks as decode_v3.launch_v3 sizes
+it; f32 q and pages, as models/moe.py passes them: csrc/decode_hm_f32.cu, a
+CUDA-core f32 loop), on a CPU tensor its plain version `decode_gqa_hm_ref`
+in the TPU kernel's page order; other head dims take `decode_gqa_ref`, one
+softmax over all keys.
 
   decode_mla(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale, page_size)
     q            [B, H, Lkv + Lrope]   (nope' | rope, DeepSeek 512 + 64)
@@ -131,12 +132,13 @@ def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page
 
 
 def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
-    """Paged GQA decode over head-major bf16 pages (module docstring): kernel
-    K10 on the card (head dim 128, Hq / Hkv in 1, 2, 4, 8, 16; launched
-    through decode_v3.launch_v3, K16's contract arguments, with the
-    workspace and arrival counters of a split row), counted under
-    "decode_hm"; decode_gqa_hm_ref on the CPU. seq_lens [B] includes the
-    current token, which is already in the cache. Returns [B, Hq, D] bf16."""
+    """Paged GQA decode over head-major bf16 or f32 pages (module
+    docstring): kernel K10 on the card (head dim 128, Hq / Hkv in 1, 2, 4, 8,
+    16; launched through decode_v3.launch_v3, K16's contract arguments, with
+    the workspace and arrival counters of a split row), counted under
+    "decode_hm" (bf16) or "decode_hm_f32" (f32 q and pages);
+    decode_gqa_hm_ref on the CPU. seq_lens [B] includes the current token,
+    which is already in the cache. Returns [B, Hq, D] in q's dtype."""
     if not use_kernel(q):
         return decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale,
                                  page_size)

@@ -157,7 +157,9 @@ def launch_v3(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scal
     (into the caches and scales in place), else None. Each (sequence, kv
     head, group of heads) is split over the blocks that skt_<name>_splits
     sizes from the card; the splits' partials meet in a workspace and the
-    last to arrive merges them. Returns [B, Hq, 128] bf16."""
+    last to arrive merges them. Returns [B, Hq, 128] bf16. "decode_hm" with
+    f32 q and f32 pages launches K10's f32 form instead (_launch_hm_f32),
+    which returns f32."""
     b, hq, d = q.shape
     shape = k_cache.shape
     layers = shape[0] if layout == "stacked" else 1
@@ -170,9 +172,13 @@ def launch_v3(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scal
             or (scales is not None and any(s.shape != sshape for s in scales))):
         raise ValueError(f"{name}: q {tuple(q.shape)}, caches {tuple(shape)}: needs head "
                          f"dim 128, Hq / Hkv in {HEAD_GROUPS} and scales {sshape}")
+    if (name == "decode_hm" and layout == "kv_head" and scales is None and new is None
+            and all(t.dtype == torch.float32 for t in (q, k_cache, v_cache))):
+        return _launch_hm_f32(q, k_cache, v_cache, lens, block_table, sm_scale)
     want = torch.int8 if scales is not None else torch.bfloat16
     if q.dtype != torch.bfloat16 or k_cache.dtype != want or v_cache.dtype != want:
-        raise TypeError(f"{name}: bf16 q and {want} caches expected")
+        raise TypeError(f"{name}: bf16 q and {want} caches expected"
+                        + (" (or f32 q and f32 caches)" if name == "decode_hm" else ""))
     if slots is not None and scales is not None and any(s.dtype != torch.float32
                                                         for s in scales):
         raise TypeError(f"{name}: the fused write takes f32 scales")
@@ -206,6 +212,44 @@ def launch_v3(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scal
               *(ptr(s) for s in (sc or (None, None))), sl.data_ptr(), bt.data_ptr(),
               out.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), ptr(layer), ptr(sm), b, hq,
               hkv, layers, num_pages, ps, mp, li, ng, splits, float(sm_scale), stream)
+    _build.check(name, code)
+    _build.launches[name] += 1
+    return out
+
+
+# K10's f32 form (csrc/decode_hm_f32.cu): q, k cache, v cache, lens, block
+# table, out, workspace, arrivals, B, Hq, Hkv, P, ps, MP, S, sm_scale, stream
+_F32_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+HM_F32_STEP = 512       # decode_hm_f32.cu's STEP_MAX
+
+
+def _launch_hm_f32(q, k_cache, v_cache, lens, block_table, sm_scale):
+    """K10 on f32 pages (launch_v3's "decode_hm" contract with f32 q and f32
+    kv-head-major caches [Hkv, P, ps, 128]), counted under "decode_hm_f32".
+    Pages of at most HM_F32_STEP tokens, or a multiple of it. Returns [B, Hq,
+    128] f32."""
+    name = "decode_hm_f32"
+    b, hq, d = q.shape
+    hkv, num_pages, ps, _ = k_cache.shape
+    if ps > HM_F32_STEP and ps % HM_F32_STEP:
+        raise ValueError(f"{name}: pages of {ps} tokens: at most {HM_F32_STEP} or a "
+                         "multiple of it")
+    dev = q.device
+    q = q.contiguous()
+    sl = lens.to(torch.int32).contiguous()
+    bt = block_table.to(torch.int32).contiguous()
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    _build.check_operands(name, dev, q, k_cache, v_cache, sl, bt, out)
+    g, mp = hq // hkv, bt.shape[1]
+    splits = _build.splits(name, b, hkv, g, mp, ps)
+    ws = torch.empty(b * hkv * splits * g * (4 + d) if splits > 1 else 0,
+                     dtype=torch.float32, device=dev)
+    arrivals = _build.arrival_counters(name, dev, b * hkv)
+    fn = _build.launcher(name, _F32_ARGTYPES)
+    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), sl.data_ptr(),
+              bt.data_ptr(), out.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), b, hq, hkv,
+              num_pages, ps, mp, splits, float(sm_scale),
+              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(name, code)
     _build.launches[name] += 1
     return out

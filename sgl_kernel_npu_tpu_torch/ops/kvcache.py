@@ -6,6 +6,8 @@ caches; the port writes them in place."""
 
 from __future__ import annotations
 
+import torch
+
 from ..utils import index_copy_kept_
 
 
@@ -30,8 +32,13 @@ def reshape_and_cache_mla(ckv, krope, ckv_cache, krope_cache, slot_mapping):
 def reshape_and_cache_gqa(k, v, k_cache, v_cache, slot_mapping):
     """Head-major cache scatter, in place: k, v [T, Hkv, D]; caches [Hkv,
     num_pages, page_size, D]; slot_mapping [T] global slot ids, -1 = skip.
-    No host sync. Returns the (mutated) caches."""
-    for h in range(k_cache.shape[0]):
-        _put_rows(k_cache[h], slot_mapping, k[:, h])
-        _put_rows(v_cache[h], slot_mapping, v[:, h])
+    One scatter a cache over every head's rows; no host sync. Returns the
+    (mutated) caches."""
+    hkv, pages, ps, d = k_cache.shape
+    slots = slot_mapping.long()
+    keep = ((slots >= 0) & (slots < pages * ps)).repeat(hkv)
+    rows = (torch.arange(hkv, device=slots.device)[:, None] * (pages * ps)
+            + slots[None, :]).reshape(-1)
+    for cache, x in ((k_cache, k), (v_cache, v)):
+        index_copy_kept_(cache.view(-1, d), rows, x.transpose(0, 1).reshape(-1, d), keep)
     return k_cache, v_cache

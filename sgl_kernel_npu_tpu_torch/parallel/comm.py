@@ -13,6 +13,8 @@ through a mesh axis. Here the communicator is an explicit object, `EPGroup`:
                        (input_offsets / send_sizes) lands in peer j's output
                        at my output_offsets[j*S+s]; recv_sizes[i*S+s] is the
                        size of slice s arriving from rank i
+  all_gather(t)        [R, *t.shape]: row i is rank i's t (jax.lax.all_gather)
+  all_reduce_sum(t)    the sum of every rank's t (jax.lax.psum)
 
 `EPGroup(None)` is one rank: a loopback of indexed copies on the tensors'
 own device, with no host sync. Over a torch.distributed process group the
@@ -22,13 +24,16 @@ port runs that form on the CPU with gloo; the card runs one rank).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
 def _rows_as_bytes(t):
     """[n, ...] -> a contiguous uint8 view [n, row bytes]: the exchanges move
     bytes, whatever the dtype."""
-    return t.reshape(t.shape[0], -1).contiguous().view(torch.uint8)
+    row = math.prod(t.shape[1:]) * t.element_size()
+    return t.contiguous().reshape(-1).view(torch.uint8).reshape(t.shape[0], row)
 
 
 class EPGroup:
@@ -58,6 +63,25 @@ class EPGroup:
             return t
         n = t.shape[0] // self.num_ranks
         return self._exchange(t, [n] * self.num_ranks, [n] * self.num_ranks)
+
+    def all_gather(self, t):
+        """[R, *t.shape]: row i is rank i's t. One rank: t[None], no copy
+        and no host sync."""
+        if self.num_ranks == 1:
+            return t[None]
+        import torch.distributed as dist
+        parts = [torch.empty_like(t) for _ in range(self.num_ranks)]
+        dist.all_gather(parts, t.contiguous(), group=self.process_group)
+        return torch.stack(parts)
+
+    def all_reduce_sum(self, t):
+        """The sum over the ranks of t, a new tensor (one rank: t itself)."""
+        if self.num_ranks == 1:
+            return t
+        import torch.distributed as dist
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.process_group)
+        return out
 
     def ragged_all_to_all(self, operand, output, input_offsets, send_sizes,
                           output_offsets, recv_sizes):

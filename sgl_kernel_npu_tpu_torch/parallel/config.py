@@ -10,6 +10,8 @@ from dataclasses import dataclass
 class Config:
     # pipeline chunk (tokens) for comm/compute overlap in fused paths
     chunk_tokens: int = 256
+    # Buffer.set_num_sms's value, kept for call-site compatibility
+    default_num_sms = 24
 
     @staticmethod
     def get_dispatch_config(num_ranks: int) -> "Config":

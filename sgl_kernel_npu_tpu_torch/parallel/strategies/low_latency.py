@@ -7,8 +7,13 @@ Output contract: dispatch returns a max-token-padded buffer
 where source rank r's tokens for local expert e occupy
     recv_x[e, r*maxT : r*maxT + layout_range[r, e]]
 and validity is given by counts, never by a host sync. Comm quant modes:
-"int8" (per-token absmax, ops/quant.py) and "bf16" (none); "fp8", "mxfp8"
-and "mxfp4" need ops/mxquant.py, which the 4-card EP slice ports.
+"bf16" (none), "int8" (per-token absmax, ops/quant.py; scales [El, R*maxT]
+f32), "fp8" (per-token float8_e4m3fn, ops/mxquant.py::
+quantize_fp8_per_token; scales as int8's) and "mxfp8" / "mxfp4" (OCP MX
+blocks of 32, ops/mxquant.py; payload float8_e4m3fn [.., H] or packed
+uint8 [.., H / 2], scales [El, R*maxT, H / 32] uint8 E8M0). As in the JAX
+package, the dense oracle sends fp8 mode's rows unquantised (bf16, no
+scales). fp8 rows move as uint8 views of their bytes.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Optional
 
 import torch
 
+from ...ops import mxquant
 from ...ops.quant import per_token_quant_int8
 from ..strategy import LowLatencyEPCommStrategy, register_low_latency_strategy
 
@@ -25,12 +31,31 @@ _QUANTISED = ("int8", "fp8", "mxfp8", "mxfp4")
 
 
 def check_quant_mode(quant_mode: str) -> None:
-    if quant_mode in ("fp8", "mxfp8", "mxfp4"):
-        raise NotImplementedError(
-            f"quant_mode={quant_mode!r} needs ops/mxquant.py, which the 4-card EP "
-            "slice ports (ROADMAP Queue 1); the port dispatches int8 or bf16")
-    if quant_mode not in ("int8", "bf16"):
+    if quant_mode not in ("bf16",) + _QUANTISED:
         raise ValueError(f"unknown quant_mode {quant_mode!r}")
+
+
+def quantise_rows(x, quant_mode: str, modes=_QUANTISED):
+    """(payload [T, Hp], scales [T] f32, [T, H / 32] uint8 or None) of x in
+    `quant_mode` (bf16 for a mode not in `modes`); fp8 payloads as uint8
+    views."""
+    if quant_mode not in modes or quant_mode == "bf16":
+        return x, None
+    if quant_mode == "int8":
+        q, s = per_token_quant_int8(x)
+        return q, s[:, 0]
+    if quant_mode == "fp8":
+        q, s = mxquant.quantize_fp8_per_token(x)
+        return q.view(torch.uint8), s[:, 0]
+    q, s = (mxquant.quantize_mxfp8(x) if quant_mode == "mxfp8" else mxquant.quantize_mxfp4(x))
+    return (q.view(torch.uint8) if q.dtype == torch.float8_e4m3fn else q), s
+
+
+def payload_view(recv, quant_mode: str):
+    """The received uint8 bytes of an fp8 payload as float8_e4m3fn."""
+    if quant_mode in ("fp8", "mxfp8") and recv.dtype == torch.uint8:
+        return recv.view(torch.float8_e4m3fn)
+    return recv
 
 
 def _exclusive_cumsum(x):
@@ -144,8 +169,8 @@ class LowLatencyHandle:
 
 @dataclass
 class LowLatencyDispatchResult:
-    recv_x: Any                  # [El, R*maxT, H] bf16 | int8
-    recv_x_scales: Optional[Any] # [El, R*maxT] f32 (int8 mode)
+    recv_x: Any                  # [El, R*maxT, Hp] bf16 | int8 | fp8 | packed fp4
+    recv_x_scales: Optional[Any] # [El, R*maxT] f32 (int8, fp8), [.., H/32] uint8 (mx)
     packed_recv_count: Any       # [El] valid tokens per local expert
     layout_range: Any            # [R, El] per-(src, expert) counts
     handle: LowLatencyHandle
@@ -158,7 +183,7 @@ class DefaultLowLatencyCommStrategy(LowLatencyEPCommStrategy):
                              quant_mode="bf16", elastic_info=None,
                              shared_expert_rank_num=0):
         check_quant_mode(quant_mode)
-        t, h = x.shape
+        t = x.shape[0]
         k = topk_idx.shape[1]
         r = group.num_ranks
         s = shared_expert_rank_num
@@ -172,27 +197,23 @@ class DefaultLowLatencyCommStrategy(LowLatencyEPCommStrategy):
         copy_of_slot, copy_slot, counts = _sorted_copies(key, tk, r * el)
         input_offsets = _exclusive_cumsum(counts)
         tok = _token_of_slot(copy_of_slot, t, k, tk)
-        send_scales = None
-        if quant_mode == "int8":
-            xq, xs = per_token_quant_int8(x)
-            send_x = xq[tok]
-            send_scales = xs[tok][:, 0]
-        else:
-            send_x = x[tok]
+        rows, scales = quantise_rows(x, quant_mode)
+        send_x = rows[tok]
 
         # slice (dst, e) lands at [e, me*maxT] of dst's [El, R*maxT, H] output
         output_offsets = _window_offsets(r, el, maxt, dev, group.rank)
         recv_counts = group.all_to_all(counts.reshape(r, el))            # [R, El]
         recv_sizes = recv_counts.reshape(-1)
-        out = torch.zeros((el * r * maxt, h), dtype=send_x.dtype, device=dev)
-        recv_x = group.ragged_all_to_all(send_x, out, input_offsets, counts,
-                                         output_offsets, recv_sizes).reshape(el, r * maxt, h)
-        recv_scales = None
-        if send_scales is not None:
-            sout = torch.zeros((el * r * maxt,), dtype=torch.float32, device=dev)
-            recv_scales = group.ragged_all_to_all(
-                send_scales, sout, input_offsets, counts, output_offsets,
-                recv_sizes).reshape(el, r * maxt)
+
+        def ra2a(payload):
+            out = torch.zeros((el * r * maxt, *payload.shape[1:]), dtype=payload.dtype,
+                              device=dev)
+            return group.ragged_all_to_all(payload, out, input_offsets, counts,
+                                           output_offsets, recv_sizes).reshape(
+                                               el, r * maxt, *payload.shape[1:])
+
+        recv_x = payload_view(ra2a(send_x), quant_mode)
+        recv_scales = ra2a(scales[tok]) if scales is not None else None
         handle = LowLatencyHandle(
             copy_slot=copy_slot, send_counts=counts.reshape(r, el),
             input_offsets=input_offsets, recv_counts=recv_counts, num_tokens=t, topk=k,
@@ -235,7 +256,7 @@ class AllToAllLowLatencyCommStrategy(DefaultLowLatencyCommStrategy):
         assert elastic_info is None and shared_expert_rank_num == 0, \
             "the alltoall oracle covers the base contract only"
         check_quant_mode(quant_mode)
-        t, h = x.shape
+        t = x.shape[0]
         k = topk_idx.shape[1]
         r = group.num_ranks
         el = num_experts // r
@@ -250,24 +271,21 @@ class AllToAllLowLatencyCommStrategy(DefaultLowLatencyCommStrategy):
         sorted_key = torch.sort(key, stable=True).values
         within = torch.arange(tk, device=dev) - offsets[sorted_key.clamp(0, r * el - 1)]
         tok = _token_of_slot(copy_of_slot, t, k, tk)
-        scale_payload = None
-        if quant_mode == "int8":
-            xq, xs = per_token_quant_int8(x)
-            payload = xq[tok]
-            scale_payload = xs[tok][:, 0]
-        else:
-            payload = x[tok]
-        rows = r * el * maxt
-        pos = torch.where(sorted_key < r * el, sorted_key * maxt + within, rows).clamp(0, rows)
+        # the JAX oracle quantises int8 and the MX modes; fp8 goes as bf16
+        rows, scales = quantise_rows(x, quant_mode, ("int8", "mxfp8", "mxfp4"))
+        slots = r * el * maxt
+        pos = torch.where(sorted_key < r * el, sorted_key * maxt + within, slots).clamp(0, slots)
 
-        def dense(values, width):
-            buf = torch.zeros((rows + 1, *width), dtype=values.dtype, device=dev)
+        def dense(values):
+            width = tuple(values.shape[1:])
+            buf = torch.zeros((slots + 1, *width), dtype=values.dtype, device=dev)
             buf[pos] = values
-            recv = group.all_to_all(buf[:rows].reshape(r, -1))
-            return recv.reshape(r, el, maxt, *width).transpose(0, 1).reshape(el, r * maxt, *width)
+            recv = group.all_to_all(buf[:slots].reshape(r, -1))
+            return recv.reshape(r, el, maxt, *width).transpose(0, 1).reshape(el, r * maxt,
+                                                                             *width)
 
-        recv_x = dense(payload, (h,))
-        recv_scales = dense(scale_payload, ()) if scale_payload is not None else None
+        recv_x = payload_view(dense(rows[tok]), quant_mode)
+        recv_scales = dense(scales[tok]) if scales is not None else None
         recv_counts = group.all_to_all(counts.reshape(r, el))
         handle = LowLatencyHandle(
             copy_slot=copy_slot, send_counts=counts.reshape(r, el), input_offsets=offsets,

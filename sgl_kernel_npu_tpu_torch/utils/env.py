@@ -10,6 +10,10 @@ package's utils/env.py, limited to the flags this package reads).
                               (default "default,default")
   SKT_SHARED_EXPERT_RANK_NUM  int, shared-expert ranks of the EP dispatch
   SKT_BF16_DISPATCH           bool: skip the int8 quant of the EP dispatch
+  SKT_NORMAL_LONG_SEQ_ROUND   int in [1, 256], default 1: rounds of the
+                              multi-round normal dispatch (long_seq_config)
+  SKT_NORMAL_PER_ROUND_TOKENS int in [1, 8192], default 8192: tokens a round
+  SKT_LOG_LEVEL, SKT_LOG_DIR  the package logger (utils/logging.py)
   SKT_DECODE_ATTN   "v6" | "v3", default v6: the deferred attention of the
                     head-major ("hm") Llama decode (decode_v6 or decode_v3)
   SKT_DECODE_FLAT   bool, default on: the hm decode addresses the pages of
@@ -32,6 +36,11 @@ import os
 from typing import Optional
 
 _TRUE = ("1", "true", "yes", "on")
+
+# the long-sequence normal dispatch's limits (the JAX package's utils/env.py)
+MAX_LONG_SEQ_ROUNDS = 256
+MAX_PER_ROUND_TOKENS = 8192
+MAX_LONG_SEQ_TOKENS = 131072
 
 
 def env_bool(name: str, default: bool = False) -> bool:
@@ -76,6 +85,18 @@ def deep_use_mode() -> tuple:
     while len(parts) < 2:
         parts.append("default")
     return parts[0], parts[1]
+
+
+def long_seq_config() -> tuple:
+    """(rounds, per_round_tokens) of the multi-round normal dispatch: rounds
+    <= 256, tokens a round <= 8192, their product <= 131072 (rounds cut to
+    fit)."""
+    rounds = env_int("SKT_NORMAL_LONG_SEQ_ROUND", 1, lo=1, hi=MAX_LONG_SEQ_ROUNDS)
+    per_round = env_int("SKT_NORMAL_PER_ROUND_TOKENS", MAX_PER_ROUND_TOKENS, lo=1,
+                        hi=MAX_PER_ROUND_TOKENS)
+    if rounds * per_round > MAX_LONG_SEQ_TOKENS:
+        rounds = max(1, MAX_LONG_SEQ_TOKENS // per_round)
+    return rounds, per_round
 
 
 def shared_expert_rank_num() -> int:

@@ -155,8 +155,8 @@ def test_kernels_build_for_sm_90a():
 
 
 # --------------------------------------------------------------------------
-# The kernels that split a row over blocks (K19, C, K10's, K14's, K16's,
-# K23's and K24's pages, K7's context, K2's, K1's, A's and K8's K; K3 runs
+# The kernels that split a row over blocks (K19, C, K10's (both forms),
+# K14's, K16's, K23's and K24's pages, K7's context, K2's, K1's, A's and K8's K; K3 runs
 # C's loop unsplit, its source scanned all the same) merge the splits'
 # partials through a workspace,
 # deterministically:
@@ -170,7 +170,8 @@ def test_kernels_build_for_sm_90a():
 # all.
 
 SPLIT_SOURCES = ("topk_sparse.cu", "decode_tm.cu", "decode_tm2.cu", "decode_v6.cu",
-                 "decode_v3.cu", "decode_hm.cu", "decode_v7.cu", "decode_mla.cu", "rmsq_gemm.cu",
+                 "decode_v3.cu", "decode_hm.cu", "decode_hm_f32.cu", "decode_v7.cu",
+                 "decode_mla.cu", "rmsq_gemm.cu",
                  "w8a8_gemm_tiled.cu", "w8a8_gemm.cu")
 INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # an atomic call and the last name of the expression it targets

@@ -330,20 +330,26 @@ def test_config_presets_match_jax(num_ranks):
 
 def test_cumulative_recv_stats_and_bf16_dispatch(rng, monkeypatch):
     """The cumulative per-expert receive counters add packed_recv_count;
-    SKT_BF16_DISPATCH turns an int8 dispatch into bf16 (no scales)."""
+    the fp8 mode dispatches float8_e4m3fn rows with f32 scales and an
+    unknown mode raises; SKT_BF16_DISPATCH turns an int8 dispatch, low
+    latency or normal, into bf16 (no scales)."""
     d = make_layer(rng, experts=4)
     tb = TBuffer(None, 4, num_max_dispatch_tokens_per_rank=32)
     stats = torch.arange(4, dtype=torch.int32)
     out = tb.low_latency_dispatch(_t(d["x"]), torch.from_numpy(d["idx"]),
                                   cumulative_local_expert_recv_stats=stats)
     assert torch.equal(out[5], stats + out[2])
-    with pytest.raises(NotImplementedError):
-        tb.low_latency_dispatch(_t(d["x"]), torch.from_numpy(d["idx"]), quant_mode="fp8")
+    recv, sc = tb.low_latency_dispatch(_t(d["x"]), torch.from_numpy(d["idx"]),
+                                       quant_mode="fp8")[:2]
+    assert recv.dtype == torch.float8_e4m3fn and sc.dtype == torch.float32
+    with pytest.raises(ValueError):
+        tb.low_latency_dispatch(_t(d["x"]), torch.from_numpy(d["idx"]), quant_mode="fp4")
     monkeypatch.setenv("SKT_BF16_DISPATCH", "1")
     recv, sc = tb.low_latency_dispatch(_t(d["x"]), torch.from_numpy(d["idx"]))[:2]
     assert recv.dtype == torch.bfloat16 and sc is None
-    with pytest.raises(NotImplementedError):
-        tb.dispatch(None, None, None)
+    recv, sc = tb.dispatch(_t(d["x"]), torch.from_numpy(d["idx"]), torch.from_numpy(d["w"]),
+                           quant_mode="int8")[:2]
+    assert recv.dtype == torch.bfloat16 and sc is None
 
 
 # ------------------------------------------------------------ K12: the scatter
