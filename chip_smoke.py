@@ -237,6 +237,31 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    experts top-4 of 1408, a shared expert of 5632), f32 caches: K10 on f32
    pages 1 and K8 2 a layer. Phase 1 holds K10's f32 form at this phase's
    attention shape and at its edges.
+17. Runs right after phase 2, on its seed-0 weights (untiled banks), the
+   counters set to 0 first, the rest of the Llama serving surface at
+   Llama-3-8B width: (a) a tm engine sampling at temperature 0.8, top_k 50,
+   top_p 0.95 serves phase 2's prompts twice from seed 0 (the same
+   tokens), and at top_k 1 gives phase 2's greedy tokens up to each
+   request's first exact tie of its two best (bf16) logits; (b) half the
+   requests under the even-ids bitmask emit only even ids, the others
+   phase 2's tokens; (c) 4 LoRA adapters of rank 16, ids -1..3 in one
+   batch: the -1 requests give phase 2's tokens, one decode_step_kv call
+   with lora_ids within calc_diff 8e-3 of SKT_IMPL=ref, its -1 rows equal
+   to the call without adapters, the others moved; (d) a request paused
+   mid-decode, a new request taking its page, the request resumed: all 8
+   requests give phase 2's tokens; (e) a 512-token prompt through
+   prefill_chunk_step in chunks of 128 on bf16 hm pages and decode_step
+   gives the hm engine's tokens, and decode_verify_step on a 4-token chain
+   is held to decode_step's logits and to itself a token a call by
+   calc_diff 8e-3; (f) speculative_generate with a 2-layer draft (seed 1),
+   draft_len 4, 64 new tokens, and with the target as its own draft, each
+   held to the target's judgement of its output (the first token the
+   prefill's argmax; every later one, by one decode_verify_step over the
+   output, within a margin whose bound (e) measures of its row's best
+   logit); prints the accept counts; (g)
+   A, B, C, D, K14 and K15 each launched. Every engine call's launches
+   exact (phase 2's on tm pages; A 128, K15 or K14 32, A at L = 1 1 on hm
+   pages). Prints the engines' decode ms a step beside phase 2's.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -2728,17 +2753,21 @@ def _check_call(kind, delta, expect):
 
 def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
                profile=False, engine_cls=None, expect=None, engine_kw=None,
-               buckets=None):
+               buckets=None, request_kw=None, on_done=None):
     """Serve `prompts`, then `late` once the first shared-prefix prompt has
     been prefilled (so it reuses the radix-cached prefix). Returns outputs,
     timings, launch counts per step kind and the counts of the whole run;
     with `profile`, afterwards profiles a steady-state decode call split by
     `buckets` (default _ENGINE_BUCKETS; the rest is glue, the largest
     listed); with `expect`, checks the launches of every model call
-    (_check_call)."""
-    eng = (engine_cls or serving.LlamaEngine)(cfg, params=params, device="cuda",
-                                              num_pages=512, decode_batch=8,
-                                              token_budget=256, **(engine_kw or {}))
+    (_check_call). request_kw: add_request's keywords for each prompt, then
+    for `late`; on_done(eng, stats, decode) is called after the run with the
+    engine, the stats (the steady decode call's arguments under
+    "steady_args") and the engine's own decode function."""
+    kw = dict(num_pages=512, decode_batch=8, token_budget=256)
+    kw.update(engine_kw or {})
+    eng = (engine_cls or serving.LlamaEngine)(cfg, params=params, device="cuda", **kw)
+    req_kw = request_kw or [{}] * (len(prompts) + 1)
     from sgl_kernel_npu_tpu_torch.runtime import NativeScheduler
     if not isinstance(eng.sched, NativeScheduler):
         raise AssertionError("the engine must run on the native scheduler")
@@ -2778,12 +2807,12 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
         return logits, kv
 
     eng._prefill_batch, eng._decode = prefill, decode
-    rids = [eng.add_request(p, new_tokens) for p in prompts]
+    rids = [eng.add_request(p, new_tokens, **k) for p, k in zip(prompts, req_kw)]
     late_rid = None
     t0 = time.perf_counter()
     for _ in range(1000):
         if late_rid is None and eng.reqs[rids[-1]]["out"]:
-            late_rid = eng.add_request(late, new_tokens)
+            late_rid = eng.add_request(late, new_tokens, **req_kw[-1])
         if not eng.step() and late_rid is not None:
             break
     wall = time.perf_counter() - t0
@@ -2796,6 +2825,8 @@ def run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
         args = stats["steady_args"]
         profile_step(torch, lambda: inner_dec(*args), buckets or _ENGINE_BUCKETS,
                      "decode call (B=8, all rows live)")
+    if on_done is not None:
+        on_done(eng, stats, inner_dec)
     del eng
     return outs, stats, wall, reused, launches
 
@@ -3549,6 +3580,463 @@ def run_hm_engines(torch, llama, serving, build, params, prompts, late, new_toke
         out[label] = launches
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------- the rest of the Llama serving surface (phase 17)
+
+# (a) the sampled engine
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# (b) the requests of phase 2's batch that carry the even-ids bitmask (the
+# index past the prompts is the late request)
+MASKED = (0, 2, 4, 6)
+# (c) 4 adapters of rank 16 from numpy seed 0 (add_lora_adapters' scale
+# 0.05); phase 2's requests' adapter ids, -1..3 in one batch: the two that
+# share the 256-token prefix carry none, so the late one still reuses it
+LORA_ADAPTERS, LORA_RANK = 4, 16
+LORA_IDS = (0, 1, 2, 3, -1, -1, -1, -1)
+# (e) a 512-token prompt in 128-token chunks, then 8 decode steps; the
+# verify chain's length
+STEP_PROMPT, STEP_CHUNK, STEP_NEW, VERIFY_CHAIN = 512, 128, 8, 4
+# (f) speculative decoding: draft length, new tokens, the draft's depth.
+# The logits are bf16 (lm_head's output dtype, as in the JAX package): at
+# Llama-3-8B's vocabulary the best two ids often tie exactly or sit one
+# bf16 ulp (1/64 at magnitudes 2-4) apart. The random seed-0 model carries
+# a small difference in a layer's attention into a large one in the logits:
+# on the same positions decode_step (K14, p rounded to bf16) and
+# decode_verify_step (plain f32 attention) give logits up to 0.36 apart,
+# K16 (p in f32) and decode_verify_step 0.18, and decode_verify_step on a
+# 4-token chain and a token a call 0.31 (the card picks other reduction
+# orders for other shapes; phase 17 on an H100). Greedy picks whose
+# two best logits sit closer than that flip between any two of these
+# paths, and most picks do. So (f) holds every speculative token to the
+# target's own judgement of the emitted sequence: its first token equals
+# the prefill's argmax exactly (the same call), and one decode_verify_step
+# over the rest puts every later token within 2 * gap of its row's best
+# logit, gap being (e)'s chain-vs-single difference (the margin rule);
+# the share of tokens that are the row's argmax is printed
+SPEC_DRAFT_LEN, SPEC_NEW, SPEC_DRAFT_LAYERS = 4, 64, 2
+# (c), (e): calc_diff bounds, the repo's logits bound (tests/test_llama_model.py)
+SURFACE_DIFF = 8e-3
+# launches of one hm engine model call on untiled banks (A for the four
+# banks, A at L = 1 for lm_head, one K15 or K14 a layer)
+HM_A_SERVING = {"prefill": {"w8a8_gemm": 128, "prefill_hm": 32, "w8a8_gemm_l1": 1},
+                "decode": {"w8a8_gemm": 128, "decode_v6_defer": 32, "w8a8_gemm_l1": 1}}
+# the kernels phase 17 must launch: A, B, C, D, K14, K15
+SURFACE_KERNELS = ("w8a8_gemm", "prefill_tm", "decode_tm", "append_tm", "decode_v6_defer",
+                   "prefill_hm")
+
+
+def _even_bitmask(vocab):
+    """The packed bitmask that allows the even token ids."""
+    return np.full((vocab + 31) // 32, 0x55555555, np.uint32).view(np.int32)
+
+
+def _ms_per_decode(st):
+    return 1e3 * st["decode_s"] / st["decode_steps"]
+
+
+def _margin(row):
+    top = row.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+@contextlib.contextmanager
+def _recorded_picks(serving):
+    """Within: every LlamaEngine pick records each row's top-2 logit margin
+    (after its bitmask) in its request's "margins" list."""
+    pick = serving.LlamaEngine._pick
+
+    def recording(self, logits, reqs):
+        top = logits.float().topk(2, dim=-1).values
+        for r, mg in zip(reqs, (top[:, 0] - top[:, 1]).tolist()):
+            r.setdefault("margins", []).append(mg)
+        return pick(self, logits, reqs)
+
+    serving.LlamaEngine._pick = recording
+    try:
+        yield
+    finally:
+        serving.LlamaEngine._pick = pick
+
+
+def check_sampling(torch, serving, build, cfg, params, prompts, late, new_tokens, greedy):
+    """(a) A tm engine at temperature 0.8, top_k 50, top_p 0.95 serves phase
+    2's prompts twice from seed 0: the same tokens. At top_k 1 it gives
+    phase 2's greedy tokens up to each request's first exact tie of the two
+    best logits (bf16 logits tie often at 128,256 ids; top-k keeps every
+    tied logit, as in the JAX package, and the draw may take either, so
+    the rest of that request may differ). Every model call's launches are
+    phase 2's. Returns the first sampled run's stats."""
+    runs = []
+    for _ in range(2):
+        outs, st, _, reused, _ = run_engine(torch, serving, build, cfg, params, prompts, late,
+                                            new_tokens, expect=LLAMA_SERVING,
+                                            engine_kw=dict(seed=0, **SAMPLED))
+        runs.append((outs, st))
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError("(a) the sampled engine gave other tokens from the same seed")
+    if any(len(o) != new_tokens for o in runs[0][0]):
+        raise AssertionError("(a) a sampled request did not finish")
+    kept = {}
+    with _recorded_picks(serving):
+        top1 = run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
+                          expect=LLAMA_SERVING, engine_kw=dict(seed=0, temperature=0.8, top_k=1),
+                          on_done=lambda eng, *_: kept.update(reqs=list(eng.reqs.values())))[0]
+    margins = {tuple(r["tokens"]): r["margins"] for r in kept["reqs"]}
+    held = []
+    for p, o, g in zip(prompts + [late], top1, greedy):
+        ties = [j for j, mg in enumerate(margins[tuple(p)]) if mg == 0]
+        n = ties[0] if ties else new_tokens
+        if o[:n] != g[:n]:
+            raise AssertionError("(a) the engine at top_k 1 left phase 2's greedy tokens before "
+                                 "an exact tie")
+        held.append(n)
+    same = sum(a == b for o, g in zip(runs[0][0], greedy) for a, b in zip(o, g))
+    whole = sum(o == g for o, g in zip(top1, greedy))
+    print(f"  (a) sampling (temperature 0.8, top_k 50, top_p 0.95, seed 0): two runs identical, "
+          f"{same} of {len(greedy) * new_tokens} tokens equal to the greedy ones; top_k 1: "
+          f"phase 2's greedy tokens up to each request's first exact tie, tokens held "
+          f"{held} of {new_tokens} each ({whole} requests equal throughout); radix reuse "
+          f"{reused}")
+    return runs[0][1]
+
+
+def check_grammar(torch, serving, build, cfg, params, prompts, late, new_tokens, greedy):
+    """(b) Half of phase 2's requests carry the even-ids bitmask: every token
+    they emit is even; the others equal phase 2's greedy tokens."""
+    bm = _even_bitmask(cfg.vocab_size)
+    req_kw = [dict(token_bitmask=bm) if i in MASKED else {} for i in range(len(prompts) + 1)]
+    outs = run_engine(torch, serving, build, cfg, params, prompts, late, new_tokens,
+                      expect=LLAMA_SERVING, request_kw=req_kw)[0]
+    odd = [t for i in MASKED for t in outs[i] if t % 2]
+    if odd or any(len(outs[i]) != new_tokens for i in MASKED):
+        raise AssertionError(f"(b) masked requests emitted odd ids {odd[:8]}")
+    free = [i for i in range(len(outs)) if i not in MASKED]
+    if any(outs[i] != greedy[i] for i in free):
+        raise AssertionError("(b) an unmasked request did not give phase 2's greedy tokens")
+    print(f"  (b) grammar: requests {MASKED} under the even-ids bitmask emitted only even ids; "
+          f"requests {free} equal phase 2's greedy tokens")
+
+
+def check_lora(torch, serving, llama, env, build, cfg, params, prompts, late, new_tokens,
+               greedy):
+    """(c) 4 adapters of rank 16, ids -1..3 in one batch: the -1 requests
+    equal phase 2's greedy tokens; one decode_step_kv call with lora_ids
+    (the engine's steady decode call, replayed on its cache) is held to the
+    same call under SKT_IMPL=ref within calc_diff SURFACE_DIFF, its -1 rows
+    equal the call without adapters bit for bit, and the adapters move the
+    others (calc_diff above 0). Returns the run's stats."""
+    lparams = llama.add_lora_adapters(params, cfg, LORA_ADAPTERS, LORA_RANK, seed=0)
+    kept = {}
+
+    def keep(eng, stats, _dec):
+        kept["args"], kept["kv"] = stats["steady_args"], eng.kv
+
+    outs, st, _, reused, _ = run_engine(
+        torch, serving, build, cfg, lparams, prompts, late, new_tokens, expect=LLAMA_SERVING,
+        request_kw=[dict(lora_id=i) for i in LORA_IDS], on_done=keep)
+    base = [i for i, lid in enumerate(LORA_IDS) if lid < 0]
+    if any(outs[i] != greedy[i] for i in base):
+        raise AssertionError("(c) a request without an adapter did not give phase 2's tokens")
+    if reused != 256:
+        raise AssertionError(f"(c) the shared prefix was not reused ({reused})")
+    moved = sum(outs[i] != greedy[i] for i, lid in enumerate(LORA_IDS) if lid >= 0)
+    ids, pos, seq, bt, slots, lids = kept["args"]
+    kv = kept["kv"]
+
+    def call(lora):
+        out = llama.decode_step_kv(lparams, cfg, kv, ids, pos, seq, bt, slots,
+                                   lora_ids=lids if lora else None)[0].clone()
+        torch.cuda.synchronize()
+        return out
+
+    c = _Launches(build)
+    got = call(True)
+    launched = {k: n for k, n in c.delta().items() if n}
+    with _env(SKT_IMPL="ref"):
+        c = _Launches(build)
+        ref = call(True)
+        if any(c.delta().values()):
+            raise AssertionError("(c) the SKT_IMPL=ref call launched a kernel")
+    plain = call(False)
+    with_ad, without = lids >= 0, (lids < 0) & (slots >= 0)
+    d_ref = _calc_diff(got, ref)
+    d_ad = _calc_diff(got[with_ad], plain[with_ad])
+    print(f"  (c) multi-LoRA ({LORA_ADAPTERS} adapters of rank {LORA_RANK}, ids "
+          f"{list(LORA_IDS)} + -1 for the late request): the -1 requests equal phase 2's "
+          f"tokens, {moved} of 4 adapter requests' tokens moved, radix reuse {reused}; one "
+          f"decode_step_kv call (ids {lids.tolist()}) launched {launched}, calc_diff "
+          f"{d_ref:.3g} against SKT_IMPL=ref (bound {SURFACE_DIFF}), {d_ad:.3g} against no "
+          f"adapter on the adapter rows (must be > 0), rows without one bit-equal: "
+          f"{torch.equal(got[without], plain[without])}")
+    if not d_ref < SURFACE_DIFF:
+        raise AssertionError("(c) decode_step_kv with lora_ids is off its SKT_IMPL=ref call")
+    if not d_ad > 0 or not torch.equal(got[without], plain[without]):
+        raise AssertionError("(c) the adapters do not move their rows, or move the others")
+    return st
+
+
+def check_pause_resume(torch, serving, build, cfg, params, prompts, late, new_tokens, greedy,
+                       gpu):
+    """(d) Phase 2's requests; the first is paused after half its tokens
+    (pages offloaded to the host, freed), a new 300-token request churns
+    the pool (it takes the freed page) for 4 steps, then the first resumes
+    into a new page: every request's tokens equal phase 2's."""
+    eng = serving.LlamaEngine(cfg, params=params, device="cuda", num_pages=512,
+                              decode_batch=8, token_budget=256)
+    churn_prompt = np.random.default_rng(17).integers(0, cfg.vocab_size, 300).tolist()
+    rids = [eng.add_request(p, new_tokens) for p in prompts]
+    late_rid = paused = resumed = None
+    held, took, times = 0, set(), {}
+    for _ in range(1000):
+        if late_rid is None and eng.reqs[rids[-1]]["out"]:
+            late_rid = eng.add_request(late, new_tokens)
+        if (paused is None and late_rid is not None
+                and len(eng.reqs[rids[0]]["out"]) >= new_tokens // 2):
+            old = list(eng.reqs[rids[0]]["pages"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paused = eng.pause_request(rids[0])
+            times["pause"] = time.perf_counter() - t0
+            churn = eng.add_request(churn_prompt, 4)
+            took = set(eng.reqs[churn]["pages"]) & set(old)
+        elif paused is not None and resumed is None:
+            held += 1
+            if held > 4:
+                t0 = time.perf_counter()
+                resumed = eng.resume_request(paused)
+                torch.cuda.synchronize()
+                times["resume"] = time.perf_counter() - t0
+                new_pages = eng.reqs[resumed]["pages"]
+        if not eng.step() and resumed is not None:
+            break
+    outs = [eng.reqs[resumed]["out"]] + [eng.reqs[r]["out"] for r in rids[1:] + [late_rid]]
+    if not took:
+        raise AssertionError("(d) the churn request took none of the paused request's pages")
+    if outs != greedy:
+        bad = [i for i, (a, b) in enumerate(zip(outs, greedy)) if a != b]
+        raise AssertionError(f"(d) requests {bad} differ from phase 2's uninterrupted run")
+    print(f"  (d) pause / resume: request 0 paused after {new_tokens // 2} tokens (pages {old}, "
+          f"offloaded in {1e3 * times['pause']:.2f} ms), the churn request took pages "
+          f"{sorted(took)}, resumed after 4 steps into pages {new_pages} "
+          f"({1e3 * times['resume']:.2f} ms); all 8 requests equal phase 2's tokens [{gpu}]")
+    del eng
+
+
+def _decode_batch_args(torch, b, tok, p, table, mp, ps):
+    """decode_step's inputs for one live row in a padded batch of b, as the
+    engine pads its decode batch."""
+    dev = "cuda"
+    ids = torch.zeros(b, dtype=torch.int32, device=dev)
+    pos = torch.zeros(b, dtype=torch.int32, device=dev)
+    seq = torch.ones(b, dtype=torch.int32, device=dev)
+    bt = torch.zeros((b, mp), dtype=torch.int32, device=dev)
+    slots = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    ids[0], pos[0], seq[0] = tok, p, p + 1
+    bt[0] = table
+    slots[0] = int(table[p // ps]) * ps + p % ps
+    return ids, pos, seq, bt, slots
+
+
+def check_step_functions(torch, serving, llama, build, params, gpu):
+    """(e) A 512-token prompt served by the hm engine (bf16 pages, 128-token
+    chunks, untiled banks: A, K15, K14; every call's launches exact), and
+    the same through prefill_chunk_step (4 chunks of 128) and decode_step
+    on a padded batch of 8 as the engine pads it: the same tokens. Then
+    decode_verify_step on the first 4 generated tokens, held to the 4
+    decode_step calls' logits by calc_diff, and to decode_verify_step a
+    token a call on the same positions. Returns the largest logit
+    difference of the chain's call and the single-token calls, and the
+    timings."""
+    cfg = llama.LlamaConfig(int8_kv=False)
+    prompt = np.random.default_rng(23).integers(0, cfg.vocab_size, STEP_PROMPT).tolist()
+    eng = serving.LlamaEngine(cfg, params=params, device="cuda", num_pages=64, decode_batch=8,
+                              token_budget=STEP_CHUNK)
+    if not isinstance(eng.kv, tuple):
+        raise AssertionError("(e) the engine at int8_kv=False must pick bf16 hm pages")
+    inner = {"prefill": eng._prefill_batch, "decode": eng._decode}
+
+    def checked(kind):
+        def call(*a):
+            c = _Launches(build)
+            out = inner[kind](*a)
+            _check_call(kind, c.delta(), HM_A_SERVING)
+            return out
+        return call
+
+    eng._prefill_batch, eng._decode = checked("prefill"), checked("decode")
+    want = eng.generate([prompt], max_new_tokens=STEP_NEW)[0]
+    mp = eng.max_pages
+    del eng
+    torch.cuda.empty_cache()
+
+    ints = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")  # noqa: E731
+    k, v = llama.init_kv_cache(cfg, 64, layout="hm", device="cuda")
+    table = ints(list(range(mp)))
+    t = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, STEP_PROMPT, STEP_CHUNK):
+        pos = torch.arange(lo, lo + STEP_CHUNK, dtype=torch.int32, device="cuda")
+        lg, k, v = llama.prefill_chunk_step(params, cfg, k, v, ints(prompt[lo:lo + STEP_CHUNK]),
+                                            pos, pos, table, lo)
+    torch.cuda.synchronize()
+    t["prefill_chunk_step"] = (time.perf_counter() - t0) / (STEP_PROMPT // STEP_CHUNK)
+    toks, margins, dec = [int(lg[-1].argmax())], [_margin(lg[-1])], []
+    t0 = time.perf_counter()
+    for i in range(STEP_NEW - 1):
+        args = _decode_batch_args(torch, 8, toks[-1], STEP_PROMPT + i, table, mp,
+                                  cfg.page_size)
+        lg, k, v = llama.decode_step(params, cfg, k, v, *args)
+        dec.append(lg[0].clone())
+        toks.append(int(lg[0].argmax()))
+        margins.append(_margin(lg[0]))
+    t["decode_step"] = (time.perf_counter() - t0) / (STEP_NEW - 1)
+    if toks != want:
+        raise AssertionError(f"(e) prefill_chunk_step + decode_step gave {toks}, the hm engine "
+                             f"{want}")
+    chain = toks[:VERIFY_CHAIN]
+    pos = torch.arange(STEP_PROMPT, STEP_PROMPT + VERIFY_CHAIN, dtype=torch.int32,
+                       device="cuda")[None]
+    mask = torch.tril(torch.ones((1, VERIFY_CHAIN, VERIFY_CHAIN), dtype=torch.bool,
+                                 device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lv, k, v = llama.decode_verify_step(params, cfg, k, v, ints([chain]), pos, mask,
+                                        ints([STEP_PROMPT]), table[None], pos)
+    torch.cuda.synchronize()
+    t["decode_verify_step"] = time.perf_counter() - t0
+    ref = torch.stack(dec[:VERIFY_CHAIN])
+    d = _calc_diff(lv[0], ref)
+    gap = float((lv[0] - ref).abs().max())
+    # the same 4 positions through decode_verify_step a token a call, each
+    # reading the rows the chain's call wrote before it
+    one = torch.ones((1, 1, 1), dtype=torch.bool, device="cuda")
+    single = torch.stack([
+        llama.decode_verify_step(params, cfg, k, v, ints([[tok]]), pos[:, i:i + 1], one,
+                                 ints([STEP_PROMPT + i]), table[None], pos[:, i:i + 1])[0][0, 0]
+        for i, tok in enumerate(chain)])
+    d_one, gap_one = _calc_diff(lv[0], single), float((lv[0] - single).abs().max())
+    print(f"  (e) step functions: {STEP_PROMPT} tokens through prefill_chunk_step in chunks of "
+          f"{STEP_CHUNK} ({1e3 * t['prefill_chunk_step']:.2f} ms a chunk), {STEP_NEW - 1} "
+          f"decode_step calls ({1e3 * t['decode_step']:.2f} ms each): the hm engine's tokens "
+          f"(smallest top-2 margin {min(margins):.4f}); decode_verify_step on a "
+          f"{VERIFY_CHAIN}-token chain ({1e3 * t['decode_verify_step']:.2f} ms) vs the decode_step logits: calc_diff "
+          f"{d:.3g} (bound {SURFACE_DIFF}), max |diff| {gap:.4g}; vs decode_verify_step a "
+          f"token a call on the same positions: calc_diff {d_one:.3g}, max |diff| "
+          f"{gap_one:.4g} [{gpu}]")
+    if not (d < SURFACE_DIFF and d_one < SURFACE_DIFF):
+        raise AssertionError("(e) decode_verify_step's logits are off decode_step's or its own")
+    del k, v
+    return gap_one, t
+
+
+def _judged(torch, llama, cfg, params, prompt, out, num_pages=16):
+    """The target's judgement of an emitted sequence: the prompt through
+    prefill_chunk_step as speculative_generate prefills it, then one
+    decode_verify_step over out[:-1] as a causal chain. Returns the
+    prefill's argmax (out[0]'s judge) and, for every later token, how far
+    its logit lies below its row's best."""
+    ints = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")  # noqa: E731
+    ps = cfg.page_size
+    pages = list(range(1, num_pages))
+    bt = ints([pages])
+    k, v = llama.init_kv_cache(cfg, num_pages, layout="hm", device="cuda")
+    m, n = len(prompt), len(out) - 1
+    slots = [pages[p // ps] * ps + p % ps for p in range(m + n)]
+    lg, k, v = llama.prefill_chunk_step(params, cfg, k, v, ints(prompt),
+                                        torch.arange(m, dtype=torch.int32, device="cuda"),
+                                        ints(slots[:m]), bt[0], 0)
+    first = int(lg[-1].argmax())
+    mask = torch.tril(torch.ones((1, n, n), dtype=torch.bool, device="cuda"))
+    lv, k, v = llama.decode_verify_step(
+        params, cfg, k, v, ints([out[:-1]]), ints([list(range(m, m + n))]), mask, ints([m]),
+        bt, ints([slots[m:]]))
+    rows = lv[0].float()
+    lag = rows.max(-1).values - rows[torch.arange(n, device="cuda"), ints(out[1:]).long()]
+    return first, lag.tolist()
+
+
+def check_speculative(torch, serving, llama, params, prompt, gap, gpu):
+    """(f) speculative_generate with the full-width target (bf16 pages) and a
+    2-layer draft of the same widths (seed 1), draft_len 4, 64 new tokens,
+    and with the target as its own draft, each held to the target's
+    judgement of its output (_judged) under the margin rule (see
+    SPEC_DRAFT_LEN): the first token the prefill's argmax, every later one
+    within 2 * gap of its row's best logit. Self-speculation (its drafts
+    are decode_step's, K14) must accept every draft of at least one round.
+    Prints the accept counts and the share of tokens that are their row's
+    argmax. Returns the figures."""
+    t_cfg = llama.LlamaConfig(int8_kv=False)
+    d_cfg = llama.LlamaConfig(int8_kv=False, num_layers=SPEC_DRAFT_LAYERS)
+    t0 = time.perf_counter()
+    d_params = llama.init_params(d_cfg, 1, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    runs = {}
+    for name, dp, dc in (("draft", d_params, d_cfg), ("self", params, t_cfg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, acc = serving.speculative_generate(params, t_cfg, dp, dc, prompt, SPEC_NEW,
+                                                SPEC_DRAFT_LEN, device="cuda")
+        torch.cuda.synchronize()
+        spec_s = time.perf_counter() - t0
+        first, lag = _judged(torch, llama, t_cfg, params, prompt, out)
+        runs[name] = (out, acc, spec_s, lag)
+        if len(out) != SPEC_NEW or out[0] != first or max(lag) > 2 * gap:
+            raise AssertionError(f"(f) {name}: {len(out)} tokens, first {out[0]} against the "
+                                 f"prefill's {first}, a token {max(lag):.4f} below its row's "
+                                 f"best (bound 2 * {gap:.4g})")
+    s_acc = runs["self"][1]
+    if SPEC_DRAFT_LEN - 1 not in s_acc:
+        raise AssertionError(f"(f) self-speculation accepted no round whole: {s_acc}")
+    del d_params
+    fig = {}
+    for name, (out, acc, spec_s, lag) in runs.items():
+        fig[name] = dict(rounds=len(acc), rate=sum(acc) / (len(acc) * (SPEC_DRAFT_LEN - 1)),
+                         s=spec_s, argmax=sum(x == 0 for x in lag), worst=max(lag))
+        label = (f"a {SPEC_DRAFT_LAYERS}-layer draft (seed 1)" if name == "draft"
+                 else "self-speculation")
+        print(f"  (f) speculative_generate, {label}, "
+              f"draft_len {SPEC_DRAFT_LEN}: {len(acc)} rounds, accept counts {acc} (acceptance "
+              f"rate {fig[name]['rate']:.3f}), {spec_s:.2f} s; judged by one decode_verify_step "
+              f"over its output: first token the prefill's argmax, {fig[name]['argmax']} of "
+              f"{SPEC_NEW - 1} later tokens their row's argmax, the farthest {max(lag):.4f} below "
+              f"its row's best (bound 2 * {gap:.4g}) [{gpu}]")
+    print(f"  (f) the draft's init_params {init_s:.1f} s")
+    return fig
+
+
+def run_serving_surface(torch, serving, llama, env, build, cfg, params, prompts, late,
+                        new_tokens, greedy, phase2_st, gpu):
+    """Phase 17: the rest of the Llama serving surface at Llama-3-8B width on
+    phase 2's seed-0 weights (untiled banks), the counters set to 0 first:
+    (a) sampling, (b) grammar bitmasks, (c) multi-LoRA, (d) pause / resume,
+    (e) the step functions, (f) speculative decoding; (g) A, B, C, D, K14
+    and K15 launched. Returns the phase's launches."""
+    build.reset_launches()
+    t0 = time.perf_counter()
+    sampled_st = check_sampling(torch, serving, build, cfg, params, prompts, late, new_tokens,
+                                greedy)
+    check_grammar(torch, serving, build, cfg, params, prompts, late, new_tokens, greedy)
+    lora_st = check_lora(torch, serving, llama, env, build, cfg, params, prompts, late,
+                         new_tokens, greedy)
+    check_pause_resume(torch, serving, build, cfg, params, prompts, late, new_tokens, greedy, gpu)
+    torch.cuda.empty_cache()
+    gap, _ = check_step_functions(torch, serving, llama, build, params, gpu)
+    torch.cuda.empty_cache()
+    spec = check_speculative(torch, serving, llama, params, prompts[0], gap, gpu)
+    torch.cuda.empty_cache()
+    launches = dict(build.launches)
+    idle = [k for k in SURFACE_KERNELS if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"(g) kernels never launched in phase 17: {idle}")
+    print(f"  decode ms per engine step (host clock, synchronised): phase 2 greedy "
+          f"{_ms_per_decode(phase2_st):.2f}, sampled {_ms_per_decode(sampled_st):.2f}, LoRA "
+          f"{_ms_per_decode(lora_st):.2f} [{gpu}]")
+    print(f"  (g) launches in phase 17: { {k: n for k, n in launches.items() if n} }; "
+          f"A, B, C, D, K14 and K15 each launched; phase 17 {time.perf_counter() - t0:.1f} s")
+    return launches, spec
 
 
 # A, K1 and K2 run the int8 stage of csrc/w8a8_wgmma.cuh, each kernel
@@ -6555,6 +7043,16 @@ def main() -> int:
     if launches["w8a8_gemm_l1"] != st["prefill_steps"] + st["decode_steps"]:
         raise AssertionError(f"quant_matmul_int8 launched {launches['w8a8_gemm_l1']} times "
                              f"in {st['prefill_steps'] + st['decode_steps']} model calls")
+    torch.cuda.empty_cache()
+
+    # phase 17 runs here, on phase 2's weights before phase 4 pretiles them
+    print("phase 17: the rest of the Llama serving surface (sampling, grammar bitmasks, "
+          "multi-LoRA, pause / resume, the step functions, speculative decoding) at "
+          "Llama-3-8B width")
+    t0 = time.perf_counter()
+    run_serving_surface(torch, serving, llama, env, _build, cfg, params, prompts, late,
+                        new_tokens, outs, st, gpu)
+    print(f"  phase 17 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     print("phase 3: small configs, card vs CPU plain versions")

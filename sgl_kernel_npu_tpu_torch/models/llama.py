@@ -21,6 +21,15 @@ layers' rows after the loop, unless SKT_DECODE_DEFER or SKT_DECODE_FLAT is
 off: then each layer writes its row and attends with K16's v3 contract;
 prefill writes each layer's chunk, then attends with K15. Every cast of the
 JAX code is kept where it has one.
+
+The rest of the JAX module's single-card surface: `decode_step` (the bf16
+tuple-cache wrapper), `prefill_step` (one sequence, plain causal
+attention), `prefill_chunk_step(_kv)` (one sequence's chunk over a cached
+prefix: tm pages through prefill_batch_step_kv, hm pages through K15),
+`decode_verify_step` (draft trees, plain attention over the gathered prefix
+and the masked drafts) and `add_lora_adapters`, whose per-layer adapters
+the decode and batched prefill steps apply on wo's output for `lora_ids`
+(ops/lora.py's BGMV pair).
 """
 
 from __future__ import annotations
@@ -37,7 +46,9 @@ from ..ops.attention import decode_v8 as _v8
 from ..ops.attention import decode_v11 as _v11
 from ..ops.attention.decode_v9 import decode_gqa_v9_int8_defer
 from ..ops.attention.decode_v13 import decode_gqa_v13_int8_defer
-from ..ops.attention.paged_prefill import paged_prefill_attention_batch
+from ..ops import lora as _lora
+from ..ops.attention.paged_prefill import (paged_prefill_attention,
+                                           paged_prefill_attention_batch)
 from ..ops.attention.paged_prefill_tm import paged_prefill_attention_tm
 from ..ops.matmul import (pretile_weight_bank, quant_matmul_int8,
                           quant_matmul_int8_stacked)
@@ -45,6 +56,8 @@ from ..ops.quant import per_token_quant_int8
 from ..ops.rmsq_gemm import rmsnorm_quant_gemm
 from ..ops.rope import apply_rope, make_cos_sin_cache
 from ..utils import env, resolve_device
+
+_NEG = -1e30
 
 
 @dataclass(frozen=True)
@@ -329,9 +342,21 @@ def _decode_qkv(x, big, li: int, cfg: LlamaConfig, cos, sin):
     return q, k, v.reshape(b, hkv, d)
 
 
-def _decode_tail(x, att, big, li: int, cfg: LlamaConfig):
-    """wo, residual, RMSNorm + w13, SwiGLU, w2, residual."""
-    x = x + _qmm_l(att.reshape(x.shape[0], -1), big["wo"], li)
+def _lora_wo(att, wo_out, big, li: int, lora_ids):
+    """The multi-LoRA hook on wo's output (the JAX package's BGMV hook):
+    wo_out + B_id (A_id att) for each row's adapter id, 0 for id -1; with
+    no ids, wo_out as it is."""
+    if lora_ids is None:
+        return wo_out
+    shrunk = _lora.bgmv_shrink(att, big["lora_wo_A"][li], lora_ids)
+    return _lora.bgmv_expand(shrunk, big["lora_wo_B"][li], lora_ids, wo_out, 0,
+                             wo_out.shape[-1])
+
+
+def _decode_tail(x, att, big, li: int, cfg: LlamaConfig, lora_ids=None):
+    """wo (+ the LoRA hook), residual, RMSNorm + w13, SwiGLU, w2, residual."""
+    att = att.reshape(x.shape[0], -1)
+    x = x + _lora_wo(att, _qmm_l(att, big["wo"], li), big, li, lora_ids)
     g32 = _nrq_l(x, big["post_norm"][li], big["w13"], li, cfg.rms_eps).float()
     return x + _qmm_l(_swiglu(g32, cfg.intermediate_size).to(x.dtype), big["w2"], li)
 
@@ -348,7 +373,7 @@ def _hm_attend_defer(q, k, v, kv, cached, block_table, sm_scale, ps):
 
 
 def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
-                    slot_mapping):
+                    slot_mapping, lora_ids=None):
     """decode_step_kv on page-major pages (the JAX package's llama.py:443-651):
     the flat deferred branch, or with SKT_DECODE_DEFER or SKT_DECODE_FLAT off
     the in-loop write + v3. The JAX flat branches address layer li's pages as
@@ -367,7 +392,7 @@ def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
             q, k, v = _decode_qkv(x, big, li, cfg, cos, sin)
             att = _hm_attend_defer(q, k, v, _layer(kv_cache, li), cached, block_table,
                                    sm_scale, ps)
-            x = _decode_tail(x, att, big, li, cfg)
+            x = _decode_tail(x, att, big, li, cfg, lora_ids)
             k_new.append(k)
             v_new.append(v)
         # every layer's new rows at once into the [L*P] pool
@@ -388,12 +413,12 @@ def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
         else:
             att = _v3.decode_gqa_v3_int8(q, kv["k"], kv["v"], kv["ks"], kv["vs"], seq_lens,
                                          block_table, sm_scale, ps)
-        x = _decode_tail(x, att, big, li, cfg)
+        x = _decode_tail(x, att, big, li, cfg, lora_ids)
     return x
 
 
 def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
-                   seq_lens, block_table, slot_mapping):
+                   seq_lens, block_table, slot_mapping, lora_ids=None):
     """One continuous-batching decode step, on page-major ("hm": a bf16 (k,
     v) tuple or an int8 dict with 5-D scales), token-major ("tm") or
     head-major-within-page ("tm2") pages, told apart by the cache as the JAX
@@ -401,14 +426,15 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
 
     input_ids/positions/slot_mapping [B]; seq_lens [B] (length INCLUDING the
     new token); block_table [B, max_pages]. Padded rows carry slot -1.
-    Updates kv_cache in place; returns (logits [B, V] f32, kv_cache)."""
+    lora_ids [B]: each row's adapter (add_lora_adapters; -1 none), applied
+    on wo's output in every branch. Updates kv_cache in place; returns
+    (logits [B, V] f32, kv_cache)."""
     d = cfg.head_dim
     x = params["embed"][input_ids.long()]
-    cs = params["cos_sin"][positions.long()]
-    cos, sin = cs[:, None, : d // 2], cs[:, None, d // 2:]
+    cos, sin = _rope_cs(params, positions, d)
     if _is_hm(kv_cache):
         x = _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
-                            slot_mapping)
+                            slot_mapping, lora_ids)
         return _final_logits(x, params, cfg), kv_cache
     is_tm2 = kv_cache["k"].dim() == 5
     attend = decode_gqa_v13_int8_defer if is_tm2 else decode_gqa_v9_int8_defer
@@ -424,7 +450,7 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
         att = attend(q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
                      kv_cache["vs"], cached, block_table, sm_scale, ps,
                      layer_idx=li)
-        x = _decode_tail(x, att, big, li, cfg)
+        x = _decode_tail(x, att, big, li, cfg, lora_ids)
         k_new.append(k)
         v_new.append(v)
 
@@ -441,26 +467,48 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
     return _final_logits(x, params, cfg), kv_cache
 
 
-def _prefill_tail(x, att, big, li: int, cfg: LlamaConfig):
-    """wo, residual, RMSNorm, w13, SwiGLU, w2, residual on x [S, T, H]."""
-    s, t = x.shape[:2]
-    n_tok = s * t
-    x = x + _qmm_l(att.reshape(n_tok, -1), big["wo"], li).reshape(s, t, -1)
+def _rope_cs(params, positions, d: int):
+    """cos, sin [..., 1, D/2] of the positions (any leading shape)."""
+    cs = params["cos_sin"][positions.long()]
+    return cs[..., None, : d // 2], cs[..., None, d // 2:]
+
+
+def _prefill_qkv(x, big, li: int, cfg: LlamaConfig, cos, sin):
+    """Layer li's RMSNorm, wqkv (kernel A, or K1 on a pretiled bank) and
+    RoPE on rows x [..., H]: q [..., Hq, D], k and v [..., Hkv, D]."""
+    lead = x.shape[:-1]
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h1 = _rmsnorm(x, big["input_norm"][li], cfg.rms_eps)
+    qkv = _qmm_l(h1.reshape(-1, x.shape[-1]), big["wqkv"], li)
+    q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], -1)
+    q = apply_rope(q.reshape(*lead, hq, d), cos, sin)
+    k = apply_rope(k.reshape(*lead, hkv, d), cos, sin)
+    return q, k, v.reshape(*lead, hkv, d)
+
+
+def _prefill_tail(x, att, big, li: int, cfg: LlamaConfig, lora_ids=None):
+    """wo (+ the LoRA hook, lora_ids an id a token), residual, RMSNorm,
+    w13, SwiGLU, w2, residual on rows x [..., H]."""
+    lead = x.shape[:-1]
+    att = att.reshape(x.numel() // x.shape[-1], -1)
+    wo_out = _lora_wo(att, _qmm_l(att, big["wo"], li), big, li, lora_ids)
+    x = x + wo_out.reshape(*lead, -1)
     h2 = _rmsnorm(x, big["post_norm"][li], cfg.rms_eps)
-    g32 = _qmm_l(h2.reshape(n_tok, -1), big["w13"], li).float()
+    g32 = _qmm_l(h2.reshape(-1, x.shape[-1]), big["w13"], li).float()
     act = _swiglu(g32, cfg.intermediate_size).to(x.dtype)
-    return x + _qmm_l(act, big["w2"], li).reshape(s, t, -1)
+    return x + _qmm_l(act, big["w2"], li).reshape(*lead, -1)
 
 
 def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
                           valid_lens, positions, slot_mapping, block_tables,
-                          prefix_lens):
+                          prefix_lens, lora_ids=None):
     """Batched chunked prefill: S chunks padded to [S, T], on token-major
     or page-major pages.
 
     input_ids/positions/slot_mapping [S, T] (padding rows carry slot -1);
     valid_lens [S]; block_tables [S, max_pages]; prefix_lens [S] tokens of
-    each sequence already in the cache. On tm pages the in-flight chunk is
+    each sequence already in the cache; lora_ids [S] each chunk's adapter
+    (-1 none), applied on wo's output. On tm pages the in-flight chunk is
     attended in bf16 and all layers' chunk rows are quantized and appended
     after the loop; on hm pages each layer writes its chunk (quantized for
     an int8 cache) and then attends the cache (K15), as the JAX package does.
@@ -470,36 +518,31 @@ def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
         raise NotImplementedError("prefill serves the 'tm' and 'hm' caches; 'tm2' is "
                                   "a decode-only layout, as in the JAX package")
     s, t = input_ids.shape
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
     sm_scale = 1.0 / (d ** 0.5)
     ps = cfg.page_size
     n_tok = s * t
     big = params["layers"]
     x = params["embed"][input_ids.long()]                        # [S, T, H]
-    cs = params["cos_sin"][positions.long()]
-    cos, sin = cs[:, :, None, : d // 2], cs[:, :, None, d // 2:]
+    cos, sin = _rope_cs(params, positions, d)
     flat_slots = slot_mapping.reshape(-1)
+    tok_ids = None if lora_ids is None else lora_ids.repeat_interleave(t)
     k_all, v_all = [], []
     for li in range(cfg.num_layers):
-        h1 = _rmsnorm(x, big["input_norm"][li], cfg.rms_eps)
-        qkv = _qmm_l(h1.reshape(n_tok, -1), big["wqkv"], li)
-        q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], -1)
-        q = apply_rope(q.reshape(s, t, hq, d), cos, sin)
-        k = apply_rope(k.reshape(s, t, hkv, d), cos, sin)
-        v = v.reshape(s, t, hkv, d)
+        q, k, v = _prefill_qkv(x, big, li, cfg, cos, sin)
         if hm:
             kv = _layer(kv_cache, li)
             _scatter_hm(k.reshape(n_tok, hkv, d), v.reshape(n_tok, hkv, d), kv,
                         flat_slots)
             att = paged_prefill_attention_batch(q, kv, block_tables, prefix_lens,
                                                 sm_scale, ps, block_q=min(128, t))
-            x = _prefill_tail(x, att.to(x.dtype), big, li, cfg)
+            x = _prefill_tail(x, att.to(x.dtype), big, li, cfg, tok_ids)
             continue
         att = paged_prefill_attention_tm(
             q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
             kv_cache["vs"], block_tables, prefix_lens, valid_lens, sm_scale,
             ps, layer_idx=li)
-        x = _prefill_tail(x, att, big, li, cfg)
+        x = _prefill_tail(x, att, big, li, cfg, tok_ids)
         k_all.append(k)
         v_all.append(v)
 
@@ -517,3 +560,151 @@ def prefill_batch_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids,
             vsn.reshape(lcount, s, t, hkv), block_tables, prefix_lens, valid_lens)
     logits = _final_logits(x.reshape(n_tok, -1), params, cfg)
     return logits.reshape(s, t, -1), kv_cache
+
+
+def decode_step(params, cfg: LlamaConfig, k_cache, v_cache, input_ids, positions,
+                seq_lens, block_table, slot_mapping):
+    """The bf16 tuple-cache wrapper of decode_step_kv (page-major pages).
+    Returns (logits, k_cache, v_cache)."""
+    logits, (kc, vc) = decode_step_kv(params, cfg, (k_cache, v_cache), input_ids,
+                                      positions, seq_lens, block_table, slot_mapping)
+    return logits, kc, vc
+
+
+def prefill_step(params, cfg: LlamaConfig, k_cache, v_cache, input_ids, positions,
+                 slot_mapping, seq_start=0):
+    """Single-sequence prefill on bf16 page-major caches: the [T] tokens
+    attend causally to each other only (plain f32 attention, as in the JAX
+    package), each layer's rows written at slot_mapping; the GEMMs through
+    kernel A (K1 on pretiled banks). `seq_start` is unused, as there.
+    Returns (logits [T, V] f32, k_cache, v_cache)."""
+    t = input_ids.shape[0]
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    sm_scale = 1.0 / (d ** 0.5)
+    big = params["layers"]
+    x = params["embed"][input_ids.long()]
+    cos, sin = _rope_cs(params, positions, d)
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    for li in range(cfg.num_layers):
+        q, k, v = _prefill_qkv(x, big, li, cfg, cos, sin)
+        _scatter_hm(k, v, (k_cache[li], v_cache[li]), slot_mapping)
+        sc = torch.einsum("thgd,nhd->hgtn", q.reshape(t, hkv, g, d).float(),
+                          k.float()) * sm_scale
+        p = torch.softmax(torch.where(causal, sc, torch.full_like(sc, _NEG)), dim=-1)
+        att = torch.einsum("hgtn,nhd->thgd", p, v.float())
+        x = _prefill_tail(x, att.to(x.dtype), big, li, cfg)
+    return _final_logits(x, params, cfg), k_cache, v_cache
+
+
+def prefill_chunk_step(params, cfg: LlamaConfig, k_cache, v_cache, input_ids, positions,
+                       slot_mapping, block_table, prefix_len):
+    """The bf16 tuple-cache wrapper of prefill_chunk_step_kv. Returns
+    (logits, k_cache, v_cache)."""
+    logits, (kc, vc) = prefill_chunk_step_kv(params, cfg, (k_cache, v_cache), input_ids,
+                                             positions, slot_mapping, block_table,
+                                             prefix_len)
+    return logits, kc, vc
+
+
+def prefill_chunk_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
+                          slot_mapping, block_table, prefix_len):
+    """Chunked prefill of ONE sequence: a [T]-token chunk whose first
+    `prefix_len` tokens are already cached (block_table [max_pages]) attends
+    causally to itself and fully to the prefix, and is written to the cache.
+    Token-major pages go through prefill_batch_step_kv with S = 1, as in the
+    JAX package; page-major pages (a bf16 tuple or an int8 dict) write each
+    layer's chunk, then attend through K15 (paged_prefill_attention).
+    Updates kv_cache in place; returns (logits [T, V] f32, kv_cache)."""
+    t = input_ids.shape[0]
+    if not _is_hm(kv_cache):
+        dev = input_ids.device
+        logits, kv_cache = prefill_batch_step_kv(
+            params, cfg, kv_cache, input_ids[None],
+            torch.tensor([t], dtype=torch.int32, device=dev), positions[None],
+            slot_mapping[None], block_table[None],
+            torch.as_tensor(prefix_len, dtype=torch.int32, device=dev).reshape(1))
+        return logits[0], kv_cache
+    d = cfg.head_dim
+    sm_scale = 1.0 / (d ** 0.5)
+    big = params["layers"]
+    x = params["embed"][input_ids.long()]
+    cos, sin = _rope_cs(params, positions, d)
+    for li in range(cfg.num_layers):
+        q, k, v = _prefill_qkv(x, big, li, cfg, cos, sin)
+        kv = _layer(kv_cache, li)
+        _scatter_hm(k, v, kv, slot_mapping)
+        att = paged_prefill_attention(q, kv, block_table, prefix_len, sm_scale,
+                                      cfg.page_size, block_q=min(128, t))
+        x = _prefill_tail(x, att.to(x.dtype), big, li, cfg)
+    return _final_logits(x, params, cfg), kv_cache
+
+
+def decode_verify_step(params, cfg: LlamaConfig, k_cache, v_cache, input_ids, positions,
+                       tree_mask, seq_lens, block_table, slot_mapping):
+    """Multi-token verification (EAGLE / MTP) on bf16 tuple caches: each of
+    B requests carries dt draft tokens that attend to its paged prefix and,
+    by tree_mask, to the drafts. Plain f32 attention over the gathered
+    prefix plus the masked draft block, as in the JAX package; the GEMMs
+    through kernel A (K1 on pretiled banks); each layer writes the drafts'
+    rows.
+
+    input_ids/positions/slot_mapping [B, dt]; tree_mask [B, dt, dt] bool
+    (token i attends draft j); seq_lens [B] the prefix length, drafts
+    excluded; block_table [B, max_pages]. Returns (logits [B, dt, V] f32,
+    k_cache, v_cache)."""
+    b, dt = input_ids.shape
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    sm_scale = 1.0 / (d ** 0.5)
+    ps = cfg.page_size
+    npos = block_table.shape[1] * ps
+    big = params["layers"]
+    x = params["embed"][input_ids.long()]                        # [B, dt, H]
+    cos, sin = _rope_cs(params, positions, d)
+    pre_ok = (torch.arange(npos, device=x.device)[None] < seq_lens[:, None].long())
+    bt = block_table.long()
+    for li in range(cfg.num_layers):
+        q, k, v = _prefill_qkv(x, big, li, cfg, cos, sin)
+        kc, vc = k_cache[li], v_cache[li]
+        _scatter_hm(k.reshape(b * dt, hkv, d), v.reshape(b * dt, hkv, d), (kc, vc),
+                    slot_mapping.reshape(-1))
+        # the prefix gathered token-major [B, N, Hkv, D] (drafts past seq_lens masked)
+        kp = kc[bt].permute(0, 1, 3, 2, 4).reshape(b, npos, hkv, d)
+        vp = vc[bt].permute(0, 1, 3, 2, 4).reshape(b, npos, hkv, d)
+        qh = q.reshape(b, dt, hkv, g, d).float()
+        sc_pre = torch.einsum("bthgd,bnhd->bhgtn", qh, kp.float()) * sm_scale
+        sc_pre = torch.where(pre_ok[:, None, None, None, :], sc_pre,
+                             torch.full_like(sc_pre, _NEG))
+        sc_tree = torch.einsum("bthgd,bnhd->bhgtn", qh, k.float()) * sm_scale
+        sc_tree = torch.where(tree_mask[:, None, None], sc_tree,
+                              torch.full_like(sc_tree, _NEG))
+        p = torch.softmax(torch.cat([sc_pre, sc_tree], dim=-1), dim=-1)
+        att = (torch.einsum("bhgtn,bnhd->bthgd", p[..., :npos], vp.float())
+               + torch.einsum("bhgtn,bnhd->bthgd", p[..., npos:], v.float()))
+        x = _prefill_tail(x, att.reshape(b, dt, -1).to(x.dtype), big, li, cfg)
+    logits = _final_logits(x.reshape(b * dt, -1), params, cfg)
+    return logits.reshape(b, dt, -1), k_cache, v_cache
+
+
+def add_lora_adapters(params, cfg: LlamaConfig, num_adapters: int, rank: int,
+                      seed: int = 0, scale: float = 0.05):
+    """Attach per-layer multi-LoRA adapters on the attention output
+    projection, drawn as the JAX package draws them (numpy's default_rng,
+    the same draws in the same order, rounded to f32 once), on the params'
+    device. Returns a NEW params dict whose layers carry lora_wo_A [L, n,
+    r, Hq * D] and lora_wo_B [L, n, H, r] f32."""
+    rng = np.random.default_rng(seed)
+    dev = params["embed"].device
+    l = cfg.num_layers
+
+    def draw(shape):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    layers = dict(params["layers"])
+    layers["lora_wo_A"] = draw((l, num_adapters, rank, cfg.q_size))
+    layers["lora_wo_B"] = draw((l, num_adapters, cfg.hidden_size, rank))
+    out = dict(params)
+    out["layers"] = layers
+    return out

@@ -13,7 +13,6 @@ The port runs its plain PyTorch versions (device="cpu").
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from sgl_kernel_npu_tpu import serving as jserving
@@ -176,23 +175,3 @@ def test_engine_matches_jax_token_major_engine(monkeypatch):
     for p, out in zip(first + [late], got):
         solo = tserving.LlamaEngine(cfg, params=tp, device="cpu", **kw)
         assert solo.generate([p], max_new_tokens=6)[0] == out
-
-
-@pytest.mark.parametrize("what", ["temperature", "bitmask", "lora", "pause", "resume"])
-def test_engine_refuses_what_later_slices_bring(what):
-    cfg = tl.tiny_config(int8_kv=True)
-    params = tl.init_params(cfg, 0, "cpu")
-    if what == "temperature":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tserving.LlamaEngine(cfg, params=params, temperature=0.7, device="cpu")
-        return
-    eng = tserving.LlamaEngine(cfg, params=params, num_pages=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if what == "bitmask":
-            eng.add_request([1, 2, 3], token_bitmask=np.zeros(16, np.int32))
-        elif what == "lora":
-            eng.add_request([1, 2, 3], lora_id=0)
-        elif what == "pause":
-            eng.pause_request(eng.add_request([1, 2, 3]))
-        else:
-            eng.resume_request(0)
