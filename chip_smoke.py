@@ -30,7 +30,10 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    with krope 16 and 6; a second call bit-identical); and the Qwen3-Next bench path's kernels at its shapes: K8 (the
    grouped expert GEMM, 5,376 aligned rows of 128 tokens routed top-10 over
    128 experts), K9 (the recurrent gated-delta-rule step on the bf16 pool)
-   and K10 (head-major bf16 paged decode); and the MoE layer's kernels at
+   and K10 (head-major bf16 paged decode; also at head dim 256, G 8, at
+   phase 18 (c)'s Qwen3-Next-80B-A3B shape and at its edges); K2 where
+   phase 18 (f)'s routes put it (wo and w2 with apply_norm=False at M 128,
+   lm_head at K 4096, N 128,256, f32 out); and the MoE layer's kernels at
    `bench.py --config moe`'s shapes: K11 (the single-launch fused layer,
    8 experts of 7168 x 4096 and 2048 x 7168, 1,024 routed rows; also with
    every copy on one expert and with -1 slots), K12 (the chunked ragged
@@ -262,6 +265,32 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    A, B, C, D, K14 and K15 each launched. Every engine call's launches
    exact (phase 2's on tm pages; A 128, K15 or K14 32, A at L = 1 1 on hm
    pages). Prints the engines' decode ms a step beside phase 2's.
+18. HF checkpoints, Qwen3-Next at its published widths, Llama TP and the
+   K2 routes. Each checkpoint is written in bf16 from a seeded
+   torch.Generator on the card into its own directory under
+   build/hf_checkpoints/, loaded with models/loader.py and deleted; write
+   and load seconds printed. (a) Meta-Llama-3-8B's widths, 2 of 32 layers:
+   load_llama_w8a8 on the card (layer 0's banks and lm_head bit-equal to
+   the CPU load), phase 2's 8 requests through LlamaEngine (16 tokens each,
+   exact launches a call, a repeat identical; A-D launched). (e) on (a)'s
+   weights: decode_step_tp at tp 1 on a one-rank NCCL group bit-identical
+   to decode_step_kv, then tp 2 in two processes sharing the card over a
+   gloo group, 3 steps within calc_diff 5e-3 of decode_step_kv, per-shard
+   launches printed. (b) bench.py's MlaConfig, 2 of 27 layers, through
+   MlaEngine (as (a); K2 per_tensor, A, K7 launched). (c)
+   Qwen/Qwen3-Next-80B-A3B-Instruct's config.json (hidden 2048, 16 / 2
+   heads of 256, GDN 16 / 32 heads of 128, 512 experts top-10 of 512),
+   4 of 48 layers: load_qwen_next (its seed-0 template draw timed) ->
+   quantize_qwen_weights -> 8 greedy decode_step_q steps at batch 128 over
+   256..383 cached tokens on 128-token pages (exact launches a step: K1 19,
+   K8 8, K9 3, K10 at D 256 1), a repeat bit-identical, step 1 within
+   calc_diff 8e-3 of SKT_IMPL=ref. (d) DeepSeek-V3's expert names for phase
+   8's layer, load_moe_expert_bank, phase 8's rounds=1 and pallas_fused
+   calls on it (exact launches, repeats identical, within 1e-5 of
+   SKT_IMPL=ref, the tier bound). (f) runs after phase 10 on phase 4's
+   pretiled weights: 4 steps each with the knobs off, SKT_FUSED_LM=1, and
+   both SKT_FUSED_LM=1 and SKT_FUSED_QGEMM=1 (a step's K1 65 / 64 / 0, K2
+   64 / 65 / 129), logits within calc_diff 8e-3 of the knobs off.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -272,6 +301,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -1359,6 +1389,60 @@ def check_rmsq_edges(torch, mm, rq):
           + "; ".join(notes))
 
 
+def _k2_case(torch, mm, rq, rng, name, m, k, n, bn, apply_norm, out_dtype, eps):
+    """K2 per_token on a pretiled one-layer-of-two bank at one shape, against
+    its plain version (_flip_check), timed with its plain version, torch._int_mm
+    plus the epilogue on the same int8 rows, and its byte / operation bound."""
+    dev = "cuda"
+    layers = 2
+    w = torch.randint(-127, 128, (layers, k, n), generator=rng, dtype=torch.int8, device=dev)
+    ws = torch.rand((layers, n), generator=rng, device=dev) * 1e-3
+    wt = mm.pretile_weight_bank(w, bn)
+    x = torch.randn((m, k), generator=rng, device=dev).to(torch.bfloat16)
+    gamma = ((1 + 0.1 * torch.randn((k,), generator=rng, device=dev)).to(torch.bfloat16)
+             if apply_norm else torch.ones((k,), device=dev))
+    beta = torch.zeros((k,), device=dev)
+    kw = dict(li=1, quant_mode="per_token", apply_norm=apply_norm, eps=eps, out_dtype=out_dtype)
+    out = rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw)
+    ref = rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, ws, **kw)
+    again = rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw)
+    torch.cuda.synchronize()
+    rstd, scale = rq._row_stats(x, gamma, beta, apply_norm, eps)
+    flip = float(w[1].abs().max()) * float(ws[1].max()) * float(scale.max())
+    err, exact = _flip_check(f"rmsq_gemm {name}", out, ref, flip)
+    if out.dtype != out_dtype or not torch.equal(out, again):
+        raise AssertionError(f"rmsq_gemm {name}: dtype {out.dtype}, or a second call differs")
+    ms = _time_ms(lambda: rq.rmsnorm_quant_gemm(x, gamma, beta, wt, ws, **kw), 20, graph=True)
+    plain = _time_ms(lambda: rq.rmsnorm_quant_gemm_ref(x, gamma, beta, wt, ws, **kw), 3, 1)
+    xq = torch.round((x.float() * rstd * gamma.float()[None] + beta[None]) / scale) \
+        .clamp(-128, 127).to(torch.int8)
+    library, _ = _int_mm_yardstick(torch, xq, w[1], scale, ws[1], m)
+    lib = _time_ms(library, 20, graph=True)
+    ob = 4 if out_dtype == torch.float32 else 2
+    nbytes = 2 * m * k + k * n + 4 * n + 8 * k + ob * m * n
+    bound, by = _bound_ms(nbytes, 2.0 * m * n * k, "int8_ops")
+    print(f"  rmsq_gemm {name} M={m} K={k} N={n} bn={bn} apply_norm={apply_norm} out "
+          f"{str(out_dtype).split('.')[1]}: {exact:.4f} of rows exact, max-abs {err:.3g} (one "
+          f"flip {flip:.3g}), a second call bit-identical; kernel {ms:.4f} ms, plain "
+          f"{plain:.3f} ms, _int_mm + epilogue {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+def check_rmsq_routes(torch, mm, rq, cfg, rng):
+    """K2 where phase 18 (f)'s routes put it, at phase 4's M 128: wo and w2
+    with apply_norm=False (ones as gamma, bf16 out; SKT_FUSED_QGEMM), and
+    lm_head per_token with the final norm (K 4096, N 128,256 on its 768-wide
+    panels, f32 out; SKT_FUSED_LM). Returns (the wo + w2 row summed, the
+    lm_head row)."""
+    h, f, m = cfg.hidden_size, cfg.intermediate_size, 128
+    qgemm = [_k2_case(torch, mm, rq, rng, name, m, k, h, 512, False, torch.bfloat16,
+                      cfg.rms_eps) for name, k in (("wo", cfg.q_size), ("w2", f))]
+    lm = _k2_case(torch, mm, rq, rng, "lm_head", m, h, cfg.vocab_size, 768, True,
+                  torch.float32, cfg.rms_eps)
+    return _sum_rows(qgemm), lm
+
+
 def _latent_rows(torch, rng, shape, int8):
     if int8:
         return torch.randint(-127, 128, shape, generator=rng, dtype=torch.int8, device="cuda")
@@ -2004,20 +2088,48 @@ def check_decode_hm(torch, dec, qcfg, rng):
           .reshape(b, mp).to(torch.int32) + 1)
     # scores of about 1.5 standard deviations: O(1) outputs
     q = (1.5 * torch.randn((b, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
+    return _decode_hm_row(torch, dec, "decode_hm", q, kc[li], vc[li], seq, bt, ps)
+
+
+def check_decode_hm256(torch, dec, rng):
+    """K10 at head dim 256, at Qwen3-Next-80B-A3B's full-attention shape
+    (phase 18 (c)): 128 sequences, 16 query and 2 kv heads of 256 (G 8),
+    head-major bf16 pages of 128, 3 pages each, 256..383 cached tokens and
+    the current one (lengths 257..384, with 1, 2, 127, 128, 129, 255, 256
+    among them)."""
+    b, hq, hkv, d, ps, mp = 128, 16, 2, 256, 128, 3
+    pages = b * mp + 1
+    kc, vc = (torch.randn((hkv, pages, ps, d), generator=rng, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    seq = torch.randint(257, 385, (b,), generator=rng, device="cuda", dtype=torch.int32)
+    seq[:7] = torch.tensor([1, 2, 127, 128, 129, 255, 256], dtype=torch.int32)
+    bt = (torch.randperm(pages - 1, generator=rng, device="cuda")[: b * mp]
+          .reshape(b, mp).to(torch.int32) + 1)
+    q = (1.5 * torch.randn((b, hq, d), generator=rng, device="cuda")).to(torch.bfloat16)
+    return _decode_hm_row(torch, dec, "decode_hm256", q, kc, vc, seq, bt, ps)
+
+
+def _decode_hm_row(torch, dec, name, q, k, v, seq, bt, ps):
+    """K10 (`name`, its counter) on one layer's kv-head-major pages against
+    its plain version within one bf16 ulp + K10_SHARE of max|plain|, a second
+    call bit-identical; times the kernel, the plain version and SDPA over the
+    gathered rows (its row of the kernels' line)."""
+    b, hq, d = q.shape
+    hkv, mp = k.shape[0], bt.shape[1]
     sm = d ** -0.5
-    args = (q, kc[li], vc[li], seq, bt, sm, ps)
+    args = (q, k, v, seq, bt, sm, ps)
     out, again = dec.decode_gqa_hm(*args), dec.decode_gqa_hm(*args)
     ref = dec.decode_gqa_hm_ref(*args)
     torch.cuda.synchronize()
-    err, ratio = _bf16_check("decode_hm", out, ref, K10_SHARE)
+    err, ratio = _bf16_check(name, out, ref, K10_SHARE)
     if not torch.equal(out, again):
-        raise AssertionError("decode_hm: a second call differs")
+        raise AssertionError(f"{name}: a second call differs")
     ms = _time_ms(lambda: dec.decode_gqa_hm(*args), 50, graph=True)
     plain = _time_ms(lambda: dec.decode_gqa_hm_ref(*args), 5)
     n, g = mp * ps, hq // hkv
     btl = bt.long()
-    kk = kc[li][:, btl].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d).contiguous()
-    vv = vc[li][:, btl].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d).contiguous()
+    kk = k[:, btl].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d).contiguous()
+    vv = v[:, btl].permute(1, 0, 2, 3, 4).reshape(b, hkv, n, d).contiguous()
     mask = (torch.arange(n, device="cuda")[None, :] < seq[:, None])[:, None, None, :]
     qq = q.reshape(b, hkv, g, d)
     library, backend = _sdpa_yardstick(torch, qq, kk, vv, mask, sm)
@@ -2026,7 +2138,7 @@ def check_decode_hm(torch, dec, qcfg, rng):
     tok = seq.double().sum().item()
     nbytes = tok * hkv * d * 2 * 2 + 2 * 2 * b * hq * d + 4 * b + 4 * b * mp
     bound, by = _bound_ms(nbytes, 4.0 * tok * hq * d, "f32_flops")
-    print(f"  decode_hm B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} MP={mp} seq 1..{int(seq.max())} "
+    print(f"  {name} B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} MP={mp} seq 1..{int(seq.max())} "
           f"(sum {int(tok)}): max-abs {err:.3g} ({ratio:.3g} of its bound, max|plain| "
           f"{float(ref.float().abs().max()):.3g}); kernel {ms:.4f} ms, plain {plain:.3f} ms, "
           f"SDPA ({backend}) {lib:.4f} ms (max-abs vs plain {lib_err:.3g}), bound {bound:.4f} "
@@ -2035,19 +2147,21 @@ def check_decode_hm(torch, dec, qcfg, rng):
                 max_abs_err=err)
 
 
-def check_decode_hm_edges(torch, dec, dv3):
+def check_decode_hm_edges(torch, dec, dv3, d=128):
     """K10 where the loop meets its edges, against its plain version within
     one bf16 ulp + K10_SHARE of max|plain|, each second call bit-identical,
     the wrapper's output and workspace allocated on 0x7f bytes: 7 sequences
     over 2 kv heads (rows split over blocks: skt_decode_hm_splits must say S
     > 1), G 1, 2, 4, 8 and 16 (16: two blocks of 8), pages of 16, 100 and
     512 tokens over 4 pages and one of 8,192 (two softmax steps of 4,096
-    within it), lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3 and 4 ps (capped
-    at MP ps)."""
+    within it; at head dim 256 four of 2,048), lengths 0, 1, ps - 1, ps, ps
+    + 1, 2 ps + 3 and 4 ps (capped at MP ps). d: the head dim, 128 or 256
+    (K10's second instantiation, counter decode_hm256)."""
     from sgl_kernel_npu_tpu_torch import _build
     rng = torch.Generator(device="cuda")
     rng.manual_seed(1019)
-    hkv, d, b = 2, 128, 7
+    hkv, b = 2, 7
+    name = "decode_hm" if d == 128 else f"decode_hm{d}"
     sm = d ** -0.5
     worst, calls, least_s = 0.0, 0, 8
     for ps, mp in V3_EDGE_PAGES:
@@ -2060,20 +2174,20 @@ def check_decode_hm_edges(torch, dec, dv3):
             q = (1.5 * torch.randn((b, hkv * g, d), generator=rng, device="cuda")
                  ).to(torch.bfloat16)
             ng = dv3.v3_groups(g)
-            least_s = min(least_s, _build.splits("decode_hm", b, hkv, g // ng, ng, mp, ps))
+            least_s = min(least_s, _build.splits(name, b, hkv, g // ng, ng, mp, ps))
             with _dirty_empty(torch, dv3):
                 out, again = (dec.decode_gqa_hm(q, k, v, lens, bt, sm, ps) for _ in range(2))
             ref = dec.decode_gqa_hm_ref(q, k, v, lens, bt, sm)
             torch.cuda.synchronize()
-            _, ratio = _bf16_check(f"decode_hm edges ps {ps} G {g}", out, ref, K10_SHARE)
+            _, ratio = _bf16_check(f"{name} edges ps {ps} G {g}", out, ref, K10_SHARE)
             if not torch.equal(out, again):
-                raise AssertionError(f"decode_hm edges ps {ps} G {g}: a second call differs")
+                raise AssertionError(f"{name} edges ps {ps} G {g}: a second call differs")
             worst, calls = max(worst, ratio), calls + 1
         del k, v
         torch.cuda.empty_cache()
     if least_s < 2:
-        raise AssertionError(f"decode_hm edges: a batch of {b} took S = {least_s}, unsplit")
-    print(f"  decode_hm edges ({calls} calls: G 1, 2, 4, 8, 16; ps 16 / 100 / 512 over 4 pages "
+        raise AssertionError(f"{name} edges: a batch of {b} took S = {least_s}, unsplit")
+    print(f"  {name} edges ({calls} calls: G 1, 2, 4, 8, 16; ps 16 / 100 / 512 over 4 pages "
           f"and 8192 over one; lengths 0, 1, ps - 1, ps, ps + 1, 2 ps + 3, 4 ps; B {b}, S >= "
           f"{least_s}; output and workspace on 0x7f bytes): at most {worst:.3g} of the bound, "
           f"second calls bit-identical")
@@ -6847,6 +6961,649 @@ def run_qwen_moe(torch, build, gpu):
                         "Qwen1.5-MoE-A2.7B", gpu)
 
 
+# --------------------------------------- phase 18: HF checkpoints, TP, K2 routes
+
+HF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "hf_checkpoints")
+HF_LLAMA_LAYERS = 2     # of Meta-Llama-3-8B's 32 (phase 15's style of depth cut)
+HF_MLA_LAYERS = 2       # of DeepSeek-V2-Lite's 27
+_ST_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "int8": "I8",
+             "int32": "I32"}
+
+
+def write_safetensors(torch, path, tensors):
+    """Write {name: torch tensor (any device)} as one .safetensors file: a
+    little-endian u64 header length, the JSON header padded to 8 bytes with
+    spaces, then each tensor's bytes in order."""
+    import struct
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[str(t.dtype).split(".")[1]], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
+
+
+class _Checkpoint:
+    """A bf16 HF checkpoint drawn on the card from a seeded torch.Generator
+    into its own directory under HF_DIR (config.json and shards of at most
+    ~2 GB), removed on exit. `add(name, shape, scale, offset)` draws
+    offset + scale * N(0, 1); `seconds` holds the write time."""
+
+    def __init__(self, torch, name, config, seed):
+        import shutil
+        self.path = os.path.join(HF_DIR, name)
+        shutil.rmtree(self.path, ignore_errors=True)
+        os.makedirs(self.path)
+        with open(os.path.join(self.path, "config.json"), "w") as f:
+            json.dump(config, f)
+        self.torch = torch
+        self.gen = torch.Generator(device="cuda")
+        self.gen.manual_seed(seed)
+        self.shard, self.size, self.files, self.nbytes, self.seconds = {}, 0, 0, 0, 0.0
+
+    def add(self, name, shape, scale=0.02, offset=0.0):
+        torch = self.torch
+        t = (torch.randn(shape, generator=self.gen, device="cuda") * scale + offset).to(
+            torch.bfloat16)
+        self.shard[name] = t
+        self.size += t.numel() * 2
+        if self.size >= 2e9:
+            self.flush()
+
+    def flush(self):
+        if not self.shard:
+            return
+        t0 = time.perf_counter()
+        self.files += 1
+        write_safetensors(self.torch, os.path.join(self.path,
+                                                   f"model-{self.files:05d}.safetensors"),
+                          self.shard)
+        self.seconds += time.perf_counter() - t0
+        self.nbytes += self.size
+        self.shard, self.size = {}, 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+        self.shard = {}
+        shutil.rmtree(self.path, ignore_errors=True)
+
+
+def _hf_llama_config(cfg, layers):
+    return dict(architectures=["LlamaForCausalLM"], vocab_size=cfg.vocab_size,
+                hidden_size=cfg.hidden_size, num_hidden_layers=layers,
+                num_attention_heads=cfg.num_heads, num_key_value_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim, intermediate_size=cfg.intermediate_size,
+                rope_theta=cfg.rope_base, rms_norm_eps=cfg.rms_eps,
+                max_position_embeddings=cfg.max_position, tie_word_embeddings=False)
+
+
+def _draw_llama(ck, cfg, layers):
+    """Meta-Llama-3-8B's tensor names and shapes ([out, in]), `layers` deep."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    ck.add("model.embed_tokens.weight", (cfg.vocab_size, h))
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (cfg.q_size, h)),
+                            ("self_attn.k_proj", (cfg.kv_size, h)),
+                            ("self_attn.v_proj", (cfg.kv_size, h)),
+                            ("self_attn.o_proj", (h, cfg.q_size)),
+                            ("mlp.gate_proj", (f, h)), ("mlp.up_proj", (f, h)),
+                            ("mlp.down_proj", (h, f))):
+            ck.add(p + name + ".weight", shape)
+        ck.add(p + "input_layernorm.weight", (h,), 0.1, 1.0)
+        ck.add(p + "post_attention_layernorm.weight", (h,), 0.1, 1.0)
+    ck.add("model.norm.weight", (h,), 0.1, 1.0)
+    ck.add("lm_head.weight", (cfg.vocab_size, h))
+    ck.flush()
+
+
+def _hf_mla_config(mcfg, layers):
+    return dict(architectures=["DeepseekV2ForCausalLM"], vocab_size=mcfg.vocab_size,
+                hidden_size=mcfg.hidden_size, num_hidden_layers=layers,
+                num_attention_heads=mcfg.num_heads, kv_lora_rank=mcfg.kv_lora_rank,
+                qk_rope_head_dim=mcfg.qk_rope_dim, qk_nope_head_dim=mcfg.qk_nope_dim,
+                v_head_dim=mcfg.v_head_dim, q_lora_rank=mcfg.q_lora_rank,
+                intermediate_size=mcfg.intermediate_size, rms_norm_eps=mcfg.rms_eps,
+                max_position_embeddings=mcfg.max_position, tie_word_embeddings=False)
+
+
+def _draw_mla(ck, mcfg, layers):
+    """DeepSeek-V2's attention tensor names (q LoRA, MQA latent) and a dense
+    MLP, at `mcfg`'s widths, `layers` deep."""
+    h, heads, f = mcfg.hidden_size, mcfg.num_heads, mcfg.intermediate_size
+    kvl, rope, nope, vd, ql = (mcfg.kv_lora_rank, mcfg.qk_rope_dim, mcfg.qk_nope_dim,
+                               mcfg.v_head_dim, mcfg.q_lora_rank)
+    ck.add("model.embed_tokens.weight", (mcfg.vocab_size, h))
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_a_proj", (ql, h)),
+                            ("self_attn.q_b_proj", (heads * (nope + rope), ql)),
+                            ("self_attn.kv_a_proj_with_mqa", (kvl + rope, h)),
+                            ("self_attn.kv_b_proj", (heads * (nope + vd), kvl)),
+                            ("self_attn.o_proj", (h, heads * vd)),
+                            ("mlp.gate_proj", (f, h)), ("mlp.up_proj", (f, h)),
+                            ("mlp.down_proj", (h, f))):
+            ck.add(p + name + ".weight", shape)
+        for name, n in (("self_attn.q_a_layernorm", ql), ("self_attn.kv_a_layernorm", kvl),
+                        ("input_layernorm", h), ("post_attention_layernorm", h)):
+            ck.add(p + name + ".weight", (n,), 0.1, 1.0)
+    ck.add("model.norm.weight", (h,), 0.1, 1.0)
+    ck.add("lm_head.weight", (mcfg.vocab_size, h))
+    ck.flush()
+
+
+def _banks_equal(torch, card, cpu, names):
+    """Layer 0 of each named bank and lm_head of two loads bit-equal."""
+    for name in names:
+        for part in card["layers"][name]:
+            if not torch.equal(card["layers"][name][part][0].cpu(), cpu["layers"][name][part][0]):
+                raise AssertionError(f"layer 0 {name}.{part}: the card's load differs from the "
+                                     "CPU's")
+    for part in ("q", "scale"):
+        if not torch.equal(card["lm_head"][part].cpu(), cpu["lm_head"][part]):
+            raise AssertionError(f"lm_head.{part}: the card's load differs from the CPU's")
+
+
+def _scaled(expect, full, layers):
+    """An engine call's launches at `layers` of `full`'s: per-layer counts
+    scaled, the once-a-call ones (append, lm_head) kept."""
+    return {kind: {k: (n // full * layers if n % full == 0 and n >= full else n)
+                   for k, n in calls.items()} for kind, calls in expect.items()}
+
+
+def run_hf_llama(torch, serving, llama, loader, build, prompts, late, new_tokens, gpu):
+    """Phase 18 (a): a bf16 checkpoint at Meta-Llama-3-8B's widths, 2 of 32
+    layers, loaded onto the card (layer 0's banks and lm_head bit-equal to
+    the same load on the CPU) and served through LlamaEngine: phase 2's 8
+    requests, 16 tokens each, exact launches a call, a repeat identical.
+    Then (e) on the same checkpoint. Returns the launch counts of the run."""
+    cfg = llama.LlamaConfig()
+    layers = HF_LLAMA_LAYERS
+    with _Checkpoint(torch, "llama", _hf_llama_config(cfg, layers), 18) as ck:
+        _draw_llama(ck, cfg, layers)
+        t0 = time.perf_counter()
+        lcfg, params = loader.load_llama_w8a8(ck.path, "cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, cpu = loader.load_llama_w8a8(ck.path, "cpu")
+        t_cpu = time.perf_counter() - t0
+        _banks_equal(torch, params, cpu, ("wqkv", "wo", "w13", "w2"))
+        del cpu
+        print(f"  (a) Llama checkpoint: {ck.nbytes / 1e9:.2f} GB bf16 in {ck.files} files, "
+              f"write {ck.seconds:.1f} s, load_llama_w8a8 on the card {t_card:.1f} s (on the "
+              f"CPU {t_cpu:.1f} s: layer 0's banks and lm_head bit-equal)")
+        ecfg = dataclasses.replace(lcfg, int8_kv=True)
+        expect = _scaled(LLAMA_SERVING, cfg.num_layers, layers)
+        build.reset_launches()
+        outs, st, wall, reused, launches = run_engine(torch, serving, build, ecfg, params,
+                                                      prompts, late, new_tokens, expect=expect)
+        if any(len(o) != new_tokens for o in outs):
+            raise AssertionError(f"(a) token counts {[len(o) for o in outs]}")
+        again = run_engine(torch, serving, build, ecfg, params, prompts, late, new_tokens,
+                           expect=expect)[0]
+        if again != outs:
+            raise AssertionError("(a) a second run gave other tokens")
+        missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"(a) kernels never launched: {missing}")
+        print(f"  (a) LlamaEngine on the loaded weights: {len(outs)} requests x {new_tokens} "
+              f"tokens, radix reuse {reused}, repeat identical; {_ms_per_decode(st):.2f} ms a "
+              f"decode call; launches {expect} a call [{gpu}]")
+        t0 = time.perf_counter()
+        run_tp(torch, llama, loader, build, ck.path, ecfg, params)
+        print(f"  (e) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# (e): TP decode from a seeded tm cache, 8 sequences of 150..299 cached tokens
+TP_B, TP_STEPS, TP_DIFF = 8, 3, 5e-3
+
+
+def _tp_inputs(torch, cfg):
+    """(tm cache, the steps' (ids, positions, seq_lens, block table, slots))
+    from seed 19 on the card: int8 rows and scales, 8 sequences."""
+    ps = cfg.page_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    pos = torch.randint(150, 300, (TP_B,), generator=gen, device="cuda", dtype=torch.int32)
+    mp = -(-(300 + TP_STEPS) // ps)
+    kv = _tm_seeded(torch, cfg, TP_B * mp + 1, gen)
+    bt = torch.arange(1, TP_B * mp + 1, dtype=torch.int32, device="cuda").reshape(TP_B, mp)
+    rows = torch.arange(TP_B, device="cuda")
+    steps = []
+    for _ in range(TP_STEPS):
+        ids = torch.randint(0, cfg.vocab_size, (TP_B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        steps.append((ids, pos, pos + 1, bt, bt[rows, pos // ps] * ps + pos % ps))
+        pos = pos + 1
+    return kv, steps
+
+
+def _tm_seeded(torch, cfg, pages, gen):
+    kv = {"k": torch.randint(-127, 128, (cfg.num_layers, pages, cfg.page_size * cfg.num_kv_heads,
+                                         cfg.head_dim), generator=gen, dtype=torch.int8,
+                             device="cuda")}
+    kv["v"] = torch.randint(-127, 128, kv["k"].shape, generator=gen, dtype=torch.int8,
+                            device="cuda")
+    for name in ("ks", "vs"):
+        kv[name] = torch.rand(kv["k"].shape[:2] + (1, kv["k"].shape[2]), generator=gen,
+                              device="cuda") * 0.02 + 0.001
+    return kv
+
+
+def _tm_shards(torch, kv, tp, hkv):
+    """[tp, ...]-stacked shards of a tm cache (rows t * hkv + h of a page;
+    shard s holds heads s * hkv / tp ...)."""
+    out = {}
+    for name, a in kv.items():
+        scales = name in ("ks", "vs")                   # [L, P, 1, ps * hkv]
+        x = a.reshape(*a.shape[:-1], -1, hkv) if scales else a.reshape(
+            *a.shape[:2], -1, hkv, a.shape[-1])
+        parts = x.chunk(tp, dim=-1 if scales else -2)
+        out[name] = torch.stack([q.reshape(*a.shape[:-1], -1) if scales else
+                                 q.reshape(*a.shape[:2], -1, a.shape[-1]) for q in parts])
+    return out
+
+
+def _tp_rank(rank, world, init_file, path, out_file):
+    """One rank of (e)'s TP 2 run: load the checkpoint onto the card, take
+    shard `rank`, run decode_step_tp over a gloo group for TP_STEPS steps;
+    rank 0 saves the logits."""
+    import torch
+    import torch.distributed as dist
+    from sgl_kernel_npu_tpu_torch import _build
+    from sgl_kernel_npu_tpu_torch.models import llama, loader
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        cfg, params = loader.load_llama_w8a8(path, "cuda")
+        cfg = dataclasses.replace(cfg, int8_kv=True)
+        kv, steps = _tp_inputs(torch, cfg)
+        params_tp = llama.shard_params_tp(params, cfg, world)
+        kv_tp = _tm_shards(torch, kv, world, cfg.num_kv_heads)
+        del params, kv
+        _build.reset_launches()
+        out = []
+        for args in steps:
+            lg, kv_tp = llama.decode_step_tp(params_tp, cfg, kv_tp, *args)
+            out.append(lg)
+        torch.cuda.synchronize()
+        print(f"  (e) tp {world} rank {rank}: launches in {TP_STEPS} steps "
+              f"{ {k: n for k, n in _build.launches.items() if n} }", flush=True)
+        if rank == 0:
+            torch.save(torch.stack(out).cpu(), out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_tp(torch, llama, loader, build, path, cfg, params):
+    """Phase 18 (e): decode_step_tp on (a)'s weights. tp 1 on a one-rank
+    NCCL group bit-identical to decode_step_kv; tp 2 in two processes that
+    share the card over a gloo group, TP_STEPS steps within calc_diff TP_DIFF
+    of the unsharded decode_step_kv (tests/test_llama_model.py's bar)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    kv, steps = _tp_inputs(torch, cfg)
+    kv1 = {k: v.clone() for k, v in kv.items()}
+    single = []
+    for args in steps:
+        lg, kv = llama.decode_step_kv(params, cfg, kv, *args)
+        single.append(lg)
+    init = os.path.join(HF_DIR, "tp_init")
+    for f in (init, init + "2"):
+        if os.path.exists(f):
+            os.remove(f)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        params_tp = llama.shard_params_tp(params, cfg, 1)
+        kv_tp = {k: v[None] for k, v in kv1.items()}
+        build.reset_launches()
+        for i, args in enumerate(steps):
+            lg, kv_tp = llama.decode_step_tp(params_tp, cfg, kv_tp, *args)
+            if not torch.equal(lg, single[i]):
+                raise AssertionError(f"(e) tp 1 step {i}: logits differ from decode_step_kv")
+        one = {k: n for k, n in build.launches.items() if n}
+    finally:
+        dist.destroy_process_group()
+    print(f"  (e) tp 1 (one-rank NCCL group): {TP_STEPS} steps bit-identical to "
+          f"decode_step_kv; launches {one}")
+    out_file = os.path.join(HF_DIR, "tp2_logits.pt")
+    mp.start_processes(_tp_rank, args=(2, init + "2", path, out_file), nprocs=2, join=True,
+                       start_method="spawn")
+    got = torch.load(out_file).cuda()
+    diffs = [_calc_diff(got[i], single[i]) for i in range(TP_STEPS)]
+    if not all(d < TP_DIFF for d in diffs) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"(e) tp 2: calc_diff {diffs} against decode_step_kv (bar "
+                             f"{TP_DIFF})")
+    print(f"  (e) tp 2 (two processes, gloo, one card): {TP_STEPS} steps, calc_diff against "
+          f"decode_step_kv {[float(f'{d:.3g}') for d in diffs]} (bar {TP_DIFF})")
+
+
+def run_hf_mla(torch, serving, dm, loader, build, mcfg, prompts, late, new_tokens, gpu):
+    """Phase 18 (b): a bf16 checkpoint at bench.py's MlaConfig widths
+    (DeepSeek-V2-Lite with V2's q LoRA of 1536), 2 of 27 layers, loaded onto
+    the card (layer 0's banks and lm_head equal to the CPU load) and served
+    through MlaEngine: phase 5's requests, exact launches a call, a repeat
+    identical. Returns the launch counts."""
+    layers = HF_MLA_LAYERS
+    with _Checkpoint(torch, "mla", _hf_mla_config(mcfg, layers), 28) as ck:
+        _draw_mla(ck, mcfg, layers)
+        t0 = time.perf_counter()
+        lcfg, params = loader.load_deepseek_mla_w8a8(ck.path, "cuda")
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        _, cpu = loader.load_deepseek_mla_w8a8(ck.path, "cpu")
+        _banks_equal(torch, params, cpu, ("wdqkv", "wuq", "wo", "w13", "w2"))
+        del cpu
+        print(f"  (b) MLA checkpoint: {ck.nbytes / 1e9:.2f} GB bf16 in {ck.files} files, "
+              f"write {ck.seconds:.1f} s, load_deepseek_mla_w8a8 on the card {t_card:.1f} s "
+              f"(layer 0's banks and lm_head bit-equal to the CPU load)")
+        expect = _scaled(MLA_SERVING, mcfg.num_layers, layers)
+        build.reset_launches()
+        outs, st, _, reused, launches = run_engine(
+            torch, serving, build, lcfg, params, prompts, late, new_tokens,
+            engine_cls=serving.MlaEngine, expect=expect)
+        if any(len(o) != new_tokens for o in outs):
+            raise AssertionError(f"(b) token counts {[len(o) for o in outs]}")
+        again = run_engine(torch, serving, build, lcfg, params, prompts, late, new_tokens,
+                           engine_cls=serving.MlaEngine, expect=expect)[0]
+        if again != outs:
+            raise AssertionError("(b) a second run gave other tokens")
+        missing = [k for k in ("rmsq_gemm_pt", "w8a8_gemm", "decode_mla") if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"(b) kernels never launched: {missing}")
+        print(f"  (b) MlaEngine on the loaded weights: {len(outs)} requests x {new_tokens} "
+              f"tokens, radix reuse {reused}, repeat identical; {_ms_per_decode(st):.2f} ms a "
+              f"decode call; launches {expect} a call [{gpu}]")
+    return launches
+
+
+# Qwen/Qwen3-Next-80B-A3B-Instruct's config.json, cut to 4 of 48 layers (the
+# least depth that keeps the 3:1 linear:full pattern)
+QWEN_NEXT_HF = dict(
+    architectures=["Qwen3NextForCausalLM"], vocab_size=151936, hidden_size=2048,
+    num_hidden_layers=4, num_attention_heads=16, num_key_value_heads=2, head_dim=256,
+    linear_num_key_heads=16, linear_num_value_heads=32, linear_key_head_dim=128,
+    linear_value_head_dim=128, linear_conv_kernel_dim=4, num_experts=512,
+    num_experts_per_tok=10, moe_intermediate_size=512, shared_expert_intermediate_size=512,
+    intermediate_size=5120, partial_rotary_factor=0.25, rope_theta=10000000.0,
+    rms_norm_eps=1e-6, norm_topk_prob=True, max_position_embeddings=262144,
+    layer_types=["linear_attention"] * 3 + ["full_attention"], tie_word_embeddings=False)
+# per decode_step_q step at those 4 layers: K1 wqkvz + wo a GDN layer, wq, wk,
+# wv, wo the attention layer, the shared expert's w13 + w2 a layer, lm_head;
+# K8 two a layer; K9 a GDN layer; K10 at head dim 256 the attention layer
+QWEN_NEXT_PER_STEP = {"w8a8_gemm_tiled": 19, "w8a8_gemm_grouped": 8, "gdn_recurrent": 3,
+                      "decode_hm256": 1}
+QWEN_NEXT_B, QWEN_NEXT_STEPS = 128, 8
+_QWEN_NEXT_BUCKETS = (("K1 w8a8_gemm_tiled", _K1), ("K8 w8a8_gemm_grouped", _K8),
+                      ("K9 gdn_recurrent", ("gdn_recurrent_kernel",)),
+                      ("K10 decode_hm256", ("decode_hm256_kernel",)), ("memsets", ("Memset",)))
+
+
+def _draw_qwen_next(ck, c):
+    """Qwen3-Next's tensor names and shapes ([out, in]): zero-centred norms
+    (0.1 N), A_log and dt_bias at their scale, conv1d without bias."""
+    h, e, f, fs = (c["hidden_size"], c["num_experts"], c["moe_intermediate_size"],
+                   c["shared_expert_intermediate_size"])
+    hk, hv, dk, dv = (c["linear_num_key_heads"], c["linear_num_value_heads"],
+                      c["linear_key_head_dim"], c["linear_value_head_dim"])
+    r = hv // hk
+    nq, nkv, d = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
+    ck.add("model.embed_tokens.weight", (c["vocab_size"], h))
+    for i, kind in enumerate(c["layer_types"]):
+        p = f"model.layers.{i}."
+        ck.add(p + "input_layernorm.weight", (h,), 0.1)
+        ck.add(p + "post_attention_layernorm.weight", (h,), 0.1)
+        if kind == "linear_attention":
+            la = p + "linear_attn."
+            ck.add(la + "in_proj_qkvz.weight", (hk * (2 * dk + 2 * r * dv), h))
+            ck.add(la + "in_proj_ba.weight", (hk * 2 * r, h))
+            ck.add(la + "conv1d.weight", (2 * hk * dk + hv * dv, 1, c["linear_conv_kernel_dim"]),
+                   0.2)
+            ck.add(la + "A_log", (hv,), 0.5, 1.0)
+            ck.add(la + "dt_bias", (hv,), 0.2)
+            ck.add(la + "norm.weight", (dv,), 0.1, 1.0)
+            ck.add(la + "out_proj.weight", (h, hv * dv))
+        else:
+            sa = p + "self_attn."
+            ck.add(sa + "q_proj.weight", (nq * d * 2, h))
+            ck.add(sa + "k_proj.weight", (nkv * d, h))
+            ck.add(sa + "v_proj.weight", (nkv * d, h))
+            ck.add(sa + "o_proj.weight", (h, nq * d))
+            ck.add(sa + "q_norm.weight", (d,), 0.1)
+            ck.add(sa + "k_norm.weight", (d,), 0.1)
+        mp_ = p + "mlp."
+        ck.add(mp_ + "gate.weight", (e, h))
+        for j in range(e):
+            ck.add(f"{mp_}experts.{j}.gate_proj.weight", (f, h))
+            ck.add(f"{mp_}experts.{j}.up_proj.weight", (f, h))
+            ck.add(f"{mp_}experts.{j}.down_proj.weight", (h, f))
+        ck.add(mp_ + "shared_expert.gate_proj.weight", (fs, h))
+        ck.add(mp_ + "shared_expert.up_proj.weight", (fs, h))
+        ck.add(mp_ + "shared_expert.down_proj.weight", (h, fs))
+        ck.add(mp_ + "shared_expert_gate.weight", (1, h))
+    ck.add("model.norm.weight", (h,), 0.1)
+    ck.add("lm_head.weight", (c["vocab_size"], h))
+    ck.flush()
+
+
+def run_hf_qwen_next(torch, qn, loader, build, gpu):
+    """Phase 18 (c): Qwen3-Next at Qwen3-Next-80B-A3B's published widths, 4
+    of 48 layers, a bf16 checkpoint -> load_qwen_next -> quantize_qwen_weights
+    -> decode_step_q: 8 greedy steps at batch 128 over 256..383 cached tokens
+    on 128-token pages (phase 7's traffic), exact launches a step (K10 at head
+    dim 256 among them), a repeat from the same state bit-identical, the
+    first step's logits against the same step under SKT_IMPL=ref within
+    calc_diff EPM_DIFF. Returns the launch counts of the run."""
+    with _Checkpoint(torch, "qwen_next", QWEN_NEXT_HF, 38) as ck:
+        _draw_qwen_next(ck, QWEN_NEXT_HF)
+        torch.cuda.empty_cache()
+        timings = {}
+        t0 = time.perf_counter()
+        cfg, params = loader.load_qwen_next(ck.path, "cuda", timings=timings)
+        cfg = dataclasses.replace(cfg, page_size=128)    # phase 7's pages
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params = qn.quantize_qwen_weights(params, cfg)
+        torch.cuda.synchronize()
+        print(f"  (c) Qwen3-Next checkpoint: {ck.nbytes / 1e9:.2f} GB bf16 in {ck.files} files, "
+              f"write {ck.seconds:.1f} s; load_qwen_next {t1 - t0:.1f} s (the seed-0 "
+              f"template's draw {timings['template_s']:.1f} s, the rest "
+              f"{timings['load_s']:.1f} s), quantize_qwen_weights {time.perf_counter() - t1:.1f}"
+              f" s; cfg: {cfg.num_gdn_layers} GDN + {cfg.num_attn_layers} attention layers, head "
+              f"dim {cfg.head_dim}, {cfg.num_experts} experts top-{cfg.top_k}")
+    b, ps, steps = QWEN_NEXT_B, cfg.page_size, QWEN_NEXT_STEPS
+    mp = -(-(384 + steps) // ps)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    state = _qwen_state(torch, qn, cfg, b, b * mp + 1, gen, "cuda")
+    pos0 = torch.randint(256, 384, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    ids0 = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bt = torch.arange(1, b * mp + 1, dtype=torch.int32, device="cuda").reshape(b, mp)
+    rows = torch.arange(b, device="cuda")
+    snap = {k: v.clone() for k, v in state.items()}
+
+    def step(ids, pos):
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        return qn.decode_step_q(params, cfg, state, ids, pos, pos + 1, bt, slots)[0]
+
+    def run():
+        ids, pos, toks, first = ids0, pos0, [], None
+        for _ in range(steps):
+            logits = step(ids, pos)
+            first = logits if first is None else first
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("(c) logits are not finite")
+            ids = torch.argmax(logits, -1).to(torch.int32)
+            toks.append(ids)
+            pos = pos + 1
+        return torch.stack(toks), first
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, first = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = dict(build.launches)
+    for name, n in launches.items():
+        if n != QWEN_NEXT_PER_STEP.get(name, 0) * steps:
+            raise AssertionError(f"(c) {name} launched {n} times in {steps} steps, not "
+                                 f"{QWEN_NEXT_PER_STEP.get(name, 0)} a step")
+    for k, v in snap.items():
+        state[k].copy_(v)
+    toks2, first2 = run()
+    if not (torch.equal(toks, toks2) and torch.equal(first, first2)):
+        raise AssertionError("(c) a second run from the same state differs")
+    for k, v in snap.items():
+        state[k].copy_(v)
+    with _env(SKT_IMPL="ref"):
+        plain = step(ids0, pos0)
+    diff = _calc_diff(first, plain)
+    if not diff < EPM_DIFF:
+        raise AssertionError(f"(c) step 1 against SKT_IMPL=ref: calc_diff {diff}")
+    print(f"  (c) decode_step_q B={b}, 256..383 cached, ps {ps}: {steps} greedy steps, "
+          f"{ms:.3f} ms a step (host clock, first run), launches a step "
+          f"{QWEN_NEXT_PER_STEP}, repeat bit-identical; step 1 against SKT_IMPL=ref calc_diff "
+          f"{diff:.3g} (bar {EPM_DIFF}) [{gpu}]")
+    for k, v in snap.items():
+        state[k].copy_(v)
+    profile_step(torch, lambda: step(ids0, pos0), _QWEN_NEXT_BUCKETS,
+                 "Qwen3-Next step (B=128, published widths, 4 layers)")
+    return launches
+
+
+def run_hf_moe_bank(torch, par, loader, build, gpu):
+    """Phase 18 (d): DeepSeek-V3's expert names for phase 8's layer (8
+    experts of 7168 / 2048 and a shared expert), load_moe_expert_bank, then
+    phase 8's pallas_fused and rounds=1 calls on the loaded bank: exact
+    launches, a repeat bit-identical, within MOE_LAYER_DIFF of the same call
+    under SKT_IMPL=ref, pallas_fused within the tier bound of rounds=1."""
+    el, h, f = MOE_EL, MOE_H, MOE_F
+    with _Checkpoint(torch, "moe_bank", {"architectures": ["DeepseekV3ForCausalLM"]}, 48) as ck:
+        p = "model.layers.0.mlp."
+        for j in range(el):
+            ck.add(f"{p}experts.{j}.gate_proj.weight", (f, h))
+            ck.add(f"{p}experts.{j}.up_proj.weight", (f, h))
+            ck.add(f"{p}experts.{j}.down_proj.weight", (h, f))
+        ck.add(p + "gate.weight", (el, h))
+        for name, shape in (("gate_proj", (f, h)), ("up_proj", (f, h)), ("down_proj", (h, f))):
+            ck.add(f"{p}shared_experts.{name}.weight", shape)
+        ck.flush()
+        t0 = time.perf_counter()
+        bank = loader.load_moe_expert_bank(ck.path, 1, el, "cuda")
+        torch.cuda.synchronize()
+        print(f"  (d) MoE bank checkpoint: {ck.nbytes / 1e9:.2f} GB bf16, write "
+              f"{ck.seconds:.1f} s, load_moe_expert_bank {time.perf_counter() - t0:.1f} s; "
+              f"router {tuple(bank['router'].shape)}, shared w13 "
+              f"{tuple(bank['shared_w13'].shape)}")
+    data = moe_bench_data(torch)[:3] + [bank["w13"]["q"][0], bank["w13"]["scale"][0],
+                                        bank["w2"]["q"][0], bank["w2"]["scale"][0]]
+    calls = {k: v for k, v in moe_variants(torch, par, data).items()
+             if k in ("rounds=1", "pallas_fused")}
+    build.reset_launches()
+    outs = {}
+    for name, fn in calls.items():
+        before = dict(build.launches)
+        outs[name] = fn()
+        delta = {k: v - before[k] for k, v in build.launches.items() if v != before[k]}
+        if delta != MOE_VARIANTS[name]:
+            raise AssertionError(f"(d) {name}: launches {delta}, not {MOE_VARIANTS[name]}")
+        if not torch.equal(fn(), outs[name]) or not bool(torch.isfinite(outs[name]).all()):
+            raise AssertionError(f"(d) {name}: not finite, or a second call differs")
+    launches = dict(build.launches)
+    with _env(SKT_IMPL="ref"):
+        diffs = {name: _calc_diff(outs[name], fn()) for name, fn in calls.items()}
+    share = _tier_share(outs["pallas_fused"], outs["rounds=1"])
+    if not all(d < MOE_LAYER_DIFF for d in diffs.values()) or share > 1.0:
+        raise AssertionError(f"(d) calc_diff against the plain runs {diffs}, tier share {share}")
+    print(f"  (d) phase 8's calls on the loaded bank: launches "
+          f"{ {k: MOE_VARIANTS[k] for k in calls} } each, repeats identical, calc_diff against "
+          f"SKT_IMPL=ref { {k: float(f'{d:.3g}') for k, d in diffs.items()} } (bar "
+          f"{MOE_LAYER_DIFF}), pallas_fused {share:.3f} of the tier bound of rounds=1 [{gpu}]")
+    return launches
+
+
+# (f): launches of one tm2 decode step at Llama-3-8B's 32 layers by route
+K2_ROUTES = {
+    "off": {"w8a8_gemm_tiled": 65, "rmsq_gemm": 64, "decode_tm2": 32, "append_tm2": 1},
+    "SKT_FUSED_LM=1": {"w8a8_gemm_tiled": 64, "rmsq_gemm": 65, "decode_tm2": 32,
+                       "append_tm2": 1},
+    "SKT_FUSED_LM=1 SKT_FUSED_QGEMM=1": {"rmsq_gemm": 129, "decode_tm2": 32, "append_tm2": 1},
+}
+K2_ROUTE_STEPS, K2_ROUTE_DIFF = 4, 8e-3
+
+
+def run_k2_routes(torch, llama, build, params, gpu):
+    """Phase 18 (f): phase 4's decode path (tm2 pages of 512, batch 128,
+    context 256, pretiled banks) with the knobs off, SKT_FUSED_LM=1, then
+    also SKT_FUSED_QGEMM=1, K2_ROUTE_STEPS steps each from the same seeded
+    state fed the same ids: exact launches a step by route (lm_head K1 -> K2,
+    then wo and w2 K1 -> K2), each step's logits within calc_diff
+    K2_ROUTE_DIFF of the knobs-off step's. Returns {route: launches}."""
+    cfg = llama.LlamaConfig(int8_kv=True, page_size=512)
+    b, ps = BENCH_BATCH, cfg.page_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    num_pages = b + 1
+    kv0 = llama.init_kv_cache(cfg, num_pages, layout="tm2", device="cuda")
+    for name in ("k", "v"):
+        kv0[name].copy_(torch.randint(-127, 128, kv0[name].shape, generator=gen,
+                                      dtype=torch.int8, device="cuda"))
+    for name in ("ks", "vs"):
+        kv0[name].copy_(torch.rand(kv0[name].shape, generator=gen, device="cuda") * 0.02
+                        + 0.001)
+    bt = torch.arange(1, num_pages, dtype=torch.int32, device="cuda")[:, None]
+    pos0 = torch.full((b,), BENCH_CTX - 1, dtype=torch.int32, device="cuda")
+    ids = [torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32) for _ in range(K2_ROUTE_STEPS)]
+    rows = torch.arange(b, device="cuda")
+    out, launches = {}, {}
+    for route, flags in (("off", {}), ("SKT_FUSED_LM=1", {"SKT_FUSED_LM": "1"}),
+                         ("SKT_FUSED_LM=1 SKT_FUSED_QGEMM=1",
+                          {"SKT_FUSED_LM": "1", "SKT_FUSED_QGEMM": "1"})):
+        kv = {k: v.clone() for k, v in kv0.items()}
+        pos, logits = pos0, []
+        build.reset_launches()
+        with _env(**flags):
+            for t in range(K2_ROUTE_STEPS):
+                slots = bt[rows, pos // ps] * ps + pos % ps
+                lg, kv = llama.decode_step_kv(params, cfg, kv, ids[t], pos, pos + 1, bt, slots)
+                logits.append(lg)
+                pos = pos + 1
+            torch.cuda.synchronize()
+            launches[route] = {k: n for k, n in build.launches.items() if n}
+            want = {k: n * K2_ROUTE_STEPS for k, n in K2_ROUTES[route].items()}
+            if launches[route] != want:
+                raise AssertionError(f"(f) {route}: launches {launches[route]}, not {want}")
+            t0 = time.perf_counter()
+            for _ in range(3):
+                llama.decode_step_kv(params, cfg, kv, ids[0], pos, pos + 1, bt,
+                                     bt[rows, pos // ps] * ps + pos % ps)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 3
+        out[route] = logits
+        diffs = [_calc_diff(a, r) for a, r in zip(logits, out["off"])]
+        if not all(d < K2_ROUTE_DIFF for d in diffs):
+            raise AssertionError(f"(f) {route}: calc_diff against the knobs off {diffs}")
+        print(f"  (f) {route}: launches a step {K2_ROUTES[route]}, calc_diff against the knobs "
+              f"off {[float(f'{d:.3g}') for d in diffs]} (bar {K2_ROUTE_DIFF}), {ms:.3f} ms a "
+              f"step (host clock) [{gpu}]")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6870,7 +7627,7 @@ def main() -> int:
     try:
         from sgl_kernel_npu_tpu_torch import _build, serving
         from sgl_kernel_npu_tpu_torch import runtime
-        from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, qwen_next
+        from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, loader, qwen_next
         from sgl_kernel_npu_tpu_torch import parallel
         from sgl_kernel_npu_tpu_torch.ops import (activation, helloworld, matmul, norm, quant,
                                                   rmsq_gemm)
@@ -6963,6 +7720,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
     check_decode_hm_edges(torch, decode, decode_v3)
+    torch.cuda.empty_cache()
+    rng18 = torch.Generator(device="cuda")        # phase 18's rows draw apart from the rest
+    rng18.manual_seed(18)
+    rows["k10_256"] = check_decode_hm256(torch, decode, rng18)
+    check_decode_hm_edges(torch, decode, decode_v3, d=256)
+    torch.cuda.empty_cache()
+    rows["k2_qgemm"], rows["k2_lm"] = check_rmsq_routes(torch, matmul, rmsq_gemm, cfg, rng18)
     torch.cuda.empty_cache()
     rows["k10f32"] = check_decode_hm_f32(torch, decode, decode_v3, rng)
     check_decode_hm_f32_edges(torch, decode, decode_v3)
@@ -7077,6 +7841,11 @@ def main() -> int:
           "at Llama-3-8B width")
     hm_engine_launches = run_hm_engines(torch, llama, serving, _build, params, prompts, late,
                                         new_tokens, gpu)
+    print("phase 18 (f): SKT_FUSED_LM and SKT_FUSED_QGEMM on the bench.py decode path "
+          "(tm2 pages, pretiled banks, batch 128) at Llama-3-8B width")
+    t0 = time.perf_counter()
+    route_launches = run_k2_routes(torch, llama, _build, params, gpu)
+    print(f"  (f) {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
 
@@ -7172,6 +7941,22 @@ def main() -> int:
     print(f"  phase 16 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    print("phase 18: HF checkpoints (Llama, MLA, Qwen3-Next at its published widths, the MoE "
+          "bank), Llama TP")
+    t18, phase18 = time.perf_counter(), {}
+    for part, fn in (
+            ("a", lambda: run_hf_llama(torch, serving, llama, loader, _build, prompts, late,
+                                       new_tokens, gpu)),
+            ("b", lambda: run_hf_mla(torch, serving, deepseek_mla, loader, _build, mcfg,
+                                     mprompts, mlate, new_tokens, gpu)),
+            ("c", lambda: run_hf_qwen_next(torch, qwen_next, loader, _build, gpu)),
+            ("d", lambda: run_hf_moe_bank(torch, parallel, loader, _build, gpu))):
+        t0 = time.perf_counter()
+        phase18[part] = fn()
+        print(f"  ({part}) {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    print(f"  phase 18 {time.perf_counter() - t18:.1f} s")
+
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
@@ -7214,6 +7999,14 @@ def main() -> int:
              source=f"{src}/w8a8_gemm_tiled.cu",
              replaces=f"{base}/ops/matmul.py:71", launches=launches["w8a8_gemm_l1"],
              **rows["l1"]),
+        dict(name="rmsq_gemm (apply_norm=False, wo + w2)", route="cuda",
+             source=f"{src}/rmsq_gemm.cu", replaces=f"{base}/ops/rmsq_gemm.py:148",
+             launches=(route_launches["SKT_FUSED_LM=1 SKT_FUSED_QGEMM=1"]["rmsq_gemm"]
+                       - route_launches["SKT_FUSED_LM=1"]["rmsq_gemm"]), **rows["k2_qgemm"]),
+        dict(name="rmsq_gemm (lm_head, f32 out)", route="cuda", source=f"{src}/rmsq_gemm.cu",
+             replaces=f"{base}/ops/rmsq_gemm.py:148",
+             launches=(route_launches["SKT_FUSED_LM=1"]["rmsq_gemm"]
+                       - route_launches["off"]["rmsq_gemm"]), **rows["k2_lm"]),
         dict(name="rmsq_gemm (per_tensor)", route="cuda", source=f"{src}/rmsq_gemm.cu",
              replaces=f"{base}/ops/rmsq_gemm.py:148",
              launches=mla_bench_launches["rmsq_gemm_pt"], **rows["k2pt"]),
@@ -7241,6 +8034,9 @@ def main() -> int:
         dict(name="decode_hm_f32", route="cuda", source=f"{src}/decode_hm_f32.cu",
              replaces=f"{base}/ops/attention/decode_v2.py:97",
              launches=qmoe_launches["decode_hm_f32"], **rows["k10f32"]),
+        dict(name="decode_hm (D 256)", route="cuda", source=f"{src}/decode_hm.cu",
+             replaces=f"{base}/ops/attention/decode_v2.py:97",
+             launches=phase18["c"]["decode_hm256"], **rows["k10_256"]),
         dict(name="w8a8_gemm_grouped (EP MoE shape)", route="cuda",
              source=f"{src}/w8a8_gemm.cu", replaces=f"{base}/ops/matmul.py:496",
              launches=moe_launches["w8a8_gemm_grouped"], **rows["k8moe"]),
@@ -7328,8 +8124,16 @@ def main() -> int:
     idle = [k["name"] for k in kernels[-10:] if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on phases 12 and 13: {idle}")
+    idle = [k["name"] for k in kernels if k["name"] in (
+        "decode_hm (D 256)", "rmsq_gemm (apply_norm=False, wo + w2)",
+        "rmsq_gemm (lm_head, f32 out)") and k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on phase 18: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print("rmsq_gemm (apply_norm=False, wo + w2) row: K2 as SKT_FUSED_QGEMM routes wo and w2 "
+          "at M 128 (bf16 out), launches from phase 18 (f); rmsq_gemm (lm_head, f32 out) row: "
+          "K2 as SKT_FUSED_LM routes lm_head (K 4096, N 128,256), launches from phase 18 (f)")
     print("w8a8_gemm row: sum of the four M=8 decode GEMMs on stacked banks (wqkv, wo, "
           "w13, w2); w8a8_gemm_tiled row: sum of wo, w2 and lm_head at M=128; rmsq_gemm "
           "row: sum of wqkv and w13 at M=128 (library: the GEMM part alone); prefill_tm rows "
@@ -7356,7 +8160,9 @@ def main() -> int:
           "decode_v2.py:97 is what decode.py::decode_gqa runs, decode.py:145 the same "
           "contract one page per grid step; decode_hm_f32 row (K10 on f32 pages, the same TPU "
           "kernels on f32 caches): phase 16's attention shape, launches from phase 16 (all its "
-          "8 steps), library SDPA over the gathered f32 rows; fused_moe row (K11): one launch "
+          "8 steps), library SDPA over the gathered f32 rows; decode_hm (D 256) row (K10 at "
+          "head dim 256): Qwen3-Next-80B-A3B's attention shape, launches from phase 18 (c); "
+          "fused_moe row (K11): one launch "
           "at the bench "
           f"shape, no library call computes it (the composition at rounds = 1, K8 twice and "
           f"glue, takes {comp_ms:.4f} ms); remote_scatter rows (K12): the quantising dispatch "

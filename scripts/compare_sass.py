@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Compare the machine code of csrc/ sources between two checkouts.
+
+  python3 scripts/compare_sass.py ROOT_A ROOT_B [SOURCE ...]
+
+Compiles each source (default: the users of decode_tm_core.cuh) of both
+roots to a cubin with the package's nvcc flags, disassembles every kernel
+with cuobjdump -sass and prints, per kernel, whether the instruction
+streams are equal (addresses and comments dropped), and ptxas's registers,
+spills and shared memory for each root. Exits 1 if a kernel that both
+roots have differs. Needs nvcc and cuobjdump (the CUDA toolkit); about a
+minute for the default sources.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+DEFAULT = ("decode_tm", "decode_tm2", "decode_v3", "decode_v6", "decode_v7", "decode_hm")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
+         "-fPIC")
+
+
+def _cuda_bin(tool):
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", tool)
+
+
+def _plain_name(mangled):
+    """A kernel's mangled name without its anonymous namespace, whose tag
+    hashes the source's path."""
+    return re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_", "", mangled)
+
+
+def compile_sass(root, source, out_dir):
+    """{kernel name: [instructions]} and {kernel: ptxas line} of one source."""
+    src = os.path.join(root, "sgl_kernel_npu_tpu_torch", "csrc", source + ".cu")
+    tag = re.sub(r"\W", "_", os.path.abspath(root))
+    cubin = os.path.join(out_dir, f"{tag}_{source}.cubin")
+    p = subprocess.run([_cuda_bin("nvcc"), *FLAGS, "-cubin", "-Xptxas", "-v", "-o", cubin, src],
+                       capture_output=True, text=True)
+    if p.returncode:
+        raise RuntimeError(f"nvcc {src} failed:\n{p.stderr[-4000:]}")
+    usage, fn = {}, None
+    for line in p.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = _plain_name(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = line.split("ptxas info    :")[-1].strip()
+        if "spill stores" in line and fn:
+            usage[fn + " spills"] = line.split(":")[-1].strip()
+    dump = subprocess.run([_cuda_bin("cuobjdump"), "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = _plain_name(m.group(1))
+            kernels[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", line)
+        if m and name:
+            kernels[name].append(m.group(1).strip())
+    return kernels, usage
+
+
+def main() -> int:
+    if len(sys.argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b, sources = sys.argv[1], sys.argv[2], sys.argv[3:] or DEFAULT
+    differ = False
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
+        jobs = {(r, s): pool.submit(compile_sass, r, s, tmp) for s in sources for r in (a, b)}
+        for s in sources:
+            (ka, ua), (kb, ub) = jobs[(a, s)].result(), jobs[(b, s)].result()
+            for k in sorted(set(ka) | set(kb)):
+                if k not in ka or k not in kb:
+                    u = ua if k in ka else ub
+                    print(f"{s}: {k}: only in {'A' if k in ka else 'B'} ({u.get(k, '')}; "
+                          f"{u.get(k + ' spills', '')})")
+                    continue
+                same = ka[k] == kb[k]
+                differ |= not same
+                ndiff = sum(x != y for x, y in zip(ka[k], kb[k])) + abs(len(ka[k]) - len(kb[k]))
+                print(f"{s}: {k}: {'SASS equal' if same else f'SASS differs ({ndiff} lines)'}, "
+                      f"{len(ka[k])} / {len(kb[k])} instructions; A {ua.get(k, '?')} "
+                      f"[{ua.get(k + ' spills', '')}]; B {ub.get(k, '?')} "
+                      f"[{ub.get(k + ' spills', '')}]")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,6 +46,7 @@ KERNELS = {
     "w8a8_gemm_grouped": "w8a8_gemm",  # K8
     "gdn_recurrent": "gdn_recurrent",  # K9
     "decode_hm": "decode_hm",          # K10
+    "decode_hm256": "decode_hm",       # K10 at head dim 256
     "decode_hm_f32": "decode_hm_f32",  # K10 on f32 pages
     "fused_moe": "fused_moe",          # K11
     "remote_scatter": "remote_scatter",  # K12

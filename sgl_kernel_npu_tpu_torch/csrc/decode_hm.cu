@@ -31,6 +31,15 @@
 // it: p is not rounded, so its own running maximum serves. (A 2-stage ring
 // at 4 blocks an SM, S 2 at the bench shape, was 1.37x slower: each split
 // waits on its copies and pays the merge.)
+//
+// Head dim 256 (Qwen3-Next-80B-A3B's full-attention layers: 16 query heads,
+// 2 kv heads, G 8) is a second instantiation of the same loop, skt_decode_hm256
+// (decode_body's HD 256: 128 rows of 512 bytes a stage, twice the q
+// fragments and sums a thread, two output columns a thread). A stage holds
+// 32 KB, so three of them leave room for 2 blocks an SM (not 3) at pages of
+// up to about 256 tokens; the q rows are not copied to shared memory (the
+// IN_CACHE contract never reads them), without which 2 blocks do not fit.
+// Steps of at most 2048 tokens, so that the kept scores fit beside the ring.
 
 #include "decode_tm_core.cuh"
 
@@ -39,16 +48,24 @@ namespace {
 constexpr int NST = 3;           // the ring's stages
 constexpr int STEP_MAX = 4096;   // tokens of a softmax step: the page, or STEP_MAX of a longer one
 
+constexpr int D2 = 2 * D;        // the second head dim
+constexpr int STEP_MAX2 = 2048;  // STEP_MAX at D2
+
 __global__ void __launch_bounds__(THREADS, 3) decode_hm_kernel(const Args a) {
   decode_body<KvHeadMajor, true, __nv_bfloat16, false, P_F32, IN_CACHE, NST, true>(a);
 }
 
+__global__ void __launch_bounds__(THREADS, 2) decode_hm256_kernel(const Args a) {
+  decode_body<KvHeadMajor, true, __nv_bfloat16, false, P_F32, IN_CACHE, NST, true, D2>(a);
+}
+
 // a block's softmax step: a page, at most STEP_MAX tokens (so that its G <=
 // 8 heads' kept scores fit in shared memory beside the ring at any page size)
-int step_of(int ps) { return std::min(ps, STEP_MAX); }
+int step_of(int ps, int hd = D) { return std::min(ps, hd == D ? STEP_MAX : STEP_MAX2); }
 
-size_t smem_of(int G, int ps) {
-  return smem_bytes<__nv_bfloat16>(true, G, step_of(ps), 3, NST);
+size_t smem_of(int G, int ps, int hd = D) {
+  return hd == D ? smem_bytes<__nv_bfloat16>(true, G, step_of(ps), 3, NST)
+                 : smem_bytes<__nv_bfloat16, D2>(true, G, step_of(ps, hd), 3, NST);
 }
 
 }  // namespace
@@ -87,6 +104,32 @@ extern "C" int skt_decode_hm(const void* q, const void* kn, const void* vn, cons
                                                  B, hkv, hq / (hkv * ng), P, ps, MP, 0, 1, S,
                                                  sm_scale, stream, ng, nullptr, nullptr, 1,
                                                  nullptr, step_of(ps));
+}
+
+// K10 at head dim 256: the same arguments on q, caches and out of 256 columns
+// (the workspace B * hkv * ng * S * (2 * 8 + 8 * 256) floats).
+extern "C" int skt_decode_hm256_splits(int B, int hkv, int G, int ng, int MP, int ps) {
+  if (G <= 0 || G > MAXG || ng <= 0 || MP <= 0 || ps <= 0) return -(int)cudaErrorInvalidValue;
+  const int step = step_of(ps, D2);
+  return splits_for(decode_hm256_kernel, smem_of(G, ps, D2), B, hkv * ng,
+                    ((long long)MP * ps + step - 1) / step);
+}
+
+extern "C" int skt_decode_hm256(const void* q, const void* kn, const void* vn, const void* kc,
+                                const void* vc, const void* ksc, const void* vsc,
+                                const void* lens, const void* bt, void* out, void* ws,
+                                void* arrivals, const void* layer, const void* slots, int B,
+                                int hq, int hkv, int L, int P, int ps, int MP, int li, int ng,
+                                int S, float sm_scale, void* stream) {
+  if (hkv <= 0 || ng <= 0 || hq <= 0 || hq % (hkv * ng) || ps <= 0 || P <= 0 || L != 1 ||
+      li != 0 || kn != nullptr || vn != nullptr || ksc != nullptr || vsc != nullptr ||
+      layer != nullptr || slots != nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  return launch<true, __nv_bfloat16, P_F32, NST, D2>(
+      decode_hm256_kernel, q, nullptr, nullptr, kc, vc, nullptr, nullptr, lens, bt, out, ws,
+      arrivals, B, hkv, hq / (hkv * ng), P, ps, MP, 0, 1, S, sm_scale, stream, ng, nullptr,
+      nullptr, 1, nullptr, step_of(ps, D2));
 }
 
 extern "C" const char* skt_decode_hm_error(int e) {

@@ -3,8 +3,8 @@
 // page-major bf16 or int8 pages, which are head-major pages at L = 1), K16 /
 // K23 (decode_v3.cu: the same pages, stacked caches at a layer read on the
 // device, and kv-head-major [Hkv, P, ps, D] pages), K10 (decode_hm.cu:
-// kv-head-major bf16 pages) and K24 (decode_v7.cu: page-major int8 pages
-// and a bf16 sidecar window) instantiate:
+// kv-head-major bf16 pages, at head dim 128 or 256) and K24 (decode_v7.cu:
+// page-major int8 pages and a bf16 sidecar window) instantiate:
 // online-softmax steps of `step` tokens, rounded where the TPU kernels
 // round. The page layout is a template parameter (`Layout::row`: the cache
 // row, and scale, of a page slot), and so are the element type (int8 rows
@@ -83,7 +83,7 @@
 
 namespace {
 
-constexpr int D = 128;           // head dim
+constexpr int D = 128;           // head dim of every contract but K10's D 256 (HD below)
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 16 * WARPS; // tokens of a p . v round with K and V (int8, KEEP off)
@@ -112,34 +112,35 @@ enum Mode { DEFER = 0, IN_CACHE = 1, FUSED = 2, TWO_TIER = 3 };
 // The rows of element type T (int8, or bf16 with no scales): a stage holds
 // RS of them, 16 KB; a scores round (and, with KEEP, a p . v round) takes RS
 // tokens, HALVES 16-token tiles a warp.
-template <typename T>
+template <typename T, int HD = D>
 struct Rows {
   static constexpr bool I8 = sizeof(T) == 1;
   static constexpr int HALVES = I8 ? 2 : 1;
   static constexpr int RS = HALVES * TILE;
-  static constexpr int ROWB = D * (int)sizeof(T) + 16;   // bytes of a staged row
-  static constexpr int CPR = D * (int)sizeof(T) / 16;    // 16-byte copies a row
+  static constexpr int ROWB = HD * (int)sizeof(T) + 16;   // bytes of a staged row
+  static constexpr int CPR = HD * (int)sizeof(T) / 16;    // 16-byte copies a row
 };
 
 // a scores round: K rows and scales of RS tokens; a p . v round (int8 with
 // KEEP off): K rows of TILE tokens, then their V rows, and the k and v
 // scales alike; with KEEP: the V rows and v scales of RS tokens
-template <typename T>
+template <typename T, int HD = D>
 struct Stage {
-  int8_t r[Rows<T>::RS][Rows<T>::ROWB];
-  float sc[Rows<T>::RS];
+  int8_t r[Rows<T, HD>::RS][Rows<T, HD>::ROWB];
+  float sc[Rows<T, HD>::RS];
 };
 constexpr int PART = 2 * MAXG + MAXG * D;   // a split's floats: m, l, acc [G][D]
-static_assert(WARPS * MAXG * D * sizeof(float) <= 2 * sizeof(Stage<__nv_bfloat16>),
+static_assert(WARPS * MAXG * D * sizeof(float) <= 2 * sizeof(Stage<__nv_bfloat16>) &&
+                  WARPS * MAXG * 256 * sizeof(float) <= 2 * sizeof(Stage<__nv_bfloat16, 256>),
               "a block's sums fit over a ring of 2 stages");
 
 // the dynamic shared memory of a launch with G heads and steps of `step`:
 // the ring of `stages` and the p transposes (`parts` of them a warp: 3 for
 // P_F32); KEEP adds the kept scores after them
-template <typename T = int8_t>
+template <typename T = int8_t, int HD = D>
 __host__ __device__ constexpr size_t smem_bytes(bool keep, int G, int step, int parts = 1,
                                                 int stages = STAGES) {
-  return stages * sizeof(Stage<T>) + (size_t)WARPS * parts * MAXG * PT * 2 +
+  return stages * sizeof(Stage<T, HD>) + (size_t)WARPS * parts * MAXG * PT * 2 +
          (keep ? (size_t)G * (step + SPAD) * sizeof(float) : 0);
 }
 
@@ -236,10 +237,10 @@ __device__ __forceinline__ bool walk_next(Walk& w, int& kind, int& t0, int& t1, 
 // layer: the first page of the layer, l * P. PAGE_ONCE: a round whose
 // tokens lie in one page reads the block table once, not once for every
 // copy (a round that crosses a page edge reads it for every copy).
-template <class Layout, bool KEEP, typename T, bool PAGE_ONCE = false>
-__device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, size_t layer, int b,
+template <class Layout, bool KEEP, typename T, bool PAGE_ONCE = false, int HD = D>
+__device__ __forceinline__ void load_round(const Args& a, Stage<T, HD>& s, size_t layer, int b,
                                            int h, int t0, int t1, int kind) {
-  using R = Rows<T>;
+  using R = Rows<T, HD>;
   static_assert(KEEP || R::I8, "a p . v round of K and V rows is int8 only");
   const int tid = threadIdx.x;
   const int* btb = a.bt + (size_t)b * a.MP;
@@ -261,7 +262,7 @@ __device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, size_t la
       const int t = t0 + r % span;
       const bool ok = t < t1;
       const size_t row = ok ? row_at(t) : 0;
-      cp_async16(&s.r[r][c], (r < krows ? kc : vc) + row * (D * sizeof(T)) + c, ok);
+      cp_async16(&s.r[r][c], (r < krows ? kc : vc) + row * (HD * sizeof(T)) + c, ok);
     }
     if (R::I8) {
       static_assert(!R::I8 || R::RS == THREADS, "a thread a scale");
@@ -283,16 +284,16 @@ __device__ __forceinline__ void load_round(const Args& a, Stage<T>& s, size_t la
 
 // S^T of the 16 tokens at stage row r0: c = (token g, heads 2t, 2t+1),
 // (token g + 8, the same heads), unscaled
-template <typename T>
-__device__ __forceinline__ void scores(const Stage<T>& s, int r0, int lane,
-                                       const uint32_t (&qb)[D / 16][2], float (&c)[4]) {
+template <typename T, int HD = D>
+__device__ __forceinline__ void scores(const Stage<T, HD>& s, int r0, int lane,
+                                       const uint32_t (&qb)[HD / 16][2], float (&c)[4]) {
   const int g = lane >> 2, tig = lane & 3;
   const int8_t* ra = s.r[r0 + g];
   const int8_t* rb = s.r[r0 + g + 8];
   c[0] = c[1] = c[2] = c[3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    if (Rows<T>::I8) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if (Rows<T, HD>::I8) {
       // D permuted: logical k (2t, 2t+1, 2t+8, 2t+9) of step kk is byte 16 kk + 4t + (0..3)
       const uint32_t wa = *reinterpret_cast<const uint32_t*>(ra + 16 * kk + 4 * tig) ^ BIAS;
       const uint32_t wb = *reinterpret_cast<const uint32_t*>(rb + 16 * kk + 4 * tig) ^ BIAS;
@@ -561,11 +562,14 @@ __device__ __forceinline__ void fold_sidecar(const Args& a, unsigned char* ring,
 // scores of the others stay known to be shared. ROUND and MODE: the Round
 // and Mode enums above (P_F32 with KEEP only; TWO_TIER with int8 pages,
 // KEEP and P_BF16 only). NST: the ring's stages (at least 2); PAGE_ONCE as
-// load_round takes it.
+// load_round takes it. HD: the head dim, D, or 256 with IN_CACHE (K10),
+// where each thread holds HD / THREADS columns of the block's output.
 template <class Layout, bool KEEP, typename T = int8_t, bool KG = false, int ROUND = P_BF16,
-          int MODE = DEFER, int NST = STAGES, bool PAGE_ONCE = false>
+          int MODE = DEFER, int NST = STAGES, bool PAGE_ONCE = false, int HD = D>
 __device__ __forceinline__ void decode_body(const Args& a) {
-  using R = Rows<T>;
+  using R = Rows<T, HD>;
+  constexpr int CPT = HD / THREADS;                        // output columns a thread
+  constexpr int PARTF = 2 * MAXG + MAXG * HD;              // a split's floats (PART at D)
   constexpr bool F32 = ROUND == P_F32;
   constexpr int PARTS = F32 ? 3 : 1;                       // p . v products a slice
   constexpr bool NEWKV = MODE == DEFER || MODE == TWO_TIER;   // k_new / v_new fold in last
@@ -573,9 +577,11 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   static_assert(MODE != TWO_TIER || (R::I8 && KEEP && !KG && !F32),
                 "TWO_TIER: int8 pages, kept scores in shared memory, p rounded to bf16");
   static_assert(NST >= 2, "a ring of at least 2 stages");
+  static_assert(HD == D || (HD == 2 * D && MODE == IN_CACHE),
+                "head dim D, or 2 D with the current token in the cache");
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage<T>* stages = reinterpret_cast<Stage<T>*>(smem);
-  __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + NST * sizeof(Stage<T>));
+  Stage<T, HD>* stages = reinterpret_cast<Stage<T, HD>*>(smem);
+  __nv_bfloat16* ptb = reinterpret_cast<__nv_bfloat16*>(smem + NST * sizeof(Stage<T, HD>));
   // KEEP: this block's [G][step + SPAD] kept scores, after the transposes
   // or in device memory (read back only by this block, after a barrier)
   float* kept = KG ? a.kept_g + ((size_t)(blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
@@ -583,7 +589,9 @@ __device__ __forceinline__ void decode_body(const Args& a) {
                    : reinterpret_cast<float*>(ptb + WARPS * PARTS * MAXG * PT);
   __shared__ float wmax[WARPS][MAXG], mfin[MAXG], lred[WARPS][MAXG], scur[MAXG];
   __shared__ float wgt[MAXG][MAX_SPLITS];
-  __shared__ __align__(16) __nv_bfloat16 qrow[MAXG][D], newkv[2][D];
+  // the q rows that the current token's fold and the sidecar read (HD 2 D,
+  // IN_CACHE, reads neither: none, so that two blocks an SM fit)
+  __shared__ __align__(16) __nv_bfloat16 qrow[MAXG][HD == D ? D : 8], newkv[2][D];
   __shared__ float fnew[MODE == FUSED ? 2 * D : 1], amax[2][WARPS];
   __shared__ int last;
   // blockIdx.y = h * ng + (this block's group of G heads of kv head h)
@@ -609,16 +617,17 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   const int nt = (clen + unit - 1) / unit;
   const int ts = unit * (int)((long long)nt * split / S);
   const int te = min(clen, unit * (int)((long long)nt * (split + 1) / S));
-  const __nv_bfloat16* qh = a.q + ((size_t)b * hq + hy * a.G) * D;
+  const __nv_bfloat16* qh = a.q + ((size_t)b * hq + hy * a.G) * HD;
   const size_t cur = ((size_t)b * a.hkv + h) * D;
 
   // the q rows and (DEFER, TWO_TIER) the current token's k and v rows that
   // the end of the block folds in, copied with the ring's first round
-  for (int c = tid; c < (a.G + (NEWKV ? 2 : 0)) * (D / 8); c += THREADS) {
-    const int r = c / (D / 8), o = (c % (D / 8)) * 8;
-    cp_async16(r < a.G ? &qrow[r][o] : &newkv[r - a.G][o],
-               r < a.G ? qh + r * D + o : (r == a.G ? a.kn : a.vn) + cur + o, true);
-  }
+  if constexpr (HD == D)
+    for (int c = tid; c < (a.G + (NEWKV ? 2 : 0)) * (D / 8); c += THREADS) {
+      const int r = c / (D / 8), o = (c % (D / 8)) * 8;
+      cp_async16(r < a.G ? &qrow[r][o] : &newkv[r - a.G][o],
+                 r < a.G ? qh + r * D + o : (r == a.G ? a.kn : a.vn) + cur + o, true);
+    }
   const int k0 = ts / a.step, k1 = ts < te ? (te - 1) / a.step : k0;
   // P_BF16 takes the scores from token 0 for the running maximum at the end
   // of its first step; P_F32 starts at that step
@@ -629,7 +638,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
 #pragma unroll
     for (int st = 0; st < NST - 1; ++st) {
       if (walk_next(lw, kind, t0, t1, first, k1, ts, te, a.step, clen, R::RS, pv))
-        load_round<Layout, KEEP, T, PAGE_ONCE>(a, stages[st], layer, b, h, t0, t1, kind);
+        load_round<Layout, KEEP, T, PAGE_ONCE, HD>(a, stages[st], layer, b, h, t0, t1, kind);
       cp_commit();
     }
   }
@@ -637,29 +646,29 @@ __device__ __forceinline__ void decode_body(const Args& a) {
   // table, past every split's rows (no block of the launch reads it): the
   // last split, which holds the pages before it, writes it, with the first
   // group of heads
-  if (MODE == FUSED)
+  if constexpr (MODE == FUSED)
     fused_row<Layout, T>(a, layer, b, h, split == S - 1 && hy == h * a.ng, fnew, amax);
 
   // q^T as mma's B fragments (n = head g; D ordered as in `scores`)
-  uint32_t qb[D / 16][2];
+  uint32_t qb[HD / 16][2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     const bool ok = g < a.G;
     if (R::I8) {
-      qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 4 * tig))
+      qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * HD + 16 * kk + 4 * tig))
                      : 0u;
       qb[kk][1] =
-          ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 4 * tig + 2)) : 0u;
+          ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * HD + 16 * kk + 4 * tig + 2)) : 0u;
     } else {
-      qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 2 * tig))
+      qb[kk][0] = ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * HD + 16 * kk + 2 * tig))
                      : 0u;
       qb[kk][1] =
-          ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * D + 16 * kk + 2 * tig + 8)) : 0u;
+          ok ? __ldg(reinterpret_cast<const unsigned*>(qh + g * HD + 16 * kk + 2 * tig + 8)) : 0u;
     }
   }
-  float acc[D / 16][4];
+  float acc[HD / 16][4];
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < HD / 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float mk[2] = {NEG, NEG}, lsum[2] = {0.f, 0.f}, mstep[2] = {NEG, NEG};
   __nv_bfloat16* pt = ptb + warp * PARTS * MAXG * PT;      // this warp's PARTS transposes
 
@@ -676,11 +685,11 @@ __device__ __forceinline__ void decode_body(const Args& a) {
         int lk, l0, l1;
         bool lf;
         if (walk_next(lw, lk, l0, l1, lf, k1, ts, te, a.step, clen, R::RS, pv))
-          load_round<Layout, KEEP, T, PAGE_ONCE>(a, stages[(i + NST - 1) % NST], layer, b, h,
-                                                 l0, l1, lk);
+          load_round<Layout, KEEP, T, PAGE_ONCE, HD>(a, stages[(i + NST - 1) % NST], layer, b,
+                                                     h, l0, l1, lk);
         cp_commit();
       }
-      const Stage<T>& s = stages[i % NST];
+      const Stage<T, HD>& s = stages[i % NST];
       const int kbase = cw.k * a.step;                   // the step's first token
       // the scores of this warp's 16 tokens (and, in an int8 scores round,
       // of 16 more TILE rows on), scaled; -inf past the range
@@ -732,7 +741,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
             mk[j] = mn;
             lsum[j] *= alpha;
 #pragma unroll
-            for (int i2 = 0; i2 < D / 16; ++i2) {
+            for (int i2 = 0; i2 < HD / 16; ++i2) {
               acc[i2][j] *= alpha;
               acc[i2][j + 2] *= alpha;
             }
@@ -778,7 +787,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
             // for u, the 4 bytes at 32 u + 4 g of a V row are d rows (mt 2u:
             // g, g + 8; mt 2u + 1: g, g + 8)
 #pragma unroll
-            for (int u = 0; u < D / 32; ++u) {
+            for (int u = 0; u < HD / 32; ++u) {
               const int off = 32 * u + 4 * g;
               const uint32_t w0 = *reinterpret_cast<const uint32_t*>(v0 + off) ^ BIAS;
               const uint32_t w1 = *reinterpret_cast<const uint32_t*>(v0 + RB + off) ^ BIAS;
@@ -796,7 +805,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
             // for mt, the bf16 pair at 32 mt + 4 g of a V row is d rows g
             // (its low half, d 16 mt + 2g) and g + 8 (its high half)
 #pragma unroll
-            for (int mt = 0; mt < D / 16; ++mt) {
+            for (int mt = 0; mt < HD / 16; ++mt) {
               const int off = 32 * mt + 4 * g;
               const uint32_t w0 = *reinterpret_cast<const uint32_t*>(v0 + off);
               const uint32_t w1 = *reinterpret_cast<const uint32_t*>(v0 + RB + off);
@@ -817,7 +826,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
 
   // this block's (m, l, acc): the warps' shares added in warp order (every
   // round was waited for, so the ring is idle)
-  float* red = reinterpret_cast<float*>(smem);     // [WARPS][MAXG][D], over the ring
+  float* red = reinterpret_cast<float*>(smem);     // [WARPS][MAXG][HD], over the ring
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     float v = lsum[j];
@@ -830,34 +839,39 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     mfin[2 * tig + 1] = mk[1];
   }
 #pragma unroll
-  for (int mt = 0; mt < D / 16; ++mt) {
+  for (int mt = 0; mt < HD / 16; ++mt) {
     const int d = R::I8 ? 32 * (mt / 2) + 4 * g + 2 * (mt % 2) : 16 * mt + 2 * g;
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      red[(warp * MAXG + 2 * tig + (e & 1)) * D + d + (e >> 1)] = acc[mt][e];
+      red[(warp * MAXG + 2 * tig + (e & 1)) * HD + d + (e >> 1)] = acc[mt][e];
   }
   __syncthreads();
-  float o[MAXG], lt[MAXG], mt_[MAXG];
+  // o[c][head]: column tid + c * THREADS
+  float o[CPT][MAXG], lt[MAXG], mt_[MAXG];
 #pragma unroll
   for (int hh = 0; hh < MAXG; ++hh) {
-    o[hh] = red[hh * D + tid];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) o[c][hh] = red[hh * HD + tid + c * THREADS];
     lt[hh] = lred[0][hh];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) {
-      o[hh] += red[(w * MAXG + hh) * D + tid];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) o[c][hh] += red[(w * MAXG + hh) * HD + tid + c * THREADS];
       lt[hh] += lred[w][hh];
     }
     mt_[hh] = mfin[hh];
   }
 
   if (S > 1) {
-    float* part = a.ws + ((size_t)row * S + split) * PART;
+    float* part = a.ws + ((size_t)row * S + split) * PARTF;
     if (tid < MAXG) {
       part[tid] = mt_[tid];
       part[MAXG + tid] = lt[tid];
     }
 #pragma unroll
-    for (int hh = 0; hh < MAXG; ++hh) part[2 * MAXG + hh * D + tid] = o[hh];
+    for (int hh = 0; hh < MAXG; ++hh)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) part[2 * MAXG + hh * HD + tid + c * THREADS] = o[c][hh];
     __threadfence();
     __syncthreads();
     if (tid == 0) last = atomicAdd(a.arrivals + row, 1) == S - 1;
@@ -865,14 +879,14 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     if (!last) return;
     // the last split of the row merges all S in split order
     __threadfence();
-    const float* base = a.ws + (size_t)row * S * PART;
+    const float* base = a.ws + (size_t)row * S * PARTF;
     // (every load of a loop issued before its sums, which go in split order)
     if (tid < MAXG) {
       float ms[MAX_SPLITS], lp[MAX_SPLITS];
 #pragma unroll
       for (int s2 = 0; s2 < MAX_SPLITS; ++s2) {
-        ms[s2] = s2 < S ? __ldcg(base + s2 * PART + tid) : NEG;
-        lp[s2] = s2 < S ? __ldcg(base + s2 * PART + MAXG + tid) : 0.f;
+        ms[s2] = s2 < S ? __ldcg(base + s2 * PARTF + tid) : NEG;
+        lp[s2] = s2 < S ? __ldcg(base + s2 * PARTF + MAXG + tid) : 0.f;
       }
       float mx = NEG;
 #pragma unroll
@@ -891,35 +905,41 @@ __device__ __forceinline__ void decode_body(const Args& a) {
     __syncthreads();
 #pragma unroll
     for (int hh = 0; hh < MAXG; ++hh) {
-      float pvs[MAX_SPLITS];
 #pragma unroll
-      for (int s2 = 0; s2 < MAX_SPLITS; ++s2)
-        pvs[s2] = s2 < S ? __ldcg(base + s2 * PART + 2 * MAXG + hh * D + tid) : 0.f;
-      float v = 0.f;
+      for (int c = 0; c < CPT; ++c) {
+        float pvs[MAX_SPLITS];
 #pragma unroll
-      for (int s2 = 0; s2 < MAX_SPLITS; ++s2) {
-        if (s2 >= S) break;
-        v += wgt[hh][s2] * pvs[s2];
+        for (int s2 = 0; s2 < MAX_SPLITS; ++s2)
+          pvs[s2] =
+              s2 < S ? __ldcg(base + s2 * PARTF + 2 * MAXG + hh * HD + tid + c * THREADS) : 0.f;
+        float v = 0.f;
+#pragma unroll
+        for (int s2 = 0; s2 < MAX_SPLITS; ++s2) {
+          if (s2 >= S) break;
+          v += wgt[hh][s2] * pvs[s2];
+        }
+        o[c][hh] = v;
       }
-      o[hh] = v;
       lt[hh] = lred[0][hh];
       mt_[hh] = mfin[hh];
     }
   }
 
-  if (MODE == TWO_TIER) {
+  if constexpr (MODE == TWO_TIER) {
     // the sidecar's rows after the pages (the merging block, after the merge)
     const int cb = max(__ldg(a.cached + b), 0);
     const int nside = min(cb - cb / a.window * a.window, a.window);
     if (nside > 0)
-      fold_sidecar<T>(a, smem, kept, pt, qrow, b, h, nside, o, lt, mt_, mfin, wmax, lred);
+      fold_sidecar<T>(a, smem, kept, pt, qrow, b, h, nside, o[0], lt, mt_, mfin, wmax, lred);
   }
-  if (MODE == IN_CACHE) {
+  if constexpr (MODE == IN_CACHE) {
 #pragma unroll
     for (int hh = 0; hh < MAXG; ++hh) {
       if (hh >= a.G) break;
-      a.out[((size_t)b * hq + hy * a.G + hh) * D + tid] =
-          __float2bfloat16_rn(o[hh] / fmaxf(lt[hh], 1e-37f));
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        a.out[((size_t)b * hq + hy * a.G + hh) * HD + tid + c * THREADS] =
+            __float2bfloat16_rn(o[c][hh] / fmaxf(lt[hh], 1e-37f));
     }
   } else {
     // fold the current token in (decode_v6.py::_finalize_rows; FUSED: the
@@ -944,7 +964,7 @@ __device__ __forceinline__ void decode_body(const Args& a) {
       const float p = expf(s - mn);
       const float l = lt[hh] * alpha + p;
       const float pr = ROUND == P_F32 ? p : __bfloat162float(__float2bfloat16_rn(p));
-      const float ov = o[hh] * alpha + pr * vcur;
+      const float ov = o[0][hh] * alpha + pr * vcur;
       a.out[((size_t)b * hq + hy * a.G + hh) * D + tid] =
           __float2bfloat16_rn(ov / fmaxf(l, 1e-37f));
     }
@@ -975,7 +995,8 @@ int splits_for(Kernel* kern, size_t smem, int B, int rows, long long units) {
 // * S * PART floats, none for S = 1; B * hkv * ng counters, zero before the
 // first call); a stacked cache's layer on the device (`layer`, of `layers`)
 // or li; FUSED's slots; TWO_TIER's sidecars, their rows and W (window > 0).
-template <bool KEEP, typename T = int8_t, int ROUND = P_BF16, int NST = STAGES, typename Kernel>
+template <bool KEEP, typename T = int8_t, int ROUND = P_BF16, int NST = STAGES, int HD = D,
+          typename Kernel>
 int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const void* kc,
            const void* vc, const void* ksc, const void* vsc, const void* cached, const void* bt,
            void* out, void* ws, void* arrivals, int B, int hkv, int G, int P, int ps, int MP,
@@ -1020,7 +1041,7 @@ int launch(Kernel* kern, const void* q, const void* kn, const void* vn, const vo
   a.side_rows = static_cast<const int*>(side_rows);
   a.window = window;
   const size_t smem =
-      smem_bytes<T>(KEEP && kept_g == nullptr, G,
+      smem_bytes<T, HD>(KEEP && kept_g == nullptr, G,
                     window > 0 ? std::max(a.step, side_step(window)) : a.step,
                     ROUND == P_F32 ? 3 : 1, NST);
   const cudaError_t e = skt::ensure_smem(kern, smem);

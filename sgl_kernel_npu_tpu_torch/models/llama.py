@@ -29,7 +29,15 @@ prefix: tm pages through prefill_batch_step_kv, hm pages through K15),
 `decode_verify_step` (draft trees, plain attention over the gathered prefix
 and the masked drafts) and `add_lora_adapters`, whose per-layer adapters
 the decode and batched prefill steps apply on wo's output for `lora_ids`
-(ops/lora.py's BGMV pair).
+(ops/lora.py's BGMV pair). Tensor parallelism: `shard_cfg_tp`,
+`shard_params_tp` and `decode_step_tp`, SPMD over a torch.distributed group
+(decode_step_kv's `tp_group` all-reduces wo's and w2's outputs).
+
+Two of the JAX package's knobs route decode_step_kv's GEMMs through K2 on
+pretiled banks at M >= 8, both off by default as there: SKT_FUSED_LM
+(lm_head: the final RMSNorm fused, f32 out) and SKT_FUSED_QGEMM (wo and w2:
+the per-token quant fused, apply_norm=False). SKT_GEMM_BK, a TPU K tile of
+an int32 accumulation, changes no result and has no counterpart.
 """
 
 from __future__ import annotations
@@ -256,12 +264,24 @@ def _qmm(x, w):
 
 def _qmm_l(x, bank, li: int):
     """x [M, K] bf16 x bank {q: [L, K, N] or [L, N/bn, K, bn], scale: [L, N]}
-    at layer li: per-token quant, then kernel A or K1. (The JAX package's
-    `_q_l`, which wo and w2 go through, is this at its default, with
-    SKT_FUSED_QGEMM off.)"""
+    at layer li: per-token quant, then kernel A or K1."""
     xq, xs = per_token_quant_int8(x)
     return quant_matmul_int8_stacked(xq, bank["q"], li, xs, bank["scale"],
                                      out_dtype=x.dtype)
+
+
+def _q_l(x, bank, li: int):
+    """wo's and w2's GEMM (inputs with no norm before them): with
+    SKT_FUSED_QGEMM on (off by default, as in the JAX package), a pretiled
+    bank and M >= 8, the per-token quant folded into K2 (apply_norm=False,
+    ones as gamma, zeros as beta); else `_qmm_l`."""
+    if bank["q"].dim() == 4 and x.shape[0] >= 8 and env.env_bool("SKT_FUSED_QGEMM", False):
+        k = x.shape[-1]
+        return rmsnorm_quant_gemm(
+            x, torch.ones((k,), dtype=torch.float32, device=x.device),
+            torch.zeros((k,), dtype=torch.float32, device=x.device), bank["q"], bank["scale"],
+            None, li=li, quant_mode="per_token", apply_norm=False, out_dtype=x.dtype)
+    return _qmm_l(x, bank, li)
 
 
 def _nrq_l(x, norm_w, bank, li: int, eps: float):
@@ -288,6 +308,20 @@ def _final_logits(x, params, cfg):
     """final RMSNorm -> lm_head logits (f32)."""
     x = _rmsnorm(x, params["final_norm"], cfg.rms_eps)
     return _qmm(x, params["lm_head"]).float()
+
+
+def _decode_logits(x, params, cfg):
+    """decode_step_kv's logits: with SKT_FUSED_LM on (off by default, as in
+    the JAX package), a pretiled lm_head and M >= 8, K2 per_token with the
+    final norm as gamma, a zero beta and f32 out; else `_final_logits`."""
+    lm = params["lm_head"]
+    if lm["q"].dim() == 4 and x.shape[0] >= 8 and env.env_bool("SKT_FUSED_LM", False):
+        return rmsnorm_quant_gemm(
+            x, params["final_norm"],
+            torch.zeros((x.shape[-1],), dtype=torch.float32, device=x.device), lm["q"],
+            lm["scale"][None], None, li=0, quant_mode="per_token", eps=cfg.rms_eps,
+            out_dtype=torch.float32)
+    return _final_logits(x, params, cfg)
 
 
 def _pages_offs(slots, ps, num_pages):
@@ -353,12 +387,23 @@ def _lora_wo(att, wo_out, big, li: int, lora_ids):
                              wo_out.shape[-1])
 
 
-def _decode_tail(x, att, big, li: int, cfg: LlamaConfig, lora_ids=None):
-    """wo (+ the LoRA hook), residual, RMSNorm + w13, SwiGLU, w2, residual."""
+def _reduce(y, tp_group):
+    """Sum a row-parallel GEMM's partial output over the tensor-parallel
+    group (the JAX package's psum over its mesh axis); without one, y."""
+    if tp_group is not None:
+        torch.distributed.all_reduce(y, group=tp_group)
+    return y
+
+
+def _decode_tail(x, att, big, li: int, cfg: LlamaConfig, lora_ids=None, tp_group=None):
+    """wo (+ the LoRA hook), residual, RMSNorm + w13, SwiGLU, w2, residual;
+    with a tensor-parallel group, wo's output (after the hook) and w2's
+    summed over it before each residual add."""
     att = att.reshape(x.shape[0], -1)
-    x = x + _lora_wo(att, _qmm_l(att, big["wo"], li), big, li, lora_ids)
+    x = x + _reduce(_lora_wo(att, _q_l(att, big["wo"], li), big, li, lora_ids), tp_group)
     g32 = _nrq_l(x, big["post_norm"][li], big["w13"], li, cfg.rms_eps).float()
-    return x + _qmm_l(_swiglu(g32, cfg.intermediate_size).to(x.dtype), big["w2"], li)
+    return x + _reduce(_q_l(_swiglu(g32, cfg.intermediate_size).to(x.dtype), big["w2"], li),
+                       tp_group)
 
 
 def _hm_attend_defer(q, k, v, kv, cached, block_table, sm_scale, ps):
@@ -373,7 +418,7 @@ def _hm_attend_defer(q, k, v, kv, cached, block_table, sm_scale, ps):
 
 
 def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
-                    slot_mapping, lora_ids=None):
+                    slot_mapping, lora_ids=None, tp_group=None):
     """decode_step_kv on page-major pages (the JAX package's llama.py:443-651):
     the flat deferred branch, or with SKT_DECODE_DEFER or SKT_DECODE_FLAT off
     the in-loop write + v3. The JAX flat branches address layer li's pages as
@@ -392,7 +437,7 @@ def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
             q, k, v = _decode_qkv(x, big, li, cfg, cos, sin)
             att = _hm_attend_defer(q, k, v, _layer(kv_cache, li), cached, block_table,
                                    sm_scale, ps)
-            x = _decode_tail(x, att, big, li, cfg, lora_ids)
+            x = _decode_tail(x, att, big, li, cfg, lora_ids, tp_group)
             k_new.append(k)
             v_new.append(v)
         # every layer's new rows at once into the [L*P] pool
@@ -413,12 +458,12 @@ def _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
         else:
             att = _v3.decode_gqa_v3_int8(q, kv["k"], kv["v"], kv["ks"], kv["vs"], seq_lens,
                                          block_table, sm_scale, ps)
-        x = _decode_tail(x, att, big, li, cfg, lora_ids)
+        x = _decode_tail(x, att, big, li, cfg, lora_ids, tp_group)
     return x
 
 
 def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
-                   seq_lens, block_table, slot_mapping, lora_ids=None):
+                   seq_lens, block_table, slot_mapping, lora_ids=None, tp_group=None):
     """One continuous-batching decode step, on page-major ("hm": a bf16 (k,
     v) tuple or an int8 dict with 5-D scales), token-major ("tm") or
     head-major-within-page ("tm2") pages, told apart by the cache as the JAX
@@ -427,15 +472,18 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
     input_ids/positions/slot_mapping [B]; seq_lens [B] (length INCLUDING the
     new token); block_table [B, max_pages]. Padded rows carry slot -1.
     lora_ids [B]: each row's adapter (add_lora_adapters; -1 none), applied
-    on wo's output in every branch. Updates kv_cache in place; returns
-    (logits [B, V] f32, kv_cache)."""
+    on wo's output in every branch. tp_group: a torch.distributed group of
+    tensor-parallel ranks; `cfg` and `params` are then this rank's shard
+    (shard_cfg_tp, shard_params_tp), and wo's output (after the LoRA hook)
+    and w2's are all-reduced over the group. Updates kv_cache in place;
+    returns (logits [B, V] f32, kv_cache)."""
     d = cfg.head_dim
     x = params["embed"][input_ids.long()]
     cos, sin = _rope_cs(params, positions, d)
     if _is_hm(kv_cache):
         x = _decode_step_hm(params, cfg, kv_cache, x, cos, sin, seq_lens, block_table,
-                            slot_mapping, lora_ids)
-        return _final_logits(x, params, cfg), kv_cache
+                            slot_mapping, lora_ids, tp_group)
+        return _decode_logits(x, params, cfg), kv_cache
     is_tm2 = kv_cache["k"].dim() == 5
     attend = decode_gqa_v13_int8_defer if is_tm2 else decode_gqa_v9_int8_defer
     b = input_ids.shape[0]
@@ -450,7 +498,7 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
         att = attend(q, k, v, kv_cache["k"], kv_cache["v"], kv_cache["ks"],
                      kv_cache["vs"], cached, block_table, sm_scale, ps,
                      layer_idx=li)
-        x = _decode_tail(x, att, big, li, cfg, lora_ids)
+        x = _decode_tail(x, att, big, li, cfg, lora_ids, tp_group)
         k_new.append(k)
         v_new.append(v)
 
@@ -464,7 +512,7 @@ def decode_step_kv(params, cfg: LlamaConfig, kv_cache, input_ids, positions,
     append(kq.reshape(lcount, b, hkv, d), vq.reshape(lcount, b, hkv, d),
            kv_cache["k"], kv_cache["v"], pages, offs)
     scatter(kv_cache["ks"], kv_cache["vs"], ksn, vsn, pages, offs)
-    return _final_logits(x, params, cfg), kv_cache
+    return _decode_logits(x, params, cfg), kv_cache
 
 
 def _rope_cs(params, positions, d: int):
@@ -708,3 +756,90 @@ def add_lora_adapters(params, cfg: LlamaConfig, num_adapters: int, rank: int,
     out = dict(params)
     out["layers"] = layers
     return out
+
+
+def shard_cfg_tp(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """Per-shard config for tensor parallelism (heads and intermediate split)."""
+    from dataclasses import replace
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp or cfg.intermediate_size % tp:
+        raise ValueError(f"tp {tp} does not divide {cfg.num_heads} / {cfg.num_kv_heads} heads "
+                         f"and intermediate {cfg.intermediate_size}")
+    return replace(cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+                   intermediate_size=cfg.intermediate_size // tp)
+
+
+def shard_params_tp(params, cfg: LlamaConfig, tp: int):
+    """Stack a [tp, ...] leading axis onto the parameter tree (Megatron
+    layout: wqkv and w13 column-parallel, wo and w2 row-parallel with their
+    output scales replicated, everything else replicated, as expanded views).
+    Shard rank r takes [r] of every leaf (decode_step_tp). The banks must be
+    untiled [L, K, N]: pretile each shard after sharding."""
+    qs_s, kvs_s = cfg.q_size // tp, cfg.kv_size // tp
+    f = cfg.intermediate_size
+    f_s = f // tp
+    lay = params["layers"]
+    # col_slices slices the LAST axis; on a pretiled 4-D [L, NB, K, bn] bank
+    # that is the bn panel axis: a silent mis-sharding
+    for name in _BIG_WEIGHTS:
+        if lay[name]["q"].dim() != 3:
+            raise ValueError(f"shard_params_tp requires untiled [L, K, N] banks; {name} is "
+                             f"{tuple(lay[name]['q'].shape)}: run pretile_big_weights AFTER "
+                             "sharding")
+
+    def col_slices(a, starts_sizes):
+        # a [..., cols]: each shard's column blocks, concatenated, stacked on axis 0
+        return torch.stack([torch.cat([a[..., st + s * sz: st + (s + 1) * sz]
+                                       for st, sz in starts_sizes], -1) for s in range(tp)])
+
+    def rows(a, size):
+        return torch.stack([a[:, s * size:(s + 1) * size] for s in range(tp)])
+
+    def rep(a):
+        return a[None].expand(tp, *a.shape)
+
+    qkv_blocks = [(0, qs_s), (cfg.q_size, kvs_s), (cfg.q_size + cfg.kv_size, kvs_s)]
+    w13_blocks = [(0, f_s), (f, f_s)]
+    layers = {
+        "wqkv": {k: col_slices(lay["wqkv"][k], qkv_blocks) for k in ("q", "scale")},
+        "w13": {k: col_slices(lay["w13"][k], w13_blocks) for k in ("q", "scale")},
+        # row-parallel: split input rows, replicate the (summed) output scale
+        "wo": {"q": rows(lay["wo"]["q"], qs_s), "scale": rep(lay["wo"]["scale"])},
+        "w2": {"q": rows(lay["w2"]["q"], f_s), "scale": rep(lay["w2"]["scale"])},
+        "input_norm": rep(lay["input_norm"]),
+        "post_norm": rep(lay["post_norm"]),
+    }
+    return {
+        "embed": rep(params["embed"]),
+        "final_norm": rep(params["final_norm"]),
+        "lm_head": {k: rep(params["lm_head"][k]) for k in ("q", "scale")},
+        "cos_sin": rep(params["cos_sin"]),
+        "layers": layers,
+    }
+
+
+def _take(tree, i: int):
+    """[i] of every leaf (dicts stay dicts, tuples tuples)."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_take(v, i) for v in tree)
+    return tree[i]
+
+
+def decode_step_tp(params_tp, cfg: LlamaConfig, kv_tp, input_ids, positions, seq_lens,
+                   block_table, slot_mapping, group=None):
+    """Tensor-parallel decode step, SPMD: every rank of `group` (a
+    torch.distributed process group; None for the default one) calls it
+    with the same arguments. Rank r runs decode_step_kv on shard r of
+    params_tp (shard_params_tp) and of kv_tp (a [tp, ...]-stacked cache tree
+    of per-shard caches, init_kv_cache(shard_cfg_tp(cfg, tp), ...) stacked)
+    with shard_cfg_tp(cfg, tp), all-reducing the row-parallel GEMMs' outputs
+    over the group. Returns (logits [B, V] f32, the same on every rank;
+    kv_tp, its shard r updated in place)."""
+    import torch.distributed as dist
+    group = dist.group.WORLD if group is None else group
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    logits, _ = decode_step_kv(_take(params_tp, rank), shard_cfg_tp(cfg, world),
+                               _take(kv_tp, rank), input_ids, positions, seq_lens, block_table,
+                               slot_mapping, tp_group=group)
+    return logits, kv_tp

@@ -1,6 +1,6 @@
 """Qwen3-Next hybrid decoder with W8A8 int8 weights: the quantised decode
 step that `bench.py --config qwen` times (counterpart of the JAX package's
-models/qwen_next.py: QwenNextConfig, init_state, init_params_q,
+models/qwen_next.py: QwenNextConfig, init_state, init_params, init_params_q,
 quantize_qwen_weights and decode_step_q).
 
 Layer i is a full-attention block iff (i + 1) % full_attention_interval == 0,
@@ -29,8 +29,10 @@ layers, rows gi * B + b) and the caches.
 
 The MoE follows the aligned tier the bench runs (qwen_next.py:587-630 of the
 JAX package) with its m-tile of 32 (SKT_QWEN_TILE's default), not the
-tight-sort reference tier. Not ported: the f32 paths (init_params,
-decode_step, forward_full, prefill_gdn_layer) and LoRA on the attention
+tight-sort reference tier. `init_params` draws the f32 tree (which
+models/loader.py::load_qwen_next fills from a checkpoint) that
+quantize_qwen_weights turns into the banks. Not ported: the f32 paths
+(decode_step, forward_full, prefill_gdn_layer) and LoRA on the attention
 output (lora_indices).
 """
 
@@ -131,6 +133,87 @@ def _on(dev, a, dtype=None):
     holds the same bits."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     return (t if dtype is None else t.to(dtype)).to(dev)
+
+
+# float64 normals drawn a chunk at a time where a leaf is dropped
+_SKIP_CHUNK = 1 << 22
+
+
+def init_params(cfg: QwenNextConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """The f32 parameter tree, with the same draws, in the same order and
+    the same dtypes, as the JAX package's init_params, so the weights are
+    bit-identical: float64 normals times their scale, rounded to f32 on the
+    host; the norms (their effective 1 + w) ones, conv_b zeros, cos_sin the
+    rotary table."""
+    return _init_params(cfg, seed, resolve_device(device))
+
+
+def _init_params(cfg: QwenNextConfig, seed: int, dev, drop=frozenset()):
+    """init_params; the top-level keys in `drop` are drawn (each leaf's
+    place in the stream is kept) but not kept, their normals drawn a chunk
+    at a time and thrown away."""
+    rng = np.random.default_rng(int(seed))
+    h = cfg.hidden_size
+    r = cfg.num_v_heads // cfg.num_qk_heads
+    qkvz_dim = cfg.num_qk_heads * (2 * cfg.head_qk_dim + 2 * r * cfg.head_v_dim)
+    ba_dim = cfg.num_qk_heads * 2 * r
+    ng, na, nl = cfg.num_gdn_layers, cfg.num_attn_layers, cfg.num_layers
+    e, f, fs = cfg.num_experts, cfg.moe_intermediate_size, cfg.shared_intermediate_size
+    hvd, hd = cfg.num_v_heads * cfg.head_v_dim, cfg.num_heads * cfg.head_dim
+    skip = None                                   # the dropped leaves' chunk
+
+    def draw(key):
+        def w(*shape, s=0.05):
+            nonlocal skip
+            if key not in drop:
+                return _on(dev, rng.standard_normal(shape) * s, torch.float32)
+            if skip is None:
+                skip = np.empty(_SKIP_CHUNK)
+            n = int(np.prod(shape))
+            while n:
+                k = min(n, skip.size)
+                rng.standard_normal(out=skip[:k])
+                n -= k
+            return None
+        return w
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+
+    w = draw("embed")
+    params = {"embed": w(cfg.vocab_size, h, s=0.02), "final_norm": full((h,), 1.0)}
+    params["lm_head"] = draw("lm_head")(h, cfg.vocab_size, s=0.02)
+    params["cos_sin"] = make_cos_sin_cache(cfg.max_position, cfg.rotary_dim,
+                                           base=cfg.rope_theta).to(dev)
+    w = draw("gdn")
+    params["gdn"] = {"in_norm": full((ng, h), 1.0), "wqkvz": w(ng, h, qkvz_dim)}
+    params["gdn"]["wba"] = w(ng, h, ba_dim)
+    params["gdn"]["conv_w"] = w(ng, cfg.conv_dim, cfg.conv_width)
+    params["gdn"]["conv_b"] = full((ng, cfg.conv_dim), 0.0)
+    params["gdn"]["A_log"] = w(ng, cfg.num_v_heads, s=0.2)
+    params["gdn"]["dt_bias"] = w(ng, cfg.num_v_heads, s=0.2)
+    params["gdn"]["out_norm_w"] = full((ng, hvd), 1.0)
+    params["gdn"]["wo"] = w(ng, hvd, h)
+    w = draw("attn")
+    params["attn"] = {"in_norm": full((na, h), 1.0), "wq": w(na, h, hd * 2)}
+    params["attn"]["wk"] = w(na, h, cfg.num_kv_heads * cfg.head_dim)
+    params["attn"]["wv"] = w(na, h, cfg.num_kv_heads * cfg.head_dim)
+    params["attn"]["wo"] = w(na, hd, h)
+    params["attn"]["q_norm"] = full((na, cfg.head_dim), 1.0)
+    params["attn"]["k_norm"] = full((na, cfg.head_dim), 1.0)
+    w = draw("moe")
+    params["moe"] = {"norm": full((nl, h), 1.0), "router": w(nl, h, e)}
+    params["moe"]["w13"] = w(nl, e, h, 2 * f)
+    params["moe"]["w2"] = w(nl, e, f, h)
+    params["moe"]["shared_w13"] = w(nl, h, 2 * fs)
+    params["moe"]["shared_w2"] = w(nl, fs, h)
+    params["moe"]["shared_gate"] = w(nl, h, 1)
+    w = draw("lora")
+    params["lora"] = {"A": w(cfg.num_loras, cfg.lora_rank, hd)}
+    params["lora"]["B"] = w(cfg.num_loras, h, cfg.lora_rank)
+    for key in drop:
+        params.pop(key, None)
+    return params
 
 
 def init_params_q(cfg: QwenNextConfig, seed: int = 0, device="cuda") -> Dict[str, Any]:

@@ -10,7 +10,9 @@ decode_gqa_pallas, decode_gqa) and MLA over split latent caches
     -> out   [B, Hq, Dv]
 As in the JAX package, `decode_gqa` takes the kernel path only when q's and
 v's head dims are multiples of 128: on a CUDA tensor kernel K10 (head dim
-128; bf16 q and pages: csrc/decode_hm.cu, C's tensor-core loop with p kept
+128, or 256 with bf16 q and pages as Qwen3-Next-80B-A3B's attention has it,
+counted under "decode_hm256"; bf16 q and pages: csrc/decode_hm.cu, C's
+tensor-core loop with p kept
 in f32, each row split over the card's blocks as decode_v3.launch_v3 sizes
 it; f32 q and pages, as models/moe.py passes them: csrc/decode_hm_f32.cu, a
 CUDA-core f32 loop), on a CPU tensor its plain version `decode_gqa_hm_ref`
@@ -133,17 +135,19 @@ def decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page
 
 def decode_gqa_hm(q, k_cache, v_cache, seq_lens, block_table, sm_scale, page_size):
     """Paged GQA decode over head-major bf16 or f32 pages (module
-    docstring): kernel K10 on the card (head dim 128, Hq / Hkv in 1, 2, 4, 8,
-    16; launched through decode_v3.launch_v3, K16's contract arguments, with
-    the workspace and arrival counters of a split row), counted under
-    "decode_hm" (bf16) or "decode_hm_f32" (f32 q and pages);
+    docstring): kernel K10 on the card (head dim 128, or 256 for bf16 q and
+    pages; Hq / Hkv in 1, 2, 4, 8, 16; launched through decode_v3.launch_v3,
+    K16's contract arguments, with the workspace and arrival counters of a
+    split row), counted under "decode_hm" (bf16), "decode_hm256" (bf16 at
+    head dim 256) or "decode_hm_f32" (f32 q and pages);
     decode_gqa_hm_ref on the CPU. seq_lens [B] includes the current token,
     which is already in the cache. Returns [B, Hq, D] in q's dtype."""
     if not use_kernel(q):
         return decode_gqa_hm_ref(q, k_cache, v_cache, seq_lens, block_table, sm_scale,
                                  page_size)
     from .decode_v3 import launch_v3        # decode_v3 imports this module
-    return launch_v3("decode_hm", q, k_cache, v_cache, None, None, seq_lens, block_table,
+    name = "decode_hm256" if q.shape[-1] == 256 else "decode_hm"
+    return launch_v3(name, q, k_cache, v_cache, None, None, seq_lens, block_table,
                      sm_scale, page_size, layout="kv_head")
 
 

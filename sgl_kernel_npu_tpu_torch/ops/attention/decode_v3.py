@@ -159,7 +159,8 @@ def launch_v3(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scal
     sizes from the card; the splits' partials meet in a workspace and the
     last to arrive merges them. Returns [B, Hq, 128] bf16. "decode_hm" with
     f32 q and f32 pages launches K10's f32 form instead (_launch_hm_f32),
-    which returns f32."""
+    which returns f32; "decode_hm256" is K10 at head dim 256 (bf16, the
+    kv-head-major layout only), which returns [B, Hq, 256] bf16."""
     b, hq, d = q.shape
     shape = k_cache.shape
     layers = shape[0] if layout == "stacked" else 1
@@ -167,11 +168,13 @@ def launch_v3(name, q, k_cache, v_cache, scales, new, lens, block_table, sm_scal
     num_pages, hkv, ps = ((pshape[1], pshape[0], pshape[2]) if layout == "kv_head"
                           else pshape[:3])
     sshape = tuple(shape[:-2]) + (1, ps)
-    if (v_cache.shape != shape or shape[-1] != d or d != 128 or ps != page_size
+    d_ok = d == (256 if name == "decode_hm256" else 128)
+    if (v_cache.shape != shape or shape[-1] != d or not d_ok or ps != page_size
             or hq % hkv or hq // hkv not in HEAD_GROUPS
             or (scales is not None and any(s.shape != sshape for s in scales))):
         raise ValueError(f"{name}: q {tuple(q.shape)}, caches {tuple(shape)}: needs head "
-                         f"dim 128, Hq / Hkv in {HEAD_GROUPS} and scales {sshape}")
+                         f"dim {256 if name == 'decode_hm256' else 128}, Hq / Hkv in "
+                         f"{HEAD_GROUPS} and scales {sshape}")
     if (name == "decode_hm" and layout == "kv_head" and scales is None and new is None
             and all(t.dtype == torch.float32 for t in (q, k_cache, v_cache))):
         return _launch_hm_f32(q, k_cache, v_cache, lens, block_table, sm_scale)

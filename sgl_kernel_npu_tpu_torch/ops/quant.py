@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import resolve_device
+
 INT8_MAX = 127.0
 INV_INT8_MAX = 1.0 / INT8_MAX     # rounded to f32 where it meets an f32 tensor
 FP8_E4M3_MAX = 448.0
@@ -66,11 +68,12 @@ def dequant_fp8_block(q: torch.Tensor, scales: torch.Tensor, block: int = 128,
     return (xb * scales[..., None]).reshape(*lead, d).to(dtype)
 
 
-def fp8_from_jax(a, device="cpu") -> torch.Tensor:
+def fp8_from_jax(a, device="cuda") -> torch.Tensor:
     """A JAX float8_e4m3fn array, given as numpy, as a torch.float8_e4m3fn
     tensor on `device`: the bytes are carried through a uint8 view, so no
     value is rounded (NaN codes included)."""
     a = np.asarray(a)
     if a.dtype.name != "float8_e4m3fn":
         raise TypeError(f"fp8_from_jax takes float8_e4m3fn, not {a.dtype}")
-    return torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn).to(device)
+    return (torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn)
+            .to(resolve_device(device)))

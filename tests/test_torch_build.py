@@ -329,6 +329,7 @@ def test_arrival_counters_are_zeroed_once():
     ("decode_v6_defer", "decode_v6", "decode_tm_core.cuh"),     # K14, bf16 pages
     ("decode_v6_int8_defer", "decode_v6", "decode_tm_core.cuh"),   # K14, int8 pages
     ("decode_hm", "decode_hm", "decode_tm_core.cuh"),           # K10
+    ("decode_hm256", "decode_hm", "decode_tm_core.cuh"),        # K10 at head dim 256
     ("decode_v7_int8", "decode_v7", "decode_tm_core.cuh"),      # K24
 ] + [(name, "decode_v3", "decode_tm_core.cuh")               # K16's and K23's contracts
      for name in ("decode_v3", "decode_v3_int8", "decode_v3_defer", "decode_v3_int8_defer",
@@ -348,17 +349,21 @@ def test_kernels_share_their_stage(kernel, source, header):
 
 
 def test_decode_hm_holds_k10_only():
-    """csrc/decode_hm.cu exports K10's launcher (and its split count) alone,
-    on the tensor-core loop with p kept in f32 (P_F32) over kv-head-major
-    bf16 pages, and decode_v3.cu instantiates the loop with P_F32 in every
-    mode it serves."""
+    """csrc/decode_hm.cu exports K10's launchers (and their split counts)
+    alone, at head dims 128 and 256, on the tensor-core loop with p kept in
+    f32 (P_F32) over kv-head-major bf16 pages, and decode_v3.cu instantiates
+    the loop with P_F32 in every mode it serves."""
     with open(os.path.join(_build.CSRC, "decode_hm.cu")) as f:
         own = f.read()
-    assert re.findall(r'extern "C" int (skt_\w+)\(', own) == ["skt_decode_hm_splits",
-                                                               "skt_decode_hm"]
-    assert [k for k, v in _build.KERNELS.items() if v == "decode_hm"] == ["decode_hm"]
+    assert re.findall(r'extern "C" int (skt_\w+)\(', own) == [
+        "skt_decode_hm_splits", "skt_decode_hm", "skt_decode_hm256_splits", "skt_decode_hm256"]
+    assert [k for k, v in _build.KERNELS.items() if v == "decode_hm"] == ["decode_hm",
+                                                                          "decode_hm256"]
+    code = COMMENT_OR_STRING.sub(" ", own)
     assert re.search(r"decode_body<KvHeadMajor, true, __nv_bfloat16, false, P_F32, IN_CACHE, "
-                     r"NST, true>", COMMENT_OR_STRING.sub(" ", own))
+                     r"NST, true>", code)
+    assert re.search(r"decode_body<KvHeadMajor, true, __nv_bfloat16, false, P_F32, IN_CACHE, "
+                     r"NST, true, D2>", code)
     with open(os.path.join(_build.CSRC, "decode_v3.cu")) as f:
         v3 = COMMENT_OR_STRING.sub(" ", f.read())
     assert re.search(r"decode_body<Layout, true, T, false, P_F32, MODE>", v3)

@@ -60,7 +60,7 @@ def _t(a):
     """numpy / jax array -> torch tensor (bf16 stays bf16, fp8 by its bytes)."""
     a = np.asarray(a)
     if a.dtype.name == "float8_e4m3fn":
-        return tq.fp8_from_jax(a)
+        return tq.fp8_from_jax(a, device="cpu")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(a))
@@ -112,14 +112,14 @@ def test_fp8_from_jax_is_bit_exact():
     carried into torch.float8_e4m3fn: the same bytes and the same values."""
     codes = np.arange(256, dtype=np.uint8)
     j = jnp.asarray(codes.view(jnp.float8_e4m3fn))
-    t = tq.fp8_from_jax(np.asarray(j))
+    t = tq.fp8_from_jax(np.asarray(j), device="cpu")
     assert np.array_equal(t.view(torch.uint8).numpy(), codes)
     jf, tf = np.asarray(j.astype(jnp.float32)), t.float().numpy()
     assert np.array_equal(np.isnan(jf), np.isnan(tf)) and np.isnan(tf[[0x7F, 0xFF]]).all()
     ok = ~np.isnan(jf)
     assert np.array_equal(jf[ok].view(np.uint32), tf[ok].view(np.uint32))
     with pytest.raises(TypeError):
-        tq.fp8_from_jax(np.zeros(4, np.uint8))
+        tq.fp8_from_jax(np.zeros(4, np.uint8), device="cpu")
 
 
 def test_int8_helpers_match_jax(rng):

@@ -341,6 +341,33 @@ def test_decode_gqa_matches_jax(monkeypatch, which, g):
     assert_bf16_close(got.float().numpy(), _np(want), 1e-4, which)
 
 
+@pytest.mark.parametrize("which", ["v1", "v2"])
+def test_decode_gqa_d256_matches_jax(monkeypatch, which):
+    """K10's contract at head dim 256, G 8 (Qwen3-Next-80B-A3B's full
+    attention: 16 query heads over 2 kv heads), against decode_gqa_pallas
+    and decode_gqa_pallas_v2 in interpret mode: 8 sequences of 0, 1, ps - 1,
+    ps, ps + 1, 2 ps + 5, 3 ps and 20 tokens; the port's decode_gqa routes
+    D 256 to decode_gqa_hm (K10's plain version here, decode_hm256 on the
+    card), as the JAX dispatcher does."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    rng = np.random.default_rng(19)
+    b, hkv, g, d, ps, mp = 8, 2, 8, 256, 16, 3
+    pages = b * mp + 1
+    jk, tk = _bf16(rng, (hkv, pages, ps, d))
+    jv, tv = _bf16(rng, (hkv, pages, ps, d))
+    jqv, tqv = _bf16(rng, (b, hkv * g, d), 1.5)
+    seq = np.array([0, 1, ps - 1, ps, ps + 1, 2 * ps + 5, 3 * ps, 20], np.int32)
+    bt = (rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1).astype(np.int32)
+    sm = d ** -0.5
+    jfn = jdec.decode_gqa_pallas if which == "v1" else jv2.decode_gqa_pallas_v2
+    want = jfn(jqv, jk, jv, jnp.asarray(seq), jnp.asarray(bt), sm, ps)
+    got = tdec.decode_gqa(tqv, tk, tv, _t(seq), _t(bt), sm, ps)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hkv * g, d)
+    assert_bf16_close(got.float().numpy(), _np(want), 1e-4, which)
+    assert_bf16_close(got.float().numpy(), _np(jdec.decode_gqa(
+        jqv, jk, jv, jnp.asarray(seq), jnp.asarray(bt), sm, ps)), 1e-4, "decode_gqa")
+
+
 def test_decode_gqa_ref_matches_jax():
     """Below a head dim of 128 decode_gqa takes its reference (one softmax
     over all keys) in both packages: D = 32, within one bf16 ulp plus 1e-4

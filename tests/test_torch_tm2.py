@@ -306,13 +306,14 @@ def _slice():
     return cfg, jp, tp, jdec
 
 
-def _slice_start(seed):
+def _slice_start(seed, jdec=None):
     """The slice's start from `seed`: equal tm2 caches on both sides,
     pre-filled with seeded int8 rows and scales, B = 8 sequences of 2 pages
     at position ps - 2, and `step(jkv, ids, pos)`, one decode_step_kv on
     each side (the port's cache in place) -> (JAX logits, port logits, JAX
-    cache)."""
-    cfg, jp, tp, jdec = _slice()
+    cache). jdec: the JAX step to run (default the slice's jitted step)."""
+    cfg, jp, tp, jdec0 = _slice()
+    jdec = jdec or jdec0
     rng = np.random.default_rng(seed)
     b, mp, ps = 8, 2, cfg.page_size
     pages = b * mp + 1
@@ -513,3 +514,67 @@ def test_port_pretiled_banks_give_equal_logits():
         logits.append((lg, dg))
     assert torch.equal(logits[0][0], logits[1][0])
     assert torch.equal(logits[0][1], logits[1][1])
+
+
+@pytest.mark.parametrize("knob", ["SKT_FUSED_LM", "SKT_FUSED_QGEMM"])
+def test_fused_routes_match_jax(monkeypatch, knob):
+    """decode_step_kv with SKT_FUSED_LM (lm_head through K2 per_token, f32
+    out) or SKT_FUSED_QGEMM (wo and w2 through K2 with apply_norm=False) on
+    the slice's pretiled banks, B = 8: the port's logits within calc_diff
+    8e-3 of the JAX package's with the same flag (traced with it on), the
+    caches to the slice's bounds, over three steps from seed 71; the port
+    takes the route (K2's calls counted: one a step for lm_head, two a layer
+    for wo and w2) and, with the flag off, does not."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    cfg, jp, tp, _ = _slice()
+    calls = []
+    real = tl.rmsnorm_quant_gemm
+
+    def counted(*a, **kw):
+        calls.append((kw.get("apply_norm", True), kw.get("out_dtype")))
+        return real(*a, **kw)
+    monkeypatch.setattr(tl, "rmsnorm_quant_gemm", counted)
+    monkeypatch.setenv(knob, "1")
+    # traced anew with the flag on (the slice's jitted step was traced without)
+    jdec = jax.jit(lambda p, kv, *a: jl.decode_step_kv(p, cfg, kv, *a),
+                   compiler_options=NO_EXCESS)
+    _, rng, jkv, tkv, pos, step = _slice_start(71, jdec)
+    for _ in range(3):
+        del calls[:]
+        jlg, tlg, jkv = step(jkv, rng.integers(0, cfg.vocab_size, len(pos)), pos)
+        assert calc_diff(tlg, jlg) < LOGITS_DIFF
+        exact, worst, sexact = _cache_match(jkv, tkv)
+        assert exact >= 0.999 and worst <= 1 and sexact >= 0.999, (exact, worst, sexact)
+        routed = [c for c in calls if c[0] is False or c[1] == torch.float32]
+        if knob == "SKT_FUSED_LM":
+            assert routed == [(True, torch.float32)]
+        else:
+            assert routed == [(False, torch.bfloat16)] * (2 * cfg.num_layers)
+        pos = pos + 1
+    monkeypatch.delenv(knob)
+    del calls[:]
+    step(jkv, rng.integers(0, cfg.vocab_size, len(pos)), pos)
+    assert len(calls) == 2 * cfg.num_layers           # wqkv and w13 only
+
+
+def test_gemm_bk_changes_no_result(monkeypatch):
+    """SKT_GEMM_BK, the JAX tiled kernel's K tile (ops/matmul.py:173), splits
+    an int32 accumulation: the JAX output at SKT_GEMM_BK=1024 equals its
+    default (7168, K whole), and the port, which reads no such knob, equals
+    both, on a pretiled bank of K 2048 at M 8 and 40."""
+    monkeypatch.setenv("SKT_IMPL", "pallas")
+    rng = np.random.default_rng(24)
+    k, n, bn = 2048, 256, 128
+    w, ws = _bank(rng, 2, k, n)
+    jw = jmm.pretile_weight_bank(jnp.asarray(w), bn)
+    tw = tmm.pretile_weight_bank(_t(w), bn)
+    for m in (8, 40):
+        xq = rng.integers(-128, 128, (m, k), dtype=np.int8)
+        xs = (rng.random((m, 1)) * 0.05).astype(np.float32)
+        args = (jnp.asarray(xq), jw, jnp.int32(1), jnp.asarray(xs), jnp.asarray(ws))
+        monkeypatch.delenv("SKT_GEMM_BK", raising=False)
+        default = _np(jmm.quant_matmul_int8_stacked_tiled(*args))
+        monkeypatch.setenv("SKT_GEMM_BK", "1024")
+        split = _np(jmm.quant_matmul_int8_stacked_tiled(*args))
+        got = tmm.quant_matmul_int8_stacked(_t(xq), tw, 1, _t(xs), _t(ws)).float().numpy()
+        assert np.array_equal(default, split) and np.array_equal(got, default), m
