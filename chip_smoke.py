@@ -29,8 +29,11 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    4,097, 8 equal ones, lengths beside a round or a split, 4 and 20 heads
    with krope 16 and 6; a second call bit-identical); and the Qwen3-Next bench path's kernels at its shapes: K8 (the
    grouped expert GEMM, 5,376 aligned rows of 128 tokens routed top-10 over
-   128 experts), K9 (the recurrent gated-delta-rule step on the bf16 pool)
-   and K10 (head-major bf16 paged decode; also at head dim 256, G 8, at
+   128 experts), K9 (the recurrent gated-delta-rule step on the bf16 pool;
+   also on an f32 pool at Qwen3-Next-80B-A3B's GDN shape, 128 sequences of
+   16 / 32 heads of 128, and at the default QwenNextConfig's head dim 32,
+   bf16 and f32 pools, and D 64 checked) and K10 (head-major bf16 paged
+   decode; also at head dim 256, G 8, at
    phase 18 (c)'s Qwen3-Next-80B-A3B shape and at its edges); K2 where
    phase 18 (f)'s routes put it (wo and w2 with apply_norm=False at M 128,
    lm_head at K 4096, N 128,256, f32 out); and the MoE layer's kernels at
@@ -291,6 +294,27 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    pretiled weights: 4 steps each with the knobs off, SKT_FUSED_LM=1, and
    both SKT_FUSED_LM=1 and SKT_FUSED_QGEMM=1 (a step's K1 65 / 64 / 0, K2
    64 / 65 / 129), logits within calc_diff 8e-3 of the knobs off.
+19. Qwen3-Next's f32 paths and the GDN / conv surface. (a) and (b) run in
+   phase 18 (c) on its loaded f32 tree before it is quantised (TF32 must be
+   off; the peak device memory printed): (a) the f32 decode_step at (c)'s
+   traffic (batch 128, 8 greedy steps, an f32 SSM pool; exact launches a
+   step: K9 on the f32 pool 3, K10 at D 256 1, nothing else), a repeat
+   bit-identical, step 1 within calc_diff 1e-4 of SKT_IMPL=ref, its device
+   split; (b) forward_full at B 2, T 192 (three chunks of 64) held at every
+   position within calc_diff 1e-3 of decode_step fed the same tokens a
+   token at a time from an empty state, and prefill_gdn_layer's final
+   state of GDN layer 0 within calc_diff 1e-5 of that run's f32 pool rows.
+   (c) bench.py --smoke's default QwenNextConfig (batch 4, context 64):
+   decode_step on an f32 pool and decode_step_q on bf16 and f32 pools, each
+   with lora_indices over the 2 adapters, 12 greedy steps (exact launches:
+   K9 at D 32; K1 19 and K8 8 for decode_step_q), a repeat bit-identical,
+   step 1 against SKT_IMPL=ref. (d) at Qwen3-Next-80B-A3B's GDN widths:
+   causal_conv1d_fn, _varlen, chunk_gated_delta_rule_varlen over 4
+   sequences of 37-300 tokens, recurrent_gated_delta_rule with
+   num_accepted_tokens and an intermediate state, the [B, dim, S] conv
+   update with its windows, conv_state_rollback, move_intermediate_cache
+   and the five qkv_fusion functions at its attention widths, each on CUDA
+   tensors against the same call on CPU copies; no kernel launched.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -1856,6 +1880,9 @@ def check_decode_mla_edges(torch, dec, mcfg):
 # another order than the plain versions'; this share of max|plain|
 GDN_SHARE = 1e-4
 K10_SHARE = 1e-4
+# K9's f32 pool against its plain version: the state itself, its delta from
+# f32 sums taken in another order; this share of max|plain|
+GDN_F32_POOL_SHARE = 1e-5
 
 
 def qwen_bench_config(qn):
@@ -2023,54 +2050,109 @@ def check_grouped_edges(torch, mm):
           "and pretiled banks (bn 128, 256), bf16 and f32: " + "; ".join(notes))
 
 
+def _gdn_inputs(torch, rng, b, h, hv, d, rows, dtype):
+    """K9's inputs: a pool of `rows` rows of random state (0.1 N(0, 1)) in
+    `dtype`, q, k, v N(0, 1), g in (-2, 0], beta a sigmoid."""
+    pool = (0.1 * torch.randn((rows, hv, d, d), generator=rng, device="cuda")).to(dtype)
+    q = torch.randn((b, h, d), generator=rng, device="cuda")
+    k = torch.randn((b, h, d), generator=rng, device="cuda")
+    v = torch.randn((b, hv, d), generator=rng, device="cuda")
+    g = -2.0 * torch.rand((b, hv), generator=rng, device="cuda")
+    beta = torch.sigmoid(torch.randn((b, hv), generator=rng, device="cuda"))
+    return pool, (q, k, v, g, beta)
+
+
+def _gdn_run(torch, rec, pool, a, idx, nb, label):
+    """K9 and its plain version on copies of `pool` with the first nb
+    sequences of `a`: o within GDN_SHARE of max|plain|; a bf16 pool within
+    one bf16 ulp, an f32 pool within GDN_F32_POOL_SHARE of max|plain|;
+    every row no sequence writes untouched. Returns (o's max-abs error, the
+    share of the pool bit-equal, the kernel's pool)."""
+    p1, p2 = pool.clone(), pool.clone()
+    a = tuple(x[:nb] for x in a)
+    sc = a[0].shape[-1] ** -0.5
+    o = rec.delta_rule_step(*a, p1, idx, sc, True)
+    ref = rec.delta_rule_step_ref(*a, p2, idx, sc, True)
+    torch.cuda.synchronize()
+    err = float((o - ref).abs().max())
+    if not err <= GDN_SHARE * float(ref.abs().max()):
+        raise AssertionError(f"{label} o: max-abs {err:.3g}, max|plain| "
+                             f"{float(ref.abs().max()):.3g}")
+    if pool.dtype == torch.bfloat16:
+        _bf16_check(f"{label} pool", p1, p2, 1e-6)
+    else:
+        perr = float((p1 - p2).abs().max())
+        if not perr <= GDN_F32_POOL_SHARE * float(p2.abs().max()):
+            raise AssertionError(f"{label} f32 pool: max-abs {perr:.3g}, max|plain| "
+                                 f"{float(p2.abs().max()):.3g}")
+    written = torch.zeros(pool.shape[0], dtype=torch.bool, device="cuda")
+    written[idx[idx >= 0].long()] = True
+    if not (torch.equal(p1[~written], pool[~written])
+            and torch.equal(p2[~written], pool[~written])):
+        raise AssertionError(f"{label} wrote a row it must not write")
+    return err, float((p1 == p2).float().mean()), p1
+
+
+def _gdn_row(torch, rec, rng, label, b, h, hv, d, layers, dtype):
+    """K9 at B sequences of H qk / HV v heads of D over a pool of `layers`
+    GDN layers' rows in `dtype`, the rows of layer 1 (of 4 when layers is 9,
+    as the bench path's layer 4): checked (_gdn_run), then 16 sequences with
+    idx -1 among them, then timed against its plain version and its byte
+    bound (the touched state read once and written once, the f32 inputs and
+    outputs once)."""
+    li = 4 if layers > 4 else 1
+    pool, a = _gdn_inputs(torch, rng, b, h, hv, d, layers * b, dtype)
+    idx = (li * b + torch.arange(b, device="cuda")).to(torch.int32)
+    err, exact, p1 = _gdn_run(torch, rec, pool, a, idx, b, label)
+    idx16 = torch.arange(1, 17, dtype=torch.int32, device="cuda")
+    idx16[[3, 7, 8]] = -1
+    _gdn_run(torch, rec, pool, a, idx16, 16, label)
+    sc = d ** -0.5
+    ms = _time_ms(lambda: rec.delta_rule_step(*a, p1, idx, sc, True), 50, graph=True)
+    plain = _time_ms(lambda: rec.delta_rule_step_ref(*a, p1, idx, sc, True), 5)
+    nbytes = (2 * b * hv * d * d * pool.element_size()
+              + 4 * (2 * b * h * d + 2 * b * hv * d + 2 * b * hv + b))
+    bound, by = _bound_ms(nbytes, 7.0 * b * hv * d * d, "f32_flops")
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"  {label} B={b} H={h} HV={hv} K=V={d}, {kind} pool {layers * b} rows: o max-abs "
+          f"{err:.3g}, pool {exact:.5f} exact (the rest within "
+          f"{'one bf16 ulp' if kind == 'bf16' else f'{GDN_F32_POOL_SHARE:g} of max|plain|'}), "
+          f"untouched rows equal, idx -1 rows kept; kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+          f"bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
 def check_gdn(torch, rec, qcfg, rng):
     """K9 at the Qwen bench shape: 128 sequences, 8 qk and 8 v heads of 128,
     the bf16 pool of all 9 GDN layers (1,152 rows of random state), the rows
     of layer 4; o within GDN_SHARE of max|plain|, the pool within one bf16
     ulp, every other row untouched. Then 16 sequences with idx -1 among them:
     their rows stay as they were."""
-    b, h, hv, d = 128, qcfg.num_qk_heads, qcfg.num_v_heads, qcfg.head_qk_dim
-    rows = qcfg.num_gdn_layers * b
-    pool = (0.1 * torch.randn((rows, hv, d, d), generator=rng, device="cuda")).to(torch.bfloat16)
-    q = torch.randn((b, h, d), generator=rng, device="cuda")
-    k = torch.randn((b, h, d), generator=rng, device="cuda")
-    v = torch.randn((b, hv, d), generator=rng, device="cuda")
-    g = -2.0 * torch.rand((b, hv), generator=rng, device="cuda")
-    beta = torch.sigmoid(torch.randn((b, hv), generator=rng, device="cuda"))
-    sc = d ** -0.5
+    return _gdn_row(torch, rec, rng, "gdn_recurrent", 128, qcfg.num_qk_heads,
+                    qcfg.num_v_heads, qcfg.head_qk_dim, qcfg.num_gdn_layers, torch.bfloat16)
 
-    def run(idx, nb):
-        p1, p2 = pool.clone(), pool.clone()
-        a = (q[:nb], k[:nb], v[:nb], g[:nb], beta[:nb])
-        o = rec.delta_rule_step(*a, p1, idx, sc, True)
-        ref = rec.delta_rule_step_ref(*a, p2, idx, sc, True)
-        torch.cuda.synchronize()
-        err = float((o - ref).abs().max())
-        if not err <= GDN_SHARE * float(ref.abs().max()):
-            raise AssertionError(f"gdn_recurrent o: max-abs {err:.3g}, max|plain| "
-                                 f"{float(ref.abs().max()):.3g}")
-        _bf16_check("gdn_recurrent pool", p1, p2, 1e-6)
-        written = torch.zeros(rows, dtype=torch.bool, device="cuda")
-        written[idx[idx >= 0].long()] = True
-        if not (torch.equal(p1[~written], pool[~written])
-                and torch.equal(p2[~written], pool[~written])):
-            raise AssertionError("gdn_recurrent wrote a row it must not write")
-        return err, float((p1 == p2).float().mean()), a, p1
-    idx = (4 * b + torch.arange(b, device="cuda")).to(torch.int32)
-    err, exact, a, p1 = run(idx, b)
-    idx16 = torch.arange(1, 17, dtype=torch.int32, device="cuda")
-    idx16[[3, 7, 8]] = -1
-    run(idx16, 16)
-    ms = _time_ms(lambda: rec.delta_rule_step(*a, p1, idx, sc, True), 50, graph=True)
-    plain = _time_ms(lambda: rec.delta_rule_step_ref(*a, p1, idx, sc, True), 5)
-    nbytes = 2 * b * hv * d * d * 2 + 4 * (2 * b * h * d + 2 * b * hv * d + 2 * b * hv + b)
-    bound, by = _bound_ms(nbytes, 7.0 * b * hv * d * d, "f32_flops")
-    print(f"  gdn_recurrent B={b} H={h} HV={hv} K=V={d}, pool {rows} rows: o max-abs "
-          f"{err:.3g}, pool {exact:.5f} exact (the rest within one bf16 ulp), untouched rows "
-          f"equal, idx -1 rows kept; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
-          f"{bound:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+
+def check_gdn_widths(torch, rec, rng):
+    """K9's other instantiations: the f32 pool at Qwen3-Next-80B-A3B's
+    published GDN shape (128 sequences, 16 qk / 32 v heads of 128, the 3 GDN
+    layers of phase 19 (a)'s 4), bf16 and f32 pools at the default
+    QwenNextConfig's heads (4 qk / 8 v of 32, 3 GDN layers) at a batch of
+    128, each checked and timed (_gdn_row); and D 64 checked (no caller
+    runs it: 16 sequences, 4 / 8 heads, both pools). Returns the rows of
+    the f32 pool, D 32 and D 32 on an f32 pool."""
+    rows = (_gdn_row(torch, rec, rng, "gdn_recurrent (f32 pool)", 128, 16, 32, 128, 3,
+                     torch.float32),
+            _gdn_row(torch, rec, rng, "gdn_recurrent (D 32)", 128, 4, 8, 32, 3, torch.bfloat16),
+            _gdn_row(torch, rec, rng, "gdn_recurrent (D 32, f32 pool)", 128, 4, 8, 32, 3,
+                     torch.float32))
+    for dtype in (torch.bfloat16, torch.float32):
+        pool, a = _gdn_inputs(torch, rng, 16, 4, 8, 64, 32, dtype)
+        idx = torch.arange(16, 32, dtype=torch.int32, device="cuda")
+        idx[5] = -1
+        _gdn_run(torch, rec, pool, a, idx, 16, f"gdn_recurrent (D 64, {dtype})")
+    print("  gdn_recurrent D 64: bf16 and f32 pools held to their plain version")
+    return rows
 
 
 def check_decode_hm(torch, dec, qcfg, rng):
@@ -4470,11 +4552,11 @@ def small_qwen_config(qn):
                              max_position=256, num_loras=0)
 
 
-def _qwen_state(torch, qn, cfg, b, pages, gen, dev):
+def _qwen_state(torch, qn, cfg, b, pages, gen, dev, ssm_dtype=None):
     """A decode state of seeded random values where bench.py leaves zeros:
-    conv N(0, 1) f32, the SSM pool 0.1 N(0, 1) and the caches N(0, 1) in
-    bf16."""
-    st = qn.init_state(cfg, b, pages, ssm_dtype=torch.bfloat16, device=dev)
+    conv N(0, 1) f32, the SSM pool 0.1 N(0, 1) (bf16 unless ssm_dtype says
+    otherwise) and the caches N(0, 1) in bf16."""
+    st = qn.init_state(cfg, b, pages, ssm_dtype=ssm_dtype or torch.bfloat16, device=dev)
     st["conv"].copy_(torch.randn(st["conv"].shape, generator=gen, device=gen.device))
     st["ssm"].copy_(0.1 * torch.randn(st["ssm"].shape, generator=gen, device=gen.device))
     for name in ("k_cache", "v_cache"):
@@ -7398,14 +7480,16 @@ def _draw_qwen_next(ck, c):
     ck.flush()
 
 
-def run_hf_qwen_next(torch, qn, loader, build, gpu):
+def run_hf_qwen_next(torch, qn, loader, build, gpu, f32_paths=None):
     """Phase 18 (c): Qwen3-Next at Qwen3-Next-80B-A3B's published widths, 4
     of 48 layers, a bf16 checkpoint -> load_qwen_next -> quantize_qwen_weights
     -> decode_step_q: 8 greedy steps at batch 128 over 256..383 cached tokens
     on 128-token pages (phase 7's traffic), exact launches a step (K10 at head
     dim 256 among them), a repeat from the same state bit-identical, the
     first step's logits against the same step under SKT_IMPL=ref within
-    calc_diff EPM_DIFF. Returns the launch counts of the run."""
+    calc_diff EPM_DIFF. `f32_paths(cfg, params)`, when given, runs on the
+    loaded f32 tree before it is quantised (phase 19 (a) and (b)). Returns
+    the launch counts of the run."""
     with _Checkpoint(torch, "qwen_next", QWEN_NEXT_HF, 38) as ck:
         _draw_qwen_next(ck, QWEN_NEXT_HF)
         torch.cuda.empty_cache()
@@ -7414,11 +7498,15 @@ def run_hf_qwen_next(torch, qn, loader, build, gpu):
         cfg, params = loader.load_qwen_next(ck.path, "cuda", timings=timings)
         cfg = dataclasses.replace(cfg, page_size=128)    # phase 7's pages
         torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if f32_paths is not None:
+            f32_paths(cfg, params)
+            torch.cuda.empty_cache()
         t1 = time.perf_counter()
         params = qn.quantize_qwen_weights(params, cfg)
         torch.cuda.synchronize()
         print(f"  (c) Qwen3-Next checkpoint: {ck.nbytes / 1e9:.2f} GB bf16 in {ck.files} files, "
-              f"write {ck.seconds:.1f} s; load_qwen_next {t1 - t0:.1f} s (the seed-0 "
+              f"write {ck.seconds:.1f} s; load_qwen_next {load_s:.1f} s (the seed-0 "
               f"template's draw {timings['template_s']:.1f} s, the rest "
               f"{timings['load_s']:.1f} s), quantize_qwen_weights {time.perf_counter() - t1:.1f}"
               f" s; cfg: {cfg.num_gdn_layers} GDN + {cfg.num_attn_layers} attention layers, head "
@@ -7483,6 +7571,487 @@ def run_hf_qwen_next(torch, qn, loader, build, gpu):
     profile_step(torch, lambda: step(ids0, pos0), _QWEN_NEXT_BUCKETS,
                  "Qwen3-Next step (B=128, published widths, 4 layers)")
     return launches
+
+
+# ---------------------- phase 19: Qwen3-Next's f32 paths and the GDN / conv surface
+
+# launches of one f32 decode_step step at phase 18 (c)'s 4 layers: K9 on the
+# f32 pool a GDN layer, K10 at head dim 256 the attention layer; every
+# product is torch.matmul
+QWEN_F32_PER_STEP = {"gdn_recurrent": 3, "decode_hm256": 1}
+_QWEN_F32_BUCKETS = (("K9 gdn_recurrent (f32 pool)", ("gdn_recurrent_kernel",)),
+                     ("K10 decode_hm256", ("decode_hm256_kernel",)),
+                     ("memsets", ("Memset",)))
+# calc_diff of an f32 step against the same step under SKT_IMPL=ref: K9's
+# f32 sums in another order and K10's bf16 output an ulp apart, carried
+# through f32 products
+QWEN_F32_DIFF = 1e-4
+# (b): forward_full against decode_step fed a token at a time (its attention
+# reads bf16 pages), the bar of tests/test_qwen_loader.py; the chunked GDN's
+# final state against K9's f32 pool after T steps (f32 sums in other orders)
+QWEN_FULL_DIFF = 1e-3
+QWEN_STATE_DIFF = 1e-5
+# (b): where a token's top-k route first differs between the two paths,
+# its k-th and (k+1)-th router probabilities must sit within this many
+# times the largest difference the two paths' probabilities show on the
+# tokens whose routes agree in that layer (a near tie, not a fault)
+ROUTE_TIE = 2.0
+QWEN_FULL_B, QWEN_FULL_T = 2, 192
+
+
+def _qwen_f32_decode(torch, qn, build, cfg, params, gpu):
+    """(a) decode_step on the f32 tree at phase 18 (c)'s traffic: 8 greedy
+    steps at batch 128 over 256..383 cached tokens on 128-token pages, the
+    generator seed of (c), an f32 SSM pool; exact launches a step, a repeat
+    bit-identical, step 1 against SKT_IMPL=ref within QWEN_F32_DIFF, then
+    the device split. Returns the launch counts of the run."""
+    b, ps, steps = QWEN_NEXT_B, cfg.page_size, QWEN_NEXT_STEPS
+    mp = -(-(384 + steps) // ps)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    state = _qwen_state(torch, qn, cfg, b, b * mp + 1, gen, "cuda", ssm_dtype=torch.float32)
+    pos0 = torch.randint(256, 384, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    ids0 = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bt = torch.arange(1, b * mp + 1, dtype=torch.int32, device="cuda").reshape(b, mp)
+    rows = torch.arange(b, device="cuda")
+    snap = {k: v.clone() for k, v in state.items()}
+
+    def step(ids, pos):
+        slots = bt[rows, pos // ps] * ps + pos % ps
+        return qn.decode_step(params, cfg, state, ids, pos, pos + 1, bt, slots)[0]
+
+    def run():
+        ids, pos, toks, first = ids0, pos0, [], None
+        for _ in range(steps):
+            logits = step(ids, pos)
+            first = logits if first is None else first
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("19 (a) logits are not finite")
+            ids = torch.argmax(logits, -1).to(torch.int32)
+            toks.append(ids)
+            pos = pos + 1
+        return torch.stack(toks), first
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, first = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = dict(build.launches)
+    for name, n in launches.items():
+        if n != QWEN_F32_PER_STEP.get(name, 0) * steps:
+            raise AssertionError(f"19 (a) {name} launched {n} times in {steps} steps, not "
+                                 f"{QWEN_F32_PER_STEP.get(name, 0)} a step")
+    for k, v in snap.items():
+        state[k].copy_(v)
+    toks2, first2 = run()
+    if not (torch.equal(toks, toks2) and torch.equal(first, first2)):
+        raise AssertionError("19 (a) a second run from the same state differs")
+    for k, v in snap.items():
+        state[k].copy_(v)
+    with _env(SKT_IMPL="ref"):
+        plain = step(ids0, pos0)
+    diff = _calc_diff(first, plain)
+    if not diff < QWEN_F32_DIFF:
+        raise AssertionError(f"19 (a) step 1 against SKT_IMPL=ref: calc_diff {diff}")
+    print(f"  19 (a) f32 decode_step B={b}, 256..383 cached, ps {ps}, f32 SSM pool: {steps} "
+          f"greedy steps, {ms:.3f} ms a step (host clock, first run), launches a step "
+          f"{QWEN_F32_PER_STEP} and nothing else, repeat bit-identical; step 1 against "
+          f"SKT_IMPL=ref calc_diff {diff:.3g} (bar {QWEN_F32_DIFF}) [{gpu}]")
+    for k, v in snap.items():
+        state[k].copy_(v)
+    profile_step(torch, lambda: step(ids0, pos0), _QWEN_F32_BUCKETS,
+                 "19 (a) f32 Qwen3-Next step (B=128, published widths, 4 layers)")
+    return launches
+
+
+def _routes_of(torch, qn, fn):
+    """Run fn() with every _moe_mlp call's router probabilities recorded:
+    (fn's result, [probs [T, E] per call, in call order])."""
+    seen, orig = [], qn._moe_mlp
+
+    def spy(x, p, cfg):
+        seen.append(torch.softmax((x @ p["router"]).float(), dim=-1))
+        return orig(x, p, cfg)
+    qn._moe_mlp = spy
+    try:
+        return fn(), seen
+    finally:
+        qn._moe_mlp = orig
+
+
+def _route_swaps(torch, full_routes, dec_routes, b, t, nl, k):
+    """Compare forward_full's router probabilities (full_routes[l] [B * T, E],
+    b-major) with decode_step's (dec_routes[ti * nl + l] [B, E]). Returns
+    (swapped [B, T]: the position's top-k set differs in some layer, ratio):
+    at each swapped position's first differing layer, the gap between the
+    k-th and (k+1)-th probability (forward_full's) over the largest
+    |full - decode| probability difference on that layer's agreeing
+    tokens; ratio is the largest such quotient (0 when nothing swaps)."""
+    swapped = torch.zeros((b, t), dtype=torch.bool, device=full_routes[0].device)
+    ratio = 0.0
+    for li in range(nl):
+        pf = full_routes[li].reshape(b, t, -1)
+        pd = torch.stack([dec_routes[ti * nl + li] for ti in range(t)], 1)
+        top_f = torch.sort(torch.topk(pf, k, dim=-1).indices, -1).values
+        top_d = torch.sort(torch.topk(pd, k, dim=-1).indices, -1).values
+        differ = (top_f != top_d).any(-1)
+        first = differ & ~swapped
+        if bool(first.any()):
+            agree = ~differ & ~swapped
+            spread = float((pf - pd).abs().amax(-1)[agree].max()) if bool(agree.any()) else 0.0
+            srt = torch.sort(pf, -1, descending=True).values
+            gap = float((srt[..., k - 1] - srt[..., k])[first].max())
+            ratio = max(ratio, gap / spread if spread > 0 else float("inf"))
+        swapped |= differ
+    return swapped, ratio
+
+
+def _qwen_f32_full(torch, qn, build, cfg, params, gpu):
+    """(b) forward_full at B 2, T 192 (three chunks of 64) against
+    decode_step fed the same tokens a token at a time from an empty state,
+    and prefill_gdn_layer's final state of GDN layer 0 against that run's
+    SSM pool rows after T steps (QWEN_STATE_DIFF): the chunked GDN against
+    K9 on the f32 pool. The logits are held within QWEN_FULL_DIFF as a whole
+    and at every position but those where the two paths route the token to
+    other top-k experts in some layer (_route_swaps): the random router
+    puts a token's k-th and (k+1)-th probabilities close enough, now and
+    then, that the two paths' differences (decode_step reads bf16 pages)
+    swap them, and a swapped expert changes the token's output outright."""
+    b, t, ps = QWEN_FULL_B, QWEN_FULL_T, cfg.page_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    ids = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = qn.forward_full(params, cfg, ids)
+    torch.cuda.synchronize()
+    full_ms = 1e3 * (time.perf_counter() - t0)
+    again, full_routes = _routes_of(torch, qn, lambda: qn.forward_full(params, cfg, ids))
+    if not torch.equal(again, full):
+        raise AssertionError("19 (b) a second forward_full differs")
+    x0 = params["embed"][ids.long()]
+    t0 = time.perf_counter()
+    _, final = qn.prefill_gdn_layer(params, cfg, x0, 0)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    if any(build.launches.values()):
+        raise AssertionError(f"19 (b) forward_full launched kernels: "
+                             f"{ {k: n for k, n in build.launches.items() if n} }")
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("19 (b) forward_full's logits are not finite")
+    mp = -(-t // ps)
+    state = qn.init_state(cfg, b, b * mp + 1, device="cuda")
+    bt = torch.arange(1, b * mp + 1, dtype=torch.int32, device="cuda").reshape(b, mp)
+    rows = torch.arange(b, device="cuda")
+
+    def decode_all():
+        out = []
+        for ti in range(t):
+            pos = torch.full((b,), ti, dtype=torch.int32, device="cuda")
+            slots = bt[rows, pos // ps] * ps + pos % ps
+            out.append(qn.decode_step(params, cfg, state, ids[:, ti], pos, pos + 1, bt,
+                                      slots)[0])
+        return torch.stack(out, 1)
+    t0 = time.perf_counter()
+    dec, dec_routes = _routes_of(torch, qn, decode_all)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    for name, n in build.launches.items():
+        if n != QWEN_F32_PER_STEP.get(name, 0) * t:
+            raise AssertionError(f"19 (b) {name} launched {n} times in {t} decode steps")
+    swapped, ratio = _route_swaps(torch, full_routes, dec_routes, b, t, cfg.num_layers,
+                                  cfg.top_k)
+    pos_diff = torch.tensor([[_calc_diff(full[bi, i], dec[bi, i]) for i in range(t)]
+                             for bi in range(b)])
+    kept = pos_diff[~swapped.cpu()]
+    diff = _calc_diff(full, dec)
+    worst_kept = float(kept.max()) if kept.numel() else 0.0
+    worst_swapped = float(pos_diff[swapped.cpu()].max()) if bool(swapped.any()) else 0.0
+    sdiff = _calc_diff(final, state["ssm"][0])
+    serr = float((final - state["ssm"][0]).abs().max() / final.abs().max())
+    if not (diff < QWEN_FULL_DIFF and worst_kept < QWEN_FULL_DIFF and ratio <= ROUTE_TIE
+            and sdiff < QWEN_STATE_DIFF):
+        raise AssertionError(
+            f"19 (b) forward_full against decode_step: calc_diff {diff} (worst position "
+            f"without a swapped route {worst_kept}; {int(swapped.sum())} positions with one, "
+            f"worst {worst_swapped}, gap ratio {ratio}); GDN layer 0 final state against "
+            f"the pool: calc_diff {sdiff}")
+    print(f"  19 (b) forward_full B={b} T={t} (chunks of {cfg.chunk_size}) {full_ms:.1f} ms, "
+          f"prefill_gdn_layer {prefill_ms:.1f} ms (host clock, first calls, no kernel "
+          f"launched; a second call, routes recorded, bit-identical); decode_step a token at "
+          f"a time from an empty state, routes recorded, {dec_s:.2f} s ({1e3 * dec_s / t:.2f} "
+          f"ms a step, K9 and K10 exact); logits calc_diff {diff:.3g} "
+          f"(bar {QWEN_FULL_DIFF}), worst position {worst_kept:.3g} over the {kept.numel()} "
+          f"positions whose routes agree (bar {QWEN_FULL_DIFF}); {int(swapped.sum())} "
+          f"positions with a swapped top-{cfg.top_k} route in some layer, worst "
+          f"{worst_swapped:.3g} (each a near tie where its route first swaps: its gap at most "
+          f"{ratio:.3g} of the paths' largest probability difference on unswapped tokens, "
+          f"bar {ROUTE_TIE}); GDN layer 0's chunked final state against K9's f32 pool rows "
+          f"after {t} steps: calc_diff {sdiff:.3g} (bar {QWEN_STATE_DIFF}), max-abs "
+          f"{serr:.3g} of max [{gpu}]")
+
+
+def run_qwen_f32(torch, qn, build, cfg, params, gpu):
+    """Phase 19 (a) and (b) on phase 18 (c)'s f32 tree (Qwen3-Next-80B-A3B's
+    widths, 4 of 48 layers, loaded from its bf16 checkpoint), before it is
+    quantised. Prints each part's seconds and the peak device memory.
+    Returns (a)'s launch counts."""
+    prec, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    print(f"  19: f32 matmul precision {prec!r}, allow_tf32 {tf32}")
+    if prec != "highest" or tf32:
+        raise AssertionError("19: the f32 paths need full-f32 matmuls (TF32 is on)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches = _qwen_f32_decode(torch, qn, build, cfg, params, gpu)
+    print(f"  19 (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _qwen_f32_full(torch, qn, build, cfg, params, gpu)
+    print(f"  19 (b) {time.perf_counter() - t0:.1f} s; peak device memory of (a) and (b) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the f32 tree included)")
+    return launches
+
+
+# (c) bench.py --config qwen --smoke (bench.py:507-510): the default
+# QwenNextConfig, batch 4, context 64, 4 steps a call, a warm call and 2
+# more; launches of a decode_step_q step there: K1 wqkvz + wo a GDN layer,
+# wq, wk, wv, wo the attention layer, the shared w13 + w2 a layer, lm_head;
+# K8 two a layer; K9 at D 32 a GDN layer; the attention at head dim 32 is
+# decode_gqa's plain version, as in the JAX package
+QWEN_SMOKE_B, QWEN_SMOKE_CTX, QWEN_SMOKE_STEPS = 4, 64, 12
+QWEN_SMOKE_PER_STEP_Q = {"w8a8_gemm_tiled": 19, "w8a8_gemm_grouped": 8, "gdn_recurrent": 3}
+QWEN_SMOKE_PER_STEP = {"gdn_recurrent": 3}          # decode_step: K9 alone
+QWEN_SMOKE_LORA = (0, 1, -1, 1)
+
+
+def run_qwen_default(torch, qn, build, gpu):
+    """Phase 19 (c): decode_step on an f32 pool (init_params, seed 0) and
+    decode_step_q on a bf16 and on an f32 pool (init_params_q, seed 0), each
+    with lora_indices over the config's 2 adapters, from a seeded random
+    state: 12 greedy steps, exact launches a step (K9 at D 32), a repeat
+    bit-identical, step 1 against SKT_IMPL=ref (QWEN_F32_DIFF for the f32
+    step, EPM_DIFF for the int8 one). Returns {variant: launch counts}."""
+    cfg = qn.QwenNextConfig()
+    b, ctx, steps, ps = QWEN_SMOKE_B, QWEN_SMOKE_CTX, QWEN_SMOKE_STEPS, cfg.page_size
+    mp = -(-(ctx + steps) // ps)
+    pages = b * mp + 1
+    rng = np.random.default_rng(0)
+    bt = torch.from_numpy((rng.permutation(pages - 1)[: b * mp].reshape(b, mp) + 1)
+                          .astype(np.int32)).cuda()
+    ids0 = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(np.int32)).cuda()
+    pos0 = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+    lora = torch.tensor(QWEN_SMOKE_LORA, dtype=torch.int32, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    p32, pq = qn.init_params(cfg, 0, "cuda"), qn.init_params_q(cfg, 0, "cuda")
+    out = {}
+    for label, fn, params, dtype, per_step, bar in (
+            ("decode_step, f32 pool", qn.decode_step, p32, torch.float32,
+             QWEN_SMOKE_PER_STEP, QWEN_F32_DIFF),
+            ("decode_step_q, bf16 pool", qn.decode_step_q, pq, torch.bfloat16,
+             QWEN_SMOKE_PER_STEP_Q, EPM_DIFF),
+            ("decode_step_q, f32 pool", qn.decode_step_q, pq, torch.float32,
+             QWEN_SMOKE_PER_STEP_Q, EPM_DIFF)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        state = _qwen_state(torch, qn, cfg, b, pages, gen, "cuda", ssm_dtype=dtype)
+        snap = {k: v.clone() for k, v in state.items()}
+
+        def step(ids, pos, fn=fn, params=params, state=state):
+            slots = bt[rows, pos // ps] * ps + pos % ps
+            return fn(params, cfg, state, ids, pos, pos + 1, bt, slots, lora_indices=lora)[0]
+
+        def run(step=step):
+            ids, pos, toks, first = ids0, pos0, [], None
+            for _ in range(steps):
+                logits = step(ids, pos)
+                first = logits if first is None else first
+                ids = torch.argmax(logits, -1).to(torch.int32)
+                toks.append(ids)
+                pos = pos + 1
+            return torch.stack(toks), first
+
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, first = run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        launches = dict(build.launches)
+        for name, n in launches.items():
+            if n != per_step.get(name, 0) * steps:
+                raise AssertionError(f"19 (c) {label}: {name} launched {n} times in {steps} "
+                                     f"steps, not {per_step.get(name, 0)} a step")
+        if not bool(torch.isfinite(first).all()):
+            raise AssertionError(f"19 (c) {label}: logits are not finite")
+        for k, v in snap.items():
+            state[k].copy_(v)
+        toks2, first2 = run()
+        if not (torch.equal(toks, toks2) and torch.equal(first, first2)):
+            raise AssertionError(f"19 (c) {label}: a second run from the same state differs")
+        for k, v in snap.items():
+            state[k].copy_(v)
+        with _env(SKT_IMPL="ref"):
+            plain = step(ids0, pos0)
+        diff = _calc_diff(first, plain)
+        if not diff < bar:
+            raise AssertionError(f"19 (c) {label}: step 1 against SKT_IMPL=ref calc_diff {diff}")
+        print(f"  19 (c) {label}, lora_indices {list(QWEN_SMOKE_LORA)}: B={b}, context {ctx}, "
+              f"{steps} greedy steps, {ms:.3f} ms a step (host clock), launches a step "
+              f"{per_step} and nothing else, repeat bit-identical; step 1 against "
+              f"SKT_IMPL=ref calc_diff {diff:.3g} (bar {bar}) [{gpu}]")
+        out[label] = launches
+    return out
+
+
+# (d) the card against the CPU on the same inputs: copies and the conv's
+# ordered f32 taps exact but for the activation (CUDA's and the CPU's exp
+# differ in the last bits); the chunked and recurrent rules and the
+# per-head RMSNorm + RoPE: f32 products in other orders; share of max|cpu|
+SURFACE_SHARE = {"copy": 0.0, "conv": 1e-5, "chunk": 1e-4, "recurrent": 1e-5, "qkv": 1e-5}
+
+
+def _surface_check(torch, name, kind, got, ref):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    worst = 0.0
+    for g, r in zip(got, ref):
+        if g is None and r is None:
+            continue
+        g, r = g.float().cpu(), r.float()
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"19 (d) {name}: shape {tuple(g.shape)} / {tuple(r.shape)} "
+                                 f"or not finite")
+        err = float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        if not err <= SURFACE_SHARE[kind]:
+            raise AssertionError(f"19 (d) {name}: max-abs {err:.3g} of max|cpu| (bar "
+                                 f"{SURFACE_SHARE[kind]})")
+        worst = max(worst, err)
+    return worst
+
+
+def run_gdn_surface(torch, build, gpu):
+    """Phase 19 (d): the speculative and varlen surface at Qwen3-Next-80B-A3B's
+    GDN widths (conv dim 8192, 32 v-heads of 128 over 16 qk heads) and the
+    five qkv_fusion functions at its attention widths (16 query and 2 kv
+    heads of 256, rotary 64; fused_split_qk_norm at DeepSeek-V3's MLA split
+    of 1536 | 512 | 64), each run once on CUDA tensors and held against the
+    same call on CPU copies (SURFACE_SHARE). No kernel runs here: the
+    counters stay 0."""
+    from sgl_kernel_npu_tpu_torch.ops import gdn, mamba, qkv_fusion as qf
+    gen = torch.Generator()
+    gen.manual_seed(191)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen) * s
+
+    def both(fn, *args, **kw):
+        """fn on CUDA copies of the tensor arguments (then synchronised) and
+        on the CPU originals; in-place results compared as returned."""
+        cuda = [a.to("cuda", copy=True) if isinstance(a, torch.Tensor) else a for a in args]
+        ckw = {k: v.to("cuda", copy=True) if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()}
+        got = fn(*cuda, **ckw)
+        torch.cuda.synchronize()
+        return got, fn(*[a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                       **{k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in kw.items()})
+
+    hk, hv, d, dim, w = 16, 32, 128, 8192, 4
+    lens = torch.tensor([37, 300, 128, 191])
+    cu = torch.cat([torch.zeros(1, dtype=torch.long), torch.cumsum(lens, 0)]).to(torch.int32)
+    total = int(cu[-1])
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = {}
+    cw, cb = rn(dim, w, s=0.2), rn(dim, s=0.1)
+    g1 = both(mamba.causal_conv1d_fn, rn(4, dim, 300), cw, cb, rn(4, dim, w - 1),
+              return_final_states=True, seqlens=lens.to(torch.int32))
+    res["causal_conv1d_fn"] = _surface_check(torch, "causal_conv1d_fn", "conv", *g1)
+    res["causal_conv1d_fn final states"] = _surface_check(torch, "final", "copy", g1[0][1],
+                                                          g1[1][1])
+    g2 = both(mamba.causal_conv1d_varlen, rn(dim, total), cu, cw, cb,
+              conv_states=rn(6, dim, w - 1), cache_indices=torch.tensor([5, 0, 3, 2]),
+              has_initial_state=torch.tensor([True, False, True, True]), max_seq_len=300)
+    res["causal_conv1d_varlen"] = _surface_check(torch, "causal_conv1d_varlen", "conv",
+                                                 g2[0][0], g2[1][0])
+    res["causal_conv1d_varlen final states"] = _surface_check(torch, "varlen final", "copy",
+                                                              g2[0][1], g2[1][1])
+    q, k = rn(1, total, hk, d), rn(1, total, hk, d)
+    g3 = both(gdn.chunk_gated_delta_rule_varlen, q, k, rn(1, total, hv, d),
+              -0.3 * rn(1, total, hv).abs(), torch.sigmoid(rn(1, total, hv)), cu,
+              rn(4, hv, d, d, s=0.1), max_seq_len=300, chunk_size=64)
+    res["chunk_gated_delta_rule_varlen"] = _surface_check(torch, "chunk varlen", "chunk",
+                                                          *g3)
+    nseq, draft = 8, 4
+    t = nseq * draft
+    slots_line = torch.arange(nseq) * draft
+    ssm_idx = (slots_line[:, None] + torch.arange(draft)[None, :]).reshape(-1).to(torch.int32)
+    g4 = both(gdn.recurrent_gated_delta_rule, rn(t, 2 * hk * d + hv * d),
+              rn(16, hv, d, d, s=0.1), rn(t, hv), None,
+              torch.full((nseq,), draft, dtype=torch.int32), ssm_idx, hk, hv,
+              intermediate_state=rn(nseq, draft, hv, d, d, s=0.1),
+              cache_indices=torch.arange(nseq, dtype=torch.int32),
+              num_accepted_tokens=torch.tensor([1, 2, 3, 4, 4, 3, 2, 1], dtype=torch.int32),
+              g=-0.3 * rn(t, hv).abs())
+    res["recurrent_gated_delta_rule"] = _surface_check(torch, "recurrent", "recurrent", *g4)
+    ci = torch.tensor([3, 9, -1, 0, 15, 7, 2, 11], dtype=torch.int32)
+    g5 = both(mamba.causal_conv1d_update, rn(8, dim, draft), rn(16, dim, w - 1), cw, cb,
+              activation="silu", conv_state_indices=ci,
+              intermediate_conv_window=torch.zeros(8, draft, dim, w - 1))
+    res["causal_conv1d_update [B, dim, S]"] = _surface_check(torch, "conv update", "conv",
+                                                             g5[0][0], g5[1][0])
+    res["causal_conv1d_update state, windows"] = _surface_check(
+        torch, "conv update state", "copy", g5[0][1:], g5[1][1:])
+    g6 = both(mamba.conv_state_rollback, rn(3, 16, w - 1, dim), ci.clamp_min(0),
+              torch.tensor([0, 3, -1, 1, 2, 0, 3, 1], dtype=torch.int32), draft)
+    res["conv_state_rollback"] = _surface_check(torch, "rollback", "copy", *g6)
+    g7 = both(mamba.move_intermediate_cache, rn(3, 16, hv, d, d), rn(3, nseq, draft, hv, d, d),
+              torch.tensor([4, 12, 0], dtype=torch.int32),
+              torch.tensor([7, 0, 3], dtype=torch.int32),
+              torch.tensor([3, 0, 2], dtype=torch.int32))
+    res["move_intermediate_cache"] = _surface_check(torch, "move", "copy", *g7)
+    nq, nkv, ad, rd, b = 16, 2, 256, 64, 128
+    ang = torch.rand(b, rd // 2, generator=gen) * 3
+    sin, cos = torch.sin(ang).repeat(1, 2), torch.cos(ang).repeat(1, 2)
+    qw, kw = 1 + rn(ad, s=0.1), 1 + rn(ad, s=0.1)
+    x = rn(b, (nq + 2 * nkv) * ad)
+    for neox in (True, False):
+        tag = "neox" if neox else "interleaved"
+        res[f"split_qkv_rmsnorm_rope {tag}"] = _surface_check(
+            torch, "split_qkv_rmsnorm_rope", "qkv",
+            *both(qf.split_qkv_rmsnorm_rope, x, sin, cos, nq * ad, nkv * ad, ad, 1e-6, qw, kw,
+                  is_neox_style=neox))
+        res[f"split_qkv_rmsnorm_rope_pos_cache {tag}"] = _surface_check(
+            torch, "pos_cache", "qkv",
+            *both(qf.split_qkv_rmsnorm_rope_pos_cache, x,
+                  torch.randint(0, 4096, (b,), generator=gen),
+                  torch.cat([torch.cos(ang.repeat(32, 1)), torch.sin(ang.repeat(32, 1))], -1),
+                  nq * ad, nkv * ad, ad, 1e-6, qw, kw, is_neox_style=neox))
+        res[f"split_qkv_tp_rmsnorm_rope {tag}"] = _surface_check(
+            torch, "tp", "qkv",
+            *both(qf.split_qkv_tp_rmsnorm_rope, x[:, : (nq + 2 * nkv) * ad // 2], sin, cos, nq,
+                  nkv, ad, tp_rank=1, tp_size=2, eps=1e-6, q_weight=qw, k_weight=kw,
+                  is_neox_style=neox))
+    res["fused_split_qk_norm"] = _surface_check(
+        torch, "fused_split_qk_norm", "qkv",
+        *both(qf.fused_split_qk_norm, rn(b, 1536 + 512 + 64), 1 + rn(1536, s=0.1),
+              1 + rn(512, s=0.1), 1536, 512, 64))
+    res["split_qkvgate_gemma_rmsnorm_rope"] = _surface_check(
+        torch, "gemma", "qkv",
+        *both(qf.split_qkvgate_gemma_rmsnorm_rope, rn(b, 2 * nq * ad + 2 * nkv * ad), sin, cos,
+              nq * ad, nkv * ad, ad, rd, 1e-6, rn(ad, s=0.1), rn(ad, s=0.1)))
+    if any(build.launches.values()):
+        raise AssertionError(f"19 (d) kernels launched: "
+                             f"{ {k: n for k, n in build.launches.items() if n} }")
+    print(f"  19 (d) the GDN / conv / qkv_fusion surface on the card against CPU copies, "
+          f"{time.perf_counter() - t0:.1f} s, no kernel launched (every counter 0); max-abs "
+          "error as a share of max|cpu| (bars " + ", ".join(f"{k} {v:g}" for k, v in
+                                                           SURFACE_SHARE.items()) + "): "
+          + "; ".join(f"{k} {v:.3g}" for k, v in res.items()) + f" [{gpu}]")
 
 
 def run_hf_moe_bank(torch, par, loader, build, gpu):
@@ -7717,6 +8286,10 @@ def main() -> int:
     check_grouped_edges(torch, matmul)
     torch.cuda.empty_cache()
     rows["k9"] = check_gdn(torch, recurrent_pallas, qcfg, rng)
+    rng19 = torch.Generator(device="cuda")        # phase 19's rows draw apart from the rest
+    rng19.manual_seed(19)
+    rows["k9_f32"], rows["k9_d32"], rows["k9_d32_f32"] = check_gdn_widths(
+        torch, recurrent_pallas, rng19)
     torch.cuda.empty_cache()
     rows["k10"] = check_decode_hm(torch, decode, qcfg, rng)
     check_decode_hm_edges(torch, decode, decode_v3)
@@ -7943,19 +8516,37 @@ def main() -> int:
 
     print("phase 18: HF checkpoints (Llama, MLA, Qwen3-Next at its published widths, the MoE "
           "bank), Llama TP")
-    t18, phase18 = time.perf_counter(), {}
+    t18, phase18, phase19 = time.perf_counter(), {}, {}
+
+    def f32_paths(qcfg_hf, qparams):
+        print("phase 19 (a), (b): Qwen3-Next's f32 decode_step, forward_full and "
+              "prefill_gdn_layer on phase 18 (c)'s f32 tree, before it is quantised")
+        phase19["a"] = run_qwen_f32(torch, qwen_next, _build, qcfg_hf, qparams, gpu)
+
     for part, fn in (
             ("a", lambda: run_hf_llama(torch, serving, llama, loader, _build, prompts, late,
                                        new_tokens, gpu)),
             ("b", lambda: run_hf_mla(torch, serving, deepseek_mla, loader, _build, mcfg,
                                      mprompts, mlate, new_tokens, gpu)),
-            ("c", lambda: run_hf_qwen_next(torch, qwen_next, loader, _build, gpu)),
+            ("c", lambda: run_hf_qwen_next(torch, qwen_next, loader, _build, gpu,
+                                           f32_paths=f32_paths)),
             ("d", lambda: run_hf_moe_bank(torch, parallel, loader, _build, gpu))):
         t0 = time.perf_counter()
         phase18[part] = fn()
         print(f"  ({part}) {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
-    print(f"  phase 18 {time.perf_counter() - t18:.1f} s")
+    print(f"  phase 18 {time.perf_counter() - t18:.1f} s (19 (a) and (b) included)")
+
+    print("phase 19 (c), (d): the default QwenNextConfig (bench.py --smoke's), and the GDN / "
+          "conv / qkv_fusion surface at Qwen3-Next-80B-A3B's widths")
+    t0 = time.perf_counter()
+    phase19["c"] = run_qwen_default(torch, qwen_next, _build, gpu)
+    print(f"  19 (c) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_gdn_surface(torch, _build, gpu)
+    print(f"  19 (d) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
@@ -8028,6 +8619,18 @@ def main() -> int:
         dict(name="gdn_recurrent", route="cuda", source=f"{src}/gdn_recurrent.cu",
              replaces=f"{base}/ops/gdn/recurrent_pallas.py:136",
              launches=qwen_launches["gdn_recurrent"], **rows["k9"]),
+        dict(name="gdn_recurrent (f32 pool)", route="cuda", source=f"{src}/gdn_recurrent.cu",
+             replaces=f"{base}/ops/gdn/recurrent_pallas.py:136",
+             launches=phase19["a"]["gdn_recurrent"], **rows["k9_f32"]),
+        dict(name="gdn_recurrent (D 32)", route="cuda", source=f"{src}/gdn_recurrent.cu",
+             replaces=f"{base}/ops/gdn/recurrent_pallas.py:136",
+             launches=phase19["c"]["decode_step_q, bf16 pool"]["gdn_recurrent"],
+             **rows["k9_d32"]),
+        dict(name="gdn_recurrent (D 32, f32 pool)", route="cuda",
+             source=f"{src}/gdn_recurrent.cu", replaces=f"{base}/ops/gdn/recurrent_pallas.py:136",
+             launches=(phase19["c"]["decode_step, f32 pool"]["gdn_recurrent"]
+                       + phase19["c"]["decode_step_q, f32 pool"]["gdn_recurrent"]),
+             **rows["k9_d32_f32"]),
         dict(name="decode_hm", route="cuda", source=f"{src}/decode_hm.cu",
              replaces=f"{base}/ops/attention/decode_v2.py:97",
              launches=qwen_launches["decode_hm"], **rows["k10"]),
@@ -8129,6 +8732,10 @@ def main() -> int:
         "rmsq_gemm (lm_head, f32 out)") and k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on phase 18: {idle}")
+    idle = [k["name"] for k in kernels if k["name"].startswith("gdn_recurrent (")
+            and k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on phase 19: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print("rmsq_gemm (apply_norm=False, wo + w2) row: K2 as SKT_FUSED_QGEMM routes wo and w2 "
@@ -8162,6 +8769,12 @@ def main() -> int:
           "kernels on f32 caches): phase 16's attention shape, launches from phase 16 (all its "
           "8 steps), library SDPA over the gathered f32 rows; decode_hm (D 256) row (K10 at "
           "head dim 256): Qwen3-Next-80B-A3B's attention shape, launches from phase 18 (c); "
+          "gdn_recurrent (f32 pool) row (K9 on an f32 pool): Qwen3-Next-80B-A3B's GDN shape "
+          "(128 sequences, 16 qk / 32 v heads of 128), launches from phase 19 (a); "
+          "gdn_recurrent (D 32) rows (K9 at the default QwenNextConfig's heads, 4 qk / 8 v of "
+          "32, batch 128): the bf16 pool, launches from phase 19 (c)'s decode_step_q on a "
+          "bf16 pool, and the f32 pool, launches from its decode_step and decode_step_q on "
+          "f32 pools; no library call computes the delta-rule step; "
           "fused_moe row (K11): one launch "
           "at the bench "
           f"shape, no library call computes it (the composition at rounds = 1, K8 twice and "

@@ -42,6 +42,12 @@ replays). The cases, each name a prefix that --only can pick:
     the engine's (8 sequences, 6 pages of 128) and G 16 (the bench shape
     with 2 kv heads); within K14_SHARE;
   * K10 (the Qwen bench shape); within K10_SHARE;
+  * K9 (the gated delta rule's decode step) at the bench path's bf16 pool
+    (128 sequences, 8 / 8 heads of 128, the rows of the last of 9 layers),
+    and, where the root takes them, an f32 pool at Qwen3-Next-80B-A3B's GDN
+    shape (16 / 32 heads of 128) and bf16 and f32 pools at D 32 (4 / 8
+    heads); decay 1 and beta 0, so that a call rewrites the state it
+    reads; within chip_smoke.py's GDN_SHARE;
   * K16's five contracts (v3 bf16 / int8, in the cache or deferred, and
     decode_int8kv) at the bench shape and K23's five (the attic's v5 pair,
     v4b int8 and the fused pair over stacked caches, layer 5 of 6) and K24
@@ -108,6 +114,7 @@ A_WIDTHS = (("wqkv", H, Q + 2 * KV), ("wo", Q, H), ("w13", H, 2 * F), ("w2", F, 
 KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm",
            "append_tm", "swiglu_quant",
            "w8a8_gemm_grouped", "fused_moe", "decode_mla_c", "append_mla", "decode_v6_defer",
+           "gdn_recurrent",
            "decode_v6_int8_defer", "decode_hm", "decode_v3", "decode_v3_int8",
            "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
            "decode_v5_int8_defer", "decode_v4b_int8", "decode_fused_v4_int8",
@@ -420,6 +427,7 @@ def _cases(torch, cs, want):
         hargs = (q, kc, vc, seq, bt, d ** -0.5, ps)
         yield ("K10 qwen bench", lambda: decode.decode_gqa_hm(*hargs),
                ulp(decode.decode_gqa_hm_ref(*hargs), cs.K10_SHARE), 50)
+    yield from _gdn_cases(torch, cs, on)
     for int8 in (True, False):
         q, kn, vn, k, v, *sc, cached, bt, sm, ps = k14_inputs(torch, gen, "bench", int8)
         ks, vs = sc if int8 else (None, None)
@@ -482,6 +490,41 @@ def _cases(torch, cs, want):
                exact(fused_moe_pallas.fused_moe_layer_ref(*kargs, group=grp,
                                                           maxt=cs.MOE_T)[0]), 10)
     yield from _scatter_estimate_cases(torch, cs, on, exact, data)
+
+
+# K9's cases: (name, B, H, HV, D, pool rows, pool dtype name); the bench
+# path's bf16 pool at D 128 (chip_smoke.py's check_gdn), the f32 pool at
+# Qwen3-Next-80B-A3B's GDN shape and D 32 (check_gdn_widths)
+GDN_CASES = (("K9 qwen bench", 128, 8, 8, 128, 9, "bfloat16"),
+             ("K9 f32 pool published", 128, 16, 32, 128, 3, "float32"),
+             ("K9 D 32 bf16", 128, 4, 8, 32, 3, "bfloat16"),
+             ("K9 D 32 f32", 128, 4, 8, 32, 3, "float32"))
+
+
+def _gdn_cases(torch, cs, on):
+    """K9 at GDN_CASES, each where the root's wrapper takes its pool dtype
+    and width (a root before them has no WIDTHS and takes bf16 at 128
+    alone). Decay 1 and beta 0 leave every written state equal to the one
+    read, so each call does the same work on the same pool; o within
+    chip_smoke.py's GDN_SHARE of max|plain|."""
+    from sgl_kernel_npu_tpu_torch.ops.gdn import recurrent_pallas as rec
+    widths = getattr(rec, "WIDTHS", (128,))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    for name, b, h, hv, d, layers, dt in GDN_CASES:
+        if not on(name) or d not in widths or (dt != "bfloat16" and not hasattr(rec, "WIDTHS")):
+            continue
+        pool, (q, k, v, _, _) = cs._gdn_inputs(torch, gen, b, h, hv, d, layers * b,
+                                               getattr(torch, dt))
+        zero = torch.zeros((b, hv), device="cuda")
+        idx = ((layers - 1) * b + torch.arange(b, device="cuda")).to(torch.int32)
+        a = (q, k, v, zero, zero, pool, idx, d ** -0.5, True)
+        ref = rec.delta_rule_step_ref(q, k, v, zero, zero, pool.clone(), idx, d ** -0.5, True)
+
+        def close(got, ref=ref):
+            return float((got - ref).abs().max()) <= cs.GDN_SHARE * float(ref.abs().max())
+        yield (name, lambda a=a: rec.delta_rule_step(*a), close, 50)
+        del pool, a
 
 
 def _events_ms(torch, fn, iters):

@@ -1,39 +1,48 @@
-"""Qwen3-Next hybrid decoder with W8A8 int8 weights: the quantised decode
-step that `bench.py --config qwen` times (counterpart of the JAX package's
-models/qwen_next.py: QwenNextConfig, init_state, init_params, init_params_q,
-quantize_qwen_weights and decode_step_q).
+"""Qwen3-Next hybrid decoder (counterpart of the JAX package's
+models/qwen_next.py): the f32 paths (decode_step, forward_full,
+prefill_gdn_layer) and the W8A8 int8 decode step that `bench.py --config
+qwen` times (decode_step_q), with QwenNextConfig, init_state, init_params,
+init_params_q and quantize_qwen_weights.
 
 Layer i is a full-attention block iff (i + 1) % full_attention_interval == 0,
 otherwise a gated-delta-net (GDN) block; every layer is followed by a sparse
 MoE MLP (top-k routed experts and a sigmoid-gated shared expert).
 
+decode_step_q (int8 banks, bf16 activations):
   GDN block: RMSNorm -> wqkvz (K1) and wba (f32) -> split -> conv update
-    -> gating and the recurrent delta rule on the bf16 state pool (K9)
+    -> gating and the recurrent delta rule on the state pool (K9)
     -> gated RMSNorm -> wo (K1)
   attention block: RMSNorm -> wq ([q | gate] per head), wk, wv (K1) ->
     per-head RMSNorm of q and k -> rotary on the first rotary_dim dims ->
     scatter into head-major bf16 pages -> paged GQA decode (K10) ->
-    out * sigmoid(gate) -> wo (K1)
+    out * sigmoid(gate) -> wo (K1), plus the LoRA delta of lora_indices
   MoE: f32 router -> top-k -> aligned compaction (each expert's rows padded
     to block_m) -> GMM1 (K8) -> SwiGLU -> per-token int8 -> GMM2 (K8) ->
     inverse-gather combine; the shared expert's w13 and w2 on K1
+decode_step (the f32 tree, f32 activations): the same blocks with f32
+  products (torch.matmul, TF32 off), K9 on an f32 pool, K10 on bf16 pages
+  (head dims of 128 and 256; below 128 decode_gqa takes its plain version,
+  as in the JAX package), LoRA on the f32 attention output, and the f32 MoE
+  (_moe_mlp: a stable sort by expert and a grouped product over the sorted
+  rows, the JAX package's ragged_dot).
+forward_full and prefill_gdn_layer (the f32 tree over [B, T] sequences): the
+  GDN blocks through causal_conv1d_fn and the chunked delta rule, the
+  attention blocks dense causal attention in f32 (einsum, the -inf mask, f32
+  softmax, the sigmoid gate), kept plain: forward_full is the HF-parity
+  golden.
 
-Parameters are a dict of tensors with the JAX package's tree
-(`init_params_q`); the big banks are pretiled [L, N/bn, K, bn] int8, the
-expert banks flat over (layer, expert) so that K8 selects expert e of layer
-li as e + li * num_experts. Every cast of the JAX code is kept where it has
-one; the f32 products wba, router and shared_gate are torch.matmul in f32
-(TF32 off), as the JAX code leaves them to XLA. The state (`init_state`) is
-updated in place: the conv state, the SSM pool (one flat pool over the GDN
+Parameters are a dict of tensors with the JAX package's tree; the big int8
+banks are pretiled [L, N/bn, K, bn], the expert banks flat over (layer,
+expert) so that K8 selects expert e of layer li as e + li * num_experts.
+Every cast of the JAX code is kept where it has one. The state (`init_state`)
+is updated in place: the conv state, the SSM pool (one flat pool over the GDN
 layers, rows gi * B + b) and the caches.
 
-The MoE follows the aligned tier the bench runs (qwen_next.py:587-630 of the
-JAX package) with its m-tile of 32 (SKT_QWEN_TILE's default), not the
-tight-sort reference tier. `init_params` draws the f32 tree (which
+The quantised MoE follows the aligned tier the bench runs (qwen_next.py:
+587-630 of the JAX package) with its m-tile of 32 (SKT_QWEN_TILE's default),
+not the tight-sort reference tier. `init_params` draws the f32 tree (which
 models/loader.py::load_qwen_next fills from a checkpoint) that
-quantize_qwen_weights turns into the banks. Not ported: the f32 paths
-(decode_step, forward_full, prefill_gdn_layer) and LoRA on the attention
-output (lora_indices).
+quantize_qwen_weights turns into the banks.
 """
 
 from __future__ import annotations
@@ -48,7 +57,8 @@ from ..ops import gdn
 from ..ops.attention.decode import decode_gqa
 from ..ops.gdn.chunk import inv_norm
 from ..ops.kvcache import reshape_and_cache_gqa
-from ..ops.mamba import causal_conv1d_update
+from ..ops.lora import bgmv_expand, bgmv_shrink
+from ..ops.mamba import causal_conv1d_fn, causal_conv1d_update
 from ..ops.matmul import grouped_matmul_int8, pretile_weight_bank, quant_matmul_int8_stacked
 from ..ops.quant import per_token_quant_int8
 from ..ops.rope import apply_rope, make_cos_sin_cache
@@ -184,7 +194,7 @@ def _init_params(cfg: QwenNextConfig, seed: int, dev, drop=frozenset()):
     params = {"embed": w(cfg.vocab_size, h, s=0.02), "final_norm": full((h,), 1.0)}
     params["lm_head"] = draw("lm_head")(h, cfg.vocab_size, s=0.02)
     params["cos_sin"] = make_cos_sin_cache(cfg.max_position, cfg.rotary_dim,
-                                           base=cfg.rope_theta).to(dev)
+                                           base=cfg.rope_theta, device="cpu").to(dev)
     w = draw("gdn")
     params["gdn"] = {"in_norm": full((ng, h), 1.0), "wqkvz": w(ng, h, qkvz_dim)}
     params["gdn"]["wba"] = w(ng, h, ba_dim)
@@ -249,7 +259,7 @@ def init_params_q(cfg: QwenNextConfig, seed: int = 0, device="cuda") -> Dict[str
                            torch.bfloat16),
               "final_norm": full((h,), 1.0),
               "cos_sin": make_cos_sin_cache(cfg.max_position, cfg.rotary_dim,
-                                            base=cfg.rope_theta).to(dev)}
+                                            base=cfg.rope_theta, device="cpu").to(dev)}
     params["gdn"] = {"in_norm": full((ng, h), 1.0), "wba": w(ng, h, ba_dim)}
     params["gdn"]["conv_w"] = w(ng, cfg.conv_dim, cfg.conv_width)
     params["gdn"]["conv_b"] = full((ng, cfg.conv_dim), 0.0)
@@ -344,6 +354,208 @@ def _apply_partial_rope(q, k, cos, sin, rd):
     return q, k
 
 
+def _layer(tree, i: int):
+    """The slice of every leaf at layer i (views, no copies)."""
+    return {k: v[i] for k, v in tree.items()}
+
+
+def _lora(params, cfg: QwenNextConfig, att, o, lora_indices):
+    """o + the BGMV delta of each sequence's adapter on the attention output
+    att (both f32), the JAX package's shrink then expand."""
+    shr = bgmv_shrink(att, params["lora"]["A"], lora_indices)
+    return bgmv_expand(shr, params["lora"]["B"], lora_indices, o, 0, cfg.hidden_size)
+
+
+def _ragged_dot(xs, w, sizes):
+    """The JAX package's jax.lax.ragged_dot: the rows of xs [M, K], grouped by
+    expert in order (sizes [E], summing to M), each group times its expert's
+    w [E, K, N], in f32. One batched product over the groups padded to the
+    largest (the bank read once, never gathered per row)."""
+    m, e = xs.shape[0], w.shape[0]
+    grp = torch.repeat_interleave(torch.arange(e, device=xs.device), sizes, output_size=m)
+    pos = torch.arange(m, device=xs.device) - (torch.cumsum(sizes, 0) - sizes)[grp]
+    xp = torch.zeros((e, int(sizes.max()), xs.shape[1]), dtype=xs.dtype, device=xs.device)
+    xp[grp, pos] = xs
+    return torch.bmm(xp, w)[grp, pos]
+
+
+def _moe_mlp(x, p, cfg: QwenNextConfig):
+    """The f32 sparse MoE block on x [T, H] with one layer's parameters p:
+    softmax router, top-k (renormalised when norm_topk_prob), the T * k
+    routed rows stably sorted by expert, the grouped SwiGLU expert products
+    (_ragged_dot), scattered back and summed over k in top-k order, plus the
+    sigmoid-gated shared expert."""
+    t, h = x.shape
+    e, k, f = cfg.num_experts, cfg.top_k, cfg.moe_intermediate_size
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1, sorted=True)
+    if cfg.norm_topk_prob:
+        topw = topw / topw.sum(-1, keepdim=True)
+    flat_i = topi.reshape(-1)
+    order = torch.argsort(flat_i, stable=True)
+    sizes = torch.bincount(flat_i, minlength=e)
+    h1 = _ragged_dot(x[order // k], p["w13"], sizes)
+    act = h1[:, :f] * torch.sigmoid(h1[:, :f]) * h1[:, f:]
+    out_sorted = _ragged_dot(act, p["w2"], sizes) * topw.reshape(-1)[order][:, None]
+    rows = torch.empty_like(out_sorted).index_copy_(0, order, out_sorted).reshape(t, k, h)
+    routed = rows[:, 0]
+    for i in range(1, k):                  # the k slots of a token, in top-k order
+        routed = routed + rows[:, i]
+    fs = cfg.shared_intermediate_size
+    ug = x @ p["shared_w13"]
+    shared = (ug[:, :fs] * torch.sigmoid(ug[:, :fs]) * ug[:, fs:]) @ p["shared_w2"]
+    return routed + shared * torch.sigmoid(x @ p["shared_gate"])
+
+
+def _gdn_project(p, cfg: QwenNextConfig, h1):
+    """The GDN block's head: the fused QKVZ / BA projections and their split."""
+    return gdn.fused_qkvzba_split_reshape_cat(h1 @ p["wqkvz"], h1 @ p["wba"], cfg.num_qk_heads,
+                                              cfg.num_v_heads, cfg.head_qk_dim, cfg.head_v_dim)
+
+
+def _attn_qkv(p, cfg: QwenNextConfig, h1):
+    """The gated q projection, k and v, and the per-head-dim q / k RMSNorms.
+    h1 [T, H] -> (q [T, nq, d], gate [T, nq * d], k [T, nkv, d], v [T, nkv,
+    d], rotary_dim)."""
+    t = h1.shape[0]
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qg = (h1 @ p["wq"]).reshape(t, nq, 2 * d)
+    q, gate = qg[..., :d], qg[..., d:].reshape(t, nq * d)
+    k = (h1 @ p["wk"]).reshape(t, nkv, d)
+    v = (h1 @ p["wv"]).reshape(t, nkv, d)
+    q = _rms(q, p["q_norm"], cfg.rms_eps)
+    k = _rms(k, p["k_norm"], cfg.rms_eps)
+    return q, gate, k, v, cfg.rotary_dim
+
+
+def decode_step(params, cfg: QwenNextConfig, state, input_ids, positions, seq_lens,
+                block_table, slot_mapping, lora_indices=None):
+    """One f32 hybrid decode step on the f32 tree (init_params or
+    models/loader.py::load_qwen_next), state from init_state (an f32 SSM
+    pool, the JAX package's default). Arguments as decode_step_q's. On the
+    card the GDN recurrence is K9 on the f32 pool and the attention K10 on
+    the bf16 head-major pages. Updates the state in place; returns (logits
+    [B, V] f32, state)."""
+    b = input_ids.shape[0]
+    hqk, hv = cfg.num_qk_heads, cfg.num_v_heads
+    dqk, dv = cfg.head_qk_dim, cfg.head_v_dim
+    d, rd, eps = cfg.head_dim, cfg.rotary_dim, cfg.rms_eps
+    x = params["embed"][input_ids.long()]
+    ssm = state["ssm"]
+    pool = ssm.view((ssm.shape[0] * ssm.shape[1],) + tuple(ssm.shape[2:]))
+    rows = torch.arange(b, dtype=torch.int32, device=x.device)
+    cs = params["cos_sin"][positions.long()]
+    cos, sin = cs[:, None, : rd // 2], cs[:, None, rd // 2:]
+    gi = ai = 0
+    for li in range(cfg.num_layers):
+        if not cfg.is_full_attention(li):             # GDN block
+            p = _layer(params["gdn"], gi)
+            mixed_qkv, z, bb, aa = _gdn_project(p, cfg, _rms(x, p["in_norm"], eps))
+            qkv, _ = causal_conv1d_update(mixed_qkv, state["conv"][gi], p["conv_w"],
+                                          p["conv_b"], activation="silu")
+            q = qkv[:, : hqk * dqk].reshape(b, 1, hqk, dqk)
+            k = qkv[:, hqk * dqk:2 * hqk * dqk].reshape(b, 1, hqk, dqk)
+            v = qkv[:, 2 * hqk * dqk:].reshape(b, 1, hv, dv)
+            o, _ = gdn.fused_sigmoid_gating_delta_rule_update(
+                p["A_log"], aa[:, None], p["dt_bias"], 1.0, 20.0, q, k, v, bb[:, None], pool,
+                gi * b + rows, use_qk_l2norm_in_kernel=True)
+            o = gdn.layernorm_gated(o.reshape(b, hv * dv), p["out_norm_w"], None,
+                                    z.reshape(b, hv * dv), eps, group_size=dv, is_rms_norm=True)
+            x = x + o @ p["wo"]
+            gi += 1
+        else:                                         # full attention block
+            p = _layer(params["attn"], ai)
+            q, gate, k, v, _ = _attn_qkv(p, cfg, _rms(x, p["in_norm"], eps))
+            q, k = _apply_partial_rope(q, k, cos, sin, rd)
+            kc, vc = reshape_and_cache_gqa(k.to(torch.bfloat16), v.to(torch.bfloat16),
+                                           state["k_cache"][ai], state["v_cache"][ai],
+                                           slot_mapping)
+            att = decode_gqa(q.to(torch.bfloat16), kc, vc, seq_lens, block_table,
+                             1.0 / d ** 0.5, cfg.page_size)
+            att = att.reshape(b, -1).float() * torch.sigmoid(gate)
+            o = att @ p["wo"]
+            if lora_indices is not None:
+                o = _lora(params, cfg, att, o, lora_indices)
+            x = x + o
+            ai += 1
+        mp = _layer(params["moe"], li)
+        x = x + _moe_mlp(_rms(x, mp["norm"], eps), mp, cfg)
+    return _rms(x, params["final_norm"], eps) @ params["lm_head"], state
+
+
+def _gdn_seq(p, cfg: QwenNextConfig, x, output_final_state: bool):
+    """One GDN block over x [B, T, H] with one layer's parameters p:
+    causal_conv1d_fn, the gating, the qk heads repeated up to the v heads
+    (v-head i reads qk head i // r, as K9's head map), the chunked delta
+    rule. Returns (x + the block's output, final state [B, HV, Dk, Dv] f32
+    or None)."""
+    b, t, h = x.shape
+    hqk, hv = cfg.num_qk_heads, cfg.num_v_heads
+    dqk, dv = cfg.head_qk_dim, cfg.head_v_dim
+    mixed_qkv, z, bb, aa = _gdn_project(p, cfg, _rms(x, p["in_norm"], cfg.rms_eps)
+                                        .reshape(b * t, h))
+    conv_out, _ = causal_conv1d_fn(mixed_qkv.reshape(b, t, -1).transpose(1, 2), p["conv_w"],
+                                   p["conv_b"], activation="silu")
+    qkv = conv_out.transpose(1, 2)                               # [B, T, dim]
+    q = qkv[..., : hqk * dqk].reshape(b, t, hqk, dqk)
+    k = qkv[..., hqk * dqk:2 * hqk * dqk].reshape(b, t, hqk, dqk)
+    v = qkv[..., 2 * hqk * dqk:].reshape(b, t, hv, dv)
+    g, beta = gdn.fused_gdn_gating(p["A_log"], aa.reshape(b * t, hv), bb.reshape(b * t, hv),
+                                   p["dt_bias"])
+    r = hv // hqk
+    o, final = gdn.chunk_gated_delta_rule(
+        torch.repeat_interleave(q, r, dim=2), torch.repeat_interleave(k, r, dim=2), v,
+        g.reshape(b, t, hv), beta.reshape(b, t, hv), chunk_size=cfg.chunk_size,
+        output_final_state=output_final_state, use_qk_l2norm_in_kernel=True)
+    o = gdn.layernorm_gated(o.reshape(b * t, hv * dv), p["out_norm_w"], None,
+                            z.reshape(b * t, hv * dv), cfg.rms_eps, group_size=dv,
+                            is_rms_norm=True)
+    return x + (o @ p["wo"]).reshape(b, t, h), final
+
+
+def prefill_gdn_layer(params, cfg: QwenNextConfig, x_seq, gi: int = 0):
+    """GDN block gi over x_seq [B, T, H] (the chunked prefill). Returns
+    (x_seq + the block's output, its final state [B, HV, Dk, Dv] f32, the
+    layout of the decode pool's rows)."""
+    return _gdn_seq(_layer(params["gdn"], gi), cfg, x_seq, True)
+
+
+def forward_full(params, cfg: QwenNextConfig, input_ids):
+    """The dense full-sequence forward on the f32 tree: input_ids [B, T] ->
+    logits [B, T, V] f32. The GDN blocks as prefill_gdn_layer; the attention
+    blocks dense causal attention in f32 (query head i reads kv head
+    i // (nq / nkv)), kept plain as the JAX package's HF-parity golden."""
+    b, t = input_ids.shape
+    nq, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rd, eps = cfg.rotary_dim, cfg.rms_eps
+    x = params["embed"][input_ids.long()]                       # [B, T, H]
+    positions = torch.arange(t, device=x.device)
+    cs = params["cos_sin"][positions]
+    cos, sin = cs[None, :, None, : rd // 2], cs[None, :, None, rd // 2:]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    gi = ai = 0
+    for li in range(cfg.num_layers):
+        if not cfg.is_full_attention(li):
+            x = _gdn_seq(_layer(params["gdn"], gi), cfg, x, False)[0]
+            gi += 1
+        else:
+            p = _layer(params["attn"], ai)
+            q, gate, k, v, _ = _attn_qkv(p, cfg, _rms(x, p["in_norm"], eps).reshape(b * t, -1))
+            q, k = _apply_partial_rope(q.reshape(b, t, nq, d), k.reshape(b, t, nkv, d), cos,
+                                       sin, rd)
+            k = torch.repeat_interleave(k, nq // nkv, dim=2)
+            v = torch.repeat_interleave(v.reshape(b, t, nkv, d), nq // nkv, dim=2)
+            scores = torch.einsum("bihd,bjhd->bhij", q, k) / d ** 0.5
+            scores = torch.where(mask[None, None], scores, float("-inf"))
+            att = torch.einsum("bhij,bjhd->bihd", torch.softmax(scores.float(), -1), v)
+            att = att.reshape(b, t, nq * d) * torch.sigmoid(gate.reshape(b, t, nq * d))
+            x = x + att @ p["wo"]
+            ai += 1
+        mp = _layer(params["moe"], li)
+        x = x + _moe_mlp(_rms(x, mp["norm"], eps).reshape(b * t, -1), mp, cfg).reshape(b, t, -1)
+    return _rms(x, params["final_norm"], eps) @ params["lm_head"]
+
+
 def _qmm_st(x, bank, li: int):
     """Per-token int8 quant + the pretiled stacked GEMM (K1) at layer li."""
     xq, xs = per_token_quant_int8(x)
@@ -425,13 +637,16 @@ def _moe_mlp_q(x, params, cfg: QwenNextConfig, li: int):
 
 
 def decode_step_q(params, cfg: QwenNextConfig, state, input_ids, positions, seq_lens,
-                  block_table, slot_mapping):
+                  block_table, slot_mapping, lora_indices=None):
     """One quantised hybrid decode step (params from init_params_q or
-    quantize_qwen_weights, state from init_state with a bf16 SSM pool).
+    quantize_qwen_weights, state from init_state with a bf16 or f32 SSM
+    pool).
 
     input_ids / positions / slot_mapping [B]; seq_lens [B] INCLUDING the new
-    token; block_table [B, max_pages]; a slot of -1 writes no cache row.
-    Updates the state in place; returns (logits [B, V] f32, state)."""
+    token; block_table [B, max_pages]; a slot of -1 writes no cache row;
+    lora_indices [B] (an adapter of params["lora"] a sequence, -1 none):
+    its delta is added in f32 to the f32 of wo's output, then cast back to
+    bf16. Updates the state in place; returns (logits [B, V] f32, state)."""
     b = input_ids.shape[0]
     hqk, hv = cfg.num_qk_heads, cfg.num_v_heads
     dqk, dv = cfg.head_qk_dim, cfg.head_v_dim
@@ -478,7 +693,10 @@ def decode_step_q(params, cfg: QwenNextConfig, state, input_ids, positions, seq_
             att = decode_gqa(q.to(torch.bfloat16), kc, vc, seq_lens, block_table,
                              1.0 / d ** 0.5, cfg.page_size)
             att = (att.reshape(b, -1).float() * torch.sigmoid(gate.float())).to(torch.bfloat16)
-            x = x + _qmm_st(att, fast["attn_wo"], ai)
+            o = _qmm_st(att, fast["attn_wo"], ai)
+            if lora_indices is not None:
+                o = _lora(params, cfg, att.float(), o.float(), lora_indices).to(torch.bfloat16)
+            x = x + o
             ai += 1
         h2 = _rms(x, params["moe"]["norm"][li], eps).to(torch.bfloat16)
         x = x + _moe_mlp_q(h2, params, cfg, li)

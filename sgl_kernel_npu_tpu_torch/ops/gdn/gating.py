@@ -32,6 +32,13 @@ def fused_gdn_gating(A_log, a, b, dt_bias, beta: float = 1.0, threshold: float =
     return g, torch.sigmoid(b.float())
 
 
+def fused_gdn_gating_without_sigmoid(A_log, a, b, dt_bias, beta: float = 1.0,
+                                     threshold: float = 20.0):
+    """fused_gdn_gating's g, with b passed through unchanged."""
+    x = a.float() + dt_bias.float()[None, :]
+    return -torch.exp(A_log.float())[None, :] * _softplus(x, beta, threshold), b
+
+
 def _silu(x):
     return x * torch.sigmoid(x)
 

@@ -7,8 +7,9 @@ import torch
 
 
 def make_cos_sin_cache(max_pos: int, rotary_dim: int, base: float = 10000.0,
-                       dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """[max_pos, rotary_dim] table: row = [cos(theta_0..), sin(theta_0..)]."""
+                       dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """[max_pos, rotary_dim] table: row = [cos(theta_0..), sin(theta_0..)],
+    on `device` (the card unless the caller asks for the CPU)."""
     exps = torch.arange(0, rotary_dim, 2, dtype=torch.float32,
                         device=device) / rotary_dim
     inv_freq = 1.0 / (base ** exps)

@@ -169,7 +169,7 @@ def test_load_llama_matches_jax(tmp_path, tied):
     assert jcfg.__dict__ == tcfg.__dict__
     assert_trees_equal(jp, tp, near=("/cos_sin",))
     assert torch.equal(tp["cos_sin"], tll.make_cos_sin_cache(
-        tcfg.max_position, tcfg.head_dim, tcfg.rope_base))
+        tcfg.max_position, tcfg.head_dim, tcfg.rope_base, device="cpu"))
 
 
 def _mla_config(**kw):

@@ -101,7 +101,7 @@ def test_rope_matches_jax():
     rng = np.random.default_rng(1)
     d = 32
     cs = jrope.make_cos_sin_cache(64, d, 500000.0)
-    tcs = trope.make_cos_sin_cache(64, d, 500000.0)
+    tcs = trope.make_cos_sin_cache(64, d, 500000.0, device="cpu")
     assert np.abs(np.asarray(cs) - tcs.numpy()).max() < 1e-6
     pos = rng.integers(0, 64, 9)
     x = rng.standard_normal((9, 4, d)).astype(np.float32)
