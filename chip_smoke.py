@@ -315,6 +315,30 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    update with its windows, conv_state_rollback, move_intermediate_cache
    and the five qkv_fusion functions at its attention widths, each on CUDA
    tensors against the same call on CPU copies; no kernel launched.
+20. The last modules of the port (each part timed, with its peak device
+   memory). (e) runs after phase 17 on phase 2's weights: MemorySaver's
+   pause frees the tracked bytes on the card and resume brings them back,
+   bit-equal, one engine prefill and decode call giving the same tokens
+   before and after. The rest runs last: (a) models/quant_ref.py's f32
+   forwards against the int8 prefill_step on the same tokens, at
+   scripts/accuracy_delta.py's two configs (ppl_f32 within 1e-3 of
+   ACCURACY.md's CPU-JAX row, every metric printed beside it) and at
+   Meta-Llama-3-8B's and bench.py's DeepSeek-V2-Lite widths cut to 2 layers,
+   T 512, each within tests/test_accuracy_delta.py's gates (|ppl delta| <=
+   2 %, KL mean <= 0.02, MLA 0.05), exact launches of A and K2 (TF32 must
+   be off); (b) mla_preprocess's "full" mode bit-equal to "krope_ctkv"'s
+   caches and q joined, and "int8_nzcache" through decode_mla_int8_ref
+   within calc_diff 1e-3 of K7 over the bf16 caches, at the MLA bench
+   widths, batch 128, 256 cached; (c) attention with sinks at
+   gpt-oss-120b's widths (64 / 8 heads of 64, window 128 and off), decode
+   batch 128 over 4,096 tokens and a 4,096-token prefill in 4 sequences,
+   against SDPA with an extra key column that carries the sink; (d) the
+   lightning indexer at DeepSeek-V3.2-Exp's widths (64 heads of 128, top
+   2048), batched, paged (batch 8, 8,192 cached) and varlen, its top-k sets
+   equal to float64's after ties are removed; (f) every compat.py name
+   resolves, and each one that reaches a kernel, called once at a small
+   shape, launches exactly its kernel and agrees with SKT_IMPL=ref within
+   phase 1's bar.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -8173,6 +8197,734 @@ def run_k2_routes(torch, llama, build, params, gpu):
     return launches
 
 
+# ------------------------------------------------ phase 20: the last modules
+
+# (a) scripts/accuracy_delta.py's two configs and seed (:24-68) and T, and
+# ACCURACY.md's CPU-JAX row for each
+ACC_CONFIGS = {
+    "llama": (dict(vocab_size=4096, hidden_size=1024, num_layers=8, num_heads=8, num_kv_heads=4,
+                   head_dim=128, intermediate_size=2816, page_size=128, max_position=2048), 512),
+    "mla": (dict(vocab_size=4096, hidden_size=1024, num_layers=6, num_heads=8, kv_lora_rank=512,
+                 qk_rope_dim=64, qk_nope_dim=128, v_head_dim=128, q_lora_rank=768,
+                 intermediate_size=2048, page_size=128, max_position=2048), 384),
+}
+ACC_SEED = 0
+ACCURACY_MD = {
+    "llama": dict(ppl_f32=5253.45, ppl_int8=5252.13, ppl_delta_pct=-0.03, kl_mean=0.0009,
+                  kl_max=0.0014, greedy_agreement=0.852),
+    "mla": dict(ppl_f32=4866.37, ppl_int8=4890.93, ppl_delta_pct=0.50, kl_mean=0.0017,
+                kl_max=0.0034, greedy_agreement=0.846),
+}
+ACC_PPL_RTOL = 1e-3         # the card's f32 perplexity against ACCURACY.md's CPU-JAX one
+# tests/test_accuracy_delta.py's gates: |ppl delta| <= 2 %, KL mean <= 0.02 (0.05 MLA)
+ACC_GATES = {"llama": (2.0, 0.02), "mla": (2.0, 0.05)}
+ACC_FULL_T, ACC_FULL_LAYERS = 512, 2
+# (b) decode_mla_int8_ref over the int8 caches against K7 over the bf16 ones:
+# the int8 codes of ctkv (per tensor) and q_nope (per head) carry about 2^-8
+# of their range as error, which the attention averages
+MLA_INT8_DIFF = 1e-3
+# (c) openai/gpt-oss-120b's attention (config.json: num_attention_heads 64,
+# num_key_value_heads 8, head_dim 64, sliding_window 128)
+SINK_HQ, SINK_HKV, SINK_D, SINK_WINDOW = 64, 8, 64, 128
+SINK_B, SINK_CTX, SINK_PS = 128, 4096, 128
+SINK_PREFILL = (1000, 1100, 996, 1000)                # 4,096 tokens in 4 sequences
+SINK_SHARE = 1e-4
+# (d) deepseek-ai/DeepSeek-V3.2-Exp's indexer (config.json: index_n_heads 64,
+# index_head_dim 128, index_topk 2048)
+IDX_H, IDX_D, IDX_TOPK = 64, 128, 2048
+IDX_SCORE_SHARE = 1e-5      # f32 scores against float64 ones, of max|score|
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _part(torch, dev, label, fn):
+    """Run one part of phase 20; print its seconds and, on the card, its peak
+    device memory. Returns fn's result."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, dev)
+    peak = (f", peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if dev.type == "cuda" else "")
+    print(f"  20 ({label}) {time.perf_counter() - t0:.1f} s{peak}")
+    return out
+
+
+def _expect(dev, launches):
+    """The launches a call must make: `launches` on the card, none on the
+    CPU (plain versions)."""
+    return launches if dev.type == "cuda" else {}
+
+
+def _check_launches(name, delta, expect):
+    got = {k: n for k, n in delta.items() if n}
+    if got != expect:
+        raise AssertionError(f"{name}: launches {got}, not {expect}")
+
+
+def _acc_launches(kind, layers):
+    """quant_delta's launches, all its prefill_step's: kernel A for each
+    stacked GEMM of a layer (Llama wqkv, wo, w13, w2; MLA wo, w13, w2), A at
+    L = 1 for lm_head, K2 per_tensor for MLA's two mla_preprocess stages."""
+    if kind == "llama":
+        return {"w8a8_gemm": 4 * layers, "w8a8_gemm_l1": 1}
+    return {"rmsq_gemm_pt": 2 * layers, "w8a8_gemm": 3 * layers, "w8a8_gemm_l1": 1}
+
+
+def _acc_line(label, m, ref=None):
+    keys = ("ppl_f32", "ppl_int8", "ppl_delta_pct", "kl_mean", "kl_max", "greedy_agreement")
+    cells = []
+    for k in keys:
+        cells.append(f"{k} {m[k]:.6g}" + (f" [{ref[k]:g}]" if ref else ""))
+    print(f"    {label}: " + ", ".join(cells))
+
+
+def run_quant_accuracy(torch, qr, llama, dm, build, mcfg, dev, configs=None, full=True):
+    """Phase 20 (a): quant_ref.quant_delta, its f32 forward and the int8
+    prefill_step on the same tokens,
+    first at scripts/accuracy_delta.py's configs (each metric printed beside
+    ACCURACY.md's CPU-JAX value in brackets; ppl_f32 within ACC_PPL_RTOL of
+    it), then at Meta-Llama-3-8B's widths (LlamaConfig(), 32 -> 2 layers)
+    and bench.py's DeepSeek-V2-Lite MlaConfig (27 -> 2 layers), T 512. Every
+    row within tests/test_accuracy_delta.py's gates; every prefill's
+    launches exactly A (and K2 for MLA). Returns the launches by row."""
+    prec, tf32 = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    print(f"  (a) f32 matmul precision {prec!r}, allow_tf32 {tf32}")
+    if tf32 or prec != "highest":
+        raise AssertionError("(a) needs f32 products in f32: TF32 is on")
+    cfgs = {"llama": llama.LlamaConfig, "mla": dm.MlaConfig}
+    rows = [(kind, f"{kind} (scripts/accuracy_delta.py, seed {ACC_SEED}, T {t})",
+             cfgs[kind](**kw), t) for kind, (kw, t) in (configs or ACC_CONFIGS).items()]
+    if full:
+        rows += [("llama", f"llama at Meta-Llama-3-8B's widths, {ACC_FULL_LAYERS} of 32 layers, "
+                  f"T {ACC_FULL_T}", llama.LlamaConfig(num_layers=ACC_FULL_LAYERS), ACC_FULL_T),
+                 ("mla", f"mla at DeepSeek-V2-Lite's widths (bench.py), {ACC_FULL_LAYERS} of "
+                  f"27 layers, T {ACC_FULL_T}",
+                  dataclasses.replace(mcfg, num_layers=ACC_FULL_LAYERS), ACC_FULL_T)]
+    launches = {}
+    for i, (kind, label, cfg, t) in enumerate(rows):
+        t0 = time.perf_counter()
+        c = _Launches(build)
+        m = qr.quant_delta(kind, cfg, t, ACC_SEED, dev)
+        _sync(torch, dev)
+        delta = c.delta()
+        ref = ACCURACY_MD[kind] if i < 2 and configs is None else None
+        _acc_line(f"{label} ({time.perf_counter() - t0:.1f} s)", m, ref)
+        _check_launches(f"(a) {label}", delta, _expect(dev, _acc_launches(kind, cfg.num_layers)))
+        if ref and not abs(m["ppl_f32"] / ref["ppl_f32"] - 1) <= ACC_PPL_RTOL:
+            raise AssertionError(f"(a) {label}: ppl_f32 {m['ppl_f32']:.6g} is not within "
+                                 f"{ACC_PPL_RTOL:g} of ACCURACY.md's {ref['ppl_f32']}")
+        dppl, kl = ACC_GATES[kind]
+        if not (abs(m["ppl_delta_pct"]) <= dppl and m["kl_mean"] <= kl):
+            raise AssertionError(f"(a) {label}: ppl delta {m['ppl_delta_pct']:.4g} %, KL mean "
+                                 f"{m['kl_mean']:.4g} outside the gates ({dppl} %, {kl})")
+        launches[label] = delta
+        print(f"      launches of the prefill: { {k: n for k, n in delta.items() if n} }")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return launches
+
+
+def _mla_layer(torch, mcfg, gen, dev):
+    """One seeded mla_preprocess layer at mcfg's widths in init_params'
+    conventions (int8 weights, ones and zeros for the norms, the static
+    quant scale 0.05), with descales that put q_pe, k_pe and the scores
+    near 1, and the [in, out] copies that route both stages through K2.
+    Returns the positional weights, the kn copies and the tail scalars."""
+    h, hid = mcfg.num_heads, mcfg.hidden_size
+    kn, kp, qn, qr = mcfg.kv_lora_rank, mcfg.qk_rope_dim, mcfg.qk_nope_dim, mcfg.q_lora_rank
+    mm1, nq = kn + kp + qr, h * (qn + kp)
+
+    def i8(*s):
+        return torch.randint(-127, 128, s, generator=gen, dtype=torch.int8, device=dev)
+
+    def full(n, v, dtype=torch.float32):
+        return torch.full((n,), v, dtype=dtype, device=dev)
+
+    wdqkv, wuq = i8(mm1, hid), i8(nq, qr)
+    wuk = 0.05 * torch.randn((h, qn, kn), generator=gen, device=dev)
+    weights = (full(hid, 1.0), full(hid, 0.0), wdqkv, full(mm1, 1e-5), full(qr, 1.0),
+               full(qr, 0.0), wuq, full(nq, 1.7e-5), full(kn, 1.0))
+    tail = (full(1, 0.05), full(1, 0.0), full(mm1, 0, torch.int32), full(1, 0.05),
+            full(1, 0.0), full(nq, 0, torch.int32))
+    return weights, wuk, tail, (wdqkv.t().contiguous(), wuq.t().contiguous())
+
+
+def run_mla_cache_modes(torch, mp, dec, dm, build, mcfg, dev, b=128, ctx=256):
+    """Phase 20 (b): mla_preprocess's cache modes at the MLA bench widths on
+    one decode step of `b` sequences with `ctx` cached tokens (pages of
+    mcfg.page_size; seeded rows of unit scale), both stages on K2: "full"'s
+    combined cache and packed q bit-equal to "krope_ctkv"'s two caches and
+    q joined; then "int8_nzcache" (ctkv_scale calibrated over the cached
+    rows per tensor, q_nope_scale over this step's q_nope per head) through
+    decode_mla_int8_ref, held within calc_diff MLA_INT8_DIFF of K7's
+    decode_mla over the bf16 caches and within 1e-3 of max|out| of
+    decode_mla_ref over the dequantised codes (the JAX test's check)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2002)
+    kn, kp, ps, h = mcfg.kv_lora_rank, mcfg.qk_rope_dim, mcfg.page_size, mcfg.num_heads
+    weights, wuk, tail, kn_w = _mla_layer(torch, mcfg, gen, dev)
+    mpg = -(-(ctx + 1) // ps)
+    pages = b * mpg + 1
+    bt = (torch.randperm(pages - 1, generator=gen, device=dev)[: b * mpg].reshape(b, mpg)
+          .to(torch.int32) + 1)
+    slots = bt[:, ctx // ps].long() * ps + ctx % ps
+    lens = torch.full((b,), ctx + 1, dtype=torch.int32, device=dev)
+    cos, sin = dm.make_mla_cos_sin(mcfg, device=dev)
+    cos, sin = cos[ctx].expand(b, kp).contiguous(), sin[ctx].expand(b, kp).contiguous()
+    hidden = torch.randn((b, mcfg.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+    hist_ckv = torch.randn((pages, ps, kn), generator=gen, device=dev)
+    hist_kr = torch.randn((pages, ps, kp), generator=gen, device=dev)
+    sm = (mcfg.qk_nope_dim + kp) ** -0.5
+
+    def pre(kc, kr, mode, **kw):
+        c = _Launches(build)
+        out = mp.mla_preprocess(hidden, *weights, cos, sin, wuk, kc, kr, slots, *tail,
+                                cache_mode=mode, wdqkv_kn=kn_w[0], wuq_kn=kn_w[1], **kw)
+        _sync(torch, dev)
+        _check_launches(f"(b) {mode}", c.delta(), _expect(dev, {"rmsq_gemm_pt": 2}))
+        return out
+
+    comb = torch.cat([hist_ckv, hist_kr], -1).to(torch.bfloat16)
+    ckv, kr = hist_ckv.to(torch.bfloat16), hist_kr.to(torch.bfloat16)
+    full = pre(comb, None, "full")
+    split = pre(ckv, kr, "krope_ctkv")
+    q_bf16 = torch.cat([split.q_nope, split.q_pe], -1)
+    if not (torch.equal(comb, torch.cat([ckv, kr], -1)) and torch.equal(full.q_nope, q_bf16)
+            and full.krope_cache is None):
+        raise AssertionError("(b) full: the combined rows or the packed q differ from "
+                             "krope_ctkv's joined")
+    print(f"    full vs krope_ctkv (B {b}, {ctx} cached on pages of {ps}): combined cache and "
+          f"packed q [{b}, {h}, {kn + kp}] bit-equal; launches rmsq_gemm_pt 2 a call")
+    cs = hist_ckv.abs().amax() / 127.0
+    ckv_q = torch.round(hist_ckv / cs).clamp(-128, 127).to(torch.int8)
+    kr8 = hist_kr.to(torch.bfloat16)
+    qns = 127.0 / split.q_nope.float().abs().amax(dim=(0, 2))
+    out8 = pre(ckv_q, kr8, "int8_nzcache", ctkv_scale=cs, q_nope_scale=qns)
+    if out8.q_nope.dtype != torch.int8 or not torch.equal(kr8, kr):
+        raise AssertionError("(b) int8_nzcache: q_nope not int8, or its krope rows differ")
+    args8 = (out8.q_nope, out8.q_pe, ckv_q, kr8, qns, cs, lens, bt, sm, ps)
+    t0 = time.perf_counter()
+    att8 = dec.decode_mla_int8_ref(*args8)
+    _sync(torch, dev)
+    t8 = time.perf_counter() - t0
+    c = _Launches(build)
+    att = dec.decode_mla(q_bf16, ckv, kr, lens, bt, sm, ps)
+    _sync(torch, dev)
+    _check_launches("(b) decode_mla", c.delta(), _expect(dev, {"decode_mla": 1}))
+    diff = _calc_diff(att8, att.float())
+    deq_q = torch.cat([out8.q_nope.float() / qns[None, :, None], out8.q_pe.float()], -1)
+    golden = dec.decode_mla_ref(deq_q, ckv_q.float() * cs, kr8.float(), lens, bt, sm, ps)
+    gerr = float((att8 - golden).abs().max())
+    print(f"    int8_nzcache -> decode_mla_int8_ref ({t8 * 1e3:.1f} ms, int32 sums by "
+          f"{'torch._int_mm' if dev.type == 'cuda' else 'an int32 product'}) against K7 "
+          f"decode_mla over the bf16 caches: calc_diff {diff:.3g} (bar {MLA_INT8_DIFF:g}); "
+          f"against decode_mla_ref over the dequantised codes: max-abs {gerr:.3g} (max|out| "
+          f"{float(golden.abs().max()):.3g})")
+    if not (diff <= MLA_INT8_DIFF and gerr <= 1e-3 * float(golden.abs().max())):
+        raise AssertionError("(b) int8_nzcache: decode_mla_int8_ref off its bars")
+
+
+def _sinks_sdpa(torch, q, k, v, sink, allowed, sm):
+    """The sinks reference by one SDPA call: q [N, Hkv, R, D] f32 (the query
+    rows of each kv head: its G heads, or its G heads' tokens), k, v [N,
+    Hkv, n, D]; sink [1 or N, Hkv, R, 1], each row's sink logit; allowed
+    [N, R, n] bool. One extra key column has the sink logit as its score (an
+    additive mask on a zero key row) and a zero value row. Returns [N, Hkv,
+    R, D]."""
+    n_, hkv, rows, d = q.shape
+    zero = k.new_zeros((n_, hkv, 1, d))
+    ke, ve = torch.cat([k, zero], 2), torch.cat([v, zero], 2)
+    mask = torch.where(allowed, 0.0, float("-inf"))[:, None].expand(n_, hkv, rows, -1)
+    mask = torch.cat([mask, sink.float().expand(n_, hkv, rows, 1)], -1)
+    return torch.nn.functional.scaled_dot_product_attention(q, ke, ve, attn_mask=mask, scale=sm)
+
+
+def run_sinks(torch, sk, build, dev, b=SINK_B, ctx=SINK_CTX, seqs=SINK_PREFILL):
+    """Phase 20 (c): attention with sinks at gpt-oss-120b's widths (64 query,
+    8 kv heads of 64), the sliding window of 128 and off: the decode over
+    head-major bf16 pages (B `b`, `ctx` cached, lengths 1, 127-129 and
+    ctx - 1 among them) and the varlen causal prefill of `seqs`, each
+    against SDPA in f32 with one extra key column whose score is the sink
+    logit and whose value row is zero; within one bf16 ulp + SINK_SHARE of
+    max|ref|. No kernel (the module is plain)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2003)
+    hq, hkv, d, ps = SINK_HQ, SINK_HKV, SINK_D, SINK_PS
+    g, sm = hq // hkv, d ** -0.5
+    sinks = torch.randn((hq,), generator=gen, device=dev)
+    mpg = ctx // ps
+    pages = b * mpg + 1
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((hkv, pages, ps, d), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    bt = (torch.randperm(pages - 1, generator=gen, device=dev).reshape(b, mpg)
+          .to(torch.int32) + 1)
+    lens = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+    edge = [1, ps - 1, ps, ps + 1, ctx - 1]
+    lens[: len(edge)] = torch.tensor(edge, dtype=torch.int32, device=dev)
+    c = _Launches(build)
+    for window in (-1, SINK_WINDOW):
+        t0 = time.perf_counter()
+        out = sk.decode_attention_with_sinks(q, kc, vc, sinks, lens, bt, sm, ps, window)
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        err = ratio = 0.0
+        for lo in range(0, b, 32):                  # the f32 reference in 4 slices
+            hi = min(b, lo + 32)
+            k = kc[:, bt[lo:hi].long()].transpose(0, 1).reshape(hi - lo, hkv, -1, d).float()
+            v = vc[:, bt[lo:hi].long()].transpose(0, 1).reshape(hi - lo, hkv, -1, d).float()
+            pos = torch.arange(k.shape[2], device=dev)[None]
+            ln = lens[lo:hi, None].long()
+            allowed = pos < ln
+            if window != -1:
+                allowed &= pos >= (ln - window).clamp_min(0)
+            ref = _sinks_sdpa(torch, q[lo:hi].float().reshape(hi - lo, hkv, g, d), k, v,
+                              sinks.reshape(1, hkv, g, 1), allowed[:, None],
+                              sm).reshape(hi - lo, hq, d)
+            e, r = _bf16_check(f"(c) decode window {window}", out[lo:hi], ref, SINK_SHARE)
+            err, ratio = max(err, e), max(ratio, r)
+            del k, v, ref
+        print(f"    decode B {b} x {ctx} cached, window {window}: {ms:.1f} ms (eager), max-abs "
+              f"vs SDPA {err:.3g} ({ratio:.3g} of its bound)")
+    t = sum(seqs)
+    cu = torch.tensor([0, *np.cumsum(seqs)], dtype=torch.int32, device=dev)
+    qp = torch.randn((t, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    kp_, vp = (torch.randn((t, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(2))
+    for window in (-1, SINK_WINDOW):
+        t0 = time.perf_counter()
+        out = sk.prefill_attention_with_sinks(qp, kp_, vp, sinks, cu, sm, window)
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        err = ratio = 0.0
+        for lo, n in zip(np.cumsum((0,) + tuple(seqs[:-1])).tolist(), seqs):
+            i = torch.arange(n, device=dev)
+            allowed = i[None, :] <= i[:, None]
+            if window != -1:
+                allowed &= i[None, :] > i[:, None] - window
+            qs = qp[lo:lo + n].float().reshape(n, hkv, g, d).permute(1, 2, 0, 3)  # [hkv, g, n, d]
+            ks, vs = (x[lo:lo + n].float().permute(1, 0, 2) for x in (kp_, vp))
+            sink = sinks.reshape(hkv, g, 1, 1).expand(hkv, g, n, 1).reshape(1, hkv, g * n, 1)
+            ref = _sinks_sdpa(torch, qs.reshape(1, hkv, g * n, d), ks[None], vs[None], sink,
+                              allowed.repeat(g, 1)[None], sm)
+            ref = ref.reshape(hkv, g, n, d).permute(2, 0, 1, 3).reshape(n, hq, d)
+            e, r = _bf16_check(f"(c) prefill window {window}", out[lo:lo + n], ref, SINK_SHARE)
+            err, ratio = max(err, e), max(ratio, r)
+        print(f"    prefill {t} tokens in sequences of {list(seqs)}, window {window}: {ms:.1f} "
+              f"ms (eager), max-abs vs SDPA {err:.3g} ({ratio:.3g} of its bound)")
+    _check_launches("(c) sinks", c.delta(), {})
+
+
+def _topk_agree(torch, name, got, score64, k, tol):
+    """got [R, K'] ids (-1 pads) against the float64 scores [R, N] (-inf where
+    a key is not valid): the same number of ids a row; after ties are
+    removed the same set: every id whose score clears the K-th best valid
+    score by more than `tol` is in both got and the float64 top-k, and each
+    id of got that does not clear it scores within `tol` of it. Returns the
+    number of rows whose sets differ (on ties only)."""
+    r, n = score64.shape
+    kk = min(k, n)
+    top, ref = score64.topk(kk, dim=-1)
+    rv = top > float("-inf")
+    gv = got >= 0
+    if not torch.equal(rv.sum(1), gv.sum(1)):
+        raise AssertionError(f"{name}: valid ids a row differ from the float64 top-k")
+    kth = torch.where(rv, top, float("inf")).amin(1, keepdim=True)
+    gm = torch.zeros((r, n), dtype=torch.int32, device=got.device)
+    gm.scatter_add_(1, got.long().clamp_min(0), gv.int())
+    rm = torch.zeros((r, n), dtype=torch.int32, device=got.device)
+    rm.scatter_add_(1, ref.clamp_min(0), rv.int())
+    if int(gm.max()) > 1:
+        raise AssertionError(f"{name}: an id taken twice")
+    clear = score64 > kth + tol
+    if not torch.equal(gm.bool() & clear, rm.bool() & clear):
+        raise AssertionError(f"{name}: the top-k sets differ beyond ties")
+    tie = gm.bool() & ~clear
+    if bool(((score64 - kth).abs() > tol)[tie].any()):
+        raise AssertionError(f"{name}: an id below the k-th score taken")
+    return int((gm.bool() != rm.bool()).any(1).sum())
+
+
+def _scores64(torch, q, k, w, rows=256):
+    """sum_g w_g relu(q_g . k) in float64: q [R, G, D], k [N, D] shared by
+    the rows or [R, N, D] a row, w [R, G]; in slices of `rows`."""
+    out = []
+    for lo in range(0, q.shape[0], rows):
+        qs = q[lo:lo + rows].double()
+        s = (torch.einsum("rgd,nd->rgn", qs, k.double()) if k.dim() == 2
+             else torch.einsum("rgd,rnd->rgn", qs, k[lo:lo + rows].double()))
+        out.append(torch.einsum("rgn,rg->rn", s.relu(), w[lo:lo + rows].double()))
+    return torch.cat(out)
+
+
+def run_lightning_indexer(torch, li, build, dev, sq=2048, sk=8192, pb=8, pctx=8192, pps=64,
+                          qlens=(512, 1024, 256, 256), klens=(2048, 4096, 1024, 1024),
+                          topk=IDX_TOPK):
+    """Phase 20 (d): the lightning indexer at DeepSeek-V3.2-Exp's widths (64
+    heads of 128, top 2048), bf16 q and k, f32 weights: batched (one
+    sequence, the last `sq` queries of `sk` keys, causal), paged (batch
+    `pb`, up to `pctx` cached on pages of `pps`, lengths 1, 100, 2,048,
+    4,097 among them) and varlen (queries `qlens` over keys `klens`,
+    end-aligned causal). Scores within IDX_SCORE_SHARE of max|score| of
+    float64 ones; the top-k id sets equal to the float64 top-k's after ties
+    are removed (_topk_agree). No kernel (the module is plain)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2004)
+    h, d = IDX_H, IDX_D
+
+    def bf(*s):
+        return torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+
+    def wts(*s):
+        return torch.randn(s, generator=gen, device=dev) * h ** -0.5
+
+    c = _Launches(build)
+    # batched
+    q, k, w = bf(1, sq, h, d), bf(1, sk, d), wts(1, sq, h)
+    qpos = (sk - sq + torch.arange(sq, device=dev))[None]
+    t0 = time.perf_counter()
+    idx, sc = li.lightning_indexer(q, k, w, topk, torch.tensor([sk], device=dev), True, qpos)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    s64 = _scores64(torch, q[0], k[0], w[0])
+    s64 = torch.where(torch.arange(sk, device=dev)[None] <= qpos[0][:, None], s64,
+                      float("-inf"))
+    top = s64[s64 > float("-inf")].abs().max()
+    serr = float((sc[0].double() - s64).abs()[s64 > float("-inf")].max() / top)
+    ties = _topk_agree(torch, "(d) batched", idx[0], s64, topk, IDX_SCORE_SHARE * float(top))
+    if serr > IDX_SCORE_SHARE:
+        raise AssertionError(f"(d) batched: scores {serr:.3g} of max|score| off float64")
+    print(f"    batched {sq} queries over {sk} keys: {ms:.1f} ms (eager), scores within "
+          f"{serr:.2g} of max|score| of float64, top-{topk} sets equal ({ties} rows differ on "
+          "ties only)")
+    del q, k, w, idx, sc, s64
+    # paged
+    mpg = pctx // pps
+    pages = pb * mpg + 1
+    qg, kc, wg = bf(pb, h, d), bf(pages, pps, d), wts(pb, h)
+    bt = (torch.randperm(pages - 1, generator=gen, device=dev).reshape(pb, mpg)
+          .to(torch.int32) + 1)
+    lens = torch.full((pb,), pctx, dtype=torch.int32, device=dev)
+    lens[:4] = torch.tensor([1, 100, 2048, 4097], dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    slots = li.lightning_indexer_paged(qg, kc, wg, bt, lens, topk)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    s64 = torch.full((pb, pages * pps), float("-inf"), dtype=torch.float64, device=dev)
+    logical = (bt.long()[:, :, None] * pps + torch.arange(pps, device=dev)).reshape(pb, -1)
+    live = torch.arange(mpg * pps, device=dev)[None] < lens.long()[:, None]
+    sl = _scores64(torch, qg, kc[bt.long()].reshape(pb, -1, d), wg)
+    s64.scatter_(1, logical, torch.where(live, sl, float("-inf")))
+    top = float(sl[live].abs().max())
+    ties = _topk_agree(torch, "(d) paged", slots, s64, topk, IDX_SCORE_SHARE * top)
+    print(f"    paged B {pb}, {pctx} cached on pages of {pps} (lengths {lens.tolist()}): "
+          f"{ms:.1f} ms (eager), top-{topk} slot sets equal to float64's ({ties} rows differ on "
+          "ties only)")
+    del qg, kc, wg, s64, sl
+    # varlen
+    t, tk = sum(qlens), sum(klens)
+    qv, kv, wv = bf(t, h, d), bf(tk, d), wts(t, h)
+    cu_q, cu_k = np.cumsum(qlens).tolist(), np.cumsum(klens).tolist()
+    t0 = time.perf_counter()
+    idx, sc = li.lightning_indexer_varlen(qv, kv, wv, cu_q, cu_k, topk, True)
+    _sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    seg = torch.repeat_interleave(torch.arange(len(qlens), device=dev),
+                                  torch.tensor(qlens, device=dev))
+    starts_q = torch.tensor([0, *cu_q[:-1]], device=dev)
+    starts_k = torch.tensor([0, *cu_k[:-1]], device=dev)
+    kl = torch.tensor(klens, device=dev)
+    local_q = torch.arange(t, device=dev) - starts_q[seg]
+    frontier = starts_k[seg] + local_q + kl[seg] - torch.tensor(qlens, device=dev)[seg]
+    kpos = torch.arange(tk, device=dev)[None]
+    allowed = (kpos >= starts_k[seg][:, None]) & (kpos <= frontier[:, None])
+    s64 = torch.where(allowed, _scores64(torch, qv, kv, wv), float("-inf"))
+    top = s64[allowed].abs().max()
+    serr = float((sc.double() - s64).abs()[allowed].max() / top)
+    glob = torch.where(idx >= 0, idx.long() + starts_k[seg][:, None], -1)
+    ties = _topk_agree(torch, "(d) varlen", glob, s64, topk, IDX_SCORE_SHARE * float(top))
+    if serr > IDX_SCORE_SHARE:
+        raise AssertionError(f"(d) varlen: scores {serr:.3g} of max|score| off float64")
+    print(f"    varlen {list(qlens)} queries over {list(klens)} keys: {ms:.1f} ms (eager), "
+          f"scores within {serr:.2g} of max|score|, top-{topk} local sets equal ({ties} rows "
+          "differ on ties only)")
+    _check_launches("(d) lightning_indexer", c.delta(), {})
+
+
+def _engine_tokens(torch, serving, cfg, params, dev, seed=2005):
+    """8 prompts of 64 tokens through a LlamaEngine on `params`, 2 tokens
+    each: one prefill call, then one decode call. Returns the tokens."""
+    rng = np.random.default_rng(seed)
+    eng = serving.LlamaEngine(cfg, params=params, device=dev, num_pages=64, decode_batch=8,
+                              token_budget=512)
+    calls = {"prefill": 0, "decode": 0}
+    inner_pre, inner_dec = eng._prefill_batch, eng._decode
+
+    def pre(*a):
+        calls["prefill"] += 1
+        return inner_pre(*a)
+
+    def decode(*a):
+        calls["decode"] += 1
+        return inner_dec(*a)
+
+    eng._prefill_batch, eng._decode = pre, decode
+    rids = [eng.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 2) for _ in range(8)]
+    while eng.step():
+        pass
+    del eng._prefill_batch, eng._decode       # no cycle keeps the engine (and params) alive
+    if calls != {"prefill": 1, "decode": 1}:
+        raise AssertionError(f"(e) the engine made {calls} calls, not one of each")
+    return [eng.reqs[r]["out"] for r in rids]
+
+
+def run_memsaver(torch, serving, saver, tag, cfg, dev):
+    """Phase 20 (e): MemorySaver on phase 2's Llama weights, tracked under
+    `tag` by the caller, who holds no other reference to them: one engine
+    decode call's tokens first; pause (a pinned host backup) frees exactly
+    the tracked bytes on the card (torch.cuda.memory_allocated, within the
+    allocator's block rounding) and releases them from PyTorch's cache
+    (memory_reserved); resume brings them back;
+    the restored weights are bit-equal to a host copy taken before, on the
+    device each came from; the engine's tokens again the same. Returns the
+    restored tree."""
+    import gc
+    params = saver.get(tag)
+    leaves = list(_leaves(params))
+    tracked = sum(t.numel() * t.element_size() for t in leaves)
+    # the caching allocator hands out blocks of 512 bytes, and keeps the
+    # tail of a segment (at most 2 MiB) in a block it does not split
+    slack = len(leaves) * (2 << 20)
+    devices = [t.device for t in leaves]
+    host = [t.cpu() for t in leaves]
+    before = _engine_tokens(torch, serving, cfg, params, dev)
+    del params, leaves
+    gc.collect()
+    _sync(torch, dev)
+    on_card = dev.type == "cuda"
+    a0 = torch.cuda.memory_allocated() if on_card else 0
+    r0 = torch.cuda.memory_reserved() if on_card else 0
+    t0 = time.perf_counter()
+    saver.pause(tag)
+    _sync(torch, dev)
+    t_pause = time.perf_counter() - t0
+    a1 = torch.cuda.memory_allocated() if on_card else 0
+    r1 = torch.cuda.memory_reserved() if on_card else 0
+    if saver.get(tag) is not None or (on_card and not tracked <= a0 - a1 <= tracked + slack):
+        raise AssertionError(f"(e) pause freed {a0 - a1} bytes for {tracked} tracked")
+    t0 = time.perf_counter()
+    restored = saver.resume(tag)
+    _sync(torch, dev)
+    t_resume = time.perf_counter() - t0
+    a2 = torch.cuda.memory_allocated() if on_card else 0
+    if on_card and not tracked <= a2 - a1 <= tracked + slack:
+        raise AssertionError(f"(e) resume took {a2 - a1} bytes back for {tracked} tracked")
+    for t, h, d in zip(_leaves(restored), host, devices):
+        if t.device != d or not torch.equal(t, h.to(d)):
+            raise AssertionError("(e) a restored tensor differs from its copy before pause")
+    after = _engine_tokens(torch, serving, cfg, restored, dev)
+    if after != before:
+        raise AssertionError("(e) the engine's tokens after resume differ")
+    print(f"    {len(host)} tensors, {tracked} bytes tracked: pause {t_pause:.2f} s, freed "
+          f"{a0 - a1} bytes (memory_allocated {a0 / 1e9:.3f} -> {a1 / 1e9:.3f} GB, reserved "
+          f"{r0 / 1e9:.3f} -> "
+          f"{r1 / 1e9:.3f} GB), resume {t_resume:.2f} s (allocated back to {a2 / 1e9:.3f} GB); "
+          "restored weights bit-equal; one engine prefill and decode call give the same tokens")
+    return restored
+
+
+def _compat_cases(torch, compat, dm, dev, gen):
+    """(f)'s calls: (name, fn, the launches on the card, check(out, ref)).
+    Each fn makes what it writes anew, so that calls do not share outputs."""
+    bf = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    cases = []
+
+    def pages(p, hkv, ps, dd, head_major=True):
+        shape = (hkv, p, ps, dd) if head_major else (p, hkv, ps, dd)
+        return bf(*shape), bf(*shape)
+
+    def bt_lens(b, mp, ps, p):
+        bt = (torch.randperm(p - 1, generator=gen, device=dev)[: b * mp].reshape(b, mp)
+              .to(torch.int32) + 1)
+        lens = torch.randint(1, mp * ps + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        lens[:3] = torch.tensor([1, ps, mp * ps], dtype=torch.int32, device=dev)
+        return bt, lens
+
+    def bf16_check(share):
+        return lambda name, o, r: _bf16_check(name, o, r, share)
+
+    def exact(name, o, r):
+        if not torch.equal(o, r):
+            raise AssertionError(f"{name}: not equal")
+
+    x, y = bf(64, 256), bf(64, 256)
+    cases.append(("npu.helloworld", lambda: compat.npu.helloworld(x, y), {"helloworld": 1},
+                  exact))
+    # mla_preprocess with the [in, out] copies: both stages on K2 per_tensor
+    # (K % 64 and N % 16: 256 -> 208, 128 -> 192)
+    small = dm.MlaConfig(vocab_size=256, hidden_size=256, num_layers=1, num_heads=4,
+                         kv_lora_rank=64, qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32,
+                         q_lora_rank=128, intermediate_size=256, page_size=16)
+    weights, wuk, tail, kn_w = _mla_layer(torch, small, gen, dev)
+    hid = bf(6, small.hidden_size)
+    ang = torch.rand((6, small.qk_rope_dim), generator=gen, device=dev) * 6
+    kc0 = bf(4, 16, small.kv_lora_rank)
+    kr0 = bf(4, 16, small.qk_rope_dim)
+    sl = torch.tensor([5, 17, -1, 33, 40, 63], device=dev)
+
+    def mla():
+        out = compat.npu.mla_preprocess(hid, *weights, ang.cos(), ang.sin(), wuk, kc0.clone(),
+                                        kr0.clone(), sl, *tail, wdqkv_kn=kn_w[0],
+                                        wuq_kn=kn_w[1])
+        return out.q_nope, out.q_pe, out.kv_cache, out.krope_cache
+
+    def mla_check(name, o, r):
+        for a, b_ in zip(o, r):
+            diff, same = _calc_diff(a, b_), float((a == b_).float().mean())
+            if not (diff <= 1e-4 and same >= 0.99):
+                raise AssertionError(f"{name}: calc_diff {diff:.3g}, {same:.4f} equal")
+    cases.append(("npu.mla_preprocess", mla, {"rmsq_gemm_pt": 2}, mla_check))
+    # the soft-FP8 GEMMs: e4m3 weights with f32 block scales
+    w8 = (0.05 * torch.randn((3, 256, 384), generator=gen, device=dev)).to(torch.float8_e4m3fn)
+    ws = torch.rand((3, 2, 3), generator=gen, device=dev) * 0.01 + 0.005
+    xa = bf(96, 256)
+    gl = torch.tensor([40, 0, 56], dtype=torch.int32, device=dev)
+    fp8 = lambda name, o, r: _gemm_check(name, o, r)  # noqa: E731
+    cases.append(("npu.softfp8_w8a16_matmul",
+                  lambda: compat.npu.softfp8_w8a16_matmul(xa[:16], w8[0], ws[0]),
+                  {"wfp8a16_gemm": 1}, fp8))
+    cases.append(("npu.softfp8_w8a16_grouped_matmul",
+                  lambda: compat.npu.softfp8_w8a16_grouped_matmul(xa, w8, ws, gl),
+                  {"wfp8a16_gemm_grouped": 1}, fp8))
+    # laser attention and the estimator at D 128
+    ql, kl, vl = bf(1, 32, 256, 128), bf(1, 8, 256, 128), bf(1, 8, 256, 128)
+    cases.append(("attentions.la", lambda: compat.attentions.la(ql, kl, vl, 128 ** -0.5, True),
+                  {"laser_attention": 1}, bf16_check(ATT_SHARE)))
+    qe, ke = bf(1, 8, 1024, 128), bf(1, 8, 1024, 128)
+
+    def est_check(name, o, r):
+        if not torch.equal(o[0], r[0]):
+            from sgl_kernel_npu_tpu_torch.ops.attention import sparse as sp
+            ref_scores = sp.block_scores_ref(qe[0], ke[0], 128).reshape(o[0].shape)
+            _mask_flips(name, ref_scores, o[0], r[0], 2)
+    cases.append(("attentions.sparse_block_estimate",
+                  lambda: compat.attentions.sparse_block_estimate(qe, ke, 128, keep_ratio=0.25),
+                  {"sparse_estimate": 2}, est_check))
+    # the decodes
+    ckv, kr = bf(33, 128, 512), bf(33, 128, 64)
+    btm, lm = bt_lens(8, 4, 128, 33)
+    qm = (1.5 * torch.randn((8, 16, 576), generator=gen, device=dev)).to(torch.bfloat16)
+    cases.append(("sgl_kernel.decode_mla",
+                  lambda: compat.sgl_kernel.decode_mla(qm, ckv, kr, lm, btm, 192 ** -0.5, 128),
+                  {"decode_mla": 1}, bf16_check(K7_SHARE)))
+    kh, vh = pages(17, 2, 128, 128)
+    bth, lh = bt_lens(4, 4, 128, 17)
+    qh = (1.5 * torch.randn((4, 16, 128), generator=gen, device=dev)).to(torch.bfloat16)
+    cases.append(("sgl_kernel.decode_gqa",
+                  lambda: compat.sgl_kernel.decode_gqa(qh, kh, vh, lh, bth, 128 ** -0.5, 128),
+                  {"decode_hm": 1}, bf16_check(K10_SHARE)))
+    kp_, vp = pages(17, 2, 128, 128, head_major=False)
+    cases.append(("sgl_kernel.decode_gqa_high_performance",
+                  lambda: compat.sgl_kernel.decode_gqa_high_performance(
+                      qh, kp_, vp, lh, bth, 128 ** -0.5, 128),
+                  {"decode_v3": 1}, bf16_check(HM_SHARE)))
+    # the gated delta rule's decode step (K9): B 8, 4 qk / 8 v heads of 128
+    b, hh, hv, dd = 8, 4, 8, 128
+    pool0 = (0.1 * torch.randn((16, hv, dd, dd), generator=gen, device=dev)).to(torch.bfloat16)
+    g_args = (torch.randn((hv,), generator=gen, device=dev),
+              torch.randn((b, 1, hv), generator=gen, device=dev),
+              torch.randn((hv,), generator=gen, device=dev), 1.0, 20.0,
+              torch.randn((b, 1, hh, dd), generator=gen, device=dev),
+              torch.randn((b, 1, hh, dd), generator=gen, device=dev),
+              torch.randn((b, 1, hv, dd), generator=gen, device=dev),
+              torch.randn((b, 1, hv), generator=gen, device=dev))
+    gidx = torch.arange(3, 3 + b, dtype=torch.int32, device=dev)
+
+    def gdn():
+        return compat.sgl_kernel.fused_sigmoid_gating_delta_rule_update(
+            *g_args, pool0.clone(), gidx, None, True)
+
+    def gdn_check(name, o, r):
+        err = float((o[0].float() - r[0].float()).abs().max())
+        if not err <= GDN_SHARE * float(r[0].float().abs().max()):
+            raise AssertionError(f"{name}: o max-abs {err:.3g}")
+        _bf16_check(f"{name} pool", o[1], r[1], 1e-6)
+    cases.append(("sgl_kernel.fused_sigmoid_gating_delta_rule_update", gdn,
+                  {"gdn_recurrent": 1}, gdn_check))
+    # add_rmsnorm_bias with the static int8 quant (K20), swiglu_quant (K13)
+    nx, nr = bf(64, 512), bf(64, 512)
+    nw = 1.0 + 0.1 * torch.randn((512,), generator=gen, device=dev)
+    nb = 0.1 * torch.randn((512,), generator=gen, device=dev)
+    nqs = 20.0 + 20.0 * torch.rand((512,), generator=gen, device=dev)
+    nqo = torch.randn((512,), generator=gen, device=dev)
+    cases.append(("sgl_kernel.add_rmsnorm_bias",
+                  lambda: compat.sgl_kernel.add_rmsnorm_bias(nx, nr, nw, nb, 1e-6, nqs, nqo),
+                  {"add_rmsnorm_quant": 1}, lambda name, o, r: _norm_check(torch, name, o, r)))
+    sx = (2 * torch.randn((256, 512), generator=gen, device=dev)).to(torch.bfloat16)
+    sgl = torch.tensor([100, 60], dtype=torch.int32, device=dev)
+
+    def swiglu_check(name, o, r):
+        d_ = (o[0].int() - r[0].int()).abs()
+        if int(d_.max()) > 1 or float((d_ > 0).double().mean()) > MOE_FLIP_SHARE:
+            raise AssertionError(f"{name}: int8 beyond the flip bar")
+        ulp = torch.nextafter(r[1].abs(), torch.full_like(r[1], float("inf"))) - r[1].abs()
+        if not bool(((o[1] - r[1]).abs() <= ulp).all()):
+            raise AssertionError(f"{name}: scales beyond one f32 ulp")
+    cases.append(("sgl_kernel.swiglu_quant", lambda: compat.sgl_kernel.swiglu_quant(sx, sgl),
+                  {"swiglu_quant": 1}, swiglu_check))
+    return cases
+
+
+def run_compat(torch, compat, dm, build, dev):
+    """Phase 20 (f): every compat name resolves to a callable of the port
+    (and of no other package); each name that reaches a kernel is called
+    once on `dev`'s tensors at a small valid shape: the call launches
+    exactly its kernel (two launches for mla_preprocess's two K2 stages and
+    for K18's pooling and score kernels), nothing else, a second call is
+    bit-identical, and the same call under SKT_IMPL=ref (no launch) agrees
+    within phase 1's bar for that kernel."""
+    names = 0
+    for ns in ("npu", "attentions", "sgl_kernel", "deep_ep", "torch_memory_saver"):
+        for key, fn in vars(getattr(compat, ns)).items():
+            if not callable(fn) or not fn.__module__.startswith("sgl_kernel_npu_tpu_torch."):
+                raise AssertionError(f"(f) compat.{ns}.{key} is not a callable of the port")
+            names += 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2006)
+    cases = _compat_cases(torch, compat, dm, dev, gen)
+    c = _Launches(build)
+    for name, fn, expect, check in cases:
+        before = _Launches(build)
+        out = fn()
+        _sync(torch, dev)
+        _check_launches(f"(f) {name}", before.delta(), _expect(dev, expect))
+        outs = out if isinstance(out, tuple) else (out,)
+        if not all(bool(torch.isfinite(o.float()).all()) for o in outs if o is not None):
+            raise AssertionError(f"(f) {name}: output not finite")
+        again = fn()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, o) for a, o in zip(again, outs) if o is not None):
+            raise AssertionError(f"(f) {name}: a second call differs")
+        mid = _Launches(build)
+        with _env(SKT_IMPL="ref"):
+            ref = fn()
+        _sync(torch, dev)
+        _check_launches(f"(f) {name} under SKT_IMPL=ref", mid.delta(), {})
+        check(f"(f) {name}", out, ref)
+        print(f"    {name}: launches {_expect(dev, expect) or 'none (CPU)'}, a second call "
+              "bit-identical, within its bar of SKT_IMPL=ref")
+    total = {k: n for k, n in c.delta().items() if n}
+    print(f"  (f) {names} compat names resolve to callables of the port; {len(cases)} names "
+          f"that reach a kernel driven, launches in all (three calls each, the third under "
+          f"SKT_IMPL=ref): {total}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -8194,12 +8946,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from sgl_kernel_npu_tpu_torch import _build, serving
+        from sgl_kernel_npu_tpu_torch import _build, compat, memsaver, serving
         from sgl_kernel_npu_tpu_torch import runtime
-        from sgl_kernel_npu_tpu_torch.models import deepseek_mla, llama, loader, qwen_next
+        from sgl_kernel_npu_tpu_torch.models import (deepseek_mla, llama, loader, quant_ref,
+                                                     qwen_next)
         from sgl_kernel_npu_tpu_torch import parallel
-        from sgl_kernel_npu_tpu_torch.ops import (activation, helloworld, matmul, norm, quant,
-                                                  rmsq_gemm)
+        from sgl_kernel_npu_tpu_torch.ops import (activation, helloworld, matmul, mla_preprocess,
+                                                  norm, quant, rmsq_gemm)
         from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v4 as attic_v4
         from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v5 as attic_v5
         from sgl_kernel_npu_tpu_torch.attic.ops_attention import decode_v7 as attic_v7
@@ -8210,8 +8963,9 @@ def main() -> int:
                                                             decode_v3, decode_v6,
                                                             decode_v8, decode_v9,
                                                             decode_v11, decode_v13,
+                                                            lightning_indexer,
                                                             paged_prefill, paged_prefill_tm,
-                                                            prefill, sparse)
+                                                            prefill, sinks, sparse)
         from sgl_kernel_npu_tpu_torch.utils import env
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -8392,6 +9146,18 @@ def main() -> int:
     print(f"  phase 17 {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    # phase 20 (e) runs here too, on phase 2's weights, which main hands to
+    # the saver and holds no other reference to while they are paused
+    print("phase 20 (e): MemorySaver on phase 2's Llama-3-8B weights (pause, resume, one "
+          "engine prefill and decode call before and after)")
+    dev = torch.device("cuda")
+    saver = memsaver.MemorySaver()
+    saver.track(params, tag="llama weights")
+    del params
+    params = _part(torch, dev, "e", lambda: run_memsaver(torch, serving, saver, "llama weights",
+                                                         cfg, dev))
+    del saver
+
     print("phase 3: small configs, card vs CPU plain versions")
     check_small_config(torch, llama)
     check_small_tm_engine(torch, llama, serving)
@@ -8546,6 +9312,19 @@ def main() -> int:
     t0 = time.perf_counter()
     run_gdn_surface(torch, _build, gpu)
     print(f"  19 (d) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    print("phase 20 (a)-(d), (f): quant_ref's accuracy delta, the MLA cache modes, sinks, the "
+          f"lightning indexer and compat [{gpu}]")
+    t20 = time.perf_counter()
+    _part(torch, dev, "a", lambda: run_quant_accuracy(torch, quant_ref, llama, deepseek_mla,
+                                                      _build, mcfg, dev))
+    _part(torch, dev, "b", lambda: run_mla_cache_modes(torch, mla_preprocess, decode,
+                                                       deepseek_mla, _build, mcfg, dev))
+    _part(torch, dev, "c", lambda: run_sinks(torch, sinks, _build, dev))
+    _part(torch, dev, "d", lambda: run_lightning_indexer(torch, lightning_indexer, _build, dev))
+    _part(torch, dev, "f", lambda: run_compat(torch, compat, deepseek_mla, _build, dev))
+    print(f"  phase 20 (a)-(d), (f) {time.perf_counter() - t20:.1f} s")
     torch.cuda.empty_cache()
 
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]

@@ -13,12 +13,14 @@ Subpackages:
             tm2 pages, MLA combined and split latent pages, head-major
             pages), mla_preprocess, gdn, swiglu_quant, helloworld
   models    Llama-3-class, DeepSeek-V2-class MLA and Qwen3-Next-class W8A8
-            decoders
+            decoders, their f32 twins and the quantisation delta (quant_ref)
   parallel  the expert-parallel MoE layer: Buffer, its dispatch / combine
             strategies, the fused layer (composition and one launch)
   runtime   ctypes bindings of the native scheduler (csrc/runtime.cpp)
   serving   LlamaEngine and MlaEngine: continuous batching, radix prefix reuse
   utils     env flags, device selection, H100 roofline numbers
+  memsaver  MemorySaver: tag-scoped pause / resume of device tensors
+  compat    the reference's op names (the JAX package's compat.py table)
   attic     the retired v4 / v5 / v7 decodes of the repository's attic/
             (not imported here, as the JAX package does not import attic/)
 """

@@ -9,4 +9,6 @@ or int8: the scatters and the v3 decode (decode_v3), the v6 deferred decode
 int8 head-major pages: the decode of decode.py (decode_gqa_int8kv). Dense
 tensors: laser attention and the varlen causal prefill (prefill). The sparse
 family (sparse): the sparse-block estimator, the dense block-sparse tier and
-top-k sparse decode over a shared paged cache."""
+top-k sparse decode over a shared paged cache. Beside them, plain: attention
+with sinks (sinks) and the lightning indexer (lightning_indexer); decode_v2
+names K10's wrapper as the JAX package's v2 decode."""

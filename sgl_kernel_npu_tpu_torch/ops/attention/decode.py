@@ -33,6 +33,9 @@ order (one page per online-softmax step, all f32). The kernel serves
 DeepSeek's widths only: Lkv 512, Lrope even and <= 64, H a multiple of 4.
 It splits each sequence's tokens over blocks of the card (`mla_splits`,
 `mla_split_bounds`) and merges the splits in split order.
+
+`decode_mla_int8_ref` is the plain MLA decode over the int8 latent cache of
+mla_preprocess's int8_nzcache mode (no kernel behind it in either package).
 """
 
 from __future__ import annotations
@@ -301,3 +304,54 @@ def decode_mla(q, ckv_cache, krope_cache, seq_lens, block_table, sm_scale, page_
     _build.check("decode_mla", code)
     _build.launches["decode_mla"] += 1
     return out
+
+
+def _int8_scores(q8, k8):
+    """Exact int32 sums q8 [B, H, L] int8 . k8 [B, N, L] int8 -> [B, H, N]:
+    on the CPU one int32 batched product; on the card `torch._int_mm` a
+    sequence (cuBLASLt's int8 GEMM, int32 accumulation), its H rows padded
+    to at least 32 and to a multiple of 8, N to a multiple of 8 (_int_mm's
+    shape rules)."""
+    if q8.device.type == "cpu":
+        return torch.bmm(q8.int(), k8.int().transpose(1, 2))
+    b, h, lkv = q8.shape
+    n = k8.shape[1]
+    rows, n_pad = max(32, cdiv(h, 8) * 8), cdiv(n, 8) * 8
+    qp = q8.new_zeros((rows, lkv))
+    kp = k8.new_zeros((n_pad, lkv))
+    out = torch.empty((b, h, n), dtype=torch.int32, device=q8.device)
+    for i in range(b):
+        qp[:h] = q8[i]
+        kp[:n] = k8[i]
+        out[i] = torch._int_mm(qp, kp.t())[:h, :n]
+    return out
+
+
+def decode_mla_int8_ref(q_nope_q, q_pe, ckv_cache_q, krope_cache, q_nope_scale, ctkv_scale,
+                        seq_lens, block_table, sm_scale, page_size=None):
+    """MLA decode over the int8 latent cache of mla_preprocess's
+    int8_nzcache mode (decode.py:421-460 of the JAX package, plain there too:
+    no kernel behind it). q_nope_q [B, H, Lkv] int8, quantised with the
+    per-head q_nope_scale [H] MULTIPLYING; ckv_cache_q [P, ps, Lkv] int8,
+    quantised with the scalar ctkv_scale DIVIDING; q_pe [B, H, Lrope] and
+    krope_cache [P, ps, Lrope] float. So
+      qk_nope = (q_q . ckv_q) * ctkv_scale / q_nope_scale[h]
+      out     = (p . ckv_q) * ctkv_scale
+    The int8 x int8 products are summed exactly in int32 (`_int8_scores`:
+    an int32 product on the CPU, torch._int_mm on the card), the epilogue in
+    f32. seq_lens includes the current token. Returns [B, H, Lkv] f32."""
+    b, h, lkv = q_nope_q.shape
+    ps = ckv_cache_q.shape[1]
+    mp = block_table.shape[1]
+    dev = q_nope_q.device
+    bt = block_table.long()
+    cs = torch.as_tensor(ctkv_scale, dtype=torch.float32, device=dev).reshape(())
+    ckv_q = ckv_cache_q[bt].reshape(b, mp * ps, lkv)
+    krope = krope_cache[bt].reshape(b, mp * ps, -1).float()
+    qk_n = _int8_scores(q_nope_q, ckv_q).float() * (cs / q_nope_scale.float())[None, :, None]
+    qk_r = torch.einsum("bhd,bnd->bhn", q_pe.float(), krope)
+    logits = (qk_n + qk_r) * sm_scale
+    mask = torch.arange(mp * ps, device=dev)[None, :] < seq_lens.long()[:, None]
+    logits = torch.where(mask[:, None, :], logits, _NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhn,bnd->bhd", p, ckv_q.float()) * cs

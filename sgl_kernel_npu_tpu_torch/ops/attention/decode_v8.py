@@ -6,6 +6,10 @@ Pages are [L, P, ps*hkv, D] int8, row r = t*hkv + h, so one token of one
 layer is a single contiguous [hkv, D] run; scales are [L, P, 1, ps*hkv] f32
 in the same row order.
 
+`init_cache_tm_int8` and `reshape_and_cache_gqa_token_major_int8` are the
+one-layer form (pages [P, ps*hkv, D], scales [P, 1, ps*hkv]) of the JAX
+package, which calls them nowhere; the port keeps them for its surface.
+
 The port writes the cache IN PLACE where the JAX package returned new arrays
 (it aliased them into the Pallas call): `append_tm_int8` and the two scale
 updates mutate the tensors they are given. The scale updates are direct
@@ -20,12 +24,54 @@ import ctypes
 import torch
 
 from ... import _build
-from ...utils import use_kernel
+from ...utils import resolve_device, use_kernel
+from ..kvcache import _put_rows
 from ..quant import INV_INT8_MAX
 from . import decode_v9 as _v9
 
 # kq, vq, k_cache, v_cache, pages, offs, L, B, P, ps, run_bytes, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def init_cache_tm_int8(num_pages: int, hkv: int, page_size: int, d: int, device="cuda"):
+    """One layer of token-major int8 pages, zeroed, on `device`: k/v [P,
+    ps*hkv, D] int8, ks/vs [P, 1, ps*hkv] f32."""
+    dev = resolve_device(device)
+    shape = (num_pages, page_size * hkv, d)
+    sshape = (num_pages, 1, page_size * hkv)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "ks": torch.zeros(sshape, dtype=torch.float32, device=dev),
+            "vs": torch.zeros(sshape, dtype=torch.float32, device=dev)}
+
+
+def reshape_and_cache_gqa_token_major_int8(k, v, k_cache, v_cache, k_scale_cache,
+                                           v_scale_cache, slot_mapping):
+    """Quantise and scatter new rows into one layer of token-major int8
+    pages, in place: one contiguous [hkv, D] run per token. k, v [T, Hkv,
+    D]; caches [P, ps*hkv, D] int8; scale caches [P, 1, ps*hkv] f32;
+    slot_mapping [T] (page * ps + offset; < 0 or past the pages drops the
+    row). Each (token, head) row is quantised symmetrically with scale
+    max(absmax, 1e-7) / 127, divided as the JAX function divides eagerly
+    (by a tensor: PyTorch's CUDA division by a Python number multiplies by
+    the reciprocal). No host sync. Returns the (mutated) caches."""
+    num_pages, rows, d = k_cache.shape
+    hkv = k.shape[1]
+    ps = rows // hkv
+    int8_max = torch.tensor(127.0, device=k.device)
+
+    def q8(x):
+        x = x.float()
+        scale = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-7) / int8_max
+        return torch.round(x / scale).clamp(-128, 127).to(torch.int8), scale[..., 0]
+
+    kq, ks = q8(k)
+    vq, vs = q8(v)
+    _put_rows(k_cache.view(num_pages, ps, hkv * d), slot_mapping, kq.reshape(-1, hkv * d))
+    _put_rows(v_cache.view(num_pages, ps, hkv * d), slot_mapping, vq.reshape(-1, hkv * d))
+    _put_rows(k_scale_cache.view(num_pages, ps, hkv), slot_mapping, ks)
+    _put_rows(v_scale_cache.view(num_pages, ps, hkv), slot_mapping, vs)
+    return k_cache, v_cache, k_scale_cache, v_scale_cache
 
 
 def quant_rows_int8(k, v):

@@ -29,6 +29,10 @@ softfp8_w8a16_grouped_matmul compute) run on kernel K21
   gmm_wfp8a16_aligned_ref  its plain version, per m-tile expert
   gmm_wfp8a16              gmm_wfp8a16 (the aligned compaction around K21)
   _dequant_w_fp8_block     _dequant_w_fp8_block
+
+`batch_matmul_transpose` ([m, b, k] x [b, k, n] -> [m, b, n], the
+reference's batch_matmul_transpose and catlass_matmul_basic) is a plain
+batched product with f32 sums, as the JAX package's is an XLA einsum.
 """
 
 from __future__ import annotations
@@ -521,3 +525,14 @@ def _wfp8a16_gemm(x, w, ws, eid, block_m, block, m_live=None):
     _build.check(name, code)
     _build.launches[name] += 1
     return out
+
+
+# --------------------------------------------------------- batch_matmul_transpose
+
+
+def batch_matmul_transpose(x, w, out_dtype=None):
+    """[m, b, k] x [b, k, n] -> [m, b, n] (einsum 'mbk,bkn->mbn'), the
+    products and sums in f32 (TF32 off on the card, PyTorch's default), the
+    result in `out_dtype` (default x's dtype)."""
+    out = torch.einsum("mbk,bkn->mbn", x.float(), w.float())
+    return out.to(out_dtype or x.dtype)

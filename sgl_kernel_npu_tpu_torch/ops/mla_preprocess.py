@@ -11,10 +11,21 @@ package's ops/mla_preprocess.py).
   q_nope [H, nope] x wuk [H, nope, kv_lora] -> q_nope' [H, kv_lora]
   reshape_and_cache(ctkv, krope; slot_mapping)
 
-The port serves cache_mode "krope_ctkv" (split caches, written in place)
-with quant_mode "per_tensor" (static asymmetric, the value rounded to fp16
-before rint: the reference's quant_per_tensor) or "per_token". The "full"
-and "int8_nzcache" modes raise NotImplementedError (ROADMAP Queue 1).
+Cache modes (the reference's cache_mode), each writing its caches in place:
+  "krope_ctkv"   split caches [pages, ps, kv_lora] + [pages, ps, rope]; q_nope
+                 returned [N, H, kv_lora] in hidden's dtype
+  "full"         one combined cache [pages, ps, kv_lora + rope] (ctkv | krope,
+                 576 wide for DeepSeek); q returned packed [N, H, kv_lora +
+                 rope] as q_nope (q_pe also alone), krope_cache None
+  "int8_nzcache" split caches with an int8 ctkv cache: ctkv divided by the
+                 per-tensor ctkv_scale, q_nope MULTIPLIED by the per-head
+                 q_nope_scale [H], each rounded to fp16, clamped to
+                 [-128, 127] and rounded half to even there; q_nope returned
+                 int8. The reference's NZ layout is an Ascend data format;
+                 the logical [pages, ps, D] layout is kept, as in the JAX
+                 package.
+quant_mode "per_tensor" (static asymmetric, the value rounded to fp16 before
+rint: the reference's quant_per_tensor) or "per_token".
 
 With `wdqkv_kn` / `wuq_kn` ([in, out] copies of the two GEMM weights, made
 once by models/deepseek_mla.py::fuse_mla_weights), each RMSNormQuant->GEMM
@@ -30,16 +41,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .kvcache import reshape_and_cache_mla
+from .kvcache import _put_rows, reshape_and_cache_mla
 from .quant import per_token_quant_int8
 from .rmsq_gemm import rmsnorm_quant_gemm
 
 
 class MlaPreprocessOut(NamedTuple):
-    q_nope: torch.Tensor            # [N, H, kv_lora]
+    q_nope: torch.Tensor            # [N, H, kv_lora] (int8 in int8_nzcache; packed
+                                    # [N, H, kv_lora + rope] in full)
     q_pe: torch.Tensor              # [N, H, rope]
-    kv_cache: torch.Tensor          # the ctkv cache, updated in place
-    krope_cache: Optional[torch.Tensor]
+    kv_cache: torch.Tensor          # the ctkv (or combined) cache, updated in place
+    krope_cache: Optional[torch.Tensor]   # None in full
     q_scale: Optional[torch.Tensor]  # always None, as in the JAX package
 
 
@@ -49,9 +61,15 @@ def _rms(x32, gamma, eps=1e-6):
 
 
 def _quant_per_tensor(x32, scale, offset):
+    """x / scale + offset, the division by a tensor (PyTorch's CUDA division
+    by a Python number multiplies by its reciprocal)."""
     q = x32 / scale.float().reshape(()) + offset.float().reshape(())
+    return _fp16_round_int8(q)
+
+
+def _fp16_round_int8(q32):
     # the reference clamps in fp16, then rounds (quant_per_tensor)
-    return torch.round(q.to(torch.float16).clamp(-128, 127)).to(torch.int8)
+    return torch.round(q32.to(torch.float16).clamp(-128, 127)).to(torch.int8)
 
 
 def _gemm_dequant(a_int8, w_int8, descale, bias):
@@ -83,12 +101,12 @@ def mla_preprocess(
     wdqkv_kn=None, wuq_kn=None,
 ):
     """hidden [N, hidden]; wdqkv [out, hidden] int8; wuq [H*(nope+rope),
-    q_lora] int8; wuk [H, nope, kv_lora]; caches [pages, page_size, D], bf16,
-    written in place. See the module docstring."""
-    if cache_mode != "krope_ctkv":
-        raise NotImplementedError(
-            f"mla_preprocess cache_mode {cache_mode!r}: the port serves "
-            "'krope_ctkv'; 'full' and 'int8_nzcache' come in a later slice")
+    q_lora] int8; wuk [H, nope, kv_lora]; caches [pages, page_size, D],
+    written in place (bf16, or the int8 ctkv cache in int8_nzcache, which
+    also takes the scalar ctkv_scale and q_nope_scale [H]). See the module
+    docstring."""
+    if cache_mode not in ("krope_ctkv", "full", "int8_nzcache"):
+        raise ValueError(f"mla_preprocess: unknown cache_mode {cache_mode!r}")
     if quant_mode not in ("per_tensor", "per_token"):
         raise ValueError(f"mla_preprocess: unknown quant_mode {quant_mode!r}")
     n = hidden.shape[0]
@@ -144,6 +162,17 @@ def mla_preprocess(
     k_pe = rotate_half_rope(k_pe, cos, sin)
 
     dtype = hidden.dtype
+    if cache_mode == "full":
+        _put_rows(kv_cache, slot_mapping, torch.cat([ctkv, k_pe], dim=-1).to(dtype))
+        return MlaPreprocessOut(torch.cat([q_nope, q_pe], dim=-1).to(dtype), q_pe.to(dtype),
+                                kv_cache, None, None)
+    if cache_mode == "int8_nzcache":
+        # per-head symmetric quant of q_nope: the scale MULTIPLIES here
+        q_nope = _fp16_round_int8(q_nope * q_nope_scale.float()[None, :, None])
+        ctkv_q = _quant_per_tensor(ctkv, torch.as_tensor(ctkv_scale, device=ctkv.device),
+                                   torch.zeros((), device=ctkv.device))
+        reshape_and_cache_mla(ctkv_q, k_pe.to(dtype), kv_cache, krope_cache, slot_mapping)
+        return MlaPreprocessOut(q_nope, q_pe.to(dtype), kv_cache, krope_cache, None)
     reshape_and_cache_mla(ctkv.to(dtype), k_pe.to(dtype), kv_cache, krope_cache,
                           slot_mapping)
     return MlaPreprocessOut(q_nope.to(dtype), q_pe.to(dtype), kv_cache, krope_cache,

@@ -24,10 +24,10 @@ recv, rs and back start as zeros. The weighted sum over the top-k copies
 (`combine_copies`) stays PyTorch, as it is XLA in the JAX package.
 
 On a CUDA tensor it launches kernel K11 (csrc/fused_moe.cu) once, for one
-rank (more ranks raise: ROADMAP Queue 1, item 1 fills its pointer table). On a
-CPU tensor it runs `fused_moe_layer_ref`: the scatter's plain version for
-phases S and C (through the EPGroup, so any number of ranks) around
-`expert_rows_ref`.
+rank (more ranks raise: its pointer table holds no peer windows on other
+cards yet). On a CPU tensor it runs `fused_moe_layer_ref`: the scatter's
+plain version for phases S and C (through the EPGroup, so any number of
+ranks) around `expert_rows_ref`.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ def fused_moe_layer(x_send, w13_q, w13_scale, w2_q, w2_scale, send_cnt, src_off,
     if use_kernel(x_send):
         if group.num_ranks > 1:
             raise NotImplementedError(
-                "fused_moe on the card runs one rank; peer windows are ROADMAP Queue 1, "
-                "item 1")
+                "fused_moe on the card runs one rank: its pointer table holds no peer "
+                "windows on other cards yet")
         return _fused_moe_cuda(x_send, w13_q, w13_scale, w2_q, w2_scale,
                                (send_cnt, src_off, dst_off, recv_cnt, back_off), maxt=maxt)
     return fused_moe_layer_ref(x_send, w13_q, w13_scale, w2_q, w2_scale, send_cnt, src_off,

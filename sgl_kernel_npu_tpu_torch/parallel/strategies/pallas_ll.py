@@ -21,9 +21,10 @@ addresses its destination through a per-rank pointer table with one entry.
 It walks the window by `scatter_row_map`: each window row takes one
 source row (data, quantised or not) or is zero, so the wrapper hands it
 uninitialised outputs.
-More ranks on the card raise (ROADMAP Queue 1, item 1 fills the table). On a CPU
-tensor it runs `remote_scatter_ref`, which moves the chunks through the
-EPGroup's ragged all_to_all, so it serves any number of ranks (gloo).
+More ranks on the card raise until the table holds peer windows on the other
+cards. On a CPU tensor it runs `remote_scatter_ref`, which moves the chunks
+through the EPGroup's ragged all_to_all, so it serves any number of ranks
+(gloo).
 
 Dispatch launches it once (quantising in int8 mode), combine once (bf16,
 no scales).
@@ -164,8 +165,8 @@ def _remote_scatter(x, scales, send_cnt, src_off, dst_off, wait_cnt, *, group,
     if use_kernel(x):
         if group.num_ranks > 1:
             raise NotImplementedError(
-                "remote_scatter on the card runs one rank; peer windows are ROADMAP "
-                "Queue 1, item 1")
+                "remote_scatter on the card runs one rank: its pointer table holds no "
+                "peer windows on other cards yet")
         return _remote_scatter_cuda(x.contiguous(), scales, send_cnt, src_off, dst_off,
                                     slices_per_rank=slices_per_rank, out_rows=out_rows,
                                     quantize=quantize)

@@ -302,3 +302,8 @@ class PyScheduler:
 
     def num_requests(self):
         return len(self._reqs)
+
+
+# The reference package's name for building the scheduler. A failed native
+# build raises (build_native); it is never swapped for PyScheduler.
+make_scheduler = NativeScheduler

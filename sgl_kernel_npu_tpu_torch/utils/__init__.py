@@ -4,6 +4,7 @@ from . import env  # noqa: F401
 from .device import (  # noqa: F401
     H100,
     DeviceProperties,
+    get_device_properties,
     resolve_device,
     use_kernel,
 )

@@ -1,4 +1,5 @@
-"""Device selection, the kernel-or-plain rule, and H100 roofline numbers.
+"""Device selection, the kernel-or-plain rule, and H100 roofline numbers
+(`H100`, and `get_device_properties` for the card a caller runs on).
 
 The rule every wrapper follows (`use_kernel`): a tensor on a CUDA device
 launches the hand-written kernel, a tensor on the CPU runs the plain PyTorch
@@ -9,7 +10,9 @@ JAX package's `use_pallas`). No entry point moves work to the CPU by itself.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+import os
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -25,6 +28,7 @@ class DeviceProperties:
     int8_ops: float
     f32_flops: float       # outside the tensor cores
     num_sms: int
+    platform: str = "gpu"
 
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit.
@@ -44,6 +48,34 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def _is_h100_sxm(name: str) -> bool:
+    """True for the H100 SXM (reported as e.g. "NVIDIA H100 80GB HBM3"),
+    the card whose data sheet `H100` holds; the PCIe and NVL parts run at
+    other rates."""
+    return "H100" in name and "PCIe" not in name and "NVL" not in name
+
+
+def get_device_properties(device="cuda") -> DeviceProperties:
+    """The device a caller runs on. On the card: its name, memory and SM
+    count from torch.cuda.get_device_properties, with the H100 data-sheet
+    rates of `H100` where the card is an H100 SXM and no rates (NaN) on any
+    other card (no rate is measured here). device="cpu" describes the host:
+    its memory and cores, and no rates, since a CPU run measures no device
+    rate. Raises where CUDA is asked for and there is no card
+    (resolve_device)."""
+    nan = math.nan
+    no_rates = dict(hbm_bytes_per_s=nan, bf16_flops=nan, int8_ops=nan, f32_flops=nan)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return DeviceProperties(name="cpu", platform="cpu",
+                                hbm_bytes=os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"),
+                                num_sms=os.cpu_count() or 1, **no_rates)
+    props = torch.cuda.get_device_properties(dev)
+    card = replace(H100, name=props.name, hbm_bytes=props.total_memory,
+                   num_sms=props.multi_processor_count)
+    return card if _is_h100_sxm(props.name) else replace(card, **no_rates)
 
 
 def use_kernel(t: torch.Tensor) -> bool:

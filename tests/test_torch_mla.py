@@ -481,10 +481,11 @@ def test_mla_preprocess_matches_jax(monkeypatch, fused, quant_mode):
 
 
 def test_mla_preprocess_refuses_the_other_cache_modes():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tmp.mla_preprocess(*([None] * 22), cache_mode="full")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tmp.mla_preprocess(*([None] * 22), cache_mode="int8_nzcache")
+    """Modes other than the reference's three (krope_ctkv, full,
+    int8_nzcache; the last two in tests/test_torch_surface.py) raise."""
+    for mode in ("nz", "combined"):
+        with pytest.raises(ValueError, match="unknown cache_mode"):
+            tmp.mla_preprocess(*([None] * 22), cache_mode=mode)
 
 
 # ------------------------------------------------- the bench path (path a)
