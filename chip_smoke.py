@@ -339,6 +339,29 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    resolves, and each one that reaches a kernel, called once at a small
    shape, launches exactly its kernel and agrees with SKT_IMPL=ref within
    phase 1's bar.
+21. The attentions surface at public models' widths, last, B 1, seeded
+   inputs (run_attention_widths). Pass 1 sets every count to 0 and drives
+   each case once through its entry point and again (bit-identical), held
+   to the same call under SKT_IMPL=ref: compat.attentions.la (K17) at
+   DeepSeek-V3's MLA prefill (128 heads, D 192, Dv 128, T 4096, causal),
+   Qwen3-Next-80B-A3B's attention (16 / 2 heads of 256, T 8192, causal),
+   SD3's joint attention (24 heads of 64, T 4429, not causal, bf16 and
+   fp16) on the tensor-core route, Phi-3-mini (32 heads of 96, T 4096,
+   causal, bf16 and f32) and D 32 f32 at T 1000 on the CUDA-core route
+   (laser_attention_general); compat.attentions.sparse_block_estimate (K18,
+   keep 0.25) on (a)'s and (b)'s q and k in blocks of 128, SD3's in fp16 in
+   blocks of 64 on padded lengths, Phi-3's in f32; and
+   topk_block_sparse_attention (K19, 256 blocks of 8 a row, pages of 128,
+   row 2 all -1: block 0's mean) at Falcon-7B (71 heads of 64, B 64),
+   Gemma-3-1B (4 heads of 256, B 128, bf16 and fp16) and DeepSeek-V3.2-Exp's
+   latent rows (128 heads, 576 / 512, B 32). Bars: bf16 one bf16 ulp + 1e-4
+   of max|plain|, fp16 one fp16 ulp + 1e-4, f32 2e-5 of max|plain|, K18's
+   masks equal or flipped at the threshold. Pass 2 times each kernel alone
+   (graph replay), its plain version, SDPA where it takes the shape, and
+   the bound, and holds K18's scores within 1e-5 of block_scores_ref; then
+   a width outside every route (la at D 320, K19 at 96 and in f32) must
+   raise, naming the widths it takes, and launch nothing. Each case is a
+   row of the kernels line, its launches from pass 1.
 
 Prints the kernels' JSON line, the card's name and power limit, and last the
 result line. Any failure raises, and the exit code is not 0. Imports nothing
@@ -1511,18 +1534,19 @@ def _bf16_check(name, out, ref, share):
     return float(err.max()), ratio
 
 
-def _sdpa_yardstick(torch, q, k, v, mask, scale):
+def _sdpa_yardstick(torch, q, k, v, mask, scale, **kw):
     """One SDPA call in MQA-as-one-head form (q [B, 1, H, C] over k [B, 1,
-    n, C], v [B, 1, n, Cv], a boolean mask [B, 1, 1, n]), on the first fused
-    backend that takes it (flash, memory-efficient, cuDNN), else the math
-    one. Returns (call, backend name)."""
+    n, C], v [B, 1, n, Cv], a boolean mask [B, 1, 1, n]), or any other that
+    SDPA's keywords `kw` (is_causal, enable_gqa) describe, on the first
+    fused backend that takes it (flash, memory-efficient, cuDNN), else the
+    math one. Returns (call, backend name)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     f = torch.nn.functional.scaled_dot_product_attention
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         def call(be=be):
             with sdpa_kernel(be):
-                return f(q, k, v, attn_mask=mask, scale=scale)
+                return f(q, k, v, attn_mask=mask, scale=scale, **kw)
         try:
             with warnings.catch_warnings():       # a refusing backend says why
                 warnings.simplefilter("ignore")
@@ -5431,22 +5455,25 @@ def check_sparse_estimate(torch, sp):
     return rows
 
 
-def _topk_case(torch, name, b, d, dv, pages, seed, heads=TOPK_H):
-    """Seeded q [B, heads, D], caches [pages, 128, D] / [.., Dv], KB 256
-    distinct 8-token blocks a row; row 1 leaves its last 100 at -1, row 2 is
-    all -1. Returns (q, k cache, v cache, block ids, token ids)."""
-    gen = torch.Generator(device="cuda")
+def _topk_case(torch, name, b, d, dv, pages, seed, heads=TOPK_H, dtype=None, dev="cuda",
+               kb=TOPK_KB):
+    """Seeded q [B, heads, D], caches [pages, 128, D] / [.., Dv] in `dtype`
+    (bf16 by default), kb distinct 8-token blocks a row; row 1 leaves its
+    last 100 at -1, row 2 is all -1. Returns (q, k cache, v cache, block
+    ids, token ids)."""
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    q = torch.randn((b, heads, d), generator=gen, device="cuda").to(torch.bfloat16)
-    kc = torch.randn((pages, TOPK_PS, d), generator=gen, device="cuda").to(torch.bfloat16)
-    vc = torch.randn((pages, TOPK_PS, dv), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, heads, d), generator=gen, device=dev).to(dtype)
+    kc = torch.randn((pages, TOPK_PS, d), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((pages, TOPK_PS, dv), generator=gen, device=dev).to(dtype)
     nblocks = pages * TOPK_PS // 8
-    ids = torch.rand((b, nblocks), generator=gen, device="cuda").argsort(dim=1)[:, :TOPK_KB]
+    ids = torch.rand((b, nblocks), generator=gen, device=dev).argsort(dim=1)[:, :kb]
     ids = ids.to(torch.int32)
-    ids[1, TOPK_KB - 100:] = -1
+    ids[1, kb - 100:] = -1
     ids[2] = -1
-    tok = torch.where(ids[..., None] >= 0, ids[..., None] * 8 + torch.arange(8, device="cuda"),
-                      -1).reshape(b, TOPK_KB * 8).to(torch.int32)
+    tok = torch.where(ids[..., None] >= 0, ids[..., None] * 8 + torch.arange(8, device=dev),
+                      -1).reshape(b, kb * 8).to(torch.int32)
     return q, kc, vc, ids, tok
 
 
@@ -5517,7 +5544,7 @@ def check_topk_edges(torch, sp):
         ids[1, kb - 100:] = -1
         ids[3, kb // 2:] = -1
         sm = d ** -0.5
-        splits = _build.splits("topk_block_sparse", b, TOPK_H, kb, d, dv)
+        splits = _build.splits("topk_block_sparse", b, TOPK_H, kb, d, dv, 0)   # bf16
         for chunk in (1, 64):
             out = sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS, chunk=chunk)
             again = sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS, chunk=chunk)
@@ -8939,7 +8966,372 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+# ------------------------- phase 21: the attentions surface at public widths
+
+# Public models' attention widths, each from its config.json:
+# deepseek-ai/DeepSeek-V3 (128 heads, qk_nope_head_dim 128 + qk_rope_head_dim
+# 64, v_head_dim 128: MLA prefill in its MHA form), Qwen/Qwen3-Next-80B-A3B
+# (16 / 2 heads of 256), stabilityai/stable-diffusion-3-medium's joint
+# attention (24 heads of 64 over the 4096 latent tokens of a 1024^2 image and
+# 333 text tokens), microsoft/Phi-3-mini-4k-instruct (32 / 32 heads of 96);
+# batch 1. (row, part, model, Hq, Hkv, D, Dv, T, causal, dtype) of laser
+# attention through compat.attentions.la, each its kernels-line row:
+WIDTH_LA = (
+    ("laser_attention (D 192 / 128, DeepSeek-V3 MLA prefill)", "a", "DeepSeek-V3 MLA prefill",
+     128, 128, 192, 128, 4096, True, "bfloat16"),
+    ("laser_attention (D 256, Qwen3-Next)", "b", "Qwen3-Next-80B-A3B", 16, 2, 256, 256, 8192,
+     True, "bfloat16"),
+    ("laser_attention (D 64, SD3)", "c", "SD3 joint attention", 24, 24, 64, 64, 4429, False,
+     "bfloat16"),
+    ("laser_attention (D 64, SD3, fp16)", "c", "SD3 joint attention", 24, 24, 64, 64, 4429,
+     False, "float16"),
+    ("laser_attention_general (D 96, Phi-3)", "d", "Phi-3-mini", 32, 32, 96, 96, 4096, True,
+     "bfloat16"),
+    ("laser_attention_general (D 96, Phi-3, f32)", "d", "Phi-3-mini", 32, 32, 96, 96, 4096, True,
+     "float32"),
+    # the JAX tests' head dim and type at a T no block divides
+    ("laser_attention_general (D 32, f32, T 1000)", "f", "edge", 8, 2, 32, 32, 1000, True,
+     "float32"),
+)
+# (row, part, model, H, T, D, block, causal, dtype) of the estimator through
+# compat.attentions.sparse_block_estimate (keep 0.25); (a) and (b) on the
+# laser case's q and k (k's kv heads repeated to H), (c) and (d) drawn
+WIDTH_EST = (
+    ("sparse_estimate (D 192, DeepSeek-V3)", "a", "DeepSeek-V3 MLA prefill", 128, 4096, 192, 128,
+     True, "bfloat16"),
+    ("sparse_estimate (D 256, Qwen3-Next)", "b", "Qwen3-Next-80B-A3B", 16, 8192, 256, 128, True,
+     "bfloat16"),
+    ("sparse_estimate (D 64, SD3, fp16)", "c", "SD3 joint attention", 24, 4429, 64, 64, False,
+     "float16"),
+    ("sparse_estimate (D 96, Phi-3, f32)", "d", "Phi-3-mini", 32, 4096, 96, 128, True,
+     "float32"),
+)
+# top-k block-sparse decode on one shared kv head, 256 blocks of 8 a row,
+# pages of 128: tiiuae/falcon-7b (71 heads of 64, multi-query),
+# google/gemma-3-1b-it (4 heads of 256, one kv head), deepseek-ai/
+# DeepSeek-V3.2-Exp's latent rows (128 heads, D 576, Dv 512). (row, model, B,
+# H, D, Dv, pages, dtype); row 2 of each selects nothing (the mean of block
+# 0's V rows).
+WIDTH_TOPK = (
+    ("topk_block_sparse (D 64, Falcon-7B, 71 heads)", "Falcon-7B", 64, 71, 64, 64, 512,
+     "bfloat16"),
+    ("topk_block_sparse (D 256, Gemma-3-1B)", "Gemma-3-1B", 128, 4, 256, 256, 512, "bfloat16"),
+    ("topk_block_sparse (D 256, Gemma-3-1B, fp16)", "Gemma-3-1B", 128, 4, 256, 256, 512,
+     "float16"),
+    ("topk_block_sparse (D 576 / 512, DeepSeek-V3.2-Exp, 128 heads)", "DeepSeek-V3.2-Exp", 32,
+     128, 576, 512, 4096, "bfloat16"),
+)
+# Bars against the plain version: bf16 one bf16 ulp (2^-7 of |plain|) plus
+# ATT_SHARE of max|plain|; fp16 the same with one fp16 ulp (2^-10); f32 within
+# F32_WIDTH_SHARE of max|plain| (the same f32 steps, sums in another order);
+# K18's scores within 1e-5 of the largest |score| and its keep-0.25 masks
+# equal or flipped only within f32 rounding of the threshold (_mask_flips)
+F32_WIDTH_SHARE = 2e-5
+ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+def _width_check(name, out, ref, dtype):
+    """The phase-21 bar of `dtype` (above). Returns (max-abs, share of the
+    bar) and says which bar."""
+    a, b = out.double(), ref.double()
+    err = (a - b).abs()
+    top = float(b.abs().max())
+    if dtype == "float32":
+        bound = F32_WIDTH_SHARE * top
+        ratio = float(err.max()) / bound if bound else 0.0
+        what = f"{F32_WIDTH_SHARE:g} of max|plain|"
+    else:
+        ratio = float((err / (ULP[dtype] * b.abs() + ATT_SHARE * top)).max())
+        what = f"one {dtype} ulp + {ATT_SHARE:g} of max|plain|"
+    if not ratio <= 1.0 or not bool(out.float().isfinite().all()):
+        raise AssertionError(f"{name}: max-abs {float(err.max()):.3g} is {ratio:.3g} x its bar "
+                             f"({what}; max|plain| {top:.3g})")
+    return float(err.max()), ratio, what
+
+
+def _width_randn(torch, gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
+
+
+def _width_cases(torch, compat, sp, dev, small):
+    """Phase 21's cases in drive order: dicts of the row, its part, the
+    counter it must launch and how often a call, the entry-point call, the
+    check against the same call under SKT_IMPL=ref, and what pass 2 times
+    (the kernel alone, its plain version, the library call, the bound).
+    `small` cuts T, B and pages for a rehearsal on the CPU."""
+    cases = []
+    la_inputs = {}
+    for i, (row, part, model, hq, hkv, d, dv, t, causal, dtype) in enumerate(WIDTH_LA):
+        if small:
+            hq, hkv, t = min(hq, 4), min(hkv, 2), min(t, 200 + 37 * i)
+            hkv = hkv if hq % hkv == 0 else 1
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2100 + i)
+        q = _width_randn(torch, gen, (1, hq, t, d), dtype, dev)
+        k = _width_randn(torch, gen, (1, hkv, t, d), dtype, dev)
+        v = _width_randn(torch, gen, (1, hkv, t, dv), dtype, dev)
+        la_inputs.setdefault(part, (q, k))
+        sm = 1.0 / float(d) ** 0.5
+        elt = q.element_size()
+        pairs = t * (t + 1) / 2 if causal else float(t) * t
+        ops = 2.0 * (d + dv) * hq * pairs
+        nbytes = elt * (q.numel() + k.numel() + v.numel() + hq * t * dv)
+        cases.append(dict(
+            row=row, part=part, kind="la", dtype=dtype,
+            label=f"{model}: la Hq {hq} / Hkv {hkv}, D {d}, Dv {dv}, T {t}, "
+                  f"{'causal' if causal else 'not causal'}, {dtype}",
+            counter=row.split(" (")[0],
+            call=lambda q=q, k=k, v=v, sm=sm, c=causal: compat.attentions.la(q, k, v, sm, c),
+            kernel=None, plain_fn=None, inputs=(q, k, v, sm, causal),
+            ops=ops, nbytes=nbytes, rate="f32_flops" if dtype == "float32" else "bf16_flops"))
+    for i, (row, part, model, h, t, d, bs, causal, dtype) in enumerate(WIDTH_EST):
+        if part in la_inputs:
+            q, k = la_inputs[part]
+            h, t = q.shape[1], q.shape[2]
+            k = k.repeat_interleave(h // k.shape[1], dim=1)
+        else:
+            if small:
+                h, t = min(h, 4), min(t, 300 + 13 * i)
+                bs = min(bs, 32)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(2110 + i)
+            q = _width_randn(torch, gen, (1, h, t, d), dtype, dev)
+            k = _width_randn(torch, gen, (1, h, t, d), dtype, dev)
+        if small:
+            bs = min(bs, 32)
+        nq = -(-t // bs)
+        cases.append(dict(
+            row=row, part=part, kind="est", dtype=dtype,
+            label=f"{model}: sparse_block_estimate [1, {h}, {t}, {d}], blocks of {bs} "
+                  f"(NQ = NK = {nq}), {'causal' if causal else 'not causal'}, {dtype}",
+            counter="sparse_estimate",
+            call=lambda q=q, k=k, bs=bs, c=causal: compat.attentions.sparse_block_estimate(
+                q, k, bs, keep_ratio=0.25, causal=c),
+            inputs=(q, k, bs, causal)))
+    for i, (row, model, b, h, d, dv, pages, dtype) in enumerate(WIDTH_TOPK):
+        if small:
+            b, pages = 4, 8
+        kb = TOPK_KB if not small else 24
+        q, kc, vc, ids, tok = _topk_case(torch, model, b, d, dv, pages, 2120 + i, h,
+                                         getattr(torch, dtype), dev, kb)
+        sm = 1.0 / float(d) ** 0.5
+        cases.append(dict(
+            row=row, part="e", kind="topk", dtype=dtype,
+            label=f"{model}: topk_block_sparse_attention B {b}, H {h}, D {d}, Dv {dv}, "
+                  f"{pages} pages of {TOPK_PS}, {kb} blocks a row, {dtype}",
+            counter="topk_block_sparse",
+            call=lambda q=q, kc=kc, vc=vc, ids=ids, sm=sm: sp.topk_block_sparse_attention(
+                q, kc, vc, ids, sm, TOPK_PS),
+            inputs=(q, kc, vc, ids, tok, sm)))
+    return cases
+
+
+def _width_expect(case):
+    return {case["counter"]: 2 if case["kind"] == "est" else 1}
+
+
+def _width_check_case(torch, sp, case, out, ref):
+    """Hold one phase-21 call to the same call under SKT_IMPL=ref by its
+    kind's bar. Returns (max-abs, share of the bar, the bar, a note)."""
+    name, dtype = case["row"], case["dtype"]
+    if case["kind"] == "la":
+        return (*_width_check(name, out, ref, dtype), "")
+    if case["kind"] == "topk":
+        q, kc, vc, ids, tok, sm = case["inputs"]
+        err, ratio, what = _width_check(name, out, ref, dtype)
+        dv = vc.shape[-1]
+        mean0 = vc.reshape(-1, 8, dv)[0].float().mean(0)
+        tol = ULP[dtype] * mean0.abs() + ATT_SHARE * float(mean0.abs().max())
+        if not bool(((out[2].float() - mean0).abs() <= tol).all()):
+            raise AssertionError(f"{name}: the row of only -1 ids is not block 0's mean")
+        return err, ratio, what, "; the row of only -1 ids block 0's mean"
+    # the estimator: masks equal or flipped at the threshold, counts their sums
+    q, k, bs, causal = case["inputs"]
+    (mask, cnt), (ref_mask, ref_cnt) = out, ref
+    if not torch.equal(cnt, mask.sum(-1, dtype=torch.int32)):
+        raise AssertionError(f"{name}: counts are not the mask's row sums")
+    flips = []
+    if not torch.equal(mask, ref_mask):
+        qp, kp = (sp.padded_rows(x, bs) for x in (q, k))
+        ref_scores = sp.block_scores_ref(qp, kp, bs, causal).reshape(mask.shape)
+        flips = _mask_flips(name, ref_scores, mask, ref_mask, max(1, int(mask.shape[-1] * 0.25)))
+    return 0.0, 0.0, "masks equal or flipped at the threshold", (
+        f"; keep-0.25 masks {'equal' if not flips else f'{len(flips)} flips at the threshold'}")
+
+
+def _width_times(torch, pf, sp, case):
+    """Pass 2 of one case: the kernel alone by graph replay, its plain
+    version by events, the library call by graph replay (None for K18),
+    the bound; K18's scores also held to block_scores_ref. Returns the
+    kernels-line row (without launches) and a note."""
+    kind, dtype = case["kind"], case["dtype"]
+    note = ""
+    if kind == "la":
+        q, k, v, sm, causal = case["inputs"]
+        ms = _time_ms(lambda: pf.laser_attention(q, k, v, sm, causal), 5, graph=True)
+        plain_ms = _time_ms(lambda: pf.laser_attention_blocked_ref(q, k, v, sm, causal), 1, 1)
+        library, backend = _sdpa_yardstick(torch, q, k, v, None, sm, is_causal=causal,
+                                           enable_gqa=q.shape[1] != k.shape[1])
+        lib = _time_ms(library, 5, graph=True)
+        note = f"SDPA ({backend}, is_causal {causal})"
+        bound, by = _bound_ms(case["nbytes"], case["ops"], case["rate"])
+        if case["rate"] == "f32_flops":
+            note += f"; bound at the f32 rate of the CUDA cores"
+        else:
+            note += (f"; bound at the bf16 / fp16 tensor-core rate (at the f32 rate "
+                     f"{_bound_ms(case['nbytes'], case['ops'], 'f32_flops')[0]:.4f} ms)")
+    elif kind == "est":
+        q, k, bs, causal = case["inputs"]
+        qp, kp = (sp.padded_rows(x, bs) for x in (q, k))
+        sc = sp.block_scores(qp, kp, bs, causal)
+        ref = sp.block_scores_ref(qp, kp, bs, causal)
+        torch.cuda.synchronize()
+        live = ref > -1e29
+        if not torch.equal(sc[~live], ref[~live]):
+            raise AssertionError(f"{case['row']}: the causal -1e30 entries differ")
+        err = float((sc[live] - ref[live]).abs().max())
+        top = float(ref[live].abs().max())
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"{case['row']}: scores max-abs {err:.3g} over 1e-5 of "
+                                 f"{top:.3g}")
+        case["err"], case["ratio"] = err, err / (1e-5 * top)
+        case["bar"] = "scores within 1e-5 of the largest |score|; " + case["bar"]
+        ms = _time_ms(lambda: sp.block_scores(qp, kp, bs, causal), 10, graph=True)
+        plain_ms = _time_ms(lambda: sp.block_scores_ref(qp, kp, bs, causal), 2, 1)
+        lib = None
+        bh, nq, nk = qp.shape[0], qp.shape[1] // bs, kp.shape[1] // bs
+        nbytes = q.element_size() * (q.numel() + k.numel()) + 4.0 * bh * nq * nk
+        ops = float(q.numel() + k.numel()) + 2.0 * bh * nq * nk * qp.shape[2]
+        bound, by = _bound_ms(nbytes, ops, "f32_flops")
+        note = "no library call"
+    else:
+        q, kc, vc, ids, tok, sm = case["inputs"]
+        b, h, d = q.shape
+        dv = vc.shape[-1]
+        ms = _time_ms(lambda: sp.topk_block_sparse_attention(q, kc, vc, ids, sm, TOPK_PS), 10,
+                      graph=True)
+        plain_ms = _time_ms(lambda: sp.topk_block_sparse_attention_ref(q, kc, vc, ids, sm,
+                                                                       TOPK_PS), 1, 1)
+        flat = tok.clamp_min(0).long().reshape(-1)
+        kg = kc.reshape(-1, d).index_select(0, flat).reshape(b, 1, -1, d)
+        vg = vc.reshape(-1, dv).index_select(0, flat).reshape(b, 1, -1, dv)
+        live = (tok >= 0)[:, None, None, :]
+        library, backend = _sdpa_yardstick(torch, q[:, None], kg, vg, live, sm)
+        lib = _time_ms(library, 10, graph=True)
+        del kg, vg
+        selected = float((ids >= 0).sum()) * 8
+        distinct = torch.cat([ids[ids >= 0], ids.new_zeros(1)]).unique().numel()
+        nbytes = (8.0 * distinct * 2.0 * (d + dv) + 2.0 * b * h * (d + dv) + 4.0 * ids.numel())
+        bound, by = _bound_ms(nbytes, 2.0 * selected * h * (d + dv), "bf16_flops")
+        note = (f"SDPA ({backend}, over rows gathered by index_select beforehand); "
+                f"{distinct} distinct blocks")
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bound, bound_by=by,
+               max_abs_err=case["err"])
+    return row, note
+
+
+def _width_refusals(torch, pf, sp, build, dev):
+    """Widths outside every route raise on the card's tensors, naming the
+    widths they take, and launch nothing."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2130)
+    before = _Launches(build)
+    x = torch.randn((1, 2, 64, 320), generator=gen, device=dev).to(torch.bfloat16)
+    tries = [("la at D 320", lambda: pf.laser_attention(x, x, x, 0.1), ValueError, "(64, 64)")]
+    q = torch.randn((2, 4, 96), generator=gen, device=dev).to(torch.bfloat16)
+    c96 = torch.randn((2, 128, 96), generator=gen, device=dev).to(torch.bfloat16)
+    ids = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    tries.append(("topk_block_sparse at (96, 96)", lambda: sp.topk_block_sparse_attention(
+        q, c96, c96, ids, 0.1, 128), ValueError, "(576, 512)"))
+    c64 = torch.randn((2, 128, 64), generator=gen, device=dev)
+    tries.append(("topk_block_sparse on f32", lambda: sp.topk_block_sparse_attention(
+        c64[:, :4].contiguous(), c64, c64, ids, 0.1, 128), TypeError, "bf16 or fp16"))
+    for name, fn, exc, says in tries:
+        try:
+            fn()
+        except exc as e:
+            if says not in str(e):
+                raise AssertionError(f"{name}: {exc.__name__} does not name the widths it takes "
+                                     f"({e})")
+            print(f"    {name}: {exc.__name__}: {e}")
+            continue
+        raise AssertionError(f"{name}: did not raise {exc.__name__}")
+    if any(before.delta().values()):
+        raise AssertionError(f"the refused widths launched {before.delta()}")
+
+
+def run_attention_widths(torch, build, compat, pf, sp, dev, gpu, small=False):
+    """Phase 21: the attentions surface at public models' widths (WIDTH_LA,
+    WIDTH_EST, WIDTH_TOPK). Pass 1, the main path, with every count set to
+    0 first: each case through its entry point (compat.attentions.la,
+    compat.attentions.sparse_block_estimate, sp.topk_block_sparse_attention)
+    with exact launches, finite, a second call bit-identical, held to the
+    same call under SKT_IMPL=ref (no launch) by its dtype's bar; the counts
+    read right after. Pass 2 (the card only): each case's kernel alone,
+    plain version, library call and bound, K18's scores against
+    block_scores_ref. Then the refused widths. Returns {row: kernels-line
+    row} with each row's launches from pass 1."""
+    t0 = time.perf_counter()
+    cases = _width_cases(torch, compat, sp, dev, small)
+    print(f"  inputs of {len(cases)} cases drawn ({time.perf_counter() - t0:.1f} s)")
+    build.reset_launches()
+    for case in cases:
+        before = _Launches(build)
+        out = case["call"]()
+        _sync(torch, dev)
+        _check_launches(case["row"], before.delta(), _expect(dev, _width_expect(case)))
+        outs = out if isinstance(out, tuple) else (out,)
+        if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+            raise AssertionError(f"{case['row']}: output not finite")
+        again = case["call"]()
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(a, o) for a, o in zip(again, outs)):
+            raise AssertionError(f"{case['row']}: a second call differs")
+        case["launches"] = {k: n for k, n in before.delta().items() if n}
+        mid = _Launches(build)
+        with _env(SKT_IMPL="ref"):
+            ref = case["call"]()
+        _sync(torch, dev)
+        _check_launches(f"{case['row']} under SKT_IMPL=ref", mid.delta(), {})
+        case["err"], case["ratio"], case["bar"], note = _width_check_case(torch, sp, case, out,
+                                                                          ref)
+        print(f"  ({case['part']}) {case['label']}: launches {case['launches'] or 'none (CPU)'} "
+              f"(two calls, the second bit-identical); vs SKT_IMPL=ref max-abs "
+              f"{case['err']:.3g}, {case['ratio']:.3g} of its bar ({case['bar']}){note}")
+        del out, again, ref, outs
+    totals = {k: n for k, n in build.launches.items() if n}
+    want = {}
+    for case in cases:
+        for k, n in case["launches"].items():
+            want[k] = want.get(k, 0) + n
+    if totals != want:
+        raise AssertionError(f"phase 21 launched {totals}, its cases {want}")
+    kernels = {"laser_attention", "laser_attention_general", "sparse_estimate",
+               "topk_block_sparse"}
+    if dev.type == "cuda" and set(totals) != kernels:
+        raise AssertionError(f"phase 21's kernels launched: {totals}")
+    print(f"  pass 1 (the main path, counts set to 0 first) {time.perf_counter() - t0:.1f} s, "
+          f"launches {totals or 'none (CPU)'}")
+    rows = {}
+    if dev.type == "cuda":
+        for case in cases:
+            row, note = _width_times(torch, pf, sp, case)
+            row["launches"] = case["launches"].get(case["counter"], 0)
+            rows[case["row"]] = row
+            print(f"  {case['row']}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+                  + ("library none" if row["library_ms"] is None
+                     else f"library {row['library_ms']:.4f} ms")
+                  + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                  f"{row['bound_ms'] / row['ms']:.1%} of it); {note}; max-abs "
+                  f"{row['max_abs_err']:.3g} ({case['ratio']:.3g} of its bar) [{gpu}]")
+        _width_refusals(torch, pf, sp, build, dev)
+    del cases
+    print(f"  phase 21 (both passes) {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to drive",
@@ -9327,6 +9719,16 @@ def main() -> int:
     print(f"  phase 20 (a)-(d), (f) {time.perf_counter() - t20:.1f} s")
     torch.cuda.empty_cache()
 
+    print("phase 21: the attentions surface at public widths (DeepSeek-V3's MLA prefill, "
+          "Qwen3-Next, SD3, Phi-3-mini, Falcon-7B, Gemma-3-1B, DeepSeek-V3.2-Exp's latent rows) "
+          f"[{gpu}]; its sources built with the rest at the start: "
+          + ", ".join(f"{k} {times[k]:.1f} s" for k in ("laser_attention",
+                                                        "laser_attention_general",
+                                                        "sparse_estimate", "topk_sparse")
+                      if k in times))
+    width_rows = run_attention_widths(torch, _build, compat, prefill, sparse, dev, gpu)
+    torch.cuda.empty_cache()
+
     g8 = [r for r in gemm_rows if r["m"] == 8 and r["name"] != "lm_head"]
     base = "sgl_kernel_npu_tpu"
     src = "sgl_kernel_npu_tpu_torch/csrc"
@@ -9506,6 +9908,18 @@ def main() -> int:
     idle = [k["name"] for k in kernels[-10:] if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on phases 12 and 13: {idle}")
+    width_src = {"laser_attention": ("laser_attention.cu", "ops/attention/prefill.py:80"),
+                 "laser_attention_general": ("laser_attention_general.cu",
+                                             "ops/attention/prefill.py:80"),
+                 "sparse_estimate": ("sparse_estimate.cu", "ops/attention/sparse.py:323"),
+                 "topk_block_sparse": ("topk_sparse.cu", "ops/attention/sparse.py:231")}
+    for name, row in width_rows.items():
+        cu, tpu = width_src[name.split(" (")[0]]
+        kernels.append(dict(name=name, route="cuda", source=f"{src}/{cu}",
+                            replaces=f"{base}/{tpu}", **row))
+    idle = [name for name, row in width_rows.items() if row["launches"] <= 0]
+    if idle or len(width_rows) != len(WIDTH_LA) + len(WIDTH_EST) + len(WIDTH_TOPK):
+        raise AssertionError(f"kernels never launched on phase 21: {idle}")
     idle = [k["name"] for k in kernels if k["name"] in (
         "decode_hm (D 256)", "rmsq_gemm (apply_norm=False, wo + w2)",
         "rmsq_gemm (lm_head, f32 out)") and k["launches"] <= 0]
@@ -9585,7 +9999,13 @@ def main() -> int:
           "GMM2 on phase 8's routed rows (library: torch.matmul per expert group), launches "
           "from phase 12 by case; helloworld (K22): [4096, 7168]; K23 rows (decode_v5*, "
           "decode_v4b_int8, decode_fused_v4*) and K24 (decode_v7_int8): 64 sequences of "
-          "256..383 cached tokens at Llama-3-8B's heads, launches from phase 13")
+          "256..383 cached tokens at Llama-3-8B's heads, launches from phase 13; the rows "
+          "named after a model (laser_attention*, sparse_estimate*, topk_block_sparse* with "
+          "a width in brackets): phase 21's cases, launches from its pass 1 (two calls a "
+          "case; K18 two kernels a call), library SDPA on the first backend that takes the "
+          "shape (none for K18), bounds at the tensor-core rate for bf16 / fp16 inputs and "
+          "at the f32 rate for f32 ones")
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all, the builds included")
     # D's, K4's and K10 f32's rows also carry cold_ms
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + ("cold_ms",) if k in kern}
                                   for kern in kernels]}))

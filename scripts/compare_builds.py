@@ -56,6 +56,9 @@ replays). The cases, each name a prefix that --only can pick:
     (K24: K14_SHARE);
   * K12 (the pallas strategy's scatter) at chip_smoke.py's MoE bench
     layout: its quantising dispatch and its bf16 combine; exact;
+  * K17 (laser attention, bf16 at Llama-3-8B's heads, D 128, B 1) at
+    chip_smoke.py's LASER_CASES (causal T 8192, not causal T 4096, causal
+    T 8000); within ATT_SHARE (one bf16 ulp + 1e-4 of max|plain|);
   * K18 (the sparse-block estimator's scores, blocks of 128, causal) at
     both of chip_smoke.py's EST_SHAPES, and at [1, 8, 32768] not causal, a
     case only a root without the old NQ + NK <= 384 cap runs; within 1e-5
@@ -83,12 +86,12 @@ replays). The cases, each name a prefix that --only can pick:
 Each case must also give the same bits in every turn of its root (a case
 that returns a tuple: each of its tensors), and in every root but for the
 kernels whose sums another design may order otherwise (K3, C, K5, K10,
-K14, K16, K18, K20's float64 sum of squares, K23, K24, phase 11). Prints,
-per case, each root's median over its turns and the ratio of each to the
-first root's, the sums of the four Llama GEMMs of A at M 8 and 128, of
-K1's three at M 128 and of K8's two at each shape, then the card's name
-and power limit. Needs one CUDA
-card and nvcc; a turn of every case takes about a minute.
+K14, K16, K18, K20's float64 sum of squares, K23, K24, phase 11). Prints
+the cases whose bits every root gives alike, and, per case, each root's
+median over its turns and the ratio of each to the first root's, the sums
+of the four Llama GEMMs of A at M 8 and 128, of K1's three at M 128 and of
+K8's two at each shape, then the card's name and power limit. Needs one
+CUDA card and nvcc; a turn of every case takes about a minute.
 """
 
 from __future__ import annotations
@@ -119,6 +122,7 @@ KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm
            "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
            "decode_v5_int8_defer", "decode_v4b_int8", "decode_fused_v4_int8",
            "decode_fused_v4", "decode_v7_int8", "remote_scatter", "sparse_estimate",
+           "laser_attention",
            "add_rmsnorm_quant")
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
@@ -570,7 +574,24 @@ def _scatter_estimate_cases(torch, cs, on, exact, data):
                 ref = pallas_ll.remote_scatter_ref(*args, **kw, **more)[0]
                 yield (name, lambda a=args, m=more: pallas_ll._remote_scatter(*a, **kw, **m)[0],
                        exact(ref), 50)
-    from sgl_kernel_npu_tpu_torch.ops.attention import sparse
+    from sgl_kernel_npu_tpu_torch.ops.attention import prefill, sparse
+    for i, (t, causal) in enumerate(cs.LASER_CASES):
+        name = f"K17 T {t}{'' if causal else ' not causal'}"
+        if not on(name):
+            continue
+        q, k, v = cs._laser_inputs(torch, t, 170 + i)
+        sm = cs.ATT_D ** -0.5
+        ref = prefill.laser_attention_blocked_ref(q, k, v, sm, causal)
+
+        def laser_close(got, ref=ref):
+            try:
+                cs._bf16_check("", got, ref, cs.ATT_SHARE)
+            except AssertionError:
+                return False
+            return True
+        yield (name, lambda q=q, k=k, v=v, c=causal: prefill.laser_attention(q, k, v, sm, c),
+               laser_close, 10)
+        del q, k, v, ref
     cap = getattr(sparse, "_EST_MAX_BLOCKS", None)
     bs = cs.EST_BLOCK
 
@@ -859,6 +880,8 @@ def main() -> int:
                                     "K24", "Phase 11"))]
     if differ:
         raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
+    same = [k for k, v in first.items() if all(runs[i][0]["digest"].get(k) == v for i in order)]
+    print(f"the same bits from every root: {', '.join(same) or 'none'}")
 
     def med(i, key):
         if key not in runs[i][0]["ms"]:

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Compare the machine code of csrc/ sources between two checkouts.
 
-  python3 scripts/compare_sass.py ROOT_A ROOT_B [SOURCE ...]
+  python3 scripts/compare_sass.py [--pair REGEX_A=REGEX_B ...] ROOT_A ROOT_B [SOURCE ...]
 
 Compiles each source (default: the users of decode_tm_core.cuh) of both
 roots to a cubin with the package's nvcc flags, disassembles every kernel
 with cuobjdump -sass and prints, per kernel, whether the instruction
 streams are equal (addresses and comments dropped), and ptxas's registers,
-spills and shared memory for each root. Exits 1 if a kernel that both
-roots have differs. Needs nvcc and cuobjdump (the CUDA toolkit); about a
+spills and shared memory for each root. --pair compares the one kernel of
+A whose mangled name matches REGEX_A with the one of B that matches
+REGEX_B, where a template made the names differ (for example K17's
+laser_kernel and its laser_kernel<128, 128, bf16>). Exits 1 if a kernel
+that both roots have, or a pair, differs. Needs nvcc and cuobjdump (the CUDA toolkit); about a
 minute for the default sources.
 """
 
@@ -70,16 +73,49 @@ def compile_sass(root, source, out_dir):
     return kernels, usage
 
 
+def _pair(ka, kb, pair):
+    """The names of the one kernel of ka matching pair's REGEX_A and the one
+    of kb matching its REGEX_B, or None."""
+    ra, rb = pair.split("=", 1)
+    na = [k for k in ka if re.search(ra, k)]
+    nb = [k for k in kb if re.search(rb, k)]
+    return (na[0], nb[0]) if len(na) == 1 and len(nb) == 1 else None
+
+
 def main() -> int:
-    if len(sys.argv) < 3:
+    args = sys.argv[1:]
+    pairs = []
+    while args[:1] == ["--pair"]:
+        pairs.append(args[1])
+        args = args[2:]
+    if len(args) < 2:
         print(__doc__, file=sys.stderr)
         return 2
-    a, b, sources = sys.argv[1], sys.argv[2], sys.argv[3:] or DEFAULT
+    a, b, sources = args[0], args[1], args[2:] or DEFAULT
     differ = False
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(8) as pool:
         jobs = {(r, s): pool.submit(compile_sass, r, s, tmp) for s in sources for r in (a, b)}
         for s in sources:
             (ka, ua), (kb, ub) = jobs[(a, s)].result(), jobs[(b, s)].result()
+            for pair in pairs:
+                names = _pair(ka, kb, pair)
+                if names is None:
+                    continue
+                x, y = names
+                same = ka[x] == kb[y]
+                differ |= not same
+                ndiff = sum(p != q for p, q in zip(ka[x], kb[y])) + abs(len(ka[x]) - len(kb[y]))
+                print(f"{s}: pair {x} / {y}: "
+                      f"{'SASS equal' if same else f'SASS differs ({ndiff} lines)'}, "
+                      f"{len(ka[x])} / {len(kb[y])} instructions; A {ua.get(x, '?')} "
+                      f"[{ua.get(x + ' spills', '')}]; B {ub.get(y, '?')} "
+                      f"[{ub.get(y + ' spills', '')}]")
+                for n in [n for n, (p, q) in enumerate(zip(ka[x], kb[y])) if p != q][:4]:
+                    for m in range(max(0, n - 3), min(len(ka[x]), n + 4)):
+                        mark = ">" if m == n else " "
+                        print(f"   {mark} {m:5d} A: {ka[x][m]}")
+                        if m == n:
+                            print(f"   {mark} {m:5d} B: {kb[y][m]}")
             for k in sorted(set(ka) | set(kb)):
                 if k not in ka or k not in kb:
                     u = ua if k in ka else ub

@@ -16,10 +16,15 @@ the port's: decode_gqa_high_performance to decode_v3.decode_gqa_v3 (K16).
 attentions.sparse_block_estimate differs in meaning, not in name: the JAX
 table maps it to its plain estimator, which takes any head dim, while here
 it maps to sparse.sparse_block_estimate_fused, because the reference op is a
-kernel. That is K18 on the card, at any length and with the plain
-estimator's contract, but at head dim 128 only: at any other D it raises
-K18's ValueError on a CUDA tensor (ROADMAP Queue 2, the K17-K19 widths). On
-the CPU it runs the plain version at any D.
+kernel. That is K18 on the card, at any length, any head dim and bf16, fp16
+or f32 rows, with the plain estimator's contract (block sums over bs^2
+instead of block means: the same scores up to f32 rounding). On the CPU it
+runs K18's plain version.
+
+attentions.la takes on the card the widths of its two K17 routes
+(prefill.laser_route): the tensor-core kernel at (D, Dv) in
+prefill.TENSOR_CORE_WIDTHS in bf16 and fp16, the CUDA-core kernel at any D
+and Dv up to 256 and in f32.
 
 A name whose kernel refuses a width on the card raises that kernel's error
 there; none falls back to a plain version on a CUDA tensor.

@@ -3,10 +3,12 @@
 //
 // Replaces sgl_kernel_npu_tpu/ops/attention/sparse.py::
 // topk_block_sparse_attention_pallas (_topk_blk_kernel, sparse.py:125-290).
-// q [B, H, D] bf16; k cache [P, ps, D], v cache [P, ps, Dv] bf16 (MLA's
-// single-head layout: every head reads the same rows); block_ids [B, KB]
-// int32, id = token slot / 8, -1 unused; out [B, H, Dv] bf16. (D, Dv) is
-// (128, 128) or (576, 512).
+// q [B, H, D]; k cache [P, ps, D], v cache [P, ps, Dv] (MLA's single-head
+// layout, or one kv head shared by every query head, as multi-query models
+// keep it: every head reads the same rows); block_ids [B, KB] int32, id =
+// token slot / 8, -1 unused; out [B, H, Dv]; all bf16 or all fp16, any H >=
+// 1. (D, Dv) is (64, 64) (Falcon-7B), (128, 128), (256, 256) (Gemma-3) or
+// (576, 512) (the MLA latent rows).
 //
 // Rounding, as the TPU kernel takes it (all f32): the ids are taken in chunks
 // of `chunk` blocks (chunk * 8 rows; the last chunk padded with -1); a -1 id
@@ -24,7 +26,8 @@
 // ms for the distinct blocks of phase 1's ids). On the tensor cores the
 // operations are far below that: q . k of bf16 operands is exact per product
 // in f32, and p . v takes p as three bf16 parts (hi + mid + lo = p exactly),
-// so three products per element.
+// so three products per element (fp16: two parts, hi + lo, 22 of p's 24
+// bits, and 2^-25 absolute below fp16's normal range).
 //
 // Design. A block of four consumer warps and one producer warp per
 // (sequence, 16 heads, split): every head of the sequence in one block, so a
@@ -35,11 +38,12 @@
 // copies (one per row, into rows padded to 16 mod 128 bytes, so ldmatrix
 // reads them without bank conflicts) into a ring of 3-4 stages completed on
 // mbarriers; the consumers release a stage by an arrival each. S = Q . K^T
-// (16 heads x 16 tokens) is mma.sync m16n8k16 with the heads as M, each
+// (16 heads x 16 tokens) is mma.sync m16n8k16 with the heads as M (a head
+// block's rows past H read q as 0 and are never written), each
 // consumer warp summing a quarter of D, the four partials added in a fixed
 // order through shared memory; every consumer warp then runs the same
 // online-softmax step and adds P . V for its quarter of Dv's columns (V by
-// ldmatrix.trans, p in three bf16 parts). A split writes its (m, l, acc) to a
+// ldmatrix.trans, p in three bf16 or two fp16 parts). A split writes its (m, l, acc) to a
 // workspace and takes a ticket from an integer arrival counter of its row;
 // the last split to arrive merges the S partials in split order, writes the
 // output and resets the counter to 0 (no float atomics, no host sync: a
@@ -48,10 +52,12 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "device_once.cuh"
 #include "hopper.cuh"
@@ -81,17 +87,58 @@ struct Cfg {
   static_assert(KROW % 128 == 16 && VROW % 128 == 16, "padded rows");
 };
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_u32(const T* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-template <int DK, int DV>
+// c += a (16 x 16, row) . b (16 x 8, col), T in, f32 accumulate
+template <typename T>
+__device__ __forceinline__ void mma_t(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    mma(c, a, b0, b1);
+}
+
+// the NP parts of two f32 values in T (bf16: hopper.cuh's split)
+template <typename T, int NP>
+__device__ __forceinline__ void split_t(float x, float y, uint32_t (&part)[NP]) {
+  if constexpr (std::is_same<T, __half>::value) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const __half2 h = __floats2half2_rn(x, y);
+      part[i] = *reinterpret_cast<const uint32_t*>(&h);
+      const float2 hf = __half22float2(h);
+      x -= hf.x;
+      y -= hf.y;
+    }
+  } else {
+    split<NP>(x, y, part);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y) {
+  if constexpr (std::is_same<T, __half>::value)
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-            const __nv_bfloat16* __restrict__ vc, const int* __restrict__ ids,
-            __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int* __restrict__ arrivals,
-            int H, int KB, float sm_scale) {
+topk_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+            const int* __restrict__ ids, T* __restrict__ out, float* __restrict__ ws,
+            int* __restrict__ arrivals, int H, int KB, float sm_scale) {
   using C = Cfg<DK, DV>;
+  // p's parts: bf16 three (exact), fp16 two
+  constexpr int NP = std::is_same<T, __half>::value ? 2 : 3;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint64_t full[C::STAGES], empty[C::STAGES];
   __shared__ float wgt[HT][MAX_SPLITS], lsum[HT];
@@ -135,8 +182,8 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     // q fragments (A, 16 heads x this warp's k-steps); heads past H are 0
     uint32_t qa[C::KSW][4];
     const bool ha = h0 + g < H, hb = h0 + g + 8 < H;
-    const __nv_bfloat16* qA = q + ((size_t)b * H + h0 + g) * DK;
-    const __nv_bfloat16* qB = qA + 8 * DK;
+    const T* qA = q + ((size_t)b * H + h0 + g) * DK;
+    const T* qB = qA + 8 * DK;
 #pragma unroll
     for (int kk = 0; kk < C::KSW; ++kk) {
       const int d = (warp * C::KSW + kk) * 16 + 2 * tig;
@@ -166,8 +213,8 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
       for (int kk = 0; kk < C::KSW; ++kk) {
         uint32_t kf[4];
         ldsm_x4(kf, kb + kr * C::KROW + ((warp * C::KSW + kk) * 16 + kc8) * 2);
-        mma(s[0], qa[kk], kf[0], kf[1]);
-        mma(s[1], qa[kk], kf[2], kf[3]);
+        mma_t<T>(s[0], qa[kk], kf[0], kf[1]);
+        mma_t<T>(s[1], qa[kk], kf[2], kf[3]);
       }
       bar_sync(2, 32 * NC);                         // the last stage's partials are read
       float* mine = sx + warp * HT * 16;
@@ -220,22 +267,22 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
         acc[t][2] *= alpha[1];
         acc[t][3] *= alpha[1];
       }
-      // p as the A fragments of its three bf16 parts (tokens 0-7: block 0)
-      uint32_t pa[3][4];
+      // p as the A fragments of its NP parts (tokens 0-7: block 0)
+      uint32_t pa[NP][4];
       {
-        uint32_t part[3];
-        split<3>(p[0][0], p[0][1], part);
+        uint32_t part[NP];
+        split_t<T, NP>(p[0][0], p[0][1], part);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) pa[i][0] = part[i];
-        split<3>(p[0][2], p[0][3], part);
+        for (int i = 0; i < NP; ++i) pa[i][0] = part[i];
+        split_t<T, NP>(p[0][2], p[0][3], part);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) pa[i][1] = part[i];
-        split<3>(p[1][0], p[1][1], part);
+        for (int i = 0; i < NP; ++i) pa[i][1] = part[i];
+        split_t<T, NP>(p[1][0], p[1][1], part);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) pa[i][2] = part[i];
-        split<3>(p[1][2], p[1][3], part);
+        for (int i = 0; i < NP; ++i) pa[i][2] = part[i];
+        split_t<T, NP>(p[1][2], p[1][3], part);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) pa[i][3] = part[i];
+        for (int i = 0; i < NP; ++i) pa[i][3] = part[i];
       }
       // P . V over this warp's columns, the small parts first
 #pragma unroll
@@ -243,9 +290,9 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
         uint32_t vf[4];
         ldsm_x4_t(vf, vb + vr * C::VROW + ((warp * C::NTW + t) * 8 + vc8) * 2);
 #pragma unroll
-        for (int i = 2; i >= 0; --i) {
-          mma(acc[t], pa[i], vf[0], vf[1]);
-          mma(acc[t + 1], pa[i], vf[2], vf[3]);
+        for (int i = NP - 1; i >= 0; --i) {
+          mma_t<T>(acc[t], pa[i], vf[0], vf[1]);
+          mma_t<T>(acc[t + 1], pa[i], vf[2], vf[3]);
         }
       }
       __syncwarp();
@@ -266,8 +313,8 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
         for (int r = 0; r < 2; ++r) {
           if (!hv[r]) continue;
           const float lr = fmaxf(l[r], 1e-20f);
-          *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * H + h0 + g + 8 * r) * DV + c) =
-              __floats2bfloat162_rn(acc[t][2 * r] / lr, acc[t][2 * r + 1] / lr);
+          store2(out + ((size_t)b * H + h0 + g + 8 * r) * DV + c, acc[t][2 * r] / lr,
+                 acc[t][2 * r + 1] / lr);
         }
       }
     } else {
@@ -334,8 +381,7 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
             o.x += wgt[hh][s2] * pv[s2].x;
             o.y += wgt[hh][s2] * pv[s2].y;
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * H + h0 + hh) * DV + c) =
-              __floats2bfloat162_rn(o.x / lsum[hh], o.y / lsum[hh]);
+          store2(out + ((size_t)b * H + h0 + hh) * DV + c, o.x / lsum[hh], o.y / lsum[hh]);
         }
         if (tid == 0) arrivals[row] = 0;            // ready for the next call
       }
@@ -343,9 +389,9 @@ topk_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   }
 }
 
-template <int DK, int DV>
+template <int DK, int DV, typename T>
 cudaError_t splits(int B, int H, int KB, int& S) {
-  auto kern = topk_kernel<DK, DV>;
+  auto kern = topk_kernel<DK, DV, T>;
   cudaError_t e = skt::ensure_smem(kern, Cfg<DK, DV>::SMEM);
   if (e != cudaSuccess) return e;
   int resident = 0;
@@ -358,53 +404,72 @@ cudaError_t splits(int B, int H, int KB, int& S) {
   return cudaSuccess;
 }
 
-template <int DK, int DV>
+template <int DK, int DV, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* ids, void* out,
                    void* ws, void* arrivals, int B, int H, int KB, int S, float sm_scale,
                    cudaStream_t st) {
-  auto kern = topk_kernel<DK, DV>;
+  auto kern = topk_kernel<DK, DV, T>;
   const cudaError_t e = skt::ensure_smem(kern, Cfg<DK, DV>::SMEM);
   if (e != cudaSuccess) return e;
   kern<<<dim3(S, (H + HT - 1) / HT, B), THREADS, Cfg<DK, DV>::SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ids, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(ws), static_cast<int*>(arrivals), H, KB, sm_scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ids,
+      static_cast<T*>(out), static_cast<float*>(ws), static_cast<int*>(arrivals), H, KB,
+      sm_scale);
   return cudaGetLastError();
 }
 
+}  // namespace
+
+// (D, Dv) and the element type of each instantiation: CALL(DK, DV, T)
+#define SKT_TOPK_CASES(d, dv, dtype, CALL)                                   \
+  if (dtype == 0 && d == 64 && dv == 64) return CALL(64, 64, __nv_bfloat16);   \
+  if (dtype == 0 && d == 128 && dv == 128) return CALL(128, 128, __nv_bfloat16); \
+  if (dtype == 0 && d == 256 && dv == 256) return CALL(256, 256, __nv_bfloat16); \
+  if (dtype == 0 && d == 576 && dv == 512) return CALL(576, 512, __nv_bfloat16); \
+  if (dtype == 1 && d == 64 && dv == 64) return CALL(64, 64, __half);          \
+  if (dtype == 1 && d == 128 && dv == 128) return CALL(128, 128, __half);      \
+  if (dtype == 1 && d == 256 && dv == 256) return CALL(256, 256, __half);      \
+  if (dtype == 1 && d == 576 && dv == 512) return CALL(576, 512, __half);
+
+namespace {
+template <int DK, int DV, typename T>
+int splits_or_error(int B, int H, int KB) {
+  int S = 0;
+  const cudaError_t e = splits<DK, DV, T>(B, H, KB, S);
+  return e == cudaSuccess ? S : -(int)e;
+}
 }  // namespace
 
 // The number of splits S of each row that skt_topk_block_sparse takes on
 // the current device, or minus a CUDA error. The workspace it needs holds
 // B * ceil(H / 16) * S * (32 + 16 * Dv) floats (none for S = 1), the arrival
 // counters B * ceil(H / 16) ints, zero before the first call.
-extern "C" int skt_topk_block_sparse_splits(int B, int H, int KB, int d, int dv) {
+extern "C" int skt_topk_block_sparse_splits(int B, int H, int KB, int d, int dv, int dtype) {
   if (B <= 0 || H <= 0 || KB <= 0) return -(int)cudaErrorInvalidValue;
-  int S = 0;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (d == 128 && dv == 128) e = splits<128, 128>(B, H, KB, S);
-  if (d == 576 && dv == 512) e = splits<576, 512>(B, H, KB, S);
-  return e == cudaSuccess ? S : -(int)e;
+#define SKT_SPLITS(DK, DV, T) splits_or_error<DK, DV, T>(B, H, KB)
+  SKT_TOPK_CASES(d, dv, dtype, SKT_SPLITS)
+#undef SKT_SPLITS
+  return -(int)cudaErrorInvalidValue;
 }
 
 // q [B, H, D], k cache [P, ps, D], v cache [P, ps, Dv], block_ids [B, KB]
-// int32, out [B, H, Dv]; bf16. H % 8 == 0, 0 < chunk <= 64 (the plain
-// version's softmax step; this kernel steps every two blocks), (D, Dv) one
-// of (128, 128), (576, 512); S from skt_topk_block_sparse_splits, ws and
-// arrivals as it says.
+// int32, out [B, H, Dv]; dtype 0 bf16, 1 fp16. H >= 1, 0 < chunk <= 64 (the
+// plain version's softmax step; this kernel steps every two blocks), (D, Dv)
+// one of (64, 64), (128, 128), (256, 256), (576, 512); S from
+// skt_topk_block_sparse_splits, ws and arrivals as it says.
 extern "C" int skt_topk_block_sparse(const void* q, const void* k, const void* v,
                                      const void* ids, void* out, void* ws, void* arrivals,
                                      int B, int H, int KB, int chunk, int S, int d, int dv,
-                                     float sm_scale, void* stream) {
-  if (B <= 0 || H <= 0 || H % 8 || KB <= 0 || chunk <= 0 || chunk > 64 || S < 1 ||
-      S > MAX_SPLITS || S > KB || (S > 1 && (ws == nullptr || arrivals == nullptr)))
+                                     int dtype, float sm_scale, void* stream) {
+  if (B <= 0 || H <= 0 || KB <= 0 || chunk <= 0 || chunk > 64 || S < 1 || S > MAX_SPLITS ||
+      S > KB || (S > 1 && (ws == nullptr || arrivals == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
-  if (d == 128 && dv == 128)
-    return (int)launch<128, 128>(q, k, v, id, out, ws, arrivals, B, H, KB, S, sm_scale, st);
-  if (d == 576 && dv == 512)
-    return (int)launch<576, 512>(q, k, v, id, out, ws, arrivals, B, H, KB, S, sm_scale, st);
+#define SKT_LAUNCH(DK, DV, T) \
+  (int)launch<DK, DV, T>(q, k, v, id, out, ws, arrivals, B, H, KB, S, sm_scale, st)
+  SKT_TOPK_CASES(d, dv, dtype, SKT_LAUNCH)
+#undef SKT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

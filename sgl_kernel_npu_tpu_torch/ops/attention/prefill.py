@@ -3,15 +3,21 @@ ops/attention/prefill.py): laser attention, a flash forward over dense
 [B, H, T, D] tensors, and the varlen causal prefill over flat [T, H, D].
 
   laser_attention(q, k, v, sm_scale, causal=True)
-q [B, Hq, T, D], k / v [B, Hkv, T, D] (GQA: query head h reads kv head
-h // (Hq / Hkv)); returns [B, Hq, T, D] in q's dtype. Causal masks by
-absolute position (row >= column); masked scores are -1e30.
+q [B, Hq, T, D], k [B, Hkv, T, D], v [B, Hkv, T, Dv] (GQA: query head h
+reads kv head h // (Hq / Hkv)); returns [B, Hq, T, Dv] in q's dtype. Causal
+masks by absolute position (row >= column); masked scores are -1e30.
 
-On a CUDA tensor it launches kernel K17 (csrc/laser_attention.cu) once,
-counted under "laser_attention", at every T; K17 reads the kv heads where
-they are (the JAX wrapper repeats K and V to Hq heads first). On a CPU tensor
-it keeps the JAX wrapper's gate: T >= 512 runs `laser_attention_blocked_ref`,
-the TPU kernel's plain version, and shorter T `laser_attention_ref`.
+On a CUDA tensor it launches kernel K17 once, at every T, by the route
+`laser_route(D, Dv, dtype)` picks: the tensor-core kernel
+(csrc/laser_attention.cu, counted under "laser_attention") for bf16 or fp16
+at (D, Dv) in TENSOR_CORE_WIDTHS, else the CUDA-core kernel
+(csrc/laser_attention_general.cu, counted under "laser_attention_general")
+for bf16, fp16 or f32 with D and Dv up to GENERAL_MAX_D; it raises beyond
+those. K17 reads the kv heads where they are (the JAX wrapper repeats K and V
+to Hq heads first). On a CPU tensor it keeps the JAX wrapper's gate: T >= 512
+runs `laser_attention_blocked_ref`, the TPU kernel's plain version, and
+shorter T `laser_attention_ref`; both take any D, Dv and float dtype, as the
+TPU kernel does.
 
 The TPU kernel (laser_attention_pallas) reads past row T when T is not a
 multiple of its block (256): those scores are not masked, and 0 * NaN from
@@ -32,8 +38,15 @@ from ...utils import cdiv, use_kernel
 _NEG_INF = -1e30
 _GATE_T = 512          # the JAX wrapper's kernel gate
 _BLOCK = 256           # the TPU kernel's block_q = block_k
-# q, k, v, out, B, Hq, Hkv, T, D, causal, sm_scale, stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# q, k, v, out, B, Hq, Hkv, T, D, Dv, causal, dtype, sm_scale, stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# (D, Dv) of the tensor-core kernel's instantiations, bf16 and fp16 each:
+# SD3 / Falcon (64), Llama (128), DeepSeek-V3's MLA prefill (192 / 128),
+# Qwen3-Next and Gemma-3 (256)
+TENSOR_CORE_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
+GENERAL_MAX_D = 256    # the CUDA-core kernel: any D, Dv up to this
+# the C interface's dtype codes
+DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def laser_attention_ref(q, k, v, sm_scale, causal=True):
@@ -90,28 +103,48 @@ def laser_attention_blocked_ref(q, k, v, sm_scale, causal=True, block: int = _BL
     return out.reshape(b, hq, t, dv).to(q.dtype)
 
 
+def laser_route(d: int, dv: int, dtype) -> str:
+    """The K17 kernel that takes head dims (d, dv) in `dtype` on the card:
+    "laser_attention" (tensor cores: bf16 or fp16 at TENSOR_CORE_WIDTHS) or
+    "laser_attention_general" (CUDA cores: bf16, fp16 or f32, D and Dv up to
+    GENERAL_MAX_D). Raises TypeError for another dtype and ValueError for
+    widths neither kernel takes."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"laser_attention: {dtype} inputs; the kernels take bf16, fp16 and f32")
+    if dtype != torch.float32 and (d, dv) in TENSOR_CORE_WIDTHS:
+        return "laser_attention"
+    if 1 <= d <= GENERAL_MAX_D and 1 <= dv <= GENERAL_MAX_D:
+        return "laser_attention_general"
+    raise ValueError(f"laser_attention: head dims (D {d}, Dv {dv}): the tensor-core kernel "
+                     f"takes (D, Dv) in {TENSOR_CORE_WIDTHS} (bf16, fp16), the CUDA-core "
+                     f"kernel any D and Dv up to {GENERAL_MAX_D}")
+
+
 def _laser_cuda(q, k, v, sm_scale, causal):
-    """One launch of K17: bf16 q [B, Hq, T, 128], k / v [B, Hkv, T, 128]."""
+    """One launch of K17 on the route laser_route picks: q [B, Hq, T, D],
+    k [B, Hkv, T, D], v [B, Hkv, T, Dv], all of one dtype."""
     b, hq, t, d = q.shape
-    hkv = k.shape[1]
-    if (k.shape != (b, hkv, t, d) or v.shape != k.shape or d != 128 or hkv == 0
-            or hq % hkv):
+    hkv, dv = k.shape[1], v.shape[-1]
+    if (k.shape != (b, hkv, t, d) or v.shape != (b, hkv, t, dv) or hkv == 0 or hq % hkv):
         raise ValueError(f"laser_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: needs head dim 128, equal k / v shapes and Hq a "
-                         "multiple of Hkv")
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise TypeError("laser_attention: bf16 q, k and v expected")
+                         f"{tuple(v.shape)}: needs k [B, Hkv, T, D], v [B, Hkv, T, Dv] and "
+                         "Hq a multiple of Hkv")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"laser_attention: q, k and v of one dtype expected, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    name = laser_route(d, dv, q.dtype)
     dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    _build.check_operands("laser_attention", dev, q, k, v, out)
+    out = torch.empty((b, hq, t, dv), dtype=q.dtype, device=dev)
+    _build.check_operands(name, dev, q, k, v, out)
     if out.numel() == 0:
         return out
-    fn = _build.launcher("laser_attention", _ARGTYPES)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, d,
-              int(causal), float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("laser_attention", code)
-    _build.launches["laser_attention"] += 1
+    fn = _build.launcher(name, _ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, t, d, dv,
+              int(causal), DTYPE_CODES[q.dtype], float(sm_scale),
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(name, code)
+    _build.launches[name] += 1
     return out
 
 

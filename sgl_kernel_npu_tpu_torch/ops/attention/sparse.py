@@ -13,8 +13,9 @@ sparse_block_estimate_pallas): the scores are block SUMS dotted and scaled
 by 1 / block_size^2, from kernel K18 (csrc/sparse_estimate.cu: a pooling
 kernel and a score kernel, both counted under "sparse_estimate", through a
 workspace of pooled rows; `estimate_plan` sizes both) on a CUDA tensor or
-`block_scores_ref` on a CPU one, at any length; the top-k threshold stays a
-PyTorch sort, as it stays in XLA there.
+`block_scores_ref` on a CPU one, at any length, any head dim, and bf16,
+fp16 or f32 rows; the top-k threshold stays a PyTorch sort, as it stays in
+XLA there.
 `sparse_block_estimate_dispatch` takes the fused tier when D % 128 == 0 and
 both lengths are multiples of block_size (the JAX gate), else the plain one.
 
@@ -33,7 +34,9 @@ scores of -1 ids are -1e30 (not -inf) and their rows read block 0, so a row
 whose ids are all -1 returns the mean of block 0's eight V rows, as the TPU
 kernel (topk_block_sparse_attention_pallas) does; out = acc / max(l,
 1e-20). Kernel K19 (csrc/topk_sparse.cu, counted under "topk_block_sparse")
-on a CUDA tensor, `topk_block_sparse_attention_ref` on a CPU one.
+on a CUDA tensor, `topk_block_sparse_attention_ref` on a CPU one. K19 takes
+(D, Dv) in TOPK_DIMS, bf16 or fp16, any number of heads (multi-query models
+such as Falcon-7B's 71 heads over one kv head); f32 and other widths raise.
 
   topk_sparse_attention(q, k_cache, v_cache, topk_indices, seq_lens,
                         sm_scale, page_size)
@@ -53,13 +56,19 @@ from ...utils import cdiv, use_kernel
 
 _NEG_INF = -1e30
 BLK = 8                  # tokens per selected block of the top-k decode
-# q, k, workspace, scores, BH, NQ, NK, block_size, D, causal, tile, stream
-_EST_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# q, k, workspace, scores, BH, NQ, NK, block_size, D, workspace row, causal,
+# tile, dtype, stream
+_EST_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # q, k_cache, v_cache, block_ids, out, workspace, arrivals, B, H, KB, chunk,
-# splits, D, Dv, sm_scale, stream
-_TOPK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# splits, D, Dv, dtype, sm_scale, stream
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _TOPK_HEADS = 16         # heads of one K19 block
-_TOPK_DIMS = ((128, 128), (576, 512))
+# (D, Dv) of K19's instantiations: Falcon-7B (64), bench_ops.py (128),
+# Gemma-3 (256), the MLA latent rows (576 / 512)
+TOPK_DIMS = ((64, 64), (128, 128), (256, 256), (576, 512))
+# the C interfaces' dtype codes: K18 takes all three, K19 the first two
+_EST_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_TOPK_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 
 def _causal_blocks(nq: int, nk: int, dev):
@@ -115,41 +124,51 @@ def block_scores_ref(q, k, block_size: int, causal: bool = True):
     return sc
 
 
-def estimate_plan(bh: int, nq: int, nk: int, sms: int):
+def estimate_plan(bh: int, nq: int, nk: int, sms: int, d: int = 128):
     """K18's launch plan: (tile, workspace shape). The pooling kernel takes
     one block per pooled block, bh * (nq + nk) of them, and writes them to
-    the workspace [bh, nq + nk, 128] f32 (q's blocks first); the score
-    kernel takes tiles of tile x tile scores: 64 where those tiles alone
-    give at least half the SMs one, else 32, so that small estimates still
-    spread over the card."""
+    the workspace [bh, nq + nk, d'] f32 (q's blocks first; d' = d rounded up
+    to a multiple of 4, the score kernel's float4 reads); the score kernel
+    takes tiles of tile x tile scores: 64 where those tiles alone give at
+    least half the SMs one, else 32, so that small estimates still spread
+    over the card."""
     tile = 64 if bh * cdiv(nq, 64) * cdiv(nk, 64) >= cdiv(sms, 2) else 32
-    return tile, (bh, nq + nk, 128)
+    return tile, (bh, nq + nk, cdiv(d, 4) * 4)
+
+
+def check_block_scores(q, k, block_size: int):
+    """Raise unless K18 takes q [BH, NQ*bs, D], k [BH, NK*bs, D]: any D >= 1,
+    lengths that are multiples of the block, bf16, fp16 or f32 (one dtype)."""
+    bh, tq, d = q.shape
+    if (k.dim() != 3 or k.shape[0] != bh or k.shape[2] != d or d < 1 or block_size < 1
+            or tq % block_size or k.shape[1] % block_size):
+        raise ValueError(f"sparse_estimate: q {tuple(q.shape)}, k {tuple(k.shape)}, block "
+                         f"{block_size}: needs q [BH, NQ*bs, D], k [BH, NK*bs, D] (any D) "
+                         "with lengths that are multiples of the block")
+    if q.dtype not in _EST_DTYPES or k.dtype != q.dtype:
+        raise TypeError(f"sparse_estimate: q {q.dtype}, k {k.dtype}: bf16, fp16 or f32 q and "
+                        "k of one dtype expected")
 
 
 def _block_scores_cuda(q, k, block_size: int, causal: bool):
-    """K18 on bf16 q [BH, NQ*bs, D], k [BH, NK*bs, D]: the pooling kernel,
-    then the score kernel (two launches)."""
+    """K18 on q [BH, NQ*bs, D], k [BH, NK*bs, D]: the pooling kernel, then
+    the score kernel (two launches)."""
+    check_block_scores(q, k, block_size)
     bh, tq, d = q.shape
     nq, nk = tq // block_size, k.shape[1] // block_size
-    if (k.shape[0] != bh or k.shape[2] != d or d != 128 or tq % block_size
-            or k.shape[1] % block_size):
-        raise ValueError(f"sparse_estimate: q {tuple(q.shape)}, k {tuple(k.shape)}, block "
-                         f"{block_size}: needs D 128 and lengths that are multiples of the "
-                         "block")
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
-        raise TypeError("sparse_estimate: bf16 q and k expected")
     dev = q.device
     q, k = q.contiguous(), k.contiguous()
     out = torch.empty((bh, nq, nk), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     tile, ws_shape = estimate_plan(bh, nq, nk,
-                                   torch.cuda.get_device_properties(dev).multi_processor_count)
+                                   torch.cuda.get_device_properties(dev).multi_processor_count, d)
     ws = torch.empty(ws_shape, dtype=torch.float32, device=dev)
     _build.check_operands("sparse_estimate", dev, q, k, ws, out)
     fn = _build.launcher("sparse_estimate", _EST_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), ws.data_ptr(), out.data_ptr(), bh, nq, nk, block_size,
-              d, int(causal), tile, torch.cuda.current_stream(dev).cuda_stream)
+              d, ws_shape[2], int(causal), tile, _EST_DTYPES[q.dtype],
+              torch.cuda.current_stream(dev).cuda_stream)
     _build.check("sparse_estimate", code)
     _build.launches["sparse_estimate"] += 2          # the pooling and the score kernel
     return out
@@ -162,23 +181,27 @@ def block_scores(q, k, block_size: int, causal: bool = True):
     return block_scores_ref(q, k, block_size, causal)
 
 
+def padded_rows(x, block_size: int):
+    """[B, H, T, D] as [B*H, N*block_size, D], N = ceil(T / block_size), the
+    rows past T zero: K18's operand layout."""
+    b, h, t, d = x.shape
+    n = cdiv(t, block_size)
+    if t == n * block_size:
+        return x.reshape(b * h, t, d)
+    xp = x.new_zeros((b, h, n * block_size, d))
+    xp[:, :, :t] = x
+    return xp.reshape(b * h, n * block_size, d)
+
+
 def sparse_block_estimate_fused(q, k, block_size: int, keep_ratio: float = 0.25,
                                 causal: bool = True, always_keep_first: bool = True,
                                 always_keep_last: bool = True):
     """The kernel tier of the estimator: one K18 launch for the scores of
     every (batch, head), then the top-k threshold in PyTorch."""
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    nq, nk = cdiv(tq, block_size), cdiv(tk, block_size)
-
-    def padded(x, n):
-        if x.shape[2] == n * block_size:
-            return x.reshape(b * h, n * block_size, d)
-        xp = x.new_zeros((b, h, n * block_size, d))
-        xp[:, :, : x.shape[2]] = x
-        return xp.reshape(b * h, n * block_size, d)
-
-    scores = block_scores(padded(q, nq), padded(k, nk), block_size, causal)
+    b, h, tq, _ = q.shape
+    nq, nk = cdiv(tq, block_size), cdiv(k.shape[2], block_size)
+    scores = block_scores(padded_rows(q, block_size), padded_rows(k, block_size), block_size,
+                          causal)
     return _threshold(scores.reshape(b, h, nq, nk), keep_ratio, causal, always_keep_first,
                       always_keep_last)
 
@@ -264,20 +287,31 @@ def topk_block_sparse_attention_ref(q, k_cache, v_cache, block_ids, sm_scale,
     return (acc / l.clamp_min(1e-20)).to(q.dtype)
 
 
-def _topk_cuda(q, k_cache, v_cache, block_ids, sm_scale, page_size: int, chunk: int):
-    """One launch of K19: bf16 q [B, H, D], caches [P, ps, D] / [P, ps, Dv]."""
+def check_topk(q, k_cache, v_cache, page_size: int, chunk: int):
+    """Raise unless K19 takes q [B, H, D] over caches [P, ps, D] /
+    [P, ps, Dv]: (D, Dv) in TOPK_DIMS, any H >= 1, pages of a multiple of 8
+    tokens, 0 < chunk <= 64, bf16 or fp16 throughout."""
     b, h, d = q.shape
     dv = v_cache.shape[-1]
-    kb = block_ids.shape[1]
-    if ((d, dv) not in _TOPK_DIMS or h % 8 or page_size % BLK or k_cache.shape[-1] != d
+    if ((d, dv) not in TOPK_DIMS or h < 1 or page_size % BLK or k_cache.shape[-1] != d
             or k_cache.shape[:2] != v_cache.shape[:2] or k_cache.shape[1] != page_size
             or not 0 < chunk <= 64):
         raise ValueError(f"topk_block_sparse: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, page size "
-                         f"{page_size}, chunk {chunk}: needs (D, Dv) in {_TOPK_DIMS}, heads a "
-                         "multiple of 8, pages of a multiple of 8 tokens, chunk <= 64")
-    if not q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16:
-        raise TypeError("topk_block_sparse: bf16 q and caches expected")
+                         f"{page_size}, chunk {chunk}: needs (D, Dv) in {TOPK_DIMS}, at "
+                         "least one head, pages of a multiple of 8 tokens, chunk <= 64")
+    if q.dtype not in _TOPK_DTYPES or not q.dtype == k_cache.dtype == v_cache.dtype:
+        raise TypeError(f"topk_block_sparse: q {q.dtype}, caches {k_cache.dtype} / "
+                        f"{v_cache.dtype}: bf16 or fp16 q and caches of one dtype expected")
+
+
+def _topk_cuda(q, k_cache, v_cache, block_ids, sm_scale, page_size: int, chunk: int):
+    """One launch of K19: q [B, H, D], caches [P, ps, D] / [P, ps, Dv]."""
+    check_topk(q, k_cache, v_cache, page_size, chunk)
+    b, h, d = q.shape
+    dv = v_cache.shape[-1]
+    kb = block_ids.shape[1]
+    dt = _TOPK_DTYPES[q.dtype]
     dev = q.device
     q = q.contiguous()
     ids = block_ids.to(device=dev, dtype=torch.int32).contiguous()
@@ -287,7 +321,7 @@ def _topk_cuda(q, k_cache, v_cache, block_ids, sm_scale, page_size: int, chunk: 
         return out
     # each row's blocks split over S blocks of the card; their partials
     # (m, l, acc of 16 heads) meet in a workspace, merged by the last to arrive
-    splits = _build.splits("topk_block_sparse", b, h, kb, d, dv)
+    splits = _build.splits("topk_block_sparse", b, h, kb, d, dv, dt)
     rows = b * cdiv(h, _TOPK_HEADS)
     ws = torch.empty(rows * splits * (2 + dv) * _TOPK_HEADS if splits > 1 else 0,
                      dtype=torch.float32, device=dev)
@@ -295,7 +329,7 @@ def _topk_cuda(q, k_cache, v_cache, block_ids, sm_scale, page_size: int, chunk: 
     fn = _build.launcher("topk_block_sparse", _TOPK_ARGTYPES)
     code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), ids.data_ptr(),
               out.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), b, h, kb, chunk, splits,
-              d, dv, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
+              d, dv, dt, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("topk_block_sparse", code)
     _build.launches["topk_block_sparse"] += 1
     return out

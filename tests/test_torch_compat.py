@@ -22,7 +22,8 @@ NAMESPACES = ("npu", "attentions", "sgl_kernel", "deep_ep", "torch_memory_saver"
 RENAMED = {"decode_gqa_high_performance": "decode_gqa_v3"}
 # Keys that map to another function than the JAX table's: the JAX
 # sparse_block_estimate is its plain estimator, the port's the kernel tier
-# (K18, head dim 128 only on the card; compat.py's docstring).
+# (K18, any head dim and bf16, fp16 or f32 on the card; compat.py's
+# docstring).
 KERNEL_TIER = {"sparse_block_estimate": "sparse_block_estimate_fused"}
 
 
@@ -92,3 +93,37 @@ def test_layernorm_and_rmsnorm_bias_match_jax():
         got = getattr(getattr(compat, ns), key)(
             torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(bias), 1e-6).numpy()
         assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), key
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 256])
+def test_sparse_block_estimate_any_head_dim(d, dtype):
+    """attentions.sparse_block_estimate (the kernel tier: block sums, on the
+    CPU K18's plain scores) at D 64 and 256 against the port's plain
+    estimator (block means) and the JAX compat name (its plain estimator),
+    [1, 2, 200, D] in blocks of 32, causal: the scores differ in f32
+    rounding only, so the masks agree but where a mean score lies within
+    1e-5 of its row's largest |score| from the row's threshold; counts are
+    the masks' row sums."""
+    from sgl_kernel_npu_tpu_torch.ops.attention import sparse as tsp
+
+    rng = np.random.default_rng(d)
+    q, k = (rng.standard_normal((1, 2, 200, d)).astype(np.float32) for _ in range(2))
+    tq, tk = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k))
+    mask, count = compat.attentions.sparse_block_estimate(tq, tk, 32, keep_ratio=0.25)
+    ref_mask, ref_count = tsp.sparse_block_estimate(tq, tk, 32, keep_ratio=0.25)
+    jmask, _ = jcompat.attentions.sparse_block_estimate(
+        jnp.asarray(tq.float().numpy()), jnp.asarray(tk.float().numpy()), 32, keep_ratio=0.25)
+    assert mask.shape == (1, 2, 7, 7) and mask.dtype == torch.bool
+    assert torch.equal(count, mask.sum(-1, dtype=torch.int32))
+    n = 7
+    qm = torch.nn.functional.pad(tq.float(), (0, 0, 0, n * 32 - 200)).reshape(1, 2, n, 32, d)
+    km = torch.nn.functional.pad(tk.float(), (0, 0, 0, n * 32 - 200)).reshape(1, 2, n, 32, d)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qm.mean(3), km.mean(3)).double()
+    scores = scores.masked_fill(~torch.ones(n, n, dtype=torch.bool).tril(), -1e30)
+    thresh = scores.sort(-1).values[..., n - 1:n]
+    top = scores.masked_fill(scores < -1e29, 0).abs().amax(-1, keepdim=True)
+    near = (scores - thresh).abs() <= 1e-5 * top
+    for other in (ref_mask, torch.from_numpy(np.asarray(jmask))):
+        assert not bool(((mask != other) & ~near).any())
+    assert torch.equal(ref_count, ref_mask.sum(-1, dtype=torch.int32))
