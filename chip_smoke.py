@@ -346,11 +346,14 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    DeepSeek-V3's MLA prefill (128 heads, D 192, Dv 128, T 4096, causal),
    Qwen3-Next-80B-A3B's attention (16 / 2 heads of 256, T 8192, causal),
    SD3's joint attention (24 heads of 64, T 4429, not causal, bf16 and
-   fp16) on the tensor-core route, Phi-3-mini (32 heads of 96, T 4096,
-   causal, bf16 and f32) and D 32 f32 at T 1000 on the CUDA-core route
+   fp16) on the bf16 / fp16 kernel at its own widths, Phi-3-mini (32 heads
+   of 96, T 4096, causal, bf16), Phi-2 (32 heads of 80, T 2048, causal,
+   fp16) and D 96 at GQA 8 / 2, T 1000 on it padded to its (128, 128) tile,
+   Phi-3-mini in f32 and D 32 f32 at T 1000 on the split-TF32 kernel
    (laser_attention_general); compat.attentions.sparse_block_estimate (K18,
    keep 0.25) on (a)'s and (b)'s q and k in blocks of 128, SD3's in fp16 in
-   blocks of 64 on padded lengths, Phi-3's in f32; and
+   blocks of 64 on padded lengths, Phi-3's in f32 (each on its laser
+   case's q and k); and
    topk_block_sparse_attention (K19, 256 blocks of 8 a row, pages of 128,
    row 2 all -1: block 0's mean) at Falcon-7B (71 heads of 64, B 64),
    Gemma-3-1B (4 heads of 256, B 128, bf16 and fp16) and DeepSeek-V3.2-Exp's
@@ -358,7 +361,9 @@ scheduler (g++) from the checkout into build/torch_kernels/, then:
    of max|plain|, fp16 one fp16 ulp + 1e-4, f32 2e-5 of max|plain|, K18's
    masks equal or flipped at the threshold. Pass 2 times each kernel alone
    (graph replay), its plain version, SDPA where it takes the shape, and
-   the bound, and holds K18's scores within 1e-5 of block_scores_ref; then
+   the bound (K17 in f32: three TF32 products at the TF32 rate, beside one
+   at the CUDA cores' f32 rate; a padded row also at its tile's width), and
+   holds K18's scores within 1e-5 of block_scores_ref; then
    a width outside every route (la at D 320, K19 at 96 and in f32) must
    raise, naming the widths it takes, and launch nothing. Each case is a
    row of the kernels line, its launches from pass 1.
@@ -5371,6 +5376,69 @@ def check_laser(torch, pf):
     return rows
 
 
+# K17's routes at widths and edges phase 21 does not time: (D, Dv, dtype, T,
+# causal, the kernel that must take it). The bf16 / fp16 kernel's padded
+# tiles ((8, 8) -> (64, 64), (128, 64) -> (128, 128) with V's second box
+# wholly past Dv, (136, 64) -> (192, 128), (200, 40) -> (256, 256)) and the
+# split-TF32 kernel at each padded width W (32, 64, 96, 128, 256) on each of
+# its loads: TMA (f32, D and Dv % 4 == 0), cp.async (f32 at other widths) and
+# widened 16-bit rows (bf16 / fp16 not a multiple of 8); T 1, ragged T, GQA
+# 4 / 2, B 2
+LASER_EDGES = (
+    (80, 80, "float16", 300, True, "laser_attention"),
+    (8, 8, "bfloat16", 129, True, "laser_attention"),
+    (128, 64, "bfloat16", 200, False, "laser_attention"),
+    (136, 64, "bfloat16", 257, True, "laser_attention"),
+    (200, 40, "float16", 100, True, "laser_attention"),
+    (96, 96, "bfloat16", 1, True, "laser_attention"),
+    (96, 96, "float32", 300, True, "laser_attention_general"),
+    (32, 32, "float32", 77, False, "laser_attention_general"),
+    (64, 48, "float32", 200, True, "laser_attention_general"),
+    (128, 128, "float32", 150, True, "laser_attention_general"),
+    (192, 128, "float32", 130, False, "laser_attention_general"),
+    (256, 256, "float32", 70, True, "laser_attention_general"),
+    (100, 100, "float32", 260, True, "laser_attention_general"),
+    (33, 17, "float32", 100, True, "laser_attention_general"),
+    (1, 1, "float32", 50, True, "laser_attention_general"),
+    (255, 255, "float32", 65, True, "laser_attention_general"),
+    (95, 95, "bfloat16", 130, True, "laser_attention_general"),
+    (20, 36, "float16", 90, False, "laser_attention_general"),
+    (255, 250, "bfloat16", 40, True, "laser_attention_general"),
+    (96, 96, "float32", 1, True, "laser_attention_general"),
+)
+
+
+def check_laser_edges(torch, pf):
+    """K17's routes at LASER_EDGES, B 2, Hq 4 / Hkv 2: exactly one launch of
+    the kernel the row names, finite, a second call bit-identical, within
+    phase 21's bar of its dtype against the plain version (f32 also on
+    inputs scaled by 1e3)."""
+    for i, (d, dv, dtype, t, causal, name) in enumerate(LASER_EDGES):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2140 + i)
+        q = _width_randn(torch, gen, (2, 4, t, d), dtype, "cuda")
+        k = _width_randn(torch, gen, (2, 2, t, d), dtype, "cuda")
+        v = _width_randn(torch, gen, (2, 2, t, dv), dtype, "cuda")
+        sm = d ** -0.5
+        for scale in (1.0, 1e3) if dtype == "float32" else (1.0,):
+            qs, ks, vs = (x * scale for x in (q, k, v))
+            calls = _Launches(pf._build)
+            out = pf.laser_attention(qs, ks, vs, sm, causal)
+            launched = {k_: n for k_, n in calls.delta().items() if n}
+            if launched != {name: 1}:
+                raise AssertionError(f"laser_attention (D {d}, Dv {dv}, {dtype}): launched "
+                                     f"{launched}, not {name} once")
+            again = pf.laser_attention(qs, ks, vs, sm, causal)
+            ref = pf.laser_attention_blocked_ref(qs, ks, vs, sm, causal)
+            torch.cuda.synchronize()
+            label = (f"laser_attention (D {d}, Dv {dv}, {dtype}, T {t}, "
+                     f"{'causal' if causal else 'not causal'}{', x 1e3' if scale != 1.0 else ''})")
+            if not torch.equal(out, again):
+                raise AssertionError(f"{label}: a second call differs")
+            err, ratio, what = _width_check(label, out, ref, dtype)
+            print(f"  {label} on {name}: max-abs {err:.3g}, {ratio:.3g} of its bar ({what})")
+
+
 def _mask_flips(name, ref_scores, mask, ref_mask, keep):
     """The estimator's masks from K18's and the plain scores must agree; an
     entry may flip only where its score lies within f32 rounding of its
@@ -8973,9 +9041,13 @@ def _to_device(tree, dev):
 # 64, v_head_dim 128: MLA prefill in its MHA form), Qwen/Qwen3-Next-80B-A3B
 # (16 / 2 heads of 256), stabilityai/stable-diffusion-3-medium's joint
 # attention (24 heads of 64 over the 4096 latent tokens of a 1024^2 image and
-# 333 text tokens), microsoft/Phi-3-mini-4k-instruct (32 / 32 heads of 96);
-# batch 1. (row, part, model, Hq, Hkv, D, Dv, T, causal, dtype) of laser
-# attention through compat.attentions.la, each its kernels-line row:
+# 333 text tokens), microsoft/Phi-3-mini-4k-instruct (32 / 32 heads of 96),
+# microsoft/phi-2 (hidden 2560: 32 heads of 80, 2048 positions); batch 1.
+# (row, part, model, Hq, Hkv, D, Dv, T, causal, dtype) of laser attention
+# through compat.attentions.la, each its kernels-line row; "padded": a bf16 /
+# fp16 width the laser_attention kernel runs on a larger tile
+# (prefill.laser_tile; D 96 and 80 on (128, 128)). New rows go at the end:
+# a row's inputs are drawn from seed 2100 + its index.
 WIDTH_LA = (
     ("laser_attention (D 192 / 128, DeepSeek-V3 MLA prefill)", "a", "DeepSeek-V3 MLA prefill",
      128, 128, 192, 128, 4096, True, "bfloat16"),
@@ -8985,17 +9057,23 @@ WIDTH_LA = (
      "bfloat16"),
     ("laser_attention (D 64, SD3, fp16)", "c", "SD3 joint attention", 24, 24, 64, 64, 4429,
      False, "float16"),
-    ("laser_attention_general (D 96, Phi-3)", "d", "Phi-3-mini", 32, 32, 96, 96, 4096, True,
+    ("laser_attention (D 96, Phi-3, padded)", "d", "Phi-3-mini", 32, 32, 96, 96, 4096, True,
      "bfloat16"),
     ("laser_attention_general (D 96, Phi-3, f32)", "d", "Phi-3-mini", 32, 32, 96, 96, 4096, True,
      "float32"),
     # the JAX tests' head dim and type at a T no block divides
     ("laser_attention_general (D 32, f32, T 1000)", "f", "edge", 8, 2, 32, 32, 1000, True,
      "float32"),
+    ("laser_attention (D 80, Phi-2, fp16, padded)", "g", "Phi-2", 32, 32, 80, 80, 2048, True,
+     "float16"),
+    # zero-filled columns past 96 and rows past T in one tile, GQA
+    ("laser_attention (D 96, GQA 8 / 2, T 1000, padded)", "h", "edge", 8, 2, 96, 96, 1000, True,
+     "bfloat16"),
 )
 # (row, part, model, H, T, D, block, causal, dtype) of the estimator through
-# compat.attentions.sparse_block_estimate (keep 0.25); (a) and (b) on the
-# laser case's q and k (k's kv heads repeated to H), (c) and (d) drawn
+# compat.attentions.sparse_block_estimate (keep 0.25), each on the q and k
+# of the first laser case of its part and dtype (k's kv heads repeated to
+# H), drawn where there is none
 WIDTH_EST = (
     ("sparse_estimate (D 192, DeepSeek-V3)", "a", "DeepSeek-V3 MLA prefill", 128, 4096, 192, 128,
      True, "bfloat16"),
@@ -9053,7 +9131,7 @@ def _width_randn(torch, gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(getattr(torch, dtype))
 
 
-def _width_cases(torch, compat, sp, dev, small):
+def _width_cases(torch, compat, pf, sp, dev, small):
     """Phase 21's cases in drive order: dicts of the row, its part, the
     counter it must launch and how often a call, the entry-point call, the
     check against the same call under SKT_IMPL=ref, and what pass 2 times
@@ -9070,23 +9148,24 @@ def _width_cases(torch, compat, sp, dev, small):
         q = _width_randn(torch, gen, (1, hq, t, d), dtype, dev)
         k = _width_randn(torch, gen, (1, hkv, t, d), dtype, dev)
         v = _width_randn(torch, gen, (1, hkv, t, dv), dtype, dev)
-        la_inputs.setdefault(part, (q, k))
+        la_inputs.setdefault((part, dtype), (q, k))
         sm = 1.0 / float(d) ** 0.5
         elt = q.element_size()
         pairs = t * (t + 1) / 2 if causal else float(t) * t
         ops = 2.0 * (d + dv) * hq * pairs
         nbytes = elt * (q.numel() + k.numel() + v.numel() + hq * t * dv)
+        tile = pf.laser_tile(d, dv) if dtype != "float32" else None
         cases.append(dict(
             row=row, part=part, kind="la", dtype=dtype,
             label=f"{model}: la Hq {hq} / Hkv {hkv}, D {d}, Dv {dv}, T {t}, "
                   f"{'causal' if causal else 'not causal'}, {dtype}",
             counter=row.split(" (")[0],
             call=lambda q=q, k=k, v=v, sm=sm, c=causal: compat.attentions.la(q, k, v, sm, c),
-            kernel=None, plain_fn=None, inputs=(q, k, v, sm, causal),
-            ops=ops, nbytes=nbytes, rate="f32_flops" if dtype == "float32" else "bf16_flops"))
+            kernel=None, plain_fn=None, inputs=(q, k, v, sm, causal), ops=ops, nbytes=nbytes,
+            padded_ops=2.0 * sum(tile) * hq * pairs if tile and tile != (d, dv) else None))
     for i, (row, part, model, h, t, d, bs, causal, dtype) in enumerate(WIDTH_EST):
-        if part in la_inputs:
-            q, k = la_inputs[part]
+        if (part, dtype) in la_inputs:
+            q, k = la_inputs[(part, dtype)]
             h, t = q.shape[1], q.shape[2]
             k = k.repeat_interleave(h // k.shape[1], dim=1)
         else:
@@ -9174,12 +9253,20 @@ def _width_times(torch, pf, sp, case):
                                            enable_gqa=q.shape[1] != k.shape[1])
         lib = _time_ms(library, 5, graph=True)
         note = f"SDPA ({backend}, is_causal {causal})"
-        bound, by = _bound_ms(case["nbytes"], case["ops"], case["rate"])
-        if case["rate"] == "f32_flops":
-            note += f"; bound at the f32 rate of the CUDA cores"
+        nbytes, ops = case["nbytes"], case["ops"]
+        if dtype == "float32":
+            # split TF32: three TF32 products for each f32 one
+            bound, by = _bound_ms(nbytes, 3.0 * ops, "tf32_flops")
+            note += (f"; {ops:.3e} operations, bound in split TF32 (3x at the TF32 "
+                     f"tensor-core rate); {_bound_ms(nbytes, ops, 'f32_flops')[0]:.4f} ms at "
+                     f"the CUDA cores' f32 rate")
         else:
-            note += (f"; bound at the bf16 / fp16 tensor-core rate (at the f32 rate "
-                     f"{_bound_ms(case['nbytes'], case['ops'], 'f32_flops')[0]:.4f} ms)")
+            bound, by = _bound_ms(nbytes, ops, "bf16_flops")
+            note += f"; {ops:.3e} operations, bound at the bf16 / fp16 tensor-core rate"
+            if case["padded_ops"]:
+                note += (f" at the real width; {case['padded_ops']:.3e} operations and "
+                         f"{_bound_ms(nbytes, case['padded_ops'], 'bf16_flops')[0]:.4f} ms at "
+                         f"the padded tile")
     elif kind == "est":
         q, k, bs, causal = case["inputs"]
         qp, kp = (sp.padded_rows(x, bs) for x in (q, k))
@@ -9272,7 +9359,7 @@ def run_attention_widths(torch, build, compat, pf, sp, dev, gpu, small=False):
     block_scores_ref. Then the refused widths. Returns {row: kernels-line
     row} with each row's launches from pass 1."""
     t0 = time.perf_counter()
-    cases = _width_cases(torch, compat, sp, dev, small)
+    cases = _width_cases(torch, compat, pf, sp, dev, small)
     print(f"  inputs of {len(cases)} cases drawn ({time.perf_counter() - t0:.1f} s)")
     build.reset_launches()
     for case in cases:
@@ -9470,6 +9557,7 @@ def main() -> int:
     rows["k13"] = check_swiglu_quant(torch, activation, floors["K13 2,048 rows"])
     torch.cuda.empty_cache()
     rows.update(zip(LASER_NAMES, check_laser(torch, prefill)))
+    check_laser_edges(torch, prefill)
     torch.cuda.empty_cache()
     rows["sparse_estimate"], rows["k18_long"] = check_sparse_estimate(torch, sparse)
     torch.cuda.empty_cache()

@@ -58,7 +58,10 @@ replays). The cases, each name a prefix that --only can pick:
     layout: its quantising dispatch and its bf16 combine; exact;
   * K17 (laser attention, bf16 at Llama-3-8B's heads, D 128, B 1) at
     chip_smoke.py's LASER_CASES (causal T 8192, not causal T 4096, causal
-    T 8000); within ATT_SHARE (one bf16 ulp + 1e-4 of max|plain|);
+    T 8000); within ATT_SHARE (one bf16 ulp + 1e-4 of max|plain|); and at
+    three of its phase-21 rows ("K17 D 96 bf16", "K17 D 96 f32", "K17 D 80
+    fp16": Phi-3-mini's 32 heads of 96 at T 4096 causal, Phi-2's 32 of 80
+    at T 2048 causal), within phase 21's bar of their dtype;
   * K18 (the sparse-block estimator's scores, blocks of 128, causal) at
     both of chip_smoke.py's EST_SHAPES, and at [1, 8, 32768] not causal, a
     case only a root without the old NQ + NK <= 384 cap runs; within 1e-5
@@ -86,7 +89,8 @@ replays). The cases, each name a prefix that --only can pick:
 Each case must also give the same bits in every turn of its root (a case
 that returns a tuple: each of its tensors), and in every root but for the
 kernels whose sums another design may order otherwise (K3, C, K5, K10,
-K14, K16, K18, K20's float64 sum of squares, K23, K24, phase 11). Prints
+K14, K16, K17 at phase 21's widths, K18, K20's float64 sum of squares, K23,
+K24, phase 11). Prints
 the cases whose bits every root gives alike, and, per case, each root's
 median over its turns and the ratio of each to the first root's, the sums
 of the four Llama GEMMs of A at M 8 and 128, of K1's three at M 128 and of
@@ -122,7 +126,7 @@ KERNELS = ("decode_tm2", "decode_tm", "w8a8_gemm", "w8a8_gemm_tiled", "rmsq_gemm
            "decode_v3_defer", "decode_v3_int8_defer", "decode_int8kv", "decode_v5_defer",
            "decode_v5_int8_defer", "decode_v4b_int8", "decode_fused_v4_int8",
            "decode_fused_v4", "decode_v7_int8", "remote_scatter", "sparse_estimate",
-           "laser_attention",
+           "laser_attention", "laser_attention_general",
            "add_rmsnorm_quant")
 SUMS = {f"A wqkv + wo + w13 + w2 M {m}": [f"A {nm} M {m}" for nm in ("wqkv", "wo", "w13", "w2")]
         for m in (8, 128)}
@@ -592,6 +596,28 @@ def _scatter_estimate_cases(torch, cs, on, exact, data):
         yield (name, lambda q=q, k=k, v=v, c=causal: prefill.laser_attention(q, k, v, sm, c),
                laser_close, 10)
         del q, k, v, ref
+    # K17 at chip_smoke.py's phase-21 rows (WIDTH_LA index, its seed 2100 +
+    # index): Phi-3's D 96 in bf16 and f32, Phi-2's D 80 in fp16
+    for name, i in (("K17 D 96 bf16", 4), ("K17 D 96 f32", 5), ("K17 D 80 fp16", 7)):
+        if not on(name):
+            continue
+        _, _, _, hq, hkv, d, dv, t, causal, dtype = cs.WIDTH_LA[i]
+        gen = torch.Generator(device="cuda").manual_seed(2100 + i)
+        q = cs._width_randn(torch, gen, (1, hq, t, d), dtype, "cuda")
+        k = cs._width_randn(torch, gen, (1, hkv, t, d), dtype, "cuda")
+        v = cs._width_randn(torch, gen, (1, hkv, t, dv), dtype, "cuda")
+        sm = 1.0 / float(d) ** 0.5
+        ref = prefill.laser_attention_blocked_ref(q, k, v, sm, causal)
+
+        def width_close(got, ref=ref, dtype=dtype):
+            try:
+                cs._width_check("", got, ref, dtype)
+            except AssertionError:
+                return False
+            return True
+        yield (name, lambda q=q, k=k, v=v, c=causal: prefill.laser_attention(q, k, v, sm, c),
+               width_close, 5)
+        del q, k, v, ref
     cap = getattr(sparse, "_EST_MAX_BLOCKS", None)
     bs = cs.EST_BLOCK
 
@@ -876,8 +902,8 @@ def main() -> int:
     first = runs[0][0]["digest"]
     differ = [k for i in order for k, v in runs[i][0]["digest"].items()
               if k in first and first[k] != v
-              and not k.startswith(("K3", "C ", "K5", "K10", "K14", "K16", "K18", "K20", "K23",
-                                    "K24", "Phase 11"))]
+              and not k.startswith(("K3", "C ", "K5", "K10", "K14", "K16", "K17 D", "K18", "K20",
+                                    "K23", "K24", "Phase 11"))]
     if differ:
         raise AssertionError(f"these cases differ between roots: {sorted(set(differ))}")
     same = [k for k, v in first.items() if all(runs[i][0]["digest"].get(k) == v for i in order)]

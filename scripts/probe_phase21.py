@@ -9,8 +9,8 @@ On one H100 it builds K17-K19's libraries (one nvcc each, all at once) and
 runs chip_smoke.run_attention_widths; with --ptxas it first compiles those
 sources to cubins with -Xptxas -v and prints each kernel's registers,
 shared memory and spills; with --phase1 it first runs phase 1's checks of
-K17-K19 at their earlier widths (check_laser, check_sparse_estimate,
-check_topk, check_topk_edges). With --device cpu it rehearses the phase's
+K17-K19 at their earlier widths (check_laser, check_laser_edges: K17's two
+routes at LASER_EDGES, check_sparse_estimate, check_topk, check_topk_edges). With --device cpu it rehearses the phase's
 control flow at small shapes on the plain versions (no launch expected,
 nothing timed). Exits 1 if the phase fails.
 """
@@ -71,6 +71,7 @@ def main() -> int:
     parts = []
     if args.phase1 and dev.type == "cuda":
         parts += [("phase 1 K17", lambda: cs.check_laser(torch, prefill)),
+                  ("phase 1 K17 edges", lambda: cs.check_laser_edges(torch, prefill)),
                   ("phase 1 K18", lambda: cs.check_sparse_estimate(torch, sparse)),
                   ("phase 1 K19", lambda: cs.check_topk(torch, sparse)),
                   ("phase 1 K19 edges", lambda: cs.check_topk_edges(torch, sparse))]

@@ -60,7 +60,7 @@ KERNELS = {
     "decode_v3_int8_defer": "decode_v3",
     "decode_int8kv": "decode_v3",
     "laser_attention": "laser_attention",      # K17
-    "laser_attention_general": "laser_attention_general",  # K17, CUDA-core route
+    "laser_attention_general": "laser_attention_general",  # K17, split-TF32 route
     "sparse_estimate": "sparse_estimate",      # K18
     "topk_block_sparse": "topk_sparse",        # K19
     "add_rmsnorm_quant": "add_rmsnorm_quant",  # K20

@@ -22,9 +22,10 @@ instead of block means: the same scores up to f32 rounding). On the CPU it
 runs K18's plain version.
 
 attentions.la takes on the card the widths of its two K17 routes
-(prefill.laser_route): the tensor-core kernel at (D, Dv) in
-prefill.TENSOR_CORE_WIDTHS in bf16 and fp16, the CUDA-core kernel at any D
-and Dv up to 256 and in f32.
+(prefill.laser_route): the bf16 / fp16 kernel at any D and Dv that are
+multiples of 8 up to 256 (padded to a tile of prefill.TENSOR_CORE_WIDTHS
+where they are not one), the split-TF32 kernel at any D and Dv up to 256 in
+f32, and in bf16 and fp16 at the other widths.
 
 A name whose kernel refuses a width on the card raises that kernel's error
 there; none falls back to a plain version on a CUDA tensor.

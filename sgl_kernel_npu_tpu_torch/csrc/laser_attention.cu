@@ -5,10 +5,26 @@
 // (_flash_kernel, prefill.py:42-110; the wrapper prefill.py:113 repeats K and
 // V to Hq heads first, K17 reads kv head h / G where it is). q [B, Hq, T, D],
 // k [B, Hkv, T, D], v [B, Hkv, T, Dv], out [B, Hq, T, Dv], all bf16 or all
-// fp16, (D, Dv) one of (64, 64), (128, 128), (192, 128) (DeepSeek-V3's MLA
-// prefill in its MHA form), (256, 256). Every other width and f32 inputs take
-// the CUDA-core kernel csrc/laser_attention_general.cu
-// (ops/attention/prefill.py::laser_route picks).
+// fp16. The kernel is instantiated at four tiles (Dp, Dvp): (64, 64), (128,
+// 128), (192, 128) (DeepSeek-V3's MLA prefill in its MHA form), (256, 256).
+// Routes (ops/attention/prefill.py::laser_route and laser_tile pick):
+//   * (D, Dv) one of the four: the exact instantiation (PAD false);
+//   * any other D and Dv that are multiples of 8 up to 256 (Phi-2's 80,
+//     Phi-3's 96, (128, 64)): the padded instantiation (PAD true) of the
+//     tile with the least Dp + Dvp that holds both. Its TMA maps have the
+//     real widths, so columns past D and Dv arrive as zeros (the same
+//     out-of-bounds fill that gives the rows past T); a box wholly past the
+//     width is not loaded, and its shared memory is zeroed once. The score
+//     products over zero columns add exact zeros and P . V's columns past
+//     Dv are never stored, so the result is that of the real widths; the
+//     work is the tile's: (Dp + Dvp) / (D + Dv) of the real widths' bound
+//     (D 96 -> (128, 128): 4 / 3; D 80: 8 / 5). TMA needs 16-byte row
+//     strides, hence the multiples of 8;
+//   * every other width up to 256, and f32 inputs: the split-TF32 kernel
+//     csrc/laser_attention_general.cu.
+// PAD is a template parameter, not a run-time branch, so the four exact
+// instantiations keep their machine code (a run-time choice in a kernel's
+// loop cost K3 3.6%).
 //
 // Rounding, as the TPU kernel takes it (its dots and p are f32): per kv tile,
 // s = (q . k) * sm_scale, -1e30 where masked (causal: row < column; and every
@@ -32,13 +48,13 @@
 // Bound on an H100: operations, 2 * (D + Dv) per (query row, visible key)
 // per head: 5.50e11 at T = 8192 causal with 32 query heads of 128, 0.556 ms
 // at the bf16 / fp16 tensor-core rate; K17 spends 1.5 times that in MMAs
-// (the split P . V).
+// (the split P . V), and a padded tile (Dp + Dvp) / (D + Dv) times more.
 // Design, the shape Hopper's tensor cores want: a block takes 128 query rows
 // of one head; one producer thread streams Q once and K and V tiles of BN
 // rows through a ring of two shared-memory stages by TMA (3-D tensor maps
 // [B*H, T, D] and [B*H, T, Dv], so rows >= T arrive as zeros, never as the
-// next head's; 128-byte swizzle, D / 64 boxes of 64 columns a Q or K tile,
-// Dv / 64 a V tile), each completed on an mbarrier. Two consumer warpgroups
+// next head's; 128-byte swizzle, Dp / 64 boxes of 64 columns a Q or K tile,
+// Dvp / 64 a V tile), each completed on an mbarrier. Two consumer warpgroups
 // of 64 query rows run S = Q . K^T as wgmma with both operands in shared
 // memory, mask (only on the diagonal or ragged tile), softmax in registers
 // with quad shuffles, then O += P . V as wgmma with P from registers and V
@@ -48,7 +64,7 @@
 // warpgroup's softmax runs while the other's MMAs do. setmaxnreg moves the
 // producer's registers to the consumers. Causal grids start with the longest
 // (last) query tiles.
-// Sizes per instantiation (a consumer thread holds Dv / 2 floats of O, BN / 2
+// Sizes per instantiation (a consumer thread holds Dvp / 2 floats of O, BN / 2
 // of S and BN / 2 registers of P's two parts; shared memory is Q + two
 // stages of K and V):
 //   (64, 64)    BN 128: 32 + 64 + 64 registers, 80 KB
@@ -254,11 +270,13 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[NS], float (&o)[NO], fl
   }
 }
 
-template <int D, int DV, typename T>
+// PAD: d, dv are the real widths (below D, DV; the maps have them), else
+// unused
+template <int D, int DV, typename T, bool PAD>
 __global__ void __launch_bounds__(THREADS, 1)
 laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, T* __restrict__ out, int Hq, int Hkv,
-             int T_, int causal, float scale_log2) {
+             int T_, int causal, float scale_log2, int d, int dv) {
   using C = Cfg<D, DV, T>;
   constexpr int BN = C::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -282,12 +300,47 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (PAD) {
+    // the boxes wholly past d or dv are never loaded: zero them once, for
+    // the wgmmas (the async proxy) to read
+    const int qhl = (d + HALF - 1) / HALF, vhl = (dv + HALF - 1) / HALF;
+    uint4* q4 = reinterpret_cast<uint4*>(&sm.q[0][0]) + qhl * (BM * HALF / 8);
+    for (int e = threadIdx.x; e < (C::QH - qhl) * BM * HALF / 8; e += THREADS)
+      q4[e] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      uint4* k4 = reinterpret_cast<uint4*>(&sm.k[s][0][0]) + qhl * (BN * HALF / 8);
+      for (int e = threadIdx.x; e < (C::QH - qhl) * BN * HALF / 8; e += THREADS)
+        k4[e] = make_uint4(0, 0, 0, 0);
+      uint4* v4 = reinterpret_cast<uint4*>(&sm.v[s][0][0]) + vhl * (BN * HALF / 8);
+      for (int e = threadIdx.x; e < (C::VH - vhl) * BN * HALF / 8; e += THREADS)
+        v4[e] = make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   __syncthreads();
 
   if (wg == 0) {
     // producer: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
+    if constexpr (PAD) {
+      if (threadIdx.x == 0) {                  // only the boxes inside d and dv
+        const int qhl = (d + HALF - 1) / HALF, vhl = (dv + HALF - 1) / HALF;
+        const int qh = b * Hq + h, kh = b * Hkv + h / (Hq / Hkv);
+        mbar_expect_tx(&sm.q_full, qhl * BM * ROW_BYTES);
+        for (int i = 0; i < qhl; ++i) tma_load_3d(sm.q[i], &qmap, &sm.q_full, i * HALF, q0, qh);
+        for (int j = 0; j < nkt; ++j) {
+          const int s = j % STAGES;
+          if (j >= STAGES) mbar_wait(&sm.empty[s], ((j / STAGES) - 1) & 1);
+          mbar_expect_tx(&sm.k_full[s], qhl * BN * ROW_BYTES);
+          for (int i = 0; i < qhl; ++i)
+            tma_load_3d(sm.k[s][i], &kmap, &sm.k_full[s], i * HALF, j * BN, kh);
+          mbar_expect_tx(&sm.v_full[s], vhl * BN * ROW_BYTES);
+          for (int i = 0; i < vhl; ++i)
+            tma_load_3d(sm.v[s][i], &vmap, &sm.v_full[s], i * HALF, j * BN, kh);
+        }
+      }
+    } else if (threadIdx.x == 0) {
       const int qh = b * Hq + h, kh = b * Hkv + h / (Hq / Hkv);
       mbar_expect_tx(&sm.q_full, C::Q_BYTES);
 #pragma unroll
@@ -386,15 +439,29 @@ laser_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     const float inv0 = 1.f / fmaxf(l[0], 1e-37f), inv1 = 1.f / fmaxf(l[1], 1e-37f);
-    T* og = out + ((size_t)b * Hq + h) * T_ * DV + 2 * tig;
+    if constexpr (PAD) {                         // rows of dv values, columns < dv
+      T* og = out + ((size_t)b * Hq + h) * T_ * dv + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      if (row0 < T_)
-        *reinterpret_cast<uint32_t*>(og + (size_t)row0 * DV + n * 8) =
-            pack_out<T>(o[4 * n] * inv0, o[4 * n + 1] * inv0);
-      if (row0 + 8 < T_)
-        *reinterpret_cast<uint32_t*>(og + (size_t)(row0 + 8) * DV + n * 8) =
-            pack_out<T>(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      for (int n = 0; n < DV / 8; ++n) {
+        if (n * 8 >= dv) break;
+        if (row0 < T_)
+          *reinterpret_cast<uint32_t*>(og + (size_t)row0 * dv + n * 8) =
+              pack_out<T>(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+        if (row0 + 8 < T_)
+          *reinterpret_cast<uint32_t*>(og + (size_t)(row0 + 8) * dv + n * 8) =
+              pack_out<T>(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
+    } else {
+      T* og = out + ((size_t)b * Hq + h) * T_ * DV + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n) {
+        if (row0 < T_)
+          *reinterpret_cast<uint32_t*>(og + (size_t)row0 * DV + n * 8) =
+              pack_out<T>(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+        if (row0 + 8 < T_)
+          *reinterpret_cast<uint32_t*>(og + (size_t)(row0 + 8) * DV + n * 8) =
+              pack_out<T>(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+      }
     }
   }
 }
@@ -414,9 +481,10 @@ bool encode(EncodeTiled f, CUtensorMap* map, const void* base, int heads, int T,
            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV, typename T>
+// d, dv: the real widths, at most D, DV (PAD: below; else equal)
+template <int D, int DV, typename T, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv, int T_,
-           int causal, float sm_scale, cudaStream_t stream) {
+           int d, int dv, int causal, float sm_scale, cudaStream_t stream) {
   const EncodeTiled f = encode_fn();
   if (f == nullptr) return (int)cudaErrorSymbolNotFound;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
@@ -424,30 +492,44 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr int BN = Cfg<D, DV, T>::BN;
   CUtensorMap qmap, kmap, vmap;
-  if (!encode(f, &qmap, q, B * Hq, T_, D, BM, type) ||
-      !encode(f, &kmap, k, B * Hkv, T_, D, BN, type) ||
-      !encode(f, &vmap, v, B * Hkv, T_, DV, BN, type))
+  if (!encode(f, &qmap, q, B * Hq, T_, d, BM, type) ||
+      !encode(f, &kmap, k, B * Hkv, T_, d, BN, type) ||
+      !encode(f, &vmap, v, B * Hkv, T_, dv, BN, type))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(Smem<D, DV, T>) + 1024;   // + the base's alignment to 1 KB
-  const cudaError_t e = skt::ensure_smem(laser_kernel<D, DV, T>, smem);
+  const cudaError_t e = skt::ensure_smem(laser_kernel<D, DV, T, PAD>, smem);
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = static_cast<float>(static_cast<double>(sm_scale) * 1.4426950408889634);
   const dim3 grid(Hq, B, (T_ + BM - 1) / BM);
-  laser_kernel<D, DV, T><<<grid, THREADS, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<T*>(out), Hq, Hkv, T_, causal, scale_log2);
+  laser_kernel<D, DV, T, PAD><<<grid, THREADS, smem, stream>>>(
+      qmap, kmap, vmap, static_cast<T*>(out), Hq, Hkv, T_, causal, scale_log2, d, dv);
   return (int)cudaGetLastError();
 }
 
+// The four tiles (Dp, Dvp), each at its own width or padded. A (d, dv) that
+// is not one of them takes the padded tile with the least Dp + Dvp that
+// holds both (ops/attention/prefill.py::laser_tile); d and dv must be
+// multiples of 8 (TMA's 16-byte row strides).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
              int T_, int d, int dv, int causal, float sm_scale, cudaStream_t st) {
-  if (d == 64 && dv == 64) return launch<64, 64, T>(q, k, v, out, B, Hq, Hkv, T_, causal, sm_scale, st);
-  if (d == 128 && dv == 128)
-    return launch<128, 128, T>(q, k, v, out, B, Hq, Hkv, T_, causal, sm_scale, st);
-  if (d == 192 && dv == 128)
-    return launch<192, 128, T>(q, k, v, out, B, Hq, Hkv, T_, causal, sm_scale, st);
-  if (d == 256 && dv == 256)
-    return launch<256, 256, T>(q, k, v, out, B, Hq, Hkv, T_, causal, sm_scale, st);
+#define SKT_LASER_TILE(DP, DVP)                                                              \
+  if (d == DP && dv == DVP)                                                                  \
+    return launch<DP, DVP, T, false>(q, k, v, out, B, Hq, Hkv, T_, d, dv, causal, sm_scale, st);
+  SKT_LASER_TILE(64, 64)
+  SKT_LASER_TILE(128, 128)
+  SKT_LASER_TILE(192, 128)
+  SKT_LASER_TILE(256, 256)
+#undef SKT_LASER_TILE
+  if (d < 8 || dv < 8 || d % 8 != 0 || dv % 8 != 0) return (int)cudaErrorInvalidValue;
+#define SKT_LASER_TILE(DP, DVP)                                                              \
+  if (d <= DP && dv <= DVP)                                                                  \
+    return launch<DP, DVP, T, true>(q, k, v, out, B, Hq, Hkv, T_, d, dv, causal, sm_scale, st);
+  SKT_LASER_TILE(64, 64)                       // in the order of Dp + Dvp
+  SKT_LASER_TILE(128, 128)
+  SKT_LASER_TILE(192, 128)
+  SKT_LASER_TILE(256, 256)
+#undef SKT_LASER_TILE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -455,7 +537,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 
 // q [B, Hq, T, D], k [B, Hkv, T, D], v [B, Hkv, T, Dv], out [B, Hq, T, Dv];
 // dtype 0 bf16, 1 fp16 (all four the same); (D, Dv) one of (64, 64),
-// (128, 128), (192, 128), (256, 256); causal 0 / 1.
+// (128, 128), (192, 128), (256, 256), or multiples of 8 up to 256 on a
+// padded tile; causal 0 / 1.
 extern "C" int skt_laser_attention(const void* q, const void* k, const void* v, void* out,
                                    int B, int Hq, int Hkv, int T, int d, int dv, int causal,
                                    int dtype, float sm_scale, void* stream) {

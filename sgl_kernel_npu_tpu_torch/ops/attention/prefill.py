@@ -8,16 +8,22 @@ reads kv head h // (Hq / Hkv)); returns [B, Hq, T, Dv] in q's dtype. Causal
 masks by absolute position (row >= column); masked scores are -1e30.
 
 On a CUDA tensor it launches kernel K17 once, at every T, by the route
-`laser_route(D, Dv, dtype)` picks: the tensor-core kernel
-(csrc/laser_attention.cu, counted under "laser_attention") for bf16 or fp16
-at (D, Dv) in TENSOR_CORE_WIDTHS, else the CUDA-core kernel
-(csrc/laser_attention_general.cu, counted under "laser_attention_general")
-for bf16, fp16 or f32 with D and Dv up to GENERAL_MAX_D; it raises beyond
-those. K17 reads the kv heads where they are (the JAX wrapper repeats K and V
-to Hq heads first). On a CPU tensor it keeps the JAX wrapper's gate: T >= 512
-runs `laser_attention_blocked_ref`, the TPU kernel's plain version, and
-shorter T `laser_attention_ref`; both take any D, Dv and float dtype, as the
-TPU kernel does.
+`laser_route(D, Dv, dtype)` picks:
+  * "laser_attention" (csrc/laser_attention.cu, wgmma on bf16 / fp16): bf16
+    or fp16 at any D and Dv that are multiples of 8 up to 256. Its four
+    instantiations TENSOR_CORE_WIDTHS take their own widths as they are;
+    any other pair runs on the tile `laser_tile(D, Dv)` gives (the least
+    Dp + Dvp that holds both: Phi-3's 96 and Phi-2's 80 on (128, 128)),
+    its columns past D and Dv zero-filled by TMA, for (Dp + Dvp) / (D + Dv)
+    times the work of the real widths;
+  * "laser_attention_general" (csrc/laser_attention_general.cu, split TF32
+    on the tensor cores): f32 at any D and Dv up to GENERAL_MAX_D, and bf16
+    or fp16 at widths up to it that are not multiples of 8.
+It raises beyond those. K17 reads the kv heads where they are (the JAX
+wrapper repeats K and V to Hq heads first). On a CPU tensor it keeps the JAX
+wrapper's gate: T >= 512 runs `laser_attention_blocked_ref`, the TPU kernel's
+plain version, and shorter T `laser_attention_ref`; both take any D, Dv and
+float dtype, as the TPU kernel does.
 
 The TPU kernel (laser_attention_pallas) reads past row T when T is not a
 multiple of its block (256): those scores are not masked, and 0 * NaN from
@@ -40,11 +46,11 @@ _GATE_T = 512          # the JAX wrapper's kernel gate
 _BLOCK = 256           # the TPU kernel's block_q = block_k
 # q, k, v, out, B, Hq, Hkv, T, D, Dv, causal, dtype, sm_scale, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-# (D, Dv) of the tensor-core kernel's instantiations, bf16 and fp16 each:
+# (D, Dv) of the bf16 / fp16 kernel's instantiations, bf16 and fp16 each:
 # SD3 / Falcon (64), Llama (128), DeepSeek-V3's MLA prefill (192 / 128),
-# Qwen3-Next and Gemma-3 (256)
+# Qwen3-Next and Gemma-3 (256); other multiples of 8 run padded to one
 TENSOR_CORE_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256))
-GENERAL_MAX_D = 256    # the CUDA-core kernel: any D, Dv up to this
+GENERAL_MAX_D = 256    # the split-TF32 kernel: any D, Dv up to this
 # the C interface's dtype codes
 DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -103,21 +109,31 @@ def laser_attention_blocked_ref(q, k, v, sm_scale, causal=True, block: int = _BL
     return out.reshape(b, hq, t, dv).to(q.dtype)
 
 
+def laser_tile(d: int, dv: int):
+    """The (Dp, Dvp) of TENSOR_CORE_WIDTHS that a bf16 / fp16 (d, dv) runs
+    at: the one with the least Dp + Dvp that holds both, or None where d or
+    dv is not a multiple of 8 in 8..256 (TMA's 16-byte rows)."""
+    if d < 8 or dv < 8 or d % 8 or dv % 8:
+        return None
+    fits = [w for w in TENSOR_CORE_WIDTHS if w[0] >= d and w[1] >= dv]
+    return min(fits, key=sum) if fits else None
+
+
 def laser_route(d: int, dv: int, dtype) -> str:
     """The K17 kernel that takes head dims (d, dv) in `dtype` on the card:
-    "laser_attention" (tensor cores: bf16 or fp16 at TENSOR_CORE_WIDTHS) or
-    "laser_attention_general" (CUDA cores: bf16, fp16 or f32, D and Dv up to
-    GENERAL_MAX_D). Raises TypeError for another dtype and ValueError for
-    widths neither kernel takes."""
+    "laser_attention" (bf16 or fp16 where laser_tile gives a tile) or
+    "laser_attention_general" (f32, and bf16 or fp16 at other widths; D and
+    Dv up to GENERAL_MAX_D). Raises TypeError for another dtype and
+    ValueError for widths neither kernel takes."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"laser_attention: {dtype} inputs; the kernels take bf16, fp16 and f32")
-    if dtype != torch.float32 and (d, dv) in TENSOR_CORE_WIDTHS:
+    if dtype != torch.float32 and laser_tile(d, dv) is not None:
         return "laser_attention"
     if 1 <= d <= GENERAL_MAX_D and 1 <= dv <= GENERAL_MAX_D:
         return "laser_attention_general"
-    raise ValueError(f"laser_attention: head dims (D {d}, Dv {dv}): the tensor-core kernel "
-                     f"takes (D, Dv) in {TENSOR_CORE_WIDTHS} (bf16, fp16), the CUDA-core "
-                     f"kernel any D and Dv up to {GENERAL_MAX_D}")
+    raise ValueError(f"laser_attention: head dims (D {d}, Dv {dv}): the bf16 / fp16 kernel "
+                     f"takes (D, Dv) in {TENSOR_CORE_WIDTHS} and other multiples of 8 padded "
+                     f"to one, the split-TF32 kernel any D and Dv up to {GENERAL_MAX_D}")
 
 
 def _laser_cuda(q, k, v, sm_scale, causal):

@@ -27,6 +27,7 @@ class DeviceProperties:
     bf16_flops: float
     int8_ops: float
     f32_flops: float       # outside the tensor cores
+    tf32_flops: float      # the tensor cores' TF32 products
     num_sms: int
     platform: str = "gpu"
 
@@ -34,7 +35,7 @@ class DeviceProperties:
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit.
 H100 = DeviceProperties(name="NVIDIA H100 SXM", hbm_bytes=80 * 10**9,
                         hbm_bytes_per_s=3.35e12, bf16_flops=989e12,
-                        int8_ops=1979e12, f32_flops=67e12, num_sms=132)
+                        int8_ops=1979e12, f32_flops=67e12, tf32_flops=495e12, num_sms=132)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -66,7 +67,8 @@ def get_device_properties(device="cuda") -> DeviceProperties:
     rate. Raises where CUDA is asked for and there is no card
     (resolve_device)."""
     nan = math.nan
-    no_rates = dict(hbm_bytes_per_s=nan, bf16_flops=nan, int8_ops=nan, f32_flops=nan)
+    no_rates = dict(hbm_bytes_per_s=nan, bf16_flops=nan, int8_ops=nan, f32_flops=nan,
+                    tf32_flops=nan)
     dev = resolve_device(device)
     if dev.type == "cpu":
         return DeviceProperties(name="cpu", platform="cpu",

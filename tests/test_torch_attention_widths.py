@@ -1,11 +1,12 @@
 """The `attentions` surface at the head dims and dtypes the TPU kernels take,
 on the CPU: laser attention (K17's plain versions) at (D, Dv) (192, 128),
-(256, 256), (64, 64), (96, 96) and (32, 32), the sparse-block estimator
+(256, 256), (64, 64), (96, 96), (32, 32) and (80, 80), K17's split-TF32
+arithmetic emulated and held to its plain version, the sparse-block estimator
 (K18's) at D 64, 192 and 256, the top-k block-sparse decode (K19's) at 4
 and 71 heads of 64 and 256, each against the JAX package's kernel in
 interpret mode (SKT_IMPL=pallas) on the same seeded numpy inputs; and the
-routes the wrappers take on the card (prefill.laser_route, K18's and K19's
-checks) at every width of their tables, with their refusals.
+routes the wrappers take on the card (prefill.laser_route and laser_tile,
+K18's and K19's checks) at every width of their tables, with their refusals.
 
 Bars, each with its reason:
   * f32 outputs: within 2e-5 of max|JAX| (the same f32 steps, the sums in
@@ -37,7 +38,7 @@ F32_SHARE = 2e-5
 HALF_SHARE = 1e-4
 SCORE_SHARE = 1e-5
 ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
-LASER_WIDTHS = ((192, 128), (256, 256), (64, 64), (96, 96), (32, 32))
+LASER_WIDTHS = ((192, 128), (256, 256), (64, 64), (96, 96), (32, 32), (80, 80))
 DTYPES = ("bfloat16", "float16", "float32")
 
 
@@ -115,20 +116,55 @@ def test_laser_wrapper_gqa_ragged_matches_jax(rng, d, dv, dtype):
     _close(blocked, want, dtype, "blocked, ragged")
 
 
-TC_TABLE = [(d, dv, dt) for d, dv in tpf.TENSOR_CORE_WIDTHS for dt in ("bfloat16", "float16")]
-GENERAL_TABLE = ([(d, dv, "float32") for d, dv in tpf.TENSOR_CORE_WIDTHS]
-                 + [(d, dv, dt) for d, dv in ((96, 96), (32, 32), (1, 1), (80, 80), (128, 64),
-                                              (256, 128), (255, 255), (200, 256))
-                    for dt in DTYPES])
+# bf16 / fp16 widths the laser_attention kernel takes on a larger tile (Phi-3,
+# Phi-2, ...), and widths only the split-TF32 kernel takes
+PADDED = ((96, 96), (32, 32), (80, 80), (128, 64), (256, 128), (200, 256), (8, 8), (136, 64))
+GENERAL_ONLY = ((1, 1), (255, 255), (95, 95), (20, 36), (96, 90), (255, 250))
+TC_TABLE = [(d, dv, dt) for d, dv in tpf.TENSOR_CORE_WIDTHS + PADDED
+            for dt in ("bfloat16", "float16")]
+GENERAL_TABLE = ([(d, dv, "float32") for d, dv in tpf.TENSOR_CORE_WIDTHS + PADDED + GENERAL_ONLY]
+                 + [(d, dv, dt) for d, dv in GENERAL_ONLY for dt in ("bfloat16", "float16")])
 
 
 @pytest.mark.parametrize("d,dv,dtype", TC_TABLE + GENERAL_TABLE)
 def test_laser_route(d, dv, dtype):
-    """The tensor-core kernel at its four widths in bf16 and fp16, the
-    CUDA-core kernel for f32 and every other width up to 256."""
+    """The bf16 / fp16 kernel at its four widths and, padded, at every other
+    pair of multiples of 8 up to 256; the split-TF32 kernel for f32 and for
+    bf16 / fp16 at the other widths up to 256."""
     want = "laser_attention" if (d, dv, dtype) in TC_TABLE else "laser_attention_general"
     assert tpf.laser_route(d, dv, getattr(torch, dtype)) == want
     assert want in _build.KERNELS and want in _build.launches
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_laser_tile(d):
+    """Every (d, dv) in multiples of 8 up to 256 runs on a member of
+    TENSOR_CORE_WIDTHS that holds both, with the least Dp + Dvp of those
+    that do; the four are their own tiles."""
+    for dv in range(8, 257, 8):
+        tile = tpf.laser_tile(d, dv)
+        holds = [w for w in tpf.TENSOR_CORE_WIDTHS if w[0] >= d and w[1] >= dv]
+        assert tile in holds, (d, dv, tile)
+        assert all(sum(tile) <= sum(w) for w in holds), (d, dv, tile)
+        if (d, dv) in tpf.TENSOR_CORE_WIDTHS:
+            assert tile == (d, dv)
+
+
+def test_laser_tile_named_widths():
+    """Phi-3's 96 and Phi-2's 80 on (128, 128), as the card's phase 21 runs
+    them; the widths of chip_smoke.py's LASER_EDGES on theirs."""
+    want = {(96, 96): (128, 128), (80, 80): (128, 128), (128, 64): (128, 128),
+            (8, 8): (64, 64), (64, 32): (64, 64), (136, 64): (192, 128), (192, 8): (192, 128),
+            (200, 40): (256, 256), (64, 136): (256, 256), (256, 256): (256, 256)}
+    for (d, dv), tile in want.items():
+        assert tpf.laser_tile(d, dv) == tile, (d, dv)
+
+
+@pytest.mark.parametrize("d,dv", [(d, 64) for d in (0, 1, 7, 12, 95, 100, 255, 257, 264, 512)]
+                         + [(64, dv) for dv in (0, 4, 90, 250, 264)] + [(-8, 64)])
+def test_laser_tile_other_widths(d, dv):
+    """No tile where d or dv is not a multiple of 8 in 8..256."""
+    assert tpf.laser_tile(d, dv) is None
 
 
 @pytest.mark.parametrize("d,dv", [(257, 64), (64, 300), (512, 512), (0, 64), (576, 512)])
@@ -141,6 +177,73 @@ def test_laser_route_refuses_other_dtypes():
     for dt in (torch.float64, torch.int8):
         with pytest.raises(TypeError, match="bf16, fp16 and f32"):
             tpf.laser_route(128, 128, dt)
+
+
+def _tf32(x):
+    """f32 rounded to TF32's 10 mantissa bits, to nearest, ties away from
+    zero (the card's cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b, split=True):
+    """a @ b in split TF32: hi = tf32(x), lo = tf32(x - hi), the three
+    products hi . hi + hi . lo + lo . hi summed in f32 (lo . lo dropped);
+    split=False: plain TF32, hi . hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _split_tf32_laser(q, k, v, sm, causal, split=True):
+    """K17's split-TF32 route (csrc/laser_attention_general.cu) emulated in
+    f32 on the CPU: kv tiles of its BN (64 at padded width 32, else 32),
+    base-2 scores, the online softmax, both products in split TF32 (p split
+    too), out = acc / max(l, 1e-37). q [B, Hq, T, D], k, v [B, Hkv, T, D]."""
+    b, hq, t, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    g = hq // hkv
+    bn = 64 if max(d, dv) <= 32 else 32
+    scale2 = float(np.float32(sm * 1.4426950408889634))
+    qf = q.float().reshape(b, hkv, g, t, d)
+    rows = torch.arange(t)[:, None]
+    m = torch.full((b, hkv, g, t, 1), -1e30)
+    l = torch.zeros((b, hkv, g, t, 1))
+    acc = torch.zeros((b, hkv, g, t, dv))
+    for c0 in range(0, t, bn):
+        kb, vb = k[:, :, c0:c0 + bn].float(), v[:, :, c0:c0 + bn].float()
+        s = _split_mm(qf, kb[:, :, None].transpose(-1, -2), split) * scale2
+        cols = c0 + torch.arange(kb.shape[2])[None, :]
+        keep = (rows >= cols) if causal else torch.ones_like(rows >= cols)
+        s = torch.where(keep, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _split_mm(p, vb[:, :, None], split)
+        m = m_new
+    return (acc / l.clamp_min(1e-37)).reshape(b, hq, t, dv)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [96, 32])
+def test_split_tf32_laser_within_f32_bar(rng, d, causal, scale):
+    """The split-TF32 route's arithmetic, emulated, against the plain version
+    (laser_attention_blocked_ref, all f32) within F32_SHARE of max|plain|,
+    the bar chip_smoke.py's phase 21 holds the card's f32 rows to: 2 heads,
+    T 256, randn inputs and inputs scaled by 1e3. Plain TF32 (hi . hi only)
+    misses the bar on the randn inputs, so the bar tells the two apart."""
+    t = 256
+    q, k, v = (torch.from_numpy(scale * _randn(rng, (1, 2, t, d))) for _ in range(3))
+    sm = d ** -0.5
+    want = tpf.laser_attention_blocked_ref(q, k, v, sm, causal)
+    got = _split_tf32_laser(q, k, v, sm, causal)
+    _close(got, want, "float32", f"split TF32 D {d} causal={causal} x {scale:g}")
+    if scale == 1.0:
+        plain_tf32 = _split_tf32_laser(q, k, v, sm, causal, split=False)
+        assert (plain_tf32 - want).abs().max() > F32_SHARE * want.abs().max()
 
 
 # ------------------------------------------------------------------ K18
